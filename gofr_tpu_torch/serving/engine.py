@@ -1,0 +1,566 @@
+"""The continuous-batching serving engine (port of
+``gofr_tpu/serving/engine.py``, the paged monolithic-prefill slice).
+
+Requests queue FIFO and are admitted into free slots between decode
+blocks. Admission prefills the whole prompt at its padded bucket in one
+call, scatters its K/V into pages of the shared pool, and samples the
+first token with a generator seeded by (engine seed, request id). Decoding
+runs as N-step device blocks (``batch.decode_block_paged``: sampling and
+stop evaluation on the device) and the host syncs once per block. Blocks
+are double-buffered: block k+1 is dispatched before block k's packed
+result is read, so the host's bookkeeping overlaps the device. A row
+retires on its stop token or its length limit and frees its slot and
+pages at once.
+
+A prompt longer than the largest prefill bucket is refused at submit with
+a ``ValueError``: chunked prefill is a later slice of the port. Not ported
+yet: the dense KV layout, int8 KV, the prefix cache, speculative decoding,
+LoRA, dedup/HA, the supervisor, timelines, tracing, metrics and tenancy.
+
+Runs on the card unless constructed with ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import concurrent.futures
+import dataclasses
+import logging
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from gofr_tpu_torch._device import resolve_device, to_device
+from gofr_tpu_torch.models import llama
+from gofr_tpu_torch.ops.sampling import sample_logits
+from gofr_tpu_torch.serving import batch as batch_ops
+from gofr_tpu_torch.serving.kv_cache import OutOfBlocks, PagedKVCache
+from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
+
+log = logging.getLogger(__name__)
+
+
+class QueueFull(RuntimeError):
+    """The admission queue holds ``max_queue`` requests: retry later."""
+
+
+class EngineStopped(RuntimeError):
+    """The engine stopped before the request was served."""
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    max_slots: int = 8
+    max_seq_len: int = 1024
+    max_new_tokens_default: int = 128
+    max_queue: int = 256
+    prefill_buckets: tuple[int, ...] = DEFAULT_BUCKETS
+    # only the paged layout is ported; the reference's default "dense"
+    # waits for a later slice (ROADMAP Queue A item 3)
+    kv_layout: str = "paged"
+    kv_page_size: int = 16
+    kv_num_pages: int | None = None  # default: slots*max_seq worth of pages
+    # decode tokens per device block (the N of the N-step block)
+    multi_step: int = 4
+    # back-off after a failed loop iteration
+    idle_sleep_s: float = 0.002
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    request_id: int
+    text: str
+    token_ids: list[int]
+    prompt_tokens: int
+    completion_tokens: int
+    finish_reason: str  # "stop" | "length" | "kv_exhausted"
+    ttft_s: float
+    duration_s: float
+
+
+class _Requeue(Exception):
+    """Raised inside admission when KV pages are short for now: the request
+    goes back to the head of the queue."""
+
+
+class _Request:
+    __slots__ = (
+        "id", "prompt_ids", "max_new_tokens", "temperature", "top_k", "top_p",
+        "stream_cb", "future", "created", "first_token_at", "tokens",
+        "stop_ids", "dispatched", "kv_exhausted",
+    )
+
+    def __init__(self, rid: int, prompt_ids: list[int], max_new_tokens: int,
+                 temperature: float, top_k: int, top_p: float,
+                 stream_cb: Callable | None, stop_ids: set[int]) -> None:
+        self.id = rid
+        self.prompt_ids = prompt_ids
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.stream_cb = stream_cb
+        self.future: concurrent.futures.Future = concurrent.futures.Future()
+        self.future.request_id = rid
+        self.created = time.perf_counter()
+        self.first_token_at: float | None = None
+        self.tokens: list[int] = []
+        self.stop_ids = stop_ids
+        self.dispatched = 0  # decode steps dispatched (>= committed)
+        self.kv_exhausted = False  # cut short by pool pressure, not its budget
+
+
+class _Inflight:
+    """A dispatched, not yet read block: its packed device result and the
+    (slot, request) rows it was built from. By the time it is read a slot
+    may have been retired or re-admitted; ``slots[slot] is req`` tells."""
+
+    __slots__ = ("packed", "rows", "steps")
+
+    def __init__(self, packed: torch.Tensor, rows: list, steps: int) -> None:
+        self.packed = packed
+        self.rows = rows
+        self.steps = steps
+
+
+def _request_seed(seed: int, request_id: int) -> int:
+    """The first-token generator's seed: a function of (seed, request id)
+    alone, so a request's first draw does not depend on what ran before."""
+    return (seed * 1_000_003 + request_id) & 0x7FFF_FFFF_FFFF_FFFF
+
+
+class ServingEngine:
+    """Owns the model params, the paged KV pool and the loop thread."""
+
+    def __init__(
+        self,
+        cfg: llama.LlamaConfig,
+        params: dict,
+        engine_config: EngineConfig | None = None,
+        tokenizer: Any = None,
+        *,
+        seed: int = 0,
+        device: str | torch.device | None = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.model_cfg = cfg
+        self.params = params
+        self.config = engine_config or EngineConfig()
+        if self.config.kv_layout != "paged":
+            raise ValueError(
+                f"kv_layout={self.config.kv_layout!r}: the port serves the paged "
+                "layout only; the dense layout is ROADMAP Queue A item 3"
+            )
+        if self.config.multi_step < 1:
+            raise ValueError("multi_step must be >= 1")
+        self.tokenizer = tokenizer or ByteTokenizer(cfg.vocab_size)
+        self.seed = seed
+        self._block_steps = int(self.config.multi_step)
+
+        B, S = self.config.max_slots, self.config.max_seq_len
+        page = self.config.kv_page_size
+        self.paged_cache = PagedKVCache(
+            cfg, num_pages=self.config.kv_num_pages or (B * S + page - 1) // page,
+            page_size=page, max_slots=B, max_seq_len=S, device=self.device,
+        )
+        # host mirrors, authoritative for rebuilding the device state
+        self.cache_len = np.zeros(B, np.int32)  # committed tokens per slot
+        self.last_token = np.zeros(B, np.int64)
+        self.temperature = np.ones(B, np.float32)
+        self.top_k = np.zeros(B, np.int64)
+        self.top_p = np.ones(B, np.float32)
+        self.slots: list[_Request | None] = [None] * B
+        self._inflight: collections.deque[_Inflight] = collections.deque()
+        self._dec_state: batch_ops.DecodeState | None = None  # None: rebuild
+        # slots prefilled since the last dispatch: slot -> (first token,
+        # resident length, remaining budget, stop id), folded into the
+        # device state at the next dispatch
+        self._pending_admit: dict[int, tuple[int, int, int, int]] = {}
+        self._mask_host: np.ndarray | None = None
+        self._mask_dev: torch.Tensor | None = None
+        self._rng = torch.Generator(device=self.device).manual_seed(seed)
+
+        self._queue: collections.deque[_Request] = collections.deque()
+        self._mu = threading.Lock()  # guards _queue, _next_id, _stopped
+        self._next_id = 0
+        self._stopped = False
+        self._running = False
+        self._thread: threading.Thread | None = None
+        self._wake = threading.Event()
+
+    # ------------------------------------------------------------- lifecycle
+    def start(self) -> None:
+        if self._running:
+            return
+        with self._mu:
+            if self._stopped:
+                raise EngineStopped("a stopped engine does not restart")
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, name="serving-engine", daemon=True)
+        self._thread.start()
+
+    def stop(self, join_timeout: float = 10.0) -> None:
+        """Stop the loop thread and fail every request not yet finished."""
+        with self._mu:
+            self._stopped = True
+        self._running = False
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout)
+            if self._thread.is_alive():
+                log.error("serving engine thread did not exit within %gs", join_timeout)
+            else:
+                self._thread = None
+        # swept after the join: the loop may have put a request back at the
+        # head of the queue while it was stopping
+        with self._mu:
+            leftovers = list(self._queue)
+            self._queue.clear()
+        if self._thread is None:  # the loop is gone, so its slots are ours
+            leftovers += [req for req in self.slots if req is not None]
+        for req in leftovers:
+            self._settle(req, exc=EngineStopped("engine stopped before the request was served"))
+
+    # ---------------------------------------------------------------- submit
+    def submit(
+        self,
+        prompt: str | list[int],
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        stream_cb: Callable[[int, str, bool], None] | None = None,
+    ) -> concurrent.futures.Future:
+        """Thread-safe submit; the Future resolves to a GenerationResult.
+        ``stream_cb(token_id, text_piece, done)`` runs on the engine thread
+        for every token and once more with ``done`` at the end."""
+        prompt_ids = (
+            self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
+        )
+        if not prompt_ids:
+            raise ValueError("empty prompt")
+        limit = min(max(self._buckets()), self.config.max_seq_len - 1)
+        if len(prompt_ids) > limit:
+            raise ValueError(
+                f"prompt of {len(prompt_ids)} tokens exceeds the {limit}-token limit of "
+                "monolithic prefill (largest bucket, and one position left for "
+                "generation); chunked prefill is not ported yet"
+            )
+        budget = self.config.max_seq_len - len(prompt_ids)
+        max_new = min(max_new_tokens or self.config.max_new_tokens_default, budget)
+        with self._mu:
+            if self._stopped:
+                raise EngineStopped("engine stopped")
+            if len(self._queue) >= self.config.max_queue:
+                raise QueueFull(f"{self.config.max_queue} requests already queued")
+            self._next_id += 1
+            req = _Request(
+                self._next_id, prompt_ids, max_new, float(temperature), int(top_k),
+                float(top_p), stream_cb, stop_ids={self.tokenizer.eos_id},
+            )
+            self._queue.append(req)
+        self._wake.set()
+        return req.future
+
+    async def generate(self, prompt: str | list[int], **kw: Any) -> GenerationResult:
+        """Asyncio-friendly submit + await."""
+        return await asyncio.wrap_future(self.submit(prompt, **kw))
+
+    # ------------------------------------------------------------------ loop
+    def _loop(self) -> None:
+        while self._running:
+            try:
+                did = self._admit()
+                if any(s is not None for s in self.slots):
+                    did |= self._decode_step()
+                elif self._inflight:
+                    # every row of the in-flight blocks retired meanwhile
+                    self._consume(self._inflight.popleft())
+                    did = True
+                if not did:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+            except Exception as exc:  # the loop must outlive a failed step
+                log.exception("serving engine step failed")
+                self._fail_all(exc)
+                time.sleep(self.config.idle_sleep_s)
+
+    def _admit(self) -> bool:
+        """Admit queued requests FIFO into free slots. A request the pool
+        cannot hold yet stays at the head; nothing overtakes it."""
+        did = False
+        for slot in range(self.config.max_slots):
+            if self.slots[slot] is not None:
+                continue
+            with self._mu:
+                if not self._queue:
+                    break
+                req = self._queue.popleft()
+            try:
+                self._prefill_into(slot, req)
+            except _Requeue:
+                with self._mu:
+                    self._queue.appendleft(req)
+                break
+            except Exception as exc:
+                log.exception("prefill failed for request %d", req.id)
+                self.slots[slot] = None
+                self.paged_cache.free_slot(slot)
+                self._settle(req, exc=exc)
+            did = True
+        return did
+
+    def _prefill_into(self, slot: int, req: _Request) -> None:
+        cfg, pc = self.model_cfg, self.paged_cache
+        ids = req.prompt_ids
+        S = len(ids)
+        bucket = batch_ops.pad_bucket(S, self._buckets())
+        if pc.pages_needed(bucket) > pc.num_pages:
+            raise ValueError(
+                f"prompt needs {pc.pages_needed(bucket)} KV pages; the pool has "
+                f"{pc.num_pages} in total"
+            )
+        try:
+            pc.alloc_slot(slot, seq_id=req.id, prompt_len=S, reserve_tokens=bucket)
+        except OutOfBlocks:
+            raise _Requeue() from None
+        tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
+        tokens[0, :S] = ids
+        last_logits, k_slab, v_slab = batch_ops.prefill_compute(
+            cfg, self.params, to_device(tokens, self.device),
+            to_device(np.array([S], np.int32), self.device),
+        )
+        pc.write_prefill(slot, k_slab, v_slab)
+        gen = torch.Generator(device=self.device).manual_seed(_request_seed(self.seed, req.id))
+        first = sample_logits(
+            last_logits, gen, temperature=req.temperature, top_k=req.top_k, top_p=req.top_p
+        )
+        first_id = int(first[0])  # host sync: the first token is needed now
+        self._commit_prefilled(slot, req, first_id, S)
+
+    def _commit_prefilled(self, slot: int, req: _Request, first_id: int, resident: int) -> None:
+        self.slots[slot] = req
+        self.cache_len[slot] = resident
+        self.last_token[slot] = first_id
+        self.temperature[slot] = req.temperature
+        self.top_k[slot] = req.top_k
+        self.top_p[slot] = req.top_p
+        # the budget folds both limits (max_new and the sequence cap, which
+        # submit clamped max_new to) and counts what is left after this token
+        self._pending_admit[slot] = (
+            first_id, resident, req.max_new_tokens - 1,
+            next(iter(req.stop_ids)) if len(req.stop_ids) == 1 else -1,
+        )
+        req.first_token_at = time.perf_counter()
+        self._emit(req, first_id)
+        if first_id in req.stop_ids:
+            self._retire(slot, "stop")
+        elif len(req.tokens) >= req.max_new_tokens:
+            self._retire(slot, "length")
+
+    # ---------------------------------------------------------------- decode
+    def _decode_step(self) -> bool:
+        """Dispatch the next N-step block, then read the oldest one still
+        outstanding (double-buffered: one block stays in flight)."""
+        inflight = self._dispatch()
+        if inflight is not None:
+            self._inflight.append(inflight)
+        did = inflight is not None
+        if self._inflight and (inflight is None or len(self._inflight) > 1):
+            self._consume(self._inflight.popleft())
+            did = True
+        return did
+
+    def _slot_in_flight(self, slot: int, req: _Request) -> bool:
+        return any(
+            any(s == slot and r is req for s, r in rec.rows) for rec in self._inflight
+        )
+
+    def _make_device_state(self) -> batch_ops.DecodeState:
+        """The device state from the host mirrors: cold start, or after a
+        failure. Valid only with no block in flight."""
+        B = self.config.max_slots
+        budget = np.zeros(B, np.int32)
+        done = np.ones(B, bool)
+        stop = np.full(B, -1, np.int64)
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            remaining = req.max_new_tokens - len(req.tokens)
+            budget[slot] = max(remaining, 0)
+            done[slot] = remaining <= 0
+            if len(req.stop_ids) == 1:
+                stop[slot] = next(iter(req.stop_ids))
+        self._pending_admit.clear()  # the mirrors already hold these rows
+        return batch_ops.make_decode_state(
+            self.last_token, np.maximum(self.cache_len, 1), done, budget, stop,
+            self.temperature, self.top_k, self.top_p, self._rng, device=self.device,
+        )
+
+    def _fold_admissions(self, state: batch_ops.DecodeState) -> batch_ops.DecodeState:
+        items = sorted(self._pending_admit.items())
+        self._pending_admit.clear()
+        idx = np.array([s for s, _ in items], np.int64)
+
+        def col(i: int, dtype: Any) -> torch.Tensor:
+            return to_device(np.array([v[i] for _, v in items], dtype), self.device)
+
+        return batch_ops.admit_decode_state(
+            state, to_device(idx, self.device), col(0, np.int64), col(1, np.int32),
+            col(2, np.int32), col(3, np.int64),
+            to_device(self.temperature[idx], self.device),
+            to_device(self.top_k[idx], self.device),
+            to_device(self.top_p[idx], self.device),
+            to_device(np.zeros(len(items), np.int32), self.device),
+        )
+
+    def _dispatch(self) -> _Inflight | None:
+        pc = self.paged_cache
+        N = self._block_steps
+        rows: list[tuple[int, _Request]] = []
+        for slot, req in enumerate(self.slots):
+            if req is None or req.kv_exhausted:
+                continue
+            # page coverage for the whole block, including the steps
+            # dispatched but not yet read (the device runs ahead of the
+            # committed host mirror)
+            in_flight = req.dispatched - (len(req.tokens) - 1)
+            if pc.try_reserve_slot(slot, in_flight + N):
+                rows.append((slot, req))
+                continue
+            log.warning("KV pool exhausted; retiring request %d early", req.id)
+            req.kv_exhausted = True
+            if not self._slot_in_flight(slot, req):
+                self._retire(slot, "kv_exhausted")
+        if not rows:
+            return None
+
+        mask = np.zeros(self.config.max_slots, bool)
+        for slot, _ in rows:
+            mask[slot] = True
+        state = self._dec_state
+        if state is None:
+            state = self._make_device_state()
+        elif self._pending_admit:
+            state = self._fold_admissions(state)
+        if self._mask_host is None or not np.array_equal(mask, self._mask_host):
+            self._mask_dev = to_device(mask, self.device)
+            self._mask_host = mask
+        packed, pc.k_pool, pc.v_pool, self._dec_state = batch_ops.decode_block_paged(
+            self.model_cfg, self.params, pc.k_pool, pc.v_pool, state,
+            pc.tables_device(), self._mask_dev, N,
+        )
+        for _, req in rows:
+            req.dispatched += N
+        return _Inflight(packed, rows, N)
+
+    def _consume(self, rec: _Inflight) -> None:
+        packed = rec.packed.cpu().numpy()  # the block's one host-device sync
+        for slot, req in rec.rows:
+            if self.slots[slot] is not req:
+                continue  # retired (and maybe re-admitted) since dispatch
+            n_valid = int(packed[slot, rec.steps + 1])
+            device_done = bool(packed[slot, rec.steps])
+            for i in range(n_valid):
+                self._commit_token(slot, req, int(packed[slot, i]))
+                if self.slots[slot] is not req:
+                    break  # retired mid-block: the tail is discarded
+            if self.slots[slot] is not req:
+                continue
+            self.cache_len[slot] += n_valid
+            self.paged_cache.advance_slot(slot, n_valid)
+            if req.kv_exhausted:
+                if not self._slot_in_flight(slot, req):
+                    self._retire(slot, "kv_exhausted")
+            elif device_done:
+                # the host's own stop/length chain normally retired the row
+                # already; this catches a host/device divergence
+                self._retire(
+                    slot, "stop" if req.tokens and req.tokens[-1] in req.stop_ids else "length"
+                )
+
+    # ----------------------------------------------------------- bookkeeping
+    def _commit_token(self, slot: int, req: _Request, token_id: int) -> None:
+        self.last_token[slot] = token_id
+        self._emit(req, token_id)
+        if token_id in req.stop_ids:
+            self._retire(slot, "stop")
+        elif len(req.tokens) >= req.max_new_tokens:
+            self._retire(slot, "kv_exhausted" if req.kv_exhausted else "length")
+        elif len(req.prompt_ids) + len(req.tokens) >= self.config.max_seq_len:
+            self._retire(slot, "length")
+
+    def _emit(self, req: _Request, token_id: int) -> None:
+        req.tokens.append(token_id)
+        if req.stream_cb is not None and token_id not in req.stop_ids:
+            try:
+                req.stream_cb(token_id, self.tokenizer.decode([token_id]), False)
+            except Exception:
+                log.exception("stream callback of request %d failed; streaming stops", req.id)
+                req.stream_cb = None
+
+    def _retire(self, slot: int, reason: str) -> None:
+        req = self.slots[slot]
+        self.slots[slot] = None
+        self.cache_len[slot] = 0
+        self.paged_cache.free_slot(slot)
+        if req is not None:
+            self._finish(req, reason)
+
+    def _finish(self, req: _Request, reason: str) -> None:
+        now = time.perf_counter()
+        out_ids = [t for t in req.tokens if t not in req.stop_ids]
+        result = GenerationResult(
+            request_id=req.id,
+            text=self.tokenizer.decode(out_ids),
+            token_ids=out_ids,
+            prompt_tokens=len(req.prompt_ids),
+            completion_tokens=len(out_ids),
+            finish_reason=reason,
+            ttft_s=(req.first_token_at - req.created) if req.first_token_at else 0.0,
+            duration_s=now - req.created,
+        )
+        if req.stream_cb is not None:
+            try:
+                req.stream_cb(-1, "", True)
+            except Exception:
+                log.exception("stream callback of request %d failed", req.id)
+        self._settle(req, value=result)
+
+    @staticmethod
+    def _settle(req: _Request, value: Any = None, exc: Exception | None = None) -> None:
+        """Resolve a request's future once; a second settler loses quietly."""
+        try:
+            if exc is not None:
+                req.future.set_exception(exc)
+            else:
+                req.future.set_result(value)
+        except concurrent.futures.InvalidStateError:
+            pass
+
+    def _fail_all(self, exc: Exception) -> None:
+        """A failed step leaves the pipeline unknown: drop the in-flight
+        blocks, rebuild the device state from the mirrors next time, and
+        fail every active request."""
+        self._inflight.clear()
+        self._pending_admit.clear()
+        self._dec_state = None
+        self._mask_host = self._mask_dev = None
+        for slot, req in enumerate(self.slots):
+            if req is not None:
+                self.slots[slot] = None
+                self.cache_len[slot] = 0
+                self.paged_cache.free_slot(slot)
+                self._settle(req, exc=exc)
+
+    def _buckets(self) -> tuple[int, ...]:
+        return tuple(
+            b for b in self.config.prefill_buckets if b <= self.config.max_seq_len
+        ) or (self.config.max_seq_len,)
