@@ -10,17 +10,26 @@ Phases, each a hard failure with a non-zero exit:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``gofr_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, with the tolerance stated beside each;
-3. serve concurrent requests of mixed prompt lengths through
-   ``ServingEngine.submit`` at Llama-3-8B widths (random weights from a
-   seeded generator), with the kernels' launch counters reset just before
-   and read just after; then serve one greedy request alone and hold the
-   logits the engine computed for it (its prefill's and its first decode
-   steps', through the paged pool) against a plain dense forward of the
-   same weights over the prompt and the tokens the engine generated;
+   main path's shapes, with the tolerance stated beside each (the int8
+   paged kernel at pages 16 and 32);
+3. drive two engine paths through ``ServingEngine.submit`` at Llama-3-8B
+   widths (random weights from a seeded generator), each with the
+   kernels' launch counters reset just before and read just after:
+   - ``bf16``: bf16 paged KV, every prompt prefilled whole (flash kernel),
+     decode through the bf16 paged kernel;
+   - ``int8``: int8 paged KV on 32-token pages with the reference's
+     256-token prefill chunks, prompts up to 3000 tokens (past the
+     largest bucket): short prompts prefill whole, long ones chunk through
+     the unified ragged dispatch, decode through the int8 paged kernel;
+   then serve one greedy request alone on each path and hold the logits
+   the engine computed for it (its prefill's or final chunk's, and its
+   decode steps', through the paged pool) against a plain dense forward of
+   the same weights over the prompt and the tokens the engine generated
+   (on the int8 path with K/V passed through ``quantize_kv`` and
+   ``dequantize_kv`` at every layer);
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
-   and time the engine (TTFT, ms per decode step).
+   and time each engine path (TTFT, ms per decode step).
 
 The line before the last is the ``kernels`` record; the last line is the
 contract line ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -49,11 +58,15 @@ PEAK_HBM_BYTES = 3.35e12
 # element is at most 2^-7 of the row's largest value; flash adds the
 # rounding of P to bf16 against a different running max. 2^-6 is two
 # steps, whatever the row's magnitude (late rows of a long prompt are ~30x
-# smaller than early ones, so an absolute limit would not see them).
+# smaller than early ones, so an absolute limit would not see them). The
+# int8 kernel and its plain version dequantize the same int8 values with
+# the same scales in f32, so only the output's rounding differs.
 FLASH_ROW_TOL = 2.0 ** -6
 PAGED_ROW_TOL = 2.0 ** -6
 LOGITS_REL_TOL = 5e-2  # relative L2 of bf16 logits through 32 layers
-LOGITS_CHECK_STEPS = 8  # decode steps of the engine held against the dense forward
+PAGED_CHECK_LENS = [0, 1, 15, 17, 1000, 333, 64, 999]  # kernel check lengths
+MAIN_LENS = [5, 31, 60, 120, 250, 480, 777, 1000, 9, 333]  # the bf16 path's prompts
+LONG_PROMPT = 3000  # the int8 path's extra prompt, past the largest bucket (2048)
 
 
 def fail(msg: str) -> int:
@@ -112,6 +125,15 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def counters() -> dict:
+    """Each kernel wrapper of the port by name; ``.launches`` is its count."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_q
+
+    return {"flash_attention": flash_attention, "paged_decode_attention": paged_decode_attention,
+            "paged_decode_attention_q": paged_decode_attention_q}
+
+
 # ------------------------------------------------------------- kernel inputs
 def flash_inputs(torch, gen, S: int, kv_lens: list[int], H=32, Hkv=8, D=128):
     B = len(kv_lens)
@@ -144,56 +166,72 @@ def paged_inputs(torch, gen, seq_lens: list[int], H=32, Hkv=8, Dh=128, page=16):
     return q, k_pool, v_pool, tables, lens
 
 
+def paged_inputs_q(torch, gen, seq_lens: list[int], page: int):
+    """``paged_inputs`` with the pools quantized per vector as the engine
+    stores them: (q, k_pool, v_pool int8, k_scale, v_scale, tables, lens)."""
+    from gofr_tpu_torch.models.llama import quantize_kv
+
+    q, kp, vp, tables, lens = paged_inputs(torch, gen, seq_lens, page=page)
+    kq, ks = quantize_kv(kp * 3)  # scales far from 1: a wrong scale shows
+    vq, vs = quantize_kv(vp)
+    return q, kq, vq, ks[..., None].contiguous(), vs[..., None].contiguous(), tables, lens
+
+
 def check_kernels(torch, gen) -> dict:
     """Each kernel against its plain version; returns, per kernel, its
     largest absolute and per-row relative errors over the cases."""
     from gofr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
     from gofr_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
+        paged_decode_attention_q,
         paged_decode_attention_ref,
     )
 
-    errs = {n: {"max_abs_err": 0.0, "max_row_rel_err": 0.0}
-            for n in ("flash_attention", "paged_decode_attention")}
+    errs = {n: {"max_abs_err": 0.0, "max_row_rel_err": 0.0} for n in counters()}
+
+    def record(name, got, want, zero_row, tol, what):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = row_rel_err(got, want)
+        print(f"{what}: max_abs_err={err:.3e}, max row_rel_err={rel:.3e} (tol {tol:.3e}), "
+              f"empty row max |out|={zero_row}")
+        if not (rel <= tol) or zero_row != 0.0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: the kernel disagrees with its plain version")
+        e = errs[name]
+        e["max_abs_err"], e["max_row_rel_err"] = max(e["max_abs_err"], err), max(e["max_row_rel_err"], rel)
+
     for S in (32, 128, 1024):
         kv_lens = [S, max(1, S - 7), S // 3 + 1, 0]
         q, k, v, kv_len = flash_inputs(torch, gen, S, kv_lens)
         got = flash_attention(q, k, v, kv_len, causal=True)
         want = flash_attention_ref(q, k, v, kv_len, causal=True)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        rel = row_rel_err(got, want)
-        zero_rows = got[3].float().abs().max().item()
-        print(f"flash S={S} kv_len={kv_lens}: max_abs_err={err:.3e}, "
-              f"max row_rel_err={rel:.3e} (tol {FLASH_ROW_TOL:.3e}), "
-              f"kv_len=0 row max |out|={zero_rows}")
-        if not (rel <= FLASH_ROW_TOL) or zero_rows != 0.0 or not torch.isfinite(got).all():
-            raise AssertionError(f"flash kernel disagrees with its plain version at S={S}")
-        e = errs["flash_attention"]
-        e["max_abs_err"], e["max_row_rel_err"] = max(e["max_abs_err"], err), max(e["max_row_rel_err"], rel)
-    seq_lens = [0, 1, 15, 17, 1000, 333, 64, 999]
-    q, kp, vp, tables, lens = paged_inputs(torch, gen, seq_lens)
+        record("flash_attention", got, want, got[3].float().abs().max().item(), FLASH_ROW_TOL,
+               f"flash S={S} kv_len={kv_lens}")
+    q, kp, vp, tables, lens = paged_inputs(torch, gen, PAGED_CHECK_LENS)
     got = paged_decode_attention(q, kp, vp, tables, lens)
     want = paged_decode_attention_ref(q, kp, vp, tables, lens)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    rel = row_rel_err(got, want)
-    zero_row = got[0].float().abs().max().item()
-    print(f"paged seq_lens={seq_lens} page=16: max_abs_err={err:.3e}, "
-          f"max row_rel_err={rel:.3e} (tol {PAGED_ROW_TOL:.3e}), seq_len=0 row max |out|={zero_row}")
-    if not (rel <= PAGED_ROW_TOL) or zero_row != 0.0 or not torch.isfinite(got).all():
-        raise AssertionError("paged kernel disagrees with its plain version")
-    errs["paged_decode_attention"] = {"max_abs_err": err, "max_row_rel_err": rel}
+    record("paged_decode_attention", got, want, got[0].float().abs().max().item(), PAGED_ROW_TOL,
+           f"paged bf16 seq_lens={PAGED_CHECK_LENS} page=16")
+    for page in (16, 32):
+        q, kq, vq, ks, vs, tables, lens = paged_inputs_q(torch, gen, PAGED_CHECK_LENS, page)
+        got = paged_decode_attention_q(q, kq, vq, ks, vs, tables, lens)
+        want = paged_decode_attention_ref(q, kq, vq, tables, lens, k_scale=ks, v_scale=vs)
+        record("paged_decode_attention_q", got, want, got[0].float().abs().max().item(),
+               PAGED_ROW_TOL, f"paged int8 seq_lens={PAGED_CHECK_LENS} page={page}")
     return errs
 
 
 # ------------------------------------------------------------------ timings
+DECODE_LENS = [21, 47, 76, 136, 266, 496, 793, 1016]  # the decode batch mid-generation
+
+
 def time_kernels(torch, gen, timer: Timer, errs: dict, launches: dict) -> list[dict]:
     import torch.nn.functional as F
 
     from gofr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
     from gofr_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
+        paged_decode_attention_q,
         paged_decode_attention_ref,
     )
 
@@ -212,53 +250,150 @@ def time_kernels(torch, gen, timer: Timer, errs: dict, launches: dict) -> list[d
         "name": "flash_attention", "route": "cuda",
         "source": "gofr_tpu_torch/csrc/flash_attention.cu",
         "replaces": "gofr_tpu/ops/flash_attention.py:40",
-        "launches": launches["flash_attention"],
+        "launches": launches["bf16"]["flash_attention"],
         **errs["flash_attention"],
         "ms": timer(lambda: flash_attention(q, k, v, kv_len)),
         "plain_ms": timer(lambda: flash_attention_ref(q, k, v, kv_len), iters=3),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
         "shape": f"B=1 S={S} H={H} Hkv={Hkv} D={D} kv_len={S} bf16",
+        "launches_by_path": {p: c["flash_attention"] for p, c in launches.items()},
     })
-    # paged: the main path's decode batch, 8 rows mid-generation
-    seq_lens = [21, 47, 76, 136, 266, 496, 793, 1016]
-    q, kp, vp, tables, lens = paged_inputs(torch, gen, seq_lens)
-    Bp, Hp, Dh = q.shape
-    tokens = sum(seq_lens)
-    flops = 4 * Hp * Dh * tokens
-    nbytes = 2 * 8 * Dh * 2 * tokens + 2 * q.numel() * 2 + tables.numel() * 4 + lens.numel() * 4
-    b_ms, b_by = bound_ms(flops, nbytes)
-    page, M = kp.shape[2], tables.shape[1]
-    valid = torch.arange(M * page, device="cuda")[None, :] < lens[:, None]
-    mask = valid[:, None, None, :]  # [B, 1, 1, S]
 
-    def gathered_sdpa():
-        kd = kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(Bp, 8, M * page, Dh)
-        vd = vp[tables.long()].permute(0, 2, 1, 3, 4).reshape(Bp, 8, M * page, Dh)
-        return F.scaled_dot_product_attention(
-            q[:, :, None, :], kd.repeat_interleave(Hp // 8, dim=1),
-            vd.repeat_interleave(Hp // 8, dim=1), attn_mask=mask,
-        )
+    # paged, bf16 and int8: the main path's decode batch, 8 rows mid-generation
+    tokens = sum(DECODE_LENS)
 
-    rows.append({
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "gofr_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "gofr_tpu/ops/paged_attention.py:90",
-        "launches": launches["paged_decode_attention"],
-        **errs["paged_decode_attention"],
-        "ms": timer(lambda: paged_decode_attention(q, kp, vp, tables, lens)),
-        "plain_ms": timer(lambda: paged_decode_attention_ref(q, kp, vp, tables, lens)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timer(gathered_sdpa),
-        "shape": f"B=8 H=32 Hkv=8 Dh=128 page=16 seq_lens={seq_lens} bf16",
-    })
+    def paged_row(name, source, page, kv_bytes, quantized):
+        if quantized:
+            q, kp, vp, ks, vs, tables, lens = paged_inputs_q(torch, gen, DECODE_LENS, page)
+            args, kw = (q, kp, vp, ks, vs, tables, lens), {"k_scale": ks, "v_scale": vs}
+            kernel, plain_args = paged_decode_attention_q, (q, kp, vp, tables, lens)
+        else:
+            q, kp, vp, tables, lens = paged_inputs(torch, gen, DECODE_LENS, page=page)
+            args = plain_args = (q, kp, vp, tables, lens)
+            kw, kernel = {}, paged_decode_attention
+        Bp, Hp, Dh = q.shape
+        flops = 4 * Hp * Dh * tokens
+        nbytes = 2 * 8 * kv_bytes * tokens + 2 * q.numel() * 2 + tables.numel() * 4 + lens.numel() * 4
+        b_ms, b_by = bound_ms(flops, nbytes)
+        M = tables.shape[1]
+        mask = (torch.arange(M * page, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+
+        def gathered_sdpa():
+            t = tables.long()
+            kd = kp[t].permute(0, 2, 1, 3, 4).reshape(Bp, 8, M * page, Dh)
+            vd = vp[t].permute(0, 2, 1, 3, 4).reshape(Bp, 8, M * page, Dh)
+            if quantized:
+                kd = (kd.float() * ks[t].permute(0, 2, 1, 3, 4).reshape(Bp, 8, M * page, 1)).to(q.dtype)
+                vd = (vd.float() * vs[t].permute(0, 2, 1, 3, 4).reshape(Bp, 8, M * page, 1)).to(q.dtype)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], kd.repeat_interleave(Hp // 8, dim=1),
+                vd.repeat_interleave(Hp // 8, dim=1), attn_mask=mask,
+            )
+
+        path = "int8" if quantized else "bf16"
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "gofr_tpu/ops/paged_attention.py:90",
+            "launches": launches[path][name],
+            **errs[name],
+            "ms": timer(lambda: kernel(*args)),
+            "plain_ms": timer(lambda: paged_decode_attention_ref(*plain_args, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer(gathered_sdpa),
+            "shape": f"B=8 H=32 Hkv=8 Dh=128 page={page} seq_lens={DECODE_LENS} "
+                     + ("int8 pools + f32 scales" if quantized else "bf16"),
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
+        }
+
+    rows.append(paged_row("paged_decode_attention", "gofr_tpu_torch/csrc/paged_attention.cu",
+                          16, 128 * 2, quantized=False))
+    rows.append(paged_row("paged_decode_attention_q", "gofr_tpu_torch/csrc/paged_attention.cu",
+                          32, 128 + 4, quantized=True))
     return rows
 
 
+def dispatch_busy(torch, cfg, params) -> dict:
+    """Where a dispatch's time goes: host wall time of one call of the
+    engine's device functions, synchronized (median of 5), against the sum
+    of the kernel times ``torch.profiler`` records for one more call. The
+    rest of the wall time the card sits idle, waiting for the host to
+    issue work. Cases: the N-step decode block at batch 8 (512 tokens of
+    context a row) over bf16 and int8 pools, and a ragged dispatch that
+    runs one 256-token chunk alone (the fourth chunk of a 1000-token
+    prompt, as the int8 path's TTFT runs it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gofr_tpu_torch.serving import batch as batch_ops
+    from gofr_tpu_torch.serving.kv_cache import PagedKVCache
+
+    B, N, ctx, C = 8, 4, 512, 256
+    dev = params["embedding"].device
+    out = {}
+
+    def measure(name, call):
+        call()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+        wall = sorted(walls)[2]
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+        out[name] = {"wall_ms": wall, "kernel_ms": kernel_ms or None,
+                     "device_busy_share": kernel_ms / wall if kernel_ms else None,
+                     "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+        print(f"  {name}: wall {wall:.2f} ms, kernels {kernel_ms:.2f} ms "
+              f"(busy share {kernel_ms / wall:.3f}); top: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in out[name]["top_kernels_ms"].items()))
+
+    for kv_dtype, page in (("bf16", 16), ("int8", 32)):
+        cap = 4 * C + 64  # pages for a 1000-token prompt's fourth chunk, and decode room
+        pc = PagedKVCache(cfg, num_pages=B * cap // page, page_size=page, max_slots=B,
+                          max_seq_len=cap, device=dev, kv_dtype=kv_dtype)
+        for b in range(B):
+            pc.alloc_slot(b, seq_id=b, prompt_len=ctx, reserve_tokens=cap)
+        tables = pc.tables_device()
+
+        def state(lens):
+            return batch_ops.make_decode_state(
+                [7] * B, lens, [False] * B, [10_000] * B, [-1] * B, [0.0] * B, [0] * B,
+                [1.0] * B, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+        fn = batch_ops.decode_block_paged_q if pc.quantized else batch_ops.decode_block_paged
+        pools = pc.pools() if pc.quantized else pc.pools()[:2]
+        measure(f"decode_block_{kv_dtype}_b8_n4",
+                lambda: fn(cfg, params, *pools, state([ctx] * B), tables, active, N)[0].cpu())
+        if pc.quantized:
+            chunk = torch.randint(3, cfg.vocab_size, (B, C), device=dev)
+            i32 = dict(dtype=torch.int32, device=dev)
+            zeros = torch.zeros(B, **i32)
+            measure("ragged_int8_one_256_chunk", lambda: batch_ops.ragged_step_paged_q(
+                cfg, params, *pools, state([1] * B), tables, chunk,
+                torch.full((B,), 3 * C, **i32), torch.tensor([0], device=dev),
+                torch.full((B,), cap, **i32), torch.zeros(B, dtype=torch.bool, device=dev),
+                torch.full((B,), 4 * C, **i32), zeros, torch.full((B,), -1, device=dev),
+                torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int64, device=dev),
+                torch.ones(B, device=dev), [SEED], torch.zeros(B, dtype=torch.bool, device=dev), 0,
+            )[0].cpu())
+        del pc, pools
+    return out
+
+
 # ------------------------------------------------------------------- engine
-def dense_logits(torch, cfg, params, ids: list[int], n_last: int):
+def dense_logits(torch, cfg, params, ids: list[int], n_last: int, kv_quant: bool):
     """A plain dense forward of the same weights (no kernel, no cache):
-    f32 logits [n_last, V] at the last ``n_last`` positions of ``ids``."""
+    f32 logits [n_last, V] at the last ``n_last`` positions of ``ids``.
+    With ``kv_quant`` every layer's K/V pass through ``quantize_kv`` and
+    ``dequantize_kv`` first, as everything the int8 engine reads does."""
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.ops.attention import attention
     from gofr_tpu_torch.ops.rope import rope_table
@@ -272,6 +407,9 @@ def dense_logits(torch, cfg, params, ids: list[int], n_last: int):
     for layer in range(cfg.n_layers):
         lp = llama.layer_params(params, layer)
         _, q, k, v = llama._qkv(cfg, x, lp, sin, cos, positions)
+        if kv_quant:
+            k = llama.dequantize_kv(*llama.quantize_kv(k), cfg.dtype)
+            v = llama.dequantize_kv(*llama.quantize_kv(v), cfg.dtype)
         x = llama._attn_mlp_epilogue(cfg, x, lp, attention(q, k, v, causal=True))
     return llama._logits(cfg, params, x[:, -n_last:])[0]
 
@@ -279,92 +417,116 @@ def dense_logits(torch, cfg, params, ids: list[int], n_last: int):
 def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
     """Serve one greedy request alone and hold the logits the engine itself
     computed for it against one dense forward over the prompt and the
-    tokens the engine generated: the prefill's (bucket-padded, flash
-    kernel), then each of its first ``steps`` decode steps' (pages written
-    in place through the block tables, the idle rows' writes sent to the
-    trash page, state uploaded from pinned memory, the paged kernel)."""
+    tokens the engine generated: the prefill's (bf16 pool: one bucketed
+    flash prefill) or the final chunk's (int8 pool: chunks through the
+    ragged dispatch, the first token folded on the device), then each of
+    its first ``steps`` decode steps' (pages written in place through the
+    block tables, the idle rows' writes sent to the trash page, the paged
+    kernel)."""
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.serving import batch as batch_ops
 
     cfg, params = engine.model_cfg, engine.params
+    quantized = engine.paged_cache.quantized
+    # (module, function whose logits are the prompt's, index of those
+    # logits in its result), and the decode step's function name
+    pre_mod, pre_name, pre_idx = ((batch_ops, "ragged_step_paged_q", 1) if quantized
+                                  else (batch_ops, "prefill_compute", 0))
+    step_name = "decode_step_paged_q" if quantized else "decode_step_paged"
     prefill_seen, decode_seen = [], []
-    prefill_compute, decode_step_paged = batch_ops.prefill_compute, llama.decode_step_paged
+    prefill_fn, step_fn = getattr(pre_mod, pre_name), getattr(llama, step_name)
 
     def prefill_hook(*args):
-        out = prefill_compute(*args)
-        prefill_seen.append(out[0].clone())
+        out = prefill_fn(*args)
+        prefill_seen.append(out[pre_idx].clone())
         return out
 
     def step_hook(*args):
-        logits, k_pool, v_pool = decode_step_paged(*args)
-        decode_seen.append((args[-1].clone(), logits.clone()))  # (live rows, logits)
-        return logits, k_pool, v_pool
+        out = step_fn(*args)
+        decode_seen.append((args[-1].clone(), out[0].clone()))  # (live rows, logits)
+        return out
 
-    batch_ops.prefill_compute, llama.decode_step_paged = prefill_hook, step_hook
+    setattr(pre_mod, pre_name, prefill_hook)
+    setattr(llama, step_name, step_hook)
     try:
         r = engine.submit(ids, max_new_tokens=steps + 1).result(timeout=600)
     finally:
-        batch_ops.prefill_compute, llama.decode_step_paged = prefill_compute, decode_step_paged
-    if r.finish_reason != "length" or len(r.token_ids) != steps + 1 or len(prefill_seen) != 1:
+        setattr(pre_mod, pre_name, prefill_fn)
+        setattr(llama, step_name, step_fn)
+    n_prefill = math.ceil(len(ids) / engine._chunk_tokens) if quantized else 1
+    if r.finish_reason != "length" or len(r.token_ids) != steps + 1 or len(prefill_seen) != n_prefill:
         raise AssertionError(f"the logits check request ended {r.finish_reason} after "
-                             f"{len(r.token_ids)} tokens")
+                             f"{len(r.token_ids)} tokens and {len(prefill_seen)} prefill calls")
     live_steps = [(live, lg) for live, lg in decode_seen if bool(live.any())][:steps]
     rows = {tuple(live.nonzero()[:, 0].tolist()) for live, _ in live_steps}
     if len(live_steps) != steps or len(rows) != 1 or len(next(iter(rows))) != 1:
         raise AssertionError(f"expected {steps} decode steps with one live row, saw {rows}")
     (row,) = next(iter(rows))
-    got = torch.cat([prefill_seen[0]] + [lg[row:row + 1] for _, lg in live_steps])  # [steps+1, V]
-    want = dense_logits(torch, cfg, params, ids + r.token_ids[:steps], steps + 1)
+    got = torch.cat([prefill_seen[-1][-1:]] + [lg[row:row + 1] for _, lg in live_steps])  # [steps+1, V]
+    seq = ids + r.token_ids[:steps]
+    want = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=quantized)
     rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
     picked = got.argmax(-1).tolist() == r.token_ids
     dense_agree = sum(int(a == b) for a, b in zip(want.argmax(-1).tolist(), r.token_ids))
-    print(f"  engine logits vs dense forward ({len(ids)}-token prompt, slot {row}): rel_l2 "
-          f"prefill {rel[0]:.3e}, decode steps {' '.join(f'{x:.3e}' for x in rel[1:])} "
+    what = "final chunk" if quantized else "prefill"
+    print(f"  engine logits vs dense forward{' (K/V quantized)' if quantized else ''} "
+          f"({len(ids)}-token prompt, {n_prefill} prefill call(s), slot {row}): rel_l2 "
+          f"{what} {rel[0]:.3e}, decode steps {' '.join(f'{x:.3e}' for x in rel[1:])} "
           f"(tol {LOGITS_REL_TOL}); tokens = argmax of the engine's logits: {picked}; "
           f"dense argmax agrees on {dense_agree}/{steps + 1}")
+    if quantized:  # information only: how far int8 KV moves the logits
+        plain = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=False)
+        rel_plain = ((got - plain).norm(dim=-1) / plain.norm(dim=-1)).tolist()
+        print(f"  (information) engine int8 logits vs the unquantized dense forward: rel_l2 "
+              f"{' '.join(f'{x:.3e}' for x in rel_plain)}")
     if not (max(rel) <= LOGITS_REL_TOL) or not picked or not bool(torch.isfinite(got).all()):
         raise AssertionError("the engine's logits disagree with the dense forward")
 
 
-def run_engine(torch, launches_out: dict) -> dict:
-    from gofr_tpu_torch import EngineConfig, LlamaConfig, ServingEngine
-    from gofr_tpu_torch.models.llama import init_params
-    from gofr_tpu_torch.ops.flash_attention import flash_attention
-    from gofr_tpu_torch.ops.paged_attention import paged_decode_attention
+def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, must_not: set,
+               logits_prompt: int, logits_steps: int, ttft_lens: tuple) -> tuple[dict, dict]:
+    """Drive one engine path: a warm-up, then the path's requests with the
+    launch counters reset just before and read just after, then the
+    logits check and the timings. Returns (launches, timings)."""
+    from gofr_tpu_torch import ServingEngine
+    from gofr_tpu_torch.serving import batch as batch_ops
     from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params["layers"].values()) + params["embedding"].numel() \
-        + params["lm_head"].numel()
-    print(f"engine: Llama-3-8B widths, {cfg.n_layers} layers, {n_params / 1e9:.2f}B params "
-          f"bf16, random init in {time.perf_counter() - t0:.1f}s")
-    ecfg = EngineConfig(max_slots=8, max_seq_len=2048, kv_page_size=16, multi_step=4,
-                        max_new_tokens_default=32)
     engine = ServingEngine(cfg, params, ecfg, ByteTokenizer(cfg.vocab_size), seed=SEED)
     rng = torch.Generator().manual_seed(SEED)
 
     def prompt(n: int) -> list[int]:
         return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
 
+    print(f"engine path {name}: kv_dtype={ecfg.kv_dtype} page={ecfg.kv_page_size} "
+          f"max_seq_len={ecfg.max_seq_len} chunk={engine._chunk_tokens} tokens; prompts {lens}, "
+          f"chunked: {[n for n in lens if engine._route_chunked(n)]}")
+    ragged_fn = batch_ops.ragged_step_paged_q if ecfg.kv_dtype == "int8" else batch_ops.ragged_step_paged
+    ragged_calls = [0]
+
+    def count_ragged(*args):
+        ragged_calls[0] += 1
+        return ragged_fn(*args)
+
     engine.start()
     try:
         engine.submit(prompt(5), max_new_tokens=4).result(timeout=600)  # warm-up
-        # ---- the main path: counters from 0, read right after
-        lens = [5, 31, 60, 120, 250, 480, 777, 1000, 9, 333]
         prompts = [prompt(n) for n in lens]
-        flash_attention.launches = 0
-        paged_decode_attention.launches = 0
-        futs = [
-            engine.submit(p, max_new_tokens=32,
-                          **(dict(temperature=0.8, top_k=50, top_p=0.95) if i == 3 else {}))
-            for i, p in enumerate(prompts)
-        ]
-        results = [f.result(timeout=900) for f in futs]
-        launches_out["flash_attention"] = flash_attention.launches
-        launches_out["paged_decode_attention"] = paged_decode_attention.launches
+        # ---- the path: counters from 0, read right after
+        kernels = counters()
+        setattr(batch_ops, ragged_fn.__name__, count_ragged)
+        for fn in kernels.values():
+            fn.launches = 0
+        try:
+            futs = [
+                engine.submit(p, max_new_tokens=32,
+                              **(dict(temperature=0.8, top_k=50, top_p=0.95) if i == 3 else {}))
+                for i, p in enumerate(prompts)
+            ]
+            results = [f.result(timeout=900) for f in futs]
+        finally:
+            launches = {n: fn.launches for n, fn in kernels.items()}
+            setattr(batch_ops, ragged_fn.__name__, ragged_fn)
         for n, r in zip(lens, results):
             print(f"  prompt {n:4d} -> {r.completion_tokens:2d} tokens, {r.finish_reason}, "
                   f"ttft {r.ttft_s * 1e3:.1f} ms")
@@ -374,28 +536,73 @@ def run_engine(torch, launches_out: dict) -> dict:
                 raise AssertionError("a length finish must carry 32 tokens")
             if any(not (0 <= t < cfg.vocab_size) for t in r.token_ids):
                 raise AssertionError("token id outside the vocabulary")
-        print(f"  launches on the main path: {launches_out}")
-        if not all(launches_out.values()):
-            raise AssertionError(f"a kernel of the path never launched: {launches_out}")
+        n_chunks = sum(math.ceil(n / engine._chunk_tokens) for n in lens if engine._route_chunked(n))
+        print(f"  launches on path {name}: {launches}; ragged dispatches {ragged_calls[0]} "
+              f"(chunks of the chunked prompts: {n_chunks})")
+        if ragged_calls[0] < n_chunks or ragged_calls[0] > 0 and not n_chunks:
+            raise AssertionError(f"path {name}: {ragged_calls[0]} ragged dispatches for {n_chunks} chunks")
+        if not all(launches[n] for n in must) or any(launches[n] for n in must_not):
+            raise AssertionError(f"path {name}: launches {launches}; must launch {sorted(must)}, "
+                                 f"must not launch {sorted(must_not)}")
 
-        # ---- the engine's own prefill and decode logits vs a plain dense
-        # forward; 45 tokens: decode crosses a page boundary at position 48
-        check_engine_logits(torch, engine, prompt(45), LOGITS_CHECK_STEPS)
+        check_engine_logits(torch, engine, prompt(logits_prompt), logits_steps)
 
-        # ---- engine timings: TTFT alone at each bucket, then a full batch
-        ttft = {}
-        for n in (100, 1000):
+        # ---- timings: TTFT alone, then a full batch of decode rows
+        timings = {}
+        for n in ttft_lens:
             r = engine.submit(prompt(n), max_new_tokens=2).result(timeout=600)
-            ttft[f"ttft_ms_prompt{n}_alone"] = r.ttft_s * 1e3
+            timings[f"ttft_ms_prompt{n}_alone"] = r.ttft_s * 1e3
         batch = [engine.submit(prompt(20), max_new_tokens=65) for _ in range(8)]
         res = [f.result(timeout=900) for f in batch]
         per_step = sorted((r.duration_s - r.ttft_s) / (r.completion_tokens - 1) * 1e3 for r in res
                           if r.completion_tokens > 1)
-        timings = dict(ttft, decode_ms_per_step_batch8=per_step[len(per_step) // 2] if per_step else None,
-                       main_path_ttft_ms_max=max(r.ttft_s for r in results) * 1e3)
-        return timings
+        timings["decode_ms_per_step_batch8"] = per_step[len(per_step) // 2] if per_step else None
+        timings["main_path_ttft_ms_max"] = max(r.ttft_s for r in results) * 1e3
+        return launches, timings
     finally:
         engine.stop()
+
+
+def run_engine(torch) -> tuple[dict, dict]:
+    from gofr_tpu_torch import EngineConfig, LlamaConfig
+    from gofr_tpu_torch.models.llama import init_params
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params["layers"].values()) + params["embedding"].numel() \
+        + params["lm_head"].numel()
+    print(f"engine: Llama-3-8B widths, {cfg.n_layers} layers, {n_params / 1e9:.2f}B params "
+          f"bf16, random init in {time.perf_counter() - t0:.1f}s")
+    launches, timings = {}, {}
+    # bf16: the monolithic path as it was; a chunk of 2048 keeps every prompt up
+    # to the largest bucket monolithic. 45 tokens: decode crosses a page
+    # boundary at 48
+    launches["bf16"], timings["bf16"] = serve_path(
+        torch, cfg, params, "bf16",
+        EngineConfig(max_slots=8, max_seq_len=2048, kv_page_size=16, multi_step=4,
+                     max_new_tokens_default=32, prefill_chunk_tokens=2048),
+        MAIN_LENS, must={"flash_attention", "paged_decode_attention"},
+        must_not={"paged_decode_attention_q"}, logits_prompt=45, logits_steps=8,
+        ttft_lens=(100, 1000),
+    )
+    torch.cuda.empty_cache()
+    # int8: the reference's 256-token chunks; 600 tokens make three chunks
+    # and ten decode steps write positions 600-609, across the page
+    # boundary at 608
+    launches["int8"], timings["int8"] = serve_path(
+        torch, cfg, params, "int8",
+        EngineConfig(max_slots=8, max_seq_len=4096, kv_page_size=32, multi_step=4,
+                     max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
+        MAIN_LENS + [LONG_PROMPT], must={"flash_attention", "paged_decode_attention_q"},
+        must_not={"paged_decode_attention"}, logits_prompt=600, logits_steps=10,
+        ttft_lens=(1000,),
+    )
+    torch.cuda.empty_cache()
+    print("dispatch time against kernel time (torch.profiler):")
+    timings["dispatch_busy"] = dispatch_busy(torch, cfg, params)
+    return launches, timings
 
 
 def main() -> int:
@@ -420,14 +627,13 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
-    launches = {"flash_attention": 0, "paged_decode_attention": 0}
-    engine_timings = run_engine(torch, launches)
-    torch.cuda.empty_cache()
+    launches, engine_timings = run_engine(torch)
     rows = time_kernels(torch, gen, Timer(torch), errs, launches)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
     print(json.dumps({"engine": engine_timings}))
+    print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -46,6 +46,11 @@ SIGNATURES: dict[str, list[tuple[str, list]]] = {
         # B, H, Hkv, Dh, page, n_pool_pages, max_pages, scale, stream
         ("gofr_paged_decode_bf16",
          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # q, k_pool, v_pool (int8), k_scale, v_scale (f32), block_tables,
+        # seq_lens, out, B, H, Hkv, Dh, page, n_pool_pages, max_pages,
+        # scale, stream
+        ("gofr_paged_decode_int8",
+         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     ],
 }
 

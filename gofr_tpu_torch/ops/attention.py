@@ -24,15 +24,16 @@ def attention(
     v: torch.Tensor,  # [B, Sk, Hkv, D]
     *,
     causal: bool = True,
-    q_offset: int = 0,
+    q_offset: torch.Tensor | int = 0,  # int, or [B] per-row offsets
     kv_len: torch.Tensor | None = None,  # [B] valid KV length per row
     scale: float | None = None,
 ) -> torch.Tensor:
     """Dense attention, GQA-native. ``q_offset`` is the absolute position
-    of q[0] (the reference's per-row offsets serve the chunked and
-    speculative paths, which later slices port); ``kv_len`` masks
-    right-padded K/V. The logits are exact f32 products of the inputs
-    (what ``preferred_element_type=f32`` computes); the probabilities are
+    of q[0]: one int for every row, or a [B] tensor when each row's chunk
+    starts elsewhere (chunked prefill over a shared pool, where row b's
+    query i sits at ``q_offset[b] + i``); ``kv_len`` masks right-padded
+    K/V. The logits are exact f32 products of the inputs (what
+    ``preferred_element_type=f32`` computes); the probabilities are
     rounded to v's dtype before the PV product, as the reference does."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -45,8 +46,13 @@ def attention(
     dev = q.device
     mask = None
     if causal:
-        q_pos = torch.arange(Sq, device=dev)[:, None] + q_offset  # [Sq, 1]
-        mask = (torch.arange(Sk, device=dev)[None, :] <= q_pos)[None, None, None]
+        k_pos = torch.arange(Sk, device=dev)
+        if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
+            q_pos = q_offset.to(dev)[:, None] + torch.arange(Sq, device=dev)[None, :]  # [B, Sq]
+            mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None, None]  # [B,1,1,Sq,Sk]
+        else:
+            q_pos = torch.arange(Sq, device=dev)[:, None] + q_offset  # [Sq, 1]
+            mask = (k_pos[None, :] <= q_pos)[None, None, None]
     if kv_len is not None:
         valid = torch.arange(Sk, device=dev)[None, :] < kv_len.to(dev)[:, None]
         valid = valid[:, None, None, None, :]

@@ -1,15 +1,23 @@
 """Fixed-shape device functions of the continuous-batching engine (port of
-``gofr_tpu/serving/batch.py``, the paged bf16 monolithic-prefill path).
+``gofr_tpu/serving/batch.py``, the paged paths over bf16 and int8 pools).
 
 The decode hot loop keeps the host out of the block: sampling and the
 stop-condition evaluation run on the device inside the N-step block
-(``decode_block_paged``), which returns ONE packed int32 [B, steps+2] array
-(``steps`` token columns, -1 past each row's stop; a done column; an
-n_valid column), so the engine syncs once per N tokens. The block is a
-Python loop over N steps that issues no host sync.
+(``decode_block_paged``/``_q``), which returns ONE packed int32
+[B, steps+2] array (``steps`` token columns, -1 past each row's stop; a
+done column; an n_valid column), so the engine syncs once per N tokens.
+The block is a Python loop over N steps that issues no host sync.
 
-What the reference donates is updated in place here: the pools by
-``decode_step_paged``, the decode state by :func:`admit_decode_state`.
+The unified ragged dispatch (``ragged_step_paged``/``_q``) runs the
+granted prefill chunks and then the N-step block against the same pool,
+folds each row whose chunk completes its prompt into the decode state with
+its first token sampled on the device, and returns the packed
+[B, steps+3] array (one more column: that first token, -1 elsewhere): one
+host read per dispatch still.
+
+What the reference donates is updated in place here: the pools by the
+decode and chunk steps, the decode state by :func:`admit_decode_state`
+and :func:`_fold_finished_prefill`.
 """
 
 from __future__ import annotations
@@ -140,6 +148,36 @@ def _block_step(st: DecodeState, active: torch.Tensor, logits: torch.Tensor) -> 
     return new_st, torch.where(live, nxt, torch.full_like(nxt, -1))
 
 
+def _decode_steps(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    pools: tuple,  # (k_pool, v_pool, ks_pool, vs_pool); scales None for bf16
+    state: DecodeState,
+    block_tables: torch.Tensor,
+    active: torch.Tensor,
+    steps: int,
+) -> tuple[torch.Tensor, DecodeState]:
+    """``steps`` fused decode + sample + stop-eval iterations: (tokens
+    [B, steps], state). Frozen rows' appends go to the trash page."""
+    toks = []
+    for _ in range(steps):
+        live = active & ~state.done
+        step_len = torch.where(live, state.seq_len + 1, torch.ones_like(state.seq_len))
+        if pools[2] is None:
+            logits, _, _ = llama.decode_step_paged(
+                cfg, params, state.last_token, pools[0], pools[1], block_tables, step_len, live
+            )
+        else:
+            logits = llama.decode_step_paged_q(
+                cfg, params, state.last_token, *pools, block_tables, step_len, live
+            )[0]
+        state, out = _block_step(state, active, logits)
+        toks.append(out)
+    if not toks:
+        return torch.empty((active.shape[0], 0), dtype=torch.int64, device=active.device), state
+    return torch.stack(toks, dim=1), state
+
+
 def decode_block_paged(
     cfg: llama.LlamaConfig,
     params: dict,
@@ -155,17 +193,218 @@ def decode_block_paged(
     page and its remaining columns are -1. Returns (packed [B, steps+2],
     k_pool, v_pool, state); the packed array is the block's only value the
     host reads."""
-    toks = []
-    for _ in range(steps):
-        live = active & ~state.done
-        step_len = torch.where(live, state.seq_len + 1, torch.ones_like(state.seq_len))
-        logits, k_pool, v_pool = llama.decode_step_paged(
-            cfg, params, state.last_token, k_pool, v_pool, block_tables, step_len, live
+    toks, state = _decode_steps(
+        cfg, params, (k_pool, v_pool, None, None), state, block_tables, active, steps
+    )
+    return _pack_block(toks, state.done, active), k_pool, v_pool, state
+
+
+def decode_block_paged_q(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    k_pool: torch.Tensor,  # int8, updated in place
+    v_pool: torch.Tensor,
+    ks_pool: torch.Tensor,  # f32 scales, updated in place
+    vs_pool: torch.Tensor,
+    state: DecodeState,
+    block_tables: torch.Tensor,
+    active: torch.Tensor,
+    steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
+    """int8 twin of :func:`decode_block_paged`: (packed, k_pool, v_pool,
+    ks_pool, vs_pool, state)."""
+    toks, state = _decode_steps(
+        cfg, params, (k_pool, v_pool, ks_pool, vs_pool), state, block_tables, active, steps
+    )
+    return _pack_block(toks, state.done, active), k_pool, v_pool, ks_pool, vs_pool, state
+
+
+# ------------------------------------------------- unified ragged dispatch
+#
+# One dispatch runs the granted PREFILL CHUNKS (the next <= C prompt tokens
+# of each partially prefilled row, written into the same page pool decode
+# reads) and then an N-step DECODE BLOCK, and returns ONE packed array. A
+# row whose chunk completes its prompt gets its first token sampled on the
+# device, with a generator seeded as the monolithic path seeds it, and is
+# folded into the decode state in the same dispatch.
+
+
+def _fold_finished_prefill(
+    st: DecodeState,  # updated in place (the reference donates it)
+    last_logits: torch.Tensor,  # [K, V] at each chunk row's last chunk position
+    rows: torch.Tensor,  # [K] int64 slots of the chunk rows
+    finish: torch.Tensor,  # [K] bool: this chunk completes the prompt
+    new_len: torch.Tensor,  # [K] resident length after the chunk
+    budgets: torch.Tensor,  # [K] tokens the row may emit AFTER the first
+    stops: torch.Tensor,  # [K] stop id (-1 disables)
+    temps: torch.Tensor,  # [K]
+    topks: torch.Tensor,  # [K]
+    topps: torch.Tensor,  # [K]
+    seeds: list[int],  # [K] first-token generator seeds
+) -> tuple[DecodeState, torch.Tensor]:
+    """Sample first tokens for the chunk rows and fold those whose prompt
+    just finished into the decode state (LoRA is not ported: the adapter
+    column is 0). Each row draws from a fresh generator seeded with its
+    request's seed, exactly as the monolithic prefill draws, so a request
+    samples the same first token on either route. Returns (state, first
+    [K] with -1 on rows that did not finish)."""
+    dev = last_logits.device
+    sampled = torch.cat([
+        sample_logits(
+            last_logits[i:i + 1], torch.Generator(device=dev).manual_seed(int(seed)),
+            temperature=temps[i], top_k=topks[i], top_p=topps[i],
         )
-        state, out = _block_step(state, active, logits)
-        toks.append(out)
-    packed = _pack_block(torch.stack(toks, dim=1), state.done, active)
-    return packed, k_pool, v_pool, state
+        for i, seed in enumerate(seeds)
+    ])
+    done_f = (sampled == stops) | (budgets <= 0)
+
+    def fold(field: torch.Tensor, value: torch.Tensor) -> None:
+        field[rows] = torch.where(finish, value.to(field.dtype), field[rows])
+
+    fold(st.last_token, sampled)
+    fold(st.seq_len, new_len)
+    fold(st.done, done_f)
+    fold(st.budget, budgets)
+    fold(st.stop_tok, stops)
+    fold(st.temperature, temps)
+    fold(st.top_k, topks)
+    fold(st.top_p, topps)
+    fold(st.adapter, torch.zeros_like(rows))
+    return st, torch.where(finish, sampled, torch.full_like(sampled, -1))
+
+
+def _pack_ragged(toks: torch.Tensor, done: torch.Tensor, active: torch.Tensor,
+                 first: torch.Tensor) -> torch.Tensor:
+    """:func:`_pack_block` plus one trailing column: the first token
+    sampled on the device for rows whose prefill finished in this dispatch
+    (-1 elsewhere). Layout [B, steps+3]: tokens | done | n_valid | first."""
+    return torch.cat([_pack_block(toks, done, active), first[:, None].to(torch.int32)], dim=1)
+
+
+def _ragged_step(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    pools: tuple,
+    state: DecodeState,
+    block_tables: torch.Tensor,  # [B, M] covers chunk AND block writes
+    chunk: torch.Tensor,  # [B, C] next prompt tokens (-1 past each grant)
+    chunk_start: torch.Tensor,  # [B] resident length before the chunk
+    chunk_rows: torch.Tensor,  # [K] int64 slots chunking now (distinct)
+    kv_capacity: torch.Tensor,  # [B] tokens covered by owned pages
+    finish: torch.Tensor,  # [B] bool: the chunk completes the prompt
+    new_len: torch.Tensor,  # [B] resident length after the chunk
+    budgets: torch.Tensor,  # [B] decode budget once admitted
+    stops: torch.Tensor,  # [B]
+    temps: torch.Tensor,  # [B]
+    topks: torch.Tensor,  # [B]
+    topps: torch.Tensor,  # [B]
+    seeds: list[int],  # [K] first-token seeds of the chunk rows
+    decode_active: torch.Tensor,  # [B] bool: rows decoding in this block
+    steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, DecodeState]:
+    """The body of :func:`ragged_step_paged` and its int8 twin.
+
+    The reference runs the chunk forward over all B rows of [B, C] and
+    sends the rows that are not chunking to the trash page; here it runs
+    over the K chunk rows alone, gathered by ``chunk_rows``. Rows are
+    independent in the forward (per-row tables, offsets and masks), the
+    other rows' writes went to the trash page and their logits were never
+    read, so the packed output is the same
+    (``tests/test_torch_ragged.py`` holds it to the reference's)."""
+    rows = chunk_rows
+    K = rows.shape[0]
+    C = chunk.shape[1]
+    start = chunk_start[rows]
+    x = llama._chunk_forward(
+        cfg, params, chunk[rows], pools, block_tables[rows], start,
+        torch.ones(K, dtype=torch.bool, device=chunk.device), kv_capacity[rows],
+    )
+    # the lm_head only where a row's prompt ends in this chunk: [K, C, V]
+    # logits to keep one position per row would waste 2*K*C*D*V FLOPs
+    pos = (new_len[rows].long() - start.long() - 1).clamp(0, C - 1)
+    last_h = x[torch.arange(K, device=x.device), pos][:, None]  # [K, 1, D]
+    last_logits = llama._logits(cfg, params, last_h)[:, 0]  # [K, V]
+    state, first_k = _fold_finished_prefill(
+        state, last_logits, rows, finish[rows], new_len[rows], budgets[rows], stops[rows],
+        temps[rows], topks[rows], topps[rows], seeds,
+    )
+    first = torch.full((chunk.shape[0],), -1, dtype=first_k.dtype, device=first_k.device)
+    first[rows] = first_k
+    toks, state = _decode_steps(cfg, params, pools, state, block_tables, decode_active, steps)
+    return _pack_ragged(toks, state.done, decode_active, first), last_logits, state
+
+
+def ragged_step_paged(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    k_pool: torch.Tensor,  # updated in place
+    v_pool: torch.Tensor,
+    state: DecodeState,  # updated in place
+    block_tables: torch.Tensor,
+    chunk: torch.Tensor,
+    chunk_start: torch.Tensor,
+    chunk_rows: torch.Tensor,
+    kv_capacity: torch.Tensor,
+    finish: torch.Tensor,
+    new_len: torch.Tensor,
+    budgets: torch.Tensor,
+    stops: torch.Tensor,
+    temps: torch.Tensor,
+    topks: torch.Tensor,
+    topps: torch.Tensor,
+    seeds: list[int],
+    decode_active: torch.Tensor,
+    steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
+    """Unified ragged dispatch over bf16 pools: the chunk forward of the
+    chunk rows, the first-token fold of the rows that finish, then the
+    N-step decode block, with no host sync. Returns (packed [B, steps+3],
+    last_logits [K, V], k_pool, v_pool, state). Against the reference,
+    the rows chunking now come as ``chunk_rows`` indices (the reference's
+    ``chunk_active`` mask) and their first-token generators as ``seeds``
+    (its ``rids`` with ``rng_root``); ``last_logits`` has the chunk rows
+    only."""
+    packed, last_logits, state = _ragged_step(
+        cfg, params, (k_pool, v_pool, None, None), state, block_tables, chunk, chunk_start,
+        chunk_rows, kv_capacity, finish, new_len, budgets, stops, temps, topks, topps, seeds,
+        decode_active, steps,
+    )
+    return packed, last_logits, k_pool, v_pool, state
+
+
+def ragged_step_paged_q(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    k_pool: torch.Tensor,  # int8, updated in place
+    v_pool: torch.Tensor,
+    ks_pool: torch.Tensor,  # f32 scales, updated in place
+    vs_pool: torch.Tensor,
+    state: DecodeState,
+    block_tables: torch.Tensor,
+    chunk: torch.Tensor,
+    chunk_start: torch.Tensor,
+    chunk_rows: torch.Tensor,
+    kv_capacity: torch.Tensor,
+    finish: torch.Tensor,
+    new_len: torch.Tensor,
+    budgets: torch.Tensor,
+    stops: torch.Tensor,
+    temps: torch.Tensor,
+    topks: torch.Tensor,
+    topps: torch.Tensor,
+    seeds: list[int],
+    decode_active: torch.Tensor,
+    steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, DecodeState]:
+    """int8 twin of :func:`ragged_step_paged`: (packed, last_logits, k_pool,
+    v_pool, ks_pool, vs_pool, state)."""
+    packed, last_logits, state = _ragged_step(
+        cfg, params, (k_pool, v_pool, ks_pool, vs_pool), state, block_tables, chunk,
+        chunk_start, chunk_rows, kv_capacity, finish, new_len, budgets, stops, temps, topks,
+        topps, seeds, decode_active, steps,
+    )
+    return packed, last_logits, k_pool, v_pool, ks_pool, vs_pool, state
 
 
 def pad_bucket(length: int, buckets: tuple[int, ...]) -> int:

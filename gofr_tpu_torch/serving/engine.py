@@ -1,21 +1,33 @@
 """The continuous-batching serving engine (port of
-``gofr_tpu/serving/engine.py``, the paged monolithic-prefill slice).
+``gofr_tpu/serving/engine.py``, the paged slice: bf16 or int8 KV pools,
+monolithic and chunked prefill).
 
-Requests queue FIFO and are admitted into free slots between decode
-blocks. Admission prefills the whole prompt at its padded bucket in one
-call, scatters its K/V into pages of the shared pool, and samples the
-first token with a generator seeded by (engine seed, request id). Decoding
-runs as N-step device blocks (``batch.decode_block_paged``: sampling and
-stop evaluation on the device) and the host syncs once per block. Blocks
-are double-buffered: block k+1 is dispatched before block k's packed
+Requests queue FIFO. Each loop iteration a :class:`StepPlanner` plans the
+step: the decode rows first, then whole-chunk grants to the partially
+prefilled prompts (oldest first), then an admission quota. An admitted
+prompt of at most one chunk that fits a prefill bucket prefills whole at
+its padded bucket in one call (flash kernel), scatters its K/V into pages
+of the shared pool, and samples the first token with a generator seeded
+by (engine seed, request id). A longer prompt becomes a chunk cursor: its
+chunks run in the unified ragged dispatch (``batch.ragged_step_paged``/
+``_q``) together with the N-step decode block, and the dispatch that
+completes the prompt samples its first token on the device from a
+generator seeded the same way, so a request draws the same first token on
+either route. Decoding runs as N-step device blocks (sampling and stop
+evaluation on the device) and the host syncs once per dispatch. Dispatches
+are double-buffered: dispatch k+1 goes out before dispatch k's packed
 result is read, so the host's bookkeeping overlaps the device. A row
 retires on its stop token or its length limit and frees its slot and
-pages at once.
+pages at once; a chunk cursor the pool cannot cover requeues from chunk 0
+once nothing of it is in flight.
 
-A prompt longer than the largest prefill bucket is refused at submit with
-a ``ValueError``: chunked prefill is a later slice of the port. Not ported
-yet: the dense KV layout, int8 KV, the prefix cache, speculative decoding,
-LoRA, dedup/HA, the supervisor, timelines, tracing, metrics and tenancy.
+With ``kv_dtype="int8"`` the pool stores K/V as int8 with f32 per-vector
+scales and decode reads it through the dequantizing paged kernel. A
+prompt is refused at submit only when it cannot fit ``max_seq_len`` (with
+one position left to generate) or the whole pool. Not ported yet: the
+dense KV layout, the prefix cache and chunk-prefix cache, speculative
+decoding, LoRA, cancel and deadlines, dedup/HA, the supervisor, timelines,
+tracing, metrics and tenancy.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -39,6 +51,7 @@ from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops.sampling import sample_logits
 from gofr_tpu_torch.serving import batch as batch_ops
 from gofr_tpu_torch.serving.kv_cache import OutOfBlocks, PagedKVCache
+from gofr_tpu_torch.serving.stepplan import ChunkCursor, StepPlan, StepPlanner
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
@@ -61,11 +74,24 @@ class EngineConfig:
     max_new_tokens_default: int = 128
     max_queue: int = 256
     prefill_buckets: tuple[int, ...] = DEFAULT_BUCKETS
+    # fresh admissions per step plan at most (the planner's max_admissions)
+    admission_per_step: int = 4
+    # prompts longer than this, or longer than the largest bucket, prefill
+    # in chunks of this many tokens (aligned down to the page grid),
+    # interleaved with decode blocks in one ragged dispatch; also the
+    # per-iteration prefill budget when step_token_budget is 0 (auto)
+    prefill_chunk_tokens: int = 256
+    # explicit per-iteration token target: decode rows (rows * multi_step)
+    # are reserved first, prefill chunks fill the rest; 0 = auto
+    step_token_budget: int = 0
     # only the paged layout is ported; the reference's default "dense"
     # waits for a later slice (ROADMAP Queue A item 3)
     kv_layout: str = "paged"
-    kv_page_size: int = 16
+    kv_page_size: int = 16  # any size: the CUDA kernels have no tile rule
     kv_num_pages: int | None = None  # default: slots*max_seq worth of pages
+    # "int8" stores the pool quantized (per-vector absmax, f32 scales):
+    # half the bytes per resident token and half the decode KV stream
+    kv_dtype: str = "bf16"
     # decode tokens per device block (the N of the N-step block)
     multi_step: int = 4
     # back-off after a failed loop iteration
@@ -117,16 +143,24 @@ class _Request:
 
 
 class _Inflight:
-    """A dispatched, not yet read block: its packed device result and the
-    (slot, request) rows it was built from. By the time it is read a slot
+    """A dispatched, not yet read block: its packed device result, the
+    (slot, request) decode rows and the (slot, request, cursor, start, n,
+    finishes) chunk rows it was built from. By the time it is read a slot
     may have been retired or re-admitted; ``slots[slot] is req`` tells."""
 
-    __slots__ = ("packed", "rows", "steps")
+    __slots__ = ("packed", "rows", "steps", "prefill_rows")
 
-    def __init__(self, packed: torch.Tensor, rows: list, steps: int) -> None:
+    def __init__(self, packed: torch.Tensor, rows: list, steps: int,
+                 prefill_rows: list | None = None) -> None:
         self.packed = packed
         self.rows = rows
         self.steps = steps
+        self.prefill_rows = prefill_rows or []
+
+
+def _stop_id(req: _Request) -> int:
+    """The row's stop id on the device (-1: none, or more than one)."""
+    return next(iter(req.stop_ids)) if len(req.stop_ids) == 1 else -1
 
 
 def _request_seed(seed: int, request_id: int) -> int:
@@ -159,6 +193,8 @@ class ServingEngine:
             )
         if self.config.multi_step < 1:
             raise ValueError("multi_step must be >= 1")
+        if self.config.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype={self.config.kv_dtype!r}: must be bf16 or int8")
         self.tokenizer = tokenizer or ByteTokenizer(cfg.vocab_size)
         self.seed = seed
         self._block_steps = int(self.config.multi_step)
@@ -168,7 +204,19 @@ class ServingEngine:
         self.paged_cache = PagedKVCache(
             cfg, num_pages=self.config.kv_num_pages or (B * S + page - 1) // page,
             page_size=page, max_slots=B, max_seq_len=S, device=self.device,
+            kv_dtype=self.config.kv_dtype,
         )
+        # chunk boundaries stay on the page grid: the chunk size aligns
+        # down to whole pages (at least one)
+        chunk = max(1, int(self.config.prefill_chunk_tokens))
+        self._chunk_tokens = min(max(page, (chunk // page) * page), S)
+        self._planner = StepPlanner(
+            chunk_tokens=self._chunk_tokens, block_steps=self._block_steps,
+            step_token_budget=self.config.step_token_budget,
+            max_admissions=self.config.admission_per_step,
+        )
+        self._cursors: dict[int, ChunkCursor] = {}  # slot -> mid-prefill cursor
+        self._cursor_seq = 0  # admission order of cursors
         # host mirrors, authoritative for rebuilding the device state
         self.cache_len = np.zeros(B, np.int32)  # committed tokens per slot
         self.last_token = np.zeros(B, np.int64)
@@ -246,12 +294,16 @@ class ServingEngine:
         )
         if not prompt_ids:
             raise ValueError("empty prompt")
-        limit = min(max(self._buckets()), self.config.max_seq_len - 1)
-        if len(prompt_ids) > limit:
+        if len(prompt_ids) >= self.config.max_seq_len:
             raise ValueError(
-                f"prompt of {len(prompt_ids)} tokens exceeds the {limit}-token limit of "
-                "monolithic prefill (largest bucket, and one position left for "
-                "generation); chunked prefill is not ported yet"
+                f"prompt of {len(prompt_ids)} tokens leaves no position to generate "
+                f"within max_seq_len={self.config.max_seq_len}"
+            )
+        pc = self.paged_cache
+        if pc.pages_needed(len(prompt_ids)) > pc.num_pages:
+            raise ValueError(
+                f"prompt needs {pc.pages_needed(len(prompt_ids))} KV pages; the pool has "
+                f"{pc.num_pages} in total"
             )
         budget = self.config.max_seq_len - len(prompt_ids)
         max_new = min(max_new_tokens or self.config.max_new_tokens_default, budget)
@@ -277,9 +329,10 @@ class ServingEngine:
     def _loop(self) -> None:
         while self._running:
             try:
-                did = self._admit()
+                plan = self._plan_step()
+                did = self._admit(plan)
                 if any(s is not None for s in self.slots):
-                    did |= self._decode_step()
+                    did |= self._decode_step(plan)
                 elif self._inflight:
                     # every row of the in-flight blocks retired meanwhile
                     self._consume(self._inflight.popleft())
@@ -292,11 +345,34 @@ class ServingEngine:
                 self._fail_all(exc)
                 time.sleep(self.config.idle_sleep_s)
 
-    def _admit(self) -> bool:
-        """Admit queued requests FIFO into free slots. A request the pool
-        cannot hold yet stays at the head; nothing overtakes it."""
+    def _plan_step(self) -> StepPlan:
+        """This iteration's step plan: decode rows reserved first, chunk
+        grants for the cursors, an admission quota from what is left."""
+        decode_rows = sum(
+            1 for slot, req in enumerate(self.slots)
+            if req is not None and slot not in self._cursors
+        )
+        with self._mu:
+            depth = len(self._queue)
+        return self._planner.plan(
+            decode_rows=decode_rows, cursors=list(self._cursors.values()),
+            free_slots=sum(1 for s in self.slots if s is None), queue_depth=depth,
+        )
+
+    def _route_chunked(self, prompt_len: int) -> bool:
+        """True when a prompt prefills through a chunk cursor and the ragged
+        dispatch: longer than a chunk, or longer than every bucket."""
+        return prompt_len > self._chunk_tokens or prompt_len > max(self._buckets())
+
+    def _admit(self, plan: StepPlan) -> bool:
+        """Admit up to the plan's quota of queued requests FIFO into free
+        slots. A request the pool cannot hold yet stays at the head;
+        nothing overtakes it."""
         did = False
+        cap = max(plan.admit_cap, 1)  # a submit may have raced the plan
         for slot in range(self.config.max_slots):
+            if cap <= 0:
+                break
             if self.slots[slot] is not None:
                 continue
             with self._mu:
@@ -304,7 +380,10 @@ class ServingEngine:
                     break
                 req = self._queue.popleft()
             try:
-                self._prefill_into(slot, req)
+                if self._route_chunked(len(req.prompt_ids)):
+                    self._start_cursor(slot, req)
+                else:
+                    self._prefill_into(slot, req)
             except _Requeue:
                 with self._mu:
                     self._queue.appendleft(req)
@@ -312,10 +391,40 @@ class ServingEngine:
             except Exception as exc:
                 log.exception("prefill failed for request %d", req.id)
                 self.slots[slot] = None
+                self._cursors.pop(slot, None)
                 self.paged_cache.free_slot(slot)
                 self._settle(req, exc=exc)
             did = True
+            cap -= 1
         return did
+
+    def _start_cursor(self, slot: int, req: _Request) -> None:
+        """Admit a long prompt as a chunk cursor: claim the slot and leave
+        the prompt to the planner's chunk grants. Pages are claimed at the
+        first grant."""
+        cursor = ChunkCursor(req=req, slot=slot, total=len(req.prompt_ids), seq=self._cursor_seq)
+        self._cursor_seq += 1
+        self.slots[slot] = req
+        self.cache_len[slot] = 0
+        self.last_token[slot] = 0
+        self.temperature[slot] = req.temperature
+        self.top_k[slot] = req.top_k
+        self.top_p[slot] = req.top_p
+        self._cursors[slot] = cursor
+
+    def _cursor_health(self, slot: int, req: _Request, cursor: ChunkCursor) -> None:
+        """A cursor the pool could not cover requeues from chunk 0, at the
+        head of the queue, once nothing of it is in flight (an in-flight
+        ragged dispatch still writes through the slot's pages)."""
+        if cursor.in_flight > 0 or not cursor.blocked:
+            return
+        log.info("KV pool short; request %d requeues from chunk 0", req.id)
+        self._cursors.pop(slot, None)
+        self.slots[slot] = None
+        self.cache_len[slot] = 0
+        self.paged_cache.free_slot(slot)
+        with self._mu:
+            self._queue.appendleft(req)
 
     def _prefill_into(self, slot: int, req: _Request) -> None:
         cfg, pc = self.model_cfg, self.paged_cache
@@ -346,18 +455,25 @@ class ServingEngine:
         self._commit_prefilled(slot, req, first_id, S)
 
     def _commit_prefilled(self, slot: int, req: _Request, first_id: int, resident: int) -> None:
+        """Monolithic route: set the slot's mirrors and queue the fold into
+        the device state for the next dispatch, then commit the token."""
         self.slots[slot] = req
         self.cache_len[slot] = resident
-        self.last_token[slot] = first_id
         self.temperature[slot] = req.temperature
         self.top_k[slot] = req.top_k
         self.top_p[slot] = req.top_p
         # the budget folds both limits (max_new and the sequence cap, which
         # submit clamped max_new to) and counts what is left after this token
         self._pending_admit[slot] = (
-            first_id, resident, req.max_new_tokens - 1,
-            next(iter(req.stop_ids)) if len(req.stop_ids) == 1 else -1,
+            first_id, resident, req.max_new_tokens - 1, _stop_id(req),
         )
+        self._commit_first_token(slot, req, first_id)
+
+    def _commit_first_token(self, slot: int, req: _Request, first_id: int) -> None:
+        """The first-token commit both routes share (monolithic prefill,
+        and the ragged dispatch that folded the token on the device): TTFT,
+        emission and the one stop/length retire chain."""
+        self.last_token[slot] = first_id
         req.first_token_at = time.perf_counter()
         self._emit(req, first_id)
         if first_id in req.stop_ids:
@@ -366,10 +482,11 @@ class ServingEngine:
             self._retire(slot, "length")
 
     # ---------------------------------------------------------------- decode
-    def _decode_step(self) -> bool:
-        """Dispatch the next N-step block, then read the oldest one still
-        outstanding (double-buffered: one block stays in flight)."""
-        inflight = self._dispatch()
+    def _decode_step(self, plan: StepPlan) -> bool:
+        """Dispatch the next N-step block (the unified ragged dispatch when
+        the plan granted chunks), then read the oldest one still
+        outstanding (double-buffered: one dispatch stays in flight)."""
+        inflight = self._dispatch(plan)
         if inflight is not None:
             self._inflight.append(inflight)
         did = inflight is not None
@@ -391,7 +508,9 @@ class ServingEngine:
         done = np.ones(B, bool)
         stop = np.full(B, -1, np.int64)
         for slot, req in enumerate(self.slots):
-            if req is None:
+            if req is None or slot in self._cursors:
+                # a mid-prefill row is not decoding: it stays frozen until
+                # its final chunk's fold on the device
                 continue
             remaining = req.max_new_tokens - len(req.tokens)
             budget[slot] = max(remaining, 0)
@@ -421,12 +540,16 @@ class ServingEngine:
             to_device(np.zeros(len(items), np.int32), self.device),
         )
 
-    def _dispatch(self) -> _Inflight | None:
+    def _dispatch(self, plan: StepPlan) -> _Inflight | None:
         pc = self.paged_cache
         N = self._block_steps
         rows: list[tuple[int, _Request]] = []
         for slot, req in enumerate(self.slots):
             if req is None or req.kv_exhausted:
+                continue
+            cursor = self._cursors.get(slot)
+            if cursor is not None:  # mid-prefill: not a decode row
+                self._cursor_health(slot, req, cursor)
                 continue
             # page coverage for the whole block, including the steps
             # dispatched but not yet read (the device runs ahead of the
@@ -439,7 +562,28 @@ class ServingEngine:
             req.kv_exhausted = True
             if not self._slot_in_flight(slot, req):
                 self._retire(slot, "kv_exhausted")
-        if not rows:
+
+        # the plan's chunk grants, page coverage reserved up front (with
+        # each cursor's dispatched-ahead gap, like decode's); a cursor the
+        # pool cannot cover is blocked and requeues once not in flight
+        chunk_rows: list[tuple[int, ChunkCursor, _Request, int, int]] = []
+        for slot, grant in plan.grants:
+            cursor = self._cursors.get(slot)
+            if cursor is None or cursor.blocked or cursor.remaining <= 0:
+                continue
+            n = min(grant, cursor.remaining)
+            if not cursor.allocated:
+                try:
+                    pc.alloc_slot(slot, seq_id=cursor.req.id, prompt_len=0, reserve_tokens=n)
+                    cursor.allocated = True
+                except OutOfBlocks:
+                    cursor.blocked = True
+                    continue
+            elif not pc.try_reserve_slot(slot, cursor.in_flight + n):
+                cursor.blocked = True
+                continue
+            chunk_rows.append((slot, cursor, cursor.req, cursor.dispatched, n))
+        if not rows and not chunk_rows:
             return None
 
         mask = np.zeros(self.config.max_slots, bool)
@@ -453,13 +597,76 @@ class ServingEngine:
         if self._mask_host is None or not np.array_equal(mask, self._mask_host):
             self._mask_dev = to_device(mask, self.device)
             self._mask_host = mask
-        packed, pc.k_pool, pc.v_pool, self._dec_state = batch_ops.decode_block_paged(
-            self.model_cfg, self.params, pc.k_pool, pc.v_pool, state,
-            pc.tables_device(), self._mask_dev, N,
-        )
+        if chunk_rows:
+            # with no decode row the dispatch runs the chunks alone (0 steps)
+            steps = N if rows else 0
+            packed, self._dec_state = self._dispatch_ragged(state, chunk_rows, steps)
+            prefill_rows = []
+            for slot, cursor, req, start, n in chunk_rows:
+                cursor.dispatched = start + n
+                prefill_rows.append((slot, req, cursor, start, n, start + n >= cursor.total))
+        else:
+            steps, prefill_rows = N, []
+            cfg, params, tables = self.model_cfg, self.params, pc.tables_device()
+            if pc.quantized:
+                (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
+                 self._dec_state) = batch_ops.decode_block_paged_q(
+                    cfg, params, *pc.pools(), state, tables, self._mask_dev, N,
+                )
+            else:
+                packed, pc.k_pool, pc.v_pool, self._dec_state = batch_ops.decode_block_paged(
+                    cfg, params, pc.k_pool, pc.v_pool, state, tables, self._mask_dev, N,
+                )
         for _, req in rows:
-            req.dispatched += N
-        return _Inflight(packed, rows, N)
+            req.dispatched += steps
+        return _Inflight(packed, rows, steps, prefill_rows)
+
+    def _dispatch_ragged(
+        self, state: batch_ops.DecodeState, chunk_rows: list, steps: int,
+    ) -> tuple[torch.Tensor, batch_ops.DecodeState]:
+        """Assemble and launch ONE unified ragged dispatch: the granted
+        chunks (per-row slices of their prompts in a [B, C] buffer) and the
+        decode block, against the same page pool. Rows whose chunk
+        completes the prompt get their first token sampled on the device
+        and folded into the decode state inside the dispatch."""
+        pc = self.paged_cache
+        B, C = self.config.max_slots, self._chunk_tokens
+        chunk = np.full((B, C), -1, np.int64)
+        start = np.zeros(B, np.int32)
+        finish = np.zeros(B, bool)
+        new_len = np.zeros(B, np.int32)
+        budgets = np.zeros(B, np.int32)
+        stops = np.full(B, -1, np.int64)
+        kvcap = np.zeros(B, np.int32)
+        slots, seeds = [], []
+        for slot, cursor, req, start_pos, n in chunk_rows:
+            chunk[slot, :n] = req.prompt_ids[start_pos:start_pos + n]
+            start[slot] = start_pos
+            finish[slot] = start_pos + n >= cursor.total
+            new_len[slot] = start_pos + n
+            budgets[slot] = req.max_new_tokens - 1
+            stops[slot] = _stop_id(req)
+            kvcap[slot] = pc.owned_capacity(slot)
+            slots.append(slot)
+            seeds.append(_request_seed(self.seed, req.id))
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return to_device(a, self.device)
+
+        args = (
+            pc.tables_device(), up(chunk), up(start), up(np.array(slots, np.int64)), up(kvcap),
+            up(finish), up(new_len), up(budgets), up(stops), up(self.temperature),
+            up(self.top_k), up(self.top_p), seeds, self._mask_dev, steps,
+        )
+        cfg, params = self.model_cfg, self.params
+        if pc.quantized:
+            (packed, _, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
+             new_state) = batch_ops.ragged_step_paged_q(cfg, params, *pc.pools(), state, *args)
+        else:
+            packed, _, pc.k_pool, pc.v_pool, new_state = batch_ops.ragged_step_paged(
+                cfg, params, pc.k_pool, pc.v_pool, state, *args,
+            )
+        return packed, new_state
 
     def _consume(self, rec: _Inflight) -> None:
         packed = rec.packed.cpu().numpy()  # the block's one host-device sync
@@ -485,6 +692,18 @@ class ServingEngine:
                 self._retire(
                     slot, "stop" if req.tokens and req.tokens[-1] in req.stop_ids else "length"
                 )
+        # chunk rows (ragged dispatches only): commit each chunk's
+        # residency; a row whose prompt finished takes its first token from
+        # the trailing column of the same packed read
+        for slot, req, cursor, start, n, fin in rec.prefill_rows:
+            if self.slots[slot] is not req or self._cursors.get(slot) is not cursor:
+                continue  # retired or requeued since dispatch: a stale chunk
+            cursor.committed = start + n
+            self.cache_len[slot] = cursor.committed
+            self.paged_cache.advance_slot(slot, n)
+            if fin:
+                self._cursors.pop(slot)
+                self._commit_first_token(slot, req, int(packed[slot, rec.steps + 2]))
 
     # ----------------------------------------------------------- bookkeeping
     def _commit_token(self, slot: int, req: _Request, token_id: int) -> None:
@@ -509,6 +728,7 @@ class ServingEngine:
     def _retire(self, slot: int, reason: str) -> None:
         req = self.slots[slot]
         self.slots[slot] = None
+        self._cursors.pop(slot, None)
         self.cache_len[slot] = 0
         self.paged_cache.free_slot(slot)
         if req is not None:
@@ -551,6 +771,7 @@ class ServingEngine:
         fail every active request."""
         self._inflight.clear()
         self._pending_admit.clear()
+        self._cursors.clear()
         self._dec_state = None
         self._mask_host = self._mask_dev = None
         for slot, req in enumerate(self.slots):

@@ -1,16 +1,20 @@
-"""Paged KV cache (port of ``gofr_tpu/serving/kv_cache.py``, bf16 pools).
+"""Paged KV cache (port of ``gofr_tpu/serving/kv_cache.py``, bf16 and int8
+pools).
 
 A shared page pool ``[L, N_pages+1, Hkv, page, Dh]`` per k/v; the extra
 LAST page is the trash page that inactive rows' decode writes are sent to.
-Sequences own pages through :class:`~gofr_tpu_torch.serving.block_alloc.
-BlockAllocator`, so device memory is committed by resident tokens, not by
-worst-case slots.
+With ``kv_dtype="int8"`` the pools hold int8 values and two more pools
+``[L, N_pages+1, Hkv, page, 1]`` hold their f32 per-vector absmax scales
+(``llama.quantize_kv``): half the bytes per resident token. Sequences own
+pages through :class:`~gofr_tpu_torch.serving.block_alloc.BlockAllocator`,
+so device memory is committed by resident tokens, not by worst-case slots.
 
 Host side (this class): page accounting, block tables and lengths, whose
 numpy mirrors are authoritative. Device side: the prefill scatter
-(:func:`_write_pages`); the decode append lives in
-``llama.decode_step_paged`` and the read in ``ops/paged_attention.py``.
-The pools are updated in place where the JAX package donates them.
+(:func:`_write_pages`, :func:`_write_pages_q`); the decode and chunk
+appends live in ``llama.decode_step_paged*``/``llama.decode_chunk_paged*``
+and the read in ``ops/paged_attention.py``. The pools are updated in place
+where the JAX package donates them.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch._device import to_device
+from gofr_tpu_torch.models.llama import quantize_kv
 from gofr_tpu_torch.serving.block_alloc import BlockAllocator, OutOfBlocks
 
 __all__ = ["PagedKVCache", "OutOfBlocks"]
@@ -45,6 +50,24 @@ def _write_pages(
     return k_pool, v_pool
 
 
+def _write_pages_q(
+    k_pool: torch.Tensor,  # [L, N, Hkv, page, Dh] int8, written in place
+    v_pool: torch.Tensor,
+    ks_pool: torch.Tensor,  # [L, N, Hkv, page, 1] f32, written in place
+    vs_pool: torch.Tensor,
+    k_slab: torch.Tensor,  # [L, S_pad, Hkv, Dh] full-width prefill slab
+    v_slab: torch.Tensor,
+    page_ids: torch.Tensor,  # [n_pages] int64, distinct
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """int8 twin of :func:`_write_pages`: the slab quantizes per vector
+    (``llama.quantize_kv``) and values and scales scatter alike."""
+    kq, ks = quantize_kv(k_slab)  # int8 [L, S, Hkv, Dh], f32 [L, S, Hkv]
+    vq, vs = quantize_kv(v_slab)
+    _write_pages(k_pool, v_pool, kq, vq, page_ids)
+    _write_pages(ks_pool, vs_pool, ks[..., None], vs[..., None], page_ids)
+    return k_pool, v_pool, ks_pool, vs_pool
+
+
 class PagedKVCache:
     """Owns the device page pool and the host page accounting for up to
     ``max_slots`` concurrent sequences."""
@@ -59,6 +82,7 @@ class PagedKVCache:
         max_seq_len: int = 1024,
         device: torch.device,
         dtype: torch.dtype | None = None,
+        kv_dtype: str | None = None,  # "int8": quantized pools with scales
     ) -> None:
         self.cfg = cfg
         self.device = device
@@ -67,6 +91,7 @@ class PagedKVCache:
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.max_pages_per_seq = (max_seq_len + page_size - 1) // page_size
+        self.quantized = kv_dtype == "int8"
         self._pool_dtype = dtype or cfg.dtype
         self.reset_pools()
         self.allocator = BlockAllocator(num_pages, page_size)
@@ -76,14 +101,26 @@ class PagedKVCache:
 
     def reset_pools(self) -> None:
         """(Re)allocate zeroed pools [L, N+1, Hkv, page, Dh]; the last page
-        is the trash page."""
+        is the trash page. int8 pools come with f32 scale pools
+        [L, N+1, Hkv, page, 1]; bf16 pools leave ``ks_pool``/``vs_pool``
+        None."""
         cfg = self.cfg
         shape = (
             cfg.n_layers, self.num_pages + 1, cfg.n_kv_heads,
             self.page_size, cfg.head_dim,
         )
-        self.k_pool = torch.zeros(shape, dtype=self._pool_dtype, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=self._pool_dtype, device=self.device)
+        dtype = torch.int8 if self.quantized else self._pool_dtype
+        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.ks_pool = self.vs_pool = None
+        if self.quantized:
+            sshape = shape[:-1] + (1,)
+            self.ks_pool = torch.zeros(sshape, dtype=torch.float32, device=self.device)
+            self.vs_pool = torch.zeros(sshape, dtype=torch.float32, device=self.device)
+
+    def pools(self) -> tuple:
+        """(k_pool, v_pool, ks_pool, vs_pool); the scales are None for bf16."""
+        return self.k_pool, self.v_pool, self.ks_pool, self.vs_pool
 
     # ------------------------------------------------------------- accounting
     def alloc_slot(
@@ -127,6 +164,15 @@ class PagedKVCache:
         reserved up front, so this never allocates)."""
         self.seq_lens[slot] = int(self.seq_lens[slot]) + n_tokens
 
+    def owned_capacity(self, slot: int) -> int:
+        """Tokens covered by the slot's OWNED pages: the write guard of a
+        chunk (positions past it go to the trash page, never through the
+        zero-filled table tail into live page 0)."""
+        seq_id = self._slot_seq[slot]
+        if seq_id is None:
+            return 0
+        return len(self.allocator.block_table(seq_id)) * self.page_size
+
     def free_slot(self, slot: int) -> None:
         seq_id = self._slot_seq[slot]
         if seq_id is None:
@@ -165,7 +211,10 @@ class PagedKVCache:
             owned = self.allocator.block_table(seq_id)
             self.tables[slot, : len(owned)] = owned
         page_ids = to_device(np.asarray(owned[:n_pages], np.int64), self.device)
-        _write_pages(self.k_pool, self.v_pool, k_slab, v_slab, page_ids)
+        if self.quantized:
+            _write_pages_q(*self.pools(), k_slab, v_slab, page_ids)
+        else:
+            _write_pages(self.k_pool, self.v_pool, k_slab, v_slab, page_ids)
 
     def tables_device(self) -> torch.Tensor:
         """The block tables as a device tensor. The upload is a snapshot:

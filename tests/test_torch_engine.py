@@ -144,10 +144,18 @@ def test_streaming_and_lifecycle(models):
 
 
 def test_refusals(models):
+    """A prompt is refused only when it cannot fit max_seq_len (one
+    position left to generate) or the whole pool; past the largest bucket
+    it chunks instead."""
     _, _, tcfg, tparams = models
     engine = _port_engine(tcfg, tparams)
-    with pytest.raises(ValueError, match="chunked prefill"):
-        engine.submit(list(range(3, 40)))  # 37 tokens > largest bucket 32
+    with pytest.raises(ValueError, match="no position to generate"):
+        engine.submit(list(range(3, 67)))  # 64 tokens = max_seq_len
+    engine.submit(list(range(3, 66)))  # 63 tokens > largest bucket 32: accepted
+    with pytest.raises(ValueError, match="KV pages"):
+        _port_engine(tcfg, tparams, kv_num_pages=3).submit(list(range(3, 28)))  # 4 pages
+    with pytest.raises(ValueError, match="kv_dtype"):
+        _port_engine(tcfg, tparams, kv_dtype="fp8")
     with pytest.raises(ValueError, match="empty"):
         engine.submit([])
     with pytest.raises(ValueError, match="Queue A item 3"):

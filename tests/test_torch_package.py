@@ -13,7 +13,10 @@ from gofr_tpu_torch import _build  # noqa: E402
 from gofr_tpu_torch.models import llama  # noqa: E402
 from gofr_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from gofr_tpu_torch.ops.flash_attention import flash_attention  # noqa: E402
-from gofr_tpu_torch.ops.paged_attention import paged_decode_attention  # noqa: E402
+from gofr_tpu_torch.ops.paged_attention import (  # noqa: E402
+    paged_decode_attention,
+    paged_decode_attention_q,
+)
 from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -72,19 +75,28 @@ def test_entry_points_refuse_without_a_card(no_card):
 
 
 def test_cpu_engine_run_launches_no_kernel():
+    """bf16 and int8 engines, a monolithic and a chunked prompt each: the
+    plain versions run on the CPU and no counter moves."""
     flash_attention.launches = paged_decode_attention.launches = 0
+    paged_decode_attention_q.launches = 0
     cfg = llama.LlamaConfig.tiny()
-    engine = ServingEngine(cfg, llama.init_params(cfg, device="cpu"),
-                           EngineConfig(max_slots=2, max_seq_len=32, prefill_buckets=(16,),
-                                        kv_page_size=8), device="cpu")
-    engine.start()
-    try:
-        res = engine.submit("hi", max_new_tokens=5).result(timeout=60)
-    finally:
-        engine.stop()
-    assert res.completion_tokens > 0 or res.finish_reason == "stop"
+    params = llama.init_params(cfg, device="cpu")
+    for kv_dtype in ("bf16", "int8"):
+        engine = ServingEngine(cfg, params,
+                               EngineConfig(max_slots=2, max_seq_len=32, prefill_buckets=(16,),
+                                            kv_page_size=8, prefill_chunk_tokens=8,
+                                            kv_dtype=kv_dtype), device="cpu")
+        engine.start()
+        try:
+            results = [f.result(timeout=60) for f in
+                       [engine.submit(p, max_new_tokens=5) for p in ("hi", "a chunked prompt")]]
+        finally:
+            engine.stop()
+        for res in results:
+            assert res.completion_tokens > 0 or res.finish_reason == "stop"
     assert flash_attention.launches == 0
     assert paged_decode_attention.launches == 0
+    assert paged_decode_attention_q.launches == 0
 
 
 def test_build_needs_nvcc_and_imports_without_it(monkeypatch, tmp_path):
