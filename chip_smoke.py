@@ -8,10 +8,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each a hard failure with a non-zero exit:
 
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   kernels from ``gofr_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
+   kernels from ``gofr_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel), with ptxas's report (registers, spills, shared memory) of
+   the main path's instantiations beside it; a report that wgmma was
+   serialized fails the phase;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, with the tolerance stated beside each (the int8
-   paged kernel at pages 16 and 32);
+   main path's shapes and where the kernels can break, with the tolerance
+   stated beside each: flash at buckets on and off its 128-row query and
+   64-key tiles (S 32…2048), head dims 64 and 128, causal and not, kv_len
+   0, odd and off every tile edge; both paged kernels at pages 16 and 32
+   with lengths 0, on and one past a split span, a lone 4000-token row
+   (B=1), and groups of 4 and 8 query heads;
 3. drive two engine paths through ``ServingEngine.submit`` at Llama-3-8B
    widths (random weights from a seeded generator), each with the
    kernels' launch counters reset just before and read just after:
@@ -29,6 +36,8 @@ Phases, each a hard failure with a non-zero exit:
    ``dequantize_kv`` at every layer);
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
+   at the main path's shapes; then, for information, flash at S=2048 and
+   each paged kernel on the lone 4000-token row, each beside its bound;
    and time each engine path (TTFT, ms per decode step).
 
 The line before the last is the ``kernels`` record; the last line is the
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,8 +75,66 @@ FLASH_ROW_TOL = 2.0 ** -6
 PAGED_ROW_TOL = 2.0 ** -6
 LOGITS_REL_TOL = 5e-2  # relative L2 of bf16 logits through 32 layers
 PAGED_CHECK_LENS = [0, 1, 15, 17, 1000, 333, 64, 999]  # kernel check lengths
+# lengths ending exactly on a split span of the paged kernels (256 tokens)
+# and one past it, besides the edges above
+SPAN_CHECK_LENS = [0, 1, 17, 256, 257, 512, 513, 999]
+LONE_ROW = 4000  # one long request alone (B=1): split across 16 spans
+FLASH_CHECK_S = (32, 128, 200, 1024, 2048)
 MAIN_LENS = [5, 31, 60, 120, 250, 480, 777, 1000, 9, 333]  # the bf16 path's prompts
 LONG_PROMPT = 3000  # the int8 path's extra prompt, past the largest bucket (2048)
+
+
+# the main path's kernel instantiations, as ptxas names them (mangled):
+# flash at D=128; the paged template at Dh=128, G=4 over bf16 (t) and int8 (a)
+PATH_INSTANCES = {
+    "flash_attention": {"flash D=128": "flash_fwd_kernelILi128EE"},
+    "paged_attention": {"paged bf16 Dh=128 G=4": "paged_decode_kernelILi128ELi4EtEE",
+                        "paged int8 Dh=128 G=4": "paged_decode_kernelILi128ELi4EaEE"},
+}
+
+
+def start_ptxas(build) -> dict:
+    """Start one ``nvcc -Xptxas -v -c`` per source (with the build's own
+    flags), beside the build; ``ptxas_report`` collects them."""
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return {name: subprocess.Popen(
+        [build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(build.BUILD_DIR / f"{name}.ptxas.o"),
+         str(build.CSRC / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in PATH_INSTANCES}
+
+
+def ptxas_report(jobs: dict) -> dict:
+    """Registers, spills and static shared memory of each main-path kernel
+    instantiation, from ptxas's report; any note that wgmma was serialized
+    fails the run's build phase."""
+    report = {}
+    for name, proc in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for csrc/{name}.cu:\n{out}")
+        current, stats = None, {}
+        for line in out.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w]+)", line)
+            if m:
+                current = m.group(1)
+            elif current and "spill stores" in line:
+                n = re.findall(r"(\d+) bytes", line)
+                stats.setdefault(current, {}).update(stack=int(n[0]), spill_stores=int(n[1]),
+                                                    spill_loads=int(n[2]))
+            elif current and "Used" in line and "registers" in line:
+                stats.setdefault(current, {}).update(
+                    registers=int(re.search(r"Used (\d+) registers", line).group(1)),
+                    static_smem=int(re.search(r"(\d+) bytes smem", line).group(1)))
+            if "wgmma.mma_async instructions are serialized" in line:
+                raise RuntimeError(f"csrc/{name}.cu: {line.strip()}")
+        for label, key in PATH_INSTANCES[name].items():
+            found = [v for k, v in stats.items() if key in k]
+            if len(found) != 1:
+                raise RuntimeError(f"ptxas report of csrc/{name}.cu has no single {key}")
+            report[label] = found[0]
+            print(f"ptxas {label}: {found[0]}")
+    return report
 
 
 def fail(msg: str) -> int:
@@ -85,7 +153,11 @@ def card_line() -> str:
 class Timer:
     """Device time of one call by CUDA events, averaged over ``iters``
     calls after a warm-up, with the 50 MB L2 flushed before each call so
-    every input is read from HBM as on the serving path."""
+    every input is read from HBM as on the serving path. After the flush
+    the card sleeps about a millisecond (``torch.cuda._sleep``), so the
+    host has queued the call before its start event runs: the time is the
+    device's, not the host's launch overhead (a wrapper's checks and
+    allocations can take longer than the flush alone)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -98,6 +170,7 @@ class Timer:
         pairs = []
         for _ in range(iters):
             self.flush_buf.zero_()
+            torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -166,12 +239,12 @@ def paged_inputs(torch, gen, seq_lens: list[int], H=32, Hkv=8, Dh=128, page=16):
     return q, k_pool, v_pool, tables, lens
 
 
-def paged_inputs_q(torch, gen, seq_lens: list[int], page: int):
+def paged_inputs_q(torch, gen, seq_lens: list[int], page: int, **shape):
     """``paged_inputs`` with the pools quantized per vector as the engine
     stores them: (q, k_pool, v_pool int8, k_scale, v_scale, tables, lens)."""
     from gofr_tpu_torch.models.llama import quantize_kv
 
-    q, kp, vp, tables, lens = paged_inputs(torch, gen, seq_lens, page=page)
+    q, kp, vp, tables, lens = paged_inputs(torch, gen, seq_lens, page=page, **shape)
     kq, ks = quantize_kv(kp * 3)  # scales far from 1: a wrong scale shows
     vq, vs = quantize_kv(vp)
     return q, kq, vq, ks[..., None].contiguous(), vs[..., None].contiguous(), tables, lens
@@ -200,24 +273,39 @@ def check_kernels(torch, gen) -> dict:
         e = errs[name]
         e["max_abs_err"], e["max_row_rel_err"] = max(e["max_abs_err"], err), max(e["max_row_rel_err"], rel)
 
-    for S in (32, 128, 1024):
+    for S in FLASH_CHECK_S:
+        # kv_len full, odd (S - 7), off every tile edge (S // 3 + 1), and 0;
+        # H=8 at 2048 keeps the dense plain version small
         kv_lens = [S, max(1, S - 7), S // 3 + 1, 0]
-        q, k, v, kv_len = flash_inputs(torch, gen, S, kv_lens)
-        got = flash_attention(q, k, v, kv_len, causal=True)
-        want = flash_attention_ref(q, k, v, kv_len, causal=True)
-        record("flash_attention", got, want, got[3].float().abs().max().item(), FLASH_ROW_TOL,
-               f"flash S={S} kv_len={kv_lens}")
-    q, kp, vp, tables, lens = paged_inputs(torch, gen, PAGED_CHECK_LENS)
-    got = paged_decode_attention(q, kp, vp, tables, lens)
-    want = paged_decode_attention_ref(q, kp, vp, tables, lens)
-    record("paged_decode_attention", got, want, got[0].float().abs().max().item(), PAGED_ROW_TOL,
-           f"paged bf16 seq_lens={PAGED_CHECK_LENS} page=16")
+        H, Hkv = (32, 8) if S <= 1024 else (8, 2)
+        for D in (64, 128):
+            for causal in (True, False):
+                q, k, v, kv_len = flash_inputs(torch, gen, S, kv_lens, H=H, Hkv=Hkv, D=D)
+                got = flash_attention(q, k, v, kv_len, causal=causal)
+                want = flash_attention_ref(q, k, v, kv_len, causal=causal)
+                record("flash_attention", got, want, got[3].float().abs().max().item(),
+                       FLASH_ROW_TOL, f"flash S={S} H={H} Hkv={Hkv} D={D} causal={int(causal)} "
+                       f"kv_len={kv_lens}")
+    # (lengths, H, Hkv, Dh): G = 4 at the model's widths, G = 8 at Dh 64
+    paged_cases = [(PAGED_CHECK_LENS, 32, 8, 128), (SPAN_CHECK_LENS, 32, 8, 128),
+                   ([LONE_ROW], 32, 8, 128), (SPAN_CHECK_LENS, 16, 2, 64)]
     for page in (16, 32):
-        q, kq, vq, ks, vs, tables, lens = paged_inputs_q(torch, gen, PAGED_CHECK_LENS, page)
-        got = paged_decode_attention_q(q, kq, vq, ks, vs, tables, lens)
-        want = paged_decode_attention_ref(q, kq, vq, tables, lens, k_scale=ks, v_scale=vs)
-        record("paged_decode_attention_q", got, want, got[0].float().abs().max().item(),
-               PAGED_ROW_TOL, f"paged int8 seq_lens={PAGED_CHECK_LENS} page={page}")
+        for lens_, H, Hkv, Dh in paged_cases:
+            shape = dict(H=H, Hkv=Hkv, Dh=Dh)
+            empty = lens_.index(0) if 0 in lens_ else None
+            what = f"seq_lens={lens_ if len(lens_) > 1 else lens_[0]} H={H} Hkv={Hkv} Dh={Dh} page={page}"
+            q, kp, vp, tables, lens = paged_inputs(torch, gen, lens_, page=page, **shape)
+            got = paged_decode_attention(q, kp, vp, tables, lens)
+            want = paged_decode_attention_ref(q, kp, vp, tables, lens)
+            record("paged_decode_attention", got, want,
+                   0.0 if empty is None else got[empty].float().abs().max().item(), PAGED_ROW_TOL,
+                   f"paged bf16 {what}")
+            q, kq, vq, ks, vs, tables, lens = paged_inputs_q(torch, gen, lens_, page, **shape)
+            got = paged_decode_attention_q(q, kq, vq, ks, vs, tables, lens)
+            want = paged_decode_attention_ref(q, kq, vq, tables, lens, k_scale=ks, v_scale=vs)
+            record("paged_decode_attention_q", got, want,
+                   0.0 if empty is None else got[empty].float().abs().max().item(), PAGED_ROW_TOL,
+                   f"paged int8 {what}")
     return errs
 
 
@@ -311,6 +399,47 @@ def time_kernels(torch, gen, timer: Timer, errs: dict, launches: dict) -> list[d
     rows.append(paged_row("paged_decode_attention_q", "gofr_tpu_torch/csrc/paged_attention.cu",
                           32, 128 + 4, quantized=True))
     return rows
+
+
+def time_information(torch, gen, timer: Timer) -> dict:
+    """Kernel times outside the main path's shapes, each beside its bound,
+    for information: flash on the largest bucket (S=2048) against
+    ``scaled_dot_product_attention``, and each paged kernel on one
+    4000-token row alone (B=1, split across blocks)."""
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_q
+
+    info = {}
+    S, H, Hkv, D = 2048, 32, 8, 128
+    q, k, v, kv_len = flash_inputs(torch, gen, S, [S])
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    b_ms, b_by = bound_ms(4 * H * D * S * (S + 1) // 2, 2 * (2 * q.numel() + k.numel() + v.numel()))
+    info["flash_attention_S2048"] = {
+        "ms": timer(lambda: flash_attention(q, k, v, kv_len)), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        "shape": f"B=1 S={S} H={H} Hkv={Hkv} D={D} causal bf16"}
+    del q, k, v, qt, kt, vt
+    for name, page, kv_bytes in (("paged_decode_attention", 16, 128 * 2),
+                                 ("paged_decode_attention_q", 32, 128 + 4)):
+        if name.endswith("_q"):
+            args = paged_inputs_q(torch, gen, [LONE_ROW], page)
+            fn = paged_decode_attention_q
+        else:
+            args = paged_inputs(torch, gen, [LONE_ROW], page=page)
+            fn = paged_decode_attention
+        b_ms, b_by = bound_ms(4 * 32 * 128 * LONE_ROW, 2 * 8 * kv_bytes * LONE_ROW + 2 * 2 * 32 * 128)
+        info[f"{name}_lone{LONE_ROW}"] = {
+            "ms": timer(lambda: fn(*args)), "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"B=1 H=32 Hkv=8 Dh=128 page={page} seq_len={LONE_ROW}"}
+    for n, r in info.items():
+        lib = f", library {r['library_ms']:.4f}" if "library_ms" in r else ""
+        print(f"(information) {n}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}"
+              f"{lib}) at {r['shape']}")
+    return info
 
 
 def dispatch_busy(torch, cfg, params) -> dict:
@@ -621,17 +750,27 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all()
+    ptxas_jobs = start_ptxas(_build)
+    try:
+        _build.build_all()
+    except BaseException:
+        for proc in ptxas_jobs.values():  # stop the report's compiles too
+            proc.kill()
+            proc.wait()
+        raise
     print(f"kernels built in {time.perf_counter() - t0:.1f}s ({_build.BUILD_DIR})")
+    ptxas = ptxas_report(ptxas_jobs)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
     launches, engine_timings = run_engine(torch)
-    rows = time_kernels(torch, gen, Timer(torch), errs, launches)
+    timer = Timer(torch)
+    rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
+    print(json.dumps({"information": time_information(torch, gen, timer), "ptxas": ptxas}))
     print(json.dumps({"engine": engine_timings}))
     print(card)
     print(json.dumps({"kernels": rows}))

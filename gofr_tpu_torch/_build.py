@@ -42,15 +42,17 @@ SIGNATURES: dict[str, list[tuple[str, list]]] = {
          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     ],
     "paged_attention": [
-        # q, k_pool, v_pool, block_tables, seq_lens, out,
-        # B, H, Hkv, Dh, page, n_pool_pages, max_pages, scale, stream
-        ("gofr_paged_decode_bf16",
-         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-        # q, k_pool, v_pool (int8), k_scale, v_scale (f32), block_tables,
-        # seq_lens, out, B, H, Hkv, Dh, page, n_pool_pages, max_pages,
+        # q, k_pool, v_pool, block_tables, seq_lens, out, part (f32
+        # scratch), counters (int32, zero between launches),
+        # B, H, Hkv, Dh, page, n_pool_pages, max_pages, pages_per_split,
         # scale, stream
+        ("gofr_paged_decode_bf16",
+         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # q, k_pool, v_pool (int8), k_scale, v_scale (f32), block_tables,
+        # seq_lens, out, part, counters, B, H, Hkv, Dh, page, n_pool_pages,
+        # max_pages, pages_per_split, scale, stream
         ("gofr_paged_decode_int8",
-         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     ],
 }
 

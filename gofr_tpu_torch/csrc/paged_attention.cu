@@ -22,29 +22,42 @@
 // H=32, Hkv=8, Dh=128, 2851 tokens) that is 11.7 MB, 0.0035 ms, for bf16
 // and 6.02 MB, 0.0018 ms, for int8.
 //
-// Design: one block per (kv head, sequence) serves that kv head's G query
-// heads together, so each K/V byte crosses HBM once per step rather than G
-// times. Eight warps split the sequence's pages round-robin; inside a warp
-// each half-warp takes every other token of the page and each of its 16
-// lanes holds Dh/16 contiguous elements, so a token row is one coalesced
-// load per lane: 16 bytes of bf16, or 8 bytes of int8 (4 at Dh 64) that
-// widen to f32 in registers with sign extension; the pools are never
-// widened in memory. A stretch of 16 tokens' K and V scales is one
-// coalesced read by the warp (lanes 0-15 the K scales, 16-31 the V
-// scales), handed to the half-warps by shuffles. The K scale folds into
-// the score (s = (q.kq) * ks * scale) and the V scale into the probability
-// before the PV accumulation (acc += (p * vs) * vq), so the dequantized
-// rows never exist. Scores are reduced across the 16 lanes by shuffles,
-// the online softmax (running max, denominator, accumulator) is kept in
-// f32 registers per half-warp, and the partial states are merged across
-// the two halves by shuffles and across the warps through shared memory at
-// the end. Pages at or past ceil(seq_len/page) are never read; page ids
-// are clamped into the pool as the reference's gather clamps.
+// Design: split across blocks in one launch (flash-decoding). The grid is
+// (Hkv, B, n_splits); split s of row b covers pages [s*pps, (s+1)*pps) of
+// its table (pps pages, a fixed token span the host picks from the page
+// size), and a block whose span lies past the row's live pages exits at
+// once, so no host read of seq_lens is needed. One block serves its kv
+// head's G query heads together, so each K/V byte crosses HBM once per
+// step rather than G times. The span's page ids are read once into shared
+// memory (clamped into the pool, as the reference's gather clamps). Eight
+// warps split the span's tokens; a token row is read as 16-byte loads, one
+// per lane: 16 lanes cover a Dh=128 bf16 row, 8 lanes an int8 row (16
+// values each), so a warp reads 2 (bf16) or 4 (int8) tokens per
+// instruction. A stretch's K rows, V rows and scales are all issued before
+// its math. Scores are reduced across a row's lanes by shuffles; the K
+// scale folds into the score (s = (q.kq) * ks * scale) and the V scale into
+// the probability (acc += (p * vs) * vq), so no dequantized row ever
+// exists. Each lane keeps an f32 online softmax (running max, denominator,
+// accumulator); the states merge across a warp's rows by shuffles and
+// across warps through shared memory. A row with one live span writes out
+// directly. Otherwise each live block writes its f32 partial (m, l,
+// acc[G][Dh]) to scratch, and the last block to arrive for (b, hk) (a
+// __threadfence, then atomicAdd on a per-(b, hk) counter) merges the
+// partials in split order, so the result is the same bit for bit whichever
+// block comes last, writes out and resets the counter to 0 for the next
+// launch.
 //
-// What holds both back (later work): at batch 8 the grid has only
-// Hkv * B = 64 blocks for 132 SMs, so split-K across blocks (for long
-// sequences at small batch) is the first fix; then cp.async staging of
-// the next page while the current one is reduced.
+// Span: 256 tokens (ops/paged_attention.py SPLIT_TOKENS), chosen on the
+// card against 128 and 512 (PERF.md). At the main path's batch that is
+// 16 live (row, span) pairs per kv head, 128 blocks for 132 SMs.
+//
+// What still holds it back (PERF.md): it runs at 5-10x its HBM bound,
+// bound by latency, not bandwidth. Each block waits on a chain of
+// dependent round trips (row length and page ids, then its K/V stretches,
+// then the partial write, fence and atomic, then the last block's read of
+// the partials) and moves only ~128 KB (bf16) or ~68 KB (int8); the next
+// stretch is not staged while the current one is reduced, and the launch
+// itself is a fixed few microseconds of the time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,87 +68,99 @@
 
 namespace {
 
-constexpr int NW = 8;            // warps per block
+constexpr int NW = 8;              // warps per block
 constexpr int THREADS = NW * 32;
-constexpr int LANES = 16;        // lanes per token row (a half-warp)
-constexpr int TOK = 8;           // tokens per half-warp per stretch
-constexpr int STRETCH = 2 * TOK; // tokens per warp per stretch
+constexpr int MAX_PPS = THREADS;   // pages per split: one page id per thread
 
-// Dh/16 bf16 at p -> f32 (bf16 is the high half of an f32)
-template <int VEC>
-__device__ __forceinline__ void load_row(const uint16_t* p, float (&x)[VEC]) {
-  static_assert(VEC == 8 || VEC == 4, "16 lanes cover Dh = 128 or 64");
-  if constexpr (VEC == 8) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+template <int DH, int G, typename KV>
+struct Cfg {
+  static constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  static constexpr int VEC = 16 / (int)sizeof(KV);   // elements per lane (one 16-byte load)
+  static constexpr int LANES = DH / VEC;             // lanes per token row
+  static constexpr int ROWS = 32 / LANES;            // tokens per warp instruction
+  static constexpr int U = G <= 4 ? 4 : 2;           // token groups per stretch
+  static_assert(LANES >= 4 && LANES <= 32, "Dh 64 or 128");
+};
+
+// 16 bytes of bf16 -> 8 f32 (bf16 is the high half of an f32)
+__device__ __forceinline__ void widen(const uint4& r, float (&x)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = __uint_as_float(w[i] << 16);
-      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  } else {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    const uint32_t w[2] = {r.x, r.y};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      x[2 * i] = __uint_as_float(w[i] << 16);
-      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
-// Dh/16 int8 at p -> f32. Each byte is taken as a signed char before the
-// conversion, so negative values sign-extend (a raw byte permute would not).
-template <int VEC>
-__device__ __forceinline__ void load_row(const int8_t* p, float (&x)[VEC]) {
-  static_assert(VEC == 8 || VEC == 4, "16 lanes cover Dh = 128 or 64");
-  uint32_t w[VEC / 4];
-  if constexpr (VEC == 8) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    w[0] = r.x;
-    w[1] = r.y;
-  } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
+// 16 bytes of int8 -> 16 f32. Each byte is taken as a signed char before
+// the conversion, so negative values sign-extend.
+__device__ __forceinline__ void widen(const uint4& r, float (&x)[16]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int i = 0; i < VEC / 4; ++i) {
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int8_t b = static_cast<int8_t>(static_cast<uint8_t>(w[i] >> (8 * j)));
-      x[4 * i + j] = __int2float_rn(static_cast<int>(b));
-    }
+    for (int j = 0; j < 4; ++j)
+      x[4 * i + j] = __int2float_rn((int)static_cast<int8_t>(static_cast<uint8_t>(w[i] >> (8 * j))));
   }
+}
+
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 // KV = uint16_t: bf16 pools, the scale pointers unused; KV = int8_t: int8
-// pools with f32 scales [n_pool, Hkv, page, 1].
+// pools with f32 scales [n_pool, Hkv, page, 1]. part: [B, Hkv, n_splits,
+// G, 2] (m, l) followed by [B, Hkv, n_splits, G, DH] (acc), f32; counters:
+// [B * Hkv] int32, 0 between launches.
+// One block an SM: the bf16 build then takes ~150 registers a thread, and
+// at the 256-token span ran faster than its 128-register, two-block build.
 template <int DH, int G, typename KV>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 paged_decode_kernel(const uint16_t* __restrict__ q, const KV* __restrict__ k_pool,
                     const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const int* __restrict__ tables,
-                    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int H,
-                    int Hkv, int page, int n_pool, int max_pages, float scale_log2) {
-  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
-  constexpr int VEC = DH / LANES;
+                    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ part, int* __restrict__ counters, int H, int Hkv,
+                    int page, int n_pool, int max_pages, int pps, float scale_log2) {
+  using C = Cfg<DH, G, KV>;
+  constexpr int VEC = C::VEC, LANES = C::LANES, ROWS = C::ROWS, U = C::U;
   __shared__ float sm_m[NW][G];
   __shared__ float sm_l[NW][G];
   __shared__ float sm_acc[NW][G][DH];
+  __shared__ int sm_pid[MAX_PPS];
+  __shared__ int sm_last;
 
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
+  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int n_splits = gridDim.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int half = lane >> 4, sub = lane & 15;
-  const int seq = max(seq_lens[b], 0);
-  const int n_pages = min((seq + page - 1) / page, max_pages);
+  const int slot = lane / LANES, sub = lane % LANES;
+  const int p0 = split * pps;
 
+  // the row's length, the span's page ids and q go out together (none
+  // depends on another), before the block knows whether its span is live
+  const int seq = max(seq_lens[b], 0);
+  int pid = 0;
+  if (threadIdx.x < min(pps, max_pages - p0)) pid = tables[(long)b * max_pages + p0 + threadIdx.x];
   float qv[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load_row<VEC>(q + ((long)b * H + hk * G + g) * DH + sub * VEC, qv[g]);
+    const uint16_t* qp = q + ((long)b * H + hk * G + g) * DH + sub * VEC;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qv[g][e] *= scale_log2;
+    for (int h8 = 0; h8 < VEC / 8; ++h8) {
+      float x[8];
+      widen(ldg16(qp + 8 * h8), x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qv[g][8 * h8 + e] = x[e] * scale_log2;
+    }
   }
+
+  const int n_pages = min((seq + page - 1) / page, max_pages);
+  const int n_live = (n_pages + pps - 1) / pps;
+  if (split >= max(n_live, 1)) return;  // past the row's live pages (split 0 always runs)
+  const int np = min(pps, n_pages - p0);  // <= 0 only when seq_len is 0
+  if (threadIdx.x < np) sm_pid[threadIdx.x] = min(max(pid, 0), n_pool - 1);
+  __syncthreads();
+  const int n_tok = max(0, min(np * page, seq - p0 * page));
 
   float m[G], l[G], acc[G][VEC];
 #pragma unroll
@@ -146,109 +171,98 @@ paged_decode_kernel(const uint16_t* __restrict__ q, const KV* __restrict__ k_poo
     for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
-  for (int p = warp; p < n_pages; p += NW) {
-    int pid = tables[(long)b * max_pages + p];
-    pid = min(max(pid, 0), n_pool - 1);
-    const long row0 = ((long)pid * Hkv + hk) * page;  // token 0 of this page and kv head
-    const KV* kp = k_pool + row0 * DH + sub * VEC;
-    const KV* vp = v_pool + row0 * DH + sub * VEC;
-    const int base = p * page;
-    for (int t0 = 0; t0 < page; t0 += STRETCH) {
-      // the stretch's scales: lane l < 16 holds token t0+l's K scale, lane
-      // 16+l its V scale (one coalesced read of each), shuffled to the
-      // half-warp that owns the token
-      float ks[TOK], vs[TOK];
-      if constexpr (QUANT) {
-        const int t = t0 + sub;
-        const float sc = t < page ? (half == 0 ? k_scale : v_scale)[row0 + t] : 0.f;
+  // token group gi holds tokens gi*ROWS .. gi*ROWS + ROWS-1 of the span; a
+  // warp takes groups warp, warp + NW, ...; U of them per stretch
+  const int n_groups = (n_tok + ROWS - 1) / ROWS;
+  for (int gi0 = warp; gi0 < n_groups; gi0 += NW * U) {
+    uint4 kr[U], vr[U];
+    float ks[U], vs[U];
+    bool ok[U];
 #pragma unroll
-        for (int i = 0; i < TOK; ++i) {
-          ks[i] = __shfl_sync(0xffffffffu, sc, 2 * i + half);
-          vs[i] = __shfl_sync(0xffffffffu, sc, LANES + 2 * i + half);
+    for (int u = 0; u < U; ++u) {
+      const int lt = (gi0 + u * NW) * ROWS + slot;
+      ok[u] = lt < n_tok;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      ks[u] = vs[u] = 0.f;
+      if (ok[u]) {
+        const int pg = lt / page;
+        const long row = ((long)sm_pid[pg] * Hkv + hk) * page + (lt - pg * page);
+        kr[u] = ldg16(k_pool + row * DH + sub * VEC);
+        vr[u] = ldg16(v_pool + row * DH + sub * VEC);
+        if constexpr (C::QUANT) {
+          ks[u] = __ldg(k_scale + row);
+          vs[u] = __ldg(v_scale + row);
         }
       }
-      float s[TOK][G];
-      bool ok[TOK];
+    }
+    // scores, reduced over the row's lanes
+    float s[U][G];
 #pragma unroll
-      for (int i = 0; i < TOK; ++i) {
-        const int tok = t0 + 2 * i + half;
-        ok[i] = tok < page && base + tok < seq;
-        float kx[VEC];
-        if (ok[i]) {
-          load_row<VEC>(kp + (long)tok * DH, kx);
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) kx[e] = 0.f;
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) d = fmaf(qv[g][e], kx[e], d);
-          s[i][g] = d;
-        }
-      }
-      // full dot products: sum over the 16 lanes of each half-warp
-#pragma unroll
-      for (int i = 0; i < TOK; ++i) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-#pragma unroll
-          for (int off = LANES / 2; off > 0; off >>= 1)
-            s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], off);
-          if constexpr (QUANT) s[i][g] *= ks[i];
-        }
-      }
-      float base_m[G];
+    for (int u = 0; u < U; ++u) {
+      float kx[VEC];
+      widen(kr[u], kx);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float mc = -INFINITY;
+        float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < TOK; ++i) mc = ok[i] ? fmaxf(mc, s[i][g]) : mc;
-        const float m_new = fmaxf(m[g], mc);
-        base_m[g] = (m_new == -INFINITY) ? 0.f : m_new;
-        const float corr = exp2f(m[g] - base_m[g]);
-        m[g] = m_new;
-        l[g] *= corr;
+        for (int e = 0; e < VEC; ++e) d = fmaf(qv[g][e], kx[e], d);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
+        for (int off = LANES / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        if constexpr (C::QUANT) d *= ks[u];
+        s[u][g] = d;
       }
+    }
+    float base_m[G];
 #pragma unroll
-      for (int i = 0; i < TOK; ++i) {
-        if (!ok[i]) continue;
-        const int tok = t0 + 2 * i + half;
-        float vx[VEC];
-        load_row<VEC>(vp + (long)tok * DH, vx);
+    for (int g = 0; g < G; ++g) {
+      float mc = -INFINITY;
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float pr = exp2f(s[i][g] - base_m[g]);
-          l[g] += pr;
-          float pv = pr;
-          if constexpr (QUANT) pv *= vs[i];
+      for (int u = 0; u < U; ++u) mc = ok[u] ? fmaxf(mc, s[u][g]) : mc;
+      const float m_new = fmaxf(m[g], mc);
+      base_m[g] = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr = exp2f(m[g] - base_m[g]);
+      m[g] = m_new;
+      l[g] *= corr;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pv, vx[e], acc[g][e]);
-        }
+      for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      float vx[VEC];
+      widen(vr[u], vx);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float pr = exp2f(s[u][g] - base_m[g]);
+        l[g] += pr;
+        float pv = pr;
+        if constexpr (C::QUANT) pv *= vs[u];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pv, vx[e], acc[g][e]);
       }
     }
   }
 
-  // merge the two half-warps (same Dh slice, disjoint tokens)
+  // merge the warp's row slots (same Dh slice, disjoint tokens)
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float m_o = __shfl_xor_sync(0xffffffffu, m[g], 16);
-    const float l_o = __shfl_xor_sync(0xffffffffu, l[g], 16);
-    const float mm = fmaxf(m[g], m_o);
-    const float bm = (mm == -INFINITY) ? 0.f : mm;
-    const float c_self = exp2f(m[g] - bm), c_other = exp2f(m_o - bm);
-    l[g] = l[g] * c_self + l_o * c_other;
+  for (int off = LANES; off < 32; off <<= 1) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float a_o = __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
-      acc[g][e] = acc[g][e] * c_self + a_o * c_other;
+    for (int g = 0; g < G; ++g) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mm = fmaxf(m[g], m_o);
+      const float bm = (mm == -INFINITY) ? 0.f : mm;
+      const float c_self = exp2f(m[g] - bm), c_other = exp2f(m_o - bm);
+      l[g] = l[g] * c_self + l_o * c_other;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float a_o = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = acc[g][e] * c_self + a_o * c_other;
+      }
+      m[g] = mm;
     }
-    m[g] = mm;
   }
-  if (half == 0) {
+  if (slot == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (sub == 0) {
@@ -261,7 +275,10 @@ paged_decode_kernel(const uint16_t* __restrict__ q, const KV* __restrict__ k_poo
   }
   __syncthreads();
 
-  // merge the warps and write out[b, hk*G + g, :]
+  // merge the warps: this block's (m, l, acc) for each (g, d)
+  const long row_pair = (long)b * Hkv + hk;
+  const long ml_base = row_pair * n_splits * G * 2;   // (m, l) of split 0, g 0
+  const long acc_base = (long)gridDim.y * Hkv * n_splits * G * 2 + row_pair * n_splits * G * DH;
   for (int i = threadIdx.x; i < G * DH; i += THREADS) {
     const int g = i / DH, d = i % DH;
     float mm = -INFINITY;
@@ -275,20 +292,51 @@ paged_decode_kernel(const uint16_t* __restrict__ q, const KV* __restrict__ k_poo
       lt += sm_l[w][g] * c;
       o += sm_acc[w][g][d] * c;
     }
+    if (n_live <= 1) {
+      out[((long)b * H + hk * G + g) * DH + d] = __float2bfloat16_rn(lt > 0.f ? o / lt : 0.f);
+    } else {
+      part[acc_base + ((long)split * G + g) * DH + d] = o;
+      if (d == 0) {
+        part[ml_base + ((long)split * G + g) * 2] = mm;
+        part[ml_base + ((long)split * G + g) * 2 + 1] = lt;
+      }
+    }
+  }
+  if (n_live <= 1) return;
+
+  // the last block of (b, hk) to arrive merges the partials in split order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) sm_last = atomicAdd(&counters[row_pair], 1) == n_live - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < G * DH; i += THREADS) {
+    const int g = i / DH, d = i % DH;
+    float mm = -INFINITY;
+    for (int s = 0; s < n_live; ++s) mm = fmaxf(mm, __ldcg(part + ml_base + ((long)s * G + g) * 2));
+    const float bm = (mm == -INFINITY) ? 0.f : mm;
+    float lt = 0.f, o = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float c = exp2f(__ldcg(part + ml_base + ((long)s * G + g) * 2) - bm);
+      lt += __ldcg(part + ml_base + ((long)s * G + g) * 2 + 1) * c;
+      o += __ldcg(part + acc_base + ((long)s * G + g) * DH + d) * c;
+    }
     out[((long)b * H + hk * G + g) * DH + d] = __float2bfloat16_rn(lt > 0.f ? o / lt : 0.f);
   }
+  if (threadIdx.x == 0) counters[row_pair] = 0;  // every block of (b, hk) has arrived
 }
 
 template <int DH, typename KV>
 cudaError_t launch_dh(int G, dim3 grid, cudaStream_t st, const uint16_t* q, const KV* kp,
                       const KV* vp, const float* ks, const float* vs, const int* tab,
-                      const int* lens, __nv_bfloat16* out, int H, int Hkv, int page, int n_pool,
-                      int max_pages, float sl2) {
-#define GOFR_PAGED_CASE(GV)                                                                   \
-  case GV:                                                                                    \
-    paged_decode_kernel<DH, GV, KV><<<grid, THREADS, 0, st>>>(q, kp, vp, ks, vs, tab, lens,   \
-                                                              out, H, Hkv, page, n_pool,      \
-                                                              max_pages, sl2);                \
+                      const int* lens, __nv_bfloat16* out, float* part, int* counters, int H,
+                      int Hkv, int page, int n_pool, int max_pages, int pps, float sl2) {
+#define GOFR_PAGED_CASE(GV)                                                                  \
+  case GV:                                                                                   \
+    paged_decode_kernel<DH, GV, KV><<<grid, THREADS, 0, st>>>(                               \
+        q, kp, vp, ks, vs, tab, lens, out, part, counters, H, Hkv, page, n_pool, max_pages, \
+        pps, sl2);                                                                           \
     break;
   switch (G) {
     GOFR_PAGED_CASE(1)
@@ -305,12 +353,15 @@ cudaError_t launch_dh(int G, dim3 grid, cudaStream_t st, const uint16_t* q, cons
 template <typename KV>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const void* block_tables, const void* seq_lens, void* out,
-           int B, int H, int Hkv, int Dh, int page, int n_pool_pages, int max_pages,
-           float scale, void* stream) {
+           void* part, void* counters, int B, int H, int Hkv, int Dh, int page,
+           int n_pool_pages, int max_pages, int pps, float scale, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || n_pool_pages <= 0)
+  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || n_pool_pages <= 0 || max_pages < 0 ||
+      pps <= 0 || pps > MAX_PPS || part == nullptr || counters == nullptr || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv, B);
+  const int n_splits = max(1, (max_pages + pps - 1) / pps);
+  if (n_splits > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Hkv, B, n_splits);
   const float sl2 = scale * 1.4426950408889634f;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const uint16_t*>(q);
@@ -321,14 +372,16 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   const auto* tab = static_cast<const int*>(block_tables);
   const auto* lens = static_cast<const int*>(seq_lens);
   auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* pp = static_cast<float*>(part);
+  auto* cp = static_cast<int*>(counters);
   const int G = H / Hkv;
   switch (Dh) {
     case 64:
-      return (int)launch_dh<64, KV>(G, grid, st, qp, kp, vp, ks, vs, tab, lens, op, H, Hkv,
-                                    page, n_pool_pages, max_pages, sl2);
+      return (int)launch_dh<64, KV>(G, grid, st, qp, kp, vp, ks, vs, tab, lens, op, pp, cp, H,
+                                    Hkv, page, n_pool_pages, max_pages, pps, sl2);
     case 128:
-      return (int)launch_dh<128, KV>(G, grid, st, qp, kp, vp, ks, vs, tab, lens, op, H, Hkv,
-                                     page, n_pool_pages, max_pages, sl2);
+      return (int)launch_dh<128, KV>(G, grid, st, qp, kp, vp, ks, vs, tab, lens, op, pp, cp, H,
+                                     Hkv, page, n_pool_pages, max_pages, pps, sl2);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -338,20 +391,22 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
 
 extern "C" int gofr_paged_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
                                       const void* block_tables, const void* seq_lens,
-                                      void* out, int B, int H, int Hkv, int Dh, int page,
-                                      int n_pool_pages, int max_pages, float scale,
-                                      void* stream) {
-  return launch<uint16_t>(q, k_pool, v_pool, nullptr, nullptr, block_tables, seq_lens, out, B,
-                          H, Hkv, Dh, page, n_pool_pages, max_pages, scale, stream);
+                                      void* out, void* part, void* counters, int B, int H,
+                                      int Hkv, int Dh, int page, int n_pool_pages,
+                                      int max_pages, int pps, float scale, void* stream) {
+  return launch<uint16_t>(q, k_pool, v_pool, nullptr, nullptr, block_tables, seq_lens, out,
+                          part, counters, B, H, Hkv, Dh, page, n_pool_pages, max_pages, pps,
+                          scale, stream);
 }
 
 extern "C" int gofr_paged_decode_int8(const void* q, const void* k_pool, const void* v_pool,
                                       const void* k_scale, const void* v_scale,
                                       const void* block_tables, const void* seq_lens,
-                                      void* out, int B, int H, int Hkv, int Dh, int page,
-                                      int n_pool_pages, int max_pages, float scale,
-                                      void* stream) {
+                                      void* out, void* part, void* counters, int B, int H,
+                                      int Hkv, int Dh, int page, int n_pool_pages,
+                                      int max_pages, int pps, float scale, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, block_tables, seq_lens, out, B,
-                        H, Hkv, Dh, page, n_pool_pages, max_pages, scale, stream);
+  return launch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, block_tables, seq_lens, out, part,
+                        counters, B, H, Hkv, Dh, page, n_pool_pages, max_pages, pps, scale,
+                        stream);
 }

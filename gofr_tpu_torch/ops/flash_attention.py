@@ -1,12 +1,17 @@
 """Flash-prefill attention (port of ``gofr_tpu/ops/flash_attention.py``).
 
 ``flash_attention`` launches the hand-written CUDA kernel in
-``csrc/flash_attention.cu`` (tensor-core mma.sync, f32 online softmax; the
-file's header gives its bound on the H100 and how the design meets it) for
-CUDA tensors, and runs :func:`flash_attention_ref` for CPU tensors. It
-replaces the Pallas TPU kernel ``gofr_tpu/ops/flash_attention.py::
-_flash_kernel``. The kernel masks the ragged edge itself, so any prefill
-bucket works, not only multiples of 128.
+``csrc/flash_attention.cu`` for CUDA tensors and runs
+:func:`flash_attention_ref` for CPU tensors. It replaces the Pallas TPU
+kernel ``gofr_tpu/ops/flash_attention.py::_flash_kernel``. The kernel is
+built for Hopper: a producer warp fills a ring of K/V tiles by TMA while
+two consumer warpgroups, 64 query rows each, run QKᵀ and PV on ``wgmma``
+with the softmax state in f32 registers (the file's header gives its bound
+on the H100 and the design). It reads q, k and v through tensor maps
+encoded on the host for each call, so it takes them contiguous; TMA
+zero-fills rows past the sequence and the kernel masks ``kv_len`` and the
+causal edge itself, so any prefill bucket works, not only multiples of
+the tile.
 """
 
 from __future__ import annotations

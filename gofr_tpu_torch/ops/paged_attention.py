@@ -8,12 +8,23 @@ per token and kv head) and are dequantized where they are read.
 
 ``paged_decode_attention`` (bf16 pools) and ``paged_decode_attention_q``
 (int8 pools) launch the hand-written CUDA kernels in
-``csrc/paged_attention.cu`` (one block per sequence and kv head; the
-file's header gives their HBM bounds on the H100 and how the design meets
-them) for CUDA tensors, and run :func:`paged_decode_attention_ref` for
-CPU tensors. They replace the Pallas TPU kernel
-``gofr_tpu/ops/paged_attention.py::_paged_kernel`` with
-``quantized=False`` and ``quantized=True``. The reference's
+``csrc/paged_attention.cu`` for CUDA tensors, and run
+:func:`paged_decode_attention_ref` for CPU tensors. They replace the
+Pallas TPU kernel ``gofr_tpu/ops/paged_attention.py::_paged_kernel`` with
+``quantized=False`` and ``quantized=True``. The kernel is split across
+blocks in one launch (flash-decoding): each block takes a span of
+``SPLIT_TOKENS`` tokens (whole pages, :func:`split_layout`) of one
+sequence and kv head, and the last block of a sequence to finish merges
+the spans' f32 partials from a scratch buffer (:func:`scratch_numel`)
+in a fixed order. The split count comes from the table's width, which
+the host knows, never from ``seq_lens``: a wrapper reads no device value,
+so the engine's double-buffered loop never waits on it. The file's
+header gives the kernels' HBM bounds on the H100 and the design.
+
+The per-(sequence, kv head) arrival counters live in one int32 buffer per
+device, zeroed once when it is allocated; each launch's last block resets
+its counters to 0. Launches on one device therefore run in stream order
+(the engine issues them all on one stream). The reference's
 ``INT8_MIN_PAGE`` and its gather fallback for small int8 pages are a
 Mosaic tiling rule: the CUDA kernel takes any page size.
 """
@@ -27,6 +38,41 @@ import torch
 from gofr_tpu_torch import _build
 
 NEG_INF = -1e30
+# tokens per block of the split (whole pages; see split_layout), chosen on
+# the card against 128 and 512 (PERF.md)
+SPLIT_TOKENS = 256
+MAX_PAGES_PER_SPLIT = 256  # the kernel's shared page-id list
+
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def split_layout(max_pages: int, page: int) -> tuple[int, int]:
+    """(pages per split, number of splits) for a table of ``max_pages``
+    columns: each block takes ``SPLIT_TOKENS`` tokens rounded down to whole
+    pages (at least one, at most ``MAX_PAGES_PER_SPLIT``), and the grid has
+    a split for every such span of the table, live or not."""
+    pps = min(max(1, SPLIT_TOKENS // page), MAX_PAGES_PER_SPLIT)
+    return pps, max(1, -(-max_pages // pps))
+
+
+def scratch_numel(B: int, Hkv: int, G: int, Dh: int, n_splits: int) -> int:
+    """f32 elements of the kernel's partials: (m, l) then acc[Dh] for every
+    (sequence, kv head, split, query head of the group)."""
+    return B * Hkv * n_splits * G * (Dh + 2)
+
+
+def _split_buffers(q: torch.Tensor, Hkv: int, page: int, max_pages: int):
+    """(pages per split, f32 scratch, int32 counters) for one launch. The
+    scratch is fresh from the caching allocator; the counters are the
+    device's own, grown (zeroed) when a launch needs more."""
+    B, H, Dh = q.shape
+    pps, n_splits = split_layout(max_pages, page)
+    part = torch.empty(scratch_numel(B, Hkv, H // Hkv, Dh, n_splits), dtype=torch.float32,
+                       device=q.device)
+    counters = _counters.get(q.device)
+    if counters is None or counters.numel() < B * Hkv:
+        counters = _counters[q.device] = torch.zeros(B * Hkv, dtype=torch.int32, device=q.device)
+    return pps, part, counters
 
 
 def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -84,20 +130,23 @@ def paged_decode_attention(
     """Decode attention through block tables over bf16 pools, [B, H, Dh]
     out in q's dtype. Reads only the pages below ``ceil(seq_len/page)`` of
     each sequence. CPU tensors take the plain version; CUDA tensors launch
-    the kernel, which takes contiguous bf16 q/pools with Dh 64 or 128,
-    G = H/Hkv in {1, 2, 4, 8} and int32 tables and lengths, and raises on
-    anything else."""
+    the kernel once, split across blocks by ``SPLIT_TOKENS`` spans, with
+    no read of a device value on the host. It takes contiguous bf16
+    q/pools with Dh 64 or 128, G = H/Hkv in {1, 2, 4, 8} and int32 tables
+    and lengths, and raises on anything else."""
     B, H, Dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, scale)
     _check_inputs(q, k_pool, v_pool, block_tables, seq_lens)
     N, Hkv, page, _ = k_pool.shape
+    M = block_tables.shape[1]
+    pps, part, counters = _split_buffers(q, Hkv, page, M)
     out = torch.empty_like(q)
     status = _build.library("paged_attention").gofr_paged_decode_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, H, Hkv, Dh, page, N,
-        block_tables.shape[1], float(scale),
+        seq_lens.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        B, H, Hkv, Dh, page, N, M, pps, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "paged_decode_attention")
@@ -121,9 +170,10 @@ def paged_decode_attention_q(
     """Decode attention through block tables over int8 pools with f32
     per-vector scales, dequantized inside the kernel (the pools are never
     widened in memory); [B, H, Dh] out in q's dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel, which takes what the
-    bf16 kernel takes but int8 pools and contiguous f32 scales
-    ``[N, Hkv, page, 1]``, and raises on anything else."""
+    plain version; CUDA tensors launch the kernel as the bf16 entry does
+    (one launch, split across blocks), which takes what the bf16 kernel
+    takes but int8 pools and contiguous f32 scales ``[N, Hkv, page, 1]``,
+    and raises on anything else."""
     B, H, Dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     if q.device.type == "cpu":
@@ -132,11 +182,13 @@ def paged_decode_attention_q(
         )
     _check_inputs(q, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale)
     N, Hkv, page, _ = k_pool.shape
+    M = block_tables.shape[1]
+    pps, part, counters = _split_buffers(q, Hkv, page, M)
     out = torch.empty_like(q)
     status = _build.library("paged_attention").gofr_paged_decode_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, H, Hkv, Dh, page, N, block_tables.shape[1], float(scale),
+        part.data_ptr(), counters.data_ptr(), B, H, Hkv, Dh, page, N, M, pps, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "paged_decode_attention_q")

@@ -91,16 +91,20 @@ def test_kernel_input_checks_refuse(change, err):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [32, 128, 1024])
-def test_kernel_matches_plain_version_on_card(cuda_device, S):
-    gen = torch.Generator(device="cuda").manual_seed(S)
-    B, H, Hkv, D = 4, 32, 8, 128
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [32, 128, 200, 1024, 2048])
+def test_kernel_matches_plain_version_on_card(cuda_device, S, D, causal):
+    """Buckets on and off the 128-row query tile and the 64-key tile; kv_len
+    full, odd, off every tile edge, and 0 (that row exactly 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(S + D + int(causal))
+    B, H, Hkv = 4, (32 if S <= 1024 else 8), (8 if S <= 1024 else 2)
     q = torch.randn((B, S, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
     k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda", dtype=torch.bfloat16)
     v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda", dtype=torch.bfloat16)
     kv_len = torch.tensor([S, S - 7, S // 3 + 1, 0], dtype=torch.int32, device="cuda")
-    got = tflash.flash_attention(q, k, v, kv_len)
-    want = tflash.flash_attention_ref(q, k, v, kv_len)
+    got = tflash.flash_attention(q, k, v, kv_len, causal=causal)
+    want = tflash.flash_attention_ref(q, k, v, kv_len, causal=causal)
     torch.cuda.synchronize()
     assert _row_rel_err(got, want) <= ROW_TOL
     assert not got[3].any()

@@ -34,7 +34,8 @@ def _one_torch_thread():
 
 
 def _port_files() -> list[Path]:
-    return sorted((ROOT / "gofr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "gofr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                             ROOT / "kernel_sweep.py"]
 
 
 def _imported(path: Path) -> set[str]:
@@ -108,3 +109,48 @@ def test_build_needs_nvcc_and_imports_without_it(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library("flash_attention")
     assert not (tmp_path / "build").exists()
+
+
+class _Done:
+    """A finished nvcc process with the given output."""
+
+    def __init__(self, out: str, returncode: int = 0):
+        self.out, self.returncode = out, returncode
+
+    def communicate(self):
+        return self.out, None
+
+
+_PTXAS = """ptxas info    : Compiling entry function '_ZN51_GLOBAL__N_{k}' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N_{k}
+    {stack} bytes stack frame, {st} bytes spill stores, {ld} bytes spill loads
+ptxas info    : Used {regs} registers, used 1 barriers, {smem} bytes smem
+"""
+
+
+def test_chip_smoke_reads_each_path_instance_from_ptxas():
+    """The card run's build phase reports registers, spills and static
+    shared memory of each main-path kernel instantiation, and fails when
+    ptxas says it serialized wgmma."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    flash = "".join(_PTXAS.format(k=f"16flash_fwd_kernelILi{d}EEEv14CUtensorMap", stack=0, st=0, ld=0,
+                                  regs=r, smem=48) for d, r in ((128, 160), (64, 130)))
+    paged = "".join(_PTXAS.format(k=f"19paged_decode_kernelILi128ELi{g}E{t}EEvPKt", stack=s, st=s,
+                                  ld=2 * s, regs=r, smem=17668) for g, t, r, s in
+                    ((4, "t", 153, 0), (4, "a", 243, 0), (8, "a", 255, 472)))
+    report = cs.ptxas_report({"flash_attention": _Done(flash), "paged_attention": _Done(paged)})
+    assert report["flash D=128"] == dict(stack=0, spill_stores=0, spill_loads=0, registers=160,
+                                         static_smem=48)
+    assert report["paged bf16 Dh=128 G=4"]["registers"] == 153
+    assert report["paged int8 Dh=128 G=4"] == dict(stack=0, spill_stores=0, spill_loads=0, registers=243,
+                                                   static_smem=17668)
+    serialized = flash + ("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async "
+                          "instructions are serialized due to ...\n")
+    with pytest.raises(RuntimeError, match="serialized"):
+        cs.ptxas_report({"flash_attention": _Done(serialized)})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cs.ptxas_report({"flash_attention": _Done("error", returncode=1)})

@@ -113,17 +113,81 @@ def test_kernel_input_checks_refuse(field, value, err):
         tpaged._check_inputs(*args.values())
 
 
+# card cases: (seq_lens, H, Hkv, Dh). Lengths end exactly at a split span
+# (256 tokens) and one past it, hold 0, page edges and ragged ends; a lone
+# 4000-token row is split across 16 blocks; G = 4 and G = 8 / 2.
+SPAN_LENS = (0, 1, 15, 17, 256, 257, 1000, 512, 333, 999)
+CARD_CASES = [
+    (SPAN_LENS, 32, 8, 128),
+    ((4000,), 32, 8, 128),
+    (SPAN_LENS, 16, 2, 64),
+    (SPAN_LENS, 16, 8, 128),
+]
+CARD_IDS = ["g4-batch", "g4-lone-4000", "g8-dh64", "g2"]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card(cuda_device):
-    q, kp, vp, tables, lens = _inputs(5, (0, 1, 15, 17, 1000, 333, 64, 999), 32, 8, Dh=128, page=16)
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("seq_lens,H,Hkv,Dh", CARD_CASES, ids=CARD_IDS)
+def test_kernel_matches_plain_version_on_card(cuda_device, seq_lens, H, Hkv, Dh, page):
+    q, kp, vp, tables, lens = _inputs(5, seq_lens, H, Hkv, Dh=Dh, page=page)
     dev = [torch.from_numpy(a).to("cuda") for a in (q, kp, vp, tables, lens)]
     for i in range(3):
         dev[i] = dev[i].to(torch.bfloat16)
     got = tpaged.paged_decode_attention(*dev)
+    again = tpaged.paged_decode_attention(*dev)  # the counters were reset: same bits
     want = tpaged.paged_decode_attention_ref(*dev)
     torch.cuda.synchronize()
     assert _row_rel_err(got, want) <= ROW_TOL
-    assert not got[0].any()
+    assert torch.equal(got, again)
+    for b, n in enumerate(seq_lens):
+        if n == 0:
+            assert not got[b].any()
+
+
+@pytest.mark.parametrize(
+    "max_pages,page,want",
+    [(64, 16, (16, 4)), (128, 16, (16, 8)), (1, 32, (8, 1)), (0, 16, (16, 1)),
+     (250, 1, (256, 1)), (3, 512, (1, 3))],
+    ids=["engine-b8", "bf16-path", "one-page", "empty-table", "page-1-capped", "page-past-span"],
+)
+def test_split_layout(max_pages, page, want):
+    """Whole pages per split, at least one and at most the kernel's list;
+    a split for every span of the table, and at least one."""
+    assert tpaged.split_layout(max_pages, page) == want
+
+
+def test_split_buffers_shapes_and_counter_reuse():
+    """Scratch holds (m, l, acc[Dh]) per (row, kv head, split, group head);
+    the counters are zeroed once per device and grown, not reallocated,
+    while large enough (the kernel resets them)."""
+    q = torch.zeros((8, 32, 128), dtype=torch.bfloat16)
+    pps, part, counters = tpaged._split_buffers(q, 8, 16, 128)
+    assert pps == 16 and part.dtype == torch.float32
+    assert part.numel() == tpaged.scratch_numel(8, 8, 4, 128, 8) == 8 * 8 * 8 * 4 * 130
+    assert counters.dtype == torch.int32 and counters.numel() >= 64 and not counters.any()
+    _, _, again = tpaged._split_buffers(q[:2], 8, 16, 128)
+    assert again is counters
+    _, _, grown = tpaged._split_buffers(torch.zeros((20, 32, 128), dtype=torch.bfloat16), 8, 16, 128)
+    assert grown.numel() >= 160 and not grown.any()
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Each extern "C" entry of csrc/ takes as many pointers, ints and floats,
+    in the same order, as ``_build.SIGNATURES`` declares for ctypes."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from gofr_tpu_torch import _build
+
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    for name, entries in _build.SIGNATURES.items():
+        src = (Path(_build.CSRC) / f"{name}.cu").read_text()
+        for fn, argtypes in entries:
+            params = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src).group(1).split(",")
+            got = "".join("p" if "*" in p else "f" if "float" in p else "i" for p in params)
+            assert got == "".join(kinds[a] for a in argtypes), fn
 
 
 def _row_rel_err(got, want):

@@ -136,19 +136,43 @@ def test_kernel_input_checks_refuse(field, value, err):
         tpaged._check_inputs(*args.values())
 
 
+# card cases: (seq_lens, H, Hkv, Dh), as the bf16 kernel's card test
+SPAN_LENS = (0, 1, 15, 17, 256, 257, 1000, 512, 333, 999)
+CARD_CASES = [
+    (SPAN_LENS, 32, 8, 128),
+    ((4000,), 32, 8, 128),
+    (SPAN_LENS, 16, 2, 64),
+    (SPAN_LENS, 16, 8, 128),
+]
+CARD_IDS = ["g4-batch", "g4-lone-4000", "g8-dh64", "g2"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("page", [16, 32])
-def test_kernel_matches_plain_version_on_card(cuda_device, page):
-    q, kq, vq, ks, vs, tables, lens = _inputs(
-        5, (0, 1, 15, 17, 1000, 333, 64, 999), 32, 8, Dh=128, page=page
-    )
+@pytest.mark.parametrize("seq_lens,H,Hkv,Dh", CARD_CASES, ids=CARD_IDS)
+def test_kernel_matches_plain_version_on_card(cuda_device, seq_lens, H, Hkv, Dh, page):
+    q, kq, vq, ks, vs, tables, lens = _inputs(5, seq_lens, H, Hkv, Dh=Dh, page=page)
     dev = [torch.from_numpy(a).to("cuda") for a in (q, kq, vq, ks, vs, tables, lens)]
     dev[0] = dev[0].to(torch.bfloat16)
     got = tpaged.paged_decode_attention_q(*dev)
+    again = tpaged.paged_decode_attention_q(*dev)  # the counters were reset: same bits
     want = tpaged.paged_decode_attention_ref(*dev[:3], *dev[5:], k_scale=dev[3], v_scale=dev[4])
     torch.cuda.synchronize()
     assert _row_rel_err(got, want) <= ROW_TOL
-    assert not got[0].any()
+    assert torch.equal(got, again)
+    for b, n in enumerate(seq_lens):
+        if n == 0:
+            assert not got[b].any()
+
+
+def test_split_buffers_follow_the_int8_pool_page():
+    """The int8 entry splits by the same rule: 32-token pages give 8 pages
+    (256 tokens) per split, and the scratch does not depend on the pool
+    type."""
+    q = torch.zeros((1, 32, 128), dtype=torch.bfloat16)
+    pps, part, _ = tpaged._split_buffers(q, 8, 32, 125)  # a 4000-token row
+    assert pps == 8 and tpaged.split_layout(125, 32) == (8, 16)
+    assert part.numel() == 1 * 8 * 16 * 4 * 130
 
 
 def _row_rel_err(got, want):
