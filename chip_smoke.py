@@ -37,8 +37,9 @@ Phases, each a hard failure with a non-zero exit:
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
-   each paged kernel on the lone 4000-token row, each beside its bound;
-   and time each engine path (TTFT, ms per decode step).
+   each paged kernel on the lone 4000-token row, each beside its bound,
+   and each paged wrapper's host time per call; and time each engine path
+   (TTFT, ms per decode step).
 
 The line before the last is the ``kernels`` record; the last line is the
 contract line ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -401,6 +402,34 @@ def time_kernels(torch, gen, timer: Timer, errs: dict, launches: dict) -> list[d
     return rows
 
 
+def wrapper_host_us(torch, gen, calls: int = 200) -> dict:
+    """Host time of one call of each paged wrapper (its checks, buffers and
+    launch), in microseconds: the median over 5 rounds of ``calls`` calls
+    at the main path's decode batch, with no synchronize between calls.
+    It calls only the wrappers' public signatures, so it can time another
+    checkout's package too (import that package first)."""
+    from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_q
+
+    out = {}
+    for name, fn, args in (
+        ("paged_decode_attention", paged_decode_attention, paged_inputs(torch, gen, DECODE_LENS, page=16)),
+        ("paged_decode_attention_q", paged_decode_attention_q, paged_inputs_q(torch, gen, DECODE_LENS, 32)),
+    ):
+        fn(*args)
+        torch.cuda.synchronize()
+        rounds = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            rounds.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        out[name] = sorted(rounds)[2]
+    print("(information) paged wrapper host us per call: "
+          + ", ".join(f"{n} {us:.2f}" for n, us in out.items()))
+    return out
+
+
 def time_information(torch, gen, timer: Timer) -> dict:
     """Kernel times outside the main path's shapes, each beside its bound,
     for information: flash on the largest bucket (S=2048) against
@@ -439,6 +468,7 @@ def time_information(torch, gen, timer: Timer) -> dict:
         lib = f", library {r['library_ms']:.4f}" if "library_ms" in r else ""
         print(f"(information) {n}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}"
               f"{lib}) at {r['shape']}")
+    info["paged_wrapper_host_us"] = wrapper_host_us(torch, gen)
     return info
 
 

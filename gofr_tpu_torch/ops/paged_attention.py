@@ -21,10 +21,12 @@ the host knows, never from ``seq_lens``: a wrapper reads no device value,
 so the engine's double-buffered loop never waits on it. The file's
 header gives the kernels' HBM bounds on the H100 and the design.
 
-The per-(sequence, kv head) arrival counters live in one int32 buffer per
-device, zeroed once when it is allocated; each launch's last block resets
-its counters to 0. Launches on one device therefore run in stream order
-(the engine issues them all on one stream). The reference's
+The scratch and the per-(sequence, kv head) arrival counters are kept per
+(device, stream) and grown when a launch needs more, so a call allocates
+nothing; the counters are zeroed once when allocated, and each launch's
+last block resets its own to 0. Launches that share the buffers are thus
+ordered by their stream, and a launch on another stream gets its own.
+The reference's
 ``INT8_MIN_PAGE`` and its gather fallback for small int8 pages are a
 Mosaic tiling rule: the CUDA kernel takes any page size.
 """
@@ -39,19 +41,19 @@ from gofr_tpu_torch import _build
 
 NEG_INF = -1e30
 # tokens per block of the split (whole pages; see split_layout), chosen on
-# the card against 128 and 512 (PERF.md)
+# the card against 128 and 512 (PERF.md); at most the kernel's 256 page ids
 SPLIT_TOKENS = 256
-MAX_PAGES_PER_SPLIT = 256  # the kernel's shared page-id list
 
-_counters: dict[torch.device, torch.Tensor] = {}
+# (device, stream) -> (f32 scratch, int32 arrival counters)
+_buffers: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def split_layout(max_pages: int, page: int) -> tuple[int, int]:
     """(pages per split, number of splits) for a table of ``max_pages``
     columns: each block takes ``SPLIT_TOKENS`` tokens rounded down to whole
-    pages (at least one, at most ``MAX_PAGES_PER_SPLIT``), and the grid has
-    a split for every such span of the table, live or not."""
-    pps = min(max(1, SPLIT_TOKENS // page), MAX_PAGES_PER_SPLIT)
+    pages (at least one), and the grid has a split for every such span of
+    the table, live or not."""
+    pps = max(1, SPLIT_TOKENS // page)
     return pps, max(1, -(-max_pages // pps))
 
 
@@ -61,17 +63,20 @@ def scratch_numel(B: int, Hkv: int, G: int, Dh: int, n_splits: int) -> int:
     return B * Hkv * n_splits * G * (Dh + 2)
 
 
-def _split_buffers(q: torch.Tensor, Hkv: int, page: int, max_pages: int):
-    """(pages per split, f32 scratch, int32 counters) for one launch. The
-    scratch is fresh from the caching allocator; the counters are the
-    device's own, grown (zeroed) when a launch needs more."""
+def _split_buffers(q: torch.Tensor, Hkv: int, page: int, max_pages: int, stream: int):
+    """(pages per split, f32 scratch, int32 counters) for one launch on
+    ``stream`` (its handle): the (device, stream)'s own buffers, each
+    replaced by a larger one (counters zeroed) when the launch needs more."""
     B, H, Dh = q.shape
     pps, n_splits = split_layout(max_pages, page)
-    part = torch.empty(scratch_numel(B, Hkv, H // Hkv, Dh, n_splits), dtype=torch.float32,
-                       device=q.device)
-    counters = _counters.get(q.device)
+    key = (q.device, stream)
+    part, counters = _buffers.get(key, (None, None))
+    need = scratch_numel(B, Hkv, H // Hkv, Dh, n_splits)
+    if part is None or part.numel() < need:
+        part = torch.empty(need, dtype=torch.float32, device=q.device)
     if counters is None or counters.numel() < B * Hkv:
-        counters = _counters[q.device] = torch.zeros(B * Hkv, dtype=torch.int32, device=q.device)
+        counters = torch.zeros(B * Hkv, dtype=torch.int32, device=q.device)
+    _buffers[key] = part, counters
     return pps, part, counters
 
 
@@ -141,13 +146,14 @@ def paged_decode_attention(
     _check_inputs(q, k_pool, v_pool, block_tables, seq_lens)
     N, Hkv, page, _ = k_pool.shape
     M = block_tables.shape[1]
-    pps, part, counters = _split_buffers(q, Hkv, page, M)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pps, part, counters = _split_buffers(q, Hkv, page, M, stream)
     out = torch.empty_like(q)
     status = _build.library("paged_attention").gofr_paged_decode_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
         seq_lens.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
         B, H, Hkv, Dh, page, N, M, pps, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        stream,
     )
     _build.check(status, "paged_decode_attention")
     paged_decode_attention.launches += 1
@@ -183,13 +189,14 @@ def paged_decode_attention_q(
     _check_inputs(q, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale)
     N, Hkv, page, _ = k_pool.shape
     M = block_tables.shape[1]
-    pps, part, counters = _split_buffers(q, Hkv, page, M)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pps, part, counters = _split_buffers(q, Hkv, page, M, stream)
     out = torch.empty_like(q)
     status = _build.library("paged_attention").gofr_paged_decode_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         part.data_ptr(), counters.data_ptr(), B, H, Hkv, Dh, page, N, M, pps, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        stream,
     )
     _build.check(status, "paged_decode_attention_q")
     paged_decode_attention_q.launches += 1

@@ -34,8 +34,7 @@ def _one_torch_thread():
 
 
 def _port_files() -> list[Path]:
-    return sorted((ROOT / "gofr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                             ROOT / "kernel_sweep.py"]
+    return sorted((ROOT / "gofr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported(path: Path) -> set[str]:

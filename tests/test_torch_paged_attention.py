@@ -157,19 +157,41 @@ def test_split_layout(max_pages, page, want):
     assert tpaged.split_layout(max_pages, page) == want
 
 
+def test_split_span_fits_the_kernels_page_list():
+    """However small the page, a split's page ids fit the kernel's shared
+    list (one per thread), whose launcher refuses more."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tpaged.__file__).resolve().parents[1] / "csrc" / "paged_attention.cu").read_text()
+    assert re.search(r"constexpr int MAX_PPS = THREADS;", src)
+    threads = 32 * int(re.search(r"constexpr int NW = (\d+);", src).group(1))
+    assert re.search(r"pps > MAX_PPS", src)
+    assert max(tpaged.split_layout(4096, page)[0] for page in (1, 2, 16, 32)) <= threads
+
+
 def test_split_buffers_shapes_and_counter_reuse():
     """Scratch holds (m, l, acc[Dh]) per (row, kv head, split, group head);
-    the counters are zeroed once per device and grown, not reallocated,
-    while large enough (the kernel resets them)."""
+    scratch and counters belong to one (device, stream), are reused while
+    large enough (the kernel resets the counters) and replaced by larger
+    ones (counters zeroed) when a launch needs more; another stream gets
+    its own."""
+    stream, other = 0x5EED01, 0x5EED02  # stand-ins for CUDA stream handles
+    for key in ((torch.device("cpu"), stream), (torch.device("cpu"), other)):
+        tpaged._buffers.pop(key, None)
     q = torch.zeros((8, 32, 128), dtype=torch.bfloat16)
-    pps, part, counters = tpaged._split_buffers(q, 8, 16, 128)
+    pps, part, counters = tpaged._split_buffers(q, 8, 16, 128, stream)
     assert pps == 16 and part.dtype == torch.float32
     assert part.numel() == tpaged.scratch_numel(8, 8, 4, 128, 8) == 8 * 8 * 8 * 4 * 130
     assert counters.dtype == torch.int32 and counters.numel() >= 64 and not counters.any()
-    _, _, again = tpaged._split_buffers(q[:2], 8, 16, 128)
-    assert again is counters
-    _, _, grown = tpaged._split_buffers(torch.zeros((20, 32, 128), dtype=torch.bfloat16), 8, 16, 128)
+    _, part_again, again = tpaged._split_buffers(q[:2], 8, 16, 128, stream)
+    assert again is counters and part_again is part
+    _, part_grown, grown = tpaged._split_buffers(torch.zeros((20, 32, 128), dtype=torch.bfloat16),
+                                                 8, 16, 128, stream)
     assert grown.numel() >= 160 and not grown.any()
+    assert part_grown.numel() == tpaged.scratch_numel(20, 8, 4, 128, 8)
+    _, part_other, counters_other = tpaged._split_buffers(q, 8, 16, 128, other)
+    assert part_other is not part_grown and counters_other is not grown
 
 
 def test_c_entry_points_match_their_ctypes_signatures():

@@ -169,8 +169,10 @@ def test_split_buffers_follow_the_int8_pool_page():
     """The int8 entry splits by the same rule: 32-token pages give 8 pages
     (256 tokens) per split, and the scratch does not depend on the pool
     type."""
+    stream = 0x5EED03  # a stand-in for a CUDA stream handle
+    tpaged._buffers.pop((torch.device("cpu"), stream), None)
     q = torch.zeros((1, 32, 128), dtype=torch.bfloat16)
-    pps, part, _ = tpaged._split_buffers(q, 8, 32, 125)  # a 4000-token row
+    pps, part, _ = tpaged._split_buffers(q, 8, 32, 125, stream)  # a 4000-token row
     assert pps == 8 and tpaged.split_layout(125, 32) == (8, 16)
     assert part.numel() == 1 * 8 * 16 * 4 * 130
 
