@@ -19,7 +19,7 @@ Phases, each a hard failure with a non-zero exit:
    0, odd and off every tile edge; both paged kernels at pages 16 and 32
    with lengths 0, on and one past a split span, a lone 4000-token row
    (B=1), and groups of 4 and 8 query heads;
-3. drive two engine paths through ``ServingEngine.submit`` at Llama-3-8B
+3. drive four engine paths through ``ServingEngine.submit`` at Llama-3-8B
    widths (random weights from a seeded generator), each with the
    kernels' launch counters reset just before and read just after:
    - ``bf16``: bf16 paged KV, every prompt prefilled whole (flash kernel),
@@ -28,18 +28,27 @@ Phases, each a hard failure with a non-zero exit:
      256-token prefill chunks, prompts up to 3000 tokens (past the
      largest bucket): short prompts prefill whole, long ones chunk through
      the unified ragged dispatch, decode through the int8 paged kernel;
+   - ``dense``: the reference's defaults, the dense slot cache with bf16
+     KV and 256-token chunks: prompts of at most 256 tokens prefill whole
+     (flash), longer ones chunk through the dense ragged dispatch, decode
+     reads each row's whole layer cache in plain PyTorch (as the
+     reference's XLA does); neither paged kernel may launch;
+   - ``dense-w8``: the dense cache with int8 KV and weight-only int8
+     params (``quantize_params`` of the same weights, on the card), prompts
+     up to 3000 tokens;
    then serve one greedy request alone on each path and hold the logits
    the engine computed for it (its prefill's or final chunk's, and its
-   decode steps', through the paged pool) against a plain dense forward of
-   the same weights over the prompt and the tokens the engine generated
-   (on the int8 path with K/V passed through ``quantize_kv`` and
-   ``dequantize_kv`` at every layer);
+   decode steps', through the pool or the slot cache) against a plain
+   dense forward of the same weights over the prompt and the tokens the
+   engine generated (on the int8 paths with K/V passed through
+   ``quantize_kv`` and ``dequantize_kv`` at every layer);
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
    each paged kernel on the lone 4000-token row, each beside its bound,
-   and each paged wrapper's host time per call; and time each engine path
-   (TTFT, ms per decode step).
+   and each paged wrapper's host time per call; the wall and kernel time
+   of one decode block of each layout (bf16 and int8 weights on the dense
+   cache); and time each engine path (TTFT, ms per decode step).
 
 The line before the last is the ``kernels`` record; the last line is the
 contract line ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -472,7 +481,18 @@ def time_information(torch, gen, timer: Timer) -> dict:
     return info
 
 
-def dispatch_busy(torch, cfg, params) -> dict:
+def kernel_label(key: str) -> str:
+    """A profiler kernel name cut short: its head (up to 48 characters)
+    and, for PyTorch's templated elementwise kernels, whose heads all look
+    alike, the operation inside (``direct_copy_kernel_cuda``, a
+    ``...Functor``)."""
+    name = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    head = name.split("(")[0].split("<")[0][:48]
+    ops = re.findall(r"(\w+_kernel_cuda|\w+Functor)\b", key)
+    return f"{head} {ops[-1]}" if ops else head
+
+
+def dispatch_busy(torch, cfg, params, params_w8) -> dict:
     """Where a dispatch's time goes: host wall time of one call of the
     engine's device functions, synchronized (median of 5), against the sum
     of the kernel times ``torch.profiler`` records for one more call. The
@@ -480,7 +500,11 @@ def dispatch_busy(torch, cfg, params) -> dict:
     issue work. Cases: the N-step decode block at batch 8 (512 tokens of
     context a row) over bf16 and int8 pools, and a ragged dispatch that
     runs one 256-token chunk alone (the fourth chunk of a 1000-token
-    prompt, as the int8 path's TTFT runs it)."""
+    prompt, as the int8 path's TTFT runs it); then the dense decode block
+    at the same batch and context over the dense paths' caches: bf16 KV
+    at 2048 positions with bf16 and with int8 weights (their difference is
+    what the weights' eager int8-to-bf16 copies cost), and int8 KV at 4096
+    positions with int8 weights."""
     from torch.profiler import ProfilerActivity, profile
 
     from gofr_tpu_torch.serving import batch as batch_ops
@@ -505,14 +529,24 @@ def dispatch_busy(torch, cfg, params) -> dict:
         events = prof.key_averages()
         kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
         wall = sorted(walls)[2]
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+        by_label: dict = {}
+        for e in events:
+            label = kernel_label(e.key)
+            by_label[label] = by_label.get(label, 0.0) + e.self_device_time_total / 1e3
+        top = sorted(by_label.items(), key=lambda kv: -kv[1])[:6]
         out[name] = {"wall_ms": wall, "kernel_ms": kernel_ms or None,
                      "device_busy_share": kernel_ms / wall if kernel_ms else None,
-                     "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+                     "top_kernels_ms": dict(top)}
         print(f"  {name}: wall {wall:.2f} ms, kernels {kernel_ms:.2f} ms "
               f"(busy share {kernel_ms / wall:.3f}); top: "
               + ", ".join(f"{k} {v:.2f}" for k, v in out[name]["top_kernels_ms"].items()))
 
+    def state(lens):
+        return batch_ops.make_decode_state(
+            [7] * B, lens, [False] * B, [10_000] * B, [-1] * B, [0.0] * B, [0] * B,
+            [1.0] * B, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+    active = torch.ones(B, dtype=torch.bool, device=dev)
     for kv_dtype, page in (("bf16", 16), ("int8", 32)):
         cap = 4 * C + 64  # pages for a 1000-token prompt's fourth chunk, and decode room
         pc = PagedKVCache(cfg, num_pages=B * cap // page, page_size=page, max_slots=B,
@@ -520,13 +554,6 @@ def dispatch_busy(torch, cfg, params) -> dict:
         for b in range(B):
             pc.alloc_slot(b, seq_id=b, prompt_len=ctx, reserve_tokens=cap)
         tables = pc.tables_device()
-
-        def state(lens):
-            return batch_ops.make_decode_state(
-                [7] * B, lens, [False] * B, [10_000] * B, [-1] * B, [0.0] * B, [0] * B,
-                [1.0] * B, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-
-        active = torch.ones(B, dtype=torch.bool, device=dev)
         fn = batch_ops.decode_block_paged_q if pc.quantized else batch_ops.decode_block_paged
         pools = pc.pools() if pc.quantized else pc.pools()[:2]
         measure(f"decode_block_{kv_dtype}_b8_n4",
@@ -544,6 +571,14 @@ def dispatch_busy(torch, cfg, params) -> dict:
                 torch.ones(B, device=dev), [SEED], torch.zeros(B, dtype=torch.bool, device=dev), 0,
             )[0].cpu())
         del pc, pools
+    from gofr_tpu_torch.models.llama import KVCache
+
+    for kv_dtype, S, weights, tree in ((None, 2048, "bf16", params), (None, 2048, "int8", params_w8),
+                                       ("int8", 4096, "int8", params_w8)):
+        cache = KVCache.create(cfg, B, max_len=S, kv_dtype=kv_dtype, device=dev)
+        measure(f"dense_block_{kv_dtype or 'bf16'}_kv{S}_{weights}_weights_b8_n4",
+                lambda: batch_ops.decode_block(cfg, tree, cache, state([ctx] * B), active, N)[0].cpu())
+        del cache
     return out
 
 
@@ -573,27 +608,36 @@ def dense_logits(torch, cfg, params, ids: list[int], n_last: int, kv_quant: bool
     return llama._logits(cfg, params, x[:, -n_last:])[0]
 
 
+def ragged_name(engine) -> str:
+    """The ragged dispatch function the engine's layout and KV dtype run."""
+    if engine.paged_cache is None:
+        return "ragged_step"
+    return "ragged_step_paged_q" if engine.paged_cache.quantized else "ragged_step_paged"
+
+
 def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
     """Serve one greedy request alone and hold the logits the engine itself
     computed for it against one dense forward over the prompt and the
-    tokens the engine generated: the prefill's (bf16 pool: one bucketed
-    flash prefill) or the final chunk's (int8 pool: chunks through the
-    ragged dispatch, the first token folded on the device), then each of
-    its first ``steps`` decode steps' (pages written in place through the
-    block tables, the idle rows' writes sent to the trash page, the paged
-    kernel)."""
+    tokens the engine generated: the prefill's (a prompt of at most one
+    chunk: one bucketed flash prefill) or the final chunk's (a longer one:
+    chunks through the ragged dispatch, the first token folded on the
+    device), then each of its first ``steps`` decode steps' (K/V written in
+    place into the slot row, the frozen rows' writes sent to the sink past
+    the dense cache's end; or through the block tables, the idle rows'
+    writes sent to the trash page, the paged kernel)."""
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.serving import batch as batch_ops
 
     cfg, params = engine.model_cfg, engine.params
-    quantized = engine.paged_cache.quantized
-    # (module, function whose logits are the prompt's, index of those
-    # logits in its result), and the decode step's function name
-    pre_mod, pre_name, pre_idx = ((batch_ops, "ragged_step_paged_q", 1) if quantized
-                                  else (batch_ops, "prefill_compute", 0))
-    step_name = "decode_step_paged_q" if quantized else "decode_step_paged"
+    dense = engine.paged_cache is None
+    quantized = (engine.cache if dense else engine.paged_cache).quantized
+    chunked = engine._route_chunked(len(ids))
+    # (function whose logits are the prompt's, index of those logits in its
+    # result), and the decode step's function name
+    pre_name, pre_idx = (ragged_name(engine), 1) if chunked else ("prefill_compute", 0)
+    step_name = "decode_step" if dense else ("decode_step_paged_q" if quantized else "decode_step_paged")
     prefill_seen, decode_seen = [], []
-    prefill_fn, step_fn = getattr(pre_mod, pre_name), getattr(llama, step_name)
+    prefill_fn, step_fn = getattr(batch_ops, pre_name), getattr(llama, step_name)
 
     def prefill_hook(*args):
         out = prefill_fn(*args)
@@ -602,17 +646,20 @@ def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
 
     def step_hook(*args):
         out = step_fn(*args)
-        decode_seen.append((args[-1].clone(), out[0].clone()))  # (live rows, logits)
+        # a dense step's frozen rows run at length S_max + 1; a paged step
+        # takes its live rows as its last argument
+        live = args[4] <= args[3].max_len if dense else args[-1]
+        decode_seen.append((live.clone(), out[0].clone()))  # (live rows, logits)
         return out
 
-    setattr(pre_mod, pre_name, prefill_hook)
+    setattr(batch_ops, pre_name, prefill_hook)
     setattr(llama, step_name, step_hook)
     try:
         r = engine.submit(ids, max_new_tokens=steps + 1).result(timeout=600)
     finally:
-        setattr(pre_mod, pre_name, prefill_fn)
+        setattr(batch_ops, pre_name, prefill_fn)
         setattr(llama, step_name, step_fn)
-    n_prefill = math.ceil(len(ids) / engine._chunk_tokens) if quantized else 1
+    n_prefill = math.ceil(len(ids) / engine._chunk_tokens) if chunked else 1
     if r.finish_reason != "length" or len(r.token_ids) != steps + 1 or len(prefill_seen) != n_prefill:
         raise AssertionError(f"the logits check request ended {r.finish_reason} after "
                              f"{len(r.token_ids)} tokens and {len(prefill_seen)} prefill calls")
@@ -627,7 +674,7 @@ def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
     rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
     picked = got.argmax(-1).tolist() == r.token_ids
     dense_agree = sum(int(a == b) for a, b in zip(want.argmax(-1).tolist(), r.token_ids))
-    what = "final chunk" if quantized else "prefill"
+    what = "final chunk" if chunked else "prefill"
     print(f"  engine logits vs dense forward{' (K/V quantized)' if quantized else ''} "
           f"({len(ids)}-token prompt, {n_prefill} prefill call(s), slot {row}): rel_l2 "
           f"{what} {rel[0]:.3e}, decode steps {' '.join(f'{x:.3e}' for x in rel[1:])} "
@@ -657,10 +704,12 @@ def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, 
     def prompt(n: int) -> list[int]:
         return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
 
-    print(f"engine path {name}: kv_dtype={ecfg.kv_dtype} page={ecfg.kv_page_size} "
+    layout = "dense" if engine.paged_cache is None else f"paged page={ecfg.kv_page_size}"
+    weights = "int8" if isinstance(params["lm_head"], dict) else "bf16"
+    print(f"engine path {name}: {layout} kv_dtype={ecfg.kv_dtype} weights={weights} "
           f"max_seq_len={ecfg.max_seq_len} chunk={engine._chunk_tokens} tokens; prompts {lens}, "
           f"chunked: {[n for n in lens if engine._route_chunked(n)]}")
-    ragged_fn = batch_ops.ragged_step_paged_q if ecfg.kv_dtype == "int8" else batch_ops.ragged_step_paged
+    ragged_fn = getattr(batch_ops, ragged_name(engine))
     ragged_calls = [0]
 
     def count_ragged(*args):
@@ -724,7 +773,7 @@ def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, 
 
 def run_engine(torch) -> tuple[dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
-    from gofr_tpu_torch.models.llama import init_params
+    from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -740,8 +789,8 @@ def run_engine(torch) -> tuple[dict, dict]:
     # boundary at 48
     launches["bf16"], timings["bf16"] = serve_path(
         torch, cfg, params, "bf16",
-        EngineConfig(max_slots=8, max_seq_len=2048, kv_page_size=16, multi_step=4,
-                     max_new_tokens_default=32, prefill_chunk_tokens=2048),
+        EngineConfig(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16,
+                     multi_step=4, max_new_tokens_default=32, prefill_chunk_tokens=2048),
         MAIN_LENS, must={"flash_attention", "paged_decode_attention"},
         must_not={"paged_decode_attention_q"}, logits_prompt=45, logits_steps=8,
         ttft_lens=(100, 1000),
@@ -752,15 +801,45 @@ def run_engine(torch) -> tuple[dict, dict]:
     # boundary at 608
     launches["int8"], timings["int8"] = serve_path(
         torch, cfg, params, "int8",
-        EngineConfig(max_slots=8, max_seq_len=4096, kv_page_size=32, multi_step=4,
-                     max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
+        EngineConfig(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32,
+                     multi_step=4, max_new_tokens_default=32, prefill_chunk_tokens=256,
+                     kv_dtype="int8"),
         MAIN_LENS + [LONG_PROMPT], must={"flash_attention", "paged_decode_attention_q"},
         must_not={"paged_decode_attention"}, logits_prompt=600, logits_steps=10,
         ttft_lens=(1000,),
     )
     torch.cuda.empty_cache()
+    # dense: the reference's defaults (dense layout, bf16 KV, 256-token
+    # chunks); 333, 480, 777 and 1000 chunk through the dense ragged
+    # dispatch. 45 tokens prefill whole, as on the bf16 path
+    launches["dense"], timings["dense"] = serve_path(
+        torch, cfg, params, "dense",
+        EngineConfig(max_slots=8, max_seq_len=2048, kv_layout="dense", multi_step=4,
+                     max_new_tokens_default=32, prefill_chunk_tokens=256),
+        MAIN_LENS, must={"flash_attention"},
+        must_not={"paged_decode_attention", "paged_decode_attention_q"}, logits_prompt=45,
+        logits_steps=8, ttft_lens=(100, 1000),
+    )
+    torch.cuda.empty_cache()
+    # dense-w8: int8 KV and weight-only int8 params made on the card from
+    # the same weights (the embedding is shared, not copied); 600 tokens
+    # make three chunks
+    t0 = time.perf_counter()
+    params_w8 = quantize_params(params)
+    torch.cuda.synchronize()
+    print(f"weight-only int8: quantize_params in {time.perf_counter() - t0:.1f}s, "
+          f"{param_bytes(params_w8) / 1e9:.2f} GB (bf16 tree {param_bytes(params) / 1e9:.2f} GB)")
+    launches["dense-w8"], timings["dense-w8"] = serve_path(
+        torch, cfg, params_w8, "dense-w8",
+        EngineConfig(max_slots=8, max_seq_len=4096, kv_layout="dense", multi_step=4,
+                     max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
+        MAIN_LENS + [LONG_PROMPT], must={"flash_attention"},
+        must_not={"paged_decode_attention", "paged_decode_attention_q"}, logits_prompt=600,
+        logits_steps=10, ttft_lens=(1000,),
+    )
+    torch.cuda.empty_cache()
     print("dispatch time against kernel time (torch.profiler):")
-    timings["dispatch_busy"] = dispatch_busy(torch, cfg, params)
+    timings["dispatch_busy"] = dispatch_busy(torch, cfg, params, params_w8)
     return launches, timings
 
 

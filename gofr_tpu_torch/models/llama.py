@@ -2,20 +2,26 @@
 
 Plain functions over a params dict of tensors, with the JAX package's
 layouts: stacked layer weights ``[L, ...]`` (kept stacked; a layer is a
-view ``w[l]``), ``[B, S, H, D]`` activations, paged pools
+view ``w[l]``), ``[B, S, H, D]`` activations, the dense slot cache
+``[L, B, S_max, Hkv, Dh]`` (:class:`KVCache`), paged pools
 ``[L, N+1, Hkv, page, Dh]`` whose last page is the trash page. bf16
-weights and activations with f32 norms, softmax and logits.
+weights and activations with f32 norms, softmax and logits. A matmul
+weight may be weight-only int8, ``{"q": int8, "s": f32 per output
+channel}`` (:func:`quantize_weight`).
 
-What the JAX package donates is updated in place here: ``decode_step_paged``
-and ``decode_chunk_paged`` (and their int8 twins) write K/V, and for int8
-pools its scales, into the pools they are given and return them.
+What the JAX package donates is updated in place here: ``decode_step``,
+``decode_chunk``, ``decode_step_paged`` and ``decode_chunk_paged`` (and
+their int8 twins) write K/V, and for int8 caches its scales, into the
+cache or pools they are given and return them.
 
-Kept: ``LlamaConfig``, ``init_params``, ``prefill`` into a scratch slab,
-per-vector int8 ``quantize_kv``/``dequantize_kv``, ``decode_step_paged``
-and ``decode_step_paged_q`` (bf16 and int8 pools), and the chunk forward
-``decode_chunk_paged``/``decode_chunk_paged_q`` that chunked prefill runs.
-Waiting for later slices: weight-only int8, the dense ``KVCache`` decode
-path and its ``decode_chunk``, ``forward``, tied embeddings and context
+Kept: ``LlamaConfig``, ``init_params`` (bf16 or weight-only int8),
+``quantize_weight``/``quantize_params``, ``param_count``/``param_bytes``,
+``prefill`` into a scratch slab, per-vector int8 ``quantize_kv``/
+``dequantize_kv``, the dense ``KVCache`` with ``decode_step``,
+``decode_step_greedy``, ``decode_loop_greedy``, ``greedy_generate`` and
+the chunk forward ``decode_chunk``, and the paged ``decode_step_paged``/
+``_q`` and ``decode_chunk_paged``/``_q``. Waiting for later slices:
+``forward``, speculative generation, tied embeddings and context
 parallelism.
 """
 
@@ -29,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from gofr_tpu_torch._device import resolve_device
-from gofr_tpu_torch.ops.attention import attention
+from gofr_tpu_torch.ops.attention import attention, decode_attention
 from gofr_tpu_torch.ops.flash_attention import flash_attention
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_q
@@ -72,10 +78,14 @@ def init_params(
     cfg: LlamaConfig,
     generator: torch.Generator | None = None,
     device: str | torch.device | None = None,
+    quantize: bool = False,
 ) -> dict:
     """Random params with stacked layers [L, ...], made on ``device`` (the
     card by default) in the model dtype, so an 8B model never exists on the
-    host. ``generator`` must live on that device; None seeds one with 0."""
+    host. ``generator`` must live on that device; None seeds one with 0.
+    ``quantize=True`` makes every matmul weight weight-only int8
+    (:func:`quantize_weight`) as it is drawn, so the peak is the int8 total
+    plus one model-dtype leaf; the draws are those of ``quantize=False``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -86,28 +96,55 @@ def init_params(
         w = torch.randn(shape, generator=generator, device=dev, dtype=cfg.dtype)
         return w.div_(math.sqrt(fan_in))
 
+    def mm_weight(shape: tuple, fan_in: int) -> torch.Tensor | dict:
+        w = winit(shape, fan_in)
+        return quantize_weight(w, axis=-2) if quantize else w
+
     params: dict = {
         "embedding": winit((cfg.vocab_size, D), D),
         "layers": {
-            "wq": winit((L, D, H * Dh), D),
-            "wk": winit((L, D, Hkv * Dh), D),
-            "wv": winit((L, D, Hkv * Dh), D),
-            "wo": winit((L, H * Dh, D), H * Dh),
-            "w_gate": winit((L, D, Fd), D),
-            "w_up": winit((L, D, Fd), D),
-            "w_down": winit((L, Fd, D), Fd),
+            "wq": mm_weight((L, D, H * Dh), D),
+            "wk": mm_weight((L, D, Hkv * Dh), D),
+            "wv": mm_weight((L, D, Hkv * Dh), D),
+            "wo": mm_weight((L, H * Dh, D), H * Dh),
+            "w_gate": mm_weight((L, D, Fd), D),
+            "w_up": mm_weight((L, D, Fd), D),
+            "w_down": mm_weight((L, Fd, D), Fd),
             "attn_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
             "mlp_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
         },
         "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
-        "lm_head": winit((D, cfg.vocab_size), D),
+        "lm_head": mm_weight((D, cfg.vocab_size), D),
     }
     return params
 
 
+def _leaves(tree: Any, key: str | None = None):
+    """(key, tensor) of every leaf of a nested params dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, k)
+    else:
+        yield key, tree
+
+
+def param_count(params: dict) -> int:
+    """Model parameters; the int8 scales (``"s"`` leaves) are metadata."""
+    return sum(t.numel() for key, t in _leaves(params) if key != "s")
+
+
+def param_bytes(params: dict) -> int:
+    """Resident bytes of the params (int8 ``q`` and f32 ``s`` as they are)."""
+    return sum(t.numel() * t.element_size() for _, t in _leaves(params))
+
+
 def layer_params(params: dict, layer: int) -> dict:
-    """Layer ``layer``'s weights as views into the stacked leaves."""
-    return {name: w[layer] for name, w in params["layers"].items()}
+    """Layer ``layer``'s weights as views into the stacked leaves (both
+    tensors of a weight-only int8 leaf)."""
+    return {
+        name: ({k: t[layer] for k, t in w.items()} if isinstance(w, dict) else w[layer])
+        for name, w in params["layers"].items()
+    }
 
 
 _INV_127 = 1.0 / 127.0  # a Python float: the product rounds it to f32 first
@@ -130,9 +167,60 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> t
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+# ------------------------------------------------------- weight-only int8
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quantize_body(w: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_quantize_body`` as its jitted form computes it:
+    the absmax times f32(1/127) (XLA's product for the division by 127),
+    floored at 1e-12, then a true division and half-to-even rounding."""
+    amax = w.abs().amax(dim=axis, keepdim=True).float()
+    s = torch.clamp_min(amax * _INV_127, 1e-12)
+    q = torch.clamp(torch.round(w.float() / s), -127, 127).to(torch.int8)
+    return q, s.squeeze(axis)
+
+
+def quantize_weight(w: torch.Tensor, axis: int = -2) -> dict:
+    """Symmetric per-output-channel weight-only int8: ``axis`` is the
+    contraction (input) axis; returns ``{"q": int8 same shape, "s": f32
+    per output channel}``. A stacked leaf [L, ...] quantizes one layer at a
+    time, so the f32 transient is one layer's (an eager f32 copy of an 8B
+    ``w_gate`` would be 7.5 GB)."""
+    axis %= w.ndim
+    if w.ndim < 3 or axis == 0:
+        q, s = _quantize_body(w, axis)
+        return {"q": q, "s": s}
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(w.shape[:axis] + w.shape[axis + 1:], dtype=torch.float32, device=w.device)
+    for i in range(w.shape[0]):
+        q[i], s[i] = _quantize_body(w[i], axis - 1)
+    return {"q": q, "s": s}
+
+
+def quantize_params(params: dict) -> dict:
+    """Quantize every matmul weight of a resident params tree (the layers'
+    ``_QUANT_KEYS`` and the lm_head); the embedding and norms stay as they
+    are, and leaves already quantized are kept."""
+    layers = {
+        k: (quantize_weight(v, axis=-2) if k in _QUANT_KEYS and not isinstance(v, dict) else v)
+        for k, v in params["layers"].items()
+    }
+    out = dict(params, layers=layers)
+    if "lm_head" in params and not isinstance(params["lm_head"], dict):
+        out["lm_head"] = quantize_weight(params["lm_head"], axis=-2)
+    return out
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor | dict) -> torch.Tensor:
     """Projection matmul in the activation dtype (f32 accumulation inside
-    the GEMM), as ``x @ w`` is in the reference."""
+    the GEMM), as ``x @ w`` is in the reference. A weight-only int8 weight
+    converts to the activation dtype, multiplies with an f32 result, takes
+    its per-output-channel scale and rounds to the activation dtype. XLA
+    fuses that convert into the dot; here it is a separate copy of the
+    weight on every call."""
+    if isinstance(w, dict):
+        return (_matmul_f32(x, w["q"].to(x.dtype)) * w["s"]).to(x.dtype)
     return x @ w
 
 
@@ -184,9 +272,13 @@ def _attn_mlp_epilogue(
 
 
 def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + lm_head, f32 logits [..., V]."""
+    """Final norm + lm_head, f32 logits [..., V]; a weight-only int8 head
+    takes its scale on the f32 product, with no rounding after it."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _matmul_f32(x, params["lm_head"])
+    head = params["lm_head"]
+    if isinstance(head, dict):
+        return _matmul_f32(x, head["q"].to(x.dtype)) * head["s"]
+    return _matmul_f32(x, head)
 
 
 def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -224,6 +316,256 @@ def prefill(
     last_idx = (kv_len.long() - 1).clamp(0, S - 1)
     last_h = x[torch.arange(B, device=dev), last_idx][:, None]  # [B, 1, D]
     return _logits(cfg, params, last_h)[:, 0], k_slab, v_slab
+
+
+# ------------------------------------------------------- dense slot cache
+@dataclasses.dataclass
+class KVCache:
+    """Dense KV cache: ``k``, ``v`` [L, B, S_max, Hkv, Dh] on one device;
+    with ``kv_dtype="int8"`` they hold int8 values and ``ks``, ``vs``
+    [L, B, S_max, Hkv] their f32 per-vector absmax scales
+    (:func:`quantize_kv`), dequantized whole at the attention read.
+
+    The reference's scatters drop a write aimed past ``S_max`` (a frozen
+    row's decode step, a chunk's tail, a row that is not chunking); on the
+    card an out-of-range index is a device assert instead. So the storage
+    behind each tensor made by :meth:`create` holds one more position past
+    its end, the sink, and a write the reference drops goes there
+    (:func:`_cache_rows`); the fields are views of everything before it."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor | None = None
+    vs: torch.Tensor | None = None
+
+    @classmethod
+    def create(
+        cls, cfg: LlamaConfig, batch: int, max_len: int | None = None,
+        kv_dtype: str | None = None, *, device: str | torch.device | None = None,
+    ) -> "KVCache":
+        dev = resolve_device(device)
+        S = max_len or cfg.max_seq_len
+        shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+
+        def zeros(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+            flat = torch.zeros((math.prod(shape[:3]) + 1, *shape[3:]), dtype=dtype, device=dev)
+            return flat[:-1].view(shape)
+
+        if kv_dtype == "int8":
+            return cls(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                       zeros(shape[:-1], torch.float32), zeros(shape[:-1], torch.float32))
+        return cls(zeros(shape, cfg.dtype), zeros(shape, cfg.dtype))
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    def tensors(self) -> tuple:
+        """(k, v, ks, vs); the scales are None for bf16."""
+        return self.k, self.v, self.ks, self.vs
+
+
+def _cache_rows(t: torch.Tensor) -> torch.Tensor:
+    """A cache tensor [L, B, S_max, ...] as its rows [L*B*S_max + 1, ...],
+    the last row the sink past its end (see :class:`KVCache`)."""
+    n = t.shape[0] * t.shape[1] * t.shape[2]
+    tail = t.shape[3:]
+    row = math.prod(tail)
+    end = (t.storage_offset() + (n + 1) * row) * t.element_size()
+    if not t.is_contiguous() or t.untyped_storage().nbytes() < end:
+        raise ValueError("a dense cache tensor needs the sink position KVCache.create allocates")
+    return t.as_strided((n + 1, *tail), t.stride()[2:], t.storage_offset())
+
+
+def _dense_targets(cache: KVCache, rows: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Flat rows [L, K, T] of writes at (layer, ``rows``, ``positions``
+    [K, T]): a position outside [0, S_max), whose write the reference
+    drops, goes to the sink. Many writes may meet at the sink; none meets
+    another anywhere else."""
+    L, B, S = cache.k.shape[:3]
+    valid = (positions >= 0) & (positions < S)
+    flat = rows.long()[:, None] * S + positions
+    layer_base = torch.arange(L, device=positions.device)[:, None, None] * (B * S)
+    return torch.where(valid[None], flat[None] + layer_base, L * B * S)
+
+
+def _write_dense(rows_views: list, idx: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Scatter K/V [..., Hkv, Dh] to flat rows ``idx`` of the cache's row
+    views (:func:`_cache_rows` of k, v and, for int8, ks, vs); into int8
+    the values quantize first and their scales go to the same rows."""
+    if len(rows_views) == 2:
+        rows_views[0][idx] = k
+        rows_views[1][idx] = v
+        return
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    for view, value in zip(rows_views, (kq, vq, ks, vs)):
+        view[idx] = value
+
+
+def _dense_layer_kv(
+    cache: KVCache, layer: int, rows: torch.Tensor | None, dtype: torch.dtype,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``layer``'s K/V [B (or the ``rows``), S_max, Hkv, Dh] in the
+    compute dtype: an int8 layer dequantizes whole, as the reference's
+    decode and chunk reads do."""
+    k, v = cache.k[layer], cache.v[layer]
+    if rows is not None:
+        k, v = k[rows], v[rows]
+    if not cache.quantized:
+        return k, v
+    ks, vs = cache.ks[layer], cache.vs[layer]
+    if rows is not None:
+        ks, vs = ks[rows], vs[rows]
+    return dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype)
+
+
+def decode_step(
+    cfg: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B] last sampled token per row
+    cache: KVCache,  # updated in place
+    cache_len: torch.Tensor,  # [B] length including this token's position
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step over the dense cache: this token's K/V go to
+    (layer, row, cache_len-1), quantized first into an int8 cache, and
+    each row attends over its whole layer cache masked by ``cache_len``.
+    A row at ``S_max + 1`` (frozen) writes to the sink, and its RoPE
+    position clamps into the table where the reference's ``jnp.take``
+    fills NaN (when ``S_max`` is the model's ``max_seq_len``); its logits
+    are never read. Returns (logits [B, V] f32, cache). Issues no host
+    sync."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    x = _embed(cfg, params, tokens)[:, None, :]  # [B, 1, D]
+    pos = cache_len.long()[:, None] - 1  # [B, 1]
+    sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    rope_pos = pos.clamp(0, cfg.max_seq_len - 1)
+    idx = _dense_targets(cache, torch.arange(B, device=dev), pos)
+    views = [_cache_rows(t) for t in cache.tensors() if t is not None]
+    for layer in range(cfg.n_layers):
+        lp = layer_params(params, layer)
+        _, q, k, v = _qkv(cfg, x, lp, sin, cos, rope_pos)
+        _write_dense(views, idx[layer], k, v)
+        kc, vc = _dense_layer_kv(cache, layer, None, cfg.dtype)
+        attn = decode_attention(q, kc, vc, cache_len)
+        x = _attn_mlp_epilogue(cfg, x, lp, attn)
+    return _logits(cfg, params, x)[:, 0], cache
+
+
+def decode_step_greedy(
+    cfg: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B]
+    cache: KVCache,  # updated in place
+    cache_len: torch.Tensor,  # [B] length BEFORE this token's position
+) -> tuple[torch.Tensor, KVCache, torch.Tensor]:
+    """:func:`decode_step` with the length increment before it and the
+    greedy argmax after it: (next tokens [B], cache, cache_len + 1)."""
+    cache_len = cache_len + 1
+    logits, cache = decode_step(cfg, params, tokens, cache, cache_len)
+    return logits.argmax(dim=-1), cache, cache_len
+
+
+def decode_loop_greedy(
+    cfg: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B]
+    cache: KVCache,  # updated in place
+    cache_len: torch.Tensor,  # [B] length BEFORE the first new position
+    n_steps: int,
+) -> tuple[torch.Tensor, KVCache, torch.Tensor, torch.Tensor]:
+    """``n_steps`` of :func:`decode_step_greedy`: (last tokens, cache,
+    cache_len, tokens [B, n_steps])."""
+    out = []
+    for _ in range(n_steps):
+        tokens, cache, cache_len = decode_step_greedy(cfg, params, tokens, cache, cache_len)
+        out.append(tokens)
+    toks = torch.stack(out, dim=1) if out else tokens.new_empty((tokens.shape[0], 0))
+    return tokens, cache, cache_len, toks
+
+
+def greedy_generate(
+    cfg: LlamaConfig,
+    params: dict,
+    prompt: torch.Tensor,  # [B, S] right-padded
+    seq_lens: torch.Tensor,  # [B]
+    max_new_tokens: int,
+) -> torch.Tensor:
+    """Greedy generation (the library entry point and the test oracle):
+    prefill, its slabs copied into rows [:, :, :S] of a bf16
+    ``KVCache(B, S + max_new_tokens)``, then one :func:`decode_step` per
+    token. Returns [B, max_new_tokens]."""
+    B, S = prompt.shape
+    cache = KVCache.create(cfg, B, max_len=S + max_new_tokens, device=prompt.device)
+    logits, k_slab, v_slab = prefill(cfg, params, prompt, seq_lens)
+    cache.k[:, :, :S] = k_slab
+    cache.v[:, :, :S] = v_slab
+    tokens = logits.argmax(dim=-1)
+    out = [tokens]
+    cache_len = seq_lens.to(torch.int32)
+    for _ in range(max_new_tokens - 1):
+        cache_len = cache_len + 1
+        logits, cache = decode_step(cfg, params, tokens, cache, cache_len)
+        tokens = logits.argmax(dim=-1)
+        out.append(tokens)
+    return torch.stack(out, dim=1)
+
+
+def _dense_chunk_forward(
+    cfg: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [K, T] chunk tokens (-1 pads the ragged tail)
+    cache: KVCache,  # [L, B, S_max, ...], written in place
+    rows: torch.Tensor,  # [K] distinct cache rows the chunk rows live in
+    start_len: torch.Tensor,  # [K] committed length BEFORE the chunk
+) -> torch.Tensor:
+    """The chunk forward of :func:`decode_chunk` up to the final hidden
+    state [K, T, D], for the cache ``rows`` alone: writes the chunk's K/V
+    in place at [layer, rows, start:start+T] (positions past ``S_max`` to
+    the sink) and attends over those rows' layer cache with per-row
+    ``q_offset``."""
+    T = tokens.shape[1]
+    dev = tokens.device
+    start = start_len.long()
+    positions = start[:, None] + torch.arange(T, device=dev)[None, :]  # [K, T]
+    x = _embed(cfg, params, tokens.clamp_min(0))
+    sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    # pad positions of a final ragged chunk may run past the rope table:
+    # they clamp into it (the reference's jnp.take fills NaN there); their
+    # outputs are never read
+    rope_pos = positions.clamp_max(cfg.max_seq_len - 1)
+    kv_len = start + T
+    idx = _dense_targets(cache, rows, positions)
+    views = [_cache_rows(t) for t in cache.tensors() if t is not None]
+    for layer in range(cfg.n_layers):
+        lp = layer_params(params, layer)
+        _, q, k, v = _qkv(cfg, x, lp, sin, cos, rope_pos)
+        _write_dense(views, idx[layer], k, v)
+        kc, vc = _dense_layer_kv(cache, layer, rows, cfg.dtype)
+        attn = attention(q, kc, vc, causal=True, q_offset=start, kv_len=kv_len)
+        x = _attn_mlp_epilogue(cfg, x, lp, attn)
+    return x
+
+
+def decode_chunk(
+    cfg: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B, T]
+    cache: KVCache,  # updated in place
+    start_len: torch.Tensor,  # [B] committed length BEFORE the chunk
+) -> tuple[torch.Tensor, KVCache]:
+    """Run T tokens per row against the dense cache in one call: K/V
+    written at rows [start, start+T) (past ``S_max`` dropped, to the sink),
+    attention over prefix and chunk with per-row ``q_offset``. Returns
+    (logits [B, T, V] f32, cache)."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    x = _dense_chunk_forward(cfg, params, tokens, cache, rows, start_len)
+    return _logits(cfg, params, x), cache
 
 
 def _write_kv(
@@ -407,8 +749,9 @@ def _chunk_forward(
     pages, offsets = _paged_chunk_targets(k_pool, block_tables, positions, active, kv_capacity)
     x = _embed(cfg, params, tokens.clamp_min(0))
     sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
-    # pad positions of a final ragged chunk may run past the rope table;
-    # the reference's gather clamps them, their outputs are never read
+    # pad positions of a final ragged chunk may run past the rope table:
+    # they clamp into it (the reference's jnp.take fills NaN there); their
+    # outputs are never read
     rope_pos = positions.clamp_max(cfg.max_seq_len - 1)
     kv_len = start + T
     for layer in range(cfg.n_layers):

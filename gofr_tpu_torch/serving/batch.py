@@ -1,23 +1,25 @@
 """Fixed-shape device functions of the continuous-batching engine (port of
-``gofr_tpu/serving/batch.py``, the paged paths over bf16 and int8 pools).
+``gofr_tpu/serving/batch.py``: the dense slot cache and the paged pools,
+each over bf16 and int8 K/V).
 
 The decode hot loop keeps the host out of the block: sampling and the
 stop-condition evaluation run on the device inside the N-step block
-(``decode_block_paged``/``_q``), which returns ONE packed int32
-[B, steps+2] array (``steps`` token columns, -1 past each row's stop; a
-done column; an n_valid column), so the engine syncs once per N tokens.
-The block is a Python loop over N steps that issues no host sync.
+(``decode_block`` over the dense cache, ``decode_block_paged``/``_q``
+over the pools), which returns ONE packed int32 [B, steps+2] array
+(``steps`` token columns, -1 past each row's stop; a done column; an
+n_valid column), so the engine syncs once per N tokens. The block is a
+Python loop over N steps that issues no host sync.
 
-The unified ragged dispatch (``ragged_step_paged``/``_q``) runs the
-granted prefill chunks and then the N-step block against the same pool,
-folds each row whose chunk completes its prompt into the decode state with
-its first token sampled on the device, and returns the packed
-[B, steps+3] array (one more column: that first token, -1 elsewhere): one
-host read per dispatch still.
+The unified ragged dispatch (``ragged_step``, ``ragged_step_paged``/``_q``)
+runs the granted prefill chunks and then the N-step block against the
+same cache, folds each row whose chunk completes its prompt into the
+decode state with its first token sampled on the device, and returns the
+packed [B, steps+3] array (one more column: that first token, -1
+elsewhere): one host read per dispatch still.
 
-What the reference donates is updated in place here: the pools by the
-decode and chunk steps, the decode state by :func:`admit_decode_state`
-and :func:`_fold_finished_prefill`.
+What the reference donates is updated in place here: the cache and pools
+by the prefill commit, decode and chunk steps, the decode state by
+:func:`admit_decode_state` and :func:`_fold_finished_prefill`.
 """
 
 from __future__ import annotations
@@ -40,9 +42,40 @@ def prefill_compute(
     seq_len: torch.Tensor,  # [1]
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill without a persistent cache: (last_logits [1, V] f32,
-    k_slab, v_slab [L, S_bucket, Hkv, Dh]) for the scatter into pages."""
+    k_slab, v_slab [L, S_bucket, Hkv, Dh]) for the commit into a slot row
+    or into pages."""
     last, k_slab, v_slab = llama.prefill(cfg, params, tokens, seq_len)
     return last, k_slab[:, 0], v_slab[:, 0]
+
+
+def insert_slot(
+    k_cache: torch.Tensor,  # [L, B, S_max, Hkv, Dh], written in place
+    v_cache: torch.Tensor,
+    k_slab: torch.Tensor,  # [L, S_bucket, Hkv, Dh]
+    v_slab: torch.Tensor,
+    slot: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Copy a prefilled slab into slot row [:, slot, :S_bucket]."""
+    S = k_slab.shape[1]
+    k_cache[:, slot, :S] = k_slab
+    v_cache[:, slot, :S] = v_slab
+    return k_cache, v_cache
+
+
+def insert_slot_quantized(
+    cache: llama.KVCache,  # int8 cache, written in place
+    k_slab: torch.Tensor,  # [L, S_bucket, Hkv, Dh] full-width prefill slab
+    v_slab: torch.Tensor,
+    slot: int,
+) -> llama.KVCache:
+    """int8 twin of :func:`insert_slot`: the slabs quantize per vector and
+    values and scales go to the slot row."""
+    S = k_slab.shape[1]
+    kq, ks = llama.quantize_kv(k_slab)
+    vq, vs = llama.quantize_kv(v_slab)
+    for field, value in zip(cache.tensors(), (kq, vq, ks, vs)):
+        field[:, slot, :S] = value
+    return cache
 
 
 @dataclasses.dataclass
@@ -54,7 +87,8 @@ class DecodeState:
     ``budget`` is the number of tokens the row may still emit (max_new and
     the sequence cap folded in at admission); ``stop_tok`` is the row's EOS
     id (-1 disables). ``done`` rows are frozen: they spend no budget, emit
-    -1, and their KV writes go to the trash page. ``rng`` is the
+    -1, and their KV writes go where they cannot matter: the sink past the
+    dense cache's end, or the trash page. ``rng`` is the
     ``torch.Generator`` the block's draws come from. ``adapter`` is the
     LoRA table slot (0 = base) the reference carries; the port has no LoRA
     yet and keeps it 0."""
@@ -151,31 +185,54 @@ def _block_step(st: DecodeState, active: torch.Tensor, logits: torch.Tensor) -> 
 def _decode_steps(
     cfg: llama.LlamaConfig,
     params: dict,
-    pools: tuple,  # (k_pool, v_pool, ks_pool, vs_pool); scales None for bf16
+    kv: llama.KVCache | tuple,  # the dense cache, or (k_pool, v_pool, ks_pool, vs_pool)
     state: DecodeState,
-    block_tables: torch.Tensor,
+    block_tables: torch.Tensor | None,  # paged pools only
     active: torch.Tensor,
     steps: int,
 ) -> tuple[torch.Tensor, DecodeState]:
     """``steps`` fused decode + sample + stop-eval iterations: (tokens
-    [B, steps], state). Frozen rows' appends go to the trash page."""
+    [B, steps], state). Frozen rows' appends go to the trash page, or on
+    the dense cache to length ``S_max + 1``, whose write goes to the sink:
+    position 0 would corrupt the live prompt K/V of a row frozen
+    mid-chunked-prefill."""
     toks = []
     for _ in range(steps):
         live = active & ~state.done
-        step_len = torch.where(live, state.seq_len + 1, torch.ones_like(state.seq_len))
-        if pools[2] is None:
-            logits, _, _ = llama.decode_step_paged(
-                cfg, params, state.last_token, pools[0], pools[1], block_tables, step_len, live
-            )
+        if isinstance(kv, llama.KVCache):
+            step_len = torch.where(live, state.seq_len + 1, kv.max_len + 1)
+            logits, _ = llama.decode_step(cfg, params, state.last_token, kv, step_len)
         else:
-            logits = llama.decode_step_paged_q(
-                cfg, params, state.last_token, *pools, block_tables, step_len, live
-            )[0]
+            step_len = torch.where(live, state.seq_len + 1, torch.ones_like(state.seq_len))
+            if kv[2] is None:
+                logits, _, _ = llama.decode_step_paged(
+                    cfg, params, state.last_token, kv[0], kv[1], block_tables, step_len, live
+                )
+            else:
+                logits = llama.decode_step_paged_q(
+                    cfg, params, state.last_token, *kv, block_tables, step_len, live
+                )[0]
         state, out = _block_step(state, active, logits)
         toks.append(out)
     if not toks:
         return torch.empty((active.shape[0], 0), dtype=torch.int64, device=active.device), state
     return torch.stack(toks, dim=1), state
+
+
+def decode_block(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    cache: llama.KVCache,  # bf16 or int8, updated in place
+    state: DecodeState,
+    active: torch.Tensor,  # [B] bool: rows the host dispatched this block
+    steps: int,
+) -> tuple[torch.Tensor, llama.KVCache, DecodeState]:
+    """``steps`` fused decode + sample + stop-eval iterations over the
+    dense slot cache with no host sync. A row that stops mid-block freezes:
+    its appends go to the sink and its remaining columns are -1. Returns
+    (packed [B, steps+2], cache, state)."""
+    toks, state = _decode_steps(cfg, params, cache, state, None, active, steps)
+    return _pack_block(toks, state.done, active), cache, state
 
 
 def decode_block_paged(
@@ -284,13 +341,13 @@ def _pack_ragged(toks: torch.Tensor, done: torch.Tensor, active: torch.Tensor,
 def _ragged_step(
     cfg: llama.LlamaConfig,
     params: dict,
-    pools: tuple,
+    kv: llama.KVCache | tuple,  # the dense cache, or the paged pools
     state: DecodeState,
-    block_tables: torch.Tensor,  # [B, M] covers chunk AND block writes
+    block_tables: torch.Tensor | None,  # [B, M] covers chunk AND block writes (paged)
     chunk: torch.Tensor,  # [B, C] next prompt tokens (-1 past each grant)
     chunk_start: torch.Tensor,  # [B] resident length before the chunk
     chunk_rows: torch.Tensor,  # [K] int64 slots chunking now (distinct)
-    kv_capacity: torch.Tensor,  # [B] tokens covered by owned pages
+    kv_capacity: torch.Tensor | None,  # [B] tokens covered by owned pages (paged)
     finish: torch.Tensor,  # [B] bool: the chunk completes the prompt
     new_len: torch.Tensor,  # [B] resident length after the chunk
     budgets: torch.Tensor,  # [B] decode budget once admitted
@@ -302,23 +359,29 @@ def _ragged_step(
     decode_active: torch.Tensor,  # [B] bool: rows decoding in this block
     steps: int,
 ) -> tuple[torch.Tensor, torch.Tensor, DecodeState]:
-    """The body of :func:`ragged_step_paged` and its int8 twin.
+    """The body of :func:`ragged_step` and :func:`ragged_step_paged` and
+    its int8 twin.
 
     The reference runs the chunk forward over all B rows of [B, C] and
-    sends the rows that are not chunking to the trash page; here it runs
-    over the K chunk rows alone, gathered by ``chunk_rows``. Rows are
-    independent in the forward (per-row tables, offsets and masks), the
-    other rows' writes went to the trash page and their logits were never
-    read, so the packed output is the same
-    (``tests/test_torch_ragged.py`` holds it to the reference's)."""
+    sends the writes of the rows that are not chunking past the dense
+    cache's end or to the trash page; here it runs over the K chunk rows
+    alone, gathered by ``chunk_rows``, and their writes land in place in
+    the shared cache or pools. Rows are independent in the forward (per-row
+    rows or tables, offsets and masks), the other rows' writes were dropped
+    and their logits never read, so the packed output is the same
+    (``tests/test_torch_ragged.py`` and ``tests/test_torch_dense.py`` hold
+    it to the reference's)."""
     rows = chunk_rows
     K = rows.shape[0]
     C = chunk.shape[1]
     start = chunk_start[rows]
-    x = llama._chunk_forward(
-        cfg, params, chunk[rows], pools, block_tables[rows], start,
-        torch.ones(K, dtype=torch.bool, device=chunk.device), kv_capacity[rows],
-    )
+    if isinstance(kv, llama.KVCache):
+        x = llama._dense_chunk_forward(cfg, params, chunk[rows], kv, rows, start)
+    else:
+        x = llama._chunk_forward(
+            cfg, params, chunk[rows], kv, block_tables[rows], start,
+            torch.ones(K, dtype=torch.bool, device=chunk.device), kv_capacity[rows],
+        )
     # the lm_head only where a row's prompt ends in this chunk: [K, C, V]
     # logits to keep one position per row would waste 2*K*C*D*V FLOPs
     pos = (new_len[rows].long() - start.long() - 1).clamp(0, C - 1)
@@ -330,8 +393,43 @@ def _ragged_step(
     )
     first = torch.full((chunk.shape[0],), -1, dtype=first_k.dtype, device=first_k.device)
     first[rows] = first_k
-    toks, state = _decode_steps(cfg, params, pools, state, block_tables, decode_active, steps)
+    toks, state = _decode_steps(cfg, params, kv, state, block_tables, decode_active, steps)
     return _pack_ragged(toks, state.done, decode_active, first), last_logits, state
+
+
+def ragged_step(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    cache: llama.KVCache,  # bf16 or int8, updated in place
+    state: DecodeState,  # updated in place
+    chunk: torch.Tensor,  # [B, C]
+    chunk_start: torch.Tensor,  # [B]
+    chunk_rows: torch.Tensor,  # [K] int64 slots chunking now (distinct)
+    finish: torch.Tensor,
+    new_len: torch.Tensor,
+    budgets: torch.Tensor,
+    stops: torch.Tensor,
+    temps: torch.Tensor,
+    topks: torch.Tensor,
+    topps: torch.Tensor,
+    seeds: list[int],
+    decode_active: torch.Tensor,
+    steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, llama.KVCache, DecodeState]:
+    """Unified ragged dispatch over the dense slot cache: the chunk forward
+    of the chunk rows (K/V in place at [layer, rows, start:start+C], a
+    tail past ``S_max`` to the sink), the first-token fold of the rows that
+    finish, then the N-step decode block, with no host sync. Returns
+    (packed [B, steps+3], last_logits [K, V], cache, state). Against the
+    reference, as in :func:`ragged_step_paged`: ``chunk_rows`` and
+    ``seeds`` in place of the rows whose start is ``max_seq_len`` and of
+    ``rids`` with ``rng_root``, and ``last_logits`` of the chunk rows
+    only."""
+    packed, last_logits, state = _ragged_step(
+        cfg, params, cache, state, None, chunk, chunk_start, chunk_rows, None, finish, new_len,
+        budgets, stops, temps, topks, topps, seeds, decode_active, steps,
+    )
+    return packed, last_logits, cache, state
 
 
 def ragged_step_paged(

@@ -1,15 +1,16 @@
 """The continuous-batching serving engine (port of
-``gofr_tpu/serving/engine.py``, the paged slice: bf16 or int8 KV pools,
-monolithic and chunked prefill).
+``gofr_tpu/serving/engine.py``: the dense slot cache and the paged pool,
+each with bf16 or int8 KV, monolithic and chunked prefill).
 
 Requests queue FIFO. Each loop iteration a :class:`StepPlanner` plans the
 step: the decode rows first, then whole-chunk grants to the partially
 prefilled prompts (oldest first), then an admission quota. An admitted
 prompt of at most one chunk that fits a prefill bucket prefills whole at
-its padded bucket in one call (flash kernel), scatters its K/V into pages
-of the shared pool, and samples the first token with a generator seeded
-by (engine seed, request id). A longer prompt becomes a chunk cursor: its
-chunks run in the unified ragged dispatch (``batch.ragged_step_paged``/
+its padded bucket in one call (flash kernel), commits its K/V into its
+slot row of the dense cache or into pages of the shared pool, and
+samples the first token with a generator seeded by (engine seed, request
+id). A longer prompt becomes a chunk cursor: its chunks run in the
+unified ragged dispatch (``batch.ragged_step``, ``ragged_step_paged``/
 ``_q``) together with the N-step decode block, and the dispatch that
 completes the prompt samples its first token on the device from a
 generator seeded the same way, so a request draws the same first token on
@@ -17,15 +18,20 @@ either route. Decoding runs as N-step device blocks (sampling and stop
 evaluation on the device) and the host syncs once per dispatch. Dispatches
 are double-buffered: dispatch k+1 goes out before dispatch k's packed
 result is read, so the host's bookkeeping overlaps the device. A row
-retires on its stop token or its length limit and frees its slot and
-pages at once; a chunk cursor the pool cannot cover requeues from chunk 0
-once nothing of it is in flight.
+retires on its stop token or its length limit and frees its slot (and
+its pages) at once.
 
-With ``kv_dtype="int8"`` the pool stores K/V as int8 with f32 per-vector
-scales and decode reads it through the dequantizing paged kernel. A
-prompt is refused at submit only when it cannot fit ``max_seq_len`` (with
-one position left to generate) or the whole pool. Not ported yet: the
-dense KV layout, the prefix cache and chunk-prefix cache, speculative
+``kv_layout="dense"`` (the default, as in the reference) reserves a
+``[slots, max_seq_len]`` row per slot (``llama.KVCache``); decode reads a
+row's whole layer cache in plain PyTorch, as the reference's XLA does.
+``kv_layout="paged"`` commits memory by resident tokens through a page
+pool and decodes through the paged kernels; there a chunk cursor the pool
+cannot cover requeues from chunk 0 once nothing of it is in flight. With
+``kv_dtype="int8"`` either layout stores K/V as int8 with f32 per-vector
+scales. A prompt is refused at submit only when it cannot fit
+``max_seq_len`` (with one position left to generate) or the whole pool.
+Weight-only int8 params (``llama.quantize_params``) serve as they are.
+Not ported yet: the prefix cache and chunk-prefix cache, speculative
 decoding, LoRA, cancel and deadlines, dedup/HA, the supervisor, timelines,
 tracing, metrics and tenancy.
 
@@ -77,20 +83,21 @@ class EngineConfig:
     # fresh admissions per step plan at most (the planner's max_admissions)
     admission_per_step: int = 4
     # prompts longer than this, or longer than the largest bucket, prefill
-    # in chunks of this many tokens (aligned down to the page grid),
-    # interleaved with decode blocks in one ragged dispatch; also the
-    # per-iteration prefill budget when step_token_budget is 0 (auto)
+    # in chunks of this many tokens (on the paged layout aligned down to
+    # the page grid), interleaved with decode blocks in one ragged
+    # dispatch; also the per-iteration prefill budget when
+    # step_token_budget is 0 (auto)
     prefill_chunk_tokens: int = 256
     # explicit per-iteration token target: decode rows (rows * multi_step)
     # are reserved first, prefill chunks fill the rest; 0 = auto
     step_token_budget: int = 0
-    # only the paged layout is ported; the reference's default "dense"
-    # waits for a later slice (ROADMAP Queue A item 3)
-    kv_layout: str = "paged"
+    # "dense" reserves [slots, max_seq] rows; "paged" commits memory by
+    # resident tokens through the page pool (serving/kv_cache.py)
+    kv_layout: str = "dense"
     kv_page_size: int = 16  # any size: the CUDA kernels have no tile rule
     kv_num_pages: int | None = None  # default: slots*max_seq worth of pages
-    # "int8" stores the pool quantized (per-vector absmax, f32 scales):
-    # half the bytes per resident token and half the decode KV stream
+    # "int8" stores K/V quantized (per-vector absmax, f32 scales): half the
+    # bytes per resident token and half the decode KV stream
     kv_dtype: str = "bf16"
     # decode tokens per device block (the N of the N-step block)
     multi_step: int = 4
@@ -111,8 +118,8 @@ class GenerationResult:
 
 
 class _Requeue(Exception):
-    """Raised inside admission when KV pages are short for now: the request
-    goes back to the head of the queue."""
+    """Raised inside admission when KV pages are short for now (paged
+    layout): the request goes back to the head of the queue."""
 
 
 class _Request:
@@ -170,7 +177,8 @@ def _request_seed(seed: int, request_id: int) -> int:
 
 
 class ServingEngine:
-    """Owns the model params, the paged KV pool and the loop thread."""
+    """Owns the model params, the KV cache (dense or paged) and the loop
+    thread."""
 
     def __init__(
         self,
@@ -186,11 +194,8 @@ class ServingEngine:
         self.model_cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
-        if self.config.kv_layout != "paged":
-            raise ValueError(
-                f"kv_layout={self.config.kv_layout!r}: the port serves the paged "
-                "layout only; the dense layout is ROADMAP Queue A item 3"
-            )
+        if self.config.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout={self.config.kv_layout!r}: must be dense or paged")
         if self.config.multi_step < 1:
             raise ValueError("multi_step must be >= 1")
         if self.config.kv_dtype not in ("bf16", "int8"):
@@ -200,16 +205,24 @@ class ServingEngine:
         self._block_steps = int(self.config.multi_step)
 
         B, S = self.config.max_slots, self.config.max_seq_len
-        page = self.config.kv_page_size
-        self.paged_cache = PagedKVCache(
-            cfg, num_pages=self.config.kv_num_pages or (B * S + page - 1) // page,
-            page_size=page, max_slots=B, max_seq_len=S, device=self.device,
-            kv_dtype=self.config.kv_dtype,
-        )
-        # chunk boundaries stay on the page grid: the chunk size aligns
-        # down to whole pages (at least one)
         chunk = max(1, int(self.config.prefill_chunk_tokens))
-        self._chunk_tokens = min(max(page, (chunk // page) * page), S)
+        self.cache: llama.KVCache | None = None
+        self.paged_cache: PagedKVCache | None = None
+        if self.config.kv_layout == "paged":
+            page = self.config.kv_page_size
+            self.paged_cache = PagedKVCache(
+                cfg, num_pages=self.config.kv_num_pages or (B * S + page - 1) // page,
+                page_size=page, max_slots=B, max_seq_len=S, device=self.device,
+                kv_dtype=self.config.kv_dtype,
+            )
+            # chunk boundaries stay on the page grid: the chunk size aligns
+            # down to whole pages (at least one)
+            chunk = max(page, (chunk // page) * page)
+        else:
+            self.cache = llama.KVCache.create(
+                cfg, B, max_len=S, kv_dtype=self.config.kv_dtype, device=self.device,
+            )
+        self._chunk_tokens = min(chunk, S)
         self._planner = StepPlanner(
             chunk_tokens=self._chunk_tokens, block_steps=self._block_steps,
             step_token_budget=self.config.step_token_budget,
@@ -300,7 +313,7 @@ class ServingEngine:
                 f"within max_seq_len={self.config.max_seq_len}"
             )
         pc = self.paged_cache
-        if pc.pages_needed(len(prompt_ids)) > pc.num_pages:
+        if pc is not None and pc.pages_needed(len(prompt_ids)) > pc.num_pages:
             raise ValueError(
                 f"prompt needs {pc.pages_needed(len(prompt_ids))} KV pages; the pool has "
                 f"{pc.num_pages} in total"
@@ -392,7 +405,7 @@ class ServingEngine:
                 log.exception("prefill failed for request %d", req.id)
                 self.slots[slot] = None
                 self._cursors.pop(slot, None)
-                self.paged_cache.free_slot(slot)
+                self._free_kv(slot)
                 self._settle(req, exc=exc)
             did = True
             cap -= 1
@@ -400,8 +413,8 @@ class ServingEngine:
 
     def _start_cursor(self, slot: int, req: _Request) -> None:
         """Admit a long prompt as a chunk cursor: claim the slot and leave
-        the prompt to the planner's chunk grants. Pages are claimed at the
-        first grant."""
+        the prompt to the planner's chunk grants. On the paged layout pages
+        are claimed at the first grant."""
         cursor = ChunkCursor(req=req, slot=slot, total=len(req.prompt_ids), seq=self._cursor_seq)
         self._cursor_seq += 1
         self.slots[slot] = req
@@ -415,14 +428,15 @@ class ServingEngine:
     def _cursor_health(self, slot: int, req: _Request, cursor: ChunkCursor) -> None:
         """A cursor the pool could not cover requeues from chunk 0, at the
         head of the queue, once nothing of it is in flight (an in-flight
-        ragged dispatch still writes through the slot's pages)."""
+        ragged dispatch still writes through the slot's pages). A dense
+        slot row always covers its cursor, which is never blocked."""
         if cursor.in_flight > 0 or not cursor.blocked:
             return
         log.info("KV pool short; request %d requeues from chunk 0", req.id)
         self._cursors.pop(slot, None)
         self.slots[slot] = None
         self.cache_len[slot] = 0
-        self.paged_cache.free_slot(slot)
+        self._free_kv(slot)
         with self._mu:
             self._queue.appendleft(req)
 
@@ -431,22 +445,30 @@ class ServingEngine:
         ids = req.prompt_ids
         S = len(ids)
         bucket = batch_ops.pad_bucket(S, self._buckets())
-        if pc.pages_needed(bucket) > pc.num_pages:
-            raise ValueError(
-                f"prompt needs {pc.pages_needed(bucket)} KV pages; the pool has "
-                f"{pc.num_pages} in total"
-            )
-        try:
-            pc.alloc_slot(slot, seq_id=req.id, prompt_len=S, reserve_tokens=bucket)
-        except OutOfBlocks:
-            raise _Requeue() from None
+        if pc is not None:
+            if pc.pages_needed(bucket) > pc.num_pages:
+                raise ValueError(
+                    f"prompt needs {pc.pages_needed(bucket)} KV pages; the pool has "
+                    f"{pc.num_pages} in total"
+                )
+            try:
+                pc.alloc_slot(slot, seq_id=req.id, prompt_len=S, reserve_tokens=bucket)
+            except OutOfBlocks:
+                raise _Requeue() from None
         tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
         tokens[0, :S] = ids
         last_logits, k_slab, v_slab = batch_ops.prefill_compute(
             cfg, self.params, to_device(tokens, self.device),
             to_device(np.array([S], np.int32), self.device),
         )
-        pc.write_prefill(slot, k_slab, v_slab)
+        if pc is not None:
+            pc.write_prefill(slot, k_slab, v_slab)
+        elif self.cache.quantized:
+            self.cache = batch_ops.insert_slot_quantized(self.cache, k_slab, v_slab, slot)
+        else:
+            self.cache.k, self.cache.v = batch_ops.insert_slot(
+                self.cache.k, self.cache.v, k_slab, v_slab, slot
+            )
         gen = torch.Generator(device=self.device).manual_seed(_request_seed(self.seed, req.id))
         first = sample_logits(
             last_logits, gen, temperature=req.temperature, top_k=req.top_k, top_p=req.top_p
@@ -553,9 +575,9 @@ class ServingEngine:
                 continue
             # page coverage for the whole block, including the steps
             # dispatched but not yet read (the device runs ahead of the
-            # committed host mirror)
+            # committed host mirror); a dense slot row covers max_seq_len
             in_flight = req.dispatched - (len(req.tokens) - 1)
-            if pc.try_reserve_slot(slot, in_flight + N):
+            if pc is None or pc.try_reserve_slot(slot, in_flight + N):
                 rows.append((slot, req))
                 continue
             log.warning("KV pool exhausted; retiring request %d early", req.id)
@@ -572,14 +594,7 @@ class ServingEngine:
             if cursor is None or cursor.blocked or cursor.remaining <= 0:
                 continue
             n = min(grant, cursor.remaining)
-            if not cursor.allocated:
-                try:
-                    pc.alloc_slot(slot, seq_id=cursor.req.id, prompt_len=0, reserve_tokens=n)
-                    cursor.allocated = True
-                except OutOfBlocks:
-                    cursor.blocked = True
-                    continue
-            elif not pc.try_reserve_slot(slot, cursor.in_flight + n):
+            if pc is not None and not self._cover_chunk(pc, slot, cursor, n):
                 cursor.blocked = True
                 continue
             chunk_rows.append((slot, cursor, cursor.req, cursor.dispatched, n))
@@ -607,32 +622,52 @@ class ServingEngine:
                 prefill_rows.append((slot, req, cursor, start, n, start + n >= cursor.total))
         else:
             steps, prefill_rows = N, []
-            cfg, params, tables = self.model_cfg, self.params, pc.tables_device()
-            if pc.quantized:
+            cfg, params = self.model_cfg, self.params
+            if pc is None:
+                packed, self.cache, self._dec_state = batch_ops.decode_block(
+                    cfg, params, self.cache, state, self._mask_dev, N,
+                )
+            elif pc.quantized:
                 (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
                  self._dec_state) = batch_ops.decode_block_paged_q(
-                    cfg, params, *pc.pools(), state, tables, self._mask_dev, N,
+                    cfg, params, *pc.pools(), state, pc.tables_device(), self._mask_dev, N,
                 )
             else:
                 packed, pc.k_pool, pc.v_pool, self._dec_state = batch_ops.decode_block_paged(
-                    cfg, params, pc.k_pool, pc.v_pool, state, tables, self._mask_dev, N,
+                    cfg, params, pc.k_pool, pc.v_pool, state, pc.tables_device(),
+                    self._mask_dev, N,
                 )
         for _, req in rows:
             req.dispatched += steps
         return _Inflight(packed, rows, steps, prefill_rows)
+
+    @staticmethod
+    def _cover_chunk(pc: PagedKVCache, slot: int, cursor: ChunkCursor, n: int) -> bool:
+        """Reserve the pages of a cursor's next ``n`` tokens: its first
+        pages at its first grant, then coverage past what is in flight."""
+        if cursor.allocated:
+            return pc.try_reserve_slot(slot, cursor.in_flight + n)
+        try:
+            pc.alloc_slot(slot, seq_id=cursor.req.id, prompt_len=0, reserve_tokens=n)
+        except OutOfBlocks:
+            return False
+        cursor.allocated = True
+        return True
 
     def _dispatch_ragged(
         self, state: batch_ops.DecodeState, chunk_rows: list, steps: int,
     ) -> tuple[torch.Tensor, batch_ops.DecodeState]:
         """Assemble and launch ONE unified ragged dispatch: the granted
         chunks (per-row slices of their prompts in a [B, C] buffer) and the
-        decode block, against the same page pool. Rows whose chunk
+        decode block, against the same cache or page pool. Rows whose chunk
         completes the prompt get their first token sampled on the device
         and folded into the decode state inside the dispatch."""
         pc = self.paged_cache
         B, C = self.config.max_slots, self._chunk_tokens
         chunk = np.full((B, C), -1, np.int64)
-        start = np.zeros(B, np.int32)
+        # rows not chunking start past the dense cache's end, as in the
+        # reference; only the chunk rows' entries are read
+        start = np.full(B, self.config.max_seq_len, np.int32)
         finish = np.zeros(B, bool)
         new_len = np.zeros(B, np.int32)
         budgets = np.zeros(B, np.int32)
@@ -646,19 +681,24 @@ class ServingEngine:
             new_len[slot] = start_pos + n
             budgets[slot] = req.max_new_tokens - 1
             stops[slot] = _stop_id(req)
-            kvcap[slot] = pc.owned_capacity(slot)
+            if pc is not None:
+                kvcap[slot] = pc.owned_capacity(slot)
             slots.append(slot)
             seeds.append(_request_seed(self.seed, req.id))
 
         def up(a: np.ndarray) -> torch.Tensor:
             return to_device(a, self.device)
 
-        args = (
-            pc.tables_device(), up(chunk), up(start), up(np.array(slots, np.int64)), up(kvcap),
-            up(finish), up(new_len), up(budgets), up(stops), up(self.temperature),
-            up(self.top_k), up(self.top_p), seeds, self._mask_dev, steps,
-        )
+        rows = up(np.array(slots, np.int64))
+        tail = (up(finish), up(new_len), up(budgets), up(stops), up(self.temperature),
+                up(self.top_k), up(self.top_p), seeds, self._mask_dev, steps)
         cfg, params = self.model_cfg, self.params
+        if pc is None:
+            packed, _, self.cache, new_state = batch_ops.ragged_step(
+                cfg, params, self.cache, state, up(chunk), up(start), rows, *tail,
+            )
+            return packed, new_state
+        args = (pc.tables_device(), up(chunk), up(start), rows, up(kvcap), *tail)
         if pc.quantized:
             (packed, _, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
              new_state) = batch_ops.ragged_step_paged_q(cfg, params, *pc.pools(), state, *args)
@@ -682,7 +722,8 @@ class ServingEngine:
             if self.slots[slot] is not req:
                 continue
             self.cache_len[slot] += n_valid
-            self.paged_cache.advance_slot(slot, n_valid)
+            if self.paged_cache is not None:
+                self.paged_cache.advance_slot(slot, n_valid)
             if req.kv_exhausted:
                 if not self._slot_in_flight(slot, req):
                     self._retire(slot, "kv_exhausted")
@@ -700,7 +741,8 @@ class ServingEngine:
                 continue  # retired or requeued since dispatch: a stale chunk
             cursor.committed = start + n
             self.cache_len[slot] = cursor.committed
-            self.paged_cache.advance_slot(slot, n)
+            if self.paged_cache is not None:
+                self.paged_cache.advance_slot(slot, n)
             if fin:
                 self._cursors.pop(slot)
                 self._commit_first_token(slot, req, int(packed[slot, rec.steps + 2]))
@@ -730,9 +772,14 @@ class ServingEngine:
         self.slots[slot] = None
         self._cursors.pop(slot, None)
         self.cache_len[slot] = 0
-        self.paged_cache.free_slot(slot)
+        self._free_kv(slot)
         if req is not None:
             self._finish(req, reason)
+
+    def _free_kv(self, slot: int) -> None:
+        """Give the slot's pages back (a dense slot row needs nothing)."""
+        if self.paged_cache is not None:
+            self.paged_cache.free_slot(slot)
 
     def _finish(self, req: _Request, reason: str) -> None:
         now = time.perf_counter()
@@ -778,7 +825,7 @@ class ServingEngine:
             if req is not None:
                 self.slots[slot] = None
                 self.cache_len[slot] = 0
-                self.paged_cache.free_slot(slot)
+                self._free_kv(slot)
                 self._settle(req, exc=exc)
 
     def _buckets(self) -> tuple[int, ...]:

@@ -27,7 +27,7 @@ from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer  # noqa: E402
 
 ENGINE = dict(max_slots=4, max_seq_len=64, prefill_buckets=(16, 32), kv_page_size=8,
-              prefill_chunk_tokens=16)
+              prefill_chunk_tokens=16, kv_layout="paged")
 PROMPTS = [
     "hi",  # 3 tokens: monolithic
     "the quick brown fox jumps over",  # 31: chunked (> one chunk)
@@ -74,7 +74,7 @@ def _run(engine, prompts, **kw):
 def test_chunked_greedy_tokens_match_jax_engine(models, kv_dtype):
     jcfg, jparams, tcfg, tparams = models
     jeng = JServingEngine(
-        jcfg, jparams, JEngineConfig(**ENGINE, kv_layout="paged", kv_dtype=kv_dtype),
+        jcfg, jparams, JEngineConfig(**ENGINE, kv_dtype=kv_dtype),
         JByteTokenizer(),
     )
     want = _run(jeng, PROMPTS, max_new_tokens=12)

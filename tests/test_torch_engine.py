@@ -1,12 +1,16 @@
 """The port's ServingEngine on the CPU against the JAX ServingEngine.
 
-Same tiny params (made by the JAX package, carried across), the paged
-layout with 8-token pages, and prompts that fit one monolithic bucket on
+Same tiny params (made by the JAX package, carried across). The paged
+layout with 8-token pages serves prompts that fit one monolithic bucket on
 both sides (the JAX side gets ``prefill_chunk_tokens`` above its largest
-bucket so it does not chunk). Greedy completions must be identical token
-for token, with the same finish reasons. Sampled rows are held to
-determinism per seed and to ``top_k=1`` being greedy: the port's draws do
-not reproduce jax.random's bits.
+bucket so it does not chunk). The dense layout, the reference's default,
+serves a mix that prefills whole and in 16-token chunks against a
+``max_seq_len`` of 60 that the chunk does not divide (a final chunk's
+tail crosses the end), over bf16 and int8 KV and once with weight-only
+int8 params. Greedy completions must be identical token for token, with
+the same finish reasons. Sampled rows are held to determinism per seed and
+to ``top_k=1`` being greedy: the port's draws do not reproduce
+jax.random's bits.
 """
 
 import asyncio
@@ -39,7 +43,18 @@ PROMPTS = [
     "GOFR serves tokens",
     "0123456789",
 ]
-ENGINE = dict(max_slots=4, max_seq_len=64, prefill_buckets=(16, 32), kv_page_size=8)
+ENGINE = dict(max_slots=4, max_seq_len=64, prefill_buckets=(16, 32), kv_page_size=8,
+              kv_layout="paged")
+DENSE = dict(max_slots=4, max_seq_len=60, prefill_buckets=(16, 32), kv_layout="dense",
+             prefill_chunk_tokens=16)
+DENSE_PROMPTS = [
+    "hi",  # 3 tokens: whole
+    "the quick brown fox jumps over",  # 31: two chunks
+    "0123456789abcde",  # 16: whole (exactly one chunk)
+    "a prompt longer than every prefill bucket",  # 42: three chunks, > bucket 32
+    "a prompt whose final chunk runs past the end!",  # 46
+    "x" * 51,  # 52 tokens: the fourth chunk at 48 runs past max_seq_len 60
+]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,7 +95,7 @@ def test_greedy_tokens_match_jax_engine(models):
     jcfg, jparams, tcfg, tparams = models
     jeng = JServingEngine(
         jcfg, jparams,
-        JEngineConfig(**ENGINE, kv_layout="paged", prefill_chunk_tokens=64),
+        JEngineConfig(**ENGINE, prefill_chunk_tokens=64),
         JByteTokenizer(),
     )
     want = _run(jeng, PROMPTS, max_new_tokens=16)
@@ -158,8 +173,47 @@ def test_refusals(models):
         _port_engine(tcfg, tparams, kv_dtype="fp8")
     with pytest.raises(ValueError, match="empty"):
         engine.submit([])
-    with pytest.raises(ValueError, match="Queue A item 3"):
-        _port_engine(tcfg, tparams, kv_layout="dense")
+    with pytest.raises(ValueError, match="kv_layout"):
+        _port_engine(tcfg, tparams, kv_layout="ragged")
+    # a dense slot row holds any prompt that fits max_seq_len: no page check
+    assert not _port_engine(tcfg, tparams, kv_layout="dense").submit(list(range(3, 28))).done()
+    engine.stop()
+
+
+@pytest.mark.parametrize("kv_dtype,int8_weights", [("bf16", False), ("int8", False), ("bf16", True)],
+                         ids=["bf16", "int8", "int8-weights"])
+def test_dense_greedy_tokens_match_jax_engine(models, kv_dtype, int8_weights):
+    """The reference's default layout: monolithic and chunked prompts, a
+    final chunk crossing max_seq_len, rows frozen mid-prefill beside
+    decode rows, bf16 or int8 KV, and once weight-only int8 params (the
+    reference's quantized tree carried across, beside the port's own
+    ``quantize_params`` of the same weights)."""
+    jcfg, jparams, tcfg, tparams = models
+    if int8_weights:
+        jparams = jllama.quantize_params(jparams)
+        tparams = tllama.quantize_params(tparams)
+    jeng = JServingEngine(jcfg, jparams, JEngineConfig(**DENSE, kv_dtype=kv_dtype), JByteTokenizer())
+    want = _run(jeng, DENSE_PROMPTS, max_new_tokens=12)
+    port = ServingEngine(tcfg, tparams, EngineConfig(**DENSE, kv_dtype=kv_dtype), ByteTokenizer(),
+                         device="cpu")
+    assert port.paged_cache is None and port.cache.quantized == (kv_dtype == "int8")
+    assert port._chunk_tokens == 16 and 60 % 16  # not aligned to any page grid
+    assert [port._route_chunked(len(ByteTokenizer().encode(p))) for p in DENSE_PROMPTS] == [
+        False, True, False, True, True, True]
+    got = _run(port, DENSE_PROMPTS, max_new_tokens=12)
+    for w, g in zip(want, got):
+        assert g.token_ids == w.token_ids, (g.text, w.text)
+        assert g.finish_reason == w.finish_reason
+        assert (g.prompt_tokens, g.completion_tokens) == (w.prompt_tokens, w.completion_tokens)
+    assert got[-1].completion_tokens == 60 - 52 and got[-1].finish_reason == "length"
+
+
+def test_dense_is_the_default_layout(models):
+    _, _, tcfg, tparams = models
+    assert EngineConfig().kv_layout == JEngineConfig().kv_layout == "dense"
+    engine = _port_engine(tcfg, tparams, kv_layout=EngineConfig().kv_layout)
+    assert engine.paged_cache is None and tuple(engine.cache.k.shape) == (
+        tcfg.n_layers, 4, 64, tcfg.n_kv_heads, tcfg.head_dim)
     engine.stop()
 
 

@@ -71,21 +71,23 @@ def test_entry_points_refuse_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama.KVCache.create(cfg, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax({"w": torch.zeros(2).numpy()})
 
 
 def test_cpu_engine_run_launches_no_kernel():
-    """bf16 and int8 engines, a monolithic and a chunked prompt each: the
-    plain versions run on the CPU and no counter moves."""
+    """bf16 and int8 engines on either layout, a monolithic and a chunked
+    prompt each: the plain versions run on the CPU and no counter moves."""
     flash_attention.launches = paged_decode_attention.launches = 0
     paged_decode_attention_q.launches = 0
     cfg = llama.LlamaConfig.tiny()
     params = llama.init_params(cfg, device="cpu")
-    for kv_dtype in ("bf16", "int8"):
+    for layout, kv_dtype in [(la, kv) for la in ("paged", "dense") for kv in ("bf16", "int8")]:
         engine = ServingEngine(cfg, params,
                                EngineConfig(max_slots=2, max_seq_len=32, prefill_buckets=(16,),
                                             kv_page_size=8, prefill_chunk_tokens=8,
-                                            kv_dtype=kv_dtype), device="cpu")
+                                            kv_dtype=kv_dtype, kv_layout=layout), device="cpu")
         engine.start()
         try:
             results = [f.result(timeout=60) for f in
@@ -153,3 +155,22 @@ def test_chip_smoke_reads_each_path_instance_from_ptxas():
         cs.ptxas_report({"flash_attention": _Done(serialized)})
     with pytest.raises(RuntimeError, match="nvcc"):
         cs.ptxas_report({"flash_attention": _Done("error", returncode=1)})
+
+
+def test_chip_smoke_labels_profiler_kernels_apart():
+    """The dispatch profile sums kernel time by a short label; PyTorch's
+    elementwise kernels share one template head, so the label keeps the
+    operation inside them apart."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    copy = ("void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda("
+            "at::TensorIteratorBase&)::{lambda()#3}::operator()() const::{lambda(signed char)#1}>")
+    mul = ("void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<"
+           "at::native::BinaryFunctor<float, float, float, at::native::binary_internal::MulFunctor"
+           "<float> > >(at::TensorIteratorBase&, ...)::{lambda(int)#1}>(int, ...)")
+    assert cs.kernel_label(copy) == "at::native::unrolled_elementwise_kernel direct_copy_kernel_cuda"
+    assert cs.kernel_label(mul) == "at::native::elementwise_kernel MulFunctor"
+    assert cs.kernel_label("nvjet_tst_192x8_64x8_4x1_v_bz_NNT") == "nvjet_tst_192x8_64x8_4x1_v_bz_NNT"
