@@ -58,11 +58,13 @@ prints no result. Imports nothing of JAX or of ``gofr_tpu``.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -771,7 +773,432 @@ def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, 
         engine.stop()
 
 
-def run_engine(torch) -> tuple[dict, dict]:
+# ---------------------------------------------------------------- lifecycle
+def wait_until(pred, timeout: float, what: str) -> None:
+    t_end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > t_end:
+            raise AssertionError(f"timed out after {timeout:g}s waiting for {what}")
+        time.sleep(0.002)
+
+
+def check_clean(engine, what: str) -> None:
+    """Every slot free, the scheduler's ``busy_slots`` at 0, no request
+    left and, on the paged layout, every page back in the pool."""
+    wait_until(lambda: all(s is None for s in engine.slots), 60, f"{what}: slots to free")
+    stats = engine._sched.stats()
+    if stats["busy_slots"] or engine._by_id:
+        raise AssertionError(f"{what}: {stats['busy_slots']} busy slots, {len(engine._by_id)} "
+                             "requests left")
+    pc = engine.paged_cache
+    if pc is not None and pc.stats()["free_blocks"] != pc.stats()["total_blocks"]:
+        raise AssertionError(f"{what}: pages still owned: {pc.stats()}")
+
+
+def hook_retires(engine) -> list:
+    """Record each retire on the engine thread as (slot, request id,
+    reason, perf_counter time); returns the record."""
+    log, retire = [], engine._retire
+
+    def recorded(slot, reason):
+        req = engine.slots[slot]
+        log.append((slot, req.id if req is not None else None, reason, time.perf_counter()))
+        return retire(slot, reason)
+
+    engine._retire = recorded
+    return log
+
+
+def hook_admissions(engine) -> list:
+    """Record each (slot, request id) that reaches a prefill (whole, or a
+    chunk cursor's start)."""
+    log = []
+    for name in ("_prefill_into", "_start_cursor"):
+        real = getattr(engine, name)
+
+        def spy(slot, req, _real=real):
+            log.append((slot, req.id))
+            return _real(slot, req)
+
+        setattr(engine, name, spy)
+    return log
+
+
+def first_frames(order: list, key):
+    """A stream_cb that appends ``key`` to ``order`` at its first token
+    frame (frames arrive in emission order on the one detok worker)."""
+    seen = []
+
+    def cb(token_id, piece, done):
+        if not done and not seen:
+            seen.append(token_id)
+            order.append(key)
+
+    return cb
+
+
+def per_step_ms(results) -> float | None:
+    per = sorted((r.duration_s - r.ttft_s) / (r.completion_tokens - 1) * 1e3 for r in results
+                 if r.completion_tokens > 1)
+    return per[len(per) // 2] if per else None
+
+
+def lifecycle_dense(torch, engine, prompt, errors) -> dict:
+    """The dense engine's scenarios, in order; each a hard failure, each
+    ending with every slot free. Returns their outcomes and the timings."""
+    out = {}
+    retires = hook_retires(engine)
+    admitted = hook_admissions(engine)
+
+    # 1. priority: 8 running, then 4 at priority 5 and 4 at priority 0
+    fill = [engine.submit(prompt(20), max_new_tokens=48) for _ in range(8)]
+    wait_until(lambda: engine._sched.stats()["busy_slots"] == 8 and not engine._sched.pending(),
+               120, "the 8 slots to fill")
+    order: list = []
+    queued = [engine.submit(prompt(20), max_new_tokens=48, priority=p,
+                            stream_cb=first_frames(order, p)) for p in (5,) * 4 + (0,) * 4]
+    res = [f.result(timeout=600) for f in fill + queued]
+    if order != [0] * 4 + [5] * 4 or any(r.finish_reason not in ("length", "stop") for r in res):
+        raise AssertionError(f"priority: first tokens by class {order}")
+    check_clean(engine, "priority")
+    out["priority"] = {"first_token_classes": order}
+
+    # 2. cancel a running row after its 8th token; a queued request takes its slot
+    t_cancel = []
+
+    seen: list = []
+
+    def cancel_at_8(token_id, piece, done):
+        if not done:
+            seen.append(token_id)
+            if len(seen) == 8:
+                t_cancel.append(time.perf_counter())
+                engine.cancel(target.request_id)
+
+    others = [engine.submit(prompt(20), max_new_tokens=128) for _ in range(7)]
+    target = engine.submit(prompt(20), max_new_tokens=512, stream_cb=cancel_at_8)
+    wait_until(lambda: engine._sched.stats()["busy_slots"] == 8, 120, "the 8 slots to fill")
+    waiter = engine.submit(prompt(20), max_new_tokens=8)
+    r = target.result(timeout=600)
+    w = waiter.result(timeout=600)
+    o = [f.result(timeout=600) for f in others]
+    target_slot = next(s for s, rid in admitted if rid == target.request_id)
+    waiter_slot = next(s for s, rid in admitted if rid == waiter.request_id)
+    released = next(t for s, rid, why, t in retires if rid == target.request_id)
+    if r.finish_reason != "cancel" or not 8 <= r.completion_tokens < 512 or waiter_slot != target_slot \
+            or any(x.finish_reason not in ("length", "stop") for x in o + [w]):
+        raise AssertionError(f"cancel: {r.finish_reason} after {r.completion_tokens} tokens; the "
+                             f"waiter took slot {waiter_slot} (the canceled row's: {target_slot})")
+    check_clean(engine, "cancel")
+    cancel_ms = (released - t_cancel[0]) * 1e3
+    out["cancel_running"] = {"finish_reason": r.finish_reason, "tokens": r.completion_tokens,
+                             "waiter_took_slot": waiter_slot == target_slot, "cancel_to_release_ms": cancel_ms}
+
+    # 4. deadlines: one that expires in the queue, one that expires mid-stream
+    fill = [engine.submit(prompt(20), max_new_tokens=64) for _ in range(8)]
+    wait_until(lambda: engine._sched.stats()["busy_slots"] == 8, 120, "the 8 slots to fill")
+    late = engine.submit(prompt(20), max_new_tokens=8, deadline=0.2)
+    try:
+        late.result(timeout=600)
+        raise AssertionError("deadline: a request expired in the queue was served")
+    except errors.ErrorDeadlineExceeded as exc:
+        if exc.status_code != 504:
+            raise AssertionError(f"deadline: status {exc.status_code}") from None
+    if any(rid == late.request_id for _, rid in admitted):
+        raise AssertionError("deadline: the expired request reached a prefill")
+    [f.result(timeout=600) for f in fill]
+    r = engine.submit(prompt(20), max_new_tokens=1000, deadline=1.0).result(timeout=600)
+    if r.finish_reason != "deadline_exceeded" or not 0 < r.completion_tokens < 1000:
+        raise AssertionError(f"deadline: mid-stream {r.finish_reason} after {r.completion_tokens}")
+    check_clean(engine, "deadlines")
+    out["deadlines"] = {"queued": 504, "mid_stream": r.finish_reason, "mid_stream_tokens": r.completion_tokens}
+
+    # 5. callbacks: one that raises cancels; one that blocks stalls only the detok worker
+    def raises(token_id, piece, done):
+        raise RuntimeError("client gone")
+
+    r = engine.submit(prompt(20), max_new_tokens=200, stream_cb=raises).result(timeout=600)
+    if r.finish_reason != "cancel" or r.completion_tokens >= 200:
+        raise AssertionError(f"callbacks: a raising stream_cb gave {r.finish_reason}")
+    release = threading.Event()
+
+    def blocks(token_id, piece, done):
+        release.wait(timeout=600)
+
+    n0 = len(retires)
+    futs = [engine.submit(prompt(20), max_new_tokens=65, stream_cb=blocks if i == 0 else None)
+            for i in range(8)]
+    rids = {f.request_id for f in futs[1:]}
+    wait_until(lambda: sum(1 for _, rid, why, _ in retires[n0:]
+                           if rid in rids and why in ("length", "stop")) == 7,
+               300, "the 7 other rows to finish while a callback blocks")
+    blocked_done = [f.done() for f in futs]
+    release.set()
+    res = [f.result(timeout=600) for f in futs]
+    if any(x.finish_reason not in ("length", "stop") for x in res):
+        raise AssertionError("callbacks: a row behind a blocking callback did not finish")
+    check_clean(engine, "callbacks")
+    out["callbacks"] = {"raising": r.finish_reason, "raising_tokens": r.completion_tokens,
+                        "others_retired_while_blocked": 7,
+                        "futures_done_while_blocked": sum(blocked_done)}
+
+    # 6. stream(): whole, and left after 4 tokens
+    futs = []
+    submit = engine.submit
+
+    def spy(*a, **kw):
+        futs.append(submit(*a, **kw))
+        return futs[-1]
+
+    engine.submit = spy
+
+    async def consume():
+        whole, early, final = [], [], {}
+        async for tid, _ in engine.stream(prompt(20), max_new_tokens=16,
+                                          on_result=lambda res: final.setdefault("r", res)):
+            whole.append(tid)
+        agen = engine.stream(prompt(20), max_new_tokens=512)
+        async for tid, _ in agen:
+            early.append(tid)
+            if len(early) == 4:
+                break
+        await agen.aclose()
+        return whole, early, final["r"]
+
+    try:
+        whole, early, final = asyncio.run(consume())
+    finally:
+        del engine.submit
+    left = futs[1].result(timeout=600)
+    if whole != final.token_ids or left.finish_reason != "cancel":
+        raise AssertionError(f"stream: {len(whole)} streamed tokens against {final.token_ids}; "
+                             f"leaving early gave {left.finish_reason}")
+    check_clean(engine, "stream")
+    out["stream"] = {"tokens_equal_result": True, "left_early": left.finish_reason,
+                     "left_early_tokens": left.completion_tokens}
+
+    # 7. over-long prompt (C7): 2100 tokens at max_seq_len 2048
+    ragged = [0]
+    dispatch_ragged = engine._dispatch_ragged
+
+    def count(*a):
+        ragged[0] += 1
+        return dispatch_ragged(*a)
+
+    engine._dispatch_ragged = count
+    try:
+        r = engine.submit(prompt(2100), max_new_tokens=32).result(timeout=600)
+    finally:
+        del engine._dispatch_ragged
+    if (r.prompt_tokens, r.completion_tokens, r.finish_reason) != (2047, 1, "length") or ragged[0] < 8:
+        raise AssertionError(f"over-long: {r.prompt_tokens} prompt tokens, {r.completion_tokens} "
+                             f"tokens, {r.finish_reason}, {ragged[0]} ragged dispatches")
+    check_clean(engine, "over-long")
+    out["over_long"] = {"prompt_tokens": r.prompt_tokens, "tokens": r.completion_tokens,
+                        "finish_reason": r.finish_reason, "ragged_dispatches": ragged[0]}
+
+    # 8. shed: 1 ms of estimated wait, the estimator seeded by the requests above
+    fill = [engine.submit(prompt(20), max_new_tokens=64) for _ in range(8)]
+    wait_until(lambda: engine._sched.stats()["busy_slots"] == 8, 120, "the 8 slots to fill")
+    behind = engine.submit(prompt(20), max_new_tokens=8)
+    shed = {}
+    for how in ("threshold", "deadline"):
+        engine.config.shed_max_wait_s = 0.001 if how == "threshold" else 0.0
+        try:
+            engine.submit(prompt(20), max_new_tokens=8, deadline=0.001 if how == "deadline" else None)
+            raise AssertionError(f"shed: the {how} submit was accepted")
+        except errors.ErrorTooManyRequests as exc:
+            if not exc.retry_after or exc.retry_after <= 0:
+                raise AssertionError(f"shed: retry_after {exc.retry_after}") from None
+            shed[how] = {"status": exc.status_code, "retry_after_s": exc.retry_after}
+    [f.result(timeout=600) for f in fill + [behind]]
+    check_clean(engine, "shed")
+    out["shed"] = shed
+
+    # timings, for information: ms per decode step at batch 8, without
+    # and with a stream_cb on every row
+    def noop(token_id, piece, done):
+        pass
+
+    timing = {}
+    for name, cb in (("decode_ms_per_step_b8_no_cb", None), ("decode_ms_per_step_b8_cb", noop)):
+        res = [f.result(timeout=600) for f in
+               [engine.submit(prompt(20), max_new_tokens=65, stream_cb=cb) for _ in range(8)]]
+        timing[name] = per_step_ms(res)
+    check_clean(engine, "timings")
+    timing["cancel_to_release_ms"] = cancel_ms
+
+    # 9. drain over 8 running requests, then a refused submit
+    futs = [engine.submit(prompt(20), max_new_tokens=32) for _ in range(8)]
+    wait_until(lambda: engine._sched.stats()["busy_slots"] == 8, 120, "the 8 slots to fill")
+    if engine.drain(120) is not True:
+        raise AssertionError("drain(120) did not finish the work in hand")
+    res = [f.result(timeout=1) for f in futs]
+    if any(x.finish_reason not in ("length", "stop") for x in res):
+        raise AssertionError("drain: a request did not finish")
+    try:
+        engine.submit(prompt(5))
+        raise AssertionError("drain: a submit after drain was accepted")
+    except errors.ErrorServiceUnavailable as exc:
+        if exc.status_code != 503 or "Retry-After" not in exc.response_headers():
+            raise AssertionError("drain: the refusal is not a retriable 503") from None
+    if any(s is not None for s in engine.slots) or engine._sched.stats()["busy_slots"]:
+        raise AssertionError("drain: slots left busy")
+    out["drain"] = {"drained": True, "after": 503}
+    return out, timing
+
+
+def lifecycle_drain_deadline(torch, engine, prompt, errors) -> dict:
+    """drain(0) over 8 running requests on a fresh engine: False, each
+    request ends with a result or a retriable 503, the thread exits."""
+    engine.start()
+    futs = [engine.submit(prompt(20), max_new_tokens=512) for _ in range(8)]
+    wait_until(lambda: engine._sched.stats()["busy_slots"] == 8, 120, "the 8 slots to fill")
+    if engine.drain(0) is not False:
+        raise AssertionError("drain(0) over running work returned True")
+    ends = []
+    for f in futs:
+        try:
+            ends.append(f.result(timeout=60).finish_reason)
+        except errors.ErrorServiceUnavailable as exc:
+            if exc.retry_after is None:
+                raise AssertionError("drain(0): a 503 without retry_after") from None
+            ends.append(503)
+    if engine._thread is not None and engine._thread.is_alive():
+        raise AssertionError("drain(0): the engine thread did not exit")
+    if any(s is not None for s in engine.slots) or engine._sched.stats()["busy_slots"]:
+        raise AssertionError("drain(0): slots left busy")
+    return {"drained": False, "ends": ends}
+
+
+def lifecycle_paged(torch, engine, prompt) -> dict:
+    """Cancel mid-chunk on the paged int8 engine: a 3000-token prompt
+    beside two decoding rows, canceled after its first ragged dispatch."""
+    pc = engine.paged_cache
+    free0 = pc.stats()["free_blocks"]
+    target: list = []
+    dispatch_ragged = engine._dispatch_ragged
+
+    def cancel_after_first(state, chunk_rows, steps):
+        out = dispatch_ragged(state, chunk_rows, steps)
+        if target and any(req.id == target[0].request_id for _, _, req, _, _ in chunk_rows) \
+                and len(target) == 1:
+            target.append(time.perf_counter())
+            engine.cancel(target[0].request_id)
+        return out
+
+    engine._dispatch_ragged = cancel_after_first
+    try:
+        rows = [engine.submit(prompt(20), max_new_tokens=64) for _ in range(2)]
+        wait_until(lambda: engine._sched.stats()["busy_slots"] == 2, 120, "two decoding rows")
+        target.append(engine.submit(prompt(3000), max_new_tokens=8))
+        r = target[0].result(timeout=600)
+        res = [f.result(timeout=600) for f in rows]
+    finally:
+        del engine._dispatch_ragged
+    if r.finish_reason != "cancel" or r.completion_tokens != 0 or len(target) != 2 \
+            or any(x.finish_reason not in ("length", "stop") for x in res):
+        raise AssertionError(f"cancel mid-chunk: {r.finish_reason} after {r.completion_tokens} tokens")
+    check_clean(engine, "cancel mid-chunk")
+    if pc.stats()["free_blocks"] != free0:
+        raise AssertionError(f"cancel mid-chunk: {pc.stats()['free_blocks']} free pages, {free0} before")
+    return {"finish_reason": r.finish_reason, "tokens": r.completion_tokens,
+            "free_pages_restored": free0}
+
+
+def check_prefill_c9(torch, cfg, params, prompt) -> dict:
+    """C9 on the card: ``llama.prefill`` into a bf16 and an int8 KVCache
+    (B=1, a 700-token prompt) against ``prefill_compute``'s slabs."""
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.serving import batch as batch_ops
+
+    dev = params["embedding"].device
+    tokens = torch.tensor([prompt(700)], device=dev)
+    lens = torch.tensor([700], dtype=torch.int32, device=dev)
+    want, k_slab, v_slab = batch_ops.prefill_compute(cfg, params, tokens, lens)
+    out = {}
+    for kv_dtype in (None, "int8"):
+        cache = llama.KVCache.create(cfg, 1, max_len=700, kv_dtype=kv_dtype, device=dev)
+        got, cache = llama.prefill(cfg, params, tokens, cache, lens)
+        rel = ((got - want).norm() / want.norm()).item()
+        if kv_dtype is None:
+            same = torch.equal(cache.k[:, 0], k_slab) and torch.equal(cache.v[:, 0], v_slab)
+        else:
+            (kq, ks), (vq, vs) = llama.quantize_kv(k_slab), llama.quantize_kv(v_slab)
+            same = all(torch.equal(a, b) for a, b in zip(
+                (cache.k[:, 0], cache.v[:, 0], cache.ks[:, 0], cache.vs[:, 0]), (kq, vq, ks, vs)))
+        name = kv_dtype or "bf16"
+        print(f"  C9 llama.prefill into a {name} KVCache (700 tokens): logits rel_l2 {rel:.3e} "
+              f"(tol {LOGITS_REL_TOL}), cache rows equal {'quantize_kv(slabs)' if kv_dtype else 'the slabs'}: {same}")
+        if not (rel <= LOGITS_REL_TOL) or not same:
+            raise AssertionError(f"C9: llama.prefill into a {name} cache disagrees with prefill_compute")
+        out[name] = {"logits_rel_l2": rel, "cache_equal": same}
+    return out
+
+
+def run_lifecycle(torch, cfg, params) -> dict:
+    """The lifecycle phase at Llama-3-8B widths: the dense engine (the
+    reference's defaults) and the paged int8 engine, each with the launch
+    counters reset just before its scenarios and read just after; then a
+    fresh dense engine for drain(0), and C9's prefill check."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine, errors
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    rng = torch.Generator().manual_seed(SEED + 1)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    dense_cfg = dict(max_slots=8, max_seq_len=2048, kv_layout="dense", multi_step=4,
+                     prefill_chunk_tokens=256)
+    paged_cfg = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32,
+                     kv_dtype="int8", multi_step=4, prefill_chunk_tokens=256)
+    kernels = counters()
+    result = {"launches": {}}
+
+    def engine_of(conf):
+        engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size), seed=SEED)
+        engine.start()
+        engine.submit(prompt(5), max_new_tokens=4).result(timeout=600)  # warm-up
+        check_clean(engine, "warm-up")
+        for fn in kernels.values():
+            fn.launches = 0
+        return engine
+
+    t0 = time.perf_counter()
+    engine = engine_of(dense_cfg)
+    try:
+        result["dense"], timing = lifecycle_dense(torch, engine, prompt, errors)
+    finally:
+        result["launches"]["dense"] = {n: fn.launches for n, fn in kernels.items()}
+        engine.stop()
+    del engine
+    torch.cuda.empty_cache()
+    engine = engine_of(paged_cfg)
+    try:
+        result["paged_int8"] = {"cancel_mid_chunk": lifecycle_paged(torch, engine, prompt)}
+    finally:
+        result["launches"]["paged_int8"] = {n: fn.launches for n, fn in kernels.items()}
+        engine.stop()
+    del engine
+    torch.cuda.empty_cache()
+    engine = ServingEngine(cfg, params, EngineConfig(**dense_cfg), ByteTokenizer(cfg.vocab_size), seed=SEED)
+    result["dense"]["drain_deadline"] = lifecycle_drain_deadline(torch, engine, prompt, errors)
+    del engine
+    torch.cuda.empty_cache()
+    result["c9_prefill"] = check_prefill_c9(torch, cfg, params, prompt)
+    launches = result["launches"]
+    if not (launches["dense"]["flash_attention"] and launches["paged_int8"]["flash_attention"]
+            and launches["paged_int8"]["paged_decode_attention_q"]) \
+            or launches["dense"]["paged_decode_attention"] or launches["dense"]["paged_decode_attention_q"]:
+        raise AssertionError(f"lifecycle launches {launches}")
+    result["timing"] = timing
+    result["seconds"] = time.perf_counter() - t0
+    print(f"  lifecycle: launches {launches}; timings {timing}; {result['seconds']:.1f}s")
+    return result
+
+
+def run_engine(torch) -> tuple[dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -840,7 +1267,11 @@ def run_engine(torch) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     print("dispatch time against kernel time (torch.profiler):")
     timings["dispatch_busy"] = dispatch_busy(torch, cfg, params, params_w8)
-    return launches, timings
+    del params_w8
+    torch.cuda.empty_cache()
+    print("lifecycle phase (dense bf16 and paged int8 engines, full depth):")
+    lifecycle = run_lifecycle(torch, cfg, params)
+    return launches, timings, lifecycle
 
 
 def main() -> int:
@@ -873,7 +1304,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
-    launches, engine_timings = run_engine(torch)
+    launches, engine_timings, lifecycle = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:
@@ -882,6 +1313,7 @@ def main() -> int:
     print(json.dumps({"information": time_information(torch, gen, timer), "ptxas": ptxas}))
     print(json.dumps({"engine": engine_timings}))
     print(card)
+    print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -9,7 +9,18 @@ use); each has a plain PyTorch version beside it, which CPU tensors take.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
+from gofr_tpu_torch.errors import (
+    ErrorDeadlineExceeded,
+    ErrorRequestEntityTooLarge,
+    ErrorServiceUnavailable,
+    ErrorTooManyRequests,
+    HTTPError,
+)
 from gofr_tpu_torch.models.llama import LlamaConfig
 from gofr_tpu_torch.serving.engine import EngineConfig, GenerationResult, ServingEngine
 
-__all__ = ["EngineConfig", "GenerationResult", "LlamaConfig", "ServingEngine"]
+__all__ = [
+    "EngineConfig", "ErrorDeadlineExceeded", "ErrorRequestEntityTooLarge",
+    "ErrorServiceUnavailable", "ErrorTooManyRequests", "GenerationResult", "HTTPError",
+    "LlamaConfig", "ServingEngine",
+]

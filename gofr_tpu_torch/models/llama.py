@@ -16,7 +16,8 @@ cache or pools they are given and return them.
 
 Kept: ``LlamaConfig``, ``init_params`` (bf16 or weight-only int8),
 ``quantize_weight``/``quantize_params``, ``param_count``/``param_bytes``,
-``prefill`` into a scratch slab, per-vector int8 ``quantize_kv``/
+``prefill`` into a dense ``KVCache`` (bf16 or int8; the serving path's
+slab form is ``_prefill_slabs``), per-vector int8 ``quantize_kv``/
 ``dequantize_kv``, the dense ``KVCache`` with ``decode_step``,
 ``decode_step_greedy``, ``decode_loop_greedy``, ``greedy_generate`` and
 the chunk forward ``decode_chunk``, and the paged ``decode_step_paged``/
@@ -285,37 +286,82 @@ def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor
     return params["embedding"][tokens].to(cfg.dtype)
 
 
-def prefill(
+def _prefill_layers(
     cfg: LlamaConfig,
     params: dict,
     tokens: torch.Tensor,  # [B, S] right-padded
-    seq_lens: torch.Tensor,  # [B] true lengths (int32)
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill into a fresh scratch slab: returns (last-token logits [B, V]
-    f32, k_slab, v_slab [L, B, S, Hkv, Dh]). Attention is the flash kernel
-    (its plain version on the CPU); positions past ``seq_lens`` still
-    attend to the valid keys and their K/V is masked at every later read."""
+    seq_lens: torch.Tensor,  # [B] true lengths
+    store: Any,  # store(layer, k, v): keeps one layer's fresh K/V [B, S, Hkv, Dh]
+) -> torch.Tensor:
+    """The prefill forward: hands each layer's K/V to ``store`` and returns
+    the last-token logits [B, V] f32. Attention is the flash kernel (its
+    plain version on the CPU) over the fresh full-precision K/V; positions
+    past ``seq_lens`` still attend to the valid keys and their K/V is
+    masked at every later read."""
     B, S = tokens.shape
     dev = tokens.device
-    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
-    sin, cos = rope_table(cfg.max_seq_len, Dh, cfg.rope_theta, dev)
-    k_slab = torch.empty((L, B, S, Hkv, Dh), dtype=cfg.dtype, device=dev)
-    v_slab = torch.empty_like(k_slab)
+    sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
     kv_len = seq_lens.to(device=dev, dtype=torch.int32)
-    for layer in range(L):
+    for layer in range(cfg.n_layers):
         lp = layer_params(params, layer)
         _, q, k, v = _qkv(cfg, x, lp, sin, cos, positions)
-        k_slab[layer] = k
-        v_slab[layer] = v
+        store(layer, k, v)
         attn = flash_attention(q, k, v, kv_len, causal=True)
         x = _attn_mlp_epilogue(cfg, x, lp, attn)
     # the last valid position's hidden state BEFORE the lm_head: [B, S, V]
     # logits only to keep one position would waste 2*B*S*D*V FLOPs
     last_idx = (kv_len.long() - 1).clamp(0, S - 1)
     last_h = x[torch.arange(B, device=dev), last_idx][:, None]  # [B, 1, D]
-    return _logits(cfg, params, last_h)[:, 0], k_slab, v_slab
+    return _logits(cfg, params, last_h)[:, 0]
+
+
+def _prefill_slabs(
+    cfg: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B, S] right-padded
+    seq_lens: torch.Tensor,  # [B] true lengths (int32)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill into fresh slabs: (last-token logits [B, V] f32, k_slab,
+    v_slab [L, B, S, Hkv, Dh]) in the model dtype, for the serving path's
+    commit into a slot row or into pages (``batch.prefill_compute``)."""
+    B, S = tokens.shape
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    k_slab = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
+    v_slab = torch.empty_like(k_slab)
+
+    def store(layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        k_slab[layer] = k
+        v_slab[layer] = v
+
+    return _prefill_layers(cfg, params, tokens, seq_lens, store), k_slab, v_slab
+
+
+def prefill(
+    cfg: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B, S] right-padded
+    cache: KVCache,  # written in place
+    seq_lens: torch.Tensor,  # [B] true lengths
+) -> tuple[torch.Tensor, KVCache]:
+    """Prefill: fill rows [:B], positions [:S] of each layer of ``cache``
+    in place (into an int8 cache quantized per vector, values and scales)
+    and return (last-token logits [B, V] f32, cache). Attention reads the
+    fresh full-precision K/V, not the quantized ones."""
+    B, S = tokens.shape
+
+    def store(layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        if cache.quantized:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            for field, value in zip(cache.tensors(), (kq, vq, ks, vs)):
+                field[layer, :B, :S] = value
+        else:
+            cache.k[layer, :B, :S] = k
+            cache.v[layer, :B, :S] = v
+
+    return _prefill_layers(cfg, params, tokens, seq_lens, store), cache
 
 
 # ------------------------------------------------------- dense slot cache
@@ -497,14 +543,12 @@ def greedy_generate(
     max_new_tokens: int,
 ) -> torch.Tensor:
     """Greedy generation (the library entry point and the test oracle):
-    prefill, its slabs copied into rows [:, :, :S] of a bf16
-    ``KVCache(B, S + max_new_tokens)``, then one :func:`decode_step` per
-    token. Returns [B, max_new_tokens]."""
+    :func:`prefill` into a ``KVCache(B, S + max_new_tokens)`` in the model
+    dtype, then one :func:`decode_step` per token. Returns
+    [B, max_new_tokens]."""
     B, S = prompt.shape
     cache = KVCache.create(cfg, B, max_len=S + max_new_tokens, device=prompt.device)
-    logits, k_slab, v_slab = prefill(cfg, params, prompt, seq_lens)
-    cache.k[:, :, :S] = k_slab
-    cache.v[:, :, :S] = v_slab
+    logits, cache = prefill(cfg, params, prompt, cache, seq_lens)
     tokens = logits.argmax(dim=-1)
     out = [tokens]
     cache_len = seq_lens.to(torch.int32)

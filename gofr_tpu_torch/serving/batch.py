@@ -43,8 +43,10 @@ def prefill_compute(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill without a persistent cache: (last_logits [1, V] f32,
     k_slab, v_slab [L, S_bucket, Hkv, Dh]) for the commit into a slot row
-    or into pages."""
-    last, k_slab, v_slab = llama.prefill(cfg, params, tokens, seq_len)
+    or into pages. The reference prefills a bucket-sized scratch
+    ``KVCache``; the slabs here are that cache's rows, written directly
+    with no copy between them."""
+    last, k_slab, v_slab = llama._prefill_slabs(cfg, params, tokens, seq_len)
     return last, k_slab[:, 0], v_slab[:, 0]
 
 

@@ -1,39 +1,56 @@
 """The continuous-batching serving engine (port of
 ``gofr_tpu/serving/engine.py``: the dense slot cache and the paged pool,
-each with bf16 or int8 KV, monolithic and chunked prefill).
+each with bf16 or int8 KV, monolithic and chunked prefill, and the request
+lifecycle).
 
-Requests queue FIFO. Each loop iteration a :class:`StepPlanner` plans the
-step: the decode rows first, then whole-chunk grants to the partially
-prefilled prompts (oldest first), then an admission quota. An admitted
-prompt of at most one chunk that fits a prefill bucket prefills whole at
-its padded bucket in one call (flash kernel), commits its K/V into its
-slot row of the dense cache or into pages of the shared pool, and
-samples the first token with a generator seeded by (engine seed, request
-id). A longer prompt becomes a chunk cursor: its chunks run in the
-unified ragged dispatch (``batch.ragged_step``, ``ragged_step_paged``/
-``_q``) together with the N-step decode block, and the dispatch that
-completes the prompt samples its first token on the device from a
-generator seeded the same way, so a request draws the same first token on
-either route. Decoding runs as N-step device blocks (sampling and stop
-evaluation on the device) and the host syncs once per dispatch. Dispatches
-are double-buffered: dispatch k+1 goes out before dispatch k's packed
-result is read, so the host's bookkeeping overlaps the device. A row
-retires on its stop token or its length limit and frees its slot (and
-its pages) at once.
+Requests queue in a priority + FIFO :class:`Scheduler` (lower priority
+first) that assigns slots and gates each admission round by a prefill
+token budget. Each loop iteration a :class:`StepPlanner` plans the step:
+the decode rows first, then whole-chunk grants to the partially prefilled
+prompts (oldest first), then an admission quota. An admitted prompt of at
+most one chunk that fits a prefill bucket prefills whole at its padded
+bucket in one call (flash kernel), commits its K/V into its slot row of
+the dense cache or into pages of the shared pool, and samples the first
+token with a generator seeded by (engine seed, request id). A longer
+prompt becomes a chunk cursor: its chunks run in the unified ragged
+dispatch (``batch.ragged_step``, ``ragged_step_paged``/``_q``) together
+with the N-step decode block, and the dispatch that completes the prompt
+samples its first token on the device from a generator seeded the same
+way, so a request draws the same first token on either route. Decoding
+runs as N-step device blocks (sampling and stop evaluation on the device)
+and the host syncs once per dispatch. Dispatches are pipelined
+``decode_sync_every`` deep: dispatch k+depth goes out before dispatch k's
+packed result is read, so the host's bookkeeping overlaps the device. A
+row retires on its stop token, its length limit, a cancel or its deadline
+and frees its slot (and its pages) at once; tokens of a retired row still
+in flight are dropped when their block is read.
+
+The lifecycle: ``submit`` takes a ``priority`` and a ``deadline`` (seconds
+the caller still cares), answers 503 while the engine drains or after it
+stopped, and sheds with a 429 when the queue-wait estimate
+(:class:`QueueWaitEstimator`) passes the request's deadline or
+``shed_max_wait_s``. A prompt longer than ``max_seq_len - 1`` is served
+from its tail. A request still queued past its deadline fails with a 504
+and is never prefilled; one past it mid-stream retires with
+``deadline_exceeded``. ``cancel`` sets a flag that the engine thread
+resolves at its next admission, dispatch scan or token commit. Token
+frames and each request's final settlement run on one detok worker
+thread, off the engine thread, in order; a ``stream_cb`` that raises
+cancels its request. ``drain`` stops admission, waits for the work in
+hand, fails what is left with a retriable 503, and stops.
 
 ``kv_layout="dense"`` (the default, as in the reference) reserves a
 ``[slots, max_seq_len]`` row per slot (``llama.KVCache``); decode reads a
 row's whole layer cache in plain PyTorch, as the reference's XLA does.
 ``kv_layout="paged"`` commits memory by resident tokens through a page
 pool and decodes through the paged kernels; there a chunk cursor the pool
-cannot cover requeues from chunk 0 once nothing of it is in flight. With
+cannot cover requeues from chunk 0 once nothing of it is in flight, and a
+prompt the whole pool can never hold fails at admission with a 413. With
 ``kv_dtype="int8"`` either layout stores K/V as int8 with f32 per-vector
-scales. A prompt is refused at submit only when it cannot fit
-``max_seq_len`` (with one position left to generate) or the whole pool.
-Weight-only int8 params (``llama.quantize_params``) serve as they are.
-Not ported yet: the prefix cache and chunk-prefix cache, speculative
-decoding, LoRA, cancel and deadlines, dedup/HA, the supervisor, timelines,
-tracing, metrics and tenancy.
+scales. Weight-only int8 params (``llama.quantize_params``) serve as they
+are. Not ported yet: the prefix cache and chunk-prefix cache, speculative
+decoding, LoRA, dedup/HA, the supervisor, timelines, tracing, metrics,
+``health_check``, reclamation and tenancy.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -53,24 +70,24 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch._device import resolve_device, to_device
+from gofr_tpu_torch.errors import (
+    ErrorDeadlineExceeded,
+    ErrorRequestEntityTooLarge,
+    ErrorServiceUnavailable,
+    ErrorTooManyRequests,
+)
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops.sampling import sample_logits
 from gofr_tpu_torch.serving import batch as batch_ops
 from gofr_tpu_torch.serving.kv_cache import OutOfBlocks, PagedKVCache
+from gofr_tpu_torch.serving.scheduler import QueueFull, Scheduler
+from gofr_tpu_torch.serving.shed import QueueWaitEstimator
 from gofr_tpu_torch.serving.stepplan import ChunkCursor, StepPlan, StepPlanner
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
 log = logging.getLogger(__name__)
-
-
-class QueueFull(RuntimeError):
-    """The admission queue holds ``max_queue`` requests: retry later."""
-
-
-class EngineStopped(RuntimeError):
-    """The engine stopped before the request was served."""
 
 
 @dataclasses.dataclass
@@ -82,6 +99,9 @@ class EngineConfig:
     prefill_buckets: tuple[int, ...] = DEFAULT_BUCKETS
     # fresh admissions per step plan at most (the planner's max_admissions)
     admission_per_step: int = 4
+    # the scheduler's per-admission-round prompt-token gate: a later
+    # prompt longer than what is left of it waits for the next round
+    prefill_token_budget: int = 4096
     # prompts longer than this, or longer than the largest bucket, prefill
     # in chunks of this many tokens (on the paged layout aligned down to
     # the page grid), interleaved with decode blocks in one ragged
@@ -101,8 +121,56 @@ class EngineConfig:
     kv_dtype: str = "bf16"
     # decode tokens per device block (the N of the N-step block)
     multi_step: int = 4
+    # dispatches outstanding before the host reads the oldest one (the
+    # pipeline depth): 1 = dispatch k+1, then read k
+    decode_sync_every: int = 1
     # back-off after a failed loop iteration
     idle_sleep_s: float = 0.002
+    # load shedding: a 429 at submit when the queue-wait estimate passes
+    # this many seconds (0 disables the threshold; a request's own
+    # deadline always sheds against the estimate)
+    shed_max_wait_s: float = 0.0
+    # the shed estimator's service time before the first completed
+    # request (0: a cold engine sheds nothing)
+    shed_cold_prior_s: float = 0.0
+    # drain(): how long the work in hand gets before what is left fails
+    # with a retriable 503
+    drain_deadline_s: float = 30.0
+
+    @classmethod
+    def from_config(cls, config: Any) -> "EngineConfig":
+        """Every field from its ``TPU_*`` knob, with the reference's
+        defaults and parsing. ``config`` is any object with ``get(key)``
+        (None when unset) and ``get_or_default(key, default)``."""
+        num_pages = config.get("TPU_KV_NUM_PAGES")
+        buckets = config.get("TPU_BATCH_PREFILL_BUCKETS")
+        multi_step = config.get("TPU_BATCH_MULTI_STEP")
+        return cls(
+            max_slots=int(config.get_or_default("TPU_BATCH_MAX_SLOTS", "8")),
+            max_seq_len=int(config.get_or_default("TPU_BATCH_MAX_TOKENS", "1024")),
+            max_new_tokens_default=int(config.get_or_default("TPU_MAX_NEW_TOKENS_DEFAULT", "128")),
+            max_queue=int(config.get_or_default("TPU_BATCH_MAX_QUEUE", "256")),
+            prefill_buckets=(
+                tuple(int(b) for b in buckets.split(",") if b.strip())
+                if buckets else DEFAULT_BUCKETS
+            ),
+            admission_per_step=int(config.get_or_default("TPU_BATCH_ADMISSION_PER_STEP", "4")),
+            prefill_token_budget=int(config.get_or_default("TPU_BATCH_PREFILL_BUDGET", "4096")),
+            prefill_chunk_tokens=int(config.get_or_default("TPU_PREFILL_CHUNK_TOKENS", "256")),
+            step_token_budget=int(config.get_or_default("TPU_STEP_TOKEN_BUDGET", "0")),
+            idle_sleep_s=float(config.get_or_default("TPU_IDLE_SLEEP_S", "0.002")),
+            kv_layout=config.get_or_default("TPU_KV_LAYOUT", "dense"),
+            kv_page_size=int(config.get_or_default("TPU_KV_PAGE_SIZE", "16")),
+            kv_num_pages=int(num_pages) if num_pages else None,
+            kv_dtype=config.get_or_default("TPU_KV_DTYPE", "bf16"),
+            # the reference's unset value means 4 while spec decoding is
+            # off, and the port has no spec decoding
+            multi_step=int(multi_step) if multi_step else 4,
+            decode_sync_every=int(config.get_or_default("TPU_DECODE_SYNC_EVERY", "1")),
+            shed_max_wait_s=float(config.get_or_default("TPU_SHED_MAX_WAIT_S", "0")),
+            shed_cold_prior_s=float(config.get_or_default("TPU_SHED_COLD_PRIOR_S", "0")),
+            drain_deadline_s=float(config.get_or_default("TPU_DRAIN_DEADLINE_S", "30")),
+        )
 
 
 @dataclasses.dataclass
@@ -112,26 +180,27 @@ class GenerationResult:
     token_ids: list[int]
     prompt_tokens: int
     completion_tokens: int
-    finish_reason: str  # "stop" | "length" | "kv_exhausted"
+    finish_reason: str  # "stop" | "length" | "kv_exhausted" | "cancel" | "deadline_exceeded"
     ttft_s: float
     duration_s: float
 
 
 class _Requeue(Exception):
     """Raised inside admission when KV pages are short for now (paged
-    layout): the request goes back to the head of the queue."""
+    layout): the request goes back to the head of its priority class."""
 
 
 class _Request:
     __slots__ = (
         "id", "prompt_ids", "max_new_tokens", "temperature", "top_k", "top_p",
         "stream_cb", "future", "created", "first_token_at", "tokens",
-        "stop_ids", "dispatched", "kv_exhausted",
+        "stop_ids", "dispatched", "kv_exhausted", "priority", "canceled", "deadline",
     )
 
     def __init__(self, rid: int, prompt_ids: list[int], max_new_tokens: int,
                  temperature: float, top_k: int, top_p: float,
-                 stream_cb: Callable | None, stop_ids: set[int]) -> None:
+                 stream_cb: Callable | None, stop_ids: set[int], *,
+                 priority: int = 0, deadline: float | None = None) -> None:
         self.id = rid
         self.prompt_ids = prompt_ids
         self.max_new_tokens = max_new_tokens
@@ -147,6 +216,19 @@ class _Request:
         self.stop_ids = stop_ids
         self.dispatched = 0  # decode steps dispatched (>= committed)
         self.kv_exhausted = False  # cut short by pool pressure, not its budget
+        self.priority = priority
+        self.canceled = False  # set by cancel() or a failing stream_cb
+        # absolute perf_counter time the caller stops caring; None = never
+        self.deadline = (self.created + deadline) if deadline else None
+
+    def expired(self, now: float) -> bool:
+        return self.deadline is not None and now > self.deadline
+
+    def remaining(self, now: float) -> float | None:
+        """Seconds left of the deadline (None without one), never below 0."""
+        if self.deadline is None:
+            return None
+        return max(self.deadline - now, 0.0)
 
 
 class _Inflight:
@@ -177,8 +259,8 @@ def _request_seed(seed: int, request_id: int) -> int:
 
 
 class ServingEngine:
-    """Owns the model params, the KV cache (dense or paged) and the loop
-    thread."""
+    """Owns the model params, the KV cache (dense or paged), the admission
+    scheduler, the loop thread and the detok worker."""
 
     def __init__(
         self,
@@ -203,6 +285,7 @@ class ServingEngine:
         self.tokenizer = tokenizer or ByteTokenizer(cfg.vocab_size)
         self.seed = seed
         self._block_steps = int(self.config.multi_step)
+        self._sync_every = max(1, int(self.config.decode_sync_every))
 
         B, S = self.config.max_slots, self.config.max_seq_len
         chunk = max(1, int(self.config.prefill_chunk_tokens))
@@ -237,6 +320,8 @@ class ServingEngine:
         self.top_k = np.zeros(B, np.int64)
         self.top_p = np.ones(B, np.float32)
         self.slots: list[_Request | None] = [None] * B
+        # dispatched, not yet read blocks, oldest first; at most
+        # decode_sync_every outstanding after each dispatch
         self._inflight: collections.deque[_Inflight] = collections.deque()
         self._dec_state: batch_ops.DecodeState | None = None  # None: rebuild
         # slots prefilled since the last dispatch: slot -> (first token,
@@ -247,10 +332,29 @@ class ServingEngine:
         self._mask_dev: torch.Tensor | None = None
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
 
-        self._queue: collections.deque[_Request] = collections.deque()
-        self._mu = threading.Lock()  # guards _queue, _next_id, _stopped
+        # admission: the scheduler owns the queue and which slots are
+        # taken; every path that frees a slot releases it exactly once
+        self._sched = Scheduler(B, self.config.max_queue, self.config.prefill_token_budget)
+        self._by_id: dict[int, _Request] = {}  # queued + active, by request id
+        self._count_lock = threading.Lock()  # guards _by_id, _next_id
+        # makes submit's stop check + registration atomic with stop()'s flag
+        self._submit_mu = threading.Lock()
         self._next_id = 0
-        self._stopped = False
+        self._shed = QueueWaitEstimator(cold_prior_s=self.config.shed_cold_prior_s)
+        self._draining = False
+        self._stop_requested = False
+        self._idle = threading.Event()  # set by the loop when drained dry
+        # token frames and final settlement run on ONE worker, off the
+        # engine thread, so a slow client never stalls the device; one
+        # worker keeps each request's frames in order (tokens, then done).
+        # It is handed host ints and strings only, never a device tensor.
+        self._detok = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="serving-detok"
+        )
+        self._detok_depth = 0  # tasks queued on the worker
+        self._detok_mu = threading.Lock()
+        self._detok_idle = threading.Event()  # set while nothing is queued
+        self._detok_idle.set()
         self._running = False
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
@@ -259,17 +363,18 @@ class ServingEngine:
     def start(self) -> None:
         if self._running:
             return
-        with self._mu:
-            if self._stopped:
-                raise EngineStopped("a stopped engine does not restart")
+        if self._stop_requested:
+            raise RuntimeError("a stopped engine does not restart")
+        self._idle.clear()
         self._running = True
         self._thread = threading.Thread(target=self._loop, name="serving-engine", daemon=True)
         self._thread.start()
 
     def stop(self, join_timeout: float = 10.0) -> None:
-        """Stop the loop thread and fail every request not yet finished."""
-        with self._mu:
-            self._stopped = True
+        """Stop the loop thread and the detok worker, and fail every request
+        not yet finished with a retriable 503."""
+        with self._submit_mu:
+            self._stop_requested = True  # before the sweep: see submit
         self._running = False
         self._wake.set()
         if self._thread is not None:
@@ -278,15 +383,57 @@ class ServingEngine:
                 log.error("serving engine thread did not exit within %gs", join_timeout)
             else:
                 self._thread = None
-        # swept after the join: the loop may have put a request back at the
-        # head of the queue while it was stopping
-        with self._mu:
-            leftovers = list(self._queue)
-            self._queue.clear()
-        if self._thread is None:  # the loop is gone, so its slots are ours
-            leftovers += [req for req in self.slots if req is not None]
+        # queued settlements still run (wait=False drains the queue without
+        # blocking on a client's stream_cb); later ones run inline
+        self._detok.shutdown(wait=False)
+        with self._count_lock:
+            leftovers = list(self._by_id.values())
+            self._by_id.clear()
         for req in leftovers:
-            self._settle(req, exc=EngineStopped("engine stopped before the request was served"))
+            self._settle_future(req, ErrorServiceUnavailable(
+                "engine stopped before the request was served; retry", retry_after=1.0,
+            ))
+
+    def drain(self, deadline_s: float | None = None, *, join_timeout: float = 10.0) -> bool:
+        """Graceful drain: stop admitting (submit answers a retriable 503),
+        let queued and running generations finish within ``deadline_s``
+        (``drain_deadline_s`` by default), fail what is left with a
+        retriable 503 and cancel it, then stop. True when everything
+        finished in time."""
+        if not self._running:
+            self.stop(join_timeout=join_timeout)
+            return True
+        deadline_s = self.config.drain_deadline_s if deadline_s is None else deadline_s
+        self._draining = True
+        self._idle.clear()
+        self._wake.set()
+        t0 = time.monotonic()
+        drained = self._idle.wait(timeout=deadline_s)
+        if drained:
+            # the loop went dry, but settlement rides the detok worker:
+            # "drained" means every generation finished, so it must land
+            # inside the same deadline
+            drained = self._detok_idle.wait(timeout=max(deadline_s - (time.monotonic() - t0), 0.0))
+        if not drained:
+            with self._count_lock:
+                remainder = list(self._by_id.values())
+            for req in remainder:
+                self._settle_future(req, ErrorServiceUnavailable(
+                    "server draining; retry on another replica", retry_after=1.0,
+                ))
+                req.canceled = True  # the loop frees its slot and pages
+                try:
+                    self._sched.cancel(req.id)
+                except KeyError:
+                    pass
+            if remainder:
+                log.warning("drain deadline passed with %d request(s) in flight; "
+                            "failed them with a retriable error", len(remainder))
+            self._wake.set()
+            # a short window for the loop to reclaim the canceled slots
+            self._idle.wait(timeout=5.0)
+        self.stop(join_timeout=join_timeout)
+        return drained
 
     # ---------------------------------------------------------------- submit
     def submit(
@@ -297,46 +444,115 @@ class ServingEngine:
         temperature: float = 0.0,
         top_k: int = 0,
         top_p: float = 1.0,
+        priority: int = 0,
+        deadline: float | None = None,
         stream_cb: Callable[[int, str, bool], None] | None = None,
     ) -> concurrent.futures.Future:
         """Thread-safe submit; the Future resolves to a GenerationResult.
-        ``stream_cb(token_id, text_piece, done)`` runs on the engine thread
-        for every token and once more with ``done`` at the end."""
+        Lower ``priority`` is admitted first. ``deadline`` is the caller's
+        remaining budget in seconds: a request still queued when it passes
+        fails with ``ErrorDeadlineExceeded`` (504) without a prefill; one
+        mid-stream retires with finish reason ``deadline_exceeded``.
+        ``stream_cb(token_id, text_piece, done)`` runs on the detok worker
+        for every token and once more with ``done`` at the end; if it
+        raises, the request is canceled. Raises ``ErrorServiceUnavailable``
+        (503) while draining or after stop, ``ErrorTooManyRequests`` (429)
+        when shed or when the queue is full."""
+        if self._draining:
+            raise ErrorServiceUnavailable("server draining; retry on another replica",
+                                          retry_after=1.0)
+        # load shedding before any per-request work
+        est_wait = self._shed.estimate_wait(self._sched.pending(), self.config.max_slots)
+        shed_cap = self.config.shed_max_wait_s
+        missed = deadline is not None and 0 < deadline < est_wait
+        if missed or (shed_cap > 0 and est_wait > shed_cap):
+            raise ErrorTooManyRequests(
+                f"estimated queue wait {est_wait:.2f}s exceeds "
+                + (f"request deadline {deadline:.2f}s" if missed
+                   else f"shed threshold {shed_cap:.2f}s"),
+                retry_after=est_wait,
+            )
+        with self._count_lock:
+            self._next_id += 1
+            rid = self._next_id
         prompt_ids = (
             self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         )
         if not prompt_ids:
             raise ValueError("empty prompt")
-        if len(prompt_ids) >= self.config.max_seq_len:
-            raise ValueError(
-                f"prompt of {len(prompt_ids)} tokens leaves no position to generate "
-                f"within max_seq_len={self.config.max_seq_len}"
-            )
-        pc = self.paged_cache
-        if pc is not None and pc.pages_needed(len(prompt_ids)) > pc.num_pages:
-            raise ValueError(
-                f"prompt needs {pc.pages_needed(len(prompt_ids))} KV pages; the pool has "
-                f"{pc.num_pages} in total"
-            )
+        # keep the TAIL within the sequence budget; a prompt that does not
+        # route chunked also keeps within the largest bucket
+        max_prompt = self.config.max_seq_len - 1
+        if not self._route_chunked(min(len(prompt_ids), max_prompt)):
+            max_prompt = min(max_prompt, max(self._buckets()))
+        prompt_ids = prompt_ids[-max_prompt:]
         budget = self.config.max_seq_len - len(prompt_ids)
         max_new = min(max_new_tokens or self.config.max_new_tokens_default, budget)
-        with self._mu:
-            if self._stopped:
-                raise EngineStopped("engine stopped")
-            if len(self._queue) >= self.config.max_queue:
-                raise QueueFull(f"{self.config.max_queue} requests already queued")
-            self._next_id += 1
-            req = _Request(
-                self._next_id, prompt_ids, max_new, float(temperature), int(top_k),
-                float(top_p), stream_cb, stop_ids={self.tokenizer.eos_id},
-            )
-            self._queue.append(req)
+        req = _Request(
+            rid, prompt_ids, max_new, float(temperature), int(top_k), float(top_p), stream_cb,
+            stop_ids={self.tokenizer.eos_id}, priority=int(priority), deadline=deadline,
+        )
+        with self._submit_mu:
+            if self._stop_requested:
+                raise ErrorServiceUnavailable("server stopped; retry on another replica",
+                                              retry_after=1.0)
+            with self._count_lock:
+                self._by_id[rid] = req
+            try:
+                self._sched.submit(rid, len(prompt_ids), max_new, req.priority)
+            except QueueFull:
+                with self._count_lock:
+                    self._by_id.pop(rid, None)
+                raise ErrorTooManyRequests(retry_after=max(est_wait, 1.0)) from None
+        self._idle.clear()
         self._wake.set()
         return req.future
 
     async def generate(self, prompt: str | list[int], **kw: Any) -> GenerationResult:
         """Asyncio-friendly submit + await."""
         return await asyncio.wrap_future(self.submit(prompt, **kw))
+
+    async def stream(self, prompt: str | list[int], *,
+                     on_result: Callable[[GenerationResult], None] | None = None,
+                     **kw: Any):
+        """Async iterator of (token_id, text_piece). ``on_result`` gets the
+        final GenerationResult after the last token. Leaving the iterator
+        early cancels the request."""
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+
+        def cb(token_id: int, piece: str, done: bool) -> None:
+            loop.call_soon_threadsafe(q.put_nowait, (token_id, piece, done))
+
+        future = self.submit(prompt, stream_cb=cb, **kw)
+        try:
+            while True:
+                token_id, piece, done = await q.get()
+                if done:
+                    break
+                yield token_id, piece
+            result = await asyncio.wrap_future(future)
+            if on_result is not None:
+                on_result(result)
+        finally:
+            # the consumer left mid-stream: free the slot instead of
+            # decoding into the void
+            if not future.done():
+                self.cancel(future.request_id)
+
+    def cancel(self, request_id: int) -> None:
+        """Mark a queued or running request canceled. A running one frees
+        its slot at the engine thread's next dispatch scan or token commit,
+        a queued one at the next admission; nothing else changes here."""
+        with self._count_lock:
+            req = self._by_id.get(request_id)
+        if req is not None:
+            req.canceled = True
+        try:
+            self._sched.cancel(request_id)  # a no-op once admitted
+        except KeyError:
+            pass
+        self._wake.set()
 
     # ------------------------------------------------------------------ loop
     def _loop(self) -> None:
@@ -351,6 +567,10 @@ class ServingEngine:
                     self._consume(self._inflight.popleft())
                     did = True
                 if not did:
+                    if (self._draining and not self._inflight
+                            and not any(s is not None for s in self.slots)
+                            and self._sched.pending() == 0):
+                        self._idle.set()  # drained dry: drain() waits on this
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
             except Exception as exc:  # the loop must outlive a failed step
@@ -365,11 +585,10 @@ class ServingEngine:
             1 for slot, req in enumerate(self.slots)
             if req is not None and slot not in self._cursors
         )
-        with self._mu:
-            depth = len(self._queue)
         return self._planner.plan(
             decode_rows=decode_rows, cursors=list(self._cursors.values()),
-            free_slots=sum(1 for s in self.slots if s is None), queue_depth=depth,
+            free_slots=sum(1 for s in self.slots if s is None),
+            queue_depth=self._sched.pending(),
         )
 
     def _route_chunked(self, prompt_len: int) -> bool:
@@ -378,44 +597,86 @@ class ServingEngine:
         return prompt_len > self._chunk_tokens or prompt_len > max(self._buckets())
 
     def _admit(self, plan: StepPlan) -> bool:
-        """Admit up to the plan's quota of queued requests FIFO into free
-        slots. A request the pool cannot hold yet stays at the head;
-        nothing overtakes it."""
-        did = False
-        cap = max(plan.admit_cap, 1)  # a submit may have raced the plan
-        for slot in range(self.config.max_slots):
-            if cap <= 0:
-                break
-            if self.slots[slot] is not None:
+        """Admit up to the plan's quota through the scheduler, each into the
+        slot it assigns. Canceled requests finish ``"cancel"``, expired ones
+        fail with a 504 before any prefill, and a request the pool cannot
+        hold yet goes back to the head of its priority class."""
+        sched = self._sched
+        if not sched.pending():
+            return False
+        # a canceled request resolves only through admit, so the quota is
+        # at least one while anything is queued (a submit may also have
+        # raced the plan's read of the queue)
+        pairs, canceled_ids = sched.admit(max(plan.admit_cap, 1))
+        for rid in canceled_ids:
+            with self._count_lock:
+                req = self._by_id.pop(rid, None)
+            if req is not None:
+                self._finish(req, "cancel")
+        for rid, slot in pairs:
+            with self._count_lock:
+                req = self._by_id.get(rid)
+            if req is None or req.canceled or req.expired(time.perf_counter()):
+                sched.release(slot)
+                with self._count_lock:
+                    self._by_id.pop(rid, None)
+                if req is not None and req.canceled:
+                    self._finish(req, "cancel")
+                elif req is not None:
+                    # expired while queued: never prefill it; the caller
+                    # gets a 504
+                    self._settle_async(req, exc=ErrorDeadlineExceeded())
                 continue
-            with self._mu:
-                if not self._queue:
-                    break
-                req = self._queue.popleft()
             try:
                 if self._route_chunked(len(req.prompt_ids)):
                     self._start_cursor(slot, req)
                 else:
                     self._prefill_into(slot, req)
             except _Requeue:
-                with self._mu:
-                    self._queue.appendleft(req)
-                break
+                # pages short for now: back to the head of its class; the
+                # rest of this round's pairs proceed
+                sched.release(slot)
+                self._resubmit_front(req)
             except Exception as exc:
-                log.exception("prefill failed for request %d", req.id)
+                log.exception("prefill failed for request %d", rid)
                 self.slots[slot] = None
                 self._cursors.pop(slot, None)
+                self.cache_len[slot] = 0
                 self._free_kv(slot)
-                self._settle(req, exc=exc)
-            did = True
-            cap -= 1
-        return did
+                try:
+                    sched.release(slot)
+                except KeyError:  # a retire inside the failed call released it
+                    pass
+                with self._count_lock:
+                    self._by_id.pop(rid, None)
+                self._settle_async(req, exc=exc)
+        return bool(pairs or canceled_ids)
+
+    def _resubmit_front(self, req: _Request) -> None:
+        """Requeue at the head of the request's priority class after
+        transient pool pressure; a queue that will not take it fails the
+        request with a 429."""
+        try:
+            self._sched.submit(req.id, len(req.prompt_ids), req.max_new_tokens,
+                               req.priority, front=True)
+        except Exception:
+            with self._count_lock:
+                self._by_id.pop(req.id, None)
+            self._settle_async(req, exc=ErrorTooManyRequests())
 
     def _start_cursor(self, slot: int, req: _Request) -> None:
         """Admit a long prompt as a chunk cursor: claim the slot and leave
         the prompt to the planner's chunk grants. On the paged layout pages
-        are claimed at the first grant."""
-        cursor = ChunkCursor(req=req, slot=slot, total=len(req.prompt_ids), seq=self._cursor_seq)
+        are claimed at the first grant; a prompt the whole pool can never
+        hold fails with a 413 before the slot is touched."""
+        pc = self.paged_cache
+        total = len(req.prompt_ids)
+        if pc is not None and pc.pages_needed(total) > pc.num_pages:
+            raise ErrorRequestEntityTooLarge(
+                f"prompt needs {pc.pages_needed(total)} KV pages; the pool has "
+                f"{pc.num_pages} in total"
+            )
+        cursor = ChunkCursor(req=req, slot=slot, total=total, seq=self._cursor_seq)
         self._cursor_seq += 1
         self.slots[slot] = req
         self.cache_len[slot] = 0
@@ -426,19 +687,25 @@ class ServingEngine:
         self._cursors[slot] = cursor
 
     def _cursor_health(self, slot: int, req: _Request, cursor: ChunkCursor) -> None:
-        """A cursor the pool could not cover requeues from chunk 0, at the
-        head of the queue, once nothing of it is in flight (an in-flight
-        ragged dispatch still writes through the slot's pages). A dense
-        slot row always covers its cursor, which is never blocked."""
-        if cursor.in_flight > 0 or not cursor.blocked:
+        """The mid-prefill exits, run at each dispatch scan once nothing of
+        the cursor is in flight (an in-flight ragged dispatch still writes
+        through the slot's pages): cancel and deadline retire the row; a
+        cursor the pool could not cover requeues from chunk 0 at the head
+        of its class. A dense slot row always covers its cursor."""
+        if cursor.in_flight > 0:
             return
-        log.info("KV pool short; request %d requeues from chunk 0", req.id)
-        self._cursors.pop(slot, None)
-        self.slots[slot] = None
-        self.cache_len[slot] = 0
-        self._free_kv(slot)
-        with self._mu:
-            self._queue.appendleft(req)
+        if req.canceled:
+            self._retire(slot, "cancel")
+        elif req.expired(time.perf_counter()):
+            self._retire(slot, "deadline_exceeded")
+        elif cursor.blocked:
+            log.info("KV pool short; request %d requeues from chunk 0", req.id)
+            self._cursors.pop(slot, None)
+            self.slots[slot] = None
+            self.cache_len[slot] = 0
+            self._free_kv(slot)
+            self._sched.release(slot)
+            self._resubmit_front(req)
 
     def _prefill_into(self, slot: int, req: _Request) -> None:
         cfg, pc = self.model_cfg, self.paged_cache
@@ -447,7 +714,8 @@ class ServingEngine:
         bucket = batch_ops.pad_bucket(S, self._buckets())
         if pc is not None:
             if pc.pages_needed(bucket) > pc.num_pages:
-                raise ValueError(
+                # permanent: however empty the pool gets, this never fits
+                raise ErrorRequestEntityTooLarge(
                     f"prompt needs {pc.pages_needed(bucket)} KV pages; the pool has "
                     f"{pc.num_pages} in total"
                 )
@@ -497,6 +765,7 @@ class ServingEngine:
         emission and the one stop/length retire chain."""
         self.last_token[slot] = first_id
         req.first_token_at = time.perf_counter()
+        self._shed.observe_ttft(req.first_token_at - req.created)
         self._emit(req, first_id)
         if first_id in req.stop_ids:
             self._retire(slot, "stop")
@@ -507,12 +776,12 @@ class ServingEngine:
     def _decode_step(self, plan: StepPlan) -> bool:
         """Dispatch the next N-step block (the unified ragged dispatch when
         the plan granted chunks), then read the oldest one still
-        outstanding (double-buffered: one dispatch stays in flight)."""
+        outstanding once more than ``decode_sync_every`` are in flight."""
         inflight = self._dispatch(plan)
         if inflight is not None:
             self._inflight.append(inflight)
         did = inflight is not None
-        if self._inflight and (inflight is None or len(self._inflight) > 1):
+        if self._inflight and (inflight is None or len(self._inflight) > self._sync_every):
             self._consume(self._inflight.popleft())
             did = True
         return did
@@ -565,17 +834,29 @@ class ServingEngine:
     def _dispatch(self, plan: StepPlan) -> _Inflight | None:
         pc = self.paged_cache
         N = self._block_steps
+        now = time.perf_counter()
         rows: list[tuple[int, _Request]] = []
         for slot, req in enumerate(self.slots):
-            if req is None or req.kv_exhausted:
+            if req is None:
                 continue
             cursor = self._cursors.get(slot)
             if cursor is not None:  # mid-prefill: not a decode row
                 self._cursor_health(slot, req, cursor)
                 continue
+            if req.canceled:
+                # tokens still in flight for the row are dropped when their
+                # block is read (the slots[slot] is req check)
+                self._retire(slot, "cancel")
+                continue
+            if req.expired(now):
+                self._retire(slot, "deadline_exceeded")
+                continue
+            if req.kv_exhausted:
+                continue  # retires once its in-flight tokens are read
             # page coverage for the whole block, including the steps
             # dispatched but not yet read (the device runs ahead of the
-            # committed host mirror); a dense slot row covers max_seq_len
+            # committed host mirror by every block in flight); a dense slot
+            # row covers max_seq_len
             in_flight = req.dispatched - (len(req.tokens) - 1)
             if pc is None or pc.try_reserve_slot(slot, in_flight + N):
                 rows.append((slot, req))
@@ -593,6 +874,8 @@ class ServingEngine:
             cursor = self._cursors.get(slot)
             if cursor is None or cursor.blocked or cursor.remaining <= 0:
                 continue
+            if cursor.req.canceled or cursor.req.expired(now):
+                continue  # _cursor_health retires it once nothing is in flight
             n = min(grant, cursor.remaining)
             if pc is not None and not self._cover_chunk(pc, slot, cursor, n):
                 cursor.blocked = True
@@ -749,9 +1032,14 @@ class ServingEngine:
 
     # ----------------------------------------------------------- bookkeeping
     def _commit_token(self, slot: int, req: _Request, token_id: int) -> None:
+        """Deliver one decoded token and run the retire chain."""
         self.last_token[slot] = token_id
         self._emit(req, token_id)
-        if token_id in req.stop_ids:
+        if req.canceled:
+            self._retire(slot, "cancel")
+        elif req.expired(time.perf_counter()):
+            self._retire(slot, "deadline_exceeded")
+        elif token_id in req.stop_ids:
             self._retire(slot, "stop")
         elif len(req.tokens) >= req.max_new_tokens:
             self._retire(slot, "kv_exhausted" if req.kv_exhausted else "length")
@@ -759,13 +1047,48 @@ class ServingEngine:
             self._retire(slot, "length")
 
     def _emit(self, req: _Request, token_id: int) -> None:
+        """Record a token and queue its frame on the detok worker; a
+        callback that raises cancels the request."""
         req.tokens.append(token_id)
-        if req.stream_cb is not None and token_id not in req.stop_ids:
+        if req.stream_cb is None or token_id in req.stop_ids:
+            return
+        cb = req.stream_cb
+
+        def frame() -> None:
             try:
-                req.stream_cb(token_id, self.tokenizer.decode([token_id]), False)
-            except Exception:
-                log.exception("stream callback of request %d failed; streaming stops", req.id)
-                req.stream_cb = None
+                cb(token_id, self.tokenizer.decode([token_id]), False)
+            except Exception as exc:
+                if not req.canceled:
+                    log.warning("stream callback of request %d failed (%r); canceling it", req.id, exc)
+                req.canceled = True
+
+        self._submit_detok(frame)  # dropped after stop: nobody reads it
+
+    def _submit_detok(self, task: Callable[[], None]) -> bool:
+        """Queue ``task`` on the detok worker with depth accounting (what
+        drain waits on). False when the worker is already shut down."""
+        with self._detok_mu:
+            self._detok_depth += 1
+            self._detok_idle.clear()
+
+        def run() -> None:
+            try:
+                task()
+            finally:
+                self._detok_done()
+
+        try:
+            self._detok.submit(run)
+            return True
+        except RuntimeError:
+            self._detok_done()
+            return False
+
+    def _detok_done(self) -> None:
+        with self._detok_mu:
+            self._detok_depth -= 1
+            if self._detok_depth == 0:
+                self._detok_idle.set()
 
     def _retire(self, slot: int, reason: str) -> None:
         req = self.slots[slot]
@@ -773,7 +1096,10 @@ class ServingEngine:
         self._cursors.pop(slot, None)
         self.cache_len[slot] = 0
         self._free_kv(slot)
+        self._sched.release(slot)
         if req is not None:
+            with self._count_lock:
+                self._by_id.pop(req.id, None)
             self._finish(req, reason)
 
     def _free_kv(self, slot: int) -> None:
@@ -782,27 +1108,47 @@ class ServingEngine:
             self.paged_cache.free_slot(slot)
 
     def _finish(self, req: _Request, reason: str) -> None:
+        """Settle a request that ran (or was canceled in the queue) with its
+        result, behind its token frames on the detok worker."""
         now = time.perf_counter()
+        self._shed.observe_request(now - req.created)
         out_ids = [t for t in req.tokens if t not in req.stop_ids]
-        result = GenerationResult(
-            request_id=req.id,
-            text=self.tokenizer.decode(out_ids),
-            token_ids=out_ids,
-            prompt_tokens=len(req.prompt_ids),
-            completion_tokens=len(out_ids),
-            finish_reason=reason,
-            ttft_s=(req.first_token_at - req.created) if req.first_token_at else 0.0,
-            duration_s=now - req.created,
-        )
-        if req.stream_cb is not None:
-            try:
-                req.stream_cb(-1, "", True)
-            except Exception:
-                log.exception("stream callback of request %d failed", req.id)
-        self._settle(req, value=result)
+        ttft = (req.first_token_at - req.created) if req.first_token_at else 0.0
+
+        def build() -> GenerationResult:
+            return GenerationResult(
+                request_id=req.id,
+                text=self.tokenizer.decode(out_ids),
+                token_ids=out_ids,
+                prompt_tokens=len(req.prompt_ids),
+                completion_tokens=len(out_ids),
+                finish_reason=reason,
+                ttft_s=ttft,
+                duration_s=now - req.created,
+            )
+
+        self._settle_async(req, build=build)
+
+    def _settle_async(self, req: _Request, build: Callable[[], GenerationResult] | None = None,
+                      exc: Exception | None = None) -> None:
+        """The engine thread's terminal settlement: the done frame, then
+        the future (with ``build()``'s result, made there, or ``exc``), on
+        the detok worker behind the request's token frames; inline once
+        the worker has shut down, so a terminal state is never lost."""
+
+        def settle() -> None:
+            if req.stream_cb is not None:
+                try:
+                    req.stream_cb(-1, "", True)
+                except Exception:
+                    pass  # the client is gone; the future still settles
+            self._try_resolve(req, value=None if build is None else build(), exc=exc)
+
+        if not self._submit_detok(settle):
+            settle()
 
     @staticmethod
-    def _settle(req: _Request, value: Any = None, exc: Exception | None = None) -> None:
+    def _try_resolve(req: _Request, value: Any = None, exc: Exception | None = None) -> bool:
         """Resolve a request's future once; a second settler loses quietly."""
         try:
             if exc is not None:
@@ -810,7 +1156,17 @@ class ServingEngine:
             else:
                 req.future.set_result(value)
         except concurrent.futures.InvalidStateError:
-            pass
+            return False
+        return True
+
+    def _settle_future(self, req: _Request, exc: Exception) -> None:
+        """Fail a request from outside the engine thread (drain, stop), and
+        wake a stream consumer with its done frame."""
+        if self._try_resolve(req, exc=exc) and req.stream_cb is not None:
+            try:
+                req.stream_cb(-1, "", True)
+            except Exception:
+                pass
 
     def _fail_all(self, exc: Exception) -> None:
         """A failed step leaves the pipeline unknown: drop the in-flight
@@ -826,7 +1182,13 @@ class ServingEngine:
                 self.slots[slot] = None
                 self.cache_len[slot] = 0
                 self._free_kv(slot)
-                self._settle(req, exc=exc)
+                try:
+                    self._sched.release(slot)
+                except KeyError:
+                    pass
+                with self._count_lock:
+                    self._by_id.pop(req.id, None)
+                self._settle_async(req, exc=exc)
 
     def _buckets(self) -> tuple[int, ...]:
         return tuple(

@@ -29,11 +29,11 @@ from gofr_tpu.serving import EngineConfig as JEngineConfig  # noqa: E402
 from gofr_tpu.serving import ServingEngine as JServingEngine  # noqa: E402
 from gofr_tpu_torch.models import llama as tllama  # noqa: E402
 from gofr_tpu_torch.models.convert import params_from_jax  # noqa: E402
-from gofr_tpu_torch.serving.engine import (  # noqa: E402
-    EngineConfig,
-    EngineStopped,
-    ServingEngine,
+from gofr_tpu_torch.errors import (  # noqa: E402
+    ErrorRequestEntityTooLarge,
+    ErrorServiceUnavailable,
 )
+from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer  # noqa: E402
 
 PROMPTS = [
@@ -154,21 +154,32 @@ def test_streaming_and_lifecycle(models):
     assert seen[-1] == (-1, True)
     assert [t for t, _ in seen[:-1]] == res.token_ids
     assert res.ttft_s > 0 and res.duration_s >= res.ttft_s
-    with pytest.raises(EngineStopped):
+    with pytest.raises(ErrorServiceUnavailable) as err:
         engine.submit("late")
+    assert err.value.status_code == 503 and err.value.retry_after == 1.0
 
 
 def test_refusals(models):
-    """A prompt is refused only when it cannot fit max_seq_len (one
-    position left to generate) or the whole pool; past the largest bucket
-    it chunks instead."""
+    """A prompt of max_seq_len tokens or more is served from its tail (the
+    last max_seq_len - 1 tokens, one position left to generate); past the
+    largest bucket it chunks instead. Only a prompt the whole pool can
+    never hold is refused, at admission, with a 413 on its future."""
     _, _, tcfg, tparams = models
     engine = _port_engine(tcfg, tparams)
-    with pytest.raises(ValueError, match="no position to generate"):
-        engine.submit(list(range(3, 67)))  # 64 tokens = max_seq_len
+    engine.submit(list(range(3, 67)))  # 64 tokens = max_seq_len: the tail is kept
+    with engine._count_lock:
+        kept = [r.prompt_ids for r in engine._by_id.values()]
+    assert kept == [list(range(4, 67))] and engine._route_chunked(63)
     engine.submit(list(range(3, 66)))  # 63 tokens > largest bucket 32: accepted
-    with pytest.raises(ValueError, match="KV pages"):
-        _port_engine(tcfg, tparams, kv_num_pages=3).submit(list(range(3, 28)))  # 4 pages
+    small = _port_engine(tcfg, tparams, kv_num_pages=3)
+    small.start()
+    try:
+        fut = small.submit(list(range(3, 28)))  # 25 tokens, bucket 32: 4 pages
+        with pytest.raises(ErrorRequestEntityTooLarge, match="KV pages"):
+            fut.result(timeout=60)
+    finally:
+        small.stop()
+    assert small._sched.stats()["busy_slots"] == 0
     with pytest.raises(ValueError, match="kv_dtype"):
         _port_engine(tcfg, tparams, kv_dtype="fp8")
     with pytest.raises(ValueError, match="empty"):
@@ -325,8 +336,10 @@ def test_prefill_first_token_matches_dense_argmax(models):
     """The engine's first greedy token is the argmax of a plain prefill."""
     _, _, tcfg, tparams = models
     ids = ByteTokenizer().encode("first token")
-    logits, _, _ = tllama.prefill(
-        tcfg, tparams, torch.tensor([ids + [0] * (16 - len(ids))]), torch.tensor([len(ids)], dtype=torch.int32)
+    cache = tllama.KVCache.create(tcfg, 1, max_len=16, device="cpu")
+    logits, _ = tllama.prefill(
+        tcfg, tparams, torch.tensor([ids + [0] * (16 - len(ids))]), cache,
+        torch.tensor([len(ids)], dtype=torch.int32),
     )
     res = _run(_port_engine(tcfg, tparams), [ids], max_new_tokens=1)[0]
     assert res.token_ids == [int(np.argmax(logits[0].numpy()))] or res.finish_reason == "stop"

@@ -80,8 +80,8 @@ def test_prefill_logits_and_slabs(models):
     tokens[1, 9:] = 0  # right padding
     cache = jllama.KVCache.create(jcfg, 2, max_len=S)
     want, cache = jllama.prefill(jcfg, jparams, jnp.asarray(tokens), cache, jnp.asarray(lens))
-    got, k_slab, v_slab = tllama.prefill(tcfg, tparams, torch.from_numpy(tokens).long(),
-                                         torch.from_numpy(lens))
+    got, k_slab, v_slab = tllama._prefill_slabs(tcfg, tparams, torch.from_numpy(tokens).long(),
+                                                torch.from_numpy(lens))
     assert got.dtype == torch.float32 and got.shape == (2, jcfg.vocab_size)
     _close(got, want)
     _close(k_slab, cache.k)
@@ -117,3 +117,52 @@ def test_decode_step_paged_logits_and_pools_over_8_steps(models):
     _close(tv, jv)
     # the frozen row never touched its own pages
     np.testing.assert_array_equal(tk[:, tables[2]].numpy(), pool_k[:, tables[2]])
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["model-dtype", "int8"])
+def test_prefill_into_cache_matches_jitted_reference(models, kv_dtype):
+    """``llama.prefill(cfg, params, tokens, cache, seq_lens)`` against the
+    reference's jitted ``prefill`` over a cache with more rows (3) and
+    positions (24) than the prompt batch (2 x 16): logits within 1e-4;
+    full-precision K/V within 4e-6 (f32 GEMM summation order: layer 0
+    already differs by ~6e-7); int8 values identical, and values and
+    scales bit-identical to the jitted ``quantize_kv`` of the port's own
+    full-precision K/V; rows past B and positions past S untouched."""
+    jcfg, jparams, tcfg, tparams = models
+    rng = np.random.default_rng(2)
+    B, S, rows, positions = 2, 16, 3, 24
+    tokens = rng.integers(3, jcfg.vocab_size, (B, S)).astype(np.int32)
+    lens = np.array([16, 9], np.int32)
+    tokens[1, 9:] = 0  # right padding
+    jcache = jllama.KVCache.create(jcfg, rows, max_len=positions, kv_dtype=kv_dtype)
+    want, jcache = jax.jit(jllama.prefill, static_argnums=0)(
+        jcfg, jparams, jnp.asarray(tokens), jcache, jnp.asarray(lens))
+    tcache = tllama.KVCache.create(tcfg, rows, max_len=positions, kv_dtype=kv_dtype, device="cpu")
+    for t in tcache.tensors():  # what is already there must survive
+        if t is not None:
+            t.copy_(torch.from_numpy(rng.integers(-50, 50, t.shape)).to(t.dtype))
+    before = [None if t is None else t.clone() for t in tcache.tensors()]
+    got, out = tllama.prefill(tcfg, tparams, torch.from_numpy(tokens).long(), tcache,
+                              torch.from_numpy(lens))
+    assert out is tcache and got.shape == (B, jcfg.vocab_size)
+    _close(got, want)
+    for t, old in zip(tcache.tensors(), before):
+        if t is None:
+            continue
+        assert torch.equal(t[:, B:], old[:, B:]), "a row past B changed"
+        assert torch.equal(t[:, :, S:], old[:, :, S:]), "a position past S changed"
+    jk, jv = np.asarray(jcache.k)[:, :B, :S], np.asarray(jcache.v)[:, :B, :S]
+    if kv_dtype is None:
+        for t, w in ((tcache.k, jk), (tcache.v, jv)):
+            np.testing.assert_allclose(t[:, :B, :S].numpy(), w, atol=4e-6, rtol=4e-6)
+        return
+    np.testing.assert_array_equal(tcache.k[:, :B, :S].numpy(), jk)
+    np.testing.assert_array_equal(tcache.v[:, :B, :S].numpy(), jv)
+    full = tllama.KVCache.create(tcfg, B, max_len=S, device="cpu")
+    tllama.prefill(tcfg, tparams, torch.from_numpy(tokens).long(), full, torch.from_numpy(lens))
+    jit_quantize = jax.jit(jllama.quantize_kv)
+    for x, q, s, js in ((full.k, tcache.k, tcache.ks, jcache.ks), (full.v, tcache.v, tcache.vs, jcache.vs)):
+        wq, ws = jit_quantize(jnp.asarray(x.numpy()))
+        np.testing.assert_array_equal(q[:, :B, :S].numpy(), np.asarray(wq))
+        np.testing.assert_array_equal(s[:, :B, :S].numpy().view(np.uint32), np.asarray(ws).view(np.uint32))
+        np.testing.assert_allclose(s[:, :B, :S].numpy(), np.asarray(js)[:, :B, :S], rtol=4e-6)
