@@ -41,7 +41,29 @@ Phases, each a hard failure with a non-zero exit:
    decode steps', through the pool or the slot cache) against a plain
    dense forward of the same weights over the prompt and the tokens the
    engine generated (on the int8 paths with K/V passed through
-   ``quantize_kv`` and ``dequantize_kv`` at every layer);
+   ``quantize_kv`` and ``dequantize_kv`` at every layer); then the
+   lifecycle phase (cancel, priority, deadlines, streaming, drain, shed on
+   a dense and a paged int8 engine); then the kv-reuse and spec phase, at
+   full depth, one engine after another with the launches of each
+   counted alone:
+   - ``R1`` dense bf16, ``R2`` paged bf16 (16-token pages) and ``R3`` paged
+     int8 (32-token pages), each with a 64-entry, 2 GiB prefix cache: a
+     200-token prompt twice (the second a whole-prompt hit: no prefill,
+     no flash launch, the same tokens); a 1000-token prompt alone twice
+     (on R1 and R2 a full chunk-chain hit with zero prefill dispatches,
+     on R3 a recomputation, as int8 KV keeps no chunk cache); on R1 and
+     R2 a 768-token system prompt with 8 concurrent 200-token suffixes
+     (24 chunk hits, 8 chunks computed); on R1 the logits of a warm
+     request (first token from the cached chain) against the dense
+     forward;
+   - ``R4`` dense bf16 with a 64 MiB device tier over a 1 GiB host spill
+     tier: prompt A, prompt B (which evicts A to pinned host memory), a
+     flush, then A again, a host-tier hit with A's tokens;
+   - ``S1`` dense bf16 and ``S2`` paged int8 with 4 prompt-lookup drafts
+     a step: 8 greedy rows of prompts that repeat a 40-token segment and
+     a sampled row, beside a non-spec engine of the same layout; one
+     greedy request's verify logits against the dense forward, each
+     emitted token the argmax of the engine's own logits;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -59,6 +81,8 @@ prints no result. Imports nothing of JAX or of ``gofr_tpu``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import inspect
 import json
 import math
 import re
@@ -617,6 +641,61 @@ def ragged_name(engine) -> str:
     return "ragged_step_paged_q" if engine.paged_cache.quantized else "ragged_step_paged"
 
 
+def decode_step_spy(engine, decode_seen: list):
+    """A stand-in for the engine layout's decode step that records each
+    step's (live rows, logits) and runs the real one; returns (name, real
+    function, spy)."""
+    from gofr_tpu_torch.models import llama
+
+    dense = engine.paged_cache is None
+    quantized = (engine.cache if dense else engine.paged_cache).quantized
+    name = "decode_step" if dense else ("decode_step_paged_q" if quantized else "decode_step_paged")
+    step_fn = getattr(llama, name)
+
+    def step_hook(*args):
+        out = step_fn(*args)
+        # a dense step's frozen rows run at length S_max + 1; a paged step
+        # takes its live rows as its last argument
+        live = args[4] <= args[3].max_len if dense else args[-1]
+        decode_seen.append((live.clone(), out[0].clone()))  # (live rows, logits)
+        return out
+
+    return name, step_fn, step_hook
+
+
+def hold_to_dense(torch, engine, ids: list[int], r, first_logits, decode_seen: list, steps: int,
+                  what: str) -> None:
+    """Hold the logits the engine computed for one request served alone
+    (``first_logits`` [1, V] for its first token, then each of its first
+    ``steps`` decode steps') against one dense forward over the prompt and
+    the tokens the engine generated; its tokens must be the argmax of its
+    own logits. Prints the outcome; raises on a disagreement."""
+    cfg, params = engine.model_cfg, engine.params
+    quantized = (engine.cache if engine.paged_cache is None else engine.paged_cache).quantized
+    live_steps = [(live, lg) for live, lg in decode_seen if bool(live.any())][:steps]
+    rows = {tuple(live.nonzero()[:, 0].tolist()) for live, _ in live_steps}
+    if len(live_steps) != steps or len(rows) != 1 or len(next(iter(rows))) != 1:
+        raise AssertionError(f"expected {steps} decode steps with one live row, saw {rows}")
+    (row,) = next(iter(rows))
+    got = torch.cat([first_logits[-1:]] + [lg[row:row + 1] for _, lg in live_steps])  # [steps+1, V]
+    seq = ids + r.token_ids[:steps]
+    want = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=quantized)
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+    picked = got.argmax(-1).tolist() == r.token_ids
+    dense_agree = sum(int(a == b) for a, b in zip(want.argmax(-1).tolist(), r.token_ids))
+    print(f"  engine logits vs dense forward{' (K/V quantized)' if quantized else ''} "
+          f"({len(ids)}-token prompt, {what}, slot {row}): rel_l2 first token {rel[0]:.3e}, "
+          f"decode steps {' '.join(f'{x:.3e}' for x in rel[1:])} (tol {LOGITS_REL_TOL}); tokens = "
+          f"argmax of the engine's logits: {picked}; dense argmax agrees on {dense_agree}/{steps + 1}")
+    if quantized:  # information only: how far int8 KV moves the logits
+        plain = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=False)
+        rel_plain = ((got - plain).norm(dim=-1) / plain.norm(dim=-1)).tolist()
+        print(f"  (information) engine int8 logits vs the unquantized dense forward: rel_l2 "
+              f"{' '.join(f'{x:.3e}' for x in rel_plain)}")
+    if not (max(rel) <= LOGITS_REL_TOL) or not picked or not bool(torch.isfinite(got).all()):
+        raise AssertionError("the engine's logits disagree with the dense forward")
+
+
 def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
     """Serve one greedy request alone and hold the logits the engine itself
     computed for it against one dense forward over the prompt and the
@@ -630,28 +709,16 @@ def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.serving import batch as batch_ops
 
-    cfg, params = engine.model_cfg, engine.params
-    dense = engine.paged_cache is None
-    quantized = (engine.cache if dense else engine.paged_cache).quantized
     chunked = engine._route_chunked(len(ids))
-    # (function whose logits are the prompt's, index of those logits in its
-    # result), and the decode step's function name
+    # (function whose logits are the prompt's, index of those logits in its result)
     pre_name, pre_idx = (ragged_name(engine), 1) if chunked else ("prefill_compute", 0)
-    step_name = "decode_step" if dense else ("decode_step_paged_q" if quantized else "decode_step_paged")
     prefill_seen, decode_seen = [], []
-    prefill_fn, step_fn = getattr(batch_ops, pre_name), getattr(llama, step_name)
+    prefill_fn = getattr(batch_ops, pre_name)
+    step_name, step_fn, step_hook = decode_step_spy(engine, decode_seen)
 
     def prefill_hook(*args):
         out = prefill_fn(*args)
         prefill_seen.append(out[pre_idx].clone())
-        return out
-
-    def step_hook(*args):
-        out = step_fn(*args)
-        # a dense step's frozen rows run at length S_max + 1; a paged step
-        # takes its live rows as its last argument
-        live = args[4] <= args[3].max_len if dense else args[-1]
-        decode_seen.append((live.clone(), out[0].clone()))  # (live rows, logits)
         return out
 
     setattr(batch_ops, pre_name, prefill_hook)
@@ -665,30 +732,8 @@ def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
     if r.finish_reason != "length" or len(r.token_ids) != steps + 1 or len(prefill_seen) != n_prefill:
         raise AssertionError(f"the logits check request ended {r.finish_reason} after "
                              f"{len(r.token_ids)} tokens and {len(prefill_seen)} prefill calls")
-    live_steps = [(live, lg) for live, lg in decode_seen if bool(live.any())][:steps]
-    rows = {tuple(live.nonzero()[:, 0].tolist()) for live, _ in live_steps}
-    if len(live_steps) != steps or len(rows) != 1 or len(next(iter(rows))) != 1:
-        raise AssertionError(f"expected {steps} decode steps with one live row, saw {rows}")
-    (row,) = next(iter(rows))
-    got = torch.cat([prefill_seen[-1][-1:]] + [lg[row:row + 1] for _, lg in live_steps])  # [steps+1, V]
-    seq = ids + r.token_ids[:steps]
-    want = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=quantized)
-    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
-    picked = got.argmax(-1).tolist() == r.token_ids
-    dense_agree = sum(int(a == b) for a, b in zip(want.argmax(-1).tolist(), r.token_ids))
-    what = "final chunk" if chunked else "prefill"
-    print(f"  engine logits vs dense forward{' (K/V quantized)' if quantized else ''} "
-          f"({len(ids)}-token prompt, {n_prefill} prefill call(s), slot {row}): rel_l2 "
-          f"{what} {rel[0]:.3e}, decode steps {' '.join(f'{x:.3e}' for x in rel[1:])} "
-          f"(tol {LOGITS_REL_TOL}); tokens = argmax of the engine's logits: {picked}; "
-          f"dense argmax agrees on {dense_agree}/{steps + 1}")
-    if quantized:  # information only: how far int8 KV moves the logits
-        plain = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=False)
-        rel_plain = ((got - plain).norm(dim=-1) / plain.norm(dim=-1)).tolist()
-        print(f"  (information) engine int8 logits vs the unquantized dense forward: rel_l2 "
-              f"{' '.join(f'{x:.3e}' for x in rel_plain)}")
-    if not (max(rel) <= LOGITS_REL_TOL) or not picked or not bool(torch.isfinite(got).all()):
-        raise AssertionError("the engine's logits disagree with the dense forward")
+    what = f"{n_prefill} prefill call(s), first token from the " + ("final chunk" if chunked else "prefill")
+    hold_to_dense(torch, engine, ids, r, prefill_seen[-1], decode_seen, steps, what)
 
 
 def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, must_not: set,
@@ -1198,7 +1243,428 @@ def run_lifecycle(torch, cfg, params) -> dict:
     return result
 
 
-def run_engine(torch) -> tuple[dict, dict, dict]:
+# ------------------------------------------------------- kv reuse and spec
+SPEC_TOKENS, SPEC_NGRAM = 4, 3
+
+
+@contextlib.contextmanager
+def spying(target, name: str, record):
+    """Replace ``target.name`` for the block by a function that runs the
+    real one and then calls ``record(bound arguments, result)``."""
+    real = getattr(target, name)
+    sig = inspect.signature(real)
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        record(sig.bind(*args, **kw).arguments, out)
+        return out
+
+    setattr(target, name, spy)
+    try:
+        yield
+    finally:
+        setattr(target, name, real)
+
+
+def finished(r, max_new: int) -> bool:
+    """A request that ran to its budget, or to a stop token before it."""
+    return (r.finish_reason == "length" and r.completion_tokens == max_new
+            or r.finish_reason == "stop" and r.completion_tokens < max_new)
+
+
+def launch_counts() -> dict:
+    return {n: fn.launches for n, fn in counters().items()}
+
+
+def print_launches(name: str, launches: dict) -> None:
+    """Each kernel's launch count on a line of its own."""
+    for kernel, label in (("flash_attention", "flash"), ("paged_decode_attention", "paged bf16"),
+                          ("paged_decode_attention_q", "paged int8")):
+        print(f"  {name} launches: {label} {launches.get(kernel, 0)}")
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for n, v in more.items():
+        total[n] = total.get(n, 0) + v
+
+
+def reuse_path(torch, cfg, params, name: str, ecfg, prompts: dict, *, steps: tuple,
+               chunk_cache: bool, logits_check: bool) -> dict:
+    """Drive one KV-reuse engine through ``steps`` of: (1) a 200-token
+    prompt twice, the second a whole-prompt hit; (2) a 1000-token prompt
+    alone twice, the second a full chain hit, or with ``chunk_cache`` off a
+    recomputation; (3) the system-prompt mix, one warm request and then 8
+    concurrent ones sharing its 768-token prefix; (4) the logits of one
+    warm request against the dense forward. Each request's prefill calls,
+    chunk rows dispatched and kernel launches are counted alone. Returns
+    the outcomes; raises at the first check that fails."""
+    from gofr_tpu_torch import ServingEngine
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.serving import batch as batch_ops
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, ecfg, ByteTokenizer(cfg.vocab_size), seed=SEED)
+    layout = "dense" if engine.paged_cache is None else f"paged page={ecfg.kv_page_size}"
+    print(f"engine {name}: {layout} kv_dtype={ecfg.kv_dtype} max_seq_len={ecfg.max_seq_len} "
+          f"chunk={engine._chunk_tokens} prefix_cache_entries={ecfg.prefix_cache_entries} "
+          f"prefix_cache_bytes={ecfg.prefix_cache_bytes} kv_spill_bytes={ecfg.kv_spill_bytes}, "
+          f"{cfg.n_layers} layers")
+    prefill_calls, chunk_rows = [], []
+    out = {"launches": {}}
+    total = {}
+
+    def served(ids, what, **kw):
+        """One request alone: (result, prefill calls, chunk rows, launches)."""
+        n_pre, n_rows = len(prefill_calls), len(chunk_rows)
+        for fn in counters().values():
+            fn.launches = 0
+        r = engine.submit(ids, **{"max_new_tokens": 32, **kw}).result(timeout=600)
+        launches = launch_counts()
+        add_launches(total, launches)
+        rec = (r, len(prefill_calls) - n_pre, chunk_rows[n_rows:], launches)
+        print(f"  {what}: {r.completion_tokens} tokens, {r.finish_reason}, ttft "
+              f"{r.ttft_s * 1e3:.2f} ms; prefill calls {rec[1]}, chunk dispatches {len(rec[2])}, "
+              f"flash launches {launches['flash_attention']}")
+        if not finished(r, kw.get("max_new_tokens", 32)) or any(
+                not (0 <= t < cfg.vocab_size) for t in r.token_ids):
+            raise AssertionError(f"{name} {what}: ended {r.finish_reason}")
+        return rec
+
+    engine.start()
+    try:
+        with spying(batch_ops, "prefill_compute", lambda a, o: prefill_calls.append(1)), \
+                spying(batch_ops, ragged_name(engine),
+                       lambda a, o: chunk_rows.append(int(a["chunk_rows"].shape[0]))):
+            engine.submit(prompts["warm"], max_new_tokens=4).result(timeout=600)  # warm-up
+            if 1 in steps:
+                cold = served(prompts["short"], "200-token prompt, cold")
+                warm = served(prompts["short"], "200-token prompt, again")
+                ok = (cold[1] == 1 and warm[1] == 0 and warm[3]["flash_attention"] == 0
+                      and warm[0].token_ids == cold[0].token_ids)
+                out["whole_prompt_hit"] = ok
+                if not ok:
+                    raise AssertionError(f"{name}: the repeated 200-token prompt was no clean hit")
+            if 2 in steps:
+                cold = served(prompts["long"], "1000-token prompt alone, cold")
+                warm = served(prompts["long"], "1000-token prompt alone, again")
+                n_chunks = math.ceil(1000 / engine._chunk_tokens)
+                hit = not warm[2] and warm[1] == 0 and warm[3]["flash_attention"] == 0
+                keys = [k for k in engine._prefix_cache.keys() if str(k).startswith("chunkpfx:")]
+                ok = (len(cold[2]) == n_chunks and warm[0].token_ids == cold[0].token_ids
+                      and (hit if chunk_cache else len(warm[2]) == n_chunks and not keys))
+                out["ttft_ms_prompt1000_cold"] = cold[0].ttft_s * 1e3
+                out["ttft_ms_prompt1000_warm"] = warm[0].ttft_s * 1e3
+                out["chain_hit" if chunk_cache else "chunk_miss"] = ok
+                print(f"  TTFT of the 1000-token prompt: cold {cold[0].ttft_s * 1e3:.2f} ms, "
+                      f"warm {warm[0].ttft_s * 1e3:.2f} ms; chunkpfx keys {len(keys)}")
+                if not ok:
+                    raise AssertionError(f"{name}: the repeated 1000-token prompt broke its contract")
+            if 3 in steps:
+                system, suffixes = prompts["system"], prompts["suffixes"]
+                served(system + suffixes[0], "system prompt + suffix 0, the first of its family")
+                before, n_rows = engine._prefix_cache.stats(), len(chunk_rows)
+                for fn in counters().values():
+                    fn.launches = 0
+                futs = [engine.submit(system + s, max_new_tokens=32) for s in suffixes[1:9]]
+                results = [f.result(timeout=900) for f in futs]
+                add_launches(total, launch_counts())
+                after = engine._prefix_cache.stats()
+                hits, computed = after["hits"] - before["hits"], sum(chunk_rows[n_rows:])
+                ok = hits == 24 and computed == 8 and all(finished(r, 32) for r in results)
+                out["system_mix"] = {"hits": hits, "computed_chunks": computed, "ok": ok,
+                                     "ttft_ms_max": max(r.ttft_s for r in results) * 1e3}
+                print(f"  system-prompt mix, 8 concurrent {len(system) + 200}-token prompts: "
+                      f"{hits} chunk hits, {computed} chunks computed, TTFT max "
+                      f"{out['system_mix']['ttft_ms_max']:.2f} ms, ms/step {per_step_ms(results)}")
+                if not ok:
+                    raise AssertionError(f"{name}: system-prompt mix {out['system_mix']}")
+            if logits_check:
+                # the 1000-token prompt once more: its first token from the
+                # cached chain's logits, with no prefill dispatch at all
+                looked, decode_seen = [], []
+                lookup = engine._cache_lookup
+                engine._cache_lookup = lambda key: looked.append(lookup(key)) or looked[-1]
+                step_name, step_fn, step_hook = decode_step_spy(engine, decode_seen)
+                n_pre, n_rows = len(prefill_calls), len(chunk_rows)
+                setattr(llama, step_name, step_hook)
+                try:
+                    r = engine.submit(prompts["long"], max_new_tokens=9).result(timeout=600)
+                finally:
+                    setattr(llama, step_name, step_fn)
+                    del engine._cache_lookup
+                if len(prefill_calls) != n_pre or len(chunk_rows) != n_rows or not finished(r, 9):
+                    raise AssertionError(f"{name}: the warm logits check dispatched a prefill")
+                first = [v for v, _tier in looked if v is not None][-1][0]
+                hold_to_dense(torch, engine, prompts["long"], r, first, decode_seen, 8,
+                              f"0 prefill calls, first token from the cached chain's logits "
+                              f"({len(looked)} lookups)")
+                out["warm_logits"] = True
+    finally:
+        engine.stop()
+    out["launches"] = total
+    out["cache"] = {k: v for k, v in engine._prefix_cache.stats().items() if k != "host"}
+    out["seconds"] = time.perf_counter() - t0
+    print_launches(name, total)
+    print(f"  {name}: prefix cache {out['cache']}; {out['seconds']:.1f}s")
+    return out
+
+
+def spill_path(torch, cfg, params, name: str, ecfg, prompts: dict) -> dict:
+    """A device tier that holds one 200-token entry over a host spill tier:
+    prompt A, then B (which evicts A to host memory), a flush, then A
+    again, which must be a host-tier hit with A's tokens."""
+    from gofr_tpu_torch import ServingEngine
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, ecfg, ByteTokenizer(cfg.vocab_size), seed=SEED)
+    print(f"engine {name}: dense kv_dtype={ecfg.kv_dtype} prefix_cache_bytes="
+          f"{ecfg.prefix_cache_bytes} kv_spill_bytes={ecfg.kv_spill_bytes}, {cfg.n_layers} layers")
+    tiers = []
+    lookup = engine._cache_lookup
+
+    def recorded(key):
+        value, tier = lookup(key)
+        tiers.append(tier)
+        return value, tier
+
+    engine._cache_lookup = recorded
+    for fn in counters().values():
+        fn.launches = 0
+    engine.start()
+    try:
+        a = engine.submit(prompts["short"], max_new_tokens=32).result(timeout=600)
+        engine.submit(prompts["other"], max_new_tokens=32).result(timeout=600)
+        flushed = engine._prefix_cache.flush(60.0)
+        host_before = engine._prefix_cache.stats()["host"]
+        tiers.clear()
+        again = engine.submit(prompts["short"], max_new_tokens=32).result(timeout=600)
+        stats = engine._prefix_cache.stats()
+    finally:
+        engine.stop()
+    launches = launch_counts()
+    ok = (flushed and tiers == ["host"] and stats["host"]["hits"] == 1
+          and again.token_ids == a.token_ids and finished(again, 32))
+    out = {"host_hit": ok, "tiers": tiers, "host_entries_before": host_before["entries"],
+           "spilled_total": stats["spilled_total"], "launches": launches,
+           "ttft_ms_cold": a.ttft_s * 1e3, "ttft_ms_host_hit": again.ttft_s * 1e3,
+           "seconds": time.perf_counter() - t0}
+    print(f"  A, B, flush, A again: lookup tiers of the second A {tiers}, host hits "
+          f"{stats['host']['hits']}, spilled {stats['spilled_total']}, tokens equal "
+          f"{again.token_ids == a.token_ids}; TTFT cold {a.ttft_s * 1e3:.2f} ms, host hit "
+          f"{again.ttft_s * 1e3:.2f} ms")
+    print_launches(name, launches)
+    if not ok:
+        raise AssertionError(f"{name}: no clean host-tier hit: {out}")
+    return out
+
+
+def spec_traffic(engine, prompts: list) -> tuple[list, float]:
+    """8 greedy requests and one sampled, 48 new tokens each, at once."""
+    t0 = time.perf_counter()
+    futs = [engine.submit(p, max_new_tokens=48,
+                          **(dict(temperature=0.8, top_k=50, top_p=0.95) if i == 8 else {}))
+            for i, p in enumerate(prompts)]
+    return [f.result(timeout=900) for f in futs], time.perf_counter() - t0
+
+
+def check_spec_logits(torch, engine, ids: list[int], n_new: int) -> dict:
+    """Serve one greedy request alone on a spec engine and hold every
+    logits row the engine computed for an emitted token (the prefill's for
+    the first, then, per verify, the rows of the accepted drafts and the
+    bonus) against the dense forward; every emitted token must be the
+    argmax of its row."""
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.serving import batch as batch_ops
+
+    dense = engine.paged_cache is None
+    quantized = (engine.cache if dense else engine.paged_cache).quantized
+    fwd = "decode_chunk" if dense else ("decode_chunk_paged_q" if quantized else "decode_chunk_paged")
+    pre, verifies = [], []
+
+    def on_verify(a, o):
+        rows = (a["tokens"][:, 0] >= 0).nonzero()[:, 0].tolist()
+        if len(rows) != 1:
+            raise AssertionError(f"the spec logits check saw verify rows {rows}")
+        verifies.append((a["tokens"][rows[0]].tolist(), o[0][rows[0]].clone()))
+
+    with spying(batch_ops, "prefill_compute", lambda a, o: pre.append(o[0].clone())), \
+            spying(llama, fwd, on_verify):
+        r = engine.submit(ids, max_new_tokens=n_new).result(timeout=600)
+    rows, emitted = [pre[-1][0]], [int(pre[-1][0].argmax())]
+    accepted = 0
+    for chunk, L in verifies:
+        g = L.argmax(-1).tolist()
+        a = 0
+        while a + 1 < len(chunk) and chunk[a + 1] >= 0 and g[a] == chunk[a + 1]:
+            a += 1
+        accepted += a
+        rows += [L[j] for j in range(a + 1)]
+        emitted += g[:a + 1]
+    n = len(r.token_ids)
+    picked = emitted[:n] == r.token_ids and (r.finish_reason != "length" or n == n_new)
+    got = torch.stack(rows[:n])
+    want = dense_logits(torch, engine.model_cfg, engine.params, ids + r.token_ids[:n - 1], n,
+                        kv_quant=quantized)
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+    dense_agree = sum(int(a == b) for a, b in zip(want.argmax(-1).tolist(), r.token_ids))
+    print(f"  spec logits vs dense forward{' (K/V quantized)' if quantized else ''} "
+          f"({len(ids)}-token prompt, {len(verifies)} verify dispatches, {accepted} drafts "
+          f"accepted): rel_l2 max {max(rel):.3e} over {n} tokens (tol {LOGITS_REL_TOL}); tokens = "
+          f"argmax of the engine's logits: {picked}; dense argmax agrees on {dense_agree}/{n}")
+    if not (max(rel) <= LOGITS_REL_TOL) or not picked or not bool(torch.isfinite(got).all()):
+        raise AssertionError("the spec engine's logits disagree with the dense forward")
+    return {"rel_l2_max": max(rel), "verifies": len(verifies), "accepted": accepted, "tokens": n}
+
+
+def spec_path(torch, cfg, params, name: str, conf: dict, prompts: list, check_ids: list) -> dict:
+    """A spec engine and a non-spec engine of the same layout over the
+    same traffic, one after the other; the spec engine's logits check."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    out = {}
+    for mode, extra in (("spec", dict(spec_tokens=SPEC_TOKENS, spec_ngram=SPEC_NGRAM)),
+                        ("plain", dict(multi_step=4))):
+        ecfg = EngineConfig(**conf, **extra)
+        engine = ServingEngine(cfg, params, ecfg, ByteTokenizer(cfg.vocab_size), seed=SEED)
+        engine.start()
+        try:
+            engine.submit(prompts[0][:5], max_new_tokens=4).result(timeout=600)  # warm-up
+            engine.spec_stats.update(dispatches=0, accepted=0, emitted=0)
+            for fn in counters().values():
+                fn.launches = 0
+            results, wall = spec_traffic(engine, prompts)
+            launches = launch_counts()
+            stats = dict(engine.spec_stats)
+            check = check_spec_logits(torch, engine, check_ids, 16) if mode == "spec" else None
+        finally:
+            engine.stop()
+        del engine
+        torch.cuda.empty_cache()
+        for r in results:
+            if r.finish_reason not in ("length", "stop") or not r.token_ids:
+                raise AssertionError(f"{name} {mode}: a request ended {r.finish_reason}")
+        out[mode] = {"results": results, "launches": launches, "spec_stats": stats,
+                     "ms_per_token": per_step_ms(results), "wall_s": wall, "check": check}
+        print(f"  {name} {mode}: {ecfg.kv_layout} kv_dtype={ecfg.kv_dtype} spec_tokens="
+              f"{ecfg.spec_tokens}; traffic {wall:.2f}s, ms per emitted token (median row) "
+              f"{out[mode]['ms_per_token']}; spec_stats {stats}")
+        print_launches(f"{name} {mode}", launches)
+    spec, plain = out["spec"], out["plain"]
+    greedy = list(zip(spec["results"][:8], plain["results"][:8]))
+    same_rows = sum(int(a.token_ids == b.token_ids) for a, b in greedy)
+    same_tokens = sum(sum(int(x == y) for x, y in zip(a.token_ids, b.token_ids)) for a, b in greedy)
+    n_tokens = sum(len(b.token_ids) for _, b in greedy)
+    first_diff = [next((i for i, (x, y) in enumerate(zip(a.token_ids, b.token_ids)) if x != y), None)
+                  for a, b in greedy]
+    # how close a tie each first difference was: the dense forward's gap
+    # between its two largest logits there, beside the row's median gap
+    # over the tokens both engines agreed on
+    gaps = []
+    for (_, b), d, p in zip(greedy, first_diff, prompts):
+        if d is None:
+            continue
+        lg = dense_logits(torch, cfg, params, p + b.token_ids[:d], d + 1,
+                          kv_quant=conf.get("kv_dtype") == "int8")
+        top2 = lg.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).tolist()
+        gaps.append([gap[-1], sorted(gap[:-1])[len(gap[:-1]) // 2] if d else None])
+    st = spec["spec_stats"]
+    per_dispatch = st["accepted"] / st["dispatches"] if st["dispatches"] else 0.0
+    # each row of a verify emits its accepted drafts and one more token
+    row_verifies = st["emitted"] - st["accepted"]
+    summary = {
+        "spec_stats": st, "accepted_per_dispatch": per_dispatch,
+        "accepted_per_row_verify": st["accepted"] / row_verifies if row_verifies else 0.0,
+        "emitted_per_dispatch": st["emitted"] / st["dispatches"] if st["dispatches"] else 0.0,
+        "ms_per_emitted_token": spec["ms_per_token"], "plain_ms_per_step": plain["ms_per_token"],
+        "greedy_rows_equal": same_rows, "greedy_tokens_equal": same_tokens,
+        "greedy_first_difference": first_diff, "top2_gap_at_difference_and_median": gaps,
+        "greedy_tokens": n_tokens, "logits_check": spec["check"],
+        "launches": {"spec": spec["launches"], "plain": plain["launches"]},
+        "seconds": time.perf_counter() - t0,
+    }
+    print(f"  {name}: accepted drafts per verify dispatch {per_dispatch:.3f} (per row verify "
+          f"{summary['accepted_per_row_verify']:.3f}), emitted per dispatch "
+          f"{summary['emitted_per_dispatch']:.3f}; ms per emitted token {spec['ms_per_token']} "
+          f"against {plain['ms_per_token']} ms per step without spec; greedy rows equal to the "
+          f"non-spec engine's {same_rows}/8, tokens {same_tokens}/{n_tokens}, first difference at "
+          f"token {first_diff}; the dense forward's top-2 logit gap there and the row's median gap "
+          f"before it {[[round(x, 4) if x is not None else None for x in g] for g in gaps]} "
+          f"(information: at bf16 a near-tie may flip an argmax between the verify's chunk "
+          f"forward and the one-step decode)")
+    if not st["dispatches"] or st["emitted"] < st["dispatches"]:
+        raise AssertionError(f"{name}: spec_stats {st}")
+    return summary
+
+
+def run_kv_reuse_spec(torch, cfg, params) -> dict:
+    """The kv-reuse and spec phase at Llama-3-8B widths and full depth, one
+    engine after another, each stopped before the next: R1 dense bf16, R2
+    paged bf16 and R3 paged int8 with the prefix caches; R4 dense bf16 over
+    the host spill tier; S1 dense bf16 and S2 paged int8 with speculative
+    decoding, each beside a non-spec engine of its layout."""
+    from gofr_tpu_torch import EngineConfig
+
+    rng = torch.Generator().manual_seed(SEED + 2)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    t0 = time.perf_counter()
+    prompts = {"warm": prompt(5), "short": prompt(200), "other": prompt(200), "long": prompt(1000),
+               "system": prompt(768), "suffixes": [prompt(200) for _ in range(9)]}
+    reuse = dict(max_slots=8, multi_step=4, prefill_chunk_tokens=256, prefix_cache_entries=64,
+                 prefix_cache_bytes=2 << 30)
+    out = {}
+    out["R1"] = reuse_path(torch, cfg, params, "R1", EngineConfig(
+        **reuse, max_seq_len=2048, kv_layout="dense"), prompts, steps=(1, 2, 3),
+        chunk_cache=True, logits_check=True)
+    torch.cuda.empty_cache()
+    out["R2"] = reuse_path(torch, cfg, params, "R2", EngineConfig(
+        **reuse, max_seq_len=2048, kv_layout="paged", kv_page_size=16), prompts, steps=(1, 2, 3),
+        chunk_cache=True, logits_check=False)
+    torch.cuda.empty_cache()
+    out["R3"] = reuse_path(torch, cfg, params, "R3", EngineConfig(
+        **reuse, max_seq_len=4096, kv_layout="paged", kv_page_size=32, kv_dtype="int8"), prompts,
+        steps=(1, 2), chunk_cache=False, logits_check=False)
+    torch.cuda.empty_cache()
+    # 64 MiB holds one 200-token entry (34.1 MB at bucket 256), not two
+    out["R4"] = spill_path(torch, cfg, params, "R4", EngineConfig(
+        **dict(reuse, prefix_cache_bytes=64 << 20), max_seq_len=2048, kv_layout="dense",
+        kv_spill_bytes=1 << 30), prompts)
+    torch.cuda.empty_cache()
+    # each prompt repeats a random 40-token segment 5 times: prompt lookup
+    # finds continuations to draft
+    spec_prompts = [prompt(40) * 5 for _ in range(9)]
+    check_ids = prompt(40) * 5
+    spec = dict(max_slots=8, prefill_chunk_tokens=256)
+    out["S1"] = spec_path(torch, cfg, params, "S1", dict(
+        spec, max_seq_len=2048, kv_layout="dense"), spec_prompts, check_ids)
+    out["S2"] = spec_path(torch, cfg, params, "S2", dict(
+        spec, max_seq_len=4096, kv_layout="paged", kv_page_size=32, kv_dtype="int8"),
+        spec_prompts, check_ids)
+    total = {}
+    for key in ("R1", "R2", "R3", "R4"):
+        add_launches(total, out[key]["launches"])
+    for key in ("S1", "S2"):
+        for mode in ("spec", "plain"):
+            add_launches(total, out[key]["launches"][mode])
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  kv-reuse and spec: launches {total}; {out['seconds']:.1f}s")
+    if (out["R1"]["launches"].get("paged_decode_attention") or out["R1"]["launches"].get(
+            "paged_decode_attention_q") or not out["R2"]["launches"].get("paged_decode_attention")
+            or not out["R3"]["launches"].get("paged_decode_attention_q")
+            or not all(total.get(n) for n in counters())):
+        raise AssertionError(f"kv-reuse and spec launches {total}")
+    return out
+
+
+def run_engine(torch) -> tuple[dict, dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -1271,7 +1737,10 @@ def run_engine(torch) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     print("lifecycle phase (dense bf16 and paged int8 engines, full depth):")
     lifecycle = run_lifecycle(torch, cfg, params)
-    return launches, timings, lifecycle
+    torch.cuda.empty_cache()
+    print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, full depth):")
+    reuse = run_kv_reuse_spec(torch, cfg, params)
+    return launches, timings, lifecycle, reuse
 
 
 def main() -> int:
@@ -1304,7 +1773,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
-    launches, engine_timings, lifecycle = run_engine(torch)
+    launches, engine_timings, lifecycle, reuse = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:
@@ -1314,6 +1783,7 @@ def main() -> int:
     print(json.dumps({"engine": engine_timings}))
     print(card)
     print(json.dumps({"lifecycle": lifecycle}))
+    print(json.dumps({"kv_reuse_spec": reuse}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -19,11 +19,11 @@ Kept: ``LlamaConfig``, ``init_params`` (bf16 or weight-only int8),
 ``prefill`` into a dense ``KVCache`` (bf16 or int8; the serving path's
 slab form is ``_prefill_slabs``), per-vector int8 ``quantize_kv``/
 ``dequantize_kv``, the dense ``KVCache`` with ``decode_step``,
-``decode_step_greedy``, ``decode_loop_greedy``, ``greedy_generate`` and
-the chunk forward ``decode_chunk``, and the paged ``decode_step_paged``/
-``_q`` and ``decode_chunk_paged``/``_q``. Waiting for later slices:
-``forward``, speculative generation, tied embeddings and context
-parallelism.
+``decode_step_greedy``, ``decode_loop_greedy``, ``greedy_generate``,
+prompt-lookup ``speculative_generate`` and the chunk forward
+``decode_chunk``, and the paged ``decode_step_paged``/``_q`` and
+``decode_chunk_paged``/``_q``. Waiting for later slices: ``forward``, tied
+embeddings and context parallelism.
 """
 
 from __future__ import annotations
@@ -558,6 +558,86 @@ def greedy_generate(
         tokens = logits.argmax(dim=-1)
         out.append(tokens)
     return torch.stack(out, dim=1)
+
+
+def _prompt_lookup_draft(context: list[int], ngram: int, draft_len: int) -> list[int]:
+    """Prompt-lookup drafting: find the most recent earlier occurrence of
+    the context's last ``ngram`` tokens and propose what followed it."""
+    if len(context) <= ngram:
+        return []
+    suffix = context[-ngram:]
+    # scan right to left, leaving out the suffix's own occurrence
+    for start in range(len(context) - ngram - 1, -1, -1):
+        if context[start:start + ngram] == suffix:
+            cont = context[start + ngram:start + ngram + draft_len]
+            if cont:
+                return cont
+    return []
+
+
+def speculative_generate(
+    cfg: LlamaConfig,
+    params: dict,
+    prompt: torch.Tensor,  # [B, S] right-padded
+    seq_lens: torch.Tensor,  # [B]
+    max_new_tokens: int,
+    *,
+    draft_len: int = 8,
+    ngram: int = 2,
+) -> tuple[torch.Tensor, dict]:
+    """Greedy generation with prompt-lookup speculative decoding: draft
+    tokens by matching the last n-gram earlier in the context, verify the
+    whole draft in ONE :func:`decode_chunk` call, and commit the longest
+    prefix greedy decoding would have produced. Lossless: the output equals
+    :func:`greedy_generate` token for token, while repetitive text commits
+    several tokens per forward. Returns ([B, max_new_tokens] ids, exactly
+    max_new_tokens per row with EOS left to the caller, and stats
+    {"forwards", "tokens"})."""
+    B, S = prompt.shape
+    dev = prompt.device
+    T = draft_len + 1  # the committed last token and up to draft_len drafts
+    cache = KVCache.create(cfg, B, max_len=S + max_new_tokens + T + 1, device=dev)
+    logits, cache = prefill(cfg, params, prompt, cache, seq_lens)
+    last = logits.argmax(dim=-1).tolist()
+
+    lens = seq_lens.tolist()
+    rows = prompt.tolist()
+    context = [rows[b][:lens[b]] + [last[b]] for b in range(B)]
+    out = [[last[b]] for b in range(B)]
+    cache_len = list(lens)  # committed length (the last token NOT yet in the cache)
+    forwards = 1  # the prefill
+    while min(len(o) for o in out) < max_new_tokens:
+        chunk = [[0] * T for _ in range(B)]
+        k_row = [0] * B
+        for b in range(B):
+            chunk[b][0] = context[b][-1]
+            draft = _prompt_lookup_draft(context[b], ngram, draft_len)
+            k_row[b] = len(draft)
+            chunk[b][1:1 + len(draft)] = draft
+        logits, cache = decode_chunk(
+            cfg, params, torch.tensor(chunk, device=dev), cache,
+            torch.tensor(cache_len, dtype=torch.int32, device=dev),
+        )
+        forwards += 1
+        greedy = logits.argmax(dim=-1).tolist()  # [B, T]
+        for b in range(B):
+            if len(out[b]) >= max_new_tokens:
+                cache_len[b] += 1  # keep the row's committed token in the cache
+                continue
+            a = 0
+            while a < k_row[b] and greedy[b][a] == chunk[b][1 + a]:
+                a += 1
+            new_tokens = chunk[b][1:1 + a] + [greedy[b][a]]
+            new_tokens = new_tokens[:max_new_tokens - len(out[b])]
+            out[b].extend(new_tokens)
+            context[b].extend(new_tokens)
+            # the chunk wrote K/V for the last token and the a accepted
+            # drafts; the bonus token commits NEXT round as position 0
+            cache_len[b] += a + 1 if len(new_tokens) == a + 1 else len(new_tokens)
+
+    total = sum(len(o) for o in out)
+    result = torch.tensor([o[:max_new_tokens] for o in out], dtype=torch.int64, device=dev)
+    return result, {"forwards": forwards, "tokens": total}
 
 
 def _dense_chunk_forward(

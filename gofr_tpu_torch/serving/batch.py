@@ -17,8 +17,15 @@ decode state with its first token sampled on the device, and returns the
 packed [B, steps+3] array (one more column: that first token, -1
 elsewhere): one host read per dispatch still.
 
+Speculative decoding (``verify_and_sample``, ``verify_and_sample_paged``/
+``_q``) runs one chunk verify forward of [B, K+1] tokens (the last
+committed token and up to K drafts), accepts the longest draft prefix
+greedy decoding would have produced and samples each row's bonus token,
+and returns one packed int32 [B, K+2] array: the tokens, then n_accept.
+``insert_chunk`` writes a cached chunk-prefix slab into a dense slot row.
+
 What the reference donates is updated in place here: the cache and pools
-by the prefill commit, decode and chunk steps, the decode state by
+by the prefill commit, decode, chunk and verify steps, the decode state by
 :func:`admit_decode_state` and :func:`_fold_finished_prefill`.
 """
 
@@ -505,6 +512,136 @@ def ragged_step_paged_q(
         topps, seeds, decode_active, steps,
     )
     return packed, last_logits, k_pool, v_pool, ks_pool, vs_pool, state
+
+
+def insert_chunk(
+    k_cache: torch.Tensor,  # [L, B, S_max, Hkv, Dh], written in place
+    v_cache: torch.Tensor,
+    k_slab: torch.Tensor,  # [L, C, Hkv, Dh] cached chunk-prefix slab
+    v_slab: torch.Tensor,
+    slot: int,
+    start: int,  # token offset of the slab
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Copy a cached chunk-prefix slab into slot row [:, slot,
+    start:start+C]: :func:`insert_slot`'s offset twin, for a chunked
+    admission that skips cached chunk prefixes."""
+    C = k_slab.shape[1]
+    k_cache[:, slot, start:start + C] = k_slab
+    v_cache[:, slot, start:start + C] = v_slab
+    return k_cache, v_cache
+
+
+# ------------------------------------------------------ speculative decoding
+def _accept_and_bonus(
+    chunk: torch.Tensor,  # [B, T] (position 0 the last committed token; drafts after it, -1 pads)
+    logits: torch.Tensor,  # [B, T, V] of the chunk verify forward
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: torch.Generator,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy draft acceptance and each row's bonus token, on the device.
+
+    Position i's logits predict the token after chunk token i, so draft
+    ``chunk[:, i+1]`` is accepted when the argmax of ``logits[:, i]``
+    equals it AND every earlier draft was accepted (a cumulative product).
+    -1 padding never matches. The bonus token is sampled from the logits
+    at the first rejected position with the row's own parameters, so a row
+    with no drafts (a sampled one) takes exactly one plain step. Returns
+    (tokens [B, T]: the accepted drafts, then the bonus, -1 after it;
+    n_accept [B])."""
+    B, T = chunk.shape
+    greedy = logits.argmax(dim=-1)  # [B, T]
+    drafts = chunk[:, 1:].long()  # [B, T-1]
+    match = (greedy[:, :-1] == drafts) & (drafts >= 0)
+    n_accept = torch.cumprod(match.long(), dim=1).sum(dim=1)  # [B]
+    bonus_logits = logits[torch.arange(B, device=logits.device), n_accept]  # [B, V]
+    bonus = sample_logits(
+        bonus_logits, generator, temperature=temperature, top_k=top_k, top_p=top_p
+    )
+    idx = torch.arange(T, device=chunk.device)[None, :]
+    drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    out = torch.where(
+        idx < n_accept[:, None], drafts_pad,
+        torch.where(idx == n_accept[:, None], bonus[:, None], torch.full_like(drafts_pad, -1)),
+    )
+    return out, n_accept
+
+
+def _pack_spec(out: torch.Tensor, n_accept: torch.Tensor) -> torch.Tensor:
+    """One int32 [B, T+1] array: the tokens, then n_accept, so the engine
+    reads a verify back with one host sync."""
+    return torch.cat([out.to(torch.int32), n_accept[:, None].to(torch.int32)], dim=1)
+
+
+def verify_and_sample(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    cache: llama.KVCache,  # bf16 or int8 dense, updated in place
+    chunk: torch.Tensor,  # [B, T]
+    start_len: torch.Tensor,  # [B] committed length before the chunk
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: torch.Generator,
+) -> tuple[torch.Tensor, llama.KVCache]:
+    """Speculative engine step over the dense cache: the chunk verify
+    forward, draft acceptance and bonus sampling in one dispatch with no
+    host sync. Returns (packed [B, T+1], cache); the reference also
+    returns its split PRNG key, where here ``generator`` advances."""
+    logits, cache = llama.decode_chunk(cfg, params, chunk, cache, start_len)
+    out, n_accept = _accept_and_bonus(chunk, logits, temperature, top_k, top_p, generator)
+    return _pack_spec(out, n_accept), cache
+
+
+def verify_and_sample_paged(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    k_pool: torch.Tensor,  # updated in place
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    chunk: torch.Tensor,
+    start_len: torch.Tensor,
+    active: torch.Tensor,
+    kv_capacity: torch.Tensor,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: torch.Generator,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Paged twin of :func:`verify_and_sample`: (packed, k_pool, v_pool)."""
+    logits, k_pool, v_pool = llama.decode_chunk_paged(
+        cfg, params, chunk, k_pool, v_pool, block_tables, start_len, active, kv_capacity,
+    )
+    out, n_accept = _accept_and_bonus(chunk, logits, temperature, top_k, top_p, generator)
+    return _pack_spec(out, n_accept), k_pool, v_pool
+
+
+def verify_and_sample_paged_q(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    k_pool: torch.Tensor,  # int8, updated in place
+    v_pool: torch.Tensor,
+    ks_pool: torch.Tensor,  # f32 scales, updated in place
+    vs_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    chunk: torch.Tensor,
+    start_len: torch.Tensor,
+    active: torch.Tensor,
+    kv_capacity: torch.Tensor,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: torch.Generator,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """int8 paged twin of :func:`verify_and_sample`: (packed, k_pool,
+    v_pool, ks_pool, vs_pool)."""
+    logits, k_pool, v_pool, ks_pool, vs_pool = llama.decode_chunk_paged_q(
+        cfg, params, chunk, k_pool, v_pool, ks_pool, vs_pool, block_tables, start_len, active,
+        kv_capacity,
+    )
+    out, n_accept = _accept_and_bonus(chunk, logits, temperature, top_k, top_p, generator)
+    return _pack_spec(out, n_accept), k_pool, v_pool, ks_pool, vs_pool
 
 
 def pad_bucket(length: int, buckets: tuple[int, ...]) -> int:

@@ -48,9 +48,35 @@ cannot cover requeues from chunk 0 once nothing of it is in flight, and a
 prompt the whole pool can never hold fails at admission with a 413. With
 ``kv_dtype="int8"`` either layout stores K/V as int8 with f32 per-vector
 scales. Weight-only int8 params (``llama.quantize_params``) serve as they
-are. Not ported yet: the prefix cache and chunk-prefix cache, speculative
-decoding, LoRA, dedup/HA, the supervisor, timelines, tracing, metrics,
-``health_check``, reclamation and tenancy.
+are.
+
+KV reuse (``prefix_cache_entries > 0``): a prompt that prefills whole is
+looked up under ``prefill:{bucket}:{S}:{digest}:-``; a hit skips the
+prefill forward, writes the cached slabs into the slot row or its pages
+(quantizing them for int8 KV) and samples the first token from the cached
+logits with the request's own generator. On bf16 KV a chunked prompt is
+also cached at every chunk boundary (``chunkpfx:{C}:{start}:{end}:
+{digest}:-``, the digest of the whole prefix): admission walks the longest
+cached chain, writes its slabs (``write_span`` on pages, ``insert_chunk``
+on the dense row) and starts its cursor there, and a chain that covers the
+whole prompt admits straight to decode with zero prefill dispatches. Each
+chunk that becomes resident is stored with its prefix's last-position
+logits. With ``kv_spill_bytes > 0`` the cache is a
+:class:`~gofr_tpu_torch.serving.kv_spill.TieredPrefixCache`: device-tier
+evictions spill to pinned host memory and a host hit re-uploads.
+
+Speculative decoding (``spec_tokens = K > 0``): every prompt prefills
+whole (clamped to the largest bucket), and each step drafts up to K tokens
+per greedy row by prompt lookup over prompt + output, verifies all rows in
+one chunk forward of K+1 positions, accepts the longest draft prefix that
+greedy decoding would have produced (lossless) and samples a bonus token,
+with one host sync per step. Sampled rows take plain one-token steps. The
+mode is unpipelined: the host's mirrors are authoritative and the device
+decode state is not used.
+
+Not ported yet: LoRA, tenancy and preemption, dedup/HA, the supervisor,
+timelines, tracing, metrics, ``health_check``, reclamation, KV migration
+and the prefix advertisement.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -61,6 +87,7 @@ import asyncio
 import collections
 import concurrent.futures
 import dataclasses
+import hashlib
 import logging
 import threading
 import time
@@ -80,6 +107,8 @@ from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops.sampling import sample_logits
 from gofr_tpu_torch.serving import batch as batch_ops
 from gofr_tpu_torch.serving.kv_cache import OutOfBlocks, PagedKVCache
+from gofr_tpu_torch.serving.kv_spill import TieredPrefixCache
+from gofr_tpu_torch.serving.prefix_cache import PrefixCache
 from gofr_tpu_torch.serving.scheduler import QueueFull, Scheduler
 from gofr_tpu_torch.serving.shed import QueueWaitEstimator
 from gofr_tpu_torch.serving.stepplan import ChunkCursor, StepPlan, StepPlanner
@@ -119,8 +148,9 @@ class EngineConfig:
     # "int8" stores K/V quantized (per-vector absmax, f32 scales): half the
     # bytes per resident token and half the decode KV stream
     kv_dtype: str = "bf16"
-    # decode tokens per device block (the N of the N-step block)
-    multi_step: int = 4
+    # decode tokens per device block (the N of the N-step block); None:
+    # 1 under speculative decoding, else 4
+    multi_step: int | None = None
     # dispatches outstanding before the host reads the oldest one (the
     # pipeline depth): 1 = dispatch k+1, then read k
     decode_sync_every: int = 1
@@ -136,6 +166,15 @@ class EngineConfig:
     # drain(): how long the work in hand gets before what is left fails
     # with a retriable 503
     drain_deadline_s: float = 30.0
+    # KV reuse: the device prefix cache's entry and byte bounds (0 entries:
+    # off), and the host spill tier's bytes under it (0: no spill tier)
+    prefix_cache_entries: int = 0
+    prefix_cache_bytes: int = 256 * 1024 * 1024
+    kv_spill_bytes: int = 0
+    # speculative decoding: drafts per verify step (0: off) and the n-gram
+    # the prompt lookup matches
+    spec_tokens: int = 0
+    spec_ngram: int = 3
 
     @classmethod
     def from_config(cls, config: Any) -> "EngineConfig":
@@ -163,13 +202,18 @@ class EngineConfig:
             kv_page_size=int(config.get_or_default("TPU_KV_PAGE_SIZE", "16")),
             kv_num_pages=int(num_pages) if num_pages else None,
             kv_dtype=config.get_or_default("TPU_KV_DTYPE", "bf16"),
-            # the reference's unset value means 4 while spec decoding is
-            # off, and the port has no spec decoding
-            multi_step=int(multi_step) if multi_step else 4,
+            multi_step=int(multi_step) if multi_step else None,
             decode_sync_every=int(config.get_or_default("TPU_DECODE_SYNC_EVERY", "1")),
             shed_max_wait_s=float(config.get_or_default("TPU_SHED_MAX_WAIT_S", "0")),
             shed_cold_prior_s=float(config.get_or_default("TPU_SHED_COLD_PRIOR_S", "0")),
             drain_deadline_s=float(config.get_or_default("TPU_DRAIN_DEADLINE_S", "30")),
+            prefix_cache_entries=int(config.get_or_default("TPU_PREFIX_CACHE_ENTRIES", "0")),
+            prefix_cache_bytes=int(
+                config.get_or_default("TPU_PREFIX_CACHE_BYTES", str(256 * 1024 * 1024))
+            ),
+            kv_spill_bytes=int(config.get_or_default("TPU_KV_SPILL_BYTES", "0")),
+            spec_tokens=int(config.get_or_default("TPU_SPEC_TOKENS", "0")),
+            spec_ngram=int(config.get_or_default("TPU_SPEC_NGRAM", "3")),
         )
 
 
@@ -234,17 +278,22 @@ class _Request:
 class _Inflight:
     """A dispatched, not yet read block: its packed device result, the
     (slot, request) decode rows and the (slot, request, cursor, start, n,
-    finishes) chunk rows it was built from. By the time it is read a slot
-    may have been retired or re-admitted; ``slots[slot] is req`` tells."""
+    finishes, row) chunk rows it was built from, ``row`` the chunk row's
+    place in ``last_logits`` (the ragged dispatch's [K, V] last-position
+    logits in chunk-row order, kept only while chunk-prefix caching is on).
+    By the time it is read a slot may have been retired or re-admitted;
+    ``slots[slot] is req`` tells."""
 
-    __slots__ = ("packed", "rows", "steps", "prefill_rows")
+    __slots__ = ("packed", "rows", "steps", "prefill_rows", "last_logits")
 
     def __init__(self, packed: torch.Tensor, rows: list, steps: int,
-                 prefill_rows: list | None = None) -> None:
+                 prefill_rows: list | None = None,
+                 last_logits: torch.Tensor | None = None) -> None:
         self.packed = packed
         self.rows = rows
         self.steps = steps
         self.prefill_rows = prefill_rows or []
+        self.last_logits = last_logits
 
 
 def _stop_id(req: _Request) -> int:
@@ -271,21 +320,61 @@ class ServingEngine:
         *,
         seed: int = 0,
         device: str | torch.device | None = None,
+        prefix_cache: Any = None,
     ) -> None:
         self.device = resolve_device(device)
         self.model_cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
-        if self.config.kv_layout not in ("dense", "paged"):
-            raise ValueError(f"kv_layout={self.config.kv_layout!r}: must be dense or paged")
-        if self.config.multi_step < 1:
+        conf = self.config
+        if conf.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout={conf.kv_layout!r}: must be dense or paged")
+        if conf.multi_step is not None and conf.multi_step < 1:
             raise ValueError("multi_step must be >= 1")
-        if self.config.kv_dtype not in ("bf16", "int8"):
-            raise ValueError(f"kv_dtype={self.config.kv_dtype!r}: must be bf16 or int8")
+        if conf.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype={conf.kv_dtype!r}: must be bf16 or int8")
+        if conf.spec_tokens < 0:
+            raise ValueError("TPU_SPEC_TOKENS must be >= 0")
+        if conf.multi_step is not None and conf.multi_step > 1 and conf.spec_tokens > 0:
+            raise ValueError(
+                "TPU_SPEC_TOKENS and TPU_BATCH_MULTI_STEP>1 are both chunking policies; "
+                "enable one"
+            )
         self.tokenizer = tokenizer or ByteTokenizer(cfg.vocab_size)
         self.seed = seed
-        self._block_steps = int(self.config.multi_step)
-        self._sync_every = max(1, int(self.config.decode_sync_every))
+        # the N-step block: an explicit multi_step wins; speculative mode
+        # verifies one chunk per step instead; else 4 steps per host sync
+        if conf.multi_step is not None:
+            self._block_steps = int(conf.multi_step)
+        elif conf.spec_tokens > 0:
+            self._block_steps = 1
+        else:
+            self._block_steps = 4
+        self._sync_every = max(1, int(conf.decode_sync_every))
+        # speculative mode keeps every prefill whole: spec chunking and
+        # prefill chunking are both per-dispatch policies, and the spec
+        # path is unpipelined
+        self._chunk_enabled = conf.spec_tokens == 0
+        # chunk-prefix entries hold full-width slabs; an int8 layout would
+        # re-quantize them at every hit and drift, so int8 engines keep
+        # only the whole-prompt cache
+        self._chunk_cache_enabled = conf.kv_dtype != "int8"
+        if prefix_cache is not None:
+            self._prefix_cache = prefix_cache
+        elif conf.prefix_cache_entries > 0 and conf.kv_spill_bytes > 0:
+            self._prefix_cache = TieredPrefixCache(
+                conf.prefix_cache_entries, max_bytes=conf.prefix_cache_bytes,
+                spill_bytes=conf.kv_spill_bytes, device=self.device,
+            )
+        elif conf.prefix_cache_entries > 0:
+            self._prefix_cache = PrefixCache(
+                conf.prefix_cache_entries, max_bytes=conf.prefix_cache_bytes,
+            )
+        else:
+            self._prefix_cache = None
+        # speculative-decode counters: emitted / dispatches > 1 means
+        # drafts are being accepted
+        self.spec_stats = {"dispatches": 0, "accepted": 0, "emitted": 0}
 
         B, S = self.config.max_slots, self.config.max_seq_len
         chunk = max(1, int(self.config.prefill_chunk_tokens))
@@ -384,8 +473,12 @@ class ServingEngine:
             else:
                 self._thread = None
         # queued settlements still run (wait=False drains the queue without
-        # blocking on a client's stream_cb); later ones run inline
+        # blocking on a client's stream_cb); later ones run inline. Queued
+        # spills run too. The spill tier is matched by type: an injected
+        # cache's close() may mean something the engine must not invoke.
         self._detok.shutdown(wait=False)
+        if isinstance(self._prefix_cache, TieredPrefixCache):
+            self._prefix_cache.close()
         with self._count_lock:
             leftovers = list(self._by_id.values())
             self._by_id.clear()
@@ -593,7 +686,10 @@ class ServingEngine:
 
     def _route_chunked(self, prompt_len: int) -> bool:
         """True when a prompt prefills through a chunk cursor and the ragged
-        dispatch: longer than a chunk, or longer than every bucket."""
+        dispatch: longer than a chunk, or longer than every bucket. Never
+        under speculative decoding."""
+        if not self._chunk_enabled:
+            return False
         return prompt_len > self._chunk_tokens or prompt_len > max(self._buckets())
 
     def _admit(self, plan: StepPlan) -> bool:
@@ -664,22 +760,102 @@ class ServingEngine:
                 self._by_id.pop(req.id, None)
             self._settle_async(req, exc=ErrorTooManyRequests())
 
+    # ----------------------------------------------------------- KV reuse
+    def _cache_lookup(self, key: str) -> tuple[Any, str]:
+        """Prefix-cache lookup with tier attribution: ``(value, tier)``,
+        tier ``device``, ``host`` or ``miss``; a single-tier cache reports
+        ``device`` on a hit."""
+        cache = self._prefix_cache
+        tiered = getattr(cache, "get_with_tier", None)
+        if tiered is not None:
+            return tiered(key)
+        value = cache.get(key)
+        return value, ("device" if value is not None else "miss")
+
+    def _chunk_cache_keys(self, prompt_ids: list[int]) -> list[tuple[int, int, str]]:
+        """Chunk-prefix cache keys for every chunk boundary of a prompt:
+        the chunk geometry and the digest of the WHOLE prefix up to the
+        boundary, so two prompts that share a prefix share its entries and
+        a change of chunk size never aliases. One incremental blake2b pass
+        with a snapshot per boundary (digesting each prefix from scratch
+        would be quadratic in the prompt's length)."""
+        arr = np.asarray(prompt_ids, np.int32)
+        h = hashlib.blake2b(digest_size=16)
+        out: list[tuple[int, int, str]] = []
+        pos, total = 0, len(prompt_ids)
+        while pos < total:
+            end = min(pos + self._chunk_tokens, total)
+            h.update(arr[pos:end].tobytes())
+            out.append((pos, end, f"chunkpfx:{self._chunk_tokens}:{pos}:{end}:"
+                                  f"{h.copy().hexdigest()}:-"))
+            pos = end
+        return out
+
     def _start_cursor(self, slot: int, req: _Request) -> None:
-        """Admit a long prompt as a chunk cursor: claim the slot and leave
-        the prompt to the planner's chunk grants. On the paged layout pages
-        are claimed at the first grant; a prompt the whole pool can never
-        hold fails with a 413 before the slot is touched."""
+        """Admit a long prompt as a chunk cursor: claim the slot, skip the
+        longest chain of cached chunk prefixes, and leave the rest of the
+        prompt to the planner's chunk grants. A chain that covers the whole
+        prompt admits straight to decode with zero prefill dispatches. On
+        the paged layout the pages of the cached chain are claimed here and
+        the rest at the first grant; a prompt the whole pool can never hold
+        fails with a 413, and page pressure requeues, both before the slot
+        is touched."""
         pc = self.paged_cache
-        total = len(req.prompt_ids)
+        ids = req.prompt_ids
+        total = len(ids)
         if pc is not None and pc.pages_needed(total) > pc.num_pages:
             raise ErrorRequestEntityTooLarge(
                 f"prompt needs {pc.pages_needed(total)} KV pages; the pool has "
                 f"{pc.num_pages} in total"
             )
+        # the longest chain of cached chunk-boundary prefixes (each entry:
+        # that chunk's K/V slab and its prefix's last-position logits); the
+        # keys ride the cursor for the put at consume
+        hits: list[tuple[int, int, Any]] = []
+        pos = 0
+        cache_keys: dict[tuple[int, int], str] | None = None
+        if self._prefix_cache is not None and self._chunk_cache_enabled:
+            boundaries = self._chunk_cache_keys(ids)
+            cache_keys = {(a, b): k for a, b, k in boundaries}
+            for start, end, key in boundaries:
+                val, _tier = self._cache_lookup(key)
+                if val is None:
+                    break
+                if end >= total and val[0].shape[-1] != self.model_cfg.vocab_size:
+                    # an entry without real last-position logits may link a
+                    # chain but never end it: the full-hit admit would
+                    # sample the first token from it
+                    break
+                hits.append((start, end, val))
+                pos = end
+        if hits and pc is not None:
+            try:
+                pc.alloc_slot(slot, seq_id=req.id, prompt_len=0, reserve_tokens=pos)
+            except OutOfBlocks:
+                raise _Requeue() from None
+        for start, _end, (_logits, k_slab, v_slab) in hits:
+            if pc is not None:
+                pc.write_span(slot, start, k_slab, v_slab)
+            else:
+                self.cache.k, self.cache.v = batch_ops.insert_chunk(
+                    self.cache.k, self.cache.v, k_slab, v_slab, slot, start,
+                )
+        if hits and pc is not None:
+            pc.advance_slot(slot, pos)
+        if pos >= total:
+            # the whole prompt is cached at chunk boundaries: sample the
+            # first token from the last entry's logits, as the dispatch
+            # that finishes a prompt would, and admit to decode
+            self._commit_prefilled(slot, req, self._first_token(req, hits[-1][2][0]), total)
+            return
         cursor = ChunkCursor(req=req, slot=slot, total=total, seq=self._cursor_seq)
         self._cursor_seq += 1
+        cursor.cache_keys = cache_keys
+        cursor.committed = cursor.dispatched = cursor.prefix_hit = pos
+        cursor.chunk_index = 1 if hits else 0
+        cursor.allocated = bool(hits and pc is not None)
         self.slots[slot] = req
-        self.cache_len[slot] = 0
+        self.cache_len[slot] = pos
         self.last_token[slot] = 0
         self.temperature[slot] = req.temperature
         self.top_k[slot] = req.top_k
@@ -713,6 +889,8 @@ class ServingEngine:
         S = len(ids)
         bucket = batch_ops.pad_bucket(S, self._buckets())
         if pc is not None:
+            # pages first: pool pressure requeues before any device work or
+            # cache lookup
             if pc.pages_needed(bucket) > pc.num_pages:
                 # permanent: however empty the pool gets, this never fits
                 raise ErrorRequestEntityTooLarge(
@@ -723,12 +901,25 @@ class ServingEngine:
                 pc.alloc_slot(slot, seq_id=req.id, prompt_len=S, reserve_tokens=bucket)
             except OutOfBlocks:
                 raise _Requeue() from None
-        tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
-        tokens[0, :S] = ids
-        last_logits, k_slab, v_slab = batch_ops.prefill_compute(
-            cfg, self.params, to_device(tokens, self.device),
-            to_device(np.array([S], np.int32), self.device),
-        )
+        cache_key = cached = None
+        if self._prefix_cache is not None:
+            # sampling params are not in the key: the entry is the
+            # pre-sampling prefill output, shared across temperatures
+            digest = hashlib.blake2b(np.asarray(ids, np.int32).tobytes(), digest_size=16)
+            cache_key = f"prefill:{bucket}:{S}:{digest.hexdigest()}:-"
+            cached, _tier = self._cache_lookup(cache_key)
+        if cached is not None:
+            last_logits, k_slab, v_slab = cached
+        else:
+            tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
+            tokens[0, :S] = ids
+            last_logits, k_slab, v_slab = batch_ops.prefill_compute(
+                cfg, self.params, to_device(tokens, self.device),
+                to_device(np.array([S], np.int32), self.device),
+            )
+            if cache_key is not None:
+                # fresh slabs that nothing writes into later: safe to keep
+                self._prefix_cache.put(cache_key, (last_logits, k_slab, v_slab))
         if pc is not None:
             pc.write_prefill(slot, k_slab, v_slab)
         elif self.cache.quantized:
@@ -737,12 +928,18 @@ class ServingEngine:
             self.cache.k, self.cache.v = batch_ops.insert_slot(
                 self.cache.k, self.cache.v, k_slab, v_slab, slot
             )
+        self._commit_prefilled(slot, req, self._first_token(req, last_logits), S)
+
+    def _first_token(self, req: _Request, last_logits: torch.Tensor) -> int:
+        """Sample a request's first token from its prompt's last-position
+        logits [1, V] with a generator seeded by (engine seed, request id),
+        as the dispatch that finishes a chunked prompt samples it. A host
+        sync: the token is needed now."""
         gen = torch.Generator(device=self.device).manual_seed(_request_seed(self.seed, req.id))
         first = sample_logits(
             last_logits, gen, temperature=req.temperature, top_k=req.top_k, top_p=req.top_p
         )
-        first_id = int(first[0])  # host sync: the first token is needed now
-        self._commit_prefilled(slot, req, first_id, S)
+        return int(first[0])
 
     def _commit_prefilled(self, slot: int, req: _Request, first_id: int, resident: int) -> None:
         """Monolithic route: set the slot's mirrors and queue the fold into
@@ -776,7 +973,10 @@ class ServingEngine:
     def _decode_step(self, plan: StepPlan) -> bool:
         """Dispatch the next N-step block (the unified ragged dispatch when
         the plan granted chunks), then read the oldest one still
-        outstanding once more than ``decode_sync_every`` are in flight."""
+        outstanding once more than ``decode_sync_every`` are in flight.
+        Speculative mode takes its own unpipelined step."""
+        if self.config.spec_tokens > 0:
+            return self._spec_step()
         inflight = self._dispatch(plan)
         if inflight is not None:
             self._inflight.append(inflight)
@@ -785,6 +985,124 @@ class ServingEngine:
             self._consume(self._inflight.popleft())
             did = True
         return did
+
+    def _spec_step(self) -> bool:
+        """One speculative decode step: the host drafts up to K tokens per
+        greedy row by prompt lookup over prompt + output, one verify
+        dispatch runs every row's chunk and samples the bonus tokens, and
+        the host commits each row's accepted prefix and bonus. Lossless
+        for greedy rows (acceptance is exact argmax equality); sampled
+        rows get no drafts and take a plain step. Unpipelined: drafting
+        needs the newest tokens, and the host's mirrors are authoritative
+        (the device decode state is not used)."""
+        cfg = self.model_cfg
+        K = self.config.spec_tokens
+        T = K + 1
+        max_seq = self.config.max_seq_len
+        self._pending_admit.clear()  # the host state is authoritative here
+
+        rows: list[tuple[int, _Request]] = []
+        now = time.perf_counter()
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if req.canceled:
+                self._retire(slot, "cancel")
+                continue
+            if req.expired(now):
+                self._retire(slot, "deadline_exceeded")
+                continue
+            if (len(req.tokens) >= req.max_new_tokens
+                    or len(req.prompt_ids) + len(req.tokens) >= max_seq):
+                continue  # retires at the limit checks of its last commit
+            rows.append((slot, req))
+        if not rows:
+            return False
+
+        B = self.config.max_slots
+        chunk = np.full((B, T), -1, np.int64)
+        for slot, req in rows:
+            chunk[slot, 0] = self.last_token[slot]
+            room = min(req.max_new_tokens - len(req.tokens),
+                       max_seq - 1 - (len(req.prompt_ids) + len(req.tokens)))
+            if req.temperature == 0 and room > 1:
+                draft = llama._prompt_lookup_draft(
+                    req.prompt_ids + req.tokens, self.config.spec_ngram, min(K, room - 1),
+                )
+                chunk[slot, 1:1 + len(draft)] = draft
+
+        pc = self.paged_cache
+        if pc is not None and not pc.try_reserve_chunk([s for s, _ in rows], T):
+            # pool pressure: one position of coverage per row (the chunk's
+            # tail goes to the trash page; no drafts still verifies
+            # position 0, a plain step). A row that cannot cover even one
+            # more token retires with what it has.
+            kept = []
+            for slot, req in rows:
+                if pc.try_reserve_chunk([slot], 1):
+                    chunk[slot, 1:] = -1
+                    kept.append((slot, req))
+                else:
+                    log.warning("KV pool exhausted; retiring request %d early", req.id)
+                    req.kv_exhausted = True
+                    self._retire(slot, "kv_exhausted")
+            rows = kept
+            if not rows:
+                return True
+
+        mask = np.zeros(B, bool)
+        for slot, _ in rows:
+            mask[slot] = True
+        if self._mask_host is None or not np.array_equal(mask, self._mask_host):
+            self._mask_dev = to_device(mask, self.device)
+            self._mask_host = mask
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return to_device(a, self.device)
+
+        samp = (up(self.temperature), up(self.top_k), up(self.top_p), self._rng)
+        chunk_d, start_d = up(chunk), up(np.maximum(self.cache_len, 1))
+        if pc is None:
+            packed, self.cache = batch_ops.verify_and_sample(
+                cfg, self.params, self.cache, chunk_d, start_d, *samp,
+            )
+        else:
+            cap = np.zeros(B, np.int32)
+            for slot, _ in rows:
+                cap[slot] = pc.owned_capacity(slot)
+            args = (pc.tables_device(), chunk_d, start_d, self._mask_dev, up(cap), *samp)
+            if pc.quantized:
+                (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool) = (
+                    batch_ops.verify_and_sample_paged_q(cfg, self.params, *pc.pools(), *args)
+                )
+            else:
+                packed, pc.k_pool, pc.v_pool = batch_ops.verify_and_sample_paged(
+                    cfg, self.params, pc.k_pool, pc.v_pool, *args,
+                )
+        packed_np = packed.cpu().numpy()  # the step's one host sync
+        out_np, na_np = packed_np[:, :-1], packed_np[:, -1]
+
+        accepted = emitted = 0
+        for slot, req in rows:
+            accepted += int(na_np[slot])
+            committed = 0
+            for i in range(int(na_np[slot]) + 1):
+                committed += 1
+                self._commit_token(slot, req, int(out_np[slot, i]))
+                if self.slots[slot] is not req:
+                    break  # retired mid-chunk: the tail is discarded
+            emitted += committed
+            # chunk position 0 (the token emitted last step) and the
+            # accepted drafts are now resident; the bonus token becomes the
+            # next chunk's position 0
+            if self.slots[slot] is req:
+                self.cache_len[slot] += committed
+                if pc is not None:
+                    pc.advance_slot(slot, committed)
+        self.spec_stats["dispatches"] += 1
+        self.spec_stats["accepted"] += accepted
+        self.spec_stats["emitted"] += emitted
+        return True
 
     def _slot_in_flight(self, slot: int, req: _Request) -> bool:
         return any(
@@ -895,14 +1213,18 @@ class ServingEngine:
         if self._mask_host is None or not np.array_equal(mask, self._mask_host):
             self._mask_dev = to_device(mask, self.device)
             self._mask_host = mask
+        last_logits = None
         if chunk_rows:
             # with no decode row the dispatch runs the chunks alone (0 steps)
             steps = N if rows else 0
-            packed, self._dec_state = self._dispatch_ragged(state, chunk_rows, steps)
+            packed, last_logits, self._dec_state = self._dispatch_ragged(state, chunk_rows, steps)
+            if self._prefix_cache is None or not self._chunk_cache_enabled:
+                last_logits = None  # nothing stores them: let the buffer go
             prefill_rows = []
-            for slot, cursor, req, start, n in chunk_rows:
+            for row, (slot, cursor, req, start, n) in enumerate(chunk_rows):
                 cursor.dispatched = start + n
-                prefill_rows.append((slot, req, cursor, start, n, start + n >= cursor.total))
+                cursor.chunk_index += 1
+                prefill_rows.append((slot, req, cursor, start, n, start + n >= cursor.total, row))
         else:
             steps, prefill_rows = N, []
             cfg, params = self.model_cfg, self.params
@@ -922,7 +1244,7 @@ class ServingEngine:
                 )
         for _, req in rows:
             req.dispatched += steps
-        return _Inflight(packed, rows, steps, prefill_rows)
+        return _Inflight(packed, rows, steps, prefill_rows, last_logits)
 
     @staticmethod
     def _cover_chunk(pc: PagedKVCache, slot: int, cursor: ChunkCursor, n: int) -> bool:
@@ -939,12 +1261,13 @@ class ServingEngine:
 
     def _dispatch_ragged(
         self, state: batch_ops.DecodeState, chunk_rows: list, steps: int,
-    ) -> tuple[torch.Tensor, batch_ops.DecodeState]:
+    ) -> tuple[torch.Tensor, torch.Tensor, batch_ops.DecodeState]:
         """Assemble and launch ONE unified ragged dispatch: the granted
         chunks (per-row slices of their prompts in a [B, C] buffer) and the
         decode block, against the same cache or page pool. Rows whose chunk
         completes the prompt get their first token sampled on the device
-        and folded into the decode state inside the dispatch."""
+        and folded into the decode state inside the dispatch. Returns
+        (packed, last_logits [K, V] in ``chunk_rows`` order, state)."""
         pc = self.paged_cache
         B, C = self.config.max_slots, self._chunk_tokens
         chunk = np.full((B, C), -1, np.int64)
@@ -977,19 +1300,19 @@ class ServingEngine:
                 up(self.top_k), up(self.top_p), seeds, self._mask_dev, steps)
         cfg, params = self.model_cfg, self.params
         if pc is None:
-            packed, _, self.cache, new_state = batch_ops.ragged_step(
+            packed, last_logits, self.cache, new_state = batch_ops.ragged_step(
                 cfg, params, self.cache, state, up(chunk), up(start), rows, *tail,
             )
-            return packed, new_state
+            return packed, last_logits, new_state
         args = (pc.tables_device(), up(chunk), up(start), rows, up(kvcap), *tail)
         if pc.quantized:
-            (packed, _, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
+            (packed, last_logits, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
              new_state) = batch_ops.ragged_step_paged_q(cfg, params, *pc.pools(), state, *args)
         else:
-            packed, _, pc.k_pool, pc.v_pool, new_state = batch_ops.ragged_step_paged(
+            packed, last_logits, pc.k_pool, pc.v_pool, new_state = batch_ops.ragged_step_paged(
                 cfg, params, pc.k_pool, pc.v_pool, state, *args,
             )
-        return packed, new_state
+        return packed, last_logits, new_state
 
     def _consume(self, rec: _Inflight) -> None:
         packed = rec.packed.cpu().numpy()  # the block's one host-device sync
@@ -1017,18 +1340,40 @@ class ServingEngine:
                     slot, "stop" if req.tokens and req.tokens[-1] in req.stop_ids else "length"
                 )
         # chunk rows (ragged dispatches only): commit each chunk's
-        # residency; a row whose prompt finished takes its first token from
-        # the trailing column of the same packed read
-        for slot, req, cursor, start, n, fin in rec.prefill_rows:
+        # residency and feed the chunk-prefix cache; a row whose prompt
+        # finished takes its first token from the trailing column of the
+        # same packed read
+        for slot, req, cursor, start, n, fin, row in rec.prefill_rows:
             if self.slots[slot] is not req or self._cursors.get(slot) is not cursor:
                 continue  # retired or requeued since dispatch: a stale chunk
             cursor.committed = start + n
             self.cache_len[slot] = cursor.committed
             if self.paged_cache is not None:
                 self.paged_cache.advance_slot(slot, n)
+            # only whole-chunk spans have a precomputed key (the planner
+            # grants whole chunks from a chunk boundary); a missing key
+            # skips the put
+            put_key = (cursor.cache_keys or {}).get((start, start + n))
+            if rec.last_logits is not None and put_key is not None:
+                entry = self._chunk_entry(rec.last_logits, row, slot, start, n)
+                self._prefix_cache.put(put_key, entry)
             if fin:
                 self._cursors.pop(slot)
                 self._commit_first_token(slot, req, int(packed[slot, rec.steps + 2]))
+
+    def _chunk_entry(self, last_logits: torch.Tensor, row: int, slot: int, start: int,
+                     n: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A chunk-prefix cache entry (logits [1, V], k_slab, v_slab
+        [L, n, Hkv, Dh]) for a chunk that just became resident: device
+        reads with no sync. Every tensor is a fresh copy: a slice of the
+        dense cache is a VIEW of the live slot row, which the slot's next
+        admission overwrites, and a row of ``last_logits`` would keep the
+        whole [K, V] buffer alive."""
+        logits = last_logits[row:row + 1].clone()
+        if self.paged_cache is not None:
+            return (logits, *self.paged_cache.read_span(slot, start, start + n))
+        return (logits, self.cache.k[:, slot, start:start + n].clone(),
+                self.cache.v[:, slot, start:start + n].clone())
 
     # ----------------------------------------------------------- bookkeeping
     def _commit_token(self, slot: int, req: _Request, token_id: int) -> None:

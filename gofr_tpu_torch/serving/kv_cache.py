@@ -11,7 +11,9 @@ so device memory is committed by resident tokens, not by worst-case slots.
 
 Host side (this class): page accounting, block tables and lengths, whose
 numpy mirrors are authoritative. Device side: the prefill scatter
-(:func:`_write_pages`, :func:`_write_pages_q`); the decode and chunk
+(:func:`_write_pages`, :func:`_write_pages_q`) and, for the chunk-prefix
+cache on bf16 pools, the span scatter and gather (``write_span``,
+``read_span``); the decode and chunk
 appends live in ``llama.decode_step_paged*``/``llama.decode_chunk_paged*``
 and the read in ``ops/paged_attention.py``. The pools are updated in place
 where the JAX package donates them.
@@ -139,6 +141,48 @@ class PagedKVCache:
         self.tables[slot, len(table):] = 0
         self.seq_lens[slot] = prompt_len
 
+    def extend_slot(self, slot: int) -> None:
+        """Account one appended token. Raises OutOfBlocks when the pool is
+        exhausted: the caller must retire or spill a sequence."""
+        seq_id = self._slot_seq[slot]
+        if seq_id is None:
+            raise KeyError(f"slot {slot} is free")
+        new_len = int(self.seq_lens[slot]) + 1
+        if new_len > self.allocator.seq_length(seq_id):
+            self.allocator.extend(seq_id, new_len)
+            table = self.allocator.block_table(seq_id)
+            self.tables[slot, : len(table)] = table
+        self.seq_lens[slot] = new_len
+
+    def try_reserve_chunk(self, slots: list[int], tokens: int) -> bool:
+        """Reserve page coverage for up to ``tokens`` further positions on
+        every slot, or on none, without advancing the lengths (a
+        speculative verify writes up to ``tokens`` positions and commits
+        only the accepted prefix, through :meth:`advance_slot`). Targets
+        clamp to max_seq_len; chunk positions past the clamp go to the
+        trash page through the owned-capacity write guard. Returns False,
+        having changed nothing, when the pool cannot cover every slot."""
+        targets = []
+        needed = 0
+        for slot in slots:
+            seq_id = self._slot_seq[slot]
+            if seq_id is None:
+                raise KeyError(f"slot {slot} is free")
+            target = min(int(self.seq_lens[slot]) + tokens, self.max_seq_len)
+            targets.append((slot, seq_id, target))
+            # against the pages OWNED: a reservation that ends mid-page
+            # absorbs the chunk's first positions with no new page
+            owned = len(self.allocator.block_table(seq_id))
+            needed += max(0, self.pages_needed(target) - owned)
+        if needed > self.allocator.stats()["free_blocks"]:
+            return False
+        for slot, seq_id, target in targets:
+            if target > self.allocator.seq_length(seq_id):
+                self.allocator.extend(seq_id, target)
+                table = self.allocator.block_table(seq_id)
+                self.tables[slot, : len(table)] = table
+        return True
+
     def try_reserve_slot(self, slot: int, tokens: int) -> bool:
         """Reserve page coverage for up to ``tokens`` positions past the
         slot's committed length (clamped to max_seq_len), or nothing.
@@ -215,6 +259,58 @@ class PagedKVCache:
             _write_pages_q(*self.pools(), k_slab, v_slab, page_ids)
         else:
             _write_pages(self.k_pool, self.v_pool, k_slab, v_slab, page_ids)
+
+    def write_span(self, slot: int, start: int, k_slab: torch.Tensor, v_slab: torch.Tensor) -> None:
+        """Scatter a cached chunk-prefix slab [L, C, Hkv, Dh] into the pages
+        covering tokens [start, start+C): :meth:`write_prefill`'s offset
+        twin, for a chunked admission that skips cached chunk prefixes.
+        ``start`` must be page-aligned, and the caller reserved the
+        coverage first. The slab is zero-padded to whole pages (positions
+        past the slot's length are masked at every read). bf16 pools only:
+        int8 pools take no cached slabs."""
+        if self.quantized:
+            raise ValueError("write_span: int8 pools take no cached slabs")
+        if start % self.page_size:
+            raise ValueError(f"write_span start {start} not page-aligned")
+        seq_id = self._slot_seq[slot]
+        if seq_id is None:
+            raise KeyError(f"slot {slot} is free")
+        C = k_slab.shape[1]
+        p0 = start // self.page_size
+        p1 = self.pages_needed(start + C)
+        pad = (p1 - p0) * self.page_size - C
+        if pad:
+            k_slab = torch.nn.functional.pad(k_slab, (0, 0, 0, 0, 0, pad))
+            v_slab = torch.nn.functional.pad(v_slab, (0, 0, 0, 0, 0, pad))
+        owned = self.allocator.block_table(seq_id)
+        if p1 > len(owned):
+            self.allocator.extend(seq_id, p1 * self.page_size)
+            owned = self.allocator.block_table(seq_id)
+            self.tables[slot, : len(owned)] = owned
+        page_ids = to_device(np.asarray(owned[p0:p1], np.int64), self.device)
+        _write_pages(self.k_pool, self.v_pool, k_slab, v_slab, page_ids)
+
+    def read_span(self, slot: int, start: int, end: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Gather the slot's resident K/V of tokens [start, end) out of the
+        pool into slabs [L, end-start, Hkv, Dh]: the chunk-prefix cache's
+        extraction. ``start`` must be page-aligned. The slabs are fresh
+        tensors, never views of the pools, so they stay valid when the
+        pages are reused. bf16 pools only: int8 pages would dequantize
+        here and drift when re-quantized at the next hit."""
+        if self.quantized:
+            raise ValueError("read_span: int8 pools are not extractable")
+        if start % self.page_size:
+            raise ValueError(f"read_span start {start} not page-aligned")
+        p0 = start // self.page_size
+        p1 = self.pages_needed(end)
+        page_ids = to_device(np.asarray(self.tables[slot, p0:p1], np.int64), self.device)
+        n = end - start
+        out = []
+        for pool in (self.k_pool, self.v_pool):
+            g = pool[:, page_ids]  # a gather: a fresh [L, n_pages, Hkv, page, Dh]
+            L, n_pages, Hkv, page, Dh = g.shape
+            out.append(g.transpose(2, 3).reshape(L, n_pages * page, Hkv, Dh)[:, :n].contiguous())
+        return out[0], out[1]
 
     def tables_device(self) -> torch.Tensor:
         """The block tables as a device tensor. The upload is a snapshot:

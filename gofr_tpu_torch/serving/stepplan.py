@@ -30,9 +30,8 @@ Budget policy:
   admission quota never drops below one while the queue is non-empty.
 
 Pure policy: no device work, no locks; the engine thread is the only
-caller. Left out against the reference: the chaos point, tenant
-priorities (grants walk admission order alone) and the cursor fields of
-the prefix cache and the timelines, which the port does not have yet.
+caller. Left out against the reference: the chaos point and tenant
+priorities (grants walk admission order alone).
 """
 
 from __future__ import annotations
@@ -54,8 +53,13 @@ class ChunkCursor:
     seq: int  # admission order (FIFO grant order)
     committed: int = 0  # tokens confirmed resident at a consume
     dispatched: int = 0  # tokens handed to a ragged dispatch
+    chunk_index: int = 0  # next chunk ordinal
+    prefix_hit: int = 0  # tokens skipped through cached chunk prefixes
     allocated: bool = False  # slot pages claimed
     blocked: bool = False  # KV-pool pressure: requeue once not in flight
+    # chunk-boundary prefix-cache keys, computed once per admission by the
+    # engine ((start, end) -> key); None while chunk caching is off
+    cache_keys: dict | None = None
 
     @property
     def remaining(self) -> int:

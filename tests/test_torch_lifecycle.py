@@ -182,13 +182,12 @@ KNOBS = {  # knob -> (the port's field, a value to set)
     "TPU_SHED_MAX_WAIT_S": ("shed_max_wait_s", "1.5"),
     "TPU_SHED_COLD_PRIOR_S": ("shed_cold_prior_s", "0.25"),
     "TPU_DRAIN_DEADLINE_S": ("drain_deadline_s", "12.5"),
+    "TPU_PREFIX_CACHE_ENTRIES": ("prefix_cache_entries", "64"),
+    "TPU_PREFIX_CACHE_BYTES": ("prefix_cache_bytes", "1048576"),
+    "TPU_KV_SPILL_BYTES": ("kv_spill_bytes", "1073741824"),
+    "TPU_SPEC_TOKENS": ("spec_tokens", "4"),
+    "TPU_SPEC_NGRAM": ("spec_ngram", "2"),
 }
-
-
-def _same_field(field: str, mine, ref) -> bool:
-    if field == "multi_step" and ref is None:
-        return mine == 4  # the reference's unset value: 4 while spec decoding is off
-    return mine == ref
 
 
 def test_every_field_has_a_knob():
@@ -207,7 +206,7 @@ def test_from_config_matches_reference(knob, state):
     values = {"set": {knob: value}, "unset": {}, "empty": {knob: ""}}[state]
     mine = EngineConfig.from_config(DictConfig(values))
     ref = JEngineConfig.from_config(DictConfig(values))
-    assert _same_field(field, getattr(mine, field), getattr(ref, field)), (
+    assert getattr(mine, field) == getattr(ref, field), (
         getattr(mine, field), getattr(ref, field))
     if state == "set":
         assert getattr(mine, field) != getattr(EngineConfig(), field)
