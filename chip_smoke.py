@@ -64,6 +64,27 @@ Phases, each a hard failure with a non-zero exit:
      a sampled row, beside a non-spec engine of the same layout; one
      greedy request's verify logits against the dense forward, each
      emitted token the argmax of the engine's own logits;
+   then the LoRA and tenancy phase, at full depth, the launches of each
+   engine counted alone:
+   - ``L1`` dense bf16 with an ``AdapterRegistry`` of three rank-16
+     adapters (``make_adapter``, seeds 1-3): 8 greedy rows of 200-token
+     prompts in one batch (2 base, 2 per adapter), then each alone, the
+     tokens equal or parted only where the dense forward's logits of the
+     two tokens lie within ``GAP_TOL``; each adapter moves tokens against
+     base; one request per adapter holds its logits plus the delta from
+     the engine's tables against the dense forward plus ``emb[t] @ A @
+     B``; ms a decode step of 8 rows with adapters and without;
+   - ``L2`` paged int8 (32-token pages, 256-token chunks), the same
+     registry: a 1000-token prompt under an adapter chunks through the
+     ragged dispatch, its first token folded on the device, its logits
+     held the same way;
+   - ``T1`` dense bf16 and ``T2`` paged bf16 (16-token pages), each with a
+     64-entry prefix cache and a ``TenantRegistry``: 8 batch-class rows of
+     600-token prompts, 128 new tokens; once each has 16 out, one
+     interactive 200-token request of 16. At least one preemption, warm
+     resumes (a chunk hit, fewer chunk dispatches than a cold prefill),
+     every token streamed once, each row's tokens held against its twin
+     on an engine without the ladder; the interactive TTFT on both;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -664,12 +685,16 @@ def decode_step_spy(engine, decode_seen: list):
 
 
 def hold_to_dense(torch, engine, ids: list[int], r, first_logits, decode_seen: list, steps: int,
-                  what: str) -> None:
+                  what: str, delta=None) -> None:
     """Hold the logits the engine computed for one request served alone
     (``first_logits`` [1, V] for its first token, then each of its first
     ``steps`` decode steps') against one dense forward over the prompt and
     the tokens the engine generated; its tokens must be the argmax of its
-    own logits. Prints the outcome; raises on a disagreement."""
+    own logits. With ``delta`` (a LoRA row) both sides add the adapter's
+    delta of the token each position forwarded: ``delta(tokens)`` gives
+    (the delta from the engine's device tables, ``emb[t] @ A @ B`` from
+    the adapter's host factors). Prints the outcome; raises on a
+    disagreement."""
     cfg, params = engine.model_cfg, engine.params
     quantized = (engine.cache if engine.paged_cache is None else engine.paged_cache).quantized
     live_steps = [(live, lg) for live, lg in decode_seen if bool(live.any())][:steps]
@@ -680,6 +705,12 @@ def hold_to_dense(torch, engine, ids: list[int], r, first_logits, decode_seen: l
     got = torch.cat([first_logits[-1:]] + [lg[row:row + 1] for _, lg in live_steps])  # [steps+1, V]
     seq = ids + r.token_ids[:steps]
     want = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=quantized)
+    d_want = 0
+    if delta is not None:
+        # the logits of position i came from forwarding seq[len(ids) - 1 + i]
+        d_got, d_want = delta(seq[len(ids) - 1:])
+        got, want = got + d_got, want + d_want
+        what += ", with the adapter's delta"
     rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
     picked = got.argmax(-1).tolist() == r.token_ids
     dense_agree = sum(int(a == b) for a, b in zip(want.argmax(-1).tolist(), r.token_ids))
@@ -688,7 +719,7 @@ def hold_to_dense(torch, engine, ids: list[int], r, first_logits, decode_seen: l
           f"decode steps {' '.join(f'{x:.3e}' for x in rel[1:])} (tol {LOGITS_REL_TOL}); tokens = "
           f"argmax of the engine's logits: {picked}; dense argmax agrees on {dense_agree}/{steps + 1}")
     if quantized:  # information only: how far int8 KV moves the logits
-        plain = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=False)
+        plain = dense_logits(torch, cfg, params, seq, steps + 1, kv_quant=False) + d_want
         rel_plain = ((got - plain).norm(dim=-1) / plain.norm(dim=-1)).tolist()
         print(f"  (information) engine int8 logits vs the unquantized dense forward: rel_l2 "
               f"{' '.join(f'{x:.3e}' for x in rel_plain)}")
@@ -696,7 +727,7 @@ def hold_to_dense(torch, engine, ids: list[int], r, first_logits, decode_seen: l
         raise AssertionError("the engine's logits disagree with the dense forward")
 
 
-def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
+def check_engine_logits(torch, engine, ids: list[int], steps: int, delta=None, **submit_kw) -> None:
     """Serve one greedy request alone and hold the logits the engine itself
     computed for it against one dense forward over the prompt and the
     tokens the engine generated: the prefill's (a prompt of at most one
@@ -724,7 +755,7 @@ def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
     setattr(batch_ops, pre_name, prefill_hook)
     setattr(llama, step_name, step_hook)
     try:
-        r = engine.submit(ids, max_new_tokens=steps + 1).result(timeout=600)
+        r = engine.submit(ids, max_new_tokens=steps + 1, **submit_kw).result(timeout=600)
     finally:
         setattr(batch_ops, pre_name, prefill_fn)
         setattr(llama, step_name, step_fn)
@@ -733,7 +764,7 @@ def check_engine_logits(torch, engine, ids: list[int], steps: int) -> None:
         raise AssertionError(f"the logits check request ended {r.finish_reason} after "
                              f"{len(r.token_ids)} tokens and {len(prefill_seen)} prefill calls")
     what = f"{n_prefill} prefill call(s), first token from the " + ("final chunk" if chunked else "prefill")
-    hold_to_dense(torch, engine, ids, r, prefill_seen[-1], decode_seen, steps, what)
+    hold_to_dense(torch, engine, ids, r, prefill_seen[-1], decode_seen, steps, what, delta)
 
 
 def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, must_not: set,
@@ -1664,7 +1695,312 @@ def run_kv_reuse_spec(torch, cfg, params) -> dict:
     return out
 
 
-def run_engine(torch) -> tuple[dict, dict, dict, dict]:
+# ---------------------------------------------------------- LoRA and tenancy
+LORA_RANK = 16
+# make_adapter's scale: the delta's logits are ~scale/64 at these random
+# weights (embedding rows of norm ~1, A entries ~1/sqrt(D)), 0.25 here
+# against base logits of RMS ~1, so each adapter moves greedy tokens
+LORA_SCALE = 16.0
+# two greedy runs whose tokens part at a step pass only if, on the dense
+# forward's logits there, the two tokens they chose lie within this gap:
+# twice the per-logit error LOGITS_REL_TOL allows at these unit-RMS logits
+GAP_TOL = 2 * LOGITS_REL_TOL
+STORM_BULK, STORM_PROMPT, STORM_NEW = 8, 600, 128  # T1/T2: batch-class rows
+GOLD_PROMPT, GOLD_NEW, GOLD_AFTER = 200, 16, 16  # the interactive request, and when it comes
+
+
+def adapter_delta(torch, engine, adapter):
+    """``hold_to_dense``'s ``delta`` for one adapter served by ``engine``:
+    for the tokens given, (the delta the engine's device tables give at
+    the adapter's slot, ``emb[t] @ A @ B`` from its host factors)."""
+    from gofr_tpu_torch.serving import batch as batch_ops
+
+    dev = engine.device
+    a = torch.from_numpy(adapter.a).to(dev).float()
+    b = torch.from_numpy(adapter.b).to(dev).float()
+
+    def delta(tokens):
+        t = torch.tensor(tokens, device=dev)
+        slot = engine._lora._slot_of[adapter.adapter_id]  # resident since its request
+        a_tab, b_tab = engine._lora.tables()
+        got = batch_ops._lora_delta(engine.params["embedding"], a_tab, b_tab, t,
+                                    torch.full_like(t, slot))
+        return got, (engine.params["embedding"][t].float() @ a) @ b
+
+    return delta
+
+
+def same_or_close(torch, engine, ids: list[int], got: list[int], want: list[int], what: str,
+                  delta=None) -> dict:
+    """Two greedy runs of one request: equal tokens, or where they first
+    part, the two tokens' logits on the dense forward over the prompt and
+    the shared tokens (plus the adapter's delta) within GAP_TOL. Prints a
+    parting; raises past the tolerance."""
+    if got == want:
+        return {"equal": True}
+    k = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if k is None:
+        raise AssertionError(f"{what}: one run stopped early ({len(got)} against {len(want)} tokens)")
+    seq = ids + want[:k]
+    quantized = (engine.cache if engine.paged_cache is None else engine.paged_cache).quantized
+    logits = dense_logits(torch, engine.model_cfg, engine.params, seq, 1, kv_quant=quantized)[0]
+    if delta is not None:
+        logits = logits + delta([seq[-1]])[1][0]
+    top2 = logits.topk(2).values.tolist()
+    gap = abs(float(logits[got[k]] - logits[want[k]]))
+    print(f"  {what}: the runs part at step {k} ({got[k]} against {want[k]}); their dense-forward "
+          f"logits gap {gap:.4f} (top-2 gap {top2[0] - top2[1]:.4f}; tol {GAP_TOL})")
+    if not gap <= GAP_TOL:
+        raise AssertionError(f"{what}: tokens part at step {k} with a logits gap of {gap:.4f}")
+    return {"equal": False, "step": k, "gap": gap}
+
+
+def lora_path(torch, cfg, params, name: str, ecfg, reg, adapters: list, prompt) -> dict:
+    """L1 (dense bf16) or L2 (paged int8 with 256-token chunks) with the
+    adapter registry, launches counted from after a warm-up. L1: 8 greedy
+    rows of 200-token prompts in one batch (2 base, 2 per adapter: two
+    prompts under each), then each row alone, tokens equal or within the
+    gap rule, each adapter moving tokens against base; the logits of one
+    request per adapter against the dense forward plus its delta; ms a
+    decode step of a batch of 8 with adapters and without. L2: a
+    1000-token prompt under the first adapter chunks through the ragged
+    dispatch, first token folded on the device, its logits held the same
+    way."""
+    from gofr_tpu_torch import ServingEngine
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, ecfg, ByteTokenizer(cfg.vocab_size), seed=SEED, lora=reg)
+    layout = "dense" if engine.paged_cache is None else f"paged page={ecfg.kv_page_size}"
+    print(f"engine {name}: {layout} kv_dtype={ecfg.kv_dtype} chunk={engine._chunk_tokens} "
+          f"{cfg.n_layers} layers; adapters {[a.adapter_id for a in adapters]} rank {LORA_RANK} "
+          f"scale {LORA_SCALE} (max_active {reg.max_active})")
+    out = {}
+    engine.start()
+    try:
+        engine.submit(prompt(5), max_new_tokens=4).result(timeout=600)  # warm-up
+        for fn in counters().values():
+            fn.launches = 0
+        if name == "L1":
+            pair = [prompt(200), prompt(200)]
+            rows = [(pair[i], a) for a in [None] + [ad.adapter_id for ad in adapters] for i in range(2)]
+            futs = [engine.submit(p, max_new_tokens=32, adapter_id=a) for p, a in rows]
+            batched = [f.result(timeout=900) for f in futs]
+            alone = [engine.submit(p, max_new_tokens=32, adapter_id=a).result(timeout=600)
+                     for p, a in rows]
+            deltas = {ad.adapter_id: adapter_delta(torch, engine, ad) for ad in adapters}
+            partings = []
+            for (p, a), rb, ra in zip(rows, batched, alone):
+                if not (finished(rb, 32) and finished(ra, 32)):
+                    raise AssertionError(f"{name}: a row ended {rb.finish_reason}/{ra.finish_reason}")
+                partings.append(same_or_close(torch, engine, p, rb.token_ids, ra.token_ids,
+                                              f"{name} row {a or 'base'} batched vs alone",
+                                              deltas.get(a)))
+            base = [r.token_ids for (_, a), r in zip(rows, alone) if a is None]
+            moved = {ad.adapter_id: [r.token_ids for (_, a), r in zip(rows, alone)
+                                     if a == ad.adapter_id] != base for ad in adapters}
+            out.update(batched_equal_alone=sum(x["equal"] for x in partings),
+                       partings=[x for x in partings if not x["equal"]], adapters_move_tokens=moved)
+            print(f"  {name}: 8 rows batched vs alone: {out['batched_equal_alone']}/8 equal; each "
+                  f"adapter moves tokens against base: {moved}")
+            if not all(moved.values()):
+                raise AssertionError(f"{name}: an adapter left every token as the base model's")
+            for ad in adapters:
+                check_engine_logits(torch, engine, prompt(200), 8, deltas[ad.adapter_id],
+                                    adapter_id=ad.adapter_id)
+            # ms a decode step, 8 rows of 20-token prompts, 65 tokens each
+            for key, names in (("lora", [None, None] + [ad.adapter_id for ad in adapters for _ in (0, 1)]),
+                               ("base", [None] * 8)):
+                res = [f.result(timeout=900) for f in
+                       [engine.submit(prompt(20), max_new_tokens=65, adapter_id=a) for a in names]]
+                out[f"decode_ms_per_step_batch8_{key}"] = per_step_ms(res)
+            print(f"  {name}: ms a decode step, batch of 8: with adapters "
+                  f"{out['decode_ms_per_step_batch8_lora']:.3f}, base only "
+                  f"{out['decode_ms_per_step_batch8_base']:.3f}")
+        else:
+            ad = adapters[0]
+            check_engine_logits(torch, engine, prompt(1000), 10, adapter_delta(torch, engine, ad),
+                                adapter_id=ad.adapter_id)
+            out["chunked_adapter_logits"] = True
+        out["launches"] = launch_counts()
+        out["residency"] = reg.residency()
+    finally:
+        engine.stop()
+    if reg.residency()["pinned_slots"]:
+        raise AssertionError(f"{name}: adapter pins left: {reg.residency()}")
+    out["seconds"] = time.perf_counter() - t0
+    print_launches(name, out["launches"])
+    print(f"  {name}: registry {out['residency']}; {out['seconds']:.1f}s")
+    return out
+
+
+def storm_run(torch, cfg, params, ecfg, bulk: list, gold: list) -> dict:
+    """One run of the tenant storm: the batch-class rows, and once each
+    has GOLD_AFTER tokens out, the interactive request, submitted from the
+    engine thread right after the block that got them there was read.
+    Launches counted from after a warm-up."""
+    from gofr_tpu_torch import ServingEngine
+    from gofr_tpu_torch.serving import TenantPolicy, TenantRegistry
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tenants = TenantRegistry()
+    tenants.set_policy(TenantPolicy(name="gold", deadline_class="interactive", deadline_s=600.0))
+    tenants.set_policy(TenantPolicy(name="bulk", deadline_class="batch", deadline_s=600.0))
+    engine = ServingEngine(cfg, params, ecfg, ByteTokenizer(cfg.vocab_size), seed=SEED,
+                           tenants=tenants)
+    state, preempted, resumes = {}, [], []
+    frames = [[] for _ in bulk]
+    consume, preempt, start_cursor = engine._consume, engine._preempt, engine._start_cursor
+
+    def consume_hook(rec):
+        consume(rec)
+        rows = [r for r in engine.slots if r is not None and r.tenant == "bulk"]
+        if ("gold" not in state and len(rows) == len(bulk)
+                and all(len(r.tokens) >= GOLD_AFTER for r in rows)):
+            state["gold"] = engine.submit(gold, max_new_tokens=GOLD_NEW, tenant="gold")
+
+    def preempt_hook(slot):
+        preempted.append((engine.slots[slot].id, len(engine.slots[slot].tokens)))
+        return preempt(slot)
+
+    def start_cursor_hook(slot, req):
+        start_cursor(slot, req)
+        cursor = engine._cursors.get(slot)
+        if req.preemptions and cursor is not None:
+            resumes.append({"request": req.id, "total": cursor.total, "prefix_hit": cursor.prefix_hit})
+
+    engine._consume, engine._preempt, engine._start_cursor = consume_hook, preempt_hook, start_cursor_hook
+    engine.start()
+    try:
+        engine.submit(bulk[0][:5], max_new_tokens=4).result(timeout=600)  # warm-up
+        for fn in counters().values():
+            fn.launches = 0
+        futs = [engine.submit(p, max_new_tokens=STORM_NEW, tenant="bulk",
+                              stream_cb=lambda t, s, d, i=i: None if d else frames[i].append(t))
+                for i, p in enumerate(bulk)]
+        results = [f.result(timeout=900) for f in futs]
+        wait_until(lambda: "gold" in state, 60, "the interactive request")
+        hi = state["gold"].result(timeout=600)
+        launches = launch_counts()
+        check_clean(engine, "tenant storm")
+    finally:
+        engine.stop()
+    return {"results": results, "gold": hi, "frames": frames, "preempted": preempted,
+            "resumes": resumes, "launches": launches, "engine": engine}
+
+
+def tenancy_path(torch, cfg, params, name: str, conf: dict, prompt) -> dict:
+    """T1 (dense bf16) or T2 (paged bf16): the tenant storm on an engine
+    with the preemption ladder and on an identical one without it (the
+    twins). Checks: at least one preemption, gold ends "length", every
+    batch-class row 128 tokens with every token streamed once, each row's
+    tokens equal its twin's or within the gap rule, and each resume walks
+    at least one chunk hit and dispatches fewer chunks than a cold
+    prefill. Prints gold's TTFT on both."""
+    from gofr_tpu_torch import EngineConfig
+
+    t0 = time.perf_counter()
+    bulk = [prompt(STORM_PROMPT) for _ in range(STORM_BULK)]
+    gold = prompt(GOLD_PROMPT)
+    chunk = conf["prefill_chunk_tokens"]
+    print(f"engine {name}: {conf['kv_layout']} page={conf.get('kv_page_size', '-')} "
+          f"chunk={chunk}, {cfg.n_layers} layers: {STORM_BULK} batch-class rows of "
+          f"{STORM_PROMPT}-token prompts, {STORM_NEW} tokens; at {GOLD_AFTER} tokens out each, one "
+          f"interactive {GOLD_PROMPT}-token request of {GOLD_NEW}")
+    twin = storm_run(torch, cfg, params, EngineConfig(**conf, tenant_preempt=False), bulk, gold)
+    del twin["engine"]  # its KV and prefix cache go before the next engine's
+    torch.cuda.empty_cache()
+    run = storm_run(torch, cfg, params, EngineConfig(**conf), bulk, gold)
+    torch.cuda.empty_cache()
+    out = {"preemptions": len(run["preempted"]), "preempted_at_tokens": [n for _, n in run["preempted"]],
+           "resumes": run["resumes"], "gold_ttft_ms": run["gold"].ttft_s * 1e3,
+           "gold_ttft_ms_without_preemption": twin["gold"].ttft_s * 1e3,
+           "launches": run["launches"], "launches_without_preemption": twin["launches"]}
+    print(f"  {name}: preemptions {out['preemptions']} (at {out['preempted_at_tokens']} tokens out), "
+          f"resumes {run['resumes']}; gold TTFT {out['gold_ttft_ms']:.2f} ms with the ladder, "
+          f"{out['gold_ttft_ms_without_preemption']:.2f} ms without it (information)")
+    if not run["preempted"] or run["gold"].finish_reason != "length" or \
+            twin["gold"].finish_reason != "length" or twin["preempted"]:
+        raise AssertionError(f"{name}: preempted {run['preempted']}, gold "
+                             f"{run['gold'].finish_reason}, twin preempted {twin['preempted']}")
+    partings = []
+    for i, (r, t) in enumerate(zip(run["results"], twin["results"])):
+        if not (r.finish_reason == t.finish_reason == "length" and r.completion_tokens == STORM_NEW):
+            raise AssertionError(f"{name}: row {i} ended {r.finish_reason} after {r.completion_tokens}")
+        if run["frames"][i] != r.token_ids:
+            raise AssertionError(f"{name}: row {i} streamed {len(run['frames'][i])} frames for "
+                                 f"{len(r.token_ids)} tokens")
+        partings.append(same_or_close(torch, run["engine"], bulk[i], r.token_ids, t.token_ids,
+                                      f"{name} row {i} vs its twin"))
+    out["rows_equal_twin"] = sum(x["equal"] for x in partings)
+    out["partings"] = [x for x in partings if not x["equal"]]
+    for res in run["resumes"]:
+        cold = math.ceil(res["total"] / chunk)
+        warm = math.ceil((res["total"] - res["prefix_hit"]) / chunk)
+        res["chunk_hits"], res["chunks_computed"], res["chunks_cold"] = res["prefix_hit"] // chunk, warm, cold
+        if res["chunk_hits"] < 1 or warm >= cold:
+            raise AssertionError(f"{name}: a resume was not warm: {res}")
+    if len(run["resumes"]) != len(run["preempted"]):
+        raise AssertionError(f"{name}: {len(run['preempted'])} preemptions, {len(run['resumes'])} resumes")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  {name}: rows equal to their twins {out['rows_equal_twin']}/{STORM_BULK}; resumes "
+          f"{run['resumes']}")
+    print_launches(name, out["launches"])
+    print(f"  {name}: {out['seconds']:.1f}s")
+    return out
+
+
+def run_tenancy_lora(torch, cfg, params) -> dict:
+    """The LoRA and tenancy phase at Llama-3-8B widths and full depth, one
+    engine after another: L1 dense bf16 and L2 paged int8 with a registry
+    of three rank-16 adapters; T1 dense bf16 and T2 paged bf16 with the
+    tenant storm."""
+    from gofr_tpu_torch import EngineConfig
+    from gofr_tpu_torch.serving import AdapterRegistry, make_adapter
+
+    rng = torch.Generator().manual_seed(SEED + 3)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    t0 = time.perf_counter()
+    adapters = [make_adapter(cfg, f"adapter-{i}", rank=LORA_RANK, seed=i, scale=LORA_SCALE)
+                for i in (1, 2, 3)]
+    reg = AdapterRegistry(max_active=4)
+    for ad in adapters:
+        reg.register(ad)
+    out = {}
+    try:
+        out["L1"] = lora_path(torch, cfg, params, "L1", EngineConfig(
+            max_slots=8, max_seq_len=2048, kv_layout="dense", multi_step=4,
+            prefill_chunk_tokens=256), reg, adapters, prompt)
+        torch.cuda.empty_cache()
+        out["L2"] = lora_path(torch, cfg, params, "L2", EngineConfig(
+            max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=32, kv_dtype="int8",
+            multi_step=4, prefill_chunk_tokens=256), reg, adapters, prompt)
+        torch.cuda.empty_cache()
+    finally:
+        reg.close()
+    # a step budget that grants every cursor its next chunk in each
+    # dispatch: the 8 rows prefill in step, so all of them have
+    # GOLD_AFTER tokens out at once (one chunk an iteration, the auto
+    # budget, would finish the first row before the last one starts)
+    storm = dict(max_slots=8, max_seq_len=1024, multi_step=4, prefill_chunk_tokens=256,
+                 step_token_budget=8 * 256 + 8 * 4, prefix_cache_entries=64,
+                 prefix_cache_bytes=2 << 30)
+    out["T1"] = tenancy_path(torch, cfg, params, "T1", dict(storm, kv_layout="dense"), prompt)
+    out["T2"] = tenancy_path(torch, cfg, params, "T2", dict(storm, kv_layout="paged", kv_page_size=16),
+                             prompt)
+    out["seconds"] = time.perf_counter() - t0
+    launches = {k: out[k]["launches"] for k in ("L1", "L2", "T1", "T2")}
+    print(f"  LoRA and tenancy: launches {launches}; {out['seconds']:.1f}s")
+    if not (launches["L1"]["flash_attention"] and launches["T1"]["flash_attention"]
+            and launches["T2"]["paged_decode_attention"] and launches["L2"]["paged_decode_attention_q"]):
+        raise AssertionError(f"LoRA and tenancy launches {launches}")
+    return out
+
+
+def run_engine(torch) -> tuple[dict, dict, dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -1740,7 +2076,11 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict]:
     torch.cuda.empty_cache()
     print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, full depth):")
     reuse = run_kv_reuse_spec(torch, cfg, params)
-    return launches, timings, lifecycle, reuse
+    torch.cuda.empty_cache()
+    print("LoRA and tenancy phase (adapter registry, tenant storm and preemption, full depth):")
+    tenancy = run_tenancy_lora(torch, cfg, params)
+    tenancy["dense_path_decode_ms_per_step_batch8"] = timings["dense"]["decode_ms_per_step_batch8"]
+    return launches, timings, lifecycle, reuse, tenancy
 
 
 def main() -> int:
@@ -1773,7 +2113,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
-    launches, engine_timings, lifecycle, reuse = run_engine(torch)
+    launches, engine_timings, lifecycle, reuse, tenancy = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:
@@ -1784,6 +2124,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"kv_reuse_spec": reuse}))
+    print(json.dumps({"lora_tenancy": tenancy}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -11,6 +11,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 
 from gofr_tpu_torch.errors import (
     ErrorDeadlineExceeded,
+    ErrorInvalidParam,
     ErrorRequestEntityTooLarge,
     ErrorServiceUnavailable,
     ErrorTooManyRequests,
@@ -20,7 +21,7 @@ from gofr_tpu_torch.models.llama import LlamaConfig
 from gofr_tpu_torch.serving.engine import EngineConfig, GenerationResult, ServingEngine
 
 __all__ = [
-    "EngineConfig", "ErrorDeadlineExceeded", "ErrorRequestEntityTooLarge",
+    "EngineConfig", "ErrorDeadlineExceeded", "ErrorInvalidParam", "ErrorRequestEntityTooLarge",
     "ErrorServiceUnavailable", "ErrorTooManyRequests", "GenerationResult", "HTTPError",
     "LlamaConfig", "ServingEngine",
 ]

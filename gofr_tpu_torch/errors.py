@@ -97,3 +97,15 @@ class ErrorDeadlineExceeded(HTTPError):
     @classmethod
     def default_message(cls) -> str:
         return "deadline exceeded before completion"
+
+
+class ErrorInvalidParam(HTTPError):
+    """400: a client error in the named parameters (an unknown LoRA
+    adapter, or an adapter on an engine without a registry); never
+    retriable."""
+
+    status_code = 400
+
+    def __init__(self, *params: str) -> None:
+        self.params = list(params)
+        super().__init__(f"'{len(self.params)}' invalid parameter(s): {', '.join(self.params)}")

@@ -24,6 +24,14 @@ greedy decoding would have produced and samples each row's bonus token,
 and returns one packed int32 [B, K+2] array: the tokens, then n_accept.
 ``insert_chunk`` writes a cached chunk-prefix slab into a dense slot row.
 
+LoRA (``serving/lora.py``): every block and ragged function takes
+``lora=(a_table, b_table)`` or None. Each sampling site adds the low-rank
+delta ``emb[t] @ A_i @ B_i`` of the token ``t`` that produced the logits,
+gathered by the row's adapter slot (``DecodeState.adapter``; for a chunk
+row, ``adapters``), before it samples; slot 0 is the all-zero base. With
+``lora=None`` no op is added. The logits the ragged dispatch returns for
+the chunk-prefix cache stay base-model logits.
+
 What the reference donates is updated in place here: the cache and pools
 by the prefill commit, decode, chunk and verify steps, the decode state by
 :func:`admit_decode_state` and :func:`_fold_finished_prefill`.
@@ -99,8 +107,8 @@ class DecodeState:
     -1, and their KV writes go where they cannot matter: the sink past the
     dense cache's end, or the trash page. ``rng`` is the
     ``torch.Generator`` the block's draws come from. ``adapter`` is the
-    LoRA table slot (0 = base) the reference carries; the port has no LoRA
-    yet and keeps it 0."""
+    row's LoRA device-table slot (0 = base model), admitted once with the
+    row and gathered by the block's delta on the device."""
 
     last_token: torch.Tensor  # [B] int64
     seq_len: torch.Tensor  # [B] int32, tokens RESIDENT in KV (incl. prompt)
@@ -147,7 +155,7 @@ def admit_decode_state(
     adapters: torch.Tensor,  # [K]
 ) -> DecodeState:
     """Fold freshly prefilled slots into the decode state: un-done, new
-    token, length, budget, stop id and sampling params."""
+    token, length, budget, stop id, sampling params and adapter slot."""
     state.last_token[slots] = tokens.to(state.last_token.dtype)
     state.seq_len[slots] = lens.to(state.seq_len.dtype)
     state.done[slots] = False
@@ -171,11 +179,62 @@ def _pack_block(toks: torch.Tensor, done: torch.Tensor, active: torch.Tensor) ->
     )
 
 
-def _block_step(st: DecodeState, active: torch.Tensor, logits: torch.Tensor) -> tuple[DecodeState, torch.Tensor]:
-    """Per-step tail of the block: sample with each row's own params,
-    evaluate the stop conditions, advance the carry. Frozen (done or
-    inactive) rows keep their token and length and emit -1."""
+def _lora_delta(
+    embedding: torch.Tensor,  # [V, D] the model's token embedding table
+    a_tab: torch.Tensor,  # [n_adapters, D, r] f32
+    b_tab: torch.Tensor,  # [n_adapters, r, V] f32
+    tokens: torch.Tensor,  # [B] the input tokens whose forward made the logits
+    adapter: torch.Tensor,  # [B] each row's adapter table slot
+) -> torch.Tensor:
+    """Grouped low-rank logits delta of a heterogeneous-adapter batch: a
+    per-row gather of the row's factors by its adapter slot, then two
+    batched low-rank products in f32, ``emb[t] @ A_i @ B_i`` per row
+    [B, V]. Slot 0 is all-zero (base model), so a mixed batch needs no
+    mask."""
+    e = embedding[tokens.long()].float()  # [B, D]
+    idx = adapter.long()
+    h = torch.bmm(e[:, None, :], a_tab[idx])  # [B, 1, r]
+    return torch.bmm(h, b_tab[idx])[:, 0]  # [B, V]
+
+
+def _lora_logits(params: dict, lora: tuple | None, tokens: torch.Tensor,
+                 adapter: torch.Tensor | None, logits: torch.Tensor) -> torch.Tensor:
+    """Apply the per-row adapter delta to a sampling site's logits.
+    ``lora`` is ``(a_table, b_table)`` or None; None (a base-only engine)
+    returns the logits untouched and adds no op."""
+    if lora is None or adapter is None:
+        return logits
+    a_tab, b_tab = lora
+    return logits + _lora_delta(params["embedding"], a_tab, b_tab, tokens, adapter)
+
+
+def lora_adjust_logits(
+    embedding: torch.Tensor,  # [V, D]
+    a_row: torch.Tensor,  # [D, r] ONE adapter's factors
+    b_row: torch.Tensor,  # [r, V]
+    token: int | torch.Tensor,  # the logits' input token
+    logits: torch.Tensor,  # [1, V]
+) -> torch.Tensor:
+    """Single-row adapter delta for the host-path first-token sampling
+    sites (monolithic prefill, whole-prompt and full chunk-chain hits):
+    the math of :func:`_lora_delta` on one row's last-position logits,
+    before ``sample_logits``. Device ops only, no sync."""
+    e = embedding[int(token)].float()
+    h = e @ a_row.float()
+    return logits + (h @ b_row.float())[None]
+
+
+def _block_step(st: DecodeState, active: torch.Tensor, logits: torch.Tensor,
+                params: dict | None = None, lora: tuple | None = None,
+                ) -> tuple[DecodeState, torch.Tensor]:
+    """Per-step tail of the block: apply each row's LoRA delta, sample with
+    each row's own params, evaluate the stop conditions, advance the carry.
+    Frozen (done or inactive) rows keep their token and length and emit
+    -1."""
     live = active & ~st.done
+    # the logits came from forwarding st.last_token: the delta is that
+    # token's low-rank bypass, gathered by the row's adapter slot
+    logits = _lora_logits(params, lora, st.last_token, st.adapter, logits)
     nxt = sample_logits(
         logits, st.rng, temperature=st.temperature, top_k=st.top_k, top_p=st.top_p
     )
@@ -199,6 +258,7 @@ def _decode_steps(
     block_tables: torch.Tensor | None,  # paged pools only
     active: torch.Tensor,
     steps: int,
+    lora: tuple | None = None,
 ) -> tuple[torch.Tensor, DecodeState]:
     """``steps`` fused decode + sample + stop-eval iterations: (tokens
     [B, steps], state). Frozen rows' appends go to the trash page, or on
@@ -221,7 +281,7 @@ def _decode_steps(
                 logits = llama.decode_step_paged_q(
                     cfg, params, state.last_token, *kv, block_tables, step_len, live
                 )[0]
-        state, out = _block_step(state, active, logits)
+        state, out = _block_step(state, active, logits, params, lora)
         toks.append(out)
     if not toks:
         return torch.empty((active.shape[0], 0), dtype=torch.int64, device=active.device), state
@@ -235,12 +295,13 @@ def decode_block(
     state: DecodeState,
     active: torch.Tensor,  # [B] bool: rows the host dispatched this block
     steps: int,
+    lora: tuple | None = None,  # (a_table, b_table): heterogeneous LoRA
 ) -> tuple[torch.Tensor, llama.KVCache, DecodeState]:
     """``steps`` fused decode + sample + stop-eval iterations over the
     dense slot cache with no host sync. A row that stops mid-block freezes:
     its appends go to the sink and its remaining columns are -1. Returns
     (packed [B, steps+2], cache, state)."""
-    toks, state = _decode_steps(cfg, params, cache, state, None, active, steps)
+    toks, state = _decode_steps(cfg, params, cache, state, None, active, steps, lora)
     return _pack_block(toks, state.done, active), cache, state
 
 
@@ -253,6 +314,7 @@ def decode_block_paged(
     block_tables: torch.Tensor,  # [B, M] int32, covers the whole block's writes
     active: torch.Tensor,  # [B] bool
     steps: int,
+    lora: tuple | None = None,  # (a_table, b_table): heterogeneous LoRA
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """``steps`` fused decode + sample + stop-eval iterations with no host
     sync. A row that stops mid-block freezes: its appends go to the trash
@@ -260,7 +322,7 @@ def decode_block_paged(
     k_pool, v_pool, state); the packed array is the block's only value the
     host reads."""
     toks, state = _decode_steps(
-        cfg, params, (k_pool, v_pool, None, None), state, block_tables, active, steps
+        cfg, params, (k_pool, v_pool, None, None), state, block_tables, active, steps, lora,
     )
     return _pack_block(toks, state.done, active), k_pool, v_pool, state
 
@@ -276,11 +338,12 @@ def decode_block_paged_q(
     block_tables: torch.Tensor,
     active: torch.Tensor,
     steps: int,
+    lora: tuple | None = None,  # (a_table, b_table): heterogeneous LoRA
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """int8 twin of :func:`decode_block_paged`: (packed, k_pool, v_pool,
     ks_pool, vs_pool, state)."""
     toks, state = _decode_steps(
-        cfg, params, (k_pool, v_pool, ks_pool, vs_pool), state, block_tables, active, steps
+        cfg, params, (k_pool, v_pool, ks_pool, vs_pool), state, block_tables, active, steps, lora,
     )
     return _pack_block(toks, state.done, active), k_pool, v_pool, ks_pool, vs_pool, state
 
@@ -307,17 +370,26 @@ def _fold_finished_prefill(
     topks: torch.Tensor,  # [K]
     topps: torch.Tensor,  # [K]
     seeds: list[int],  # [K] first-token generator seeds
+    last_tok: torch.Tensor | None = None,  # [K] each row's last prompt token in the chunk
+    adapters: torch.Tensor | None = None,  # [K] each row's LoRA table slot
+    params: dict | None = None,
+    lora: tuple | None = None,
 ) -> tuple[DecodeState, torch.Tensor]:
     """Sample first tokens for the chunk rows and fold those whose prompt
-    just finished into the decode state (LoRA is not ported: the adapter
-    column is 0). Each row draws from a fresh generator seeded with its
-    request's seed, exactly as the monolithic prefill draws, so a request
-    samples the same first token on either route. Returns (state, first
-    [K] with -1 on rows that did not finish)."""
+    just finished into the decode state, each row's LoRA adapter slot
+    included, so its decode steps gather the right delta. The logits
+    sampled from were produced by the chunk's last prompt token, which
+    keys the row's delta. Each row draws from a fresh generator seeded
+    with its request's seed, exactly as the monolithic prefill draws, so a
+    request samples the same first token on either route. Returns (state,
+    first [K] with -1 on rows that did not finish)."""
     dev = last_logits.device
+    if adapters is None:
+        adapters = torch.zeros_like(rows)
+    sample_from = _lora_logits(params, lora, last_tok, adapters, last_logits)
     sampled = torch.cat([
         sample_logits(
-            last_logits[i:i + 1], torch.Generator(device=dev).manual_seed(int(seed)),
+            sample_from[i:i + 1], torch.Generator(device=dev).manual_seed(int(seed)),
             temperature=temps[i], top_k=topks[i], top_p=topps[i],
         )
         for i, seed in enumerate(seeds)
@@ -335,7 +407,7 @@ def _fold_finished_prefill(
     fold(st.temperature, temps)
     fold(st.top_k, topks)
     fold(st.top_p, topps)
-    fold(st.adapter, torch.zeros_like(rows))
+    fold(st.adapter, adapters)
     return st, torch.where(finish, sampled, torch.full_like(sampled, -1))
 
 
@@ -367,6 +439,8 @@ def _ragged_step(
     seeds: list[int],  # [K] first-token seeds of the chunk rows
     decode_active: torch.Tensor,  # [B] bool: rows decoding in this block
     steps: int,
+    adapters: torch.Tensor | None = None,  # [B] LoRA table slots of the chunk rows
+    lora: tuple | None = None,  # (a_table, b_table)
 ) -> tuple[torch.Tensor, torch.Tensor, DecodeState]:
     """The body of :func:`ragged_step` and :func:`ragged_step_paged` and
     its int8 twin.
@@ -396,13 +470,17 @@ def _ragged_step(
     pos = (new_len[rows].long() - start.long() - 1).clamp(0, C - 1)
     last_h = x[torch.arange(K, device=x.device), pos][:, None]  # [K, 1, D]
     last_logits = llama._logits(cfg, params, last_h)[:, 0]  # [K, V]
+    last_tok = None
+    if lora is not None:  # the token that keys each chunk row's delta: [K]
+        last_tok = chunk[rows][torch.arange(K, device=chunk.device), pos]
     state, first_k = _fold_finished_prefill(
         state, last_logits, rows, finish[rows], new_len[rows], budgets[rows], stops[rows],
-        temps[rows], topks[rows], topps[rows], seeds,
+        temps[rows], topks[rows], topps[rows], seeds, last_tok,
+        None if adapters is None else adapters[rows], params, lora,
     )
     first = torch.full((chunk.shape[0],), -1, dtype=first_k.dtype, device=first_k.device)
     first[rows] = first_k
-    toks, state = _decode_steps(cfg, params, kv, state, block_tables, decode_active, steps)
+    toks, state = _decode_steps(cfg, params, kv, state, block_tables, decode_active, steps, lora)
     return _pack_ragged(toks, state.done, decode_active, first), last_logits, state
 
 
@@ -424,6 +502,8 @@ def ragged_step(
     seeds: list[int],
     decode_active: torch.Tensor,
     steps: int,
+    adapters: torch.Tensor | None = None,  # [B] LoRA slots of the chunk rows
+    lora: tuple | None = None,  # (a_table, b_table)
 ) -> tuple[torch.Tensor, torch.Tensor, llama.KVCache, DecodeState]:
     """Unified ragged dispatch over the dense slot cache: the chunk forward
     of the chunk rows (K/V in place at [layer, rows, start:start+C], a
@@ -436,7 +516,7 @@ def ragged_step(
     only."""
     packed, last_logits, state = _ragged_step(
         cfg, params, cache, state, None, chunk, chunk_start, chunk_rows, None, finish, new_len,
-        budgets, stops, temps, topks, topps, seeds, decode_active, steps,
+        budgets, stops, temps, topks, topps, seeds, decode_active, steps, adapters, lora,
     )
     return packed, last_logits, cache, state
 
@@ -462,6 +542,8 @@ def ragged_step_paged(
     seeds: list[int],
     decode_active: torch.Tensor,
     steps: int,
+    adapters: torch.Tensor | None = None,  # [B] LoRA slots of the chunk rows
+    lora: tuple | None = None,  # (a_table, b_table)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """Unified ragged dispatch over bf16 pools: the chunk forward of the
     chunk rows, the first-token fold of the rows that finish, then the
@@ -474,7 +556,7 @@ def ragged_step_paged(
     packed, last_logits, state = _ragged_step(
         cfg, params, (k_pool, v_pool, None, None), state, block_tables, chunk, chunk_start,
         chunk_rows, kv_capacity, finish, new_len, budgets, stops, temps, topks, topps, seeds,
-        decode_active, steps,
+        decode_active, steps, adapters, lora,
     )
     return packed, last_logits, k_pool, v_pool, state
 
@@ -502,6 +584,8 @@ def ragged_step_paged_q(
     seeds: list[int],
     decode_active: torch.Tensor,
     steps: int,
+    adapters: torch.Tensor | None = None,  # [B] LoRA slots of the chunk rows
+    lora: tuple | None = None,  # (a_table, b_table)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor, DecodeState]:
     """int8 twin of :func:`ragged_step_paged`: (packed, last_logits, k_pool,
@@ -509,7 +593,7 @@ def ragged_step_paged_q(
     packed, last_logits, state = _ragged_step(
         cfg, params, (k_pool, v_pool, ks_pool, vs_pool), state, block_tables, chunk,
         chunk_start, chunk_rows, kv_capacity, finish, new_len, budgets, stops, temps, topks,
-        topps, seeds, decode_active, steps,
+        topps, seeds, decode_active, steps, adapters, lora,
     )
     return packed, last_logits, k_pool, v_pool, ks_pool, vs_pool, state
 

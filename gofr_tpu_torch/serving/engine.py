@@ -74,9 +74,42 @@ with one host sync per step. Sampled rows take plain one-token steps. The
 mode is unpipelined: the host's mirrors are authoritative and the device
 decode state is not used.
 
-Not ported yet: LoRA, tenancy and preemption, dedup/HA, the supervisor,
-timelines, tracing, metrics, ``health_check``, reclamation, KV migration
-and the prefix advertisement.
+LoRA adapter multiplexing (``lora=AdapterRegistry(...)``): a request may
+name an ``adapter_id``. ``submit`` answers an unknown id, or any id on an
+engine without a registry, with a 400 and starts the adapter's upload to
+the device table once every rejection gate has passed; admission pins the
+adapter's table slot for the row's life (``AdapterBusy``, every slot
+pinned or an upload that failed, requeues like pool pressure), and every
+path that takes a row out releases the pin. Rows with different adapters
+decode in the same block: each sampling site adds the low-rank delta of
+the token that produced the logits, gathered by the row's slot (the
+prompt's last token for a first token, ``last_token`` for a decode step).
+Prefix-cache keys end in the adapter id (``-`` for none); cached logits
+stay base-model logits. A registry with ``spec_tokens > 0`` is a
+``ValueError``.
+
+Tenant classes (``tenants=TenantRegistry(...)``): a request that names a
+``tenant`` takes its class's priority (when it passed none) and default
+deadline (when it has none); a request with no tenant is untouched. Load
+shedding counts only waiters of the same or a higher class, and a metered
+tenant over its token-rate budget (prompt plus ``max_new``) gets a 429.
+Chunk grants walk cursors by (priority, age). The preemption ladder
+(``tenant_preempt``, on by default): when a strictly higher class waits
+and no slot is free (or, on the paged layout, the pool cannot hold its
+prompt), the lowest-class row (on a tie, the one with more tokens out) is
+paused once nothing of it is in flight: its whole chunk spans below its
+resident length go into the prefix cache (bf16 KV with the chunk cache;
+int8 KV recomputes them), its slot, pages and adapter pin are freed and it
+requeues. Its resume is an ordinary admission of the prompt plus the
+tokens it emitted: it walks the chunk chain warm, computes the tail and
+samples the NEXT token within what is left of its budget; nothing is
+re-emitted and its TTFT stays its first token's. Equal classes never
+preempt each other, and spec mode never preempts.
+
+Not ported yet: the ``lora.upload``, ``tenant.preempt`` and other chaos
+points, dedup/HA, the supervisor, timelines, tracing, metrics (the
+tenant-labelled ones included), ``health_check``, reclamation, KV
+migration and the prefix advertisement.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -99,6 +132,7 @@ import torch
 from gofr_tpu_torch._device import resolve_device, to_device
 from gofr_tpu_torch.errors import (
     ErrorDeadlineExceeded,
+    ErrorInvalidParam,
     ErrorRequestEntityTooLarge,
     ErrorServiceUnavailable,
     ErrorTooManyRequests,
@@ -108,6 +142,7 @@ from gofr_tpu_torch.ops.sampling import sample_logits
 from gofr_tpu_torch.serving import batch as batch_ops
 from gofr_tpu_torch.serving.kv_cache import OutOfBlocks, PagedKVCache
 from gofr_tpu_torch.serving.kv_spill import TieredPrefixCache
+from gofr_tpu_torch.serving.lora import AdapterBusy, UnknownAdapter
 from gofr_tpu_torch.serving.prefix_cache import PrefixCache
 from gofr_tpu_torch.serving.scheduler import QueueFull, Scheduler
 from gofr_tpu_torch.serving.shed import QueueWaitEstimator
@@ -175,6 +210,10 @@ class EngineConfig:
     # the prompt lookup matches
     spec_tokens: int = 0
     spec_ngram: int = 3
+    # multi-tenant preemption: when a strictly higher class waits and the
+    # batch is full (slots or KV pages), pause the lowest-class row and
+    # resume it warm later. Off: a tenant storm delays higher classes
+    tenant_preempt: bool = True
 
     @classmethod
     def from_config(cls, config: Any) -> "EngineConfig":
@@ -214,6 +253,8 @@ class EngineConfig:
             kv_spill_bytes=int(config.get_or_default("TPU_KV_SPILL_BYTES", "0")),
             spec_tokens=int(config.get_or_default("TPU_SPEC_TOKENS", "0")),
             spec_ngram=int(config.get_or_default("TPU_SPEC_NGRAM", "3")),
+            tenant_preempt=config.get_or_default("TPU_TENANT_PREEMPT", "1")
+            not in ("0", "false", "off"),
         )
 
 
@@ -239,6 +280,7 @@ class _Request:
         "id", "prompt_ids", "max_new_tokens", "temperature", "top_k", "top_p",
         "stream_cb", "future", "created", "first_token_at", "tokens",
         "stop_ids", "dispatched", "kv_exhausted", "priority", "canceled", "deadline",
+        "tenant", "adapter_id", "adapter_slot", "preemptions",
     )
 
     def __init__(self, rid: int, prompt_ids: list[int], max_new_tokens: int,
@@ -262,6 +304,13 @@ class _Request:
         self.kv_exhausted = False  # cut short by pool pressure, not its budget
         self.priority = priority
         self.canceled = False  # set by cancel() or a failing stream_cb
+        # the multi-tenant plane: the tenant's name (its class drives the
+        # preemption ladder), the named LoRA adapter and its pinned device
+        # table slot (0 = base), and how often the row was preempted
+        self.tenant: str | None = None
+        self.adapter_id: str | None = None
+        self.adapter_slot = 0
+        self.preemptions = 0
         # absolute perf_counter time the caller stops caring; None = never
         self.deadline = (self.created + deadline) if deadline else None
 
@@ -273,6 +322,20 @@ class _Request:
         if self.deadline is None:
             return None
         return max(self.deadline - now, 0.0)
+
+    @property
+    def serve_ids(self) -> list[int]:
+        """The tokens an admission makes KV-resident: the prompt plus every
+        token already emitted. A fresh request has none, so this is its
+        prompt; a preempted one resumes by prefilling its whole generated
+        context and sampling the NEXT token."""
+        return self.prompt_ids + self.tokens
+
+    @property
+    def new_budget(self) -> int:
+        """Tokens the request may still emit: the admission-time budget of
+        a fresh and of a resumed request."""
+        return self.max_new_tokens - len(self.tokens)
 
 
 class _Inflight:
@@ -321,6 +384,8 @@ class ServingEngine:
         seed: int = 0,
         device: str | torch.device | None = None,
         prefix_cache: Any = None,
+        lora: Any = None,
+        tenants: Any = None,
     ) -> None:
         self.device = resolve_device(device)
         self.model_cfg = cfg
@@ -339,6 +404,17 @@ class ServingEngine:
             raise ValueError(
                 "TPU_SPEC_TOKENS and TPU_BATCH_MULTI_STEP>1 are both chunking policies; "
                 "enable one"
+            )
+        # the multi-tenant plane, both optional: the LoRA adapter registry
+        # (serving/lora.py) and the tenant policy registry
+        # (serving/tenancy.py); an engine without them runs the code it
+        # ran before either existed
+        self._lora = lora
+        self._tenants = tenants
+        if lora is not None and conf.spec_tokens > 0:
+            raise ValueError(
+                "TPU_SPEC_TOKENS and a LoRA adapter registry are mutually exclusive: "
+                "the speculative verify path has no adapter gather"
             )
         self.tokenizer = tokenizer or ByteTokenizer(cfg.vocab_size)
         self.seed = seed
@@ -408,15 +484,21 @@ class ServingEngine:
         self.temperature = np.ones(B, np.float32)
         self.top_k = np.zeros(B, np.int64)
         self.top_p = np.ones(B, np.float32)
+        # each slot's LoRA table slot (0 = base): the host mirror of
+        # DecodeState.adapter
+        self.adapter_idx = np.zeros(B, np.int32)
         self.slots: list[_Request | None] = [None] * B
+        # decode rows marked for preemption: no further block feeds them,
+        # and the ladder pauses each once nothing of it is in flight
+        self._preempt_pending: set[int] = set()
         # dispatched, not yet read blocks, oldest first; at most
         # decode_sync_every outstanding after each dispatch
         self._inflight: collections.deque[_Inflight] = collections.deque()
         self._dec_state: batch_ops.DecodeState | None = None  # None: rebuild
         # slots prefilled since the last dispatch: slot -> (first token,
-        # resident length, remaining budget, stop id), folded into the
-        # device state at the next dispatch
-        self._pending_admit: dict[int, tuple[int, int, int, int]] = {}
+        # resident length, remaining budget, stop id, adapter slot), folded
+        # into the device state at the next dispatch
+        self._pending_admit: dict[int, tuple[int, int, int, int, int]] = {}
         self._mask_host: np.ndarray | None = None
         self._mask_dev: torch.Tensor | None = None
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
@@ -483,6 +565,8 @@ class ServingEngine:
             leftovers = list(self._by_id.values())
             self._by_id.clear()
         for req in leftovers:
+            # the adapter registry outlives this engine: release the pins
+            self._lora_release(req)
             self._settle_future(req, ErrorServiceUnavailable(
                 "engine stopped before the request was served; retry", retry_after=1.0,
             ))
@@ -540,6 +624,8 @@ class ServingEngine:
         priority: int = 0,
         deadline: float | None = None,
         stream_cb: Callable[[int, str, bool], None] | None = None,
+        tenant: str | None = None,
+        adapter_id: str | None = None,
     ) -> concurrent.futures.Future:
         """Thread-safe submit; the Future resolves to a GenerationResult.
         Lower ``priority`` is admitted first. ``deadline`` is the caller's
@@ -548,14 +634,38 @@ class ServingEngine:
         mid-stream retires with finish reason ``deadline_exceeded``.
         ``stream_cb(token_id, text_piece, done)`` runs on the detok worker
         for every token and once more with ``done`` at the end; if it
-        raises, the request is canceled. Raises ``ErrorServiceUnavailable``
-        (503) while draining or after stop, ``ErrorTooManyRequests`` (429)
-        when shed or when the queue is full."""
+        raises, the request is canceled. ``tenant`` names the tenant whose
+        class fills in a priority of 0 and a missing deadline and whose
+        token-rate budget is charged; ``adapter_id`` names a registered
+        LoRA adapter. Raises ``ErrorServiceUnavailable`` (503) while
+        draining or after stop, ``ErrorInvalidParam`` (400) for an unknown
+        adapter or one without a registry, ``ErrorTooManyRequests`` (429)
+        when shed, over the tenant's budget or when the queue is full."""
         if self._draining:
             raise ErrorServiceUnavailable("server draining; retry on another replica",
                                           retry_after=1.0)
-        # load shedding before any per-request work
-        est_wait = self._shed.estimate_wait(self._sched.pending(), self.config.max_slots)
+        # the tenant's class first: its priority drives the scheduler and
+        # the preemption ladder, its deadline fills in a missing one. A
+        # request that names no tenant is untouched
+        if self._tenants is not None and tenant:
+            policy = self._tenants.policy(tenant)
+            if priority == 0:
+                priority = int(policy.priority or 0)
+            if deadline is None and policy.deadline_s:
+                deadline = float(policy.deadline_s)
+        if adapter_id and (self._lora is None or not self._lora.known(adapter_id)):
+            raise ErrorInvalidParam("adapter_id")
+        # load shedding before any per-request work; with tenant classes
+        # only waiters of the same or a higher class stand before this one
+        # (a batch-class flood sheds batch-class requests, never an
+        # interactive one it cannot delay)
+        depth = self._sched.pending()
+        if self._tenants is not None:
+            active = {id(r) for r in self.slots if r is not None}
+            with self._count_lock:
+                depth = sum(1 for r in self._by_id.values()
+                            if id(r) not in active and not r.canceled and r.priority <= priority)
+        est_wait = self._shed.estimate_wait(depth, self.config.max_slots)
         shed_cap = self.config.shed_max_wait_s
         missed = deadline is not None and 0 < deadline < est_wait
         if missed or (shed_cap > 0 and est_wait > shed_cap):
@@ -581,10 +691,27 @@ class ServingEngine:
         prompt_ids = prompt_ids[-max_prompt:]
         budget = self.config.max_seq_len - len(prompt_ids)
         max_new = min(max_new_tokens or self.config.max_new_tokens_default, budget)
+        if self._tenants is not None:
+            # the token-rate budget: prompt plus requested generation
+            ok, retry_after = self._tenants.admit(tenant, len(prompt_ids) + max_new)
+            if not ok:
+                raise ErrorTooManyRequests(
+                    f"tenant {tenant or 'default'} over its token-rate budget",
+                    retry_after=max(retry_after, 0.05),
+                )
+        if adapter_id:
+            try:
+                # after every rejection gate: the upload runs while the
+                # request queues, and shed traffic never touches the table
+                self._lora.prefetch(adapter_id)
+            except UnknownAdapter:  # deregistered since the gate above
+                raise ErrorInvalidParam("adapter_id") from None
         req = _Request(
             rid, prompt_ids, max_new, float(temperature), int(top_k), float(top_p), stream_cb,
             stop_ids={self.tokenizer.eos_id}, priority=int(priority), deadline=deadline,
         )
+        req.tenant = tenant
+        req.adapter_id = adapter_id or None
         with self._submit_mu:
             if self._stop_requested:
                 raise ErrorServiceUnavailable("server stopped; retry on another replica",
@@ -651,8 +778,11 @@ class ServingEngine:
     def _loop(self) -> None:
         while self._running:
             try:
+                # the preemption ladder runs before the plan: a slot it
+                # frees is admitted in this same iteration
+                did = self._maybe_preempt()
                 plan = self._plan_step()
-                did = self._admit(plan)
+                did |= self._admit(plan)
                 if any(s is not None for s in self.slots):
                     did |= self._decode_step(plan)
                 elif self._inflight:
@@ -724,20 +854,36 @@ class ServingEngine:
                     self._settle_async(req, exc=ErrorDeadlineExceeded())
                 continue
             try:
-                if self._route_chunked(len(req.prompt_ids)):
+                if self._lora is not None and req.adapter_id:
+                    # pin the adapter's table slot for the row's life; the
+                    # wait is clamped to what the deadline leaves
+                    budget = 5.0
+                    rem = req.remaining(time.perf_counter())
+                    if rem is not None:
+                        budget = min(budget, rem)
+                    try:
+                        req.adapter_slot = self._lora.acquire(req.adapter_id, timeout=budget)
+                    except AdapterBusy:
+                        raise _Requeue() from None
+                # a resume admits the prompt plus its emitted tokens, which
+                # may route chunked where the prompt did not
+                if self._route_chunked(len(req.serve_ids)):
                     self._start_cursor(slot, req)
                 else:
                     self._prefill_into(slot, req)
             except _Requeue:
-                # pages short for now: back to the head of its class; the
-                # rest of this round's pairs proceed
+                # pages or adapter slots short for now: back to the head of
+                # its class; the rest of this round's pairs proceed
+                self._lora_release(req)
                 sched.release(slot)
                 self._resubmit_front(req)
             except Exception as exc:
                 log.exception("prefill failed for request %d", rid)
+                self._lora_release(req)
                 self.slots[slot] = None
                 self._cursors.pop(slot, None)
                 self.cache_len[slot] = 0
+                self.adapter_idx[slot] = 0
                 self._free_kv(slot)
                 try:
                     sched.release(slot)
@@ -748,12 +894,35 @@ class ServingEngine:
                 self._settle_async(req, exc=exc)
         return bool(pairs or canceled_ids)
 
+    def _lora_adjusted(self, req: _Request, last_logits: torch.Tensor,
+                       last_token: int) -> torch.Tensor:
+        """The row's adapter delta on host-path last-position logits before
+        first-token sampling (monolithic prefill, whole-prompt and full
+        chain hits); base rows get the logits untouched."""
+        if self._lora is None or not req.adapter_slot:
+            return last_logits
+        factors = self._lora.slot_factors(req.adapter_slot)
+        if factors is None:
+            return last_logits
+        return batch_ops.lora_adjust_logits(
+            self.params["embedding"], factors[0], factors[1], last_token, last_logits,
+        )
+
+    def _lora_release(self, req: _Request) -> None:
+        """Unpin a row's adapter table slot (nothing for a base row). Every
+        path that takes a row out (retire, requeue, failed prefill,
+        preempt, fail-all, stop) goes through here, so a pin never
+        outlives its row."""
+        if req.adapter_slot and self._lora is not None:
+            self._lora.release(req.adapter_slot)
+            req.adapter_slot = 0
+
     def _resubmit_front(self, req: _Request) -> None:
         """Requeue at the head of the request's priority class after
         transient pool pressure; a queue that will not take it fails the
         request with a 429."""
         try:
-            self._sched.submit(req.id, len(req.prompt_ids), req.max_new_tokens,
+            self._sched.submit(req.id, len(req.serve_ids), req.max_new_tokens,
                                req.priority, front=True)
         except Exception:
             with self._count_lock:
@@ -772,14 +941,17 @@ class ServingEngine:
         value = cache.get(key)
         return value, ("device" if value is not None else "miss")
 
-    def _chunk_cache_keys(self, prompt_ids: list[int]) -> list[tuple[int, int, str]]:
+    def _chunk_cache_keys(self, prompt_ids: list[int],
+                          adapter_id: str | None = None) -> list[tuple[int, int, str]]:
         """Chunk-prefix cache keys for every chunk boundary of a prompt:
         the chunk geometry and the digest of the WHOLE prefix up to the
         boundary, so two prompts that share a prefix share its entries and
-        a change of chunk size never aliases. One incremental blake2b pass
-        with a snapshot per boundary (digesting each prefix from scratch
-        would be quadratic in the prompt's length)."""
+        a change of chunk size never aliases. The adapter id ends the key:
+        the same prompt under two adapters is two chains. One incremental
+        blake2b pass with a snapshot per boundary (digesting each prefix
+        from scratch would be quadratic in the prompt's length)."""
         arr = np.asarray(prompt_ids, np.int32)
+        aid = adapter_id or "-"
         h = hashlib.blake2b(digest_size=16)
         out: list[tuple[int, int, str]] = []
         pos, total = 0, len(prompt_ids)
@@ -787,7 +959,7 @@ class ServingEngine:
             end = min(pos + self._chunk_tokens, total)
             h.update(arr[pos:end].tobytes())
             out.append((pos, end, f"chunkpfx:{self._chunk_tokens}:{pos}:{end}:"
-                                  f"{h.copy().hexdigest()}:-"))
+                                  f"{h.copy().hexdigest()}:{aid}"))
             pos = end
         return out
 
@@ -801,7 +973,7 @@ class ServingEngine:
         fails with a 413, and page pressure requeues, both before the slot
         is touched."""
         pc = self.paged_cache
-        ids = req.prompt_ids
+        ids = req.serve_ids  # the prompt plus emitted tokens on a resume
         total = len(ids)
         if pc is not None and pc.pages_needed(total) > pc.num_pages:
             raise ErrorRequestEntityTooLarge(
@@ -815,16 +987,17 @@ class ServingEngine:
         pos = 0
         cache_keys: dict[tuple[int, int], str] | None = None
         if self._prefix_cache is not None and self._chunk_cache_enabled:
-            boundaries = self._chunk_cache_keys(ids)
+            boundaries = self._chunk_cache_keys(ids, req.adapter_id)
             cache_keys = {(a, b): k for a, b, k in boundaries}
             for start, end, key in boundaries:
                 val, _tier = self._cache_lookup(key)
                 if val is None:
                     break
                 if end >= total and val[0].shape[-1] != self.model_cfg.vocab_size:
-                    # an entry without real last-position logits may link a
-                    # chain but never end it: the full-hit admit would
-                    # sample the first token from it
+                    # an entry without real last-position logits (a
+                    # preemption's page-out) may link a chain but never
+                    # end it: the full-hit admit would sample the first
+                    # token from it
                     break
                 hits.append((start, end, val))
                 pos = end
@@ -844,11 +1017,14 @@ class ServingEngine:
             pc.advance_slot(slot, pos)
         if pos >= total:
             # the whole prompt is cached at chunk boundaries: sample the
-            # first token from the last entry's logits, as the dispatch
-            # that finishes a prompt would, and admit to decode
-            self._commit_prefilled(slot, req, self._first_token(req, hits[-1][2][0]), total)
+            # first token from the last entry's logits (with the row's
+            # adapter delta), as the dispatch that finishes a prompt would,
+            # and admit to decode
+            logits = self._lora_adjusted(req, hits[-1][2][0], ids[-1])
+            self._commit_prefilled(slot, req, self._first_token(req, logits), total)
             return
-        cursor = ChunkCursor(req=req, slot=slot, total=total, seq=self._cursor_seq)
+        cursor = ChunkCursor(req=req, slot=slot, total=total, seq=self._cursor_seq,
+                             priority=req.priority)
         self._cursor_seq += 1
         cursor.cache_keys = cache_keys
         cursor.committed = cursor.dispatched = cursor.prefix_hit = pos
@@ -860,6 +1036,7 @@ class ServingEngine:
         self.temperature[slot] = req.temperature
         self.top_k[slot] = req.top_k
         self.top_p[slot] = req.top_p
+        self.adapter_idx[slot] = req.adapter_slot
         self._cursors[slot] = cursor
 
     def _cursor_health(self, slot: int, req: _Request, cursor: ChunkCursor) -> None:
@@ -879,13 +1056,126 @@ class ServingEngine:
             self._cursors.pop(slot, None)
             self.slots[slot] = None
             self.cache_len[slot] = 0
+            self.adapter_idx[slot] = 0
+            self._lora_release(req)
             self._free_kv(slot)
             self._sched.release(slot)
             self._resubmit_front(req)
 
+    # -------------------------------------------------------- preemption
+    def _maybe_preempt(self) -> bool:
+        """The preemption ladder: when a STRICTLY higher class (lower
+        priority number) waits and the batch cannot take it (no free slot,
+        or on the paged layout a pool that cannot cover its prompt), pause
+        the lowest-class row, on a tie the one with more tokens out (its
+        resume is the warmest). A row with blocks in flight is marked
+        pending: no dispatch feeds it any more, and it is paused once they
+        are read. Equal classes never preempt each other (a resumed row
+        keeps its priority, so it never evicts what evicted it), and spec
+        mode never preempts. Engine thread only."""
+        if not self.config.tenant_preempt or self._tenants is None:
+            return False
+        if self.config.spec_tokens > 0:
+            return False
+        active = {id(r) for r in self.slots if r is not None}
+        with self._count_lock:
+            waiting = [r for r in self._by_id.values() if id(r) not in active and not r.canceled]
+        if not waiting:
+            self._preempt_pending.clear()
+            return False
+        best = min(r.priority for r in waiting)
+        slot_pressure = all(s is not None for s in self.slots)
+        page_pressure = False
+        pc = self.paged_cache
+        if not slot_pressure and pc is not None:
+            need = min(pc.pages_needed(len(r.serve_ids)) for r in waiting if r.priority == best)
+            page_pressure = need > pc.stats()["free_blocks"]
+        if not slot_pressure and not page_pressure:
+            self._preempt_pending.clear()  # the pressure passed
+            return False
+        for slot in sorted(self._preempt_pending):
+            req = self.slots[slot]
+            if req is None or req.priority <= best:
+                self._preempt_pending.discard(slot)
+                continue
+            if self._row_in_flight(slot, req):
+                return False  # draining: its blocks are read first
+            self._preempt_pending.discard(slot)
+            self._preempt(slot)
+            return True
+        victim = None
+        for slot, req in enumerate(self.slots):
+            if req is None or req.priority <= best:
+                continue  # never an equal or higher class
+            if victim is None or ((req.priority, len(req.tokens))
+                                  > (self.slots[victim].priority, len(self.slots[victim].tokens))):
+                victim = slot
+        if victim is None:
+            return False
+        if self._row_in_flight(victim, self.slots[victim]):
+            self._preempt_pending.add(victim)
+            return False
+        self._preempt(victim)
+        return True
+
+    def _row_in_flight(self, slot: int, req: _Request) -> bool:
+        """A decode block or a chunk of the row is dispatched, not read."""
+        cursor = self._cursors.get(slot)
+        return self._slot_in_flight(slot, req) or (cursor is not None and cursor.in_flight > 0)
+
+    def _preempt(self, slot: int) -> None:
+        """Pause one row with nothing in flight: put its whole chunk spans
+        below its resident length, and strictly below ``len(serve_ids)``,
+        into the prefix cache (bf16 KV with the chunk cache on; int8 KV
+        recomputes them at the resume), free its slot, pages and adapter
+        pin, and requeue it. The resume is an ordinary admission of
+        ``serve_ids`` (prompt plus emitted tokens): the chain walk finds
+        the spans, the tail chunk recomputes, and the NEXT token samples
+        with what is left of the budget; emitted tokens are never re-run."""
+        req = self.slots[slot]
+        ids = req.serve_ids
+        resident = int(self.cache_len[slot])
+        if self._prefix_cache is not None and self._chunk_cache_enabled:
+            for start, end, key in self._chunk_cache_keys(ids, req.adapter_id):
+                # the resume always computes at least the final chunk,
+                # whose logits give the next token
+                if end > resident or end >= len(ids):
+                    break
+                if self.paged_cache is not None:
+                    k_slab, v_slab = self.paged_cache.read_span(slot, start, end)
+                else:
+                    # slices of the dense cache are views of the slot row,
+                    # which its next occupant overwrites: copy them
+                    k_slab = self.cache.k[:, slot, start:end].clone()
+                    v_slab = self.cache.v[:, slot, start:end].clone()
+                # the logits column is a placeholder: the chain walk never
+                # ends on this entry (it ends before len(serve_ids))
+                placeholder = torch.zeros((1, 1), dtype=torch.float32, device=self.device)
+                self._prefix_cache.put(key, (placeholder, k_slab, v_slab))
+        req.preemptions += 1
+        log.info("preempted request %d (tenant %s, priority %d) after %d tokens; %d resident "
+                 "tokens", req.id, req.tenant or "default", req.priority, len(req.tokens), resident)
+        self._cursors.pop(slot, None)
+        self._pending_admit.pop(slot, None)
+        self.slots[slot] = None
+        self.cache_len[slot] = 0
+        self.adapter_idx[slot] = 0
+        # the resume's first token makes len(tokens) - 1 equal to this: no
+        # step of the row is in flight then
+        req.dispatched = len(req.tokens)
+        self._lora_release(req)
+        self._free_kv(slot)
+        self._sched.release(slot)
+        try:
+            self._sched.submit(req.id, len(req.serve_ids), req.max_new_tokens, req.priority)
+        except Exception:
+            with self._count_lock:
+                self._by_id.pop(req.id, None)
+            self._settle_async(req, exc=ErrorTooManyRequests())
+
     def _prefill_into(self, slot: int, req: _Request) -> None:
         cfg, pc = self.model_cfg, self.paged_cache
-        ids = req.prompt_ids
+        ids = req.serve_ids  # the prompt plus emitted tokens on a resume
         S = len(ids)
         bucket = batch_ops.pad_bucket(S, self._buckets())
         if pc is not None:
@@ -904,9 +1194,10 @@ class ServingEngine:
         cache_key = cached = None
         if self._prefix_cache is not None:
             # sampling params are not in the key: the entry is the
-            # pre-sampling prefill output, shared across temperatures
+            # pre-sampling prefill output, shared across temperatures. The
+            # adapter id is: a cross-adapter hit is impossible
             digest = hashlib.blake2b(np.asarray(ids, np.int32).tobytes(), digest_size=16)
-            cache_key = f"prefill:{bucket}:{S}:{digest.hexdigest()}:-"
+            cache_key = f"prefill:{bucket}:{S}:{digest.hexdigest()}:{req.adapter_id or '-'}"
             cached, _tier = self._cache_lookup(cache_key)
         if cached is not None:
             last_logits, k_slab, v_slab = cached
@@ -928,7 +1219,10 @@ class ServingEngine:
             self.cache.k, self.cache.v = batch_ops.insert_slot(
                 self.cache.k, self.cache.v, k_slab, v_slab, slot
             )
-        self._commit_prefilled(slot, req, self._first_token(req, last_logits), S)
+        # the row's delta applies at the sampling site: cached entries stay
+        # base-model logits
+        logits = self._lora_adjusted(req, last_logits, ids[-1])
+        self._commit_prefilled(slot, req, self._first_token(req, logits), S)
 
     def _first_token(self, req: _Request, last_logits: torch.Tensor) -> int:
         """Sample a request's first token from its prompt's last-position
@@ -949,10 +1243,12 @@ class ServingEngine:
         self.temperature[slot] = req.temperature
         self.top_k[slot] = req.top_k
         self.top_p[slot] = req.top_p
+        self.adapter_idx[slot] = req.adapter_slot
         # the budget folds both limits (max_new and the sequence cap, which
-        # submit clamped max_new to) and counts what is left after this token
+        # submit clamped max_new to) and counts what is left after this
+        # token, so a resumed row keeps what it had left
         self._pending_admit[slot] = (
-            first_id, resident, req.max_new_tokens - 1, _stop_id(req),
+            first_id, resident, req.new_budget - 1, _stop_id(req), req.adapter_slot,
         )
         self._commit_first_token(slot, req, first_id)
 
@@ -961,8 +1257,9 @@ class ServingEngine:
         and the ragged dispatch that folded the token on the device): TTFT,
         emission and the one stop/length retire chain."""
         self.last_token[slot] = first_id
-        req.first_token_at = time.perf_counter()
-        self._shed.observe_ttft(req.first_token_at - req.created)
+        if req.first_token_at is None:  # a resume keeps its first token's TTFT
+            req.first_token_at = time.perf_counter()
+            self._shed.observe_ttft(req.first_token_at - req.created)
         self._emit(req, first_id)
         if first_id in req.stop_ids:
             self._retire(slot, "stop")
@@ -1129,7 +1426,8 @@ class ServingEngine:
         self._pending_admit.clear()  # the mirrors already hold these rows
         return batch_ops.make_decode_state(
             self.last_token, np.maximum(self.cache_len, 1), done, budget, stop,
-            self.temperature, self.top_k, self.top_p, self._rng, device=self.device,
+            self.temperature, self.top_k, self.top_p, self._rng, self.adapter_idx,
+            device=self.device,
         )
 
     def _fold_admissions(self, state: batch_ops.DecodeState) -> batch_ops.DecodeState:
@@ -1146,7 +1444,7 @@ class ServingEngine:
             to_device(self.temperature[idx], self.device),
             to_device(self.top_k[idx], self.device),
             to_device(self.top_p[idx], self.device),
-            to_device(np.zeros(len(items), np.int32), self.device),
+            col(4, np.int32),
         )
 
     def _dispatch(self, plan: StepPlan) -> _Inflight | None:
@@ -1171,6 +1469,8 @@ class ServingEngine:
                 continue
             if req.kv_exhausted:
                 continue  # retires once its in-flight tokens are read
+            if slot in self._preempt_pending:
+                continue  # no longer fed: the ladder pauses it once drained
             # page coverage for the whole block, including the steps
             # dispatched but not yet read (the device runs ahead of the
             # committed host mirror by every block in flight); a dense slot
@@ -1191,6 +1491,8 @@ class ServingEngine:
         for slot, grant in plan.grants:
             cursor = self._cursors.get(slot)
             if cursor is None or cursor.blocked or cursor.remaining <= 0:
+                continue
+            if slot in self._preempt_pending:
                 continue
             if cursor.req.canceled or cursor.req.expired(now):
                 continue  # _cursor_health retires it once nothing is in flight
@@ -1228,19 +1530,20 @@ class ServingEngine:
         else:
             steps, prefill_rows = N, []
             cfg, params = self.model_cfg, self.params
+            lora = self._lora_tables()
             if pc is None:
                 packed, self.cache, self._dec_state = batch_ops.decode_block(
-                    cfg, params, self.cache, state, self._mask_dev, N,
+                    cfg, params, self.cache, state, self._mask_dev, N, lora,
                 )
             elif pc.quantized:
                 (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
                  self._dec_state) = batch_ops.decode_block_paged_q(
-                    cfg, params, *pc.pools(), state, pc.tables_device(), self._mask_dev, N,
+                    cfg, params, *pc.pools(), state, pc.tables_device(), self._mask_dev, N, lora,
                 )
             else:
                 packed, pc.k_pool, pc.v_pool, self._dec_state = batch_ops.decode_block_paged(
                     cfg, params, pc.k_pool, pc.v_pool, state, pc.tables_device(),
-                    self._mask_dev, N,
+                    self._mask_dev, N, lora,
                 )
         for _, req in rows:
             req.dispatched += steps
@@ -1258,6 +1561,11 @@ class ServingEngine:
             return False
         cursor.allocated = True
         return True
+
+    def _lora_tables(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """The adapter tables a dispatch reads (None until the first
+        upload, and without a registry)."""
+        return self._lora.tables() if self._lora is not None else None
 
     def _dispatch_ragged(
         self, state: batch_ops.DecodeState, chunk_rows: list, steps: int,
@@ -1279,13 +1587,16 @@ class ServingEngine:
         budgets = np.zeros(B, np.int32)
         stops = np.full(B, -1, np.int64)
         kvcap = np.zeros(B, np.int32)
+        adapters = np.zeros(B, np.int32)
         slots, seeds = [], []
         for slot, cursor, req, start_pos, n in chunk_rows:
-            chunk[slot, :n] = req.prompt_ids[start_pos:start_pos + n]
+            serve = req.serve_ids  # the prompt plus emitted tokens on a resume
+            chunk[slot, :n] = serve[start_pos:start_pos + n]
             start[slot] = start_pos
             finish[slot] = start_pos + n >= cursor.total
             new_len[slot] = start_pos + n
-            budgets[slot] = req.max_new_tokens - 1
+            budgets[slot] = req.new_budget - 1
+            adapters[slot] = req.adapter_slot
             stops[slot] = _stop_id(req)
             if pc is not None:
                 kvcap[slot] = pc.owned_capacity(slot)
@@ -1295,9 +1606,11 @@ class ServingEngine:
         def up(a: np.ndarray) -> torch.Tensor:
             return to_device(a, self.device)
 
+        lora = self._lora_tables()
         rows = up(np.array(slots, np.int64))
         tail = (up(finish), up(new_len), up(budgets), up(stops), up(self.temperature),
-                up(self.top_k), up(self.top_p), seeds, self._mask_dev, steps)
+                up(self.top_k), up(self.top_p), seeds, self._mask_dev, steps,
+                up(adapters) if lora is not None else None, lora)
         cfg, params = self.model_cfg, self.params
         if pc is None:
             packed, last_logits, self.cache, new_state = batch_ops.ragged_step(
@@ -1439,10 +1752,13 @@ class ServingEngine:
         req = self.slots[slot]
         self.slots[slot] = None
         self._cursors.pop(slot, None)
+        self._preempt_pending.discard(slot)
         self.cache_len[slot] = 0
+        self.adapter_idx[slot] = 0
         self._free_kv(slot)
         self._sched.release(slot)
         if req is not None:
+            self._lora_release(req)
             with self._count_lock:
                 self._by_id.pop(req.id, None)
             self._finish(req, reason)
@@ -1520,12 +1836,15 @@ class ServingEngine:
         self._inflight.clear()
         self._pending_admit.clear()
         self._cursors.clear()
+        self._preempt_pending.clear()
         self._dec_state = None
         self._mask_host = self._mask_dev = None
         for slot, req in enumerate(self.slots):
             if req is not None:
                 self.slots[slot] = None
                 self.cache_len[slot] = 0
+                self.adapter_idx[slot] = 0
+                self._lora_release(req)
                 self._free_kv(slot)
                 try:
                     self._sched.release(slot)

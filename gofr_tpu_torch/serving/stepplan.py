@@ -9,7 +9,8 @@ Each engine iteration a :class:`StepPlanner` assembles ONE
   guarantee: however much prefill work is queued, the next N-step decode
   block always dispatches), and
 - up to ``prefill_chunk_tokens`` of prefill-chunk work, granted to the
-  oldest partially prefilled requests (their :class:`ChunkCursor` carries
+  partially prefilled requests of the highest class first, oldest first
+  within a class (their :class:`ChunkCursor` carries
   the per-request chunk position between iterations), plus an admission
   quota for fresh requests.
 
@@ -26,12 +27,14 @@ Budget policy:
   decode rows (``rows * block_steps`` tokens) are subtracted first and
   prefill chunks fill whatever remains.
 - Chunk grants are whole chunks (or the prompt's final ragged tail) and go
-  to cursors OLDEST FIRST, so a long prompt drains steadily; the
-  admission quota never drops below one while the queue is non-empty.
+  to cursors by (tenant priority, admission order): a higher class
+  (lower priority number) drains first, and within a class the OLDEST
+  first, so a long prompt drains steadily; the admission quota never
+  drops below one while the queue is non-empty.
 
 Pure policy: no device work, no locks; the engine thread is the only
-caller. Left out against the reference: the chaos point and tenant
-priorities (grants walk admission order alone).
+caller. Left out against the reference: the ``sched.plan`` chaos point
+(the port has no chaos module yet).
 """
 
 from __future__ import annotations
@@ -51,6 +54,10 @@ class ChunkCursor:
     slot: int
     total: int  # prompt tokens to prefill
     seq: int  # admission order (FIFO grant order)
+    # tenant priority (lower first): grants walk (priority, seq), so a
+    # batch-class long prompt cannot absorb the chunk budget ahead of an
+    # interactive one
+    priority: int = 0
     committed: int = 0  # tokens confirmed resident at a consume
     dispatched: int = 0  # tokens handed to a ragged dispatch
     chunk_index: int = 0  # next chunk ordinal
@@ -116,7 +123,7 @@ class StepPlanner:
         free_slots: int,
         queue_depth: int,
     ) -> StepPlan:
-        """Decode first, then chunk grants oldest cursor first, then an
+        """Decode first, then chunk grants by (priority, age), then an
         admission quota out of the leftover budget."""
         decode_tokens = decode_rows * self.block_steps
         if self.step_token_budget:
@@ -127,7 +134,7 @@ class StepPlanner:
             prefill_budget = self.chunk_tokens
         budget = prefill_budget
         grants: list[tuple[int, int]] = []
-        for cur in sorted(cursors, key=lambda c: c.seq):
+        for cur in sorted(cursors, key=lambda c: (c.priority, c.seq)):
             if budget <= 0:
                 break
             if cur.blocked or cur.remaining <= 0:

@@ -187,6 +187,7 @@ KNOBS = {  # knob -> (the port's field, a value to set)
     "TPU_KV_SPILL_BYTES": ("kv_spill_bytes", "1073741824"),
     "TPU_SPEC_TOKENS": ("spec_tokens", "4"),
     "TPU_SPEC_NGRAM": ("spec_ngram", "2"),
+    "TPU_TENANT_PREEMPT": ("tenant_preempt", "0"),
 }
 
 

@@ -76,6 +76,21 @@ def test_entry_points_refuse_without_a_card(no_card):
         params_from_jax({"w": torch.zeros(2).numpy()})
 
 
+def test_multi_tenant_modules_are_checked_and_refuse_without_a_card(no_card):
+    """The LoRA and tenancy modules are among the files the import rule
+    holds, and the adapter registry's tables go to the card unless asked
+    for the CPU."""
+    from gofr_tpu_torch.serving.lora import AdapterRegistry
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"gofr_tpu_torch/serving/lora.py", "gofr_tpu_torch/serving/tenancy.py"} <= files
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdapterRegistry(max_active=2)
+    reg = AdapterRegistry(max_active=2, device="cpu")
+    assert reg.device == torch.device("cpu")
+    reg.close()
+
+
 def test_cpu_engine_run_launches_no_kernel():
     """bf16 and int8 engines on either layout, a monolithic and a chunked
     prompt each: the plain versions run on the CPU and no counter moves."""
