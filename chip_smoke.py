@@ -85,6 +85,30 @@ Phases, each a hard failure with a non-zero exit:
      resumes (a chunk hit, fewer chunk dispatches than a cold prefill),
      every token streamed once, each row's tokens held against its twin
      on an engine without the ladder; the interactive TTFT on both;
+   then the healing phase, at full depth, one supervised engine after
+   another with the launches read before and after each (it never
+   provokes a real CUDA fault: a sticky one would end the process):
+   - ``H1`` dense bf16 (2048, 4 slots) with device telemetry: a fresh
+     request with zero restarts (the cold-dispatch grace), then four
+     running rows and four queued ones (two sampled); once each running
+     row has 8 tokens out, ``engine.step`` hangs 6 s: SUSPECT, RESTARTING,
+     UP; one restart; the running rows a retriable 503; the queued rows
+     the tokens of a clean engine under the same ids; flash launching for
+     every requeued prefill; the quarantined thread gone after its thaw;
+     detection latency, ``warm_restart`` ms, the requeued TTFT,
+     ``memory_allocated`` around it and ``details.device``;
+   - ``H2`` paged int8 (32-token pages, 4096, 256-token chunks):
+     ``device.loss`` once while eight rows (one of 1000 tokens) decode:
+     every row fails with ``DeviceLost``, one poisoning and no restart, a
+     clean ``torch.cuda.synchronize()``, memory within 64 MiB across the
+     in-place rebuild, and the same prompts served again through the int8
+     paged kernel with the first run's tokens;
+   - ``H3`` paged bf16 (16-token pages): a poison storm (three
+     ``device.loss``) escalates to a warm restart, then a probe through
+     the bf16 paged kernel; memory around each rebuild and restart;
+   - ``H4`` dense bf16 (2 slots, budget 2): a crash, one restart and a
+     request through flash; then a crash at every step parks the engine
+     WEDGED with every future settled within 10 s;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -2000,7 +2024,506 @@ def run_tenancy_lora(torch, cfg, params) -> dict:
     return out
 
 
-def run_engine(torch) -> tuple[dict, dict, dict, dict, dict]:
+# ------------------------------------------------------------------ healing
+HANG_S = 6.0  # H1: how long engine.step hangs
+THAW_EXIT_S = 10.0  # H1: the thawed thread exits within this of the thaw
+REBUILD_SLACK = 64 << 20  # H2: memory_allocated after the rebuild, against before
+
+
+def mib(torch) -> float:
+    return torch.cuda.memory_allocated() / 2**20
+
+
+def zero_launches() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def since(mark: dict) -> dict:
+    """Launches of each kernel since the ``launch_counts()`` snapshot."""
+    return {n: v - mark[n] for n, v in launch_counts().items()}
+
+
+class StateLog:
+    """A metrics sink for the supervisor: it sets ``app_engine_supervisor_state``
+    on every transition (0 UP, 1 SUSPECT, 2 RESTARTING, 3 WEDGED), so each
+    change is stamped here, on the supervisor's thread, as it happens.
+    SUSPECT lasts microseconds before the restart begins: a health_check
+    poller may never see it, this log always does."""
+
+    NAMES = {0.0: "UP", 1.0: "SUSPECT", 2.0: "RESTARTING", 3.0: "WEDGED"}
+
+    def __init__(self) -> None:
+        self.changes: list[tuple[float, str]] = []
+        self.counters: dict[str, int] = {}
+
+    def set_gauge(self, name, value, *labels, **kw) -> None:
+        if name == "app_engine_supervisor_state":
+            state = self.NAMES[float(value)]
+            if not self.changes or self.changes[-1][1] != state:
+                self.changes.append((time.monotonic(), state))
+
+    def increment_counter(self, name, *labels, **kw) -> None:
+        self.counters[name] = self.counters.get(name, 0) + 1
+
+    def states(self) -> list[str]:
+        return [state for _, state in self.changes]
+
+
+class HealthPoller:
+    """Polls ``engine.health_check()["status"]`` every 5 ms on a thread of
+    its own and keeps each change with its time."""
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self.changes: list[tuple[float, str]] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="health-poller")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            status = self.engine.health_check()["status"]
+            if not self.changes or self.changes[-1][1] != status:
+                self.changes.append((time.monotonic(), status))
+
+    def stop(self) -> list[str]:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return [status for _, status in self.changes]
+
+
+def in_order(seq: list, wanted: list) -> bool:
+    """``wanted`` appears in ``seq`` in order (not necessarily adjacent)."""
+    it = iter(seq)
+    return all(any(x == w for x in it) for w in wanted)
+
+
+def timed_restarts(torch, engine, record: list) -> None:
+    """Wrap ``engine.warm_restart`` (the supervisor calls it through the
+    instance) to record its wall time, whether the loop had crashed, and
+    memory_allocated before and after."""
+    real = engine.warm_restart
+
+    def timed(*args, **kw):
+        entry = {"loop_crashed": engine.loop_crashed, "mib_before": mib(torch)}
+        t0 = time.perf_counter()
+        try:
+            entry["ok"] = real(*args, **kw)
+        finally:
+            entry["ms"] = (time.perf_counter() - t0) * 1e3
+            entry["mib_after"] = mib(torch)
+            entry["t_end"] = time.monotonic()
+            record.append(entry)
+        return entry["ok"]
+
+    engine.warm_restart = timed
+
+
+def timed_rebuilds(torch, engine, record: list) -> None:
+    """Record memory_allocated around each in-place KV rebuild."""
+    real = engine._rebuild_kv
+
+    def timed():
+        entry = {"mib_before": mib(torch)}
+        real()
+        entry["mib_after"] = mib(torch)
+        record.append(entry)
+
+    engine._rebuild_kv = timed
+
+
+def healing_h1(torch, cfg, params, prompt) -> dict:
+    """H1: a supervised dense bf16 engine (2048, 4 slots, N=4) with device
+    telemetry. A fresh 200-token request with zero restarts; then four
+    running 200-token rows and four queued (two greedy, two sampled); once
+    each running row has 8 tokens out engine.step hangs 6 s. Requires
+    SUSPECT, RESTARTING, UP; one restart; the running rows a retriable
+    503; the queued rows the tokens of a clean engine of the same
+    configuration (same ids, same order); flash launching after the
+    restart for every requeued prefill; the thawed thread gone within 10 s
+    of the thaw."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine, chaos, errors
+    from gofr_tpu_torch.serving import DeviceTelemetry, EngineSupervisor
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    conf = dict(max_slots=4, max_seq_len=2048, kv_layout="dense", multi_step=4)
+    run_prompts = [prompt(200) for _ in range(4)]
+    queued_prompts = [prompt(200) for _ in range(4)]
+    sampling = [dict(), dict(), dict(temperature=0.8, top_k=50), dict(temperature=0.8, top_k=50)]
+    print(f"engine H1: dense bf16 max_seq_len=2048, 4 slots, N=4, {cfg.n_layers} layers, "
+          f"supervised (stall 2 s, join 1 s, budget 3): a hang of {HANG_S:g} s at engine.step")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size), seed=SEED)
+    states = StateLog()
+    sup = EngineSupervisor(engine, metrics=states, stall_s=2.0, poll_s=0.1, join_timeout=1.0,
+                           restart_budget=3)
+    tel = DeviceTelemetry(engine, interval_s=0.5)
+    restarts: list = []
+    timed_restarts(torch, engine, restarts)
+    hang_started: list = []
+    hang = chaos.hang_factory(HANG_S)
+
+    def hang_once(point, nth):
+        hang_started.append(time.monotonic())
+        return hang(point, nth)
+
+    out: dict = {}
+    poller = None
+    zero_launches()  # the engine's own launches, read after its twin
+    try:
+        sup.start()
+        tel.start()
+        first = engine.submit(prompt(200), max_new_tokens=16).result(timeout=600)
+        if sup.restarts or first.finish_reason not in ("stop", "length"):
+            raise AssertionError(f"H1: a fresh engine restarted {sup.restarts} time(s) "
+                                 f"({sup.last_reason}) serving its first request")
+        out["first_request_ms"] = first.duration_s * 1e3
+        seen = [[] for _ in run_prompts]
+        running = [engine.submit(p, max_new_tokens=64, stream_cb=lambda t, s, d, i=i:
+                                 None if d else seen[i].append(t))
+                   for i, p in enumerate(run_prompts)]
+        first_token_at: dict = {}
+        queued = [engine.submit(p, max_new_tokens=32, stream_cb=lambda t, s, d, i=i:
+                                None if d else first_token_at.setdefault(i, time.monotonic()),
+                                **sampling[i])
+                  for i, p in enumerate(queued_prompts)]
+        wait_until(lambda: all(len(x) >= 8 for x in seen), 600, "8 tokens out on every running row")
+        if engine._sched.stats()["total_admitted"] != 5:
+            raise AssertionError("H1: a queued request was admitted before the hang")
+        old_thread = engine._thread
+        exited: list = []  # when the quarantined thread is gone
+        threading.Thread(target=lambda: (old_thread.join(), exited.append(time.monotonic())),
+                         daemon=True).start()
+        mark = launch_counts()
+        out["mib_before_hang"] = mib(torch)
+        poller = HealthPoller(engine)
+        chaos.install(chaos.ChaosInjector(SEED, {"engine.step": 1.0}, max_faults=1,
+                                          fault_factories={"engine.step": hang_once}))
+        try:
+            for i, fut in enumerate(running):
+                try:
+                    fut.result(timeout=600)
+                    raise AssertionError(f"H1: running row {i} finished through the hang")
+                except errors.ErrorServiceUnavailable as exc:
+                    if exc.retry_after is None:
+                        raise AssertionError("H1: a 503 without a retry-after") from exc
+            results = [f.result(timeout=600) for f in queued]
+            out["mib_after_restart"] = restarts[0]["mib_after"] if restarts else None
+            wait_until(lambda: exited, HANG_S + THAW_EXIT_S, "the quarantined thread to exit")
+            thread_exit_s = exited[0] - hang_started[0]
+            after_restart = since(mark)
+            out["mib_after_thaw"] = mib(torch)
+        finally:
+            chaos.uninstall()
+        health = poller.stop()
+        poller = None
+        out["device"] = engine.health_check()["details"]["device"]
+        out["restarts"] = sup.restarts
+    finally:
+        if poller is not None:
+            poller.stop()
+        tel.stop()
+        sup.stop()
+    suspect_t = next((t for t, st in states.changes if st == "SUSPECT"), None)
+    out["supervisor_states"] = states.states()
+    out["health_statuses"] = health
+    out["detection_latency_ms"] = (suspect_t - hang_started[0]) * 1e3 if suspect_t else None
+    out["warm_restart_ms"] = restarts[0]["ms"] if restarts else None
+    out["thread_exit_after_hang_s"] = thread_exit_s
+    out["queued_ttft_ms"] = [r.ttft_s * 1e3 for r in results]
+    first_after = min(first_token_at.values()) if first_token_at else None
+    out["first_requeued_token_after_restart_ms"] = (
+        (first_after - restarts[0]["t_end"]) * 1e3 if restarts and first_after else None)
+    flash = after_restart["flash_attention"]
+    out["launches_after_restart"] = after_restart
+    # the clean twin: the queued requests alone, under the same ids, in the
+    # same order, on a fresh engine of the same configuration
+    twin = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size), seed=SEED)
+    twin._next_id = queued[0].request_id - 1
+    try:
+        twin_futs = [twin.submit(p, max_new_tokens=32, **sampling[i])
+                     for i, p in enumerate(queued_prompts)]
+        if [f.request_id for f in twin_futs] != [f.request_id for f in queued]:
+            raise AssertionError("H1: the twin's request ids differ")
+        twin.start()
+        twin_results = [f.result(timeout=600) for f in twin_futs]
+    finally:
+        twin.stop()
+    del twin
+    torch.cuda.empty_cache()
+    out["queued_equal_clean"] = [r.token_ids == t.token_ids for r, t in zip(results, twin_results)]
+    out["launches"] = launch_counts()  # the supervised engine and its twin
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  H1: supervisor {out['supervisor_states']}, health {health}; restarts {sup.restarts}; "
+          f"detection {out['detection_latency_ms']:.1f} ms after the hang began; warm_restart "
+          f"{out['warm_restart_ms']:.1f} ms; first requeued token "
+          f"{out['first_requeued_token_after_restart_ms']:.1f} ms after it (queued TTFTs "
+          f"{[round(x, 1) for x in out['queued_ttft_ms']]} ms from submit)")
+    print(f"  H1: memory_allocated {out['mib_before_hang']:.1f} MiB before the hang, "
+          f"{out['mib_after_restart']:.1f} after the restart, {out['mib_after_thaw']:.1f} after the "
+          f"thaw; the thawed thread exited {thread_exit_s:.2f} s after the hang began")
+    print(f"  H1: details.device {out['device']}")
+    print(f"  H1: queued rows equal to a clean engine's {out['queued_equal_clean']}; flash launches "
+          f"after the restart {flash}; {out['seconds']:.1f}s")
+    if not (in_order(out["supervisor_states"], ["SUSPECT", "RESTARTING", "UP"])
+            and in_order(health, ["RESTARTING", "UP"])):
+        raise AssertionError(f"H1: states {out['supervisor_states']}, health {health}")
+    if sup.restarts != 1 or not all(r.finish_reason in ("stop", "length") for r in results):
+        raise AssertionError(f"H1: {sup.restarts} restarts, queued {[r.finish_reason for r in results]}")
+    if not all(out["queued_equal_clean"]):
+        raise AssertionError(f"H1: queued rows against the clean engine {out['queued_equal_clean']}")
+    if flash < 4 * cfg.n_layers:
+        raise AssertionError(f"H1: {flash} flash launches after the restart")
+    if thread_exit_s > HANG_S + THAW_EXIT_S:
+        raise AssertionError(f"H1: the thawed thread exited {thread_exit_s:.1f} s after the hang")
+    return out
+
+
+def healing_h2(torch, cfg, params, prompt) -> dict:
+    """H2: device loss recovered in place on paged int8 KV (32-token pages,
+    4096, 256-token chunks, 8 slots; supervisor poison threshold 3). The
+    eight prompts (one of 1000 tokens, chunked) are served once; then eight
+    rows decode and ``device.loss`` fires once at a dispatch. Requires the
+    rows to fail with DeviceLost, one poisoning and no restart, a clean
+    ``torch.cuda.synchronize()`` (no kernel launched on the poisoned
+    pools), memory_allocated after the rebuild within 64 MiB of before the
+    fault, and the same prompts served again through the int8 paged kernel
+    with the first run's greedy tokens (or parting only where the dense
+    forward's logits of the two tokens lie within GAP_TOL, as the earlier
+    phases allow)."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine, chaos
+    from gofr_tpu_torch.serving import EngineSupervisor
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32, kv_dtype="int8",
+                multi_step=4, prefill_chunk_tokens=256)
+    prompts = [prompt(1000)] + [prompt(200) for _ in range(7)]
+    print(f"engine H2: paged int8 page=32 max_seq_len=4096 chunk=256, 8 slots, {cfg.n_layers} "
+          "layers, supervised (poison threshold 3): device.loss once at a decode dispatch")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size), seed=SEED)
+    sup = EngineSupervisor(engine, stall_s=30.0, poll_s=0.1, poison_threshold=3)
+    rebuilds: list = []
+    timed_rebuilds(torch, engine, rebuilds)
+    out: dict = {}
+    zero_launches()
+    try:
+        sup.start()
+        before = [f.result(timeout=600) for f in [engine.submit(p, max_new_tokens=16) for p in prompts]]
+        seen = [[] for _ in prompts]
+        futs = [engine.submit(p, max_new_tokens=64, stream_cb=lambda t, s, d, i=i:
+                              None if d else seen[i].append(t)) for i, p in enumerate(prompts)]
+        wait_until(lambda: all(seen), 600, "every row decoding")
+        out["mib_before_fault"] = mib(torch)
+        with chaos.active(chaos.ChaosInjector(SEED, {"device.loss": 1.0}, max_faults=1)):
+            lost = 0
+            for fut in futs:
+                try:
+                    fut.result(timeout=600)
+                except chaos.DeviceLost:
+                    lost += 1
+        torch.cuda.synchronize()  # raises on a kernel that ran on the poisoned pools
+        wait_until(lambda: not engine._kv_unhealthy(), 60, "the rebuilt pools")
+        out["mib_after_rebuild"] = mib(torch)
+        out["rebuild_mib"] = rebuilds
+        out["device_poisonings"] = engine.device_poisonings
+        mark = launch_counts()
+        after = [f.result(timeout=600) for f in [engine.submit(p, max_new_tokens=16) for p in prompts]]
+        out["launches_after_rebuild"] = since(mark)
+        out["launches"] = launch_counts()
+        out["restarts"] = sup.restarts
+        # greedy runs of one prompt: equal, or parting only where the dense
+        # forward's logits of the two tokens lie within GAP_TOL
+        out["equal_before_after"] = [
+            same_or_close(torch, engine, p, a.token_ids, b.token_ids, f"H2 prompt {i}")["equal"]
+            for i, (p, a, b) in enumerate(zip(prompts, after, before))]
+    finally:
+        sup.stop()
+    del engine
+    torch.cuda.empty_cache()
+    out["rows_lost"] = lost
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  H2: {lost}/8 rows failed with DeviceLost; poisonings {out['device_poisonings']}, "
+          f"restarts {out['restarts']}; memory_allocated {out['mib_before_fault']:.1f} MiB before the "
+          f"fault, {out['mib_after_rebuild']:.1f} after the rebuild ({rebuilds}); synchronize clean")
+    print(f"  H2: the same prompts after the rebuild equal the first run's {out['equal_before_after']}; "
+          f"launches after the rebuild {out['launches_after_rebuild']}; {out['seconds']:.1f}s")
+    if lost != 8 or out["device_poisonings"] != 1 or out["restarts"] != 0:
+        raise AssertionError(f"H2: lost {lost}, poisonings {out['device_poisonings']}, "
+                             f"restarts {out['restarts']}")
+    if abs(out["mib_after_rebuild"] - out["mib_before_fault"]) * 2**20 > REBUILD_SLACK:
+        raise AssertionError(f"H2: memory_allocated {out['mib_before_fault']:.1f} -> "
+                             f"{out['mib_after_rebuild']:.1f} MiB across the rebuild")
+    if not out["launches_after_rebuild"]["paged_decode_attention_q"]:
+        raise AssertionError(f"H2: launches after the rebuild {out['launches_after_rebuild']}")
+    return out
+
+
+def healing_h3(torch, cfg, params, prompt) -> dict:
+    """H3: a poison storm on paged bf16 KV (16-token pages, 2048):
+    ``device.loss`` at every decode dispatch, three times; the supervisor
+    (poison threshold 2, budget 5) escalates to a warm restart. Requires
+    at least one restart, then a probe served through the bf16 paged
+    kernel. Prints memory_allocated around each rebuild and restart."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine, chaos, errors
+    from gofr_tpu_torch.serving import EngineSupervisor
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4)
+    print(f"engine H3: paged bf16 page=16 max_seq_len=2048, {cfg.n_layers} layers, supervised "
+          "(poison threshold 2, budget 5): device.loss at every decode dispatch, 3 times")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size), seed=SEED)
+    sup = EngineSupervisor(engine, stall_s=30.0, poll_s=0.1, poison_threshold=2, restart_budget=5)
+    rebuilds, restarts, outcomes = [], [], []
+    timed_rebuilds(torch, engine, rebuilds)
+    timed_restarts(torch, engine, restarts)
+    out: dict = {}
+    zero_launches()
+    try:
+        sup.start()
+        with chaos.active(chaos.ChaosInjector(SEED, {"device.loss": 1.0}, max_faults=3)) as inj:
+            t_end = time.monotonic() + 300
+            while inj.stats()["device.loss"]["faults"] < 3 or not sup.restarts:
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"H3: {inj.stats()}, restarts {sup.restarts}")
+                try:
+                    res = engine.submit(prompt(100), max_new_tokens=8).result(timeout=600)
+                    outcomes.append(res.finish_reason)
+                except (chaos.ChaosFault, errors.ErrorServiceUnavailable) as exc:
+                    outcomes.append(type(exc).__name__)
+                    wait_until(lambda: not engine._restarting, 60, "the restart to end")
+        mark = launch_counts()
+        probe = None
+        for _ in range(20):  # a probe that lands in a restart window is retried
+            try:
+                probe = engine.submit(prompt(100), max_new_tokens=8).result(timeout=600)
+                break
+            except errors.ErrorServiceUnavailable:
+                wait_until(lambda: not engine._restarting, 60, "the restart to end")
+        out["launches_after_restart"] = since(mark)
+        out["launches"] = launch_counts()
+        out["restarts"] = sup.restarts
+        out["device_poisonings"] = engine.device_poisonings
+    finally:
+        sup.stop()
+    del engine
+    torch.cuda.empty_cache()
+    out["outcomes"] = outcomes
+    out["rebuild_mib"] = rebuilds
+    out["restart_mib"] = [{k: r[k] for k in ("mib_before", "mib_after", "ms")} for r in restarts]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  H3: outcomes {outcomes}; poisonings {out['device_poisonings']}, restarts "
+          f"{out['restarts']}; memory_allocated around each rebuild {rebuilds}, each restart "
+          f"{out['restart_mib']}")
+    print(f"  H3: probe {probe.finish_reason if probe else None}; launches after the restart "
+          f"{out['launches_after_restart']}; {out['seconds']:.1f}s")
+    if out["restarts"] < 1 or probe is None or probe.finish_reason not in ("stop", "length") \
+            or not out["launches_after_restart"]["paged_decode_attention"]:
+        raise AssertionError(f"H3: restarts {out['restarts']}, probe {probe}, "
+                             f"{out['launches_after_restart']}")
+    return out
+
+
+def healing_h4(torch, cfg, params, prompt) -> dict:
+    """H4: a crash, then the budget spent (dense bf16, 2048, 2 slots,
+    budget 2). engine.step raises once: the loop dies, the supervisor sees
+    ``loop_crashed`` and restarts once, and a request is served through
+    flash. Then engine.step raises at every call (three faults): the
+    engine is parked WEDGED, stopped, every submitted future settles with
+    a typed error within 10 s, and a second stop() is harmless."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine, chaos, errors
+    from gofr_tpu_torch.serving import EngineSupervisor
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    conf = dict(max_slots=2, max_seq_len=2048, kv_layout="dense", multi_step=4)
+    print(f"engine H4: dense bf16 max_seq_len=2048, 2 slots, {cfg.n_layers} layers, supervised "
+          "(budget 2): engine.step raises once, then at every call")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size), seed=SEED)
+    sup = EngineSupervisor(engine, poll_s=0.1, restart_budget=2)
+    restarts: list = []
+    timed_restarts(torch, engine, restarts)
+    out: dict = {}
+    zero_launches()
+    try:
+        sup.start()
+        with chaos.active(chaos.ChaosInjector(SEED, {"engine.step": 1.0}, max_faults=1)):
+            wait_until(lambda: sup.restarts == 1, 60, "the restart after the crash")
+        out["crash_seen"] = restarts[0]["loop_crashed"]
+        out["crash_reason"] = sup.last_reason
+        mark = launch_counts()
+        served = engine.submit(prompt(200), max_new_tokens=8).result(timeout=600)
+        out["launches_after_restart"] = since(mark)
+        out["served"] = served.finish_reason
+        futs, refused = [], []
+        with chaos.active(chaos.ChaosInjector(SEED, {"engine.step": 1.0}, max_faults=3)):
+            for _ in range(4):
+                try:
+                    futs.append(engine.submit(prompt(100), max_new_tokens=8))
+                except errors.HTTPError as exc:
+                    refused.append(exc.status_code)
+            wait_until(lambda: sup.state == "WEDGED", 60, "the engine parked WEDGED")
+            t_park = time.monotonic()
+            settled = []
+            for fut in futs:
+                try:
+                    fut.result(timeout=max(10.0 - (time.monotonic() - t_park), 0.01))
+                    settled.append("result")
+                except errors.HTTPError as exc:
+                    settled.append(exc.status_code)
+            settle_s = time.monotonic() - t_park
+        out["status"] = engine.health_check()["status"]
+        out["running"] = engine._running
+        engine.stop(join_timeout=5.0)  # a second stop: harmless
+        out["status_after_second_stop"] = engine.health_check()["status"]
+        out["restarts"] = sup.restarts
+        out["launches"] = launch_counts()
+    finally:
+        sup.stop()
+    del engine
+    torch.cuda.empty_cache()
+    out.update(settled=settled, refused=refused, settle_s=settle_s,
+               restart_ms=[r["ms"] for r in restarts], seconds=time.perf_counter() - t0)
+    print(f"  H4: crash seen by the restart {out['crash_seen']} ({out['crash_reason']}); served "
+          f"{out['served']}, launches {out['launches_after_restart']}; then {out['status']} after "
+          f"{out['restarts']} restarts (warm_restart ms {[round(x, 1) for x in out['restart_ms']]}), "
+          f"running {out['running']}, futures {settled} in {settle_s:.2f} s, refused {refused}, "
+          f"after a second stop {out['status_after_second_stop']}; {out['seconds']:.1f}s")
+    if not (out["crash_seen"] and out["served"] in ("stop", "length")
+            and out["launches_after_restart"]["flash_attention"]):
+        raise AssertionError(f"H4: crash seen {out['crash_seen']}, served {out['served']}, "
+                             f"{out['launches_after_restart']}")
+    if out["status"] != "WEDGED" or out["running"] or out["status_after_second_stop"] != "WEDGED" \
+            or "result" in settled or settle_s > 10.0 or out["restarts"] != 2:
+        raise AssertionError(f"H4: {out}")
+    return out
+
+
+def run_healing(torch, cfg, params) -> dict:
+    """The healing phase at Llama-3-8B widths and full depth, one engine
+    after another: H1 hang and quarantine, H2 device loss in place, H3 a
+    poison storm, H4 a crash then the budget spent. Never provokes a real
+    CUDA fault."""
+    rng = torch.Generator().manual_seed(SEED + 4)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn in (("H1", healing_h1), ("H2", healing_h2), ("H3", healing_h3), ("H4", healing_h4)):
+        out[name] = fn(torch, cfg, params, prompt)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    for name in ("H1", "H2", "H3", "H4"):
+        print_launches(name, out[name]["launches"])
+    print(f"  healing: {out['seconds']:.1f}s")
+    return out
+
+
+def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -2080,7 +2603,10 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict, dict]:
     print("LoRA and tenancy phase (adapter registry, tenant storm and preemption, full depth):")
     tenancy = run_tenancy_lora(torch, cfg, params)
     tenancy["dense_path_decode_ms_per_step_batch8"] = timings["dense"]["decode_ms_per_step_batch8"]
-    return launches, timings, lifecycle, reuse, tenancy
+    torch.cuda.empty_cache()
+    print("healing phase (hang, device loss, poison storm, crash and budget, full depth):")
+    healing = run_healing(torch, cfg, params)
+    return launches, timings, lifecycle, reuse, tenancy, healing
 
 
 def main() -> int:
@@ -2113,7 +2639,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
-    launches, engine_timings, lifecycle, reuse, tenancy = run_engine(torch)
+    launches, engine_timings, lifecycle, reuse, tenancy, healing = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:
@@ -2125,6 +2651,7 @@ def main() -> int:
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"kv_reuse_spec": reuse}))
     print(json.dumps({"lora_tenancy": tenancy}))
+    print(json.dumps({"healing": healing}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

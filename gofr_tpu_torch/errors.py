@@ -101,8 +101,8 @@ class ErrorDeadlineExceeded(HTTPError):
 
 class ErrorInvalidParam(HTTPError):
     """400: a client error in the named parameters (an unknown LoRA
-    adapter, or an adapter on an engine without a registry); never
-    retriable."""
+    adapter, an adapter on an engine without a registry, a prompt token
+    outside the vocabulary); never retriable."""
 
     status_code = 400
 

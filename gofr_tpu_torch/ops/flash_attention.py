@@ -55,6 +55,11 @@ def flash_attention(
     past ``kv_len[b]`` are masked. CPU tensors take the plain version; CUDA
     tensors launch the kernel, which takes contiguous bf16 q/k/v with head
     dim 64 or 128 and int32 ``kv_len``, and raises on anything else."""
+    if q.numel() == 0 or k.numel() == 0 or v.numel() == 0:
+        # released storage (a device loss poisons KV as 0-element tensors):
+        # refused on the host, on any device, before a launch could read
+        # address 0
+        raise ValueError("flash_attention: a 0-element q/k/v is refused before any launch")
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

@@ -141,6 +141,7 @@ def paged_decode_attention(
     and lengths, and raises on anything else."""
     B, H, Dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    _refuse_released("paged_decode_attention", k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, scale)
     _check_inputs(q, k_pool, v_pool, block_tables, seq_lens)
@@ -182,6 +183,7 @@ def paged_decode_attention_q(
     and raises on anything else."""
     B, H, Dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    _refuse_released("paged_decode_attention_q", k_pool, v_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
             q, k_pool, v_pool, block_tables, seq_lens, scale, k_scale=k_scale, v_scale=v_scale
@@ -204,6 +206,16 @@ def paged_decode_attention_q(
 
 
 paged_decode_attention_q.launches = 0  # kernel launches (CPU calls never count)
+
+
+def _refuse_released(what: str, *pools) -> None:
+    """A 0-element pool is released storage (the engine poisons its KV
+    this way on a device loss): refused on the host, on any device, before
+    a kernel could read address 0 and leave the CUDA context in a sticky
+    error."""
+    if any(t is not None and t.numel() == 0 for t in pools):
+        raise ValueError(f"{what}: a 0-element pool is released KV storage; refused before "
+                         "any launch")
 
 
 def _check_inputs(q, k_pool, v_pool, block_tables, seq_lens, k_scale=None, v_scale=None) -> None:

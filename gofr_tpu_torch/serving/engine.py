@@ -106,9 +106,41 @@ samples the NEXT token within what is left of its budget; nothing is
 re-emitted and its TTFT stays its first token's. Equal classes never
 preempt each other, and spec mode never preempts.
 
-Not ported yet: the ``lora.upload``, ``tenant.preempt`` and other chaos
-points, dedup/HA, the supervisor, timelines, tracing, metrics (the
-tenant-labelled ones included), ``health_check``, reclamation, KV
+The self-healing plane (driven by
+:class:`~gofr_tpu_torch.serving.supervisor.EngineSupervisor`): the loop
+stamps ``heartbeat`` every iteration and after each host sync, counts its
+working time (``busy_seconds``), flags ``loop_crashed`` when an exception
+escapes it, and marks a dispatch signature's first run (``in_cold_dispatch``:
+on the card the kernel build and cuBLAS's first GEMM) so the watchdog
+does not read it as a stall. ``warm_restart`` fails the in-flight rows
+retriable, requeues the never-prefilled ones in FIFO order with their
+deadlines, quarantine-leaks the scheduler and pool of a thread that does
+not join (that thread retires itself through the identity guard when it
+thaws: ``_check_retired``), rebuilds the runtime state through the one
+constructor ``_init_runtime_state``, clears the prefix cache and bumps
+``epoch``. A device loss (the ``device.loss`` chaos point) poisons the KV
+storage on the host side: every KV tensor becomes a 0-element one, so its
+memory goes back and every later use raises on the host BEFORE any launch
+(the three kernel wrappers refuse a 0-element pool; the dense reads fail
+their shape checks). A kernel handed a released pointer would instead read
+address 0, and that illegal-address fault is sticky: it kills the CUDA
+context of the whole process. ``_fail_all`` finds the KV unhealthy (0
+elements, or a one-element probe that raises), counts a
+``device_poisonings``, rebuilds the storage in place (the old released
+before the new is allocated) and fails the rows in flight; a storm of
+poisonings makes the supervisor restart. A real sticky CUDA error is out
+of reach of any in-process restart: every rebuild fails and the supervisor
+parks the engine WEDGED once its budget is spent. ``health_check`` reports
+WEDGED, RESTARTING, DOWN, DRAINING, SUSPECT or UP with the slots, queue,
+page pool, caches, adapters, tenants, device telemetry and supervisor.
+The chaos points (``gofr_tpu_torch.chaos``) sit where the reference has
+them: ``engine.step``, ``decode.dispatch`` and ``device.loss``,
+``sched.submit``/``admit``/``plan``, ``kv.alloc``, ``kv.spill``,
+``lora.upload`` and ``tenant.preempt``.
+
+Not ported yet: dedup/HA (``check_fence`` on the epoch, ``resume``,
+``orphan``), timelines and ``/requestz``, tracing, metrics (the
+tenant-labelled ones included), reclamation, P/D disaggregation, KV
 migration and the prefix advertisement.
 
 Runs on the card unless constructed with ``device="cpu"``.
@@ -119,6 +151,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import logging
@@ -129,6 +162,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from gofr_tpu_torch import chaos
 from gofr_tpu_torch._device import resolve_device, to_device
 from gofr_tpu_torch.errors import (
     ErrorDeadlineExceeded,
@@ -273,6 +307,15 @@ class GenerationResult:
 class _Requeue(Exception):
     """Raised inside admission when KV pages are short for now (paged
     layout): the request goes back to the head of its priority class."""
+
+
+class _ThreadRetired(BaseException):
+    """Raised on a loop thread that finds it has been replaced (a warm
+    restart that could not join it quarantined its state and started a
+    successor). A BaseException so the per-step ``except Exception``
+    recovery never catches it: a retired thread that settled futures,
+    wrote rebuilt state or ran ``_fail_all`` would race its replacement
+    over state it no longer owns."""
 
 
 class _Request:
@@ -452,64 +495,32 @@ class ServingEngine:
         # drafts are being accepted
         self.spec_stats = {"dispatches": 0, "accepted": 0, "emitted": 0}
 
-        B, S = self.config.max_slots, self.config.max_seq_len
-        chunk = max(1, int(self.config.prefill_chunk_tokens))
-        self.cache: llama.KVCache | None = None
-        self.paged_cache: PagedKVCache | None = None
-        if self.config.kv_layout == "paged":
-            page = self.config.kv_page_size
-            self.paged_cache = PagedKVCache(
-                cfg, num_pages=self.config.kv_num_pages or (B * S + page - 1) // page,
-                page_size=page, max_slots=B, max_seq_len=S, device=self.device,
-                kv_dtype=self.config.kv_dtype,
-            )
+        chunk = max(1, int(conf.prefill_chunk_tokens))
+        if conf.kv_layout == "paged":
             # chunk boundaries stay on the page grid: the chunk size aligns
             # down to whole pages (at least one)
+            page = conf.kv_page_size
             chunk = max(page, (chunk // page) * page)
-        else:
-            self.cache = llama.KVCache.create(
-                cfg, B, max_len=S, kv_dtype=self.config.kv_dtype, device=self.device,
-            )
-        self._chunk_tokens = min(chunk, S)
+        self._chunk_tokens = min(chunk, conf.max_seq_len)
         self._planner = StepPlanner(
             chunk_tokens=self._chunk_tokens, block_steps=self._block_steps,
             step_token_budget=self.config.step_token_budget,
             max_admissions=self.config.admission_per_step,
         )
-        self._cursors: dict[int, ChunkCursor] = {}  # slot -> mid-prefill cursor
-        self._cursor_seq = 0  # admission order of cursors
-        # host mirrors, authoritative for rebuilding the device state
-        self.cache_len = np.zeros(B, np.int32)  # committed tokens per slot
-        self.last_token = np.zeros(B, np.int64)
-        self.temperature = np.ones(B, np.float32)
-        self.top_k = np.zeros(B, np.int64)
-        self.top_p = np.ones(B, np.float32)
-        # each slot's LoRA table slot (0 = base): the host mirror of
-        # DecodeState.adapter
-        self.adapter_idx = np.zeros(B, np.int32)
-        self.slots: list[_Request | None] = [None] * B
-        # decode rows marked for preemption: no further block feeds them,
-        # and the ladder pauses each once nothing of it is in flight
-        self._preempt_pending: set[int] = set()
-        # dispatched, not yet read blocks, oldest first; at most
-        # decode_sync_every outstanding after each dispatch
-        self._inflight: collections.deque[_Inflight] = collections.deque()
-        self._dec_state: batch_ops.DecodeState | None = None  # None: rebuild
-        # slots prefilled since the last dispatch: slot -> (first token,
-        # resident length, remaining budget, stop id, adapter slot), folded
-        # into the device state at the next dispatch
-        self._pending_admit: dict[int, tuple[int, int, int, int, int]] = {}
-        self._mask_host: np.ndarray | None = None
-        self._mask_dev: torch.Tensor | None = None
-        self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.cache: llama.KVCache | None = None
+        self.paged_cache: PagedKVCache | None = None
+        self._init_runtime_state()
 
-        # admission: the scheduler owns the queue and which slots are
-        # taken; every path that frees a slot releases it exactly once
-        self._sched = Scheduler(B, self.config.max_queue, self.config.prefill_token_budget)
         self._by_id: dict[int, _Request] = {}  # queued + active, by request id
         self._count_lock = threading.Lock()  # guards _by_id, _next_id
-        # makes submit's stop check + registration atomic with stop()'s flag
+        # makes submit's stop and restart checks + registration atomic with
+        # stop()'s flag and warm_restart's sweep. Lock order:
+        # _lifecycle_mu -> _submit_mu -> _count_lock
         self._submit_mu = threading.Lock()
+        # serializes warm_restart against stop()/drain(): one of them owns
+        # the teardown. Reentrant: stop() may run on a thread that already
+        # holds it
+        self._lifecycle_mu = threading.RLock()
         self._next_id = 0
         self._shed = QueueWaitEstimator(cold_prior_s=self.config.shed_cold_prior_s)
         self._draining = False
@@ -530,37 +541,144 @@ class ServingEngine:
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
 
+        # the self-healing plane (serving/supervisor.py). The loop stamps a
+        # monotonic heartbeat every iteration and after each host sync; the
+        # watchdog reads heartbeat_age() to see a dispatch that never
+        # returns
+        self.heartbeat = time.monotonic()
+        self._iter_t0 = self.heartbeat  # start of the running iteration's work
+        self._busy_s = 0.0  # loop seconds spent working, not waiting
+        self.loop_crashed = False  # the loop thread died with _running set
+        self.device_poisonings = 0  # _fail_all runs that found the KV poisoned
+        self._restarting = False  # warm_restart in progress: submit 503s
+        self._wedged = False  # stop() could not join, or the budget is spent
+        # bumped by warm_restart: a caller acting on a pre-restart view of
+        # this engine is fenced off by it (the HA plane checks it)
+        self.epoch = 1
+        # a dispatch whose signature never completed is slow but moving (on
+        # the card: the kernel build, cuBLAS's first GEMM), and the
+        # heartbeat cannot show it; _cold_dispatch marks it so the watchdog
+        # widens its stall limit. Process knowledge: survives warm_restart
+        self._warmed: set[tuple] = set()
+        self._cold_key: tuple | None = None
+        self._supervisor: Any = None  # EngineSupervisor backref (health)
+        self.device_telemetry: Any = None  # DeviceTelemetry backref (health)
+
+    def _make_dense_cache(self) -> llama.KVCache:
+        """The one dense slot-cache constructor, shared by __init__, the
+        in-place rebuild after a device loss and warm_restart."""
+        conf = self.config
+        return llama.KVCache.create(
+            self.model_cfg, conf.max_slots, max_len=conf.max_seq_len, kv_dtype=conf.kv_dtype,
+            device=self.device,
+        )
+
+    def _make_paged_cache(self) -> PagedKVCache:
+        """The one page-pool constructor, shared by __init__ and
+        warm_restart."""
+        conf = self.config
+        B, S, page = conf.max_slots, conf.max_seq_len, conf.kv_page_size
+        return PagedKVCache(
+            self.model_cfg, num_pages=conf.kv_num_pages or (B * S + page - 1) // page,
+            page_size=page, max_slots=B, max_seq_len=S, device=self.device,
+            kv_dtype=conf.kv_dtype,
+        )
+
+    def _init_runtime_state(self) -> None:
+        """The engine's mutable runtime state, built here and only here so
+        __init__ and warm_restart cannot drift: the KV storage, the host
+        mirrors, the pipelined-dispatch queue, the device decode state and
+        its generator, the chunk cursors, the preemption set and the
+        scheduler. The old KV storage is released BEFORE the new one is
+        allocated: a cache sized to fill the card is rebuilt without
+        holding two (a quarantined thread that still holds the old one
+        keeps it until it lets go)."""
+        B = self.config.max_slots
+        self.cache = self.paged_cache = None
+        self._inflight: collections.deque[_Inflight] = collections.deque()
+        self._dec_state: batch_ops.DecodeState | None = None  # None: rebuild
+        if self.config.kv_layout == "paged":
+            self.paged_cache = self._make_paged_cache()
+        else:
+            self.cache = self._make_dense_cache()
+        self._cursors: dict[int, ChunkCursor] = {}  # slot -> mid-prefill cursor
+        self._cursor_seq = 0  # admission order of cursors
+        # host mirrors, authoritative for rebuilding the device state
+        self.cache_len = np.zeros(B, np.int32)  # committed tokens per slot
+        self.last_token = np.zeros(B, np.int64)
+        self.temperature = np.ones(B, np.float32)
+        self.top_k = np.zeros(B, np.int64)
+        self.top_p = np.ones(B, np.float32)
+        # each slot's LoRA table slot (0 = base): the host mirror of
+        # DecodeState.adapter
+        self.adapter_idx = np.zeros(B, np.int32)
+        self.slots: list[_Request | None] = [None] * B
+        # decode rows marked for preemption: no further block feeds them,
+        # and the ladder pauses each once nothing of it is in flight
+        self._preempt_pending: set[int] = set()
+        # slots prefilled since the last dispatch: slot -> (first token,
+        # resident length, remaining budget, stop id, adapter slot), folded
+        # into the device state at the next dispatch
+        self._pending_admit: dict[int, tuple[int, int, int, int, int]] = {}
+        self._mask_host: np.ndarray | None = None
+        self._mask_dev: torch.Tensor | None = None
+        # the decode blocks' draws; reseeded, so a restarted engine samples
+        # as a fresh one does (first tokens come from generators seeded by
+        # (seed, request id) and never depended on it)
+        self._rng = torch.Generator(device=self.device).manual_seed(self.seed)
+        # admission: the scheduler owns the queue and which slots are
+        # taken; every path that frees a slot releases it exactly once
+        self._sched = Scheduler(B, self.config.max_queue, self.config.prefill_token_budget)
+
     # ------------------------------------------------------------- lifecycle
     def start(self) -> None:
         if self._running:
             return
         if self._stop_requested:
             raise RuntimeError("a stopped engine does not restart")
+        self.loop_crashed = False
+        self._start_loop_thread()
+
+    def _start_loop_thread(self) -> None:
+        """Spawn the loop thread, for start() and warm_restart: the
+        heartbeat is stamped before the thread exists (a watchdog must not
+        read a stale age), and ``_thread`` is assigned before ``_running``
+        flips, so a thawing predecessor that re-checks ``me is
+        self._thread`` retires instead of running an iteration it no
+        longer owns."""
+        self.heartbeat = time.monotonic()
         self._idle.clear()
+        thread = threading.Thread(target=self._loop, name="serving-engine", daemon=True)
+        self._thread = thread
         self._running = True
-        self._thread = threading.Thread(target=self._loop, name="serving-engine", daemon=True)
-        self._thread.start()
+        thread.start()
 
     def stop(self, join_timeout: float = 10.0) -> None:
         """Stop the loop thread and the detok worker, and fail every request
-        not yet finished with a retriable 503."""
+        not yet finished with a retriable 503. A thread that does not join
+        leaves the engine WEDGED: its futures still settle, but the
+        scheduler and the KV storage it may be inside are not released."""
         with self._submit_mu:
             self._stop_requested = True  # before the sweep: see submit
+        with self._lifecycle_mu:  # a warm_restart in progress finishes first
+            self._stop_inner(join_timeout)
+
+    def _stop_inner(self, join_timeout: float) -> None:
         self._running = False
         self._wake.set()
+        wedged = False
         if self._thread is not None:
             self._thread.join(timeout=join_timeout)
-            if self._thread.is_alive():
-                log.error("serving engine thread did not exit within %gs", join_timeout)
+            wedged = self._thread.is_alive()
+            if wedged:
+                log.error("serving engine thread did not exit within %gs; its scheduler and "
+                          "KV storage stay allocated, health reports WEDGED", join_timeout)
             else:
                 self._thread = None
-        # queued settlements still run (wait=False drains the queue without
-        # blocking on a client's stream_cb); later ones run inline. Queued
-        # spills run too. The spill tier is matched by type: an injected
-        # cache's close() may mean something the engine must not invoke.
-        self._detok.shutdown(wait=False)
-        if isinstance(self._prefix_cache, TieredPrefixCache):
-            self._prefix_cache.close()
+            # a later stop() that joins clean recovers; with no thread left
+            # to join, a supervisor's park stays WEDGED
+            self._wedged = wedged
+        self._shutdown_host_executors()
         with self._count_lock:
             leftovers = list(self._by_id.values())
             self._by_id.clear()
@@ -568,8 +686,25 @@ class ServingEngine:
             # the adapter registry outlives this engine: release the pins
             self._lora_release(req)
             self._settle_future(req, ErrorServiceUnavailable(
-                "engine stopped before the request was served; retry", retry_after=1.0,
+                "engine wedged; retry on another replica" if wedged
+                else "engine stopped before the request was served; retry",
+                retry_after=1.0,
             ))
+        if not wedged:
+            self._sched.close()
+            if self.paged_cache is not None:
+                self.paged_cache.close()
+
+    def _shutdown_host_executors(self) -> None:
+        """Stop the host-side workers taking new work; under a wedged loop
+        thread these are still the engine's own. Queued settlements still
+        run (wait=False drains the queue without blocking on a client's
+        stream_cb); later ones run inline. Queued spills run too. The
+        spill tier is matched by type: an injected cache's close() may
+        mean something the engine must not invoke."""
+        self._detok.shutdown(wait=False)
+        if isinstance(self._prefix_cache, TieredPrefixCache):
+            self._prefix_cache.close()
 
     def drain(self, deadline_s: float | None = None, *, join_timeout: float = 10.0) -> bool:
         """Graceful drain: stop admitting (submit answers a retriable 503),
@@ -612,6 +747,222 @@ class ServingEngine:
         self.stop(join_timeout=join_timeout)
         return drained
 
+    # ----------------------------------------------------------- self-healing
+    def warm_restart(self, join_timeout: float = 5.0) -> bool:
+        """Self-healing restart, driven by the supervisor when the loop
+        thread hung, crashed or keeps poisoning its device state:
+
+        - in-flight generations fail retriable (a 503 with a retry-after):
+          their KV dies with the rebuilt storage;
+        - requests that never emitted a token (still queued, or a chunk
+          cursor mid-prefill) requeue in FIFO order with their absolute
+          deadlines and their priority, and complete on the rebuilt engine;
+        - every adapter pin is released (a requeued request re-acquires);
+        - the scheduler and page pool are closed only when the old thread
+          joined; under a thread still hung they are quarantine-leaked (a
+          leak is recoverable, a use-after-free is not), and the thread
+          retires itself when it thaws;
+        - the KV storage, host mirrors, decode state and scheduler are
+          rebuilt by ``_init_runtime_state``, the prefix cache is cleared,
+          ``epoch`` is bumped and a fresh loop thread starts.
+
+        Returns False, touching nothing, when drain() or stop() already
+        owns the lifecycle. A rebuild that fails settles the requeued
+        requests retriable and raises."""
+        with self._lifecycle_mu:
+            if self._draining or self._stop_requested or self._wedged:
+                return False  # drain/stop won the race: stand down
+            # under the submit mutex: a submit that registered is swept
+            # below, a later one sees the flag and fails retriable without
+            # touching the doomed scheduler. Bounded: a submit stuck inside
+            # a hung scheduler call must not keep the healing plane out
+            locked = self._submit_mu.acquire(timeout=max(join_timeout, 1.0))
+            try:
+                self._restarting = True
+                self.epoch += 1
+            finally:
+                if locked:
+                    self._submit_mu.release()
+            requeue: list[_Request] = []
+            try:
+                old_thread = self._thread
+                self._running = False
+                self._wake.set()
+                joined = True
+                if old_thread is not None:
+                    old_thread.join(timeout=join_timeout)
+                    joined = not old_thread.is_alive()
+                with self._count_lock:
+                    pending = list(self._by_id.values())
+                    self._by_id.clear()
+                for req in pending:
+                    self._lora_release(req)
+                    if not req.tokens and not req.canceled:
+                        requeue.append(req)  # re-prefills from chunk 0
+                    else:
+                        self._settle_future(req, ErrorServiceUnavailable(
+                            "engine restarting; retry", retry_after=1.0,
+                        ))
+                if joined:
+                    self._thread = None
+                    self._sched.close()
+                    if self.paged_cache is not None:
+                        self.paged_cache.close()
+                else:
+                    # the hung thread may still be inside these: abandon
+                    # them, never release them under it
+                    self._sched.leak()
+                    if self.paged_cache is not None:
+                        self.paged_cache.leak()
+                    log.error("engine thread did not join within %gs during warm restart; "
+                              "its scheduler and KV storage are quarantine-leaked", join_timeout)
+                # the old thread's cold-dispatch claim dies with it
+                self._cold_key = None
+                try:
+                    self._init_runtime_state()
+                    self._reset_prefix_cache()
+                except Exception:
+                    # the requeued requests live only in this list now
+                    for req in requeue:
+                        self._settle_future(req, ErrorServiceUnavailable(
+                            "engine restart failed; retry", retry_after=1.0,
+                        ))
+                    raise
+                for req in requeue:  # _by_id kept submission order
+                    with self._count_lock:
+                        self._by_id[req.id] = req
+                    try:
+                        self._sched.submit(req.id, len(req.prompt_ids), req.max_new_tokens,
+                                           req.priority)
+                    except Exception:
+                        with self._count_lock:
+                            self._by_id.pop(req.id, None)
+                        self._settle_future(req, ErrorServiceUnavailable(
+                            "engine restarting; retry", retry_after=1.0,
+                        ))
+                self.loop_crashed = False
+            finally:
+                # under the mutex: a submit sequenced after this flip sees
+                # the rebuilt scheduler, never the old one
+                locked = self._submit_mu.acquire(timeout=max(join_timeout, 1.0))
+                try:
+                    self._restarting = False
+                finally:
+                    if locked:
+                        self._submit_mu.release()
+            self._start_loop_thread()
+            log.warning("engine warm restart complete: %d queued request(s) requeued, %d "
+                        "in-flight failed retriable", len(requeue), len(pending) - len(requeue))
+            return True
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def heartbeat_age(self) -> float:
+        """Seconds since the loop thread last stamped its heartbeat (the
+        watchdog's stall signal; meaningful while the engine runs)."""
+        return time.monotonic() - self.heartbeat
+
+    def busy_seconds(self) -> float:
+        """Cumulative seconds the loop thread spent working, not waiting:
+        the device-telemetry poller's duty cycle is its delta over wall
+        time."""
+        return self._busy_s
+
+    def _flush_busy(self) -> None:
+        """Fold the running iteration's work time into the busy counter and
+        rebase. At each iteration's end and in _finish, before a settlement
+        is queued: a caller that saw its request complete sees
+        busy_seconds() > 0. Engine thread only."""
+        now = time.monotonic()
+        self._busy_s += now - self._iter_t0
+        self._iter_t0 = now
+
+    @property
+    def in_cold_dispatch(self) -> bool:
+        """True while the loop is inside a dispatch whose signature never
+        completed before (on the card: a kernel build, cuBLAS's first
+        GEMM); the watchdog widens its stall limit to compile_grace_s."""
+        return self._cold_key is not None
+
+    @contextlib.contextmanager
+    def _cold_dispatch(self, *key: Any) -> Any:
+        """Mark a dispatch section keyed by its signature. The key is
+        warmed only when the section completes, so a dispatch that faults
+        keeps its grace."""
+        if key in self._warmed:
+            yield
+            return
+        self._cold_key = key
+        try:
+            yield
+        finally:
+            # only the loop's owner clears the mark: a retired thread
+            # thawing here must not strip its replacement's grace (with no
+            # loop thread, a direct caller owns it)
+            if self._thread is None or threading.current_thread() is self._thread:
+                self._cold_key = None
+        self._warmed.add(key)
+
+    def _check_retired(self) -> None:
+        """The quarantine guard: after a warm restart that could not join
+        this thread, ``_thread`` names its successor, and this thread
+        unwinds now, settling nothing and touching no rebuilt state."""
+        if threading.current_thread() is not self._thread:
+            raise _ThreadRetired()
+
+    def health_check(self) -> dict[str, Any]:
+        """``{"status": ..., "details": {...}}``. Status, first match:
+        WEDGED (stop() could not join the loop thread, or the supervisor
+        spent its budget), RESTARTING, DOWN (not running), DRAINING,
+        SUSPECT (the supervisor's verdict), else UP. Details: slots,
+        queue, scheduler, shed estimator, epoch, heartbeat age (running),
+        page pool (paged, running), prefix cache, LoRA residency, tenants,
+        the device telemetry's last sample and the supervisor's snapshot.
+        Not yet: the reference's ``dedup``, ``request_latency``,
+        ``reclaim`` and ``preemptible`` (their planes are not ported)."""
+        stats = self._sched.stats()
+        details: dict[str, Any] = {
+            "slots_active": sum(1 for s in self.slots if s is not None),
+            "slots_total": self.config.max_slots,
+            "queue_depth": stats["queue_depth"],
+            "scheduler_backend": self._sched.backend,
+            "total_admitted": stats["total_admitted"],
+            "kv_layout": self.config.kv_layout,
+            "shed": self._shed.snapshot(),
+            "epoch": self.epoch,
+        }
+        if self._running:
+            details["heartbeat_age_s"] = round(self.heartbeat_age(), 3)
+        if self.paged_cache is not None and self._running:
+            details["kv_pages"] = self.paged_cache.stats()
+        if self._prefix_cache is not None:
+            details["prefix_cache"] = self._prefix_cache.stats()
+        if self._lora is not None:
+            details["lora"] = self._lora.residency()
+        if self._tenants is not None:
+            details["tenants"] = self._tenants.snapshot()
+        if self.device_telemetry is not None:
+            details["device"] = self.device_telemetry.last_sample()
+        sup = self._supervisor
+        if sup is not None:
+            details["supervisor"] = sup.snapshot()
+        sup_state = sup.state if sup is not None else None
+        if self._wedged or sup_state == "WEDGED":
+            status = "WEDGED"
+        elif self._restarting or sup_state == "RESTARTING":
+            status = "RESTARTING"
+        elif not self._running:
+            status = "DOWN"
+        elif self._draining:
+            status = "DRAINING"
+        elif sup_state == "SUSPECT":
+            status = "SUSPECT"
+        else:
+            status = "UP"
+        return {"status": status, "details": details}
+
     # ---------------------------------------------------------------- submit
     def submit(
         self,
@@ -644,6 +995,10 @@ class ServingEngine:
         if self._draining:
             raise ErrorServiceUnavailable("server draining; retry on another replica",
                                           retry_after=1.0)
+        if self._restarting:
+            # the scheduler and the KV storage are being replaced; the
+            # restart takes seconds
+            raise ErrorServiceUnavailable("engine restarting; retry", retry_after=1.0)
         # the tenant's class first: its priority drives the scheduler and
         # the preemption ladder, its deadline fills in a missing one. A
         # request that names no tenant is untouched
@@ -683,6 +1038,11 @@ class ServingEngine:
         )
         if not prompt_ids:
             raise ValueError("empty prompt")
+        if min(prompt_ids) < 0 or max(prompt_ids) >= self.model_cfg.vocab_size:
+            # on the card an embedding index out of range is a device-side
+            # assert, which leaves the CUDA context in a sticky error; the
+            # reference's gather clamps it instead
+            raise ErrorInvalidParam("prompt")
         # keep the TAIL within the sequence budget; a prompt that does not
         # route chunked also keeps within the largest bucket
         max_prompt = self.config.max_seq_len - 1
@@ -712,10 +1072,20 @@ class ServingEngine:
         )
         req.tenant = tenant
         req.adapter_id = adapter_id or None
-        with self._submit_mu:
+        # registration + enqueue are atomic with stop()'s flag and
+        # warm_restart's sweep (the same mutex): either the sweep sees this
+        # request, or this section sees the flag before touching the
+        # scheduler that is about to be replaced. Bounded: a submit stuck
+        # inside a hung scheduler call must not pile every caller up
+        if not self._submit_mu.acquire(timeout=5.0):
+            raise ErrorServiceUnavailable("engine busy; retry on another replica",
+                                          retry_after=1.0)
+        try:
             if self._stop_requested:
                 raise ErrorServiceUnavailable("server stopped; retry on another replica",
                                               retry_after=1.0)
+            if self._restarting:
+                raise ErrorServiceUnavailable("engine restarting; retry", retry_after=1.0)
             with self._count_lock:
                 self._by_id[rid] = req
             try:
@@ -724,6 +1094,13 @@ class ServingEngine:
                 with self._count_lock:
                     self._by_id.pop(rid, None)
                 raise ErrorTooManyRequests(retry_after=max(est_wait, 1.0)) from None
+            except RuntimeError:  # a closed scheduler: stop() won the race
+                with self._count_lock:
+                    self._by_id.pop(rid, None)
+                raise ErrorServiceUnavailable("server stopped; retry on another replica",
+                                              retry_after=1.0) from None
+        finally:
+            self._submit_mu.release()
         self._idle.clear()
         self._wake.set()
         return req.future
@@ -776,7 +1153,31 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ loop
     def _loop(self) -> None:
-        while self._running:
+        me = threading.current_thread()
+        try:
+            self._loop_body(me)
+        except _ThreadRetired:
+            return  # a quarantined thread thawed: exit, touch nothing
+        except BaseException as exc:
+            # an escape past the per-step recovery (the engine.step chaos
+            # point sits outside it) is a crash: the flag tells the
+            # watchdog "crashed" from "stopped"
+            if self._running and me is self._thread:
+                self.loop_crashed = True
+                log.error("serving engine loop thread died", exc_info=True)
+            if not isinstance(exc, Exception):
+                raise  # SystemExit and KeyboardInterrupt propagate
+
+    def _loop_body(self, me: threading.Thread) -> None:
+        # the identity guard: after a warm restart that could not join
+        # this thread, _thread names its successor and this one exits
+        while self._running and me is self._thread:
+            self.heartbeat = self._iter_t0 = time.monotonic()
+            chaos.maybe_fail("engine.step")
+            if not self._running or me is not self._thread:
+                # stopped or replaced while hung at the chaos point: no
+                # doomed iteration over a queue the restart already swept
+                continue
             try:
                 # the preemption ladder runs before the plan: a slot it
                 # frees is admitted in this same iteration
@@ -789,6 +1190,8 @@ class ServingEngine:
                     # every row of the in-flight blocks retired meanwhile
                     self._consume(self._inflight.popleft())
                     did = True
+                # the iteration so far was work; the wake wait is idle
+                self._flush_busy()
                 if not did:
                     if (self._draining and not self._inflight
                             and not any(s is not None for s in self.slots)
@@ -797,6 +1200,9 @@ class ServingEngine:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
             except Exception as exc:  # the loop must outlive a failed step
+                # a retired thread's error is noise from quarantined state:
+                # it must not fail its replacement's requests
+                self._check_retired()
                 log.exception("serving engine step failed")
                 self._fail_all(exc)
                 time.sleep(self.config.idle_sleep_s)
@@ -834,6 +1240,9 @@ class ServingEngine:
         # at least one while anything is queued (a submit may also have
         # raced the plan's read of the queue)
         pairs, canceled_ids = sched.admit(max(plan.admit_cap, 1))
+        # a thread thawing out of a hung admit must not apply the old
+        # scheduler's pairs to its replacement's state
+        self._check_retired()
         for rid in canceled_ids:
             with self._count_lock:
                 req = self._by_id.pop(rid, None)
@@ -874,10 +1283,14 @@ class ServingEngine:
             except _Requeue:
                 # pages or adapter slots short for now: back to the head of
                 # its class; the rest of this round's pairs proceed
+                self._check_retired()  # warm_restart already requeued it
                 self._lora_release(req)
                 sched.release(slot)
                 self._resubmit_front(req)
             except Exception as exc:
+                # a retired thread unwinds: its request was requeued or
+                # settled by warm_restart, and these slots are not its own
+                self._check_retired()
                 log.exception("prefill failed for request %d", rid)
                 self._lora_release(req)
                 self.slots[slot] = None
@@ -892,6 +1305,12 @@ class ServingEngine:
                 with self._count_lock:
                     self._by_id.pop(rid, None)
                 self._settle_async(req, exc=exc)
+                # a failure that took the shared KV storage with it fails
+                # every row, not only this one; host-side refusals never
+                # touched the device
+                if not isinstance(exc, (ErrorTooManyRequests, ErrorRequestEntityTooLarge)) \
+                        and self._kv_unhealthy():
+                    self._fail_all(exc, kv_unhealthy=True)
         return bool(pairs or canceled_ids)
 
     def _lora_adjusted(self, req: _Request, last_logits: torch.Tensor,
@@ -1021,7 +1440,9 @@ class ServingEngine:
             # adapter delta), as the dispatch that finishes a prompt would,
             # and admit to decode
             logits = self._lora_adjusted(req, hits[-1][2][0], ids[-1])
-            self._commit_prefilled(slot, req, self._first_token(req, logits), total)
+            first_id = self._first_token(req, logits)
+            self._check_retired()
+            self._commit_prefilled(slot, req, first_id, total)
             return
         cursor = ChunkCursor(req=req, slot=slot, total=total, seq=self._cursor_seq,
                              priority=req.priority)
@@ -1133,6 +1554,10 @@ class ServingEngine:
         the spans, the tail chunk recomputes, and the NEXT token samples
         with what is left of the budget; emitted tokens are never re-run."""
         req = self.slots[slot]
+        try:
+            chaos.maybe_fail("tenant.preempt")
+        except Exception:
+            return  # advisory: a faulted preemption is a skipped one
         ids = req.serve_ids
         resident = int(self.cache_len[slot])
         if self._prefix_cache is not None and self._chunk_cache_enabled:
@@ -1199,30 +1624,40 @@ class ServingEngine:
             digest = hashlib.blake2b(np.asarray(ids, np.int32).tobytes(), digest_size=16)
             cache_key = f"prefill:{bucket}:{S}:{digest.hexdigest()}:{req.adapter_id or '-'}"
             cached, _tier = self._cache_lookup(cache_key)
-        if cached is not None:
-            last_logits, k_slab, v_slab = cached
-        else:
-            tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
-            tokens[0, :S] = ids
-            last_logits, k_slab, v_slab = batch_ops.prefill_compute(
-                cfg, self.params, to_device(tokens, self.device),
-                to_device(np.array([S], np.int32), self.device),
-            )
-            if cache_key is not None:
+        # the dense cache is bound once, before the long dispatch: after a
+        # warm restart replaced this thread, self.cache is the rebuilt one
+        dense = self.cache
+        with self._cold_dispatch("prefill", bucket, cached is not None):
+            if cached is not None:
+                last_logits, k_slab, v_slab = cached
+            else:
+                tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
+                tokens[0, :S] = ids
+                last_logits, k_slab, v_slab = batch_ops.prefill_compute(
+                    cfg, self.params, to_device(tokens, self.device),
+                    to_device(np.array([S], np.int32), self.device),
+                )
+            # replaced during the compute: no writes, not even into the
+            # prefix cache the restart just cleared
+            self._check_retired()
+            if cached is None and cache_key is not None:
                 # fresh slabs that nothing writes into later: safe to keep
                 self._prefix_cache.put(cache_key, (last_logits, k_slab, v_slab))
-        if pc is not None:
-            pc.write_prefill(slot, k_slab, v_slab)
-        elif self.cache.quantized:
-            self.cache = batch_ops.insert_slot_quantized(self.cache, k_slab, v_slab, slot)
-        else:
-            self.cache.k, self.cache.v = batch_ops.insert_slot(
-                self.cache.k, self.cache.v, k_slab, v_slab, slot
-            )
-        # the row's delta applies at the sampling site: cached entries stay
-        # base-model logits
-        logits = self._lora_adjusted(req, last_logits, ids[-1])
-        self._commit_prefilled(slot, req, self._first_token(req, logits), S)
+            if pc is not None:
+                pc.write_prefill(slot, k_slab, v_slab)
+            elif dense.quantized:
+                self.cache = batch_ops.insert_slot_quantized(dense, k_slab, v_slab, slot)
+            else:
+                dense.k, dense.v = batch_ops.insert_slot(dense.k, dense.v, k_slab, v_slab, slot)
+            # the row's delta applies at the sampling site: cached entries
+            # stay base-model logits
+            logits = self._lora_adjusted(req, last_logits, ids[-1])
+            first_id = self._first_token(req, logits)
+        self._check_retired()
+        # progress: an admission of many prefills may outlast the stall
+        # limit in one iteration, and a hung dispatch stamps nothing
+        self.heartbeat = time.monotonic()
+        self._commit_prefilled(slot, req, first_id, S)
 
     def _first_token(self, req: _Request, last_logits: torch.Tensor) -> int:
         """Sample a request's first token from its prompt's last-position
@@ -1261,6 +1696,7 @@ class ServingEngine:
             req.first_token_at = time.perf_counter()
             self._shed.observe_ttft(req.first_token_at - req.created)
         self._emit(req, first_id)
+        self._check_retired()
         if first_id in req.stop_ids:
             self._retire(slot, "stop")
         elif len(req.tokens) >= req.max_new_tokens:
@@ -1272,6 +1708,7 @@ class ServingEngine:
         the plan granted chunks), then read the oldest one still
         outstanding once more than ``decode_sync_every`` are in flight.
         Speculative mode takes its own unpipelined step."""
+        self._check_retired()  # replaced during a long _admit: unwind first
         if self.config.spec_tokens > 0:
             return self._spec_step()
         inflight = self._dispatch(plan)
@@ -1293,6 +1730,11 @@ class ServingEngine:
         needs the newest tokens, and the host's mirrors are authoritative
         (the device decode state is not used)."""
         cfg = self.model_cfg
+        chaos.maybe_fail("decode.dispatch")
+        self._maybe_device_loss()
+        # a hang at the chaos point can outlive a warm restart: re-check
+        # ownership before reading slots or storage that may be rebuilt
+        self._check_retired()
         K = self.config.spec_tokens
         T = K + 1
         max_seq = self.config.max_seq_len
@@ -1359,24 +1801,34 @@ class ServingEngine:
 
         samp = (up(self.temperature), up(self.top_k), up(self.top_p), self._rng)
         chunk_d, start_d = up(chunk), up(np.maximum(self.cache_len, 1))
-        if pc is None:
-            packed, self.cache = batch_ops.verify_and_sample(
-                cfg, self.params, self.cache, chunk_d, start_d, *samp,
-            )
-        else:
-            cap = np.zeros(B, np.int32)
-            for slot, _ in rows:
-                cap[slot] = pc.owned_capacity(slot)
-            args = (pc.tables_device(), chunk_d, start_d, self._mask_dev, up(cap), *samp)
-            if pc.quantized:
-                (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool) = (
-                    batch_ops.verify_and_sample_paged_q(cfg, self.params, *pc.pools(), *args)
+        dense = self.cache
+        with self._cold_dispatch("spec", "dense" if pc is None else "paged",
+                                 dense.quantized if pc is None else pc.quantized, K):
+            if pc is None:
+                packed, new_cache = batch_ops.verify_and_sample(
+                    cfg, self.params, dense, chunk_d, start_d, *samp,
                 )
             else:
-                packed, pc.k_pool, pc.v_pool = batch_ops.verify_and_sample_paged(
-                    cfg, self.params, pc.k_pool, pc.v_pool, *args,
-                )
-        packed_np = packed.cpu().numpy()  # the step's one host sync
+                new_cache = None
+                cap = np.zeros(B, np.int32)
+                for slot, _ in rows:
+                    cap[slot] = pc.owned_capacity(slot)
+                args = (pc.tables_device(), chunk_d, start_d, self._mask_dev, up(cap), *samp)
+                if pc.quantized:
+                    (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool) = (
+                        batch_ops.verify_and_sample_paged_q(cfg, self.params, *pc.pools(), *args)
+                    )
+                else:
+                    packed, pc.k_pool, pc.v_pool = batch_ops.verify_and_sample_paged(
+                        cfg, self.params, pc.k_pool, pc.v_pool, *args,
+                    )
+            packed_np = packed.cpu().numpy()  # the step's one host sync
+        # a warm restart may have replaced this thread while the chunk
+        # verified: commit nothing to rebuilt state then
+        self._check_retired()
+        if new_cache is not None:
+            self.cache = new_cache
+        self.heartbeat = time.monotonic()  # the sync returned: progress
         out_np, na_np = packed_np[:, :-1], packed_np[:, -1]
 
         accepted = emitted = 0
@@ -1448,6 +1900,11 @@ class ServingEngine:
         )
 
     def _dispatch(self, plan: StepPlan) -> _Inflight | None:
+        chaos.maybe_fail("decode.dispatch")
+        self._maybe_device_loss()
+        # a hang at the chaos point can outlive a warm restart: re-check
+        # ownership before reading slots or storage that may be rebuilt
+        self._check_retired()
         pc = self.paged_cache
         N = self._block_steps
         now = time.perf_counter()
@@ -1516,35 +1973,44 @@ class ServingEngine:
             self._mask_dev = to_device(mask, self.device)
             self._mask_host = mask
         last_logits = None
+        new_cache = self.cache
         if chunk_rows:
             # with no decode row the dispatch runs the chunks alone (0 steps)
             steps = N if rows else 0
-            packed, last_logits, self._dec_state = self._dispatch_ragged(state, chunk_rows, steps)
+            packed, last_logits, new_cache, new_state = self._dispatch_ragged(
+                state, chunk_rows, steps)
+        else:
+            steps = N
+            cfg, params = self.model_cfg, self.params
+            lora = self._lora_tables()
+            key = ("decode", "dense" if pc is None else "paged",
+                   new_cache.quantized if pc is None else pc.quantized, N, lora is not None)
+            with self._cold_dispatch(*key):
+                if pc is None:
+                    packed, new_cache, new_state = batch_ops.decode_block(
+                        cfg, params, new_cache, state, self._mask_dev, N, lora,
+                    )
+                elif pc.quantized:
+                    (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
+                     new_state) = batch_ops.decode_block_paged_q(
+                        cfg, params, *pc.pools(), state, pc.tables_device(), self._mask_dev, N,
+                        lora,
+                    )
+                else:
+                    packed, pc.k_pool, pc.v_pool, new_state = batch_ops.decode_block_paged(
+                        cfg, params, pc.k_pool, pc.v_pool, state, pc.tables_device(),
+                        self._mask_dev, N, lora,
+                    )
+        self._check_retired()  # commit to self only as the loop's owner
+        self.cache, self._dec_state = new_cache, new_state
+        prefill_rows = []
+        if chunk_rows:
             if self._prefix_cache is None or not self._chunk_cache_enabled:
                 last_logits = None  # nothing stores them: let the buffer go
-            prefill_rows = []
             for row, (slot, cursor, req, start, n) in enumerate(chunk_rows):
                 cursor.dispatched = start + n
                 cursor.chunk_index += 1
                 prefill_rows.append((slot, req, cursor, start, n, start + n >= cursor.total, row))
-        else:
-            steps, prefill_rows = N, []
-            cfg, params = self.model_cfg, self.params
-            lora = self._lora_tables()
-            if pc is None:
-                packed, self.cache, self._dec_state = batch_ops.decode_block(
-                    cfg, params, self.cache, state, self._mask_dev, N, lora,
-                )
-            elif pc.quantized:
-                (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
-                 self._dec_state) = batch_ops.decode_block_paged_q(
-                    cfg, params, *pc.pools(), state, pc.tables_device(), self._mask_dev, N, lora,
-                )
-            else:
-                packed, pc.k_pool, pc.v_pool, self._dec_state = batch_ops.decode_block_paged(
-                    cfg, params, pc.k_pool, pc.v_pool, state, pc.tables_device(),
-                    self._mask_dev, N, lora,
-                )
         for _, req in rows:
             req.dispatched += steps
         return _Inflight(packed, rows, steps, prefill_rows, last_logits)
@@ -1569,13 +2035,14 @@ class ServingEngine:
 
     def _dispatch_ragged(
         self, state: batch_ops.DecodeState, chunk_rows: list, steps: int,
-    ) -> tuple[torch.Tensor, torch.Tensor, batch_ops.DecodeState]:
+    ) -> tuple[torch.Tensor, torch.Tensor, llama.KVCache | None, batch_ops.DecodeState]:
         """Assemble and launch ONE unified ragged dispatch: the granted
         chunks (per-row slices of their prompts in a [B, C] buffer) and the
         decode block, against the same cache or page pool. Rows whose chunk
         completes the prompt get their first token sampled on the device
         and folded into the decode state inside the dispatch. Returns
-        (packed, last_logits [K, V] in ``chunk_rows`` order, state)."""
+        (packed, last_logits [K, V] in ``chunk_rows`` order, the dense
+        cache (the caller commits it; the paged layout's), state)."""
         pc = self.paged_cache
         B, C = self.config.max_slots, self._chunk_tokens
         chunk = np.full((B, C), -1, np.int64)
@@ -1611,24 +2078,33 @@ class ServingEngine:
         tail = (up(finish), up(new_len), up(budgets), up(stops), up(self.temperature),
                 up(self.top_k), up(self.top_p), seeds, self._mask_dev, steps,
                 up(adapters) if lora is not None else None, lora)
-        cfg, params = self.model_cfg, self.params
-        if pc is None:
-            packed, last_logits, self.cache, new_state = batch_ops.ragged_step(
-                cfg, params, self.cache, state, up(chunk), up(start), rows, *tail,
-            )
-            return packed, last_logits, new_state
-        args = (pc.tables_device(), up(chunk), up(start), rows, up(kvcap), *tail)
-        if pc.quantized:
-            (packed, last_logits, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
-             new_state) = batch_ops.ragged_step_paged_q(cfg, params, *pc.pools(), state, *args)
-        else:
-            packed, last_logits, pc.k_pool, pc.v_pool, new_state = batch_ops.ragged_step_paged(
-                cfg, params, pc.k_pool, pc.v_pool, state, *args,
-            )
-        return packed, last_logits, new_state
+        cfg, params, dense = self.model_cfg, self.params, self.cache
+        key = ("ragged", "dense" if pc is None else "paged",
+               dense.quantized if pc is None else pc.quantized, self._block_steps,
+               lora is not None)
+        with self._cold_dispatch(*key):
+            if pc is None:
+                packed, last_logits, dense, new_state = batch_ops.ragged_step(
+                    cfg, params, dense, state, up(chunk), up(start), rows, *tail,
+                )
+                return packed, last_logits, dense, new_state
+            args = (pc.tables_device(), up(chunk), up(start), rows, up(kvcap), *tail)
+            if pc.quantized:
+                (packed, last_logits, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
+                 new_state) = batch_ops.ragged_step_paged_q(cfg, params, *pc.pools(), state,
+                                                             *args)
+            else:
+                packed, last_logits, pc.k_pool, pc.v_pool, new_state = (
+                    batch_ops.ragged_step_paged(cfg, params, pc.k_pool, pc.v_pool, state, *args)
+                )
+        return packed, last_logits, None, new_state
 
     def _consume(self, rec: _Inflight) -> None:
         packed = rec.packed.cpu().numpy()  # the block's one host-device sync
+        # a warm restart may have replaced this thread while it waited: its
+        # tokens belong to requests already settled or requeued
+        self._check_retired()
+        self.heartbeat = time.monotonic()  # the sync returned: progress
         for slot, req in rec.rows:
             if self.slots[slot] is not req:
                 continue  # retired (and maybe re-admitted) since dispatch
@@ -1693,6 +2169,7 @@ class ServingEngine:
         """Deliver one decoded token and run the retire chain."""
         self.last_token[slot] = token_id
         self._emit(req, token_id)
+        self._check_retired()
         if req.canceled:
             self._retire(slot, "cancel")
         elif req.expired(time.perf_counter()):
@@ -1771,6 +2248,7 @@ class ServingEngine:
     def _finish(self, req: _Request, reason: str) -> None:
         """Settle a request that ran (or was canceled in the queue) with its
         result, behind its token frames on the detok worker."""
+        self._flush_busy()  # a settled request implies recorded busy time
         now = time.perf_counter()
         self._shed.observe_request(now - req.created)
         out_ids = [t for t in req.tokens if t not in req.stop_ids]
@@ -1829,16 +2307,99 @@ class ServingEngine:
             except Exception:
                 pass
 
-    def _fail_all(self, exc: Exception) -> None:
+    # ------------------------------------------------------------ device loss
+    def _reset_prefix_cache(self) -> None:
+        """A device-level failure may have taken cached slabs with it: a
+        cold prefix cache only costs recompute. An injected cache without
+        ``clear()`` is dropped rather than kept."""
+        if self._prefix_cache is None:
+            return
+        clear = getattr(self._prefix_cache, "clear", None)
+        try:
+            if clear is not None:
+                clear()
+            else:
+                self._prefix_cache = None
+        except Exception:
+            self._prefix_cache = None
+
+    def _maybe_device_loss(self) -> None:
+        """The ``device.loss`` chaos point: when it fires, the KV storage
+        is poisoned for real before the fault propagates, so recovery runs
+        the genuine rebuild."""
+        try:
+            chaos.maybe_fail("device.loss")
+        except Exception:
+            self._poison_device()
+            raise
+
+    def _poison_device(self) -> None:
+        """Release the KV storage the way a lost device leaves it: each
+        tensor becomes a 0-element one on the same device. The memory goes
+        back to the allocator, and every later use raises on the host
+        before any launch (the kernel wrappers refuse a 0-element pool; a
+        dense cache read fails its shape checks), where a kernel handed
+        the released address would leave the CUDA context in a sticky
+        error no restart can heal."""
+        holder, names = ((self.cache, ("k", "v", "ks", "vs")) if self.cache is not None
+                         else (self.paged_cache, ("k_pool", "v_pool", "ks_pool", "vs_pool")))
+        if holder is None:
+            return
+        for name in names:
+            t = getattr(holder, name)
+            if t is not None:
+                setattr(holder, name, t.new_empty(0))
+
+    def _kv_unhealthy(self) -> bool:
+        """True when the KV storage cannot serve another step: released (0
+        elements), or a one-element probe raises (a device in an error
+        state; the probe waits for the stream)."""
+        arr = (self.cache.k if self.cache is not None
+               else self.paged_cache.k_pool if self.paged_cache is not None else None)
+        if arr is None:
+            return False
+        try:
+            if arr.numel() == 0:
+                return True
+            arr.reshape(-1)[0].item()
+            return False
+        except Exception:
+            return True
+
+    def _rebuild_kv(self) -> None:
+        """Reallocate the KV storage after a device loss, the old storage
+        released first. Every slot's residency is gone: this runs only in
+        _fail_all, where every active request fails."""
+        if self.paged_cache is not None:
+            self.paged_cache.reset_pools()
+        else:
+            self.cache = None
+            self.cache = self._make_dense_cache()
+        log.warning("KV storage rebuilt after a device loss")
+
+    def _fail_all(self, exc: Exception, kv_unhealthy: bool | None = None) -> None:
         """A failed step leaves the pipeline unknown: drop the in-flight
         blocks, rebuild the device state from the mirrors next time, and
-        fail every active request."""
+        fail every active request. KV storage that the failure took with
+        it (``kv_unhealthy``, probed when None) is rebuilt in place and the
+        prefix cache cleared; ``device_poisonings`` counts those, and the
+        supervisor escalates a storm of them to a warm restart."""
         self._inflight.clear()
         self._pending_admit.clear()
         self._cursors.clear()
         self._preempt_pending.clear()
         self._dec_state = None
         self._mask_host = self._mask_dev = None
+        if kv_unhealthy is None:
+            kv_unhealthy = self._kv_unhealthy()
+        if kv_unhealthy:
+            self.device_poisonings += 1
+            try:
+                self._rebuild_kv()
+            except Exception:
+                # the device still refuses: the next failure retries
+                log.exception("KV rebuild failed")
+            self._reset_prefix_cache()
         for slot, req in enumerate(self.slots):
             if req is not None:
                 self.slots[slot] = None

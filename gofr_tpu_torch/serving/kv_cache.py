@@ -26,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from gofr_tpu_torch import chaos
 from gofr_tpu_torch._device import to_device
 from gofr_tpu_torch.models.llama import quantize_kv
 from gofr_tpu_torch.serving.block_alloc import BlockAllocator, OutOfBlocks
@@ -95,6 +96,7 @@ class PagedKVCache:
         self.max_pages_per_seq = (max_seq_len + page_size - 1) // page_size
         self.quantized = kv_dtype == "int8"
         self._pool_dtype = dtype or cfg.dtype
+        self._closed = False
         self.reset_pools()
         self.allocator = BlockAllocator(num_pages, page_size)
         self.tables = np.zeros((max_slots, self.max_pages_per_seq), np.int32)
@@ -105,7 +107,10 @@ class PagedKVCache:
         """(Re)allocate zeroed pools [L, N+1, Hkv, page, Dh]; the last page
         is the trash page. int8 pools come with f32 scale pools
         [L, N+1, Hkv, page, 1]; bf16 pools leave ``ks_pool``/``vs_pool``
-        None."""
+        None. The engine's recovery calls it after a device loss: the old
+        pools are released BEFORE the new ones are allocated, so a pool
+        sized to fill the card is rebuilt without holding two."""
+        self.k_pool = self.v_pool = self.ks_pool = self.vs_pool = None
         cfg = self.cfg
         shape = (
             cfg.n_layers, self.num_pages + 1, cfg.n_kv_heads,
@@ -120,6 +125,19 @@ class PagedKVCache:
             self.ks_pool = torch.zeros(sshape, dtype=torch.float32, device=self.device)
             self.vs_pool = torch.zeros(sshape, dtype=torch.float32, device=self.device)
 
+    def close(self) -> None:
+        """A clean stop: refuse new sequences and release the device pools
+        (any later device use raises on the host)."""
+        self._closed = True
+        self.k_pool = self.v_pool = self.ks_pool = self.vs_pool = None
+
+    def leak(self) -> None:
+        """Quarantine (a warm restart that could not join the engine
+        thread): refuse new sequences but leave the pools to that thread,
+        never released under it; the engine drops its own reference, so
+        the memory goes back once the thread lets go."""
+        self._closed = True
+
     def pools(self) -> tuple:
         """(k_pool, v_pool, ks_pool, vs_pool); the scales are None for bf16."""
         return self.k_pool, self.v_pool, self.ks_pool, self.vs_pool
@@ -132,8 +150,11 @@ class PagedKVCache:
         """Reserve pages for a prompt (``reserve_tokens`` >= prompt_len when
         the prefill bucket pads past it). Raises OutOfBlocks without
         touching the slot on failure."""
+        if self._closed:
+            raise RuntimeError("page pool closed")
         if self._slot_seq[slot] is not None:
             raise KeyError(f"slot {slot} busy")
+        chaos.maybe_fail("kv.alloc")
         self.allocator.alloc(seq_id, max(prompt_len, reserve_tokens or 0))
         table = self.allocator.block_table(seq_id)
         self._slot_seq[slot] = seq_id
@@ -149,6 +170,7 @@ class PagedKVCache:
             raise KeyError(f"slot {slot} is free")
         new_len = int(self.seq_lens[slot]) + 1
         if new_len > self.allocator.seq_length(seq_id):
+            chaos.maybe_fail("kv.alloc")
             self.allocator.extend(seq_id, new_len)
             table = self.allocator.block_table(seq_id)
             self.tables[slot, : len(table)] = table
@@ -196,8 +218,9 @@ class PagedKVCache:
             return False
         if target > self.allocator.seq_length(seq_id):
             try:
+                chaos.maybe_fail("kv.alloc")
                 self.allocator.extend(seq_id, target)
-            except OutOfBlocks:
+            except OutOfBlocks:  # a raced pool, or the chaos point
                 return False
             table = self.allocator.block_table(seq_id)
             self.tables[slot, : len(table)] = table

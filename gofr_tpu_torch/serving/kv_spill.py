@@ -22,8 +22,9 @@ re-uploads with ``non_blocking=True`` to the device the cache was built
 for (ordered on the stream before the dispatch that reads it, with no host
 sync) and promotes the entry back into the device tier.
 
-A spill that fails on the worker (a host copy that raises) drops the
-entry: the tier is advisory, and a lost spill is a compute miss later.
+A spill that fails on the worker (a host copy that raises, or the
+``kv.spill`` chaos point) drops the entry: the tier is advisory, and a lost
+spill is a compute miss later.
 
 Lock discipline: the device tier's lock and the host tier's lock are both
 leaf-only; neither tier calls into the other, or into a callback, while
@@ -39,6 +40,7 @@ from typing import Any, Hashable
 
 import torch
 
+from gofr_tpu_torch import chaos
 from gofr_tpu_torch._device import resolve_device
 from gofr_tpu_torch.serving.prefix_cache import PrefixCache, _value_bytes
 
@@ -286,13 +288,14 @@ class TieredPrefixCache:
 
     def _spill_task(self, key: Hashable, value: Any) -> None:
         try:
+            chaos.maybe_fail("kv.spill")
             host_value = _to_host(value)
             self._host.put(key, host_value)
             with self._pending_mu:
                 self.spilled_total += 1
         except Exception:
-            # a host copy that raises drops the entry: a later lookup is a
-            # compute miss
+            # a host copy that raises, or the kv.spill chaos point, drops
+            # the entry: a later lookup is a compute miss
             with self._pending_mu:
                 self.dropped_total += 1
         finally:

@@ -38,9 +38,9 @@ so an upload copies the table (copy-on-write), writes the slot in the
 copy, waits on the worker thread until the copy is on the card, and only
 then swaps the reference. Blocks already dispatched keep the old table.
 
-Left out against the reference: the ``lora.upload`` chaos point (the port
-has no chaos module yet), the residency metrics gauge and ``from_config``
-(the ``TPU_LORA_MAX_ACTIVE`` knob; the caller passes ``max_active``).
+The upload carries the ``lora.upload`` chaos point. Left out against the
+reference: the residency metrics gauge and ``from_config`` (the
+``TPU_LORA_MAX_ACTIVE`` knob; the caller passes ``max_active``).
 
 Lock discipline: the registry mutex is LEAF-ONLY (never held across a
 device op or a call out); table swaps are reference assignments under it.
@@ -57,6 +57,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from gofr_tpu_torch import chaos
 from gofr_tpu_torch._device import resolve_device, to_device
 
 __all__ = [
@@ -228,7 +229,9 @@ class AdapterRegistry:
         """The lora-upload worker: materialize one adapter into its table
         slot, off the engine thread. A fault here surfaces at acquire as
         :class:`AdapterBusy` and the request requeues; it never decodes
-        with a half-written delta."""
+        with a half-written delta (the ``lora.upload`` chaos point makes
+        that fault at will)."""
+        chaos.maybe_fail("lora.upload")
         with self._mu:
             adapter = self._adapters.get(adapter_id)
             if adapter is None:  # deregistered while queued
@@ -335,6 +338,12 @@ class AdapterRegistry:
         if fut is None:
             self.prefetch(adapter_id)
             with self._mu:
+                # the upload may have finished (and its done callback
+                # dropped the future) before this re-read
+                slot = self._slot_of.get(adapter_id)
+                if slot is not None:
+                    self._pin_locked(slot)
+                    return slot
                 fut = self._uploads.get(adapter_id)
             if fut is None:
                 # prefetch could not claim a slot (all pinned): transient

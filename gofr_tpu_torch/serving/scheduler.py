@@ -9,12 +9,20 @@ beside the (request, slot) pairs it admits, each into the lowest free
 slot. A later prompt longer than what is left of ``prefill_token_budget``
 waits for the next round. The engine owns the slots' state; the scheduler
 only knows which are taken, and ``release`` of a free slot raises.
+
+``close`` (a clean stop) and ``leak`` (a warm restart that could not join
+the engine thread) both refuse further submits; the reference's native
+handle is freed only by ``close``, and this copy holds no handle.
+``submit`` and ``admit`` carry the ``sched.submit`` and ``sched.admit``
+chaos points.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict, deque
+
+from gofr_tpu_torch import chaos
 
 
 class QueueFull(RuntimeError):
@@ -23,6 +31,8 @@ class QueueFull(RuntimeError):
 
 class Scheduler:
     """Priority + FIFO admission scheduler with a prefill token budget."""
+
+    backend = "python"  # the reference's PyScheduler; it has no native one
 
     def __init__(self, max_slots: int, max_queue: int, prefill_token_budget: int) -> None:
         if max_slots <= 0 or max_queue <= 0 or prefill_token_budget <= 0:
@@ -35,10 +45,14 @@ class Scheduler:
         self._meta: dict[int, dict] = {}
         self._total_admitted = 0
         self._total_canceled = 0
+        self._closed = False
         self._mu = threading.Lock()
 
     def submit(self, req_id: int, prompt_len: int, max_new_tokens: int,
                priority: int = 0, front: bool = False) -> None:
+        if self._closed:
+            raise RuntimeError("scheduler closed")
+        chaos.maybe_fail("sched.submit")
         with self._mu:
             if req_id in self._meta:
                 raise KeyError(f"request {req_id} exists")
@@ -66,6 +80,7 @@ class Scheduler:
 
     def admit(self, cap: int) -> tuple[list[tuple[int, int]], list[int]]:
         """Returns ([(req_id, slot)...], [canceled_req_ids...])."""
+        chaos.maybe_fail("sched.admit")
         with self._mu:
             admitted: list[tuple[int, int]] = []
             canceled: list[int] = []
@@ -113,3 +128,13 @@ class Scheduler:
                 "total_admitted": self._total_admitted,
                 "total_canceled": self._total_canceled,
             }
+
+    def close(self) -> None:
+        """A clean stop: refuse further submits."""
+        self._closed = True
+
+    def leak(self) -> None:
+        """Quarantine: a warm restart that could not join the engine thread
+        abandons this scheduler (the thread may still be inside it); it
+        refuses further submits and is never reused."""
+        self._closed = True

@@ -33,14 +33,15 @@ Budget policy:
   drops below one while the queue is non-empty.
 
 Pure policy: no device work, no locks; the engine thread is the only
-caller. Left out against the reference: the ``sched.plan`` chaos point
-(the port has no chaos module yet).
+caller. ``plan`` carries the ``sched.plan`` chaos point.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+from gofr_tpu_torch import chaos
 
 
 @dataclasses.dataclass
@@ -125,6 +126,7 @@ class StepPlanner:
     ) -> StepPlan:
         """Decode first, then chunk grants by (priority, age), then an
         admission quota out of the leftover budget."""
+        chaos.maybe_fail("sched.plan")
         decode_tokens = decode_rows * self.block_steps
         if self.step_token_budget:
             prefill_budget = max(0, self.step_token_budget - decode_tokens)
