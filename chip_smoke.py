@@ -109,6 +109,33 @@ Phases, each a hard failure with a non-zero exit:
    - ``H4`` dense bf16 (2 slots, budget 2): a crash, one restart and a
      request through flash; then a crash at every step parks the engine
      WEDGED with every future settled within 10 s;
+   then the observability phase, at full depth, each engine instrumented
+   (a Manager with ``register_serving_metrics``, a Tracer over an
+   in-memory exporter, a caller span per request as ``trace_ctx``) and
+   then a bare twin of it (no metrics, no tracer) through the same request
+   sets, each set started behind a gate on the loop's step plan so both
+   run the same dispatches:
+   - ``O1`` dense bf16 (2048, 8 slots, 256-token chunks, a 2 GiB prefix
+     cache with the chunk cache, gold/bulk/metered tenants): prompts of 5,
+     31 (sampled), 200, 777 and 1000 tokens, a row canceled mid-stream, a
+     queued 504, a metered tenant's 429; the 200 and 1000 again (a
+     whole-prompt and a full chunk-chain hit); 8 batch-class rows of 600
+     tokens and an interactive request that preempts one;
+   - ``O2`` paged int8 (32-token pages, 4096, a 64 MiB device tier over a
+     1 GiB host tier) with device telemetry: 8 prompts (1000 and 450
+     chunk), the 200 again, two more 200-token prompts, a spill flush and
+     the 200 once more, from the host tier;
+   each then a timing set of 8 rows under ``set_sync_debug_mode("warn")``.
+   Checked: one timeline per request id with one terminal mark and the
+   result's finish reason, stamps in order, its TTFT within 2 ms of the
+   result's, chunk counts, tiers, the preempted row's stamp; every span in
+   its caller's trace under ``engine.queue``, one chunk span per computed
+   chunk, no open span after the drain; TTFT and e2e counts, prefix hits
+   by tier, one preemption and one tenant shed, a clean ``promlint``, the
+   HBM gauges, ``request_latency``; the ``_block_sync`` reads equal to the
+   dispatches and the ``_first_token`` syncs to the monolithic
+   admissions, sync warnings a dispatch equal to the twin's, greedy tokens
+   equal to the twin's, flash and int8 paged launches;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -2523,7 +2550,646 @@ def run_healing(torch, cfg, params) -> dict:
     return out
 
 
-def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict]:
+# -------------------------------------------------------------- observability
+OBS_COLD = [5, 31, 200, 777, 1000]  # O1's cold prompts: 777 and 1000 chunk at 256
+OBS_SAMPLED = 31  # the cold prompt that samples
+OBS_NEW = 16
+OBS_BULK, OBS_BULK_PROMPT, OBS_BULK_NEW, OBS_GOLD_AFTER = 8, 600, 48, 8
+OBS_TIMING_ROWS, OBS_TIMING_PROMPT, OBS_TIMING_NEW = 8, 64, 64
+OBS_O2_LENS = [5, 31, 200, 120, 60, 1000, 9, 450]  # O2's first set; 200 is the repeated prompt
+OBS_DEVICE_TIER_BYTES = 64 << 20  # O2's device tier, over a 1 GiB host tier
+TTFT_SLACK_S = 2e-3  # timeline TTFT against GenerationResult.ttft_s
+LATENCY_KEYS = {"in_flight", "completed", "ttft_ms_p50", "queue_wait_ms_p50", "e2e_ms_p50"}
+PHASE_ORDER = ("submitted", "admitted", "prefill_start", "prefill_end", "first_token", "detok_done")
+
+
+class Gate:
+    """Holds an engine's loop at its next step plan while a request set is
+    submitted: the set starts in one iteration, so an engine and its twin
+    run the same sequence of dispatches."""
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self._hold, self._parked, self._go = threading.Event(), threading.Event(), threading.Event()
+        real = engine._plan_step
+
+        def plan():
+            if self._hold.is_set():
+                self._parked.set()
+                self._go.wait(120)
+            return real()
+
+        engine._plan_step = plan
+
+    @contextlib.contextmanager
+    def closed(self):
+        self._go.clear()
+        self._parked.clear()
+        self._hold.set()
+        self.engine._wake.set()
+        if not self._parked.wait(120):
+            raise AssertionError("the engine loop did not reach the gate")
+        try:
+            yield
+        finally:
+            self._hold.clear()
+            self._go.set()
+            self.engine._wake.set()
+
+
+class SyncProbe:
+    """Counts, on one engine, its dispatches (``_dispatch`` calls that
+    launched), the ``_block_sync`` reads (the engine module's hook, on
+    this engine's loop thread), the
+    ``_first_token`` syncs and the monolithic admissions
+    (``_commit_prefilled``), the first tokens committed that are not a
+    resume's, each ``_record_prefix_tier`` call and each preemption."""
+
+    def __init__(self, engine) -> None:
+        from gofr_tpu_torch.serving import engine as engine_mod
+
+        self.n = {"dispatches": 0, "block_syncs": 0, "first_token_syncs": 0,
+                  "monolithic_admissions": 0, "first_tokens": 0}
+        self.tiers: list[tuple[int, str]] = []
+        self.preempted: list[tuple[int, int]] = []
+        self.reading = 0  # a _block_sync call in progress
+        self._mod, self._real_sync = engine_mod, engine_mod._block_sync
+
+        def sync(packed):
+            if threading.current_thread() is not engine._thread:
+                return self._real_sync(packed)  # another engine's read
+            self.n["block_syncs"] += 1
+            self.reading += 1
+            try:
+                return self._real_sync(packed)
+            finally:
+                self.reading -= 1
+
+        engine_mod._block_sync = sync
+        dispatch, first, commit = engine._dispatch, engine._first_token, engine._commit_prefilled
+        commit_first, tier, preempt = (engine._commit_first_token, engine._record_prefix_tier,
+                                       engine._preempt)
+
+        def counted_dispatch(plan):
+            rec = dispatch(plan)
+            self.n["dispatches"] += rec is not None
+            return rec
+
+        def counted_first(req, logits):
+            self.n["first_token_syncs"] += 1
+            return first(req, logits)
+
+        def counted_commit(*args):
+            self.n["monolithic_admissions"] += 1
+            return commit(*args)
+
+        def counted_commit_first(slot, req, first_id):
+            self.n["first_tokens"] += req.first_token_at is None
+            return commit_first(slot, req, first_id)
+
+        def recorded_tier(req, t):
+            self.tiers.append((req.id, t))
+            return tier(req, t)
+
+        def recorded_preempt(slot):
+            req = engine.slots[slot]
+            self.preempted.append((req.id, len(req.tokens)))
+            return preempt(slot)
+
+        engine._dispatch, engine._first_token = counted_dispatch, counted_first
+        engine._commit_prefilled, engine._commit_first_token = counted_commit, counted_commit_first
+        engine._record_prefix_tier, engine._preempt = recorded_tier, recorded_preempt
+
+    def close(self) -> None:
+        self._mod._block_sync = self._real_sync
+
+
+class MetricTap:
+    """Keeps every value a Manager records for a few series while it is
+    open: the block time, the host ms per step and the block size, one of
+    each per block read."""
+
+    NAMES = ("app_decode_block_seconds", "app_decode_host_ms_per_step", "app_decode_block_size")
+
+    def __init__(self, manager) -> None:
+        self.values: dict[str, list] = {n: [] for n in self.NAMES}
+        self.open = False
+        record, gauge = manager.record_histogram, manager.set_gauge
+
+        def tapped_record(name, value, *labels, **kw):
+            if self.open and name in self.values:
+                self.values[name].append(value)
+            return record(name, value, *labels, **kw)
+
+        def tapped_gauge(name, value, *labels, **kw):
+            if self.open and name in self.values:
+                self.values[name].append(value)
+            return gauge(name, value, *labels, **kw)
+
+        manager.record_histogram, manager.set_gauge = tapped_record, tapped_gauge
+
+    def blocks(self) -> list[tuple[float, float, int]]:
+        """(block seconds, host ms per step, steps) of each decode block read."""
+        v = self.values
+        return [(s, h, int(n)) for s, h, n in zip(v["app_decode_block_seconds"],
+                                                   v["app_decode_host_ms_per_step"],
+                                                   v["app_decode_block_size"]) if n > 0]
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def engine_idle(engine, probe) -> bool:
+    """No row in a slot, no dispatch left to read and no read in progress:
+    the loop touches the card no more until the next submit. (A sync's
+    warning is raised when its op returns, so a read that starts inside a
+    window and returns outside it would be lost.)"""
+    return not engine._inflight and all(s is None for s in engine.slots) and not probe.reading
+
+
+def settle(engine, probe, what: str) -> None:
+    """Wait for the engine to be idle, twice 50 ms apart (a read popped but
+    not yet started when first seen has started, or ended, by the second),
+    and for its spill worker to have copied every eviction to the host
+    tier: each set's spills land in its own window, and the next set's
+    lookups find them there on an engine and its twin alike."""
+    for _ in range(2):
+        wait_until(lambda: engine_idle(engine, probe), 120, what)
+        time.sleep(0.05)
+    wait_until(lambda: engine_idle(engine, probe), 120, what)
+    flush = getattr(engine._prefix_cache, "flush", None)
+    if flush is not None and not flush(timeout=120):
+        raise AssertionError(f"{what}: the spill worker did not settle")
+
+
+def sync_warnings(torch, engine, probe, fn) -> tuple[object, int]:
+    """Run ``fn()`` with ``torch.cuda.set_sync_debug_mode("warn")``, from an
+    idle engine until it is idle again (the pipeline's last reads land
+    after the results), and count the synchronizing-operation warnings
+    raised on any thread meanwhile, by the Python line that raised them."""
+    import warnings
+
+    settle(engine, probe, "the engine to go idle")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            settle(engine, probe, "the engine to go idle")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites: dict = {}
+    for w in caught:
+        # not the once-per-process note that the mode is a prototype
+        if "called a synchronizing CUDA operation" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return out, sites
+
+
+def outcome(fut, timeout: float = 600):
+    """A GenerationResult, or the status code the request failed with."""
+    try:
+        return fut.result(timeout=timeout)
+    except Exception as exc:
+        code = getattr(exc, "status_code", None)
+        if code is None:
+            raise
+        return code
+
+
+def obs_submit(engine, tracer, callers: dict, name: str, ids: list[int], **kw):
+    """Submit one request of the phase, with a caller span of its own as
+    ``trace_ctx`` on an instrumented engine; a refused submit gives its
+    status code."""
+    caller = tracer.start_span(f"caller {name}", activate=False) if tracer is not None else None
+    try:
+        fut = engine.submit(ids, trace_ctx=caller, **kw)
+    except Exception as exc:
+        if caller is not None:
+            caller.end()
+        code = getattr(exc, "status_code", None)
+        if code is None:
+            raise
+        return code
+    if caller is not None:
+        callers[fut.request_id] = (name, caller)
+    return fut
+
+
+def o1_traffic(engine, gate, tracer, prompt_of) -> tuple[dict, dict]:
+    """O1's request sets, each submitted behind the gate: the cold prompts,
+    a row canceled mid-stream, a queued 504, a metered tenant's request
+    and its 429; the whole-prompt and chunk-chain hits; the tenant storm
+    with its preemption; the timing set. Returns (outcome by name,
+    the caller spans by request id)."""
+    callers, out, state = {}, {}, {}
+    consume = engine._consume
+
+    def hooked(rec):
+        consume(rec)
+        for req in engine.slots:
+            if req is not None and req.id == state.get("cancel") and len(req.tokens) >= 4:
+                engine.cancel(req.id)
+        rows = [r for r in engine.slots if r is not None and r.tenant == "bulk"]
+        if ("gold" not in state and len(rows) == OBS_BULK
+                and max(len(r.tokens) for r in rows) >= OBS_GOLD_AFTER):
+            state["gold"] = obs_submit(engine, tracer, callers, "gold", prompt_of("gold", 200),
+                                       max_new_tokens=OBS_NEW, tenant="gold")
+
+    engine._consume = hooked
+    sub = lambda name, ids, **kw: obs_submit(engine, tracer, callers, name, ids, **kw)  # noqa: E731
+    futs = {}
+    with gate.closed():
+        for n in OBS_COLD:
+            kw = dict(temperature=0.8, top_k=40) if n == OBS_SAMPLED else {}
+            futs[f"cold{n}"] = sub(f"cold{n}", prompt_of(f"cold{n}", n), max_new_tokens=OBS_NEW,
+                                   **kw)
+        futs["cancel"] = sub("cancel", prompt_of("cancel", 120), max_new_tokens=64)
+        state["cancel"] = futs["cancel"].request_id
+        futs["expired"] = sub("expired", prompt_of("expired", 50), max_new_tokens=8, deadline=0.02)
+        futs["metered"] = sub("metered", prompt_of("metered", 31), max_new_tokens=32,
+                              tenant="metered")
+        out["over_budget"] = sub("over_budget", prompt_of("metered", 31), max_new_tokens=32,
+                                 tenant="metered")
+        time.sleep(0.1)  # the 504's deadline passes while it waits
+    out.update({name: outcome(f) for name, f in futs.items()})
+    futs = {}
+    with gate.closed():
+        futs["hit200"] = sub("hit200", prompt_of("cold200", 200), max_new_tokens=OBS_NEW)
+        futs["hit1000"] = sub("hit1000", prompt_of("cold1000", 1000), max_new_tokens=OBS_NEW)
+    out.update({name: outcome(f) for name, f in futs.items()})
+    futs = {}
+    with gate.closed():
+        for i in range(OBS_BULK):
+            futs[f"bulk{i}"] = sub(f"bulk{i}", prompt_of(f"bulk{i}", OBS_BULK_PROMPT),
+                                   max_new_tokens=OBS_BULK_NEW, tenant="bulk")
+    out.update({name: outcome(f) for name, f in futs.items()})
+    wait_until(lambda: "gold" in state, 60, "O1: the interactive request")
+    out["gold"] = outcome(state["gold"])
+    engine._consume = consume
+    return out, callers
+
+
+def o2_traffic(engine, gate, tracer, prompt_of) -> tuple[dict, dict]:
+    """O2's request sets behind the gate: eight prompts (1000 and 450
+    chunk); the 200-token one again; two more 200-token prompts, which
+    push it out of the 64 MiB device tier; a flush of the spill worker;
+    then the 200-token prompt once more, from the host tier."""
+    callers, out = {}, {}
+    sub = lambda name, ids, **kw: obs_submit(engine, tracer, callers, name, ids, **kw)  # noqa: E731
+    sets = [[(f"first{n}", n) for n in OBS_O2_LENS], [("again200", 200)],
+            [("filler0", 200), ("filler1", 200)], [("host200", 200)]]
+    for k, request_set in enumerate(sets):
+        if k == 3:
+            engine._prefix_cache.flush()
+        futs = {}
+        with gate.closed():
+            for name, n in request_set:
+                key = "first200" if name in ("again200", "host200") else name
+                futs[name] = sub(name, prompt_of(key, n), max_new_tokens=OBS_NEW)
+        out.update({name: outcome(f) for name, f in futs.items()})
+    return out, callers
+
+
+def timing_set(torch, engine, probe, gate, tracer, prompt_of, callers,
+               suffix: str) -> tuple[list, dict]:
+    """The timing set: OBS_TIMING_ROWS greedy rows of OBS_TIMING_PROMPT
+    tokens and OBS_TIMING_NEW new ones, started together, under
+    ``set_sync_debug_mode("warn")``. Returns (results, warnings by site)."""
+
+    def run():
+        futs = []
+        with gate.closed():
+            for i in range(OBS_TIMING_ROWS):
+                futs.append(obs_submit(engine, tracer, callers, f"timing{i}{suffix}",
+                                       prompt_of(f"timing{i}", OBS_TIMING_PROMPT),
+                                       max_new_tokens=OBS_TIMING_NEW))
+        return [outcome(f) for f in futs]
+
+    return sync_warnings(torch, engine, probe, run)
+
+
+def obs_engine(torch, cfg, params, conf: dict, instrumented: bool, telemetry: bool = False):
+    """An engine of the phase, started: with a Manager carrying the serving
+    catalog and a Tracer over an in-memory exporter, or bare (the twin)."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.metrics import new_metrics_manager
+    from gofr_tpu_torch.serving import DeviceTelemetry, TenantPolicy, TenantRegistry
+    from gofr_tpu_torch.serving import register_serving_metrics
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    from gofr_tpu_torch.tracing import InMemoryExporter, SimpleSpanProcessor, Tracer
+
+    tenants = TenantRegistry()
+    tenants.set_policy(TenantPolicy(name="gold", deadline_class="interactive", deadline_s=600.0))
+    tenants.set_policy(TenantPolicy(name="bulk", deadline_class="batch", deadline_s=600.0))
+    tenants.set_policy(TenantPolicy(name="metered", deadline_class="standard", token_rate=0.5,
+                                    burst_tokens=64.0))
+    manager = tracer = exporter = None
+    if instrumented:
+        manager = register_serving_metrics(new_metrics_manager())
+        exporter = InMemoryExporter()
+        tracer = Tracer("chip-smoke", SimpleSpanProcessor(exporter))
+    engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size),
+                           seed=SEED, tenants=tenants, metrics=manager, tracer=tracer)
+    tel = DeviceTelemetry(engine, interval_s=0.5) if telemetry else None
+    return engine, manager, tracer, exporter, tel
+
+
+
+FAILED_REASON = {504: "deadline_exceeded", 429: "shed", 503: "unavailable", 413: "too_large"}
+
+
+def check_observed(label: str, engine, manager, tracer, exporter, callers: dict, outcomes: dict,
+                   probe, cold_chunks: dict, want_tiers: dict) -> dict:
+    """The phase's checks of one instrumented engine after its drain (its
+    caller spans ended): timelines, spans, metrics and the health view.
+    ``cold_chunks`` maps a request to the chunk count of its cold prompt,
+    ``want_tiers`` a request to the tier that must have served it."""
+    from collections import Counter
+
+    from gofr_tpu_torch import GenerationResult
+    from gofr_tpu_torch.metrics import lint_exposition
+
+    def fail(msg):
+        raise AssertionError(f"{label}: {msg}")
+
+    if engine.timeline.in_flight():
+        fail(f"{len(engine.timeline.in_flight())} timelines still in flight after the drain")
+    tls = {tl.request_id: tl for tl in engine.timeline.completed()}
+    if sorted(tls) != sorted(callers):
+        fail(f"timelines {sorted(tls)} for the request ids {sorted(callers)}")
+    preempted = {rid for rid, _ in probe.preempted}
+    by_name, ttft_gap = {}, 0.0
+    for rid, (name, _caller) in callers.items():
+        tl, res = tls[rid], outcomes[name]
+        by_name[name] = tl
+        want = res.finish_reason if isinstance(res, GenerationResult) else FAILED_REASON[res]
+        if tl.terminal_marks != 1 or tl.finish_reason != want:
+            fail(f"{name}: {tl.terminal_marks} terminal marks, reason {tl.finish_reason} "
+                 f"for {want}")
+        stamps = [tl.phases[p] for p in PHASE_ORDER if p in tl.phases]
+        if stamps != sorted(stamps):
+            fail(f"{name}: stamps out of order: {tl.to_dict()['phases_ms']}")
+        if isinstance(res, GenerationResult) and "first_token" in tl.phases:
+            gap = abs(tl.ttft_s() - res.ttft_s)
+            ttft_gap = max(ttft_gap, gap)
+            if gap > TTFT_SLACK_S:
+                fail(f"{name}: timeline TTFT {tl.ttft_s():.6f} s, result {res.ttft_s:.6f} s")
+        if (rid in preempted) != any(p.startswith("preempted:") for p in tl.phases):
+            fail(f"{name}: preempted {rid in preempted}, stamps {sorted(tl.phases)}")
+    for name, n in cold_chunks.items():
+        tl = by_name[name]
+        if tl.request_id in preempted:
+            continue  # its resume adds chunks
+        if [c["prefix_hit"] for c in tl.prefill_chunks] != [False] * n:
+            fail(f"{name}: chunks {tl.prefill_chunks}, a cold prompt of {n}")
+    # tiers: the first walk of each request is its timeline's, and the
+    # counter counts every walk (a resume walks again)
+    first_tier: dict = {}
+    for rid, tier in probe.tiers:
+        first_tier.setdefault(rid, tier)
+    for rid, (name, _) in callers.items():
+        if tls[rid].prefix_tier != first_tier.get(rid):
+            fail(f"{name}: timeline tier {tls[rid].prefix_tier}, walked {first_tier.get(rid)}")
+        if name in want_tiers and tls[rid].prefix_tier != want_tiers[name]:
+            fail(f"{name}: served from {tls[rid].prefix_tier}, not {want_tiers[name]}")
+    hits = manager.get("app_kv_prefix_hits_total")
+    counted = {k: hits.value(dict(k)) for k in hits._series}
+    walked = {(("tier", t),): float(n) for t, n in Counter(t for _, t in probe.tiers).items()}
+    if counted != walked:
+        fail(f"app_kv_prefix_hits_total {counted}, walks {walked}")
+    # spans: each request's tree hangs off its caller's span
+    spans: dict = {}
+    for s in exporter.spans:
+        if "request.id" in s.attributes:
+            spans.setdefault(s.attributes["request.id"], []).append(s)
+    for rid, (name, caller) in callers.items():
+        mine = spans.get(rid, [])
+        queue = [s for s in mine if s.name == "engine.queue"]
+        if len(queue) != 1 or queue[0].parent_id != caller.span_id:
+            fail(f"{name}: engine.queue spans {[(s.name, s.parent_id) for s in queue]}")
+        if any(s.trace_id != caller.trace_id for s in mine):
+            fail(f"{name}: a span outside its caller's trace")
+        stray = [s.name for s in mine if s.name.startswith("serve.")
+                 and s.parent_id != queue[0].span_id]
+        if stray:
+            fail(f"{name}: serve spans not under engine.queue: {stray}")
+        computed = sum(not c["prefix_hit"] for c in tls[rid].prefill_chunks)
+        chunk_spans = sum(s.name == "serve.prefill_chunk" for s in mine)
+        if chunk_spans != computed:
+            fail(f"{name}: {chunk_spans} chunk spans for {computed} computed chunks")
+    if tracer.open_spans() != 0:
+        fail(f"{tracer.open_spans()} spans open after the drain")
+    # metrics
+    results = [r for r in outcomes.values() if isinstance(r, GenerationResult)]
+    ttft_n = manager.get("app_ttft_seconds").snapshot()[1]
+    e2e = manager.get("app_request_e2e_seconds")
+    e2e_n = sum(e2e.snapshot(dict(k))[1] for k in e2e._series)
+    if ttft_n != probe.n["first_tokens"] or e2e_n != len(results):
+        fail(f"app_ttft_seconds count {ttft_n} for {probe.n['first_tokens']} first tokens, "
+             f"app_request_e2e_seconds count {e2e_n} for {len(results)} results")
+    problems = lint_exposition(manager.expose_prometheus())
+    if problems:
+        fail(f"the exposition does not lint: {problems[:5]}")
+    latency = engine.health_check()["details"]["request_latency"]
+    if set(latency) != LATENCY_KEYS or latency["completed"] != len(tls) or latency["in_flight"]:
+        fail(f"request_latency {latency} over {len(tls)} completed timelines")
+    durations: dict = {}
+    for s in exporter.spans:
+        if "request.id" in s.attributes:
+            durations.setdefault(s.name, []).append(s.duration_us / 1e3)
+    return {
+        "timelines": len(tls), "spans": sum(len(v) for v in spans.values()),
+        "ttft_count": ttft_n, "e2e_count": e2e_n, "max_ttft_gap_ms": ttft_gap * 1e3,
+        "prefix_hits": {t: n for ((_, t),), n in walked.items()},
+        "preemptions": {dict(k).get("tenant"): v for k, v in manager.get(
+            "app_tenant_preemptions_total")._series.items()},
+        "shed": {dict(k).get("tenant", ""): v for k, v in manager.get(
+            "app_requests_shed_total")._series.items()},
+        "request_latency": latency,
+        "span_ms_p50": {n: median(v) for n, v in sorted(durations.items())},
+    }
+
+
+def observe_pair(torch, cfg, params, label: str, conf: dict, traffic, prompt_of, *,
+                 telemetry: bool, cold_chunks: dict, want_tiers: dict) -> dict:
+    """One configuration of the phase: the instrumented engine and its bare
+    twin, both alive. The request sets run on the engine, then on the twin;
+    the timing set in turns, engine, twin, twin, engine (the second turn of
+    each finds its prompts in the prefix cache); the launches of each
+    engine counted alone."""
+    from gofr_tpu_torch import GenerationResult
+
+    t0 = time.perf_counter()
+    parts: dict = {}
+    for role in ("engine", "twin"):
+        engine, manager, tracer, exporter, tel = obs_engine(torch, cfg, params, conf,
+                                                            role == "engine",
+                                                            telemetry and role == "engine")
+        parts[role] = {"engine": engine, "manager": manager, "tracer": tracer,
+                       "exporter": exporter, "tel": tel, "probe": SyncProbe(engine),
+                       "gate": Gate(engine), "tap": MetricTap(manager) if manager else None,
+                       "launches": {}, "turns": []}
+    try:
+        for role in ("engine", "twin"):
+            p = parts[role]
+            mark = launch_counts()
+            p["engine"].start()
+            if p["tel"] is not None:
+                p["tel"].start()
+            p["outcomes"], p["callers"] = traffic(p["engine"], p["gate"], p["tracer"], prompt_of)
+            if p["tel"] is not None:
+                p["tel"].stop()  # its poll is not a request: keep it out of the sync count
+            settle(p["engine"], p["probe"], f"{label} {role} to go idle")
+            add_launches(p["launches"], since(mark))
+        for turn, role in enumerate(("engine", "twin", "twin", "engine")):
+            p = parts[role]
+            k = len(p["turns"])
+            mark, d0 = launch_counts(), p["probe"].n["dispatches"]
+            if p["tap"] is not None:
+                p["tap"].open = True
+            timing, warns = timing_set(torch, p["engine"], p["probe"], p["gate"], p["tracer"],
+                                       prompt_of, p["callers"], f".{k}")
+            if p["tap"] is not None:
+                p["tap"].open = False
+            add_launches(p["launches"], since(mark))
+            p["turns"].append({
+                "turn": turn, "dispatches": p["probe"].n["dispatches"] - d0,
+                "sync_warnings": sum(warns.values()), "sync_sites": warns,
+                "ms_per_step": per_step_ms([r for r in timing if isinstance(r, GenerationResult)]),
+            })
+            p["outcomes"].update({f"timing{i}.{k}": r for i, r in enumerate(timing)})
+        for role in ("engine", "twin"):
+            if not parts[role]["engine"].drain(deadline_s=120):
+                raise AssertionError(f"{label} {role}: the drain did not finish")
+    finally:
+        for role in ("twin", "engine"):  # the probes unwind in reverse
+            p = parts[role]
+            if p["tel"] is not None:
+                p["tel"].stop()
+            p["engine"].stop()
+            p["probe"].close()
+    runs: dict = {}
+    for role in ("engine", "twin"):
+        p = parts[role]
+        for _name, caller in p["callers"].values():
+            caller.end()
+        probe = p["probe"]
+        if probe.n["block_syncs"] != probe.n["dispatches"] or \
+                probe.n["first_token_syncs"] != probe.n["monolithic_admissions"]:
+            raise AssertionError(f"{label} {role}: syncs {probe.n}")
+        run = {"launches": p["launches"], "syncs": dict(probe.n), "timing": p["turns"],
+               "ms_per_step": median([t["ms_per_step"] for t in p["turns"]])}
+        if role == "engine":
+            run["checks"] = check_observed(label, p["engine"], p["manager"], p["tracer"],
+                                           p["exporter"], p["callers"], p["outcomes"], probe,
+                                           cold_chunks, want_tiers)
+            blocks = p["tap"].blocks()
+            run["decode_blocks_read"] = len(blocks)
+            run["host_ms_per_step_p50"] = median([h for _, h, _ in blocks])
+            run["block_ms_p50"] = median([s * 1e3 for s, _, _ in blocks])
+            run["block_ms_per_step_p50"] = median([s * 1e3 / n for s, _, n in blocks])
+            run["host_share_p50"] = median([h / (s * 1e3 / n) for s, h, n in blocks if s > 0])
+            if p["tel"] is not None:
+                m = p["manager"]
+                run["hbm_used_bytes"] = m.get("app_tpu_hbm_used_bytes").value({"device": "0"})
+                run["hbm_limit_bytes"] = m.get("app_tpu_hbm_limit_bytes").value({"device": "0"})
+        run["outcomes"] = {n: (r.finish_reason, r.token_ids) if isinstance(r, GenerationResult)
+                           else r for n, r in p["outcomes"].items()}
+        runs[role] = run
+    del parts
+    torch.cuda.empty_cache()
+    eng, twin = runs["engine"], runs["twin"]
+    if set(eng["outcomes"]) != set(twin["outcomes"]):
+        raise AssertionError(f"{label}: requests {sorted(eng['outcomes'])} against "
+                             f"{sorted(twin['outcomes'])}")
+    for name, got in eng["outcomes"].items():
+        want = twin["outcomes"][name]
+        sampled = name == f"cold{OBS_SAMPLED}"
+        if (isinstance(got, tuple) != isinstance(want, tuple)
+                or (isinstance(got, tuple) and not sampled and got != want)
+                or (not isinstance(got, tuple) and got != want)):
+            raise AssertionError(f"{label}: {name} gave {str(got)[:80]} with the instruments, "
+                                 f"{str(want)[:80]} without")
+    # the same turn of each (cold, then warm): equal sync warnings a dispatch
+    per_dispatch = [[t["sync_warnings"] / max(t["dispatches"], 1) for t in r["timing"]]
+                    for r in (eng, twin)]
+    if per_dispatch[0] != per_dispatch[1]:
+        raise AssertionError(f"{label}: sync warnings a dispatch {per_dispatch[0]} with the "
+                             f"instruments ({[t['sync_sites'] for t in eng['timing']]}), "
+                             f"{per_dispatch[1]} without "
+                             f"({[t['sync_sites'] for t in twin['timing']]})")
+    for run in (eng, twin):
+        del run["outcomes"]
+    steps = {r: [round(t["ms_per_step"], 3) for t in runs[r]["timing"]] for r in runs}
+    print(f"  {label}: ms a decode step, timing turns engine, twin, twin, engine: "
+          f"{steps['engine'][0]:.3f}, {steps['twin'][0]:.3f}, {steps['twin'][1]:.3f}, "
+          f"{steps['engine'][1]:.3f}; app_decode_host_ms_per_step p50 "
+          f"{eng['host_ms_per_step_p50']:.3f} against {eng['block_ms_per_step_p50']:.3f} ms a "
+          f"step from app_decode_block_seconds (p50 {eng['block_ms_p50']:.3f} ms a block): host "
+          f"share p50 {eng['host_share_p50']:.3f} (information)")
+    print(f"  {label}: syncs {eng['syncs']} with, {twin['syncs']} without; sync warnings a "
+          f"timing dispatch, cold then warm: {per_dispatch[0]}")
+    print(f"  {label}: span p50 ms {eng['checks']['span_ms_p50']}")
+    print_launches(f"{label}", eng["launches"])
+    print_launches(f"{label} twin", twin["launches"])
+    eng["seconds"] = time.perf_counter() - t0
+    return {"engine": eng, "twin": twin}
+
+
+def run_observability(torch, cfg, params) -> dict:
+    """The observability phase at Llama-3-8B widths and full depth: O1 dense
+    bf16 and O2 paged int8, each instrumented (serving metrics catalog,
+    tracer, caller spans) beside a bare twin."""
+    rng = torch.Generator().manual_seed(SEED + 5)
+    prompts: dict = {}
+
+    def prompt_of(key: str, n: int) -> list[int]:
+        if key not in prompts:
+            prompts[key] = torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+        return prompts[key]
+
+    card = card_line()
+    t0 = time.perf_counter()
+    o1_conf = dict(max_slots=8, max_seq_len=2048, kv_layout="dense", multi_step=4,
+                   prefill_chunk_tokens=256, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
+    o2_conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32,
+                   kv_dtype="int8", multi_step=4, prefill_chunk_tokens=256,
+                   prefix_cache_entries=64, prefix_cache_bytes=OBS_DEVICE_TIER_BYTES,
+                   kv_spill_bytes=1 << 30)
+    print(f"engine O1: dense bf16 max_seq_len=2048, 8 slots, 256-token chunks, 2 GiB prefix cache, "
+          f"{cfg.n_layers} layers, metrics + tracer, and its bare twin ({card})")
+    o1 = observe_pair(
+        torch, cfg, params, "O1", o1_conf, o1_traffic, prompt_of, telemetry=False,
+        cold_chunks={"cold777": 4, "cold1000": 4, **{f"bulk{i}": 3 for i in range(OBS_BULK)}},
+        want_tiers={"cold200": "miss", "cold1000": "miss", "hit200": "device",
+                    "hit1000": "device"})
+    if o1["engine"]["checks"]["preemptions"] != {"bulk": 1.0} or \
+            o1["engine"]["checks"]["shed"].get("metered") != 1.0:
+        raise AssertionError(f"O1: preemptions {o1['engine']['checks']['preemptions']}, "
+                             f"shed {o1['engine']['checks']['shed']}")
+    print(f"engine O2: paged int8 32-token pages, max_seq_len=4096, a "
+          f"{OBS_DEVICE_TIER_BYTES >> 20} MiB device tier over a 1 GiB host tier, "
+          f"{cfg.n_layers} layers, metrics + tracer + device telemetry, and its bare twin ({card})")
+    o2 = observe_pair(
+        torch, cfg, params, "O2", o2_conf, o2_traffic, prompt_of, telemetry=True,
+        cold_chunks={"first1000": 4, "first450": 2},
+        want_tiers={"first200": "miss", "host200": "host"})
+    out = {"card": card, "O1": o1, "O2": o2, "seconds": time.perf_counter() - t0}
+    print(f"  observability: {out['seconds']:.1f}s")
+    hbm = tuple(o2["engine"].get(k, math.nan) for k in ("hbm_used_bytes", "hbm_limit_bytes"))
+    if not all(v > 0 for v in hbm):
+        raise AssertionError(f"O2: app_tpu_hbm_used_bytes / _limit_bytes for device 0: {hbm}")
+    l1, l2 = o1["engine"]["launches"], o2["engine"]["launches"]
+    if not (l1["flash_attention"] and l2["flash_attention"] and l2["paged_decode_attention_q"]):
+        raise AssertionError(f"observability launches O1 {l1}, O2 {l2}")
+    return out
+
+
+def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -2606,7 +3272,11 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict]:
     torch.cuda.empty_cache()
     print("healing phase (hang, device loss, poison storm, crash and budget, full depth):")
     healing = run_healing(torch, cfg, params)
-    return launches, timings, lifecycle, reuse, tenancy, healing
+    torch.cuda.empty_cache()
+    print("observability phase (metrics, tracing, timelines, each engine beside a bare twin, "
+          "full depth):")
+    observability = run_observability(torch, cfg, params)
+    return launches, timings, lifecycle, reuse, tenancy, healing, observability
 
 
 def main() -> int:
@@ -2639,7 +3309,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
-    launches, engine_timings, lifecycle, reuse, tenancy, healing = run_engine(torch)
+    launches, engine_timings, lifecycle, reuse, tenancy, healing, observability = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:
@@ -2652,6 +3322,7 @@ def main() -> int:
     print(json.dumps({"kv_reuse_spec": reuse}))
     print(json.dumps({"lora_tenancy": tenancy}))
     print(json.dumps({"healing": healing}, default=str))
+    print(json.dumps({"observability": observability}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

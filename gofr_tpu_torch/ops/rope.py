@@ -8,16 +8,21 @@ import functools
 
 import torch
 
+from gofr_tpu_torch._device import resolve_device
+
 
 @functools.lru_cache(maxsize=8)
 def rope_table(
     max_len: int, head_dim: int, theta: float = 10000.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sin, cos) tables of shape [max_len, head_dim//2], float32. Cached
-    per (length, width, theta, device): a decode step reads the table of
-    every layer, and rebuilding it would cost four launches per step. The
-    cached tensors are shared and must not be written."""
+    """(sin, cos) tables of shape [max_len, head_dim//2], float32, on
+    ``device`` (the card unless the caller passes ``"cpu"``; without a
+    card that raises, as every entry point does). Cached per (length,
+    width, theta, device): a decode step reads the table of every layer,
+    and rebuilding it would cost four launches per step. The cached
+    tensors are shared and must not be written."""
+    device = resolve_device(device)
     half = head_dim // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
     angles = torch.arange(max_len, dtype=torch.float32, device=device)[:, None] * freqs[None, :]

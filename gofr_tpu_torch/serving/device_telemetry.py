@@ -19,7 +19,9 @@ thread:
 
 The sample is embedded in ``engine.health_check()`` (``details.device``);
 :meth:`hbm_headroom` gives the free fraction. With a ``metrics`` object
-(``set_gauge``) it exports the reference's gauges: ``app_tpu_hbm_bytes``
+(``set_gauge``; by default the engine's Manager, ``metrics=`` of the
+engine) it exports the reference's gauges, registered by
+``serving/metrics_catalog.py`` under the reference's names: ``app_tpu_hbm_bytes``
 (labels ``device``, ``kind=used|limit``), ``app_tpu_hbm_used_bytes``,
 ``app_tpu_hbm_limit_bytes``, ``app_tpu_hbm_util`` and
 ``app_engine_duty_cycle``.
@@ -45,7 +47,7 @@ class DeviceTelemetry:
     def __init__(self, engine: Any = None, *, metrics: Any = None,
                  interval_s: float = 5.0) -> None:
         self.engine = engine
-        self._metrics = metrics
+        self._metrics = metrics if metrics is not None else getattr(engine, "_metrics", None)
         self.interval_s = max(0.1, float(interval_s))
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None

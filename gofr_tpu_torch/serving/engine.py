@@ -138,10 +138,39 @@ them: ``engine.step``, ``decode.dispatch`` and ``device.loss``,
 ``sched.submit``/``admit``/``plan``, ``kv.alloc``, ``kv.spill``,
 ``lora.upload`` and ``tenant.preempt``.
 
+The observability plane: with ``metrics=`` (a
+:class:`~gofr_tpu_torch.metrics.Manager` on which
+:func:`~gofr_tpu_torch.serving.metrics_catalog.register_serving_metrics`
+registered the series) the engine emits the reference's ``app_*`` series at
+the reference's sites: queue depth and wait, the step plan, prefix hits by
+tier, chunk sizes, preemptions, TTFT, TPOT, block time, occupancy, host
+ms per decode step, end-to-end latency, sheds and deadline and KV-pool
+retirements. With ``tracer=`` each request's spans hang off the caller's
+span (``submit(trace_ctx=...)``): ``engine.queue``, then under it
+``serve.prefill b{bucket}`` or one ``serve.prefill_chunk`` per computed
+chunk, ``serve.decode`` and ``serve.detok``. Every request with an id gets
+a :class:`~gofr_tpu_torch.serving.timeline.RequestTimeline` in
+``self.timeline`` (the ``/requestz`` flight recorder, ``requestz_capacity``
+completed ones kept) whose terminal mark is recorded exactly once, by the
+path that settles the future first, which also ends every span still
+open. ``health_check`` reports ``request_latency`` from it, and the spill
+tier orders its demotions by the timeline's reuse counts. The rule of the
+plane: it reads only host data that is already there (the host mirrors,
+the packed block after its one sync, the clocks) and never
+``int()``, ``.item()``, ``.tolist()`` or ``bool()`` of a CUDA tensor, so
+it adds no host sync. The dispatch syncs go through the module's
+``_block_sync`` (a test counts them); a prefill's first-token sync is
+``_first_token``'s, and the prefill span closes after it, so both measure
+the device's work and not its enqueueing. ``app_decode_host_ms_per_step``
+is the host's time per step: the dispatch's assembly and launch
+(``_Inflight.host_s``) plus the consume after the sync. Eager PyTorch
+blocks a launch while the CUDA launch queue is full, so on a long block
+that launch time can include device time.
+
 Not ported yet: dedup/HA (``check_fence`` on the epoch, ``resume``,
-``orphan``), timelines and ``/requestz``, tracing, metrics (the
-tenant-labelled ones included), reclamation, P/D disaggregation, KV
-migration and the prefix advertisement.
+``orphan``), reclamation, P/D disaggregation, KV migration and the prefix
+advertisement; the ``/metrics`` and ``/requestz`` routes and log
+correlation wait for the HTTP bindings.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -181,6 +210,7 @@ from gofr_tpu_torch.serving.prefix_cache import PrefixCache
 from gofr_tpu_torch.serving.scheduler import QueueFull, Scheduler
 from gofr_tpu_torch.serving.shed import QueueWaitEstimator
 from gofr_tpu_torch.serving.stepplan import ChunkCursor, StepPlan, StepPlanner
+from gofr_tpu_torch.serving.timeline import TimelineRecorder
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
@@ -248,6 +278,9 @@ class EngineConfig:
     # batch is full (slots or KV pages), pause the lowest-class row and
     # resume it warm later. Off: a tenant storm delays higher classes
     tenant_preempt: bool = True
+    # the /requestz flight recorder: completed timelines kept in its ring
+    # (every in-flight one is always kept)
+    requestz_capacity: int = 256
 
     @classmethod
     def from_config(cls, config: Any) -> "EngineConfig":
@@ -289,6 +322,7 @@ class EngineConfig:
             spec_ngram=int(config.get_or_default("TPU_SPEC_NGRAM", "3")),
             tenant_preempt=config.get_or_default("TPU_TENANT_PREEMPT", "1")
             not in ("0", "false", "off"),
+            requestz_capacity=int(config.get_or_default("TPU_REQUESTZ_CAPACITY", "256")),
         )
 
 
@@ -323,13 +357,14 @@ class _Request:
         "id", "prompt_ids", "max_new_tokens", "temperature", "top_k", "top_p",
         "stream_cb", "future", "created", "first_token_at", "tokens",
         "stop_ids", "dispatched", "kv_exhausted", "priority", "canceled", "deadline",
-        "tenant", "adapter_id", "adapter_slot", "preemptions",
+        "tenant", "adapter_id", "adapter_slot", "preemptions", "timeline", "trace_ctx",
     )
 
     def __init__(self, rid: int, prompt_ids: list[int], max_new_tokens: int,
                  temperature: float, top_k: int, top_p: float,
                  stream_cb: Callable | None, stop_ids: set[int], *,
-                 priority: int = 0, deadline: float | None = None) -> None:
+                 priority: int = 0, deadline: float | None = None,
+                 created: float | None = None) -> None:
         self.id = rid
         self.prompt_ids = prompt_ids
         self.max_new_tokens = max_new_tokens
@@ -339,7 +374,10 @@ class _Request:
         self.stream_cb = stream_cb
         self.future: concurrent.futures.Future = concurrent.futures.Future()
         self.future.request_id = rid
-        self.created = time.perf_counter()
+        # request times are time.monotonic(), the clock of the request's
+        # timeline: a moment both record is one reading (the submit, the
+        # admission, the first token), so the two TTFTs are one number
+        self.created = time.monotonic() if created is None else created
         self.first_token_at: float | None = None
         self.tokens: list[int] = []
         self.stop_ids = stop_ids
@@ -354,7 +392,11 @@ class _Request:
         self.adapter_id: str | None = None
         self.adapter_slot = 0
         self.preemptions = 0
-        # absolute perf_counter time the caller stops caring; None = never
+        # the observability plane: the flight-recorder timeline and the
+        # caller's span that the request's spans hang off
+        self.timeline: Any = None
+        self.trace_ctx: Any = None
+        # absolute monotonic time the caller stops caring; None = never
         self.deadline = (self.created + deadline) if deadline else None
 
     def expired(self, now: float) -> bool:
@@ -388,18 +430,33 @@ class _Inflight:
     place in ``last_logits`` (the ragged dispatch's [K, V] last-position
     logits in chunk-row order, kept only while chunk-prefix caching is on).
     By the time it is read a slot may have been retired or re-admitted;
-    ``slots[slot] is req`` tells."""
+    ``slots[slot] is req`` tells. ``dispatched_at`` is the perf_counter
+    time of the launch, ``host_s`` the host's seconds from the start of
+    the dispatch's assembly to the launch call's return (on the card that
+    includes any wait for room in a full CUDA launch queue)."""
 
-    __slots__ = ("packed", "rows", "steps", "prefill_rows", "last_logits")
+    __slots__ = ("packed", "rows", "steps", "prefill_rows", "last_logits",
+                 "dispatched_at", "host_s")
 
     def __init__(self, packed: torch.Tensor, rows: list, steps: int,
                  prefill_rows: list | None = None,
-                 last_logits: torch.Tensor | None = None) -> None:
+                 last_logits: torch.Tensor | None = None,
+                 dispatched_at: float = 0.0, host_s: float = 0.0) -> None:
         self.packed = packed
         self.rows = rows
         self.steps = steps
         self.prefill_rows = prefill_rows or []
         self.last_logits = last_logits
+        self.dispatched_at = dispatched_at
+        self.host_s = host_s
+
+
+def _block_sync(packed: torch.Tensor) -> np.ndarray:
+    """The dispatch's one host sync: read a block's packed result to the
+    host. The pipelined decode and ragged blocks and the speculative
+    verify step read through here and nowhere else, so a test can count
+    the syncs (a prefill's first token is ``_first_token``'s own)."""
+    return packed.cpu().numpy()
 
 
 def _stop_id(req: _Request) -> int:
@@ -429,6 +486,8 @@ class ServingEngine:
         prefix_cache: Any = None,
         lora: Any = None,
         tenants: Any = None,
+        metrics: Any = None,
+        tracer: Any = None,
     ) -> None:
         self.device = resolve_device(device)
         self.model_cfg = cfg
@@ -461,6 +520,13 @@ class ServingEngine:
             )
         self.tokenizer = tokenizer or ByteTokenizer(cfg.vocab_size)
         self.seed = seed
+        # the observability plane, both optional: a metrics Manager with the
+        # serving catalog registered (serving/metrics_catalog.py) and a
+        # Tracer. The flight recorder is always on and outlives warm
+        # restarts: a restart must not erase the record of what it swept
+        self._metrics = metrics
+        self._tracer = tracer
+        self.timeline = TimelineRecorder(conf.requestz_capacity)
         # the N-step block: an explicit multi_step wins; speculative mode
         # verifies one chunk per step instead; else 4 steps per host sync
         if conf.multi_step is not None:
@@ -481,9 +547,11 @@ class ServingEngine:
         if prefix_cache is not None:
             self._prefix_cache = prefix_cache
         elif conf.prefix_cache_entries > 0 and conf.kv_spill_bytes > 0:
+            # host-tier demotion by the timeline's observed reuse, not raw LRU
             self._prefix_cache = TieredPrefixCache(
                 conf.prefix_cache_entries, max_bytes=conf.prefix_cache_bytes,
-                spill_bytes=conf.kv_spill_bytes, device=self.device,
+                spill_bytes=conf.kv_spill_bytes, device=self.device, metrics=metrics,
+                reuse_score=lambda key: self.timeline.reuse_count(key),
             )
         elif conf.prefix_cache_entries > 0:
             self._prefix_cache = PrefixCache(
@@ -622,6 +690,10 @@ class ServingEngine:
         self._pending_admit: dict[int, tuple[int, int, int, int, int]] = {}
         self._mask_host: np.ndarray | None = None
         self._mask_dev: torch.Tensor | None = None
+        # the previous consume's time (a block's wall time runs from it);
+        # None after an idle gap or a failure
+        self._last_consume_t: float | None = None
+        self._plan_gauges: tuple | None = None  # the step-plan gauges last set
         # the decode blocks' draws; reseeded, so a restarted engine samples
         # as a fresh one does (first tokens come from generators seeded by
         # (seed, request id) and never depended on it)
@@ -919,8 +991,9 @@ class ServingEngine:
         SUSPECT (the supervisor's verdict), else UP. Details: slots,
         queue, scheduler, shed estimator, epoch, heartbeat age (running),
         page pool (paged, running), prefix cache, LoRA residency, tenants,
-        the device telemetry's last sample and the supervisor's snapshot.
-        Not yet: the reference's ``dedup``, ``request_latency``,
+        ``request_latency`` (the flight recorder's medians over its
+        completed ring), the device telemetry's last sample and the
+        supervisor's snapshot. Not yet: the reference's ``dedup``,
         ``reclaim`` and ``preemptible`` (their planes are not ported)."""
         stats = self._sched.stats()
         details: dict[str, Any] = {
@@ -943,6 +1016,7 @@ class ServingEngine:
             details["lora"] = self._lora.residency()
         if self._tenants is not None:
             details["tenants"] = self._tenants.snapshot()
+        details["request_latency"] = self.timeline.latency_summary()
         if self.device_telemetry is not None:
             details["device"] = self.device_telemetry.last_sample()
         sup = self._supervisor
@@ -977,6 +1051,7 @@ class ServingEngine:
         stream_cb: Callable[[int, str, bool], None] | None = None,
         tenant: str | None = None,
         adapter_id: str | None = None,
+        trace_ctx: Any = None,
     ) -> concurrent.futures.Future:
         """Thread-safe submit; the Future resolves to a GenerationResult.
         Lower ``priority`` is admitted first. ``deadline`` is the caller's
@@ -988,7 +1063,10 @@ class ServingEngine:
         raises, the request is canceled. ``tenant`` names the tenant whose
         class fills in a priority of 0 and a missing deadline and whose
         token-rate budget is charged; ``adapter_id`` names a registered
-        LoRA adapter. Raises ``ErrorServiceUnavailable`` (503) while
+        LoRA adapter. ``trace_ctx`` is the caller's span: the request's
+        spans (``engine.queue``, then prefill, decode and detok under it)
+        hang off it, and its trace id lands in the request's timeline.
+        Raises ``ErrorServiceUnavailable`` (503) while
         draining or after stop, ``ErrorInvalidParam`` (400) for an unknown
         adapter or one without a registry, ``ErrorTooManyRequests`` (429)
         when shed, over the tenant's budget or when the queue is full."""
@@ -1014,16 +1092,21 @@ class ServingEngine:
         # only waiters of the same or a higher class stand before this one
         # (a batch-class flood sheds batch-class requests, never an
         # interactive one it cannot delay)
-        depth = self._sched.pending()
+        depth = shed_depth = self._sched.pending()
         if self._tenants is not None:
             active = {id(r) for r in self.slots if r is not None}
             with self._count_lock:
-                depth = sum(1 for r in self._by_id.values()
-                            if id(r) not in active and not r.canceled and r.priority <= priority)
-        est_wait = self._shed.estimate_wait(depth, self.config.max_slots)
+                shed_depth = sum(1 for r in self._by_id.values()
+                                 if id(r) not in active and not r.canceled
+                                 and r.priority <= priority)
+        est_wait = self._shed.estimate_wait(shed_depth, self.config.max_slots)
+        if self._metrics:
+            self._metrics.set_gauge("app_estimated_queue_wait_seconds", est_wait)
         shed_cap = self.config.shed_max_wait_s
         missed = deadline is not None and 0 < deadline < est_wait
         if missed or (shed_cap > 0 and est_wait > shed_cap):
+            if self._metrics:
+                self._metrics.increment_counter("app_requests_shed_total")
             raise ErrorTooManyRequests(
                 f"estimated queue wait {est_wait:.2f}s exceeds "
                 + (f"request deadline {deadline:.2f}s" if missed
@@ -1055,6 +1138,9 @@ class ServingEngine:
             # the token-rate budget: prompt plus requested generation
             ok, retry_after = self._tenants.admit(tenant, len(prompt_ids) + max_new)
             if not ok:
+                if self._metrics:
+                    self._metrics.increment_counter("app_requests_shed_total",
+                                                    tenant=tenant or "default")
                 raise ErrorTooManyRequests(
                     f"tenant {tenant or 'default'} over its token-rate budget",
                     retry_after=max(retry_after, 0.05),
@@ -1066,41 +1152,72 @@ class ServingEngine:
                 self._lora.prefetch(adapter_id)
             except UnknownAdapter:  # deregistered since the gate above
                 raise ErrorInvalidParam("adapter_id") from None
+        # the timeline comes before any gate that can still refuse: a
+        # request refused from here on leaves a terminal timeline too (the
+        # except below settles it). Its "submitted" stamp is the request's
+        # creation time
+        tl = self.timeline.begin(rid, prompt_tokens=len(prompt_ids))
+        tl.tenant = tenant
         req = _Request(
             rid, prompt_ids, max_new, float(temperature), int(top_k), float(top_p), stream_cb,
             stop_ids={self.tokenizer.eos_id}, priority=int(priority), deadline=deadline,
+            created=tl.phases["submitted"],
         )
         req.tenant = tenant
         req.adapter_id = adapter_id or None
-        # registration + enqueue are atomic with stop()'s flag and
-        # warm_restart's sweep (the same mutex): either the sweep sees this
-        # request, or this section sees the flag before touching the
-        # scheduler that is about to be replaced. Bounded: a submit stuck
-        # inside a hung scheduler call must not pile every caller up
-        if not self._submit_mu.acquire(timeout=5.0):
-            raise ErrorServiceUnavailable("engine busy; retry on another replica",
-                                          retry_after=1.0)
+        req.trace_ctx = trace_ctx
+        req.timeline = tl
         try:
-            if self._stop_requested:
-                raise ErrorServiceUnavailable("server stopped; retry on another replica",
+            if self._tracer is not None:
+                qspan = self._tracer.start_span("engine.queue", parent=trace_ctx,
+                                                kind="internal", activate=False)
+                qspan.set_attribute("request.id", rid)
+                qspan.set_attribute("tokens.prompt", len(prompt_ids))
+                if tenant:
+                    qspan.set_attribute("tenant", tenant)
+                if adapter_id:
+                    qspan.set_attribute("lora.adapter", adapter_id)
+                tl.open_span("queue", qspan)
+            elif trace_ctx is not None:
+                tl.trace_id = trace_ctx.trace_id
+            # registration + enqueue are atomic with stop()'s flag and
+            # warm_restart's sweep (the same mutex): either the sweep sees
+            # this request, or this section sees the flag before touching
+            # the scheduler that is about to be replaced. Bounded: a submit
+            # stuck inside a hung scheduler call must not pile every caller up
+            if not self._submit_mu.acquire(timeout=5.0):
+                raise ErrorServiceUnavailable("engine busy; retry on another replica",
                                               retry_after=1.0)
-            if self._restarting:
-                raise ErrorServiceUnavailable("engine restarting; retry", retry_after=1.0)
-            with self._count_lock:
-                self._by_id[rid] = req
             try:
-                self._sched.submit(rid, len(prompt_ids), max_new, req.priority)
-            except QueueFull:
+                if self._stop_requested:
+                    raise ErrorServiceUnavailable("server stopped; retry on another replica",
+                                                  retry_after=1.0)
+                if self._restarting:
+                    raise ErrorServiceUnavailable("engine restarting; retry", retry_after=1.0)
                 with self._count_lock:
-                    self._by_id.pop(rid, None)
-                raise ErrorTooManyRequests(retry_after=max(est_wait, 1.0)) from None
-            except RuntimeError:  # a closed scheduler: stop() won the race
-                with self._count_lock:
-                    self._by_id.pop(rid, None)
-                raise ErrorServiceUnavailable("server stopped; retry on another replica",
-                                              retry_after=1.0) from None
-        finally:
-            self._submit_mu.release()
+                    self._by_id[rid] = req
+                try:
+                    self._sched.submit(rid, len(prompt_ids), max_new, req.priority)
+                except QueueFull:
+                    with self._count_lock:
+                        self._by_id.pop(rid, None)
+                    if self._metrics:
+                        self._metrics.increment_counter("app_requests_shed_total")
+                    raise ErrorTooManyRequests(retry_after=max(est_wait, 1.0)) from None
+                except RuntimeError:  # a closed scheduler: stop() won the race
+                    with self._count_lock:
+                        self._by_id.pop(rid, None)
+                    raise ErrorServiceUnavailable("server stopped; retry on another replica",
+                                                  retry_after=1.0) from None
+            finally:
+                self._submit_mu.release()
+        except Exception as exc:
+            # the caller gets the raise; the request id still owes its
+            # terminal timeline, marked through the one settlement gate
+            # (exactly once: a sweep that settled it first wins)
+            self._try_resolve(req, exc=exc)
+            raise
+        self._observe_queue(depth + 1)  # this request just joined the queue
         self._idle.clear()
         self._wake.set()
         return req.future
@@ -1190,6 +1307,8 @@ class ServingEngine:
                     # every row of the in-flight blocks retired meanwhile
                     self._consume(self._inflight.popleft())
                     did = True
+                else:
+                    self._last_consume_t = None  # an idle gap is no block's time
                 # the iteration so far was work; the wake wait is idle
                 self._flush_busy()
                 if not did:
@@ -1214,11 +1333,21 @@ class ServingEngine:
             1 for slot, req in enumerate(self.slots)
             if req is not None and slot not in self._cursors
         )
-        return self._planner.plan(
+        plan = self._planner.plan(
             decode_rows=decode_rows, cursors=list(self._cursors.values()),
             free_slots=sum(1 for s in self.slots if s is None),
             queue_depth=self._sched.pending(),
         )
+        if self._metrics:
+            # set on a change only (the drop back to 0 at idle included):
+            # the steady state costs no per-iteration writes
+            snapshot = (plan.prefill_tokens, decode_rows, len(self._cursors))
+            if snapshot != self._plan_gauges:
+                self._plan_gauges = snapshot
+                self._metrics.set_gauge("app_step_plan_prefill_tokens", plan.prefill_tokens)
+                self._metrics.set_gauge("app_step_plan_decode_rows", decode_rows)
+                self._metrics.set_gauge("app_step_plan_cursors", len(self._cursors))
+        return plan
 
     def _route_chunked(self, prompt_len: int) -> bool:
         """True when a prompt prefills through a chunk cursor and the ragged
@@ -1251,7 +1380,7 @@ class ServingEngine:
         for rid, slot in pairs:
             with self._count_lock:
                 req = self._by_id.get(rid)
-            if req is None or req.canceled or req.expired(time.perf_counter()):
+            if req is None or req.canceled or req.expired(time.monotonic()):
                 sched.release(slot)
                 with self._count_lock:
                     self._by_id.pop(rid, None)
@@ -1260,14 +1389,31 @@ class ServingEngine:
                 elif req is not None:
                     # expired while queued: never prefill it; the caller
                     # gets a 504
+                    if self._metrics:
+                        self._metrics.increment_counter("app_requests_deadline_exceeded_total")
                     self._settle_async(req, exc=ErrorDeadlineExceeded())
                 continue
+            # admission reached: stamp it and end the queue span (the first
+            # stamp wins, so a requeue keeps its first queue wait)
+            tl = req.timeline
+            if tl is not None and "admitted" not in tl.phases:
+                now = time.monotonic()
+                tl.stamp("admitted", now)
+                queue_wait = now - req.created
+                qspan = tl.spans.get("queue")
+                if qspan is not None:
+                    qspan.set_attribute("queue.wait_s", round(queue_wait, 6))
+                    qspan.end()
+                if self._metrics:
+                    labels = {"tenant": req.tenant} if req.tenant else {}
+                    self._metrics.record_histogram("app_request_queue_wait_seconds", queue_wait,
+                                                   **labels)
             try:
                 if self._lora is not None and req.adapter_id:
                     # pin the adapter's table slot for the row's life; the
                     # wait is clamped to what the deadline leaves
                     budget = 5.0
-                    rem = req.remaining(time.perf_counter())
+                    rem = req.remaining(time.monotonic())
                     if rem is not None:
                         budget = min(budget, rem)
                     try:
@@ -1311,6 +1457,7 @@ class ServingEngine:
                 if not isinstance(exc, (ErrorTooManyRequests, ErrorRequestEntityTooLarge)) \
                         and self._kv_unhealthy():
                     self._fail_all(exc, kv_unhealthy=True)
+        self._observe_queue()
         return bool(pairs or canceled_ids)
 
     def _lora_adjusted(self, req: _Request, last_logits: torch.Tensor,
@@ -1352,13 +1499,29 @@ class ServingEngine:
     def _cache_lookup(self, key: str) -> tuple[Any, str]:
         """Prefix-cache lookup with tier attribution: ``(value, tier)``,
         tier ``device``, ``host`` or ``miss``; a single-tier cache reports
-        ``device`` on a hit."""
+        ``device`` on a hit. A hit feeds the timeline's reuse count, which
+        orders the spill tier's demotions."""
         cache = self._prefix_cache
         tiered = getattr(cache, "get_with_tier", None)
         if tiered is not None:
-            return tiered(key)
-        value = cache.get(key)
-        return value, ("device" if value is not None else "miss")
+            value, tier = tiered(key)
+        else:
+            value = cache.get(key)
+            tier = "device" if value is not None else "miss"
+        if value is not None:
+            self.timeline.observe_prefix_reuse(key)
+        return value, tier
+
+    def _record_prefix_tier(self, req: _Request, tier: str) -> None:
+        """The warmest tier that served the request's cached prefix: the
+        timeline's ``prefix_tier`` (the first stamp wins, so a requeue
+        keeps it) and ``app_kv_prefix_hits_total{tier}`` (one per
+        admission walk)."""
+        tl = req.timeline
+        if tl is not None and tl.prefix_tier is None:
+            tl.prefix_tier = tier
+        if self._metrics:
+            self._metrics.increment_counter("app_kv_prefix_hits_total", tier=tier)
 
     def _chunk_cache_keys(self, prompt_ids: list[int],
                           adapter_id: str | None = None) -> list[tuple[int, int, str]]:
@@ -1408,8 +1571,9 @@ class ServingEngine:
         if self._prefix_cache is not None and self._chunk_cache_enabled:
             boundaries = self._chunk_cache_keys(ids, req.adapter_id)
             cache_keys = {(a, b): k for a, b, k in boundaries}
+            tiers: set[str] = set()
             for start, end, key in boundaries:
-                val, _tier = self._cache_lookup(key)
+                val, tier = self._cache_lookup(key)
                 if val is None:
                     break
                 if end >= total and val[0].shape[-1] != self.model_cfg.vocab_size:
@@ -1419,12 +1583,18 @@ class ServingEngine:
                     # token from it
                     break
                 hits.append((start, end, val))
+                tiers.add(tier)
                 pos = end
+            self._record_prefix_tier(
+                req, "host" if "host" in tiers else "device" if hits else "miss")
         if hits and pc is not None:
             try:
                 pc.alloc_slot(slot, seq_id=req.id, prompt_len=0, reserve_tokens=pos)
             except OutOfBlocks:
                 raise _Requeue() from None
+        tl = req.timeline
+        if tl is not None:
+            tl.stamp("prefill_start")
         for start, _end, (_logits, k_slab, v_slab) in hits:
             if pc is not None:
                 pc.write_span(slot, start, k_slab, v_slab)
@@ -1432,15 +1602,27 @@ class ServingEngine:
                 self.cache.k, self.cache.v = batch_ops.insert_chunk(
                     self.cache.k, self.cache.v, k_slab, v_slab, slot, start,
                 )
-        if hits and pc is not None:
-            pc.advance_slot(slot, pos)
+        if hits:
+            if pc is not None:
+                pc.advance_slot(slot, pos)
+            if tl is not None:
+                tl.chunk(0, pos, prefix_hit=True)
+            if self._metrics:
+                self._metrics.record_histogram("app_prefill_chunk_tokens", pos, kind="prefix_hit")
         if pos >= total:
             # the whole prompt is cached at chunk boundaries: sample the
             # first token from the last entry's logits (with the row's
             # adapter delta), as the dispatch that finishes a prompt would,
-            # and admit to decode
-            logits = self._lora_adjusted(req, hits[-1][2][0], ids[-1])
-            first_id = self._first_token(req, logits)
+            # and admit to decode. The span closes after the sync
+            span = self._req_span("prefill", "serve.prefill chunked (prefix hit)", req)
+            if tl is not None:
+                pspan = tl.spans.get("prefill")
+                if pspan is not None:
+                    pspan.set_attribute("prefill.prefix_hit", True)
+                    pspan.set_attribute("prefix_tier", tl.prefix_tier or "device")
+            with span:
+                logits = self._lora_adjusted(req, hits[-1][2][0], ids[-1])
+                first_id = self._first_token(req, logits)
             self._check_retired()
             self._commit_prefilled(slot, req, first_id, total)
             return
@@ -1470,7 +1652,7 @@ class ServingEngine:
             return
         if req.canceled:
             self._retire(slot, "cancel")
-        elif req.expired(time.perf_counter()):
+        elif req.expired(time.monotonic()):
             self._retire(slot, "deadline_exceeded")
         elif cursor.blocked:
             log.info("KV pool short; request %d requeues from chunk 0", req.id)
@@ -1578,6 +1760,11 @@ class ServingEngine:
                 placeholder = torch.zeros((1, 1), dtype=torch.float32, device=self.device)
                 self._prefix_cache.put(key, (placeholder, k_slab, v_slab))
         req.preemptions += 1
+        if req.timeline is not None:
+            req.timeline.stamp(f"preempted:{req.preemptions}")
+        if self._metrics:
+            self._metrics.increment_counter("app_tenant_preemptions_total",
+                                            tenant=req.tenant or "default")
         log.info("preempted request %d (tenant %s, priority %d) after %d tokens; %d resident "
                  "tokens", req.id, req.tenant or "default", req.priority, len(req.tokens), resident)
         self._cursors.pop(slot, None)
@@ -1616,18 +1803,33 @@ class ServingEngine:
                 pc.alloc_slot(slot, seq_id=req.id, prompt_len=S, reserve_tokens=bucket)
             except OutOfBlocks:
                 raise _Requeue() from None
-        cache_key = cached = None
+        cache_key = cached = prefix_tier = None
         if self._prefix_cache is not None:
             # sampling params are not in the key: the entry is the
             # pre-sampling prefill output, shared across temperatures. The
             # adapter id is: a cross-adapter hit is impossible
             digest = hashlib.blake2b(np.asarray(ids, np.int32).tobytes(), digest_size=16)
             cache_key = f"prefill:{bucket}:{S}:{digest.hexdigest()}:{req.adapter_id or '-'}"
-            cached, _tier = self._cache_lookup(cache_key)
+            cached, prefix_tier = self._cache_lookup(cache_key)
+            self._record_prefix_tier(req, prefix_tier)
+        tl = req.timeline
+        if tl is not None:
+            tl.stamp("prefill_start")
+        # the span closes after _first_token's sync, so it covers the
+        # device's work and not only its enqueueing
+        span = self._req_span(
+            "prefill", f"serve.prefill b{bucket}" + (" (prefix hit)" if cached else ""), req)
+        if tl is not None:
+            pspan = tl.spans.get("prefill")
+            if pspan is not None:
+                pspan.set_attribute("prefill.bucket", bucket)
+                pspan.set_attribute("prefill.prefix_hit", cached is not None)
+                pspan.set_attribute("prefix_tier", prefix_tier or "miss")
+                pspan.set_attribute("tokens.prompt", S)
         # the dense cache is bound once, before the long dispatch: after a
         # warm restart replaced this thread, self.cache is the rebuilt one
         dense = self.cache
-        with self._cold_dispatch("prefill", bucket, cached is not None):
+        with span, self._cold_dispatch("prefill", bucket, cached is not None):
             if cached is not None:
                 last_logits, k_slab, v_slab = cached
             else:
@@ -1690,17 +1892,37 @@ class ServingEngine:
     def _commit_first_token(self, slot: int, req: _Request, first_id: int) -> None:
         """The first-token commit both routes share (monolithic prefill,
         and the ragged dispatch that folded the token on the device): TTFT,
-        emission and the one stop/length retire chain."""
+        its stamps and series, emission, the one stop/length retire chain,
+        and the decode span of a row that goes on."""
         self.last_token[slot] = first_id
-        if req.first_token_at is None:  # a resume keeps its first token's TTFT
-            req.first_token_at = time.perf_counter()
-            self._shed.observe_ttft(req.first_token_at - req.created)
+        now = time.monotonic()
+        resumed = req.first_token_at is not None  # a resume keeps its TTFT
+        if not resumed:
+            req.first_token_at = now
+            ttft = now - req.created
+            self._shed.observe_ttft(ttft)
+        tl = req.timeline
+        if tl is not None:
+            # the prefill's end and the first token share the commit (both
+            # after the sync that read the token); the first stamp wins, so
+            # a resume keeps its first token's
+            tl.stamp("prefill_end", now)
+            tl.stamp("first_token", now)
+            tl.end_span("prefill")  # chunk spans end at their own consumes
+        if self._metrics and not resumed:
+            self._metrics.record_histogram("app_ttft_seconds", ttft)
+            labels = {"source": "engine"}
+            if req.tenant:
+                labels["tenant"] = req.tenant
+            self._metrics.record_histogram("app_request_ttft_seconds", ttft, **labels)
         self._emit(req, first_id)
         self._check_retired()
         if first_id in req.stop_ids:
             self._retire(slot, "stop")
         elif len(req.tokens) >= req.max_new_tokens:
             self._retire(slot, "length")
+        elif tl is not None and self._tracer is not None:
+            self._req_span("decode", "serve.decode", req)
 
     # ---------------------------------------------------------------- decode
     def _decode_step(self, plan: StepPlan) -> bool:
@@ -1741,7 +1963,7 @@ class ServingEngine:
         self._pending_admit.clear()  # the host state is authoritative here
 
         rows: list[tuple[int, _Request]] = []
-        now = time.perf_counter()
+        now = time.monotonic()
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -1792,6 +2014,8 @@ class ServingEngine:
         mask = np.zeros(B, bool)
         for slot, _ in rows:
             mask[slot] = True
+        # counted after the pool-pressure fallback may have cleared drafts
+        drafted = int((chunk[mask, 1:] >= 0).sum())
         if self._mask_host is None or not np.array_equal(mask, self._mask_host):
             self._mask_dev = to_device(mask, self.device)
             self._mask_host = mask
@@ -1802,6 +2026,7 @@ class ServingEngine:
         samp = (up(self.temperature), up(self.top_k), up(self.top_p), self._rng)
         chunk_d, start_d = up(chunk), up(np.maximum(self.cache_len, 1))
         dense = self.cache
+        t0 = time.perf_counter()
         with self._cold_dispatch("spec", "dense" if pc is None else "paged",
                                  dense.quantized if pc is None else pc.quantized, K):
             if pc is None:
@@ -1822,13 +2047,14 @@ class ServingEngine:
                     packed, pc.k_pool, pc.v_pool = batch_ops.verify_and_sample_paged(
                         cfg, self.params, pc.k_pool, pc.v_pool, *args,
                     )
-            packed_np = packed.cpu().numpy()  # the step's one host sync
+            packed_np = _block_sync(packed)  # the step's one host sync
         # a warm restart may have replaced this thread while the chunk
         # verified: commit nothing to rebuilt state then
         self._check_retired()
         if new_cache is not None:
             self.cache = new_cache
         self.heartbeat = time.monotonic()  # the sync returned: progress
+        step_time = time.perf_counter() - t0
         out_np, na_np = packed_np[:, :-1], packed_np[:, -1]
 
         accepted = emitted = 0
@@ -1841,6 +2067,8 @@ class ServingEngine:
                 if self.slots[slot] is not req:
                     break  # retired mid-chunk: the tail is discarded
             emitted += committed
+            if req.timeline is not None:
+                req.timeline.block(committed)
             # chunk position 0 (the token emitted last step) and the
             # accepted drafts are now resident; the bonus token becomes the
             # next chunk's position 0
@@ -1851,6 +2079,15 @@ class ServingEngine:
         self.spec_stats["dispatches"] += 1
         self.spec_stats["accepted"] += accepted
         self.spec_stats["emitted"] += emitted
+        if self._metrics:
+            m = self._metrics
+            m.record_histogram("app_tpot_seconds", step_time / max(emitted / len(rows), 1))
+            m.record_histogram("app_decode_block_seconds", step_time)
+            m.set_gauge("app_batch_occupancy", len(rows) / B)
+            if drafted:
+                # over the tokens drafted: sampled rows and empty lookups
+                # must not dilute it
+                m.set_gauge("app_spec_accept_rate", accepted / drafted)
         return True
 
     def _slot_in_flight(self, slot: int, req: _Request) -> bool:
@@ -1905,9 +2142,10 @@ class ServingEngine:
         # a hang at the chaos point can outlive a warm restart: re-check
         # ownership before reading slots or storage that may be rebuilt
         self._check_retired()
+        host_t0 = time.perf_counter()
         pc = self.paged_cache
         N = self._block_steps
-        now = time.perf_counter()
+        now = time.monotonic()
         rows: list[tuple[int, _Request]] = []
         for slot, req in enumerate(self.slots):
             if req is None:
@@ -1974,6 +2212,7 @@ class ServingEngine:
             self._mask_host = mask
         last_logits = None
         new_cache = self.cache
+        t0 = time.perf_counter()
         if chunk_rows:
             # with no decode row the dispatch runs the chunks alone (0 steps)
             steps = N if rows else 0
@@ -2001,6 +2240,9 @@ class ServingEngine:
                         cfg, params, pc.k_pool, pc.v_pool, state, pc.tables_device(),
                         self._mask_dev, N, lora,
                     )
+        # the launch returned: the host is free again (on the card it waited
+        # here only while the launch queue was full)
+        host_s = time.perf_counter() - host_t0
         self._check_retired()  # commit to self only as the loop's owner
         self.cache, self._dec_state = new_cache, new_state
         prefill_rows = []
@@ -2008,12 +2250,23 @@ class ServingEngine:
             if self._prefix_cache is None or not self._chunk_cache_enabled:
                 last_logits = None  # nothing stores them: let the buffer go
             for row, (slot, cursor, req, start, n) in enumerate(chunk_rows):
+                idx = cursor.chunk_index
                 cursor.dispatched = start + n
                 cursor.chunk_index += 1
-                prefill_rows.append((slot, req, cursor, start, n, start + n >= cursor.total, row))
+                fin = start + n >= cursor.total
+                prefill_rows.append((slot, req, cursor, start, n, fin, row, idx))
+                if self._tracer is not None and req.timeline is not None:
+                    # ends at this chunk's consume, after the block's sync
+                    span = self._req_span(f"prefill_chunk:{idx}", "serve.prefill_chunk", req)
+                    span.set_attribute("chunk.index", idx)
+                    span.set_attribute("chunk.tokens", n)
+                    span.set_attribute("chunk.start", start)
+                    span.set_attribute("chunk.final", fin)
+                    span.set_attribute("prefix_tier", req.timeline.prefix_tier or "miss")
         for _, req in rows:
             req.dispatched += steps
-        return _Inflight(packed, rows, steps, prefill_rows, last_logits)
+        return _Inflight(packed, rows, steps, prefill_rows, last_logits, dispatched_at=t0,
+                         host_s=host_s)
 
     @staticmethod
     def _cover_chunk(pc: PagedKVCache, slot: int, cursor: ChunkCursor, n: int) -> bool:
@@ -2100,20 +2353,33 @@ class ServingEngine:
         return packed, last_logits, None, new_state
 
     def _consume(self, rec: _Inflight) -> None:
-        packed = rec.packed.cpu().numpy()  # the block's one host-device sync
+        packed = _block_sync(rec.packed)  # the block's one host-device sync
         # a warm restart may have replaced this thread while it waited: its
         # tokens belong to requests already settled or requeued
         self._check_retired()
         self.heartbeat = time.monotonic()  # the sync returned: progress
+        now = time.perf_counter()
+        # the block's wall time: from the previous consume (the pipeline's
+        # cadence), or from its launch after an idle gap
+        step_time = now - (self._last_consume_t if self._last_consume_t is not None
+                           else rec.dispatched_at)
+        self._last_consume_t = now
+        n_active = 0
         for slot, req in rec.rows:
             if self.slots[slot] is not req:
                 continue  # retired (and maybe re-admitted) since dispatch
+            n_active += 1
             n_valid = int(packed[slot, rec.steps + 1])
             device_done = bool(packed[slot, rec.steps])
+            committed = 0
             for i in range(n_valid):
                 self._commit_token(slot, req, int(packed[slot, i]))
+                committed += 1
                 if self.slots[slot] is not req:
                     break  # retired mid-block: the tail is discarded
+            if req.timeline is not None:
+                # the committed tokens only: a mid-block retire drops the tail
+                req.timeline.block(committed)
             if self.slots[slot] is not req:
                 continue
             self.cache_len[slot] += n_valid
@@ -2132,13 +2398,20 @@ class ServingEngine:
         # residency and feed the chunk-prefix cache; a row whose prompt
         # finished takes its first token from the trailing column of the
         # same packed read
-        for slot, req, cursor, start, n, fin, row in rec.prefill_rows:
+        for slot, req, cursor, start, n, fin, row, idx in rec.prefill_rows:
             if self.slots[slot] is not req or self._cursors.get(slot) is not cursor:
                 continue  # retired or requeued since dispatch: a stale chunk
+            n_active += 1
             cursor.committed = start + n
             self.cache_len[slot] = cursor.committed
             if self.paged_cache is not None:
                 self.paged_cache.advance_slot(slot, n)
+            tl = req.timeline
+            if tl is not None:
+                tl.chunk(idx, n, prefix_hit=False, start=start)
+                tl.end_span(f"prefill_chunk:{idx}")
+            if self._metrics:
+                self._metrics.record_histogram("app_prefill_chunk_tokens", n, kind="compute")
             # only whole-chunk spans have a precomputed key (the planner
             # grants whole chunks from a chunk boundary); a missing key
             # skips the put
@@ -2149,6 +2422,29 @@ class ServingEngine:
             if fin:
                 self._cursors.pop(slot)
                 self._commit_first_token(slot, req, int(packed[slot, rec.steps + 2]))
+        if self._metrics and n_active:
+            self._observe_block(rec, step_time, now, n_active)
+
+    def _observe_block(self, rec: _Inflight, step_time: float, now: float,
+                       n_active: int) -> None:
+        """The block's series, from host values only: its wall time, the
+        host's share of it (``host_s`` and this consume after its sync),
+        occupancy, resident tokens from the host mirror and the detok
+        backlog."""
+        m = self._metrics
+        host_ms = (rec.host_s + (time.perf_counter() - now)) * 1e3
+        # a chunks-only dispatch (0 decode steps) counts as one step
+        steps = max(rec.steps, 1)
+        m.record_histogram("app_tpot_seconds", step_time / steps)
+        m.record_histogram("app_decode_block_seconds", step_time)
+        m.set_gauge("app_batch_occupancy", n_active / self.config.max_slots)
+        m.set_gauge("app_kv_cache_pages_used",
+                    int(sum(int(self.cache_len[s]) for s, _ in rec.rows)))
+        m.set_gauge("app_decode_host_ms_per_step", host_ms / steps)
+        m.set_gauge("app_decode_block_size", rec.steps)
+        with self._detok_mu:
+            depth = self._detok_depth
+        m.set_gauge("app_detok_queue_depth", depth)
 
     def _chunk_entry(self, last_logits: torch.Tensor, row: int, slot: int, start: int,
                      n: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -2172,7 +2468,7 @@ class ServingEngine:
         self._check_retired()
         if req.canceled:
             self._retire(slot, "cancel")
-        elif req.expired(time.perf_counter()):
+        elif req.expired(time.monotonic()):
             self._retire(slot, "deadline_exceeded")
         elif token_id in req.stop_ids:
             self._retire(slot, "stop")
@@ -2227,6 +2523,17 @@ class ServingEngine:
 
     def _retire(self, slot: int, reason: str) -> None:
         req = self.slots[slot]
+        if req is not None and req.timeline is not None:
+            # the decode span's residency, from the host mirrors before the
+            # slot is reclaimed
+            dspan = req.timeline.spans.get("decode")
+            if dspan is not None:
+                resident = int(self.cache_len[slot])
+                dspan.set_attribute("batch.size", sum(1 for s in self.slots if s is not None))
+                dspan.set_attribute("kv.resident_tokens", resident)
+                if self.paged_cache is not None:
+                    page = self.config.kv_page_size
+                    dspan.set_attribute("kv.pages", (resident + page - 1) // page)
         self.slots[slot] = None
         self._cursors.pop(slot, None)
         self._preempt_pending.discard(slot)
@@ -2249,10 +2556,22 @@ class ServingEngine:
         """Settle a request that ran (or was canceled in the queue) with its
         result, behind its token frames on the detok worker."""
         self._flush_busy()  # a settled request implies recorded busy time
-        now = time.perf_counter()
+        now = time.monotonic()
         self._shed.observe_request(now - req.created)
+        if self._metrics:
+            if reason == "deadline_exceeded":
+                self._metrics.increment_counter("app_requests_deadline_exceeded_total")
+            elif reason == "kv_exhausted":
+                self._metrics.increment_counter("app_requests_kv_exhausted_total")
+            labels = {"tenant": req.tenant} if req.tenant else {}
+            self._metrics.record_histogram("app_request_e2e_seconds", now - req.created,
+                                           **labels)
         out_ids = [t for t in req.tokens if t not in req.stop_ids]
         ttft = (req.first_token_at - req.created) if req.first_token_at else 0.0
+        # the off-engine-thread tail (detokenization, the done frame, the
+        # settlement); it ends at the terminal mark
+        if self._tracer is not None:
+            self._req_span("detok", "serve.detok", req)
 
         def build() -> GenerationResult:
             return GenerationResult(
@@ -2273,22 +2592,34 @@ class ServingEngine:
         """The engine thread's terminal settlement: the done frame, then
         the future (with ``build()``'s result, made there, or ``exc``), on
         the detok worker behind the request's token frames; inline once
-        the worker has shut down, so a terminal state is never lost."""
+        the worker has shut down, so a terminal state is never lost. A
+        result's settlement stamps ``detok_done`` there."""
 
         def settle() -> None:
+            value = None if build is None else build()
             if req.stream_cb is not None:
                 try:
                     req.stream_cb(-1, "", True)
                 except Exception:
                     pass  # the client is gone; the future still settles
-            self._try_resolve(req, value=None if build is None else build(), exc=exc)
+            tl = req.timeline
+            if value is not None and tl is not None:
+                tl.stamp("detok_done")
+            if not self._try_resolve(req, value=value, exc=exc) and tl is not None:
+                # a drain or stop sweep settled it first and closed the
+                # spans before this path opened its own: close them again
+                tl.close_spans()
 
         if not self._submit_detok(settle):
             settle()
 
-    @staticmethod
-    def _try_resolve(req: _Request, value: Any = None, exc: Exception | None = None) -> bool:
-        """Resolve a request's future once; a second settler loses quietly."""
+    def _try_resolve(self, req: _Request, value: Any = None,
+                     exc: Exception | None = None) -> bool:
+        """Resolve a request's future once; a second settler loses quietly.
+        The winner, and only the winner, marks the request's timeline
+        terminal and ends its open spans: every request id gets exactly
+        one terminal mark, whichever path (the detok worker, a drain or
+        stop sweep, a refused submit) settles it."""
         try:
             if exc is not None:
                 req.future.set_exception(exc)
@@ -2296,7 +2627,65 @@ class ServingEngine:
                 req.future.set_result(value)
         except concurrent.futures.InvalidStateError:
             return False
+        self._record_terminal(req, value, exc)
         return True
+
+    @staticmethod
+    def _terminal_reason(value: Any, exc: Exception | None) -> str:
+        if value is not None:
+            return getattr(value, "finish_reason", "stop")
+        if isinstance(exc, ErrorDeadlineExceeded):
+            return "deadline_exceeded"
+        if isinstance(exc, ErrorTooManyRequests):
+            return "shed"
+        if isinstance(exc, ErrorServiceUnavailable):
+            return "unavailable"
+        if isinstance(exc, ErrorRequestEntityTooLarge):
+            return "too_large"
+        return "error"
+
+    def _record_terminal(self, req: _Request, value: Any, exc: Exception | None) -> None:
+        tl = req.timeline
+        if tl is None:
+            return
+        dspan = tl.spans.get("decode")
+        if dspan is not None:
+            dspan.set_attribute("tokens.out", len(req.tokens))
+            dspan.set_attribute("decode.blocks", tl.decode_blocks)
+        reason = self._terminal_reason(value, exc)
+        # a snapshot: the engine thread may open a span while a sweep
+        # settles (the opener closes again, in _settle_async)
+        for span in list(tl.spans.values()):
+            if span.end_ns is None:  # an ended span is already exported
+                span.set_attribute("request.finish_reason", reason)
+        self.timeline.finish(tl, reason)
+
+    def _observe_queue(self, depth: int | None = None) -> None:
+        if self._metrics:
+            if depth is None:
+                depth = self._sched.pending()
+            self._metrics.set_gauge("app_batch_queue_depth", depth)
+
+    def _req_span(self, key: str, name: str, req: _Request) -> Any:
+        """Open a span of one request, parented on its queue span (the tree
+        reads caller, ``engine.queue``, then prefill, decode and detok) or
+        on the caller's span, and register it on the request's timeline so
+        the terminal mark ends whatever a fault path left open. A context
+        manager either way (a null one without a tracer); ``activate=False``
+        leaves the engine thread's context alone."""
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        tl = req.timeline
+        parent = (tl.spans.get("queue") if tl is not None else None) or req.trace_ctx
+        span = self._tracer.start_span(name, parent=parent, kind="internal", activate=False)
+        span.set_attribute("request.id", req.id)
+        if req.tenant:
+            span.set_attribute("tenant", req.tenant)
+        if req.adapter_id:
+            span.set_attribute("lora.adapter", req.adapter_id)
+        if tl is not None:
+            tl.open_span(key, span)
+        return span
 
     def _settle_future(self, req: _Request, exc: Exception) -> None:
         """Fail a request from outside the engine thread (drain, stop), and
@@ -2390,6 +2779,7 @@ class ServingEngine:
         self._preempt_pending.clear()
         self._dec_state = None
         self._mask_host = self._mask_dev = None
+        self._last_consume_t = None
         if kv_unhealthy is None:
             kv_unhealthy = self._kv_unhealthy()
         if kv_unhealthy:

@@ -202,8 +202,11 @@ class TieredPrefixCache:
         *,
         reuse_score: Any = None,
         device: str | torch.device | None = None,
+        metrics: Any = None,
     ) -> None:
         self.device = resolve_device(device)  # where a host hit re-uploads to
+        # with a Manager: app_kv_spill_bytes after each completed spill
+        self._metrics = metrics
         self._device = PrefixCache(max_entries, max_bytes=max_bytes, on_evict=self._offer)
         self._host = HostSpillTier(spill_bytes, score=reuse_score)
         self._exec = concurrent.futures.ThreadPoolExecutor(
@@ -293,6 +296,8 @@ class TieredPrefixCache:
             self._host.put(key, host_value)
             with self._pending_mu:
                 self.spilled_total += 1
+            if self._metrics is not None:
+                self._metrics.set_gauge("app_kv_spill_bytes", float(self._host.total_bytes))
         except Exception:
             # a host copy that raises, or the kv.spill chaos point, drops
             # the entry: a later lookup is a compute miss

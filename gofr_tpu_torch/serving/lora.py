@@ -38,9 +38,11 @@ so an upload copies the table (copy-on-write), writes the slot in the
 copy, waits on the worker thread until the copy is on the card, and only
 then swaps the reference. Blocks already dispatched keep the old table.
 
-The upload carries the ``lora.upload`` chaos point. Left out against the
-reference: the residency metrics gauge and ``from_config`` (the
-``TPU_LORA_MAX_ACTIVE`` knob; the caller passes ``max_active``).
+The upload carries the ``lora.upload`` chaos point. With ``metrics=`` (a
+Manager with the serving catalog) each completed upload sets the
+reference's ``app_lora_adapter_residency``. Left out against the
+reference: ``from_config`` (the ``TPU_LORA_MAX_ACTIVE`` knob; the caller
+passes ``max_active``).
 
 Lock discipline: the registry mutex is LEAF-ONLY (never held across a
 device op or a call out); table swaps are reference assignments under it.
@@ -128,11 +130,13 @@ class AdapterRegistry:
     The tables live on ``device``: the card unless ``device="cpu"``.
     """
 
-    def __init__(self, *, max_active: int = 8, device: str | torch.device | None = None) -> None:
+    def __init__(self, *, max_active: int = 8, device: str | torch.device | None = None,
+                 metrics: Any = None) -> None:
         if max_active < 2:
             raise ValueError("TPU_LORA_MAX_ACTIVE must be >= 2 (slot 0 is base)")
         self.max_active = int(max_active)
         self.device = resolve_device(device)
+        self._metrics = metrics
         self._mu = threading.Lock()
         self._adapters: dict[str, LoraAdapter] = {}
         # device residency: adapter_id -> slot, slot -> adapter_id
@@ -268,8 +272,11 @@ class AdapterRegistry:
                     # request was shed or canceled before admission): the
                     # slot must be LRU-recyclable or it would leak
                     self._lru.append(slot)
+                resident = len(self._slot_of)
             else:
                 raise AdapterBusy(f"adapter {adapter_id}: table grew mid-upload")
+        if self._metrics is not None:
+            self._metrics.set_gauge("app_lora_adapter_residency", float(resident))
 
     def _claim_slot_locked(self, adapter_id: str) -> int:
         """Pick the device slot this adapter will occupy: a never-used slot

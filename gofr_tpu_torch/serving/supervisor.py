@@ -21,10 +21,11 @@ and after each host sync; the watchdog thread reads three signals:
 
 States ``UP -> SUSPECT -> RESTARTING -> (UP | WEDGED)`` surface through the
 engine's ``health_check`` (which embeds ``snapshot()``) and, given a
-``metrics`` object with ``set_gauge``/``increment_counter``, three
-metrics: ``app_engine_restarts_total``, ``app_engine_heartbeat_age_seconds``
-and ``app_engine_supervisor_state`` (0 UP / 1 SUSPECT / 2 RESTARTING /
-3 WEDGED). The port registers no metric itself yet.
+``metrics`` object with ``set_gauge``/``increment_counter`` (by default
+the engine's Manager, ``metrics=`` of the engine), three metrics:
+``app_engine_restarts_total``, ``app_engine_heartbeat_age_seconds`` and
+``app_engine_supervisor_state`` (0 UP / 1 SUSPECT / 2 RESTARTING /
+3 WEDGED), registered by ``serving/metrics_catalog.py``.
 
 Restart budget with earn-back: up to ``TPU_ENGINE_RESTART_BUDGET``
 consecutive restarts; ``TPU_ENGINE_RESTART_RESET_S`` of healthy running

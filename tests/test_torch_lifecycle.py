@@ -188,6 +188,7 @@ KNOBS = {  # knob -> (the port's field, a value to set)
     "TPU_SPEC_TOKENS": ("spec_tokens", "4"),
     "TPU_SPEC_NGRAM": ("spec_ngram", "2"),
     "TPU_TENANT_PREEMPT": ("tenant_preempt", "0"),
+    "TPU_REQUESTZ_CAPACITY": ("requestz_capacity", "64"),
 }
 
 

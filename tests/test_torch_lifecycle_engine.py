@@ -253,7 +253,7 @@ def test_mid_stream_deadline_retires_and_reclaims(models, variant):
                     if len(_seen) == 2:
                         with _engine._count_lock:
                             req = _engine._by_id[fut.request_id]
-                        req.deadline = time.perf_counter() - 1.0
+                        req.deadline = time.monotonic() - 1.0
 
             fut = engine.submit("stream me", max_new_tokens=LONG, deadline=60.0, stream_cb=cb)
             outs.append(_outcome(fut))

@@ -76,6 +76,20 @@ def test_entry_points_refuse_without_a_card(no_card):
         params_from_jax({"w": torch.zeros(2).numpy()})
 
 
+def test_rope_table_has_no_host_default(no_card):
+    """``rope_table`` resolves its device as every entry point does: with
+    no device on a host without a card it raises; the CPU is asked for,
+    and the table stays cached per device."""
+    from gofr_tpu_torch.ops.rope import rope_table
+
+    rope_table.cache_clear()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rope_table(64, 16)
+    sin, cos = rope_table(64, 16, 10000.0, "cpu")
+    assert sin.device.type == cos.device.type == "cpu" and sin.shape == (64, 8)
+    assert rope_table(64, 16, 10000.0, "cpu")[0] is sin
+
+
 def test_multi_tenant_modules_are_checked_and_refuse_without_a_card(no_card):
     """The LoRA and tenancy modules are among the files the import rule
     holds, and the adapter registry's tables go to the card unless asked

@@ -66,7 +66,7 @@ LAYOUTS = {
 SIZE = dict(vocab_size=300, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64,
             max_seq_len=64)
 # keys of the reference's health details whose planes the port has not yet
-HEALTH_WAITING = {"dedup", "request_latency", "reclaim", "preemptible"}
+HEALTH_WAITING = {"dedup", "reclaim", "preemptible"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -243,9 +243,10 @@ def _registries(models, jax_side: bool):
 
 def _shared_details(port: dict, ref: dict) -> tuple[dict, dict]:
     """The details both engines report, less wall-clock values: the
-    heartbeat age, the shed estimator's EWMAs (seconds) and the reference's
-    keys whose planes are not ported; the scheduler is the reference's
-    Python one in the port."""
+    heartbeat age, the shed estimator's EWMAs (seconds), the latency
+    medians of ``request_latency`` (its keys and counts are held) and the
+    reference's keys whose planes are not ported; the scheduler is the
+    reference's Python one in the port."""
     assert set(ref) - set(port) <= HEALTH_WAITING, set(ref) - set(port)
     assert set(port) <= set(ref), set(port) - set(ref)
     assert port["scheduler_backend"] == "python"
@@ -254,6 +255,9 @@ def _shared_details(port: dict, ref: dict) -> tuple[dict, dict]:
         d = {k: v for k, v in details.items()
              if k not in ("heartbeat_age_s", "scheduler_backend") and k in port}
         d["shed"] = {"keys": sorted(d["shed"]), "cold_prior_s": d["shed"]["cold_prior_s"]}
+        lat = d["request_latency"]
+        d["request_latency"] = {"keys": sorted(lat), "in_flight": lat["in_flight"],
+                                "completed": lat["completed"]}
         out.append(d)
     return out[0], out[1]
 
