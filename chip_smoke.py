@@ -136,6 +136,25 @@ Phases, each a hard failure with a non-zero exit:
    dispatches and the ``_first_token`` syncs to the monolithic
    admissions, sync warnings a dispatch equal to the twin's, greedy tokens
    equal to the twin's, flash and int8 paged launches;
+   then the HA and cross-replica KV phase, at full depth, engines built
+   two at a time over the one weight set, each second engine's
+   ``memory_allocated`` held to its KV:
+   - ``A1`` paged int8 (4096, 32-token pages, a 16-frame replay window): 8
+     threads submit one 200-token prompt under one key (one admission, one
+     terminal mark, 8 equal results, 7 registry hits, 32 flash launches);
+     a keyed stream dropped at frame 10, orphaned and resumed (frames
+     11…N+1 once, the joined stream equal to the result); a resume behind
+     the window (``ReplayGap``, a 404); an orphan canceled within its grace
+     plus a block; a fenced zombie after ``warm_restart`` (409, no id);
+   - ``M`` paged bf16 (2048, 16-token pages, 64-entry prefix caches): a
+     destination whose ``KVMigrator`` holds the source serves its
+     1000-token chunked and 200-token prompts with no prefill compute and
+     no flash launch, the source's tokens and ``app_kv_migrations_total``
+     2; a ``kv.migrate`` fault computes what was not fetched;
+   - ``D`` dense bf16 (2048): a ``prefill_only`` request on a prefill
+     engine retires ``"handoff"`` with no emission and no decode; a decode
+     engine's ``handoff_from`` serves the unified engine's tokens with no
+     prefill compute; a ``kv.handoff`` fault re-prefills;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -3167,6 +3186,10 @@ def run_observability(torch, cfg, params) -> dict:
         cold_chunks={"cold777": 4, "cold1000": 4, **{f"bulk{i}": 3 for i in range(OBS_BULK)}},
         want_tiers={"cold200": "miss", "cold1000": "miss", "hit200": "device",
                     "hit1000": "device"})
+    for role in ("engine", "twin"):
+        turns = o1[role]["timing"]
+        print(f"  O1 {role}: {sum(t['sync_warnings'] for t in turns)} sync warnings over "
+              f"{sum(t['dispatches'] for t in turns)} timing dispatches ({card})")
     if o1["engine"]["checks"]["preemptions"] != {"bulk": 1.0} or \
             o1["engine"]["checks"]["shed"].get("metered") != 1.0:
         raise AssertionError(f"O1: preemptions {o1['engine']['checks']['preemptions']}, "
@@ -3189,7 +3212,447 @@ def run_observability(torch, cfg, params) -> dict:
     return out
 
 
-def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict]:
+# ------------------------------------------------------------------------ HA
+HA_STORM = 8  # A1: threads that submit one key at once
+HA_WINDOW = 16  # A1: the replay window, in frames
+HA_GRACE_S = 2.0  # A1: the orphan grace
+HA_NEW = 16  # M and D: new tokens a request
+
+
+def kv_bytes(engine) -> int:
+    """Bytes of an engine's KV storage: the page pool or the slot cache,
+    K, V and (on int8) their scales."""
+    holder = engine.paged_cache if engine.paged_cache is not None else engine.cache
+    names = ("k_pool", "v_pool", "ks_pool", "vs_pool") if engine.paged_cache is not None \
+        else ("k", "v", "ks", "vs")
+    return sum(t.numel() * t.element_size() for t in
+               (getattr(holder, n, None) for n in names) if t is not None)
+
+
+def build_engine(torch, cfg, params, conf: dict, mem: dict, label: str, **kw):
+    """A port engine on the card over the shared weights, with
+    ``memory_allocated`` before and after it: an engine adds its KV and
+    nothing of the weights (within 64 MiB: the rope table, host mirrors'
+    device twins, the decode generator)."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(cfg.vocab_size),
+                           seed=SEED, **kw)
+    torch.cuda.synchronize()
+    added, kv = torch.cuda.memory_allocated() - before, kv_bytes(engine)
+    mem[label] = {"added_mib": added / 2**20, "kv_mib": kv / 2**20}
+    print(f"  {label}: memory_allocated +{added / 2**20:.1f} MiB on building it, its KV "
+          f"{kv / 2**20:.1f} MiB")
+    if added > kv + (64 << 20):
+        raise AssertionError(f"{label} added {added / 2**20:.1f} MiB, its KV is "
+                             f"{kv / 2**20:.1f} MiB: the weights are not shared")
+    return engine
+
+
+class DispatchSpy:
+    """Counts one engine's prefill computes (on its loop thread), ragged
+    dispatches with their decode steps, and decode blocks while open."""
+
+    def __init__(self, engine) -> None:
+        from gofr_tpu_torch.serving import batch as batch_ops
+
+        self.n = {"prefill": 0, "ragged": 0, "ragged_decode_steps": 0, "decode_blocks": 0}
+        self._engine, self._mod = engine, batch_ops
+        self._real = {n: getattr(batch_ops, n) for n in
+                      ("prefill_compute", "decode_block", "decode_block_paged",
+                       "decode_block_paged_q")}
+        real_ragged = engine._dispatch_ragged
+
+        def wrap(name, key):
+            def fn(*a, **k):
+                if threading.current_thread() is engine._thread:
+                    self.n[key] += 1
+                return self._real[name](*a, **k)
+            return fn
+
+        setattr(batch_ops, "prefill_compute", wrap("prefill_compute", "prefill"))
+        for name in ("decode_block", "decode_block_paged", "decode_block_paged_q"):
+            setattr(batch_ops, name, wrap(name, "decode_blocks"))
+
+        def ragged(state, chunk_rows, steps):
+            self.n["ragged"] += 1
+            self.n["ragged_decode_steps"] += steps
+            return real_ragged(state, chunk_rows, steps)
+
+        engine._dispatch_ragged = ragged
+
+    def close(self) -> None:
+        for name, fn in self._real.items():
+            setattr(self._mod, name, fn)
+        del self._engine._dispatch_ragged
+
+
+def ha_a1(torch, cfg, params, prompt, mem: dict) -> dict:
+    """A1, paged int8 (4096, 32-token pages, 256-token chunks, 8 slots,
+    N = 4, a 16-frame replay window): a keyed storm, a dropped and resumed
+    stream, a resume behind the window, an orphan reaped, a fenced zombie
+    after a warm restart."""
+    from gofr_tpu_torch import ErrorEntityNotFound, ErrorStaleEpoch
+    from gofr_tpu_torch.serving import ReplayGap
+
+    conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32,
+                kv_dtype="int8", multi_step=4, prefill_chunk_tokens=256,
+                stream_replay_tokens=HA_WINDOW, stream_orphan_grace_s=HA_GRACE_S)
+    print(f"engine A1: paged int8 page=32 max_seq_len=4096 chunk=256, 8 slots, {cfg.n_layers} "
+          f"layers, a {HA_WINDOW}-frame replay window")
+    engine = build_engine(torch, cfg, params, conf, mem, "A1")
+    out: dict = {}
+    engine.start()
+    try:
+        # 8 threads, one key, a 200-token prompt sampled at T 0.8
+        storm = prompt(200)
+        admitted, done0 = engine._sched.stats()["total_admitted"], \
+            engine.timeline.snapshot()["completed_count"]
+        barrier, results, errors = threading.Barrier(HA_STORM), [None] * HA_STORM, []
+        mark = launch_counts()
+
+        def submit(i):
+            try:
+                barrier.wait(60)
+                results[i] = engine.submit(storm, max_new_tokens=32, temperature=0.8, top_k=50,
+                                           top_p=0.95, idempotency_key="a1-storm").result(600)
+            except BaseException as exc:  # noqa: BLE001 - raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(HA_STORM)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if errors:
+            raise AssertionError(f"A1 storm: {errors[0]!r}")
+        wait_until(lambda: engine.timeline.snapshot()["completed_count"] > done0, 60,
+                   "A1's storm terminal mark")
+        launches = since(mark)
+        tl = engine.timeline.get(results[0].request_id)
+        stats = engine.dedup_stats()
+        out["storm"] = {
+            "admissions": engine._sched.stats()["total_admitted"] - admitted,
+            "timelines": engine.timeline.snapshot()["completed_count"] - done0,
+            "terminal_marks": tl.terminal_marks,
+            "identical": sum(r.token_ids == results[0].token_ids for r in results),
+            "hits": stats["hits_live"] + stats["hits_terminal"], "launches": launches,
+            "tokens": len(results[0].token_ids)}
+        print(f"  A1 storm: {out['storm']}")
+        s = out["storm"]
+        if (s["admissions"], s["timelines"], s["terminal_marks"], s["identical"], s["hits"]) != \
+                (1, 1, 1, HA_STORM, HA_STORM - 1) or launches["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"A1 storm: {s}")
+
+        # a keyed 64-token stream dropped at its 10th frame, orphaned, resumed
+        owner, at_ten, resumed = [], threading.Event(), threading.Event()
+
+        def owner_cb(token_id, piece, done):
+            owner.append((token_id, done))
+            if len(owner) == 10:
+                at_ten.set()
+                resumed.wait(60)  # the client is gone; its frames stop here
+
+        fut = engine.submit(prompt(100), max_new_tokens=64, idempotency_key="a1-resume",
+                            stream_cb=owner_cb)
+        wait_until(at_ten.is_set, 600, "A1's stream at frame 10")
+        engine.orphan(fut.request_id, grace_s=HA_GRACE_S)
+        frames = []
+        t0 = time.perf_counter()
+        rfut = engine.resume("a1-resume", last_seq=10,
+                             stream_cb=lambda s_, t_, p_, d_: frames.append((s_, t_, d_)))
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        resumed.set()
+        r = rfut.result(600)
+        wait_until(lambda: frames and frames[-1][2], 60, "A1's resumed terminal frame")
+        n = len(r.token_ids)
+        seqs = [f[0] for f in frames]
+        joined = [t for t, _ in owner[:10]] + [t for _, t, d in frames if not d]
+        out["resume"] = {"ms": resume_ms, "tokens": n, "frames": len(frames),
+                         "first_seq": seqs[0], "last_seq": seqs[-1],
+                         "once": seqs == list(range(11, n + 2)), "identical": joined == r.token_ids,
+                         "same_future": rfut is fut}
+        print(f"  A1 resume at last_seq=10: {out['resume']}")
+        if not (out["resume"]["once"] and out["resume"]["identical"] and rfut is fut):
+            raise AssertionError(f"A1 resume: {out['resume']}")
+
+        # a resume behind the 16-frame window: ReplayGap, a 404 at the wire
+        at_forty, go = threading.Event(), threading.Event()
+        count = [0]
+
+        def windowed_cb(token_id, piece, done):
+            count[0] += not done
+            if count[0] == 40:
+                at_forty.set()
+                go.wait(60)
+
+        fut = engine.submit(prompt(100), max_new_tokens=48, idempotency_key="a1-window",
+                            stream_cb=windowed_cb)
+        wait_until(at_forty.is_set, 600, "A1's windowed stream at frame 40")
+        try:
+            gap = None
+            try:
+                engine._dedup.lookup("a1-window").replay.attach(2, lambda *a: None)
+            except ReplayGap as exc:
+                gap = exc
+            try:
+                engine.resume("a1-window", last_seq=2, stream_cb=lambda *a: None)
+                wire = None
+            except ErrorEntityNotFound as exc:
+                wire = (exc.status_code, exc.name)
+        finally:
+            go.set()
+        fut.result(600)
+        out["window"] = {"replay_gap": repr(gap), "wire": wire}
+        print(f"  A1 resume behind the window: {out['window']}")
+        if gap is None or wire != (404, "replay window"):
+            raise AssertionError(f"A1 window: {out['window']}")
+
+        # an orphan with no resume: canceled within grace plus one block
+        started = threading.Event()
+        fut = engine.submit(prompt(100), max_new_tokens=400, idempotency_key="a1-orphan",
+                            stream_cb=lambda t, p, d: started.set())
+        wait_until(started.is_set, 600, "A1's orphan stream")
+        t0 = time.monotonic()
+        engine.orphan(fut.request_id)  # the config's grace, 2 s
+        r = fut.result(600)
+        settle_s = time.monotonic() - t0
+        step_s = (r.duration_s - r.ttft_s) / max(len(r.token_ids) - 1, 1)
+        check_clean(engine, "A1 orphan")
+        out["orphan"] = {"reason": r.finish_reason, "tokens": len(r.token_ids),
+                         "settled_after_s": settle_s, "block_s": 4 * step_s}
+        print(f"  A1 orphan: {out['orphan']} (grace {HA_GRACE_S} s)")
+        if r.finish_reason != "cancel" or settle_s > HA_GRACE_S + 4 * step_s + 0.25:
+            raise AssertionError(f"A1 orphan: {out['orphan']}")
+
+        # a zombie with the epoch from before a warm restart
+        old = engine.epoch
+        if not engine.warm_restart(join_timeout=30.0):
+            raise AssertionError("A1: warm_restart stood down")
+        ids = engine._next_id
+        try:
+            engine.submit(prompt(20), max_new_tokens=4, fence_epoch=old,
+                          idempotency_key="a1-zombie")
+            fenced = None
+        except ErrorStaleEpoch as exc:
+            fenced = exc.status_code
+        fresh = engine.submit(prompt(20), max_new_tokens=4, fence_epoch=engine.epoch).result(600)
+        out["fence"] = {"status": fenced, "ids_taken": engine._next_id - ids - 1,
+                        "epochs": (old, engine.epoch), "fresh": fresh.finish_reason,
+                        "dedup": engine.dedup_stats()}
+        print(f"  A1 fence: {out['fence']}")
+        if fenced != 409 or out["fence"]["ids_taken"] != 0:
+            raise AssertionError(f"A1 fence: {out['fence']}")
+        out["launches"] = since(mark)
+    finally:
+        engine.stop()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def ha_m(torch, cfg, params, prompt, mem: dict) -> dict:
+    """M, paged bf16 (2048, 16-token pages, 256-token chunks, 64-entry
+    prefix caches): a source serves a 1000-token chunked prompt and a
+    200-token whole one; a destination whose migrator holds the source
+    serves both with no prefill compute; then a kv.migrate fault on a
+    prompt that shares the first two chunks."""
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.metrics import new_metrics_manager
+    from gofr_tpu_torch.serving import (KVMigrator, PrefixIndex, local_engine_fetcher,
+                                        register_serving_metrics)
+
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=256, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
+    print(f"engines M: paged bf16 page=16 max_seq_len=2048 chunk=256, 64-entry prefix caches, "
+          f"{cfg.n_layers} layers: a source and a destination migrating from it")
+    manager = register_serving_metrics(new_metrics_manager())
+    index = PrefixIndex()
+    migrator = KVMigrator("dst", index, metrics=manager)
+    src = build_engine(torch, cfg, params, conf, mem, "M source")
+    dst = build_engine(torch, cfg, params, conf, mem, "M destination", kv_migrator=migrator,
+                       metrics=manager)
+    migrator.add_peer("src", local_engine_fetcher(src))
+    long_p, short_p = prompt(1000), prompt(200)
+    shared = long_p[:512] + prompt(488)  # two chunks shared with long_p
+    out: dict = {}
+    src.start(), dst.start()
+    try:
+        mark0 = mark = launch_counts()
+        cold = {name: src.submit(p, max_new_tokens=HA_NEW).result(600)
+                for name, p in (("long", long_p), ("short", short_p))}
+        out["source_launches"] = since(mark)
+        print(f"  M source, cold: {out['source_launches']}")
+        if out["source_launches"]["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"M source launches {out['source_launches']}: the 200-token "
+                                 "prompt prefills whole, one flash launch a layer")
+        index.observe("src", 1, src.prefix_advertisement(256))
+        spy, mark = DispatchSpy(dst), launch_counts()
+        try:
+            warm = {name: dst.submit(p, max_new_tokens=HA_NEW).result(600)
+                    for name, p in (("long", long_p), ("short", short_p))}
+            counts = dict(spy.n)
+        finally:
+            spy.close()
+        launches = since(mark)
+        tiers = {name: dst.timeline.get(r.request_id).prefix_tier for name, r in warm.items()}
+        migrations = manager.get("app_kv_migrations_total").value()
+        out["migrated"] = {
+            "equal": {n: warm[n].token_ids == cold[n].token_ids for n in warm},
+            "ttft_ms": {n: (cold[n].ttft_s * 1e3, warm[n].ttft_s * 1e3) for n in warm},
+            "dispatches": counts, "launches": launches, "tiers": tiers,
+            "app_kv_migrations_total": migrations}
+        print(f"  M migrated: {out['migrated']}")
+        for n in warm:
+            print(f"  M TTFT {n} prompt: cold {cold[n].ttft_s * 1e3:.2f} ms on the source, "
+                  f"migrated {warm[n].ttft_s * 1e3:.2f} ms on the destination")
+        if not all(out["migrated"]["equal"].values()) or counts["prefill"] or counts["ragged"] \
+                or launches["flash_attention"] or not launches["paged_decode_attention"] \
+                or migrations != 2 or set(tiers.values()) != {"remote"}:
+            raise AssertionError(f"M migrated: {out['migrated']}")
+        want = src.submit(shared, max_new_tokens=HA_NEW).result(600)
+        index.observe("src", 2, src.prefix_advertisement(256))
+        spy = DispatchSpy(dst)
+        try:
+            with chaos.active(chaos.ChaosInjector(SEED, {"kv.migrate": 1.0}, max_faults=1)):
+                got = dst.submit(shared, max_new_tokens=HA_NEW).result(600)
+            counts = dict(spy.n)
+        finally:
+            spy.close()
+        tl = dst.timeline.get(got.request_id)
+        chunks = [(c["start"], c["tokens"], c["prefix_hit"]) for c in tl.prefill_chunks]
+        out["fault"] = {"equal": got.token_ids == want.token_ids, "chunks": chunks,
+                        "dispatches": counts, "failed_fetches": migrator.failed_fetches_total,
+                        "app_kv_migrations_total": manager.get("app_kv_migrations_total").value()}
+        print(f"  M kv.migrate fault: {out['fault']}")
+        if not out["fault"]["equal"] or chunks[0] != (0, 512, True) \
+                or sum(c[1] for c in chunks if not c[2]) != 488 or migrator.failed_fetches_total != 1:
+            raise AssertionError(f"M fault: {out['fault']}")
+        out["launches"] = since(mark0)
+    finally:
+        src.stop(), dst.stop()
+    del src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def ha_d(torch, cfg, params, prompt, mem: dict) -> dict:
+    """D, dense bf16 (the reference's default layout; 2048, 256-token
+    chunks, 64-entry prefix caches): a unified engine's tokens first, then
+    a prefill engine and a decode engine; the handoff, then a kv.handoff
+    fault on a second prompt."""
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.metrics import new_metrics_manager
+    from gofr_tpu_torch.serving import (KVMigrator, PrefixIndex, local_engine_fetcher,
+                                        register_serving_metrics)
+
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="dense", multi_step=4,
+                prefill_chunk_tokens=256, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
+    print(f"engines D: dense bf16 max_seq_len=2048 chunk=256, 64-entry prefix caches, "
+          f"{cfg.n_layers} layers: unified, then prefill and decode roles")
+    p1, p2 = prompt(1000), prompt(1000)
+    out: dict = {}
+    unified = build_engine(torch, cfg, params, conf, mem, "D unified")
+    unified.start()
+    try:
+        want = [unified.submit(p, max_new_tokens=HA_NEW).result(600) for p in (p1, p2)]
+    finally:
+        unified.stop()
+    del unified
+    torch.cuda.empty_cache()
+    manager = register_serving_metrics(new_metrics_manager())
+    migrator = KVMigrator("decode", PrefixIndex(), metrics=manager)
+    pre = build_engine(torch, cfg, params, {**conf, "role": "prefill"}, mem, "D prefill")
+    dec = build_engine(torch, cfg, params, {**conf, "role": "decode"}, mem, "D decode",
+                       kv_migrator=migrator, metrics=manager)
+    migrator.add_peer("prefill", local_engine_fetcher(pre))
+    pre.start(), dec.start()
+    try:
+        frames = []
+        spy, mark = DispatchSpy(pre), launch_counts()
+        try:
+            r = pre.submit(p1, max_new_tokens=HA_NEW, prefill_only=True,
+                           stream_cb=lambda t, p, d: frames.append((t, d))).result(600)
+            pcounts = dict(spy.n)
+        finally:
+            spy.close()
+        out["prefill_only"] = {"reason": r.finish_reason, "tokens": len(r.token_ids),
+                               "frames": frames, "dispatches": pcounts, "launches": since(mark)}
+        print(f"  D prefill_only: {out['prefill_only']}")
+        if r.finish_reason != "handoff" or r.token_ids or frames != [(-1, True)] \
+                or pcounts["decode_blocks"] or pcounts["ragged_decode_steps"]:
+            raise AssertionError(f"D prefill_only: {out['prefill_only']}")
+        spy, mark = DispatchSpy(dec), launch_counts()
+        try:
+            got = dec.submit(p1, max_new_tokens=HA_NEW, handoff_from="prefill").result(600)
+            dcounts = dict(spy.n)
+        finally:
+            spy.close()
+        handoffs = manager.get("app_kv_handoffs_total").value()
+        out["handoff"] = {"equal": got.token_ids == want[0].token_ids, "dispatches": dcounts,
+                          "tier": dec.timeline.get(got.request_id).prefix_tier,
+                          "ttft_ms": (want[0].ttft_s * 1e3, got.ttft_s * 1e3),
+                          "app_kv_handoffs_total": handoffs, "launches": since(mark)}
+        print(f"  D handoff: {out['handoff']}")
+        print(f"  D TTFT 1000-token prompt: unified {want[0].ttft_s * 1e3:.2f} ms, handed off "
+              f"{got.ttft_s * 1e3:.2f} ms")
+        if not out["handoff"]["equal"] or dcounts["prefill"] or dcounts["ragged"] \
+                or handoffs != 1 or out["handoff"]["tier"] != "remote":
+            raise AssertionError(f"D handoff: {out['handoff']}")
+        pre.submit(p2, max_new_tokens=HA_NEW, prefill_only=True).result(600)
+        spy = DispatchSpy(dec)
+        try:
+            with chaos.active(chaos.ChaosInjector(SEED, {"kv.handoff": 1.0}, max_faults=1)):
+                got2 = dec.submit(p2, max_new_tokens=HA_NEW, handoff_from="prefill").result(600)
+            fcounts = dict(spy.n)
+        finally:
+            spy.close()
+        out["fault"] = {"equal": got2.token_ids == want[1].token_ids, "dispatches": fcounts,
+                        "tier": dec.timeline.get(got2.request_id).prefix_tier,
+                        "app_kv_handoffs_total": manager.get("app_kv_handoffs_total").value(),
+                        "failed_fetches": migrator.failed_fetches_total}
+        print(f"  D kv.handoff fault: {out['fault']}")
+        if not out["fault"]["equal"] or fcounts["ragged"] < 4 or out["fault"]["tier"] != "miss" \
+                or out["fault"]["app_kv_handoffs_total"] != 1:
+            raise AssertionError(f"D fault: {out['fault']}")
+    finally:
+        pre.stop(), dec.stop()
+    del pre, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_ha(torch, cfg, params) -> dict:
+    """The HA and cross-replica KV phase at Llama-3-8B widths and full
+    depth, engines built two at a time over the one weight set: A1 keyed
+    submits, resume, orphan and fencing on paged int8; M KV migration on
+    paged bf16; D the P/D handoff on dense bf16."""
+    rng = torch.Generator().manual_seed(SEED + 6)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    t0 = time.perf_counter()
+    mem: dict = {}
+    out = {"card": card_line()}
+    for name, fn in (("A1", ha_a1), ("M", ha_m), ("D", ha_d)):
+        out[name] = fn(torch, cfg, params, prompt, mem)
+    out["memory"] = mem
+    out["seconds"] = time.perf_counter() - t0
+    launches = {name: out[name].get("launches", {}) for name in ("A1", "M")}
+    for name, ln in launches.items():
+        print_launches(name, ln)
+    print(f"  ha: {out['seconds']:.1f}s ({out['card']})")
+    if not (launches["A1"].get("paged_decode_attention_q") and launches["M"].get("flash_attention")
+            and launches["M"].get("paged_decode_attention")):
+        raise AssertionError(f"ha launches {launches}")
+    return out
+
+
+def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -3276,7 +3739,11 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict]:
     print("observability phase (metrics, tracing, timelines, each engine beside a bare twin, "
           "full depth):")
     observability = run_observability(torch, cfg, params)
-    return launches, timings, lifecycle, reuse, tenancy, healing, observability
+    torch.cuda.empty_cache()
+    print("HA and cross-replica KV phase (keyed submits, resume, orphan, fencing, KV migration, "
+          "P/D handoff, full depth):")
+    ha = run_ha(torch, cfg, params)
+    return launches, timings, lifecycle, reuse, tenancy, healing, observability, ha
 
 
 def main() -> int:
@@ -3309,7 +3776,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = check_kernels(torch, gen)
 
-    launches, engine_timings, lifecycle, reuse, tenancy, healing, observability = run_engine(torch)
+    (launches, engine_timings, lifecycle, reuse, tenancy, healing, observability,
+     ha) = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:
@@ -3323,6 +3791,7 @@ def main() -> int:
     print(json.dumps({"lora_tenancy": tenancy}))
     print(json.dumps({"healing": healing}, default=str))
     print(json.dumps({"observability": observability}, default=str))
+    print(json.dumps({"ha": ha}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

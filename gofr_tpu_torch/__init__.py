@@ -11,9 +11,11 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 
 from gofr_tpu_torch.errors import (
     ErrorDeadlineExceeded,
+    ErrorEntityNotFound,
     ErrorInvalidParam,
     ErrorRequestEntityTooLarge,
     ErrorServiceUnavailable,
+    ErrorStaleEpoch,
     ErrorTooManyRequests,
     HTTPError,
 )
@@ -21,7 +23,8 @@ from gofr_tpu_torch.models.llama import LlamaConfig
 from gofr_tpu_torch.serving.engine import EngineConfig, GenerationResult, ServingEngine
 
 __all__ = [
-    "EngineConfig", "ErrorDeadlineExceeded", "ErrorInvalidParam", "ErrorRequestEntityTooLarge",
-    "ErrorServiceUnavailable", "ErrorTooManyRequests", "GenerationResult", "HTTPError",
+    "EngineConfig", "ErrorDeadlineExceeded", "ErrorEntityNotFound", "ErrorInvalidParam",
+    "ErrorRequestEntityTooLarge", "ErrorServiceUnavailable", "ErrorStaleEpoch",
+    "ErrorTooManyRequests", "GenerationResult", "HTTPError",
     "LlamaConfig", "ServingEngine",
 ]

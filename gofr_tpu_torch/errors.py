@@ -101,11 +101,37 @@ class ErrorDeadlineExceeded(HTTPError):
 
 class ErrorInvalidParam(HTTPError):
     """400: a client error in the named parameters (an unknown LoRA
-    adapter, an adapter on an engine without a registry, a prompt token
-    outside the vocabulary); never retriable."""
+    adapter, an adapter on an engine without a registry, an empty prompt
+    or a prompt token outside the vocabulary, a negative
+    ``max_new_tokens``); never retriable."""
 
     status_code = 400
 
     def __init__(self, *params: str) -> None:
         self.params = list(params)
         super().__init__(f"'{len(self.params)}' invalid parameter(s): {', '.join(self.params)}")
+
+
+class ErrorEntityNotFound(HTTPError):
+    """404: nothing under that name (a resume of an idempotency key this
+    replica never saw, or whose replay window lost the frames asked for)."""
+
+    status_code = 404
+
+    def __init__(self, name: str = "entity", value: str = "") -> None:
+        self.name, self.value = name, value
+        super().__init__(f"No entity found with {name}: {value}")
+
+
+class ErrorStaleEpoch(HTTPError):
+    """409: the caller presented a fence epoch that is not the replica's
+    current one. It acts on a view from before a ``warm_restart``, so its
+    view of the scheduler, the KV residency and the request registry is
+    stale. Not retriable as it stands: the caller refreshes its view (the
+    heartbeat carries the current epoch) first."""
+
+    status_code = 409
+
+    @classmethod
+    def default_message(cls) -> str:
+        return "stale fence epoch; refresh membership and retry"

@@ -15,8 +15,13 @@ NEG_INF = -1e30
 
 
 def _rows(x, ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A scalar or [B] parameter as a [B, 1] tensor on ref's device."""
-    t = torch.as_tensor(x, dtype=dtype, device=ref.device)
+    """A scalar or [B] parameter as a [B, 1] tensor on ref's device. A
+    Python scalar becomes a [1, 1] fill made on the device: uploading it
+    would be a synchronizing host copy on the card."""
+    if not isinstance(x, torch.Tensor):
+        value = float(x) if dtype.is_floating_point else int(x)
+        return torch.full((1, 1), value, dtype=dtype, device=ref.device)
+    t = x.to(dtype=dtype, device=ref.device)
     return t.reshape(1, 1) if t.ndim == 0 else t[:, None]
 
 

@@ -167,10 +167,40 @@ is the host's time per step: the dispatch's assembly and launch
 blocks a launch while the CUDA launch queue is full, so on a long block
 that launch time can include device time.
 
-Not ported yet: dedup/HA (``check_fence`` on the epoch, ``resume``,
-``orphan``), reclamation, P/D disaggregation, KV migration and the prefix
-advertisement; the ``/metrics`` and ``/requestz`` routes and log
-correlation wait for the HTTP bindings.
+The HA plane: ``submit(fence_epoch=)`` and ``cancel(fence_epoch=)``
+check the caller's epoch against ``epoch`` (``check_fence``) before
+anything else, so a router acting on a view from before a warm restart
+gets a 409 and takes no request id. ``submit(idempotency_key=)`` is
+exactly-once through the :class:`~gofr_tpu_torch.serving.dedup.DedupRegistry`:
+the owner's frames go through a seq-numbered
+:class:`~gofr_tpu_torch.serving.dedup.ReplayStream` (tokens ``1..N``, the
+terminal ``N+1``, on the detok worker for every settlement path), a
+duplicate attaches to the live future (and replays what its stream has
+not seen) or replays the stored terminal, and the settlement gate keeps a
+result and forgets a failure. ``resume(key, last_seq=)`` replays the
+unseen suffix token-identically and rides the generation on (404 past the
+replay window), and ``orphan(rid, grace_s=)`` lets a keyed stream whose
+last client vanished run on for a grace before a reaper cancels it.
+
+Cross-replica KV (``kv_migrator=``, a
+:class:`~gofr_tpu_torch.serving.prefix_index.KVMigrator`, with a prefix
+cache): a local miss asks the migrator for the whole-prompt entry or for
+the rest of the chunk chain from the replica that advertises it
+(``prefix_advertisement`` is this engine's side of the index), uploads it
+``non_blocking`` and puts it into the local cache; the tier is
+``remote``. Every failure (a stale advertisement, a dead peer, a
+``kv.migrate`` fault) is a compute miss of what was not fetched. P/D
+disaggregation: ``submit(prefill_only=True)`` computes the prompt's KV
+into the prefix cache and retires with ``"handoff"`` at its first token,
+emitting nothing; ``submit(handoff_from=replica)`` fetches the whole
+chain from that replica first (``kv.handoff``: a complete chain or
+nothing, then the advisory fetch, then compute). On int8 KV only the
+whole-prompt entry migrates, as the reference keeps no chunk cache there.
+``role`` is the replica's (``TPU_REPLICA_ROLE``).
+
+Not ported yet: reclamation; the ``/metrics``, ``/requestz`` and
+``/kv/fetch`` routes, the remote streaming client and log correlation
+wait for the HTTP bindings.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -195,16 +225,19 @@ from gofr_tpu_torch import chaos
 from gofr_tpu_torch._device import resolve_device, to_device
 from gofr_tpu_torch.errors import (
     ErrorDeadlineExceeded,
+    ErrorEntityNotFound,
     ErrorInvalidParam,
     ErrorRequestEntityTooLarge,
     ErrorServiceUnavailable,
+    ErrorStaleEpoch,
     ErrorTooManyRequests,
 )
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops.sampling import sample_logits
 from gofr_tpu_torch.serving import batch as batch_ops
+from gofr_tpu_torch.serving.dedup import DedupEntry, DedupRegistry, ReplayGap, ReplayStream
 from gofr_tpu_torch.serving.kv_cache import OutOfBlocks, PagedKVCache
-from gofr_tpu_torch.serving.kv_spill import TieredPrefixCache
+from gofr_tpu_torch.serving.kv_spill import TieredPrefixCache, _to_device
 from gofr_tpu_torch.serving.lora import AdapterBusy, UnknownAdapter
 from gofr_tpu_torch.serving.prefix_cache import PrefixCache
 from gofr_tpu_torch.serving.scheduler import QueueFull, Scheduler
@@ -281,6 +314,20 @@ class EngineConfig:
     # the /requestz flight recorder: completed timelines kept in its ring
     # (every in-flight one is always kept)
     requestz_capacity: int = 256
+    # the replica's disaggregation role, carried by the membership
+    # heartbeat: "unified" serves whole generations, "prefill" computes
+    # prompt KV and hands it off, "decode" admits handed-off chains. The
+    # engine runs both phases whatever its role (a decode replica
+    # re-prefills when a handoff fails)
+    role: str = "unified"
+    # the HA plane: emitted frames kept per keyed request for a resume
+    # (tokens plus the terminal), successful terminals kept in the
+    # idempotency registry (LRU; live entries are bounded by the requests
+    # in flight), and how long a keyed stream whose client vanished runs
+    # on awaiting a resume before it is canceled
+    stream_replay_tokens: int = 512
+    idem_capacity: int = 1024
+    stream_orphan_grace_s: float = 10.0
 
     @classmethod
     def from_config(cls, config: Any) -> "EngineConfig":
@@ -323,6 +370,10 @@ class EngineConfig:
             tenant_preempt=config.get_or_default("TPU_TENANT_PREEMPT", "1")
             not in ("0", "false", "off"),
             requestz_capacity=int(config.get_or_default("TPU_REQUESTZ_CAPACITY", "256")),
+            role=config.get_or_default("TPU_REPLICA_ROLE", "unified"),
+            stream_replay_tokens=int(config.get_or_default("TPU_STREAM_REPLAY_TOKENS", "512")),
+            idem_capacity=int(config.get_or_default("TPU_IDEM_CAPACITY", "1024")),
+            stream_orphan_grace_s=float(config.get_or_default("TPU_STREAM_ORPHAN_GRACE_S", "10")),
         )
 
 
@@ -333,7 +384,8 @@ class GenerationResult:
     token_ids: list[int]
     prompt_tokens: int
     completion_tokens: int
-    finish_reason: str  # "stop" | "length" | "kv_exhausted" | "cancel" | "deadline_exceeded"
+    # "stop" | "length" | "kv_exhausted" | "cancel" | "deadline_exceeded" | "handoff"
+    finish_reason: str
     ttft_s: float
     duration_s: float
 
@@ -358,6 +410,7 @@ class _Request:
         "stream_cb", "future", "created", "first_token_at", "tokens",
         "stop_ids", "dispatched", "kv_exhausted", "priority", "canceled", "deadline",
         "tenant", "adapter_id", "adapter_slot", "preemptions", "timeline", "trace_ctx",
+        "idem_key", "replay", "prefill_only", "handoff_from",
     )
 
     def __init__(self, rid: int, prompt_ids: list[int], max_new_tokens: int,
@@ -396,6 +449,14 @@ class _Request:
         # caller's span that the request's spans hang off
         self.timeline: Any = None
         self.trace_ctx: Any = None
+        # the HA plane: the idempotency key and the replay ring of a keyed
+        # request; the disaggregation plane: a prefill-only request retires
+        # with "handoff" at its first token, a handoff_from one fetches its
+        # prompt's KV from the named prefill replica first
+        self.idem_key: str | None = None
+        self.replay: ReplayStream | None = None
+        self.prefill_only = False
+        self.handoff_from: str | None = None
         # absolute monotonic time the caller stops caring; None = never
         self.deadline = (self.created + deadline) if deadline else None
 
@@ -488,12 +549,17 @@ class ServingEngine:
         tenants: Any = None,
         metrics: Any = None,
         tracer: Any = None,
+        kv_migrator: Any = None,
     ) -> None:
         self.device = resolve_device(device)
         self.model_cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
         conf = self.config
+        if conf.role not in ("prefill", "decode", "unified"):
+            raise ValueError(f"TPU_REPLICA_ROLE={conf.role!r}: must be prefill, decode or unified")
+        # read by a membership announcer (the heartbeat's role)
+        self.role = conf.role
         if conf.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout={conf.kv_layout!r}: must be dense or paged")
         if conf.multi_step is not None and conf.multi_step < 1:
@@ -559,6 +625,11 @@ class ServingEngine:
             )
         else:
             self._prefix_cache = None
+        # cross-replica KV reuse (serving/prefix_index.py): on a local miss
+        # the migrator fetches the prefix from the replica that advertises
+        # it, or the handoff from the named prefill replica. Advisory:
+        # every failure is a compute miss. Needs a prefix cache
+        self._kv_migrator = kv_migrator
         # speculative-decode counters: emitted / dispatches > 1 means
         # drafts are being accepted
         self.spec_stats = {"dispatches": 0, "accepted": 0, "emitted": 0}
@@ -623,6 +694,10 @@ class ServingEngine:
         # bumped by warm_restart: a caller acting on a pre-restart view of
         # this engine is fenced off by it (the HA plane checks it)
         self.epoch = 1
+        # the idempotency registry: a duplicate attaches to the live
+        # request's future or replays its stored terminal; _try_resolve
+        # stays the one terminal gate
+        self._dedup = DedupRegistry(self.config.idem_capacity)
         # a dispatch whose signature never completed is slow but moving (on
         # the card: the kernel build, cuBLAS's first GEMM), and the
         # heartbeat cannot show it; _cold_dispatch marks it so the watchdog
@@ -992,9 +1067,10 @@ class ServingEngine:
         queue, scheduler, shed estimator, epoch, heartbeat age (running),
         page pool (paged, running), prefix cache, LoRA residency, tenants,
         ``request_latency`` (the flight recorder's medians over its
-        completed ring), the device telemetry's last sample and the
-        supervisor's snapshot. Not yet: the reference's ``dedup``,
-        ``reclaim`` and ``preemptible`` (their planes are not ported)."""
+        completed ring), the idempotency registry's counters (``dedup``),
+        the device telemetry's last sample and the supervisor's snapshot.
+        Not yet: the reference's ``reclaim`` and ``preemptible`` (the
+        reclamation plane is not ported)."""
         stats = self._sched.stats()
         details: dict[str, Any] = {
             "slots_active": sum(1 for s in self.slots if s is not None),
@@ -1004,7 +1080,10 @@ class ServingEngine:
             "total_admitted": stats["total_admitted"],
             "kv_layout": self.config.kv_layout,
             "shed": self._shed.snapshot(),
+            # the fence epoch rides the heartbeat: routers fence their
+            # calls on the replica's current view
             "epoch": self.epoch,
+            "dedup": self._dedup.stats(),
         }
         if self._running:
             details["heartbeat_age_s"] = round(self.heartbeat_age(), 3)
@@ -1052,6 +1131,10 @@ class ServingEngine:
         tenant: str | None = None,
         adapter_id: str | None = None,
         trace_ctx: Any = None,
+        prefill_only: bool = False,
+        handoff_from: str | None = None,
+        idempotency_key: str | None = None,
+        fence_epoch: int | None = None,
     ) -> concurrent.futures.Future:
         """Thread-safe submit; the Future resolves to a GenerationResult.
         Lower ``priority`` is admitted first. ``deadline`` is the caller's
@@ -1066,10 +1149,35 @@ class ServingEngine:
         LoRA adapter. ``trace_ctx`` is the caller's span: the request's
         spans (``engine.queue``, then prefill, decode and detok under it)
         hang off it, and its trace id lands in the request's timeline.
-        Raises ``ErrorServiceUnavailable`` (503) while
-        draining or after stop, ``ErrorInvalidParam`` (400) for an unknown
-        adapter or one without a registry, ``ErrorTooManyRequests`` (429)
-        when shed, over the tenant's budget or when the queue is full."""
+
+        The HA plane: ``fence_epoch`` is checked against ``epoch`` before
+        anything else (a stale caller gets ``ErrorStaleEpoch``, 409, and
+        no request id is taken). ``idempotency_key`` makes the submit
+        exactly-once: a duplicate attaches to the live request's future
+        (its ``stream_cb`` gets the emitted frames it has not seen, or, past
+        the replay window, the live frames from now on) or replays the
+        stored terminal; it never dispatches. The disaggregation plane:
+        ``prefill_only`` computes the prompt's KV into the prefix cache and
+        retires with ``"handoff"`` at the first token, emitting nothing;
+        ``handoff_from`` names the prefill replica whose KV the engine's
+        migrator fetches first.
+
+        Raises ``ErrorServiceUnavailable`` (503) while draining or after
+        stop, ``ErrorInvalidParam`` (400) for an empty prompt, a prompt id
+        outside the vocabulary, a negative ``max_new_tokens``, an unknown
+        adapter or one without a registry (each before a request id is
+        taken), ``ErrorTooManyRequests`` (429) when shed, over the
+        tenant's budget or when the queue is full."""
+        # the fence first: a caller acting on a view from before a restart
+        # must not read the queue, charge a tenant or take a request id
+        self.check_fence(fence_epoch)
+        idem_key = str(idempotency_key) if idempotency_key else None
+        if idem_key:
+            # a duplicate before the drain, restart and shed gates: work
+            # this replica already owns is not new work
+            entry = self._dedup.lookup(idem_key)
+            if entry is not None:
+                return self._attach_duplicate(entry, stream_cb)
         if self._draining:
             raise ErrorServiceUnavailable("server draining; retry on another replica",
                                           retry_after=1.0)
@@ -1113,19 +1221,22 @@ class ServingEngine:
                    else f"shed threshold {shed_cap:.2f}s"),
                 retry_after=est_wait,
             )
-        with self._count_lock:
-            self._next_id += 1
-            rid = self._next_id
         prompt_ids = (
             self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         )
-        if not prompt_ids:
-            raise ValueError("empty prompt")
-        if min(prompt_ids) < 0 or max(prompt_ids) >= self.model_cfg.vocab_size:
-            # on the card an embedding index out of range is a device-side
-            # assert, which leaves the CUDA context in a sticky error; the
-            # reference's gather clamps it instead
+        # client errors, each a 400 before a request id is taken. The
+        # reference accepts an empty prompt and fails it at admission with
+        # a bare IndexError, and passes a negative budget to its scheduler
+        # (ROADMAP Queue C 21, 22). An out-of-vocabulary id on the card is a
+        # device-side assert, which leaves the CUDA context in a sticky
+        # error; the reference's gather clamps it instead
+        if not prompt_ids or min(prompt_ids) < 0 or max(prompt_ids) >= self.model_cfg.vocab_size:
             raise ErrorInvalidParam("prompt")
+        if max_new_tokens is not None and max_new_tokens < 0:
+            raise ErrorInvalidParam("max_new_tokens")
+        with self._count_lock:
+            self._next_id += 1
+            rid = self._next_id
         # keep the TAIL within the sequence budget; a prompt that does not
         # route chunked also keeps within the largest bucket
         max_prompt = self.config.max_seq_len - 1
@@ -1152,22 +1263,43 @@ class ServingEngine:
                 self._lora.prefetch(adapter_id)
             except UnknownAdapter:  # deregistered since the gate above
                 raise ErrorInvalidParam("adapter_id") from None
-        # the timeline comes before any gate that can still refuse: a
-        # request refused from here on leaves a terminal timeline too (the
-        # except below settles it). Its "submitted" stamp is the request's
-        # creation time
-        tl = self.timeline.begin(rid, prompt_tokens=len(prompt_ids))
-        tl.tenant = tenant
-        req = _Request(
-            rid, prompt_ids, max_new, float(temperature), int(top_k), float(top_p), stream_cb,
-            stop_ids={self.tokenizer.eos_id}, priority=int(priority), deadline=deadline,
-            created=tl.phases["submitted"],
-        )
-        req.tenant = tenant
-        req.adapter_id = adapter_id or None
-        req.trace_ctx = trace_ctx
-        req.timeline = tl
+        claim_entry: DedupEntry | None = None
+        if idem_key:
+            # the atomic claim, after the gates a fresh request passes: one
+            # concurrent submit per key owns the dispatch, and one that
+            # lost the race since the lookup above attaches to the owner
+            owner, claim_entry = self._dedup.claim(idem_key)
+            if not owner:
+                return self._attach_duplicate(claim_entry, stream_cb)
+        req: _Request | None = None
         try:
+            # the timeline comes before any gate that can still refuse: a
+            # request refused from here on leaves a terminal timeline too
+            # (the except below settles it). Its "submitted" stamp is the
+            # request's creation time
+            tl = self.timeline.begin(rid, prompt_tokens=len(prompt_ids))
+            tl.tenant = tenant
+            req = _Request(
+                rid, prompt_ids, max_new, float(temperature), int(top_k), float(top_p),
+                stream_cb, stop_ids={self.tokenizer.eos_id}, priority=int(priority),
+                deadline=deadline, created=tl.phases["submitted"],
+            )
+            if claim_entry is not None:
+                # every frame (the detok worker's token frames and the done
+                # frame of every settlement path) goes through the
+                # seq-numbered ring, so a resume can replay what the client
+                # has not seen; the caller's stream_cb still gets the plain
+                # three-argument frames
+                req.idem_key = idem_key
+                req.replay = ReplayStream(self.config.stream_replay_tokens)
+                req.stream_cb = req.replay.wrap(stream_cb)
+                claim_entry.publish(rid, req.future, req.replay)
+            req.prefill_only = bool(prefill_only)
+            req.handoff_from = handoff_from
+            req.tenant = tenant
+            req.adapter_id = adapter_id or None
+            req.trace_ctx = trace_ctx
+            req.timeline = tl
             if self._tracer is not None:
                 qspan = self._tracer.start_span("engine.queue", parent=trace_ctx,
                                                 kind="internal", activate=False)
@@ -1214,8 +1346,14 @@ class ServingEngine:
         except Exception as exc:
             # the caller gets the raise; the request id still owes its
             # terminal timeline, marked through the one settlement gate
-            # (exactly once: a sweep that settled it first wins)
-            self._try_resolve(req, exc=exc)
+            # (exactly once: a sweep that settled it first wins), which
+            # also forgets a keyed request's entry. A failure before the
+            # key reached the request forgets it here, so no later
+            # duplicate attaches to a future that never resolves
+            if req is not None:
+                self._try_resolve(req, exc=exc)
+            if claim_entry is not None and (req is None or req.idem_key is None):
+                self._dedup.forget(idem_key)
             raise
         self._observe_queue(depth + 1)  # this request just joined the queue
         self._idle.clear()
@@ -1254,10 +1392,13 @@ class ServingEngine:
             if not future.done():
                 self.cancel(future.request_id)
 
-    def cancel(self, request_id: int) -> None:
+    def cancel(self, request_id: int, *, fence_epoch: int | None = None) -> None:
         """Mark a queued or running request canceled. A running one frees
         its slot at the engine thread's next dispatch scan or token commit,
-        a queued one at the next admission; nothing else changes here."""
+        a queued one at the next admission; nothing else changes here.
+        ``fence_epoch`` refuses a stale caller (409) before anything is
+        touched: a fenced router must not cancel work a current one owns."""
+        self.check_fence(fence_epoch)
         with self._count_lock:
             req = self._by_id.get(request_id)
         if req is not None:
@@ -1267,6 +1408,170 @@ class ServingEngine:
         except KeyError:
             pass
         self._wake.set()
+
+    # ---------------------------------------------------------------- HA plane
+    def check_fence(self, fence_epoch: int | None) -> None:
+        """Refuse a caller whose fence epoch is not this engine's current
+        one (``warm_restart`` bumps it). ``None``, an unfenced caller,
+        always passes: fencing is the router tier's opt-in."""
+        if fence_epoch is not None and int(fence_epoch) != self.epoch:
+            raise ErrorStaleEpoch(
+                f"fence epoch {int(fence_epoch)} != engine epoch {self.epoch}; "
+                "refresh membership"
+            )
+
+    def _attach_duplicate(self, entry: DedupEntry, stream_cb: Callable | None,
+                          last_seq: int = 0) -> concurrent.futures.Future:
+        """A duplicate keyed submit: attach, never dispatch. A live entry
+        gives the owner's future (one terminal, one settlement) and replays
+        the unseen frames into ``stream_cb``; a terminal entry gives a
+        resolved future and replays the stored result. A live stream whose
+        suffix left the replay window attaches without a replay (a
+        truncated stream, the full result through the future): a keyed
+        retry dedups, it never fails; the 404 for a lost window belongs to
+        ``resume``, where the client asked for a token-identical suffix.
+        The owner's claim-to-publish window is closed by ``entry.ready``."""
+        # bounds only the owner's admission code between its claim and its
+        # publish; a failure there is a fast retriable 503
+        if not entry.ready.wait(timeout=5.0) or (entry.future is None and not entry.terminal):
+            # the owner is still admitting, or its admission failed and the
+            # key was forgotten: the retry runs fresh
+            raise ErrorServiceUnavailable("idempotent twin still admitting; retry",
+                                          retry_after=0.5)
+        if entry.terminal:
+            fut: concurrent.futures.Future = concurrent.futures.Future()
+            fut.request_id = entry.rid
+            if stream_cb is not None:
+                self._replay_result(entry, last_seq,
+                                    lambda _seq, tid, piece, done: stream_cb(tid, piece, done))
+            fut.set_result(entry.result)
+            return fut
+        if stream_cb is not None and entry.replay is not None:
+
+            def wire(_seq: int, tid: int, piece: str, done: bool) -> None:
+                stream_cb(tid, piece, done)
+
+            try:
+                entry.replay.attach(last_seq, wire)
+            except ReplayGap:
+                # a truncated live attach: the frames from now on reach this
+                # client and the shared future still resolves with the full
+                # result. A mirror future of its own carries the attach
+                # point (``stream_base_seq``), so a transport can stamp the
+                # engine's true sequence numbers on the truncated stream
+                base = entry.replay.subscribe(wire)
+                mirror: concurrent.futures.Future = concurrent.futures.Future()
+                mirror.request_id = entry.rid
+                mirror.stream_base_seq = base
+
+                def _mirror(src: concurrent.futures.Future) -> None:
+                    try:
+                        src_exc = src.exception()
+                        if src_exc is not None:
+                            mirror.set_exception(src_exc)
+                        else:
+                            mirror.set_result(src.result())
+                    except Exception:
+                        pass  # the mirror settled already, or the owner was canceled
+
+                entry.future.add_done_callback(_mirror)
+                return mirror
+        return entry.future
+
+    def _replay_result(self, entry: DedupEntry, last_seq: int,
+                       cb: Callable[[int, int, str, bool], None]) -> None:
+        """Replay a stored terminal's token frames past ``last_seq``. Ring
+        seq i+1 is token_ids[i]: the ring is fed by the one detok worker in
+        emission order, stop tokens are never frames, and the terminal
+        takes seq N+1. The pieces come from the entry's ring, which kept
+        every emitted piece, so the replay is text-identical to the
+        original stream; a per-token decode is the fallback for an entry
+        without them."""
+        token_ids = list(entry.result.token_ids)
+        pieces: list[str] | None = None
+        if entry.replay is not None and len(entry.replay.pieces) == len(token_ids):
+            pieces = list(entry.replay.pieces)
+        for i, tid in enumerate(token_ids):
+            seq = i + 1
+            if seq > last_seq:
+                piece = pieces[i] if pieces is not None else self.tokenizer.decode([tid])
+                cb(seq, tid, piece, False)
+        done_seq = len(token_ids) + 1
+        if done_seq > last_seq:
+            cb(done_seq, -1, "", True)
+
+    def resume(self, idempotency_key: str, *, last_seq: int = 0,
+               stream_cb: Callable[[int, int, str, bool], None] | None = None,
+               fence_epoch: int | None = None) -> concurrent.futures.Future:
+        """Re-attach to a keyed request's token stream: replay every frame
+        with ``seq > last_seq`` token-identically, from the bounded ring
+        (live) or the stored terminal, then ride the generation still
+        running. ``stream_cb`` takes the four-argument frame ``(seq,
+        token_id, piece, done)``. An unknown key is a 404 (the client
+        submits, which dedups anyway); a suffix the window lost is a 404
+        too (a token-identical resume is impossible and the engine does not
+        generate again). The ``stream.resume`` chaos point fires first."""
+        chaos.maybe_fail("stream.resume")
+        self.check_fence(fence_epoch)
+        key = str(idempotency_key)
+        entry = self._dedup.lookup(key)
+        if entry is None:
+            raise ErrorEntityNotFound("idempotency_key", key)
+        if not entry.ready.wait(timeout=5.0) or (entry.future is None and not entry.terminal):
+            raise ErrorServiceUnavailable("request still admitting; retry", retry_after=0.5)
+        if entry.terminal:
+            if stream_cb is not None:
+                self._replay_result(entry, int(last_seq), stream_cb)
+            fut: concurrent.futures.Future = concurrent.futures.Future()
+            fut.request_id = entry.rid
+            fut.set_result(entry.result)
+            return fut
+        if stream_cb is not None:
+            try:
+                entry.replay.attach(int(last_seq), stream_cb)
+            except ReplayGap:
+                raise ErrorEntityNotFound("replay window", key) from None
+        return entry.future
+
+    def orphan(self, request_id: int, grace_s: float | None = None) -> None:
+        """One client of a keyed request vanished mid-stream: release its
+        subscription, and if it was the last, let the generation run on for
+        ``grace_s`` (``stream_orphan_grace_s`` by default) awaiting a resume
+        instead of canceling. A reaper then cancels it, as an unkeyed
+        disconnect would, only if no subscriber is attached and no attach
+        came after this orphaning; one client's disconnect never kills
+        another client's generation. An unkeyed request is canceled."""
+        grace = grace_s if grace_s is not None else self.config.stream_orphan_grace_s
+        with self._count_lock:
+            req = self._by_id.get(request_id)
+        if req is None:
+            return
+        if req.replay is None:
+            self.cancel(request_id)
+            return
+        if req.replay.release() > 0:
+            return  # another client still rides this generation
+        if grace <= 0:
+            self.cancel(request_id)
+            return
+        attaches_at_orphan = req.replay.attaches
+
+        def _reap() -> None:
+            if req.future.done():
+                return
+            if req.replay.attaches > attaches_at_orphan:
+                return  # someone resumed; their disconnect orphans again
+            if req.replay.subscribers > 0:
+                return  # a client re-attached and is still connected
+            self.cancel(request_id)
+
+        timer = threading.Timer(grace, _reap)
+        timer.daemon = True
+        timer.start()
+
+    def dedup_stats(self) -> dict[str, int]:
+        """The idempotency registry's counters."""
+        return self._dedup.stats()
 
     # ------------------------------------------------------------------ loop
     def _loop(self) -> None:
@@ -1523,6 +1828,23 @@ class ServingEngine:
         if self._metrics:
             self._metrics.increment_counter("app_kv_prefix_hits_total", tier=tier)
 
+    def prefix_advertisement(self, limit: int = 128) -> list[list[str]] | None:
+        """This replica's bounded [key, tier] advertisement for the prefix
+        index (serving/prefix_index.py), carried by the membership
+        heartbeat. None when the cache lists no keys (an injected cache)."""
+        cache = self._prefix_cache
+        if cache is None:
+            return None
+        advertised = getattr(cache, "advertised", None)
+        if advertised is not None:
+            pairs = advertised(limit)
+        else:
+            keys_fn = getattr(cache, "keys", None)
+            if keys_fn is None:
+                return None
+            pairs = [(str(k), "device") for k in list(reversed(keys_fn()))[:limit]]
+        return [[key, tier] for key, tier in pairs]
+
     def _chunk_cache_keys(self, prompt_ids: list[int],
                           adapter_id: str | None = None) -> list[tuple[int, int, str]]:
         """Chunk-prefix cache keys for every chunk boundary of a prompt:
@@ -1585,8 +1907,39 @@ class ServingEngine:
                 hits.append((start, end, val))
                 tiers.add(tier)
                 pos = end
+            if pos < total and self._kv_migrator is not None:
+                # the rest of the chain from another replica: the handoff
+                # from the named prefill replica first (a complete,
+                # contiguity-checked chain or nothing), then the longest
+                # advertised chain, contiguous from pos (a torn transfer
+                # keeps what it fetched and the chunk grants compute the
+                # rest). Both are bounded by what the deadline leaves
+                remaining = [b for b in boundaries if b[0] >= pos]
+                budget = req.remaining(time.monotonic())
+                fetched = []
+                if req.handoff_from is not None:
+                    fetched = self._kv_migrator.fetch_handoff(remaining, req.handoff_from,
+                                                              deadline=budget)
+                if not fetched:
+                    fetched = self._kv_migrator.fetch_chain(remaining, deadline=budget)
+                # a fetch can block (a remote transport): a thread retired
+                # meanwhile must not put slabs into the reset cache
+                self._check_retired()
+                if fetched:
+                    for start, end, val in fetched:
+                        # a non_blocking upload (a device peer's tensors
+                        # stay where they are): no sync on this thread
+                        val = _to_device(val, self.device)
+                        if end >= total and val[0].shape[-1] != self.model_cfg.vocab_size:
+                            break  # a peer's page-out placeholder: the guard above
+                        hits.append((start, end, val))
+                        pos = end
+                        # paid once per replica: a later request hits locally
+                        self._prefix_cache.put(cache_keys[(start, end)], val)
+                    tiers.add("remote")
             self._record_prefix_tier(
-                req, "host" if "host" in tiers else "device" if hits else "miss")
+                req, "remote" if "remote" in tiers else "host" if "host" in tiers
+                else "device" if hits else "miss")
         if hits and pc is not None:
             try:
                 pc.alloc_slot(slot, seq_id=req.id, prompt_len=0, reserve_tokens=pos)
@@ -1742,7 +2095,7 @@ class ServingEngine:
             return  # advisory: a faulted preemption is a skipped one
         ids = req.serve_ids
         resident = int(self.cache_len[slot])
-        if self._prefix_cache is not None and self._chunk_cache_enabled:
+        if self._prefix_cache is not None and self._chunk_cache_enabled and not req.prefill_only:
             for start, end, key in self._chunk_cache_keys(ids, req.adapter_id):
                 # the resume always computes at least the final chunk,
                 # whose logits give the next token
@@ -1811,6 +2164,25 @@ class ServingEngine:
             digest = hashlib.blake2b(np.asarray(ids, np.int32).tobytes(), digest_size=16)
             cache_key = f"prefill:{bucket}:{S}:{digest.hexdigest()}:{req.adapter_id or '-'}"
             cached, prefix_tier = self._cache_lookup(cache_key)
+            if cached is None and self._kv_migrator is not None:
+                # the handoff from the named prefill replica first, then a
+                # replica that advertises this prompt; either failure stays
+                # a compute miss. Bounded by what the deadline leaves
+                budget = req.remaining(time.monotonic())
+                fetched = None
+                if req.handoff_from is not None:
+                    fetched = self._kv_migrator.fetch_one_handoff(
+                        cache_key, req.handoff_from, deadline=budget)
+                if fetched is None:
+                    fetched = self._kv_migrator.fetch_one(cache_key, deadline=budget)
+                # a fetch can block: a thread retired meanwhile must not put
+                # slabs into the cache the restart just reset
+                self._check_retired()
+                if fetched is not None:
+                    cached = _to_device(fetched, self.device)  # non_blocking: no sync
+                    prefix_tier = "remote"
+                    # paid once per replica, not once per request
+                    self._prefix_cache.put(cache_key, cached)
             self._record_prefix_tier(req, prefix_tier)
         tl = req.timeline
         if tl is not None:
@@ -1915,6 +2287,14 @@ class ServingEngine:
             if req.tenant:
                 labels["tenant"] = req.tenant
             self._metrics.record_histogram("app_request_ttft_seconds", ttft, **labels)
+        if req.prefill_only:
+            # the disaggregated prefill phase: the prompt's KV and its
+            # last-position logits are in the prefix cache for the decode
+            # replica's handoff, which samples this same first token from
+            # them. Retire before any emission or decode step: emitting
+            # here would serve the token twice
+            self._retire(slot, "handoff")
+            return
         self._emit(req, first_id)
         self._check_retired()
         if first_id in req.stop_ids:
@@ -2060,6 +2440,12 @@ class ServingEngine:
         accepted = emitted = 0
         for slot, req in rows:
             accepted += int(na_np[slot])
+            tl = req.timeline
+            if tl is not None:
+                # the block counts before its commits: a retire among them
+                # queues the settlement, which copies the count into the
+                # decode span on the detok worker
+                tl.block(0)
             committed = 0
             for i in range(int(na_np[slot]) + 1):
                 committed += 1
@@ -2067,8 +2453,8 @@ class ServingEngine:
                 if self.slots[slot] is not req:
                     break  # retired mid-chunk: the tail is discarded
             emitted += committed
-            if req.timeline is not None:
-                req.timeline.block(committed)
+            if tl is not None:
+                tl.decode_tokens += committed
             # chunk position 0 (the token emitted last step) and the
             # accepted drafts are now resident; the bonus token becomes the
             # next chunk's position 0
@@ -2371,15 +2757,22 @@ class ServingEngine:
             n_active += 1
             n_valid = int(packed[slot, rec.steps + 1])
             device_done = bool(packed[slot, rec.steps])
+            tl = req.timeline
+            if tl is not None:
+                # the block counts before its commits: a retire among them
+                # queues the settlement, which copies the count into the
+                # decode span on the detok worker (the reference counts it
+                # after, and its span can miss the last block: Queue C 23)
+                tl.block(0)
             committed = 0
             for i in range(n_valid):
                 self._commit_token(slot, req, int(packed[slot, i]))
                 committed += 1
                 if self.slots[slot] is not req:
                     break  # retired mid-block: the tail is discarded
-            if req.timeline is not None:
+            if tl is not None:
                 # the committed tokens only: a mid-block retire drops the tail
-                req.timeline.block(committed)
+                tl.decode_tokens += committed
             if self.slots[slot] is not req:
                 continue
             self.cache_len[slot] += n_valid
@@ -2628,6 +3021,14 @@ class ServingEngine:
         except concurrent.futures.InvalidStateError:
             return False
         self._record_terminal(req, value, exc)
+        # the winner, and only the winner, settles the idempotency entry: a
+        # result is kept for duplicates to replay, an exception forgets the
+        # key so a client's retry runs as a fresh request
+        if req.idem_key is not None:
+            if exc is None and value is not None:
+                self._dedup.settle(req.idem_key, value)
+            else:
+                self._dedup.forget(req.idem_key)
         return True
 
     @staticmethod

@@ -274,6 +274,21 @@ class TieredPrefixCache:
         out["spill_dropped_total"] = self.dropped_total
         return out
 
+    def advertised(self, limit: int = 128) -> list[tuple[str, str]]:
+        """(key, tier) pairs for the prefix index's advertisement
+        (serving/prefix_index.py), newest first within each tier, the
+        device tier first; bounded, so a heartbeat stays small."""
+        out: list[tuple[str, str]] = []
+        for key in reversed(self._device.keys()):
+            out.append((str(key), "device"))
+            if len(out) >= limit:
+                return out
+        for key in reversed(self._host.keys()):
+            out.append((str(key), "host"))
+            if len(out) >= limit:
+                break
+        return out
+
     # -- the spill path (device-tier eviction -> host tier) --------------------
     def _offer(self, key: Hashable, value: Any) -> None:
         """Device-tier eviction hook: hand the dropped entry to the spill

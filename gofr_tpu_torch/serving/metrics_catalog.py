@@ -98,6 +98,12 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
     ("gauge", "app_lora_adapter_residency", "LoRA adapters resident in the device factor tables",
      None),
     ("gauge", "app_kv_spill_bytes", "Bytes resident in the host-RAM KV spill tier", None),
+    # the KV migrator (serving/prefix_index.py)
+    ("counter", "app_kv_migrations_total",
+     "Warm KV prefix migrations fetched from another replica", None),
+    ("counter", "app_kv_handoffs_total",
+     "Prefill→decode KV handoff chains admitted complete "
+     "(contiguity-audited; a torn handoff re-prefills instead)", None),
 )
 
 

@@ -30,6 +30,7 @@ from gofr_tpu.serving import ServingEngine as JServingEngine  # noqa: E402
 from gofr_tpu_torch.models import llama as tllama  # noqa: E402
 from gofr_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from gofr_tpu_torch.errors import (  # noqa: E402
+    ErrorInvalidParam,
     ErrorRequestEntityTooLarge,
     ErrorServiceUnavailable,
 )
@@ -182,7 +183,7 @@ def test_refusals(models):
     assert small._sched.stats()["busy_slots"] == 0
     with pytest.raises(ValueError, match="kv_dtype"):
         _port_engine(tcfg, tparams, kv_dtype="fp8")
-    with pytest.raises(ValueError, match="empty"):
+    with pytest.raises(ErrorInvalidParam, match="prompt"):  # a 400 (Queue C 22)
         engine.submit([])
     with pytest.raises(ValueError, match="kv_layout"):
         _port_engine(tcfg, tparams, kv_layout="ragged")

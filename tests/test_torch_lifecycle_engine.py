@@ -331,6 +331,72 @@ def test_never_fit_paged_prompt_is_413(models, variant, route):
     assert outs[1] == outs[0] and outs[0][0] in ("length", "stop")
 
 
+# ------------------------------------------- submit refusals (ROADMAP Queue C 21, 22)
+def _ref_outcome(call):
+    """How the reference answered: raised at submit (type, status), failed
+    its future (type), or served (finish reason, tokens emitted)."""
+    try:
+        fut = call()
+    except jerrors.HTTPError as exc:
+        return ("raise", type(exc).__name__, exc.status_code)
+    try:
+        r = fut.result(timeout=120)
+    except Exception as exc:  # noqa: BLE001 - the reference's bare error, recorded
+        return ("future", type(exc).__name__)
+    return ("result", r.finish_reason, len(r.token_ids))
+
+
+@pytest.mark.parametrize("variant", ["dense-bf16", "paged-bf16"])
+@pytest.mark.parametrize("backend", ["native", "python"])
+@pytest.mark.parametrize("case", ["negative_max_new_tokens", "empty_prompt"])
+def test_submit_refusals_are_400_before_an_id(models, variant, backend, case, monkeypatch):
+    """A negative ``max_new_tokens`` and an empty token-list prompt: the
+    port refuses each at ``submit`` with a 400 naming the parameter,
+    before a request id is taken, and leaves no timeline. Beside it the
+    reference's outcomes, a deliberate difference: with its native
+    scheduler a negative budget is a retriable 503 (a router would retry
+    it on every replica), with its Python scheduler the request emits one
+    token; an empty prompt fails its future at admission with a bare
+    IndexError under either. Neither side leaves a busy slot."""
+    import gofr_tpu.native.runtime as jruntime
+
+    if backend == "python":
+        monkeypatch.setattr(jruntime, "load_runtime", lambda: None)
+    call_kw = ({"prompt": "hello", "max_new_tokens": -1} if case == "negative_max_new_tokens"
+               else {"prompt": []})
+    jeng, teng = _pair(models, variant)
+    outs = {}
+    for name, engine in (("jax", jeng), ("port", teng)):
+        engine.start()
+        try:
+            ids = engine._next_id
+            if name == "jax":
+                outs[name] = _ref_outcome(lambda: engine.submit(**call_kw))
+            else:
+                with pytest.raises(terrors.ErrorInvalidParam) as err:
+                    engine.submit(**call_kw)
+                outs[name] = ("raise", type(err.value).__name__, err.value.status_code,
+                              err.value.params)
+                snap = engine.timeline.snapshot()
+                assert snap["in_flight_count"] == snap["completed_count"] == 0
+            outs[name + "_ids"] = engine._next_id - ids
+            outs[name + "_after"] = _outcome(engine.submit("still serving", max_new_tokens=3))
+            _assert_clean(engine)
+        finally:
+            engine.stop()
+    param = "max_new_tokens" if case == "negative_max_new_tokens" else "prompt"
+    assert outs["port"] == ("raise", "ErrorInvalidParam", 400, [param])
+    assert outs["port_ids"] == 0 and outs["jax_ids"] == 1
+    assert outs["port_after"] == outs["jax_after"]
+    native = jeng._sched.backend == "native"
+    if case == "empty_prompt":
+        assert outs["jax"] == ("future", "IndexError")
+    elif native:
+        assert outs["jax"] == ("raise", "ErrorServiceUnavailable", 503)
+    else:
+        assert outs["jax"] == ("result", "length", 1)
+
+
 # --------------------------------------------------------------------- drain
 @ALL
 def test_drain_lets_work_finish(models, variant):

@@ -161,7 +161,10 @@ def test_registry_matches_reference_on_seeded_ops(seed):
             ad = tlora.make_adapter(cfg, f"tail{i}", rank=3, seed=200 + i)
             mine.register(ad)
             ref.register(jlora.LoraAdapter(ad.adapter_id, ad.a, ad.b))
-            got = [_outcome(lambda r=r: r.acquire(f"tail{i}", timeout=10.0)) for r in (mine, ref)]
+            # through _ref_acquire as in the main loop: an upload that ends
+            # before the reference re-reads its future is Queue C 12's race
+            got = [_outcome(lambda: mine.acquire(f"tail{i}", timeout=10.0)),
+                   _ref_acquire(ref, f"tail{i}")]
             assert got[0] == got[1] and mine.residency() == ref.residency()
             seen.add(got[0][0])
         assert {"ok", "busy", "unknown"} <= seen  # the sequence reaches every outcome

@@ -27,6 +27,7 @@ after the drain. On the port, the ``_block_sync`` and ``_first_token``
 calls and the tokens are the same with and without the instruments.
 """
 
+import threading
 import time
 
 import pytest
@@ -142,8 +143,11 @@ def _tenants(mod):
     reg = mod.TenantRegistry()
     reg.set_policy(mod.TenantPolicy(name="gold", deadline_class="interactive", deadline_s=600.0))
     reg.set_policy(mod.TenantPolicy(name="bulk", deadline_class="batch", deadline_s=600.0))
-    reg.set_policy(mod.TenantPolicy(name="metered", deadline_class="standard", token_rate=0.5,
-                                    burst_tokens=20.0))
+    # every class's deadline is far past the scenario, as gold's and bulk's:
+    # the standard class's 10 s default passed in the queue of a JAX engine
+    # compiling under a loaded parallel run, failing the request on one side
+    reg.set_policy(mod.TenantPolicy(name="metered", deadline_class="standard", deadline_s=600.0,
+                                    token_rate=0.5, burst_tokens=20.0))
     return reg
 
 
@@ -169,15 +173,30 @@ def _engine(models, side, variant, ref_catalog, instruments=True, **over):
 
 
 def _hook_consume(engine, after):
-    """Run ``after(engine)`` on the engine thread after every block read."""
+    """Run ``after(engine)`` on the engine thread after every block read.
+    A detok task queued during a read runs once the read is over: the
+    reference stamps a block on the timeline after a retire in it queued
+    the settlement, which copies the count into the decode span, so on a
+    loaded host its span could miss the last block (ROADMAP Queue C 23;
+    the port counts the block first)."""
     name = "_consume_block" if isinstance(engine, JServingEngine) else "_consume"
-    real = getattr(engine, name)
+    real, submit = getattr(engine, name), engine._submit_detok
+    reading = threading.RLock()
 
     def consume(rec):
-        real(rec)
-        after(engine)
+        with reading:
+            real(rec)
+            after(engine)
+
+    def after_the_read(task):
+        def run():
+            with reading:
+                task()
+
+        return submit(run)
 
     setattr(engine, name, consume)
+    engine._submit_detok = after_the_read
 
 
 def _outcome(fut, timeout=120):
@@ -396,3 +415,35 @@ def test_instruments_add_no_sync(models, ref_catalog, variant, monkeypatch):
     assert outcomes[True] == outcomes[False]
     assert counts[True] == counts[False]
     assert counts[True]["block_sync"] > 0 and counts[True]["first_token"] > 0
+
+
+@ALL
+def test_decode_span_counts_the_last_block(models, ref_catalog, variant):
+    """The worst order of the race in ROADMAP Queue C 23, made certain:
+    every detok task runs inline on the engine thread, so a settlement
+    queued by a retire runs inside the block read that retired the row.
+    The port counts the block before its commits, so each decode span's
+    ``decode.blocks`` is still its timeline's count (the reference's span
+    would miss the last block here)."""
+    engine, _, tracer, exporter = _engine(models, "port", variant, ref_catalog)
+
+    def inline(task):
+        task()
+        return True
+
+    engine._submit_detok = inline
+    caller = tracer.start_span("caller", activate=False)
+    engine.start()
+    try:
+        futs = [engine.submit(p, max_new_tokens=n, trace_ctx=caller)
+                for p, n in ((SHORT, 9), (LONG, 6), (OTHERS[0], 11))]
+        results = [f.result(timeout=120) for f in futs]
+    finally:
+        engine.stop()
+    caller.end()
+    blocks = {s.attributes["request.id"]: s.attributes["decode.blocks"]
+              for s in exporter.spans if s.name == "serve.decode"}
+    timelines = {tl.request_id: tl.decode_blocks for tl in engine.timeline.completed()}
+    assert set(blocks) == {r.request_id for r in results}
+    assert blocks == {rid: timelines[rid] for rid in blocks}
+    assert all(n > 0 for n in blocks.values())

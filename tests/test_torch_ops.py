@@ -145,6 +145,24 @@ def test_sampled_distribution_and_masks():
     assert set(np.unique(nucleus)) == {0, 1}
 
 
+@pytest.mark.parametrize("temperature,top_k,top_p", [(0.0, 0, 1.0), (0.8, 0, 1.0),
+                                                     (0.8, 7, 1.0), (0.8, 0, 0.9),
+                                                     (0.8, 7, 0.9)])
+def test_scalar_params_draw_as_row_tensors(temperature, top_k, top_p):
+    """A first token's Python scalars (built on the device by a fill) give
+    the same draws as [B] tensors of the same values from the same
+    generator seed, greedy and sampled, with top-k and top-p on."""
+    logits = torch.from_numpy(_logits(seed=7, B=1, V=64))
+    for seed in range(8):
+        scalars = tsampling.sample_logits(logits, torch.Generator().manual_seed(seed),
+                                          temperature=temperature, top_k=top_k, top_p=top_p)
+        rows = tsampling.sample_logits(
+            logits, torch.Generator().manual_seed(seed),
+            temperature=torch.tensor([temperature]), top_k=torch.tensor([top_k]),
+            top_p=torch.tensor([top_p]))
+        assert torch.equal(scalars, rows), seed
+
+
 def test_stop_eval_matches_jax():
     nxt = np.array([2, 5, 2, 7], np.int32)
     stop = np.array([2, 2, -1, 7], np.int32)

@@ -105,6 +105,35 @@ def test_multi_tenant_modules_are_checked_and_refuse_without_a_card(no_card):
     reg.close()
 
 
+def test_ha_and_migration_modules_are_checked_and_keep_the_device_policy(no_card):
+    """The dedup and prefix-index modules are among the files the import
+    rule holds. Neither takes a device: the registry, the replay ring, the
+    index, the migrator and the wire codec are host-side and work without
+    a card (a decoded entry is a host tensor the engine uploads), while
+    the engine that holds a migrator, and the spill tier its advertisement
+    reads, still refuse without one."""
+    from gofr_tpu_torch.serving import dedup, prefix_index
+    from gofr_tpu_torch.serving.kv_spill import TieredPrefixCache
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"gofr_tpu_torch/serving/dedup.py", "gofr_tpu_torch/serving/prefix_index.py"} <= files
+    reg = dedup.DedupRegistry(4)
+    assert reg.claim("k")[0] and dedup.ReplayStream(4).wrap(None) is not None
+    mig = prefix_index.KVMigrator("B", prefix_index.PrefixIndex())
+    value = (torch.zeros(1, 4), torch.ones(2, 3, dtype=torch.bfloat16), torch.zeros(2, dtype=torch.int8))
+    decoded = prefix_index.decode_entry(prefix_index.encode_entry(value))
+    assert all(t.device.type == "cpu" and torch.equal(t, v) for t, v in zip(decoded, value))
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params, kv_migrator=mig)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TieredPrefixCache(4)
+    engine = ServingEngine(cfg, params, EngineConfig(prefix_cache_entries=4), device="cpu",
+                           kv_migrator=mig)
+    assert engine.prefix_advertisement() == [] and engine.dedup_stats()["live"] == 0
+
+
 def test_cpu_engine_run_launches_no_kernel():
     """bf16 and int8 engines on either layout, a monolithic and a chunked
     prompt each: the plain versions run on the CPU and no counter moves."""
