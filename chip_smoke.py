@@ -155,6 +155,34 @@ Phases, each a hard failure with a non-zero exit:
      engine retires ``"handoff"`` with no emission and no decode; a decode
      engine's ``handoff_from`` serves the unified engine's tokens with no
      prefill compute; a ``kv.handoff`` fault re-prefills;
+   then the fleet phase, at full depth, at most two engines at once over
+   the one weight set, each announced on an ``InMemoryBroker`` every 0.2 s
+   to a ``Router`` with the serving catalog:
+   - ``F1`` two paged bf16 replicas (2048, 16-token pages, 64-entry prefix
+     caches): 8 prompts sharing a 1000-token prefix all on the affine
+     replica, the first computing 4 chunks and the rest one (768 tokens
+     hit); a ``router.route`` fault walked to the other replica with a
+     direct submit's tokens; ``warm_restart`` under a burst of 8, each
+     request one terminal (a result or a retriable error); a keyed pair
+     admitted once; ``routerz`` and the five ``app_router_*`` series,
+     ``promlint``-clean;
+   - ``F2`` a survivor and a preemptible paged bf16 replica from a
+     ``SimulatedPoolDriver``, ``KVMigrator``s on one ``PrefixIndex``:
+     4 batch-class and 4 interactive rows of 1000-token prompts, then a
+     5 s notice: RECLAIMING on a beat and unrouted, the batch rows a
+     retriable 503, the interactive ones finished, the evacuation
+     committed to the survivor, the three reclamation series; the batch
+     prompts again through the router served from the evacuated chain
+     with a cold run's tokens; ``memory_allocated`` falls by the reaped
+     replica's KV; a notice lost to a ``replica.reclaim`` fault;
+   - ``F3`` an ``Autoscaler`` over ``engine_factory``'s paged int8
+     replicas (4096, 32-token pages): a burst of 32 scales up to two (the
+     time from the decision to the new replica's first route), the idle
+     pool drains and reaps to one with nothing lost, a ``scale.decision``
+     fault skips a round; then a dense bf16 prefill replica and a decode
+     replica: a 1000-token prompt through ``_submit_disagg`` beside a
+     unified engine's TTFT and tokens, no prefill compute on the decode
+     replica;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -3652,7 +3680,604 @@ def run_ha(torch, cfg, params) -> dict:
     return out
 
 
-def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
+# ---------------------------------------------------------------- fleet phase
+FLEET_BEAT_S = 0.2  # every replica's heartbeat on the broker
+FLEET_NEW = 8  # new tokens of a request whose tokens are held to another run
+FLEET_BURST, FLEET_BURST_LEN, FLEET_BURST_NEW = 32, 64, 64  # F3's burst on one replica
+FLEET_NOTICE_S = 5.0  # F2's reclamation notice
+
+
+class FleetTier:
+    """A router over port engines, each announced on one ``InMemoryBroker``
+    every ``FLEET_BEAT_S`` (suspect and down timers generous, so a host
+    busy with 8B dispatches never loses a beat to them); the router's
+    metrics manager holds the serving catalog."""
+
+    def __init__(self) -> None:
+        from gofr_tpu_torch.metrics import new_metrics_manager
+        from gofr_tpu_torch.pubsub import InMemoryBroker
+        from gofr_tpu_torch.serving import Router, RouterConfig, register_serving_metrics
+
+        self.manager = register_serving_metrics(new_metrics_manager())
+        self.broker = InMemoryBroker(consumer_group="router", poll_timeout=0.05)
+        self.router = Router(RouterConfig(heartbeat_s=FLEET_BEAT_S, suspect_after_s=5.0,
+                                          down_after_s=20.0),
+                             broker=self.broker, metrics=self.manager)
+        self.router.start()
+        self.announcers: dict = {}
+
+    def announce(self, rid: str, engine):
+        from gofr_tpu_torch.serving import ReplicaAnnouncer
+
+        ann = ReplicaAnnouncer(rid, engine, self.broker, interval_s=FLEET_BEAT_S)
+        self.announcers[rid] = ann
+        ann.start()
+        return ann
+
+    def add(self, rid: str, engine, role: str | None = None) -> None:
+        """Start the engine, register it with the router and announce it."""
+        from gofr_tpu_torch.serving import LocalReplica
+
+        engine.start()
+        self.router.add_replica(LocalReplica(rid, engine, role=role))
+        self.announce(rid, engine)
+
+    def wait_up(self, *rids: str) -> None:
+        m = self.router.membership
+        wait_until(lambda: all(m.state_of(r) == "UP" for r in rids), 60, f"{rids} UP")
+
+    def affine(self, rid: str, make) -> list[int]:
+        """A prompt from ``make()`` whose affinity key lands on ``rid``."""
+        for _ in range(400):
+            p = make()
+            if self.router._candidates_for(p)[0][:1] == [rid]:
+                return p
+        raise AssertionError(f"no prompt affine to {rid}")
+
+    def close(self) -> None:
+        for ann in self.announcers.values():
+            ann.stop(final_beat=False)
+            ann.engine = None
+        self.announcers.clear()
+        self.router.stop()
+
+
+def cached_bytes(*engines) -> int:
+    """Bytes of the distinct tensors the engines' prefix caches hold: an
+    evacuated entry is one tensor on the source and the survivor."""
+    seen, total = set(), 0
+    for engine in engines:
+        cache = engine._prefix_cache
+        with cache._lock:  # the engine thread may put meanwhile
+            values = list(cache._entries.values())
+        for value in values:
+            for t in value:
+                if t.data_ptr() not in seen:
+                    seen.add(t.data_ptr())
+                    total += t.numel() * t.element_size()
+    return total
+
+
+def first_token_timer(t0: list):
+    """A stream_cb that stamps the first token frame's time into ``t0``."""
+    def cb(token_id, piece, done):
+        if not done and len(t0) == 1:
+            t0.append(time.perf_counter())
+    return cb
+
+
+def fleet_f1(torch, cfg, params, prompt, mem: dict) -> dict:
+    """F1, the router tier over two paged bf16 replicas (2048, 16-token
+    pages, 256-token chunks, 64-entry prefix caches): affinity with chain
+    hits, a route fault's walk, a warm restart under a burst, a keyed
+    duplicate, routerz and the router's series."""
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.metrics import lint_exposition
+    from gofr_tpu_torch.serving.router import RETRIABLE_ERRORS
+
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=256, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
+    print(f"engines F1: paged bf16 page=16 max_seq_len=2048 chunk=256, 64-entry prefix caches, "
+          f"{cfg.n_layers} layers: two replicas behind a router, heartbeats every "
+          f"{FLEET_BEAT_S} s")
+    tier = FleetTier()
+    engines = {rid: build_engine(torch, cfg, params, conf, mem, f"F1 {rid}")
+               for rid in ("f1-a", "f1-b")}
+    out: dict = {}
+    mark0 = launch_counts()
+    try:
+        for rid, engine in engines.items():
+            tier.add(rid, engine)
+        tier.wait_up(*engines)
+        # 8 prompts sharing a 1000-token prefix, each with its own 20-token tail
+        shared = prompt(1000)
+        prompts = [shared + prompt(20) for _ in range(8)]
+        affine = tier.router._candidates_for(prompts[0])[0][0]
+        eng = engines[affine]
+        rows = []
+        for p in prompts:
+            mark = launch_counts()
+            r = tier.router.submit(p, max_new_tokens=FLEET_NEW).result(600)
+            chunks = eng.timeline.get(r.request_id).prefill_chunks if r.replica_id == affine else []
+            rows.append({"replica": r.replica_id, "ttft_ms": r.ttft_s * 1e3,
+                         "hit_tokens": sum(c["tokens"] for c in chunks if c["prefix_hit"]),
+                         "computed_chunks": sum(1 for c in chunks if not c["prefix_hit"]),
+                         "flash": since(mark)["flash_attention"]})
+        out["affinity"] = {"affine": affine, "requests": rows,
+                           "share": sum(r["replica"] == affine for r in rows) / len(rows)}
+        for i, row in enumerate(rows):
+            print(f"  F1 affine request {i}: {row}")
+        if out["affinity"]["share"] != 1.0 or (rows[0]["computed_chunks"], rows[0]["hit_tokens"]) \
+                != (4, 0) or any((r["computed_chunks"], r["hit_tokens"]) != (1, 768) for r in rows[1:]):
+            raise AssertionError(f"F1 affinity: {out['affinity']}")
+
+        # a router.route fault on the first attempt: the walk takes the other replica
+        p = tier.affine(affine, lambda: prompt(200))
+        direct = eng.submit(p, max_new_tokens=FLEET_NEW).result(600)
+        with chaos.active(chaos.ChaosInjector(SEED, {"router.route": 1.0}, max_faults=1)) as inj:
+            r = tier.router.submit(p, max_new_tokens=FLEET_NEW).result(600)
+        out["route_fault"] = {"replica": r.replica_id, "equal": r.token_ids == direct.token_ids,
+                              "faults": inj.stats()["router.route"]["faults"]}
+        print(f"  F1 router.route fault: {out['route_fault']}")
+        if r.replica_id == affine or not out["route_fault"]["equal"] \
+                or out["route_fault"]["faults"] != 1:
+            raise AssertionError(f"F1 route fault: {out['route_fault']}")
+
+        # warm_restart of the affine replica under a burst of 8 (4 affine to each)
+        other = next(rid for rid in engines if rid != affine)
+        burst = [tier.affine(rid, lambda: prompt(100)) for rid in (affine, other) for _ in range(4)]
+        futs = [tier.router.submit(q, max_new_tokens=32) for q in burst]
+        wait_until(lambda: any(s is not None and s.tokens for s in eng.slots), 600,
+                   "F1: a burst row decoding on the affine replica")
+        t0 = time.perf_counter()
+        if not eng.warm_restart(join_timeout=30.0):
+            raise AssertionError("F1: warm_restart stood down")
+        restart_ms = (time.perf_counter() - t0) * 1e3
+        outcomes = []
+        for f in futs:
+            try:
+                res = f.result(600)
+                outcomes.append(("ok", res.replica_id, res.finish_reason))
+            except RETRIABLE_ERRORS as exc:
+                outcomes.append(("retriable", type(exc).__name__))
+        out["restart_burst"] = {"warm_restart_ms": restart_ms, "outcomes": outcomes,
+                                "terminals": len(outcomes)}
+        print(f"  F1 warm_restart under a burst: {out['restart_burst']}")
+        if len(outcomes) != len(burst):
+            raise AssertionError(f"F1 burst: {out['restart_burst']}")
+        for rid, engine in engines.items():
+            check_clean(engine, f"F1 {rid} after the burst")
+        wait_until(lambda: tier.router.membership.epoch_of(affine) == eng.epoch, 30,
+                   "F1: the restarted replica's epoch on a beat")
+
+        # two keyed submits of one key: one admission, through router.claim
+        p = prompt(200)
+        admitted = {rid: e._sched.stats()["total_admitted"] for rid, e in engines.items()}
+        f1 = tier.router.submit(p, max_new_tokens=FLEET_NEW, idempotency_key="f1-key")
+        f2 = tier.router.submit(p, max_new_tokens=FLEET_NEW, idempotency_key="f1-key")
+        r1, r2 = f1.result(600), f2.result(600)
+        out["keyed"] = {"admissions": sum(e._sched.stats()["total_admitted"] - admitted[rid]
+                                          for rid, e in engines.items()),
+                        "same_replica": r1.replica_id == r2.replica_id,
+                        "equal": r1.token_ids == r2.token_ids,
+                        "dedup": engines[r1.replica_id].dedup_stats()}
+        print(f"  F1 keyed duplicate: {out['keyed']}")
+        if out["keyed"]["admissions"] != 1 or not (out["keyed"]["same_replica"]
+                                                   and out["keyed"]["equal"]):
+            raise AssertionError(f"F1 keyed: {out['keyed']}")
+
+        z = tier.router.routerz()
+        print(f"  F1 routerz: {json.dumps(z, default=str)}")
+        text = tier.manager.expose_prometheus()
+        series = ("app_router_replica_state", "app_router_failovers_total", "app_router_hedges_total",
+                  "app_router_last_resort_routes_total", "app_router_queue_wait_seconds")
+        out["series"] = {n: {"registered": f"# TYPE {n} " in text,
+                             "samples": sum(line.startswith(n) for line in text.splitlines())}
+                         for n in series}
+        out["promlint"] = lint_exposition(text)
+        out["counters"] = z["counters"]
+        print(f"  F1 router series: {out['series']}, promlint {out['promlint']}")
+        if not all(s["registered"] for s in out["series"].values()) or out["promlint"] \
+                or not out["series"]["app_router_replica_state"]["samples"]:
+            raise AssertionError(f"F1 series: {out['series']} {out['promlint']}")
+        out["launches"] = since(mark0)
+    finally:
+        tier.close()
+        for engine in engines.values():
+            engine.stop()
+    del engines, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_f2(torch, cfg, params, prompt, mem: dict) -> dict:
+    """F2, reclamation (paged bf16 as F1): a survivor and a preemptible
+    replica built by a ``SimulatedPoolDriver``, their ``KVMigrator``s on
+    one ``PrefixIndex``, the survivor the preemptible one's push peer;
+    4 batch-class then 4 interactive rows of 1000-token prompts on the
+    preemptible replica, then a notice."""
+    import gc
+
+    from gofr_tpu_torch import ErrorServiceUnavailable, chaos
+    from gofr_tpu_torch.metrics import new_metrics_manager
+    from gofr_tpu_torch.serving import (KVMigrator, LocalReplica, PrefixIndex, SimulatedPoolDriver,
+                                        TenantPolicy, TenantRegistry, local_engine_store,
+                                        register_serving_metrics, release_replica)
+
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=256, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
+    print(f"engines F2: paged bf16 page=16 max_seq_len=2048 chunk=256, 64-entry prefix caches, "
+          f"{cfg.n_layers} layers: a survivor and a preemptible replica, a {FLEET_NOTICE_S:g} s "
+          "notice")
+    tier = FleetTier()
+    index = PrefixIndex()
+    tenants = TenantRegistry()
+    tenants.set_policy(TenantPolicy(name="gold", deadline_class="interactive", deadline_s=600.0))
+    tenants.set_policy(TenantPolicy(name="bulk", deadline_class="batch", deadline_s=600.0))
+    engines, migrators, managers = {}, {}, {}
+
+    def factory(role, rid, preemptible=False):
+        manager = register_serving_metrics(new_metrics_manager())
+        migrator = KVMigrator(rid, index, metrics=manager)
+        engine = build_engine(torch, cfg, params, {**conf, "role": role, "preemptible": preemptible},
+                              mem, f"F2 {rid}", kv_migrator=migrator, tenants=tenants,
+                              metrics=manager)
+        engine.start()
+        handle = LocalReplica(rid, engine, role=role)
+        handle.announcer = tier.announce(rid, engine)
+        engines[rid], migrators[rid], managers[rid] = engine, migrator, manager
+        return handle
+
+    driver = SimulatedPoolDriver(tier.router, factory, on_reap=release_replica)
+    out: dict = {}
+    mark0 = launch_counts()
+    try:
+        (surv,) = driver.scale_up("unified", 1)
+        (spot,) = driver.scale_up("unified", 1, preemptible=True)
+        migrators[spot].add_push_peer(surv, local_engine_store(engines[surv]))
+        tier.wait_up(surv, spot)
+        bulk, gold = [prompt(1000) for _ in range(4)], [prompt(1000) for _ in range(4)]
+        # the batch prompts cold on the survivor, whose cache is then emptied
+        mark = launch_counts()
+        cold = [engines[surv].submit(p, max_new_tokens=FLEET_NEW) for p in bulk]
+        cold = [f.result(600) for f in cold]
+        cold_chunks = [sum(1 for c in engines[surv].timeline.get(r.request_id).prefill_chunks
+                           if not c["prefix_hit"]) for r in cold]
+        cold_flash = since(mark)["flash_attention"]
+        engines[surv]._prefix_cache.clear()
+
+        e = engines[spot]
+        firsts = {f"{kind}{i}": threading.Event() for kind in ("bulk", "gold") for i in range(4)}
+
+        def first_frame(name):
+            return lambda token_id, piece, done: firsts[name].set()
+
+        futs = {f"bulk{i}": e.submit(p, max_new_tokens=512, tenant="bulk",
+                                     stream_cb=first_frame(f"bulk{i}"))
+                for i, p in enumerate(bulk)}
+        wait_until(lambda: all(firsts[f"bulk{i}"].is_set() for i in range(4)), 600,
+                   "F2's batch rows decoding")
+        futs |= {f"gold{i}": e.submit(p, max_new_tokens=32, tenant="gold",
+                                      stream_cb=first_frame(f"gold{i}"))
+                 for i, p in enumerate(gold)}
+        wait_until(lambda: all(ev.is_set() for ev in firsts.values()), 600,
+                   "F2's interactive rows decoding")
+        out["at_notice"] = {"gold_running": sum(s is not None and s.tenant == "gold"
+                                                for s in e.slots)}
+        summaries, real = [], e.begin_reclaim
+        t_notice = time.monotonic()
+
+        def recorded(deadline_s=None, **kw):
+            summary = real(deadline_s, **kw)
+            summaries.append((summary, time.monotonic() - t_notice))
+            return summary
+
+        e.begin_reclaim = recorded
+        gc.collect()  # earlier phases' cyclic garbage is no part of this delta
+        torch.cuda.synchronize()
+        # the memory outside the prefix caches: the notice's page-outs and
+        # the probe's entry land in the survivor's cache, which keeps them
+        spot_kv, mem_before = kv_bytes(e), torch.cuda.memory_allocated()
+        outside_before = mem_before - cached_bytes(e, engines[surv])
+        t_notice = time.monotonic()
+        if not driver.notice(spot, deadline_s=FLEET_NOTICE_S):
+            raise AssertionError("F2: the notice was not delivered")
+        wait_until(lambda: tier.router.membership.state_of(spot) == "RECLAIMING", 10,
+                   "F2: RECLAIMING on a beat")
+        to_reclaiming = time.monotonic() - t_notice
+        probe = tier.router.submit(prompt(50), max_new_tokens=4).result(600)
+        routable = tier.router.membership.candidates()
+        outcomes = {}
+        for name, f in futs.items():
+            try:
+                r = f.result(600)
+                outcomes[name] = ("ok", r.finish_reason, len(r.token_ids))
+            except ErrorServiceUnavailable as exc:
+                outcomes[name] = ("retriable", exc.status_code, exc.retry_after)
+        wait_until(lambda: summaries, 60, "F2: the reclaim ladder's end")
+        summary, ladder_s = summaries[0]
+        m = managers[spot]
+        drain_hist = m.get("app_reclaim_drain_seconds").snapshot()
+        out["reclaim"] = {
+            "notice_to_reclaiming_s": to_reclaiming, "probe_replica": probe.replica_id,
+            "routable": routable, "outcomes": outcomes, "summary": summary,
+            "notice_to_committed_s": ladder_s,
+            "app_replica_reclamations_total": m.get("app_replica_reclamations_total").value(),
+            "app_kv_evacuations_total_committed": m.get("app_kv_evacuations_total").value(
+                {"outcome": "committed"}),
+            "app_reclaim_drain_seconds": {"sum": drain_hist[0], "count": drain_hist[1]}}
+        print(f"  F2 reclaim: {out['reclaim']}")
+        ev = summary["evacuation"]
+        if probe.replica_id != surv or spot in routable \
+                or any(outcomes[f"gold{i}"][:2] != ("ok", "length") for i in range(4)) \
+                or any(outcomes[f"bulk{i}"][:2] != ("retriable", 503) for i in range(4)) \
+                or ev["outcome"] != "committed" or ev["target"] != surv \
+                or ev["committed"] != ev["entries"] \
+                or out["reclaim"]["app_replica_reclamations_total"] != 1 \
+                or out["reclaim"]["app_kv_evacuations_total_committed"] != 1 or drain_hist[1] != 1:
+            raise AssertionError(f"F2 reclaim: {out['reclaim']}")
+
+        # the batch prompts again, through the router: the survivor's chain
+        spy, mark = DispatchSpy(engines[surv]), launch_counts()
+        try:
+            again = [tier.router.submit(p, max_new_tokens=FLEET_NEW).result(600) for p in bulk]
+            counts = dict(spy.n)
+        finally:
+            spy.close()
+        tls = [engines[surv].timeline.get(r.request_id) for r in again]
+        # the source computed these chunks beside other rows, the cold run
+        # beside others again: equal tokens, or a parting inside GAP_TOL
+        out["resumed"] = {
+            "replicas": [r.replica_id for r in again],
+            "equal": [same_or_close(torch, engines[surv], p, r.token_ids, c.token_ids,
+                                    f"F2 batch prompt {i}")
+                      for i, (p, r, c) in enumerate(zip(bulk, again, cold))],
+            "computed_chunks": [sum(1 for c in tl.prefill_chunks if not c["prefix_hit"])
+                                for tl in tls],
+            "cold_computed_chunks": cold_chunks, "tiers": [tl.prefix_tier for tl in tls],
+            "ttft_ms": [r.ttft_s * 1e3 for r in again],
+            "cold_ttft_ms": [c.ttft_s * 1e3 for c in cold],
+            "flash": since(mark)["flash_attention"], "cold_flash": cold_flash,
+            "dispatches": counts}
+        print(f"  F2 batch prompts resumed on the survivor: {out['resumed']}")
+        res = out["resumed"]
+        if set(res["replicas"]) != {surv} \
+                or any(a >= b for a, b in zip(res["computed_chunks"], cold_chunks)) \
+                or res["flash"] > cold_flash:
+            raise AssertionError(f"F2 resumed: {res}")
+
+        # reap: the reclaimed engine's KV leaves the card
+        wait_until(lambda: not e._running, 60, "F2: the reclaimed engine's stop")
+        if not driver.reap(spot):
+            raise AssertionError("F2: reap refused a drained replica")
+        tier.announcers.pop(spot, None)
+        del e, real, recorded, futs
+        engines.pop(spot), migrators.pop(spot)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        released = outside_before - (mem_after - cached_bytes(engines[surv]))
+        out["reap"] = {"released_mib": released / 2**20, "kv_mib": spot_kv / 2**20,
+                       "allocated_fell_mib": (mem_before - mem_after) / 2**20}
+        print(f"  F2 reap: memory_allocated outside the prefix caches fell "
+              f"{released / 2**20:.1f} MiB (the preemptible replica's KV "
+              f"{spot_kv / 2**20:.1f} MiB; all of memory_allocated "
+              f"{(mem_before - mem_after) / 2**20:.1f} MiB)")
+        if released < spot_kv - (64 << 20):
+            raise AssertionError(f"F2 reap: {out['reap']}")
+
+        # a notice lost in delivery: the replica keeps serving
+        with chaos.active(chaos.ChaosInjector(SEED, {"replica.reclaim": 1.0}, max_faults=1)):
+            delivered = driver.notice(surv, deadline_s=FLEET_NOTICE_S)
+        still = tier.router.submit(prompt(50), max_new_tokens=4).result(600)
+        out["lost_notice"] = {"delivered": delivered, "dropped": driver.notices_dropped_total,
+                              "served_by": still.replica_id,
+                              "state": engines[surv].health_check()["status"]}
+        print(f"  F2 lost notice: {out['lost_notice']}")
+        if delivered or driver.notices_dropped_total != 1 or still.replica_id != surv \
+                or out["lost_notice"]["state"] != "UP":
+            raise AssertionError(f"F2 lost notice: {out['lost_notice']}")
+        out["launches"] = since(mark0)
+    finally:
+        for rid in list(engines):
+            handle = driver.handle(rid)
+            if handle is not None:
+                release_replica(handle)
+        tier.close()
+        for engine in engines.values():
+            engine.stop()
+    engines.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_f3(torch, cfg, params, prompt, mem: dict) -> dict:
+    """F3: an autoscaler over a pool of paged int8 replicas (4096,
+    32-token pages) that ``engine_factory`` builds on the card; then a
+    dense bf16 prefill replica and a decode replica behind a router."""
+    from gofr_tpu_torch import EngineConfig, chaos
+    from gofr_tpu_torch.serving import (Autoscaler, AutoscalerConfig, KVMigrator,
+                                        SimulatedPoolDriver, engine_factory, local_engine_fetcher,
+                                        release_replica)
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32,
+                kv_dtype="int8", multi_step=4, prefill_chunk_tokens=256)
+    print(f"engines F3: an autoscaled pool of paged int8 replicas (page=32, 4096, chunk=256, "
+          f"{cfg.n_layers} layers), min 1 max 2, up 0.5 s, down 1.0 s, cooldown 1.0 s")
+    tier = FleetTier()
+    factory = engine_factory(cfg, params, EngineConfig(**conf), publisher=tier.broker,
+                             heartbeat_s=FLEET_BEAT_S, tokenizer=ByteTokenizer(cfg.vocab_size),
+                             seed=SEED)
+    driver = SimulatedPoolDriver(tier.router, factory, on_reap=release_replica)
+    scaler = Autoscaler(tier.router, driver, AutoscalerConfig(
+        interval_s=0.1, min_replicas=1, max_replicas=2, up_stable_s=0.5, down_stable_s=1.0,
+        cooldown_s=1.0), metrics=tier.manager)
+    out: dict = {}
+    mark0 = launch_counts()
+    try:
+        (first,) = driver.scale_up("unified", 1)
+        tier.wait_up(first)
+        # the scaler records a decision after its scale_up returns: stamp
+        # the call, so the new replica's build is inside the timed span
+        calls, real_up = [], driver.scale_up
+
+        def timed_up(role, n, **kw):
+            calls.append(time.time())
+            return real_up(role, n, **kw)
+
+        driver.scale_up = timed_up
+        scaler.start()
+        t_burst, done_at = time.time(), []
+        futs = [tier.router.submit(prompt(FLEET_BURST_LEN), max_new_tokens=FLEET_BURST_NEW)
+                for _ in range(FLEET_BURST)]
+        for f in futs:
+            f.add_done_callback(lambda _f: done_at.append(time.time()))
+        wait_until(lambda: scaler.scale_ups_total >= 1, 300, "F3's scale-up")
+        decision, t_decision = scaler.decisions[0], calls[0]
+        added = decision["replicas"][0]
+        # more traffic until the new replica takes its first route
+        t_first, more = None, []
+        while t_first is None:
+            more.append(tier.router.submit(prompt(FLEET_BURST_LEN), max_new_tokens=8))
+            if tier.router.routes_by_replica.get(added, 0):
+                t_first = time.time()
+            elif time.time() - t_decision > 120:
+                raise AssertionError("F3: the new replica never took a route")
+            else:
+                time.sleep(0.05)
+        results = [f.result(600) for f in futs + more]
+        out["scale_up"] = {"decision": decision, "burst_to_decision_s": t_decision - t_burst,
+                           "build_s": decision["t"] - t_decision,
+                           "decision_to_first_route_s": t_first - t_decision,
+                           "requests": len(results), "lost": 0,
+                           "by_replica": {rid: sum(r.replica_id == rid for r in results)
+                                          for rid in (first, added)}}
+        print(f"  F3 scale-up: {out['scale_up']}")
+        print(f"  F3 time from the scale-up decision to the new replica's first route: "
+              f"{(t_first - t_decision) * 1e3:.1f} ms")
+        if decision["direction"] != "up" or not all(r.finish_reason in ("length", "stop")
+                                                    for r in results):
+            raise AssertionError(f"F3 scale-up: {out['scale_up']}")
+        # the queue empties: drain (the victim's rows in flight finish) and
+        # reap down to the floor
+        wait_until(lambda: scaler.scale_downs_total >= 1 and not scaler.snapshot()["draining"]
+                   and len(driver.replica_ids("unified")) == 1, 120, "F3's scale-down and reap")
+        down = next(d for d in scaler.decisions if d["direction"] == "down")
+        out["scale_down"] = {"decision": down, "pool": driver.replica_ids("unified"),
+                             "burst_done_after_decision": sum(t > down["t"] for t in done_at),
+                             "last_burst_done_to_decision_s": down["t"] - max(done_at)}
+        print(f"  F3 scale-down: {out['scale_down']}")
+        scaler.stop()
+        skipped = scaler.decisions_skipped_total
+        with chaos.active(chaos.ChaosInjector(SEED, {"scale.decision": 1.0}, max_faults=1)):
+            scaler.tick()
+        text = tier.manager.expose_prometheus()
+        out["scale_fault"] = {"skipped": scaler.decisions_skipped_total - skipped,
+                              "decisions": len(scaler.decisions)}
+        out["series"] = {n: sum(line.startswith(n + "{") for line in text.splitlines())
+                         for n in ("app_autoscaler_replicas", "app_autoscaler_scale_events_total")}
+        print(f"  F3 scale.decision fault: {out['scale_fault']}; series {out['series']}")
+        if out["scale_fault"]["skipped"] != 1 or not all(out["series"].values()):
+            raise AssertionError(f"F3 autoscaler: {out}")
+        out["launches_autoscaler"] = since(mark0)
+    finally:
+        scaler.stop()
+        for rid in driver.replica_ids("unified"):
+            release_replica(driver.handle(rid))
+        tier.close()
+    del driver, scaler, factory
+    torch.cuda.empty_cache()
+
+    # P/D: a unified dense bf16 engine first, then a prefill and a decode replica
+    pd_conf = dict(max_slots=8, max_seq_len=2048, kv_layout="dense", multi_step=4,
+                   prefill_chunk_tokens=256, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
+    print("engines F3 P/D: dense bf16 max_seq_len=2048 chunk=256, 64-entry prefix caches: a "
+          "unified engine, then a prefill and a decode replica behind a router")
+    p = prompt(1000)
+    unified = build_engine(torch, cfg, params, pd_conf, mem, "F3 unified")
+    unified.start()
+    try:
+        t0 = [time.perf_counter()]
+        want = unified.submit(p, max_new_tokens=16, stream_cb=first_token_timer(t0)).result(600)
+        unified_ttft = (t0[1] - t0[0]) * 1e3
+    finally:
+        unified.stop()
+    del unified
+    torch.cuda.empty_cache()
+    tier = FleetTier()
+    migrator = KVMigrator("decode", tier.router.prefix_index, metrics=tier.manager)
+    pre = build_engine(torch, cfg, params, {**pd_conf, "role": "prefill"}, mem, "F3 prefill")
+    dec = build_engine(torch, cfg, params, {**pd_conf, "role": "decode"}, mem, "F3 decode",
+                       kv_migrator=migrator)
+    migrator.add_peer("prefill", local_engine_fetcher(pre))
+    mark = launch_counts()
+    try:
+        tier.add("prefill", pre, role="prefill")
+        tier.add("decode", dec, role="decode")
+        tier.wait_up("prefill", "decode")
+        spy_pre, spy_dec = DispatchSpy(pre), DispatchSpy(dec)
+        try:
+            t0 = [time.perf_counter()]
+            got = tier.router.submit(p, max_new_tokens=16,
+                                     stream_cb=first_token_timer(t0)).result(600)
+            split_ttft = (t0[1] - t0[0]) * 1e3
+            pcounts, dcounts = dict(spy_pre.n), dict(spy_dec.n)
+        finally:
+            spy_dec.close()
+            spy_pre.close()
+        out["pd"] = {"replica": got.replica_id, "equal": got.token_ids == want.token_ids,
+                     "ttft_ms": {"unified": unified_ttft, "split": split_ttft},
+                     "prefill_dispatches": pcounts, "decode_dispatches": dcounts,
+                     "handoffs": tier.router.handoffs_total,
+                     "app_kv_handoffs_total": tier.manager.get("app_kv_handoffs_total").value(),
+                     "tier": dec.timeline.get(got.request_id).prefix_tier,
+                     "launches": since(mark)}
+        print(f"  F3 P/D: {out['pd']}")
+        print(f"  F3 TTFT of the 1000-token prompt: unified {unified_ttft:.2f} ms, prefill then "
+              f"decode through the router {split_ttft:.2f} ms")
+        if got.replica_id != "decode" or not out["pd"]["equal"] or dcounts["prefill"] \
+                or dcounts["ragged"] or out["pd"]["handoffs"] != 1 \
+                or out["pd"]["app_kv_handoffs_total"] != 1 or not pcounts["ragged"]:
+            raise AssertionError(f"F3 P/D: {out['pd']}")
+    finally:
+        tier.close()
+        pre.stop(), dec.stop()
+    del pre, dec
+    torch.cuda.empty_cache()
+    out["launches"] = since(mark0)
+    return out
+
+
+def run_fleet(torch, cfg, params) -> dict:
+    """The fleet phase at Llama-3-8B widths and full depth, at most two
+    engines at once over the one weight set: F1 the router tier, F2
+    reclamation, F3 the autoscaler and P/D routing."""
+    rng = torch.Generator().manual_seed(SEED + 7)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    t0 = time.perf_counter()
+    mem: dict = {}
+    out = {"card": card_line()}
+    for name, fn in (("F1", fleet_f1), ("F2", fleet_f2), ("F3", fleet_f3)):
+        out[name] = fn(torch, cfg, params, prompt, mem)
+    out["memory"] = mem
+    out["seconds"] = time.perf_counter() - t0
+    total: dict = {}
+    for name in ("F1", "F2", "F3"):
+        print_launches(name, out[name]["launches"])
+        add_launches(total, out[name]["launches"])
+    out["launches"] = total
+    print(f"  fleet: {out['seconds']:.1f}s ({out['card']})")
+    if not (total.get("flash_attention") and total.get("paged_decode_attention")
+            and total.get("paged_decode_attention_q")):
+        raise AssertionError(f"fleet launches {total}")
+    return out
+
+
+def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -3743,7 +4368,10 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
     print("HA and cross-replica KV phase (keyed submits, resume, orphan, fencing, KV migration, "
           "P/D handoff, full depth):")
     ha = run_ha(torch, cfg, params)
-    return launches, timings, lifecycle, reuse, tenancy, healing, observability, ha
+    torch.cuda.empty_cache()
+    print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, full depth):")
+    fleet = run_fleet(torch, cfg, params)
+    return launches, timings, lifecycle, reuse, tenancy, healing, observability, ha, fleet
 
 
 def main() -> int:
@@ -3777,9 +4405,11 @@ def main() -> int:
     errs = check_kernels(torch, gen)
 
     (launches, engine_timings, lifecycle, reuse, tenancy, healing, observability,
-     ha) = run_engine(torch)
+     ha, fleet) = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
+    for r in rows:  # the fleet phase's launches beside the main paths'
+        r["launches_fleet"] = fleet["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -3792,6 +4422,7 @@ def main() -> int:
     print(json.dumps({"healing": healing}, default=str))
     print(json.dumps({"observability": observability}, default=str))
     print(json.dumps({"ha": ha}, default=str))
+    print(json.dumps({"fleet": fleet}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

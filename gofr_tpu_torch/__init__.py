@@ -10,6 +10,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from gofr_tpu_torch.errors import (
+    CircuitBreakerError,
     ErrorDeadlineExceeded,
     ErrorEntityNotFound,
     ErrorInvalidParam,
@@ -23,8 +24,8 @@ from gofr_tpu_torch.models.llama import LlamaConfig
 from gofr_tpu_torch.serving.engine import EngineConfig, GenerationResult, ServingEngine
 
 __all__ = [
-    "EngineConfig", "ErrorDeadlineExceeded", "ErrorEntityNotFound", "ErrorInvalidParam",
-    "ErrorRequestEntityTooLarge", "ErrorServiceUnavailable", "ErrorStaleEpoch",
+    "CircuitBreakerError", "EngineConfig", "ErrorDeadlineExceeded", "ErrorEntityNotFound",
+    "ErrorInvalidParam", "ErrorRequestEntityTooLarge", "ErrorServiceUnavailable", "ErrorStaleEpoch",
     "ErrorTooManyRequests", "GenerationResult", "HTTPError",
     "LlamaConfig", "ServingEngine",
 ]

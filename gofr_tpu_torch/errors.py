@@ -1,6 +1,6 @@
 """Typed errors of the request lifecycle (a copy of what the serving engine
-raises from ``gofr_tpu/http/errors.py``; the port imports nothing of the
-JAX package).
+raises from ``gofr_tpu/http/errors.py``, and the service client's
+``CircuitBreakerError``; the port imports nothing of the JAX package).
 
 Each carries the HTTP status a transport answers with. A retriable
 rejection (shed, drain, stop) carries ``retry_after`` in seconds, which
@@ -135,3 +135,14 @@ class ErrorStaleEpoch(HTTPError):
     @classmethod
     def default_message(cls) -> str:
         return "stale fence epoch; refresh membership and retry"
+
+
+class CircuitBreakerError(Exception):
+    """503: an inter-replica circuit breaker is open, so the replica behind
+    it is treated as gone (a copy of ``gofr_tpu/service/options.py``'s;
+    the router's failover counts it retriable)."""
+
+    status_code = 503
+
+    def __init__(self, address: str) -> None:
+        super().__init__(f"circuit breaker open for {address}")

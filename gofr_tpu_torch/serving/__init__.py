@@ -2,12 +2,23 @@
 the multi-tenant plane (LoRA adapters and tenant classes), the
 self-healing plane (the supervisor and device telemetry), the
 observability plane (the metrics catalog and the request timelines), the
-HA plane (idempotent submits and resumable streams) and cross-replica KV
-(the prefix index and the KV migrator)."""
+HA plane (idempotent submits and resumable streams), cross-replica KV
+(the prefix index and the KV migrator), and the fleet tier: membership
+over heartbeats, the prefix-affine router with failover, hedging and P/D
+routing, and the autoscaler with its pool driver."""
 
+from gofr_tpu_torch.serving.autoscaler import (
+    Autoscaler,
+    AutoscalerConfig,
+    ReplicaPoolDriver,
+    SimulatedPoolDriver,
+    engine_factory,
+    release_replica,
+)
 from gofr_tpu_torch.serving.dedup import DedupRegistry, ReplayGap, ReplayStream
 from gofr_tpu_torch.serving.device_telemetry import DeviceTelemetry
 from gofr_tpu_torch.serving.lora import AdapterRegistry, LoraAdapter, make_adapter
+from gofr_tpu_torch.serving.membership import Heartbeat, MembershipTable, ReplicaAnnouncer
 from gofr_tpu_torch.serving.metrics_catalog import register_serving_metrics
 from gofr_tpu_torch.serving.prefix_index import (
     KVMigrator,
@@ -17,11 +28,15 @@ from gofr_tpu_torch.serving.prefix_index import (
     local_engine_fetcher,
     local_engine_store,
 )
+from gofr_tpu_torch.serving.router import LocalReplica, Router, RouterConfig, prefix_affinity_key
 from gofr_tpu_torch.serving.supervisor import EngineSupervisor
 from gofr_tpu_torch.serving.tenancy import TenantPolicy, TenantRegistry
 
-__all__ = ["AdapterRegistry", "DedupRegistry", "DeviceTelemetry", "EngineSupervisor",
-           "KVMigrator", "LoraAdapter", "PrefixIndex", "ReplayGap", "ReplayStream",
-           "TenantPolicy", "TenantRegistry", "decode_entry", "encode_entry",
-           "local_engine_fetcher", "local_engine_store", "make_adapter",
-           "register_serving_metrics"]
+__all__ = ["AdapterRegistry", "Autoscaler", "AutoscalerConfig", "DedupRegistry",
+           "DeviceTelemetry", "EngineSupervisor", "Heartbeat", "KVMigrator", "LocalReplica",
+           "LoraAdapter", "MembershipTable", "PrefixIndex", "ReplayGap", "ReplayStream",
+           "ReplicaAnnouncer", "ReplicaPoolDriver", "Router", "RouterConfig",
+           "SimulatedPoolDriver", "TenantPolicy", "TenantRegistry", "decode_entry",
+           "encode_entry", "engine_factory", "local_engine_fetcher", "local_engine_store",
+           "make_adapter", "prefix_affinity_key", "register_serving_metrics",
+           "release_replica"]

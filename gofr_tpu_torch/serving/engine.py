@@ -198,9 +198,20 @@ nothing, then the advisory fetch, then compute). On int8 KV only the
 whole-prompt entry migrates, as the reference keeps no chunk cache there.
 ``role`` is the replica's (``TPU_REPLICA_ROLE``).
 
-Not ported yet: reclamation; the ``/metrics``, ``/requestz`` and
-``/kv/fetch`` routes, the remote streaming client and log correlation
-wait for the HTTP bindings.
+The reclamation plane: ``preemptible`` (``TPU_REPLICA_PREEMPTIBLE``)
+rides the heartbeat, and ``begin_reclaim(deadline_s)`` runs a notice's
+ladder: RECLAIMING (a retriable 503 at ``submit``, an epoch bump), the
+engine thread's sweep of batch-class rows (queued ones fail retriable;
+running ones stop being fed, page their chunk spans out once nothing of
+them is in flight, and fail retriable), a drain within
+``1 - reclaim_evacuate_frac`` of the notice, a whole-or-nothing push of the
+prefix cache to a survivor through the migrator (``kv.evacuate``), then
+``stop``. On int8 KV only whole-prompt entries evacuate, as no chunk cache
+is kept there.
+
+Not ported yet: the ``/metrics``, ``/requestz`` and ``/kv/fetch`` routes,
+the remote streaming client and log correlation wait for the HTTP
+bindings.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -243,6 +254,7 @@ from gofr_tpu_torch.serving.prefix_cache import PrefixCache
 from gofr_tpu_torch.serving.scheduler import QueueFull, Scheduler
 from gofr_tpu_torch.serving.shed import QueueWaitEstimator
 from gofr_tpu_torch.serving.stepplan import ChunkCursor, StepPlan, StepPlanner
+from gofr_tpu_torch.serving.tenancy import DEADLINE_CLASSES
 from gofr_tpu_torch.serving.timeline import TimelineRecorder
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 
@@ -320,6 +332,12 @@ class EngineConfig:
     # engine runs both phases whatever its role (a decode replica
     # re-prefills when a handoff fails)
     role: str = "unified"
+    # the reclamation plane: a preemptible replica runs on reclaimable
+    # (spot) capacity, carried by the heartbeat (the router steers
+    # interactive tenants off it); begin_reclaim keeps this fraction of a
+    # notice's budget for the KV evacuation after the drain
+    preemptible: bool = False
+    reclaim_evacuate_frac: float = 0.35
     # the HA plane: emitted frames kept per keyed request for a resume
     # (tokens plus the terminal), successful terminals kept in the
     # idempotency registry (LRU; live entries are bounded by the requests
@@ -371,6 +389,9 @@ class EngineConfig:
             not in ("0", "false", "off"),
             requestz_capacity=int(config.get_or_default("TPU_REQUESTZ_CAPACITY", "256")),
             role=config.get_or_default("TPU_REPLICA_ROLE", "unified"),
+            preemptible=config.get_or_default("TPU_REPLICA_PREEMPTIBLE", "0")
+            not in ("0", "false", "off"),
+            reclaim_evacuate_frac=float(config.get_or_default("TPU_RECLAIM_EVACUATE_FRAC", "0.35")),
             stream_replay_tokens=int(config.get_or_default("TPU_STREAM_REPLAY_TOKENS", "512")),
             idem_capacity=int(config.get_or_default("TPU_IDEM_CAPACITY", "1024")),
             stream_orphan_grace_s=float(config.get_or_default("TPU_STREAM_ORPHAN_GRACE_S", "10")),
@@ -560,6 +581,14 @@ class ServingEngine:
             raise ValueError(f"TPU_REPLICA_ROLE={conf.role!r}: must be prefill, decode or unified")
         # read by a membership announcer (the heartbeat's role)
         self.role = conf.role
+        # the reclamation plane: the capacity class rides the heartbeat;
+        # begin_reclaim() is the notice path, its deadline absolute
+        # monotonic, and _reclaim_swept set once no batch-class row is left
+        # for the engine thread's sweep
+        self.preemptible = conf.preemptible
+        self._reclaiming = False
+        self._reclaim_deadline: float | None = None
+        self._reclaim_swept = False
         if conf.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout={conf.kv_layout!r}: must be dense or paged")
         if conf.multi_step is not None and conf.multi_step < 1:
@@ -894,6 +923,201 @@ class ServingEngine:
         self.stop(join_timeout=join_timeout)
         return drained
 
+    # ------------------------------------------------------ reclamation plane
+    def reclaim_remaining_s(self) -> float | None:
+        """Seconds left of a reclamation notice in progress (None when not
+        reclaiming): the membership announcer puts it on the heartbeat."""
+        deadline = self._reclaim_deadline
+        if not self._reclaiming or deadline is None:
+            return None
+        return max(deadline - time.monotonic(), 0.0)
+
+    def begin_reclaim(self, deadline_s: float | None = None, *,
+                      join_timeout: float = 10.0) -> dict[str, Any]:
+        """The reclamation-notice ladder: the provider takes this machine
+        back in ``deadline_s`` seconds (``drain_deadline_s`` by default),
+        so the budget is spent in value order:
+
+        1. stop admitting (health reads RECLAIMING, ``submit`` answers a
+           retriable 503) and bump ``epoch``;
+        2. sweep batch-class work on the engine thread
+           (:meth:`_reclaim_sweep`): queued rows fail retriable, running
+           rows page their committed chunk spans out and fail retriable;
+        3. drain what is left within ``1 - reclaim_evacuate_frac`` of the
+           notice, then fail the remainder retriable (``drain``'s
+           contract);
+        4. push the prefix cache's committed entries to one survivor
+           through the ``KVMigrator`` (:meth:`_evacuate_kv`; whole or
+           nothing);
+        5. stop.
+
+        Every in-flight timeline is stamped ``reclaim``. Runs on any
+        thread (the pool driver's notice thread) and returns a summary:
+        ``accepted``, ``deadline_s``, ``inflight``, ``drained`` and the
+        ``evacuation``'s outcome; ``accepted`` is False, touching
+        nothing, when a notice, a stop or a park already owns the
+        lifecycle."""
+        if deadline_s is None:
+            deadline_s = self.config.drain_deadline_s
+        notice_t0 = time.monotonic()
+        with self._lifecycle_mu:
+            if self._reclaiming or self._stop_requested or self._wedged:
+                return {"accepted": False, "reason": "lifecycle-owned"}
+            with self._submit_mu:
+                self._reclaim_deadline = notice_t0 + max(float(deadline_s), 0.0)
+                self._reclaiming = True
+                self._reclaim_swept = False
+                # the drain gate with the notice, under the submit mutex: no
+                # submit is admitted after the notice (the reference sets it
+                # just before its drain wait)
+                self._draining = True
+                # a router acting on the pre-notice epoch is fenced off
+                self.epoch += 1
+        if self._metrics:
+            self._metrics.increment_counter("app_replica_reclamations_total")
+        log.warning("reclamation notice: %gs to drain and evacuate", deadline_s)
+        with self._count_lock:
+            inflight = list(self._by_id.values())
+        for req in inflight:
+            if req.timeline is not None:
+                req.timeline.stamp("reclaim")
+        summary: dict[str, Any] = {"accepted": True, "deadline_s": float(deadline_s),
+                                   "inflight": len(inflight)}
+        if not self._running:
+            # never started or already stopped: nothing drains, but the
+            # cache may hold chains worth saving
+            summary["drained"] = True
+            summary["evacuation"] = self._evacuate_kv(self._reclaim_deadline - time.monotonic())
+            self.stop(join_timeout=join_timeout)
+            self._reclaiming = False
+            self._reclaim_deadline = None
+            return summary
+        # the evacuation's reserve comes off the top of the notice
+        evac_frac = min(max(self.config.reclaim_evacuate_frac, 0.0), 0.9)
+        drain_budget = max(float(deadline_s) * (1.0 - evac_frac), 0.0)
+        self._idle.clear()
+        self._wake.set()
+        drained = self._idle.wait(timeout=drain_budget)
+        if drained:
+            remaining = drain_budget - (time.monotonic() - notice_t0)
+            drained = self._detok_idle.wait(timeout=max(remaining, 0.0))
+        if not drained:
+            with self._count_lock:
+                remainder = list(self._by_id.values())
+            for req in remainder:
+                self._settle_future(req, ErrorServiceUnavailable(
+                    "replica reclaiming; retry on another replica", retry_after=0.5,
+                ))
+                req.canceled = True  # the loop frees its slot and pages
+                try:
+                    self._sched.cancel(req.id)
+                except KeyError:
+                    pass
+            if remainder:
+                log.warning("reclaim drain budget passed with %d request(s) in flight; "
+                            "failed them retriable", len(remainder))
+            self._wake.set()
+            # a short window for the loop to free the canceled slots, inside
+            # the notice
+            self._idle.wait(timeout=min(2.0, max(self._reclaim_deadline - time.monotonic(), 0.0)))
+        summary["drained"] = drained
+        summary["evacuation"] = self._evacuate_kv(self._reclaim_deadline - time.monotonic())
+        self.stop(join_timeout=join_timeout)
+        if self._metrics:
+            self._metrics.record_histogram("app_reclaim_drain_seconds",
+                                           time.monotonic() - notice_t0)
+        self._reclaiming = False
+        self._reclaim_deadline = None
+        return summary
+
+    def _reclaim_sweep(self) -> bool:
+        """The engine thread's arm of a notice: batch-class work goes now,
+        so the drain budget serves the interactive and standard streams.
+        Queued batch rows fail retriable without a prefill. A running
+        batch row with a block or chunk still in flight is marked in
+        ``_preempt_pending``, so no later dispatch feeds it, and is paged
+        out once nothing of it is in flight (``_preempt(reclaim=True)``:
+        its committed chunk spans join the evacuation and it fails
+        retriable). Reads host state only. ``_reclaim_swept`` is set once
+        no batch row is left, and the loop stops calling it."""
+        threshold = DEADLINE_CLASSES["batch"][0]
+        active = {id(r) for r in self.slots if r is not None}
+        with self._count_lock:
+            queued = [r for r in self._by_id.values()
+                      if id(r) not in active and not r.canceled and r.priority >= threshold]
+            for req in queued:
+                self._by_id.pop(req.id, None)
+        for req in queued:
+            req.canceled = True
+            try:
+                self._sched.cancel(req.id)  # admit drops it: it left _by_id
+            except KeyError:
+                pass
+            self._settle_async(req, exc=ErrorServiceUnavailable(
+                "replica reclaiming; retry on another replica", retry_after=0.5))
+        did = bool(queued)
+        left = False
+        for slot, req in enumerate(self.slots):
+            if req is None or req.priority < threshold or req.canceled:
+                continue
+            if self._row_in_flight(slot, req):
+                self._preempt_pending.add(slot)  # paged out once its blocks are read
+                left = True
+                continue
+            self._preempt_pending.discard(slot)
+            self._preempt(slot, reclaim=True)
+            did = True
+        self._reclaim_swept = not left
+        return did
+
+    def _evacuate_kv(self, deadline: float | None) -> dict[str, Any]:
+        """Push the prefix cache's committed entries (whole-prompt entries,
+        chunk spans, paged-out rows; the device and host tiers) to one
+        survivor through :meth:`KVMigrator.evacuate_chain`, which commits
+        the batch whole or not at all. The outcome is ``skipped`` (no
+        cache or no migrator), ``harvest_error``, ``empty``, ``committed``
+        or ``degraded`` (no survivor took it: survivors re-prefill), each
+        counted in ``app_kv_evacuations_total{outcome}``. Never raises."""
+        cache, migrator = self._prefix_cache, self._kv_migrator
+        out: dict[str, Any] = {"entries": 0, "committed": 0, "target": None,
+                               "outcome": "skipped"}
+        if cache is None or migrator is None or not hasattr(migrator, "evacuate_chain"):
+            return self._count_evacuation(out)
+        entries: list[tuple[Any, Any]] = []
+        try:
+            # a harvest reads through peek where the cache has it (the
+            # tiered one: no promotion, no pop of the only host copy)
+            keys = list(cache.keys()) if hasattr(cache, "keys") else []
+            read = getattr(cache, "peek", None) or cache.get
+            for key in keys:
+                value = read(key)
+                if value is not None:
+                    entries.append((key, value))
+        except Exception:
+            out["outcome"] = "harvest_error"
+            return self._count_evacuation(out)
+        out["entries"] = len(entries)
+        if not entries:
+            out["outcome"] = "empty"
+            return self._count_evacuation(out)
+        try:
+            committed = migrator.evacuate_chain(entries, deadline=deadline)
+        except Exception:
+            committed = None
+        if committed:
+            target, n = committed
+            out.update(committed=int(n), target=target, outcome="committed")
+        else:
+            out["outcome"] = "degraded"
+        log.info("kv evacuation: %s (%d/%d entries%s)", out["outcome"], out["committed"],
+                 out["entries"], f" -> {out['target']}" if out["target"] else "")
+        return self._count_evacuation(out)
+
+    def _count_evacuation(self, out: dict[str, Any]) -> dict[str, Any]:
+        if self._metrics:
+            self._metrics.increment_counter("app_kv_evacuations_total", outcome=out["outcome"])
+        return out
+
     # ----------------------------------------------------------- self-healing
     def warm_restart(self, join_timeout: float = 5.0) -> bool:
         """Self-healing restart, driven by the supervisor when the loop
@@ -1062,15 +1286,16 @@ class ServingEngine:
     def health_check(self) -> dict[str, Any]:
         """``{"status": ..., "details": {...}}``. Status, first match:
         WEDGED (stop() could not join the loop thread, or the supervisor
-        spent its budget), RESTARTING, DOWN (not running), DRAINING,
-        SUSPECT (the supervisor's verdict), else UP. Details: slots,
+        spent its budget), RESTARTING, DOWN (not running), RECLAIMING,
+        DRAINING, SUSPECT (the supervisor's verdict), else UP. Details: slots,
         queue, scheduler, shed estimator, epoch, heartbeat age (running),
         page pool (paged, running), prefix cache, LoRA residency, tenants,
         ``request_latency`` (the flight recorder's medians over its
         completed ring), the idempotency registry's counters (``dedup``),
-        the device telemetry's last sample and the supervisor's snapshot.
-        Not yet: the reference's ``reclaim`` and ``preemptible`` (the
-        reclamation plane is not ported)."""
+        the device telemetry's last sample, the supervisor's snapshot,
+        ``preemptible`` (a preemptible replica) and ``reclaim`` (the
+        notice's remaining ``deadline_s``, while one runs). RECLAIMING
+        (a notice in progress) comes after DOWN and outranks DRAINING."""
         stats = self._sched.stats()
         details: dict[str, Any] = {
             "slots_active": sum(1 for s in self.slots if s is not None),
@@ -1098,6 +1323,13 @@ class ServingEngine:
         details["request_latency"] = self.timeline.latency_summary()
         if self.device_telemetry is not None:
             details["device"] = self.device_telemetry.last_sample()
+        if self.preemptible:
+            details["preemptible"] = True
+        if self._reclaiming:
+            remaining = self.reclaim_remaining_s()
+            details["reclaim"] = {
+                "deadline_s": round(remaining, 3) if remaining is not None else None,
+            }
         sup = self._supervisor
         if sup is not None:
             details["supervisor"] = sup.snapshot()
@@ -1108,6 +1340,10 @@ class ServingEngine:
             status = "RESTARTING"
         elif not self._running:
             status = "DOWN"
+        elif self._reclaiming:
+            # the same zero-new-routes contract as a drain, plus a hard
+            # external deadline the router and autoscaler read off the beat
+            status = "RECLAIMING"
         elif self._draining:
             status = "DRAINING"
         elif sup_state == "SUSPECT":
@@ -1604,6 +1840,10 @@ class ServingEngine:
                 # the preemption ladder runs before the plan: a slot it
                 # frees is admitted in this same iteration
                 did = self._maybe_preempt()
+                if self._reclaiming and not self._reclaim_swept:
+                    # a notice sheds batch-class rows now, so the drain
+                    # budget serves the interactive streams
+                    did |= self._reclaim_sweep()
                 plan = self._plan_step()
                 did |= self._admit(plan)
                 if any(s is not None for s in self.slots):
@@ -2079,7 +2319,7 @@ class ServingEngine:
         cursor = self._cursors.get(slot)
         return self._slot_in_flight(slot, req) or (cursor is not None and cursor.in_flight > 0)
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, *, reclaim: bool = False) -> None:
         """Pause one row with nothing in flight: put its whole chunk spans
         below its resident length, and strictly below ``len(serve_ids)``,
         into the prefix cache (bf16 KV with the chunk cache on; int8 KV
@@ -2087,12 +2327,21 @@ class ServingEngine:
         pin, and requeue it. The resume is an ordinary admission of
         ``serve_ids`` (prompt plus emitted tokens): the chain walk finds
         the spans, the tail chunk recomputes, and the NEXT token samples
-        with what is left of the budget; emitted tokens are never re-run."""
+        with what is left of the budget; emitted tokens are never re-run.
+
+        ``reclaim=True`` is a notice's variant (:meth:`_reclaim_sweep`):
+        the same page-out, whose spans then ride the evacuation to a
+        survivor, but the row fails retriable instead of requeueing, is
+        stamped ``reclaim-preempted`` and counts no tenant preemption.
+        It is not advisory: ``tenant.preempt`` does not fire."""
         req = self.slots[slot]
-        try:
-            chaos.maybe_fail("tenant.preempt")
-        except Exception:
-            return  # advisory: a faulted preemption is a skipped one
+        if req is None:
+            return
+        if not reclaim:
+            try:
+                chaos.maybe_fail("tenant.preempt")
+            except Exception:
+                return  # advisory: a faulted preemption is a skipped one
         ids = req.serve_ids
         resident = int(self.cache_len[slot])
         if self._prefix_cache is not None and self._chunk_cache_enabled and not req.prefill_only:
@@ -2114,8 +2363,8 @@ class ServingEngine:
                 self._prefix_cache.put(key, (placeholder, k_slab, v_slab))
         req.preemptions += 1
         if req.timeline is not None:
-            req.timeline.stamp(f"preempted:{req.preemptions}")
-        if self._metrics:
+            req.timeline.stamp("reclaim-preempted" if reclaim else f"preempted:{req.preemptions}")
+        if self._metrics and not reclaim:
             self._metrics.increment_counter("app_tenant_preemptions_total",
                                             tenant=req.tenant or "default")
         log.info("preempted request %d (tenant %s, priority %d) after %d tokens; %d resident "
@@ -2131,6 +2380,15 @@ class ServingEngine:
         self._lora_release(req)
         self._free_kv(slot)
         self._sched.release(slot)
+        if reclaim:
+            # a doomed replica never requeues: the router's retry lands on
+            # a survivor, whose chain walk finds the evacuated spans
+            req.canceled = True
+            with self._count_lock:
+                self._by_id.pop(req.id, None)
+            self._settle_async(req, exc=ErrorServiceUnavailable(
+                "replica reclaiming; retry on another replica", retry_after=0.5))
+            return
         try:
             self._sched.submit(req.id, len(req.serve_ids), req.max_new_tokens, req.priority)
         except Exception:
@@ -2982,19 +3240,26 @@ class ServingEngine:
 
     def _settle_async(self, req: _Request, build: Callable[[], GenerationResult] | None = None,
                       exc: Exception | None = None) -> None:
-        """The engine thread's terminal settlement: the done frame, then
-        the future (with ``build()``'s result, made there, or ``exc``), on
-        the detok worker behind the request's token frames; inline once
-        the worker has shut down, so a terminal state is never lost. A
-        result's settlement stamps ``detok_done`` there."""
+        """The engine thread's terminal settlement on the detok worker,
+        behind the request's token frames; inline once the worker has shut
+        down, so a terminal state is never lost. A result (``build()``'s,
+        made there) fires the done frame and then resolves the future, and
+        stamps ``detok_done``; a failure (``exc``) fails the future first
+        and fires the done frame after, the engine's settlement contract a
+        router's stream claim reads: a dead attempt's done frame must not
+        claim the stream before its failure is visible."""
 
-        def settle() -> None:
-            value = None if build is None else build()
+        def done_frame() -> None:
             if req.stream_cb is not None:
                 try:
                     req.stream_cb(-1, "", True)
                 except Exception:
                     pass  # the client is gone; the future still settles
+
+        def settle() -> None:
+            value = None if build is None else build()
+            if exc is None:
+                done_frame()
             tl = req.timeline
             if value is not None and tl is not None:
                 tl.stamp("detok_done")
@@ -3002,6 +3267,8 @@ class ServingEngine:
                 # a drain or stop sweep settled it first and closed the
                 # spans before this path opened its own: close them again
                 tl.close_spans()
+            if exc is not None:
+                done_frame()
 
         if not self._submit_detok(settle):
             settle()

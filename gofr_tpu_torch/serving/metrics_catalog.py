@@ -27,6 +27,7 @@ TPOT_BUCKETS = (0.001, 0.0025, 0.005, 0.0075, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5)
 CHUNK_TOKEN_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
 TTFT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30)
 BLOCK_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5)
+RECLAIM_BUCKETS = (0.1, 0.25, 0.5, 1, 2, 5, 10, 30, 60, 120)
 
 # (kind, name, description, buckets or None for the default) of every
 # series the port emits, by emitter
@@ -104,6 +105,39 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
     ("counter", "app_kv_handoffs_total",
      "Prefill→decode KV handoff chains admitted complete "
      "(contiguity-audited; a torn handoff re-prefills instead)", None),
+    # the reclamation plane (the engine's begin_reclaim and _evacuate_kv)
+    ("counter", "app_replica_reclamations_total",
+     "Reclamation notices accepted by this replica's drain ladder", None),
+    ("counter", "app_kv_evacuations_total",
+     "KV evacuation batches pushed to survivors during reclaim "
+     "(label outcome = committed|failed|skipped)", None),
+    ("histogram", "app_reclaim_drain_seconds",
+     "Wall time from reclamation notice to engine stop", RECLAIM_BUCKETS),
+    # the router (serving/router.py)
+    ("gauge", "app_router_replica_state",
+     "Router's view of each replica: 0 UP, 1 SUSPECT, 2 RESTARTING, "
+     "3 DRAINING, 4 WEDGED, 5 DOWN", None),
+    ("counter", "app_router_failovers_total",
+     "Requests re-routed to another replica after a retriable "
+     "pre-first-token failure", None),
+    ("counter", "app_router_hedges_total",
+     "Prefill admissions hedged on a second replica after the "
+     "p99-based delay", None),
+    ("counter", "app_router_last_resort_routes_total",
+     "Routes dispatched into a SUSPECT-only candidate pool (no UP "
+     "replica anywhere: best-effort routing, the tier is coasting)", None),
+    ("gauge", "app_router_queue_wait_seconds",
+     "Mean reported queue-wait EWMA across live replicas (the "
+     "tier-level autoscaling signal)", None),
+    # the in-memory broker the heartbeats ride (pubsub/memory.py)
+    ("counter", "app_pubsub_publish_total_count", "Number of total publish operations", None),
+    ("counter", "app_pubsub_publish_success_count", "Number of successful publish operations",
+     None),
+    # the autoscaler (serving/autoscaler.py)
+    ("gauge", "app_autoscaler_replicas",
+     "Autoscaler's current replica count per pool (label role)", None),
+    ("counter", "app_autoscaler_scale_events_total",
+     "Autoscaler scale actions taken (label direction=up|down)", None),
 )
 
 

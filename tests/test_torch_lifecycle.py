@@ -190,6 +190,8 @@ KNOBS = {  # knob -> (the port's field, a value to set)
     "TPU_TENANT_PREEMPT": ("tenant_preempt", "0"),
     "TPU_REQUESTZ_CAPACITY": ("requestz_capacity", "64"),
     "TPU_REPLICA_ROLE": ("role", "decode"),
+    "TPU_REPLICA_PREEMPTIBLE": ("preemptible", "1"),
+    "TPU_RECLAIM_EVACUATE_FRAC": ("reclaim_evacuate_frac", "0.5"),
     "TPU_STREAM_REPLAY_TOKENS": ("stream_replay_tokens", "64"),
     "TPU_IDEM_CAPACITY": ("idem_capacity", "32"),
     "TPU_STREAM_ORPHAN_GRACE_S": ("stream_orphan_grace_s", "2.5"),

@@ -9,7 +9,9 @@
 - ``register_serving_metrics`` registers each name with the kind,
   description and buckets of the reference's framework container;
 - an AST scan of ``gofr_tpu_torch/`` finds every emitted ``app_*`` name in
-  the catalog, and every catalog name emitted somewhere.
+  the catalog, and every catalog name emitted somewhere; one of
+  ``gofr_tpu/serving/`` finds every series the reference's serving modules
+  emit in the catalog, as its container registers it.
 """
 
 import ast
@@ -172,11 +174,11 @@ RECORDERS = {"set_gauge", "increment_counter", "record_histogram", "delta_updown
              "delete_gauge"}
 
 
-def _emitted_names() -> dict[str, list[str]]:
+def _emitted_names(package: str = "gofr_tpu_torch") -> dict[str, list[str]]:
     """Every literal ``app_*`` name passed first to a Manager recording
-    call in the port's package, with where."""
+    call under ``package`` (a directory of the repo), with where."""
     found: dict[str, list[str]] = {}
-    for path in sorted((ROOT / "gofr_tpu_torch").rglob("*.py")):
+    for path in sorted((ROOT / package).rglob("*.py")):
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
@@ -197,3 +199,15 @@ def test_every_emitted_name_is_in_the_catalog():
     assert all(n.startswith("app_") for n in emitted)
     unused = catalog - set(emitted)
     assert not unused, f"registered but never emitted: {sorted(unused)}"
+
+
+@pytest.mark.parametrize("name", sorted(_emitted_names("gofr_tpu/serving")))
+def test_every_reference_serving_series_is_in_the_catalog(container_manager, name):
+    """Each series the JAX package's serving modules emit is registered by
+    the reference's container and by the port's catalog, with the same
+    kind, description and buckets."""
+    ref_inst = container_manager.get(name)
+    assert ref_inst is not None, f"{name} is not registered by the reference's container"
+    port = register_serving_metrics(new_metrics_manager())
+    assert port.get(name) is not None, f"{name} is missing from the port's catalog"
+    assert _spec(port.get(name)) == _spec(ref_inst)

@@ -134,6 +134,41 @@ def test_ha_and_migration_modules_are_checked_and_keep_the_device_policy(no_card
     assert engine.prefix_advertisement() == [] and engine.dedup_stats()["live"] == 0
 
 
+def test_fleet_modules_are_checked_and_the_pool_factory_keeps_the_device_policy(no_card):
+    """The pubsub, membership, router, autoscaler and stub-replica modules
+    are among the files the import rule holds. They are host-side and work
+    without a card; the pool driver's engine factory builds its engines on
+    the card unless given the CPU, and raises without one."""
+    from gofr_tpu_torch.pubsub import InMemoryBroker
+    from gofr_tpu_torch.serving import Router, RouterConfig, engine_factory, release_replica
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"gofr_tpu_torch/pubsub/memory.py", "gofr_tpu_torch/pubsub/message.py",
+            "gofr_tpu_torch/serving/membership.py", "gofr_tpu_torch/serving/router.py",
+            "gofr_tpu_torch/serving/autoscaler.py", "gofr_tpu_torch/testutil/replica.py"} <= files
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, device="cpu")
+    conf = EngineConfig(max_slots=1, max_seq_len=32, prefill_buckets=(16,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine_factory(cfg, params, conf)("unified", "r1")
+    broker = InMemoryBroker()
+    handle = engine_factory(cfg, params, conf, publisher=broker, device="cpu")("decode", "r1",
+                                                                              preemptible=True)
+    try:
+        assert handle.engine.device.type == "cpu" and handle.role == "decode"
+        assert handle.engine.preemptible and handle.announcer is not None
+        assert broker.backlog("replica.heartbeat") >= 1  # announced at start
+        router = Router(RouterConfig())
+        router.add_replica(handle)
+        assert router.membership.is_preemptible("r1")
+        router.stop()
+    finally:
+        engine = handle.engine
+        release_replica(handle)
+    assert handle.engine is None and handle.announcer is None
+    assert not engine._running
+
+
 def test_cpu_engine_run_launches_no_kernel():
     """bf16 and int8 engines on either layout, a monolithic and a chunked
     prompt each: the plain versions run on the CPU and no counter moves."""
