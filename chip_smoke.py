@@ -64,8 +64,9 @@ Phases, each a hard failure with a non-zero exit:
      a sampled row, beside a non-spec engine of the same layout; one
      greedy request's verify logits against the dense forward, each
      emitted token the argmax of the engine's own logits;
-   then the LoRA and tenancy phase, at full depth, the launches of each
-   engine counted alone:
+   then the LoRA and tenancy phase, at ``PLANE_DEPTH`` (8) of the 32
+   layers (the first 8 of the same weights), the launches of each engine
+   counted alone:
    - ``L1`` dense bf16 with an ``AdapterRegistry`` of three rank-16
      adapters (``make_adapter``, seeds 1-3): 8 greedy rows of 200-token
      prompts in one batch (2 base, 2 per adapter), then each alone, the
@@ -109,7 +110,8 @@ Phases, each a hard failure with a non-zero exit:
    - ``H4`` dense bf16 (2 slots, budget 2): a crash, one restart and a
      request through flash; then a crash at every step parks the engine
      WEDGED with every future settled within 10 s;
-   then the observability phase, at full depth, each engine instrumented
+   then the observability phase, at ``PLANE_DEPTH`` layers, each engine
+   instrumented
    (a Manager with ``register_serving_metrics``, a Tracer over an
    in-memory exporter, a caller span per request as ``trace_ctx``) and
    then a bare twin of it (no metrics, no tracer) through the same request
@@ -2049,8 +2051,8 @@ def tenancy_path(torch, cfg, params, name: str, conf: dict, prompt) -> dict:
 
 
 def run_tenancy_lora(torch, cfg, params) -> dict:
-    """The LoRA and tenancy phase at Llama-3-8B widths and full depth, one
-    engine after another: L1 dense bf16 and L2 paged int8 with a registry
+    """The LoRA and tenancy phase at Llama-3-8B widths and the depth of
+    ``cfg`` (``PLANE_DEPTH`` in ``run_engine``), one engine after another: L1 dense bf16 and L2 paged int8 with a registry
     of three rank-16 adapters; T1 dense bf16 and T2 paged bf16 with the
     tenant storm."""
     from gofr_tpu_torch import EngineConfig
@@ -2604,7 +2606,9 @@ OBS_NEW = 16
 OBS_BULK, OBS_BULK_PROMPT, OBS_BULK_NEW, OBS_GOLD_AFTER = 8, 600, 48, 8
 OBS_TIMING_ROWS, OBS_TIMING_PROMPT, OBS_TIMING_NEW = 8, 64, 64
 OBS_O2_LENS = [5, 31, 200, 120, 60, 1000, 9, 450]  # O2's first set; 200 is the repeated prompt
-OBS_DEVICE_TIER_BYTES = 64 << 20  # O2's device tier, over a 1 GiB host tier
+# O2's device tier over a 1 GiB host tier, a layer of depth (64 MiB at 32
+# layers): an entry's bytes grow with the depth, and the tier must evict
+OBS_TIER_BYTES_A_LAYER = 2 << 20
 TTFT_SLACK_S = 2e-3  # timeline TTFT against GenerationResult.ttft_s
 LATENCY_KEYS = {"in_flight", "completed", "ttft_ms_p50", "queue_wait_ms_p50", "e2e_ms_p50"}
 PHASE_ORDER = ("submitted", "admitted", "prefill_start", "prefill_end", "first_token", "detok_done")
@@ -3188,7 +3192,8 @@ def observe_pair(torch, cfg, params, label: str, conf: dict, traffic, prompt_of,
 
 
 def run_observability(torch, cfg, params) -> dict:
-    """The observability phase at Llama-3-8B widths and full depth: O1 dense
+    """The observability phase at Llama-3-8B widths and the depth of ``cfg``
+    (``PLANE_DEPTH`` in ``run_engine``): O1 dense
     bf16 and O2 paged int8, each instrumented (serving metrics catalog,
     tracer, caller spans) beside a bare twin."""
     rng = torch.Generator().manual_seed(SEED + 5)
@@ -3205,7 +3210,8 @@ def run_observability(torch, cfg, params) -> dict:
                    prefill_chunk_tokens=256, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
     o2_conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32,
                    kv_dtype="int8", multi_step=4, prefill_chunk_tokens=256,
-                   prefix_cache_entries=64, prefix_cache_bytes=OBS_DEVICE_TIER_BYTES,
+                   prefix_cache_entries=64,
+                   prefix_cache_bytes=OBS_TIER_BYTES_A_LAYER * cfg.n_layers,
                    kv_spill_bytes=1 << 30)
     print(f"engine O1: dense bf16 max_seq_len=2048, 8 slots, 256-token chunks, 2 GiB prefix cache, "
           f"{cfg.n_layers} layers, metrics + tracer, and its bare twin ({card})")
@@ -3223,7 +3229,7 @@ def run_observability(torch, cfg, params) -> dict:
         raise AssertionError(f"O1: preemptions {o1['engine']['checks']['preemptions']}, "
                              f"shed {o1['engine']['checks']['shed']}")
     print(f"engine O2: paged int8 32-token pages, max_seq_len=4096, a "
-          f"{OBS_DEVICE_TIER_BYTES >> 20} MiB device tier over a 1 GiB host tier, "
+          f"{OBS_TIER_BYTES_A_LAYER * cfg.n_layers >> 20} MiB device tier over a 1 GiB host tier, "
           f"{cfg.n_layers} layers, metrics + tracer + device telemetry, and its bare twin ({card})")
     o2 = observe_pair(
         torch, cfg, params, "O2", o2_conf, o2_traffic, prompt_of, telemetry=True,
@@ -4277,7 +4283,686 @@ def run_fleet(torch, cfg, params) -> dict:
     return out
 
 
-def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]:
+# ------------------------------------------------------------------- the app plane
+
+HTTP_NEW = 32  # H1: new tokens of each of the main path's prompts
+HTTP_BURST = 16  # H1: streams queued behind the gate for the shed check
+HTTP_BOOT_S = 300.0  # H3: the subprocess answers /.well-known/alive within this
+HTTP_EXIT_S = 90.0  # H3: SIGTERM to exit, the drain included
+SERVE_ENV = {"SERVE_MODEL": "llama3-8b"}  # H3: the entry point's model (on the card)
+# H1: the profiler trace's events of this category must name both kernels
+PROFILE_CAT = "kernel"
+PROFILE_KERNELS = {"flash": r"flash_fwd_kernel",
+                   "paged_int8": r"paged_decode_kernel.*(signed char|EaEE)"}
+
+
+def http_app(torch, cfg, params, conf: dict, mem: dict, label: str, logbuf, **kw):
+    """An ``App`` on free ``127.0.0.1`` ports over a port engine on the card
+    (``build_engine``, the shared weights), the engine on the container's
+    metrics and tracer and on an INFO logger whose JSON lines go to
+    ``logbuf``; the generation routes registered."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.logging import Level, Logger
+    from gofr_tpu_torch.serving.handlers import register_generation_routes
+    from gofr_tpu_torch.testutil import get_free_port
+
+    app = App(MapConfig({
+        "APP_NAME": label, "HTTP_HOST": "127.0.0.1", "HTTP_PORT": str(get_free_port()),
+        "METRICS_PORT": str(get_free_port()), "LOG_LEVEL": "INFO",
+        "SHUTDOWN_GRACE_PERIOD": "30",
+    }, use_env=False))
+    app.logger = app.container.logger = Logger(Level.INFO, logbuf, logbuf, exit_on_fatal=False)
+    engine = build_engine(torch, cfg, params, conf, mem, label,
+                          metrics=app.container.metrics_manager, tracer=app.container.tracer,
+                          logger=app.logger, **kw)
+    register_generation_routes(app, engine)
+    return app, engine
+
+
+def sse(base: str, payload: dict, headers: dict | None = None, keep: int | None = None,
+        on_token=None) -> dict:
+    """One ``POST /generate/stream`` over a real socket: its frames as
+    (``id:`` or None, data), the client's seconds to the first token frame
+    and each token frame's arrival; with ``keep`` the socket is dropped
+    after that many frames. ``on_token(token count, head frame)`` runs per
+    token frame."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/generate/stream", json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json", **(headers or {})},
+                                 method="POST")
+    t0 = time.perf_counter()
+    frames, arrivals, seq = [], [], None
+    resp = urllib.request.urlopen(req, timeout=600)
+    try:
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("id:"):
+                seq = int(line[3:])
+            elif line.startswith("data:"):
+                data = line[5:].strip()
+                data = data if data == "[DONE]" else json.loads(data)
+                frames.append((seq, data))
+                seq = None
+                if isinstance(data, dict) and "token" in data:
+                    arrivals.append(time.perf_counter() - t0)
+                    if on_token is not None:
+                        on_token(len(arrivals), frames[0][1])
+                if keep is not None and len(frames) >= keep:
+                    break
+    finally:
+        resp.close()
+    return {"frames": frames, "arrivals": arrivals,
+            "head": frames[0][1] if frames else None,
+            "tokens": [d["token"] for _, d in frames if isinstance(d, dict) and "token" in d],
+            "terminal": next((d for _, d in frames if isinstance(d, dict) and "finish_reason" in d),
+                             None)}
+
+
+def post(base: str, path: str, payload=None, headers=None, raw: bytes | None = None):
+    """(status, headers, decoded JSON body or None) of one POST."""
+    from gofr_tpu_torch.testutil import fetch
+
+    body = raw if raw is not None else json.dumps(payload).encode()
+    status, hdrs, data = fetch(base + path, "POST", body,
+                               {"Content-Type": "application/json", **(headers or {})}, 600)
+    try:
+        return status, hdrs, json.loads(data) if data else None
+    except ValueError:
+        return status, hdrs, data
+
+
+def get_json(url: str):
+    from gofr_tpu_torch.testutil import fetch
+
+    status, _, data = fetch(url, timeout=600)
+    return status, json.loads(data)
+
+
+def gap_ms(arrivals: list[float]) -> float | None:
+    """Mean ms between a stream's first and last token frames, a token."""
+    return (arrivals[-1] - arrivals[0]) * 1e3 / (len(arrivals) - 1) if len(arrivals) > 1 else None
+
+
+def http_h1(torch, cfg, params, prompt, mem: dict) -> dict:
+    """H1: one ``App`` over a paged int8 engine (4096, 32-token pages,
+    256-token chunks): the main path's prompts as concurrent SSE streams,
+    held to ``engine.submit``'s tokens, under a sync count beside the same
+    set submitted directly; then the other routes, the profiler, and the
+    admin drain."""
+    import io
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gofr_tpu_torch.metrics import lint_exposition
+    from gofr_tpu_torch.serving import DeviceTelemetry
+    from gofr_tpu_torch.serving.handlers import register_admin_drain
+    from gofr_tpu_torch.testutil import fetch, start_app
+
+    conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32, multi_step=4,
+                prefill_chunk_tokens=256, kv_dtype="int8")
+    print(f"H1: App + paged int8 engine (page=32, max_seq_len=4096, chunk=256), "
+          f"{cfg.n_layers} layers")
+    logbuf = io.StringIO()
+    app, engine = http_app(torch, cfg, params, conf, mem, "H1", logbuf)
+    register_admin_drain(app)
+    # sampled by hand for the health check, after the sync count
+    telemetry = DeviceTelemetry(engine, metrics=app.container.metrics_manager, interval_s=3600)
+    gate, probe = Gate(engine), SyncProbe(engine)
+    thread = start_app(app, timeout=120)
+    base = f"http://127.0.0.1:{app.http_port}"
+    mbase = f"http://127.0.0.1:{app.metrics_port}"
+    pool = ThreadPoolExecutor(max_workers=24, thread_name_prefix="client")
+    out: dict = {"ports": [app.http_port, app.metrics_port]}
+    ids = [prompt(n) for n in MAIN_LENS]
+    try:
+        mark = launch_counts()
+        post(base, "/generate", {"prompt": prompt(40), "max_tokens": 4})  # warm-up
+
+        def queued(n):
+            wait_until(lambda: engine._sched.pending() >= n, 120, f"{n} requests queued")
+
+        def http_set():
+            with gate.closed():
+                futs = [pool.submit(sse, base, {"prompt": p, "max_tokens": HTTP_NEW}) for p in ids]
+                queued(len(ids))
+            return [f.result(600) for f in futs]
+
+        def direct_set():
+            with gate.closed():
+                futs = [engine.submit(p, max_new_tokens=HTTP_NEW, temperature=0.0) for p in ids]
+            return [f.result(600) for f in futs]
+
+        runs = {}
+        for name, fn in (("app", http_set), ("direct", direct_set)):
+            d0 = probe.n["dispatches"]
+            res, sites = sync_warnings(torch, engine, probe, fn)
+            runs[name] = {"results": res, "sites": sites,
+                          "dispatches": probe.n["dispatches"] - d0}
+        parted = {}
+        for n, p, s, r in zip(MAIN_LENS, ids, runs["app"]["results"], runs["direct"]["results"]):
+            if s["terminal"] is None or s["terminal"]["finish_reason"] != "length" \
+                    or len(s["tokens"]) != HTTP_NEW:
+                raise AssertionError(f"H1 stream of {n} tokens: {s['frames'][-3:]}")
+            seqs = [q for q, _ in s["frames"][:-1]]
+            if seqs != list(range(len(seqs))):
+                raise AssertionError(f"H1 stream of {n}: id: lines {seqs}")
+            parted[n] = same_or_close(torch, engine, p, s["tokens"], r.token_ids,
+                                      f"H1 {n}-token prompt, SSE against submit")
+        per = {k: sum(v["sites"].values()) / max(v["dispatches"], 1) for k, v in runs.items()}
+        out["streams"] = {"equal": sum(v["equal"] for v in parted.values()), "of": len(parted),
+                          "parted": {n: v for n, v in parted.items() if not v["equal"]}}
+        out["syncs"] = {k: {"dispatches": v["dispatches"], "warnings": sum(v["sites"].values()),
+                            "sites": v["sites"]} for k, v in runs.items()}
+        print(f"  H1 10 SSE streams: {out['streams']['equal']}/10 token-equal to engine.submit; "
+              f"sync warnings a dispatch through the app {per['app']:.3f}, direct "
+              f"{per['direct']:.3f} ({out['syncs']})")
+        if per["app"] != per["direct"]:
+            raise AssertionError(f"H1: serving through the app changed the syncs a dispatch: "
+                                 f"{out['syncs']}")
+        # the app layer's cost, one 1000-token request at a time, in turns
+        ttft, gaps, steps = {"sse": [], "submit": []}, [], []
+        long_p = ids[MAIN_LENS.index(1000)]
+        for _ in range(3):
+            s = sse(base, {"prompt": long_p, "max_tokens": 16})
+            tl = engine.timeline.get(s["head"]["id"]).to_dict()
+            ttft["sse"].append((s["arrivals"][0] * 1e3, tl["ttft_ms"]))
+            gaps.append(gap_ms(s["arrivals"]))
+            r = engine.submit(long_p, max_new_tokens=16, temperature=0.0).result(600)
+            ttft["submit"].append(r.ttft_s * 1e3)
+            steps.append(per_step_ms([r]))
+        out["app_cost"] = {"ttft_ms_sse_client_engine": ttft["sse"], "ttft_ms_submit": ttft["submit"],
+                           "sse_gap_ms_a_token": gaps, "submit_ms_a_step": steps}
+        print(f"  H1 1000-token prompt, 16 tokens, in turns: TTFT through SSE (client, engine) "
+              f"{[(round(a, 2), round(b, 2)) for a, b in ttft['sse']]} ms, through submit "
+              f"{[round(x, 2) for x in ttft['submit']]} ms; SSE gap "
+              f"{[round(g, 2) for g in gaps]} ms a token against {[round(x, 2) for x in steps]} "
+              f"ms a step")
+        # one plain /generate
+        status, _, body = post(base, "/generate", {"prompt": ids[0], "max_tokens": 8})
+        if status != 201 or body["data"]["usage"]["completion_tokens"] != 8:
+            raise AssertionError(f"H1 /generate: {status} {body}")
+        out["generate"] = body["data"]["usage"]
+        # a cancel mid-stream
+        seen, heads = threading.Event(), []
+
+        def two_tokens(k, head):
+            if k == 2:
+                heads.append(head)
+                seen.set()
+
+        fut = pool.submit(sse, base, {"prompt": prompt(200), "max_tokens": 512},
+                          on_token=two_tokens)
+        if not seen.wait(120):
+            raise AssertionError("H1: the stream to cancel sent no tokens")
+        rid = heads[0]["id"]
+        t_cancel = time.perf_counter()
+        status, _, body = post(base, "/generate/cancel", {"id": rid})
+        s = fut.result(600)
+        out["cancel"] = {"status": status, "finish_reason": s["terminal"]["finish_reason"],
+                         "tokens": len(s["tokens"]),
+                         "ms_to_terminal": (time.perf_counter() - t_cancel) * 1e3}
+        if status != 201 or s["terminal"]["finish_reason"] != "cancel" or s["head"]["id"] != rid:
+            raise AssertionError(f"H1 cancel: {out['cancel']} (request {rid}, {s['head']})")
+        # a client that drops its socket mid-stream: its slot is freed
+        t_drop = time.perf_counter()
+        s = sse(base, {"prompt": prompt(200), "max_tokens": 512}, keep=3)
+        wait_until(lambda: not engine._by_id and engine._sched.stats()["busy_slots"] == 0, 60,
+                   "H1 the dropped stream's slot")
+        out["drop"] = {"frames_read": len(s["frames"]),
+                       "ms_to_free": (time.perf_counter() - t_drop) * 1e3}
+        # a shed burst: streams queued behind the gate, then requests whose
+        # deadline the estimated wait passes
+        with gate.closed():
+            burst = [pool.submit(sse, base, {"prompt": prompt(64), "max_tokens": 4})
+                     for _ in range(HTTP_BURST)]
+            queued(HTTP_BURST)
+            shed = [post(base, "/generate", {"prompt": prompt(64), "max_tokens": 4},
+                         {"X-Request-Timeout": "0.05"}) for _ in range(4)]
+        burst = [f.result(600) for f in burst]
+        out["shed"] = {"statuses": [s[0] for s in shed],
+                       "retry_after": [s[1].get("Retry-After") for s in shed],
+                       "burst_finished": sum(b["terminal"]["finish_reason"] == "length"
+                                             for b in burst)}
+        if any(s[0] != 429 or not s[1].get("Retry-After") for s in shed) \
+                or out["shed"]["burst_finished"] != HTTP_BURST:
+            raise AssertionError(f"H1 shed: {out['shed']}")
+        # bad bodies
+        bad = [post(base, "/generate", {"max_tokens": 3})[0],
+               post(base, "/generate", {"prompt": "x", "temperature": -1})[0],
+               post(base, "/generate", raw=b"{not json")[0],
+               post(base, "/generate", {"prompt": "x"}, {"X-Request-Timeout": "soon"})[0],
+               post(base, "/generate/stream", {"prompt": [cfg.vocab_size + 5]})[0],
+               post(base, "/generate/cancel", {})[0]]
+        out["bad_statuses"] = bad
+        if bad != [400] * len(bad):
+            raise AssertionError(f"H1 bad bodies: {bad}")
+        # X-Tenant-Id and Idempotency-Key
+        status, _, body = post(base, "/generate", {"prompt": prompt(20), "max_tokens": 4},
+                               {"X-Tenant-Id": "gold"})
+        tl = get_json(f"{base}/requestz/{body['data']['id']}")[1]["data"]
+        before = engine.dedup_stats()
+        keyed = [post(base, "/generate", {"prompt": prompt(20), "max_tokens": 4},
+                      {"Idempotency-Key": "h1-key"})[2]["data"] for _ in range(2)]
+        after = engine.dedup_stats()
+        out["tenant"] = tl.get("tenant")
+        out["idempotency"] = {"ids": [k["id"] for k in keyed], "texts_equal":
+                              keyed[0]["text"] == keyed[1]["text"],
+                              "hits": after["hits_terminal"] - before["hits_terminal"]
+                              + after["hits_live"] - before["hits_live"]}
+        if out["tenant"] != "gold" or len(set(out["idempotency"]["ids"])) != 1 \
+                or out["idempotency"]["hits"] != 1:
+            raise AssertionError(f"H1 tenant {out['tenant']}, idempotency {out['idempotency']}")
+        # /requestz
+        status, snap = get_json(base + "/requestz?limit=4")
+        snap = snap["data"]
+        if status != 200 or len(snap["completed"]) != 4 or "in_flight" not in snap:
+            raise AssertionError(f"H1 /requestz: {status} {sorted(snap)}")
+        out["requestz"] = sorted(snap)
+        # health: the engine's health_check, the card in its telemetry
+        telemetry.sample()
+        status, health = get_json(base + "/.well-known/health")
+        serving = health["data"]["details"]["serving"]
+        dev = (serving["details"].get("device", {}).get("devices") or [{}])[0]
+        out["health"] = {"status": health["data"]["status"], "serving": serving["status"],
+                         "device": dev}
+        if status != 200 or health["data"]["status"] != "UP" or serving["status"] != "UP" \
+                or dev.get("platform") != "gpu" or not dev.get("hbm_limit_bytes"):
+            raise AssertionError(f"H1 health: {out['health']}")
+        # /metrics on the metrics port
+        scrape_ms, text = [], ""
+        for _ in range(3):
+            t = time.perf_counter()
+            status, _, raw = fetch(mbase + "/metrics")
+            scrape_ms.append((time.perf_counter() - t) * 1e3)
+            text = raw.decode()
+        problems = lint_exposition(text)
+        need = ("app_http_response_count", "app_request_ttft_seconds_count", "app_ttft_seconds",
+                "app_decode_block_seconds", "app_requests_shed_total", "app_tpu_hbm_used_bytes")
+        out["metrics"] = {"scrape_ms": scrape_ms, "bytes": len(text), "lint": problems,
+                          "missing": [n for n in need if n not in text]}
+        print(f"  H1 /metrics: {len(text)} bytes in {[round(x, 2) for x in scrape_ms]} ms, "
+              f"promlint {problems or 'clean'}")
+        if status != 200 or problems or out["metrics"]["missing"]:
+            raise AssertionError(f"H1 /metrics: {out['metrics']}")
+        # log correlation: the request line carries the traceparent's trace id
+        trace = "4bf92f3577b34da6a3ce929d0e0e4736"
+        post(base, "/generate", {"prompt": prompt(20), "max_tokens": 2},
+             {"traceparent": f"00-{trace}-00f067aa0ba902b7-01"})
+        lines = [json.loads(line) for line in logbuf.getvalue().splitlines() if line.strip()]
+        hits = [e for e in lines if e.get("trace_id") == trace
+                and isinstance(e.get("message"), dict) and e["message"].get("uri") == "/generate"]
+        out["log_correlation"] = {"lines": len(lines), "with_trace": len(hits)}
+        if len(hits) != 1:
+            raise AssertionError(f"H1 log correlation: {out['log_correlation']}")
+        # the device profiler on the metrics port
+        with tempfile.TemporaryDirectory() as tmp:
+            st = post(mbase, f"/debug/profiler/start?dir={tmp}", {})[0]
+            again = post(mbase, f"/debug/profiler/start?dir={tmp}", {})[0]
+            for p in (prompt(200), prompt(31)):
+                post(base, "/generate", {"prompt": p, "max_tokens": 8})
+            status, _, body = post(mbase, "/debug/profiler/stop", {})
+            with open(body["trace"]) as f:
+                events = json.load(f).get("traceEvents", [])
+        kernels = {e["name"] for e in events if str(e.get("cat", "")).lower() == PROFILE_CAT}
+        flash = sorted(k for k in kernels if re.search(PROFILE_KERNELS["flash"], k))
+        paged8 = sorted(k for k in kernels if re.search(PROFILE_KERNELS["paged_int8"], k))
+        out["profiler"] = {"start": st, "second_start": again, "stop": status,
+                           "kernel_names": len(kernels), "flash": flash[:2], "paged_int8": paged8[:2]}
+        print(f"  H1 profiler: {len(kernels)} kernel names in the trace; flash {flash[:1]}, "
+              f"paged int8 {paged8[:1]}")
+        if st != 200 or again != 409 or status != 200 or not flash or not paged8:
+            raise AssertionError(f"H1 profiler: {out['profiler']}")
+        # the admin drain: in-flight streams finish, new work gets a 503
+        started = threading.Event()
+        streams = [pool.submit(sse, base, {"prompt": prompt(100), "max_tokens": 64},
+                               on_token=lambda k, head: started.set()) for _ in range(2)]
+        if not started.wait(120):
+            raise AssertionError("H1: the streams to drain under sent no tokens")
+        t_drain = time.perf_counter()
+        status, _, body = post(base, "/.well-known/drain", {})
+        refused = post(base, "/generate", {"prompt": prompt(20), "max_tokens": 2})
+        drained = [f.result(600) for f in streams]
+        thread.join(timeout=120)
+        out["drain"] = {"status": status, "body": body, "new_work": refused[0],
+                        "retry_after": refused[1].get("Retry-After"),
+                        "in_flight": [d["terminal"]["finish_reason"] for d in drained],
+                        "app_stopped": not thread.is_alive(),
+                        "seconds": time.perf_counter() - t_drain}
+        print(f"  H1 drain: {out['drain']}")
+        if status != 201 or refused[0] != 503 or out["drain"]["in_flight"] != ["length"] * 2 \
+                or thread.is_alive() or engine._running:
+            raise AssertionError(f"H1 drain: {out['drain']}")
+        out["launches"] = since(mark)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        probe.close()
+        if thread.is_alive():
+            app.stop()
+            thread.join(timeout=60)
+        engine.stop()
+    del engine, app
+    torch.cuda.empty_cache()
+    return out
+
+
+def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
+    """H2: apps A and B over paged bf16 engines (2048, 16-token pages, whole
+    prefills, 64-entry prefix caches) behind a ``Router`` of two
+    ``HTTPReplica``s, heartbeats on an ``InMemoryBroker``: migration over
+    ``/kv/fetch``, P/D through the router, a resumed stream, and failover
+    when A's app stops."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gofr_tpu_torch.metrics import new_metrics_manager
+    from gofr_tpu_torch.pubsub import InMemoryBroker
+    from gofr_tpu_torch.serving import (KVMigrator, PrefixIndex, ReplicaAnnouncer, Router,
+                                        RouterConfig, register_serving_metrics)
+    from gofr_tpu_torch.serving.router import HTTPReplica
+    from gofr_tpu_torch.testutil import fetch, start_app
+
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=2048, prefix_cache_entries=64, prefix_cache_bytes=2 << 30)
+    print(f"H2: apps A and B, paged bf16 engines (page=16, max_seq_len=2048, whole prefills, "
+          f"64-entry prefix caches), {cfg.n_layers} layers, a router over two HTTPReplicas")
+    logs = {"A": io.StringIO(), "B": io.StringIO()}
+    index = PrefixIndex()
+    migrator = KVMigrator("B", index, fetch_timeout_s=120.0)
+    app_a, eng_a = http_app(torch, cfg, params, conf, mem, "H2 A", logs["A"])
+    app_b, eng_b = http_app(torch, cfg, params, conf, mem, "H2 B", logs["B"], kv_migrator=migrator)
+    broker = InMemoryBroker(consumer_group="router", poll_timeout=0.05)
+    router = Router(RouterConfig(heartbeat_s=FLEET_BEAT_S, suspect_after_s=5.0, down_after_s=20.0),
+                    broker=broker, metrics=register_serving_metrics(new_metrics_manager()))
+    threads = {"A": start_app(app_a, timeout=120), "B": start_app(app_b, timeout=120)}
+    url = {"A": f"http://127.0.0.1:{app_a.http_port}", "B": f"http://127.0.0.1:{app_b.http_port}"}
+    opened: list = []
+
+    def breaker_open(rid):
+        opened.append(rid)
+        router.mark_replica_down(rid)
+
+    reps = {r: HTTPReplica(r, url[r], breaker_threshold=2, breaker_interval=60.0,
+                           on_breaker_open=breaker_open) for r in ("A", "B")}
+    fetches: list = []
+
+    def fetch_a(keys, timeout=2.0, fence_epoch=None):
+        t = time.perf_counter()
+        got = reps["A"].fetch_kv(keys, timeout=timeout, fence_epoch=fence_epoch)
+        fetches.append({"keys": len(keys), "entries": len(got),
+                        "ms": (time.perf_counter() - t) * 1e3})
+        return got
+
+    migrator.add_peer("A", fetch_a)
+    anns = {"A": ReplicaAnnouncer("A", eng_a, broker, interval_s=FLEET_BEAT_S),
+            "B": ReplicaAnnouncer("B", eng_b, broker, interval_s=FLEET_BEAT_S)}
+    router.start()
+    for r in ("A", "B"):
+        router.add_replica(reps[r])
+        anns[r].start()
+    pool = ThreadPoolExecutor(max_workers=16, thread_name_prefix="client")
+    out: dict = {}
+    try:
+        m = router.membership
+        wait_until(lambda: m.state_of("A") == "UP" and m.state_of("B") == "UP", 60, "A, B UP")
+        mark = launch_counts()
+        # migration over the wire: A serves a 1000-token prompt, B fetches
+        # A's entry through /kv/fetch
+        cold_b = sse(url["B"], {"prompt": prompt(1000), "max_tokens": 8})
+        p = prompt(1000)
+        on_a = sse(url["A"], {"prompt": p, "max_tokens": 8})
+        index.observe("A", 1, eng_a.prefix_advertisement(256))
+        spy, m0 = DispatchSpy(eng_b), launch_counts()
+        try:
+            on_b = sse(url["B"], {"prompt": p, "max_tokens": 8})
+            counts = dict(spy.n)
+        finally:
+            spy.close()
+        b_launches = since(m0)
+        tier = eng_b.timeline.get(on_b["head"]["id"]).prefix_tier
+        keys = [k for k, _ in eng_a.prefix_advertisement(256)][:1]
+        t = time.perf_counter()
+        status, _, raw = fetch(url["A"] + "/kv/fetch", "POST", json.dumps({"keys": keys}).encode(),
+                               {"Content-Type": "application/json"}, 600)
+        direct_ms = (time.perf_counter() - t) * 1e3
+
+        def ttft(s, eng):
+            return s["arrivals"][0] * 1e3, eng.timeline.get(s["head"]["id"]).to_dict()["ttft_ms"]
+
+        out["migration"] = {
+            "equal": on_b["tokens"] == on_a["tokens"], "tier": tier, "dispatches": counts,
+            "b_flash": b_launches["flash_attention"], "fetches": fetches[:],
+            "ttft_ms_client_engine": {"b_cold": ttft(cold_b, eng_b), "a_cold": ttft(on_a, eng_a),
+                                      "b_migrated": ttft(on_b, eng_b)},
+            "kv_fetch_bytes": len(raw), "kv_fetch_ms": direct_ms, "kv_fetch_status": status}
+        print(f"  H2 migration: {out['migration']}")
+        if not out["migration"]["equal"] or tier != "remote" or counts["prefill"] \
+                or b_launches["flash_attention"] or status != 201:
+            raise AssertionError(f"H2 migration: {out['migration']}")
+        # P/D through the router: A repurposed to prefill, B to decode
+        anns["A"].role, anns["B"].role = "prefill", "decode"
+        wait_until(lambda: m.role_of("A") == "prefill" and m.role_of("B") == "decode", 30,
+                   "the P/D roles on the router")
+        p2 = prompt(1000)
+        spy, m0 = DispatchSpy(eng_b), launch_counts()
+        try:
+            toks: list = []
+            r = router.submit(p2, max_new_tokens=8, temperature=0.0,
+                              stream_cb=lambda t, s, d: toks.append(t) if not d else None
+                              ).result(600)
+            counts = dict(spy.n)
+        finally:
+            spy.close()
+        unified = eng_a.submit(p2, max_new_tokens=8, temperature=0.0).result(600)
+        out["pd"] = {"replica": r.replica_id, "dispatches_on_b": counts,
+                     "ttft_ms_router": r.ttft_s * 1e3,
+                     "ttft_ms_unified_cold": out["migration"]["ttft_ms_client_engine"]["a_cold"][1],
+                     "ttft_ms_a_after_its_prefill": unified.ttft_s * 1e3,
+                     "close": same_or_close(torch, eng_a, p2, r.token_ids, unified.token_ids,
+                                            "H2 P/D against A unified"),
+                     "streamed": toks == r.token_ids}
+        print(f"  H2 P/D: {out['pd']}")
+        if r.replica_id != "B" or counts["prefill"] or counts["ragged"] or not out["pd"]["streamed"]:
+            raise AssertionError(f"H2 P/D: {out['pd']}")
+        anns["A"].role = anns["B"].role = "unified"
+        wait_until(lambda: m.role_of("A") == "unified" and m.role_of("B") == "unified", 30,
+                   "the unified roles on the router")
+        # a keyed stream dropped mid-stream, re-attached with Last-Event-ID
+        p3 = prompt(200)
+        full = sse(url["B"], {"prompt": p3, "max_tokens": 16})
+        key = {"Idempotency-Key": "h2-resume"}
+        first = sse(url["B"], {"prompt": p3, "max_tokens": 16}, key, keep=4)
+        last = first["frames"][-1][0]
+        rest = sse(url["B"], {}, {**key, "Last-Event-ID": str(last)})
+        got = first["tokens"] + rest["tokens"]
+        out["resume"] = {"dropped_after": last, "replayed": len(rest["tokens"]),
+                         "resumed": rest["head"].get("resumed"),
+                         "close": same_or_close(torch, eng_b, p3, got, full["tokens"],
+                                                "H2 resumed stream against an unbroken one"),
+                         "seqs": [q for q, _ in rest["frames"][1:-1]]}
+        print(f"  H2 resume: {out['resume']}")
+        if rest["head"].get("resumed") != last or len(got) != 16 \
+                or out["resume"]["seqs"][:len(rest['tokens'])] != list(range(last + 1, 17)):
+            raise AssertionError(f"H2 resume: {out['resume']}")
+        # failover: A's app stops under traffic (its announcer dies with it)
+        affine = []
+        while len(affine) < 12:
+            q = prompt(64)
+            if router._candidates_for(q)[0][:1] == ["A"]:
+                affine.append(q)
+        firsts = threading.Event()
+        live = [router.submit(q, max_new_tokens=16, temperature=0.0,
+                              stream_cb=lambda t, s, d: firsts.set()) for q in affine[:8]]
+        if not firsts.wait(120):
+            raise AssertionError("H2: no token before the stop")
+        t_stop = time.perf_counter()
+        anns["A"].stop(final_beat=False)
+        app_a.stop()
+        threads["A"].join(timeout=120)
+        later = [router.submit(q, max_new_tokens=16, temperature=0.0,
+                               stream_cb=lambda *a: None).result(600) for q in affine[8:]]
+        results = [f.result(600) for f in live]
+        wait_until(lambda: m.state_of("A") == "DOWN", 30, "A DOWN on the router")
+        out["failover"] = {
+            "in_flight": [(x.replica_id, x.finish_reason) for x in results],
+            "later": [(x.replica_id, x.finish_reason) for x in later],
+            "breaker_opened": opened[:], "state_a": m.state_of("A"),
+            "failovers": router.failovers_total,
+            "stop_s": time.perf_counter() - t_stop}
+        print(f"  H2 failover: {out['failover']}")
+        if threads["A"].is_alive() or opened != ["A"] \
+                or any(x.replica_id != "B" for x in later) \
+                or any(x.finish_reason != "length" for x in results + later):
+            raise AssertionError(f"H2 failover: {out['failover']}")
+        out["launches"] = since(mark)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        for ann in anns.values():
+            ann.stop(final_beat=False)
+        router.stop()
+        for r in reps.values():
+            r.close()
+        for name, app in (("A", app_a), ("B", app_b)):
+            if threads[name].is_alive():
+                app.stop()
+                threads[name].join(timeout=120)
+        eng_a.stop(), eng_b.stop()
+    del eng_a, eng_b, app_a, app_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def http_h3() -> dict:
+    """H3: ``python -m gofr_tpu_torch.serve`` as a process at Llama-3-8B
+    width and full depth (the reference's engine defaults: dense bf16 KV,
+    256-token chunks): boot to its first answer, 3 requests (one streamed),
+    a ``/metrics`` scrape, then SIGTERM: the drain runs, the process exits
+    0 within ``HTTP_EXIT_S`` and its port is free after. The process is
+    killed in a ``finally`` whatever happens."""
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    from gofr_tpu_torch.metrics import lint_exposition
+    from gofr_tpu_torch.testutil import fetch, get_free_port
+
+    http_port, metrics_port = get_free_port(), get_free_port()
+    base = f"http://127.0.0.1:{http_port}"
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, **SERVE_ENV, HTTP_HOST="127.0.0.1",
+                   HTTP_PORT=str(http_port), METRICS_PORT=str(metrics_port), LOG_LEVEL="INFO",
+                   GOFR_CONFIGS_DIR=tmp, PYTHONPATH=str(ROOT))
+        log_path = Path(tmp) / "serve.log"
+        print(f"H3: python -m gofr_tpu_torch.serve on :{http_port} (metrics :{metrics_port})")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "gofr_tpu_torch.serve"], cwd=ROOT,
+                                    env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + HTTP_BOOT_S
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"H3: the server exited {proc.returncode} at boot: "
+                                         f"{log_path.read_text()[-2000:]}")
+                try:
+                    if fetch(base + "/.well-known/alive", timeout=2)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"H3: no answer within {HTTP_BOOT_S:g}s")
+                time.sleep(0.1)
+            out["boot_to_alive_s"] = time.perf_counter() - t0
+            t = time.perf_counter()
+            first = post(base, "/generate", {"prompt": "The first request", "max_tokens": 8})
+            out["first_answer_s"] = time.perf_counter() - t
+            second = post(base, "/generate", {"prompt": "x" * 300, "max_tokens": 16})
+            stream = sse(base, {"prompt": "a streamed request", "max_tokens": 16})
+            status, _, raw = fetch(f"http://127.0.0.1:{metrics_port}/metrics")
+            text = raw.decode()
+            out["requests"] = [first[0], second[0], stream["terminal"]]
+            out["metrics"] = {"status": status, "lint": lint_exposition(text),
+                              "http_series": "app_http_response_count" in text,
+                              "ttft_series": "app_request_ttft_seconds_count" in text}
+            print(f"  H3 up in {out['boot_to_alive_s']:.1f}s, first answer "
+                  f"{out['first_answer_s'] * 1e3:.1f} ms; {out['requests']}; {out['metrics']}")
+            if first[0] != 201 or second[0] != 201 or first[2]["data"]["usage"][
+                    "completion_tokens"] != 8 or stream["terminal"] is None \
+                    or len(stream["tokens"]) != 16 or status != 200 or out["metrics"]["lint"] \
+                    or not out["metrics"]["http_series"] or not out["metrics"]["ttft_series"]:
+                raise AssertionError(f"H3: {out}")
+            t = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=HTTP_EXIT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"H3: no exit within {HTTP_EXIT_S:g}s of SIGTERM") from None
+            out["sigterm_to_exit_s"] = time.perf_counter() - t
+            out["exit_code"] = rc
+            text = log_path.read_text()
+            out["drained"] = "serving engine draining" in text and "shutdown complete" in text
+            with socket.socket() as s:
+                # as a new server binds it (asyncio sets SO_REUSEADDR): a
+                # closed connection's TIME_WAIT does not hold the port, a
+                # listener left behind does
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                s.bind(("127.0.0.1", http_port))
+            out["port_free"] = True
+            print(f"  H3 SIGTERM: exit {rc} in {out['sigterm_to_exit_s']:.2f}s, drained "
+                  f"{out['drained']}, port free")
+            if rc != 0 or not out["drained"]:
+                raise AssertionError(f"H3: {out} {text[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def run_http(torch, cfg, params) -> dict:
+    """The app plane at Llama-3-8B widths and full depth: H1 one app, H2
+    two apps behind a router over HTTP, H3 the entry point as a process."""
+    rng = torch.Generator().manual_seed(SEED + 8)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    t0 = time.perf_counter()
+    mem: dict = {}
+    out = {"card": card_line()}
+    out["H1"] = http_h1(torch, cfg, params, prompt, mem)
+    out["H2"] = http_h2(torch, cfg, params, prompt, mem)
+    out["H3"] = http_h3()
+    out["memory"] = mem
+    out["seconds"] = time.perf_counter() - t0
+    total: dict = {}
+    for name in ("H1", "H2"):
+        print_launches(name, out[name]["launches"])
+        add_launches(total, out[name]["launches"])
+    out["launches"] = total
+    print(f"  http: {out['seconds']:.1f}s ({out['card']})")
+    if not (total.get("flash_attention") and total.get("paged_decode_attention")
+            and total.get("paged_decode_attention_q")):
+        raise AssertionError(f"http launches {total}")
+    return out
+
+
+PLANE_DEPTH = 8  # layers of the LoRA-tenancy and observability phases
+
+
+def cut_depth(cfg, params, n_layers: int):
+    """The config and weights of the first ``n_layers`` layers: views of the
+    stacked per-layer tensors, no copy."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            {**params, "layers": {k: v[:n_layers] for k, v in params["layers"].items()}})
+
+
+def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict, dict]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -4354,16 +5039,21 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, d
     print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, full depth):")
     reuse = run_kv_reuse_spec(torch, cfg, params)
     torch.cuda.empty_cache()
-    print("LoRA and tenancy phase (adapter registry, tenant storm and preemption, full depth):")
-    tenancy = run_tenancy_lora(torch, cfg, params)
+    # two earlier planes at a cut depth keep the script inside half its
+    # time limit now that the http phase runs too
+    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
+    print(f"LoRA and tenancy phase (adapter registry, tenant storm and preemption, "
+          f"{PLANE_DEPTH} layers):")
+    tenancy = run_tenancy_lora(torch, cut_cfg, cut_params)
     tenancy["dense_path_decode_ms_per_step_batch8"] = timings["dense"]["decode_ms_per_step_batch8"]
     torch.cuda.empty_cache()
     print("healing phase (hang, device loss, poison storm, crash and budget, full depth):")
     healing = run_healing(torch, cfg, params)
     torch.cuda.empty_cache()
     print("observability phase (metrics, tracing, timelines, each engine beside a bare twin, "
-          "full depth):")
-    observability = run_observability(torch, cfg, params)
+          f"{PLANE_DEPTH} layers):")
+    observability = run_observability(torch, cut_cfg, cut_params)
+    del cut_params
     torch.cuda.empty_cache()
     print("HA and cross-replica KV phase (keyed submits, resume, orphan, fencing, KV migration, "
           "P/D handoff, full depth):")
@@ -4371,7 +5061,11 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, d
     torch.cuda.empty_cache()
     print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, full depth):")
     fleet = run_fleet(torch, cfg, params)
-    return launches, timings, lifecycle, reuse, tenancy, healing, observability, ha, fleet
+    torch.cuda.empty_cache()
+    print("http phase (App, generation routes, /metrics, HTTPReplica and a router over HTTP, "
+          "the serve entry point as a process, full depth):")
+    http = run_http(torch, cfg, params)
+    return launches, timings, lifecycle, reuse, tenancy, healing, observability, ha, fleet, http
 
 
 def main() -> int:
@@ -4405,11 +5099,12 @@ def main() -> int:
     errs = check_kernels(torch, gen)
 
     (launches, engine_timings, lifecycle, reuse, tenancy, healing, observability,
-     ha, fleet) = run_engine(torch)
+     ha, fleet, http) = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
-    for r in rows:  # the fleet phase's launches beside the main paths'
+    for r in rows:  # the fleet and http phases' launches beside the main paths'
         r["launches_fleet"] = fleet["launches"].get(r["name"], 0)
+        r["launches_http"] = http["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -4423,6 +5118,7 @@ def main() -> int:
     print(json.dumps({"observability": observability}, default=str))
     print(json.dumps({"ha": ha}, default=str))
     print(json.dumps({"fleet": fleet}, default=str))
+    print(json.dumps({"http": http}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -5,7 +5,9 @@ observability plane (the metrics catalog and the request timelines), the
 HA plane (idempotent submits and resumable streams), cross-replica KV
 (the prefix index and the KV migrator), and the fleet tier: membership
 over heartbeats, the prefix-affine router with failover, hedging and P/D
-routing, and the autoscaler with its pool driver."""
+routing over local or HTTP replicas, and the autoscaler with its pool
+driver. The HTTP bindings are ``serving/handlers.py`` (the generation
+routes) and ``serving/remote.py`` (the remote streaming client)."""
 
 from gofr_tpu_torch.serving.autoscaler import (
     Autoscaler,
@@ -28,12 +30,19 @@ from gofr_tpu_torch.serving.prefix_index import (
     local_engine_fetcher,
     local_engine_store,
 )
-from gofr_tpu_torch.serving.router import LocalReplica, Router, RouterConfig, prefix_affinity_key
+from gofr_tpu_torch.serving.router import (
+    HTTPReplica,
+    LocalReplica,
+    Router,
+    RouterConfig,
+    prefix_affinity_key,
+)
 from gofr_tpu_torch.serving.supervisor import EngineSupervisor
 from gofr_tpu_torch.serving.tenancy import TenantPolicy, TenantRegistry
 
 __all__ = ["AdapterRegistry", "Autoscaler", "AutoscalerConfig", "DedupRegistry",
-           "DeviceTelemetry", "EngineSupervisor", "Heartbeat", "KVMigrator", "LocalReplica",
+           "DeviceTelemetry", "EngineSupervisor", "HTTPReplica", "Heartbeat", "KVMigrator",
+           "LocalReplica",
            "LoraAdapter", "MembershipTable", "PrefixIndex", "ReplayGap", "ReplayStream",
            "ReplicaAnnouncer", "ReplicaPoolDriver", "Router", "RouterConfig",
            "SimulatedPoolDriver", "TenantPolicy", "TenantRegistry", "decode_entry",

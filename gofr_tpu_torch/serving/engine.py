@@ -209,9 +209,15 @@ prefix cache to a survivor through the migrator (``kv.evacuate``), then
 ``stop``. On int8 KV only whole-prompt entries evacuate, as no chunk cache
 is kept there.
 
-Not ported yet: the ``/metrics``, ``/requestz`` and ``/kv/fetch`` routes,
-the remote streaming client and log correlation wait for the HTTP
-bindings.
+The app plane serves it: ``serving/handlers.py`` binds ``/generate``,
+``/generate/stream`` (SSE, ``Last-Event-ID`` re-attach),
+``/generate/cancel``, ``/v1/models``, ``/requestz`` and ``/kv/fetch`` on a
+``gofr_tpu_torch.app.App``, whose metrics port serves ``/metrics``;
+``serving/remote.py`` and the router's ``HTTPReplica`` are the remote
+streaming client; ``logger=`` takes the app's structured logger, whose
+lines carry the active span's ``trace_id``/``span_id`` (log correlation).
+``python -m gofr_tpu_torch.serve`` runs one. Not ported yet: the WebSocket
+and gRPC generation surfaces and ``/embed``.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -227,6 +233,7 @@ import hashlib
 import logging
 import threading
 import time
+import traceback
 from typing import Any, Callable
 
 import numpy as np
@@ -571,8 +578,12 @@ class ServingEngine:
         metrics: Any = None,
         tracer: Any = None,
         kv_migrator: Any = None,
+        logger: Any = None,
     ) -> None:
         self.device = resolve_device(device)
+        # the app's structured logger (gofr_tpu_torch.logging.Logger: info,
+        # warn, error), or None for the module's stdlib logger
+        self._logger = logger
         self.model_cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
@@ -814,6 +825,18 @@ class ServingEngine:
             raise RuntimeError("a stopped engine does not restart")
         self.loop_crashed = False
         self._start_loop_thread()
+        self._log("info", f"serving engine started: slots={self.config.max_slots} "
+                          f"max_seq={self.config.max_seq_len}")
+
+    def _log(self, level: str, message: str, **kw: Any) -> None:
+        """One log line at the reference's site, level and text: on the
+        app's logger when the engine has one (``kw`` as structured fields,
+        e.g. ``stack``), else on the module's stdlib logger."""
+        if self._logger is not None:
+            getattr(self._logger, level)(message, **kw)
+            return
+        stdlib = {"info": log.info, "warn": log.warning, "error": log.error}[level]
+        stdlib(message + (f"\n{kw['stack']}" if "stack" in kw else ""))
 
     def _start_loop_thread(self) -> None:
         """Spawn the loop thread, for start() and warm_restart: the
@@ -847,8 +870,9 @@ class ServingEngine:
             self._thread.join(timeout=join_timeout)
             wedged = self._thread.is_alive()
             if wedged:
-                log.error("serving engine thread did not exit within %gs; its scheduler and "
-                          "KV storage stay allocated, health reports WEDGED", join_timeout)
+                self._log("error", f"serving engine thread failed to exit within "
+                                   f"{join_timeout:g}s; native resources left allocated, "
+                                   "health will report WEDGED")
             else:
                 self._thread = None
             # a later stop() that joins clean recovers; with no thread left
@@ -895,6 +919,7 @@ class ServingEngine:
         self._draining = True
         self._idle.clear()
         self._wake.set()
+        self._log("info", f"serving engine draining (deadline {deadline_s:g}s)")
         t0 = time.monotonic()
         drained = self._idle.wait(timeout=deadline_s)
         if drained:
@@ -915,8 +940,8 @@ class ServingEngine:
                 except KeyError:
                     pass
             if remainder:
-                log.warning("drain deadline passed with %d request(s) in flight; "
-                            "failed them with a retriable error", len(remainder))
+                self._log("warn", f"drain deadline passed with {len(remainder)} request(s) "
+                                  "in flight; failed them with a retriable error")
             self._wake.set()
             # a short window for the loop to reclaim the canceled slots
             self._idle.wait(timeout=5.0)
@@ -975,7 +1000,7 @@ class ServingEngine:
                 self.epoch += 1
         if self._metrics:
             self._metrics.increment_counter("app_replica_reclamations_total")
-        log.warning("reclamation notice: %gs to drain and evacuate", deadline_s)
+        self._log("warn", f"reclamation notice: {deadline_s:g}s to drain + evacuate")
         with self._count_lock:
             inflight = list(self._by_id.values())
         for req in inflight:
@@ -1014,8 +1039,8 @@ class ServingEngine:
                 except KeyError:
                     pass
             if remainder:
-                log.warning("reclaim drain budget passed with %d request(s) in flight; "
-                            "failed them retriable", len(remainder))
+                self._log("warn", f"reclaim drain budget passed with {len(remainder)} "
+                                  "request(s) in flight; failed them retriable")
             self._wake.set()
             # a short window for the loop to free the canceled slots, inside
             # the notice
@@ -1109,8 +1134,9 @@ class ServingEngine:
             out.update(committed=int(n), target=target, outcome="committed")
         else:
             out["outcome"] = "degraded"
-        log.info("kv evacuation: %s (%d/%d entries%s)", out["outcome"], out["committed"],
-                 out["entries"], f" -> {out['target']}" if out["target"] else "")
+        self._log("info", f"kv evacuation: {out['outcome']} "
+                          f"({out['committed']}/{out['entries']} entries"
+                          + (f" -> {out['target']}" if out["target"] else "") + ")")
         return self._count_evacuation(out)
 
     def _count_evacuation(self, out: dict[str, Any]) -> dict[str, Any]:
@@ -1185,8 +1211,9 @@ class ServingEngine:
                     self._sched.leak()
                     if self.paged_cache is not None:
                         self.paged_cache.leak()
-                    log.error("engine thread did not join within %gs during warm restart; "
-                              "its scheduler and KV storage are quarantine-leaked", join_timeout)
+                    self._log("error", f"engine thread failed to join within {join_timeout:g}s "
+                                       "during warm restart; old scheduler/KV pool "
+                                       "quarantine-leaked")
                 # the old thread's cold-dispatch claim dies with it
                 self._cold_key = None
                 try:
@@ -1222,8 +1249,9 @@ class ServingEngine:
                     if locked:
                         self._submit_mu.release()
             self._start_loop_thread()
-            log.warning("engine warm restart complete: %d queued request(s) requeued, %d "
-                        "in-flight failed retriable", len(requeue), len(pending) - len(requeue))
+            self._log("warn", f"engine warm restart complete: {len(requeue)} queued "
+                              f"request(s) requeued, {len(pending) - len(requeue)} "
+                              "in-flight failed retriable")
             return True
 
     @property
@@ -1822,7 +1850,8 @@ class ServingEngine:
             # watchdog "crashed" from "stopped"
             if self._running and me is self._thread:
                 self.loop_crashed = True
-                log.error("serving engine loop thread died", exc_info=True)
+                self._log("error", "serving engine loop thread died",
+                          stack=traceback.format_exc(limit=20))
             if not isinstance(exc, Exception):
                 raise  # SystemExit and KeyboardInterrupt propagate
 
@@ -1867,7 +1896,8 @@ class ServingEngine:
                 # a retired thread's error is noise from quarantined state:
                 # it must not fail its replacement's requests
                 self._check_retired()
-                log.exception("serving engine step failed")
+                self._log("error", f"serving engine step error: {exc}",
+                          stack=traceback.format_exc(limit=20))
                 self._fail_all(exc)
                 time.sleep(self.config.idle_sleep_s)
 
@@ -1982,7 +2012,7 @@ class ServingEngine:
                 # a retired thread unwinds: its request was requeued or
                 # settled by warm_restart, and these slots are not its own
                 self._check_retired()
-                log.exception("prefill failed for request %d", rid)
+                self._log("error", f"prefill failed for request {rid}: {exc}")
                 self._lora_release(req)
                 self.slots[slot] = None
                 self._cursors.pop(slot, None)
@@ -2248,7 +2278,7 @@ class ServingEngine:
         elif req.expired(time.monotonic()):
             self._retire(slot, "deadline_exceeded")
         elif cursor.blocked:
-            log.info("KV pool short; request %d requeues from chunk 0", req.id)
+            self._log("info", f"KV pool short; request {req.id} requeues from chunk 0")
             self._cursors.pop(slot, None)
             self.slots[slot] = None
             self.cache_len[slot] = 0
@@ -2367,8 +2397,9 @@ class ServingEngine:
         if self._metrics and not reclaim:
             self._metrics.increment_counter("app_tenant_preemptions_total",
                                             tenant=req.tenant or "default")
-        log.info("preempted request %d (tenant %s, priority %d) after %d tokens; %d resident "
-                 "tokens", req.id, req.tenant or "default", req.priority, len(req.tokens), resident)
+        self._log("info", f"preempted request {req.id} (tenant {req.tenant or 'default'}, "
+                          f"priority {req.priority}) after {len(req.tokens)} tokens; "
+                          f"{resident} resident tokens paged out")
         self._cursors.pop(slot, None)
         self._pending_admit.pop(slot, None)
         self.slots[slot] = None
@@ -2642,7 +2673,7 @@ class ServingEngine:
                     chunk[slot, 1:] = -1
                     kept.append((slot, req))
                 else:
-                    log.warning("KV pool exhausted; retiring request %d early", req.id)
+                    self._log("warn", f"KV pool exhausted; retiring request {req.id} early")
                     req.kv_exhausted = True
                     self._retire(slot, "kv_exhausted")
             rows = kept
@@ -2818,7 +2849,7 @@ class ServingEngine:
             if pc is None or pc.try_reserve_slot(slot, in_flight + N):
                 rows.append((slot, req))
                 continue
-            log.warning("KV pool exhausted; retiring request %d early", req.id)
+            self._log("warn", f"KV pool exhausted; retiring request {req.id} early")
             req.kv_exhausted = True
             if not self._slot_in_flight(slot, req):
                 self._retire(slot, "kv_exhausted")
@@ -3141,7 +3172,7 @@ class ServingEngine:
                 cb(token_id, self.tokenizer.decode([token_id]), False)
             except Exception as exc:
                 if not req.canceled:
-                    log.warning("stream callback of request %d failed (%r); canceling it", req.id, exc)
+                    self._log("warn", f"stream callback of request {req.id} failed ({exc!r}); canceling it")
                 req.canceled = True
 
         self._submit_detok(frame)  # dropped after stop: nobody reads it
@@ -3432,7 +3463,8 @@ class ServingEngine:
         else:
             self.cache = None
             self.cache = self._make_dense_cache()
-        log.warning("KV storage rebuilt after a device loss")
+        self._log("warn", "KV storage rebuilt after a failed dispatch deleted the donated "
+                          "device buffers")
 
     def _fail_all(self, exc: Exception, kv_unhealthy: bool | None = None) -> None:
         """A failed step leaves the pipeline unknown: drop the in-flight
@@ -3454,9 +3486,9 @@ class ServingEngine:
             self.device_poisonings += 1
             try:
                 self._rebuild_kv()
-            except Exception:
+            except Exception as rebuild_exc:
                 # the device still refuses: the next failure retries
-                log.exception("KV rebuild failed")
+                self._log("error", f"KV rebuild failed: {rebuild_exc}")
             self._reset_prefix_cache()
         for slot, req in enumerate(self.slots):
             if req is not None:

@@ -1,8 +1,9 @@
 """The serving metrics catalog: every series the port's serving modules emit,
 registered on a :class:`~gofr_tpu_torch.metrics.Manager` with the name, kind,
 description and buckets of the reference's registration (the framework
-container, ``gofr_tpu/container/container.py``, which the port has not
-ported).
+container, ``gofr_tpu/container/container.py``). The app's container
+registers it whole, beside the datasource series it keeps for dashboards
+(``container/container.py``).
 
 The names stay the reference's, ``tpu`` included (``app_tpu_hbm_*``): a
 dashboard built on the reference reads the port unchanged. On the card
@@ -138,6 +139,15 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
      "Autoscaler's current replica count per pool (label role)", None),
     ("counter", "app_autoscaler_scale_events_total",
      "Autoscaler scale actions taken (label direction=up|down)", None),
+    # the app plane: the container (container/container.py), the HTTP
+    # metrics middleware (http/middleware/core.py) and the service client
+    # with its circuit breaker (service/)
+    ("gauge", "app_info", "Info for app_name and app_version", None),
+    ("histogram", "app_http_response", "Response time of HTTP requests in seconds", None),
+    ("histogram", "app_http_service_response",
+     "Response time of HTTP service requests in seconds", None),
+    ("gauge", "app_service_breaker_state",
+     "Circuit-breaker state per downstream service address: 0 closed, 1 open", None),
 )
 
 

@@ -4,12 +4,15 @@ metrics and tracing; the port imports nothing of the JAX package).
 
 What the port holds: ``RouterConfig``, ``prefix_affinity_key``,
 ``_HashRing`` (the reference's blake2b digests, so the same prompt lands on
-the same replica id on either side), ``LocalReplica`` and ``Router``.
-``HTTPReplica``, the remote replica handle over the service client and
-``serving/remote.py``, is not ported: it waits for the port's HTTP
-bindings. ``RETRIABLE_ERRORS`` names the port's classes, so a failover
-decision (``isinstance(exc, RETRIABLE_ERRORS)``) is taken on what a port
-engine raises.
+the same replica id on either side), ``LocalReplica``, ``HTTPReplica`` (a
+replica behind its HTTP surface: a breaker-only service client whose
+breaker feeds membership, token streaming over ``serving/remote.py``, the
+remote cancel wire, resume and ``fetch_kv`` for a ``KVMigrator`` peer) and
+``Router``. ``RETRIABLE_ERRORS`` names the port's classes, and
+``serving/remote.error_from_status`` rebuilds them from a replica's
+status, so a failover decision (``isinstance(exc, RETRIABLE_ERRORS)``) is
+taken the same way on what a port engine raises in-process and on what a
+remote one answered.
 
 One engine process serves one accelerator; millions of users need N of
 them (ROADMAP item 3). This router fronts N replicas and makes the tier
@@ -68,8 +71,8 @@ from gofr_tpu_torch.errors import (
 )
 from gofr_tpu_torch.metrics.register import Histogram
 from gofr_tpu_torch.serving import membership as ms
-from gofr_tpu_torch.serving.prefix_index import PrefixIndex
-from gofr_tpu_torch.tracing.trace import current_span
+from gofr_tpu_torch.serving.prefix_index import PrefixIndex, decode_entry
+from gofr_tpu_torch.tracing.trace import current_span, format_traceparent
 
 # The typed-retriable error set: ONLY these may trigger a failover
 # re-route or be swallowed while a better attempt lives. Everything else
@@ -247,6 +250,367 @@ class LocalReplica:
 
     def health_check(self) -> dict[str, Any]:
         return self.engine.health_check()
+
+
+class HTTPReplica:
+    """A remote engine replica behind its HTTP surface, through the
+    service-client stack (the retry semantics stay with the ROUTER —
+    the client here is breaker-only, because the router's failover IS
+    the retry policy; stacking both would retry twice).
+
+    The breaker's open/close transitions feed the membership table
+    directly via ``on_state_change`` — the data path detecting a dead
+    replica must not wait for the heartbeat timers."""
+
+    def __init__(self, replica_id: str, address: str, *, logger: Any = None,
+                 metrics: Any = None, breaker_threshold: int = 3,
+                 breaker_interval: float = 5.0,
+                 on_breaker_open: Callable[[str], None] | None = None,
+                 role: str | None = None) -> None:
+        from gofr_tpu_torch.service.client import new_http_service
+        from gofr_tpu_torch.service.options import CircuitBreakerConfig
+
+        self.replica_id = replica_id
+        self.address = address
+        self.role = role or ms.ROLE_UNIFIED  # membership registration seed
+        self._svc = new_http_service(
+            address, logger, metrics, None,
+            CircuitBreakerConfig(breaker_threshold, breaker_interval),
+        )
+        if on_breaker_open is not None:
+            self._svc.on_state_change = (
+                lambda open_: on_breaker_open(replica_id) if open_ else None
+            )
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=4, thread_name_prefix=f"replica-{replica_id}"
+        )
+        self._rid_mu = threading.Lock()
+        self._next_rid = 0
+        # local rid -> remote engine rid, learned from the stream's id
+        # frame; the cancel wire posts the REMOTE id. None = id frame not
+        # seen yet; a cancel arriving first parks in _cancel_early and
+        # fires the moment the id lands.
+        self._remote_ids: dict[int, int | None] = {}
+        self._cancel_early: set[int] = set()
+
+    def _build_payload(
+        self, prompt: Any, kw: dict[str, Any]
+    ) -> dict[str, Any]:
+        payload: dict[str, Any] = {"prompt": prompt}
+        if kw.get("max_new_tokens"):
+            payload["max_tokens"] = kw["max_new_tokens"]
+        for key in ("temperature", "top_k", "top_p"):
+            if kw.get(key):
+                payload[key] = kw[key]
+        # disaggregation plane: ride the wire only when set (an older
+        # replica's handler ignores unknown fields either way)
+        if kw.get("prefill_only"):
+            payload["prefill_only"] = True
+        if kw.get("handoff_from"):
+            payload["handoff_from"] = kw["handoff_from"]
+        # multi-tenant plane: adapter + tenant ride the wire the same way
+        if kw.get("adapter_id"):
+            payload["adapter_id"] = kw["adapter_id"]
+        if kw.get("tenant"):
+            payload["tenant"] = kw["tenant"]
+        # HA plane (docs/robustness.md "The HA plane"): the exactly-once
+        # key and the per-attempt membership fence ride the wire when set
+        if kw.get("idempotency_key"):
+            payload["idempotency_key"] = kw["idempotency_key"]
+        if kw.get("fence_epoch"):
+            payload["fence_epoch"] = int(kw["fence_epoch"])
+        return payload
+
+    def submit(self, prompt: str | list[int], *, deadline: float | None = None,
+               stream_cb: Any = None, trace_ctx: Any = None,
+               **kw: Any) -> Any:
+        with self._rid_mu:
+            self._next_rid += 1
+            rid = self._next_rid
+        future: Any = concurrent.futures.Future()
+        future.request_id = rid
+        payload = self._build_payload(prompt, kw)
+        headers: dict[str, str] = {}
+        if deadline:
+            headers["X-Request-Timeout"] = f"{deadline:.3f}"
+        ctx_span = trace_ctx if trace_ctx is not None else current_span()
+        if ctx_span is not None:
+            # W3C propagation over the remote transport: the replica's
+            # HTTP middleware continues this trace, so the cross-process
+            # span tree stays connected
+            headers["traceparent"] = format_traceparent(ctx_span)
+        if stream_cb is not None:
+            # token-level streaming (serving/remote.py): tokens reach the
+            # router's stream claim the moment the replica decodes them —
+            # remote TTFT decouples from completion time, and failover/
+            # hedging keep their pre-first-token semantics over the wire
+            with self._rid_mu:
+                # cancelable from this instant: a cancel landing before
+                # the id frame parks in _cancel_early (see cancel())
+                self._remote_ids[rid] = None
+            self._pool.submit(
+                self._run_stream, rid, future, payload, headers or None,
+                deadline, stream_cb,
+            )
+        else:
+            self._pool.submit(
+                self._run_unary, rid, future, payload, headers or None,
+                deadline, stream_cb,
+            )
+        return future
+
+    def _run_unary(self, rid: int, future: Any, payload: dict,
+                   headers: dict | None, deadline: float | None,
+                   stream_cb: Any) -> None:
+        from gofr_tpu_torch.serving.remote import error_from_status
+
+        try:
+            resp = self._svc.post(
+                "/generate", json=payload, headers=headers,
+                timeout=deadline,
+            )
+            if not resp.ok:
+                raise error_from_status(
+                    resp.status_code,
+                    f"replica {self.replica_id}: HTTP {resp.status_code}",
+                    resp.headers,
+                )
+            body = resp.json()
+            data = body.get("data") or body
+            if stream_cb is not None:
+                stream_cb(0, data.get("text", ""), False)
+                stream_cb(0, "", True)
+            future.set_result(_RemoteResult(rid, data))
+        # gofrlint: disable=router-retry-untyped -- settles the future
+        # with the error (no retry happens here); a narrow catch would
+        # strand the client future forever on an unexpected failure
+        except BaseException as exc:
+            if isinstance(exc, OSError) and not isinstance(
+                exc, ConnectionError
+            ):
+                exc = ConnectionError(str(exc))
+            future.set_exception(exc)
+
+    def _run_stream(self, rid: int, future: Any, payload: dict,
+                    headers: dict | None, deadline: float | None,
+                    stream_cb: Any) -> None:
+        """One remote streaming generation, on a pool worker (the frame
+        reads block by design — never the event loop). Mirrors the
+        engine's settlement contract: tokens stream, the done frame
+        fires, THEN the future resolves; failures settle the future
+        FIRST (the router's claim guard reads that ordering)."""
+        from gofr_tpu_torch.serving.remote import run_stream
+
+        state: dict[str, Any] = {
+            "ids": [], "pieces": [], "first_ms": 0.0, "t0": time.monotonic(),
+        }
+
+        def on_id(remote_id: int) -> None:
+            fire = False
+            with self._rid_mu:
+                self._remote_ids[rid] = remote_id
+                if rid in self._cancel_early:
+                    self._cancel_early.discard(rid)
+                    fire = True
+            if fire:
+                self._post_cancel(remote_id)
+
+        def on_token(token_id: int, text: str) -> None:
+            if not state["ids"]:
+                state["first_ms"] = (
+                    time.monotonic() - state["t0"]
+                ) * 1e3
+            state["ids"].append(token_id)
+            state["pieces"].append(text)
+            stream_cb(token_id, text, False)
+
+        try:
+            terminal = run_stream(
+                self._svc, payload, headers=headers, timeout=deadline,
+                on_id=on_id, on_token=on_token,
+            )
+            data = dict(terminal)
+            usage = dict(data.get("usage") or {})
+            # the replica reports prompt/completion; TTFT as OBSERVED
+            # through this transport is what the router's hedge floor
+            # must key on. The token stream itself is the result body —
+            # rebuild it so a streamed remote result carries the same
+            # token_ids/text a unary one does.
+            usage.setdefault("ttft_ms", round(state["first_ms"], 3))
+            data["usage"] = usage
+            data.setdefault("token_ids", list(state["ids"]))
+            data.setdefault("text", "".join(state["pieces"]))
+            stream_cb(-1, "", True)
+            future.set_result(_RemoteResult(rid, data))
+        # gofrlint: disable=router-retry-untyped -- settles the future
+        # with the error (no retry happens here); a narrow catch would
+        # strand the client future forever on an unexpected failure
+        except BaseException as exc:
+            if isinstance(exc, OSError) and not isinstance(
+                exc, ConnectionError
+            ):
+                exc = ConnectionError(str(exc))
+            future.set_exception(exc)
+            # trailing done frame AFTER the failed settlement, mirroring
+            # ServingEngine._settle_future — the router's claim guard
+            # refuses terminal frames of already-failed attempts
+            try:
+                stream_cb(-1, "", True)
+            # gofrlint: disable=router-retry-untyped -- no retry here: a
+            # client callback failing on the courtesy done frame must not
+            # mask the already-settled transport error
+            except Exception:
+                pass
+        finally:
+            with self._rid_mu:
+                self._remote_ids.pop(rid, None)
+                self._cancel_early.discard(rid)
+
+    def _post_cancel(self, remote_id: int) -> None:
+        from gofr_tpu_torch.serving.remote import CANCEL_PATH
+
+        try:
+            self._svc.post(CANCEL_PATH, json={"id": remote_id}, timeout=2.0)
+        except Exception:
+            pass  # the replica may be gone; its supervisor reclaims
+
+    def cancel(self, request_id: int) -> None:
+        """The remote cancel wire: POST the replica's own request id (from
+        the stream's id frame) to ``/generate/cancel`` — the engine
+        retires the row at the next block sync, so a canceled hedge twin
+        stops burning decode steps within one block instead of running to
+        completion. A cancel racing the id frame parks and fires when the
+        frame lands; unary submissions have no wire to cancel (bounded by
+        their deadline, as before)."""
+        with self._rid_mu:
+            if request_id not in self._remote_ids:
+                return  # unary, already finished, or never streamed
+            remote_id = self._remote_ids.get(request_id)
+            if remote_id is None:
+                self._cancel_early.add(request_id)
+                return
+        self._post_cancel(remote_id)
+
+    def resume(self, idempotency_key: str, *, last_seq: int = 0,
+               stream_cb: Any = None, fence_epoch: int | None = None,
+               deadline: float | None = None) -> Any:
+        """Re-attach to a keyed stream on this remote replica
+        (docs/serving.md "Resumable streams"): the pool worker drives
+        ``resume_stream`` — ``Idempotency-Key`` + ``Last-Event-ID``
+        headers, suffix frames replayed token-identically, then the live
+        continuation. ``stream_cb`` is the 4-arg resumable wire
+        ``(seq, token_id, piece, done)``. The future resolves to a
+        GenerationResult-shaped view of the terminal whose ``token_ids``
+        hold the REPLAYED SUFFIX (the client already holds the acked
+        prefix). The head errors (404 unknown key, 409 stale fence, 503)
+        raise SYNCHRONOUSLY — the router's resume walk classifies them
+        and tries the next replica; only the frame drain runs on the
+        pool."""
+        from gofr_tpu_torch.serving.remote import open_resume
+
+        with self._rid_mu:
+            self._next_rid += 1
+            rid = self._next_rid
+        resp = open_resume(
+            self._svc, idempotency_key, last_seq=int(last_seq),
+            fence_epoch=fence_epoch, timeout=deadline,
+        )
+        future: Any = concurrent.futures.Future()
+        future.request_id = rid
+        deadline_abs = (
+            time.monotonic() + deadline if deadline is not None else None
+        )
+        self._pool.submit(
+            self._run_resume, rid, future, resp, int(last_seq),
+            deadline_abs, stream_cb,
+        )
+        return future
+
+    def _run_resume(self, rid: int, future: Any, resp: Any, last_seq: int,
+                    deadline_abs: float | None, stream_cb: Any) -> None:
+        from gofr_tpu_torch.serving.remote import drain_resume
+
+        state: dict[str, Any] = {"seq": last_seq, "ids": [], "pieces": []}
+
+        def on_frame(seq: int, token_id: int, text: str) -> None:
+            state["seq"] = max(state["seq"], seq)
+            state["ids"].append(token_id)
+            state["pieces"].append(text)
+            if stream_cb is not None:
+                stream_cb(seq, token_id, text, False)
+
+        try:
+            terminal = drain_resume(
+                resp, deadline_abs=deadline_abs, on_frame=on_frame,
+            )
+            data = dict(terminal)
+            data.setdefault("token_ids", list(state["ids"]))
+            data.setdefault("text", "".join(state["pieces"]))
+            if stream_cb is not None:
+                stream_cb(
+                    int(terminal.get("seq") or (state["seq"] + 1)),
+                    -1, "", True,
+                )
+            future.set_result(_RemoteResult(rid, data))
+        # gofrlint: disable=router-retry-untyped -- settles the future
+        # with the error (no retry happens here); a narrow catch would
+        # strand the client future forever on an unexpected failure
+        except BaseException as exc:
+            if isinstance(exc, OSError) and not isinstance(
+                exc, ConnectionError
+            ):
+                exc = ConnectionError(str(exc))
+            future.set_exception(exc)
+
+    def fetch_kv(self, keys: list[str],
+                 timeout: float = 2.0,
+                 fence_epoch: int | None = None) -> dict[str, tuple]:
+        """Warm KV page migration, remote half (serving/prefix_index.py):
+        fetch serialized prefix-cache slabs from this replica's
+        ``/kv/fetch`` surface. Returns {key: (logits, k, v)} as HOST
+        numpy arrays — the admitting engine uploads them asynchronously.
+        Raises on transport failure; the migrator's fetch contract turns
+        any raise into a clean compute miss. ``fence_epoch`` rides the
+        payload when set: a fetch stamped against a replica that warm-
+        restarted since is rejected at the wire (409) instead of serving
+        slabs from a cache generation the caller never observed."""
+        payload: dict[str, Any] = {"keys": list(keys)}
+        if fence_epoch:
+            payload["fence_epoch"] = int(fence_epoch)
+        resp = self._svc.post(
+            "/kv/fetch", json=payload, timeout=timeout,
+        )
+        if not resp.ok:
+            raise ConnectionError(
+                f"replica {self.replica_id}: /kv/fetch HTTP {resp.status_code}"
+            )
+        body = resp.json()
+        data = body.get("data") or body
+        out: dict[str, tuple] = {}
+        for key, payload in (data.get("entries") or {}).items():
+            out[key] = decode_entry(payload)
+        return out
+
+    def health_check(self) -> dict[str, Any]:
+        return self._svc.health_check()
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False)
+
+
+class _RemoteResult:
+    """GenerationResult-shaped view of a remote /generate response."""
+
+    def __init__(self, rid: int, data: dict[str, Any]) -> None:
+        usage = data.get("usage") or {}
+        self.request_id = rid
+        self.text = data.get("text", "")
+        self.token_ids: list[int] = data.get("token_ids") or []
+        self.finish_reason = data.get("finish_reason", "stop")
+        self.prompt_tokens = usage.get("prompt_tokens", 0)
+        self.completion_tokens = usage.get("completion_tokens", 0)
+        self.ttft_s = usage.get("ttft_ms", 0.0) / 1000.0
+        self.duration_s = usage.get("duration_ms", 0.0) / 1000.0
 
 
 class _RouterRequest:

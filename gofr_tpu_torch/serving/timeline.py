@@ -1,6 +1,6 @@
 """Request-lifecycle timelines + the ``/requestz`` flight recorder (port of
-``gofr_tpu/serving/timeline.py``, the same code; the ``/requestz`` routes
-wait for the port's HTTP bindings).
+``gofr_tpu/serving/timeline.py``, the same code; ``serving/handlers.py``
+serves the ``/requestz`` routes).
 
 Every request the engine accepts gets a :class:`RequestTimeline`: a set of
 monotonic phase stamps (submitted → admitted → prefill start/end → first

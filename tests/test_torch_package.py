@@ -169,6 +169,66 @@ def test_fleet_modules_are_checked_and_the_pool_factory_keeps_the_device_policy(
     assert not engine._running
 
 
+APP_MODULES = (
+    "gofr_tpu_torch/app.py", "gofr_tpu_torch/context.py", "gofr_tpu_torch/handler.py",
+    "gofr_tpu_torch/serve.py", "gofr_tpu_torch/config/config.py",
+    "gofr_tpu_torch/logging/level.py", "gofr_tpu_torch/logging/logger.py",
+    "gofr_tpu_torch/http/errors.py", "gofr_tpu_torch/http/request.py",
+    "gofr_tpu_torch/http/responder.py", "gofr_tpu_torch/http/router.py",
+    "gofr_tpu_torch/http/server.py", "gofr_tpu_torch/http/dispatch.py",
+    "gofr_tpu_torch/http/response/__init__.py", "gofr_tpu_torch/http/middleware/core.py",
+    "gofr_tpu_torch/container/container.py", "gofr_tpu_torch/container/health.py",
+    "gofr_tpu_torch/metrics/server.py", "gofr_tpu_torch/service/client.py",
+    "gofr_tpu_torch/service/options.py", "gofr_tpu_torch/serving/handlers.py",
+    "gofr_tpu_torch/serving/remote.py", "gofr_tpu_torch/testutil/ports.py",
+    "gofr_tpu_torch/testutil/apps.py",
+)
+
+
+def test_app_modules_are_checked_and_import_no_jax():
+    """The app plane's modules are among the files the import rule holds,
+    and importing every module of the package in a fresh interpreter loads
+    nothing of JAX or of the JAX package."""
+    import subprocess
+    import sys
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(APP_MODULES) <= files
+    modules = sorted(str(p.relative_to(ROOT).with_suffix("")).replace("/", ".")
+                     .removesuffix(".__init__")
+                     for p in _port_files() if p.name != "chip_smoke.py")
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_serve_entry_point_refuses_without_a_card(no_card):
+    """``build_app`` builds its engine on the card unless the config asks
+    for the CPU, and raises without one."""
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.serve import build_app
+
+    values = {"SERVE_MODEL": "tiny", "HTTP_PORT": "0", "METRICS_PORT": "0",
+              "TPU_BATCH_MAX_TOKENS": "64", "LOG_LEVEL": "FATAL"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_app(MapConfig(values, use_env=False))
+    with pytest.raises(ValueError, match="SERVE_MODEL"):
+        build_app(MapConfig({**values, "SERVE_MODEL": "gpt"}, use_env=False))
+    app = build_app(MapConfig({**values, "SERVE_DEVICE": "cpu"}, use_env=False))
+    try:
+        engine = app.container.serving
+        assert engine.device.type == "cpu" and engine.model_cfg.d_model == 64
+        assert {r.pattern for r in app.router.routes} >= {
+            "/generate", "/generate/stream", "/generate/cancel", "/v1/models", "/requestz",
+            "/requestz/{request_id}", "/kv/fetch", "/.well-known/health", "/.well-known/alive"}
+    finally:
+        app.container.close()
+
+
 def test_cpu_engine_run_launches_no_kernel():
     """bf16 and int8 engines on either layout, a monolithic and a chunked
     prompt each: the plain versions run on the CPU and no counter moves."""

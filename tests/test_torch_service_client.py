@@ -1,0 +1,275 @@
+"""The port's service client against the JAX package's
+(``gofr_tpu/service``): ``HTTPService`` against a tiny local server (verbs,
+statuses, headers, the traceparent it sends, the histogram it records, a
+streamed body), the ``CircuitBreaker`` and ``Retry`` options driven by
+seeded sequences of outcomes (the same state transitions, results and inner
+calls on both sides), the header options, and ``retry_after_from_headers``
+over a table."""
+
+import http.server
+import json
+import random
+import threading
+import time
+
+import pytest
+
+from gofr_tpu import service as r_service
+from gofr_tpu.metrics import new_metrics_manager as r_manager
+from gofr_tpu.service import options as r_options
+from gofr_tpu.tracing import Tracer as RTracer
+from gofr_tpu_torch import service as t_service
+from gofr_tpu_torch.metrics import new_metrics_manager as t_manager
+from gofr_tpu_torch.service import options as t_options
+from gofr_tpu_torch.testutil import get_free_port
+from gofr_tpu_torch.tracing import Tracer as TTracer
+
+SIDES = {"ref": (r_service, r_options, r_manager, RTracer),
+         "port": (t_service, t_options, t_manager, TTracer)}
+
+
+class _Handler(http.server.BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, *args):
+        pass
+
+    def _send(self, code, body=b"{}", headers=None):
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _route(self, method):
+        length = int(self.headers.get("Content-Length") or 0)
+        body = self.rfile.read(length) if length else b""
+        if self.path.startswith("/status/"):
+            code = int(self.path.split("/")[2].split("?")[0])
+            self._send(code, json.dumps({"code": code}).encode(), {"Retry-After": "3"})
+        elif self.path == "/sse":
+            lines = b"id: 0\ndata: {\"id\": 7}\n\ndata: [DONE]\n\n"
+            self._send(200, lines, {"Content-Type": "text/event-stream"})
+        else:
+            echo = {"method": method, "path": self.path, "body": body.decode(),
+                    "traceparent": self.headers.get("traceparent", ""),
+                    "auth": self.headers.get("Authorization", ""),
+                    "key": self.headers.get("X-API-Key", ""),
+                    "custom": self.headers.get("X-Custom", ""),
+                    "ctype": self.headers.get("Content-Type", "")}
+            self._send(200, json.dumps(echo).encode())
+
+    def do_GET(self):
+        self._route("GET")
+
+    def do_POST(self):
+        self._route("POST")
+
+    def do_PUT(self):
+        self._route("PUT")
+
+    def do_PATCH(self):
+        self._route("PATCH")
+
+    def do_DELETE(self):
+        self._route("DELETE")
+
+
+@pytest.fixture(scope="module")
+def server():
+    port = get_free_port()
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", port), _Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{port}"
+    srv.shutdown()
+    srv.server_close()
+
+
+def _norm(resp, tracer_span=None):
+    body = resp.json()
+    if isinstance(body, dict) and body.get("traceparent"):
+        parts = body["traceparent"].split("-")
+        assert len(parts) == 4 and parts[0] == "00" and len(parts[1]) == 32
+        if tracer_span is not None:
+            assert parts[1] == tracer_span.trace_id
+        body["traceparent"] = "present"
+    return resp.status_code, resp.ok, body, resp.headers.get("Retry-After")
+
+
+VERBS = [("get", "/a", {"params": {"q": ["1", "2"]}}), ("post", "/b", {"json": {"x": 1}}),
+         ("post", "/raw", {"body": b"bytes"}), ("put", "/c", {"json": [1]}),
+         ("patch", "/d", {"body": b"p"}), ("delete", "/e", {}),
+         ("get", "/status/404", {}), ("get", "/status/503", {}), ("post", "/status/429", {})]
+
+
+@pytest.mark.parametrize("verb,path,kw", VERBS)
+def test_http_service_verbs(server, verb, path, kw):
+    got = {}
+    for name, (svc_mod, _, manager, tracer_cls) in SIDES.items():
+        metrics = manager()
+        metrics.new_histogram("app_http_service_response", "d")
+        tracer = tracer_cls("svc")
+        svc = svc_mod.HTTPService(server, None, metrics, tracer)
+        resp = getattr(svc, verb)(path, **kw)
+        hist = metrics.get("app_http_service_response")
+        labels = {"path": server, "method": verb.upper(), "status": str(resp.status_code)}
+        assert hist.snapshot(labels)[1] == 1
+        assert tracer.open_spans() == 0
+        got[name] = _norm(resp)
+    assert got["port"] == got["ref"]
+
+
+def test_traceparent_follows_the_current_span(server):
+    for _, (svc_mod, _, _, tracer_cls) in SIDES.items():
+        tracer = tracer_cls("caller")
+        with tracer.start_span("outer") as span:
+            resp = svc_mod.HTTPService(server).get("/t")
+        _norm(resp, span)
+        assert resp.json()["traceparent"].split("-")[1] == span.trace_id
+
+
+def test_stream_and_health(server):
+    got = {}
+    for name, (svc_mod, _, _, _) in SIDES.items():
+        svc = svc_mod.HTTPService(server)
+        s = svc.stream("POST", "/sse", json={"a": 1})
+        lines = list(s.lines())
+        s.close()
+        bad = svc.stream("GET", "/status/503")
+        detail = bad.read_body()
+        bad.close()
+        health = svc.health_check()
+        down = svc_mod.HTTPService("http://127.0.0.1:1").health_check()
+        down["details"].pop("error", None)
+        got[name] = (s.status_code, lines, bad.status_code, detail, health, down)
+    assert got["port"] == got["ref"]
+
+
+@pytest.mark.parametrize("option", ["basic", "apikey", "headers", "stack"])
+def test_header_options(server, option):
+    got = {}
+    for name, (svc_mod, opts, _, _) in SIDES.items():
+        chosen = {
+            "basic": [opts.BasicAuthConfig("u", "p")],
+            "apikey": [opts.APIKeyConfig("k1")],
+            "headers": [opts.DefaultHeaders({"X-Custom": "c"})],
+            "stack": [opts.DefaultHeaders({"X-Custom": "c"}), opts.APIKeyConfig("k2"),
+                      opts.HealthConfig("/status/200", timeout=1.0)],
+        }[option]
+        svc = svc_mod.new_http_service(server, None, None, None, *chosen)
+        got[name] = (_norm(svc.get("/h", headers={"X-Custom": "override"} if option == "stack"
+                                   else None)), svc.health_check())
+    assert got["port"] == got["ref"]
+
+
+# ------------------------------------------------------- breaker and retry, scripted
+class Scripted:
+    """An inner client that answers from a script: a status code, or an
+    exception class name to raise; health checks answer from their own
+    script. Records every call."""
+
+    def __init__(self, opts, outcomes, health):
+        self.opts = opts
+        self.outcomes = list(outcomes)
+        self.health = list(health)
+        self.calls = []
+        self.address = "http://scripted"
+
+    def request(self, method, path, **kw):
+        self.calls.append((method, path))
+        out = self.outcomes.pop(0) if self.outcomes else 200
+        if out == "ConnectionError":
+            raise ConnectionError("reset")
+        if out == "CircuitBreakerError":
+            raise self.opts.CircuitBreakerError(self.address)
+        headers = {"Retry-After": "0.001"} if out in (429, 503) else {}
+        return self.opts.ServiceResponse(out, headers, b"")
+
+    stream = request
+
+    def health_check(self):
+        self.calls.append(("HEALTH", ""))
+        up = self.health.pop(0) if self.health else True
+        return {"status": "UP" if up else "DOWN"}
+
+
+def _script(seed, n):
+    rng = random.Random(seed)
+    pool = [200, 200, 404, 500, 503, 429, "ConnectionError"]
+    return [rng.choice(pool) for _ in range(n)]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_circuit_breaker_transitions(seed):
+    got = {}
+    for name, (_, opts, manager, _) in SIDES.items():
+        inner = Scripted(opts, _script(seed, 40), [False, False, True])
+        metrics = manager()
+        metrics.new_gauge("app_service_breaker_state", "d")
+        inner.metrics = metrics
+        cb = opts.CircuitBreakerConfig(threshold=3, interval=0.01).add_option(inner)
+        transitions = []
+        cb.on_state_change = transitions.append
+        record = []
+        for i in range(40):
+            try:
+                resp = cb.request("GET", f"/r{i}")
+                record.append(resp.status_code)
+            except Exception as exc:
+                record.append(type(exc).__name__)
+                if isinstance(exc, opts.CircuitBreakerError):
+                    deadline = time.monotonic() + 5
+                    while cb.is_open and time.monotonic() < deadline:
+                        time.sleep(0.005)
+                    assert not cb.is_open
+        gauge = metrics.get("app_service_breaker_state").value({"address": "http://scripted"})
+        got[name] = (record, transitions, inner.calls, gauge)
+    assert got["port"] == got["ref"]
+    assert True in got["port"][1] or "CircuitBreakerError" not in got["port"][0]
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("jitter", [False, True])
+def test_retry_ladder(seed, jitter):
+    got = {}
+    for name, (_, opts, _, _) in SIDES.items():
+        script = _script(seed, 30)
+        if seed % 4 == 3:
+            script[2] = "CircuitBreakerError"  # a breaker opening mid-ladder stops it
+        inner = Scripted(opts, script, [])
+        retry = opts.RetryConfig(max_retries=3, backoff=0.0005, multiplier=2.0,
+                                 max_backoff=0.002, jitter=jitter).add_option(inner)
+        retry._rng.seed(seed)
+        record = []
+        for i in range(8):
+            try:
+                record.append(retry.request("POST", f"/q{i}").status_code)
+            except Exception as exc:
+                record.append(type(exc).__name__)
+        delays = [retry._delay(a, ra) for a in (1, 2, 3) for ra in (None, 0.001, 10.0)]
+        got[name] = (record, inner.calls, delays)
+    assert got["port"] == got["ref"]
+
+
+def test_retry_respects_max_elapsed():
+    got = {}
+    for name, (_, opts, _, _) in SIDES.items():
+        inner = Scripted(opts, [503] * 10, [])
+        retry = opts.RetryConfig(max_retries=5, backoff=0.05, jitter=False,
+                                 max_elapsed=0.12).add_option(inner)
+        got[name] = (retry.request("GET", "/x").status_code, len(inner.calls))
+    assert got["port"] == got["ref"] == (503, 2)
+
+
+@pytest.mark.parametrize("headers", [
+    {}, {"Retry-After": "2"}, {"retry-after": "0.25"}, {"RETRY-AFTER": "-1"},
+    {"Retry-After": "Wed, 21 Oct 2015 07:28:00 GMT"}, {"Retry-After": ""},
+    {"X-Other": "1", "Retry-After": "1e3"}, {"Retry-After": "nan"},
+])
+def test_retry_after_from_headers(headers):
+    ref = r_options.retry_after_from_headers(headers)
+    port = t_options.retry_after_from_headers(headers)
+    assert (ref != ref and port != port) or port == ref
