@@ -185,6 +185,28 @@ Phases, each a hard failure with a non-zero exit:
      replica: a 1000-token prompt through ``_submit_disagg`` beside a
      unified engine's TTFT and tokens, no prefill compute on the decode
      replica;
+   then the http phase, at full depth: ``H1`` an ``App`` over a paged int8
+   engine (the main path's prompts as SSE streams against
+   ``engine.submit``, the other routes, ``/metrics``, the profiler, the
+   admin drain), ``H2`` two apps behind a router of ``HTTPReplica``s, ``H3``
+   ``python -m gofr_tpu_torch.serve`` as a process; then the surface
+   phase, at full depth, one ``App`` with API-key auth over a paged bf16
+   engine (2048, 16-token pages, whole prefills):
+   - ``W`` the main path's prompts as 10 concurrent WebSocket streams
+     (``/ws/generate``, the port's own client) against ``engine.submit``,
+     sync warnings a dispatch equal; an upgrade with no key and with a
+     wrong key and a ``POST /generate`` with no key refused 401 with no
+     admission; a dropped and a closed socket each release row and pages;
+     TTFT and the gap a token over the socket;
+   - ``Q`` 8 generation jobs through ``app.subscribe`` on the in-memory
+     broker, one ``pubsub.handler`` fault (one redelivery), a poison job
+     dead-lettered after the topic's attempts, the ``app_pubsub_*``
+     series and the consumers' health;
+   - ``C`` a ``new_cmd`` app's ``generate`` subcommand against
+     ``engine.submit``, help and an unknown command;
+   - a ``* * * * * *`` cron job reading the device telemetry into a gauge
+     all along; ``POST /.well-known/drain`` refused without the key, then
+     draining the app with it;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -4950,6 +4972,424 @@ def run_http(torch, cfg, params) -> dict:
     return out
 
 
+SURFACE_NEW = 32  # W: new tokens of each of the main path's prompts
+SURFACE_KEY = "surface-key"  # W: the API key the app accepts
+SURFACE_JOBS = 8  # Q: generation jobs through the subscriber
+SURFACE_ATTEMPTS = 3  # Q: the generate topic's delivery budget
+
+
+def ws_stream(url: str, payload: dict, headers: dict | None = None, keep: int | None = None,
+              close: bool = False) -> dict:
+    """One generation over ``/ws/generate`` with the port's WebSocket client
+    (``gofr_tpu_torch.websocket.WSClient``, masked frames over
+    ``asyncio.open_connection``): the frames, the client's seconds from the
+    send to each token frame, the tokens and the summary frame. With
+    ``keep`` the client leaves after that many frames, by a close frame
+    (``close``) or by dropping the socket; ``t_left`` is when it left."""
+    from gofr_tpu_torch.websocket import WSClient
+
+    async def run() -> dict:
+        ws = await WSClient.connect(url, headers=headers, timeout=60)
+        frames, arrivals = [], []
+        t0 = time.perf_counter()
+        await ws.send(payload)
+        try:
+            while keep is None or len(frames) < keep:
+                frame = json.loads(await asyncio.wait_for(ws.recv(), 600))
+                frames.append(frame)
+                if "token" in frame:
+                    arrivals.append(time.perf_counter() - t0)
+                if frame.get("done") or "error" in frame:
+                    break
+        finally:
+            t_left = time.perf_counter()
+            if keep is not None and not close:
+                ws.abort()
+            else:
+                await ws.close()
+        return {"frames": frames, "arrivals": arrivals, "t_left": t_left,
+                "tokens": [f["token"] for f in frames if "token" in f],
+                "summary": next((f for f in frames if f.get("done")), None)}
+
+    return asyncio.run(run())
+
+
+def ws_refused(url: str, headers: dict | None = None) -> int:
+    """The HTTP status of an upgrade the server refuses (101 if it upgrades)."""
+    from gofr_tpu_torch.websocket import WSClient, WSHandshakeError
+
+    async def run() -> int:
+        try:
+            ws = await WSClient.connect(url, headers=headers, timeout=60)
+        except WSHandshakeError as exc:
+            return exc.status
+        await ws.close()
+        return 101
+
+    return asyncio.run(run())
+
+
+def surface_w(torch, engine, base: str, ws_url: str, prompt, pool, gate, probe,
+              submitted: list, out: dict) -> None:
+    """W: the main path's prompts as concurrent WebSocket streams behind
+    the gate against the same set through ``engine.submit`` (tokens and
+    sync warnings a dispatch), the refused requests, a dropped and a closed
+    stream, the WebSocket TTFT and gap a token."""
+    key = {"X-API-Key": SURFACE_KEY}
+    ids = [prompt(n) for n in MAIN_LENS]
+
+    def queued(n):
+        wait_until(lambda: engine._sched.pending() >= n, 120, f"{n} requests queued")
+
+    def ws_set():
+        with gate.closed():
+            futs = [pool.submit(ws_stream, ws_url, {"prompt": p, "max_tokens": SURFACE_NEW}, key)
+                    for p in ids]
+            queued(len(ids))
+        return [f.result(600) for f in futs]
+
+    def direct_set():
+        with gate.closed():
+            futs = [engine.submit(p, max_new_tokens=SURFACE_NEW, temperature=0.0) for p in ids]
+        return [f.result(600) for f in futs]
+
+    ws_stream(ws_url, {"prompt": prompt(40), "max_tokens": 4}, key)  # warm-up
+    runs = {}
+    for name, fn in (("ws", ws_set), ("direct", direct_set)):
+        d0 = probe.n["dispatches"]
+        res, sites = sync_warnings(torch, engine, probe, fn)
+        runs[name] = {"results": res, "sites": sites, "dispatches": probe.n["dispatches"] - d0}
+    parted = {}
+    for n, p, s, r in zip(MAIN_LENS, ids, runs["ws"]["results"], runs["direct"]["results"]):
+        summary = s["summary"]
+        if summary is None or summary.get("finish_reason") != "length" \
+                or summary.get("tokens") != SURFACE_NEW or len(s["tokens"]) != SURFACE_NEW:
+            raise AssertionError(f"W stream of {n} tokens: {s['frames'][-3:]}")
+        parted[n] = same_or_close(torch, engine, p, s["tokens"], r.token_ids,
+                                  f"W {n}-token prompt, WebSocket against submit")
+    per = {k: sum(v["sites"].values()) / max(v["dispatches"], 1) for k, v in runs.items()}
+    out["streams"] = {"equal": sum(v["equal"] for v in parted.values()), "of": len(parted),
+                      "parted": {n: v for n, v in parted.items() if not v["equal"]}}
+    out["syncs"] = {k: {"dispatches": v["dispatches"], "warnings": sum(v["sites"].values()),
+                        "sites": v["sites"]} for k, v in runs.items()}
+    print(f"  W 10 WebSocket streams: {out['streams']['equal']}/10 token-equal to engine.submit; "
+          f"sync warnings a dispatch through the socket {per['ws']:.3f}, direct "
+          f"{per['direct']:.3f} ({out['syncs']})")
+    if out["streams"]["equal"] != len(ids):
+        raise AssertionError(f"W: streams not token-equal to engine.submit: {out['streams']}")
+    if per["ws"] != per["direct"]:
+        raise AssertionError(f"W: serving through the socket changed the syncs a dispatch: "
+                             f"{out['syncs']}")
+    # refused: no key, a wrong key, a POST with no key; the probe stays open
+    n0 = len(submitted)
+    refused = {"upgrade_no_key": ws_refused(ws_url),
+               "upgrade_wrong_key": ws_refused(ws_url, {"X-API-Key": "wrong"}),
+               "generate_no_key": post(base, "/generate", {"prompt": ids[0], "max_tokens": 4})[0],
+               "health_no_key": get_json(base + "/.well-known/health")[0]}
+    refused["admitted"] = len(submitted) - n0
+    out["refused"] = refused
+    print(f"  W refused: {refused}")
+    if refused != {"upgrade_no_key": 401, "upgrade_wrong_key": 401, "generate_no_key": 401,
+                   "health_no_key": 200, "admitted": 0}:
+        raise AssertionError(f"W refused requests: {refused}")
+    # a client that drops its socket mid-stream, one that sends a close frame
+    for how in ("drop", "close"):
+        s = ws_stream(ws_url, {"prompt": prompt(200), "max_tokens": 512}, key, keep=3,
+                      close=how == "close")
+        pc = engine.paged_cache
+        wait_until(lambda: not engine._by_id and engine._sched.stats()["busy_slots"] == 0
+                   and pc.stats()["free_blocks"] == pc.stats()["total_blocks"], 60,
+                   f"W the {how} stream's row and pages")
+        released = time.perf_counter()
+        tl = engine.timeline.get(submitted[-1])
+        wait_until(lambda: tl.finish_reason is not None, 60, f"W the {how} stream's terminal")
+        out[how] = {"frames_read": len(s["frames"]), "ms_to_release": (released - s["t_left"]) * 1e3,
+                    "finish_reason": tl.finish_reason}
+        print(f"  W {how}: {out[how]}")
+        if out[how]["finish_reason"] != "cancel":
+            raise AssertionError(f"W {how}: {out[how]}")
+    # the app layer's cost, one 1000-token request at a time, in turns
+    ttft, gaps, steps = {"ws": [], "submit": []}, [], []
+    long_p = ids[MAIN_LENS.index(1000)]
+    for _ in range(3):
+        s = ws_stream(ws_url, {"prompt": long_p, "max_tokens": 16}, key)
+        tl = engine.timeline.get(submitted[-1])
+        wait_until(lambda: tl.finish_reason is not None, 60, "W the TTFT stream's terminal")
+        tl = tl.to_dict()
+        ttft["ws"].append((s["arrivals"][0] * 1e3, tl["ttft_ms"]))
+        gaps.append(gap_ms(s["arrivals"]))
+        r = engine.submit(long_p, max_new_tokens=16, temperature=0.0).result(600)
+        ttft["submit"].append(r.ttft_s * 1e3)
+        steps.append(per_step_ms([r]))
+    out["app_cost"] = {"ttft_ms_ws_client_engine": ttft["ws"], "ttft_ms_submit": ttft["submit"],
+                       "ws_gap_ms_a_token": gaps, "submit_ms_a_step": steps}
+    print(f"  W 1000-token prompt, 16 tokens, in turns: TTFT through the socket (client, engine) "
+          f"{[(round(a, 2), round(b, 2)) for a, b in ttft['ws']]} ms, through submit "
+          f"{[round(x, 2) for x in ttft['submit']]} ms; WebSocket gap "
+          f"{[round(g, 2) for g in gaps]} ms a token against {[round(x, 2) for x in steps]} "
+          f"ms a step")
+
+
+def surface_q(torch, engine, app, mbase: str, base: str, prompt, out: dict) -> None:
+    """Q: generation jobs through ``app.subscribe("generate", ...)`` on the
+    in-memory broker, each result published to ``generate.results``: one
+    injected ``pubsub.handler`` fault (one redelivery, no dead letter),
+    then a poison job (an empty prompt, a 400 at submit) that lands in
+    ``generate.dlq`` after the topic's attempts while the next job flows."""
+    from gofr_tpu_torch import chaos
+
+    broker = app.container.pubsub
+    consumer = app.subscription_manager._consumers["generate"]
+    lens = MAIN_LENS[:SURFACE_JOBS]
+    ids = [prompt(n) for n in lens]
+    # the subscriber runs one job at a time: the reference is each alone
+    want = [engine.submit(p, max_new_tokens=SURFACE_NEW, temperature=0.0).result(600)
+            for p in ids]
+
+    def results(n: int) -> list[dict]:
+        got = []
+        t_end = time.monotonic() + 300
+        while len(got) < n:
+            if time.monotonic() > t_end:
+                raise AssertionError(f"Q: {len(got)} of {n} results")
+            msg = broker.subscribe("generate.results")
+            if msg is not None:
+                got.append({**json.loads(msg.value), "t_result": time.perf_counter()})
+                msg.commit()
+        return got
+
+    with chaos.active(chaos.ChaosInjector(SEED, {"pubsub.handler": 1.0}, max_faults=1)) as inj:
+        for k, p in enumerate(ids):
+            broker.publish("generate", json.dumps({"job": k, "prompt": p,
+                                                   "t_publish": time.perf_counter()}).encode())
+        got = sorted(results(len(ids)), key=lambda r: r["job"])
+    faults = inj.stats()["pubsub.handler"]
+    after_fault = {"redeliveries": consumer.redeliveries, "dlq": consumer.dlq}
+    parted = {n: same_or_close(torch, engine, p, g["tokens"], w.token_ids,
+                               f"Q {n}-token job against submit")
+              for n, p, g, w in zip(lens, ids, got, want)}
+    # the poison job, then one more good job behind it
+    broker.publish("generate", json.dumps({"job": "poison", "prompt": [],
+                                           "t_publish": time.perf_counter()}).encode())
+    broker.publish("generate", json.dumps({"job": "after", "prompt": ids[0],
+                                           "t_publish": time.perf_counter()}).encode())
+    behind = results(1)[0]
+    wait_until(lambda: consumer.dlq == 1, 60, "Q the poison job's dead letter")
+    dead = broker.subscribe("generate.dlq")
+    out["jobs"] = {"equal": sum(v["equal"] for v in parted.values()), "of": len(parted),
+                   "parted": {n: v for n, v in parted.items() if not v["equal"]}}
+    out["delivery"] = {"after_fault": after_fault, "faults": faults,
+                       "redeliveries": consumer.redeliveries, "dlq": consumer.dlq,
+                       "dlq_message": dead is not None and json.loads(dead.value)["job"],
+                       "dlq_attempts": dead.metadata.get("gofr_dlq_attempts") if dead else None,
+                       "behind_poison_equal": behind["tokens"] == want[0].token_ids}
+    out["job_ms"] = {"publish_to_result": [(g["t_result"] - g["t_publish"]) * 1e3 for g in got],
+                     "ttft": [g["ttft_ms"] for g in got]}
+    print(f"  Q {len(ids)} jobs: {out['jobs']['equal']}/{len(ids)} token-equal to engine.submit; "
+          f"delivery {out['delivery']}")
+    print(f"  Q publish to result {[round(x, 1) for x in out['job_ms']['publish_to_result']]} ms, "
+          f"TTFT a job {[round(x, 2) for x in out['job_ms']['ttft']]} ms")
+    if out["jobs"]["equal"] != len(ids) or after_fault != {"redeliveries": 1, "dlq": 0} \
+            or consumer.redeliveries != 1 + SURFACE_ATTEMPTS - 1 or consumer.dlq != 1 \
+            or out["delivery"]["dlq_message"] != "poison" \
+            or out["delivery"]["dlq_attempts"] != str(SURFACE_ATTEMPTS) \
+            or not out["delivery"]["behind_poison_equal"]:
+        raise AssertionError(f"Q: jobs {out['jobs']}, delivery {out['delivery']}")
+    # the consumer's series on /metrics, its state on the health route
+    from gofr_tpu_torch.testutil import fetch
+
+    text = fetch(mbase + "/metrics")[2].decode()
+    series = {}
+    for name in ("app_pubsub_subscribe_total_count", "app_pubsub_subscribe_success_count",
+                 "app_pubsub_redeliveries_total", "app_pubsub_dlq_total",
+                 "app_pubsub_handler_duration_seconds_count", "app_pubsub_publish_total_count"):
+        vals = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                if line.startswith(name + "{") and 'topic="generate' in line]
+        series[name] = sum(vals)
+    health = get_json(base + "/.well-known/health")[1]["data"]
+    consumers = health["details"].get("pubsub_consumers", {})
+    out["metrics"] = series
+    out["health"] = {"status": health["status"], "pubsub_consumers": consumers.get("status"),
+                     "generate": consumers.get("details", {}).get("topics", {}).get("generate")}
+    print(f"  Q /metrics {series}; health {out['health']['status']}, consumers "
+          f"{out['health']['pubsub_consumers']}")
+    if not all(series.values()) or health["status"] != "UP" or consumers.get("status") != "UP":
+        raise AssertionError(f"Q metrics {series}, health {out['health']}")
+
+
+def surface_c(engine, prompt, out: dict) -> None:
+    """C: a ``new_cmd`` app with a ``generate`` subcommand over the engine:
+    its printed tokens against ``engine.submit``'s, help, an unknown
+    command."""
+    import io
+
+    from gofr_tpu_torch.app import new_cmd
+    from gofr_tpu_torch.cli import run_cmd
+    from gofr_tpu_torch.config import MapConfig
+
+    cmd = new_cmd(MapConfig({"APP_NAME": "surface-cmd", "LOG_LEVEL": "ERROR"}, use_env=False))
+
+    def generate(ctx):
+        ids = [int(x) for x in ctx.params("prompt_ids")]
+        r = engine.submit(ids, max_new_tokens=int(ctx.param("max_new_tokens") or 8),
+                          temperature=0.0).result(600)
+        return {"tokens": r.token_ids, "finish_reason": r.finish_reason}
+
+    cmd.sub_command("generate", generate, "greedy tokens of a prompt of token ids")
+    ids = prompt(120)
+    want = engine.submit(ids, max_new_tokens=8, temperature=0.0).result(600)
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = run_cmd(cmd, argv)
+        return code, buf.getvalue()
+
+    code, text = run(["generate", "prompt_ids=" + ",".join(map(str, ids)), "max_new_tokens=8"])
+    got = json.loads(text)
+    help_code, help_text = run(["--help"])
+    bad_code, bad_text = run(["nope"])
+    out["cmd"] = {"exit": code, "equal": got["tokens"] == want.token_ids,
+                  "finish_reason": got["finish_reason"], "help_exit": help_code,
+                  "unknown_exit": bad_code, "unknown_lists": "generate" in bad_text}
+    print(f"  C CMD mode: {out['cmd']}")
+    if out["cmd"] != {"exit": 0, "equal": True, "finish_reason": "length", "help_exit": 0,
+                      "unknown_exit": 1, "unknown_lists": True} or "generate" not in help_text:
+        raise AssertionError(f"C: {out['cmd']}")
+    cmd.container.close()
+
+
+def run_surface(torch, cfg, params) -> dict:
+    """The rest of the app surface at Llama-3-8B widths and full depth: one
+    ``App`` with API-key auth over a paged bf16 engine (2048, 16-token
+    pages, whole prefills, 8 slots, N = 4) serving the generation routes,
+    ``/ws/generate``, the admin drain, a subscriber and a cron job; W
+    (WebSocket and auth), Q (subscribers), C (CMD mode) and the drain."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.logging import Level, Logger
+    from gofr_tpu_torch.serving import DeviceTelemetry
+    from gofr_tpu_torch.serving.handlers import (
+        register_admin_drain,
+        register_generation_routes,
+        register_generation_ws,
+    )
+    from gofr_tpu_torch.testutil import get_free_port, start_app
+
+    rng = torch.Generator().manual_seed(SEED + 9)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=2048)
+    print(f"surface: App + paged bf16 engine (page=16, max_seq_len=2048, whole prefills), "
+          f"{cfg.n_layers} layers")
+    logbuf = io.StringIO()
+    app = App(MapConfig({
+        "APP_NAME": "surface", "HTTP_HOST": "127.0.0.1", "HTTP_PORT": str(get_free_port()),
+        "METRICS_PORT": str(get_free_port()), "LOG_LEVEL": "INFO", "SHUTDOWN_GRACE_PERIOD": "30",
+        "PUBSUB_BACKEND": "MEMORY", "PUBSUB_RETRY_BACKOFF_SECONDS": "0.05",
+        "PUBSUB_GENERATE_MAX_ATTEMPTS": str(SURFACE_ATTEMPTS),
+    }, use_env=False))
+    app.logger = app.container.logger = Logger(Level.INFO, logbuf, logbuf, exit_on_fatal=False)
+    mem: dict = {}
+    engine = build_engine(torch, cfg, params, conf, mem, "surface",
+                          metrics=app.container.metrics_manager, tracer=app.container.tracer,
+                          logger=app.logger)
+    out["memory"] = mem
+    app.enable_api_key_auth(SURFACE_KEY)
+    register_generation_routes(app, engine)
+    register_generation_ws(app, engine)
+    register_admin_drain(app)
+    submitted: list = []
+    real_submit = engine.submit
+
+    def counted_submit(*a, **k):
+        fut = real_submit(*a, **k)
+        submitted.append(fut.request_id)
+        return fut
+
+    engine.submit = counted_submit
+    # the cron job: the engine's device telemetry into a gauge, every second
+    telemetry = DeviceTelemetry(engine, metrics=app.container.metrics_manager, interval_s=3600)
+    app.container.metrics_manager.new_gauge("surface_cron_hbm_used_bytes",
+                                            "HBM in use, read by the cron job")
+    ticks: list[float] = []
+
+    def cron_job(ctx):
+        telemetry.sample()
+        dev = ctx.serving.health_check()["details"]["device"]["devices"][0]
+        ctx.metrics.set_gauge("surface_cron_hbm_used_bytes", float(dev["hbm_used_bytes"]))
+        ticks.append(time.monotonic())
+
+    app.add_cron_job("* * * * * *", "device-telemetry", cron_job)
+
+    async def generate_job(ctx):
+        job = json.loads(ctx.request.value)
+        fut = engine.submit(job["prompt"], max_new_tokens=SURFACE_NEW, temperature=0.0)
+        r = await asyncio.wrap_future(fut)  # the loop keeps serving meanwhile
+        ctx.get_publisher().publish("generate.results", json.dumps({
+            "job": job["job"], "t_publish": job["t_publish"], "tokens": r.token_ids,
+            "finish_reason": r.finish_reason, "ttft_ms": r.ttft_s * 1e3}).encode())
+
+    app.subscribe("generate", generate_job)
+    gate, probe = Gate(engine), SyncProbe(engine)
+    thread = start_app(app, timeout=120)
+    base = f"http://127.0.0.1:{app.http_port}"
+    mbase = f"http://127.0.0.1:{app.metrics_port}"
+    ws_url = f"ws://127.0.0.1:{app.http_port}/ws/generate"
+    pool = ThreadPoolExecutor(max_workers=16, thread_name_prefix="client")
+    try:
+        surface_w(torch, engine, base, ws_url, prompt, pool, gate, probe, submitted,
+                  out.setdefault("W", {}))
+        surface_q(torch, engine, app, mbase, base, prompt, out.setdefault("Q", {}))
+        surface_c(engine, prompt, out.setdefault("C", {}))
+        # cron: ticks while the phase ran, their spacing, the gauge
+        spacing = [(b - a) * 1e3 for a, b in zip(ticks, ticks[1:])]
+        gauge = app.container.metrics_manager.get("surface_cron_hbm_used_bytes").value({})
+        out["cron"] = {"ticks": len(ticks), "spacing_ms_min": min(spacing, default=None),
+                       "spacing_ms_median": median(spacing),
+                       "spacing_ms_max": max(spacing, default=None), "hbm_gauge": gauge}
+        print(f"  cron: {out['cron']}")
+        if len(ticks) < 5 or not gauge or max(spacing) > 2000:
+            raise AssertionError(f"cron: {out['cron']}")
+        # the drain behind auth (Queue C 30): refused without the key
+        refused = post(base, "/.well-known/drain", {})[0]
+        still = {"draining": app.container.draining, "engine_running": engine._running}
+        status, _, body = post(base, "/.well-known/drain", {}, {"X-API-Key": SURFACE_KEY})
+        thread.join(timeout=120)
+        out["drain"] = {"no_key": refused, "after_no_key": still, "with_key": status,
+                        "app_stopped": not thread.is_alive(), "engine_stopped": not engine._running}
+        print(f"  drain: {out['drain']}")
+        if out["drain"] != {"no_key": 401, "after_no_key": {"draining": False,
+                                                           "engine_running": True},
+                            "with_key": 201, "app_stopped": True, "engine_stopped": True}:
+            raise AssertionError(f"drain: {out['drain']}")
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        probe.close()
+        if thread.is_alive():
+            app.stop()
+            thread.join(timeout=60)
+        engine.stop()
+    out["launches"] = launch_counts()
+    out["seconds"] = time.perf_counter() - t0
+    print_launches("surface", out["launches"])
+    print(f"  surface: {out['seconds']:.1f}s ({out['card']})")
+    if not (out["launches"].get("flash_attention") and out["launches"].get("paged_decode_attention")):
+        raise AssertionError(f"surface launches {out['launches']}")
+    del engine, app
+    torch.cuda.empty_cache()
+    return out
+
+
 PLANE_DEPTH = 8  # layers of the LoRA-tenancy and observability phases
 
 
@@ -4962,7 +5402,7 @@ def cut_depth(cfg, params, n_layers: int):
             {**params, "layers": {k: v[:n_layers] for k, v in params["layers"].items()}})
 
 
-def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict, dict]:
+def run_engine(torch) -> tuple[dict, ...]:
     from gofr_tpu_torch import EngineConfig, LlamaConfig
     from gofr_tpu_torch.models.llama import init_params, param_bytes, quantize_params
 
@@ -5065,7 +5505,12 @@ def run_engine(torch) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, d
     print("http phase (App, generation routes, /metrics, HTTPReplica and a router over HTTP, "
           "the serve entry point as a process, full depth):")
     http = run_http(torch, cfg, params)
-    return launches, timings, lifecycle, reuse, tenancy, healing, observability, ha, fleet, http
+    torch.cuda.empty_cache()
+    print("surface phase (WebSocket generation, API-key auth, cron, a subscriber, CMD mode, the "
+          "drain behind auth, full depth):")
+    surface = run_surface(torch, cfg, params)
+    return (launches, timings, lifecycle, reuse, tenancy, healing, observability, ha, fleet, http,
+            surface)
 
 
 def main() -> int:
@@ -5099,12 +5544,13 @@ def main() -> int:
     errs = check_kernels(torch, gen)
 
     (launches, engine_timings, lifecycle, reuse, tenancy, healing, observability,
-     ha, fleet, http) = run_engine(torch)
+     ha, fleet, http, surface) = run_engine(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
-    for r in rows:  # the fleet and http phases' launches beside the main paths'
+    for r in rows:  # the fleet, http and surface phases' launches beside the main paths'
         r["launches_fleet"] = fleet["launches"].get(r["name"], 0)
         r["launches_http"] = http["launches"].get(r["name"], 0)
+        r["launches_surface"] = surface["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -5119,6 +5565,7 @@ def main() -> int:
     print(json.dumps({"ha": ha}, default=str))
     print(json.dumps({"fleet": fleet}, default=str))
     print(json.dumps({"http": http}, default=str))
+    print(json.dumps({"surface": surface}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,19 +1,24 @@
-"""The App: public API, wiring, lifecycle (the part of ``gofr_tpu/app.py``
-that serving uses).
+"""The App: public API, wiring, lifecycle (a copy of ``gofr_tpu/app.py``).
 
 Reference parity: pkg/gofr/gofr.go:31-50 (App struct), factory.go:17-95
-(New with the default health routes, port defaults HTTP=8000/metrics=2121
-default.go:3-7), run.go:15-95 (Run: signal hook, on-start hooks, servers
-started together), gofr.go:76-101 (Shutdown with SHUTDOWN_GRACE_PERIOD then
-force-close), rest.go:9-31 (route verbs), gofr.go:343 (OnStart).
+(New/NewCMD with the default health routes, swagger/static autodetect, port
+defaults HTTP=8000/metrics=2121 default.go:3-7), run.go:15-95 (Run: signal
+hook, on-start hooks, servers started together), gofr.go:76-101 (Shutdown
+with SHUTDOWN_GRACE_PERIOD then force-close), rest.go:9-31 (route verbs),
+gofr.go:233 (Subscribe), gofr.go:271 (AddCronJob), gofr.go:343 (OnStart),
+auth.go:16-104 (Enable*Auth).
 
-What the port holds: routes and ``use_middleware``, ``on_start`` /
-``on_shutdown``, ``add_http_service``, ``add_datasource``, the HTTP and
-metrics servers, ``run``/``run_async`` (signal handlers only on the main
-thread), ``stop``, ``drain`` and ``shutdown``, the default
-``/.well-known/{health,alive}`` routes, and the in-memory broker when
-``PUBSUB_BACKEND=MEMORY``. Cron jobs, subscribers, gRPC, WebSocket,
-migrations, CMD mode, auth, swagger and static files are not ported.
+What the port holds: routes, static files and ``use_middleware``; the
+Basic, API-key, OAuth and provider auth middlewares, ahead of the user's
+and on the WebSocket upgrade; ``websocket`` and ``add_ws_service``;
+``subscribe`` and ``add_cron_job``; ``on_start`` / ``on_shutdown``,
+``add_http_service``, ``add_datasource``, the HTTP and metrics servers,
+``run``/``run_async`` (signal handlers only on the main thread), ``stop``,
+``drain`` and ``shutdown``, the start and stop telemetry ping, the default
+``/.well-known/{health,alive}`` routes with the ``./static`` and swagger
+autodetect, the in-memory broker when ``PUBSUB_BACKEND=MEMORY``, and CMD
+mode (``new_cmd``, ``sub_command``). gRPC, migrations and the CRUD
+handlers are not ported.
 
 Port addition: ``HTTP_HOST`` (default ``0.0.0.0``) is the address both
 servers bind, so a test or a smoke run can keep them on ``127.0.0.1``.
@@ -29,20 +34,25 @@ from typing import Any, Callable
 from gofr_tpu_torch.config import Config, EnvConfig
 from gofr_tpu_torch.container.container import Container
 from gofr_tpu_torch.context import Context
+from gofr_tpu_torch.cron import Crontab, _NoopRequest
 from gofr_tpu_torch.handler import Handler, alive_handler, health_handler
 from gofr_tpu_torch.http.dispatch import Dispatcher
 from gofr_tpu_torch.http.middleware import (
     CORSConfig,
+    api_key_auth_middleware,
+    auth_middleware,
+    basic_auth_middleware,
     chain,
     cors_middleware,
     logging_middleware,
     metrics_middleware,
+    oauth_middleware,
     tracing_middleware,
 )
-from gofr_tpu_torch.http.request import Request
 from gofr_tpu_torch.http.router import Router
 from gofr_tpu_torch.http.server import HTTPServer
 from gofr_tpu_torch.metrics.server import MetricsHandler
+from gofr_tpu_torch.subscriber import SubscriptionManager
 
 DEFAULT_HTTP_PORT = 8000
 DEFAULT_METRICS_PORT = 2121
@@ -67,14 +77,20 @@ class App:
     """gofr.New() analogue. Construct, register routes and services, then
     ``run()``."""
 
-    def __init__(self, config: Config | None = None) -> None:
+    def __init__(self, config: Config | None = None, *, is_cmd: bool = False) -> None:
         if config is None:
             config = EnvConfig(os.environ.get("GOFR_CONFIGS_DIR", "./configs"))
         self.config = config
         self.container = Container(config)
         self.logger = self.container.logger
         self.router = Router()
+        self.is_cmd = is_cmd
+        self._middlewares: list[Any] = []  # auth, ahead of the user's
         self._user_middlewares: list[Any] = []
+        self.subscription_manager = SubscriptionManager(self.container)
+        self.crontab = Crontab(self.container)
+        self._ws_registry: dict[str, Handler] = {}
+        self._cmd_routes: list[tuple[str, Handler, str]] = []
         self._on_start_hooks: list[Callable] = []
         self._on_shutdown_hooks: list[Callable] = []
         self._shutdown_event: asyncio.Event | None = None
@@ -95,8 +111,8 @@ class App:
                 self.logger.error(f"pubsub backend connect failed: {exc}")
                 self.container.pubsub = broker  # health_check reports DOWN
 
-        self.router.add("GET", "/.well-known/health", health_handler)
-        self.router.add("GET", "/.well-known/alive", alive_handler)
+        if not is_cmd:
+            self._register_defaults()
 
     # ------------------------------------------------------------------ routes
     def get(self, pattern: str, handler: Handler) -> None:
@@ -120,9 +136,53 @@ class App:
     def add_route(self, method: str, pattern: str, handler: Handler) -> None:
         self.router.add(method, pattern, handler)
 
+    def add_static_files(self, url_prefix: str, fs_dir: str) -> None:
+        self.router.add_static_files(url_prefix, fs_dir)
+
     def use_middleware(self, *mws: Any) -> None:
         """App-level custom middleware (http/router.go:29)."""
         self._user_middlewares.extend(mws)
+
+    def _register_defaults(self) -> None:
+        """factory.go:48-78: health routes, swagger + static autodetect."""
+        self.router.add("GET", "/.well-known/health", health_handler)
+        self.router.add("GET", "/.well-known/alive", alive_handler)
+        if os.path.isdir("./static"):
+            self.add_static_files("/static", "./static")
+            if os.path.isfile("./static/openapi.json"):
+                self._register_swagger("./static/openapi.json")
+
+    def _register_swagger(self, spec_path: str) -> None:
+        from gofr_tpu_torch.http.swagger import swagger_handlers
+
+        spec_handler, ui_handler = swagger_handlers(spec_path)
+        self.router.add("GET", "/.well-known/openapi.json", spec_handler)
+        self.router.add("GET", "/.well-known/swagger", ui_handler)
+
+    # ----------------------------------------------------------------- auth
+    def enable_basic_auth(self, users: dict[str, str]) -> None:
+        self._middlewares.append(basic_auth_middleware(users=users))
+
+    def enable_basic_auth_with_validator(self, validate: Callable[[Any, str, str], bool]) -> None:
+        self._middlewares.append(
+            basic_auth_middleware(validate_with_container=validate, container=self.container)
+        )
+
+    def enable_api_key_auth(self, *keys: str) -> None:
+        self._middlewares.append(api_key_auth_middleware(keys=list(keys)))
+
+    def enable_api_key_auth_with_validator(self, validate: Callable[[Any, str], bool]) -> None:
+        self._middlewares.append(
+            api_key_auth_middleware(validate_with_container=validate, container=self.container)
+        )
+
+    def enable_oauth(self, jwks_url: str, refresh_interval: float = 3600.0, **kw: Any) -> None:
+        self._middlewares.append(
+            oauth_middleware(jwks_url=jwks_url, refresh_interval=refresh_interval, **kw)
+        )
+
+    def enable_auth_provider(self, provider: Any) -> None:
+        self._middlewares.append(auth_middleware(provider))
 
     # ------------------------------------------------------- services & stores
     def add_http_service(self, name: str, address: str, *options: Any) -> None:
@@ -142,6 +202,32 @@ class App:
         """external_db.go Add* analogue for any provider-pattern
         datasource."""
         self.container.register_datasource(name, ds)
+
+    # ------------------------------------------------------------ async + cron
+    def subscribe(self, topic: str, handler: Handler) -> None:
+        """gofr.go:233-249."""
+        self.subscription_manager.register(topic, handler)
+
+    def add_cron_job(self, schedule: str, name: str, handler: Handler) -> None:
+        """gofr.go:271-287."""
+        self.crontab.add(schedule, name, handler)
+
+    # -- WebSocket -------------------------------------------------------------
+    def websocket(self, pattern: str, handler: Handler) -> None:
+        """websocket.go:30-49: per-message handler loop on an upgraded
+        connection."""
+        self._ws_registry[pattern] = handler
+
+    def add_ws_service(self, name: str, url: str, *, reconnect: bool = True) -> None:
+        from gofr_tpu_torch.websocket import WSManager
+
+        if self.container.ws_manager is None:
+            self.container.ws_manager = WSManager(self.logger)
+        self.container.ws_manager.add_service(name, url, reconnect=reconnect)
+
+    # -- CMD -------------------------------------------------------------------
+    def sub_command(self, pattern: str, handler: Handler, description: str = "") -> None:
+        self._cmd_routes.append((pattern, handler, description))
 
     # ---------------------------------------------------------------- lifecycle
     def on_start(self, hook: Callable) -> None:
@@ -163,17 +249,32 @@ class App:
             cors_middleware(CORSConfig(self.config), self.router),
             metrics_middleware(self.container.metrics_manager, self.router),
         ]
+        middlewares.extend(self._middlewares)  # auth
         middlewares.extend(self._user_middlewares)
         return chain(dispatcher, middlewares)
 
     async def _start_servers(self) -> None:
+        handler = self._build_http_handler()
+        ws_upgrader = None
+        if self._ws_registry:
+            from gofr_tpu_torch.websocket import WSManager, WSUpgrader
+
+            if self.container.ws_manager is None:
+                self.container.ws_manager = WSManager(self.logger)
+            ws_upgrader = WSUpgrader(
+                self._ws_registry,
+                self.container,
+                middlewares=self._middlewares + self._user_middlewares,
+            )
+
         http_server = HTTPServer(
-            self._build_http_handler(),
+            handler,
             self.http_port,
             host=self.http_host,
             logger=self.logger,
             cert_file=self.config.get("CERT_FILE"),
             key_file=self.config.get("KEY_FILE"),
+            ws_upgrader=ws_upgrader,
         )
         metrics_server = HTTPServer(
             MetricsHandler(self.container), self.metrics_port, host=self.http_host,
@@ -182,11 +283,15 @@ class App:
         self._servers = [metrics_server, http_server]
         await metrics_server.start()
         await http_server.start()
+        if self.container.ws_manager is not None:
+            await self.container.ws_manager.connect_services()
+        await self.subscription_manager.start()
+        await self.crontab.start()
 
     async def _run_on_start_hooks(self) -> None:
         """run.go:39-53: ordered, abort on first error."""
         for hook in self._on_start_hooks:
-            ctx = Context(Request("GET", "/", {}, {}, b""), self.container)
+            ctx = Context(_NoopRequest(), self.container)
             result = hook(ctx)
             if asyncio.iscoroutine(result):
                 await result
@@ -212,14 +317,21 @@ class App:
             f"{self.container.app_name} started: "
             f"http=:{self.http_port} metrics=:{self.metrics_port}"
         )
+        from gofr_tpu_torch.telemetry import send_ping
+
+        send_ping(self.config, "start", self.logger)
         await self._shutdown_event.wait()
+        send_ping(self.config, "stop", self.logger)
         await self.shutdown()
 
-    def run(self) -> None:
+    def run(self) -> int | None:
+        if self.is_cmd:
+            return self._run_cmd()
         try:
             asyncio.run(self.run_async())
         except KeyboardInterrupt:
             pass
+        return None
 
     def stop(self) -> None:
         """Request shutdown from any thread."""
@@ -234,8 +346,8 @@ class App:
 
     def drain(self) -> None:
         """Coordinated graceful drain, from any thread: flip health to
-        DRAINING and reject new work with a retriable 503 + Retry-After
-        immediately, then run the normal shutdown sequence — whose hooks
+        DRAINING and reject new work with a retriable status immediately
+        (HTTP 503 + Retry-After, WS upgrade 503), then run the normal shutdown sequence — whose hooks
         drain the serving engine within its drain deadline. The
         admin-trigger twin of SIGTERM."""
         self.container.draining = True
@@ -271,5 +383,20 @@ class App:
         self.logger.info("shutdown complete")
 
     async def _shutdown_servers(self) -> None:
+        await self.subscription_manager.stop()
+        await self.crontab.stop()
+        if self.container.ws_manager is not None:
+            await self.container.ws_manager.close()
         for server in self._servers:
             await server.shutdown()
+
+    # -- CMD execution (cmd.go:35-164) ----------------------------------------
+    def _run_cmd(self) -> int:
+        from gofr_tpu_torch.cli import run_cmd
+
+        return run_cmd(self)
+
+
+def new_cmd(config: Config | None = None) -> App:
+    """NewCMD (factory.go:81-95): no servers, subcommand routing."""
+    return App(config, is_cmd=True)

@@ -10,10 +10,11 @@ Health aggregation lives in health.py (container/health.go:8-98).
 What the port holds: config, logger, ``metrics_manager`` (the port's
 ``metrics.Manager`` with the serving catalog,
 ``serving/metrics_catalog.py``, and the framework series below), the tracer with
-``build_exporter``, ``services``, ``serving``, ``register_datasource`` and
-the ``draining`` flag. The provider wiring of SQL, Redis, files and the
-networked brokers (``container/datasources.py``), the remote log-level and
-trace-ratio pollers are not ported.
+``build_exporter``, the remote log-level (``REMOTE_LOG_URL``) and trace
+sample-ratio (``REMOTE_TRACE_RATIO_URL``) pollers (:101-113), ``services``,
+``serving``, ``ws_manager``, ``register_datasource`` and the ``draining``
+flag. The provider wiring of SQL, Redis and files, and the networked
+brokers (``container/datasources.py``), are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import threading
 from typing import Any
 
 from gofr_tpu_torch.config import Config, EnvConfig
-from gofr_tpu_torch.logging import Logger, new_logger, parse_level
+from gofr_tpu_torch.logging import Logger, new_logger, parse_level, start_remote_level_poller
 from gofr_tpu_torch.metrics import Manager, new_metrics_manager
 from gofr_tpu_torch.serving.metrics_catalog import register_serving_metrics
 from gofr_tpu_torch.tracing import BatchSpanProcessor, Tracer, build_exporter, new_tracer
@@ -34,10 +35,11 @@ FRAMEWORK_VERSION = "dev"  # the reference's version.FRAMEWORK
 # registers beside those of the serving catalog (which holds the app,
 # HTTP, service-client and breaker series the port records), under its
 # names and kinds, all with the default buckets: the two runtime gauges
-# read at scrape time, and the datasource series (SQL, Redis, files,
-# subscribers, the TPU mesh breaker). The port has no emitter of the
-# datasource series yet; they are registered so that a dashboard built on
-# the reference reads the same families.
+# read at scrape time, and the datasource series (SQL, Redis, files, the
+# TPU mesh breaker). The port has no emitter of the datasource series;
+# they are registered so that a dashboard built on the reference reads the
+# same families. The subscribers' series are in the catalog, with their
+# emitter (``subscriber.py``).
 FRAMEWORK_METRICS: tuple[tuple[str, str, str], ...] = (
     ("gauge", "app_go_routines", "Number of live threads (goroutine analogue)"),
     ("gauge", "app_sys_memory_alloc", "Resident memory of the process in bytes"),
@@ -46,18 +48,6 @@ FRAMEWORK_METRICS: tuple[tuple[str, str, str], ...] = (
     ("gauge", "app_sql_inuse_connections", "Number of inuse SQL connections"),
     ("histogram", "app_redis_stats", "Response time of Redis commands in milliseconds"),
     ("histogram", "app_file_stats", "Duration of file-system operations in milliseconds"),
-    ("counter", "app_pubsub_subscribe_total_count", "Number of total subscribe operations"),
-    ("counter", "app_pubsub_subscribe_success_count",
-     "Number of successful subscribe operations"),
-    ("counter", "app_pubsub_commit_fail_count",
-     "Commits that failed after a successful handler run (the broker redelivers)"),
-    ("counter", "app_pubsub_redeliveries_total",
-     "Messages delivered more than once to this consumer group"),
-    ("counter", "app_pubsub_dlq_total",
-     "Messages dead-lettered after exhausting their delivery budget"),
-    ("gauge", "app_pubsub_consumer_lag",
-     "Undelivered backlog behind this consumer group, per topic"),
-    ("histogram", "app_pubsub_handler_duration_seconds", "Subscriber handler execution time"),
     ("gauge", "app_tpu_duty_cycle", "Fraction of wall time the TPU executed in the last window"),
     ("counter", "app_tpu_devices_excluded_total",
      "Devices excluded from the mesh by the sick-chip breaker"),
@@ -91,9 +81,30 @@ class Container:
             self.logger = logger
         else:
             self.logger = new_logger(parse_level(self.config.get_or_default("LOG_LEVEL", "INFO")))
+            remote_url = self.config.get("REMOTE_LOG_URL")
+            if remote_url:
+                interval = float(
+                    self.config.get_or_default("REMOTE_LOG_FETCH_INTERVAL", "15")
+                )
+                self._remote_log_thread = start_remote_level_poller(
+                    self.logger, remote_url, interval
+                )
 
         self.metrics_manager: Manager = new_metrics_manager(self.logger)
         self.tracer: Tracer = self._build_tracer()
+        # live trace sample-ratio adjustment: the sibling of the remote
+        # log-level poller (logging/remote.py) — an incident responder
+        # raises sampling on a live fleet without a restart
+        ratio_url = self.config.get("REMOTE_TRACE_RATIO_URL")
+        if ratio_url:
+            from gofr_tpu_torch.logging.remote import start_remote_trace_ratio_poller
+
+            interval = float(
+                self.config.get_or_default("REMOTE_TRACE_RATIO_INTERVAL", "15")
+            )
+            self._remote_trace_thread = start_remote_trace_ratio_poller(
+                self.tracer, ratio_url, interval, logger=self.logger
+            )
 
         # datasources: the broker (PUBSUB_BACKEND, or one registered as
         # "pubsub"), and any other by name (App.add_datasource)
@@ -101,6 +112,7 @@ class Container:
         self.services: dict[str, Any] = {}
         self.extra_datasources: dict[str, Any] = {}
         self.serving: Any = None  # the serving engine (serving/handlers.py)
+        self.ws_manager: Any = None  # websocket.WSManager, made by the App
         # request-lifecycle drain flag: flipped by App.drain()/shutdown();
         # HTTP dispatch rejects new work with a retriable 503 while it is set
         self.draining = False
@@ -140,6 +152,10 @@ class Container:
         return self.services.get(name)
 
     def get_publisher(self) -> Any:
+        """container/container.go:294-300."""
+        return self.pubsub
+
+    def get_subscriber(self) -> Any:
         return self.pubsub
 
     def register_datasource(self, name: str, ds: Any) -> None:
@@ -178,6 +194,10 @@ class Container:
             except Exception:
                 pass
         self.tracer.shutdown()
+        for attr in ("_remote_log_thread", "_remote_trace_thread"):
+            thread = getattr(self, attr, None)
+            if thread is not None:
+                thread._gofr_stop.set()
 
 
 def _rss_bytes() -> int:

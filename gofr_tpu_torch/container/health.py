@@ -1,8 +1,8 @@
 """Aggregated health (a copy of ``gofr_tpu/container/health.py``; reference:
 pkg/gofr/container/health.go:8-98).
 
-Walks every datasource, the serving engine and every registered downstream
-service; overall status is UP when all report UP, DEGRADED otherwise,
+Walks every datasource, the topic consumers of the subscription manager,
+the serving engine and every registered downstream service; overall status is UP when all report UP, DEGRADED otherwise,
 DRAINING while the app drains and DEGRADED for a WEDGED engine. Served at
 ``/.well-known/health``. The engine's ``health_check`` carries the card in
 its device telemetry (``serving/device_telemetry.py``).
@@ -32,6 +32,13 @@ def iter_health_checkers(pairs: Iterable[tuple[str, Any]]) -> dict[str, Any]:
 
 def aggregate_health(container: Any) -> dict[str, Any]:
     details: dict[str, Any] = iter_health_checkers(container.datasource_pairs())
+
+    manager = getattr(container, "subscription_manager", None)
+    if manager is not None and getattr(manager, "subscriptions", None):
+        try:
+            details["pubsub_consumers"] = manager.health()
+        except Exception as exc:
+            details["pubsub_consumers"] = {"status": "DOWN", "error": str(exc)}
 
     serving = getattr(container, "serving", None)
     if serving is not None and hasattr(serving, "health_check"):

@@ -1,15 +1,17 @@
 """The handler Context: request + container + trace-aware logger (a copy of
-``gofr_tpu/context.py`` without the auth, CMD-terminal and WebSocket parts,
-which are not ported).
+``gofr_tpu/context.py``).
 
 Reference parity: pkg/gofr/context.go:18-38 — Context embeds the stdlib
 context (here: the request + cancellation state), the Request, the
-*Container and a trace-aware ContextLogger. ``trace()`` opens user spans
-(context.go:62-72), ``bind`` binds the body (context.go:74),
-``get_correlation_id`` returns the active trace id (context.go:181-183).
+*Container, a trace-aware ContextLogger, and ``Out`` terminal access for CMD
+apps. ``trace()`` opens user spans (context.go:62-72), ``bind`` binds the
+body (context.go:74), ``get_auth_info`` exposes auth claims
+(context.go:121-133), ``get_correlation_id`` returns the active trace id
+(context.go:181-183). WebSocket write helpers (context.go:81-108) live on the
+bound connection.
 
 Datasource access mirrors ``ctx.SQL`` / ``ctx.Redis`` in the reference:
-``ctx.serving``, the broker through ``get_publisher``,
+``ctx.serving``, the broker through ``get_publisher`` / ``get_subscriber``,
 ``ctx.datasource(name)``, plus ``ctx.get_http_service(name)``.
 """
 
@@ -22,16 +24,39 @@ from gofr_tpu_torch.logging.logger import ContextLogger
 from gofr_tpu_torch.tracing.trace import Span, current_span
 
 
+class AuthInfo:
+    """context.go:121-133 / middleware auth results."""
+
+    def __init__(self, method: str = "", username: str = "", api_key: str = "", claims: dict | None = None) -> None:
+        self.method = method  # "basic" | "apikey" | "oauth" | ""
+        self.username = username
+        self.api_key = api_key
+        self.claims = claims or {}
+
+    def get_username(self) -> str:
+        return self.username
+
+    def get_apikey(self) -> str:
+        return self.api_key
+
+    def get_claims(self) -> dict:
+        return self.claims
+
+
 class Context:
     def __init__(
         self,
         request: Any,
         container: Container,
         responder: Any = None,
+        out: Any = None,
     ) -> None:
         self.request = request
         self.container = container
         self.responder = responder
+        self.out = out  # terminal for CMD apps (cli/terminal.py)
+        self.auth: AuthInfo = getattr(request, "auth", None) or AuthInfo()
+        self.websocket: Any = None  # bound by the WS transport
         span = current_span()
         self.logger = ContextLogger(
             container.logger,
@@ -76,6 +101,9 @@ class Context:
     def get_publisher(self) -> Any:
         return self.container.get_publisher()
 
+    def get_subscriber(self) -> Any:
+        return self.container.get_subscriber()
+
     def datasource(self, name: str) -> Any:
         return self.container.extra_datasources.get(name)
 
@@ -89,9 +117,24 @@ class Context:
         span = current_span()
         return span.trace_id if span else ""
 
+    def get_auth_info(self) -> AuthInfo:
+        return self.auth
+
     # -- cancellation ----------------------------------------------------------
     def cancel(self) -> None:
         self._canceled = True
 
     def is_canceled(self) -> bool:
         return self._canceled
+
+    # -- websocket write helpers (context.go:81-108) ---------------------------
+    def write_message_to_socket(self, data: Any) -> None:
+        if self.websocket is None:
+            raise RuntimeError("no websocket bound to this context")
+        self.websocket.send(data)
+
+    def write_message_to_service(self, service_name: str, data: Any) -> None:
+        manager = self.container.ws_manager
+        if manager is None:
+            raise RuntimeError("no websocket manager configured")
+        manager.write_to_service(service_name, data)

@@ -1,7 +1,7 @@
 """HTTP plumbing of the port's app (a copy of ``gofr_tpu/http``): typed
 errors, the request and its body binding, the responder, the router, the
-asyncio HTTP/1.1 server and the dispatcher. Static files, swagger and the
-auth middleware are not ported."""
+asyncio HTTP/1.1 server with its WebSocket upgrade hook, the dispatcher with
+static files, swagger, and the auth middleware."""
 
 from gofr_tpu_torch.http.errors import (
     ErrorClientClosedRequest,

@@ -1,18 +1,21 @@
-"""HTTP router with path templates and per-route middleware (a copy of
-``gofr_tpu/http/router.py`` without static files, which are not ported).
+"""HTTP router with path templates, per-route middleware, static files (a
+copy of ``gofr_tpu/http/router.py``).
 
 Reference parity: pkg/gofr/http/router.go — route registration wrapped in
-tracing (:46-49), registered-method tracking for CORS (:29-48).
+tracing (:46-49), registered-method tracking for CORS (:29-48), static file
+serving with 404.html support and the openapi.json restriction (:66-113).
 Pattern syntax is the reference's mux style: ``/user/{id}`` path parameters
-plus a trailing wildcard ``/files/{path...}``.
+plus a trailing wildcard ``/static/{path...}``.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Callable
 
 WELL_KNOWN_PREFIX = "/.well-known"
+DEFAULT_SWAGGER_FILE = "openapi.json"
 
 
 class Route:
@@ -60,6 +63,7 @@ class Router:
     def __init__(self) -> None:
         self.routes: list[Route] = []
         self.middlewares: list[Callable] = []
+        self._static_dirs: list[tuple[str, str]] = []  # (url_prefix, fs_dir)
 
     def add(self, method: str, pattern: str, handler: Any) -> None:
         self.routes.append(Route(method, pattern, handler))
@@ -76,6 +80,12 @@ class Router:
             if path is None or r.match(path) is not None
         }
         return sorted(methods)
+
+    def add_static_files(self, url_prefix: str, fs_dir: str) -> None:
+        """Serve a directory (router.go:66-78). openapi.json is only served
+        via /.well-known/openapi.json, and a 404.html in the directory is
+        used for missing files (router.go:92-113)."""
+        self._static_dirs.append((url_prefix.rstrip("/"), os.path.abspath(fs_dir)))
 
     def lookup(self, method: str, path: str) -> tuple[Any, dict[str, str]] | None:
         for r in self.routes:
@@ -95,4 +105,25 @@ class Router:
         for r in self.routes:
             if r.method == method.upper() and r.match(path) is not None:
                 return r.pattern
+        return None
+
+    def static_lookup(self, path: str) -> tuple[str, str] | None:
+        """Resolve a static file. Returns (file_path, disposition) where
+        disposition is 'ok' | 'not_found_page' | 'forbidden'."""
+        for prefix, fs_dir in self._static_dirs:
+            if not path.startswith(prefix + "/") and path != prefix:
+                continue
+            rel = path[len(prefix):].lstrip("/") or "index.html"
+            if os.path.basename(rel) == DEFAULT_SWAGGER_FILE:
+                return os.path.join(fs_dir, rel), "forbidden"
+            full = os.path.normpath(os.path.join(fs_dir, rel))
+            if not full.startswith(fs_dir + os.sep):
+                # path traversal; the separator keeps a sibling directory
+                # that shares the prefix (``static2`` beside ``static``) out
+                continue
+            if os.path.isfile(full):
+                return full, "ok"
+            fallback = os.path.join(fs_dir, "404.html")
+            if os.path.isfile(fallback):
+                return fallback, "not_found_page"
         return None

@@ -1,11 +1,10 @@
-"""Asyncio HTTP/1.1 server (a copy of ``gofr_tpu/http/server.py`` without the
-WebSocket upgrade hook, which is not ported).
+"""Asyncio HTTP/1.1 server (a copy of ``gofr_tpu/http/server.py``).
 
 The reference rides Go's net/http (http_server.go:17-121); Python's stdlib has
 no production-grade async server, so this build ships its own: HTTP/1.1
 parsing, keep-alive, Content-Length and chunked bodies, chunked/SSE streaming
 responses (the token-decode path), optional TLS (CERT_FILE/KEY_FILE,
-factory.go:43-44). One connection = one asyncio
+factory.go:43-44), and a WebSocket upgrade hook. One connection = one asyncio
 task — the analogue of net/http's goroutine-per-connection.
 
 Streaming: a WireResponse with ``stream`` set to an async iterator of bytes
@@ -135,6 +134,7 @@ class HTTPServer:
         logger: Any = None,
         cert_file: str | None = None,
         key_file: str | None = None,
+        ws_upgrader: Any = None,
     ) -> None:
         self.handler = handler
         self.host = host
@@ -142,6 +142,7 @@ class HTTPServer:
         self.logger = logger
         self.cert_file = cert_file
         self.key_file = key_file
+        self.ws_upgrader = ws_upgrader  # async (request, reader, writer) -> bool
         self._server: asyncio.AbstractServer | None = None
 
     async def start(self) -> None:
@@ -184,6 +185,16 @@ class HTTPServer:
                     break
                 req.remote_addr = remote
                 keep_alive = req.headers.get("connection", "").lower() != "close"
+
+                # WebSocket upgrade short-circuits the normal cycle
+                if (
+                    self.ws_upgrader is not None
+                    and "upgrade" in req.headers.get("connection", "").lower()
+                    and req.headers.get("upgrade", "").lower() == "websocket"
+                ):
+                    handled = await self.ws_upgrader(req, reader, writer)
+                    if handled:
+                        return  # connection consumed by the websocket
                 try:
                     resp = await self.handler(req)
                 except asyncio.CancelledError:

@@ -7,7 +7,7 @@ HA plane (idempotent submits and resumable streams), cross-replica KV
 over heartbeats, the prefix-affine router with failover, hedging and P/D
 routing over local or HTTP replicas, and the autoscaler with its pool
 driver. The HTTP bindings are ``serving/handlers.py`` (the generation
-routes) and ``serving/remote.py`` (the remote streaming client)."""
+routes, over HTTP and WebSocket) and ``serving/remote.py`` (the remote streaming client)."""
 
 from gofr_tpu_torch.serving.autoscaler import (
     Autoscaler,

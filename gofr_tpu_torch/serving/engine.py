@@ -211,13 +211,14 @@ is kept there.
 
 The app plane serves it: ``serving/handlers.py`` binds ``/generate``,
 ``/generate/stream`` (SSE, ``Last-Event-ID`` re-attach),
-``/generate/cancel``, ``/v1/models``, ``/requestz`` and ``/kv/fetch`` on a
-``gofr_tpu_torch.app.App``, whose metrics port serves ``/metrics``;
+``/generate/cancel``, ``/ws/generate`` (WebSocket), ``/v1/models``,
+``/requestz`` and ``/kv/fetch`` on a ``gofr_tpu_torch.app.App``, whose
+metrics port serves ``/metrics``;
 ``serving/remote.py`` and the router's ``HTTPReplica`` are the remote
 streaming client; ``logger=`` takes the app's structured logger, whose
 lines carry the active span's ``trace_id``/``span_id`` (log correlation).
-``python -m gofr_tpu_torch.serve`` runs one. Not ported yet: the WebSocket
-and gRPC generation surfaces and ``/embed``.
+``python -m gofr_tpu_torch.serve`` runs one. Not ported yet: the gRPC
+generation surface and ``/embed``.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """

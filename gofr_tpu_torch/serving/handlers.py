@@ -1,7 +1,8 @@
 """Ready-made serving handlers (a copy of ``gofr_tpu/serving/handlers.py``
 over the port's app): /generate (JSON + SSE stream), /generate/cancel,
-/v1/models, /requestz (the request flight recorder), /kv/fetch (warm KV
-migration's server half), /routerz and the admin drain.
+/ws/generate (WebSocket), /v1/models, /requestz (the request flight
+recorder), /kv/fetch (warm KV migration's server half), /routerz and the
+admin drain.
 
 Wire-up (mirrors the reference's route ergonomics)::
 
@@ -12,7 +13,8 @@ Wire-up (mirrors the reference's route ergonomics)::
 
 Streaming: ``"stream": true`` returns Server-Sent Events over chunked
 transfer — each token a ``data:`` line, final event carries usage stats.
-The WebSocket twin and /embed are not ported.
+``register_generation_ws`` is the WebSocket twin: a frame per token, then a
+summary frame. /embed is not ported.
 """
 
 from __future__ import annotations
@@ -427,6 +429,48 @@ def _request_kwargs(ctx: Any, body: GenerateRequest) -> dict:
     return kw
 
 
+def register_generation_ws(app: Any, engine: Any, path: str = "/ws/generate",
+                           supervisor: Any = None) -> None:
+    """WebSocket token streaming: each inbound message is a generate
+    request; tokens push back as JSON frames, then a final summary frame.
+    The WS twin of the SSE stream (gofr websocket.go:30-49 handler loop ×
+    the gRPC server-stream decode), for clients that want bidirectional
+    framing. Wires the engine lifecycle like register_generation_routes,
+    so registering only the WS surface still serves."""
+    app.container.serving = engine
+    _wire_lifecycle(app, engine, supervisor)
+
+    async def ws_generate(ctx: Any):
+        body = ctx.bind(GenerateRequest)
+        kw = _request_kwargs(ctx, body)
+        n = 0
+        final: dict = {}
+        try:
+            async for token_id, piece in engine.stream(
+                body.prompt, on_result=lambda r: final.setdefault("result", r),
+                **kw,
+            ):
+                n += 1
+                # AWAIT each frame: fire-and-forget sends could reorder
+                # after the final summary frame, and a dead/closed socket
+                # must surface HERE so engine.stream's finally cancels the
+                # request instead of decoding into the void
+                await ctx.websocket.send_async(
+                    json.dumps({"token": token_id, "text": piece})
+                )
+        except (ConnectionError, OSError):
+            # routine client departure mid-stream, not a server panic: the
+            # stream generator's finally already canceled the request
+            return None
+        result = final.get("result")
+        summary = {"done": True, "tokens": n}
+        if result is not None:
+            summary["finish_reason"] = result.finish_reason
+        return summary
+
+    app.websocket(path, ws_generate)
+
+
 def register_requestz_routes(app: Any, engine: Any,
                              path: str = "/requestz") -> None:
     """The request flight recorder (docs/observability.md): GET
@@ -551,7 +595,9 @@ def register_admin_drain(app: Any, path: str = "/.well-known/drain") -> None:
     SIGTERM takes — new work rejected with a retriable 503, in-flight
     generations finish within the drain deadline) and schedules shutdown.
     NOT registered by default: wire it behind auth middleware — an
-    unauthenticated drain endpoint is a one-request denial of service."""
+    unauthenticated drain endpoint is a one-request denial of service. The
+    port's auth middleware authenticates a POST under ``/.well-known/``
+    (``http/middleware/auth.py``), so the default path is behind it."""
 
     async def drain_handler(ctx: Any):
         app.drain()

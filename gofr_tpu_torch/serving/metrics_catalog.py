@@ -134,6 +134,19 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
     ("counter", "app_pubsub_publish_total_count", "Number of total publish operations", None),
     ("counter", "app_pubsub_publish_success_count", "Number of successful publish operations",
      None),
+    # the app's subscribers (subscriber.py): the supervised topic loops
+    ("counter", "app_pubsub_subscribe_total_count", "Number of total subscribe operations", None),
+    ("counter", "app_pubsub_subscribe_success_count",
+     "Number of successful subscribe operations", None),
+    ("counter", "app_pubsub_commit_fail_count",
+     "Commits that failed after a successful handler run (the broker redelivers)", None),
+    ("counter", "app_pubsub_redeliveries_total",
+     "Messages delivered more than once to this consumer group", None),
+    ("counter", "app_pubsub_dlq_total",
+     "Messages dead-lettered after exhausting their delivery budget", None),
+    ("gauge", "app_pubsub_consumer_lag",
+     "Undelivered backlog behind this consumer group, per topic", None),
+    ("histogram", "app_pubsub_handler_duration_seconds", "Subscriber handler execution time", None),
     # the autoscaler (serving/autoscaler.py)
     ("gauge", "app_autoscaler_replicas",
      "Autoscaler's current replica count per pool (label role)", None),

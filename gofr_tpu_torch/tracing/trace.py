@@ -175,6 +175,12 @@ class Tracer:
         # deterministic by trace id, like OTel's TraceIDRatioBased
         return (int(trace_id[:16], 16) / float(1 << 64)) < self.sample_ratio
 
+    def set_sample_ratio(self, ratio: float) -> None:
+        """Live sample-ratio adjustment (the remote trace-ratio poller,
+        logging/remote.py): clamped to [0, 1], applies to spans started
+        after the call."""
+        self.sample_ratio = max(0.0, min(1.0, float(ratio)))
+
     def _on_end(self, span: Span) -> None:
         if self.processor is not None:
             self.processor.on_end(span)

@@ -20,7 +20,7 @@ from gofr_tpu_torch.ops.paged_attention import (  # noqa: E402
 from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "gofr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "gofr_tpu", "websockets")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -204,6 +204,45 @@ def test_app_modules_are_checked_and_import_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+SURFACE_MODULES = (
+    "gofr_tpu_torch/websocket.py", "gofr_tpu_torch/cron.py", "gofr_tpu_torch/subscriber.py",
+    "gofr_tpu_torch/telemetry.py", "gofr_tpu_torch/pubsub/delivery.py",
+    "gofr_tpu_torch/http/middleware/auth.py", "gofr_tpu_torch/http/middleware/jwt.py",
+    "gofr_tpu_torch/http/swagger.py", "gofr_tpu_torch/logging/remote.py",
+    "gofr_tpu_torch/cli/__init__.py", "gofr_tpu_torch/cli/cmd.py",
+    "gofr_tpu_torch/cli/terminal.py",
+)
+
+
+def test_surface_modules_are_checked_and_keep_the_device_policy(no_card):
+    """The app surface's modules (WebSocket, cron, subscribers, auth and
+    JWT, swagger, the remote pollers, telemetry, CMD mode) are among the
+    files the import rule holds, the swagger asset is the package's own
+    copy, and an ``App`` with every surface registered builds without a
+    card (the surface is host code) while the engine behind it still
+    refuses one."""
+    from gofr_tpu_torch.app import App, new_cmd
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.serving.handlers import register_generation_ws
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(SURFACE_MODULES) <= files
+    assert (ROOT / "gofr_tpu_torch" / "http" / "static" / "swagger_ui.html").is_file()
+    app = App(MapConfig({"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL",
+                         "PUBSUB_BACKEND": "MEMORY"}, use_env=False))
+    app.enable_api_key_auth("k")
+    app.websocket("/ws", lambda ctx: None)
+    app.subscribe("t", lambda ctx: None)
+    app.add_cron_job("* * * * *", "j", lambda ctx: None)
+    cfg = llama.LlamaConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        register_generation_ws(app, ServingEngine(cfg, llama.init_params(cfg, device="cpu")))
+    app.container.close()
+    cmd = new_cmd(MapConfig({"LOG_LEVEL": "FATAL"}, use_env=False))
+    assert cmd.is_cmd and not cmd.router.routes  # no default routes in CMD mode
+    cmd.container.close()
 
 
 def test_serve_entry_point_refuses_without_a_card(no_card):

@@ -1,0 +1,555 @@
+"""The port's supervised consumer runtime (``gofr_tpu_torch/subscriber.py``)
+and delivery policy (``pubsub/delivery.py``) beside the JAX package's: the
+reference's ten ``SubscriptionManager`` cases of
+``tests/test_pubsub_delivery.py`` (a poison message dead-lettered while the
+topic flows, a transient failure, the success metric after the commit, the
+bounded idle poll, consumer health, the restart budget, a subscribe error,
+a handler that settles itself, a publish fault through the context, a DLQ
+that never chains) run on each package's in-memory broker with the same
+observables; the policy's config and backoff ladder; and a generation
+consumer on each package's ``App`` over a tiny engine, with a
+``pubsub.handler`` fault and a poison job: the same results, redeliveries
+and dead letters."""
+
+import asyncio
+import json
+import time
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import gofr_tpu  # noqa: E402
+import gofr_tpu.subscriber as rsub  # noqa: E402
+import gofr_tpu_torch.subscriber as tsub  # noqa: E402
+from gofr_tpu import chaos as rchaos  # noqa: E402
+from gofr_tpu.config import MapConfig as RMapConfig  # noqa: E402
+from gofr_tpu.container.container import Container as RContainer  # noqa: E402
+from gofr_tpu.datasource.pubsub import InMemoryBroker as RBroker  # noqa: E402
+from gofr_tpu.datasource.pubsub import delivery as rdelivery  # noqa: E402
+from gofr_tpu.models import llama as jllama  # noqa: E402
+from gofr_tpu.serving import ByteTokenizer as JByteTokenizer  # noqa: E402
+from gofr_tpu.serving import EngineConfig as JEngineConfig  # noqa: E402
+from gofr_tpu.serving import ServingEngine as JServingEngine  # noqa: E402
+from gofr_tpu_torch import chaos as tchaos  # noqa: E402
+from gofr_tpu_torch.app import App as TApp  # noqa: E402
+from gofr_tpu_torch.config import MapConfig as TMapConfig  # noqa: E402
+from gofr_tpu_torch.container.container import Container as TContainer  # noqa: E402
+from gofr_tpu_torch.models import llama as tllama  # noqa: E402
+from gofr_tpu_torch.models.convert import params_from_jax  # noqa: E402
+from gofr_tpu_torch.pubsub import InMemoryBroker as TBroker  # noqa: E402
+from gofr_tpu_torch.pubsub import delivery as tdelivery  # noqa: E402
+from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
+from gofr_tpu_torch.serving.tokenizer import ByteTokenizer  # noqa: E402
+from gofr_tpu_torch.testutil import get_free_port, start_app, stop_app  # noqa: E402
+
+PKGS = {
+    "ref": types.SimpleNamespace(sub=rsub, chaos=rchaos, delivery=rdelivery, Broker=RBroker,
+                                 Container=RContainer, MapConfig=RMapConfig, App=gofr_tpu.App),
+    "port": types.SimpleNamespace(sub=tsub, chaos=tchaos, delivery=tdelivery, Broker=TBroker,
+                                  Container=TContainer, MapConfig=TMapConfig, App=TApp),
+}
+
+
+def make_manager(pkg, configs: dict | None = None):
+    container = pkg.Container(pkg.MapConfig({"APP_NAME": "sub", "LOG_LEVEL": "FATAL",
+                                             **(configs or {})}, use_env=False))
+    broker = pkg.Broker(poll_timeout=0.02)
+    container.register_datasource("pubsub", broker)
+    mgr = pkg.sub.SubscriptionManager(container)
+    mgr._rng.seed(0)
+    return container, broker, mgr
+
+
+async def drain_until(predicate, timeout: float = 15.0, interval: float = 0.01):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        await asyncio.sleep(interval)
+    return False
+
+
+def _metric(container, name: str, topic: str) -> float:
+    return container.metrics_manager.get(name).value({"topic": topic})
+
+
+# ------------------------------------------------- the reference's ten cases
+def case_poison_message_lands_in_dlq_and_topic_keeps_flowing(pkg):
+    container, broker, mgr = make_manager(pkg, {"PUBSUB_T_MAX_ATTEMPTS": "3",
+                                                "PUBSUB_RETRY_BACKOFF_SECONDS": "0.01"})
+    deliveries, good = [], []
+
+    def handler(ctx):
+        value = ctx.request.value
+        deliveries.append(value)
+        if value == b"poison":
+            raise ValueError("cannot digest this")
+        good.append(value)
+
+    mgr.register("T", handler)
+
+    async def scenario():
+        broker.publish("T", b"poison")
+        broker.publish("T", b"wholesome")
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: b"wholesome" in good)
+            assert await drain_until(lambda: mgr._consumers["T"].dlq == 1)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    dead = broker.subscribe("T.dlq")
+    d = pkg.delivery
+    return {"poison_deliveries": deliveries.count(b"poison"), "dead": dead.value,
+            "source": dead.metadata[d.DLQ_SOURCE_TOPIC_KEY],
+            "attempts": dead.metadata[d.DLQ_ATTEMPTS_KEY],
+            "error": "cannot digest" in dead.metadata[d.DLQ_ERROR_KEY],
+            "ts_ordered": float(dead.metadata[d.DLQ_FIRST_TS_KEY])
+            <= float(dead.metadata[d.DLQ_LAST_TS_KEY]),
+            "backlog": broker.backlog("T"),
+            "dlq_total": _metric(container, "app_pubsub_dlq_total", "T"),
+            "redeliveries": _metric(container, "app_pubsub_redeliveries_total", "T")}
+
+
+def case_transient_failure_recovers_without_dlq(pkg):
+    container, broker, mgr = make_manager(pkg, {"PUBSUB_RETRY_BACKOFF_SECONDS": "0.01"})
+    seen, done, attempts_seen = {"n": 0}, [], []
+
+    def handler(ctx):
+        seen["n"] += 1
+        attempts_seen.append(ctx.request.metadata[pkg.delivery.ATTEMPTS_KEY])
+        if seen["n"] < 3:
+            raise TimeoutError("downstream flapped")
+        done.append(ctx.request.value)
+
+    mgr.register("jobs", handler)
+
+    async def scenario():
+        broker.publish("jobs", b"job-1")
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: done)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    c = mgr._consumers["jobs"]
+    return {"done": done, "attempts_seen": attempts_seen, "dlq": c.dlq,
+            "dlq_topic": broker.subscribe("jobs.dlq"), "redeliveries": c.redeliveries,
+            "tracked": c.attempts}
+
+
+def case_success_metric_counts_only_after_commit_succeeds(pkg):
+    container, broker, mgr = make_manager(pkg, {"PUBSUB_RETRY_BACKOFF_SECONDS": "0.01"})
+    handled = []
+    mgr.register("q", lambda ctx: handled.append(ctx.request.value))
+    fail_once = {"left": 1}
+    real_subscribe = broker.subscribe
+
+    def flaky_subscribe(topic):
+        msg = real_subscribe(topic)
+        if msg is None or topic != "q":
+            return msg
+        real_committer = msg._committer
+
+        def maybe_fail_commit():
+            if fail_once["left"] > 0:
+                fail_once["left"] -= 1
+                raise ConnectionError("commit lost")
+            real_committer()
+
+        msg._committer = maybe_fail_commit
+        return msg
+
+    broker.subscribe = flaky_subscribe
+
+    async def scenario():
+        broker.publish("q", b"m")
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: broker.backlog("q") == 0 and len(handled) >= 2,
+                                     timeout=45)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    return {"success": _metric(container, "app_pubsub_subscribe_success_count", "q"),
+            "commit_fail": _metric(container, "app_pubsub_commit_fail_count", "q"),
+            "commit_failures": mgr._consumers["q"].commit_failures}
+
+
+def case_idle_poll_is_bounded_not_a_busy_spin(pkg):
+    container = pkg.Container(pkg.MapConfig({"LOG_LEVEL": "FATAL"}, use_env=False))
+
+    class InstantNone:
+        def __init__(self):
+            self.polls = 0
+
+        def subscribe(self, topic):
+            self.polls += 1
+            return None
+
+    client = InstantNone()
+    container.pubsub = client
+    mgr = pkg.sub.SubscriptionManager(container)
+    mgr.register("idle", lambda ctx: None)
+
+    async def scenario():
+        await mgr.start()
+        await asyncio.sleep(0.3)
+        await mgr.stop()
+
+    asyncio.run(scenario())
+    return {"bounded": 1 <= client.polls <= 12}
+
+
+def case_consumer_state_in_container_health(pkg):
+    container, broker, mgr = make_manager(pkg)
+    mgr.register("t1", lambda ctx: None)
+    out = {}
+
+    async def scenario():
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: mgr._consumers["t1"].state == pkg.sub.RUNNING)
+            health = container.health()
+            consumers = health["details"]["pubsub_consumers"]
+            out.update(status=consumers["status"], snap=consumers["details"]["topics"]["t1"],
+                       overall=health["status"])
+        finally:
+            await mgr.stop()
+        out["after_stop"] = mgr._consumers["t1"].state
+
+    asyncio.run(scenario())
+    return out
+
+
+def case_supervisor_restarts_crashed_loop_then_parks_it(pkg, monkeypatch):
+    sub = pkg.sub
+    container, broker, mgr = make_manager(pkg)
+    mgr.register("doomed", lambda ctx: None)
+    crashes = {"n": 0}
+
+    async def crashing_loop(consumer):
+        crashes["n"] += 1
+        raise RuntimeError("loop bug")
+
+    mgr._loop = crashing_loop
+    monkeypatch.setattr(sub, "ERROR_BACKOFF_SECONDS", 0.01)
+
+    async def scenario():
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: crashes["n"] > sub.MAX_CONSECUTIVE_RESTARTS
+                                     and mgr._consumers["doomed"].state == sub.STOPPED,
+                                     timeout=10)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    return {"crashes": crashes["n"], "restarts": mgr._consumers["doomed"].restarts,
+            "health": mgr.health()["status"], "parked": mgr._consumers["doomed"].parked}
+
+
+def case_subscribe_error_backs_off_and_recovers(pkg, monkeypatch):
+    container, broker, mgr = make_manager(pkg)
+    state = {"fail": 2}
+    real_subscribe = broker.subscribe
+
+    def flaky(topic):
+        if state["fail"] > 0:
+            state["fail"] -= 1
+            raise ConnectionError("broker hiccup")
+        return real_subscribe(topic)
+
+    broker.subscribe = flaky
+    got = []
+    mgr.register("r", lambda ctx: got.append(ctx.request.value))
+    monkeypatch.setattr(pkg.sub, "ERROR_BACKOFF_SECONDS", 0.01)
+
+    async def scenario():
+        broker.publish("r", b"after-the-storm")
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: got)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    return {"got": got, "restarts": mgr._consumers["r"].restarts}
+
+
+def case_handler_settled_message_is_not_double_settled(pkg):
+    container, broker, mgr = make_manager(pkg)
+    settled = []
+
+    def handler(ctx):
+        msg = ctx.request
+        real = msg._committer
+        msg._committer = lambda: settled.append("broker-commit") or real()
+        msg.commit()
+
+    mgr.register("manual", handler)
+
+    async def scenario():
+        broker.publish("manual", b"m")
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: broker.backlog("manual") == 0)
+            await asyncio.sleep(0.05)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    return {"settled": settled}
+
+
+def case_publish_fault_surfaces_typed_retriable_through_context(pkg):
+    container, broker, mgr = make_manager(pkg, {"PUBSUB_RETRY_BACKOFF_SECONDS": "0.01"})
+    caught = []
+
+    def handler(ctx):
+        try:
+            ctx.get_publisher().publish("downstream", ctx.request.value)
+        except pkg.chaos.ChaosFault as exc:
+            caught.append((exc.point, exc.retriable))
+            raise
+
+    mgr.register("up", handler)
+    inj = pkg.chaos.ChaosInjector(5, {"pubsub.publish": 1.0}, max_faults=1)
+
+    async def scenario():
+        broker.publish("up", b"payload")
+        await mgr.start()
+        try:
+            with pkg.chaos.active(inj):
+                assert await drain_until(
+                    lambda: broker.backlog("up") == 0 and broker.backlog("downstream") > 0)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    msg = broker.subscribe("downstream")
+    return {"caught": caught, "downstream": msg.value}
+
+
+def case_dlq_topic_never_chains_another_dlq(pkg):
+    container, broker, mgr = make_manager(pkg, {"PUBSUB_MAX_ATTEMPTS": "2",
+                                                "PUBSUB_RETRY_BACKOFF_SECONDS": "0.01"})
+    deliveries = []
+
+    def bad_drainer(ctx):
+        deliveries.append(ctx.request.value)
+        raise RuntimeError("drainer bug")
+
+    mgr.register("jobs.dlq", bad_drainer)
+
+    async def scenario():
+        broker.publish("jobs.dlq", b"dead-1")
+        await mgr.start()
+        try:
+            assert await drain_until(lambda: len(deliveries) >= 4)
+        finally:
+            await mgr.stop()
+
+    asyncio.run(scenario())
+    return {"dlq": mgr._consumers["jobs.dlq"].dlq, "chained": broker.subscribe("jobs.dlq.dlq"),
+            "backlog": broker.backlog("jobs.dlq"), "all_dead_1": set(deliveries) == {b"dead-1"}}
+
+
+# each case with what the reference's test asserts of it
+CASES = {
+    "poison": (case_poison_message_lands_in_dlq_and_topic_keeps_flowing, {
+        "poison_deliveries": 3, "dead": b"poison", "source": "T", "attempts": "3", "error": True,
+        "ts_ordered": True, "backlog": 0, "dlq_total": 1, "redeliveries": 2}),
+    "transient": (case_transient_failure_recovers_without_dlq, {
+        "done": [b"job-1"], "attempts_seen": ["1", "2", "3"], "dlq": 0, "dlq_topic": None,
+        "redeliveries": 2, "tracked": {}}),
+    "success_after_commit": (case_success_metric_counts_only_after_commit_succeeds, {
+        "success": 1, "commit_fail": 1, "commit_failures": 1}),
+    "idle_poll": (case_idle_poll_is_bounded_not_a_busy_spin, {"bounded": True}),
+    "health": (case_consumer_state_in_container_health, None),
+    "restart_budget": (case_supervisor_restarts_crashed_loop_then_parks_it, {
+        "crashes": 6, "restarts": 6, "health": "DOWN", "parked": True}),
+    "subscribe_error": (case_subscribe_error_backs_off_and_recovers, {
+        "got": [b"after-the-storm"], "restarts": 0}),
+    "self_settled": (case_handler_settled_message_is_not_double_settled, {
+        "settled": ["broker-commit"]}),
+    "publish_fault": (case_publish_fault_surfaces_typed_retriable_through_context, {
+        "caught": [("pubsub.publish", True)], "downstream": b"payload"}),
+    "dlq_never_chains": (case_dlq_topic_never_chains_another_dlq, {
+        "dlq": 0, "chained": None, "backlog": 1, "all_dead_1": True}),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_delivery_case_equals_the_reference(case, monkeypatch):
+    fn, want = CASES[case]
+    kw = {"monkeypatch": monkeypatch} if "monkeypatch" in fn.__code__.co_varnames else {}
+    got = {side: fn(pkg, **kw) for side, pkg in PKGS.items()}
+    assert got["port"] == got["ref"]
+    if want is not None:
+        assert got["port"] == want
+    else:
+        assert got["port"]["status"] == "UP" and got["port"]["overall"] == "UP"
+        assert got["port"]["snap"]["state"] == "RUNNING"
+        assert got["port"]["snap"]["max_attempts"] == 5
+        assert got["port"]["after_stop"] == "STOPPED"
+
+
+# ------------------------------------------------------------- the policy
+@pytest.mark.parametrize("values,topic", [
+    ({}, "orders"),
+    ({"PUBSUB_MAX_ATTEMPTS": "7", "PUBSUB_RETRY_BACKOFF_SECONDS": "0.5"}, "orders"),
+    ({"PUBSUB_MAX_ATTEMPTS": "9", "PUBSUB_ASR_JOBS_MAX_ATTEMPTS": "2"}, "asr-jobs"),
+    ({"PUBSUB_MAX_ATTEMPTS": "9", "PUBSUB_ASR_JOBS_MAX_ATTEMPTS": "2"}, "other"),
+    ({"PUBSUB_MAX_ATTEMPTS": "0", "PUBSUB_RETRY_MULTIPLIER": "x"}, "t"),
+    ({"PUBSUB_RETRY_MAX_BACKOFF_SECONDS": "1.5", "PUBSUB_T_MAX_ATTEMPTS": " 4 "}, "t"),
+])
+def test_policy_from_config_equals_the_reference(values, topic):
+    ref = rdelivery.DeliveryPolicy.from_config(RMapConfig(values, use_env=False), topic)
+    port = tdelivery.DeliveryPolicy.from_config(TMapConfig(values, use_env=False), topic)
+    assert dataclass_tuple(port) == dataclass_tuple(ref)
+    assert tdelivery.DeliveryPolicy.from_config(None, topic) == tdelivery.DeliveryPolicy()
+
+
+def dataclass_tuple(p):
+    return (p.max_attempts, p.backoff, p.multiplier, p.max_backoff, p.jitter)
+
+
+def test_backoff_ladder_equals_the_reference():
+    """The same seeded full-jitter draws and the same capped deterministic
+    ladder, huge attempt counts included."""
+    import random
+
+    for kw in ({}, {"backoff": 1.0, "multiplier": 2.0, "max_backoff": 3.0}):
+        ref, port = rdelivery.DeliveryPolicy(**kw), tdelivery.DeliveryPolicy(**kw)
+        r1, r2 = random.Random(7), random.Random(7)
+        attempts = [1, 2, 3, 6, 64, 1100, 10**9]
+        assert [port.delay(a, r2) for a in attempts] == [ref.delay(a, r1) for a in attempts]
+        det_r = rdelivery.DeliveryPolicy(**kw, jitter=False)
+        det_p = tdelivery.DeliveryPolicy(**kw, jitter=False)
+        assert [det_p.delay(a) for a in attempts] == [det_r.delay(a) for a in attempts]
+
+
+def test_message_keys_and_dlq_names_equal_the_reference():
+    for args in (("t", b"v", None, None), ("t", b"v", {"a": "1", "gofr_attempts": "3"}, None),
+                 ("t", b"v", {"a": 1}, 42)):
+        assert tdelivery.message_key(*args) == rdelivery.message_key(*args)
+    assert tdelivery.dlq_topic("orders") == rdelivery.dlq_topic("orders") == "orders.dlq"
+    assert tdelivery.is_dlq_topic("orders.dlq") and not tdelivery.is_dlq_topic("orders")
+    rec = tdelivery.AttemptRecord()
+    assert rec.record_delivery() == 1 and rec.record_delivery() == 2
+    rec.last_error = "x" * 600
+    meta = rec.dlq_metadata("orders")
+    assert set(meta) == set(rdelivery.AttemptRecord().dlq_metadata("orders"))
+    assert meta[tdelivery.DLQ_ATTEMPTS_KEY] == "2" and len(meta[tdelivery.DLQ_ERROR_KEY]) == 512
+
+
+# ------------------------------------------------- a generation consumer
+@pytest.fixture(scope="module")
+def models():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    jcfg = jllama.LlamaConfig.tiny(vocab_size=300)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = tllama.LlamaConfig.tiny(vocab_size=300)
+    yield jcfg, jparams, tcfg, params_from_jax(jax.device_get(jparams), device="cpu")
+    torch.set_num_threads(threads)
+
+
+ENGINE = dict(max_slots=4, max_seq_len=128, prefill_buckets=(16,), prefill_chunk_tokens=16)
+JOBS = [[5, 6, 7], [40, 41, 42, 43, 44, 45], list(range(60, 80))]
+
+
+def _generation_app(side, models):
+    jcfg, jparams, tcfg, tparams = models
+    pkg = PKGS[side]
+    app = pkg.App(pkg.MapConfig({
+        "HTTP_PORT": str(get_free_port()), "METRICS_PORT": str(get_free_port()),
+        "HTTP_HOST": "127.0.0.1", "APP_NAME": f"gen-{side}", "LOG_LEVEL": "FATAL",
+        "SHUTDOWN_GRACE_PERIOD": "5", "PUBSUB_BACKEND": "MEMORY",
+        "PUBSUB_RETRY_BACKOFF_SECONDS": "0.01", "PUBSUB_GENERATE_MAX_ATTEMPTS": "3"},
+        use_env=False))
+    if side == "ref":
+        engine = JServingEngine(jcfg, jparams, JEngineConfig(**ENGINE), JByteTokenizer())
+    else:
+        engine = ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), ByteTokenizer(),
+                               device="cpu")
+
+    async def generate_job(ctx):
+        job = json.loads(ctx.request.value)
+        r = await asyncio.wrap_future(engine.submit(job["prompt"], max_new_tokens=6,
+                                                    temperature=0.0))
+        ctx.get_publisher().publish("generate.results", json.dumps(
+            {"job": job["job"], "tokens": r.token_ids, "finish_reason": r.finish_reason}).encode())
+
+    app.subscribe("generate", generate_job)
+    app.on_start(lambda ctx: engine.start())
+    app.on_shutdown(engine.stop)
+    return app, engine
+
+
+def test_generation_consumer_equals_the_reference(models):
+    """Each package's ``App`` with ``PUBSUB_BACKEND=MEMORY`` and a generation
+    subscriber: three jobs under one injected ``pubsub.handler`` fault (one
+    redelivery, no dead letter), then a poison job (an empty prompt) that
+    lands in ``generate.dlq`` after 3 deliveries while the job behind it is
+    served. The same results, counters and health on both."""
+    got = {}
+    for side in ("ref", "port"):
+        pkg = PKGS[side]
+        app, engine = _generation_app(side, models)
+        thread = start_app(app)
+        broker = app.container.pubsub
+        consumer = app.subscription_manager._consumers["generate"]
+        try:
+            def results(n):
+                out, t_end = [], time.monotonic() + 120
+                while len(out) < n and time.monotonic() < t_end:
+                    msg = broker.subscribe("generate.results")
+                    if msg is not None:
+                        out.append(json.loads(msg.value))
+                        msg.commit()
+                return out
+
+            with pkg.chaos.active(pkg.chaos.ChaosInjector(3, {"pubsub.handler": 1.0},
+                                                          max_faults=1)):
+                for k, p in enumerate(JOBS):
+                    broker.publish("generate", json.dumps({"job": k, "prompt": p}).encode())
+                first = results(len(JOBS))
+            after_fault = (consumer.redeliveries, consumer.dlq)
+            broker.publish("generate", json.dumps({"job": "poison", "prompt": []}).encode())
+            broker.publish("generate", json.dumps({"job": "after", "prompt": JOBS[0]}).encode())
+            behind = results(1)
+            t_end = time.monotonic() + 30  # the dead letter, and the last commit
+            while (consumer.dlq < 1 or consumer.delivered < len(JOBS) + 1) \
+                    and time.monotonic() < t_end:
+                time.sleep(0.01)
+            dead = broker.subscribe("generate.dlq")
+            health = app.container.health()["details"]["pubsub_consumers"]
+            got[side] = {
+                "results": sorted(first, key=lambda r: r["job"]), "behind": behind,
+                "after_fault": after_fault, "redeliveries": consumer.redeliveries,
+                "dlq": consumer.dlq, "dead": json.loads(dead.value)["job"],
+                "dead_attempts": dead.metadata[pkg.delivery.DLQ_ATTEMPTS_KEY],
+                "health": health["status"], "delivered": consumer.delivered,
+                "metrics": {n: _metric(app.container, n, "generate") for n in (
+                    "app_pubsub_subscribe_total_count", "app_pubsub_subscribe_success_count",
+                    "app_pubsub_redeliveries_total", "app_pubsub_dlq_total")}}
+        finally:
+            stop_app(app, thread)
+    assert got["port"] == got["ref"]
+    port = got["port"]
+    assert [r["job"] for r in port["results"]] == [0, 1, 2]
+    assert all(r["finish_reason"] == "length" and len(r["tokens"]) == 6 for r in port["results"])
+    assert port["behind"][0]["tokens"] == port["results"][0]["tokens"]
+    assert port["after_fault"] == (1, 0) and port["redeliveries"] == 3 and port["dlq"] == 1
+    assert port["dead"] == "poison" and port["dead_attempts"] == "3" and port["health"] == "UP"
+    assert port["metrics"] == {"app_pubsub_subscribe_total_count": 8,
+                               "app_pubsub_subscribe_success_count": 4,
+                               "app_pubsub_redeliveries_total": 3, "app_pubsub_dlq_total": 1}
