@@ -207,6 +207,33 @@ Phases, each a hard failure with a non-zero exit:
    - a ``* * * * * *`` cron job reading the device telemetry into a gauge
      all along; ``POST /.well-known/drain`` refused without the key, then
      draining the app with it;
+   then the models phase, the other served families at their published
+   widths (random weights from the seed), the launch counters reset
+   before it:
+   - ``E`` BERT-base (12 layers, d 768, bf16) behind ``/embed`` on an
+     ``App``: 50 single-text requests one at a time at 16, 128 and 512
+     tokens (p50/p95 by the client's clock), one request of 32 texts of
+     mixed lengths, a request with no input (400); every row unit-norm,
+     each text alone and in the batch at cosine >= 0.999, each against an
+     f32 forward of the same weights at cosine >= 0.99, ``engine`` "torch";
+   - ``A`` Whisper-large-v3 (128 mels, 32+32 layers, d 1280, bf16) written
+     as an HF-layout safetensors directory by the script's own writer and
+     loaded back by ``load_whisper_from_hf`` (bit-identical), served by an
+     ``ASRWorker`` under ``app.subscribe("asr-jobs", ...)`` on the
+     in-memory broker: jobs of 5, 12 and 30 s of seeded audio as
+     ``audio_b64`` (32 tokens) and an empty one, one at a time; each
+     reply's tokens equal to a direct ``transcribe`` of the same mel, the
+     first step's logits against an f32 run, "empty audio"; load GB/s,
+     encode ms of 30 s, ms a decoded token, publish-to-reply ms a job;
+   - ``L`` an HF-layout Llama checkpoint at Llama-3-8B widths (2 layers)
+     with a small byte-level BPE ``tokenizer.json`` (Llama-3's Split
+     pattern) through ``ServingEngine.from_hf`` (paged bf16, 16-token
+     pages, whole prefills): loaded params bit-identical, the port's
+     ``BPETokenizer`` round-tripping the texts, the main path's prompts
+     token-equal to an engine built from the same params, flash and the
+     bf16 paged kernel launched, ``ByteTokenizer`` without the asset,
+     ``forward``'s last logits against prefill's and ``attn_impl`` dense
+     against flash; load s and the host's peak RSS;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -5390,6 +5417,588 @@ def run_surface(torch, cfg, params) -> dict:
     return out
 
 
+# ------------------------------------------------------------- the models phase
+MODELS_E_LENS = (16, 128, 512)  # E: tokens of a single-text request (BOS + one byte each)
+MODELS_E_REQUESTS = 50  # E: single-text requests, one at a time
+MODELS_E_BATCH = 32  # E: texts of the one batched request
+COSINE_BATCH_TOL = 0.999  # E: a text's embedding alone against inside the batch
+COSINE_F32_TOL = 0.99  # E: a served (bf16) embedding against the f32 forward's
+MODELS_ASR_SECONDS = (5, 12, 30)  # A: seconds of 16 kHz audio a job
+MODELS_ASR_TOKENS = 32  # A: max_tokens a job
+MODELS_L_DEPTH = 2  # L: layers of the Llama-3-8B-wide checkpoint (full depth writes 16 GB)
+MODELS_L_NEW = 16  # L: new tokens a request
+MODELS_L_MERGES = [("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("e", "r"), ("a", "n"),
+                   ("Ġ", "a"), ("o", "n"), ("r", "e"), ("1", "2"), ("12", "3")]
+MODELS_L_TEXTS = ["the quick brown fox jumps over the lazy dog",
+                  "Hello, WORLD's 12345 caffè 東京 🚀\r\n\r\n  don't", "<|begin_of_text|>the end"]
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_equal(torch, a: dict, b: dict) -> bool:
+    """The same keys at every level and every leaf equal bit for bit."""
+    if set(a) != set(b):
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, dict):
+            if not (isinstance(w, dict) and tree_equal(torch, v, w)):
+                return False
+        elif v.dtype != w.dtype or v.shape != w.shape or not torch.equal(v, w):
+            return False
+    return True
+
+
+def perturb_norms_and_biases(torch, tree: dict, gen) -> None:
+    """Norm scales to U(0.8, 1.2) and biases to N(0, 0.02) in place: with
+    the init's ones and zeros, a loader that swapped two of them would
+    still load equal leaves."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            perturb_norms_and_biases(torch, v, gen)
+        elif v.dtype == torch.float32 and ("norm" in k or k.endswith("_s")):
+            v.uniform_(0.8, 1.2, generator=gen)
+        elif v.dtype == torch.float32:
+            v.normal_(0.0, 0.02, generator=gen)
+
+
+def write_safetensors(torch, path: str, tensors: dict) -> int:
+    """The script's own safetensors writer: an 8-byte little-endian header
+    length, the JSON header (dtype, shape, data offsets), then each
+    tensor's little-endian bytes, copied to the host one at a time.
+    Returns the bytes written."""
+    import struct
+
+    names = {torch.bfloat16: "BF16", torch.float32: "F32", torch.float16: "F16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(blob) + offset
+
+
+def write_hf_checkpoint(torch, path: str, tensors: dict, config: dict) -> int:
+    import os
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return write_safetensors(torch, os.path.join(path, "model.safetensors"), tensors)
+
+
+def whisper_hf(torch, cfg, params) -> tuple[dict, dict]:
+    """The tree as ``WhisperForConditionalGeneration`` names and lays it out
+    (projections ``[out, in]``, convolutions ``[out, in, k]``), and its
+    ``config.json`` (openai/whisper-large-v3's fields)."""
+    from gofr_tpu_torch.models.whisper import _sinusoids
+
+    t = {"model.encoder.conv1.weight": params["conv1"].permute(2, 1, 0),
+         "model.encoder.conv1.bias": params["conv1_b"],
+         "model.encoder.conv2.weight": params["conv2"].permute(2, 1, 0),
+         "model.encoder.conv2.bias": params["conv2_b"],
+         # HF keeps the sinusoid table; the loader recomputes it
+         "model.encoder.embed_positions.weight": _sinusoids(
+             cfg.max_audio_len, cfg.d_model, params["conv1"].device).to(cfg.dtype)}
+    attn = {"q_proj": ("wq", "bq"), "k_proj": ("wk", None), "v_proj": ("wv", "bv"),
+            "out_proj": ("wo", "bo")}
+    for side, n, stack in (("encoder", cfg.n_audio_layers, params["enc"]),
+                           ("decoder", cfg.n_text_layers, params["dec"])):
+        blocks = [("self_attn", "")] + ([("encoder_attn", "x")] if side == "decoder" else [])
+        for i in range(n):
+            pre = f"model.{side}.layers.{i}."
+            for block, x in blocks:
+                for proj, (w, b) in attn.items():
+                    t[f"{pre}{block}.{proj}.weight"] = stack[x + w][i].T
+                    if b is not None:
+                        t[f"{pre}{block}.{proj}.bias"] = stack[x + b][i]
+            for fc, (w, b) in (("fc1", ("w1", "b1")), ("fc2", ("w2", "b2"))):
+                t[f"{pre}{fc}.weight"] = stack[w][i].T
+                t[f"{pre}{fc}.bias"] = stack[b][i]
+            norms = [("self_attn_layer_norm", "ln1"), ("final_layer_norm", "ln2")]
+            if side == "decoder":
+                norms.append(("encoder_attn_layer_norm", "lnx"))
+            for hf, ours in norms:
+                t[f"{pre}{hf}.weight"] = stack[ours + "_s"][i]
+                t[f"{pre}{hf}.bias"] = stack[ours + "_b"][i]
+    t["model.encoder.layer_norm.weight"] = params["enc_ln_s"]
+    t["model.encoder.layer_norm.bias"] = params["enc_ln_b"]
+    t["model.decoder.embed_tokens.weight"] = params["tok_embedding"]
+    t["model.decoder.embed_positions.weight"] = params["pos_embedding"]
+    t["model.decoder.layer_norm.weight"] = params["dec_ln_s"]
+    t["model.decoder.layer_norm.bias"] = params["dec_ln_b"]
+    config = {"architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper",
+              "num_mel_bins": cfg.n_mels, "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+              "encoder_layers": cfg.n_audio_layers, "decoder_layers": cfg.n_text_layers,
+              "encoder_attention_heads": cfg.n_heads, "decoder_attention_heads": cfg.n_heads,
+              "encoder_ffn_dim": cfg.d_ff, "decoder_ffn_dim": cfg.d_ff,
+              "max_source_positions": cfg.max_audio_len,
+              "max_target_positions": cfg.max_text_len,
+              "decoder_start_token_id": cfg.sot_id, "eos_token_id": cfg.eot_id,
+              "pad_token_id": cfg.eot_id, "activation_function": "gelu",
+              "torch_dtype": "bfloat16"}
+    return t, config
+
+
+def llama_hf(torch, cfg, params) -> tuple[dict, dict]:
+    """The tree as ``LlamaForCausalLM`` names and lays it out (projections
+    ``[out, in]``), and its ``config.json``."""
+    lay = params["layers"]
+    t = {"model.embed_tokens.weight": params["embedding"]}
+    names = {"self_attn.q_proj": "wq", "self_attn.k_proj": "wk", "self_attn.v_proj": "wv",
+             "self_attn.o_proj": "wo", "mlp.gate_proj": "w_gate", "mlp.up_proj": "w_up",
+             "mlp.down_proj": "w_down"}
+    for i in range(cfg.n_layers):
+        for hf, ours in names.items():
+            t[f"model.layers.{i}.{hf}.weight"] = lay[ours][i].T
+        t[f"model.layers.{i}.input_layernorm.weight"] = lay["attn_norm"][i]
+        t[f"model.layers.{i}.post_attention_layernorm.weight"] = lay["mlp_norm"][i]
+    t["model.norm.weight"] = params["final_norm"]
+    t["lm_head.weight"] = params["lm_head"].T
+    config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+              "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers,
+              "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+              "max_position_embeddings": cfg.max_seq_len, "rope_theta": cfg.rope_theta,
+              "rms_norm_eps": cfg.norm_eps, "tie_word_embeddings": False,
+              "torch_dtype": "bfloat16"}
+    return t, config
+
+
+def rss_mib() -> float:
+    """This process's resident set (VmRSS), MiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class PeakRss:
+    """The largest resident set of this process while the block runs,
+    sampled every 5 ms on a thread (the kernel's own peak, VmHWM, cannot
+    be reset where /proc/self/clear_refs is not writable)."""
+
+    def __enter__(self) -> "PeakRss":
+        self.before = self.peak = rss_mib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True, name="rss")
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, rss_mib())
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_mib())
+
+
+def cosine(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def pct(xs: list[float], q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def models_app(name: str, **values):
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.testutil import get_free_port
+
+    return App(MapConfig({"APP_NAME": name, "HTTP_HOST": "127.0.0.1",
+                          "HTTP_PORT": str(get_free_port()), "METRICS_PORT": str(get_free_port()),
+                          "LOG_LEVEL": "ERROR", **values}, use_env=False))
+
+
+def models_e(torch, cfg, dev) -> dict:
+    """E: BERT /embed on an ``App`` over real sockets: 50 single-text
+    requests one at a time at 16, 128 and 512 tokens (after one warm-up
+    request of each length), then one request of 32 texts of mixed
+    lengths, and a request with no input."""
+    import dataclasses
+
+    import numpy as np
+
+    from gofr_tpu_torch.models import bert
+    from gofr_tpu_torch.serving.handlers import register_embedding_routes
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer, pad_batch
+    from gofr_tpu_torch.testutil import fetch, start_app, stop_app
+
+    t0 = time.perf_counter()
+    params = bert.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 20), device=dev)
+    rng = np.random.default_rng(SEED + 20)
+    chars = list("abcdefghijklmnopqrstuvwxyz        .,;")
+
+    def text(n_tokens: int) -> str:  # BOS plus one token a byte
+        return "".join(rng.choice(chars, n_tokens - 1))
+
+    singles = [(n, text(n)) for n in (MODELS_E_LENS * MODELS_E_REQUESTS)[:MODELS_E_REQUESTS]]
+    app = models_app("models-embed")
+    register_embedding_routes(app, cfg, params, ByteTokenizer())
+    thread = start_app(app, timeout=120)
+    url = f"http://127.0.0.1:{app.http_port}/embed"
+
+    def post(payload) -> tuple[int, dict]:
+        status, _, body = fetch(url, "POST", json.dumps(payload).encode(),
+                                {"Content-Type": "application/json"}, timeout=300)
+        return status, json.loads(body)
+
+    out: dict = {"config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                            "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+                            "vocab_size": cfg.vocab_size, "max_seq_len": cfg.max_seq_len,
+                            "dtype": str(cfg.dtype)}}
+    try:
+        for n in MODELS_E_LENS:  # cuBLAS picks each shape's GEMMs on its first call
+            post({"input": text(n)})
+        ms: dict = {n: [] for n in MODELS_E_LENS}
+        served, meta = [], set()
+        for n, t in singles:
+            t1 = time.perf_counter()
+            status, body = post({"input": t})
+            ms[n].append((time.perf_counter() - t1) * 1e3)
+            data = body.get("data", {})
+            if status != 201 or data.get("usage", {}).get("prompt_tokens") != n:
+                raise AssertionError(f"E: a {n}-token request answered {status} {body}")
+            served.append(np.asarray(data["embeddings"][0], np.float32))
+            meta.add((data["engine"], data["dim"]))
+        t1 = time.perf_counter()
+        status_b, body_b = post({"input": [t for _, t in singles[:MODELS_E_BATCH]]})
+        batch_ms = (time.perf_counter() - t1) * 1e3
+        batch = np.asarray(body_b["data"]["embeddings"], np.float32)
+        refused = [post(payload)[0] for payload in ({}, {"input": []}, {"other": "x"})]
+    finally:
+        stop_app(app, thread)
+    params32 = tree_map(lambda v: v.float(), params)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    tok = ByteTokenizer()
+    f32_cos = []
+    for (_, t), emb in zip(singles, served):
+        arr, lens = pad_batch(tok, [t], cfg.max_seq_len)
+        want = bert.embed(cfg32, params32, torch.from_numpy(arr).to(dev),
+                          torch.tensor(lens, dtype=torch.int32, device=dev))[0].cpu().numpy()
+        f32_cos.append(cosine(emb, want))
+    norms = np.linalg.norm(np.concatenate([np.stack(served), batch]), axis=-1)
+    batch_cos = [cosine(served[i], batch[i]) for i in range(MODELS_E_BATCH)]
+    out.update({
+        "requests": len(singles), "engine_dim": sorted(meta),
+        "ms": {n: {"p50": pct(v, 50), "p95": pct(v, 95), "n": len(v)} for n, v in ms.items()},
+        "batch": {"texts": MODELS_E_BATCH, "status": status_b, "ms": batch_ms},
+        "norm_err_max": float(np.abs(norms - 1).max()),
+        "cosine_alone_vs_batch_min": min(batch_cos), "cosine_f32_min": min(f32_cos),
+        "no_input": refused, "seconds": time.perf_counter() - t0,
+    })
+    for n, v in out["ms"].items():
+        print(f"  E /embed {n} tokens: p50 {v['p50']:.2f} ms, p95 {v['p95']:.2f} ms "
+              f"({v['n']} requests, client clock)")
+    print(f"  E a batch of {MODELS_E_BATCH} mixed-length texts: {batch_ms:.2f} ms; |norm - 1| max "
+          f"{out['norm_err_max']:.2e}; cosine alone vs batch min {min(batch_cos):.6f} (tol "
+          f"{COSINE_BATCH_TOL}), vs f32 min {min(f32_cos):.6f} (tol {COSINE_F32_TOL}); no input "
+          f"{refused}; engine, dim {sorted(meta)}")
+    if not (out["norm_err_max"] <= 1e-3 and min(batch_cos) >= COSINE_BATCH_TOL
+            and min(f32_cos) >= COSINE_F32_TOL and status_b == 201
+            and refused == [400, 400, 400] and meta == {("torch", cfg.d_model)}
+            and len(batch) == MODELS_E_BATCH):
+        raise AssertionError(f"E: {out}")
+    return out
+
+
+def asr_clip(rng, seconds: float):
+    """Seeded 16 kHz audio: a few tones and noise, within [-1, 1]."""
+    import numpy as np
+
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    x = sum(0.2 * np.sin(2 * np.pi * f * t + p)
+            for f, p in zip(rng.uniform(80, 4000, 4), rng.uniform(0, 6.3, 4)))
+    return (x + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def models_a(torch, cfg, dev, tmp: str) -> dict:
+    """A: Whisper ASR over Pub/Sub from a checkpoint this phase writes in the
+    HF layout and loads back: 3 jobs of seeded audio and an empty one
+    through ``app.subscribe("asr-jobs", worker.handler)`` on the in-memory
+    broker, one at a time, each reply against a direct ``transcribe``."""
+    import base64
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from gofr_tpu_torch.models import whisper
+    from gofr_tpu_torch.models.whisper_import import load_whisper_from_hf
+    from gofr_tpu_torch.serving.asr import ASRWorker
+    from gofr_tpu_torch.testutil import start_app, stop_app
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    params = whisper.init_params(cfg, gen, device=dev)
+    perturb_norms_and_biases(torch, params, gen)
+    sync(torch, dev)
+    path = os.path.join(tmp, "whisper")
+    t1 = time.perf_counter()
+    nbytes = write_hf_checkpoint(torch, path, *whisper_hf(torch, cfg, params))
+    write_s = time.perf_counter() - t1
+    with PeakRss() as rss:
+        t1 = time.perf_counter()
+        lcfg, loaded = load_whisper_from_hf(path, device=dev)
+        sync(torch, dev)
+        load_s = time.perf_counter() - t1
+    out: dict = {"checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
+                 "load_gb_s": nbytes / load_s / 1e9, "host_rss_mib_before": rss.before,
+                 "host_rss_peak_mib": rss.peak,
+                 "loaded_equal": tree_equal(torch, loaded, params) and lcfg == cfg}
+    shutil.rmtree(path)
+    del params
+    print(f"  A Whisper checkpoint {nbytes / 1e9:.3f} GB written in {write_s:.2f} s, loaded in "
+          f"{load_s:.2f} s ({out['load_gb_s']:.2f} GB/s), host RSS {rss.before:.0f} MiB before, "
+          f"{rss.peak:.0f} MiB at its peak during the load; loaded params bit-identical: "
+          f"{out['loaded_equal']}")
+    if not out["loaded_equal"]:
+        raise AssertionError("A: the loaded Whisper params differ from the written ones")
+    worker = ASRWorker(lcfg, loaded)
+    rng = np.random.default_rng(SEED + 21)
+    clips = {s: asr_clip(rng, s) for s in MODELS_ASR_SECONDS}
+    # the reference of each reply (and the first call of each shape)
+    direct = {s: whisper.transcribe(lcfg, loaded, worker.mel(c), MODELS_ASR_TOKENS)[0]
+              for s, c in clips.items()}
+    app = models_app("models-asr", PUBSUB_BACKEND="MEMORY")
+    app.subscribe("asr-jobs", worker.handler)
+    thread = start_app(app, timeout=120)
+    broker = app.container.pubsub
+    replies, job_ms = {}, {}
+    try:
+        for s in [*MODELS_ASR_SECONDS, "empty"]:
+            raw = b"" if s == "empty" else clips[s].tobytes()
+            job = {"id": f"{s}", "audio_b64": base64.b64encode(raw).decode(),
+                   "sample_rate": 16000, "max_tokens": MODELS_ASR_TOKENS,
+                   "reply_topic": "asr-results"}
+            t1 = time.perf_counter()
+            broker.publish("asr-jobs", json.dumps(job).encode())
+            t_end = time.monotonic() + 300
+            msg = None
+            while msg is None:
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"A: no reply to the {s} job")
+                msg = broker.subscribe("asr-results")
+            job_ms[f"{s}"] = (time.perf_counter() - t1) * 1e3
+            msg.commit()
+            replies[f"{s}"] = json.loads(msg.value)
+    finally:
+        stop_app(app, thread)
+    equal = {f"{s}": replies[f"{s}"].get("token_ids") == direct[s] for s in MODELS_ASR_SECONDS}
+    # timings on the 30 s clip: the encoder, then the decode loop as
+    # ``transcribe`` runs it (one host read a token)
+    mel = worker.mel(clips[MODELS_ASR_SECONDS[-1]])
+    enc = whisper.encode_audio(lcfg, loaded, mel)
+    sync(torch, dev)
+    t1 = time.perf_counter()
+    enc = whisper.encode_audio(lcfg, loaded, mel)
+    sync(torch, dev)
+    encode_ms = (time.perf_counter() - t1) * 1e3
+    cache = whisper.DecCache.create(lcfg, 1, dev)
+    tokens = torch.full((1,), lcfg.sot_id, dtype=torch.int64, device=dev)
+    steps = min(MODELS_ASR_TOKENS, lcfg.max_text_len - 1)
+    t1 = time.perf_counter()
+    for step in range(steps):
+        pos = torch.full((1,), step, dtype=torch.int64, device=dev)
+        logits, cache = whisper.decode_text_step(lcfg, loaded, enc, tokens, cache, pos)
+        tokens = torch.argmax(logits, dim=-1)
+        tokens.cpu()
+    token_ms = (time.perf_counter() - t1) * 1e3 / steps
+    # the first step's logits against an f32 run of the same weights
+    first = whisper.decode_text_step(lcfg, loaded, enc, torch.full((1,), lcfg.sot_id, device=dev),
+                                     whisper.DecCache.create(lcfg, 1, dev),
+                                     torch.zeros(1, dtype=torch.int64, device=dev))[0]
+    cfg32 = dataclasses.replace(lcfg, dtype=torch.float32)
+    params32 = tree_map(lambda v: v.float(), loaded)
+    enc32 = whisper.encode_audio(cfg32, params32, mel)
+    want = whisper.decode_text_step(cfg32, params32, enc32, torch.full((1,), lcfg.sot_id,
+                                                                        device=dev),
+                                    whisper.DecCache.create(cfg32, 1, dev),
+                                    torch.zeros(1, dtype=torch.int64, device=dev))[0]
+    rel = ((first - want).norm() / want.norm()).item()
+    del params32, enc32
+    out.update({
+        "config": {"n_mels": lcfg.n_mels, "vocab_size": lcfg.vocab_size,
+                   "d_model": lcfg.d_model, "n_audio_layers": lcfg.n_audio_layers,
+                   "n_text_layers": lcfg.n_text_layers, "n_heads": lcfg.n_heads,
+                   "d_ff": lcfg.d_ff, "dtype": str(lcfg.dtype)},
+        "jobs": {s: {"tokens": len(r.get("token_ids") or []), "publish_to_reply_ms": job_ms[s]}
+                 for s, r in replies.items()},
+        "token_equal": equal, "empty_reply": replies["empty"],
+        "encode_ms_30s": encode_ms, "encoder_frames_30s": int(enc.shape[1]),
+        "ms_per_token": token_ms, "first_logits_rel_l2": rel,
+        "seconds": time.perf_counter() - t0,
+    })
+    print(f"  A jobs (publish to reply): "
+          f"{ {s: round(v['publish_to_reply_ms'], 1) for s, v in out['jobs'].items()} } ms, "
+          f"tokens {[v['tokens'] for v in out['jobs'].values()]}; replies equal to transcribe "
+          f"{equal}; empty job {replies['empty']}")
+    print(f"  A encode of 30 s ({out['encoder_frames_30s']} frames) {encode_ms:.2f} ms; "
+          f"{token_ms:.2f} ms a decoded token; first-step logits rel_l2 against f32 {rel:.3e} "
+          f"(tol {LOGITS_REL_TOL})")
+    if not (all(equal.values()) and replies["empty"] == {"id": "empty", "error": "empty audio"}
+            and rel <= LOGITS_REL_TOL and all(v["tokens"] > 0 for s, v in out["jobs"].items()
+                                              if s != "empty")):
+        raise AssertionError(f"A: {out}")
+    return out
+
+
+def models_l(torch, cfg, dev, tmp: str) -> dict:
+    """L: an HF-layout Llama checkpoint at the configured width and a small
+    byte-level BPE ``tokenizer.json`` with Llama-3's Split pattern, served
+    by ``ServingEngine.from_hf`` (paged bf16, 16-token pages, whole
+    prefills) beside an engine built from the same params."""
+    import dataclasses
+    import os
+
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.testutil.assets import bpe_spec, write_bpe_asset
+    from gofr_tpu_torch.tokenizer import BPETokenizer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    params = llama.init_params(cfg, gen, device=dev)
+    perturb_norms_and_biases(torch, params, gen)
+    sync(torch, dev)
+    path = os.path.join(tmp, "llama")
+    t1 = time.perf_counter()
+    nbytes = write_hf_checkpoint(torch, path, *llama_hf(torch, cfg, params))
+    write_bpe_asset(path, bpe_spec(MODELS_L_MERGES),
+                    {"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>"})
+    write_s = time.perf_counter() - t1
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=2048)
+    with PeakRss() as rss:
+        t1 = time.perf_counter()
+        engine = ServingEngine.from_hf(path, engine_config=EngineConfig(**conf), device=dev)
+        sync(torch, dev)
+        load_s = time.perf_counter() - t1
+    out: dict = {"checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
+                 "load_gb_s": nbytes / load_s / 1e9, "host_rss_mib_before": rss.before,
+                 "host_rss_peak_mib": rss.peak,
+                 "loaded_equal": tree_equal(torch, engine.params, params)
+                 and engine.model_cfg == cfg}
+    tok = engine.tokenizer
+    round_trip = {t: tok.decode(tok.encode(t)) == t.replace("<|begin_of_text|>", "")
+                  for t in MODELS_L_TEXTS}
+    out["tokenizer"] = {"kind": f"{type(tok).__module__}.{type(tok).__name__}",
+                        "vocab_size": tok.vocab_size, "round_trip": round_trip}
+    print(f"  L checkpoint {nbytes / 1e9:.3f} GB ({cfg.n_layers} layers at d {cfg.d_model}) "
+          f"written in {write_s:.2f} s; from_hf in {load_s:.2f} s ({out['load_gb_s']:.2f} GB/s), "
+          f"host RSS {rss.before:.0f} MiB before, {rss.peak:.0f} MiB at its peak during the "
+          f"load; loaded params bit-identical: {out['loaded_equal']}; tokenizer {out['tokenizer']}")
+    if not (out["loaded_equal"] and isinstance(tok, BPETokenizer) and all(round_trip.values())):
+        raise AssertionError(f"L: {out}")
+    rng = torch.Generator().manual_seed(SEED + 22)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist() for n in MAIN_LENS]
+    prompts += MODELS_L_TEXTS
+    direct = ServingEngine(cfg, params, EngineConfig(**conf), tokenizer=tok, device=dev)
+    got = {}
+    mark = launch_counts()
+    for name, eng in (("from_hf", engine), ("direct", direct)):
+        eng.start()
+        try:
+            futs = [eng.submit(p, max_new_tokens=MODELS_L_NEW, temperature=0.0) for p in prompts]
+            got[name] = [f.result(600).token_ids for f in futs]
+        finally:
+            eng.stop()
+        if name == "from_hf":
+            out["launches"] = since(mark)
+    out["tokens_equal"] = sum(a == b for a, b in zip(got["from_hf"], got["direct"]))
+    print(f"  L from_hf engine against the direct engine: {out['tokens_equal']}/{len(prompts)} "
+          f"greedy requests token-equal ({MODELS_L_NEW} new tokens each)")
+    print_launches("L from_hf engine", out["launches"])
+    del direct
+    # without the tokenizer asset the engine keeps its ByteTokenizer
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        os.remove(os.path.join(path, name))
+    bare = ServingEngine.from_hf(path, engine_config=EngineConfig(**conf), device=dev)
+    out["fallback_tokenizer"] = type(bare.tokenizer).__name__
+    del bare
+    # forward's last position against prefill's, dense against flash prefill
+    lcfg, lparams = engine.model_cfg, engine.params
+    ids = torch.tensor([prompts[MAIN_LENS.index(1000)]], device=dev)
+    lens = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
+    fwd = llama.forward(lcfg, lparams, ids)[:, -1]
+    pre = {impl: llama._prefill_slabs(dataclasses.replace(lcfg, attn_impl=impl), lparams, ids,
+                                      lens)[0] for impl in ("flash", "dense")}
+    out["forward_vs_prefill_rel_l2"] = ((fwd - pre["flash"]).norm() / pre["flash"].norm()).item()
+    out["dense_vs_flash_rel_l2"] = ((pre["dense"] - pre["flash"]).norm()
+                                    / pre["flash"].norm()).item()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  L fallback tokenizer without tokenizer.json: {out['fallback_tokenizer']}; "
+          f"forward vs prefill logits rel_l2 {out['forward_vs_prefill_rel_l2']:.3e}, "
+          f"attn_impl dense vs flash {out['dense_vs_flash_rel_l2']:.3e} (tol {LOGITS_REL_TOL}, "
+          f"{ids.shape[1]} tokens)")
+    if not (out["tokens_equal"] == len(prompts) and out["fallback_tokenizer"] == "ByteTokenizer"
+            and out["forward_vs_prefill_rel_l2"] <= LOGITS_REL_TOL
+            and out["dense_vs_flash_rel_l2"] <= LOGITS_REL_TOL):
+        raise AssertionError(f"L: {out}")
+    return out
+
+
+def run_models(torch, bert_cfg, whisper_cfg, llama_cfg, device: str = "cuda") -> dict:
+    """The other served model families at the widths given (the card run
+    gives BERT-base, Whisper-large-v3 and Llama-3-8B at 2 layers): E (BERT
+    /embed), A (Whisper ASR over Pub/Sub from a written-and-loaded
+    checkpoint), L (a Llama checkpoint and tokenizer through ``from_hf``).
+    The counters are reset before the phase; L's ``from_hf`` engine must
+    launch flash and the bf16 paged kernel."""
+    import tempfile
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_models_", dir=ROOT) as tmp:
+        print(f"E: BERT /embed ({bert_cfg.n_layers} layers, d {bert_cfg.d_model}, "
+              f"{bert_cfg.dtype}) on an App")
+        out["E"] = models_e(torch, bert_cfg, dev)
+        print(f"A: Whisper ASR over Pub/Sub ({whisper_cfg.n_audio_layers}+"
+              f"{whisper_cfg.n_text_layers} layers, d {whisper_cfg.d_model}, "
+              f"{whisper_cfg.n_mels} mels), from a checkpoint written and loaded back")
+        out["A"] = models_a(torch, whisper_cfg, dev, tmp)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"L: Llama through from_hf (d {llama_cfg.d_model}, {llama_cfg.n_layers} layers, "
+              f"vocab {llama_cfg.vocab_size})")
+        out["L"] = models_l(torch, llama_cfg, dev, tmp)
+    out["launches"] = out["L"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  models: {out['seconds']:.1f}s ({out['card']})")
+    if not (out["launches"].get("flash_attention") and out["launches"].get("paged_decode_attention")):
+        raise AssertionError(f"models launches {out['launches']}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 PLANE_DEPTH = 8  # layers of the LoRA-tenancy and observability phases
 
 
@@ -5545,12 +6154,21 @@ def main() -> int:
 
     (launches, engine_timings, lifecycle, reuse, tenancy, healing, observability,
      ha, fleet, http, surface) = run_engine(torch)
+    from gofr_tpu_torch.models.bert import BertConfig
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.models.whisper import WhisperConfig
+
+    print("models phase (BERT-base /embed, Whisper-large-v3 ASR over Pub/Sub from a written "
+          f"checkpoint, Llama-3-8B widths at {MODELS_L_DEPTH} layers through from_hf):")
+    models = run_models(torch, BertConfig.base(), WhisperConfig.large_v3(),
+                        LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
-    for r in rows:  # the fleet, http and surface phases' launches beside the main paths'
+    for r in rows:  # the later phases' launches beside the main paths'
         r["launches_fleet"] = fleet["launches"].get(r["name"], 0)
         r["launches_http"] = http["launches"].get(r["name"], 0)
         r["launches_surface"] = surface["launches"].get(r["name"], 0)
+        r["launches_models"] = models["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -5566,6 +6184,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}, default=str))
     print(json.dumps({"http": http}, default=str))
     print(json.dumps({"surface": surface}, default=str))
+    print(json.dumps({"models": models}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

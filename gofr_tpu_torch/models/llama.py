@@ -22,8 +22,10 @@ slab form is ``_prefill_slabs``), per-vector int8 ``quantize_kv``/
 ``decode_step_greedy``, ``decode_loop_greedy``, ``greedy_generate``,
 prompt-lookup ``speculative_generate`` and the chunk forward
 ``decode_chunk``, and the paged ``decode_step_paged``/``_q`` and
-``decode_chunk_paged``/``_q``. Waiting for later slices: ``forward``, tied
-embeddings and context parallelism.
+``decode_chunk_paged``/``_q``, the cache-less ``forward``, tied embeddings
+(``tie_embeddings``), the prefill's ``attn_impl`` and the ``llama3_70b``
+preset. Waiting for a later slice: context parallelism (``attn_impl="cp"``
+is refused).
 """
 
 from __future__ import annotations
@@ -55,6 +57,22 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # the logits reuse ``embedding.T`` (f32 out); the params hold no lm_head
+    tie_embeddings: bool = False
+    # the prefill's attention: "auto" and "flash" take the flash wrapper
+    # (the kernel on the card, its plain version on the CPU); "dense" the
+    # plain ``attention`` on either device. "cp" (context parallelism) is
+    # refused until the parallel plane is ported (ROADMAP Queue A item 9)
+    attn_impl: str = "auto"
+
+    def __post_init__(self) -> None:
+        if self.attn_impl == "cp":
+            raise ValueError(
+                "attn_impl='cp' (context-parallel attention) is not ported: it needs the "
+                "parallel plane of ROADMAP Queue A item 9"
+            )
+        if self.attn_impl not in ("auto", "flash", "dense"):
+            raise ValueError(f"attn_impl={self.attn_impl!r}: must be auto, flash or dense")
 
     @property
     def head_dim(self) -> int:
@@ -63,6 +81,12 @@ class LlamaConfig:
     @classmethod
     def llama3_8b(cls, **kw: Any) -> "LlamaConfig":
         return cls(**kw)
+
+    @classmethod
+    def llama3_70b(cls, **kw: Any) -> "LlamaConfig":
+        return cls(
+            d_model=8192, n_layers=80, n_heads=64, n_kv_heads=8, d_ff=28672, **kw
+        )
 
     @classmethod
     def tiny(cls, **kw: Any) -> "LlamaConfig":
@@ -115,8 +139,9 @@ def init_params(
             "mlp_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
         },
         "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
-        "lm_head": mm_weight((D, cfg.vocab_size), D),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = mm_weight((D, cfg.vocab_size), D)
     return params
 
 
@@ -274,8 +299,11 @@ def _attn_mlp_epilogue(
 
 def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm + lm_head, f32 logits [..., V]; a weight-only int8 head
-    takes its scale on the f32 product, with no rounding after it."""
+    takes its scale on the f32 product, with no rounding after it. A tied
+    config's head is ``embedding.T``. Every path's logits come here."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return _matmul_f32(x, params["embedding"].T)
     head = params["lm_head"]
     if isinstance(head, dict):
         return _matmul_f32(x, head["q"].to(x.dtype)) * head["s"]
@@ -284,6 +312,22 @@ def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embedding"][tokens].to(cfg.dtype)
+
+
+def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Plain causal forward with no cache: [B, S] -> logits [B, S, V] f32,
+    every layer's attention the plain ``attention`` (the reference's
+    ``_layer``), whatever ``attn_impl`` says."""
+    B, S = tokens.shape
+    dev = tokens.device
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    for layer in range(cfg.n_layers):
+        lp = layer_params(params, layer)
+        _, q, k, v = _qkv(cfg, x, lp, sin, cos, positions)
+        x = _attn_mlp_epilogue(cfg, x, lp, attention(q, k, v, causal=True))
+    return _logits(cfg, params, x)
 
 
 def _prefill_layers(
@@ -297,7 +341,8 @@ def _prefill_layers(
     the last-token logits [B, V] f32. Attention is the flash kernel (its
     plain version on the CPU) over the fresh full-precision K/V; positions
     past ``seq_lens`` still attend to the valid keys and their K/V is
-    masked at every later read."""
+    masked at every later read. ``attn_impl="dense"`` takes the plain
+    ``attention`` instead of the flash wrapper."""
     B, S = tokens.shape
     dev = tokens.device
     x = _embed(cfg, params, tokens)
@@ -308,7 +353,10 @@ def _prefill_layers(
         lp = layer_params(params, layer)
         _, q, k, v = _qkv(cfg, x, lp, sin, cos, positions)
         store(layer, k, v)
-        attn = flash_attention(q, k, v, kv_len, causal=True)
+        if cfg.attn_impl == "dense":
+            attn = attention(q, k, v, causal=True, kv_len=kv_len)
+        else:
+            attn = flash_attention(q, k, v, kv_len, causal=True)
         x = _attn_mlp_epilogue(cfg, x, lp, attn)
     # the last valid position's hidden state BEFORE the lm_head: [B, S, V]
     # logits only to keep one position would waste 2*B*S*D*V FLOPs

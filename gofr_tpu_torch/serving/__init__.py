@@ -7,8 +7,11 @@ HA plane (idempotent submits and resumable streams), cross-replica KV
 over heartbeats, the prefix-affine router with failover, hedging and P/D
 routing over local or HTTP replicas, and the autoscaler with its pool
 driver. The HTTP bindings are ``serving/handlers.py`` (the generation
-routes, over HTTP and WebSocket) and ``serving/remote.py`` (the remote streaming client)."""
+routes, over HTTP and WebSocket, and /embed) and ``serving/remote.py`` (the
+remote streaming client); ``serving/asr.py``'s ``ASRWorker`` serves Whisper
+transcription behind a subscriber."""
 
+from gofr_tpu_torch.serving.asr import ASRWorker
 from gofr_tpu_torch.serving.autoscaler import (
     Autoscaler,
     AutoscalerConfig,
@@ -39,13 +42,14 @@ from gofr_tpu_torch.serving.router import (
 )
 from gofr_tpu_torch.serving.supervisor import EngineSupervisor
 from gofr_tpu_torch.serving.tenancy import TenantPolicy, TenantRegistry
+from gofr_tpu_torch.serving.tokenizer import ByteTokenizer, HFTokenizer, Tokenizer, pad_batch
 
-__all__ = ["AdapterRegistry", "Autoscaler", "AutoscalerConfig", "DedupRegistry",
-           "DeviceTelemetry", "EngineSupervisor", "HTTPReplica", "Heartbeat", "KVMigrator",
-           "LocalReplica",
+__all__ = ["ASRWorker", "AdapterRegistry", "Autoscaler", "AutoscalerConfig",
+           "ByteTokenizer", "DedupRegistry", "DeviceTelemetry", "EngineSupervisor",
+           "HFTokenizer", "HTTPReplica", "Heartbeat", "KVMigrator", "LocalReplica",
            "LoraAdapter", "MembershipTable", "PrefixIndex", "ReplayGap", "ReplayStream",
            "ReplicaAnnouncer", "ReplicaPoolDriver", "Router", "RouterConfig",
-           "SimulatedPoolDriver", "TenantPolicy", "TenantRegistry", "decode_entry",
-           "encode_entry", "engine_factory", "local_engine_fetcher", "local_engine_store",
-           "make_adapter", "prefix_affinity_key", "register_serving_metrics",
-           "release_replica"]
+           "SimulatedPoolDriver", "TenantPolicy", "TenantRegistry", "Tokenizer",
+           "decode_entry", "encode_entry", "engine_factory", "local_engine_fetcher",
+           "local_engine_store", "make_adapter", "pad_batch", "prefix_affinity_key",
+           "register_serving_metrics", "release_replica"]

@@ -217,8 +217,10 @@ metrics port serves ``/metrics``;
 ``serving/remote.py`` and the router's ``HTTPReplica`` are the remote
 streaming client; ``logger=`` takes the app's structured logger, whose
 lines carry the active span's ``trace_id``/``span_id`` (log correlation).
-``python -m gofr_tpu_torch.serve`` runs one. Not ported yet: the gRPC
-generation surface and ``/embed``.
+``python -m gofr_tpu_torch.serve`` runs one. ``from_hf`` builds an engine
+from an HF-layout checkpoint and its tokenizer asset. Not ported yet: the
+gRPC generation surface, ``from_checkpoint`` (the training slice's
+checkpoint manager) and ``from_hf``'s ``sharding=``.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -747,6 +749,37 @@ class ServingEngine:
         self._cold_key: tuple | None = None
         self._supervisor: Any = None  # EngineSupervisor backref (health)
         self.device_telemetry: Any = None  # DeviceTelemetry backref (health)
+
+    @classmethod
+    def from_hf(
+        cls,
+        path: str,
+        *,
+        dtype: torch.dtype | None = None,
+        sharding: Any = None,
+        fs: Any = None,
+        tokenizer: Any = None,
+        device: str | torch.device | None = None,
+        **kw: Any,
+    ) -> "ServingEngine":
+        """Serve an externally produced checkpoint: HF-layout safetensors
+        weights (``models.hf_import.load_llama_from_hf``, on ``device``, the
+        card by default) and the tokenizer asset beside them
+        (``tokenizer.json`` or ``tokenizer.model``, through
+        ``load_tokenizer``). With no asset there the engine keeps its
+        ``ByteTokenizer``, as the reference does. ``sharding=`` raises until
+        the parallel plane is ported."""
+        from gofr_tpu_torch.models.hf_import import load_llama_from_hf
+        from gofr_tpu_torch.tokenizer import load_tokenizer
+
+        cfg, params = load_llama_from_hf(path, dtype=dtype, sharding=sharding, fs=fs,
+                                         device=device)
+        if tokenizer is None:
+            try:
+                tokenizer = load_tokenizer(path, fs=fs)
+            except FileNotFoundError:
+                tokenizer = None  # the ByteTokenizer default
+        return cls(cfg, params, tokenizer=tokenizer, device=device, **kw)
 
     def _make_dense_cache(self) -> llama.KVCache:
         """The one dense slot-cache constructor, shared by __init__, the

@@ -1,8 +1,8 @@
 """Ready-made serving handlers (a copy of ``gofr_tpu/serving/handlers.py``
 over the port's app): /generate (JSON + SSE stream), /generate/cancel,
 /ws/generate (WebSocket), /v1/models, /requestz (the request flight
-recorder), /kv/fetch (warm KV migration's server half), /routerz and the
-admin drain.
+recorder), /kv/fetch (warm KV migration's server half), /routerz, the
+admin drain and /embed.
 
 Wire-up (mirrors the reference's route ergonomics)::
 
@@ -14,7 +14,8 @@ Wire-up (mirrors the reference's route ergonomics)::
 Streaming: ``"stream": true`` returns Server-Sent Events over chunked
 transfer — each token a ``data:`` line, final event carries usage stats.
 ``register_generation_ws`` is the WebSocket twin: a frame per token, then a
-summary frame. /embed is not ported.
+summary frame. ``register_embedding_routes`` serves /embed from a BERT
+encoder's params; its native PJRT path is not ported.
 """
 
 from __future__ import annotations
@@ -604,3 +605,56 @@ def register_admin_drain(app: Any, path: str = "/.well-known/drain") -> None:
         return {"status": "DRAINING"}
 
     app.post(path, drain_handler)
+
+
+def register_embedding_routes(app: Any, bert_cfg: Any, bert_params: Any,
+                              tokenizer: Any, prefix: str = "",
+                              native_embedder: Any = None) -> None:
+    """The /embed endpoint (BASELINE.json configs[1]): tokenize, right-pad to
+    a bucket (``pad_batch``), run ``models.bert.embed`` in the executor on
+    the device the params live on. The body's ``input`` (or ``texts``) is a
+    string or a list of them; the answer carries ``embeddings``, ``dim``,
+    ``engine`` (``"torch"``) and ``usage.prompt_tokens``.
+
+    The reference's native PJRT path (``native_embedder=``, or
+    ``TPU_NATIVE_PJRT=1`` in the app's config) binds libtpu and has no
+    counterpart on the card (ROADMAP Queue A item 7): either refuses here,
+    at registration, instead of being ignored."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.models import bert as bert_model
+    from gofr_tpu_torch.serving.tokenizer import pad_batch
+
+    config = getattr(app.container, "config", None)
+    if native_embedder is not None or (
+        config is not None and config.get_or_default("TPU_NATIVE_PJRT", "0") == "1"
+    ):
+        raise NotImplementedError(
+            "the native PJRT embedder binds libtpu and is not ported (ROADMAP Queue A "
+            "item 7); /embed runs models.bert.embed"
+        )
+    device = bert_params["embedding"].device
+
+    def run(arr: np.ndarray, lens: list[int]) -> np.ndarray:
+        tokens = torch.from_numpy(arr).to(device)
+        seq_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+        return bert_model.embed(bert_cfg, bert_params, tokens, seq_lens).cpu().numpy()
+
+    async def embed(ctx: Any):
+        body = ctx.bind(dict) or {}
+        texts = body.get("input") or body.get("texts")
+        if isinstance(texts, str):
+            texts = [texts]
+        if not texts:
+            raise ErrorMissingParam("input")
+        arr, lens = pad_batch(tokenizer, texts, bert_cfg.max_seq_len)
+        emb = await asyncio.get_running_loop().run_in_executor(None, run, arr, lens)
+        return {
+            "embeddings": emb.tolist(),
+            "dim": int(emb.shape[1]),
+            "engine": "torch",
+            "usage": {"prompt_tokens": int(sum(lens))},
+        }
+
+    app.post(prefix + "/embed", embed)

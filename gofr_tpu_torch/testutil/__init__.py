@@ -1,5 +1,6 @@
 """Test doubles and helpers of the port (copies of ``gofr_tpu/testutil``
-modules that raise the port's errors, free ports, and an app runner)."""
+modules that raise the port's errors, free ports, an app runner, and
+tokenizer assets written from code)."""
 
 from gofr_tpu_torch.testutil.apps import fetch, start_app, stop_app, wait_ready
 from gofr_tpu_torch.testutil.ports import ServerConfigs, get_free_port, new_server_configs

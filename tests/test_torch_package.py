@@ -21,6 +21,9 @@ from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "gofr_tpu", "websockets")
+# not on the card's machine: no port module imports one when it is imported
+# (``HFTokenizer`` imports ``transformers`` when one is built)
+FORBIDDEN_AT_IMPORT = ("regex", "transformers", "tokenizers", "safetensors", "sentencepiece")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,10 +50,31 @@ def _imported(path: Path) -> set[str]:
     return names
 
 
+def _imported_at_import(path: Path) -> set[str]:
+    """Modules a file imports when it is imported: every import statement
+    outside a function body."""
+    names: set[str] = set()
+
+    def walk(node: ast.AST) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                names.update(alias.name for alias in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module and child.level == 0:
+                names.add(child.module)
+            walk(child)
+
+    walk(ast.parse(path.read_text(), str(path)))
+    return names
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax_or_the_jax_package(path):
     bad = {n for n in _imported(path) if n.split(".")[0] in FORBIDDEN}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+    late = {n for n in _imported_at_import(path) if n.split(".")[0] in FORBIDDEN_AT_IMPORT}
+    assert not late, f"{path.relative_to(ROOT)} imports {sorted(late)} when it is imported"
 
 
 def test_every_kernel_source_is_bound():
@@ -199,7 +223,8 @@ def test_app_modules_are_checked_and_import_no_jax():
                      for p in _port_files() if p.name != "chip_smoke.py")
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
-            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + FORBIDDEN_AT_IMPORT!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -243,6 +268,52 @@ def test_surface_modules_are_checked_and_keep_the_device_policy(no_card):
     cmd = new_cmd(MapConfig({"LOG_LEVEL": "FATAL"}, use_env=False))
     assert cmd.is_cmd and not cmd.router.routes  # no default routes in CMD mode
     cmd.container.close()
+
+
+MODEL_MODULES = (
+    "gofr_tpu_torch/ops/audio.py", "gofr_tpu_torch/models/bert.py",
+    "gofr_tpu_torch/models/whisper.py", "gofr_tpu_torch/models/hf_import.py",
+    "gofr_tpu_torch/models/whisper_import.py", "gofr_tpu_torch/serving/asr.py",
+    "gofr_tpu_torch/serving/tokenizer.py", "gofr_tpu_torch/tokenizer/__init__.py",
+    "gofr_tpu_torch/tokenizer/bpe.py", "gofr_tpu_torch/tokenizer/spm.py",
+    "gofr_tpu_torch/testutil/assets.py",
+)
+
+
+def test_model_family_modules_are_checked_and_keep_the_device_policy(no_card, tmp_path):
+    """The BERT, Whisper, loader and tokenizer modules are among the files
+    the import rules hold. Their entry points build on the card unless
+    asked for the CPU and raise without one: BERT's and Whisper's params,
+    Whisper's decoder cache, both loaders and ``ServingEngine.from_hf``.
+    Tokenizers are host code and build without a card."""
+    import json
+
+    from gofr_tpu_torch.models import bert, hf_import, whisper, whisper_import
+    from gofr_tpu_torch.testutil.assets import bpe_spec
+    from gofr_tpu_torch.tokenizer import BPETokenizer
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(MODEL_MODULES) <= files
+    bcfg, wcfg = bert.BertConfig.tiny(), whisper.WhisperConfig.tiny()
+    for call in (lambda: bert.init_params(bcfg), lambda: whisper.init_params(wcfg),
+                 lambda: whisper.DecCache.create(wcfg, 1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert bert.init_params(bcfg, device="cpu")["embedding"].device.type == "cpu"
+    assert whisper.DecCache.create(wcfg, 1, "cpu").k.device.type == "cpu"
+    (tmp_path / "config.json").write_text(json.dumps({
+        "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2,
+        "intermediate_size": 8, "num_mel_bins": 8, "d_model": 8, "encoder_layers": 1,
+        "decoder_layers": 1, "encoder_attention_heads": 2, "encoder_ffn_dim": 8}))
+    for call in (lambda: hf_import.load_llama_from_hf(str(tmp_path)),
+                 lambda: whisper_import.load_whisper_from_hf(str(tmp_path)),
+                 lambda: ServingEngine.from_hf(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pytest.raises(FileNotFoundError):  # with the CPU asked for: no weights there
+        hf_import.load_llama_from_hf(str(tmp_path), device="cpu")
+    tok = BPETokenizer.from_spec(bpe_spec([("a", "b")]))
+    assert tok.decode(tok.encode("abc")) == "abc"
 
 
 def test_serve_entry_point_refuses_without_a_card(no_card):
