@@ -232,8 +232,8 @@ Phases, each a hard failure with a non-zero exit:
      ``BPETokenizer`` round-tripping the texts, the main path's prompts
      token-equal to an engine built from the same params, flash and the
      bf16 paged kernel launched, ``ByteTokenizer`` without the asset,
-     ``forward``'s last logits against prefill's and ``attn_impl`` dense
-     against flash; load s and the host's peak RSS;
+     ``forward``'s last logits (plain attention) against the flash
+     prefill's; load s and the host's peak RSS;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -2796,9 +2796,14 @@ class MetricTap:
                                                    v["app_decode_block_size"]) if n > 0]
 
 
-def median(xs):
+def percentile(xs, q: float):
+    """The nearest-rank ``q``-th percentile (the upper middle at 50)."""
     xs = sorted(xs)
-    return xs[len(xs) // 2] if xs else None
+    return xs[min(len(xs) - 1, int(len(xs) * q / 100))] if xs else None
+
+
+def median(xs):
+    return percentile(xs, 50)
 
 
 def engine_idle(engine, probe) -> bool:
@@ -5433,11 +5438,6 @@ MODELS_L_TEXTS = ["the quick brown fox jumps over the lazy dog",
                   "Hello, WORLD's 12345 caffè 東京 🚀\r\n\r\n  don't", "<|begin_of_text|>the end"]
 
 
-def sync(torch, dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -5454,19 +5454,6 @@ def tree_equal(torch, a: dict, b: dict) -> bool:
         elif v.dtype != w.dtype or v.shape != w.shape or not torch.equal(v, w):
             return False
     return True
-
-
-def perturb_norms_and_biases(torch, tree: dict, gen) -> None:
-    """Norm scales to U(0.8, 1.2) and biases to N(0, 0.02) in place: with
-    the init's ones and zeros, a loader that swapped two of them would
-    still load equal leaves."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            perturb_norms_and_biases(torch, v, gen)
-        elif v.dtype == torch.float32 and ("norm" in k or k.endswith("_s")):
-            v.uniform_(0.8, 1.2, generator=gen)
-        elif v.dtype == torch.float32:
-            v.normal_(0.0, 0.02, generator=gen)
 
 
 def write_safetensors(torch, path: str, tensors: dict) -> int:
@@ -5618,12 +5605,6 @@ def cosine(a, b) -> float:
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
 
 
-def pct(xs: list[float], q: float) -> float:
-    import numpy as np
-
-    return float(np.percentile(np.asarray(xs), q))
-
-
 def models_app(name: str, **values):
     from gofr_tpu_torch.app import App
     from gofr_tpu_torch.config import MapConfig
@@ -5705,7 +5686,7 @@ def models_e(torch, cfg, dev) -> dict:
     batch_cos = [cosine(served[i], batch[i]) for i in range(MODELS_E_BATCH)]
     out.update({
         "requests": len(singles), "engine_dim": sorted(meta),
-        "ms": {n: {"p50": pct(v, 50), "p95": pct(v, 95), "n": len(v)} for n, v in ms.items()},
+        "ms": {n: {"p50": median(v), "p95": percentile(v, 95), "n": len(v)} for n, v in ms.items()},
         "batch": {"texts": MODELS_E_BATCH, "status": status_b, "ms": batch_ms},
         "norm_err_max": float(np.abs(norms - 1).max()),
         "cosine_alone_vs_batch_min": min(batch_cos), "cosine_f32_min": min(f32_cos),
@@ -5752,12 +5733,13 @@ def models_a(torch, cfg, dev, tmp: str) -> dict:
     from gofr_tpu_torch.models.whisper_import import load_whisper_from_hf
     from gofr_tpu_torch.serving.asr import ASRWorker
     from gofr_tpu_torch.testutil import start_app, stop_app
+    from gofr_tpu_torch.testutil.params import perturb_norms_and_biases
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     params = whisper.init_params(cfg, gen, device=dev)
-    perturb_norms_and_biases(torch, params, gen)
-    sync(torch, dev)
+    perturb_norms_and_biases(params, gen)
+    torch.cuda.synchronize()
     path = os.path.join(tmp, "whisper")
     t1 = time.perf_counter()
     nbytes = write_hf_checkpoint(torch, path, *whisper_hf(torch, cfg, params))
@@ -5765,7 +5747,7 @@ def models_a(torch, cfg, dev, tmp: str) -> dict:
     with PeakRss() as rss:
         t1 = time.perf_counter()
         lcfg, loaded = load_whisper_from_hf(path, device=dev)
-        sync(torch, dev)
+        torch.cuda.synchronize()
         load_s = time.perf_counter() - t1
     out: dict = {"checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
                  "load_gb_s": nbytes / load_s / 1e9, "host_rss_mib_before": rss.before,
@@ -5814,10 +5796,10 @@ def models_a(torch, cfg, dev, tmp: str) -> dict:
     # ``transcribe`` runs it (one host read a token)
     mel = worker.mel(clips[MODELS_ASR_SECONDS[-1]])
     enc = whisper.encode_audio(lcfg, loaded, mel)
-    sync(torch, dev)
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
     enc = whisper.encode_audio(lcfg, loaded, mel)
-    sync(torch, dev)
+    torch.cuda.synchronize()
     encode_ms = (time.perf_counter() - t1) * 1e3
     cache = whisper.DecCache.create(lcfg, 1, dev)
     tokens = torch.full((1,), lcfg.sot_id, dtype=torch.int64, device=dev)
@@ -5873,19 +5855,19 @@ def models_l(torch, cfg, dev, tmp: str) -> dict:
     byte-level BPE ``tokenizer.json`` with Llama-3's Split pattern, served
     by ``ServingEngine.from_hf`` (paged bf16, 16-token pages, whole
     prefills) beside an engine built from the same params."""
-    import dataclasses
     import os
 
     from gofr_tpu_torch import EngineConfig, ServingEngine
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.testutil.assets import bpe_spec, write_bpe_asset
+    from gofr_tpu_torch.testutil.params import perturb_norms_and_biases
     from gofr_tpu_torch.tokenizer import BPETokenizer
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
     params = llama.init_params(cfg, gen, device=dev)
-    perturb_norms_and_biases(torch, params, gen)
-    sync(torch, dev)
+    perturb_norms_and_biases(params, gen)
+    torch.cuda.synchronize()
     path = os.path.join(tmp, "llama")
     t1 = time.perf_counter()
     nbytes = write_hf_checkpoint(torch, path, *llama_hf(torch, cfg, params))
@@ -5897,7 +5879,7 @@ def models_l(torch, cfg, dev, tmp: str) -> dict:
     with PeakRss() as rss:
         t1 = time.perf_counter()
         engine = ServingEngine.from_hf(path, engine_config=EngineConfig(**conf), device=dev)
-        sync(torch, dev)
+        torch.cuda.synchronize()
         load_s = time.perf_counter() - t1
     out: dict = {"checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
                  "load_gb_s": nbytes / load_s / 1e9, "host_rss_mib_before": rss.before,
@@ -5941,29 +5923,24 @@ def models_l(torch, cfg, dev, tmp: str) -> dict:
     bare = ServingEngine.from_hf(path, engine_config=EngineConfig(**conf), device=dev)
     out["fallback_tokenizer"] = type(bare.tokenizer).__name__
     del bare
-    # forward's last position against prefill's, dense against flash prefill
+    # forward's last position (plain attention) against the flash prefill's
     lcfg, lparams = engine.model_cfg, engine.params
     ids = torch.tensor([prompts[MAIN_LENS.index(1000)]], device=dev)
     lens = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
     fwd = llama.forward(lcfg, lparams, ids)[:, -1]
-    pre = {impl: llama._prefill_slabs(dataclasses.replace(lcfg, attn_impl=impl), lparams, ids,
-                                      lens)[0] for impl in ("flash", "dense")}
-    out["forward_vs_prefill_rel_l2"] = ((fwd - pre["flash"]).norm() / pre["flash"].norm()).item()
-    out["dense_vs_flash_rel_l2"] = ((pre["dense"] - pre["flash"]).norm()
-                                    / pre["flash"].norm()).item()
+    pre = llama._prefill_slabs(lcfg, lparams, ids, lens)[0]
+    out["forward_vs_prefill_rel_l2"] = ((fwd - pre).norm() / pre.norm()).item()
     out["seconds"] = time.perf_counter() - t0
     print(f"  L fallback tokenizer without tokenizer.json: {out['fallback_tokenizer']}; "
-          f"forward vs prefill logits rel_l2 {out['forward_vs_prefill_rel_l2']:.3e}, "
-          f"attn_impl dense vs flash {out['dense_vs_flash_rel_l2']:.3e} (tol {LOGITS_REL_TOL}, "
-          f"{ids.shape[1]} tokens)")
+          f"forward vs flash prefill logits rel_l2 {out['forward_vs_prefill_rel_l2']:.3e} "
+          f"(tol {LOGITS_REL_TOL}, {ids.shape[1]} tokens)")
     if not (out["tokens_equal"] == len(prompts) and out["fallback_tokenizer"] == "ByteTokenizer"
-            and out["forward_vs_prefill_rel_l2"] <= LOGITS_REL_TOL
-            and out["dense_vs_flash_rel_l2"] <= LOGITS_REL_TOL):
+            and out["forward_vs_prefill_rel_l2"] <= LOGITS_REL_TOL):
         raise AssertionError(f"L: {out}")
     return out
 
 
-def run_models(torch, bert_cfg, whisper_cfg, llama_cfg, device: str = "cuda") -> dict:
+def run_models(torch, bert_cfg, whisper_cfg, llama_cfg) -> dict:
     """The other served model families at the widths given (the card run
     gives BERT-base, Whisper-large-v3 and Llama-3-8B at 2 layers): E (BERT
     /embed), A (Whisper ASR over Pub/Sub from a written-and-loaded
@@ -5972,7 +5949,7 @@ def run_models(torch, bert_cfg, whisper_cfg, llama_cfg, device: str = "cuda") ->
     launch flash and the bf16 paged kernel."""
     import tempfile
 
-    dev = torch.device(device)
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     zero_launches()
     out: dict = {"card": card_line()}
@@ -5984,8 +5961,7 @@ def run_models(torch, bert_cfg, whisper_cfg, llama_cfg, device: str = "cuda") ->
               f"{whisper_cfg.n_text_layers} layers, d {whisper_cfg.d_model}, "
               f"{whisper_cfg.n_mels} mels), from a checkpoint written and loaded back")
         out["A"] = models_a(torch, whisper_cfg, dev, tmp)
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
         print(f"L: Llama through from_hf (d {llama_cfg.d_model}, {llama_cfg.n_layers} layers, "
               f"vocab {llama_cfg.vocab_size})")
         out["L"] = models_l(torch, llama_cfg, dev, tmp)
@@ -5994,8 +5970,7 @@ def run_models(torch, bert_cfg, whisper_cfg, llama_cfg, device: str = "cuda") ->
     print(f"  models: {out['seconds']:.1f}s ({out['card']})")
     if not (out["launches"].get("flash_attention") and out["launches"].get("paged_decode_attention")):
         raise AssertionError(f"models launches {out['launches']}")
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return out
 
 

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from gofr_tpu_torch._device import resolve_device
 from gofr_tpu_torch.ops.attention import attention, decode_attention
 from gofr_tpu_torch.ops.flash_attention import flash_attention
+from gofr_tpu_torch.ops.matmul import matmul_f32
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_q
 from gofr_tpu_torch.ops.rope import apply_rope, rope_table
@@ -59,10 +60,10 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # the logits reuse ``embedding.T`` (f32 out); the params hold no lm_head
     tie_embeddings: bool = False
-    # the prefill's attention: "auto" and "flash" take the flash wrapper
-    # (the kernel on the card, its plain version on the CPU); "dense" the
-    # plain ``attention`` on either device. "cp" (context parallelism) is
-    # refused until the parallel plane is ported (ROADMAP Queue A item 9)
+    # the prefill's attention: "auto" and "flash" both take the flash
+    # wrapper (the kernel on the card, its plain version on the CPU). "cp"
+    # (context parallelism) is refused until the parallel plane is ported
+    # (ROADMAP Queue A item 9)
     attn_impl: str = "auto"
 
     def __post_init__(self) -> None:
@@ -71,8 +72,8 @@ class LlamaConfig:
                 "attn_impl='cp' (context-parallel attention) is not ported: it needs the "
                 "parallel plane of ROADMAP Queue A item 9"
             )
-        if self.attn_impl not in ("auto", "flash", "dense"):
-            raise ValueError(f"attn_impl={self.attn_impl!r}: must be auto, flash or dense")
+        if self.attn_impl not in ("auto", "flash"):
+            raise ValueError(f"attn_impl={self.attn_impl!r}: must be auto or flash")
 
     @property
     def head_dim(self) -> int:
@@ -246,22 +247,8 @@ def _mm(x: torch.Tensor, w: torch.Tensor | dict) -> torch.Tensor:
     fuses that convert into the dot; here it is a separate copy of the
     weight on every call."""
     if isinstance(w, dict):
-        return (_matmul_f32(x, w["q"].to(x.dtype)) * w["s"]).to(x.dtype)
+        return (matmul_f32(x, w["q"].to(x.dtype)) * w["s"]).to(x.dtype)
     return x @ w
-
-
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` accumulated AND returned in f32 from bf16 operands
-    (``preferred_element_type=f32``): a bf16 product cast afterwards would
-    round the logits and change greedy ties."""
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return x @ w
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
-    else:  # bf16 products are exact in f32
-        y = x2.float() @ w.float()
-    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def _qkv(
@@ -303,11 +290,11 @@ def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     config's head is ``embedding.T``. Every path's logits come here."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return _matmul_f32(x, params["embedding"].T)
+        return matmul_f32(x, params["embedding"].T)
     head = params["lm_head"]
     if isinstance(head, dict):
-        return _matmul_f32(x, head["q"].to(x.dtype)) * head["s"]
-    return _matmul_f32(x, head)
+        return matmul_f32(x, head["q"].to(x.dtype)) * head["s"]
+    return matmul_f32(x, head)
 
 
 def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -341,8 +328,7 @@ def _prefill_layers(
     the last-token logits [B, V] f32. Attention is the flash kernel (its
     plain version on the CPU) over the fresh full-precision K/V; positions
     past ``seq_lens`` still attend to the valid keys and their K/V is
-    masked at every later read. ``attn_impl="dense"`` takes the plain
-    ``attention`` instead of the flash wrapper."""
+    masked at every later read."""
     B, S = tokens.shape
     dev = tokens.device
     x = _embed(cfg, params, tokens)
@@ -353,10 +339,7 @@ def _prefill_layers(
         lp = layer_params(params, layer)
         _, q, k, v = _qkv(cfg, x, lp, sin, cos, positions)
         store(layer, k, v)
-        if cfg.attn_impl == "dense":
-            attn = attention(q, k, v, causal=True, kv_len=kv_len)
-        else:
-            attn = flash_attention(q, k, v, kv_len, causal=True)
+        attn = flash_attention(q, k, v, kv_len, causal=True)
         x = _attn_mlp_epilogue(cfg, x, lp, attn)
     # the last valid position's hidden state BEFORE the lm_head: [B, S, V]
     # logits only to keep one position would waste 2*B*S*D*V FLOPs

@@ -25,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from gofr_tpu_torch._device import resolve_device
-from gofr_tpu_torch.models.llama import _matmul_f32
 from gofr_tpu_torch.ops.attention import attention, decode_attention
+from gofr_tpu_torch.ops.matmul import matmul_f32
 from gofr_tpu_torch.ops.norms import layer_norm
 
 
@@ -213,7 +213,7 @@ def decode_text_step(
 
         x = x + _mlp(lp, layer_norm(x, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps))
     x = layer_norm(x, params["dec_ln_s"], params["dec_ln_b"], cfg.norm_eps)
-    logits = _matmul_f32(x, params["tok_embedding"].T)[:, 0]
+    logits = matmul_f32(x, params["tok_embedding"].T)[:, 0]
     return logits, cache
 
 

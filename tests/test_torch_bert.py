@@ -33,6 +33,7 @@ from gofr_tpu_torch.ops.norms import layer_norm  # noqa: E402
 from gofr_tpu_torch.serving import handlers as t_handlers  # noqa: E402
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer, pad_batch  # noqa: E402
 from gofr_tpu_torch.testutil import fetch, get_free_port, start_app, stop_app  # noqa: E402
+from gofr_tpu_torch.testutil.params import perturb_norms_and_biases  # noqa: E402
 
 TEXTS = ["hi", "the quick brown fox jumps over the lazy dog", "caffè 東京 🚀", "x" * 70]
 
@@ -50,11 +51,15 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def models():
     """BERT tiny at vocab 300 (the byte tokenizer's ids fit), JAX params and
-    their port copy."""
+    their port copy. The init's unit norm scales and zero biases are given
+    distinct values first, so a misplaced bias or norm shows."""
     jcfg = jbert.BertConfig.tiny(vocab_size=300)
-    jparams = jbert.init_params(jcfg, jax.random.PRNGKey(0))
     tcfg = tbert.BertConfig.tiny(vocab_size=300)
-    return jcfg, jparams, tcfg, params_from_jax(jax.device_get(jparams), device="cpu")
+    tparams = params_from_jax(jax.device_get(jbert.init_params(jcfg, jax.random.PRNGKey(0))),
+                              device="cpu")
+    perturb_norms_and_biases(tparams, torch.Generator().manual_seed(0))
+    jparams = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tparams)
+    return jcfg, jparams, tcfg, tparams
 
 
 @pytest.mark.parametrize("shape,eps", [((3, 5, 32), 1e-12), ((2, 7), 1e-5), ((4, 1, 1, 64), 1e-6)])
@@ -69,7 +74,8 @@ def test_layer_norm_matches_reference(shape, eps):
 
 
 def test_params_from_jax_holds_the_bert_tree(models):
-    _, jparams, _, tparams = models
+    _, jparams, _, _ = models
+    tparams = params_from_jax(jax.device_get(jparams), device="cpu")
     flat = jax.tree_util.tree_flatten_with_path(jax.device_get(jparams))[0]
     assert len(flat) == len(tparams["layers"]) + len(tparams) - 1
     for path, leaf in flat:

@@ -34,6 +34,7 @@ from gofr_tpu_torch.models import hf_import as t_hf  # noqa: E402
 from gofr_tpu_torch.models import whisper_import as t_wi  # noqa: E402
 from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 from gofr_tpu_torch.testutil.assets import bpe_spec, write_bpe_asset  # noqa: E402
+from gofr_tpu_torch.testutil.params import perturb_norms_and_biases  # noqa: E402
 
 ENGINE = dict(max_slots=2, max_seq_len=64, prefill_buckets=(16, 32), kv_layout="dense",
               prefill_chunk_tokens=32)
@@ -62,6 +63,7 @@ def _hf_llama(path, tie: bool, seed: int):
                       rms_norm_eps=1e-5, rope_theta=10000.0, tie_word_embeddings=tie,
                       attn_implementation="eager")
     model = LlamaForCausalLM(hf_cfg).eval()
+    perturb_norms_and_biases(dict(model.named_parameters()), torch.Generator().manual_seed(seed))
     with torch.no_grad():  # ties to even, subnormals, signed zeros, the bf16 edge
         model.model.layers[0].self_attn.q_proj.weight[0, :len(TIES)] = torch.tensor(TIES)
         model.model.norm.weight.uniform_(0.5, 1.5)
@@ -118,6 +120,8 @@ def whisper_ckpt(tmp_path_factory):
                              decoder_start_token_id=1, eos_token_id=2, pad_token_id=0,
                              activation_function="gelu", attn_implementation="eager")
     model = WhisperForConditionalGeneration(hf_cfg).eval()
+    # transformers' init leaves every bias 0 and every LayerNorm 1 and 0
+    perturb_norms_and_biases(dict(model.named_parameters()), torch.Generator().manual_seed(11))
     path = tmp_path_factory.mktemp("whisper")
     model.save_pretrained(str(path), safe_serialization=True)
     return str(path)

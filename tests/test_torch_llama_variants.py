@@ -4,7 +4,8 @@ the ``llama3_70b`` preset) and the cache-less ``forward`` in
 ``LlamaConfig.tiny`` (f32, the JAX params carried across): ``forward``'s
 logits within 1e-4, untied and tied; a tied head's logits through prefill,
 decode and the serving engine; the prefill's ``attn_impl`` choices equal
-on the CPU; ``"cp"`` refused; the 70B preset's fields."""
+on the CPU; ``"cp"`` and any other value refused; the 70B preset's
+fields."""
 
 import dataclasses
 
@@ -113,8 +114,8 @@ def test_engine_greedy_tokens_match_reference(models):
 
 
 def test_attn_impl_choices_agree_on_the_cpu(models, monkeypatch):
-    """"auto" and "flash" go through the flash wrapper (its plain version
-    on the CPU), "dense" through ``attention``: the same prefill logits."""
+    """"auto" and "flash" both go through the flash wrapper (its plain
+    version on the CPU) in every layer: the same prefill logits and slabs."""
     _, _, tcfg, tparams = models
     calls = []
     real = tllama.flash_attention
@@ -127,22 +128,22 @@ def test_attn_impl_choices_agree_on_the_cpu(models, monkeypatch):
     tokens = torch.from_numpy(_tokens(7, S=16)).long()
     lens = torch.tensor([16, 11], dtype=torch.int32)
     out = {}
-    for impl in ("auto", "flash", "dense"):
+    for impl in ("auto", "flash"):
         cfg = dataclasses.replace(tcfg, attn_impl=impl)
         before = len(calls)
         out[impl] = tllama._prefill_slabs(cfg, tparams, tokens, lens)
-        assert len(calls) - before == (0 if impl == "dense" else cfg.n_layers)
-    for impl in ("flash", "dense"):
-        for got, want in zip(out[impl], out["auto"]):
-            assert torch.equal(got, want), impl
+        assert len(calls) - before == cfg.n_layers
+    for got, want in zip(out["flash"], out["auto"]):
+        assert torch.equal(got, want)
     assert tflash.flash_attention.launches == 0
 
 
 def test_attn_impl_cp_and_unknown_values_are_refused():
     with pytest.raises(ValueError, match="item 9"):
         tllama.LlamaConfig.tiny(attn_impl="cp")
-    with pytest.raises(ValueError, match="auto, flash or dense"):
-        tllama.LlamaConfig.tiny(attn_impl="ring")
+    for value in ("dense", "ring"):  # no plain-attention prefill beside the kernel
+        with pytest.raises(ValueError, match="auto or flash"):
+            tllama.LlamaConfig.tiny(attn_impl=value)
     jllama.LlamaConfig.tiny(attn_impl="cp")  # the reference builds one; its prefill refuses it
 
 

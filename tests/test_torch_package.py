@@ -271,9 +271,10 @@ def test_surface_modules_are_checked_and_keep_the_device_policy(no_card):
 
 
 MODEL_MODULES = (
-    "gofr_tpu_torch/ops/audio.py", "gofr_tpu_torch/models/bert.py",
-    "gofr_tpu_torch/models/whisper.py", "gofr_tpu_torch/models/hf_import.py",
-    "gofr_tpu_torch/models/whisper_import.py", "gofr_tpu_torch/serving/asr.py",
+    "gofr_tpu_torch/ops/audio.py", "gofr_tpu_torch/ops/matmul.py",
+    "gofr_tpu_torch/models/bert.py", "gofr_tpu_torch/models/whisper.py",
+    "gofr_tpu_torch/models/hf_import.py", "gofr_tpu_torch/models/whisper_import.py",
+    "gofr_tpu_torch/serving/asr.py",
     "gofr_tpu_torch/serving/tokenizer.py", "gofr_tpu_torch/tokenizer/__init__.py",
     "gofr_tpu_torch/tokenizer/bpe.py", "gofr_tpu_torch/tokenizer/spm.py",
     "gofr_tpu_torch/testutil/assets.py",

@@ -38,6 +38,7 @@ from gofr_tpu_torch.ops import audio as taudio  # noqa: E402
 from gofr_tpu_torch.pubsub import InMemoryBroker as TBroker  # noqa: E402
 from gofr_tpu_torch.serving.asr import ASRWorker  # noqa: E402
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer  # noqa: E402
+from gofr_tpu_torch.testutil.params import perturb_norms_and_biases  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,10 +53,16 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def models():
+    """Whisper tiny, JAX params and their port copy. The init's unit norm
+    scales and zero biases are given distinct values first, so a misplaced
+    bias or norm shows."""
     jcfg = jwhisper.WhisperConfig.tiny(vocab_size=300)
-    jparams = jwhisper.init_params(jcfg, jax.random.PRNGKey(0))
     tcfg = twhisper.WhisperConfig.tiny(vocab_size=300)
-    return jcfg, jparams, tcfg, params_from_jax(jax.device_get(jparams), device="cpu")
+    tparams = params_from_jax(
+        jax.device_get(jwhisper.init_params(jcfg, jax.random.PRNGKey(0))), device="cpu")
+    perturb_norms_and_biases(tparams, torch.Generator().manual_seed(0))
+    jparams = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tparams)
+    return jcfg, jparams, tcfg, tparams
 
 
 def _mel(seed: int, B: int = 2, T: int = 16, n_mels: int = 8) -> np.ndarray:
@@ -82,7 +89,8 @@ def test_log_mel_matches_reference(n, n_fft, hop, n_mels):
 
 
 def test_params_from_jax_holds_the_whisper_tree(models):
-    _, jparams, _, tparams = models
+    _, jparams, _, _ = models
+    tparams = params_from_jax(jax.device_get(jparams), device="cpu")
     for path, leaf in jax.tree_util.tree_flatten_with_path(jax.device_get(jparams))[0]:
         node = tparams
         for key in path:
