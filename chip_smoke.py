@@ -234,6 +234,36 @@ Phases, each a hard failure with a non-zero exit:
      bf16 paged kernel launched, ``ByteTokenizer`` without the asset,
      ``forward``'s last logits (plain attention) against the flash
      prefill's; load s and the host's peak RSS;
+   then the device phase, the launch counters reset before it:
+   - ``T`` ``models.train.make_train_step`` at Llama-3-8B widths cut to
+     ``PLANE_DEPTH`` (8) layers, bf16, random from the seed: 4 AdamW steps
+     on one repeated batch of 2 x 512 tokens, the loss falling and every
+     gradient finite, ms a step and the peak ``max_memory_allocated``; a
+     second run of 2 steps, params and optimizer state through a
+     ``CheckpointManager``, a restore and 2 more steps, held to the 4
+     straight steps within ``RESUME_REL_TOL``;
+   - ``K`` T's params saved (npz, keep=3) and served by
+     ``ServingEngine.from_checkpoint`` (paged bf16, 8 slots, N = 4,
+     16-token pages, 2048): the main path's prompts, 32 greedy tokens
+     each, token-equal to an engine built from the same params; save and
+     restore s, GB/s and the host's RSS; flash and bf16 paged launched;
+   - ``D`` an ``App`` on 127.0.0.1 with ``app.add_tpu(new_tpu(config))``,
+     whose handler calls ``ctx.tpu.execute`` on three executables captured
+     as CUDA graphs: ``flash`` (B=1, S=1024, H=32, Hkv=8, D=128, causal),
+     ``paged`` (bf16, B=8 over 2851 tokens, page 16) and ``llama8``
+     (``llama.forward`` at T's widths and depth, B=1, S=128); each replay
+     held to an eager call (flash and paged bit-equal, llama8 within
+     ``LOGITS_REL_TOL``) and flash and paged to their plain versions;
+     replay against eager ms (median of 20); a wrong-shape execute a
+     ``TPUError`` and a 503, health DEGRADED with ``last_error`` and UP
+     after the next success, ``/metrics`` with the HBM gauge and, after
+     10 s of executes, ``app_tpu_duty_cycle``; launches are the captured
+     ones times the replays;
+   - ``X`` the MoE at Mixtral-8x7B widths (8 experts, top-2) cut to
+     ``MOE_DEPTH`` (2) of 32 layers, B=1, S=512: forward ms, finite
+     logits, the load-balance loss finite, positive and equal to
+     ``load_balance_loss``'s own pass, a backward reaching exactly the
+     experts a token was routed to;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -255,7 +285,9 @@ import contextlib
 import inspect
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -414,34 +446,34 @@ def counters() -> dict:
 
 
 # ------------------------------------------------------------- kernel inputs
-def flash_inputs(torch, gen, S: int, kv_lens: list[int], H=32, Hkv=8, D=128):
+def flash_inputs(torch, gen, S: int, kv_lens: list[int], H=32, Hkv=8, D=128, device="cuda"):
     B = len(kv_lens)
-    q = torch.randn((B, S, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda", dtype=torch.bfloat16)
-    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda", dtype=torch.bfloat16)
-    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, S, H, D), generator=gen, device=device, dtype=torch.bfloat16)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device=device, dtype=torch.bfloat16)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device=device, dtype=torch.bfloat16)
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device=device)
     return q, k, v, kv_len
 
 
-def paged_inputs(torch, gen, seq_lens: list[int], H=32, Hkv=8, Dh=128, page=16):
+def paged_inputs(torch, gen, seq_lens: list[int], H=32, Hkv=8, Dh=128, page=16, device="cuda"):
     """A pool with every sequence's pages scattered at shuffled ids, plus
     spare pages, a trash page, and table tails filled with other ids."""
     B = len(seq_lens)
     M = max(1, max(math.ceil(s / page) for s in seq_lens))
     n_used = sum(math.ceil(s / page) for s in seq_lens)
     N = n_used + 32 + 1
-    perm = torch.randperm(N - 1, generator=gen, device="cuda").to(torch.int32)
-    tables = torch.empty((B, M), dtype=torch.int32, device="cuda")
+    perm = torch.randperm(N - 1, generator=gen, device=device).to(torch.int32)
+    tables = torch.empty((B, M), dtype=torch.int32, device=device)
     pos = 0
     for b, s in enumerate(seq_lens):
         n = math.ceil(s / page)
         tables[b, :n] = perm[pos:pos + n]
         tables[b, n:] = perm[(pos + n) % (N - 1)]  # unused columns: any id
         pos += n
-    k_pool = torch.randn((N, Hkv, page, Dh), generator=gen, device="cuda", dtype=torch.bfloat16)
-    v_pool = torch.randn((N, Hkv, page, Dh), generator=gen, device="cuda", dtype=torch.bfloat16)
-    q = torch.randn((B, H, Dh), generator=gen, device="cuda", dtype=torch.bfloat16)
-    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    k_pool = torch.randn((N, Hkv, page, Dh), generator=gen, device=device, dtype=torch.bfloat16)
+    v_pool = torch.randn((N, Hkv, page, Dh), generator=gen, device=device, dtype=torch.bfloat16)
+    q = torch.randn((B, H, Dh), generator=gen, device=device, dtype=torch.bfloat16)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=device)
     return q, k_pool, v_pool, tables, lens
 
 
@@ -4705,8 +4737,10 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
     """H2: apps A and B over paged bf16 engines (2048, 16-token pages, whole
     prefills, 64-entry prefix caches) behind a ``Router`` of two
     ``HTTPReplica``s, heartbeats on an ``InMemoryBroker``: migration over
-    ``/kv/fetch``, P/D through the router, a resumed stream, and failover
-    when A's app stops."""
+    ``/kv/fetch`` (the binary body, under the migrator's 2.0 s default
+    fetch timeout; one entry's JSON and binary bodies side by side), P/D
+    through the router, a resumed stream, and failover when A's app
+    stops."""
     import io
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4714,6 +4748,8 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
     from gofr_tpu_torch.pubsub import InMemoryBroker
     from gofr_tpu_torch.serving import (KVMigrator, PrefixIndex, ReplicaAnnouncer, Router,
                                         RouterConfig, register_serving_metrics)
+    from gofr_tpu_torch.serving.prefix_index import (KV_WIRE_CONTENT_TYPE, decode_entries_binary,
+                                                     decode_entry)
     from gofr_tpu_torch.serving.router import HTTPReplica
     from gofr_tpu_torch.testutil import fetch, start_app
 
@@ -4723,7 +4759,7 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
           f"64-entry prefix caches), {cfg.n_layers} layers, a router over two HTTPReplicas")
     logs = {"A": io.StringIO(), "B": io.StringIO()}
     index = PrefixIndex()
-    migrator = KVMigrator("B", index, fetch_timeout_s=120.0)
+    migrator = KVMigrator("B", index)  # the 2.0 s default fetch timeout
     app_a, eng_a = http_app(torch, cfg, params, conf, mem, "H2 A", logs["A"])
     app_b, eng_b = http_app(torch, cfg, params, conf, mem, "H2 B", logs["B"], kv_migrator=migrator)
     broker = InMemoryBroker(consumer_group="router", poll_timeout=0.05)
@@ -4780,6 +4816,17 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
         status, _, raw = fetch(url["A"] + "/kv/fetch", "POST", json.dumps({"keys": keys}).encode(),
                                {"Content-Type": "application/json"}, 600)
         direct_ms = (time.perf_counter() - t) * 1e3
+        # the same entry as the port's binary body (what fetch_kv asks for)
+        t = time.perf_counter()
+        bin_status, bin_headers, bin_raw = fetch(
+            url["A"] + "/kv/fetch", "POST", json.dumps({"keys": keys}).encode(),
+            {"Content-Type": "application/json", "Accept": KV_WIRE_CONTENT_TYPE}, 600)
+        binary_ms = (time.perf_counter() - t) * 1e3
+        from_json = {k: decode_entry(v) for k, v in json.loads(raw)["data"]["entries"].items()}
+        from_binary = decode_entries_binary(bin_raw)
+        wire_equal = sorted(from_json) == sorted(from_binary) == sorted(keys) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for k in keys for a, b in zip(from_json[k], from_binary[k]))
 
         def ttft(s, eng):
             return s["arrivals"][0] * 1e3, eng.timeline.get(s["head"]["id"]).to_dict()["ttft_ms"]
@@ -4789,10 +4836,18 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
             "b_flash": b_launches["flash_attention"], "fetches": fetches[:],
             "ttft_ms_client_engine": {"b_cold": ttft(cold_b, eng_b), "a_cold": ttft(on_a, eng_a),
                                       "b_migrated": ttft(on_b, eng_b)},
-            "kv_fetch_bytes": len(raw), "kv_fetch_ms": direct_ms, "kv_fetch_status": status}
+            "kv_fetch_bytes": len(raw), "kv_fetch_ms": direct_ms, "kv_fetch_status": status,
+            "kv_fetch_binary_bytes": len(bin_raw), "kv_fetch_binary_ms": binary_ms,
+            "kv_fetch_binary_status": bin_status, "kv_fetch_binary_equal_to_json": wire_equal,
+            "fetch_timeout_s": migrator.fetch_timeout_s}
         print(f"  H2 migration: {out['migration']}")
+        print(f"  H2 /kv/fetch of one 1000-token entry: JSON {len(raw)} bytes in {direct_ms:.1f} ms, "
+              f"binary {len(bin_raw)} bytes in {binary_ms:.1f} ms, the same slabs: {wire_equal}; "
+              f"the migrator's fetches under its {migrator.fetch_timeout_s} s timeout: {fetches}")
         if not out["migration"]["equal"] or tier != "remote" or counts["prefill"] \
-                or b_launches["flash_attention"] or status != 201:
+                or b_launches["flash_attention"] or status != 201 or bin_status != 200 \
+                or not wire_equal or migrator.fetch_timeout_s != 2.0 \
+                or not bin_headers.get("Content-Type", "").startswith(KV_WIRE_CONTENT_TYPE):
             raise AssertionError(f"H2 migration: {out['migration']}")
         # P/D through the router: A repurposed to prefill, B to decode
         anns["A"].role, anns["B"].role = "prefill", "decode"
@@ -5438,10 +5493,6 @@ MODELS_L_TEXTS = ["the quick brown fox jumps over the lazy dog",
                   "Hello, WORLD's 12345 caffè 東京 🚀\r\n\r\n  don't", "<|begin_of_text|>the end"]
 
 
-def tree_map(fn, tree):
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
-
-
 def tree_equal(torch, a: dict, b: dict) -> bool:
     """The same keys at every level and every leaf equal bit for bit."""
     if set(a) != set(b):
@@ -5673,6 +5724,8 @@ def models_e(torch, cfg, dev) -> dict:
         refused = [post(payload)[0] for payload in ({}, {"input": []}, {"other": "x"})]
     finally:
         stop_app(app, thread)
+    from gofr_tpu_torch.tree import tree_map
+
     params32 = tree_map(lambda v: v.float(), params)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     tok = ByteTokenizer()
@@ -5816,6 +5869,8 @@ def models_a(torch, cfg, dev, tmp: str) -> dict:
                                      whisper.DecCache.create(lcfg, 1, dev),
                                      torch.zeros(1, dtype=torch.int64, device=dev))[0]
     cfg32 = dataclasses.replace(lcfg, dtype=torch.float32)
+    from gofr_tpu_torch.tree import tree_map
+
     params32 = tree_map(lambda v: v.float(), loaded)
     enc32 = whisper.encode_audio(cfg32, params32, mel)
     want = whisper.decode_text_step(cfg32, params32, enc32, torch.full((1,), lcfg.sot_id,
@@ -5971,6 +6026,479 @@ def run_models(torch, bert_cfg, whisper_cfg, llama_cfg) -> dict:
     if not (out["launches"].get("flash_attention") and out["launches"].get("paged_decode_attention")):
         raise AssertionError(f"models launches {out['launches']}")
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------- device phase
+DEVICE_T_BATCH, DEVICE_T_SEQ, DEVICE_T_STEPS = 2, 512, 4  # T: the training batch and steps
+# T: the resumed run's final loss, and each param leaf (relative L2), against
+# 4 straight steps. Only the embedding's gradient (an accumulating index put
+# over repeated token ids) may sum in another order, so they agree to far
+# better than this
+RESUME_REL_TOL = 1e-3
+DEVICE_K_NEW = 32  # K: new tokens a request
+DEVICE_D_REPS = 20  # D: timed calls of each executable, replay and eager
+DEVICE_D_WINDOW_S = 10.5  # D: executes for longer than the duty-cycle window (10 s)
+DEVICE_D_PACE_S = 0.05  # D: the gap between those executes (a served request rate)
+DEVICE_D_LLAMA_SEQ = 128  # D: llama8's tokens
+MOE_DEPTH, MOE_SEQ = 2, 512  # X: layers of Mixtral-8x7B's 32, and tokens
+MOE_FEW = 2  # X: tokens of the short backward, too few to reach every expert
+
+
+def device_t(torch, cfg, tmp: str, dev) -> tuple[dict, dict]:
+    """T: ``make_train_step`` at ``cfg`` (Llama-3-8B widths, ``PLANE_DEPTH``
+    layers): 4 steps on one repeated batch, the loss falling and every
+    gradient finite (the optimizer's first moments after step 1 are
+    0.1 × the gradient); then a second run of 2 steps, a checkpoint of
+    params and optimizer state, a restore and 2 more, held to the 4
+    straight steps. Returns the report and the trained params."""
+    from gofr_tpu_torch.checkpoint import CheckpointManager
+    from gofr_tpu_torch.models import llama, train
+    from gofr_tpu_torch.tree import leaves
+
+    init_opt, step = train.make_train_step(cfg)
+
+    def fresh():
+        return llama.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 16),
+                                 device=dev)
+
+    tokens = torch.randint(0, cfg.vocab_size, (DEVICE_T_BATCH, DEVICE_T_SEQ), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 17))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    params = fresh()
+    n_params = sum(t.numel() for t in leaves(params))
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, grads_finite, grads_reach = [], [], None, None
+    for i in range(DEVICE_T_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if i == 0:
+            moments = leaves(opt["exp_avg"])
+            grads_finite = all(bool(torch.isfinite(m).all()) for m in moments)
+            grads_reach = all(bool((m != 0).any()) for m in moments)
+    peak = torch.cuda.max_memory_allocated()
+    out: dict = {"params": n_params, "layers": cfg.n_layers, "batch": [DEVICE_T_BATCH, DEVICE_T_SEQ],
+                 "losses": losses, "step_ms": step_ms, "median_step_ms": median(step_ms[1:]),
+                 "peak_memory_allocated_bytes": peak, "memory_allocated_before_bytes": before,
+                 "grads_finite": grads_finite,
+                 "grads_reach_every_leaf": grads_reach,
+                 "params_finite": all(bool(torch.isfinite(t).all()) for t in leaves(params))}
+    print(f"  T {n_params / 1e9:.2f}B params ({cfg.n_layers} layers), batch {DEVICE_T_BATCH}x"
+          f"{DEVICE_T_SEQ}: losses {losses}, ms a step {[round(x, 1) for x in step_ms]} (median "
+          f"of steps 2-4 {out['median_step_ms']:.1f}), peak memory_allocated {peak / 1e9:.2f} GB "
+          f"({before / 1e9:.2f} GB of it allocated before the phase), "
+          f"gradients finite {grads_finite} and reaching every leaf {grads_reach}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] and grads_finite
+            and grads_reach and out["params_finite"]):
+        raise AssertionError(f"T: {out}")
+    del opt
+    torch.cuda.empty_cache()
+    # resume: 2 steps, a checkpoint of params and optimizer state, 2 more
+    p2 = fresh()
+    s2 = init_opt(p2)
+    for _ in range(2):
+        p2, s2, _ = step(p2, s2, tokens)
+    mgr = CheckpointManager(os.path.join(tmp, "resume"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(2, {"params": p2, "opt": s2})
+    save_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in leaves({"params": p2, "opt": s2}))
+    abstract = {"params": p2, "opt": s2}
+    t0 = time.perf_counter()
+    restored = mgr.restore(abstract, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del p2, s2, abstract
+    torch.cuda.empty_cache()
+    p3, s3 = restored["params"], restored["opt"]
+    del restored
+    for _ in range(2):
+        p3, s3, loss = step(p3, s3, tokens)
+    resumed = float(loss)
+    leaf_rel = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                   for a, b in zip(leaves(p3), leaves(params)))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(leaves(p3), leaves(params)))
+    out["resume"] = {"checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+                     "save_gb_s": nbytes / save_s / 1e9, "restore_gb_s": nbytes / restore_s / 1e9,
+                     "loss_resumed": resumed, "loss_straight": losses[-1],
+                     "loss_rel_diff": abs(resumed - losses[-1]) / abs(losses[-1]),
+                     "max_leaf_rel_l2": leaf_rel, "bit_equal": bit_equal, "tol": RESUME_REL_TOL}
+    print(f"  T resume: {nbytes / 1e9:.2f} GB of params and optimizer state saved in {save_s:.2f} s "
+          f"and restored in {restore_s:.2f} s; final loss {resumed} against {losses[-1]} straight "
+          f"(rel {out['resume']['loss_rel_diff']:.2e}), params max leaf rel_l2 {leaf_rel:.2e} "
+          f"(tol {RESUME_REL_TOL}), bit-equal {bit_equal}")
+    if not (out["resume"]["loss_rel_diff"] <= RESUME_REL_TOL and leaf_rel <= RESUME_REL_TOL):
+        raise AssertionError(f"T resume: {out['resume']}")
+    del p3, s3
+    shutil.rmtree(os.path.join(tmp, "resume"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def device_k(torch, cfg, params, tmp: str, dev) -> dict:
+    """K: T's params through ``CheckpointManager`` (npz, keep=3), then
+    ``ServingEngine.from_checkpoint`` (paged bf16, 8 slots, N = 4, 16-token
+    pages, 2048) serving the main prompts greedy, token-equal to an engine
+    built from the same params; flash and bf16 paged launches counted."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.checkpoint import CheckpointManager
+    from gofr_tpu_torch.models.llama import param_bytes
+
+    path = os.path.join(tmp, "serve")
+    mgr = CheckpointManager(path, keep=3)
+    nbytes = param_bytes(params)
+    torch.cuda.synchronize()
+    with PeakRss() as save_rss:
+        t0 = time.perf_counter()
+        mgr.save(DEVICE_T_STEPS, params, metadata={"source": "chip_smoke device T"})
+        save_s = time.perf_counter() - t0
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=2048)
+    with PeakRss() as load_rss:
+        t0 = time.perf_counter()
+        engine = ServingEngine.from_checkpoint(cfg, path, engine_config=EngineConfig(**conf),
+                                               device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    out: dict = {"checkpoint_bytes": nbytes, "save_s": save_s, "save_gb_s": nbytes / save_s / 1e9,
+                 "from_checkpoint_s": load_s, "restore_gb_s": nbytes / load_s / 1e9,
+                 "save_rss_mib": [save_rss.before, save_rss.peak],
+                 "restore_rss_mib": [load_rss.before, load_rss.peak],
+                 "restored_equal": tree_equal(torch, engine.params, params),
+                 "steps": mgr.all_steps()}
+    print(f"  K {nbytes / 1e9:.2f} GB saved in {save_s:.2f} s ({out['save_gb_s']:.2f} GB/s, host RSS "
+          f"{save_rss.before:.0f} -> {save_rss.peak:.0f} MiB), from_checkpoint in {load_s:.2f} s "
+          f"({out['restore_gb_s']:.2f} GB/s, RSS {load_rss.before:.0f} -> {load_rss.peak:.0f} MiB); "
+          f"restored bit-identical: {out['restored_equal']}")
+    if not out["restored_equal"] or out["steps"] != [DEVICE_T_STEPS]:
+        raise AssertionError(f"K: {out}")
+    rng = torch.Generator().manual_seed(SEED + 18)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist() for n in MAIN_LENS]
+    direct = ServingEngine(cfg, params, EngineConfig(**conf), device=dev)
+    got, launches = {}, {}
+    for name, eng in (("from_checkpoint", engine), ("direct", direct)):
+        mark = launch_counts()
+        eng.start()
+        try:
+            futs = [eng.submit(p, max_new_tokens=DEVICE_K_NEW, temperature=0.0) for p in prompts]
+            got[name] = [f.result(600).token_ids for f in futs]
+        finally:
+            eng.stop()
+        launches[name] = since(mark)
+    out["tokens_equal"] = sum(a == b for a, b in zip(got["from_checkpoint"], got["direct"]))
+    out["launches"] = launches
+    print(f"  K from_checkpoint engine against the direct engine: {out['tokens_equal']}/"
+          f"{len(prompts)} greedy requests token-equal ({DEVICE_K_NEW} new tokens each)")
+    for name, counts in launches.items():
+        print_launches(f"K {name} engine", counts)
+    if out["tokens_equal"] != len(prompts) or not all(
+            launches[n]["flash_attention"] and launches[n]["paged_decode_attention"]
+            for n in launches):
+        raise AssertionError(f"K: {out}")
+    del engine, direct
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_ms(torch, fn, reps: int) -> float:
+    """Median host ms of ``fn()`` then a sync, over ``reps`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return median(times)
+
+
+def device_d(torch, cfg, params, dev) -> dict:
+    """D: an ``App`` on 127.0.0.1 with ``app.add_tpu(new_tpu(config))``;
+    handlers call ``ctx.tpu.execute`` on three executables captured as CUDA
+    graphs: ``flash`` (B=1, S=1024, H=32, Hkv=8, D=128, causal), ``paged``
+    (bf16, B=8 over 2851 tokens, page 16) and ``llama8`` (``llama.forward``
+    at ``cfg``, B=1, S=128). Each replay is held to an eager call on the
+    same inputs (flash and paged bit-equal; llama8 within
+    ``LOGITS_REL_TOL``), then again on fresh arguments of the same shapes,
+    flash and paged to their plain versions; replay
+    and eager ms (median of 20); a wrong shape is a ``TPUError`` and a
+    503; health and ``/metrics`` carry the datasource."""
+    from gofr_tpu_torch.datasource.tpu import TPUError, new_tpu
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_ref
+    from gofr_tpu_torch.testutil import fetch, start_app, stop_app
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    inputs = {
+        "flash": flash_inputs(torch, gen, 1024, [1024], device=dev),
+        "paged": paged_inputs(torch, gen, DECODE_LENS, device=dev),
+        "llama8": (torch.randint(0, cfg.vocab_size, (1, DEVICE_D_LLAMA_SEQ), device=dev,
+                                 generator=gen),),
+    }
+    fns = {
+        "flash": lambda q, k, v, n: flash_attention(q, k, v, n, causal=True),
+        "paged": paged_decode_attention,
+        "llama8": lambda tokens: llama.forward(cfg, params, tokens),
+    }
+    app = models_app("device-d")
+    client = new_tpu(app.config, device=dev)
+    app.add_tpu(client)
+    out: dict = {"compile": {}}
+    mark = launch_counts()
+    for name, fn in fns.items():
+        client.compile(name, fn, *inputs[name])
+        meta = client._exec_meta[name]
+        out["compile"][name] = {k: meta[k] for k in ("compile_seconds", "flops", "graph",
+                                                     "captured_launches")}
+    results: dict = {}
+
+    def run(ctx):
+        name = ctx.path_param("name")
+        args = inputs.get(name, inputs["flash"])
+        if (ctx.bind(dict) or {}).get("wrong_shape"):
+            args = (args[0][:, : args[0].shape[1] // 2].contiguous(), *args[1:])
+        y = ctx.tpu.execute(name, *args)
+        results[name] = y
+        return {"shape": list(y.shape), "dtype": str(y.dtype)}
+
+    app.post("/exec/{name}", run)
+    thread = start_app(app, timeout=120)
+    base = f"http://127.0.0.1:{app.http_port}"
+    mbase = f"http://127.0.0.1:{app.metrics_port}"
+
+    def call(path: str, payload=None, method="POST"):
+        body = json.dumps(payload or {}).encode() if method == "POST" else None
+        status, _, raw = fetch(base + path, method, body, {"Content-Type": "application/json"}, 120)
+        return status, json.loads(raw)
+
+    try:
+        t_first = time.perf_counter()
+        checks = {}
+        for name in fns:
+            status, body = call(f"/exec/{name}")
+            want = fns[name](*inputs[name])
+            got = results[name]
+            torch.cuda.synchronize()
+            rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+            checks[name] = {"status": status, "bit_equal_to_eager": bool(torch.equal(got, want)),
+                            "rel_l2_to_eager": rel, "finite": bool(torch.isfinite(got).all())}
+        # fresh arguments at the same shapes: execute copies them in (an
+        # executable replaying what it was compiled on would differ here)
+        fresh = {
+            "flash": (torch.randn(inputs["flash"][0].shape, device=dev, generator=gen,
+                                  dtype=torch.bfloat16), *inputs["flash"][1:]),
+            "paged": (torch.randn(inputs["paged"][0].shape, device=dev, generator=gen,
+                                  dtype=torch.bfloat16), *inputs["paged"][1:]),
+            "llama8": (torch.randint(0, cfg.vocab_size, (1, DEVICE_D_LLAMA_SEQ), device=dev,
+                                     generator=gen),),
+        }
+        for name, fn in fns.items():
+            got = client.execute(name, *fresh[name])
+            want = fn(*fresh[name])
+            torch.cuda.synchronize()
+            checks[name]["fresh_args"] = {
+                "bit_equal_to_eager": bool(torch.equal(got, want)),
+                "rel_l2_to_eager": ((got.float() - want.float()).norm()
+                                    / want.float().norm()).item(),
+                "differs_from_first": not torch.equal(got, results[name])}
+        q, k, v, n = inputs["flash"]
+        checks["flash"]["row_rel_err_to_plain"] = row_rel_err(
+            results["flash"], flash_attention_ref(q, k, v, n, causal=True))
+        checks["paged"]["row_rel_err_to_plain"] = row_rel_err(
+            results["paged"], paged_decode_attention_ref(*inputs["paged"]))
+        out["checks"] = checks
+        print(f"  D replay against eager and plain: {checks}")
+        if not (all(c["status"] == 201 and c["finite"] and c["fresh_args"]["differs_from_first"]
+                    for c in checks.values())
+                and all(checks[n]["bit_equal_to_eager"] and checks[n]["fresh_args"]["bit_equal_to_eager"]
+                        for n in ("flash", "paged"))
+                and checks["llama8"]["rel_l2_to_eager"] <= LOGITS_REL_TOL
+                and checks["llama8"]["fresh_args"]["rel_l2_to_eager"] <= LOGITS_REL_TOL
+                and checks["flash"]["row_rel_err_to_plain"] <= FLASH_ROW_TOL
+                and checks["paged"]["row_rel_err_to_plain"] <= PAGED_ROW_TOL):
+            raise AssertionError(f"D checks: {checks}")
+        # a wrong shape: a TPUError before anything runs, a 503 through the app
+        try:
+            client.execute("flash", q[:, :512].contiguous(), k, v, n)
+            direct_err = None
+        except TPUError as exc:
+            direct_err = str(exc)
+        status, body = call("/exec/flash", {"wrong_shape": True})
+        _, health_bad = call("/.well-known/health", method="GET")
+        call("/exec/flash")
+        _, health_ok = call("/.well-known/health", method="GET")
+        tpu_bad, tpu_ok = health_bad["data"]["details"]["tpu"], health_ok["data"]["details"]["tpu"]
+        out["wrong_shape"] = {"direct": direct_err, "status": status,
+                              "message": body.get("error", {}).get("message"),
+                              "health_after": tpu_bad["status"],
+                              "last_error": tpu_bad["details"].get("last_error"),
+                              "health_after_success": tpu_ok["status"],
+                              "hbm": tpu_ok["details"]["hbm"]}
+        print(f"  D wrong shape and health: {out['wrong_shape']}")
+        if not (direct_err and "argument 0" in direct_err and status == 503
+                and tpu_bad["status"] == "DEGRADED" and tpu_bad["details"].get("last_error")
+                and tpu_ok["status"] == "UP" and tpu_ok["details"]["hbm"][0]["bytes_in_use"] > 0):
+            raise AssertionError(f"D wrong shape: {out['wrong_shape']}")
+        # replay against eager, median of DEVICE_D_REPS each
+        timing = {}
+        for name, fn in fns.items():
+            args = inputs[name]
+            timing[name] = {
+                "replay_ms": timed_ms(torch, lambda: client.execute(name, *args), DEVICE_D_REPS),
+                "eager_ms": timed_ms(torch, lambda: fn(*args), DEVICE_D_REPS)}
+        out["timing"] = timing
+        print(f"  D replay (execute: copy in, replay, clone out) against eager ms, median of "
+              f"{DEVICE_D_REPS}: {timing}")
+        # keep executing past the 10 s duty-cycle window, then read /metrics
+        while time.perf_counter() - t_first < DEVICE_D_WINDOW_S:
+            client.execute("paged", *inputs["paged"], block=True)
+            time.sleep(DEVICE_D_PACE_S)
+        client.execute("flash", *inputs["flash"], block=True)
+        _, _, raw = fetch(mbase + "/metrics", "GET", None, None, 60)
+        text = raw.decode()
+        duty = re.search(r"^app_tpu_duty_cycle (\S+)$", text, re.M)
+        out["metrics"] = {"hbm_used_bytes": bool(re.search(r'^app_tpu_hbm_used_bytes\{device="\d+"\} '
+                                                           r"[1-9]", text, re.M)),
+                          "duty_cycle": float(duty.group(1)) if duty else None,
+                          "tpu_execute_series": 'type="tpu_execute"' in text}
+        print(f"  D /metrics: {out['metrics']}")
+        if not (out["metrics"]["hbm_used_bytes"] and duty and out["metrics"]["tpu_execute_series"]):
+            raise AssertionError(f"D metrics: {out['metrics']}")
+        out["replays"] = {name: client._exec_meta[name]["replays"] for name in fns}
+        out["launches_replayed"] = {}
+        for name in fns:
+            for kernel, n in client._exec_meta[name]["captured_launches"].items():
+                out["launches_replayed"][kernel] = out["launches_replayed"].get(kernel, 0) \
+                    + n * out["replays"][name]
+        out["launches_counted"] = since(mark)  # warm-ups, captures and the eager calls
+        print(f"  D replays {out['replays']}: captured launches x replays "
+              f"{out['launches_replayed']}; counted by the wrappers (warm-ups, captures, eager "
+              f"calls) {out['launches_counted']}")
+        if not (out["launches_replayed"].get("flash_attention")
+                and out["launches_replayed"].get("paged_decode_attention")):
+            raise AssertionError(f"D launches: {out['launches_replayed']}")
+    finally:
+        stop_app(app, thread)
+    client.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_x(torch, cfg, dev) -> dict:
+    """X: the MoE at ``cfg`` (the card run: ``MoeConfig.mixtral_8x7b()``
+    widths at ``MOE_DEPTH`` layers), B=1, S=512: finite logits, a finite positive load-balance loss equal to
+    ``load_balance_loss``'s own pass, and a backward through CE plus the
+    aux loss reaching every expert a token was routed to (and no other),
+    at S=512 and on ``MOE_FEW`` tokens, which leave experts unrouted."""
+    from gofr_tpu_torch.models import moe, train
+    from gofr_tpu_torch.ops import moe as moe_ops
+    from gofr_tpu_torch.tree import leaves
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    params = moe.init_params(cfg, gen, device=dev)
+    experts = sum(params["layers"][k].numel() * params["layers"][k].element_size()
+                  for k in ("w_gate", "w_up", "w_down"))
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_SEQ), device=dev, generator=gen)
+    with torch.no_grad():
+        fwd_ms = timed_ms(torch, lambda: moe.forward(cfg, params, tokens), 3)
+        logits, (f, p) = moe.forward(cfg, params, tokens, return_aux=True)
+        aux = moe.load_balance_loss_from_stats(cfg, f, p)
+        own = moe.load_balance_loss(cfg, params, tokens)
+    out: dict = {"layers": cfg.n_layers, "experts_bytes": experts, "forward_ms": fwd_ms,
+                 "logits_finite": bool(torch.isfinite(logits).all()), "aux": float(aux),
+                 "aux_own_pass": float(own), "aux_bit_equal": bool(torch.equal(aux, own))}
+    del logits
+    for t in leaves(params):
+        t.requires_grad_(True)
+
+    def backward(toks):
+        """(loss, experts routed a layer, gradients finite, gradients on
+        exactly the routed experts) of one backward through CE plus aux."""
+        routed: list = []
+        for t in leaves(params):
+            t.grad = None
+        with spying(moe_ops, "router_topk", lambda bound, res: routed.append(
+                set(res[0].flatten().tolist()))):
+            logits, (f, p) = moe.forward(cfg, params, toks, return_aux=True)
+            loss = train.next_token_nll(logits, toks) + cfg.aux_loss_coef * \
+                moe.load_balance_loss_from_stats(cfg, f, p)
+            loss.backward()
+        layers = params["layers"]
+        reach = [all(bool(layers[w].grad[layer, e].abs().sum() > 0)
+                     for w in ("w_gate", "w_up", "w_down")) == (e in chosen)
+                 for layer, chosen in enumerate(routed) for e in range(cfg.n_experts)]
+        return (float(loss.detach()), [sorted(c) for c in routed],
+                all(bool(torch.isfinite(t.grad).all()) for t in leaves(params)),
+                all(reach) and len(routed) == cfg.n_layers)
+
+    # MOE_FEW tokens route to at most MOE_FEW x top_k experts a layer, so
+    # the experts that got none (and must get no gradient) are checked too
+    few = tokens[:, :MOE_FEW].contiguous()
+    few_loss, few_routed, few_finite, few_match = backward(few)
+    loss, routed, finite, match = backward(tokens)
+    out.update({"loss": loss, "routed": routed, "grads_finite": finite and few_finite,
+                "grads_match_routing": match and few_match,
+                "few": {"tokens": MOE_FEW, "loss": few_loss, "routed": few_routed,
+                        "unrouted_experts": any(len(c) < cfg.n_experts for c in few_routed)}})
+    print(f"  X d {cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, {cfg.n_layers} layers "
+          f"({experts / 1e9:.2f} GB of experts), "
+          f"B=1 S={MOE_SEQ}: forward {fwd_ms:.2f} ms, logits finite {out['logits_finite']}, aux "
+          f"{out['aux']} (own pass {out['aux_own_pass']}, bit-equal {out['aux_bit_equal']}), "
+          f"loss {out['loss']}, experts routed {out['routed']} ({MOE_FEW} tokens: "
+          f"{out['few']['routed']}), gradients finite {out['grads_finite']} and on exactly the "
+          f"routed experts {out['grads_match_routing']}")
+    if not (out["logits_finite"] and math.isfinite(out["aux"]) and out["aux"] > 0
+            and abs(out["aux"] - out["aux_own_pass"]) <= 1e-6 * out["aux"]
+            and math.isfinite(loss) and math.isfinite(few_loss)
+            and out["grads_finite"] and out["grads_match_routing"]
+            and out["few"]["unrouted_experts"]):
+        raise AssertionError(f"X: {out}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_device(torch, cfg, moe_cfg, dev) -> dict:
+    """The device phase at the configs given (the card run: Llama-3-8B
+    widths at ``PLANE_DEPTH`` layers and Mixtral-8x7B's at ``MOE_DEPTH``): T
+    (training with a checkpointed resume), K (checkpoint and warm restart
+    through ``from_checkpoint``), D (the device datasource: ``ctx.tpu`` on
+    an ``App``, executables as CUDA graphs), X (the MoE). The counters are reset before it; ``launches``
+    are K's engines' counted launches plus D's captured launches times
+    their replays."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_device_", dir=ROOT) as tmp:
+        print(f"T: make_train_step (d {cfg.d_model}, {cfg.n_layers} layers, {cfg.dtype})")
+        out["T"], params = device_t(torch, cfg, tmp, dev)
+        print("K: CheckpointManager and ServingEngine.from_checkpoint (paged bf16)")
+        out["K"] = device_k(torch, cfg, params, tmp, dev)
+    print("D: the device datasource (ctx.tpu.execute on an App, executables as CUDA graphs)")
+    out["D"] = device_d(torch, cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    print(f"X: MoE (d {moe_cfg.d_model}, {moe_cfg.n_experts} experts, {moe_cfg.n_layers} layers)")
+    out["X"] = device_x(torch, moe_cfg, dev)
+    launches = {n: 0 for n in counters()}
+    for engine_counts in out["K"]["launches"].values():
+        add_launches(launches, engine_counts)
+    add_launches(launches, out["D"]["launches_replayed"])
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  device: {out['seconds']:.1f}s ({out['card']}); launches {launches}")
     return out
 
 
@@ -6137,6 +6665,13 @@ def main() -> int:
           f"checkpoint, Llama-3-8B widths at {MODELS_L_DEPTH} layers through from_hf):")
     models = run_models(torch, BertConfig.base(), WhisperConfig.large_v3(),
                         LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
+    print(f"device phase (training at Llama-3-8B widths, {PLANE_DEPTH} layers; checkpoints and "
+          f"from_checkpoint; ctx.tpu executables as CUDA graphs; MoE at Mixtral widths, "
+          f"{MOE_DEPTH} layers):")
+    from gofr_tpu_torch.models.moe import MoeConfig
+
+    device = run_device(torch, LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH),
+                        MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -6144,6 +6679,7 @@ def main() -> int:
         r["launches_http"] = http["launches"].get(r["name"], 0)
         r["launches_surface"] = surface["launches"].get(r["name"], 0)
         r["launches_models"] = models["launches"].get(r["name"], 0)
+        r["launches_device"] = device["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -6160,6 +6696,7 @@ def main() -> int:
     print(json.dumps({"http": http}, default=str))
     print(json.dumps({"surface": surface}, default=str))
     print(json.dumps({"models": models}, default=str))
+    print(json.dumps({"device": device}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -12,7 +12,8 @@ What the port holds: routes, static files and ``use_middleware``; the
 Basic, API-key, OAuth and provider auth middlewares, ahead of the user's
 and on the WebSocket upgrade; ``websocket`` and ``add_ws_service``;
 ``subscribe`` and ``add_cron_job``; ``on_start`` / ``on_shutdown``,
-``add_http_service``, ``add_datasource``, the HTTP and metrics servers,
+``add_http_service``, ``add_datasource``, ``add_tpu`` (the device
+datasource on the card, ``ctx.tpu``), the HTTP and metrics servers,
 ``run``/``run_async`` (signal handlers only on the main thread), ``stop``,
 ``drain`` and ``shutdown``, the start and stop telemetry ping, the default
 ``/.well-known/{health,alive}`` routes with the ``./static`` and swagger
@@ -202,6 +203,11 @@ class App:
         """external_db.go Add* analogue for any provider-pattern
         datasource."""
         self.container.register_datasource(name, ds)
+
+    def add_tpu(self, tpu: Any) -> None:
+        """Wire the device datasource (``datasource.tpu.new_tpu``): it
+        connects, joins health, and handlers reach it as ``ctx.tpu``."""
+        self.container.register_datasource("tpu", tpu)
 
     # ------------------------------------------------------------ async + cron
     def subscribe(self, topic: str, handler: Handler) -> None:

@@ -13,8 +13,10 @@ What the port holds: config, logger, ``metrics_manager`` (the port's
 ``build_exporter``, the remote log-level (``REMOTE_LOG_URL``) and trace
 sample-ratio (``REMOTE_TRACE_RATIO_URL``) pollers (:101-113), ``services``,
 ``serving``, ``ws_manager``, ``register_datasource`` and the ``draining``
-flag. The provider wiring of SQL, Redis and files, and the networked
-brokers (``container/datasources.py``), are not ported.
+flag, and the ``tpu`` datasource (``App.add_tpu``; ``ctx.tpu``), which
+joins ``datasource_pairs`` and the health aggregate. The provider wiring
+of SQL, Redis and files, and the networked brokers
+(``container/datasources.py``), are not ported.
 """
 
 from __future__ import annotations
@@ -35,11 +37,11 @@ FRAMEWORK_VERSION = "dev"  # the reference's version.FRAMEWORK
 # registers beside those of the serving catalog (which holds the app,
 # HTTP, service-client and breaker series the port records), under its
 # names and kinds, all with the default buckets: the two runtime gauges
-# read at scrape time, and the datasource series (SQL, Redis, files, the
-# TPU mesh breaker). The port has no emitter of the datasource series;
-# they are registered so that a dashboard built on the reference reads the
-# same families. The subscribers' series are in the catalog, with their
-# emitter (``subscriber.py``).
+# read at scrape time, and the SQL, Redis and file datasource series. The
+# port has no emitter of those; they are registered so that a dashboard
+# built on the reference reads the same families. The subscribers' and
+# the device datasource's series are in the catalog, with their emitters
+# (``subscriber.py``, ``datasource/tpu/client.py``).
 FRAMEWORK_METRICS: tuple[tuple[str, str, str], ...] = (
     ("gauge", "app_go_routines", "Number of live threads (goroutine analogue)"),
     ("gauge", "app_sys_memory_alloc", "Resident memory of the process in bytes"),
@@ -48,9 +50,6 @@ FRAMEWORK_METRICS: tuple[tuple[str, str, str], ...] = (
     ("gauge", "app_sql_inuse_connections", "Number of inuse SQL connections"),
     ("histogram", "app_redis_stats", "Response time of Redis commands in milliseconds"),
     ("histogram", "app_file_stats", "Duration of file-system operations in milliseconds"),
-    ("gauge", "app_tpu_duty_cycle", "Fraction of wall time the TPU executed in the last window"),
-    ("counter", "app_tpu_devices_excluded_total",
-     "Devices excluded from the mesh by the sick-chip breaker"),
 )
 
 
@@ -106,8 +105,10 @@ class Container:
                 self.tracer, ratio_url, interval, logger=self.logger
             )
 
-        # datasources: the broker (PUBSUB_BACKEND, or one registered as
-        # "pubsub"), and any other by name (App.add_datasource)
+        # datasources: the device (App.add_tpu), the broker
+        # (PUBSUB_BACKEND, or one registered as "pubsub"), and any other by
+        # name (App.add_datasource)
+        self.tpu: Any = None
         self.pubsub: Any = None
         self.services: dict[str, Any] = {}
         self.extra_datasources: dict[str, Any] = {}
@@ -162,13 +163,13 @@ class Container:
         """Wire and connect a provider-pattern datasource (external_db.go
         Add* analogue); its ``health_check`` joins ``/.well-known/health``."""
         wire_provider(ds, self.logger, self.metrics_manager, self.tracer)
-        if name == "pubsub":
-            self.pubsub = ds
+        if name in ("tpu", "pubsub"):
+            setattr(self, name, ds)
         else:
             self.extra_datasources[name] = ds
 
     def datasource_pairs(self) -> list[tuple[str, Any]]:
-        return [("pubsub", self.pubsub), *self.extra_datasources.items()]
+        return [("tpu", self.tpu), ("pubsub", self.pubsub), *self.extra_datasources.items()]
 
     def health(self) -> dict[str, Any]:
         from gofr_tpu_torch.container.health import aggregate_health

@@ -10,8 +10,8 @@ body (context.go:74), ``get_auth_info`` exposes auth claims
 (context.go:181-183). WebSocket write helpers (context.go:81-108) live on the
 bound connection.
 
-Datasource access mirrors ``ctx.SQL`` / ``ctx.Redis`` in the reference:
-``ctx.serving``, the broker through ``get_publisher`` / ``get_subscriber``,
+Datasource access mirrors ``ctx.TPU`` / ``ctx.SQL`` in the reference:
+``ctx.tpu`` (the device datasource, ``App.add_tpu``), ``ctx.serving``, the broker through ``get_publisher`` / ``get_subscriber``,
 ``ctx.datasource(name)``, plus ``ctx.get_http_service(name)``.
 """
 
@@ -90,6 +90,10 @@ class Context:
     @property
     def metrics(self) -> Any:
         return self.container.metrics_manager
+
+    @property
+    def tpu(self) -> Any:
+        return self.container.tpu
 
     @property
     def serving(self) -> Any:

@@ -25,8 +25,12 @@ The scratch and the per-(sequence, kv head) arrival counters are kept per
 (device, stream) and grown when a launch needs more, so a call allocates
 nothing; the counters are zeroed once when allocated, and each launch's
 last block resets its own to 0. Launches that share the buffers are thus
-ordered by their stream, and a launch on another stream gets its own.
-The reference's
+ordered by their stream, and a launch on another stream gets its own. A
+launch captured into a CUDA graph never uses that cache: a graph replays
+the pointers it captured, and the cache may replace its buffers later, so
+the capture allocates its own from the graph's memory pool, which the
+graph holds for as long as it lives (the counters' zeroing is captured
+too, and replays as a memset). The reference's
 ``INT8_MIN_PAGE`` and its gather fallback for small int8 pages are a
 Mosaic tiling rule: the CUDA kernel takes any page size.
 """
@@ -66,12 +70,16 @@ def scratch_numel(B: int, Hkv: int, G: int, Dh: int, n_splits: int) -> int:
 def _split_buffers(q: torch.Tensor, Hkv: int, page: int, max_pages: int, stream: int):
     """(pages per split, f32 scratch, int32 counters) for one launch on
     ``stream`` (its handle): the (device, stream)'s own buffers, each
-    replaced by a larger one (counters zeroed) when the launch needs more."""
+    replaced by a larger one (counters zeroed) when the launch needs more;
+    under a graph capture, buffers of the graph's own."""
     B, H, Dh = q.shape
     pps, n_splits = split_layout(max_pages, page)
+    need = scratch_numel(B, Hkv, H // Hkv, Dh, n_splits)
+    if q.is_cuda and torch.cuda.is_current_stream_capturing():
+        return (pps, torch.empty(need, dtype=torch.float32, device=q.device),
+                torch.zeros(B * Hkv, dtype=torch.int32, device=q.device))
     key = (q.device, stream)
     part, counters = _buffers.get(key, (None, None))
-    need = scratch_numel(B, Hkv, H // Hkv, Dh, n_splits)
     if part is None or part.numel() < need:
         part = torch.empty(need, dtype=torch.float32, device=q.device)
     if counters is None or counters.numel() < B * Hkv:

@@ -39,6 +39,18 @@ import torch
 log = logging.getLogger(__name__)
 
 
+def card_memory(index: int) -> dict[str, int]:
+    """The caching allocator's host-side readings of card ``index``: the
+    bytes live tensors hold (``used``), their peak since the last reset
+    (``peak``) and the card's total memory (``limit``). No stream syncs.
+    Shared with the device datasource (``datasource/tpu/client.py``)."""
+    return {
+        "used": int(torch.cuda.memory_allocated(index)),
+        "peak": int(torch.cuda.max_memory_allocated(index)),
+        "limit": int(torch.cuda.mem_get_info(index)[1]),
+    }
+
+
 class DeviceTelemetry:
     """Background device-state poller. ``start()`` spawns the daemon
     thread; ``sample()`` is also callable inline (tests, one-shot health
@@ -64,8 +76,8 @@ class DeviceTelemetry:
         if dev is None or dev.type != "cuda":
             return []
         index = dev.index if dev.index is not None else torch.cuda.current_device()
-        used = int(torch.cuda.memory_allocated(index))
-        limit = int(torch.cuda.mem_get_info(index)[1])
+        mem = card_memory(index)
+        used, limit = mem["used"], mem["limit"]
         return [{
             "id": index, "platform": "gpu",
             "hbm_used_bytes": used, "hbm_limit_bytes": limit,

@@ -218,9 +218,10 @@ metrics port serves ``/metrics``;
 streaming client; ``logger=`` takes the app's structured logger, whose
 lines carry the active span's ``trace_id``/``span_id`` (log correlation).
 ``python -m gofr_tpu_torch.serve`` runs one. ``from_hf`` builds an engine
-from an HF-layout checkpoint and its tokenizer asset. Not ported yet: the
-gRPC generation surface, ``from_checkpoint`` (the training slice's
-checkpoint manager) and ``from_hf``'s ``sharding=``.
+from an HF-layout checkpoint and its tokenizer asset, ``from_checkpoint``
+from the newest committed step of a ``CheckpointManager`` directory (warm
+restart). Not ported yet: the gRPC generation surface and the
+``sharding=`` of both.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -749,6 +750,51 @@ class ServingEngine:
         self._cold_key: tuple | None = None
         self._supervisor: Any = None  # EngineSupervisor backref (health)
         self.device_telemetry: Any = None  # DeviceTelemetry backref (health)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        cfg: llama.LlamaConfig,
+        checkpoint_dir: str,
+        *,
+        step: int | None = None,
+        sharding: Any = None,
+        seed: int | None = None,
+        device: str | torch.device | None = None,
+        **kw: Any,
+    ) -> "ServingEngine":
+        """Warm restart: an engine whose weights are the newest committed
+        checkpoint step (or ``step``) of ``checkpoint_dir``
+        (``checkpoint.CheckpointManager``), restored onto ``device`` (the
+        card by default). Random weights only when ``seed`` is given (a
+        ``torch.Generator`` seed, the port's ``seed_key``) and no step is
+        committed. A corrupt existing checkpoint raises: serving random
+        weights would be worse than failing the start. ``sharding=``
+        raises until the parallel plane is ported."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from gofr_tpu_torch.checkpoint import CheckpointError, CheckpointManager
+
+        if sharding is not None:
+            raise NotImplementedError(
+                "sharding= needs the parallel plane (ROADMAP Queue A item 9); "
+                "from_checkpoint restores onto one device"
+            )
+        dev = resolve_device(device)
+        mgr = CheckpointManager(checkpoint_dir)
+        if mgr.latest_step() is None:  # raises on a corrupt manifest
+            if seed is None:
+                raise CheckpointError(
+                    f"no committed checkpoints in {checkpoint_dir} "
+                    "(pass seed for the random-init fallback)"
+                )
+            params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev)
+        else:
+            with FakeTensorMode():  # shapes and dtypes only: the port's eval_shape
+                abstract = llama.init_params(cfg, device="cpu")
+            params = mgr.restore(abstract, step=step, device=dev)
+        return cls(cfg, params, device=dev, **kw)
 
     @classmethod
     def from_hf(

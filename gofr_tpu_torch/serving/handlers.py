@@ -523,8 +523,18 @@ def register_kv_fetch_routes(app: Any, engine: Any,
     The device→host materialization (``encode_entry`` reads the card's
     tensors) runs in the event loop's executor, never on the engine thread
     or the event loop. Registered automatically by
-    ``register_generation_routes``."""
-    from gofr_tpu_torch.serving.prefix_index import encode_entry
+    ``register_generation_routes``.
+
+    A request whose ``Accept`` names ``KV_WIRE_CONTENT_TYPE`` (the port's
+    ``HTTPReplica.fetch_kv`` sends it) gets the same entries as one binary
+    body of raw slabs (``encode_entries_binary``); any other request, a
+    reference client's included, gets the JSON body."""
+    from gofr_tpu_torch.http.response import File
+    from gofr_tpu_torch.serving.prefix_index import (
+        KV_WIRE_CONTENT_TYPE,
+        encode_entries_binary,
+        encode_entry,
+    )
 
     MAX_KEYS = 64  # one fetch moves at most one prompt's chain
 
@@ -548,27 +558,28 @@ def register_kv_fetch_routes(app: Any, engine: Any,
             raise ErrorMissingParam("keys")
         if len(keys) > MAX_KEYS:
             raise ErrorInvalidParam("keys")
+        binary = KV_WIRE_CONTENT_TYPE in ctx.header("Accept")
         cache = getattr(engine, "_prefix_cache", None)
-        entries: dict[str, Any] = {}
-        if cache is not None:
-            loop = asyncio.get_running_loop()
+        # peek, never get: serving a peer must not mutate this replica's
+        # LRU order or pop its host-tier copies
+        read = (getattr(cache, "peek", None) or cache.get) if cache is not None else None
 
-            # peek, never get: serving a peer must not mutate this
-            # replica's LRU order or pop its host-tier copies
-            read = getattr(cache, "peek", None) or cache.get
+        def gather() -> Any:
+            found = {}
+            for key in keys:
+                value = read(str(key)) if read is not None else None
+                if value is not None:
+                    found[str(key)] = value
+            if binary:
+                return encode_entries_binary(found)
+            return {key: encode_entry(value) for key, value in found.items()}
 
-            def gather() -> dict[str, Any]:
-                out: dict[str, Any] = {}
-                for key in keys:
-                    value = read(str(key))
-                    if value is not None:
-                        out[str(key)] = encode_entry(value)
-                return out
-
-            # off the event loop: encode_entry materializes device
-            # arrays host-side (a sync) and base64s megabytes of slab
-            entries = await loop.run_in_executor(None, gather)
-        return {"entries": entries}
+        # off the event loop: encoding materializes device arrays
+        # host-side (a sync) and copies megabytes of slab
+        out = await asyncio.get_running_loop().run_in_executor(None, gather)
+        if binary:
+            return File(content=out, content_type=KV_WIRE_CONTENT_TYPE)
+        return {"entries": out}
 
     app.post(path, kv_fetch)
 
@@ -634,6 +645,16 @@ def register_embedding_routes(app: Any, bert_cfg: Any, bert_params: Any,
             "the native PJRT embedder binds libtpu and is not ported (ROADMAP Queue A "
             "item 7); /embed runs models.bert.embed"
         )
+    # an id past the vocabulary would reach the embedding gather, a sticky
+    # device assert on the card (the reference's gather clamps it): refuse
+    # a tokenizer that says it makes such ids, and answer 400 to a request
+    # whose ids still reach past it (ROADMAP Queue C 36)
+    tok_vocab = getattr(tokenizer, "vocab_size", None)
+    if tok_vocab is not None and tok_vocab > bert_cfg.vocab_size:
+        raise ValueError(
+            f"tokenizer vocabulary {tok_vocab} exceeds the model's {bert_cfg.vocab_size}: "
+            "its ids would index past the embedding"
+        )
     device = bert_params["embedding"].device
 
     def run(arr: np.ndarray, lens: list[int]) -> np.ndarray:
@@ -649,6 +670,8 @@ def register_embedding_routes(app: Any, bert_cfg: Any, bert_params: Any,
         if not texts:
             raise ErrorMissingParam("input")
         arr, lens = pad_batch(tokenizer, texts, bert_cfg.max_seq_len)
+        if arr.size and (int(arr.min()) < 0 or int(arr.max()) >= bert_cfg.vocab_size):
+            raise ErrorInvalidParam("input")  # host-side ids: no device sync
         emb = await asyncio.get_running_loop().run_in_executor(None, run, arr, lens)
         return {
             "embeddings": emb.tolist(),

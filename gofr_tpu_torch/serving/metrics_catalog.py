@@ -152,6 +152,11 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
      "Autoscaler's current replica count per pool (label role)", None),
     ("counter", "app_autoscaler_scale_events_total",
      "Autoscaler scale actions taken (label direction=up|down)", None),
+    # the device datasource (datasource/tpu/client.py)
+    ("gauge", "app_tpu_duty_cycle",
+     "Fraction of wall time the TPU executed in the last window", None),
+    ("counter", "app_tpu_devices_excluded_total",
+     "Devices excluded from the mesh by the sick-chip breaker", None),
     # the app plane: the container (container/container.py), the HTTP
     # metrics middleware (http/middleware/core.py) and the service client
     # with its circuit breaker (service/)
@@ -161,6 +166,15 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
      "Response time of HTTP service requests in seconds", None),
     ("gauge", "app_service_breaker_state",
      "Circuit-breaker state per downstream service address: 0 closed, 1 open", None),
+)
+
+
+# series a module registers itself on the Manager it is given, as its
+# reference counterpart does outside the container (so an app without that
+# module exposes the reference container's families and no more)
+SELF_REGISTERED_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
+    # the checkpoint manager (checkpoint/manager.py)
+    ("histogram", "app_checkpoint_save_seconds", "Checkpoint save latency", None),
 )
 
 

@@ -19,7 +19,9 @@ failover or a load spill. Two halves:
   from a colocated in-process engine through :func:`local_engine_fetcher`
   (its cache's tensors, by reference: no copy), or as serialized pages
   from a remote one (:func:`encode_entry`/:func:`decode_entry`, the wire
-  format of the reference, which carries bf16 as its raw 16-bit words).
+  format of the reference, which carries bf16 as its raw 16-bit words; or
+  the port's binary body, :func:`encode_entries_binary`, under
+  :data:`KV_WIRE_CONTENT_TYPE`, which carries the same slabs unencoded).
   Fetched entries go through the engine's chunk-prefix commit path
   (``PagedKVCache.write_span`` / ``batch.insert_chunk``) and land in the
   local cache, so a migration is paid once per replica.
@@ -38,6 +40,8 @@ from __future__ import annotations
 
 import base64
 import inspect
+import json
+import math
 import threading
 import time
 from typing import Any, Callable
@@ -54,6 +58,9 @@ __all__ = [
     "local_engine_store",
     "encode_entry",
     "decode_entry",
+    "KV_WIRE_CONTENT_TYPE",
+    "encode_entries_binary",
+    "decode_entries_binary",
 ]
 
 
@@ -93,6 +100,86 @@ def decode_entry(payload: dict[str, Any]) -> tuple:
             arr = np.frombuffer(raw, dtype=np.dtype(leaf["dtype"])).reshape(leaf["shape"])
             out.append(torch.from_numpy(arr.copy()))
     return tuple(out)
+
+
+# The port's binary body for /kv/fetch: an 8-byte little-endian header
+# length, a JSON header naming each leaf's dtype, shape, byte offset and
+# byte count (offsets count from the end of the header), then the raw
+# slabs back to back. A 1000-token entry at Llama-3-8B widths is 134 MB
+# of K/V: base64 JSON makes it 180 MB and a second to encode, too slow
+# for the migrator's 2 s fetch timeout. A server answers it only to a
+# request whose Accept names this type; any other gets the JSON body.
+KV_WIRE_CONTENT_TYPE = "application/x-gofr-kv-slabs"
+_WIRE_DTYPES = {
+    "float32": (np.float32, None), "float16": (np.float16, None), "int8": (np.int8, None),
+    "int32": (np.int32, None), "int64": (np.int64, None), "uint8": (np.uint8, None),
+    "bfloat16": (np.uint16, torch.bfloat16),
+}
+
+
+def encode_entries_binary(entries: dict[str, Any]) -> bytes:
+    """Serialize {key: (last_logits, k_slab, v_slab)} to the binary body.
+    Reads each leaf to the host (the caller's thread pays it); bf16 leaves
+    cross as their 16-bit words, as in :func:`encode_entry`."""
+    header: dict[str, list] = {}
+    slabs: list[np.ndarray] = []
+    offset = 0
+    for key, value in entries.items():
+        leaves = []
+        for leaf in value:
+            t = leaf.detach().to("cpu").contiguous()
+            bf16 = t.dtype == torch.bfloat16
+            arr = t.view(torch.uint16).numpy() if bf16 else t.numpy()
+            name = "bfloat16" if bf16 else arr.dtype.name
+            if name not in _WIRE_DTYPES:
+                raise ValueError(f"dtype {name} does not cross the KV wire")
+            leaves.append({"dtype": name, "shape": list(t.shape), "offset": offset,
+                           "nbytes": arr.nbytes})
+            slabs.append(arr)
+            offset += arr.nbytes
+        header[str(key)] = leaves
+    head = json.dumps({"entries": header}).encode("utf-8")
+    return b"".join([len(head).to_bytes(8, "little"), head,
+                     *(a.reshape(-1).view(np.uint8) for a in slabs)])
+
+
+def decode_entries_binary(body: bytes) -> dict[str, tuple]:
+    """Inverse of :func:`encode_entries_binary`: host tensors, each a copy
+    of its slab. A body that does not parse, or whose header names bytes
+    the body does not hold, raises ``ValueError`` (the migrator's fetch
+    contract turns that into a compute miss)."""
+    view = memoryview(body)
+    if len(view) < 8:
+        raise ValueError("KV wire body shorter than its length prefix")
+    n = int.from_bytes(view[:8], "little")
+    if n > len(view) - 8:
+        raise ValueError("KV wire header runs past the body")
+    try:
+        header = json.loads(bytes(view[8:8 + n]))["entries"]
+    except (UnicodeDecodeError, json.JSONDecodeError, KeyError, TypeError) as exc:
+        raise ValueError(f"KV wire header does not parse: {exc}") from exc
+    if not isinstance(header, dict):
+        raise ValueError("KV wire header holds no entry map")
+    data = view[8 + n:]
+    out: dict[str, tuple] = {}
+    for key, leaves in header.items():
+        tensors = []
+        for leaf in leaves:
+            try:
+                np_dtype, torch_dtype = _WIRE_DTYPES[leaf["dtype"]]
+                shape = [int(d) for d in leaf["shape"]]
+                start, nbytes = int(leaf["offset"]), int(leaf["nbytes"])
+            except (KeyError, TypeError, ValueError) as exc:
+                raise ValueError(f"KV wire leaf of {key!r} is malformed: {leaf!r}") from exc
+            itemsize = np.dtype(np_dtype).itemsize
+            if (min(shape, default=0) < 0 or start < 0
+                    or nbytes != math.prod(shape) * itemsize or start + nbytes > len(data)):
+                raise ValueError(f"KV wire leaf of {key!r} does not fit the body: {leaf!r}")
+            arr = np.frombuffer(data[start:start + nbytes], dtype=np_dtype).reshape(shape)
+            t = torch.from_numpy(arr.copy())
+            tensors.append(t.view(torch_dtype) if torch_dtype is not None else t)
+        out[str(key)] = tuple(tensors)
+    return out
 
 
 # -- the cluster-wide index ----------------------------------------------------

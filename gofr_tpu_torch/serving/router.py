@@ -71,7 +71,12 @@ from gofr_tpu_torch.errors import (
 )
 from gofr_tpu_torch.metrics.register import Histogram
 from gofr_tpu_torch.serving import membership as ms
-from gofr_tpu_torch.serving.prefix_index import PrefixIndex, decode_entry
+from gofr_tpu_torch.serving.prefix_index import (
+    KV_WIRE_CONTENT_TYPE,
+    PrefixIndex,
+    decode_entries_binary,
+    decode_entry,
+)
 from gofr_tpu_torch.tracing.trace import current_span, format_traceparent
 
 # The typed-retriable error set: ONLY these may trigger a failover
@@ -567,8 +572,11 @@ class HTTPReplica:
                  fence_epoch: int | None = None) -> dict[str, tuple]:
         """Warm KV page migration, remote half (serving/prefix_index.py):
         fetch serialized prefix-cache slabs from this replica's
-        ``/kv/fetch`` surface. Returns {key: (logits, k, v)} as HOST
-        numpy arrays — the admitting engine uploads them asynchronously.
+        ``/kv/fetch`` surface. Asks for the port's binary body of raw slabs
+        (``KV_WIRE_CONTENT_TYPE``) and reads the JSON body from a server
+        that answers with that (a reference replica). Returns {key:
+        (logits, k, v)} as HOST tensors — the admitting engine uploads them
+        asynchronously.
         Raises on transport failure; the migrator's fetch contract turns
         any raise into a clean compute miss. ``fence_epoch`` rides the
         payload when set: a fetch stamped against a replica that warm-
@@ -579,11 +587,16 @@ class HTTPReplica:
             payload["fence_epoch"] = int(fence_epoch)
         resp = self._svc.post(
             "/kv/fetch", json=payload, timeout=timeout,
+            headers={"Accept": f"{KV_WIRE_CONTENT_TYPE}, application/json"},
         )
         if not resp.ok:
             raise ConnectionError(
                 f"replica {self.replica_id}: /kv/fetch HTTP {resp.status_code}"
             )
+        content_type = next((v for k, v in resp.headers.items()
+                             if k.lower() == "content-type"), "")
+        if content_type.startswith(KV_WIRE_CONTENT_TYPE):
+            return decode_entries_binary(resp.body)
         body = resp.json()
         data = body.get("data") or body
         out: dict[str, tuple] = {}

@@ -20,7 +20,7 @@ from gofr_tpu_torch.ops.paged_attention import (  # noqa: E402
 from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "gofr_tpu", "websockets")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "gofr_tpu", "websockets", "optax", "orbax")
 # not on the card's machine: no port module imports one when it is imported
 # (``HFTokenizer`` imports ``transformers`` when one is built)
 FORBIDDEN_AT_IMPORT = ("regex", "transformers", "tokenizers", "safetensors", "sentencepiece")
@@ -315,6 +315,48 @@ def test_model_family_modules_are_checked_and_keep_the_device_policy(no_card, tm
         hf_import.load_llama_from_hf(str(tmp_path), device="cpu")
     tok = BPETokenizer.from_spec(bpe_spec([("a", "b")]))
     assert tok.decode(tok.encode("abc")) == "abc"
+
+
+PLANE_MODULES = (
+    "gofr_tpu_torch/tree.py", "gofr_tpu_torch/checkpoint/__init__.py",
+    "gofr_tpu_torch/checkpoint/manager.py", "gofr_tpu_torch/models/train.py",
+    "gofr_tpu_torch/ops/moe.py", "gofr_tpu_torch/models/moe.py",
+    "gofr_tpu_torch/datasource/__init__.py", "gofr_tpu_torch/datasource/tpu/__init__.py",
+    "gofr_tpu_torch/datasource/tpu/client.py",
+)
+
+
+def test_model_plane_and_datasource_modules_are_checked_and_keep_the_device_policy(
+        no_card, tmp_path):
+    """The checkpoint, training, MoE and device-datasource modules are among
+    the files the import rules hold. Their entry points place tensors on the
+    card unless asked for the CPU and raise without one: MoE params, a
+    checkpoint restore, ``from_checkpoint`` and the datasource's connect;
+    a save and the tree utilities are host code."""
+    from gofr_tpu_torch.checkpoint import CheckpointManager
+    from gofr_tpu_torch.datasource.tpu import TPUClient
+    from gofr_tpu_torch.models import moe
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(PLANE_MODULES) <= files
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        moe.init_params(moe.MoeConfig.tiny())
+    assert moe.init_params(moe.MoeConfig.tiny(), device="cpu")["lm_head"].device.type == "cpu"
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, device="cpu")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mgr.restore(params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine.from_checkpoint(cfg, str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TPUClient().connect()
+    engine = ServingEngine.from_checkpoint(cfg, str(tmp_path), device="cpu")
+    assert engine.device.type == "cpu"
+    assert all(torch.equal(a, b) for a, b in zip(
+        [params["embedding"], params["layers"]["wq"]],
+        [engine.params["embedding"], engine.params["layers"]["wq"]]))
 
 
 def test_serve_entry_point_refuses_without_a_card(no_card):
