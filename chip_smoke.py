@@ -185,11 +185,13 @@ Phases, each a hard failure with a non-zero exit:
      replica: a 1000-token prompt through ``_submit_disagg`` beside a
      unified engine's TTFT and tokens, no prefill compute on the decode
      replica;
-   then the http phase, at full depth: ``H1`` an ``App`` over a paged int8
-   engine (the main path's prompts as SSE streams against
-   ``engine.submit``, the other routes, ``/metrics``, the profiler, the
-   admin drain), ``H2`` two apps behind a router of ``HTTPReplica``s, ``H3``
-   ``python -m gofr_tpu_torch.serve`` as a process; then the surface
+   then the http phase: ``H1`` an ``App`` over a paged int8 engine (the
+   main path's prompts as SSE streams against ``engine.submit``, the other
+   routes, ``/metrics``, the profiler, the admin drain) and ``H2`` two apps
+   behind a router of ``HTTPReplica``s (its binary ``/kv/fetch`` entry's
+   bytes held to its slabs' shapes), both at ``PLANE_DEPTH`` (8) layers,
+   and ``H3`` ``python -m gofr_tpu_torch.serve`` as a process at full
+   depth with ``DB_DIALECT=sqlite`` (``sql`` UP on its health route); then the surface
    phase, at full depth, one ``App`` with API-key auth over a paged bf16
    engine (2048, 16-token pages, whole prefills):
    - ``W`` the main path's prompts as 10 concurrent WebSocket streams
@@ -264,6 +266,38 @@ Phases, each a hard failure with a non-zero exit:
      logits, the load-balance loss finite, positive and equal to
      ``load_balance_loss``'s own pass, a backward reaching exactly the
      experts a token was routed to;
+   then the sql phase, at Llama-3-8B widths and full depth (the weights
+   made again from the seed), the launch counters reset before it:
+   - ``S1`` an ``App`` on 127.0.0.1 with ``DB_DIALECT=sqlite`` (a temporary
+     file) and ``app.add_tpu(new_tpu(config))``; ``app.migrate``: version 1
+     the ``prompt`` and ``generation`` tables, 2 the main path's ten
+     prompts and 10,000 filler rows in the migration's transaction, 3 a
+     ``ds.tpu`` warm-up (the paged bf16 executable at D's shape, one
+     execute bit-equal to eager and within 2^-6 of the plain version), 4
+     raises after an insert (a ``MigrationError``, nothing of it left,
+     ``MAX(version)`` 3); ms of each version;
+   - ``S2`` ``add_rest_handlers(Prompt)`` over HTTP (the port's client):
+     200 single requests of each verb one at a time (p50/p95 ms), a GET of
+     all 10,010 rows (ms, bytes), 404 and 400; Queue C 42: 8 POSTs sent
+     while a handler holds a ``ctx.sql.begin()`` open wait until it rolls
+     back, then land, and its own row does not;
+   - ``S3`` a paged bf16 engine (the bf16 path's config) on the same app:
+     ``POST /jobs/{id}`` for the ten main prompts at once (the prompt row
+     through ``ctx.sql``, 32 greedy tokens, the ``generation`` row in one
+     transaction), each job's tokens held to ``engine.submit`` of the same
+     prompts in the same order, each row read back through CRUD equal to
+     its reply, the ``app_sql_stats`` count equal to the statements
+     issued, ``sql`` UP; TTFT through the handler against submit, ms of
+     each job's SQL write; flash and bf16 paged launched, int8 paged not;
+   - ``S4`` a second ``App`` on the same file with versions 1-3 and a new
+     5: only 5 runs and its ``TPUClient`` compiles and launches nothing;
+     then S1's versions 1-2 (1,000 filler rows) and S2's CRUD sequence over
+     ``DB_DIALECT=postgres`` and ``mysql`` against the port's fake servers
+     on 127.0.0.1: the rows read back equal across the three dialects
+     (MySQL's raw rows as text), the pool gauges, ms a statement;
+   it prints a ``{"sql": ...}`` line; its launches (S3's engine, and S1's
+   captured launches times their replays) are the ``kernels`` rows'
+   ``launches_sql``;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -282,6 +316,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import inspect
 import json
 import math
@@ -4827,6 +4862,14 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
         wire_equal = sorted(from_json) == sorted(from_binary) == sorted(keys) and all(
             a.dtype == b.dtype and torch.equal(a, b)
             for k in keys for a, b in zip(from_json[k], from_binary[k]))
+        # the body's bytes are its header and the slabs its shapes name, each
+        # K/V slab [L, S_pad, Hkv, Dh] with L the engine's layers
+        slabs = [t for k in keys for t in from_binary[k]]
+        shape_bytes = 8 + int.from_bytes(bin_raw[:8], "little") + sum(
+            t.numel() * t.element_size() for t in slabs)
+        kv_shapes = [list(t.shape) for k in keys for t in from_binary[k][1:]]
+        bytes_by_shape = len(bin_raw) == shape_bytes and all(
+            s[0] == cfg.n_layers and s[2:] == [cfg.n_kv_heads, cfg.head_dim] for s in kv_shapes)
 
         def ttft(s, eng):
             return s["arrivals"][0] * 1e3, eng.timeline.get(s["head"]["id"]).to_dict()["ttft_ms"]
@@ -4839,6 +4882,7 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
             "kv_fetch_bytes": len(raw), "kv_fetch_ms": direct_ms, "kv_fetch_status": status,
             "kv_fetch_binary_bytes": len(bin_raw), "kv_fetch_binary_ms": binary_ms,
             "kv_fetch_binary_status": bin_status, "kv_fetch_binary_equal_to_json": wire_equal,
+            "kv_fetch_binary_shapes": kv_shapes, "kv_fetch_binary_bytes_by_shape": bytes_by_shape,
             "fetch_timeout_s": migrator.fetch_timeout_s}
         print(f"  H2 migration: {out['migration']}")
         print(f"  H2 /kv/fetch of one 1000-token entry: JSON {len(raw)} bytes in {direct_ms:.1f} ms, "
@@ -4846,7 +4890,7 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
               f"the migrator's fetches under its {migrator.fetch_timeout_s} s timeout: {fetches}")
         if not out["migration"]["equal"] or tier != "remote" or counts["prefill"] \
                 or b_launches["flash_attention"] or status != 201 or bin_status != 200 \
-                or not wire_equal or migrator.fetch_timeout_s != 2.0 \
+                or not wire_equal or not bytes_by_shape or migrator.fetch_timeout_s != 2.0 \
                 or not bin_headers.get("Content-Type", "").startswith(KV_WIRE_CONTENT_TYPE):
             raise AssertionError(f"H2 migration: {out['migration']}")
         # P/D through the router: A repurposed to prefill, B to decode
@@ -4945,8 +4989,9 @@ def http_h2(torch, cfg, params, prompt, mem: dict) -> dict:
 def http_h3() -> dict:
     """H3: ``python -m gofr_tpu_torch.serve`` as a process at Llama-3-8B
     width and full depth (the reference's engine defaults: dense bf16 KV,
-    256-token chunks): boot to its first answer, 3 requests (one streamed),
-    a ``/metrics`` scrape, then SIGTERM: the drain runs, the process exits
+    256-token chunks), with ``DB_DIALECT=sqlite`` on a temporary file: boot
+    to its first answer, 3 requests (one streamed), a ``/metrics`` scrape,
+    ``sql`` UP on ``/.well-known/health``, then SIGTERM: the drain runs, the process exits
     0 within ``HTTP_EXIT_S`` and its port is free after. The process is
     killed in a ``finally`` whatever happens."""
     import os
@@ -4963,7 +5008,8 @@ def http_h3() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, **SERVE_ENV, HTTP_HOST="127.0.0.1",
                    HTTP_PORT=str(http_port), METRICS_PORT=str(metrics_port), LOG_LEVEL="INFO",
-                   GOFR_CONFIGS_DIR=tmp, PYTHONPATH=str(ROOT))
+                   GOFR_CONFIGS_DIR=tmp, PYTHONPATH=str(ROOT), DB_DIALECT="sqlite",
+                   DB_NAME=str(Path(tmp) / "serve.db"))
         log_path = Path(tmp) / "serve.log"
         print(f"H3: python -m gofr_tpu_torch.serve on :{http_port} (metrics :{metrics_port})")
         t0 = time.perf_counter()
@@ -4992,6 +5038,8 @@ def http_h3() -> dict:
             stream = sse(base, {"prompt": "a streamed request", "max_tokens": 16})
             status, _, raw = fetch(f"http://127.0.0.1:{metrics_port}/metrics")
             text = raw.decode()
+            health = json.loads(fetch(base + "/.well-known/health")[2])["data"]["details"]
+            out["health_sql"] = (health.get("sql") or {}).get("status")
             out["requests"] = [first[0], second[0], stream["terminal"]]
             out["metrics"] = {"status": status, "lint": lint_exposition(text),
                               "http_series": "app_http_response_count" in text,
@@ -5001,7 +5049,8 @@ def http_h3() -> dict:
             if first[0] != 201 or second[0] != 201 or first[2]["data"]["usage"][
                     "completion_tokens"] != 8 or stream["terminal"] is None \
                     or len(stream["tokens"]) != 16 or status != 200 or out["metrics"]["lint"] \
-                    or not out["metrics"]["http_series"] or not out["metrics"]["ttft_series"]:
+                    or not out["metrics"]["http_series"] or not out["metrics"]["ttft_series"] \
+                    or out["health_sql"] != "UP":
                 raise AssertionError(f"H3: {out}")
             t = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
@@ -5032,8 +5081,9 @@ def http_h3() -> dict:
 
 
 def run_http(torch, cfg, params) -> dict:
-    """The app plane at Llama-3-8B widths and full depth: H1 one app, H2
-    two apps behind a router over HTTP, H3 the entry point as a process."""
+    """The app plane at Llama-3-8B widths: H1 one app and H2 two apps behind
+    a router over HTTP at ``PLANE_DEPTH`` layers (the first of the same
+    weights), H3 the entry point as a process at full depth."""
     rng = torch.Generator().manual_seed(SEED + 8)
 
     def prompt(n: int) -> list[int]:
@@ -5042,8 +5092,10 @@ def run_http(torch, cfg, params) -> dict:
     t0 = time.perf_counter()
     mem: dict = {}
     out = {"card": card_line()}
-    out["H1"] = http_h1(torch, cfg, params, prompt, mem)
-    out["H2"] = http_h2(torch, cfg, params, prompt, mem)
+    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
+    out["H1"] = http_h1(torch, cut_cfg, cut_params, prompt, mem)
+    out["H2"] = http_h2(torch, cut_cfg, cut_params, prompt, mem)
+    del cut_params
     out["H3"] = http_h3()
     out["memory"] = mem
     out["seconds"] = time.perf_counter() - t0
@@ -6502,6 +6554,545 @@ def run_device(torch, cfg, moe_cfg, dev) -> dict:
     return out
 
 
+SQL_FILLER = 10_000  # S1: filler rows of the prompt table (the wire dialects take the first 1,000)
+SQL_WIRE_FILLER = 1_000  # S4: filler rows a wire dialect holds
+SQL_CRUD_N = 200  # S2: single requests of each verb, one at a time
+SQL_NEW = 32  # S3: greedy tokens a generation job
+SQL_HOLD_WRITERS = 8  # S2: POSTs sent while a handler holds a transaction open
+SQL_HOLD_S = 0.5  # S2: how long the writers must stay waiting on the held transaction
+
+
+# the sql phase's CRUD entities (made with real types: this module's
+# annotations are strings, which a dataclass resolves through sys.modules,
+# and a test loads this file without registering it there): a prompt's
+# token ids as JSON text, and a generation job's record
+Prompt = dataclasses.make_dataclass("Prompt", [("id", int, 0), ("tokens", str, ""),
+                                               ("max_new", int, 0)])
+Generation = dataclasses.make_dataclass("Generation", [("id", int, 0), ("prompt_id", int, 0),
+                                                       ("tokens", str, ""), ("finish", str, "")])
+
+
+SQL_TABLES = (
+    "CREATE TABLE prompt (id INTEGER PRIMARY KEY, tokens TEXT NOT NULL, max_new INTEGER)",
+    "CREATE TABLE generation (id INTEGER PRIMARY KEY, prompt_id INTEGER NOT NULL, "
+    "tokens TEXT NOT NULL, finish TEXT)",
+)
+
+
+def sql_rows(torch, vocab: int) -> list[tuple[int, str, int]]:
+    """The prompt table's rows: the main path's ten prompts (ids 1-10) and
+    ``SQL_FILLER`` short filler prompts (ids 11…), all from the seed."""
+    rng = torch.Generator().manual_seed(SEED + 23)
+    rows = [(i + 1, json.dumps(torch.randint(3, vocab, (n,), generator=rng).tolist()), SQL_NEW)
+            for i, n in enumerate(MAIN_LENS)]
+    filler = torch.randint(3, vocab, (SQL_FILLER, 8), generator=rng).tolist()
+    rows += [(len(MAIN_LENS) + 1 + i, json.dumps(t), 8) for i, t in enumerate(filler)]
+    return rows
+
+
+def sql_app(name: str, **values):
+    """An ``App`` on free 127.0.0.1 ports with the given DB_* configs."""
+    return models_app(name, SHUTDOWN_GRACE_PERIOD="30", **values)
+
+
+def timed_up(times: dict, version: int, up):
+    """``up`` wrapped to record its own ms in ``times``."""
+    def run(ds):
+        t = time.perf_counter()
+        try:
+            up(ds)
+        finally:
+            times[version] = (time.perf_counter() - t) * 1e3
+    return run
+
+
+def sql_base_migrations(rows: list, times: dict) -> dict:
+    """S1's versions 1 (the tables) and 2 (the rows, in the migration's
+    transaction)."""
+    def v1(ds):
+        for stmt in SQL_TABLES:
+            ds.sql.exec(stmt)
+
+    def v2(ds):
+        for row in rows:
+            ds.sql.exec("INSERT INTO prompt (id, tokens, max_new) VALUES (?, ?, ?)", *row)
+
+    return {1: timed_up(times, 1, v1), 2: timed_up(times, 2, v2)}
+
+
+def sql_s1(torch, dev, app, rows: list) -> dict:
+    """S1: ``app.migrate`` with versions 1 (tables), 2 (the prompts and the
+    filler rows), 3 (a ``ds.tpu`` warm-up: a paged bf16 executable at D's
+    shape, one execute held bit-equal to an eager call and within
+    ``PAGED_ROW_TOL`` of the plain version) and 4 (raises after an insert:
+    a ``MigrationError``, nothing of it left, ``MAX(version)`` 3)."""
+    from gofr_tpu_torch.migration import Migrate, MigrationError
+    from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_ref
+
+    times: dict = {}
+    out: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    inputs = paged_inputs(torch, gen, DECODE_LENS, device=dev)
+
+    def v3(ds):
+        ds.tpu.compile("paged", paged_decode_attention, *inputs)
+        got = ds.tpu.execute("paged", *inputs, block=True)
+        want = paged_decode_attention(*inputs)
+        out["v3"] = {"bit_equal_to_eager": bool(torch.equal(got, want)),
+                     "row_rel_err_to_plain": row_rel_err(got, paged_decode_attention_ref(*inputs)),
+                     "captured_launches": dict(ds.tpu._exec_meta["paged"]["captured_launches"]),
+                     "graph": ds.tpu._exec_meta["paged"]["graph"]}
+        if not (out["v3"]["bit_equal_to_eager"]
+                and out["v3"]["row_rel_err_to_plain"] <= PAGED_ROW_TOL):
+            raise AssertionError(f"S1 version 3: {out['v3']}")
+        ds.sql.exec("CREATE TABLE warm (name TEXT)")
+        ds.sql.exec("INSERT INTO warm (name) VALUES (?)", "paged")
+
+    def v4(ds):
+        ds.sql.exec("INSERT INTO prompt (id, tokens, max_new) VALUES (?, ?, ?)", 99999, "[]", 1)
+        ds.sql.exec("CREATE TABLE doomed (v INTEGER)")
+        raise RuntimeError("version 4 fails on purpose")
+
+    migrations = {v: Migrate(up=up) for v, up in sql_base_migrations(rows, times).items()}
+    migrations[3] = Migrate(up=timed_up(times, 3, v3))
+    t = time.perf_counter()
+    app.migrate(migrations)
+    out["migrate_ms"] = (time.perf_counter() - t) * 1e3
+    try:
+        app.migrate({**migrations, 4: Migrate(up=timed_up(times, 4, v4))})
+        out["v4"] = "applied"
+    except MigrationError as exc:
+        out["v4"] = str(exc)
+    sql = app.container.sql
+    out["version_ms"] = times
+    out["max_version"] = sql.query_row("SELECT MAX(version) AS v FROM gofr_migration")["v"]
+    out["prompt_rows"] = sql.query_row("SELECT COUNT(*) AS n FROM prompt")["n"]
+    out["v4_left"] = {"row": sql.query_row("SELECT id FROM prompt WHERE id = ?", 99999),
+                      "table": sql.query_row("SELECT name FROM sqlite_master WHERE name = 'doomed'")}
+    print(f"  S1 migrations: {out}")
+    if not (out["v4"] == "migration 4 failed: version 4 fails on purpose" and out["max_version"] == 3
+            and out["prompt_rows"] == len(rows) and out["v4_left"] == {"row": None, "table": None}
+            and set(times) == {1, 2, 3, 4}):
+        raise AssertionError(f"S1: {out}")
+    return out
+
+
+def ms_stats(ms: list[float]) -> dict:
+    return {"n": len(ms), "p50": percentile(ms, 50), "p95": percentile(ms, 95)}
+
+
+def crud_sequence(base: str, first_id: int, n: int) -> dict:
+    """``n`` single requests of each verb, one at a time, on rows
+    ``first_id``…: POST, GET by id, PUT, DELETE; the client's ms of each
+    (p50/p95) and every status."""
+    from gofr_tpu_torch.testutil import fetch
+
+    ms: dict = {v: [] for v in ("POST", "GET", "PUT", "DELETE")}
+    bad: list = []
+    want = {"POST": 201, "GET": 200, "PUT": 200, "DELETE": 204}
+    for verb in ms:
+        for i in range(first_id, first_id + n):
+            body = json.dumps({"id": i, "tokens": json.dumps([i, i + 1]),
+                               "max_new": 1 if verb == "POST" else 2}).encode() \
+                if verb in ("POST", "PUT") else None
+            path = "/prompt" if verb == "POST" else f"/prompt/{i}"
+            t = time.perf_counter()
+            status, _, raw = fetch(base + path, verb, body, {"Content-Type": "application/json"}, 60)
+            ms[verb].append((time.perf_counter() - t) * 1e3)
+            if status != want[verb] or (verb == "GET" and json.loads(raw)["data"]["max_new"] != 1):
+                bad.append((verb, i, status, raw[:200]))
+    out = {v: ms_stats(x) for v, x in ms.items()}
+    if bad:
+        raise AssertionError(f"CRUD sequence: {bad[:5]} ({len(bad)} bad)")
+    return out
+
+
+def sql_s2(app, base: str, rows: list, held: dict) -> dict:
+    """S2: the CRUD routes over HTTP (the port's client): ``SQL_CRUD_N``
+    single requests of each verb, a GET of every row (ms and bytes), 404 and
+    400, then Queue C 42: ``SQL_HOLD_WRITERS`` POSTs sent while a handler
+    holds a ``ctx.sql.begin()`` open; they wait until it rolls back, then
+    land, and its own row does not."""
+    from gofr_tpu_torch.testutil import fetch
+
+    out: dict = {"verbs": crud_sequence(base, 20001, SQL_CRUD_N)}
+    t = time.perf_counter()
+    status, _, raw = fetch(base + "/prompt", timeout=120)
+    out["get_all"] = {"status": status, "ms": (time.perf_counter() - t) * 1e3, "bytes": len(raw),
+                      "rows": len(json.loads(raw)["data"])}
+    status_404 = fetch(base + "/prompt/424242")[0]
+    status_400 = fetch(base + "/prompt/abc")[0]
+    out["missing_malformed"] = [status_404, status_400]
+    print(f"  S2 CRUD: {out}")
+    if out["get_all"]["status"] != 200 or out["get_all"]["rows"] != len(rows) \
+            or out["missing_malformed"] != [404, 400]:
+        raise AssertionError(f"S2: {out}")
+    # Queue C 42 through the app: /hold opens a Tx, inserts row 30000 and
+    # waits; the writers' POSTs wait on the Tx; the rollback frees them
+    holder = threading.Thread(target=lambda: held.__setitem__(
+        "reply", fetch(base + "/hold", "POST", b"{}", {"Content-Type": "application/json"}, 120)))
+    holder.start()
+    if not held["open"].wait(60):
+        raise AssertionError("S2: the holding handler never opened its transaction")
+    done: dict = {}
+
+    def write(i: int) -> None:
+        body = json.dumps({"id": i, "tokens": "[1]", "max_new": 1}).encode()
+        status = fetch(base + "/prompt", "POST", body, {"Content-Type": "application/json"}, 120)[0]
+        done[i] = (status, time.perf_counter())
+
+    ids = list(range(30001, 30001 + SQL_HOLD_WRITERS))
+    writers = [threading.Thread(target=write, args=(i,)) for i in ids]
+    for w in writers:
+        w.start()
+    time.sleep(SQL_HOLD_S)
+    early = len(done)
+    t_release = time.perf_counter()
+    held["release"].set()
+    holder.join(120)
+    for w in writers:
+        w.join(120)
+    landed = [fetch(base + f"/prompt/{i}")[0] for i in ids]
+    rolled = fetch(base + "/prompt/30000")[0]
+    out["queue_c42"] = {"done_before_rollback": early, "statuses": sorted(s for s, _ in done.values()),
+                        "waited_ms": sorted((at - t_release) * 1e3 for _, at in done.values()),
+                        "landed": landed, "rolled_back_row": rolled,
+                        "holder": held["reply"][0] if "reply" in held else None}
+    print(f"  S2 Queue C 42: {out['queue_c42']}")
+    if early or len(done) != SQL_HOLD_WRITERS or set(s for s, _ in done.values()) != {201} \
+            or landed != [200] * SQL_HOLD_WRITERS or rolled != 404 \
+            or out["queue_c42"]["holder"] != 201:
+        raise AssertionError(f"S2 Queue C 42: {out['queue_c42']}")
+    for i in ids:  # back to the migrated rows
+        fetch(base + f"/prompt/{i}", "DELETE")
+    return out
+
+
+def sql_s3(torch, engine, app, base: str, gate, jobs: dict) -> dict:
+    """S3: ``POST /jobs/{id}`` for the ten main prompts at once behind the
+    gate (all admitted in one step), each job's tokens held to
+    ``engine.submit`` of the same prompts in the same order on the same
+    engine; each ``generation`` row read back through CRUD equal to its
+    reply; the ``app_sql_stats`` count equal to the statements issued; sql
+    UP on the health route; TTFT through the handler against submit and ms
+    of each job's SQL write."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gofr_tpu_torch.testutil import fetch
+
+    hist = app.container.metrics_manager.get("app_sql_stats")
+    labels = {"hostname": app.container.sql.database, "database": "sqlite"}
+    n0 = hist.snapshot(labels)[1]
+    ids = list(range(1, len(MAIN_LENS) + 1))
+    replies: dict = {}
+    client_ms: list = []
+
+    def post_job(i: int):
+        t = time.perf_counter()
+        status, _, raw = fetch(base + f"/jobs/{i}", "POST", b"{}",
+                               {"Content-Type": "application/json"}, 600)
+        client_ms.append((time.perf_counter() - t) * 1e3)
+        return status, json.loads(raw)
+
+    with ThreadPoolExecutor(max_workers=len(ids)) as pool:
+        with gate.closed():
+            futs = {i: pool.submit(post_job, i) for i in ids}
+            wait_until(lambda: engine._sched.pending() >= len(ids), 120, "S3 jobs queued")
+        replies = {i: f.result(600) for i, f in futs.items()}
+    bad = {i: r for i, r in replies.items() if r[0] != 201}
+    if bad:
+        raise AssertionError(f"S3 jobs: {bad}")
+    prompts = {i: json.loads(app.container.sql.query_row(
+        "SELECT tokens FROM prompt WHERE id = ?", i)["tokens"]) for i in ids}
+    with gate.closed():  # the same prompts directly, in the order the jobs submitted them
+        direct = {i: engine.submit(prompts[i], max_new_tokens=SQL_NEW, temperature=0.0)
+                  for i in jobs["order"]}
+        wait_until(lambda: engine._sched.pending() >= len(ids), 120, "S3 direct set queued")
+    direct = {i: f.result(600) for i, f in direct.items()}
+    parted, readback = {}, {}
+    for i in ids:
+        data = replies[i][1]["data"]
+        parted[i] = same_or_close(torch, engine, prompts[i], data["tokens"], direct[i].token_ids,
+                                  f"S3 job {i} ({MAIN_LENS[i - 1]} tokens) against submit")
+        status, _, raw = fetch(base + f"/generation/{data['generation_id']}")
+        row = json.loads(raw)["data"]
+        readback[i] = status == 200 and json.loads(row["tokens"]) == data["tokens"] \
+            and row["prompt_id"] == i and row["finish"] == "length"
+    statements = hist.snapshot(labels)[1] - n0
+    health = json.loads(fetch(base + "/.well-known/health")[2])["data"]
+    out = {"equal": sum(p["equal"] for p in parted.values()), "of": len(ids),
+           "parted": {i: p for i, p in parted.items() if not p["equal"]},
+           "order": jobs["order"], "readback_equal": sum(readback.values()),
+           "sql_statements": {"observed": statements, "issued": 3 * len(ids)},
+           "health_sql": health["details"]["sql"]["status"],
+           # both sets queued behind the gate: a job's TTFT includes the
+           # other jobs' HTTP arrival, and the first set meets a cold engine
+           "ttft_ms_gated_handler": ms_stats([replies[i][1]["data"]["ttft_ms"] for i in ids]),
+           "ttft_ms_gated_submit": ms_stats([direct[i].ttft_s * 1e3 for i in ids]),
+           "sql_write_ms": ms_stats(jobs["write_ms"]),
+           "job_ms_client_gated": ms_stats(client_ms)}
+    print(f"  S3 generation jobs: {out}")
+    # issued: each job's prompt read, the phase's own read of each prompt
+    # (query_row) and each read-back (select); a Tx's statements are not
+    # observed, as on the reference
+    if out["readback_equal"] != len(ids) or statements != 3 * len(ids) \
+            or out["health_sql"] != "UP" or len(jobs["write_ms"]) != len(ids):
+        raise AssertionError(f"S3: {out}")
+    # TTFT of the 1000-token prompt alone, through the handler and through
+    # submit, in turns (engine clock; the job's round trip by the client's)
+    long_id = MAIN_LENS.index(1000) + 1
+    turns: dict = {"handler": [], "submit": [], "job_ms_client": []}
+    for who in ("handler", "submit", "submit", "handler", "handler", "submit"):
+        if who == "handler":
+            n = len(client_ms)
+            status, body = post_job(long_id)
+            if status != 201:
+                raise AssertionError(f"S3 turn: {status} {body}")
+            turns["handler"].append(body["data"]["ttft_ms"])
+            turns["job_ms_client"].append(client_ms[n])
+        else:
+            r = engine.submit(prompts[long_id], max_new_tokens=SQL_NEW,
+                              temperature=0.0).result(600)
+            turns["submit"].append(r.ttft_s * 1e3)
+    out["ttft_ms_turns_1000"] = turns
+    print(f"  S3 1000-token prompt alone, in turns: TTFT through the handler "
+          f"{[round(x, 2) for x in turns['handler']]} ms, through submit "
+          f"{[round(x, 2) for x in turns['submit']]} ms; the job's round trip "
+          f"{[round(x, 2) for x in turns['job_ms_client']]} ms")
+    return out
+
+
+def sql_jobs(engine, jobs: dict, lock):
+    """``POST /jobs/{id}``: the prompt row through ``ctx.sql``, greedy
+    tokens from the engine (a sync handler on the app's executor, never the
+    engine thread), the ``generation`` row in one transaction."""
+    from gofr_tpu_torch.http.errors import ErrorEntityNotFound
+
+    def job(ctx):
+        pid = int(ctx.path_param("id"))
+        row = ctx.sql.query_row("SELECT tokens, max_new FROM prompt WHERE id = ?", pid)
+        if row is None:
+            raise ErrorEntityNotFound("prompt", str(pid))
+        with lock:  # the order of submission, for the direct set
+            jobs["order"].append(pid)
+            fut = engine.submit(json.loads(row["tokens"]), max_new_tokens=row["max_new"],
+                                temperature=0.0)
+        res = fut.result(600)
+        t = time.perf_counter()
+        tx = ctx.sql.begin()
+        try:
+            tx.exec("INSERT INTO generation (prompt_id, tokens, finish) VALUES (?, ?, ?)",
+                    pid, json.dumps(res.token_ids), res.finish_reason)
+            gid = tx.query_row("SELECT last_insert_rowid() AS id")["id"]
+            tx.commit()
+        except BaseException:
+            tx.rollback()
+            raise
+        with lock:
+            jobs["write_ms"].append((time.perf_counter() - t) * 1e3)
+        return {"prompt_id": pid, "generation_id": gid, "tokens": res.token_ids,
+                "ttft_ms": res.ttft_s * 1e3}
+    return job
+
+
+def sql_hold(held: dict):
+    """``POST /hold``: a transaction held open until the phase releases it,
+    then rolled back (Queue C 42)."""
+    def hold(ctx):
+        tx = ctx.sql.begin()
+        try:
+            tx.exec("INSERT INTO prompt (id, tokens, max_new) VALUES (?, ?, ?)", 30000, "[0]", 1)
+            held["open"].set()
+            if not held["release"].wait(60):
+                raise RuntimeError("never released")
+        finally:
+            tx.rollback()
+        return {"rolled_back": True}
+    return hold
+
+
+def sql_restart(torch, dev, db_path: str, rows: list) -> dict:
+    """S4, the restart: a second ``App`` on the same file with versions 1-3
+    and a new 5; only 5 runs, and its fresh ``TPUClient`` compiles and
+    launches nothing."""
+    from gofr_tpu_torch.datasource.tpu import new_tpu
+    from gofr_tpu_torch.migration import Migrate
+
+    app = sql_app("sql-restart", DB_DIALECT="sqlite", DB_NAME=db_path)
+    client = new_tpu(app.config, device=dev)
+    app.add_tpu(client)
+    ran: list = []
+
+    def mark(v):
+        return lambda ds: ran.append(v)
+
+    def v5(ds):
+        ran.append(5)
+        ds.sql.exec("CREATE INDEX generation_prompt ON generation (prompt_id)")
+
+    m0 = launch_counts()
+    t = time.perf_counter()
+    try:
+        app.migrate({1: Migrate(up=mark(1)), 2: Migrate(up=mark(2)), 3: Migrate(up=mark(3)),
+                     5: Migrate(up=v5)})
+        ms = (time.perf_counter() - t) * 1e3
+        sql = app.container.sql
+        versions = [r["version"] for r in sql.query("SELECT version FROM gofr_migration ORDER BY "
+                                                    "version")]
+        out = {"ran": ran, "versions": versions, "migrate_ms": ms,
+               "executables": list(client._exec_meta), "launches": since(m0),
+               "generation_rows": sql.query_row("SELECT COUNT(*) AS n FROM generation")["n"]}
+    finally:
+        app.container.close()
+    print(f"  S4 restart: {out}")
+    if ran != [5] or versions != [1, 2, 3, 5] or out["executables"] \
+            or any(out["launches"].values()):
+        raise AssertionError(f"S4 restart: {out}")
+    return out
+
+
+def sql_wire(dialect: str, rows: list) -> dict:
+    """S4, a wire dialect: S1's versions 1-2 (the prompts and
+    ``SQL_WIRE_FILLER`` filler rows) and S2's CRUD sequence on an ``App``
+    with ``DB_DIALECT=dialect`` against the port's fake server on
+    127.0.0.1; the rows read back, the pool gauges, ms a statement."""
+    from gofr_tpu_torch.migration import Migrate
+    from gofr_tpu_torch.testutil import fetch, start_app, stop_app
+    from gofr_tpu_torch.testutil.mysql_server import MiniMySQLServer
+    from gofr_tpu_torch.testutil.postgres_server import MiniPostgresServer
+
+    server = (MiniPostgresServer if dialect == "postgres" else MiniMySQLServer)()
+    out: dict = {}
+    try:
+        app = sql_app(f"sql-{dialect}", DB_DIALECT=dialect, DB_HOST="127.0.0.1",
+                      DB_PORT=str(server.port), DB_USER=server.user,
+                      DB_PASSWORD=server.password, DB_NAME=server.database)
+        times: dict = {}
+        app.migrate({v: Migrate(up=up) for v, up in sql_base_migrations(
+            rows[:len(MAIN_LENS) + SQL_WIRE_FILLER], times).items()})
+        app.add_rest_handlers(Prompt)
+        thread = start_app(app, timeout=120)
+        base = f"http://127.0.0.1:{app.http_port}"
+        try:
+            out["version_ms"] = times
+            out["verbs"] = crud_sequence(base, 20001, SQL_CRUD_N)
+            status, _, raw = fetch(base + "/prompt", timeout=120)
+            out["crud_rows"] = json.loads(raw)["data"]
+            sql = app.container.sql
+            out["raw_rows"] = sql.query("SELECT id, tokens, max_new FROM prompt ORDER BY id")
+            ms = []
+            for i in range(1, 201):
+                t = time.perf_counter()
+                sql.query_row("SELECT tokens FROM prompt WHERE id = ?", i)
+                ms.append((time.perf_counter() - t) * 1e3)
+            out["statement_ms"] = ms_stats(ms)
+            m = app.container.metrics_manager
+            out["gauges"] = {g: m.get(g).value({"dialect": dialect}) for g in
+                             ("app_sql_open_connections", "app_sql_inuse_connections")}
+            out["pool"] = sql.pool_stats()
+            out["health"] = json.loads(fetch(base + "/.well-known/health")[2])["data"][
+                "details"]["sql"]["status"]
+        finally:
+            stop_app(app, thread)
+    finally:
+        server.close()
+    return out
+
+
+def run_sql(torch, cfg, params, dev) -> dict:
+    """The sql phase: S1 migrations (with a ``ds.tpu`` warm-up), S2 CRUD over
+    HTTP with Queue C 42's held transaction, S3 generation jobs recorded in
+    SQL on a paged bf16 engine at ``cfg``, S4 a restart on the same file and
+    the Postgres and MySQL wire dialects. The counters are reset before it;
+    ``launches`` are S3's engine's counted launches plus S1's captured
+    launches times their replays."""
+    import tempfile
+
+    from gofr_tpu_torch.datasource.tpu import new_tpu
+    from gofr_tpu_torch.serving.handlers import register_generation_routes
+    from gofr_tpu_torch.testutil import start_app, stop_app
+
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    rows = sql_rows(torch, cfg.vocab_size)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_sql_", dir=ROOT) as tmp:
+        db_path = os.path.join(tmp, "app.db")
+        app = sql_app("sql", DB_DIALECT="sqlite", DB_NAME=db_path)
+        client = new_tpu(app.config, device=dev)
+        app.add_tpu(client)
+        print(f"S1: app.migrate on sqlite ({len(rows)} prompt rows, a ds.tpu paged executable)")
+        out["S1"] = sql_s1(torch, dev, app, rows)
+        replayed = {k: n * client._exec_meta["paged"]["replays"]
+                    for k, n in out["S1"]["v3"]["captured_launches"].items()}
+        s1_counted = launch_counts()
+        app.add_rest_handlers(Prompt)
+        app.add_rest_handlers(Generation)
+        held = {"open": threading.Event(), "release": threading.Event()}
+        app.post("/hold", sql_hold(held))
+        mem: dict = {}
+        conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16,
+                    multi_step=4, max_new_tokens_default=SQL_NEW, prefill_chunk_tokens=2048)
+        engine = build_engine(torch, cfg, params, conf, mem, "S3",
+                              metrics=app.container.metrics_manager,
+                              tracer=app.container.tracer, logger=app.logger)
+        register_generation_routes(app, engine)
+        jobs = {"order": [], "write_ms": []}
+        app.post("/jobs/{id}", sql_jobs(engine, jobs, threading.Lock()))
+        gate = Gate(engine)
+        thread = start_app(app, timeout=120)
+        base = f"http://127.0.0.1:{app.http_port}"
+        try:
+            print(f"S2: CRUD over HTTP ({SQL_CRUD_N} of each verb, all rows, Queue C 42's held "
+                  f"transaction with {SQL_HOLD_WRITERS} writers)")
+            out["S2"] = sql_s2(app, base, rows, held)
+            print(f"S3: {len(MAIN_LENS)} generation jobs recorded in SQL (paged bf16, "
+                  f"{cfg.n_layers} layers)")
+            mark = launch_counts()
+            out["S3"] = sql_s3(torch, engine, app, base, gate, jobs)
+            engine_launches = since(mark)
+        finally:
+            stop_app(app, thread)
+            engine.stop()
+        out["memory"] = mem
+        del engine
+        torch.cuda.empty_cache()
+        print("S4: a restart on the same file, then the postgres and mysql wire dialects")
+        out["S4"] = {"restart": sql_restart(torch, dev, db_path, rows)}
+    for dialect in ("postgres", "mysql"):
+        out["S4"][dialect] = sql_wire(dialect, rows)
+    n_wire = len(MAIN_LENS) + SQL_WIRE_FILLER
+    want = [{"id": r[0], "tokens": r[1], "max_new": r[2]} for r in rows[:n_wire]]
+    compare = {}
+    for dialect in ("postgres", "mysql"):
+        w = out["S4"][dialect]
+        compare[dialect] = {
+            "crud_rows_equal": w.pop("crud_rows") == want,
+            "raw_rows_equal": w.pop("raw_rows") == (
+                want if dialect == "postgres" else
+                [{k: str(v) for k, v in r.items()} for r in want]),
+        }
+        w.update(compare[dialect])
+    print(f"  S4 wire dialects: {out['S4']}")
+    for dialect in ("postgres", "mysql"):
+        w = out["S4"][dialect]
+        if not (w["crud_rows_equal"] and w["raw_rows_equal"] and w["health"] == "UP"
+                and w["gauges"]["app_sql_open_connections"] >= 1
+                and w["gauges"]["app_sql_inuse_connections"] == 0):
+            raise AssertionError(f"S4 {dialect}: {w}")
+    out["launches_counted_s1"] = s1_counted
+    out["launches_replayed_s1"] = replayed
+    launches = dict(engine_launches)
+    add_launches(launches, replayed)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  sql: {out['seconds']:.1f}s ({out['card']}); launches {launches}")
+    if not (launches.get("flash_attention") and launches.get("paged_decode_attention")) \
+            or launches.get("paged_decode_attention_q"):
+        raise AssertionError(f"sql launches {launches}")
+    return out
+
+
 PLANE_DEPTH = 8  # layers of the LoRA-tenancy and observability phases
 
 
@@ -6625,6 +7216,28 @@ def run_engine(torch) -> tuple[dict, ...]:
             surface)
 
 
+def sql_phase(torch) -> dict:
+    """The sql phase at Llama-3-8B widths and full depth. The weights are
+    made again from ``SEED`` (the same tensors ``run_engine`` served; the
+    main paths' copy was freed before the models and device phases, which
+    need the room), and the time to make them is recorded."""
+    from gofr_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"sql phase (migrations with a ds.tpu warm-up, CRUD over HTTP, generation jobs recorded "
+          f"in SQL, a restart, the postgres and mysql wire dialects; Llama-3-8B widths, "
+          f"{cfg.n_layers} layers, weights remade from the seed in {init_s:.1f}s):")
+    out = run_sql(torch, cfg, params, torch.device("cuda"))
+    out["params_init_s"] = init_s
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "gofr_tpu_torch" / "_build.py").is_file():
         return fail(f"no gofr_tpu_torch package beside {Path(__file__).name}: run it from a checkout")
@@ -6672,6 +7285,7 @@ def main() -> int:
 
     device = run_device(torch, LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH),
                         MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
+    sql = sql_phase(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -6680,6 +7294,7 @@ def main() -> int:
         r["launches_surface"] = surface["launches"].get(r["name"], 0)
         r["launches_models"] = models["launches"].get(r["name"], 0)
         r["launches_device"] = device["launches"].get(r["name"], 0)
+        r["launches_sql"] = sql["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -6697,6 +7312,7 @@ def main() -> int:
     print(json.dumps({"surface": surface}, default=str))
     print(json.dumps({"models": models}, default=str))
     print(json.dumps({"device": device}, default=str))
+    print(json.dumps({"sql": sql}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -17,9 +17,13 @@ datasource on the card, ``ctx.tpu``), the HTTP and metrics servers,
 ``run``/``run_async`` (signal handlers only on the main thread), ``stop``,
 ``drain`` and ``shutdown``, the start and stop telemetry ping, the default
 ``/.well-known/{health,alive}`` routes with the ``./static`` and swagger
-autodetect, the in-memory broker when ``PUBSUB_BACKEND=MEMORY``, and CMD
-mode (``new_cmd``, ``sub_command``). gRPC, migrations and the CRUD
-handlers are not ported.
+autodetect, the in-memory broker when ``PUBSUB_BACKEND=MEMORY``, the SQL
+datasource when ``DB_DIALECT`` is set (sqlite, postgres, mysql; a dark
+database at boot is DEGRADED health, not a crash), ``migrate``
+(gofr.go:220-227, versioned migrations with a ``gofr_migration`` table)
+and ``add_rest_handlers`` (crud_handlers.go, CRUD routes over
+``ctx.sql``), and CMD mode (``new_cmd``, ``sub_command``). gRPC is not
+ported.
 
 Port addition: ``HTTP_HOST`` (default ``0.0.0.0``) is the address both
 servers bind, so a test or a smoke run can keep them on ``127.0.0.1``.
@@ -111,6 +115,20 @@ class App:
             except Exception as exc:
                 self.logger.error(f"pubsub backend connect failed: {exc}")
                 self.container.pubsub = broker  # health_check reports DOWN
+
+        # SQL from config (container.go:128-130): DB_DIALECT selects
+        # sqlite/postgres/mysql (sql.go:212-237). A dark database at boot is
+        # DEGRADED health, not a crash; the wire dialects' keepalive loop
+        # reconnects
+        if self.config.get("DB_DIALECT"):
+            from gofr_tpu_torch.datasource.sql import new_sql
+
+            db = new_sql(self.config)
+            try:
+                self.container.register_datasource("sql", db)
+            except Exception as exc:
+                self.logger.error(f"sql backend connect failed: {exc}")
+                self.container.sql = db  # health_check reports DOWN
 
         if not is_cmd:
             self._register_defaults()
@@ -208,6 +226,24 @@ class App:
         """Wire the device datasource (``datasource.tpu.new_tpu``): it
         connects, joins health, and handlers reach it as ``ctx.tpu``."""
         self.container.register_datasource("tpu", tpu)
+
+    def add_rest_handlers(self, entity_cls: type, table: str | None = None) -> None:
+        """AddRESTHandlers (crud_handlers.go): POST, GET, GET by id, PUT and
+        DELETE routes for a dataclass entity, backed by ``ctx.sql``; a method
+        of the same name on the entity overrides each default."""
+        from gofr_tpu_torch.crud import add_rest_handlers
+
+        add_rest_handlers(self, entity_cls, table)
+
+    def migrate(self, migrations: dict[int, Any]) -> None:
+        """gofr.go:220-227: runs the versions above the last applied one now,
+        against the container's datasources (``migration.run_migrations``).
+        A version's ``ds.tpu`` work on the card is a one-time warm-up and
+        check, not a cache: a CUDA graph does not outlive its process, so a
+        restart skips the version and keeps nothing of its capture."""
+        from gofr_tpu_torch.migration import run_migrations
+
+        run_migrations(migrations, self.container)
 
     # ------------------------------------------------------------ async + cron
     def subscribe(self, topic: str, handler: Handler) -> None:

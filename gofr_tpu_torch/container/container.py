@@ -13,10 +13,14 @@ What the port holds: config, logger, ``metrics_manager`` (the port's
 ``build_exporter``, the remote log-level (``REMOTE_LOG_URL``) and trace
 sample-ratio (``REMOTE_TRACE_RATIO_URL``) pollers (:101-113), ``services``,
 ``serving``, ``ws_manager``, ``register_datasource`` and the ``draining``
-flag, and the ``tpu`` datasource (``App.add_tpu``; ``ctx.tpu``), which
-joins ``datasource_pairs`` and the health aggregate. The provider wiring
-of SQL, Redis and files, and the networked brokers
-(``container/datasources.py``), are not ported.
+flag, and the datasource slots of the reference (:397-413): ``tpu``
+(``App.add_tpu``; ``ctx.tpu``), ``sql`` (``DB_DIALECT``; ``ctx.sql``),
+``pubsub``, and ``redis``, ``kv_store``, ``file`` and ``cache``, which
+stay ``None`` until a datasource is registered under that name (the
+port has no Redis, KV or file datasource yet: ROADMAP Queue A item 11).
+Each joins ``datasource_pairs`` and the health aggregate. The provider
+pattern (``wire_provider``) and the datasource contracts live in
+``container/datasources.py``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import threading
 from typing import Any
 
 from gofr_tpu_torch.config import Config, EnvConfig
+from gofr_tpu_torch.container.datasources import wire_provider  # noqa: F401  (its old home)
 from gofr_tpu_torch.logging import Logger, new_logger, parse_level, start_remote_level_poller
 from gofr_tpu_torch.metrics import Manager, new_metrics_manager
 from gofr_tpu_torch.serving.metrics_catalog import register_serving_metrics
@@ -37,35 +42,23 @@ FRAMEWORK_VERSION = "dev"  # the reference's version.FRAMEWORK
 # registers beside those of the serving catalog (which holds the app,
 # HTTP, service-client and breaker series the port records), under its
 # names and kinds, all with the default buckets: the two runtime gauges
-# read at scrape time, and the SQL, Redis and file datasource series. The
-# port has no emitter of those; they are registered so that a dashboard
-# built on the reference reads the same families. The subscribers' and
-# the device datasource's series are in the catalog, with their emitters
-# (``subscriber.py``, ``datasource/tpu/client.py``).
+# read at scrape time, and the Redis and file datasource series. The port
+# has no emitter of those two yet; they are registered so that a dashboard
+# built on the reference reads the same families. The subscribers', the
+# device datasource's and the SQL datasource's series are in the catalog,
+# with their emitters (``subscriber.py``, ``datasource/tpu/client.py``,
+# ``datasource/sql/``).
 FRAMEWORK_METRICS: tuple[tuple[str, str, str], ...] = (
     ("gauge", "app_go_routines", "Number of live threads (goroutine analogue)"),
     ("gauge", "app_sys_memory_alloc", "Resident memory of the process in bytes"),
-    ("histogram", "app_sql_stats", "Response time of SQL queries in milliseconds"),
-    ("gauge", "app_sql_open_connections", "Number of open SQL connections"),
-    ("gauge", "app_sql_inuse_connections", "Number of inuse SQL connections"),
     ("histogram", "app_redis_stats", "Response time of Redis commands in milliseconds"),
     ("histogram", "app_file_stats", "Duration of file-system operations in milliseconds"),
 )
 
 
-
-def wire_provider(ds: Any, logger: Any, metrics: Any, tracer: Any) -> None:
-    """Apply the provider pattern to a datasource then connect it
-    (``gofr_tpu/container/datasources.py`` ``wire_provider``;
-    datasources.go:346-359)."""
-    if hasattr(ds, "use_logger"):
-        ds.use_logger(logger)
-    if hasattr(ds, "use_metrics"):
-        ds.use_metrics(metrics)
-    if hasattr(ds, "use_tracer"):
-        ds.use_tracer(tracer)
-    if hasattr(ds, "connect"):
-        ds.connect()
+# the container's own datasource attributes, in the reference's order
+# (container/container.py:397-413); any other name is an extra datasource
+DATASOURCE_SLOTS = ("tpu", "sql", "redis", "pubsub", "kv_store", "file", "cache")
 
 
 class Container:
@@ -105,11 +98,17 @@ class Container:
                 self.tracer, ratio_url, interval, logger=self.logger
             )
 
-        # datasources: the device (App.add_tpu), the broker
-        # (PUBSUB_BACKEND, or one registered as "pubsub"), and any other by
-        # name (App.add_datasource)
+        # datasources: the device (App.add_tpu), SQL (DB_DIALECT), the
+        # broker (PUBSUB_BACKEND, or one registered as "pubsub"), the slots
+        # a migration reads by name, and any other by name
+        # (App.add_datasource)
         self.tpu: Any = None
+        self.sql: Any = None
+        self.redis: Any = None
         self.pubsub: Any = None
+        self.kv_store: Any = None
+        self.file: Any = None
+        self.cache: Any = None
         self.services: dict[str, Any] = {}
         self.extra_datasources: dict[str, Any] = {}
         self.serving: Any = None  # the serving engine (serving/handlers.py)
@@ -163,13 +162,14 @@ class Container:
         """Wire and connect a provider-pattern datasource (external_db.go
         Add* analogue); its ``health_check`` joins ``/.well-known/health``."""
         wire_provider(ds, self.logger, self.metrics_manager, self.tracer)
-        if name in ("tpu", "pubsub"):
+        if name in DATASOURCE_SLOTS:
             setattr(self, name, ds)
         else:
             self.extra_datasources[name] = ds
 
     def datasource_pairs(self) -> list[tuple[str, Any]]:
-        return [("tpu", self.tpu), ("pubsub", self.pubsub), *self.extra_datasources.items()]
+        return [*((name, getattr(self, name)) for name in DATASOURCE_SLOTS),
+                *self.extra_datasources.items()]
 
     def health(self) -> dict[str, Any]:
         from gofr_tpu_torch.container.health import aggregate_health

@@ -10,24 +10,9 @@ its device telemetry (``serving/device_telemetry.py``).
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+from typing import Any
 
-
-
-def iter_health_checkers(pairs: Iterable[tuple[str, Any]]) -> dict[str, Any]:
-    """Each datasource's ``health_check``, a raise reported DOWN
-    (``gofr_tpu/container/datasources.py`` ``iter_health_checkers``)."""
-    out: dict[str, Any] = {}
-    for name, ds in pairs:
-        if ds is None:
-            continue
-        check = getattr(ds, "health_check", None)
-        if callable(check):
-            try:
-                out[name] = check()
-            except Exception as exc:
-                out[name] = {"status": "DOWN", "error": str(exc)}
-    return out
+from gofr_tpu_torch.container.datasources import iter_health_checkers
 
 
 def aggregate_health(container: Any) -> dict[str, Any]:

@@ -96,6 +96,10 @@ class Context:
         return self.container.tpu
 
     @property
+    def sql(self) -> Any:
+        return self.container.sql
+
+    @property
     def serving(self) -> Any:
         return self.container.serving
 

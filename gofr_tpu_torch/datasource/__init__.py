@@ -1,3 +1,4 @@
 """Datasources of the port (``gofr_tpu/datasource``): the device
-datasource, ``tpu``. The SQL, Redis, file and networked-broker ones are
-not ported (ROADMAP Queue A items 10–11)."""
+datasource, ``tpu``, and SQL, ``sql`` (sqlite, and the Postgres and MySQL
+wire clients). The Redis, KV, file, document and networked-broker ones
+are not ported (ROADMAP Queue A item 11)."""

@@ -157,6 +157,10 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
      "Fraction of wall time the TPU executed in the last window", None),
     ("counter", "app_tpu_devices_excluded_total",
      "Devices excluded from the mesh by the sick-chip breaker", None),
+    # the SQL datasource (datasource/sql/sqlite.py observe_query, pool.py)
+    ("histogram", "app_sql_stats", "Response time of SQL queries in milliseconds", None),
+    ("gauge", "app_sql_open_connections", "Number of open SQL connections", None),
+    ("gauge", "app_sql_inuse_connections", "Number of inuse SQL connections", None),
     # the app plane: the container (container/container.py), the HTTP
     # metrics middleware (http/middleware/core.py) and the service client
     # with its circuit breaker (service/)

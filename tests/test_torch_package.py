@@ -480,3 +480,59 @@ def test_chip_smoke_labels_profiler_kernels_apart():
     assert cs.kernel_label(copy) == "at::native::unrolled_elementwise_kernel direct_copy_kernel_cuda"
     assert cs.kernel_label(mul) == "at::native::elementwise_kernel MulFunctor"
     assert cs.kernel_label("nvjet_tst_192x8_64x8_4x1_v_bz_NNT") == "nvjet_tst_192x8_64x8_4x1_v_bz_NNT"
+
+
+SQL_MODULES = (
+    "gofr_tpu_torch/datasource/sql/__init__.py", "gofr_tpu_torch/datasource/sql/query_builder.py",
+    "gofr_tpu_torch/datasource/sql/sqlite.py", "gofr_tpu_torch/datasource/sql/pool.py",
+    "gofr_tpu_torch/datasource/sql/base.py", "gofr_tpu_torch/datasource/sql/pg_wire.py",
+    "gofr_tpu_torch/datasource/sql/postgres.py", "gofr_tpu_torch/datasource/sql/mysql_wire.py",
+    "gofr_tpu_torch/datasource/sql/mysql.py", "gofr_tpu_torch/container/datasources.py",
+    "gofr_tpu_torch/migration/__init__.py", "gofr_tpu_torch/migration/migration.py",
+    "gofr_tpu_torch/crud.py", "gofr_tpu_torch/testutil/postgres_server.py",
+    "gofr_tpu_torch/testutil/mysql_server.py", "gofr_tpu_torch/testutil/mock_container.py",
+)
+
+
+def test_sql_modules_are_checked_and_wire_without_a_card(no_card, tmp_path):
+    """The SQL, migration, CRUD and fake-server modules are among the files
+    the import rules hold, and the examples too. They are host code: an
+    ``App`` with ``DB_DIALECT=sqlite`` migrates and wires ``ctx.sql``
+    without a card, the container keeps the reference's datasource slots
+    (``redis``, ``kv_store``, ``file`` and ``cache`` empty), a dark wire
+    database is DOWN health rather than a crash, and a device datasource
+    that a migration would use still refuses without a card."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.container import container as container_mod
+    from gofr_tpu_torch.container.datasources import wire_provider
+    from gofr_tpu_torch.datasource.tpu import TPUClient
+    from gofr_tpu_torch.migration import Migrate
+    from gofr_tpu_torch.testutil import new_mock_container
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(SQL_MODULES) <= files
+    for example in ("using-migrations", "using-rest-handlers"):
+        path = ROOT / "examples_torch" / example / "main.py"
+        bad = {n for n in _imported(path) if n.split(".")[0] in FORBIDDEN}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+    assert container_mod.wire_provider is wire_provider  # its old import still resolves
+    base = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL"}
+    app = App(MapConfig({**base, "DB_DIALECT": "sqlite", "DB_NAME": str(tmp_path / "a.db")},
+                        use_env=False))
+    app.migrate({1: Migrate(up=lambda ds: ds.sql.exec("CREATE TABLE t (v INTEGER)"))})
+    c = app.container
+    assert (c.redis, c.kv_store, c.file, c.cache) == (None, None, None, None)
+    assert [n for n, _ in c.datasource_pairs()] == ["tpu", "sql", "redis", "pubsub", "kv_store",
+                                                    "file", "cache"]
+    assert c.health()["details"]["sql"]["status"] == "UP"
+    c.close()
+    dark = App(MapConfig({**base, "DB_DIALECT": "postgres", "DB_HOST": "127.0.0.1",
+                          "DB_PORT": "1"}, use_env=False))
+    assert dark.container.sql is not None
+    assert dark.container.health()["details"]["sql"]["status"] == "DOWN"
+    dark.container.close()
+    mock, mocks = new_mock_container()
+    assert mocks.redis is None and mocks.kv_store is None and mock.sql is mocks.sql
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TPUClient().connect()
