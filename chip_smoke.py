@@ -171,8 +171,9 @@ Phases, each a hard failure with a non-zero exit:
    - ``F2`` a survivor and a preemptible paged bf16 replica from a
      ``SimulatedPoolDriver``, ``KVMigrator``s on one ``PrefixIndex``:
      4 batch-class and 4 interactive rows of 1000-token prompts, then a
-     5 s notice: RECLAIMING on a beat and unrouted, the batch rows a
-     retriable 503, the interactive ones finished, the evacuation
+     30 s notice: RECLAIMING on a beat and unrouted, the batch rows a
+     retriable 503 before the last interactive token, the interactive
+     ones finished, the evacuation
      committed to the survivor, the three reclamation series; the batch
      prompts again through the router served from the evacuated chain
      with a cold run's tokens; ``memory_allocated`` falls by the reaped
@@ -3811,7 +3812,11 @@ def run_ha(torch, cfg, params) -> dict:
 FLEET_BEAT_S = 0.2  # every replica's heartbeat on the broker
 FLEET_NEW = 8  # new tokens of a request whose tokens are held to another run
 FLEET_BURST, FLEET_BURST_LEN, FLEET_BURST_NEW = 32, 64, 64  # F3's burst on one replica
-FLEET_NOTICE_S = 5.0  # F2's reclamation notice
+# F2's reclamation notice, the shortest a cloud gives (30 s on GCP and Azure,
+# 120 s on AWS). The last interactive row has 31 tokens left at the notice, and
+# the drain's share (0.65 of it) must hold them on a shared, busy host (PERF.md
+# gives the times, from tools_torch/f2_reclaim_probe.py)
+FLEET_NOTICE_S = 30.0
 
 
 class FleetTier:
@@ -4075,9 +4080,13 @@ def fleet_f2(torch, cfg, params, prompt, mem: dict) -> dict:
 
         e = engines[spot]
         firsts = {f"{kind}{i}": threading.Event() for kind in ("bulk", "gold") for i in range(4)}
+        frames: dict = {name: [] for name in firsts}  # each row's frame times
 
         def first_frame(name):
-            return lambda token_id, piece, done: firsts[name].set()
+            def on_frame(token_id, piece, done):
+                frames[name].append(time.monotonic())
+                firsts[name].set()
+            return on_frame
 
         futs = {f"bulk{i}": e.submit(p, max_new_tokens=512, tenant="bulk",
                                      stream_cb=first_frame(f"bulk{i}"))
@@ -4087,6 +4096,9 @@ def fleet_f2(torch, cfg, params, prompt, mem: dict) -> dict:
         futs |= {f"gold{i}": e.submit(p, max_new_tokens=32, tenant="gold",
                                       stream_cb=first_frame(f"gold{i}"))
                  for i, p in enumerate(gold)}
+        settled: dict = {}  # each future's settling time
+        for name, f in futs.items():
+            f.add_done_callback(lambda _f, name=name: settled.setdefault(name, time.monotonic()))
         wait_until(lambda: all(ev.is_set() for ev in firsts.values()), 600,
                    "F2's interactive rows decoding")
         out["at_notice"] = {"gold_running": sum(s is not None and s.tenant == "gold"
@@ -4121,6 +4133,8 @@ def fleet_f2(torch, cfg, params, prompt, mem: dict) -> dict:
                 outcomes[name] = ("ok", r.finish_reason, len(r.token_ids))
             except ErrorServiceUnavailable as exc:
                 outcomes[name] = ("retriable", exc.status_code, exc.retry_after)
+        # a future's waiters wake before its callbacks run
+        wait_until(lambda: len(settled) == len(futs), 10, "F2: the settling times")
         wait_until(lambda: summaries, 60, "F2: the reclaim ladder's end")
         summary, ladder_s = summaries[0]
         m = managers[spot]
@@ -4129,13 +4143,21 @@ def fleet_f2(torch, cfg, params, prompt, mem: dict) -> dict:
             "notice_to_reclaiming_s": to_reclaiming, "probe_replica": probe.replica_id,
             "routable": routable, "outcomes": outcomes, "summary": summary,
             "notice_to_committed_s": ladder_s,
+            "frames_at_notice": {n: sum(t < t_notice for t in ts) for n, ts in frames.items()},
+            "gold_last_frame_s": {n: frames[n][-1] - t_notice for n in frames
+                                  if n.startswith("gold") and frames[n]},
+            "bulk_settled_s": {n: settled[n] - t_notice for n in settled if n.startswith("bulk")},
             "app_replica_reclamations_total": m.get("app_replica_reclamations_total").value(),
             "app_kv_evacuations_total_committed": m.get("app_kv_evacuations_total").value(
                 {"outcome": "committed"}),
             "app_reclaim_drain_seconds": {"sum": drain_hist[0], "count": drain_hist[1]}}
         print(f"  F2 reclaim: {out['reclaim']}")
         ev = summary["evacuation"]
-        if probe.replica_id != surv or spot in routable \
+        # the sweep sheds the batch rows first: every one settles before the
+        # last interactive token, not when the drain's share runs out
+        shed_first = max(out["reclaim"]["bulk_settled_s"].values()) \
+            < max(out["reclaim"]["gold_last_frame_s"].values())
+        if probe.replica_id != surv or spot in routable or not shed_first \
                 or any(outcomes[f"gold{i}"][:2] != ("ok", "length") for i in range(4)) \
                 or any(outcomes[f"bulk{i}"][:2] != ("retriable", 503) for i in range(4)) \
                 or ev["outcome"] != "committed" or ev["target"] != surv \
