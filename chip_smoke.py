@@ -193,8 +193,8 @@ Phases, each a hard failure with a non-zero exit:
    bytes held to its slabs' shapes), both at ``PLANE_DEPTH`` (8) layers,
    and ``H3`` ``python -m gofr_tpu_torch.serve`` as a process at full
    depth with ``DB_DIALECT=sqlite`` (``sql`` UP on its health route); then the surface
-   phase, at full depth, one ``App`` with API-key auth over a paged bf16
-   engine (2048, 16-token pages, whole prefills):
+   phase, at ``PLANE_DEPTH`` (8) layers, one ``App`` with API-key auth over a
+   paged bf16 engine (2048, 16-token pages, whole prefills):
    - ``W`` the main path's prompts as 10 concurrent WebSocket streams
      (``/ws/generate``, the port's own client) against ``engine.submit``,
      sync warnings a dispatch equal; an upgrade with no key and with a
@@ -298,7 +298,36 @@ Phases, each a hard failure with a non-zero exit:
      (MySQL's raw rows as text), the pool gauges, ms a statement;
    it prints a ``{"sql": ...}`` line; its launches (S3's engine, and S1's
    captured launches times their replays) are the ``kernels`` rows'
-   ``launches_sql``;
+   ``launches_sql``; then the pubsub phase on the same weights, the launch
+   counters reset before it: one paged bf16 engine (the bf16 path's
+   config), the main path's ten prompts each alone through ``submit`` as
+   the gold, then for each of ``KAFKA``, ``NATS``, ``MQTT`` and
+   ``EVENTHUB`` the port's fake of that broker on 127.0.0.1, an ``App``
+   with ``PUBSUB_BACKEND`` set to it and a subscriber on ``generate`` that
+   submits each job (32 greedy tokens) and publishes its result to
+   ``generate.results``, and a user's client of the same broker that
+   publishes the jobs and reads the results:
+   - ``P1`` the ten prompts published at once: ten results, each job
+     served once, its tokens held to the gold (equal, or parted only
+     within ``GAP_TOL``);
+   - ``P2`` one job under an injected ``pubsub.handler`` fault: one
+     redelivery, served once, no dead letter; the fault to the
+     redelivered handler's entry in ms;
+   - ``P3`` an empty prompt (a 400 at submit) dead-lettered to
+     ``generate.dlq`` after 3 deliveries (its attempt count in the dead
+     letter's metadata, which MQTT 3.1.1 cannot carry), the job behind it
+     served once, ``pubsub`` and ``pubsub_consumers`` UP;
+   - ``P5`` the 1000-token prompt alone, in turns through the handler and
+     through ``submit``: TTFT on the engine's clock, the job's round trip
+     and the broker's share (publish to the handler's entry);
+   - ``P4`` (Kafka only) the app stopped, three jobs published, a new app
+     on the same ``CONSUMER_ID``: each served once, from the committed
+     offset, and none of the earlier jobs again;
+   per backend a job's round trip p50/p95 (publish to the result read),
+   the broker's share, the redelivery latency, the ms of the handler's
+   result publish and the phase's flash and bf16 paged launches; it
+   prints a ``{"pubsub": ...}`` line; its launches are the ``kernels``
+   rows' ``launches_pubsub``;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -5421,7 +5450,8 @@ def surface_c(engine, prompt, out: dict) -> None:
 
 
 def run_surface(torch, cfg, params) -> dict:
-    """The rest of the app surface at Llama-3-8B widths and full depth: one
+    """The rest of the app surface at Llama-3-8B widths and ``cfg``'s depth
+    (``PLANE_DEPTH`` in ``run_engine``): one
     ``App`` with API-key auth over a paged bf16 engine (2048, 16-token
     pages, whole prefills, 8 slots, N = 4) serving the generation routes,
     ``/ws/generate``, the admin drain, a subscriber and a cron job; W
@@ -7115,7 +7145,303 @@ def run_sql(torch, cfg, params, dev) -> dict:
     return out
 
 
-PLANE_DEPTH = 8  # layers of the LoRA-tenancy and observability phases
+# ------------------------------------------------------------- the pubsub phase
+PUBSUB_BACKENDS = ("KAFKA", "NATS", "MQTT", "EVENTHUB")
+PUBSUB_NEW = 32  # greedy tokens a generation job
+PUBSUB_ATTEMPTS = 3  # P3: the generate topic's delivery budget
+PUBSUB_RESTART_JOBS = 3  # P4: jobs published while the Kafka app is down
+# the NATS fake redelivers a job whose ack has not come within this (the
+# JetStream default); a job here takes about a second, and only a nack may
+# redeliver it
+PUBSUB_NATS_ACK_WAIT_S = 30.0
+# Event Hubs partitions: a release rewinds its partition and the fake sends
+# again what the client already holds behind it (Queue C 48), so P3's poison
+# job and the job behind it go to partitions of their own
+PUBSUB_EVENTHUB_PARTITIONS = 4
+PUBSUB_TURNS = ("handler", "submit", "submit", "handler", "handler", "submit")
+
+
+def pubsub_fake(backend: str):
+    """The port's in-process fake of ``backend`` on 127.0.0.1, the App's
+    configs for it, a user's client of it (the jobs' publisher and the
+    results' reader) and the fake's closer."""
+    from gofr_tpu_torch.pubsub.eventhub import EventHubClient
+    from gofr_tpu_torch.pubsub.kafka import KafkaClient
+    from gofr_tpu_torch.pubsub.mqtt import MQTTClient
+    from gofr_tpu_torch.pubsub.nats import NatsClient
+    from gofr_tpu_torch.testutil import (MiniEventHubServer, MiniKafkaBroker, MiniMQTTBroker,
+                                         MiniNatsBroker)
+
+    if backend == "KAFKA":
+        fake = MiniKafkaBroker()
+        return (fake, {"PUBSUB_BROKER": fake.address, "CONSUMER_ID": "app"},
+                KafkaClient(fake.address, consumer_group="user"), fake.close)
+    if backend == "NATS":
+        fake = MiniNatsBroker(ack_wait=PUBSUB_NATS_ACK_WAIT_S)
+        return (fake, {"NATS_SERVER": fake.address, "CONSUMER_ID": "app"},
+                NatsClient(fake.address, consumer_group="user"), fake.close)
+    if backend == "MQTT":
+        fake = MiniMQTTBroker().start()
+        return (fake, {"MQTT_HOST": "127.0.0.1", "MQTT_PORT": str(fake.port),
+                       "MQTT_CLIENT_ID": "app", "MQTT_QOS": "1"},
+                MQTTClient("127.0.0.1", fake.port, client_id="user"), fake.stop)
+    fake = MiniEventHubServer(partitions=PUBSUB_EVENTHUB_PARTITIONS).start()
+    return (fake, {"EVENTHUB_HOST": "127.0.0.1", "EVENTHUB_PORT": str(fake.port),
+                   "EVENTHUB_NAME": "hub", "EVENTHUB_PARTITIONS": str(PUBSUB_EVENTHUB_PARTITIONS)},
+            EventHubClient(host="127.0.0.1", port=fake.port, eventhub_name="hub",
+                           consumer_group="user", partitions=PUBSUB_EVENTHUB_PARTITIONS),
+            fake.close)
+
+
+def pubsub_app(backend: str, configs: dict, handler):
+    """An ``App`` on 127.0.0.1 with ``PUBSUB_BACKEND=backend`` and the
+    generation subscriber, started; (app, thread)."""
+    from gofr_tpu_torch.testutil import start_app
+
+    app = models_app(f"pubsub-{backend.lower()}", PUBSUB_BACKEND=backend, LOG_LEVEL="FATAL",
+                     PUBSUB_RETRY_BACKOFF_SECONDS="0.05", SHUTDOWN_GRACE_PERIOD="30",
+                     PUBSUB_GENERATE_MAX_ATTEMPTS=str(PUBSUB_ATTEMPTS), **configs)
+    if app.container.health()["details"]["pubsub"]["status"] != "UP":
+        raise AssertionError(f"{backend}: the app's broker is not UP at boot")
+    app.subscription_manager._rng.seed(SEED)  # the redelivery backoff's jitter
+    app.subscribe("generate", handler)
+    return app, start_app(app, timeout=120)
+
+
+def pubsub_handler(engine, record: dict):
+    """The generation subscriber: each delivery's handler entry on the
+    host's clock, the job through ``engine.submit`` (awaited, the loop keeps
+    polling other topics), its result published to ``generate.results``
+    and that publish's ms."""
+    async def generate_job(ctx):
+        entered = time.perf_counter()
+        job = json.loads(ctx.request.value)
+        record["entries"].setdefault(str(job["job"]), []).append(entered)
+        fut = engine.submit(job["prompt"], max_new_tokens=PUBSUB_NEW, temperature=0.0)
+        r = await asyncio.wrap_future(fut)
+        t = time.perf_counter()
+        ctx.get_publisher().publish("generate.results", json.dumps({
+            "job": job["job"], "t_publish": job["t_publish"], "t_entry": entered,
+            "tokens": r.token_ids, "finish_reason": r.finish_reason,
+            "ttft_ms": r.ttft_s * 1e3}).encode())
+        record["publish_ms"].append((time.perf_counter() - t) * 1e3)
+    return generate_job
+
+
+def pubsub_publish(user, job, prompt: list[int]) -> None:
+    user.publish("generate", json.dumps({"job": job, "prompt": prompt,
+                                         "t_publish": time.perf_counter()}).encode())
+
+
+def pubsub_results(user, n: int, what: str, timeout: float = 300) -> list[dict]:
+    """``n`` results read by the user's client, each with the time it was
+    read."""
+    got, t_end = [], time.monotonic() + timeout
+    while len(got) < n:
+        if time.monotonic() > t_end:
+            raise AssertionError(f"{what}: {len(got)} of {n} results")
+        msg = user.subscribe("generate.results")
+        if msg is not None:
+            got.append({**json.loads(msg.value), "t_result": time.perf_counter()})
+            msg.commit()
+    return got
+
+
+def pubsub_timing(results: list[dict]) -> dict:
+    return {"round_trip_ms": ms_stats([(g["t_result"] - g["t_publish"]) * 1e3 for g in results]),
+            "broker_share_ms": ms_stats([(g["t_entry"] - g["t_publish"]) * 1e3 for g in results])}
+
+
+def pubsub_backend(torch, engine, backend: str, prompts: list, gold: list) -> dict:
+    """P1, P2, P3 and P5 over one backend's fake, then (Kafka) P4."""
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.testutil import stop_app
+
+    fake, configs, user, close_fake = pubsub_fake(backend)
+    record: dict = {"entries": {}, "publish_ms": []}
+    handler = pubsub_handler(engine, record)
+    out: dict = {}
+    user.connect()
+    for topic in ("generate.results", "generate.dlq"):
+        user.subscribe(topic)  # NATS and MQTT drop what no one subscribed to
+    mark = launch_counts()
+    app, thread = pubsub_app(backend, configs, handler)
+    try:
+        consumer = app.subscription_manager._consumers["generate"]
+        # P1: the ten prompts at once; the subscriber serves one job at a time
+        for k, p in enumerate(prompts):
+            pubsub_publish(user, k, p)
+        got = sorted(pubsub_results(user, len(prompts), f"P1 {backend}"), key=lambda r: r["job"])
+        parted = {n: same_or_close(torch, engine, p, g["tokens"], w.token_ids,
+                                   f"P1 {backend} {n}-token job against submit")
+                  for n, p, g, w in zip(MAIN_LENS, prompts, got, gold)}
+        out["P1"] = {"equal": sum(v["equal"] for v in parted.values()), "of": len(parted),
+                     "parted": {n: v for n, v in parted.items() if not v["equal"]},
+                     "served_once": sum(len(record["entries"].get(str(k), ())) == 1
+                                        for k in range(len(prompts))),
+                     **pubsub_timing(got)}
+        # P2: one job meets an injected handler fault
+        faulted: list = []
+
+        def fault(point: str, n: int):
+            faulted.append(time.perf_counter())
+            return chaos.ChaosFault(point, n)
+
+        with chaos.active(chaos.ChaosInjector(SEED, {"pubsub.handler": 1.0}, max_faults=1,
+                                              fault_factories={"pubsub.handler": fault})) as inj:
+            pubsub_publish(user, "fault", prompts[0])
+            redone = pubsub_results(user, 1, f"P2 {backend}")[0]
+        served = record["entries"].get("fault", [])
+        out["P2"] = {"faults": inj.stats()["pubsub.handler"]["faults"], "served": len(served),
+                     "redeliveries": consumer.redeliveries, "dlq": consumer.dlq,
+                     "equal": redone["tokens"] == gold[0].token_ids,
+                     "redelivery_ms": (served[0] - faulted[0]) * 1e3 if served and faulted
+                     else None}
+        # P3: a poison job (an empty prompt, a 400 at submit), a good one behind it
+        pubsub_publish(user, "poison", [])
+        pubsub_publish(user, "after", prompts[1])
+        behind = pubsub_results(user, 1, f"P3 {backend}")[0]
+        wait_until(lambda: consumer.dlq == 1, 60, f"P3 {backend} the poison job's dead letter")
+        dead, t_end = None, time.monotonic() + 30
+        while dead is None and time.monotonic() < t_end:
+            dead = user.subscribe("generate.dlq")
+        if dead is not None:
+            dead.commit()
+        wait_until(lambda: consumer.delivered == len(prompts) + 2, 30,
+                   f"P3 {backend} the last commit")
+        health = app.container.health()["details"]
+        out["P3"] = {"poison_deliveries": len(record["entries"].get("poison", ())),
+                     "dead": dead is not None and json.loads(dead.value)["job"],
+                     "dead_attempts": dead.metadata.get("gofr_dlq_attempts") if dead else None,
+                     "after_served": len(record["entries"].get("after", ())),
+                     "behind_equal": behind["job"] == "after"
+                     and behind["tokens"] == gold[1].token_ids,
+                     "redeliveries": consumer.redeliveries, "dlq": consumer.dlq,
+                     "health_pubsub": health["pubsub"]["status"],
+                     "health_consumers": health["pubsub_consumers"]["status"]}
+        # P5: the 1000-token prompt alone, in turns through the handler and submit
+        long_k = MAIN_LENS.index(1000)
+        turns: dict = {"handler": [], "submit": []}
+        alone: list = []
+        for i, who in enumerate(PUBSUB_TURNS):
+            if who == "handler":
+                pubsub_publish(user, f"turn-{i}", prompts[long_k])
+                alone.append(pubsub_results(user, 1, f"P5 {backend}")[0])
+                turns["handler"].append(alone[-1]["ttft_ms"])
+            else:
+                r = engine.submit(prompts[long_k], max_new_tokens=PUBSUB_NEW,
+                                  temperature=0.0).result(600)
+                turns["submit"].append(r.ttft_s * 1e3)
+        out["P5"] = {"ttft_ms_handler": turns["handler"], "ttft_ms_submit": turns["submit"],
+                     "equal": sum(a["tokens"] == gold[long_k].token_ids for a in alone),
+                     **pubsub_timing(alone)}
+    finally:
+        stop_app(app, thread)
+    if backend == "KAFKA":
+        # P4: at-least-once across a restart, from the committed offset
+        before = {k: len(v) for k, v in record["entries"].items()}
+        for i in range(PUBSUB_RESTART_JOBS):
+            pubsub_publish(user, f"restart-{i}", prompts[i])
+        app, thread = pubsub_app(backend, configs, handler)
+        try:
+            got = sorted(pubsub_results(user, PUBSUB_RESTART_JOBS, "P4"), key=lambda r: r["job"])
+            wait_until(lambda: fake.committed("app", "generate") == len(fake.log("generate")),
+                       30, "P4 the restarted app's commits")
+        finally:
+            stop_app(app, thread)
+        out["P4"] = {"served_once": sum(len(record["entries"].get(f"restart-{i}", ())) == 1
+                                        for i in range(PUBSUB_RESTART_JOBS)),
+                     "equal": sum(g["tokens"] == gold[i].token_ids for i, g in enumerate(got)),
+                     "earlier_again": sum(len(record["entries"][k]) - n
+                                          for k, n in before.items()),
+                     "committed": fake.committed("app", "generate"),
+                     "log": len(fake.log("generate"))}
+    user.close()
+    close_fake()
+    launches = since(mark)
+    out["launches"] = launches
+    out["result_publish_ms"] = {"p50": percentile(record["publish_ms"], 50),
+                                "max": max(record["publish_ms"])}
+    return out
+
+
+def pubsub_check(backend: str, out: dict) -> None:
+    """The phase's verdict on one backend."""
+    n = len(MAIN_LENS)
+    want_attempts = None if backend == "MQTT" else str(PUBSUB_ATTEMPTS)  # no metadata on MQTT
+    bad = []
+    if out["P1"]["equal"] != n or out["P1"]["served_once"] != n:
+        bad.append(f"P1 {out['P1']}")
+    if out["P2"] != {**out["P2"], "faults": 1, "served": 1, "redeliveries": 1, "dlq": 0,
+                     "equal": True}:
+        bad.append(f"P2 {out['P2']}")
+    if out["P3"] != {**out["P3"], "poison_deliveries": PUBSUB_ATTEMPTS, "dead": "poison",
+                     "dead_attempts": want_attempts, "after_served": 1, "behind_equal": True,
+                     "redeliveries": 1 + PUBSUB_ATTEMPTS - 1, "dlq": 1, "health_pubsub": "UP",
+                     "health_consumers": "UP"}:
+        bad.append(f"P3 {out['P3']}")
+    if out["P5"]["equal"] != PUBSUB_TURNS.count("handler"):
+        bad.append(f"P5 {out['P5']}")
+    if backend == "KAFKA" and out["P4"] != {**out["P4"], "served_once": PUBSUB_RESTART_JOBS,
+                                            "equal": PUBSUB_RESTART_JOBS, "earlier_again": 0}:
+        bad.append(f"P4 {out['P4']}")
+    if not (out["launches"].get("flash_attention") and out["launches"].get("paged_decode_attention")):
+        bad.append(f"launches {out['launches']}")
+    if bad:
+        raise AssertionError(f"pubsub {backend}: " + "; ".join(bad))
+
+
+def run_pubsub(torch, cfg, params) -> dict:
+    """The pubsub phase: one paged bf16 engine at ``cfg`` behind an ``App``
+    over each networked broker in turn (P1-P5). The counters are reset
+    before it; ``launches`` are the whole phase's."""
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    rng = torch.Generator().manual_seed(SEED + 29)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist() for n in MAIN_LENS]
+    mem: dict = {}
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                max_new_tokens_default=PUBSUB_NEW, prefill_chunk_tokens=2048)
+    engine = build_engine(torch, cfg, params, conf, mem, "pubsub")
+    out["memory"] = mem
+    engine.start()
+    try:
+        # the subscriber serves one job at a time: the gold is each prompt alone
+        gold = [engine.submit(p, max_new_tokens=PUBSUB_NEW, temperature=0.0).result(600)
+                for p in prompts]
+        for backend in PUBSUB_BACKENDS:
+            t = time.perf_counter()
+            got = pubsub_backend(torch, engine, backend, prompts, gold)
+            got["seconds"] = time.perf_counter() - t
+            out[backend] = got
+            print(f"  {backend}: P1 {got['P1']['equal']}/{got['P1']['of']} token-equal, round "
+                  f"trip p50 {got['P1']['round_trip_ms']['p50']:.1f} p95 "
+                  f"{got['P1']['round_trip_ms']['p95']:.1f} ms (ten queued), alone p50 "
+                  f"{got['P5']['round_trip_ms']['p50']:.1f} ms, broker share alone p50 "
+                  f"{got['P5']['broker_share_ms']['p50']:.2f} ms; P2 {got['P2']}; P3 {got['P3']}; "
+                  f"P5 TTFT handler {[round(x, 2) for x in got['P5']['ttft_ms_handler']]} "
+                  f"submit {[round(x, 2) for x in got['P5']['ttft_ms_submit']]} ms; result "
+                  f"publish {got['result_publish_ms']}; "
+                  + (f"P4 {got['P4']}; " if "P4" in got else "")
+                  + f"launches {got['launches']}; {got['seconds']:.1f}s")
+            pubsub_check(backend, got)
+    finally:
+        engine.stop()
+    out["launches"] = launch_counts()
+    out["seconds"] = time.perf_counter() - t0
+    print_launches("pubsub", out["launches"])
+    print(f"  pubsub: {out['seconds']:.1f}s ({out['card']})")
+    if not (out["launches"].get("flash_attention") and out["launches"].get("paged_decode_attention")) \
+            or out["launches"].get("paged_decode_attention_q"):
+        raise AssertionError(f"pubsub launches {out['launches']}")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+PLANE_DEPTH = 8  # layers of the phases run at a cut depth (tenancy, observability, http
+# H1-H2, surface, device T)
 
 
 def cut_depth(cfg, params, n_layers: int):
@@ -7231,18 +7557,21 @@ def run_engine(torch) -> tuple[dict, ...]:
           "the serve entry point as a process, full depth):")
     http = run_http(torch, cfg, params)
     torch.cuda.empty_cache()
+    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
     print("surface phase (WebSocket generation, API-key auth, cron, a subscriber, CMD mode, the "
-          "drain behind auth, full depth):")
-    surface = run_surface(torch, cfg, params)
+          f"drain behind auth, {PLANE_DEPTH} layers):")
+    surface = run_surface(torch, cut_cfg, cut_params)
+    del cut_params
     return (launches, timings, lifecycle, reuse, tenancy, healing, observability, ha, fleet, http,
             surface)
 
 
-def sql_phase(torch) -> dict:
-    """The sql phase at Llama-3-8B widths and full depth. The weights are
-    made again from ``SEED`` (the same tensors ``run_engine`` served; the
-    main paths' copy was freed before the models and device phases, which
-    need the room), and the time to make them is recorded."""
+def sql_phase(torch) -> tuple[dict, dict]:
+    """The sql phase at Llama-3-8B widths and full depth, then the pubsub
+    phase on the same weights. The weights are made again from ``SEED``
+    (the same tensors ``run_engine`` served; the main paths' copy was freed
+    before the models and device phases, which need the room), and the time
+    to make them is recorded."""
     from gofr_tpu_torch.models.llama import LlamaConfig, init_params
 
     cfg = LlamaConfig.llama3_8b()
@@ -7255,9 +7584,13 @@ def sql_phase(torch) -> dict:
           f"{cfg.n_layers} layers, weights remade from the seed in {init_s:.1f}s):")
     out = run_sql(torch, cfg, params, torch.device("cuda"))
     out["params_init_s"] = init_s
+    torch.cuda.empty_cache()
+    print("pubsub phase (generation jobs through Kafka, NATS, MQTT and Event Hubs, each the port's "
+          f"fake on 127.0.0.1 behind an App; the same weights, {cfg.n_layers} layers):")
+    pubsub = run_pubsub(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
-    return out
+    return out, pubsub
 
 
 def main() -> int:
@@ -7307,7 +7640,7 @@ def main() -> int:
 
     device = run_device(torch, LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH),
                         MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
-    sql = sql_phase(torch)
+    sql, pubsub = sql_phase(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -7317,6 +7650,7 @@ def main() -> int:
         r["launches_models"] = models["launches"].get(r["name"], 0)
         r["launches_device"] = device["launches"].get(r["name"], 0)
         r["launches_sql"] = sql["launches"].get(r["name"], 0)
+        r["launches_pubsub"] = pubsub["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -7335,6 +7669,7 @@ def main() -> int:
     print(json.dumps({"models": models}, default=str))
     print(json.dumps({"device": device}, default=str))
     print(json.dumps({"sql": sql}, default=str))
+    print(json.dumps({"pubsub": pubsub}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

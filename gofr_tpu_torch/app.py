@@ -17,7 +17,9 @@ datasource on the card, ``ctx.tpu``), the HTTP and metrics servers,
 ``run``/``run_async`` (signal handlers only on the main thread), ``stop``,
 ``drain`` and ``shutdown``, the start and stop telemetry ping, the default
 ``/.well-known/{health,alive}`` routes with the ``./static`` and swagger
-autodetect, the in-memory broker when ``PUBSUB_BACKEND=MEMORY``, the SQL
+autodetect, the broker that ``PUBSUB_BACKEND`` names (``MEMORY``,
+``KAFKA``, ``NATS``, ``MQTT`` or ``EVENTHUB``; ``GOOGLE`` is refused, its
+driver needing gRPC; a dark broker at boot is DEGRADED health), the SQL
 datasource when ``DB_DIALECT`` is set (sqlite, postgres, mysql; a dark
 database at boot is DEGRADED health, not a crash), ``migrate``
 (gofr.go:220-227, versioned migrations with a ``gofr_migration`` table)
@@ -64,20 +66,6 @@ DEFAULT_METRICS_PORT = 2121
 DEFAULT_SHUTDOWN_GRACE_SECONDS = 30.0
 
 
-def build_pubsub(config: Config) -> Any:
-    """PUBSUB_BACKEND switch (container/container.go:132-172): ``MEMORY`` is
-    the port's in-memory broker; unset is None (apps wire their own through
-    ``add_datasource``). The networked brokers are not ported."""
-    backend = (config.get("PUBSUB_BACKEND") or "").strip().upper()
-    if not backend:
-        return None
-    if backend == "MEMORY":
-        from gofr_tpu_torch.pubsub import InMemoryBroker
-
-        return InMemoryBroker.from_config(config)
-    raise ValueError(f"PUBSUB_BACKEND {backend!r}: only MEMORY is ported")
-
-
 class App:
     """gofr.New() analogue. Construct, register routes and services, then
     ``run()``."""
@@ -108,6 +96,8 @@ class App:
 
         # a dark broker at boot is a DEGRADED health state, not a crash —
         # the reference logs and continues (container.go's connect errors)
+        from gofr_tpu_torch.pubsub import build_pubsub
+
         broker = build_pubsub(self.config)
         if broker is not None:
             try:

@@ -146,6 +146,10 @@ class AttemptRecord:
         }
 
 
+# headers a broker adds to a redelivery only: not part of a message's identity
+REDELIVERY_MARKERS = frozenset({"Nats-Redelivered"})
+
+
 def message_key(topic: str, value: bytes, metadata: dict | None,
                 message_id: str | None = None) -> tuple:
     """Identity of a message for attempt tracking. Prefer the broker's
@@ -154,14 +158,17 @@ def message_key(topic: str, value: bytes, metadata: dict | None,
     google ack_ids don't qualify. Fall back to payload + the stable
     (non-framework) metadata; framework bookkeeping keys are excluded —
     the memory broker shares the stored metadata dict with deliveries, so
-    the attempts counter itself must not change the key."""
+    the attempts counter itself must not change the key — and so are the
+    markers a broker sets on a redelivery only (NATS's
+    ``Nats-Redelivered``; the reference keeps it, so its first delivery
+    and the rest count as two messages: ROADMAP Queue C 47)."""
     if message_id is not None:
         return (topic, "id", str(message_id))
     stable = tuple(
         sorted(
             (str(k), str(v))
             for k, v in (metadata or {}).items()
-            if not str(k).startswith("gofr_")
+            if not str(k).startswith("gofr_") and str(k) not in REDELIVERY_MARKERS
         )
     )
     return (topic, bytes(value), stable)

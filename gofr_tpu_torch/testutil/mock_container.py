@@ -76,7 +76,7 @@ class MockPubSub:
         self.queues.setdefault(topic, []).append((message, metadata or {}))
 
     def subscribe(self, topic: str) -> Any:
-        from gofr_tpu_torch.datasource.pubsub.message import Message
+        from gofr_tpu_torch.pubsub.message import Message
 
         queue = self.queues.setdefault(topic, [])
         if not queue:

@@ -237,8 +237,17 @@ def test_memory_pubsub_backend():
         assert type(app.container.pubsub).__name__ == "InMemoryBroker"
         assert app.container.get_publisher() is app.container.pubsub
         app.container.close()
-    with pytest.raises(ValueError, match="only MEMORY"):
-        TApp(_config(TMapConfig, PUBSUB_BACKEND="kafka"))
+    # the networked brokers are ported: KAFKA builds the port's own client,
+    # and a dark broker at boot is DOWN health, not a crash; an unknown
+    # backend raises the reference's error
+    for app_cls, cfg_cls, _ in SIDES.values():
+        app = app_cls(_config(cfg_cls, PUBSUB_BACKEND="kafka", PUBSUB_BROKER="127.0.0.1:1"))
+        assert type(app.container.pubsub).__module__ == (
+            "gofr_tpu_torch.pubsub.kafka" if app_cls is TApp else "gofr_tpu.datasource.pubsub.kafka")
+        assert app.container.health()["details"]["pubsub"]["status"] == "DOWN"
+        app.container.close()
+    with pytest.raises(ValueError, match="unknown PUBSUB_BACKEND 'BOGUS'"):
+        TApp(_config(TMapConfig, PUBSUB_BACKEND="bogus"))
 
 
 def test_router_routes_and_health():

@@ -1,0 +1,266 @@
+"""The port's broker wire codecs (``gofr_tpu_torch/pubsub/kafka_wire.py``,
+``mqtt.py``, ``nats.py`` and ``amqp_wire.py``) against the byte-exact
+external vectors the JAX package's golden-frame tests pin
+(``tests/test_golden_frames.py``: RFC 3720 CRC-32C, the protobuf zigzag
+table, KIP-98's record batch layout, MQTT 3.1.1 §2.2.3 and §3.1, AMQP 1.0
+§1.6 and §2.3, the NATS header block), each vector run on both packages'
+codecs; then seeded hypothesis cases in which each port encoder gives the
+reference's bytes for the same record batch with headers, MQTT packet,
+NATS ``HPUB`` frame and AMQP value, and each decoder inverts the other
+package's encoder."""
+
+import struct
+import types
+
+import pytest
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
+
+from gofr_tpu.datasource.pubsub import amqp_wire as ramqp
+from gofr_tpu.datasource.pubsub import kafka_wire as rkafka
+from gofr_tpu.datasource.pubsub import mqtt as rmqtt
+from gofr_tpu.datasource.pubsub import nats as rnats
+from gofr_tpu_torch.pubsub import amqp_wire as tamqp
+from gofr_tpu_torch.pubsub import kafka_wire as tkafka
+from gofr_tpu_torch.pubsub import mqtt as tmqtt
+from gofr_tpu_torch.pubsub import nats as tnats
+
+PKGS = {
+    "ref": types.SimpleNamespace(kafka=rkafka, mqtt=rmqtt, amqp=ramqp, nats=rnats),
+    "port": types.SimpleNamespace(kafka=tkafka, mqtt=tmqtt, amqp=tamqp, nats=tnats),
+}
+BOTH = pytest.mark.parametrize("side", sorted(PKGS))
+HYP = settings(max_examples=60, deadline=None, derandomize=True,
+               suppress_health_check=[HealthCheck.too_slow])
+
+
+# ---------------------------------------------------------------- Kafka
+@BOTH
+def test_crc32c_rfc3720_vectors(side):
+    crc32c = PKGS[side].kafka.crc32c
+    assert crc32c(b"123456789") == 0xE3069283
+    assert crc32c(b"\x00" * 32) == 0x8A9136AA
+    assert crc32c(b"\xff" * 32) == 0x62A8AB43
+    assert crc32c(bytes(range(32))) == 0x46DD794E
+    assert crc32c(bytes(range(31, -1, -1))) == 0x113FDB5C
+
+
+@BOTH
+def test_zigzag_varint_protobuf_vectors(side):
+    k = PKGS[side].kafka
+    assert k.varint(0) == b"\x00"
+    assert k.varint(-1) == b"\x01"
+    assert k.varint(1) == b"\x02"
+    assert k.varint(-2) == b"\x03"
+    assert k.varint(2147483647) == k.uvarint(4294967294)
+    assert k.uvarint(0) == b"\x00"
+    assert k.uvarint(127) == b"\x7f"
+    assert k.uvarint(128) == b"\x80\x01"
+    assert k.uvarint(300) == b"\xac\x02"
+
+
+@BOTH
+def test_record_batch_v2_layout_pins(side):
+    k = PKGS[side].kafka
+    batch = k.encode_record_batch(0, [(b"k", b"v", [])], timestamp_ms=1000)
+    assert batch[16] == 2  # magic v2
+    (stored_crc,) = struct.unpack(">I", batch[17:21])
+    assert stored_crc == k.crc32c(batch[21:])  # the crc covers attributes onward
+    records = k.decode_record_batches(batch)
+    assert [(key, value) for _, key, value, _ in records] == [(b"k", b"v")]
+
+
+# ---------------------------------------------------------------- MQTT 3.1.1
+@BOTH
+def test_remaining_length_spec_table(side):
+    enc = PKGS[side].mqtt.encode_remaining_length
+    assert enc(0) == b"\x00"
+    assert enc(64) == b"\x40"
+    assert enc(127) == b"\x7f"
+    assert enc(128) == b"\x80\x01"
+    assert enc(16383) == b"\xff\x7f"
+    assert enc(16384) == b"\x80\x80\x01"
+    assert enc(2097151) == b"\xff\xff\x7f"
+    assert enc(2097152) == b"\x80\x80\x80\x01"
+    assert enc(268435455) == b"\xff\xff\xff\x7f"
+
+
+@BOTH
+def test_connect_packet_layout(side):
+    got = PKGS[side].mqtt.connect_packet("gofr", 60, clean_session=True)
+    assert got == (b"\x10" b"\x10" b"\x00\x04MQTT" b"\x04" b"\x02" b"\x00\x3c" b"\x00\x04gofr")
+
+
+@BOTH
+def test_utf8_string_encoding(side):
+    enc = PKGS[side].mqtt.encode_string
+    assert enc("a/b") == b"\x00\x03a/b"
+    assert enc("") == b"\x00\x00"
+
+
+# ---------------------------------------------------------------- AMQP 1.0
+@BOTH
+def test_protocol_headers(side):
+    a = PKGS[side].amqp
+    assert a.PROTO_AMQP == b"AMQP\x00\x01\x00\x00"
+    assert a.PROTO_SASL == b"AMQP\x03\x01\x00\x00"
+
+
+@BOTH
+def test_type_constructors_spec_1_6(side):
+    a = PKGS[side].amqp
+    enc = a.encode_value
+    assert enc(None) == b"\x40"
+    assert enc(True) == b"\x41"
+    assert enc(False) == b"\x42"
+    assert enc(a.Uint(0)) == b"\x43"
+    assert enc(a.Uint(10)) == b"\x52\x0a"
+    assert enc(a.Uint(300)) == b"\x70\x00\x00\x01\x2c"
+    assert enc(a.Ulong(0)) == b"\x44"
+    assert enc(a.Ulong(16)) == b"\x53\x10"
+    assert enc(a.Ubyte(7)) == b"\x50\x07"
+    assert enc(a.Ushort(258)) == b"\x60\x01\x02"
+    assert enc("abc") == b"\xa1\x03abc"
+    assert enc(a.Symbol("PLAIN")) == b"\xa3\x05PLAIN"
+    assert enc(b"\x00\x01") == b"\xa0\x02\x00\x01"
+    assert enc([]) == b"\x45"
+
+
+@BOTH
+def test_described_and_frame_layout(side):
+    a = PKGS[side].amqp
+    assert a.encode_value(a.Described(0x75, b"hi")) == b"\x00\x53\x75\xa0\x02hi"
+    assert a.encode_frame(0, None) == b"\x00\x00\x00\x08\x02\x00\x00\x00"
+
+
+# ---------------------------------------------------------------- NATS
+@BOTH
+def test_nats_headers_encoding(side):
+    n = PKGS[side].nats
+    raw = n.encode_headers({"Nats-Msg-Id": "x1"})
+    assert raw == b"NATS/1.0\r\nNats-Msg-Id: x1\r\n\r\n"
+    assert n.decode_headers(raw) == {"Nats-Msg-Id": "x1"}
+
+
+# ------------------------------------------------- the port's bytes against the reference's
+_token = st.text(alphabet=st.characters(min_codepoint=33, max_codepoint=126,
+                                        blacklist_characters=":"), min_size=1, max_size=12)
+_headers = st.lists(st.tuples(_token, st.binary(max_size=16)), max_size=4)
+_records = st.lists(st.tuples(st.none() | st.binary(max_size=24), st.binary(max_size=64), _headers),
+                    min_size=1, max_size=5)
+
+
+@HYP
+@given(base=st.integers(0, 2**40), records=_records, ts=st.integers(0, 2**41))
+def test_record_batch_bytes_equal_and_cross_decode(base, records, ts):
+    """The same record batch with headers: the same bytes from both encoders,
+    and each decoder reads the other package's batch."""
+    ours = tkafka.encode_record_batch(base, records, timestamp_ms=ts)
+    theirs = rkafka.encode_record_batch(base, records, timestamp_ms=ts)
+    assert ours == theirs
+    want = [(base + i, k, v, h) for i, (k, v, h) in enumerate(records)]
+    assert tkafka.decode_record_batches(theirs) == want
+    assert rkafka.decode_record_batches(ours) == want
+
+
+_topic = st.text(alphabet=st.characters(min_codepoint=48, max_codepoint=122), min_size=1,
+                 max_size=20)
+
+
+@HYP
+@given(topic=_topic, payload=st.binary(max_size=300), qos=st.integers(0, 1),
+       pid=st.integers(1, 0xFFFF), dup=st.booleans())
+def test_mqtt_publish_bytes_equal_and_cross_parse(topic, payload, qos, pid, dup):
+    """The same PUBLISH packet (a payload past 127 bytes takes a two-byte
+    remaining length), and each parser reads the other package's packet."""
+    ours = tmqtt.publish_packet(topic, payload, qos, pid, dup=dup)
+    assert ours == rmqtt.publish_packet(topic, payload, qos, pid, dup=dup)
+    n = 1
+    while ours[n] & 0x80:  # the remaining length's continuation bytes
+        n += 1
+    flags, body = ours[0] & 0x0F, ours[1 + n:]
+    assert tmqtt.encode_remaining_length(len(body)) == ours[1:1 + n]
+    for parse in (tmqtt.parse_publish, rmqtt.parse_publish):
+        assert parse(flags, body) == (topic, payload, qos, pid if qos else 0)
+    assert tmqtt.subscribe_packet(pid, topic, qos) == rmqtt.subscribe_packet(pid, topic, qos)
+    assert tmqtt.connect_packet(topic, pid, dup) == rmqtt.connect_packet(topic, pid, dup)
+
+
+@HYP
+@given(subject=_topic, headers=st.dictionaries(_token, _token, max_size=4),
+       payload=st.binary(max_size=200))
+def test_nats_hpub_frame_equal_and_cross_decode(subject, headers, payload):
+    """The ``HPUB`` frame a publish with metadata sends, built from each
+    package's header codec, is the same bytes; each decoder reads the
+    other's header block."""
+    def hpub(n):
+        hdr = n.encode_headers(headers)
+        return (f"HPUB {subject} {len(hdr)} {len(hdr) + len(payload)}".encode() + n.CRLF
+                + hdr + payload + n.CRLF)
+
+    assert hpub(tnats) == hpub(rnats)
+    assert tnats.decode_headers(rnats.encode_headers(headers)) == headers
+    assert rnats.decode_headers(tnats.encode_headers(headers)) == headers
+
+
+def _amqp_values(a):
+    leaf = st.one_of(
+        st.none(), st.booleans(), st.integers(-(2**63), 2**63 - 1),
+        st.integers(0, 2**32 - 1).map(a.Uint), st.integers(0, 2**64 - 1).map(a.Ulong),
+        st.integers(0, 255).map(a.Ubyte), st.integers(0, 2**16 - 1).map(a.Ushort),
+        st.text(max_size=300), st.binary(max_size=300),
+        st.text(alphabet=st.characters(min_codepoint=33, max_codepoint=126),
+                max_size=20).map(a.Symbol))
+    return st.recursive(leaf, lambda inner: st.one_of(
+        st.lists(inner, max_size=4),
+        st.dictionaries(st.text(max_size=8), inner, max_size=3),
+        st.tuples(st.integers(0, 0x7F), inner).map(lambda t: a.Described(*t))), max_leaves=12)
+
+
+def _as_other(v, a):
+    """A value built from one package's wrapper types, rebuilt from the
+    other's (the wrappers are distinct classes in the two packages)."""
+    for name in ("Uint", "Ulong", "Ubyte", "Ushort", "Symbol"):
+        for src in (ramqp, tamqp):
+            if type(v) is getattr(src, name):
+                return getattr(a, name)(v)
+    if isinstance(v, (ramqp.Described, tamqp.Described)):
+        return a.Described(v.descriptor, _as_other(v.value, a))
+    if isinstance(v, list):
+        return [_as_other(x, a) for x in v]
+    if isinstance(v, dict):
+        return {_as_other(k, a): _as_other(x, a) for k, x in v.items()}
+    return v
+
+
+@HYP
+@given(value=_amqp_values(tamqp))
+def test_amqp_value_bytes_equal_and_cross_decode(value):
+    """The same AMQP value (lists and maps past 255 bytes take the 32-bit
+    constructors) encodes to the same bytes in both packages, and each
+    decoder reads the other package's encoding back to the value."""
+    ours = tamqp.encode_value(value)
+    theirs = ramqp.encode_value(_as_other(value, ramqp))
+    assert ours == theirs
+    assert tamqp.Decoder(theirs).value() == value
+    assert ramqp.Decoder(ours).value() == _as_other(value, ramqp)
+
+
+@HYP
+@given(body=st.binary(max_size=400), props=st.dictionaries(_token, _token, max_size=4),
+       channel=st.integers(0, 2**16 - 1), handle=st.integers(0, 2**32 - 1))
+def test_amqp_transfer_frame_equal_and_cross_decode(body, props, channel, handle):
+    """A transfer frame carrying a message with application properties: the
+    same bytes, and each package's frame and message decoders read the
+    other's."""
+    def frame(a):
+        perf = a.Described(a.TRANSFER, [a.Uint(handle), a.Uint(7), b"tag", a.Uint(0), True])
+        return a.encode_frame(channel, perf, a.encode_message(body, props))
+
+    ours, theirs = frame(tamqp), frame(ramqp)
+    assert ours == theirs
+    for a, data in ((tamqp, theirs), (ramqp, ours)):
+        ch, ftype, perf, payload = a.decode_frame(data)
+        assert (ch, ftype, perf.descriptor) == (channel, 0, a.TRANSFER)
+        assert int(perf.value[0]) == handle
+        assert a.decode_message(payload) == (body, props)

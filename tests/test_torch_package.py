@@ -536,3 +536,121 @@ def test_sql_modules_are_checked_and_wire_without_a_card(no_card, tmp_path):
     assert mocks.redis is None and mocks.kv_store is None and mock.sql is mocks.sql
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TPUClient().connect()
+
+
+PUBSUB_MODULES = (
+    "gofr_tpu_torch/pubsub/__init__.py", "gofr_tpu_torch/pubsub/kafka_wire.py",
+    "gofr_tpu_torch/pubsub/kafka.py", "gofr_tpu_torch/pubsub/nats.py",
+    "gofr_tpu_torch/pubsub/mqtt.py", "gofr_tpu_torch/pubsub/amqp_wire.py",
+    "gofr_tpu_torch/pubsub/eventhub.py", "gofr_tpu_torch/testutil/kafka_broker.py",
+    "gofr_tpu_torch/testutil/nats_broker.py", "gofr_tpu_torch/testutil/mqtt_broker.py",
+    "gofr_tpu_torch/testutil/eventhub_server.py",
+)
+
+
+def test_pubsub_modules_are_checked_and_connect_without_a_card(no_card):
+    """The networked brokers' drivers, codecs and fakes are among the files
+    the import rules hold. They are host code: each ``PUBSUB_BACKEND`` builds
+    the port's own client from the reference's config keys, and an ``App``
+    connects it to the port's fake without a card (health UP); a dark broker
+    at boot is DOWN health rather than a crash."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.pubsub import InMemoryBroker, KafkaClient
+    from gofr_tpu_torch.pubsub.eventhub import EventHubClient
+    from gofr_tpu_torch.pubsub.mqtt import MQTTClient
+    from gofr_tpu_torch.pubsub.nats import NatsClient
+    from gofr_tpu_torch.testutil import (MiniEventHubServer, MiniKafkaBroker, MiniMQTTBroker,
+                                         MiniNatsBroker)
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(PUBSUB_MODULES) <= files
+    kafka, nats = MiniKafkaBroker(), MiniNatsBroker()
+    mqtt, eventhub = MiniMQTTBroker().start(), MiniEventHubServer().start()
+    base = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL"}
+    backends = {
+        "MEMORY": ({}, InMemoryBroker),
+        "KAFKA": ({"PUBSUB_BROKER": kafka.address, "CONSUMER_ID": "g",
+                   "PUBSUB_OFFSET": "latest"}, KafkaClient),
+        "NATS": ({"NATS_SERVER": nats.address, "CONSUMER_ID": "g"}, NatsClient),
+        "MQTT": ({"MQTT_HOST": "127.0.0.1", "MQTT_PORT": str(mqtt.port), "MQTT_CLIENT_ID": "c",
+                  "MQTT_QOS": "1", "MQTT_KEEPALIVE": "20"}, MQTTClient),
+        "EVENTHUB": ({"EVENTHUB_HOST": "127.0.0.1", "EVENTHUB_PORT": str(eventhub.port),
+                      "EVENTHUB_NAME": "hub", "EVENTHUB_PARTITIONS": "3"}, EventHubClient),
+    }
+    try:
+        for backend, (conf, cls) in backends.items():
+            app = App(MapConfig({**base, "PUBSUB_BACKEND": backend.lower(), **conf},
+                                use_env=False))
+            client = app.container.pubsub
+            assert type(client) is cls, backend
+            assert app.container.health()["details"]["pubsub"]["status"] == "UP", backend
+            app.container.close()
+        kafka_client = App(MapConfig({**base, "PUBSUB_BACKEND": "KAFKA",
+                                      **backends["KAFKA"][0]}, use_env=False)).container.pubsub
+        assert (kafka_client.consumer_group, kafka_client.auto_offset_reset) == ("g", "latest")
+        kafka_client.close()
+    finally:
+        kafka.close(), nats.close(), mqtt.stop(), eventhub.close()
+    for backend, conf in (("KAFKA", {"PUBSUB_BROKER": "127.0.0.1:1"}),
+                          ("NATS", {"NATS_SERVER": "127.0.0.1:1"}),
+                          ("EVENTHUB", {"EVENTHUB_HOST": "127.0.0.1", "EVENTHUB_PORT": "1"})):
+        dark = App(MapConfig({**base, "PUBSUB_BACKEND": backend, **conf}, use_env=False))
+        assert dark.container.health()["details"]["pubsub"]["status"] == "DOWN", backend
+        dark.container.close()
+
+
+@pytest.mark.parametrize("backend,message", [
+    ("GOOGLE", "not ported: the Google Pub/Sub driver speaks gRPC"),
+    ("RABBIT", "unknown PUBSUB_BACKEND 'RABBIT'"),
+])
+def test_build_pubsub_refuses_google_and_unknown_backends(backend, message):
+    """``GOOGLE`` is refused at ``App`` construction, its driver needing gRPC
+    (ROADMAP Queue C 49); any other unknown value raises the reference's
+    ``ValueError``. Unset is no broker, as on the reference."""
+    from gofr_tpu.config import MapConfig as RMapConfig
+    from gofr_tpu.datasource.pubsub import build_pubsub as rbuild
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.pubsub import build_pubsub
+
+    conf = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL",
+            "PUBSUB_BACKEND": backend}
+    with pytest.raises(ValueError, match=message):
+        App(MapConfig(conf, use_env=False))
+    with pytest.raises(ValueError, match=message):
+        build_pubsub(MapConfig({"PUBSUB_BACKEND": backend}, use_env=False))
+    if backend != "GOOGLE":
+        with pytest.raises(ValueError, match=message):
+            rbuild(RMapConfig({"PUBSUB_BACKEND": backend}, use_env=False))
+    assert build_pubsub(MapConfig({}, use_env=False)) is None
+    assert rbuild(RMapConfig({}, use_env=False)) is None
+
+
+@pytest.mark.parametrize("side", ["ref", "port"])
+def test_mock_pubsub_nack_requeues(side):
+    """The mock container's pubsub: a published message is captured and
+    delivered, a nack with requeue puts it back at the head, a commit-less
+    second subscribe then gets it again, and a drained topic gives None;
+    the same observables on both packages' mocks."""
+    if side == "ref":
+        from gofr_tpu.testutil import new_mock_container as make
+    else:
+        from gofr_tpu_torch.testutil import new_mock_container as make
+
+    _, mocks = make()
+    pubsub = mocks.pubsub
+    pubsub.publish("t", b"x", {"k": "v"})
+    pubsub.publish("t", b"y")
+    first = pubsub.subscribe("t")
+    first.nack(True)
+    again = pubsub.subscribe("t")
+    again.commit()
+    second = pubsub.subscribe("t")
+    second.nack(False)
+    got = {"published": pubsub.published, "first": (first.topic, first.value, first.metadata),
+           "again": (again.value, again.metadata), "second": second.value,
+           "drained": pubsub.subscribe("t")}
+    assert got == {"published": [("t", b"x", {"k": "v"}), ("t", b"y", {})],
+                   "first": ("t", b"x", {"k": "v"}), "again": (b"x", {"k": "v"}),
+                   "second": b"y", "drained": None}

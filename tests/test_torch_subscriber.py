@@ -8,8 +8,9 @@ a handler that settles itself, a publish fault through the context, a DLQ
 that never chains) run on each package's in-memory broker with the same
 observables; the policy's config and backoff ladder; and a generation
 consumer on each package's ``App`` over a tiny engine, with a
-``pubsub.handler`` fault and a poison job: the same results, redeliveries
-and dead letters."""
+``pubsub.handler`` fault and a poison job, over each ``PUBSUB_BACKEND``
+(the in-memory broker, and Kafka, NATS, MQTT and Event Hubs each on its
+package's own fake): the same results, redeliveries and dead letters."""
 
 import asyncio
 import json
@@ -464,17 +465,64 @@ def models():
 
 ENGINE = dict(max_slots=4, max_seq_len=128, prefill_buckets=(16,), prefill_chunk_tokens=16)
 JOBS = [[5, 6, 7], [40, 41, 42, 43, 44, 45], list(range(60, 80))]
+BACKENDS = ["MEMORY", "KAFKA", "NATS", "MQTT", "EVENTHUB"]
 
 
-def _generation_app(side, models):
+def _broker_fake(side, backend):
+    """(the fake, the App's configs for it, a user's client of it) of one
+    package, or Nones for the in-memory broker (the test talks to the app's
+    own broker then). The NATS fake's ``ack_wait`` is long enough that no
+    job is redelivered for being slow: only a nack redelivers here."""
+    if backend == "MEMORY":
+        return None, {}, None
+    if side == "ref":
+        from gofr_tpu.datasource.pubsub.eventhub import EventHubClient
+        from gofr_tpu.datasource.pubsub.kafka import KafkaClient
+        from gofr_tpu.datasource.pubsub.mqtt import MQTTClient
+        from gofr_tpu.datasource.pubsub.nats import NatsClient
+        from gofr_tpu.testutil.eventhub_server import MiniEventHubServer
+        from gofr_tpu.testutil.kafka_broker import MiniKafkaBroker
+        from gofr_tpu.testutil.mqtt_broker import MiniMQTTBroker
+        from gofr_tpu.testutil.nats_broker import MiniNatsBroker
+    else:
+        from gofr_tpu_torch.pubsub.eventhub import EventHubClient
+        from gofr_tpu_torch.pubsub.kafka import KafkaClient
+        from gofr_tpu_torch.pubsub.mqtt import MQTTClient
+        from gofr_tpu_torch.pubsub.nats import NatsClient
+        from gofr_tpu_torch.testutil import (MiniEventHubServer, MiniKafkaBroker, MiniMQTTBroker,
+                                             MiniNatsBroker)
+    if backend == "KAFKA":
+        fake = MiniKafkaBroker()
+        return (fake, {"PUBSUB_BROKER": fake.address, "CONSUMER_ID": "app"},
+                KafkaClient(fake.address, consumer_group="user", poll_timeout=0.05))
+    if backend == "NATS":
+        fake = MiniNatsBroker(ack_wait=30.0)
+        return fake, {"NATS_SERVER": fake.address}, NatsClient(fake.address, consumer_group="user")
+    if backend == "MQTT":
+        fake = MiniMQTTBroker().start()
+        return (fake, {"MQTT_HOST": "127.0.0.1", "MQTT_PORT": str(fake.port),
+                       "MQTT_CLIENT_ID": "app"},
+                MQTTClient("127.0.0.1", fake.port, client_id="user"))
+    # four partitions, so that each job here has one to itself: a nack
+    # (RELEASED) rewinds its partition's cursor, and the fake sends again every
+    # delivery behind it that the client already holds, which would then be
+    # served twice (Queue C 48, shown in test_torch_eventhub.py)
+    fake = MiniEventHubServer(partitions=4).start()
+    return (fake, {"EVENTHUB_HOST": "127.0.0.1", "EVENTHUB_PORT": str(fake.port),
+                   "EVENTHUB_NAME": "hub", "EVENTHUB_PARTITIONS": "4"},
+            EventHubClient(host="127.0.0.1", port=fake.port, eventhub_name="hub",
+                           consumer_group="user", partitions=4))
+
+
+def _generation_app(side, models, backend="MEMORY", broker_configs=None):
     jcfg, jparams, tcfg, tparams = models
     pkg = PKGS[side]
     app = pkg.App(pkg.MapConfig({
         "HTTP_PORT": str(get_free_port()), "METRICS_PORT": str(get_free_port()),
         "HTTP_HOST": "127.0.0.1", "APP_NAME": f"gen-{side}", "LOG_LEVEL": "FATAL",
-        "SHUTDOWN_GRACE_PERIOD": "5", "PUBSUB_BACKEND": "MEMORY",
-        "PUBSUB_RETRY_BACKOFF_SECONDS": "0.01", "PUBSUB_GENERATE_MAX_ATTEMPTS": "3"},
-        use_env=False))
+        "SHUTDOWN_GRACE_PERIOD": "5", "PUBSUB_BACKEND": backend,
+        "PUBSUB_RETRY_BACKOFF_SECONDS": "0.01", "PUBSUB_GENERATE_MAX_ATTEMPTS": "3",
+        **(broker_configs or {})}, use_env=False))
     if side == "ref":
         engine = JServingEngine(jcfg, jparams, JEngineConfig(**ENGINE), JByteTokenizer())
     else:
@@ -494,62 +542,142 @@ def _generation_app(side, models):
     return app, engine
 
 
-def test_generation_consumer_equals_the_reference(models):
-    """Each package's ``App`` with ``PUBSUB_BACKEND=MEMORY`` and a generation
-    subscriber: three jobs under one injected ``pubsub.handler`` fault (one
-    redelivery, no dead letter), then a poison job (an empty prompt) that
-    lands in ``generate.dlq`` after 3 deliveries while the job behind it is
-    served. The same results, counters and health on both."""
-    got = {}
-    for side in ("ref", "port"):
-        pkg = PKGS[side]
-        app, engine = _generation_app(side, models)
-        thread = start_app(app)
-        broker = app.container.pubsub
-        consumer = app.subscription_manager._consumers["generate"]
-        try:
-            def results(n):
-                out, t_end = [], time.monotonic() + 120
-                while len(out) < n and time.monotonic() < t_end:
-                    msg = broker.subscribe("generate.results")
-                    if msg is not None:
-                        out.append(json.loads(msg.value))
-                        msg.commit()
-                return out
+def _serve_jobs(side, models, backend):
+    """One package's generation app over ``backend``: three jobs under one
+    injected ``pubsub.handler`` fault, then a poison job and a good one
+    behind it. Returns the observables."""
+    pkg = PKGS[side]
+    fake, configs, user = _broker_fake(side, backend)
+    app, engine = _generation_app(side, models, backend, configs)
+    if user is not None:
+        user.connect()
+        for topic in ("generate.results", "generate.dlq"):
+            user.subscribe(topic)  # NATS and MQTT drop what no one subscribed to
+    thread = start_app(app)
+    broker = user if user is not None else app.container.pubsub
+    consumer = app.subscription_manager._consumers["generate"]
+    handled = []
+    real_handler = consumer.handler
 
-            with pkg.chaos.active(pkg.chaos.ChaosInjector(3, {"pubsub.handler": 1.0},
-                                                          max_faults=1)):
-                for k, p in enumerate(JOBS):
-                    broker.publish("generate", json.dumps({"job": k, "prompt": p}).encode())
-                first = results(len(JOBS))
-            after_fault = (consumer.redeliveries, consumer.dlq)
-            broker.publish("generate", json.dumps({"job": "poison", "prompt": []}).encode())
-            broker.publish("generate", json.dumps({"job": "after", "prompt": JOBS[0]}).encode())
-            behind = results(1)
-            t_end = time.monotonic() + 30  # the dead letter, and the last commit
-            while (consumer.dlq < 1 or consumer.delivered < len(JOBS) + 1) \
-                    and time.monotonic() < t_end:
-                time.sleep(0.01)
+    async def counting(ctx):
+        handled.append(json.loads(ctx.request.value)["job"])
+        return await real_handler(ctx)
+
+    consumer.handler = counting
+    try:
+        def results(n):
+            out, t_end = [], time.monotonic() + 120
+            while len(out) < n and time.monotonic() < t_end:
+                msg = broker.subscribe("generate.results")
+                if msg is not None:
+                    out.append(json.loads(msg.value))
+                    msg.commit()
+            return out
+
+        with pkg.chaos.active(pkg.chaos.ChaosInjector(3, {"pubsub.handler": 1.0},
+                                                      max_faults=1)):
+            for k, p in enumerate(JOBS):
+                broker.publish("generate", json.dumps({"job": k, "prompt": p}).encode())
+            first = results(len(JOBS))
+        after_fault = (consumer.redeliveries, consumer.dlq)
+        broker.publish("generate", json.dumps({"job": "poison", "prompt": []}).encode())
+        broker.publish("generate", json.dumps({"job": "after", "prompt": JOBS[0]}).encode())
+        behind = results(1)
+        t_end = time.monotonic() + 30  # the dead letter, and the last commit
+        while (consumer.dlq < 1 or consumer.delivered < len(JOBS) + 1) \
+                and time.monotonic() < t_end:
+            time.sleep(0.01)
+        dead, t_end = None, time.monotonic() + 30
+        while dead is None and time.monotonic() < t_end:
             dead = broker.subscribe("generate.dlq")
-            health = app.container.health()["details"]["pubsub_consumers"]
-            got[side] = {
-                "results": sorted(first, key=lambda r: r["job"]), "behind": behind,
-                "after_fault": after_fault, "redeliveries": consumer.redeliveries,
-                "dlq": consumer.dlq, "dead": json.loads(dead.value)["job"],
-                "dead_attempts": dead.metadata[pkg.delivery.DLQ_ATTEMPTS_KEY],
-                "health": health["status"], "delivered": consumer.delivered,
-                "metrics": {n: _metric(app.container, n, "generate") for n in (
-                    "app_pubsub_subscribe_total_count", "app_pubsub_subscribe_success_count",
-                    "app_pubsub_redeliveries_total", "app_pubsub_dlq_total")}}
-        finally:
-            stop_app(app, thread)
-    assert got["port"] == got["ref"]
+        dead.commit()
+        health = app.container.health()["details"]
+        return {
+            "results": sorted(first, key=lambda r: r["job"]), "behind": behind,
+            "handled": sorted(map(str, handled)), "after_fault": after_fault,
+            "redeliveries": consumer.redeliveries, "dlq": consumer.dlq,
+            "dead": json.loads(dead.value)["job"],
+            "dead_attempts": dead.metadata.get(pkg.delivery.DLQ_ATTEMPTS_KEY),
+            "health": health["pubsub_consumers"]["status"],
+            "broker_health": health["pubsub"]["status"], "delivered": consumer.delivered,
+            "metrics": {n: _metric(app.container, n, "generate") for n in (
+                "app_pubsub_subscribe_total_count", "app_pubsub_subscribe_success_count",
+                "app_pubsub_redeliveries_total", "app_pubsub_dlq_total")}}
+    finally:
+        stop_app(app, thread)
+        if user is not None:
+            user.close()
+            (fake.stop if backend == "MQTT" else fake.close)()
+
+
+def _want(backend, side):
+    """What one package's consumer shows over ``backend``. A NATS redelivery
+    carries the ``Nats-Redelivered`` header; the reference's message key
+    (``delivery.message_key``, used when a message has no id) keeps it, so
+    there the first delivery and the rest count as two messages: the
+    faulted job shows no redelivery, and the poison job is delivered 4
+    times, dead-lettered at its third attempt under the second identity.
+    The port's key leaves the marker out (Queue C 47). MQTT 3.1.1 carries
+    no metadata, so its dead letter has no attempt count. The reference's
+    MQTT driver counts each delivery a second time (Queue C 46)."""
+    split = backend == "NATS" and side == "ref"
+    deliveries = 9 if split else 8
+    return {"after_fault": (0, 0) if split else (1, 0), "redeliveries": 2 if split else 3,
+            "handled": sorted(["0", "1", "2", "after"] + ["poison"] * (deliveries - 5)),
+            "dead_attempts": None if backend == "MQTT" else "3",
+            "subscribe_total": deliveries * (2 if backend == "MQTT" and side == "ref" else 1)}
+
+
+SUBSCRIBE_COUNTS = ("app_pubsub_subscribe_total_count", "app_pubsub_subscribe_success_count")
+PER_SIDE = ("handled", "after_fault", "redeliveries", "metrics")
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_generation_consumer_equals_the_reference(models, backend):
+    """Each package's ``App`` with ``PUBSUB_BACKEND`` set to ``backend``,
+    each over its own package's fake, and a generation subscriber: three
+    jobs under one injected ``pubsub.handler`` fault (one redelivery, no
+    dead letter), then a poison job (an empty prompt) that lands in
+    ``generate.dlq`` after 3 attempts while the job behind it is served.
+    The same results, dead letters and health on both, and the same
+    redeliveries and metrics save where the reference is at fault: the
+    subscribe counters of its MQTT and Event Hubs drivers (Queue C 46) and
+    its NATS message identity (Queue C 47)."""
+    got = {side: _serve_jobs(side, models, backend) for side in ("ref", "port")}
+    for side, obs in got.items():
+        want = _want(backend, side)
+        # the injected fault fires before the handler runs: one delivery unhandled
+        assert obs["handled"] == want["handled"], side
+        assert (obs["after_fault"], obs["redeliveries"]) == (want["after_fault"],
+                                                            want["redeliveries"]), side
+        metrics = obs["metrics"]
+        assert metrics["app_pubsub_redeliveries_total"] == want["redeliveries"], side
+        assert metrics["app_pubsub_dlq_total"] == 1, side
+        if backend == "EVENTHUB" and side == "ref":  # every poll; each delivery a success
+            assert metrics["app_pubsub_subscribe_success_count"] == 4 + 8
+            assert metrics["app_pubsub_subscribe_total_count"] > 2 * 8
+        else:
+            assert metrics["app_pubsub_subscribe_total_count"] == want["subscribe_total"], side
+            assert metrics["app_pubsub_subscribe_success_count"] == 4, side
+        assert obs["dead_attempts"] == want["dead_attempts"], side
+    shared = [{k: v for k, v in obs.items() if k not in PER_SIDE} for obs in got.values()]
+    assert shared[0] == shared[1]
     port = got["port"]
     assert [r["job"] for r in port["results"]] == [0, 1, 2]
     assert all(r["finish_reason"] == "length" and len(r["tokens"]) == 6 for r in port["results"])
     assert port["behind"][0]["tokens"] == port["results"][0]["tokens"]
-    assert port["after_fault"] == (1, 0) and port["redeliveries"] == 3 and port["dlq"] == 1
-    assert port["dead"] == "poison" and port["dead_attempts"] == "3" and port["health"] == "UP"
-    assert port["metrics"] == {"app_pubsub_subscribe_total_count": 8,
-                               "app_pubsub_subscribe_success_count": 4,
-                               "app_pubsub_redeliveries_total": 3, "app_pubsub_dlq_total": 1}
+    assert port["dlq"] == 1 and port["dead"] == "poison" and port["delivered"] == 4
+    assert port["health"] == port["broker_health"] == "UP"
+
+
+def test_redelivery_marker_is_not_part_of_the_message_key():
+    """A NATS redelivery's ``Nats-Redelivered`` header: the reference's key
+    of the redelivery differs from the first delivery's, the port's is the
+    same (Queue C 47); every other header still counts."""
+    first = {"trace": "t"}
+    again = {"trace": "t", "Nats-Redelivered": "true"}
+    assert rdelivery.message_key("t", b"v", first) != rdelivery.message_key("t", b"v", again)
+    assert tdelivery.message_key("t", b"v", first) == tdelivery.message_key("t", b"v", again)
+    assert tdelivery.message_key("t", b"v", first) == rdelivery.message_key("t", b"v", first)
+    assert tdelivery.message_key("t", b"v", {"trace": "u"}) != tdelivery.message_key(
+        "t", b"v", first)

@@ -293,11 +293,45 @@ def _counting_acquire(reg, busy):
     reg.acquire = acquire
 
 
+def _hold_after_pin(reg, adapter_id, release):
+    """Wrap ``reg.acquire`` on the instance: once the engine thread has
+    pinned ``adapter_id``, it waits (bounded) for ``release`` before the
+    row goes on, so the pin stays held while the test reads it."""
+    real = reg.acquire
+
+    def acquire(aid, timeout=5.0):
+        slot = real(aid, timeout=timeout)
+        if aid == adapter_id:
+            release.wait(30)
+        return slot
+
+    reg.acquire = acquire
+
+
+def _submit_behind_pin(engine, reg, release):
+    """``tenant-a``'s row first; ``tenant-b``'s only once the registry's
+    residency shows ``tenant-a``'s pin (its row admitted), so ``tenant-b``'s
+    submit-time prefetch cannot evict ``tenant-a``'s resident adapter before
+    admission pins it."""
+    first = engine.submit(SHORT, max_new_tokens=12, adapter_id="tenant-a")
+    t_end = time.monotonic() + 30
+    while reg.residency()["pinned_slots"] < 1 and time.monotonic() < t_end:
+        time.sleep(0.001)
+    assert reg.residency()["pinned_slots"] == 1
+    second = engine.submit(SHORT, max_new_tokens=6, adapter_id="tenant-b")
+    release.set()
+    return [_outcome(first), _outcome(second)]
+
+
 @pytest.mark.parametrize("variant", ["dense-bf16", "paged-int8"])
 def test_adapter_busy_requeues_until_the_slot_frees(models, variant):
     """One usable table slot (max_active=2): the second adapter's row
     requeues with AdapterBusy while the first row holds the slot, then
-    serves; both engines give the same tokens."""
+    serves; both engines give the same tokens. The second row is submitted
+    once the first holds its pin (read through the registry's residency):
+    submitted earlier, its prefetch could evict the first adapter while it
+    was resident but not yet pinned, and then the first row met the busy
+    slot instead, in either engine."""
     conf = {**BASE, **VARIANTS[variant]}
     outs, busies = [], []
     for make, mod in ((_jax_engine, jlora), (_port_engine, tlora)):
@@ -307,10 +341,10 @@ def test_adapter_busy_requeues_until_the_slot_frees(models, variant):
             reg.register(mod.LoraAdapter(ad.adapter_id, ad.a, ad.b))
         busy = []
         _counting_acquire(reg, busy)
+        release = threading.Event()
+        _hold_after_pin(reg, "tenant-a", release)
         engine = make(models, conf, lora=reg)
-        outs.append(_serve(engine, lambda e: [
-            _outcome(f) for f in [e.submit(SHORT, max_new_tokens=12, adapter_id="tenant-a"),
-                                  e.submit(SHORT, max_new_tokens=6, adapter_id="tenant-b")]]))
+        outs.append(_serve(engine, lambda e: _submit_behind_pin(e, reg, release)))
         busies.append(busy)
         if mod is tlora:
             _assert_clean(engine, reg)
