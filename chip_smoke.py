@@ -138,8 +138,8 @@ Phases, each a hard failure with a non-zero exit:
    dispatches and the ``_first_token`` syncs to the monolithic
    admissions, sync warnings a dispatch equal to the twin's, greedy tokens
    equal to the twin's, flash and int8 paged launches;
-   then the HA and cross-replica KV phase, at full depth, engines built
-   two at a time over the one weight set, each second engine's
+   then the HA and cross-replica KV phase, at ``PLANE_DEPTH`` layers of
+   the same weights, engines built two at a time over the one weight set, each second engine's
    ``memory_allocated`` held to its KV:
    - ``A1`` paged int8 (4096, 32-token pages, a 16-frame replay window): 8
      threads submit one 200-token prompt under one key (one admission, one
@@ -298,9 +298,9 @@ Phases, each a hard failure with a non-zero exit:
      (MySQL's raw rows as text), the pool gauges, ms a statement;
    it prints a ``{"sql": ...}`` line; its launches (S3's engine, and S1's
    captured launches times their replays) are the ``kernels`` rows'
-   ``launches_sql``; then the pubsub phase on the same weights, the launch
-   counters reset before it: one paged bf16 engine (the bf16 path's
-   config), the main path's ten prompts each alone through ``submit`` as
+   ``launches_sql``; then the pubsub phase on ``PLANE_DEPTH`` layers of
+   the same weights, the launch counters reset before it: one paged bf16
+   engine (the bf16 path's config), the main path's ten prompts each alone through ``submit`` as
    the gold, then for each of ``KAFKA``, ``NATS``, ``MQTT`` and
    ``EVENTHUB`` the port's fake of that broker on 127.0.0.1, an ``App``
    with ``PUBSUB_BACKEND`` set to it and a subscriber on ``generate`` that
@@ -327,7 +327,41 @@ Phases, each a hard failure with a non-zero exit:
    the broker's share, the redelivery latency, the ms of the handler's
    result publish and the phase's flash and bf16 paged launches; it
    prints a ``{"pubsub": ...}`` line; its launches are the ``kernels``
-   rows' ``launches_pubsub``;
+   rows' ``launches_pubsub``; then the files phase, the launch counters
+   reset before it, over the port's file systems and their fakes on
+   127.0.0.1 (the local file system, S3 and GCS on ``FakeObjectStore``,
+   ``MiniFTPServer`` and ``MiniSFTPServer``) and a ``RedisClient`` on the
+   port's RESP2 server:
+   - ``F-S1`` an HF-layout Llama checkpoint at Llama-3-8B widths and 2
+     layers (2.97 GB of safetensors, ``config.json``, a BPE
+     ``tokenizer.json``) written through the local, S3, GCS and FTP file
+     systems and loaded back with ``ServingEngine.from_hf(path, fs=...)``:
+     every tensor bit-identical to a plain-path load, the tokenizer round
+     trips, and the S3-loaded engine (paged bf16) serves the ten prompts
+     token-equal to an engine built from the same params; per backend the
+     write and load seconds, GB/s and the host's peak RSS, the
+     ``app_file_stats`` counts, and the object stores' ``read_range`` of
+     the safetensors header (its bytes and ms);
+   - ``F-S2`` one ``App`` over a full-depth paged bf16 engine whose
+     ``ctx.redis`` is the RESP2 client and whose ``ctx.file`` is each file
+     system in turn (SFTP with its host key pinned): ``POST /batch/{name}``
+     reads ``jobs.jsonl`` through ``JSONRowReader``, answers each prompt
+     from Redis or (a miss) the engine, caching it with ``PX`` 600000, and
+     writes ``results.jsonl``; the first file's ten prompts are ten
+     misses, each later file adds one new prompt (one miss, ten hits); the
+     results read back equal ``submit`` of each prompt alone (or part
+     within ``GAP_TOL``), an all-hit batch admits nothing and launches no
+     flash, ``app_redis_stats`` counts equal the commands the server saw,
+     each key's ``PTTL`` lies in (0, 600000], migrations record their
+     versions in the ``gofr_migrations`` hash, health shows ``redis`` and
+     ``file`` UP, a stopped Redis shows DOWN and the handler a 5xx with no
+     admission, a wrong pinned fingerprint is refused at ``connect``; per
+     backend the jobs' read and results' write ms, a handler's p50 round
+     trip and a miss's TTFT through the handler against ``submit``; and
+     FTP's and SFTP's MB/s on one 64 MiB blob;
+   it prints a ``{"files": ...}`` line; its launches are the ``kernels``
+   rows' ``launches_files``. Without the ``cryptography`` package the
+   SFTP legs are not built and one line says why;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -7440,8 +7474,472 @@ def run_pubsub(torch, cfg, params) -> dict:
     return out
 
 
-PLANE_DEPTH = 8  # layers of the phases run at a cut depth (tenancy, observability, http
-# H1-H2, surface, device T)
+# ------------------------------------------------------------- files phase
+FILES_NEW = 32  # F-S2: greedy tokens a job
+FILES_TTL_S = 600.0  # F-S2: a cached result's TTL (SET ... PX 600000)
+FILES_HIT_REPEATS = 5  # F-S2: all-hit batches a backend, for the handler's round trip
+FILES_BLOB = 64 << 20  # F-S2: the blob FTP and SFTP write and read whole
+FILES_WEIGHT_BACKENDS = ("local", "s3", "gcs", "ftp")  # F-S1 (SFTP reads 32 KiB a request)
+FILES_JOB_BACKENDS = ("local", "s3", "gcs", "ftp", "sftp")  # F-S2, in this order
+FILES_WRONG_FINGERPRINT = "ab" * 32
+
+
+def has_cryptography() -> str | None:
+    """The ``cryptography`` version, or None where it is not installed (the
+    SFTP legs need it)."""
+    try:
+        import cryptography
+    except ImportError:
+        return None
+    return cryptography.__version__
+
+
+def series_counts(manager, name: str) -> dict:
+    """Observations of a histogram by label set, as ``k=v,...`` strings."""
+    hist = manager.get(name)
+    with hist._lock:
+        return {",".join(f"{k}={v}" for k, v in key): state[2]
+                for key, state in sorted(hist._series.items())}
+
+
+def files_servers(tmp: str, crypto: bool) -> dict:
+    from gofr_tpu_torch.testutil import FakeObjectStore, MiniFTPServer, MiniRedisServer
+
+    out = {"object": FakeObjectStore(), "ftp": MiniFTPServer(os.path.join(tmp, "ftp-root")),
+           "redis": MiniRedisServer()}
+    if crypto:
+        from gofr_tpu_torch.testutil import MiniSFTPServer
+
+        out["sftp"] = MiniSFTPServer(os.path.join(tmp, "sftp-root"))
+    return out
+
+
+def sftp_fingerprint(server) -> str:
+    import hashlib
+
+    from gofr_tpu_torch.datasource.file.ssh_transport import ed25519_blob
+
+    return hashlib.sha256(ed25519_blob(server.host_key.public_key())).hexdigest()
+
+
+def files_fs(kind: str, servers: dict, tmp: str, fingerprint: str = ""):
+    """A port file system of ``kind`` on its server, unconnected. Local, FTP
+    and SFTP sit behind ``ObservedFileSystem`` (``app_file_stats`` by
+    operation); the object stores record it themselves (by backend)."""
+    from gofr_tpu_torch.datasource.file import (FTPFileSystem, GCSProvider, LocalFileSystem,
+                                                ObjectFileSystem, ObservedFileSystem,
+                                                S3Provider, SFTPFileSystem)
+
+    fake = servers["object"]
+    if kind == "s3":
+        return ObjectFileSystem(S3Provider("test-bucket", endpoint=fake.s3_endpoint,
+                                           region=fake.region, access_key=fake.access_key,
+                                           secret_key=fake.secret_key, timeout=600), name="s3")
+    if kind == "gcs":
+        return ObjectFileSystem(GCSProvider("test-bucket", endpoint=fake.gcs_endpoint,
+                                            timeout=600), name="gcs")
+    if kind == "local":
+        inner = LocalFileSystem(os.path.join(tmp, "local-root"))
+        os.makedirs(inner.getwd(), exist_ok=True)
+    elif kind == "ftp":
+        inner = FTPFileSystem(host="127.0.0.1", port=servers["ftp"].port, user="gofr",
+                              password="secret", connect_timeout=600)
+    else:
+        inner = SFTPFileSystem(host="127.0.0.1", port=servers["sftp"].port, user="gofr",
+                               password="secret", host_key_fingerprint=fingerprint,
+                               connect_timeout=600)
+    return ObservedFileSystem(inner)
+
+
+def files_put(fs, src_dir: str, name: str) -> int:
+    """Copy every file of ``src_dir`` into ``fs`` under ``name`` (64 MiB
+    reads); returns the bytes written."""
+    fs.mkdir(name)
+    total = 0
+    for fname in sorted(os.listdir(src_dir)):
+        with open(os.path.join(src_dir, fname), "rb") as src, fs.open(f"{name}/{fname}", "wb") as dst:
+            shutil.copyfileobj(src, dst, 64 << 20)
+            total += src.tell()
+    return total
+
+
+def files_s1(torch, cfg, dev, tmp: str, servers: dict) -> dict:
+    """F-S1: a checkpoint written through each file system and loaded back
+    with ``from_hf(path, fs=...)``."""
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.metrics import new_metrics_manager
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.models.hf_import import load_llama_from_hf
+    from gofr_tpu_torch.testutil.assets import bpe_spec, write_bpe_asset
+    from gofr_tpu_torch.testutil.params import perturb_norms_and_biases
+    from gofr_tpu_torch.tokenizer import BPETokenizer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    params = llama.init_params(cfg, gen, device=dev)
+    perturb_norms_and_biases(params, gen)
+    torch.cuda.synchronize()
+    src = os.path.join(tmp, "src")
+    t = time.perf_counter()
+    nbytes = write_hf_checkpoint(torch, src, *llama_hf(torch, cfg, params))
+    write_bpe_asset(src, bpe_spec(MODELS_L_MERGES),
+                    {"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>"})
+    out: dict = {"checkpoint_bytes": nbytes, "source_write_s": time.perf_counter() - t}
+    _, direct = load_llama_from_hf(src, device=dev)
+    out["plain_load_equal"] = tree_equal(torch, direct, params)
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                prefill_chunk_tokens=2048)
+    rng = torch.Generator().manual_seed(SEED + 31)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist() for n in MAIN_LENS]
+    with open(os.path.join(src, "model.safetensors"), "rb") as f:
+        header_len = int.from_bytes(f.read(8), "little")
+    for kind in FILES_WEIGHT_BACKENDS:
+        fs = files_fs(kind, servers, tmp)
+        m = new_metrics_manager()
+        m.new_histogram("app_file_stats", "Duration of file-system operations in milliseconds")
+        fs.use_metrics(m)
+        fs.connect()
+        t = time.perf_counter()
+        written = files_put(fs, src, "ckpt")
+        write_s = time.perf_counter() - t
+        with PeakRss() as rss:
+            t = time.perf_counter()
+            engine = ServingEngine.from_hf("ckpt", fs=fs, engine_config=EngineConfig(**conf),
+                                           device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+        tok = engine.tokenizer
+        leg = {"bytes_written": written, "write_s": write_s, "write_gb_s": written / write_s / 1e9,
+               "load_s": load_s, "load_gb_s": nbytes / load_s / 1e9,
+               "host_rss_mib_before": rss.before, "host_rss_peak_mib": rss.peak,
+               "loaded_equal": tree_equal(torch, engine.params, direct) and engine.model_cfg == cfg,
+               "tokenizer": isinstance(tok, BPETokenizer) and all(
+                   tok.decode(tok.encode(x)) == x.replace("<|begin_of_text|>", "")
+                   for x in MODELS_L_TEXTS)}
+        if kind in ("s3", "gcs"):  # the header alone, not the weights
+            t = time.perf_counter()
+            head = fs.read_range("ckpt/model.safetensors", 0, 8)
+            header = fs.read_range("ckpt/model.safetensors", 8, int.from_bytes(head, "little"))
+            leg["read_range"] = {"ms": (time.perf_counter() - t) * 1e3,
+                                 "bytes": len(head) + len(header),
+                                 "tensors": len(json.loads(header)),
+                                 "header_len": header_len}
+            if leg["read_range"]["bytes"] != 8 + header_len:
+                raise AssertionError(f"F-S1 {kind} read_range: {leg['read_range']}")
+        if kind == "s3":  # this engine serves, beside one built from the same params
+            twin = ServingEngine(cfg, params, EngineConfig(**conf), tokenizer=tok, device=dev)
+            got = {}
+            for name, eng in (("s3", engine), ("direct", twin)):
+                mark = launch_counts()
+                eng.start()
+                try:
+                    futs = [eng.submit(p, max_new_tokens=FILES_NEW, temperature=0.0)
+                            for p in prompts]
+                    got[name] = [f.result(600).token_ids for f in futs]
+                finally:
+                    eng.stop()
+                if name == "s3":
+                    leg["launches"] = since(mark)
+            leg["tokens_equal"] = sum(a == b for a, b in zip(got["s3"], got["direct"]))
+            del twin
+        fs.remove_all("ckpt")
+        leg["app_file_stats"] = series_counts(m, "app_file_stats")
+        fs.close()
+        del engine
+        torch.cuda.empty_cache()
+        out[kind] = leg
+        print(f"  F-S1 {kind}: {written / 1e9:.3f} GB written in {write_s:.2f} s "
+              f"({leg['write_gb_s']:.2f} GB/s); from_hf in {load_s:.2f} s "
+              f"({leg['load_gb_s']:.2f} GB/s), host RSS {rss.before:.0f} MiB before, "
+              f"{rss.peak:.0f} MiB at its peak; bit-identical {leg['loaded_equal']}; tokenizer "
+              f"{leg['tokenizer']}" + (f"; read_range {leg['read_range']}" if "read_range" in leg
+                                       else "")
+              + (f"; {leg['tokens_equal']}/{len(prompts)} requests token-equal to the direct "
+                 f"engine" if "tokens_equal" in leg else "") + f"; {leg['app_file_stats']}")
+        if not (leg["loaded_equal"] and leg["tokenizer"]
+                and leg.get("tokens_equal", len(prompts)) == len(prompts)):
+            raise AssertionError(f"F-S1 {kind}: {leg}")
+    if not out["plain_load_equal"]:
+        raise AssertionError("F-S1: the plain-path load differs from the written params")
+    out["launches"] = out["s3"]["launches"]
+    del params, direct
+    torch.cuda.empty_cache()
+    return out
+
+
+def files_key(prompt: list[int]) -> str:
+    import hashlib
+
+    return "jobs:" + hashlib.sha256(json.dumps(prompt).encode()).hexdigest()
+
+
+def files_handler(engine):
+    """``POST /batch/{name}`` (the handler of ``examples_torch/using-file-jobs``
+    with its steps timed): ``{name}/jobs.jsonl`` through ``JSONRowReader`` on
+    ``ctx.file``, each prompt from ``ctx.redis`` or, on a miss, the engine
+    (its first token stamped on the host's clock) and then cached with a
+    TTL, ``{name}/results.jsonl`` written back. A sync handler: it runs on
+    the app's executor."""
+    from gofr_tpu_torch.datasource.file import JSONRowReader
+
+    def batch(ctx):
+        name = ctx.path_param("name")
+        t0 = time.perf_counter()
+        with ctx.file.open(f"{name}/jobs.jsonl") as f:
+            prompts = [row["prompt"] for row in JSONRowReader(f)]
+        t1 = time.perf_counter()
+        keys = [files_key(p) for p in prompts]
+        tokens, pending, stamps = {}, {}, {}
+        for prompt, key in zip(prompts, keys):
+            cached = ctx.redis.get(key)
+            if cached is not None:
+                tokens[key] = json.loads(cached)
+            elif key not in pending:
+                stamps[key] = [time.perf_counter()]
+                pending[key] = engine.submit(prompt, max_new_tokens=FILES_NEW, temperature=0.0,
+                                             stream_cb=first_token_timer(stamps[key]))
+        t2 = time.perf_counter()
+        for key, fut in pending.items():
+            tokens[key] = fut.result(timeout=600).token_ids
+            ctx.redis.set(key, json.dumps(tokens[key]), ttl_seconds=FILES_TTL_S)
+        t3 = time.perf_counter()
+        body = "".join(json.dumps({"prompt": p, "tokens": tokens[k]}) + "\n"
+                       for p, k in zip(prompts, keys))
+        with ctx.file.create(f"{name}/results.jsonl") as f:
+            f.write(body.encode())
+        t4 = time.perf_counter()
+        return {"jobs": len(prompts), "misses": len(pending), "read_ms": (t1 - t0) * 1e3,
+                "lookup_ms": (t2 - t1) * 1e3, "write_ms": (t4 - t3) * 1e3,
+                "first_token_at": [s[1] for s in stamps.values() if len(s) > 1]}
+    return batch
+
+
+def files_read(fs, name: str) -> list[dict]:
+    with fs.open(name, "rb") as f:
+        return [json.loads(line) for line in f.read().decode().splitlines()]
+
+
+def files_blob(kind: str, servers: dict, tmp: str, fingerprint: str) -> dict:
+    """One ``FILES_BLOB`` blob written and read whole; MB/s each way."""
+    fs = files_fs(kind, servers, tmp, fingerprint)
+    fs.connect()
+    blob = os.urandom(FILES_BLOB)
+    try:
+        t = time.perf_counter()
+        with fs.create("blob.bin") as f:
+            f.write(blob)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with fs.open("blob.bin", "rb") as f:
+            back = f.read()
+        read_s = time.perf_counter() - t
+        fs.remove("blob.bin")
+    finally:
+        fs.close()
+    if back != blob:
+        raise AssertionError(f"F-S2 {kind}: the 64 MiB blob came back different")
+    return {"write_mb_s": FILES_BLOB / write_s / 1e6, "read_mb_s": FILES_BLOB / read_s / 1e6,
+            "write_s": write_s, "read_s": read_s}
+
+
+def files_s2(torch, cfg, params, tmp: str, servers: dict, crypto: bool) -> dict:
+    """F-S2: one App, Redis on the RESP2 server, each file system in turn."""
+    from gofr_tpu_torch.datasource.file.ssh_transport import SSHError
+    from gofr_tpu_torch.datasource.redis import RedisClient
+    from gofr_tpu_torch.migration import Migrate
+    from gofr_tpu_torch.testutil import start_app, stop_app
+
+    out: dict = {}
+    backends = FILES_JOB_BACKENDS if crypto else FILES_JOB_BACKENDS[:-1]
+    fingerprint = sftp_fingerprint(servers["sftp"]) if crypto else ""
+    mem: dict = {}
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                max_new_tokens_default=FILES_NEW, prefill_chunk_tokens=2048)
+    engine = build_engine(torch, cfg, params, conf, mem, "files")
+    out["memory"] = mem
+    admissions = hook_admissions(engine)
+    rng = torch.Generator().manual_seed(SEED + 37)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist() for n in MAIN_LENS]
+    extra = {kind: torch.randint(3, cfg.vocab_size, (64 + 16 * i,), generator=rng).tolist()
+             for i, kind in enumerate(backends[1:])}
+    engine.start()
+    redis_server = servers["redis"]
+    app = models_app("files", LOG_LEVEL="FATAL", SHUTDOWN_GRACE_PERIOD="30")
+    client = RedisClient(host="127.0.0.1", port=redis_server.port)
+    app.add_datasource("redis", client)
+    # the migrations' bookkeeping goes to the gofr_migrations hash
+    app.migrate({1: Migrate(up=lambda ds: ds.redis.set("files:schema", "1")),
+                 2: Migrate(up=lambda ds: ds.redis.hset("files:meta", "backends",
+                                                        ",".join(backends)))})
+    tracked = client.hgetall("gofr_migrations")
+    out["migrations"] = {v: json.loads(r)["method"] for v, r in sorted(tracked.items())}
+    if out["migrations"] != {"1": "UP", "2": "UP"}:
+        raise AssertionError(f"F-S2 migrations: {tracked}")
+    app.post("/batch/{name}", files_handler(engine))
+    thread = start_app(app, timeout=120)
+    base = f"http://127.0.0.1:{app.http_port}"
+    try:
+        gold, ttft_submit = {}, {}
+        for p in prompts + list(extra.values()):  # each prompt alone through submit
+            stamp = [time.perf_counter()]
+            r = engine.submit(p, max_new_tokens=FILES_NEW, temperature=0.0,
+                              stream_cb=first_token_timer(stamp)).result(600)
+            gold[files_key(p)] = r.token_ids
+            ttft_submit[files_key(p)] = (stamp[1] - stamp[0]) * 1e3
+        previous = None
+        for i, kind in enumerate(backends):
+            fs = files_fs(kind, servers, tmp, fingerprint)
+            app.add_datasource("file", fs)  # connects it; ctx.file from here on
+            if previous is not None:
+                previous.close()
+            previous = fs
+            jobs = prompts + ([extra[kind]] if i else [])
+            t = time.perf_counter()
+            fs.mkdir(kind)
+            with fs.create(f"{kind}/jobs.jsonl") as f:
+                f.write("".join(json.dumps({"prompt": p}) + "\n" for p in jobs).encode())
+            put_ms = (time.perf_counter() - t) * 1e3
+            health = get_json(base + "/.well-known/health")[1]["data"]["details"]
+            mark, n_adm = launch_counts(), len(admissions)
+            t_post = time.perf_counter()
+            status, _, body = post(base, f"/batch/{kind}")
+            rt_ms = (time.perf_counter() - t_post) * 1e3
+            if status != 201:
+                raise AssertionError(f"F-S2 {kind}: {status} {body}")
+            reply = body["data"]
+            leg = {"jobs_put_ms": put_ms, "miss_round_trip_ms": rt_ms,
+                   "misses": reply["misses"], "jobs": reply["jobs"],
+                   "jobs_read_ms": reply["read_ms"], "redis_lookup_ms": reply["lookup_ms"],
+                   "results_write_ms": reply["write_ms"], "admissions": len(admissions) - n_adm,
+                   "launches": since(mark), "health": {k: health[k]["status"]
+                                                       for k in ("redis", "file")}}
+            if i:
+                key = files_key(extra[kind])
+                leg["ttft_ms_handler"] = (reply["first_token_at"][0] - t_post) * 1e3
+                leg["ttft_ms_submit"] = ttft_submit[key]
+            results = files_read(fs, f"{kind}/results.jsonl")
+            leg["results"] = len(results)
+            parted = []
+            for row in results:
+                verdict = same_or_close(torch, engine, row["prompt"], row["tokens"],
+                                        gold[files_key(row["prompt"])], f"F-S2 {kind}")
+                if not verdict["equal"]:
+                    parted.append(verdict)
+            leg["parted"] = parted
+            # all-hit batches: no admission, no flash launch
+            mark, n_adm, rts = launch_counts(), len(admissions), []
+            for _ in range(FILES_HIT_REPEATS):
+                t = time.perf_counter()
+                status, _, body = post(base, f"/batch/{kind}")
+                rts.append((time.perf_counter() - t) * 1e3)
+                if status != 201 or body["data"]["misses"]:
+                    raise AssertionError(f"F-S2 {kind} all-hit batch: {status} {body}")
+            leg["hit_round_trip_ms"] = ms_stats(rts)
+            leg["hit_admissions"] = len(admissions) - n_adm
+            leg["hit_launches"] = since(mark)
+            out[kind] = leg
+            want_misses = len(prompts) if i == 0 else 1
+            print(f"  F-S2 {kind}: {leg['jobs']} jobs, {leg['misses']} misses "
+                  f"({leg['admissions']} admissions, launches {leg['launches']}); jobs read "
+                  f"{leg['jobs_read_ms']:.2f} ms, results write {leg['results_write_ms']:.2f} ms, "
+                  f"Redis lookups {leg['redis_lookup_ms']:.2f} ms; all-hit round trip p50 "
+                  f"{leg['hit_round_trip_ms']['p50']:.2f} ms ({leg['hit_admissions']} admissions, "
+                  f"launches {leg['hit_launches']})"
+                  + (f"; miss TTFT through the handler {leg['ttft_ms_handler']:.2f} ms, submit "
+                     f"{leg['ttft_ms_submit']:.2f} ms" if i else "")
+                  + f"; health {leg['health']}; {len(parted)} results parted within GAP_TOL")
+            if not (leg["misses"] == leg["admissions"] == want_misses
+                    and leg["jobs"] == leg["results"] == len(jobs)
+                    and leg["hit_admissions"] == 0 and not leg["hit_launches"]["flash_attention"]
+                    and leg["health"] == {"redis": "UP", "file": "UP"}):
+                raise AssertionError(f"F-S2 {kind}: {leg}")
+        # the Redis series against the commands the server saw
+        counts = series_counts(app.container.metrics_manager, "app_redis_stats")
+        by_type: dict = {}
+        for labels, n in counts.items():
+            kind_of = dict(x.split("=", 1) for x in labels.split(","))["type"].upper()
+            by_type[kind_of] = by_type.get(kind_of, 0) + n
+        seen = dict(redis_server.commands)
+        out["app_redis_stats"], out["redis_commands"] = by_type, seen
+        if by_type != seen:
+            raise AssertionError(f"F-S2: app_redis_stats {by_type}, server commands {seen}")
+        pttl = [client.command("PTTL", files_key(p)) for p in prompts + list(extra.values())]
+        out["pttl_ms"] = {"min": min(pttl), "max": max(pttl), "n": len(pttl)}
+        if not all(0 < x <= int(FILES_TTL_S * 1000) for x in pttl):
+            raise AssertionError(f"F-S2 PTTL: {pttl}")
+        for kind in ("ftp",) + (("sftp",) if crypto else ()):
+            out[f"{kind}_blob"] = files_blob(kind, servers, tmp, fingerprint)
+            print(f"  F-S2 {kind} 64 MiB blob: write {out[f'{kind}_blob']['write_mb_s']:.1f} MB/s, "
+                  f"read {out[f'{kind}_blob']['read_mb_s']:.1f} MB/s")
+        if crypto:  # a wrong pinned host key is refused at connect
+            wrong = files_fs("sftp", servers, tmp, FILES_WRONG_FINGERPRINT)
+            try:
+                wrong.connect()
+                out["wrong_fingerprint_refused"] = False
+            except SSHError as exc:
+                out["wrong_fingerprint_refused"] = "fingerprint mismatch" in str(exc)
+            if not out["wrong_fingerprint_refused"]:
+                raise AssertionError("F-S2: a wrong pinned SFTP host key was accepted")
+        # Redis down: health DOWN, the handler a 5xx, nothing admitted
+        redis_server.close()
+        n_adm = len(admissions)
+        health = get_json(base + "/.well-known/health")[1]["data"]["details"]
+        status, _, body = post(base, f"/batch/{backends[0]}")
+        out["redis_down"] = {"health": health["redis"]["status"], "status": status,
+                             "admissions": len(admissions) - n_adm}
+        print(f"  F-S2 Redis stopped: health {out['redis_down']['health']}, the handler "
+              f"{status}, {out['redis_down']['admissions']} admissions; migrations "
+              f"{out['migrations']}; app_redis_stats {by_type}; PTTL {out['pttl_ms']} ms")
+        if not (out["redis_down"]["health"] == "DOWN" and status >= 500
+                and out["redis_down"]["admissions"] == 0):
+            raise AssertionError(f"F-S2 Redis down: {out['redis_down']}")
+    finally:
+        stop_app(app, thread)
+        engine.stop()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_files(torch, cfg, params, weights_cfg, dev=None) -> dict:
+    """The files phase: F-S1 at ``weights_cfg`` (Llama-3-8B widths, 2 layers,
+    on ``dev``, the card by default), then F-S2 over ``cfg``/``params``. The
+    counters are reset before it; ``launches`` are the whole phase's."""
+    import tempfile
+
+    dev = dev if dev is not None else torch.device("cuda")
+
+    t0 = time.perf_counter()
+    zero_launches()
+    crypto = has_cryptography()
+    out: dict = {"card": card_line(), "cryptography": crypto}
+    if crypto is None:
+        print("  files: the cryptography package is not installed here: the SFTP legs "
+              "(F-S2's SFTP backend and its 64 MiB blob) are not built")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_files_", dir=ROOT) as tmp:
+        servers = files_servers(tmp, crypto is not None)
+        try:
+            t = time.perf_counter()
+            out["F-S1"] = files_s1(torch, weights_cfg, dev, tmp, servers)
+            out["F-S1"]["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["F-S2"] = files_s2(torch, cfg, params, tmp, servers, crypto is not None)
+            out["F-S2"]["seconds"] = time.perf_counter() - t
+        finally:
+            for server in servers.values():
+                server.close()
+    out["launches"] = launch_counts()
+    out["seconds"] = time.perf_counter() - t0
+    print_launches("files", out["launches"])
+    print(f"  files: {out['seconds']:.1f}s (F-S1 {out['F-S1']['seconds']:.1f}s, F-S2 "
+          f"{out['F-S2']['seconds']:.1f}s; {out['card']})")
+    if not (out["launches"].get("flash_attention") and out["launches"].get("paged_decode_attention")) \
+            or out["launches"].get("paged_decode_attention_q"):
+        raise AssertionError(f"files launches {out['launches']}")
+    return out
+
+
+PLANE_DEPTH = 8  # layers of the phases run at a cut depth (tenancy, observability, HA, http
+# H1-H2, surface, device T, pubsub)
 
 
 def cut_depth(cfg, params, n_layers: int):
@@ -7547,8 +8045,10 @@ def run_engine(torch) -> tuple[dict, ...]:
     del cut_params
     torch.cuda.empty_cache()
     print("HA and cross-replica KV phase (keyed submits, resume, orphan, fencing, KV migration, "
-          "P/D handoff, full depth):")
-    ha = run_ha(torch, cfg, params)
+          f"P/D handoff, {PLANE_DEPTH} layers):")
+    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
+    ha = run_ha(torch, cut_cfg, cut_params)
+    del cut_params
     torch.cuda.empty_cache()
     print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, full depth):")
     fleet = run_fleet(torch, cfg, params)
@@ -7566,9 +8066,10 @@ def run_engine(torch) -> tuple[dict, ...]:
             surface)
 
 
-def sql_phase(torch) -> tuple[dict, dict]:
+def sql_phase(torch) -> tuple[dict, dict, dict]:
     """The sql phase at Llama-3-8B widths and full depth, then the pubsub
-    phase on the same weights. The weights are made again from ``SEED``
+    phase (at ``PLANE_DEPTH`` layers) and the files phase on the same
+    weights. The weights are made again from ``SEED``
     (the same tensors ``run_engine`` served; the main paths' copy was freed
     before the models and device phases, which need the room), and the time
     to make them is recorded."""
@@ -7586,11 +8087,17 @@ def sql_phase(torch) -> tuple[dict, dict]:
     out["params_init_s"] = init_s
     torch.cuda.empty_cache()
     print("pubsub phase (generation jobs through Kafka, NATS, MQTT and Event Hubs, each the port's "
-          f"fake on 127.0.0.1 behind an App; the same weights, {cfg.n_layers} layers):")
-    pubsub = run_pubsub(torch, cfg, params)
+          f"fake on 127.0.0.1 behind an App; the same weights, {PLANE_DEPTH} layers):")
+    pubsub = run_pubsub(torch, *cut_depth(cfg, params, PLANE_DEPTH))
+    torch.cuda.empty_cache()
+    print("files phase (weights through the local, S3, GCS and FTP file systems and from_hf at "
+          f"Llama-3-8B widths, {MODELS_L_DEPTH} layers; generation jobs from files on each file "
+          f"system, SFTP too, with a Redis result cache; the same weights, {cfg.n_layers} "
+          "layers):")
+    files = run_files(torch, cfg, params, LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
     del params
     torch.cuda.empty_cache()
-    return out, pubsub
+    return out, pubsub, files
 
 
 def main() -> int:
@@ -7640,7 +8147,7 @@ def main() -> int:
 
     device = run_device(torch, LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH),
                         MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
-    sql, pubsub = sql_phase(torch)
+    sql, pubsub, files = sql_phase(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -7651,6 +8158,7 @@ def main() -> int:
         r["launches_device"] = device["launches"].get(r["name"], 0)
         r["launches_sql"] = sql["launches"].get(r["name"], 0)
         r["launches_pubsub"] = pubsub["launches"].get(r["name"], 0)
+        r["launches_files"] = files["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -7670,6 +8178,7 @@ def main() -> int:
     print(json.dumps({"device": device}, default=str))
     print(json.dumps({"sql": sql}, default=str))
     print(json.dumps({"pubsub": pubsub}, default=str))
+    print(json.dumps({"files": files}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -15,9 +15,11 @@ sample-ratio (``REMOTE_TRACE_RATIO_URL``) pollers (:101-113), ``services``,
 ``serving``, ``ws_manager``, ``register_datasource`` and the ``draining``
 flag, and the datasource slots of the reference (:397-413): ``tpu``
 (``App.add_tpu``; ``ctx.tpu``), ``sql`` (``DB_DIALECT``; ``ctx.sql``),
-``pubsub``, and ``redis``, ``kv_store``, ``file`` and ``cache``, which
-stay ``None`` until a datasource is registered under that name (the
-port has no Redis, KV or file datasource yet: ROADMAP Queue A item 11).
+``pubsub``, ``redis`` (``datasource/redis``: the RESP2 client or
+``InMemoryRedis``), ``file`` (``datasource/file``: local, S3, GCS, FTP or
+SFTP), and ``kv_store`` and ``cache``; each stays ``None`` until a
+datasource is registered under that name (``App.add_datasource``; the
+port has no KV datasource yet: ROADMAP Queue A item 11).
 Each joins ``datasource_pairs`` and the health aggregate. The provider
 pattern (``wire_provider``) and the datasource contracts live in
 ``container/datasources.py``.
@@ -41,18 +43,14 @@ FRAMEWORK_VERSION = "dev"  # the reference's version.FRAMEWORK
 # (kind, name, description) of the series the reference's container
 # registers beside those of the serving catalog (which holds the app,
 # HTTP, service-client and breaker series the port records), under its
-# names and kinds, all with the default buckets: the two runtime gauges
-# read at scrape time, and the Redis and file datasource series. The port
-# has no emitter of those two yet; they are registered so that a dashboard
-# built on the reference reads the same families. The subscribers', the
-# device datasource's and the SQL datasource's series are in the catalog,
-# with their emitters (``subscriber.py``, ``datasource/tpu/client.py``,
-# ``datasource/sql/``).
+# names and kinds: the two runtime gauges read at scrape time. The
+# subscribers', the device datasource's and the SQL, Redis and file
+# datasources' series are in the catalog, with their emitters
+# (``subscriber.py``, ``datasource/tpu/client.py``, ``datasource/sql/``,
+# ``datasource/redis/client.py``, ``datasource/file/``).
 FRAMEWORK_METRICS: tuple[tuple[str, str, str], ...] = (
     ("gauge", "app_go_routines", "Number of live threads (goroutine analogue)"),
     ("gauge", "app_sys_memory_alloc", "Resident memory of the process in bytes"),
-    ("histogram", "app_redis_stats", "Response time of Redis commands in milliseconds"),
-    ("histogram", "app_file_stats", "Duration of file-system operations in milliseconds"),
 )
 
 

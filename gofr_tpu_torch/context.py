@@ -11,8 +11,12 @@ body (context.go:74), ``get_auth_info`` exposes auth claims
 bound connection.
 
 Datasource access mirrors ``ctx.TPU`` / ``ctx.SQL`` in the reference:
-``ctx.tpu`` (the device datasource, ``App.add_tpu``), ``ctx.serving``, the broker through ``get_publisher`` / ``get_subscriber``,
-``ctx.datasource(name)``, plus ``ctx.get_http_service(name)``.
+``ctx.tpu`` (the device datasource, ``App.add_tpu``), ``ctx.sql``,
+``ctx.redis``, ``ctx.file``, ``ctx.kv_store`` and ``ctx.cache`` (the
+container's slots, filled by ``App.add_datasource(name, ds)``; the last two
+stay ``None`` until their families are ported), ``ctx.serving``, the broker
+through ``get_publisher`` / ``get_subscriber``, ``ctx.datasource(name)``,
+plus ``ctx.get_http_service(name)``.
 """
 
 from __future__ import annotations
@@ -98,6 +102,22 @@ class Context:
     @property
     def sql(self) -> Any:
         return self.container.sql
+
+    @property
+    def redis(self) -> Any:
+        return self.container.redis
+
+    @property
+    def kv_store(self) -> Any:
+        return self.container.kv_store
+
+    @property
+    def file(self) -> Any:
+        return self.container.file
+
+    @property
+    def cache(self) -> Any:
+        return self.container.cache
 
     @property
     def serving(self) -> Any:

@@ -1,4 +1,6 @@
 """Datasources of the port (``gofr_tpu/datasource``): the device
-datasource, ``tpu``, and SQL, ``sql`` (sqlite, and the Postgres and MySQL
-wire clients). The Redis, KV, file, document and networked-broker ones
-are not ported (ROADMAP Queue A item 11)."""
+datasource, ``tpu``; SQL, ``sql`` (sqlite, and the Postgres and MySQL
+wire clients); Redis, ``redis`` (the RESP2 client and ``InMemoryRedis``);
+and the file systems, ``file`` (local, S3, GCS, FTP and SFTP). The KV,
+document, wide-column and search ones are not ported (ROADMAP Queue A
+item 11)."""

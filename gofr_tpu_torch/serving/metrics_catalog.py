@@ -161,6 +161,11 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
     ("histogram", "app_sql_stats", "Response time of SQL queries in milliseconds", None),
     ("gauge", "app_sql_open_connections", "Number of open SQL connections", None),
     ("gauge", "app_sql_inuse_connections", "Number of inuse SQL connections", None),
+    # the Redis datasource (datasource/redis/client.py, per command) and the
+    # file systems (datasource/file/observability.py, object_store.py, per
+    # operation)
+    ("histogram", "app_redis_stats", "Response time of Redis commands in milliseconds", None),
+    ("histogram", "app_file_stats", "Duration of file-system operations in milliseconds", None),
     # the app plane: the container (container/container.py), the HTTP
     # metrics middleware (http/middleware/core.py) and the service client
     # with its circuit breaker (service/)

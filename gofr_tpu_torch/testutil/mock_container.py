@@ -6,9 +6,9 @@ call returns a Container whose datasources are in-memory fakes plus a
 ``mocks`` handle for assertions. The device datasource fake records
 compiled functions and calls them eagerly, on whatever device their
 arguments lie (the CPU in tests); the SQL datasource is an in-memory
-``SQLite``. ``redis`` and ``kv_store`` stay ``None``, in the container
-and in ``Mocks``, until ROADMAP Queue A item 11 ports ``InMemoryRedis``
-and ``InMemoryKVStore``.
+``SQLite``; ``redis`` is the port's ``InMemoryRedis``. ``kv_store``
+stays ``None``, in the container and in ``Mocks``, until ROADMAP Queue A
+item 11 ports ``InMemoryKVStore``.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ class Mocks:
     tpu: MockTPU
     pubsub: MockPubSub
     sql: Any
-    redis: Any = None  # Queue A item 11
+    redis: Any
     kv_store: Any = None  # Queue A item 11
 
 
@@ -121,11 +121,13 @@ def new_mock_container(configs: dict[str, str] | None = None) -> tuple[MockConta
     logger = new_logger(Level.ERROR, exit_on_fatal=False)
     container = MockContainer(config, logger=logger)
 
+    from gofr_tpu_torch.datasource.redis import InMemoryRedis
     from gofr_tpu_torch.datasource.sql import SQLite
 
     tpu = MockTPU()
     pubsub = MockPubSub()
     sql = SQLite(":memory:")
-    for name, ds in (("tpu", tpu), ("pubsub", pubsub), ("sql", sql)):
+    redis = InMemoryRedis()
+    for name, ds in (("tpu", tpu), ("pubsub", pubsub), ("sql", sql), ("redis", redis)):
         container.register_datasource(name, ds)
-    return container, Mocks(tpu=tpu, pubsub=pubsub, sql=sql, redis=None, kv_store=None)
+    return container, Mocks(tpu=tpu, pubsub=pubsub, sql=sql, redis=redis, kv_store=None)

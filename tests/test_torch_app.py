@@ -308,3 +308,65 @@ def test_add_http_service_and_datasource_health():
         app.container.close()
     assert got["port"] == got["ref"]
     assert got["port"][1]["status"] == "DEGRADED"
+
+
+def test_mock_container_redis_and_the_context_datasource_accessors():
+    """``new_mock_container()`` fills ``redis`` with each package's
+    ``InMemoryRedis``; ``ctx.redis``, ``ctx.file``, ``ctx.kv_store`` and
+    ``ctx.cache`` read the container's slots, as the reference's do; a
+    handler that uses them answers the same on both apps."""
+    from gofr_tpu.context import Context as RContext
+    from gofr_tpu.datasource.file import LocalFileSystem as RLocalFileSystem
+    from gofr_tpu.datasource.redis import InMemoryRedis as RInMemoryRedis
+    from gofr_tpu.testutil import new_mock_container as r_new_mock_container
+    from gofr_tpu_torch.context import Context as TContext
+    from gofr_tpu_torch.datasource.file import LocalFileSystem
+    from gofr_tpu_torch.datasource.redis import InMemoryRedis
+    from gofr_tpu_torch.testutil import new_mock_container
+
+    kinds = {}
+    for name, new, ctx_cls, redis_cls in (
+            ("ref", r_new_mock_container, RContext, RInMemoryRedis),
+            ("port", new_mock_container, TContext, InMemoryRedis)):
+        container, mocks = new()
+        assert type(mocks.redis) is redis_cls and container.redis is mocks.redis
+        container.cache = cache = object()
+        ctx = ctx_cls(None, container)
+        assert ctx.redis is container.redis and ctx.kv_store is container.kv_store
+        assert ctx.file is container.file is None and ctx.cache is cache
+        mocks.redis.set("k", "v", ttl_seconds=60)
+        kinds[name] = (ctx.redis.get("k"), ctx.kv_store is None,
+                       sorted(container.health()["details"]))
+        container.close()
+    # the reference's mock also fills kv_store (its InMemoryKVStore is not ported)
+    assert kinds["ref"][0] == kinds["port"][0] == "v"
+    assert (kinds["ref"][1], kinds["port"][1]) == (False, True)
+    assert set(kinds["port"][2]) == set(kinds["ref"][2]) - {"kv_store"}
+
+    got = {}
+    for name, (app_cls, cfg_cls, _), redis_cls, fs_cls in (
+            ("ref", SIDES["ref"], RInMemoryRedis, RLocalFileSystem),
+            ("port", SIDES["port"], InMemoryRedis, LocalFileSystem)):
+        app = app_cls(_config(cfg_cls))
+        app.add_datasource("redis", redis_cls())
+        app.add_datasource("file", fs_cls("."))
+
+        def slots(ctx):
+            ctx.redis.set("seen", "1")
+            return {"redis": type(ctx.redis).__name__, "file": type(ctx.file).__name__,
+                    "kv": ctx.kv_store is None, "cache": ctx.cache is None,
+                    "seen": ctx.redis.get("seen")}
+
+        app.get("/slots", slots)
+        thread = start_app(app)
+        try:
+            status, _, body = _ask(app, "/slots")
+            health = _ask(app, "/.well-known/health")
+        finally:
+            stop_app(app, thread)
+        details = json.loads(health[2])["data"]["details"]
+        got[name] = (status, json.loads(body)["data"], details["redis"]["status"],
+                     details["file"]["status"])
+    assert got["port"] == got["ref"] == (200, {"redis": "InMemoryRedis",
+                                               "file": "LocalFileSystem", "kv": True,
+                                               "cache": True, "seen": "1"}, "UP", "UP")

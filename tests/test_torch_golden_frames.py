@@ -3,12 +3,14 @@
 external vectors the JAX package's golden-frame tests pin
 (``tests/test_golden_frames.py``: RFC 3720 CRC-32C, the protobuf zigzag
 table, KIP-98's record batch layout, MQTT 3.1.1 §2.2.3 and §3.1, AMQP 1.0
-§1.6 and §2.3, the NATS header block), each vector run on both packages'
-codecs; then seeded hypothesis cases in which each port encoder gives the
+§1.6 and §2.3, the NATS header block, the Redis protocol spec's RESP2
+command and reply frames, RFC 4251's SSH data types and RFC 4253's
+banner), each vector run on both packages' codecs; then seeded hypothesis cases in which each port encoder gives the
 reference's bytes for the same record batch with headers, MQTT packet,
 NATS ``HPUB`` frame and AMQP value, and each decoder inverts the other
 package's encoder."""
 
+import socket
 import struct
 import types
 
@@ -19,15 +21,21 @@ from hypothesis import strategies as st
 from gofr_tpu.datasource.pubsub import amqp_wire as ramqp
 from gofr_tpu.datasource.pubsub import kafka_wire as rkafka
 from gofr_tpu.datasource.pubsub import mqtt as rmqtt
+from gofr_tpu.datasource.file import ssh_transport as rssh
 from gofr_tpu.datasource.pubsub import nats as rnats
+from gofr_tpu.datasource.redis import client as rredis
+from gofr_tpu_torch.datasource.file import ssh_transport as tssh
+from gofr_tpu_torch.datasource.redis import client as tredis
 from gofr_tpu_torch.pubsub import amqp_wire as tamqp
 from gofr_tpu_torch.pubsub import kafka_wire as tkafka
 from gofr_tpu_torch.pubsub import mqtt as tmqtt
 from gofr_tpu_torch.pubsub import nats as tnats
 
 PKGS = {
-    "ref": types.SimpleNamespace(kafka=rkafka, mqtt=rmqtt, amqp=ramqp, nats=rnats),
-    "port": types.SimpleNamespace(kafka=tkafka, mqtt=tmqtt, amqp=tamqp, nats=tnats),
+    "ref": types.SimpleNamespace(kafka=rkafka, mqtt=rmqtt, amqp=ramqp, nats=rnats,
+                                 redis=rredis, ssh=rssh),
+    "port": types.SimpleNamespace(kafka=tkafka, mqtt=tmqtt, amqp=tamqp, nats=tnats,
+                                  redis=tredis, ssh=tssh),
 }
 BOTH = pytest.mark.parametrize("side", sorted(PKGS))
 HYP = settings(max_examples=60, deadline=None, derandomize=True,
@@ -140,6 +148,78 @@ def test_nats_headers_encoding(side):
     raw = n.encode_headers({"Nats-Msg-Id": "x1"})
     assert raw == b"NATS/1.0\r\nNats-Msg-Id: x1\r\n\r\n"
     assert n.decode_headers(raw) == {"Nats-Msg-Id": "x1"}
+
+
+# ---------------------------------------------------------------- Redis RESP2
+@BOTH
+def test_redis_command_encoding_spec_example(side):
+    """The LLEN example straight from the Redis protocol spec."""
+    enc = PKGS[side].redis._encode
+    assert enc(["LLEN", "mylist"]) == b"*2\r\n$4\r\nLLEN\r\n$6\r\nmylist\r\n"
+    assert enc(["SET", "k", "v"]) == b"*3\r\n$3\r\nSET\r\n$1\r\nk\r\n$1\r\nv\r\n"
+
+
+def _socketpair_client(side):
+    a, b = socket.socketpair()
+    c = PKGS[side].redis.RedisClient()
+    c._sock, c._file = b, b.makefile("rb")
+    return a, b, c
+
+
+@BOTH
+def test_redis_reply_decoding_spec_examples(side):
+    """Canonical reply frames from the spec, through the real reader over a
+    socketpair."""
+    a, b, c = _socketpair_client(side)
+    try:
+        a.sendall(b"+OK\r\n:1000\r\n$6\r\nfoobar\r\n$-1\r\n"
+                  b"*2\r\n$3\r\nfoo\r\n$3\r\nbar\r\n*-1\r\n")
+        assert c._read_reply() == "OK"
+        assert c._read_reply() == 1000
+        assert c._read_reply() == "foobar"
+        assert c._read_reply() is None
+        assert c._read_reply() == ["foo", "bar"]
+        assert c._read_reply() is None
+    finally:
+        a.close()
+        b.close()
+
+
+@BOTH
+def test_redis_error_reply_raises(side):
+    a, b, c = _socketpair_client(side)
+    try:
+        a.sendall(b"-ERR unknown command 'foobar'\r\n")
+        with pytest.raises(PKGS[side].redis.RedisError, match="unknown command"):
+            c._read_reply()
+    finally:
+        a.close()
+        b.close()
+
+
+# ---------------------------------------------------------------- SSH (RFC 4251, 4253)
+@BOTH
+def test_ssh_rfc4251_data_types(side):
+    """string / uint32 / name-list encodings with the RFC 4251 §5 examples
+    ('testing', the 'zlib,none' name-list), and its positive mpint examples."""
+    s = PKGS[side].ssh
+    assert s.sstr(b"testing") == b"\x00\x00\x00\x07testing"
+    assert s.sstr(b"") == b"\x00\x00\x00\x00"
+    assert s.u32(699921578) == b"\x29\xb7\xf4\xaa"
+    assert s.name_list(b"zlib", b"none") == b"\x00\x00\x00\x09zlib,none"
+    assert s.name_list() == b"\x00\x00\x00\x00"
+    assert s.mpint(b"\x00") == b"\x00\x00\x00\x00"
+    assert s.mpint(bytes.fromhex("09a378f9b2e332a7")) == bytes.fromhex("0000000809a378f9b2e332a7")
+    assert s.mpint(b"\x80") == b"\x00\x00\x00\x02\x00\x80"
+
+
+@BOTH
+def test_ssh_version_banner_format(side):
+    """RFC 4253 §4.2: identification string 'SSH-2.0-softwareversion'."""
+    banner = PKGS[side].ssh.VERSION_STRING
+    assert banner.startswith("SSH-2.0-")
+    assert "\r" not in banner and "\n" not in banner
+    assert banner == rssh.VERSION_STRING
 
 
 # ------------------------------------------------- the port's bytes against the reference's

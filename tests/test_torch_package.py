@@ -533,7 +533,10 @@ def test_sql_modules_are_checked_and_wire_without_a_card(no_card, tmp_path):
     assert dark.container.health()["details"]["sql"]["status"] == "DOWN"
     dark.container.close()
     mock, mocks = new_mock_container()
-    assert mocks.redis is None and mocks.kv_store is None and mock.sql is mocks.sql
+    from gofr_tpu_torch.datasource.redis import InMemoryRedis
+
+    assert isinstance(mocks.redis, InMemoryRedis) and mock.redis is mocks.redis
+    assert mocks.kv_store is None and mock.sql is mocks.sql
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TPUClient().connect()
 
@@ -654,3 +657,54 @@ def test_mock_pubsub_nack_requeues(side):
     assert got == {"published": [("t", b"x", {"k": "v"}), ("t", b"y", {})],
                    "first": ("t", b"x", {"k": "v"}), "again": (b"x", {"k": "v"}),
                    "second": b"y", "drained": None}
+
+
+FILE_MODULES = (
+    "gofr_tpu_torch/datasource/redis/__init__.py", "gofr_tpu_torch/datasource/redis/client.py",
+    "gofr_tpu_torch/datasource/redis/memory.py", "gofr_tpu_torch/datasource/file/__init__.py",
+    "gofr_tpu_torch/datasource/file/local.py", "gofr_tpu_torch/datasource/file/row_reader.py",
+    "gofr_tpu_torch/datasource/file/observability.py",
+    "gofr_tpu_torch/datasource/file/object_store.py", "gofr_tpu_torch/datasource/file/gcs.py",
+    "gofr_tpu_torch/datasource/file/s3.py", "gofr_tpu_torch/datasource/file/ftp.py",
+    "gofr_tpu_torch/datasource/file/ssh_transport.py", "gofr_tpu_torch/datasource/file/sftp.py",
+    "gofr_tpu_torch/testutil/object_store_server.py", "gofr_tpu_torch/testutil/ftp_server.py",
+    "gofr_tpu_torch/testutil/sftp_server.py", "gofr_tpu_torch/testutil/redis_server.py",
+)
+
+
+def test_redis_and_file_modules_are_checked_and_connect_without_a_card(no_card, tmp_path):
+    """The Redis and file datasources, their servers and the file-jobs
+    example are among the files the import rules hold. They are host code:
+    an ``App`` takes each as its ``redis`` or ``file`` datasource and shows it
+    UP in health without a card, and a Redis that is down at boot is DOWN
+    health rather than a crash."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.datasource.file import FTPFileSystem, LocalFileSystem
+    from gofr_tpu_torch.datasource.redis import RedisClient
+    from gofr_tpu_torch.testutil import MiniFTPServer, MiniRedisServer
+
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(FILE_MODULES) <= files
+    path = ROOT / "examples_torch" / "using-file-jobs" / "main.py"
+    bad = {n for n in _imported(path) if n.split(".")[0] in FORBIDDEN}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+    redis, ftp = MiniRedisServer(), MiniFTPServer(str(tmp_path / "ftp"))
+    base = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL"}
+    try:
+        for fs in (LocalFileSystem(str(tmp_path)), FTPFileSystem(host="127.0.0.1", port=ftp.port,
+                                                                 user="gofr", password="secret")):
+            app = App(MapConfig(base, use_env=False))
+            app.add_datasource("redis", RedisClient(host="127.0.0.1", port=redis.port))
+            app.add_datasource("file", fs)
+            details = app.container.health()["details"]
+            assert details["redis"]["status"] == details["file"]["status"] == "UP", details
+            app.container.close()
+        redis.close()
+        dark = App(MapConfig(base, use_env=False))
+        dark.add_datasource("redis", RedisClient(host="127.0.0.1", port=redis.port, timeout=0.5))
+        assert dark.container.health()["details"]["redis"]["status"] == "DOWN"
+        dark.container.close()
+    finally:
+        redis.close()
+        ftp.close()
