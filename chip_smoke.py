@@ -86,7 +86,8 @@ Phases, each a hard failure with a non-zero exit:
      resumes (a chunk hit, fewer chunk dispatches than a cold prefill),
      every token streamed once, each row's tokens held against its twin
      on an engine without the ladder; the interactive TTFT on both;
-   then the healing phase, at full depth, one supervised engine after
+   then the healing phase, at ``PLANE_DEPTH`` (8) layers of the same
+   weights, one supervised engine after
    another with the launches read before and after each (it never
    provokes a real CUDA fault: a sticky one would end the process):
    - ``H1`` dense bf16 (2048, 4 slots) with device telemetry: a fresh
@@ -157,9 +158,10 @@ Phases, each a hard failure with a non-zero exit:
      engine retires ``"handoff"`` with no emission and no decode; a decode
      engine's ``handoff_from`` serves the unified engine's tokens with no
      prefill compute; a ``kv.handoff`` fault re-prefills;
-   then the fleet phase, at full depth, at most two engines at once over
-   the one weight set, each announced on an ``InMemoryBroker`` every 0.2 s
-   to a ``Router`` with the serving catalog:
+   then the fleet phase, at ``PLANE_DEPTH`` (8) layers of the same weights,
+   at most two engines at once over the one weight set, each announced on
+   an ``InMemoryBroker`` every 0.2 s to a ``Router`` with the serving
+   catalog:
    - ``F1`` two paged bf16 replicas (2048, 16-token pages, 64-entry prefix
      caches): 8 prompts sharing a 1000-token prefix all on the affine
      replica, the first computing 4 chunks and the rest one (768 tokens
@@ -361,7 +363,43 @@ Phases, each a hard failure with a non-zero exit:
      FTP's and SFTP's MB/s on one 64 MiB blob;
    it prints a ``{"files": ...}`` line; its launches are the ``kernels``
    rows' ``launches_files``. Without the ``cryptography`` package the
-   SFTP legs are not built and one line says why;
+   SFTP legs are not built and one line says why; then the stores phase on
+   the same weights at full depth, the launch counters reset before it: one
+   paged int8 engine (the int8 path's config) and the main path's ten
+   prompts each alone through ``submit`` as the gold, behind an ``App``
+   that serves ``examples_torch/using-datastores``: ``POST /jobs/{id}``
+   claims the id (``INSERT ... IF NOT EXISTS``), sets ``job:<id>`` running,
+   generates 32 greedy tokens, inserts the job's document in a session
+   transaction, writes its usage row and claim state in one logged batch,
+   indexes its tokens for search and sets ``job:<id>`` done; a ``* * * *
+   * *`` cron job samples ``ctx.tpu.hbm_stats()`` into an
+   ``EmbeddedTimeSeries``; the example's migrations record versions 1-3:
+   - ``ST1`` the stores are the port's wire clients on its fakes on
+     127.0.0.1 (``DynamoDBKVStore`` with SigV4, ``MongoClient``,
+     ``CassandraClient``, ``SolrClient``): the ten jobs posted at once
+     behind the gate, each job's tokens held to the gold (equal, or parted
+     only within ``GAP_TOL``), each document read back with ``find_one``
+     equal to its reply, the usage rows summing to the tokens generated,
+     every ``job:<id>`` done, a duplicate a 409 with no admission,
+     ``GET /search`` for three tokens ranked as an ``EmbeddedSearch`` fed
+     the same documents on the host (the fake's BM25 scores equal to the
+     host's), each ``app_*_stats`` count equal to the operations its fake
+     served, every datasource UP; the 1000-token prompt alone in turns
+     through the handler and ``submit``; then the Mongo fake stopped:
+     ``document`` DOWN, a job a 5xx after its tokens with its claim row
+     and ``"running"`` left behind;
+   - ``ST2`` the recorder's points over ST1's jobs: one a second, tagged
+     with the card's name, the largest bytes in use between the weights
+     plus the KV pool and ``max_memory_allocated``, the limit the card's
+     memory, one 1 s bucket of ``max`` a second (within one);
+   - ``ST3`` the same App code and jobs over the embedded stores the
+     factories pick with no host, a ``FileKVStore`` under a
+     ``.chip_smoke_stores_*`` directory and ``EmbeddedSearch``: the tokens,
+     documents, rows, KV values and rankings equal ST1's;
+   per family the ms of each of the handler's spans (p50/p95), a job's
+   round trip and the phase's flash and int8 paged launches (bf16 paged
+   none); it prints a ``{"stores": ...}`` line; its launches are the
+   ``kernels`` rows' ``launches_stores``;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -2758,10 +2796,10 @@ def healing_h4(torch, cfg, params, prompt) -> dict:
 
 
 def run_healing(torch, cfg, params) -> dict:
-    """The healing phase at Llama-3-8B widths and full depth, one engine
-    after another: H1 hang and quarantine, H2 device loss in place, H3 a
-    poison storm, H4 a crash then the budget spent. Never provokes a real
-    CUDA fault."""
+    """The healing phase at Llama-3-8B widths and ``cfg``'s depth
+    (``PLANE_DEPTH`` in ``run_engine``), one engine after another: H1 hang
+    and quarantine, H2 device loss in place, H3 a poison storm, H4 a crash
+    then the budget spent. Never provokes a real CUDA fault."""
     rng = torch.Generator().manual_seed(SEED + 4)
 
     def prompt(n: int) -> list[int]:
@@ -4462,9 +4500,10 @@ def fleet_f3(torch, cfg, params, prompt, mem: dict) -> dict:
 
 
 def run_fleet(torch, cfg, params) -> dict:
-    """The fleet phase at Llama-3-8B widths and full depth, at most two
-    engines at once over the one weight set: F1 the router tier, F2
-    reclamation, F3 the autoscaler and P/D routing."""
+    """The fleet phase at Llama-3-8B widths and ``cfg``'s depth
+    (``PLANE_DEPTH`` in ``run_engine``), at most two engines at once over the
+    one weight set: F1 the router tier, F2 reclamation, F3 the autoscaler and
+    P/D routing."""
     rng = torch.Generator().manual_seed(SEED + 7)
 
     def prompt(n: int) -> list[int]:
@@ -7938,8 +7977,419 @@ def run_files(torch, cfg, params, weights_cfg, dev=None) -> dict:
     return out
 
 
-PLANE_DEPTH = 8  # layers of the phases run at a cut depth (tenancy, observability, HA, http
-# H1-H2, surface, device T, pubsub)
+# ------------------------------------------------------------- the stores phase
+STORES_NEW = 32  # greedy tokens a generation job
+STORES_SEARCHED = 3  # ST1: tokens of the replies searched through GET /search
+STORES_TURNS = ("handler", "submit", "submit", "handler", "handler", "submit")  # ST1, 1000 tokens
+STORES_SPANS = ("widecolumn.claim", "kv.set", "engine.generate", "document.insert",
+                "widecolumn.batch", "search.add", "search.query")  # the handler's own spans
+STORES_FAMILIES = ("kv_store", "document", "widecolumn", "search", "timeseries", "tpu")
+
+
+def stores_example():
+    """``examples_torch/using-datastores/main.py``: the handlers, the Solr
+    adapter and the migrations the phase serves."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "using_datastores", ROOT / "examples_torch" / "using-datastores" / "main.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stores_backends(example, kind: str, fakes: dict, tmp: str) -> dict:
+    """The four stores of ``kind``: the wire clients on the port's fakes, or
+    the embedded engines the factories pick with no host configured, a
+    ``FileKVStore`` and ``EmbeddedSearch``."""
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.datasource.document import new_document_store
+    from gofr_tpu_torch.datasource.document.mongo import MongoClient
+    from gofr_tpu_torch.datasource.kv import DynamoDBKVStore, FileKVStore
+    from gofr_tpu_torch.datasource.search import EmbeddedSearch
+    from gofr_tpu_torch.datasource.search.solr import SolrClient
+    from gofr_tpu_torch.datasource.widecolumn import new_widecolumn_store
+    from gofr_tpu_torch.datasource.widecolumn.cassandra import CassandraClient
+
+    if kind == "wire":
+        dyn = fakes["dynamodb"]
+        return {"kv_store": DynamoDBKVStore("kv", endpoint=dyn.endpoint, region=dyn.region,
+                                            access_key=dyn.access_key, secret_key=dyn.secret_key),
+                "document": MongoClient(host="127.0.0.1", port=fakes["mongo"].port),
+                "widecolumn": CassandraClient(host="127.0.0.1", port=fakes["cassandra"].port),
+                "search": example.SolrIndex(SolrClient(fakes["solr"].url))}
+    empty = MapConfig({}, use_env=False)
+    return {"kv_store": FileKVStore(os.path.join(tmp, "kv.json")),
+            "document": new_document_store(empty), "widecolumn": new_widecolumn_store(empty),
+            "search": EmbeddedSearch()}
+
+
+def stores_app(example, engine, backends: dict, dev, label: str):
+    """An ``App`` on 127.0.0.1 over ``backends``, the port's ``TPUClient`` on
+    ``dev`` and an ``EmbeddedTimeSeries`` that a ``* * * * * *`` cron job fills
+    through ``TPUTelemetryRecorder``; the example's migrations, then its
+    routes over ``engine``. Spans go to an in-memory exporter."""
+    from gofr_tpu_torch.datasource.timeseries import EmbeddedTimeSeries, TPUTelemetryRecorder
+    from gofr_tpu_torch.datasource.tpu import new_tpu
+    from gofr_tpu_torch.migration import Migrate
+    from gofr_tpu_torch.testutil import start_app
+    from gofr_tpu_torch.tracing import InMemoryExporter, SimpleSpanProcessor
+
+    app = models_app(f"stores-{label}", LOG_LEVEL="FATAL", SHUTDOWN_GRACE_PERIOD="30")
+    exporter = InMemoryExporter()
+    app.container.tracer.processor = SimpleSpanProcessor(exporter)
+    app.add_tpu(new_tpu(app.config, device=dev))
+    for name, store in backends.items():
+        app.add_datasource(name, store)
+    timeseries = EmbeddedTimeSeries()
+    app.add_datasource("timeseries", timeseries)
+    app.add_cron_job("* * * * * *", "device-memory",
+                     TPUTelemetryRecorder(app.container.tpu, timeseries).sample)
+    t = time.perf_counter()
+    app.migrate(example.migrations(Migrate))
+    migrate_ms = (time.perf_counter() - t) * 1e3
+    app.post("/jobs/{id}", example.job_handler(engine, max_new_tokens=STORES_NEW))
+    app.get("/search", example.search_handler())
+    thread = start_app(app, timeout=120)
+    return app, thread, exporter, timeseries, migrate_ms
+
+
+def stores_post(base: str, job_id: str, prompt: list[int]):
+    """One ``POST /jobs/{id}``: (status, body, ms by the client's clock)."""
+    t = time.perf_counter()
+    status, _, body = post(base, f"/jobs/{job_id}", {"prompt": prompt})
+    return status, body, (time.perf_counter() - t) * 1e3
+
+
+def stores_jobs(engine, gate, base: str, ids: list[str], prompts: list) -> dict:
+    """The jobs posted at once behind the gate, each one reaching the
+    engine's queue before the next is sent, so every set starts in one step
+    with the same submission order and runs the same dispatches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(ids)) as pool:
+        with gate.closed():
+            futs = {}
+            for k, (i, p) in enumerate(zip(ids, prompts)):
+                futs[i] = pool.submit(stores_post, base, i, p)
+                wait_until(lambda: engine._sched.pending() >= k + 1 or futs[i].done(), 120,
+                           f"job {i} queued")
+        return {i: f.result(600) for i, f in futs.items()}
+
+
+def stores_records(app, ids: list[str], tokens: list) -> dict:
+    """What the stores hold for ``ids``: the documents (``ttft_ms`` aside),
+    the usage and claim rows, the KV values, and the ranked ids of a search
+    for each of ``tokens``."""
+    c = app.container
+    docs, wide = c.extra_datasources["document"], c.extra_datasources["widecolumn"]
+    search = c.extra_datasources["search"]
+    found = [docs.find_one("jobs", {"_id": i}) for i in ids]
+
+    def kv(key: str):
+        try:
+            return c.kv_store.get(key)
+        except KeyError:
+            return None
+
+    return {
+        "documents": [{k: v for k, v in (d or {}).items() if k != "ttft_ms"} for d in found],
+        "ttft_ms": [(d or {}).get("ttft_ms") for d in found],
+        "usage": sorted(tuple(r.values()) for r in wide.query(
+            [], "SELECT id, prompt_tokens, new_tokens FROM usage")),
+        "claims": sorted(tuple(r.values()) for r in wide.query([], "SELECT id, state FROM jobs")),
+        "kv": [kv(f"job:{i}") for i in ids],
+        "rankings": {t: [h["_id"] for h in search.search(
+            "jobs", {"query": {"match": {"_all": f"t{t}"}}}, size=10)["hits"]["hits"]]
+            for t in tokens},
+        "migrations": sorted(int(d["version"]) for d in docs.find("gofr_migration", {})),
+    }
+
+
+def stores_span_ms(exporter) -> dict:
+    """p50/p95 ms of each of the handler's spans, by name."""
+    by: dict = {}
+    for span in exporter.spans:
+        if span.name in STORES_SPANS and span.end_ns is not None:
+            by.setdefault(span.name, []).append((span.end_ns - span.start_ns) / 1e6)
+    return {name: ms_stats(v) for name, v in sorted(by.items())}
+
+
+def stores_stats(manager, fakes: dict) -> dict:
+    """Each family's ``app_*_stats`` count beside the operations its fake
+    served: every DynamoDB command; Mongo's store commands (not ``hello``,
+    ``ping`` or a transaction's end); Cassandra's queries and batches less
+    its health probes. Solr's driver records no series."""
+    def total(name: str) -> int:
+        return sum(series_counts(manager, name).values())
+
+    mongo = fakes["mongo"].commands
+    cass = fakes["cassandra"].commands
+    return {
+        "dynamodb": {"observed": total("app_dynamodb_stats"),
+                     "served": sum(fakes["dynamodb"].commands.values())},
+        "mongo": {"observed": total("app_mongo_stats"),
+                  "served": sum(n for k, n in mongo.items() if k not in (
+                      "hello", "ping", "commitTransaction", "abortTransaction", "endSessions"))},
+        "cassandra": {"observed": total("app_cassandra_stats"),
+                      "served": cass.get("QUERY", 0) - cass.get("PROBE", 0)
+                      + cass.get("BATCH", 0)},
+        "solr_served": dict(fakes["solr"].commands),
+    }
+
+
+def stores_st1(torch, example, engine, gate, admissions, fakes: dict, prompts: list,
+               gold: dict, dev) -> tuple[dict, dict]:
+    """ST1 and ST2 on the wire backends; returns (ST1 and ST2, the records
+    ST3 is held to)."""
+    from gofr_tpu_torch.datasource.search import EmbeddedSearch
+    from gofr_tpu_torch.testutil import stop_app
+
+    backends = stores_backends(example, "wire", fakes, "")
+    app, thread, exporter, timeseries, migrate_ms = stores_app(example, engine, backends, dev,
+                                                               "wire")
+    base = f"http://127.0.0.1:{app.http_port}"
+    ids = [f"job-{k}" for k in range(len(prompts))]
+    out: dict = {"migrate_ms": migrate_ms}
+    try:
+        t_jobs = time.time()
+        replies = stores_jobs(engine, gate, base, ids, prompts)
+        t_done = time.time()
+        bad = {i: r[:2] for i, r in replies.items() if r[0] != 201}
+        if bad:
+            raise AssertionError(f"ST1 jobs: {bad}")
+        tokens = {i: replies[i][1]["data"]["tokens"] for i in ids}
+        parted = {}
+        for i, p in zip(ids, prompts):
+            verdict = same_or_close(torch, engine, p, tokens[i], gold[i]["tokens"],
+                                    f"ST1 {i} ({len(p)} tokens) against submit alone")
+            if not verdict["equal"]:
+                parted[i] = verdict
+        searched = [tokens[ids[k]][0] for k in (0, 4, 7)][:STORES_SEARCHED]
+        records = stores_records(app, ids, searched)
+        docs_equal = sum(d == {"_id": i, "prompt": p, "tokens": tokens[i]}
+                         for d, i, p in zip(records["documents"], ids, prompts))
+        # GET /search against an EmbeddedSearch fed the same ten documents on
+        # the host, and the fake's BM25 scores against the host's, bit for bit
+        host = EmbeddedSearch()
+        for i in ids:
+            host.index_document("jobs", i, {"id": i, "text": example.job_text(tokens[i])})
+        served_rank, scores_equal = {}, 0
+        for tok in searched:
+            status, body = get_json(f"{base}/search?q=t{tok}")
+            served_rank[tok] = body["data"]["ids"] if status == 200 else status
+            want = [h["_id"] for h in host.search(
+                "jobs", {"query": {"match": {"_all": f"t{tok}"}}})["hits"]["hits"]]
+            fake_scores = fakes["solr"]._engine._indices["jobs"].bm25([f"t{tok}"])
+            scores_equal += fake_scores == host._indices["jobs"].bm25([f"t{tok}"])
+            if served_rank[tok] != want or records["rankings"][tok] != want:
+                raise AssertionError(f"ST1 search t{tok}: {served_rank[tok]} against {want}")
+        # a duplicate claim admits nothing
+        n_adm = len(admissions)
+        dup = stores_post(base, ids[0], prompts[0])
+        health = get_json(base + "/.well-known/health")[1]["data"]["details"]
+        stats = stores_stats(app.container.metrics_manager, fakes)
+        out["ST1"] = {
+            "equal": len(ids) - len(parted), "of": len(ids), "parted": parted,
+            "documents_equal": docs_equal, "usage_new_tokens": sum(r[2] for r in records["usage"]),
+            "tokens_generated": sum(len(t) for t in tokens.values()),
+            "kv_done": records["kv"].count("done"), "duplicate": [dup[0], len(admissions) - n_adm],
+            "search": {str(t): r for t, r in served_rank.items()}, "bm25_equal": scores_equal,
+            "stats": stats, "health": {f: health[f]["status"] for f in STORES_FAMILIES},
+            "migrations": records["migrations"],
+            "job_ms_client": ms_stats([r[2] for r in replies.values()]),
+            "ttft_ms_gated_handler": ms_stats(records["ttft_ms"]),
+        }
+        st1 = out["ST1"]
+        if not (st1["documents_equal"] == len(ids) and st1["usage_new_tokens"] == st1[
+                "tokens_generated"] and st1["kv_done"] == len(ids) and st1["duplicate"] == [409, 0]
+                and st1["bm25_equal"] == len(searched) and st1["migrations"] == [1, 2, 3]
+                and all(s["observed"] == s["served"] > 0 for k, s in stats.items()
+                        if k != "solr_served")
+                and set(st1["health"].values()) == {"UP"}):
+            raise AssertionError(f"ST1: {st1}")
+        # the 1000-token prompt alone, in turns through the handler and submit
+        long_p = prompts[MAIN_LENS.index(1000)]
+        turns: dict = {"handler": [], "submit": [], "job_ms_client": []}
+        for k, who in enumerate(STORES_TURNS):
+            if who == "handler":
+                status, body, ms = stores_post(base, f"turn-{k}", long_p)
+                if status != 201:
+                    raise AssertionError(f"ST1 turn: {status} {body}")
+                doc = app.container.extra_datasources["document"].find_one(
+                    "jobs", {"_id": f"turn-{k}"})
+                turns["handler"].append(doc["ttft_ms"])
+                turns["job_ms_client"].append(ms)
+            else:
+                r = engine.submit(long_p, max_new_tokens=STORES_NEW, temperature=0.0).result(600)
+                turns["submit"].append(r.ttft_s * 1e3)
+        out["ST1"]["ttft_ms_turns_1000"] = turns
+        out["ST1"]["span_ms"] = stores_span_ms(exporter)
+        # ST2: the recorder's points over the jobs' window
+        out["ST2"] = stores_st2(torch, engine, timeseries, t_jobs, t_done)
+        # the document store down: a 5xx after the tokens, the claim and
+        # "running" left behind
+        fakes["mongo"].close()
+        health = get_json(base + "/.well-known/health")[1]["data"]["details"]
+        n_adm = len(admissions)
+        status, _, _ = stores_post(base, "job-down", prompts[0])
+        claim = app.container.extra_datasources["widecolumn"].query(
+            [], "SELECT state FROM jobs WHERE id = ?", "job-down")
+        try:
+            kv_down = app.container.kv_store.get("job:job-down")
+        except KeyError:
+            kv_down = None
+        out["ST1"]["document_down"] = {"health": health["document"]["status"], "status": status,
+                                       "admissions": len(admissions) - n_adm, "claim": claim,
+                                       "kv": kv_down}
+        down = out["ST1"]["document_down"]
+        if not (down["health"] == "DOWN" and status >= 500 and down["admissions"] == 1
+                and claim == [{"state": "claimed"}] and kv_down == "running"):
+            raise AssertionError(f"ST1 document down: {down}")
+    finally:
+        stop_app(app, thread)
+        for store in backends.values():
+            store.close()
+    return out, {"records": records, "tokens": tokens, "searched": searched}
+
+
+def stores_st2(torch, engine, timeseries, t0: float, t1: float) -> dict:
+    """ST2: one point a second per device over the jobs' window, tagged with
+    the card's name; the largest bytes in use at least the weights and the
+    KV pool and at most the allocator's peak; the limit the card's memory;
+    the max by 1 s buckets as many as the seconds elapsed, within one."""
+    from gofr_tpu_torch.models.llama import param_bytes
+
+    rows = timeseries.query("tpu", "hbm_bytes_in_use", start=t0, end=t1)
+    limits = timeseries.query("tpu", "hbm_bytes_limit", start=t0, end=t1)
+    buckets = timeseries.query("tpu", "hbm_bytes_in_use", start=t0, end=t1, aggregation="max",
+                               every=1.0)
+    floor = param_bytes(engine.params) + kv_bytes(engine)
+    peak = torch.cuda.max_memory_allocated()
+    used = max((r["value"] for r in rows), default=0.0)
+    out = {"seconds": t1 - t0, "points": len(rows), "buckets": len(buckets),
+           "kinds": sorted({r["tags"]["kind"] for r in rows}),
+           "devices": sorted({r["tags"]["device"] for r in rows}),
+           "max_in_use_bytes": used, "weights_and_kv_bytes": floor, "peak_bytes": peak,
+           "limit_bytes": sorted({r["value"] for r in limits}),
+           "card_bytes": torch.cuda.mem_get_info()[1]}
+    print(f"  ST2 telemetry: {out}")
+    if not (out["kinds"] == [torch.cuda.get_device_name(0)] and out["devices"] == ["0"]
+            and floor <= used <= peak and out["limit_bytes"] == [float(out["card_bytes"])]
+            and abs(out["buckets"] - out["seconds"]) <= 1
+            and abs(out["points"] - out["seconds"]) <= 1):
+        raise AssertionError(f"ST2: {out}")
+    return out
+
+
+def stores_st3(example, engine, gate, tmp: str, prompts: list, st1: dict, dev) -> dict:
+    """ST3: the same App code and jobs over the embedded backends; every
+    record equal to ST1's."""
+    from gofr_tpu_torch.testutil import stop_app
+
+    backends = stores_backends(example, "embedded", {}, tmp)
+    app, thread, exporter, _, migrate_ms = stores_app(example, engine, backends, dev, "embedded")
+    base = f"http://127.0.0.1:{app.http_port}"
+    ids = [f"job-{k}" for k in range(len(prompts))]
+    try:
+        replies = stores_jobs(engine, gate, base, ids, prompts)
+        bad = {i: r[:2] for i, r in replies.items() if r[0] != 201}
+        if bad:
+            raise AssertionError(f"ST3 jobs: {bad}")
+        records = stores_records(app, ids, st1["searched"])
+        span_ms = stores_span_ms(exporter)
+    finally:
+        stop_app(app, thread)
+        for store in backends.values():
+            store.close()
+    want = st1["records"]
+    equal = {k: records[k] == want[k] for k in ("documents", "usage", "claims", "kv", "rankings",
+                                                 "migrations")}
+    tokens_equal = sum(replies[i][1]["data"]["tokens"] == st1["tokens"][i] for i in ids)
+    out = {"equal": equal, "tokens_equal": tokens_equal, "of": len(ids), "migrate_ms": migrate_ms,
+           "job_ms_client": ms_stats([r[2] for r in replies.values()]), "span_ms": span_ms}
+    print(f"  ST3 embedded backends: {out}")
+    if not all(equal.values()) or tokens_equal != len(ids):
+        raise AssertionError(f"ST3: {out}")
+    return out
+
+
+def run_stores(torch, cfg, params, dev=None) -> dict:
+    """The stores phase: one paged int8 engine at ``cfg`` (the int8 path's
+    config) behind an ``App`` whose KV, document, wide-column and search
+    datasources are the port's wire clients on its fakes (ST1, with ST2's
+    telemetry), then the embedded backends (ST3). The counters are reset
+    before it; ``launches`` are the whole phase's."""
+    import tempfile
+
+    from gofr_tpu_torch.testutil import (MiniCassandraServer, MiniDynamoDBServer,
+                                         MiniMongoServer, MiniSolrServer)
+
+    dev = dev if dev is not None else torch.device("cuda")
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    example = stores_example()
+    rng = torch.Generator().manual_seed(SEED + 41)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist() for n in MAIN_LENS]
+    mem: dict = {}
+    conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32, multi_step=4,
+                max_new_tokens_default=STORES_NEW, prefill_chunk_tokens=256, kv_dtype="int8")
+    engine = build_engine(torch, cfg, params, conf, mem, "stores")
+    out["memory"] = mem
+    admissions = hook_admissions(engine)
+    gate = Gate(engine)
+    engine.start()
+    fakes = {"dynamodb": MiniDynamoDBServer().start(), "mongo": MiniMongoServer().start(),
+             "cassandra": MiniCassandraServer().start(), "solr": MiniSolrServer()}
+    try:
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_stores_", dir=ROOT) as tmp:
+            t = time.perf_counter()
+            gold = {}
+            for k, p in enumerate(prompts):  # each prompt alone through submit
+                r = engine.submit(p, max_new_tokens=STORES_NEW, temperature=0.0).result(600)
+                gold[f"job-{k}"] = {"tokens": r.token_ids, "ttft_ms": r.ttft_s * 1e3}
+            out["gold_seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            got, st1 = stores_st1(torch, example, engine, gate, admissions, fakes, prompts, gold,
+                                  dev)
+            out.update(got)
+            out["ST1"]["seconds"] = time.perf_counter() - t
+            out["ST1"]["ttft_ms_submit_alone"] = ms_stats([g["ttft_ms"] for g in gold.values()])
+            t = time.perf_counter()
+            out["ST3"] = stores_st3(example, engine, gate, tmp, prompts, st1, dev)
+            out["ST3"]["seconds"] = time.perf_counter() - t
+    finally:
+        engine.stop()
+        for fake in fakes.values():
+            fake.close()
+    out["launches"] = launch_counts()
+    out["seconds"] = time.perf_counter() - t0
+    st1 = out["ST1"]
+    print(f"  ST1 wire backends: {st1['equal']}/{st1['of']} jobs token-equal to submit alone; "
+          f"documents {st1['documents_equal']}, usage {st1['usage_new_tokens']} of "
+          f"{st1['tokens_generated']} tokens, KV done {st1['kv_done']}, duplicate "
+          f"{st1['duplicate']}, BM25 equal {st1['bm25_equal']}, stats {st1['stats']}, health "
+          f"{st1['health']}; job round trip p50 {st1['job_ms_client']['p50']:.1f} p95 "
+          f"{st1['job_ms_client']['p95']:.1f} ms (ten gated); TTFT of 1000 tokens alone through "
+          f"the handler {[round(x, 2) for x in st1['ttft_ms_turns_1000']['handler']]} ms, submit "
+          f"{[round(x, 2) for x in st1['ttft_ms_turns_1000']['submit']]} ms; document down "
+          f"{st1['document_down']}")
+    for name, s in st1["span_ms"].items():
+        print(f"  ST1 {name}: p50 {s['p50']:.2f} p95 {s['p95']:.2f} ms (n {s['n']})")
+    print_launches("stores", out["launches"])
+    print(f"  stores: {out['seconds']:.1f}s (gold {out['gold_seconds']:.1f}s, ST1 "
+          f"{st1['seconds']:.1f}s, ST3 {out['ST3']['seconds']:.1f}s; {out['card']})")
+    if not (out["launches"].get("flash_attention") and out["launches"].get(
+            "paged_decode_attention_q")) or out["launches"].get("paged_decode_attention"):
+        raise AssertionError(f"stores launches {out['launches']}")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+PLANE_DEPTH = 8  # layers of the phases run at a cut depth (tenancy, healing, observability, HA,
+# fleet, http H1-H2, surface, device T, pubsub)
 
 
 def cut_depth(cfg, params, n_layers: int):
@@ -8028,16 +8478,17 @@ def run_engine(torch) -> tuple[dict, ...]:
     print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, full depth):")
     reuse = run_kv_reuse_spec(torch, cfg, params)
     torch.cuda.empty_cache()
-    # two earlier planes at a cut depth keep the script inside half its
-    # time limit now that the http phase runs too
+    # the planes at a cut depth keep the script inside its time limit as
+    # later phases are added
     cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
     print(f"LoRA and tenancy phase (adapter registry, tenant storm and preemption, "
           f"{PLANE_DEPTH} layers):")
     tenancy = run_tenancy_lora(torch, cut_cfg, cut_params)
     tenancy["dense_path_decode_ms_per_step_batch8"] = timings["dense"]["decode_ms_per_step_batch8"]
     torch.cuda.empty_cache()
-    print("healing phase (hang, device loss, poison storm, crash and budget, full depth):")
-    healing = run_healing(torch, cfg, params)
+    print("healing phase (hang, device loss, poison storm, crash and budget, "
+          f"{PLANE_DEPTH} layers):")
+    healing = run_healing(torch, cut_cfg, cut_params)
     torch.cuda.empty_cache()
     print("observability phase (metrics, tracing, timelines, each engine beside a bare twin, "
           f"{PLANE_DEPTH} layers):")
@@ -8050,8 +8501,11 @@ def run_engine(torch) -> tuple[dict, ...]:
     ha = run_ha(torch, cut_cfg, cut_params)
     del cut_params
     torch.cuda.empty_cache()
-    print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, full depth):")
-    fleet = run_fleet(torch, cfg, params)
+    print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, "
+          f"{PLANE_DEPTH} layers):")
+    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
+    fleet = run_fleet(torch, cut_cfg, cut_params)
+    del cut_params
     torch.cuda.empty_cache()
     print("http phase (App, generation routes, /metrics, HTTPReplica and a router over HTTP, "
           "the serve entry point as a process, full depth):")
@@ -8066,10 +8520,10 @@ def run_engine(torch) -> tuple[dict, ...]:
             surface)
 
 
-def sql_phase(torch) -> tuple[dict, dict, dict]:
+def sql_phase(torch) -> tuple[dict, dict, dict, dict]:
     """The sql phase at Llama-3-8B widths and full depth, then the pubsub
-    phase (at ``PLANE_DEPTH`` layers) and the files phase on the same
-    weights. The weights are made again from ``SEED``
+    phase (at ``PLANE_DEPTH`` layers), the files phase and the stores phase on
+    the same weights. The weights are made again from ``SEED``
     (the same tensors ``run_engine`` served; the main paths' copy was freed
     before the models and device phases, which need the room), and the time
     to make them is recorded."""
@@ -8095,9 +8549,15 @@ def sql_phase(torch) -> tuple[dict, dict, dict]:
           f"system, SFTP too, with a Redis result cache; the same weights, {cfg.n_layers} "
           "layers):")
     files = run_files(torch, cfg, params, LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
+    torch.cuda.empty_cache()
+    print("stores phase (generation jobs claimed in Cassandra, logged in Mongo, metered in a "
+          "logged batch, indexed in Solr and tracked in DynamoDB, each the port's fake on "
+          "127.0.0.1, with the card's memory sampled into a time-series store; then the same jobs "
+          f"over the embedded stores; paged int8, the same weights, {cfg.n_layers} layers):")
+    stores = run_stores(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
-    return out, pubsub, files
+    return out, pubsub, files, stores
 
 
 def main() -> int:
@@ -8147,7 +8607,7 @@ def main() -> int:
 
     device = run_device(torch, LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH),
                         MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
-    sql, pubsub, files = sql_phase(torch)
+    sql, pubsub, files, stores = sql_phase(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -8159,6 +8619,7 @@ def main() -> int:
         r["launches_sql"] = sql["launches"].get(r["name"], 0)
         r["launches_pubsub"] = pubsub["launches"].get(r["name"], 0)
         r["launches_files"] = files["launches"].get(r["name"], 0)
+        r["launches_stores"] = stores["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -8179,6 +8640,7 @@ def main() -> int:
     print(json.dumps({"sql": sql}, default=str))
     print(json.dumps({"pubsub": pubsub}, default=str))
     print(json.dumps({"files": files}, default=str))
+    print(json.dumps({"stores": stores}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

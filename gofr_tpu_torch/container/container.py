@@ -17,9 +17,11 @@ flag, and the datasource slots of the reference (:397-413): ``tpu``
 (``App.add_tpu``; ``ctx.tpu``), ``sql`` (``DB_DIALECT``; ``ctx.sql``),
 ``pubsub``, ``redis`` (``datasource/redis``: the RESP2 client or
 ``InMemoryRedis``), ``file`` (``datasource/file``: local, S3, GCS, FTP or
-SFTP), and ``kv_store`` and ``cache``; each stays ``None`` until a
-datasource is registered under that name (``App.add_datasource``; the
-port has no KV datasource yet: ROADMAP Queue A item 11).
+SFTP), ``kv_store`` (``datasource/kv``: in memory, a JSON file, TTLs or
+DynamoDB) and ``cache``; each stays ``None`` until a datasource is
+registered under that name (``App.add_datasource``). Any other name (the
+``document``, ``widecolumn``, ``search`` and ``timeseries`` families) goes
+to ``extra_datasources``, which ``ctx.datasource(name)`` reads.
 Each joins ``datasource_pairs`` and the health aggregate. The provider
 pattern (``wire_provider``) and the datasource contracts live in
 ``container/datasources.py``.

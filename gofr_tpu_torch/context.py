@@ -13,10 +13,10 @@ bound connection.
 Datasource access mirrors ``ctx.TPU`` / ``ctx.SQL`` in the reference:
 ``ctx.tpu`` (the device datasource, ``App.add_tpu``), ``ctx.sql``,
 ``ctx.redis``, ``ctx.file``, ``ctx.kv_store`` and ``ctx.cache`` (the
-container's slots, filled by ``App.add_datasource(name, ds)``; the last two
-stay ``None`` until their families are ported), ``ctx.serving``, the broker
-through ``get_publisher`` / ``get_subscriber``, ``ctx.datasource(name)``,
-plus ``ctx.get_http_service(name)``.
+container's slots, filled by ``App.add_datasource(name, ds)``),
+``ctx.serving``, the broker through ``get_publisher`` / ``get_subscriber``,
+``ctx.datasource(name)`` (any other family: ``document``, ``widecolumn``,
+``search``, ``timeseries``), plus ``ctx.get_http_service(name)``.
 """
 
 from __future__ import annotations

@@ -184,6 +184,12 @@ SERVING_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
 SELF_REGISTERED_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
     # the checkpoint manager (checkpoint/manager.py)
     ("histogram", "app_checkpoint_save_seconds", "Checkpoint save latency", None),
+    # the KV, document and wide-column drivers (datasource/kv/dynamodb.py,
+    # document/mongo.py, document/embedded.py, widecolumn/), in use_metrics
+    ("histogram", "app_dynamodb_stats", "DynamoDB op latency", None),
+    ("histogram", "app_mongo_stats", "Mongo operation latency", None),
+    ("histogram", "app_document_stats", "Document store operation latency", None),
+    ("histogram", "app_cassandra_stats", "Wide-column store operation latency", None),
 )
 
 

@@ -6,9 +6,8 @@ call returns a Container whose datasources are in-memory fakes plus a
 ``mocks`` handle for assertions. The device datasource fake records
 compiled functions and calls them eagerly, on whatever device their
 arguments lie (the CPU in tests); the SQL datasource is an in-memory
-``SQLite``; ``redis`` is the port's ``InMemoryRedis``. ``kv_store``
-stays ``None``, in the container and in ``Mocks``, until ROADMAP Queue A
-item 11 ports ``InMemoryKVStore``.
+``SQLite``; ``redis`` is the port's ``InMemoryRedis`` and ``kv_store``
+its ``InMemoryKVStore``.
 """
 
 from __future__ import annotations
@@ -108,7 +107,7 @@ class Mocks:
     pubsub: MockPubSub
     sql: Any
     redis: Any
-    kv_store: Any = None  # Queue A item 11
+    kv_store: Any
 
 
 class MockContainer(Container):
@@ -121,6 +120,7 @@ def new_mock_container(configs: dict[str, str] | None = None) -> tuple[MockConta
     logger = new_logger(Level.ERROR, exit_on_fatal=False)
     container = MockContainer(config, logger=logger)
 
+    from gofr_tpu_torch.datasource.kv import InMemoryKVStore
     from gofr_tpu_torch.datasource.redis import InMemoryRedis
     from gofr_tpu_torch.datasource.sql import SQLite
 
@@ -128,6 +128,8 @@ def new_mock_container(configs: dict[str, str] | None = None) -> tuple[MockConta
     pubsub = MockPubSub()
     sql = SQLite(":memory:")
     redis = InMemoryRedis()
-    for name, ds in (("tpu", tpu), ("pubsub", pubsub), ("sql", sql), ("redis", redis)):
+    kv = InMemoryKVStore()
+    for name, ds in (("tpu", tpu), ("pubsub", pubsub), ("sql", sql), ("redis", redis),
+                     ("kv_store", kv)):
         container.register_datasource(name, ds)
-    return container, Mocks(tpu=tpu, pubsub=pubsub, sql=sql, redis=redis, kv_store=None)
+    return container, Mocks(tpu=tpu, pubsub=pubsub, sql=sql, redis=redis, kv_store=kv)

@@ -312,7 +312,8 @@ def test_add_http_service_and_datasource_health():
 
 def test_mock_container_redis_and_the_context_datasource_accessors():
     """``new_mock_container()`` fills ``redis`` with each package's
-    ``InMemoryRedis``; ``ctx.redis``, ``ctx.file``, ``ctx.kv_store`` and
+    ``InMemoryRedis`` and ``kv_store`` with its ``InMemoryKVStore``;
+    ``ctx.redis``, ``ctx.file``, ``ctx.kv_store`` and
     ``ctx.cache`` read the container's slots, as the reference's do; a
     handler that uses them answers the same on both apps."""
     from gofr_tpu.context import Context as RContext
@@ -335,13 +336,15 @@ def test_mock_container_redis_and_the_context_datasource_accessors():
         assert ctx.redis is container.redis and ctx.kv_store is container.kv_store
         assert ctx.file is container.file is None and ctx.cache is cache
         mocks.redis.set("k", "v", ttl_seconds=60)
-        kinds[name] = (ctx.redis.get("k"), ctx.kv_store is None,
+        mocks.kv_store.set("job", "done")
+        kinds[name] = (ctx.redis.get("k"), ctx.kv_store is mocks.kv_store,
+                       type(ctx.kv_store).__name__, ctx.kv_store.get("job"),
                        sorted(container.health()["details"]))
         container.close()
-    # the reference's mock also fills kv_store (its InMemoryKVStore is not ported)
     assert kinds["ref"][0] == kinds["port"][0] == "v"
-    assert (kinds["ref"][1], kinds["port"][1]) == (False, True)
-    assert set(kinds["port"][2]) == set(kinds["ref"][2]) - {"kv_store"}
+    assert kinds["port"] == kinds["ref"]
+    assert kinds["port"][1:4] == (True, "InMemoryKVStore", "done")
+    assert "kv_store" in kinds["port"][4]
 
     got = {}
     for name, (app_cls, cfg_cls, _), redis_cls, fs_cls in (

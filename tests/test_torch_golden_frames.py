@@ -5,9 +5,12 @@ external vectors the JAX package's golden-frame tests pin
 table, KIP-98's record batch layout, MQTT 3.1.1 §2.2.3 and §3.1, AMQP 1.0
 §1.6 and §2.3, the NATS header block, the Redis protocol spec's RESP2
 command and reply frames, RFC 4251's SSH data types and RFC 4253's
-banner), each vector run on both packages' codecs; then seeded hypothesis cases in which each port encoder gives the
-reference's bytes for the same record batch with headers, MQTT packet,
-NATS ``HPUB`` frame and AMQP value, and each decoder inverts the other
+banner, bsonspec.org's BSON documents and every element type the Mongo
+driver moves, and the CQL binary protocol v4's request, batch, result and
+error frames), each vector run on both packages' codecs; then seeded
+hypothesis cases in which each port encoder gives the reference's bytes for
+the same record batch with headers, MQTT packet, NATS ``HPUB`` frame, AMQP
+value, BSON document and CQL rows result, and each decoder inverts the other
 package's encoder."""
 
 import socket
@@ -24,8 +27,12 @@ from gofr_tpu.datasource.pubsub import mqtt as rmqtt
 from gofr_tpu.datasource.file import ssh_transport as rssh
 from gofr_tpu.datasource.pubsub import nats as rnats
 from gofr_tpu.datasource.redis import client as rredis
+from gofr_tpu.datasource.document import bson as rbson
+from gofr_tpu.datasource.widecolumn import cql_wire as rcql
 from gofr_tpu_torch.datasource.file import ssh_transport as tssh
 from gofr_tpu_torch.datasource.redis import client as tredis
+from gofr_tpu_torch.datasource.document import bson as tbson
+from gofr_tpu_torch.datasource.widecolumn import cql_wire as tcql
 from gofr_tpu_torch.pubsub import amqp_wire as tamqp
 from gofr_tpu_torch.pubsub import kafka_wire as tkafka
 from gofr_tpu_torch.pubsub import mqtt as tmqtt
@@ -33,9 +40,9 @@ from gofr_tpu_torch.pubsub import nats as tnats
 
 PKGS = {
     "ref": types.SimpleNamespace(kafka=rkafka, mqtt=rmqtt, amqp=ramqp, nats=rnats,
-                                 redis=rredis, ssh=rssh),
+                                 redis=rredis, ssh=rssh, bson=rbson, cql=rcql),
     "port": types.SimpleNamespace(kafka=tkafka, mqtt=tmqtt, amqp=tamqp, nats=tnats,
-                                  redis=tredis, ssh=tssh),
+                                  redis=tredis, ssh=tssh, bson=tbson, cql=tcql),
 }
 BOTH = pytest.mark.parametrize("side", sorted(PKGS))
 HYP = settings(max_examples=60, deadline=None, derandomize=True,
@@ -344,3 +351,157 @@ def test_amqp_transfer_frame_equal_and_cross_decode(body, props, channel, handle
         assert (ch, ftype, perf.descriptor) == (channel, 0, a.TRANSFER)
         assert int(perf.value[0]) == handle
         assert a.decode_message(payload) == (body, props)
+
+
+# ---------------------------------------------------------------- BSON
+# bsonspec.org's two examples, then one document per element type
+BSON_SPEC = [
+    ({"hello": "world"}, b"\x16\x00\x00\x00\x02hello\x00\x06\x00\x00\x00world\x00\x00"),
+    ({"BSON": ["awesome", 5.05, 1986]},
+     b"\x31\x00\x00\x00\x04BSON\x00\x26\x00\x00\x00\x020\x00\x08\x00\x00\x00awesome\x00"
+     b"\x011\x00\x33\x33\x33\x33\x33\x33\x14\x40\x102\x00\xc2\x07\x00\x00\x00\x00"),
+]
+
+
+def _bson_elements(b):
+    """(document, its bytes) for each element type the driver moves."""
+    import datetime as dt
+
+    def doc(etype: bytes, payload: bytes) -> bytes:
+        body = etype + b"v\x00" + payload
+        return struct.pack("<i", len(body) + 5) + body + b"\x00"
+
+    return [
+        ({"v": 1.5}, doc(b"\x01", struct.pack("<d", 1.5))),
+        ({"v": {"a": True}}, doc(b"\x03", b"\x09\x00\x00\x00\x08a\x00\x01\x00")),
+        ({"v": b"\x00\x01"}, doc(b"\x05", b"\x02\x00\x00\x00\x00\x00\x01")),
+        ({"v": b.Binary(b"\xaa" * 16, subtype=4)},
+         doc(b"\x05", b"\x10\x00\x00\x00\x04" + b"\xaa" * 16)),
+        ({"v": b.ObjectId("507f1f77bcf86cd799439011")},
+         doc(b"\x07", bytes.fromhex("507f1f77bcf86cd799439011"))),
+        ({"v": False}, doc(b"\x08", b"\x00")),
+        ({"v": dt.datetime(2026, 10, 18, 6, 4, 40, 123000, tzinfo=dt.timezone.utc)},
+         doc(b"\x09", struct.pack("<q", 1792303480123))),
+        ({"v": None}, doc(b"\x0a", b"")),
+        ({"v": -7}, doc(b"\x10", struct.pack("<i", -7))),
+        ({"v": 2**40}, doc(b"\x12", struct.pack("<q", 2**40))),
+        ({"v": b.Int64(1)}, doc(b"\x12", struct.pack("<q", 1))),
+    ]
+
+
+@BOTH
+def test_bson_spec_vectors(side):
+    b = PKGS[side].bson
+    for document, raw in BSON_SPEC + _bson_elements(b):
+        assert b.encode_document(document) == raw, document
+        back, end = b.decode_document(raw)
+        assert (back, end) == (document, len(raw))
+
+
+@BOTH
+def test_bson_refuses_what_it_cannot_carry(side):
+    b = PKGS[side].bson
+    with pytest.raises(ValueError, match="NUL"):
+        b.encode_document({"a\x00b": 1})
+    with pytest.raises(TypeError, match="cannot encode set"):
+        b.encode_document({"v": {1}})
+    with pytest.raises(ValueError, match="0x13"):
+        b.decode_document(b"\x08\x00\x00\x00\x13v\x00\x00")
+
+
+def test_bson_binary_subtype_and_objectid_cross_decode():
+    oid = tbson.ObjectId()
+    assert (oid.binary[4:9], len(str(oid))) == (tbson._MACHINE, 24)
+    raw = tbson.encode_document({"id": oid, "lsid": tbson.Binary(b"\x01" * 16, subtype=4)})
+    back, _ = rbson.decode_document(raw)
+    assert back["id"] == rbson.ObjectId(oid.binary) and back["lsid"].subtype == 4
+    assert rbson.encode_document(back) == raw
+
+
+_bson_key = st.text(st.characters(blacklist_characters="\x00", blacklist_categories=("Cs",)),
+                    max_size=8)
+_bson_scalar = st.one_of(st.none(), st.booleans(), st.integers(-(2**63), 2**63 - 1),
+                         st.floats(allow_nan=False), st.text(max_size=20), st.binary(max_size=20))
+_bson_value = st.recursive(
+    _bson_scalar,
+    lambda inner: st.one_of(st.lists(inner, max_size=4),
+                            st.dictionaries(_bson_key, inner, max_size=4)),
+    max_leaves=12)
+
+
+@HYP
+@given(document=st.dictionaries(_bson_key, _bson_value, max_size=6))
+def test_bson_document_bytes_equal_and_cross_decode(document):
+    ours, theirs = tbson.encode_document(document), rbson.encode_document(document)
+    assert ours == theirs
+    assert tbson.decode_document(theirs) == rbson.decode_document(ours) == (document, len(ours))
+
+
+# ---------------------------------------------------------------- CQL v4
+@BOTH
+def test_cql_v4_request_frames(side):
+    w = PKGS[side].cql
+    startup = w.encode_startup(0)
+    # native_protocol_v4.spec §2: version, flags, stream, opcode, length
+    assert startup == (b"\x04\x00\x00\x00\x01\x00\x00\x00\x16\x00\x01"
+                       b"\x00\x0bCQL_VERSION\x00\x053.0.0")
+    assert w.encode_query(7, "SELECT 1") == (
+        b"\x04\x00\x00\x07\x07\x00\x00\x00\x0f\x00\x00\x00\x08SELECT 1\x00\x01\x00")
+    batch = w.encode_batch(9, w.LOGGED_BATCH, ["INSERT INTO t VALUES (1)", "DELETE FROM t"])
+    assert batch == (b"\x04\x00\x00\x09\x0d\x00\x00\x00\x39\x00\x00\x02"
+                     b"\x00\x00\x00\x00\x18INSERT INTO t VALUES (1)\x00\x00"
+                     b"\x00\x00\x00\x00\x0dDELETE FROM t\x00\x00\x00\x01\x00")
+    assert w.decode_batch(batch[9:]) == (
+        w.LOGGED_BATCH, ["INSERT INTO t VALUES (1)", "DELETE FROM t"])
+    assert w.parse_frame_header(batch[:9]) == (0x04, 9, w.OP_BATCH, 0x39)
+
+
+@BOTH
+def test_cql_v4_result_and_error_frames(side):
+    w = PKGS[side].cql
+    rows = w.encode_rows([{"id": 1, "name": "o'b", "ok": True, "score": None}])
+    assert rows == (
+        # kind Rows, flags Global_tables_spec, 4 columns, keyspace and table
+        b"\x00\x00\x00\x02\x00\x00\x00\x01\x00\x00\x00\x04\x00\x02ks\x00\x01t"
+        b"\x00\x02id\x00\x02\x00\x04name\x00\x0d\x00\x02ok\x00\x04"
+        b"\x00\x05score\x00\x0d\x00\x00\x00\x01"
+        b"\x00\x00\x00\x08\x00\x00\x00\x00\x00\x00\x00\x01\x00\x00\x00\x03o'b"
+        b"\x00\x00\x00\x01\x01\xff\xff\xff\xff")
+    assert w.decode_result(rows) == (w.RESULT_ROWS, [{"id": 1, "name": "o'b", "ok": True,
+                                                       "score": None}])
+    err = w.encode_error(0x2200, "unconfigured table t")
+    assert err == b"\x00\x00\x22\x00\x00\x14unconfigured table t"
+    exc = w.decode_error(err)
+    assert (exc.code, str(exc)) == (0x2200, "unconfigured table t")
+    void = w.encode_frame(3, w.OP_RESULT, struct.pack(">i", w.RESULT_VOID), response=True)
+    assert void == b"\x84\x00\x00\x03\x08\x00\x00\x00\x04\x00\x00\x00\x01"
+
+
+@BOTH
+def test_cql_literals_and_interpolation(side):
+    w = PKGS[side].cql
+    assert [w.escape_literal(v) for v in (None, True, 7, 2.5, "o'b", b"\x01\xff")] == [
+        "NULL", "true", "7", "2.5", "'o''b'", "0x01ff"]
+    assert w.interpolate("INSERT INTO t VALUES (?, ?)", (1, "o'brien")) == \
+        "INSERT INTO t VALUES (1, 'o''brien')"
+    assert w.interpolate("SELECT '?' FROM t WHERE a=?", (5,)).endswith("a=5")
+    with pytest.raises(w.CQLError):
+        w.interpolate("SELECT ?", (1, 2))
+
+
+_cql_kinds = [st.booleans(), st.integers(-(2**63), 2**63 - 1), st.floats(allow_nan=False),
+              st.text(max_size=12), st.binary(max_size=12)]
+
+
+@HYP
+@given(rows=st.lists(st.sampled_from(_cql_kinds), min_size=1, max_size=4).flatmap(
+    lambda kinds: st.lists(st.fixed_dictionaries(
+        {f"c{i}": st.one_of(st.none(), kind) for i, kind in enumerate(kinds)}), max_size=5)))
+def test_cql_rows_bytes_equal_and_cross_decode(rows):
+    """A rows result (each column one type, cells null or of it): the same
+    bytes, and each package decodes the other's back to the rows (a column
+    takes its type from its first non-null cell, so mixed columns are not
+    the codec's)."""
+    ours, theirs = tcql.encode_rows(rows), rcql.encode_rows(rows)
+    assert ours == theirs
+    assert tcql.decode_result(theirs) == rcql.decode_result(ours) == (tcql.RESULT_ROWS, rows)

@@ -5,10 +5,8 @@ stores built the same way:
 - ``sqlite``: each package's ``SQLite`` in memory;
 - ``postgres`` and ``mysql``: each package's wire client against its own
   package's fake server on 127.0.0.1;
-- ``families``: sqlite plus the reference's in-memory Redis and KV stores
-  and its embedded document, wide-column and search stores (JAX-free
-  modules of the JAX package, set on the port's container as a user would
-  set any duck-typed store; the port ports them with Queue A item 11).
+- ``families``: sqlite plus each package's own in-memory Redis and KV
+  stores and its embedded document, wide-column and search stores.
 
 Compared with equality: the ``gofr_migration`` rows (version and method),
 every store's bookkeeping, the migrations' own rows, which versions ran,
@@ -30,11 +28,11 @@ torch = pytest.importorskip("torch")
 from gofr_tpu.config import MapConfig as RMapConfig  # noqa: E402
 from gofr_tpu.container.container import Container as RContainer  # noqa: E402
 from gofr_tpu.datasource import sql as rsql  # noqa: E402
-from gofr_tpu.datasource.document import EmbeddedDocumentStore  # noqa: E402
-from gofr_tpu.datasource.kv import InMemoryKVStore  # noqa: E402
-from gofr_tpu.datasource.redis import InMemoryRedis  # noqa: E402
-from gofr_tpu.datasource.search import EmbeddedSearch  # noqa: E402
-from gofr_tpu.datasource.widecolumn import EmbeddedWideColumnStore  # noqa: E402
+from gofr_tpu.datasource import document as rdocument  # noqa: E402
+from gofr_tpu.datasource import kv as rkv  # noqa: E402
+from gofr_tpu.datasource import redis as rredis  # noqa: E402
+from gofr_tpu.datasource import search as rsearch  # noqa: E402
+from gofr_tpu.datasource import widecolumn as rwidecolumn  # noqa: E402
 from gofr_tpu.logging import Level as RLevel  # noqa: E402
 from gofr_tpu.logging import new_logger as r_new_logger  # noqa: E402
 from gofr_tpu import migration as rmig  # noqa: E402
@@ -43,7 +41,12 @@ from gofr_tpu.testutil.postgres_server import MiniPostgresServer as RMiniPostgre
 from gofr_tpu_torch import migration as tmig  # noqa: E402
 from gofr_tpu_torch.config import MapConfig  # noqa: E402
 from gofr_tpu_torch.container.container import Container  # noqa: E402
+from gofr_tpu_torch.datasource import document as tdocument  # noqa: E402
+from gofr_tpu_torch.datasource import kv as tkv  # noqa: E402
+from gofr_tpu_torch.datasource import redis as tredis  # noqa: E402
+from gofr_tpu_torch.datasource import search as tsearch  # noqa: E402
 from gofr_tpu_torch.datasource import sql as tsql  # noqa: E402
+from gofr_tpu_torch.datasource import widecolumn as twidecolumn  # noqa: E402
 from gofr_tpu_torch.datasource.tpu import TPUClient  # noqa: E402
 from gofr_tpu_torch.logging import Level, new_logger  # noqa: E402
 from gofr_tpu_torch.testutil.mysql_server import MiniMySQLServer  # noqa: E402
@@ -82,10 +85,17 @@ class Side:
         self.container.sql = self._sql(stores, closers)
         self.container.sql.connect()
         if stores == "families":
-            for attr, store in (("redis", InMemoryRedis()), ("kv_store", InMemoryKVStore())):
+            # each side's own stores: the reference's on its container, the
+            # port's on the port's
+            doc, kv, redis, search, wide = (
+                (rdocument, rkv, rredis, rsearch, rwidecolumn) if name == "ref" else
+                (tdocument, tkv, tredis, tsearch, twidecolumn))
+            for attr, store in (("redis", redis.InMemoryRedis()),
+                                ("kv_store", kv.InMemoryKVStore())):
                 setattr(self.container, attr, store)
-            for key, cls in (("document", EmbeddedDocumentStore),
-                             ("widecolumn", EmbeddedWideColumnStore), ("search", EmbeddedSearch)):
+            for key, cls in (("document", doc.EmbeddedDocumentStore),
+                             ("widecolumn", wide.EmbeddedWideColumnStore),
+                             ("search", search.EmbeddedSearch)):
                 store = cls()
                 store.connect()
                 self.container.extra_datasources[key] = store

@@ -536,7 +536,10 @@ def test_sql_modules_are_checked_and_wire_without_a_card(no_card, tmp_path):
     from gofr_tpu_torch.datasource.redis import InMemoryRedis
 
     assert isinstance(mocks.redis, InMemoryRedis) and mock.redis is mocks.redis
-    assert mocks.kv_store is None and mock.sql is mocks.sql
+    from gofr_tpu_torch.datasource.kv import InMemoryKVStore
+
+    assert isinstance(mocks.kv_store, InMemoryKVStore) and mock.kv_store is mocks.kv_store
+    assert mock.sql is mocks.sql
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TPUClient().connect()
 
@@ -708,3 +711,84 @@ def test_redis_and_file_modules_are_checked_and_connect_without_a_card(no_card, 
     finally:
         redis.close()
         ftp.close()
+
+
+STORE_MODULES = (
+    "gofr_tpu_torch/datasource/kv/__init__.py", "gofr_tpu_torch/datasource/kv/store.py",
+    "gofr_tpu_torch/datasource/kv/dynamodb.py", "gofr_tpu_torch/testutil/dynamodb_server.py",
+    "gofr_tpu_torch/datasource/document/__init__.py", "gofr_tpu_torch/datasource/document/bson.py",
+    "gofr_tpu_torch/datasource/document/embedded.py",
+    "gofr_tpu_torch/datasource/document/mongo.py", "gofr_tpu_torch/testutil/mongo_server.py",
+    "gofr_tpu_torch/datasource/widecolumn/__init__.py",
+    "gofr_tpu_torch/datasource/widecolumn/cql_wire.py",
+    "gofr_tpu_torch/datasource/widecolumn/cassandra.py",
+    "gofr_tpu_torch/testutil/cassandra_server.py", "gofr_tpu_torch/datasource/search/__init__.py",
+    "gofr_tpu_torch/datasource/search/solr.py", "gofr_tpu_torch/testutil/solr_server.py",
+    "gofr_tpu_torch/datasource/timeseries/__init__.py",
+)
+
+
+def test_store_modules_are_checked_and_connect_without_a_card(no_card):
+    """The KV, document, wide-column, search and time-series datasources,
+    their four fakes and the datastores example are among the files the
+    import rules hold. They are host code: an ``App`` takes each wire client
+    on its fake, and each embedded store, and shows it UP in health without a
+    card; ``ctx.kv_store`` and ``ctx.datasource(...)`` reach them; a
+    DynamoDB that is down at boot is DOWN health rather than a crash."""
+    import importlib.util
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.context import Context
+    from gofr_tpu_torch.datasource.document import new_document_store
+    from gofr_tpu_torch.datasource.kv import DynamoDBKVStore
+    from gofr_tpu_torch.datasource.search import EmbeddedSearch
+    from gofr_tpu_torch.datasource.search.solr import SolrClient
+    from gofr_tpu_torch.datasource.timeseries import EmbeddedTimeSeries
+    from gofr_tpu_torch.datasource.widecolumn import new_widecolumn_store
+    from gofr_tpu_torch.testutil import (MiniCassandraServer, MiniDynamoDBServer,
+                                         MiniMongoServer, MiniSolrServer)
+
+    assert len(STORE_MODULES) == 17
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(STORE_MODULES) <= files
+    path = ROOT / "examples_torch" / "using-datastores" / "main.py"
+    bad = {n for n in _imported(path) if n.split(".")[0] in FORBIDDEN}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+    spec = importlib.util.spec_from_file_location("using_datastores", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    dyn, mongo, cas, solr = (MiniDynamoDBServer().start(), MiniMongoServer().start(),
+                             MiniCassandraServer().start(), MiniSolrServer())
+    base = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL"}
+    try:
+        wire = {"MONGO_HOST": "127.0.0.1", "MONGO_PORT": str(mongo.port),
+                "CASSANDRA_HOST": "127.0.0.1", "CASSANDRA_PORT": str(cas.port)}
+        for values in (wire, {}):
+            app = App(MapConfig({**base, **values}, use_env=False))
+            conf = app.container.config
+            app.add_datasource("kv_store", DynamoDBKVStore(
+                "kv", endpoint=dyn.endpoint, access_key=dyn.access_key,
+                secret_key=dyn.secret_key))
+            app.add_datasource("document", new_document_store(conf))
+            app.add_datasource("widecolumn", new_widecolumn_store(conf))
+            app.add_datasource("search", example.SolrIndex(SolrClient(solr.url))
+                               if values else EmbeddedSearch())
+            app.add_datasource("timeseries", EmbeddedTimeSeries())
+            details = app.container.health()["details"]
+            for family in ("kv_store", "document", "widecolumn", "search", "timeseries"):
+                assert details[family]["status"] == "UP", (family, details[family])
+            ctx = Context(None, app.container)
+            assert ctx.kv_store is app.container.kv_store
+            assert ctx.datasource("document").health_check()["details"]["backend"] == (
+                "mongo-wire" if values else "embedded-document")
+            app.container.close()
+        mongo.close()
+        dark = App(MapConfig(base, use_env=False))
+        dark.add_datasource("kv_store", DynamoDBKVStore("kv", endpoint="http://127.0.0.1:1",
+                                                        timeout=0.5))
+        assert dark.container.health()["details"]["kv_store"]["status"] == "DOWN"
+        dark.container.close()
+    finally:
+        for server in (dyn, mongo, cas, solr):
+            server.close()
