@@ -44,8 +44,8 @@ Phases, each a hard failure with a non-zero exit:
    ``quantize_kv`` and ``dequantize_kv`` at every layer); then the
    lifecycle phase (cancel, priority, deadlines, streaming, drain, shed on
    a dense and a paged int8 engine); then the kv-reuse and spec phase, at
-   full depth, one engine after another with the launches of each
-   counted alone:
+   ``PLANE_DEPTH`` (8 of the 32 layers), one engine after another with
+   the launches of each counted alone:
    - ``R1`` dense bf16, ``R2`` paged bf16 (16-token pages) and ``R3`` paged
      int8 (32-token pages), each with a 64-entry, 2 GiB prefix cache: a
      200-token prompt twice (the second a whole-prompt hit: no prefill,
@@ -56,7 +56,8 @@ Phases, each a hard failure with a non-zero exit:
      (24 chunk hits, 8 chunks computed); on R1 the logits of a warm
      request (first token from the cached chain) against the dense
      forward;
-   - ``R4`` dense bf16 with a 64 MiB device tier over a 1 GiB host spill
+   - ``R4`` dense bf16 with a device tier of 2 MiB a layer (one 200-token
+     entry, not two; 64 MiB at full depth) over a 1 GiB host spill
      tier: prompt A, prompt B (which evicts A to pinned host memory), a
      flush, then A again, a host-tier hit with A's tokens;
    - ``S1`` dense bf16 and ``S2`` paged int8 with 4 prompt-lookup drafts
@@ -399,7 +400,37 @@ Phases, each a hard failure with a non-zero exit:
    per family the ms of each of the handler's spans (p50/p95), a job's
    round trip and the phase's flash and int8 paged launches (bf16 paged
    none); it prints a ``{"stores": ...}`` line; its launches are the
-   ``kernels`` rows' ``launches_stores``;
+   ``kernels`` rows' ``launches_stores``; then the analytics phase on the
+   same weights at full depth, the launch counters reset before it: first
+   ``analysis.ffi`` holds every ``extern "C"`` entry of ``csrc/*.cu`` to
+   ``_build.SIGNATURES`` (no finding), then, with ``analysis.lockorder``
+   installed before the engine and the ``App`` are built, one paged bf16
+   engine (the stores phase's settings) and the main path's ten prompts
+   each alone through ``submit`` as the gold, behind an ``App`` serving
+   ``examples_torch/using-analytics``:
+   - ``AN1`` the columnar datasource is the port's ``ClickHouseClient`` on
+     ``MiniClickHouseServer`` (127.0.0.1), the graph an ``EmbeddedGraph``;
+     the ten jobs of three tenants posted at once behind the gate, each
+     generating 32 greedy tokens, writing its usage row with
+     ``insert_rows`` and an event row with ``async_insert``, and linking
+     tenant → job → result in one ``GraphTxn``; each job's tokens held to
+     the gold; ClickHouse's new tokens by tenant (``GET /usage``) equal to
+     the engine's ``completion_tokens``; ``GET /lineage/{tenant}`` and
+     ``shortest_path`` find every job; the 1000-token prompt alone in
+     turns through the handler and ``submit``;
+   - ``AN2`` the same records through ``OracleFacade`` (the port's
+     sqlite), ``SurrealFacade`` and ``CouchbaseFacade`` (the embedded
+     document store) and ``ArangoFacade`` (a document store and a graph),
+     each read back equal and each health its backend's, UP;
+   - ``AN3`` after a batch of 8 decode rows (ms a step under the shim,
+     a record), the shim uninstalled: no lock-order cycle, its runtime
+     graph checked with ``lockcheck.check_subgraph`` against the static
+     graph of the port's tree (each missing edge printed), and
+     ``python -m gofr_tpu_torch.analysis --all`` exiting 0;
+   the spans' ms (p50/p95), a job's round trip and the phase's flash and
+   bf16 paged launches (int8 paged none); it prints an
+   ``{"analytics": ...}`` line; its launches are the ``kernels`` rows'
+   ``launches_analytics``;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -1981,9 +2012,11 @@ def run_kv_reuse_spec(torch, cfg, params) -> dict:
         **reuse, max_seq_len=4096, kv_layout="paged", kv_page_size=32, kv_dtype="int8"), prompts,
         steps=(1, 2), chunk_cache=False, logits_check=False)
     torch.cuda.empty_cache()
-    # 64 MiB holds one 200-token entry (34.1 MB at bucket 256), not two
+    # 2 MiB a layer (64 MiB at 32 layers) holds one 200-token entry (34.1 MB
+    # at bucket 256 and 32 layers), not two
     out["R4"] = spill_path(torch, cfg, params, "R4", EngineConfig(
-        **dict(reuse, prefix_cache_bytes=64 << 20), max_seq_len=2048, kv_layout="dense",
+        **dict(reuse, prefix_cache_bytes=(2 << 20) * cfg.n_layers), max_seq_len=2048,
+        kv_layout="dense",
         kv_spill_bytes=1 << 30), prompts)
     torch.cuda.empty_cache()
     # each prompt repeats a random 40-token segment 5 times: prompt lookup
@@ -8054,27 +8087,33 @@ def stores_app(example, engine, backends: dict, dev, label: str):
     return app, thread, exporter, timeseries, migrate_ms
 
 
-def stores_post(base: str, job_id: str, prompt: list[int]):
-    """One ``POST /jobs/{id}``: (status, body, ms by the client's clock)."""
+def stores_post(base: str, job_id: str, prompt: list[int], **fields):
+    """One ``POST /jobs/{id}`` of ``{"prompt": prompt, **fields}``: (status,
+    body, ms by the client's clock)."""
     t = time.perf_counter()
-    status, _, body = post(base, f"/jobs/{job_id}", {"prompt": prompt})
+    status, _, body = post(base, f"/jobs/{job_id}", {"prompt": prompt, **fields})
     return status, body, (time.perf_counter() - t) * 1e3
 
 
-def stores_jobs(engine, gate, base: str, ids: list[str], prompts: list) -> dict:
-    """The jobs posted at once behind the gate, each one reaching the
-    engine's queue before the next is sent, so every set starts in one step
-    with the same submission order and runs the same dispatches."""
+def gated_jobs(engine, gate, ids: list[str], send) -> dict:
+    """The jobs ``send(k)`` posts, at once behind the gate, each one
+    reaching the engine's queue before the next is sent, so every set
+    starts in one step with the same submission order and runs the same
+    dispatches."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(max_workers=len(ids)) as pool:
         with gate.closed():
             futs = {}
-            for k, (i, p) in enumerate(zip(ids, prompts)):
-                futs[i] = pool.submit(stores_post, base, i, p)
+            for k, i in enumerate(ids):
+                futs[i] = pool.submit(send, k)
                 wait_until(lambda: engine._sched.pending() >= k + 1 or futs[i].done(), 120,
                            f"job {i} queued")
         return {i: f.result(600) for i, f in futs.items()}
+
+
+def stores_jobs(engine, gate, base: str, ids: list[str], prompts: list) -> dict:
+    return gated_jobs(engine, gate, ids, lambda k: stores_post(base, ids[k], prompts[k]))
 
 
 def stores_records(app, ids: list[str], tokens: list) -> dict:
@@ -8106,11 +8145,11 @@ def stores_records(app, ids: list[str], tokens: list) -> dict:
     }
 
 
-def stores_span_ms(exporter) -> dict:
+def stores_span_ms(exporter, names=STORES_SPANS) -> dict:
     """p50/p95 ms of each of the handler's spans, by name."""
     by: dict = {}
     for span in exporter.spans:
-        if span.name in STORES_SPANS and span.end_ns is not None:
+        if span.name in names and span.end_ns is not None:
             by.setdefault(span.name, []).append((span.end_ns - span.start_ns) / 1e6)
     return {name: ms_stats(v) for name, v in sorted(by.items())}
 
@@ -8388,8 +8427,359 @@ def run_stores(torch, cfg, params, dev=None) -> dict:
     return out
 
 
-PLANE_DEPTH = 8  # layers of the phases run at a cut depth (tenancy, healing, observability, HA,
-# fleet, http H1-H2, surface, device T, pubsub)
+ANALYTICS_NEW = 32  # greedy tokens a generation job
+ANALYTICS_TENANTS = ("acme", "globex", "initech")  # job k's tenant is k mod 3
+ANALYTICS_TURNS = ("handler", "submit", "submit", "handler")  # AN1, the 1000-token prompt
+ANALYTICS_SPANS = ("engine.generate", "columnar.insert", "columnar.async_insert", "graph.txn")
+ANALYTICS_LINT = ("gofr_tpu_torch", "chip_smoke.py", "tools_torch", "examples_torch")
+
+
+def analytics_example():
+    """``examples_torch/using-analytics/main.py``: the handlers the phase
+    serves."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "using_analytics", ROOT / "examples_torch" / "using-analytics" / "main.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def analytics_ffi() -> dict:
+    """AN3's FFI check, before the phase launches anything: every
+    ``extern "C"`` entry of ``csrc/*.cu`` against ``_build.SIGNATURES``."""
+    from gofr_tpu_torch.analysis.ffi import check_ffi, parse_c_exports
+
+    t = time.perf_counter()
+    findings = check_ffi(str(ROOT))
+    entries = sum(len(parse_c_exports(str(p))) for p in sorted(
+        (ROOT / "gofr_tpu_torch" / "csrc").glob("*.cu")))
+    out = {"entries": entries, "findings": [f.render() for f in findings],
+           "ms": (time.perf_counter() - t) * 1e3}
+    print(f"  AN3 ffi: {entries} extern \"C\" entries against _build.SIGNATURES, "
+          f"{len(findings)} finding(s) in {out['ms']:.1f} ms")
+    if findings or not entries:
+        raise AssertionError(f"AN3 ffi: {out}")
+    return out
+
+
+def analytics_an1(torch, example, engine, gate, prompts: list, gold: dict) -> dict:
+    """AN1: the jobs through an ``App`` whose columnar datasource is the
+    port's ClickHouse client on ``MiniClickHouseServer`` and whose graph is
+    an ``EmbeddedGraph``; the aggregate, the lineage and the tokens held to
+    the engine's own results."""
+    from gofr_tpu_torch.datasource.columnar import ClickHouseClient
+    from gofr_tpu_torch.datasource.graph import EmbeddedGraph
+    from gofr_tpu_torch.testutil import MiniClickHouseServer, start_app, stop_app
+    from gofr_tpu_torch.tracing import InMemoryExporter, SimpleSpanProcessor
+
+    fake = MiniClickHouseServer()
+    app = models_app("analytics", LOG_LEVEL="FATAL", SHUTDOWN_GRACE_PERIOD="30")
+    exporter = InMemoryExporter()
+    app.container.tracer.processor = SimpleSpanProcessor(exporter)
+    columnar, graph = ClickHouseClient(fake.url), EmbeddedGraph()
+    app.add_datasource("columnar", columnar)
+    app.add_datasource("graph", graph)
+    example.register(app, engine, max_new_tokens=ANALYTICS_NEW)
+    thread = start_app(app, timeout=120)
+    base = f"http://127.0.0.1:{app.http_port}"
+    ids = [f"job-{k}" for k in range(len(prompts))]
+    tenants = [ANALYTICS_TENANTS[k % len(ANALYTICS_TENANTS)] for k in range(len(prompts))]
+    try:
+        replies = gated_jobs(engine, gate, ids,
+                             lambda k: stores_post(base, ids[k], prompts[k], tenant=tenants[k]))
+        bad = {i: r[:2] for i, r in replies.items() if r[0] != 201}
+        if bad:
+            raise AssertionError(f"AN1 jobs: {bad}")
+        data = {i: replies[i][1]["data"] for i in ids}
+        parted = {}
+        for i, p in zip(ids, prompts):
+            verdict = same_or_close(torch, engine, p, data[i]["tokens"], gold[i]["tokens"],
+                                    f"AN1 {i} ({len(p)} tokens) against submit alone")
+            if not verdict["equal"]:
+                parted[i] = verdict
+        # the 1000-token prompt alone, in turns through the handler and submit
+        long_p = prompts[MAIN_LENS.index(1000)]
+        turns: dict = {"handler": [], "submit": [], "job_ms_client": [], "new_tokens": 0}
+        for k, who in enumerate(ANALYTICS_TURNS):
+            if who == "handler":
+                status, body, ms = stores_post(base, f"turn-{k}", long_p, tenant="turns")
+                if status != 201:
+                    raise AssertionError(f"AN1 turn: {status} {body}")
+                row = columnar.select(dict, "SELECT ttft_ms FROM usage WHERE job = {j:String}",
+                                      {"j": f"turn-{k}"})
+                turns["handler"].append(row[0]["ttft_ms"])
+                turns["job_ms_client"].append(ms)
+                turns["new_tokens"] += body["data"]["completion_tokens"]
+            else:
+                r = engine.submit(long_p, max_new_tokens=ANALYTICS_NEW, temperature=0.0).result(600)
+                turns["submit"].append(r.ttft_s * 1e3)
+        engine_count: dict = {}
+        for i, t in zip(ids, tenants):
+            engine_count[t] = engine_count.get(t, 0) + data[i]["completion_tokens"]
+        status, usage = get_json(base + "/usage")
+        usage = usage["data"] if status == 200 else status
+        aggregate = {t: u["new_tokens"] for t, u in usage.items()}
+        events = fake.rows("SELECT tenant, count(*) FROM job_events GROUP BY tenant "
+                           "ORDER BY tenant")
+        lineage = {}
+        for t in ANALYTICS_TENANTS:
+            status, body = get_json(f"{base}/lineage/{t}")
+            lineage[t] = [j["job"] for j in body["data"]["jobs"]] if status == 200 else status
+        # the path tenant -> job -> result, per job, in the graph itself
+        paths = 0
+        for i, t in zip(ids, tenants):
+            tenant_uid = graph.query(func={"eq": ["tenant", t]})[0]["uid"]
+            result_uid = graph.query(func={"eq": ["result", i]})[0]["uid"]
+            path = graph.shortest_path(tenant_uid, result_uid)
+            paths += len(path) == 3 and graph.query(func={"uid": path[1]})[0]["job"] == i
+        health = get_json(base + "/.well-known/health")[1]["data"]["details"]
+        span_ms = stores_span_ms(exporter, ANALYTICS_SPANS)
+        stats = sum(series_counts(app.container.metrics_manager, "app_sql_stats").values())
+        served = len(fake.rows("SELECT job FROM usage")) + len(fake.rows("SELECT job FROM job_events"))
+    finally:
+        stop_app(app, thread)
+        fake.close()
+    out = {"equal": len(ids) - len(parted), "of": len(ids), "parted": parted,
+           "aggregate": aggregate, "engine_count": engine_count,
+           "jobs_by_tenant": {t: usage[t]["jobs"] for t in usage} if isinstance(usage, dict)
+           else usage, "events": [list(e) for e in events],
+           "lineage": lineage, "paths": paths, "health": {k: health[k]["status"] for k in (
+               "columnar", "graph")}, "app_sql_stats": stats, "rows_written": served,
+           "job_ms_client": ms_stats([r[2] for r in replies.values()]),
+           "ttft_ms_turns_1000": turns, "span_ms": span_ms,
+           "records": {i: {"tenant": t, "tokens": data[i]["tokens"]}
+                       for i, t in zip(ids, tenants)}}
+    want_lineage = {t: sorted(i for i, u in zip(ids, tenants) if u == t) for t in ANALYTICS_TENANTS}
+    if not (aggregate.get("turns") == turns["new_tokens"]
+            and {t: n for t, n in aggregate.items() if t != "turns"} == engine_count
+            and lineage == want_lineage and paths == len(ids)
+            and [e[1] for e in events] == [len(want_lineage[t]) for t in sorted(want_lineage)]
+            + [ANALYTICS_TURNS.count("handler")]
+            and set(out["health"].values()) == {"UP"}):
+        raise AssertionError(f"AN1: { {k: v for k, v in out.items() if k != 'records'} }")
+    return out
+
+
+def analytics_an2(records: dict) -> dict:
+    """AN2: the same job records through the vendor facades: Oracle over
+    the port's sqlite, Surreal and Couchbase over the embedded document
+    store, Arango over a document store and a graph. Each reads back what
+    it wrote, and each health check is its backend's."""
+    from gofr_tpu_torch.datasource.compat import (ArangoFacade, CouchbaseFacade, OracleFacade,
+                                                  SurrealFacade)
+    from gofr_tpu_torch.datasource.document import EmbeddedDocumentStore
+    from gofr_tpu_torch.datasource.graph import EmbeddedGraph
+    from gofr_tpu_torch.datasource.sql.sqlite import SQLite
+
+    want = {i: {"tenant": r["tenant"], "tokens": " ".join(map(str, r["tokens"]))}
+            for i, r in records.items()}
+    out: dict = {}
+    ms: dict = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        got = fn()
+        ms[name] = (time.perf_counter() - t) * 1e3
+        return got
+
+    oracle = OracleFacade(SQLite(":memory:"))
+    oracle.connect()
+
+    def oracle_run():
+        oracle.exec("CREATE TABLE jobs (id TEXT PRIMARY KEY, tenant TEXT, tokens TEXT)")
+        tx = oracle.begin()
+        for i, r in want.items():
+            tx.exec_context("INSERT INTO jobs (id, tenant, tokens) VALUES (?, ?, ?)", i,
+                            r["tenant"], r["tokens"])
+        tx.commit()
+        return {row["id"]: {"tenant": row["tenant"], "tokens": row["tokens"]}
+                for row in oracle.select(dict, "SELECT id, tenant, tokens FROM jobs")}
+    out["oracle"] = timed("oracle", oracle_run) == want
+
+    surreal = SurrealFacade(EmbeddedDocumentStore())
+    surreal.connect()
+
+    def surreal_run():
+        surreal.use("gofr", "analytics")
+        for i, r in want.items():
+            surreal.create("jobs", {"_id": i, **r})
+        got = {}
+        for t in ANALYTICS_TENANTS:
+            for d in surreal.query("SELECT * FROM jobs WHERE tenant = $t", {"t": t}):
+                got[d["_id"]] = {"tenant": d["tenant"], "tokens": d["tokens"]}
+        return got
+    out["surreal"] = timed("surreal", surreal_run) == want
+
+    couch = CouchbaseFacade(EmbeddedDocumentStore(), bucket="jobs")
+    couch.connect()
+
+    def couch_run():
+        for i, r in want.items():
+            couch.insert(i, r)
+        by_key = {i: couch.get(i) for i in want}
+        by_query = {d["_id"]: {"tenant": d["tenant"], "tokens": d["tokens"]}
+                    for d in couch.query("SELECT * FROM `jobs`")}
+        return by_key == want and by_query == want
+    out["couchbase"] = timed("couchbase", couch_run)
+
+    arango = ArangoFacade(EmbeddedDocumentStore(), EmbeddedGraph())
+    arango.connect()
+
+    def arango_run():
+        arango.create_db("analytics")
+        arango.create_collection("analytics", "jobs", False)
+        arango.create_collection("analytics", "lineage", True)
+        arango.create_graph("analytics", "lineage", [{"collection": "lineage"}])
+        for i, r in want.items():
+            arango.create_document("analytics", "jobs", {"_id": f"jobs/{i}", **r})
+            arango.create_document("analytics", "lineage", {
+                "_from": f"tenants/{r['tenant']}", "_to": f"jobs/{i}"})
+        docs = {i: arango.get_document("analytics", "jobs", f"jobs/{i}") for i in want}
+        got = {i: {"tenant": d["tenant"], "tokens": d["tokens"]} for i, d in docs.items() if d}
+        edges = {t: len(arango.get_edges("analytics", "lineage", "lineage", f"tenants/{t}"))
+                 for t in ANALYTICS_TENANTS}
+        counts = {t: sum(r["tenant"] == t for r in want.values()) for t in ANALYTICS_TENANTS}
+        return got == want and edges == counts and arango.graph.health_check()["details"][
+            "nodes"] == len(want)
+    out["arango"] = timed("arango", arango_run)
+
+    health = {kind: f.health_check() for kind, f in (
+        ("oracle", oracle), ("surrealdb", surreal), ("couchbase", couch), ("arangodb", arango))}
+    out["health"] = {k: [h["status"], h["details"].get("facade")] for k, h in health.items()}
+    out["ms"] = ms
+    print(f"  AN2 facades: read back {out['oracle']=} {out['surreal']=} {out['couchbase']=} "
+          f"{out['arango']=}; health {out['health']}; ms {ms}")
+    if not (all(out[k] for k in ("oracle", "surreal", "couchbase", "arango"))
+            and all(h == ["UP", k] for k, h in out["health"].items())):
+        raise AssertionError(f"AN2: {out}")
+    return out
+
+
+def analytics_step_ms(engine, prompt) -> dict:
+    """The ms a decode step of a batch of 8 greedy rows, under the shim."""
+    res = [f.result(900) for f in [engine.submit(prompt(20), max_new_tokens=65,
+                                                 temperature=0.0) for _ in range(8)]]
+    return {"decode_ms_per_step_batch8": per_step_ms(res)}
+
+
+def analytics_an3(mon, t_lint: float) -> dict:
+    """AN3's lock-order half: the monitor's cycles (none allowed) and its
+    edges, and the runtime graph checked as a subgraph of lockcheck's
+    static graph of the port's tree."""
+    from gofr_tpu_torch.analysis.lockcheck import build_static_graph, check_subgraph
+    from gofr_tpu_torch.analysis.lockorder import format_cycles
+
+    cycles = mon.cycles()
+    runtime = mon.export_graph()
+    t = time.perf_counter()
+    static = build_static_graph([str(ROOT / p) for p in ANALYTICS_LINT])
+    static_s = time.perf_counter() - t
+    missing = check_subgraph(runtime, static)
+    out = {"locks_created": mon.locks_created, "runtime_edges": len(runtime["edges"]),
+           "runtime_nodes": len(runtime["nodes"]), "cycles": len(cycles),
+           "static_nodes": len(static["nodes"]), "static_edges": len(static["edges"]),
+           "missing_from_static": missing, "static_graph_s": static_s,
+           "lint_s": t_lint}
+    print(f"  AN3 lock order: {out['locks_created']} locks instrumented, "
+          f"{out['runtime_edges']} runtime edges over {out['runtime_nodes']} sites, "
+          f"{out['cycles']} cycle(s); static graph {out['static_nodes']} locks "
+          f"{out['static_edges']} edges; {len(missing)} runtime edge(s) missing from it")
+    for m in missing:
+        print(f"  AN3 missing: {m}")
+    if cycles:
+        raise AssertionError(f"AN3: {format_cycles(cycles)}")
+    return out
+
+
+def run_analytics(torch, cfg, params, dev=None) -> dict:
+    """The analytics phase: FFI first (AN3), then under the lock-order shim
+    one paged bf16 engine at ``cfg`` behind an ``App`` whose columnar and
+    graph datasources are ClickHouse on its fake and the embedded graph
+    (AN1), the vendor facades over the same records (AN2), and the
+    monitor's graph against lockcheck's (AN3). The counters are reset
+    before it; ``launches`` are the whole phase's."""
+    from gofr_tpu_torch.analysis import lockorder
+
+    dev = dev if dev is not None else torch.device("cuda")
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    out["ffi"] = analytics_ffi()
+    example = analytics_example()
+    rng = torch.Generator().manual_seed(SEED + 53)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist() for n in MAIN_LENS]
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    mem: dict = {}
+    conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32, multi_step=4,
+                max_new_tokens_default=ANALYTICS_NEW, prefill_chunk_tokens=256)
+    mon = lockorder.install()
+    try:
+        engine = build_engine(torch, cfg, params, conf, mem, "analytics")
+        out["memory"] = mem
+        gate = Gate(engine)
+        engine.start()
+        try:
+            t = time.perf_counter()
+            gold = {}
+            for k, p in enumerate(prompts):  # each prompt alone through submit
+                r = engine.submit(p, max_new_tokens=ANALYTICS_NEW, temperature=0.0).result(600)
+                gold[f"job-{k}"] = {"tokens": r.token_ids, "ttft_ms": r.ttft_s * 1e3}
+            out["gold_seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["AN1"] = analytics_an1(torch, example, engine, gate, prompts, gold)
+            out["AN1"]["seconds"] = time.perf_counter() - t
+            out["AN1"]["ttft_ms_submit_alone"] = ms_stats([g["ttft_ms"] for g in gold.values()])
+            records = out["AN1"].pop("records")
+            t = time.perf_counter()
+            out["AN2"] = analytics_an2(records)
+            out["AN2"]["seconds"] = time.perf_counter() - t
+            out["shim"] = analytics_step_ms(engine, prompt)
+        finally:
+            engine.stop()
+    finally:
+        lockorder.uninstall()
+    out["launches"] = launch_counts()
+    t = time.perf_counter()
+    from gofr_tpu_torch.analysis.__main__ import main as lint_main
+
+    lint_rc = lint_main(["--all", "--repo-root", str(ROOT)])
+    out["lint_rc"] = lint_rc
+    out["AN3"] = analytics_an3(mon, time.perf_counter() - t)
+    out["seconds"] = time.perf_counter() - t0
+    an1 = out["AN1"]
+    print(f"  AN1 ClickHouse and graph: {an1['equal']}/{an1['of']} jobs token-equal to submit "
+          f"alone; new tokens by tenant {an1['aggregate']} against the engine's "
+          f"{an1['engine_count']}; events {an1['events']}; lineage paths {an1['paths']}; "
+          f"app_sql_stats {an1['app_sql_stats']}; health {an1['health']}; job round trip p50 "
+          f"{an1['job_ms_client']['p50']:.1f} p95 {an1['job_ms_client']['p95']:.1f} ms (ten "
+          f"gated); TTFT of 1000 tokens alone through the handler "
+          f"{[round(x, 2) for x in an1['ttft_ms_turns_1000']['handler']]} ms, submit "
+          f"{[round(x, 2) for x in an1['ttft_ms_turns_1000']['submit']]} ms")
+    for name, s in an1["span_ms"].items():
+        print(f"  AN1 {name}: p50 {s['p50']:.2f} p95 {s['p95']:.2f} ms (n {s['n']})")
+    print(f"  analytics decode under the lock-order shim: "
+          f"{out['shim']['decode_ms_per_step_batch8']:.2f} ms a step (batch of 8)")
+    print_launches("analytics", out["launches"])
+    print(f"  analytics: {out['seconds']:.1f}s (gold {out['gold_seconds']:.1f}s, AN1 "
+          f"{an1['seconds']:.1f}s, AN2 {out['AN2']['seconds']:.1f}s, lint rc {lint_rc}; "
+          f"{out['card']})")
+    if lint_rc != 0:
+        raise AssertionError(f"python -m gofr_tpu_torch.analysis --all exited {lint_rc}")
+    if not (out["launches"].get("flash_attention") and out["launches"].get(
+            "paged_decode_attention")) or out["launches"].get("paged_decode_attention_q"):
+        raise AssertionError(f"analytics launches {out['launches']}")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+PLANE_DEPTH = 8  # layers of the phases run at a cut depth (kv-reuse and spec, tenancy, healing,
+# observability, HA, fleet, http H1-H2, surface, device T, pubsub)
 
 
 def cut_depth(cfg, params, n_layers: int):
@@ -8475,8 +8865,9 @@ def run_engine(torch) -> tuple[dict, ...]:
     print("lifecycle phase (dense bf16 and paged int8 engines, full depth):")
     lifecycle = run_lifecycle(torch, cfg, params)
     torch.cuda.empty_cache()
-    print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, full depth):")
-    reuse = run_kv_reuse_spec(torch, cfg, params)
+    print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, "
+          f"{PLANE_DEPTH} layers):")
+    reuse = run_kv_reuse_spec(torch, *cut_depth(cfg, params, PLANE_DEPTH))
     torch.cuda.empty_cache()
     # the planes at a cut depth keep the script inside its time limit as
     # later phases are added
@@ -8520,10 +8911,10 @@ def run_engine(torch) -> tuple[dict, ...]:
             surface)
 
 
-def sql_phase(torch) -> tuple[dict, dict, dict, dict]:
+def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict]:
     """The sql phase at Llama-3-8B widths and full depth, then the pubsub
-    phase (at ``PLANE_DEPTH`` layers), the files phase and the stores phase on
-    the same weights. The weights are made again from ``SEED``
+    phase (at ``PLANE_DEPTH`` layers), the files phase, the stores phase and
+    the analytics phase on the same weights. The weights are made again from ``SEED``
     (the same tensors ``run_engine`` served; the main paths' copy was freed
     before the models and device phases, which need the room), and the time
     to make them is recorded."""
@@ -8555,9 +8946,16 @@ def sql_phase(torch) -> tuple[dict, dict, dict, dict]:
           "127.0.0.1, with the card's memory sampled into a time-series store; then the same jobs "
           f"over the embedded stores; paged int8, the same weights, {cfg.n_layers} layers):")
     stores = run_stores(torch, cfg, params)
+    torch.cuda.empty_cache()
+    print("analytics phase (the FFI check of csrc against _build.SIGNATURES; generation jobs "
+          "metered in ClickHouse (the port's fake on 127.0.0.1) and linked in the graph store, "
+          "the vendor facades over the same records, all under the lock-order shim checked "
+          f"against lockcheck's static graph; paged bf16, the same weights, {cfg.n_layers} "
+          "layers):")
+    analytics = run_analytics(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
-    return out, pubsub, files, stores
+    return out, pubsub, files, stores, analytics
 
 
 def main() -> int:
@@ -8607,7 +9005,7 @@ def main() -> int:
 
     device = run_device(torch, LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH),
                         MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
-    sql, pubsub, files, stores = sql_phase(torch)
+    sql, pubsub, files, stores, analytics = sql_phase(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -8620,6 +9018,7 @@ def main() -> int:
         r["launches_pubsub"] = pubsub["launches"].get(r["name"], 0)
         r["launches_files"] = files["launches"].get(r["name"], 0)
         r["launches_stores"] = stores["launches"].get(r["name"], 0)
+        r["launches_analytics"] = analytics["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -8641,6 +9040,7 @@ def main() -> int:
     print(json.dumps({"pubsub": pubsub}, default=str))
     print(json.dumps({"files": files}, default=str))
     print(json.dumps({"stores": stores}, default=str))
+    print(json.dumps({"analytics": analytics}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

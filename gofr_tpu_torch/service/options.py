@@ -14,6 +14,7 @@ custom health endpoint/timeout (health_config.go:5-31).
 from __future__ import annotations
 
 import base64
+import collections
 import dataclasses
 import threading
 import time
@@ -85,7 +86,12 @@ class CircuitBreaker(_Wrapper):
         self._open = False
         self._lock = threading.Lock()
         self._probe_thread: threading.Thread | None = None
-        self._stop = threading.Event()
+        self._probe_stop: threading.Event | None = None
+        # transitions not yet published to the gauge and the hook, in the
+        # order the state changed; one thread at a time drains them (Queue C
+        # 58: a reopening racing the closing probe reordered them)
+        self._pending: collections.deque[bool] = collections.deque()
+        self._publishing = False
         # optional hook fired on every open/close transition (bool: open).
         # The router tier wires it into replica membership — the breaker
         # opening marks the replica DOWN ahead of the heartbeat timers
@@ -166,28 +172,66 @@ class CircuitBreaker(_Wrapper):
             opened = self._failures >= self.threshold and not self._open
             if opened:
                 self._open = True
+                self._pending.append(True)
                 self._start_probe()
         if opened:
-            self._set_state_gauge(True)
-            self._notify_state(True)
+            self._publish()
+
+    def _publish(self) -> None:
+        """Publish queued transitions to the gauge and the hook in the order
+        they happened. A transition queued while another thread (or the hook
+        itself, re-entering) publishes is left to that publisher, so the
+        last value published is always the breaker's current state."""
+        with self._lock:
+            if self._publishing:
+                return
+            self._publishing = True
+        while True:
+            with self._lock:
+                if not self._pending:
+                    # cleared under the same hold as the emptiness test, so a
+                    # transition queued after it finds no publisher and
+                    # publishes itself
+                    self._publishing = False
+                    return
+                open_ = self._pending.popleft()
+            try:
+                self._set_state_gauge(open_)
+                self._notify_state(open_)
+            except BaseException:  # a hook's SystemExit: hand the queue back, then re-raise
+                with self._lock:
+                    self._publishing = False
+                raise
 
     def _start_probe(self) -> None:
-        """Async recovery loop (circuit_breaker.go:100-119)."""
-        self._stop.clear()
-        self._probe_thread = threading.Thread(target=self._probe_loop, daemon=True, name="cb-probe")
+        """Async recovery loop (circuit_breaker.go:100-119). Each probe has
+        its own stop event: a closing probe can no longer end the probe
+        that a reopening started behind it (Queue C 58)."""
+        self._probe_stop = threading.Event()
+        self._probe_thread = threading.Thread(
+            target=self._probe_loop, args=(self._probe_stop,), daemon=True, name="cb-probe")
         self._probe_thread.start()
 
-    def _probe_loop(self) -> None:
-        while not self._stop.wait(self.interval):
+    def _probe_loop(self, stop: threading.Event) -> None:
+        while not stop.wait(self.interval):
             health = self._inner.health_check()
             if health.get("status") == "UP":
                 with self._lock:
                     self._open = False
                     self._failures = 0
-                self._set_state_gauge(False)
-                self._notify_state(False)
-                self._stop.set()
+                    self._pending.append(False)
+                self._publish()
                 return
+
+    def close(self) -> None:
+        """Stop a live probe, then close the inner client."""
+        with self._lock:
+            stop = self._probe_stop
+        if stop is not None:
+            stop.set()
+        inner_close = getattr(self._inner, "close", None)
+        if inner_close is not None:
+            inner_close()
 
     def health_check(self) -> dict[str, Any]:
         if self._open:

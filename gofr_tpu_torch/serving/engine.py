@@ -549,6 +549,7 @@ def _block_sync(packed: torch.Tensor) -> np.ndarray:
     host. The pipelined decode and ragged blocks and the speculative
     verify step read through here and nowhere else, so a test can count
     the syncs (a prefill's first token is ``_first_token``'s own)."""
+    # gofrlint: disable=host-sync -- the dispatch's one sanctioned read of a block
     return packed.cpu().numpy()
 
 
@@ -1979,6 +1980,8 @@ class ServingEngine:
                 self._log("error", f"serving engine step error: {exc}",
                           stack=traceback.format_exc(limit=20))
                 self._fail_all(exc)
+                # gofrlint: disable=blocking-call -- error backoff in the
+                # dedicated engine thread, bounded by idle_sleep_s
                 time.sleep(self.config.idle_sleep_s)
 
     def _plan_step(self) -> StepPlan:
@@ -2611,6 +2614,7 @@ class ServingEngine:
         first = sample_logits(
             last_logits, gen, temperature=req.temperature, top_k=req.top_k, top_p=req.top_p
         )
+        # gofrlint: disable=host-sync -- a prefill's sanctioned read: its first token is needed now
         return int(first[0])
 
     def _commit_prefilled(self, slot: int, req: _Request, first_id: int, resident: int) -> None:

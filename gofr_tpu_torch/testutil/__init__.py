@@ -6,10 +6,12 @@ file systems and the Redis client talk to: ``FakeObjectStore`` (S3 and
 GCS), ``MiniFTPServer``, ``MiniSFTPServer`` and ``MiniRedisServer``, and the
 servers the KV, document, wide-column and search drivers talk to:
 ``MiniDynamoDBServer``, ``MiniMongoServer``, ``MiniCassandraServer`` and
-``MiniSolrServer``)."""
+``MiniSolrServer``, and the ClickHouse HTTP server the columnar driver talks
+to, ``MiniClickHouseServer``)."""
 
 from gofr_tpu_torch.testutil.apps import fetch, start_app, stop_app, wait_ready
 from gofr_tpu_torch.testutil.cassandra_server import MiniCassandraServer
+from gofr_tpu_torch.testutil.clickhouse_server import MiniClickHouseServer
 from gofr_tpu_torch.testutil.dynamodb_server import MiniDynamoDBServer
 from gofr_tpu_torch.testutil.eventhub_server import MiniEventHubServer
 from gofr_tpu_torch.testutil.ftp_server import MiniFTPServer
@@ -24,7 +26,8 @@ from gofr_tpu_torch.testutil.redis_server import MiniRedisServer
 from gofr_tpu_torch.testutil.sftp_server import MiniSFTPServer
 from gofr_tpu_torch.testutil.solr_server import MiniSolrServer
 
-__all__ = ["FakeObjectStore", "MiniCassandraServer", "MiniDynamoDBServer", "MiniEventHubServer",
+__all__ = ["FakeObjectStore", "MiniCassandraServer", "MiniClickHouseServer",
+           "MiniDynamoDBServer", "MiniEventHubServer",
            "MiniFTPServer", "MiniKafkaBroker", "MiniMQTTBroker", "MiniMongoServer",
            "MiniNatsBroker", "MiniRedisServer", "MiniSFTPServer", "MiniSolrServer",
            "MockContainer", "ServerConfigs", "fetch", "get_free_port", "new_mock_container",

@@ -7,7 +7,9 @@ table, KIP-98's record batch layout, MQTT 3.1.1 §2.2.3 and §3.1, AMQP 1.0
 command and reply frames, RFC 4251's SSH data types and RFC 4253's
 banner, bsonspec.org's BSON documents and every element type the Mongo
 driver moves, and the CQL binary protocol v4's request, batch, result and
-error frames), each vector run on both packages' codecs; then seeded
+error frames), each vector run on both packages' codecs; the ClickHouse
+HTTP client's request bytes (line, headers, body) for the same query and
+parameters from both packages; then seeded
 hypothesis cases in which each port encoder gives the reference's bytes for
 the same record batch with headers, MQTT packet, NATS ``HPUB`` frame, AMQP
 value, BSON document and CQL rows result, and each decoder inverts the other
@@ -505,3 +507,77 @@ def test_cql_rows_bytes_equal_and_cross_decode(rows):
     ours, theirs = tcql.encode_rows(rows), rcql.encode_rows(rows)
     assert ours == theirs
     assert tcql.decode_result(theirs) == rcql.decode_result(ours) == (tcql.RESULT_ROWS, rows)
+
+
+# ---------------------------------------------------------------- ClickHouse HTTP
+def _capture_http_request(send) -> bytes:
+    """The bytes of one HTTP request that ``send(url)`` makes, read by a
+    one-shot server on 127.0.0.1 that answers 200 with an empty body; the
+    server's port, which differs between captures, reads ``PORT``."""
+    import threading
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    got = []
+
+    def serve():
+        conn, _ = srv.accept()
+        with conn:
+            data = b""
+            while b"\r\n\r\n" not in data:
+                data += conn.recv(65536)
+            head, _, body = data.partition(b"\r\n\r\n")
+            length = next((int(ln.split(b":")[1]) for ln in head.split(b"\r\n")
+                           if ln.lower().startswith(b"content-length:")), 0)
+            while len(body) < length:
+                body += conn.recv(65536)
+            got.append(head + b"\r\n\r\n" + body)
+            conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Length: 0\r\nConnection: close\r\n\r\n")
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    port = srv.getsockname()[1]
+    try:
+        send(f"http://127.0.0.1:{port}")
+        t.join(10)
+    finally:
+        srv.close()
+    return got[0].replace(b"127.0.0.1:%d" % port, b"127.0.0.1:PORT")
+
+
+CLICKHOUSE_CALLS = {
+    "select_params": lambda c: c.select(
+        dict, "SELECT route, count(*) AS n FROM events WHERE route = {r:String} AND ok = {b:Bool} "
+        "GROUP BY route;", {"r": "/gen erate&x=1", "b": True}),
+    "exec": lambda c: c.exec("CREATE TABLE IF NOT EXISTS t (a Int32)"),
+    "async_insert": lambda c: c.async_insert(
+        "INSERT INTO t VALUES ({a:Int32}, {s:String})", {"a": -7, "s": "é 'q'"}),
+    "insert_rows": lambda c: c.insert_rows("usage", [
+        {"job": "j1", "n": 3, "ms": 1.5}, {"job": "j2", "n": 0, "ms": None}]),
+    "connect": lambda c: c.connect(),
+}
+
+
+@pytest.mark.parametrize("call", sorted(CLICKHOUSE_CALLS))
+def test_clickhouse_request_bytes_equal(call):
+    """The same query and parameters give the same HTTP request from both
+    clients: request line (the URL-encoded query, database, settings and
+    ``param_<name>`` values), headers (user and key) and body."""
+    from gofr_tpu.datasource.columnar import ClickHouseClient as RClient
+    from gofr_tpu_torch.datasource.columnar import ClickHouseClient as TClient
+
+    frames = {}
+    for side, cls in (("ref", RClient), ("port", TClient)):
+        def send(url, cls=cls):
+            client = cls(url=url, user="gofr", password="s3cret", database="analytics")
+            CLICKHOUSE_CALLS[call](client)
+        frames[side] = _capture_http_request(send)
+    assert frames["port"] == frames["ref"]
+    line = frames["port"].split(b"\r\n")[0]
+    assert line.startswith(b"POST /?query=") and b"database=analytics" in line
+    assert b"X-Clickhouse-User: gofr" in frames["port"]  # urllib capitalizes the names
+    assert b"X-Clickhouse-Key: s3cret" in frames["port"]
+    if call == "async_insert":
+        assert b"async_insert=1&wait_for_async_insert=0" in line
+        assert b"param_a=-7" in line

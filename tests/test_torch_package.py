@@ -792,3 +792,76 @@ def test_store_modules_are_checked_and_connect_without_a_card(no_card):
     finally:
         for server in (dyn, mongo, cas, solr):
             server.close()
+
+
+ANALYTICS_MODULES = (
+    "gofr_tpu_torch/datasource/columnar/__init__.py", "gofr_tpu_torch/datasource/graph/__init__.py",
+    "gofr_tpu_torch/datasource/compat.py", "gofr_tpu_torch/testutil/clickhouse_server.py",
+    "gofr_tpu_torch/testutil/capture.py", "gofr_tpu_torch/version.py",
+    "gofr_tpu_torch/analysis/__init__.py", "gofr_tpu_torch/analysis/__main__.py",
+    "gofr_tpu_torch/analysis/core.py", "gofr_tpu_torch/analysis/rules.py",
+    "gofr_tpu_torch/analysis/baseline_io.py", "gofr_tpu_torch/analysis/sarif.py",
+    "gofr_tpu_torch/analysis/audit.py", "gofr_tpu_torch/analysis/ffi.py",
+    "gofr_tpu_torch/analysis/lockorder.py", "gofr_tpu_torch/analysis/lockcheck.py",
+)
+
+
+def test_analytics_modules_are_checked_and_wire_without_a_card(no_card):
+    """The columnar, graph and facade datasources, the ClickHouse fake, the
+    analyzer and the analytics example and tool are among the files the
+    import rules hold. They are host code: an ``App`` takes the ClickHouse
+    client on its fake, the graph and the facades, and shows them UP in
+    health without a card; the analyzer's modules import no torch of their
+    own (it lints a tree, it runs nothing of it) and nothing of JAX or the
+    JAX package at run time; the example's routes register on an App
+    whose engine is never built here."""
+    import importlib.util
+    import subprocess
+    import sys
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.datasource.columnar import ClickHouseClient
+    from gofr_tpu_torch.datasource.compat import CouchbaseFacade, OracleFacade
+    from gofr_tpu_torch.datasource.document import EmbeddedDocumentStore
+    from gofr_tpu_torch.datasource.graph import EmbeddedGraph
+    from gofr_tpu_torch.datasource.sql.sqlite import SQLite
+    from gofr_tpu_torch.testutil import MiniClickHouseServer, capture
+
+    assert len(ANALYTICS_MODULES) == 16
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(ANALYTICS_MODULES) <= files
+    for rel in ("examples_torch/using-analytics/main.py", "tools_torch/analytics_phase.py"):
+        bad = {n for n in _imported(ROOT / rel) if n.split(".")[0] in FORBIDDEN}
+        assert not bad, f"{rel} imports {sorted(bad)}"
+    for rel in ANALYTICS_MODULES:
+        if "/analysis/" in rel:
+            assert not {n for n in _imported(ROOT / rel) if n.split(".")[0] == "torch"}, rel
+    code = ("import sys, gofr_tpu_torch.analysis.__main__, gofr_tpu_torch.analysis.lockcheck; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'gofr_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+    spec = importlib.util.spec_from_file_location(
+        "using_analytics", ROOT / "examples_torch" / "using-analytics" / "main.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    fake = MiniClickHouseServer()
+    try:
+        app = App(MapConfig({"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL"},
+                            use_env=False))
+        app.add_datasource("columnar", ClickHouseClient(fake.url))
+        app.add_datasource("graph", EmbeddedGraph())
+        app.add_datasource("oracle", OracleFacade(SQLite(":memory:")))
+        app.add_datasource("couchbase", CouchbaseFacade(EmbeddedDocumentStore()))
+        example.register(app, engine=None)
+        details = app.container.health()["details"]
+        for name in ("columnar", "graph", "oracle", "couchbase"):
+            assert details[name]["status"] == "UP", (name, details[name])
+        assert [r[0] for r in fake.rows(
+            "SELECT name FROM sqlite_master WHERE type = 'table' ORDER BY name")] == [
+            "job_events", "usage"]
+        app.container.close()
+    finally:
+        fake.close()
+    assert capture.stdout_output_for_func(lambda: print("hi")) == "hi\n"

@@ -225,10 +225,106 @@ def test_circuit_breaker_transitions(seed):
                     while cb.is_open and time.monotonic() < deadline:
                         time.sleep(0.005)
                     assert not cb.is_open
+                    # the closing probe publishes after it clears the state:
+                    # let it finish before the next request, or the next
+                    # failures race it (Queue C 58, still in the reference)
+                    cb._probe_thread.join(timeout=5)
+                    assert not cb._probe_thread.is_alive()
         gauge = metrics.get("app_service_breaker_state").value({"address": "http://scripted"})
         got[name] = (record, transitions, inner.calls, gauge)
     assert got["port"] == got["ref"]
     assert True in got["port"][1] or "CircuitBreakerError" not in got["port"][0]
+
+
+def test_breaker_reopened_while_its_probe_closes_recovers():
+    """Queue C 58: three failing requests made from the first
+    ``on_state_change(False)`` reopen the breaker while its probe closes it.
+    The reference's closing probe then sets the shared stop event and ends
+    the new probe: it stays open with no probe alive. The port's closes again,
+    publishing every transition in order."""
+    got = {}
+    for name, (_, opts, manager, _) in SIDES.items():
+        inner = Scripted(opts, [503] * 6, [])
+        metrics = manager()
+        metrics.new_gauge("app_service_breaker_state", "d")
+        inner.metrics = metrics
+        cb = opts.CircuitBreakerConfig(threshold=3, interval=0.01).add_option(inner)
+        transitions = []
+
+        def hook(open_, cb=cb, transitions=transitions):
+            transitions.append(open_)
+            if open_ is False and transitions.count(False) == 1:
+                for i in range(3):
+                    cb.request("GET", f"/again{i}")
+
+        cb.on_state_change = hook
+        for i in range(3):
+            cb.request("GET", f"/r{i}")
+        time.sleep(1.0)
+        probe = cb._probe_thread
+        gauge = metrics.get("app_service_breaker_state").value({"address": "http://scripted"})
+        got[name] = (cb.is_open, probe.is_alive(), transitions, gauge)
+    ref_open, ref_probing, _, _ = got["ref"]
+    assert ref_open and not ref_probing
+    port_open, port_probing, transitions, gauge = got["port"]
+    assert not port_open and not port_probing
+    assert transitions == [True, False, True, False]
+    assert gauge == (1.0 if port_open else 0.0)
+
+
+def test_breaker_transitions_alternate_under_contention():
+    """More threads than cores open and close the port's breaker over and
+    over (threshold 1, a probe every millisecond, the switch interval
+    shortened): the transitions it publishes alternate open, closed, open,
+    ..., and once the last probe has ended the gauge equals ``is_open``."""
+    import sys
+
+    inner = Scripted(t_options, [503] * 100000, [])
+    metrics = t_manager()
+    metrics.new_gauge("app_service_breaker_state", "d")
+    inner.metrics = metrics
+    cb = t_options.CircuitBreakerConfig(threshold=1, interval=0.001).add_option(inner)
+    transitions = []
+    cb.on_state_change = transitions.append
+    deadline = time.monotonic() + 3.0
+
+    def worker():
+        while time.monotonic() < deadline:
+            try:
+                cb.request("GET", "/x")
+            except t_options.CircuitBreakerError:
+                pass
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    t_end = time.monotonic() + 10
+    while cb.is_open and time.monotonic() < t_end:
+        time.sleep(0.005)
+    cb._probe_thread.join(timeout=10)
+    assert not cb.is_open and not cb._probe_thread.is_alive()
+    assert len(transitions) >= 4
+    assert transitions == [k % 2 == 0 for k in range(len(transitions))]
+    assert metrics.get("app_service_breaker_state").value({"address": "http://scripted"}) == 0.0
+
+
+def test_breaker_close_stops_a_live_probe():
+    inner = Scripted(t_options, [503] * 3, [False] * 1000)
+    cb = t_options.CircuitBreakerConfig(threshold=3, interval=0.01).add_option(inner)
+    for i in range(3):
+        cb.request("GET", f"/r{i}")
+    assert cb.is_open and cb._probe_thread.is_alive()
+    cb.close()
+    cb._probe_thread.join(timeout=5)
+    assert not cb._probe_thread.is_alive() and cb.is_open
 
 
 @pytest.mark.parametrize("seed", range(8))
