@@ -270,8 +270,9 @@ Phases, each a hard failure with a non-zero exit:
      logits, the load-balance loss finite, positive and equal to
      ``load_balance_loss``'s own pass, a backward reaching exactly the
      experts a token was routed to;
-   then the sql phase, at Llama-3-8B widths and full depth (the weights
-   made again from the seed), the launch counters reset before it:
+   then the sql phase, at Llama-3-8B widths and ``PLANE_DEPTH`` layers (the
+   weights made again from the seed; the files, stores and analytics
+   phases' engines too), the launch counters reset before it:
    - ``S1`` an ``App`` on 127.0.0.1 with ``DB_DIALECT=sqlite`` (a temporary
      file) and ``app.add_tpu(new_tpu(config))``; ``app.migrate``: version 1
      the ``prompt`` and ``generation`` tables, 2 the main path's ten
@@ -365,7 +366,7 @@ Phases, each a hard failure with a non-zero exit:
    it prints a ``{"files": ...}`` line; its launches are the ``kernels``
    rows' ``launches_files``. Without the ``cryptography`` package the
    SFTP legs are not built and one line says why; then the stores phase on
-   the same weights at full depth, the launch counters reset before it: one
+   the same weights, the launch counters reset before it: one
    paged int8 engine (the int8 path's config) and the main path's ten
    prompts each alone through ``submit`` as the gold, behind an ``App``
    that serves ``examples_torch/using-datastores``: ``POST /jobs/{id}``
@@ -401,7 +402,7 @@ Phases, each a hard failure with a non-zero exit:
    round trip and the phase's flash and int8 paged launches (bf16 paged
    none); it prints a ``{"stores": ...}`` line; its launches are the
    ``kernels`` rows' ``launches_stores``; then the analytics phase on the
-   same weights at full depth, the launch counters reset before it: first
+   same weights, the launch counters reset before it: first
    ``analysis.ffi`` holds every ``extern "C"`` entry of ``csrc/*.cu`` to
    ``_build.SIGNATURES`` (no finding), then, with ``analysis.lockorder``
    installed before the engine and the ``App`` are built, one paged bf16
@@ -425,8 +426,10 @@ Phases, each a hard failure with a non-zero exit:
    - ``AN3`` after a batch of 8 decode rows (ms a step under the shim,
      a record), the shim uninstalled: no lock-order cycle, its runtime
      graph checked with ``lockcheck.check_subgraph`` against the static
-     graph of the port's tree (each missing edge printed), and
-     ``python -m gofr_tpu_torch.analysis --all`` exiting 0;
+     graph of the port's tree (each missing edge printed),
+     ``python -m gofr_tpu_torch.analysis --all`` exiting 0, and
+     ``chaoscov`` finding every chaos point scheduled by a test of the
+     port's chaos tier (``missing`` empty);
    the spans' ms (p50/p95), a job's round trip and the phase's flash and
    bf16 paged launches (int8 paged none); it prints an
    ``{"analytics": ...}`` line; its launches are the ``kernels`` rows'
@@ -439,7 +442,26 @@ Phases, each a hard failure with a non-zero exit:
    of one decode block of each layout (bf16 and int8 weights on the dense
    cache); and time each engine path (TTFT, ms per decode step).
 
-The line before the last is the ``kernels`` record; the last line is the
+The analyzers' runtime twins ride the phases above, and each prints its
+result and the seconds it added:
+
+- ``K``: on each of the four main paths, after its timings (which it
+  leaves as they were), and on the spec engines of ``S1`` and ``S2``,
+  after their records: the path's prompts twice, greedy, each set
+  admitted in one plan step behind a gate, bare and then under
+  ``analysis.kerneltrace.KernelObserver``; ``check_kernel_table`` of the
+  observed export is empty, every entry of ``K_EXPECT`` for that engine is
+  observed, and each kernel launches as often observed as bare; each
+  entry's distinct signatures and both passes' ms a step are recorded;
+- ``L``: ``analysis.leaktrace`` installed before the lifecycle phase builds
+  its first engine; after it stopped them, nothing is live and
+  ``leakcheck.check_coverage`` is empty; acquires and releases by kind;
+- ``D``: ``analysis.deadlinetrace`` over the HA and fleet phases: no budget
+  widened, none negative, ``check_deadline_coverage`` empty, every
+  boundary of ``D_EXPECT`` crossed; the crossings by site.
+
+They print as an ``{"analysis": ...}`` line after the card's line. The
+line before the last is the ``kernels`` record; the last line is the
 contract line ``{"ok": true, "device": {...}}``. Without a card, or run
 outside a checkout that holds ``gofr_tpu_torch/``, it exits non-zero and
 prints no result. Imports nothing of JAX or of ``gofr_tpu``.
@@ -966,6 +988,8 @@ def dispatch_busy(torch, cfg, params, params_w8) -> dict:
                 torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int64, device=dev),
                 torch.ones(B, device=dev), [SEED], torch.zeros(B, dtype=torch.bool, device=dev), 0,
             )[0].cpu())
+        for b in range(B):
+            pc.free_slot(b)
         del pc, pools
     from gofr_tpu_torch.models.llama import KVCache
 
@@ -1193,6 +1217,9 @@ def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, 
                           if r.completion_tokens > 1)
         timings["decode_ms_per_step_batch8"] = per_step[len(per_step) // 2] if per_step else None
         timings["main_path_ttft_ms_max"] = max(r.ttft_s for r in results) * 1e3
+        # K: after the timings, which it leaves as they were, over the ten
+        # main prompts (the long prompt adds chunks, not entries)
+        kernel_pass(torch, engine, name, prompts[:len(MAIN_LENS)])
         return launches, timings
     finally:
         engine.stop()
@@ -1920,6 +1947,8 @@ def spec_path(torch, cfg, params, name: str, conf: dict, prompts: list, check_id
             launches = launch_counts()
             stats = dict(engine.spec_stats)
             check = check_spec_logits(torch, engine, check_ids, 16) if mode == "spec" else None
+            if mode == "spec":  # K: after the spec records, which it leaves as they were
+                kernel_pass(torch, engine, name, prompts[:K_SPEC_PROMPTS])
         finally:
             engine.stop()
         del engine
@@ -5855,7 +5884,7 @@ class PeakRss:
 
     def __exit__(self, *exc) -> None:
         self._stop.set()
-        self._thread.join()
+        self._thread.join(5.0)
         self.peak = max(self.peak, rss_mib())
 
 
@@ -6891,6 +6920,8 @@ def sql_s2(app, base: str, rows: list, held: dict) -> dict:
         "reply", fetch(base + "/hold", "POST", b"{}", {"Content-Type": "application/json"}, 120)))
     holder.start()
     if not held["open"].wait(60):
+        held["release"].set()
+        holder.join(120)
         raise AssertionError("S2: the holding handler never opened its transaction")
     done: dict = {}
 
@@ -8750,6 +8781,13 @@ def run_analytics(torch, cfg, params, dev=None) -> dict:
     lint_rc = lint_main(["--all", "--repo-root", str(ROOT)])
     out["lint_rc"] = lint_rc
     out["AN3"] = analytics_an3(mon, time.perf_counter() - t)
+    from gofr_tpu_torch.analysis.chaoscov import check_chaos_coverage
+
+    chaos_cov = check_chaos_coverage(str(ROOT))
+    out["AN3"]["chaos_missing"] = chaos_cov["missing"]
+    out["AN3"]["chaos_test_files"] = len(chaos_cov["test_files"])
+    print(f"  AN3 chaos coverage: {len(chaos_cov['points'])} points over "
+          f"{len(chaos_cov['test_files'])} chaos-tier test files, missing {chaos_cov['missing']}")
     out["seconds"] = time.perf_counter() - t0
     an1 = out["AN1"]
     print(f"  AN1 ClickHouse and graph: {an1['equal']}/{an1['of']} jobs token-equal to submit "
@@ -8770,11 +8808,155 @@ def run_analytics(torch, cfg, params, dev=None) -> dict:
           f"{out['card']})")
     if lint_rc != 0:
         raise AssertionError(f"python -m gofr_tpu_torch.analysis --all exited {lint_rc}")
+    if chaos_cov["missing"]:
+        raise AssertionError(f"--chaos-coverage: points scheduled by no test {chaos_cov['missing']}")
     if not (out["launches"].get("flash_attention") and out["launches"].get(
             "paged_decode_attention")) or out["launches"].get("paged_decode_attention_q"):
         raise AssertionError(f"analytics launches {out['launches']}")
     del engine
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- analysis twins
+K_NEW = 4  # K: new tokens of each request of the bare and the observed pass (one block)
+K_SPEC_PROMPTS = 4  # K: the spec engines' prompts in each pass
+ANALYSIS_TREE = ("gofr_tpu_torch", "chip_smoke.py", "tools_torch", "examples_torch")
+# K: the entries each observed engine's traffic must reach (the bf16 path
+# prefills every prompt whole; the others chunk their long prompts)
+K_EXPECT = {
+    "bf16": {"prefill_compute", "_write_pages", "admit_decode_state", "decode_block_paged",
+             "flash_attention", "paged_decode_attention"},
+    "int8": {"prefill_compute", "_write_pages", "_write_pages_q", "admit_decode_state",
+             "decode_block_paged_q", "ragged_step_paged_q", "flash_attention",
+             "paged_decode_attention_q"},
+    "dense": {"prefill_compute", "insert_slot", "admit_decode_state", "decode_block",
+              "ragged_step", "flash_attention"},
+    "dense-w8": {"prefill_compute", "insert_slot_quantized", "admit_decode_state",
+                 "decode_block", "ragged_step", "flash_attention"},
+    "S1": {"prefill_compute", "insert_slot", "verify_and_sample", "flash_attention"},
+    "S2": {"prefill_compute", "_write_pages", "_write_pages_q", "verify_and_sample_paged_q",
+           "flash_attention"},
+}
+# D: the boundaries the HA and fleet phases cross (submits to engines and
+# through routers to their replicas, KV migration, the P/D handoff; their
+# re-attaches go to the engine, which is no budget boundary)
+D_EXPECT = {"ServingEngine.submit", "Router.submit", "LocalReplica.submit",
+            "KVMigrator.fetch_chain", "KVMigrator.fetch_handoff"}
+ANALYSIS: dict = {"K": {}}  # the {"analysis": ...} record: K by path, then L and D
+
+
+def analysis_paths() -> list[str]:
+    return [str(ROOT / p) for p in ANALYSIS_TREE]
+
+
+def kernel_pass(torch, engine, name: str, prompts: list) -> dict:
+    """K: ``prompts`` twice on ``engine``, greedy, each set admitted in one
+    plan step behind a gate, first bare, then under ``KernelObserver``.
+    The observed pass's export must match the contract table
+    (``check_kernel_table`` empty), reach every entry of ``K_EXPECT[name]``
+    and launch each kernel as often as the bare pass; it records each
+    entry's distinct signatures and both passes' ms a decode step."""
+    from gofr_tpu_torch.analysis.kernelcheck import check_kernel_table
+    from gofr_tpu_torch.analysis.kerneltrace import KernelObserver
+
+    t0 = time.perf_counter()
+    gate = Gate(engine)
+    passes = {}
+    for mode in ("bare", "observed"):
+        obs = KernelObserver() if mode == "observed" else None
+        zero_launches()
+        if obs is not None:
+            obs.install()
+        try:
+            with gate.closed():
+                futs = [engine.submit(p, max_new_tokens=K_NEW, temperature=0.0) for p in prompts]
+            res = [f.result(timeout=900) for f in futs]
+        finally:
+            if obs is not None:
+                obs.uninstall()
+        passes[mode] = {"launches": launch_counts(), "ms_per_step": per_step_ms(res),
+                        "tokens": [r.token_ids for r in res]}
+    payload = obs.export()
+    divergences = check_kernel_table(payload)
+    signatures: dict = {}
+    for case in payload["cases"]:
+        signatures[case["kernel"]] = signatures.get(case["kernel"], 0) + 1
+    missing = sorted(k for k in K_EXPECT[name] if not obs.counts.get(k))
+    out = {"calls": dict(sorted(obs.counts.items())), "signatures": dict(sorted(signatures.items())),
+           "divergences": divergences, "violations": payload["violations"], "missing": missing,
+           "launches_bare": passes["bare"]["launches"],
+           "launches_observed": passes["observed"]["launches"],
+           "tokens_equal": passes["bare"]["tokens"] == passes["observed"]["tokens"],
+           "ms_per_step_bare": passes["bare"]["ms_per_step"],
+           "ms_per_step_observed": passes["observed"]["ms_per_step"],
+           "added_s": time.perf_counter() - t0}
+    ANALYSIS["K"][name] = out
+    print(f"  K {name}: {len(payload['cases'])} distinct call signatures, per entry "
+          f"{out['signatures']}; calls {out['calls']}; launches bare {out['launches_bare']}, "
+          f"observed {out['launches_observed']}; ms a step bare {out['ms_per_step_bare']}, "
+          f"observed {out['ms_per_step_observed']}; {out['added_s']:.1f}s added")
+    if divergences or payload["violations"] or missing \
+            or out["launches_bare"] != out["launches_observed"]:
+        raise AssertionError(f"K {name}: divergences {divergences}, violations "
+                             f"{payload['violations']}, entries never observed {missing}, "
+                             f"launches {out['launches_bare']} against "
+                             f"{out['launches_observed']} observed")
+    return out
+
+
+def leak_traced(torch, phase):
+    """L: ``phase()`` with ``leaktrace`` installed before any of its engines
+    is built; after it stopped them, nothing acquired may be live and every
+    observed acquire/release must be in leakcheck's static table."""
+    from gofr_tpu_torch.analysis import leaktrace
+    from gofr_tpu_torch.analysis.leakcheck import build_resource_table, check_coverage
+
+    mon = leaktrace.install()
+    try:
+        t0 = time.perf_counter()
+        result = phase()
+        phase_s = time.perf_counter() - t0
+    finally:
+        leaktrace.uninstall()
+    t0 = time.perf_counter()
+    export = mon.export()
+    coverage = check_coverage(export, build_resource_table(analysis_paths()))
+    out = {"counts": export["counts"], "unreclaimed": export["unreclaimed"],
+           "coverage": coverage, "events": len(export["events"]), "phase_s": phase_s,
+           "check_s": time.perf_counter() - t0, "card": card_line()}
+    ANALYSIS["L"] = out
+    by_kind = ", ".join(f"{k} {v['acquire']}/{v['release']}" for k, v in out["counts"].items())
+    print(f"  L leaks: acquires/releases by kind {by_kind}; {len(out['unreclaimed'])} live after "
+          f"stop; {len(coverage)} coverage divergence(s); {out['check_s']:.1f}s added "
+          f"({out['card']})")
+    if out["unreclaimed"] or coverage:
+        raise AssertionError(f"L: unreclaimed {out['unreclaimed']}, coverage {coverage}")
+    return result
+
+
+def deadline_checks(mon, phase_s: float) -> dict:
+    """D: no budget widened, no crossing with a negative budget, every
+    crossing in deadlinecheck's static table, every boundary of
+    ``D_EXPECT`` crossed."""
+    from gofr_tpu_torch.analysis.deadlinecheck import build_boundary_table, check_deadline_coverage
+
+    t0 = time.perf_counter()
+    crossings: dict = {}
+    for site in mon.crossings():
+        crossings[site] = crossings.get(site, 0) + 1
+    coverage = check_deadline_coverage(mon.export(), build_boundary_table(analysis_paths()))
+    missing = sorted(D_EXPECT - set(crossings))
+    out = {"crossings": dict(sorted(crossings.items())), "violations": mon.violations(),
+           "coverage": coverage, "missing": missing, "phase_s": phase_s,
+           "check_s": time.perf_counter() - t0, "card": card_line()}
+    ANALYSIS["D"] = out
+    print(f"  D deadlines: crossings by site {out['crossings']}; {len(out['violations'])} "
+          f"violation(s); {len(coverage)} coverage divergence(s); boundaries never crossed "
+          f"{missing}; {out['check_s']:.1f}s added ({out['card']})")
+    if out["violations"] or coverage or missing:
+        raise AssertionError(f"D: violations {out['violations']}, coverage {coverage}, "
+                             f"never crossed {missing}")
     return out
 
 
@@ -8862,8 +9044,9 @@ def run_engine(torch) -> tuple[dict, ...]:
     timings["dispatch_busy"] = dispatch_busy(torch, cfg, params, params_w8)
     del params_w8
     torch.cuda.empty_cache()
-    print("lifecycle phase (dense bf16 and paged int8 engines, full depth):")
-    lifecycle = run_lifecycle(torch, cfg, params)
+    print("lifecycle phase (dense bf16 and paged int8 engines, full depth; L: under leaktrace, "
+          "installed before the first engine is built):")
+    lifecycle = leak_traced(torch, lambda: run_lifecycle(torch, cfg, params))
     torch.cuda.empty_cache()
     print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, "
           f"{PLANE_DEPTH} layers):")
@@ -8886,18 +9069,27 @@ def run_engine(torch) -> tuple[dict, ...]:
     observability = run_observability(torch, cut_cfg, cut_params)
     del cut_params
     torch.cuda.empty_cache()
-    print("HA and cross-replica KV phase (keyed submits, resume, orphan, fencing, KV migration, "
-          f"P/D handoff, {PLANE_DEPTH} layers):")
-    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
-    ha = run_ha(torch, cut_cfg, cut_params)
-    del cut_params
-    torch.cuda.empty_cache()
-    print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, "
-          f"{PLANE_DEPTH} layers):")
-    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
-    fleet = run_fleet(torch, cut_cfg, cut_params)
-    del cut_params
-    torch.cuda.empty_cache()
+    # D: deadlinetrace over the HA and fleet phases
+    from gofr_tpu_torch.analysis import deadlinetrace
+
+    dmon = deadlinetrace.install()
+    t_d = time.perf_counter()
+    try:
+        print("HA and cross-replica KV phase (keyed submits, resume, orphan, fencing, KV "
+              f"migration, P/D handoff, {PLANE_DEPTH} layers; D: under deadlinetrace):")
+        cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
+        ha = run_ha(torch, cut_cfg, cut_params)
+        del cut_params
+        torch.cuda.empty_cache()
+        print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, "
+              f"{PLANE_DEPTH} layers; D: under deadlinetrace):")
+        cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
+        fleet = run_fleet(torch, cut_cfg, cut_params)
+        del cut_params
+        torch.cuda.empty_cache()
+    finally:
+        deadlinetrace.uninstall()
+    deadline_checks(dmon, time.perf_counter() - t_d)
     print("http phase (App, generation routes, /metrics, HTTPReplica and a router over HTTP, "
           "the serve entry point as a process, full depth):")
     http = run_http(torch, cfg, params)
@@ -8912,12 +9104,13 @@ def run_engine(torch) -> tuple[dict, ...]:
 
 
 def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict]:
-    """The sql phase at Llama-3-8B widths and full depth, then the pubsub
-    phase (at ``PLANE_DEPTH`` layers), the files phase, the stores phase and
-    the analytics phase on the same weights. The weights are made again from ``SEED``
-    (the same tensors ``run_engine`` served; the main paths' copy was freed
-    before the models and device phases, which need the room), and the time
-    to make them is recorded."""
+    """The sql phase, then the pubsub phase, the files phase (its jobs'
+    engine; its weights' loads are ``MODELS_L_DEPTH`` layers of their own),
+    the stores phase and the analytics phase, each at Llama-3-8B widths and
+    ``PLANE_DEPTH`` layers: views of the first layers of the same weights,
+    made again from ``SEED`` (the same tensors ``run_engine`` served; the main
+    paths' copy was freed before the models and device phases, which need
+    the room), and the time to make them is recorded."""
     from gofr_tpu_torch.models.llama import LlamaConfig, init_params
 
     cfg = LlamaConfig.llama3_8b()
@@ -8925,35 +9118,37 @@ def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict]:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # the job phases at a cut depth keep the script inside its time limit
+    cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
     print(f"sql phase (migrations with a ds.tpu warm-up, CRUD over HTTP, generation jobs recorded "
           f"in SQL, a restart, the postgres and mysql wire dialects; Llama-3-8B widths, "
-          f"{cfg.n_layers} layers, weights remade from the seed in {init_s:.1f}s):")
-    out = run_sql(torch, cfg, params, torch.device("cuda"))
+          f"{PLANE_DEPTH} layers, weights remade from the seed in {init_s:.1f}s):")
+    out = run_sql(torch, cut_cfg, cut_params, torch.device("cuda"))
     out["params_init_s"] = init_s
     torch.cuda.empty_cache()
     print("pubsub phase (generation jobs through Kafka, NATS, MQTT and Event Hubs, each the port's "
           f"fake on 127.0.0.1 behind an App; the same weights, {PLANE_DEPTH} layers):")
-    pubsub = run_pubsub(torch, *cut_depth(cfg, params, PLANE_DEPTH))
+    pubsub = run_pubsub(torch, cut_cfg, cut_params)
     torch.cuda.empty_cache()
     print("files phase (weights through the local, S3, GCS and FTP file systems and from_hf at "
           f"Llama-3-8B widths, {MODELS_L_DEPTH} layers; generation jobs from files on each file "
-          f"system, SFTP too, with a Redis result cache; the same weights, {cfg.n_layers} "
+          f"system, SFTP too, with a Redis result cache; the same weights, {PLANE_DEPTH} "
           "layers):")
-    files = run_files(torch, cfg, params, LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
+    files = run_files(torch, cut_cfg, cut_params, LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
     torch.cuda.empty_cache()
     print("stores phase (generation jobs claimed in Cassandra, logged in Mongo, metered in a "
           "logged batch, indexed in Solr and tracked in DynamoDB, each the port's fake on "
           "127.0.0.1, with the card's memory sampled into a time-series store; then the same jobs "
-          f"over the embedded stores; paged int8, the same weights, {cfg.n_layers} layers):")
-    stores = run_stores(torch, cfg, params)
+          f"over the embedded stores; paged int8, the same weights, {PLANE_DEPTH} layers):")
+    stores = run_stores(torch, cut_cfg, cut_params)
     torch.cuda.empty_cache()
     print("analytics phase (the FFI check of csrc against _build.SIGNATURES; generation jobs "
           "metered in ClickHouse (the port's fake on 127.0.0.1) and linked in the graph store, "
           "the vendor facades over the same records, all under the lock-order shim checked "
-          f"against lockcheck's static graph; paged bf16, the same weights, {cfg.n_layers} "
+          f"against lockcheck's static graph; paged bf16, the same weights, {PLANE_DEPTH} "
           "layers):")
-    analytics = run_analytics(torch, cfg, params)
-    del params
+    analytics = run_analytics(torch, cut_cfg, cut_params)
+    del params, cut_params
     torch.cuda.empty_cache()
     return out, pubsub, files, stores, analytics
 
@@ -8973,7 +9168,7 @@ def main() -> int:
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t0 = t_script = time.perf_counter()
     ptxas_jobs = start_ptxas(_build)
     try:
         _build.build_all()
@@ -9041,6 +9236,9 @@ def main() -> int:
     print(json.dumps({"files": files}, default=str))
     print(json.dumps({"stores": stores}, default=str))
     print(json.dumps({"analytics": analytics}, default=str))
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f}s from the kernel build to here")
+    print(card)
+    print(json.dumps({"analysis": ANALYSIS}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -21,10 +21,22 @@ families, written against a PyTorch tree):
   (``lock-order-static``), ``hold-and-block`` and ``guarded-by``; exports
   the graph that the runtime tier's observed graph is checked against.
 - :mod:`gofr_tpu_torch.analysis.lockorder` — the runtime lock-order shim.
+- :mod:`gofr_tpu_torch.analysis.leakcheck` — resource pairing, exception
+  paths, settlement on raise, retire gates; its runtime twin
+  :mod:`gofr_tpu_torch.analysis.leaktrace` (balance and coverage).
+- :mod:`gofr_tpu_torch.analysis.deadlinecheck` — deadline propagation,
+  bounded waits, retry budgets, cancellable waits, zone drift; its runtime
+  twin :mod:`gofr_tpu_torch.analysis.deadlinetrace` (budgets only narrow).
+- :mod:`gofr_tpu_torch.analysis.kernel_contracts` — the committed device
+  contract table; :mod:`gofr_tpu_torch.analysis.kernelcheck` holds the
+  code to it, and :mod:`gofr_tpu_torch.analysis.kerneltrace` (a CPU matrix,
+  a live-engine observer) holds the runtime to it.
+- :mod:`gofr_tpu_torch.analysis.chaoscov` — every chaos point scheduled by
+  a test of the port's chaos tier.
 
-Not ported yet (ROADMAP Queue A item 12): leakcheck/leaktrace,
-deadlinecheck/deadlinetrace, chaoscov, kernel contracts, bench_ratchet,
-shardcheck.
+Not ported: bench_ratchet (with the port's bench), shardcheck and
+kernelcheck's spec-rank-mismatch (with the port's mesh, ROADMAP Queue A
+item 9).
 
 Run ``python -m gofr_tpu_torch.analysis --all``; it exits non-zero on any
 unsuppressed finding. Suppress with

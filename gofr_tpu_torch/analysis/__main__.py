@@ -16,10 +16,19 @@ families ported so far):
 - ``--lock-graph`` / ``--check-lock-graph PATH``: lockcheck's static graph,
   and a runtime export (``LockOrderMonitor.export_graph``) checked as a
   subgraph of it;
+- ``--leak-table`` / ``--check-leak-table PATH``: leakcheck's static
+  resource table, and a runtime reclaim export (``leaktrace``) checked
+  against it (every observed acquire/release statically known, nothing
+  unreclaimed);
+- ``--deadline-table`` / ``--check-deadline-table PATH``: deadlinecheck's
+  static boundary table, and a runtime export (``deadlinetrace``) checked
+  against it (every crossing statically known, no budget violation);
+- ``--kernel-table`` / ``--check-kernel-table PATH``: the committed kernel
+  contract table, and a runtime export (``kerneltrace``: the CPU matrix
+  or a live-engine observer) checked against it;
+- ``--chaos-coverage``: every registered chaos point scheduled by a test
+  of the port's chaos tier (JSON; exit 1 when one is missing);
 - ``--update-baseline``, ``--no-baseline``, ``--format text|json|sarif``.
-
-A flag of a family not ported yet is refused (exit 2) with the ROADMAP
-item that carries it, never ignored.
 """
 
 from __future__ import annotations
@@ -38,16 +47,6 @@ from gofr_tpu_torch.analysis.sarif import RULE_DESCRIPTIONS, render_sarif
 # the tree the analyzer covers, relative to the repository root
 DEFAULT_TARGETS = ("gofr_tpu_torch", "chip_smoke.py", "tools_torch", "examples_torch")
 
-# flags of the reference's families that the port does not carry yet
-NOT_PORTED = {
-    "chaos_coverage": ("--chaos-coverage", "chaoscov"),
-    "leak_table": ("--leak-table", "leakcheck"),
-    "check_leak_table": ("--check-leak-table", "leakcheck/leaktrace"),
-    "deadline_table": ("--deadline-table", "deadlinecheck"),
-    "check_deadline_table": ("--check-deadline-table", "deadlinecheck/deadlinetrace"),
-    "kernel_table": ("--kernel-table", "kernel_contracts"),
-    "check_kernel_table": ("--check-kernel-table", "kernelcheck/kerneltrace"),
-}
 FFI_RULES = {"ffi-mismatch", "ffi-unbound", "ffi-stale", "ffi-layout"}
 
 
@@ -75,7 +74,8 @@ def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m gofr_tpu_torch.analysis",
         description="gofrlint over the PyTorch port: AST rules, lockcheck, "
-        "the stale-suppression audit and the csrc/ctypes FFI cross-check",
+        "leakcheck, deadlinecheck, kernelcheck, the stale-suppression audit, "
+        "the csrc/ctypes FFI cross-check and chaos coverage",
     )
     parser.add_argument("paths", nargs="*",
                         help="files/directories to lint (default: the port's tree)")
@@ -100,35 +100,164 @@ def _parser() -> argparse.ArgumentParser:
                         help="emit lockcheck's static lock graph as JSON")
     parser.add_argument("--check-lock-graph", metavar="PATH", default=None,
                         help="check a runtime lock graph export is a subgraph of the static one")
+    parser.add_argument("--leak-table", action="store_true",
+                        help="emit leakcheck's static resource table as JSON")
+    parser.add_argument("--check-leak-table", metavar="PATH", default=None,
+                        help="check a runtime reclaim export (leaktrace) against "
+                        "the static resource table")
+    parser.add_argument("--deadline-table", action="store_true",
+                        help="emit deadlinecheck's static boundary table as JSON")
+    parser.add_argument("--check-deadline-table", metavar="PATH", default=None,
+                        help="check a runtime deadline export (deadlinetrace) "
+                        "against the static boundary table")
+    parser.add_argument("--kernel-table", action="store_true",
+                        help="emit the committed kernel contract table as JSON")
+    parser.add_argument("--check-kernel-table", metavar="PATH", default=None,
+                        help="check a runtime kernel export (kerneltrace: the CPU "
+                        "matrix or a live-engine observer) against the contract table")
+    parser.add_argument("--chaos-coverage", action="store_true",
+                        help="every registered chaos point must be scheduled by a "
+                        "test of the port's chaos tier (JSON output)")
     parser.add_argument("--list-rules", action="store_true", help="list rules and exit")
-    for dest, (flag, _family) in NOT_PORTED.items():
-        if flag.startswith("--check-"):
-            parser.add_argument(flag, dest=dest, metavar="PATH", default=None,
-                                help=argparse.SUPPRESS)
-        else:
-            parser.add_argument(flag, dest=dest, action="store_true", help=argparse.SUPPRESS)
     return parser
+
+
+def _read_json(path: str, what: str) -> dict | None:
+    try:
+        with open(path, encoding="utf-8") as fp:
+            return json.load(fp)
+    except (OSError, ValueError) as exc:
+        print(f"error: cannot read {what} {path}: {exc}", file=sys.stderr)
+        return None
+
+
+def _tables(args: argparse.Namespace, paths: list[str]) -> int | None:
+    """The table modes: emit a static table, or check a runtime export
+    against it. None when no table flag was given."""
+    if args.leak_table or args.check_leak_table:
+        from gofr_tpu_torch.analysis.leakcheck import (
+            build_resource_table,
+            check_coverage,
+            render_table_json,
+        )
+
+        table = build_resource_table(paths)
+        if args.leak_table:
+            print(render_table_json(table))
+            return 0
+        runtime = _read_json(args.check_leak_table, "runtime reclaim export")
+        if runtime is None:
+            return 2
+        divergences = check_coverage(runtime, table)
+        for d in divergences:
+            print(d)
+        unreclaimed = runtime.get("unreclaimed", [])
+        for u in unreclaimed:
+            print(f"unreclaimed at runtime: {u}")
+        if divergences or unreclaimed:
+            print(f"leakcheck: {len(divergences)} coverage divergence(s), "
+                  f"{len(unreclaimed)} unreclaimed resource(s) — analyzer blind "
+                  "spot or a real runtime leak", file=sys.stderr)
+            return 1
+        print(f"leakcheck: runtime pairs covered by the static table "
+              f"({len(runtime.get('events', []))} observed event(s) checked)")
+        return 0
+    if args.deadline_table or args.check_deadline_table:
+        from gofr_tpu_torch.analysis.deadlinecheck import (
+            build_boundary_table,
+            check_deadline_coverage,
+            render_table_json,
+        )
+
+        table = build_boundary_table(paths)
+        if args.deadline_table:
+            print(render_table_json(table))
+            return 0
+        runtime = _read_json(args.check_deadline_table, "runtime deadline export")
+        if runtime is None:
+            return 2
+        divergences = check_deadline_coverage(runtime, table)
+        for d in divergences:
+            print(d)
+        if divergences:
+            print(f"deadlinecheck: {len(divergences)} divergence(s) — analyzer "
+                  "blind spot or a runtime budget violation", file=sys.stderr)
+            return 1
+        print(f"deadlinecheck: runtime crossings covered by the static boundary "
+              f"table ({len(runtime.get('events', []))} observed crossing(s) checked)")
+        return 0
+    if args.kernel_table:
+        from gofr_tpu_torch.analysis.kernel_contracts import render_table_json
+
+        print(render_table_json())
+        return 0
+    if args.check_kernel_table:
+        from gofr_tpu_torch.analysis.kernelcheck import check_kernel_table
+
+        runtime = _read_json(args.check_kernel_table, "runtime kernel export")
+        if runtime is None:
+            return 2
+        divergences = check_kernel_table(runtime)
+        for d in divergences:
+            print(d)
+        if divergences:
+            print(f"kernelcheck: {len(divergences)} static<->runtime divergence(s) — "
+                  "the contract table and the observed kernels disagree",
+                  file=sys.stderr)
+            return 1
+        print(f"kernelcheck: runtime signatures match the contract table "
+              f"({len(runtime.get('cases', []))} case(s) checked, mode "
+              f"{runtime.get('mode', '?')})")
+        return 0
+    return None
+
+
+def _list_rules() -> None:
+    from gofr_tpu_torch.analysis import deadlinecheck as dc
+    from gofr_tpu_torch.analysis import kernel_contracts as kctab
+    from gofr_tpu_torch.analysis import kernelcheck as kch
+    from gofr_tpu_torch.analysis import leakcheck as lk
+    from gofr_tpu_torch.analysis import rules as rules_mod
+
+    for rule in sorted(RULE_DESCRIPTIONS):
+        print(f"{rule:<25} {RULE_DESCRIPTIONS[rule]}")
+    print()
+    print("dispatch zones:", ", ".join(sorted(rules_mod.DISPATCH_ZONES)))
+    print("backoff zones: ", ", ".join(sorted(rules_mod.BACKOFF_ZONES)))
+    print("host-sync zones:", ", ".join(sorted(rules_mod.HOT_SYNC_ZONES)))
+    print("retire-gate zones:", ", ".join(sorted(lk.RETIRE_GATE_ZONES)))
+    print("deadline entry roots:", ", ".join(sorted(
+        dc.ENTRY_FUNC_NAMES | {f"{c}.*" for c in dc.ENTRY_CLASSES} | set(dc.ENTRY_FILES)
+    )))
+    print("deadline boundaries:", ", ".join(sorted(
+        {f"{c}.{m}" for c, ms in dc.BOUNDARY_CLASSES.items() for m in ms}
+        | dc.BOUNDARY_FUNCS
+    )))
+    print("kernel contract files:", ", ".join(kctab.KERNEL_FILES))
+    print("kernel contracts:", ", ".join(k.name for k in kctab.KERNELS))
+    print("kernel unpack sites:", ", ".join(
+        f"{u.function} (layout {u.layout})" for u in kctab.UNPACK_SITES))
+    print("dtype hot zones:   engine." + ", engine.".join(sorted(kch.ENGINE_HOT_FUNCS)))
 
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    for dest, (flag, family) in NOT_PORTED.items():
-        if getattr(args, dest):
-            print(f"error: {flag} belongs to {family}, which the port does not "
-                  "carry yet (ROADMAP Queue A item 12)", file=sys.stderr)
-            return 2
     if args.list_rules:
-        from gofr_tpu_torch.analysis import rules as rules_mod
-
-        for rule in sorted(RULE_DESCRIPTIONS):
-            print(f"{rule:<25} {RULE_DESCRIPTIONS[rule]}")
-        print()
-        print("dispatch zones:", ", ".join(sorted(rules_mod.DISPATCH_ZONES)))
-        print("backoff zones: ", ", ".join(sorted(rules_mod.BACKOFF_ZONES)))
-        print("host-sync zones:", ", ".join(sorted(rules_mod.HOT_SYNC_ZONES)))
+        _list_rules()
         return 0
 
     repo_root = args.repo_root or _default_repo_root()
+    if args.chaos_coverage:
+        from gofr_tpu_torch.analysis.chaoscov import check_chaos_coverage
+
+        report = check_chaos_coverage(repo_root)
+        print(json.dumps(report, indent=2))
+        if report["missing"]:
+            print(f"chaoscov: {len(report['missing'])} chaos point(s) scheduled by "
+                  f"no chaos-tier test: {report['missing']} — add a fault schedule "
+                  "or remove the dead injection point", file=sys.stderr)
+            return 1
+        return 0
     paths = args.paths or default_paths(repo_root)
     if not args.ffi_only:
         for p in paths:
@@ -164,6 +293,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"lockcheck: runtime graph is a subgraph of the static graph "
               f"({len(runtime.get('edges', []))} observed edge(s) checked)")
         return 0
+
+    rc = _tables(args, paths)
+    if rc is not None:
+        return rc
 
     if args.check_suppressions:
         from gofr_tpu_torch.analysis.audit import stale_suppressions

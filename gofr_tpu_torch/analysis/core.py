@@ -241,19 +241,14 @@ def run_rules(
     return findings
 
 
-# rule ids of the reference's families the port does not carry yet
-# (ROADMAP Queue A item 12). The port's code keeps the reference's
-# suppressions for them; the audit cannot call those stale until the
-# family that would raise the finding exists.
+# rule ids of the reference's families the port does not carry yet:
+# shardcheck's four and kernelcheck's spec-rank-mismatch, which wait for
+# the port's mesh (ROADMAP Queue A item 9). The audit cannot call a
+# suppression of theirs stale until the family that would raise the
+# finding exists.
 PENDING_RULES = frozenset({
-    "leak-unreleased", "leak-exception-path", "settle-on-raise",
-    "retire-gate-missing", "bad-transfer-annotation",
-    "deadline-dropped", "unbounded-wire-call", "retry-unbudgeted",
-    "cancel-unreachable", "zone-drift",
-    "pack-layout-drift", "dtype-discipline", "carry-field-drift",
-    "spec-rank-mismatch", "kernel-contract-coverage",
     "mesh-axis-unknown", "collective-unmapped", "use-after-donation",
-    "retrace-hazard",
+    "retrace-hazard", "spec-rank-mismatch",
 })
 
 

@@ -1148,9 +1148,12 @@ class RouterRetryTypedRule(Rule):
 
 
 def default_rules() -> list[Rule]:
-    """The families ported so far: these rules and lockcheck's. The
-    reference's shardcheck, leakcheck, deadlinecheck and kernelcheck
-    families are not ported yet (ROADMAP Queue A item 12)."""
+    """These rules and the lockcheck, leakcheck, deadlinecheck and
+    kernelcheck families. The reference's shardcheck waits for the port's
+    mesh (ROADMAP Queue A item 9)."""
+    from gofr_tpu_torch.analysis.deadlinecheck import deadlinecheck_rules
+    from gofr_tpu_torch.analysis.kernelcheck import kernelcheck_rules
+    from gofr_tpu_torch.analysis.leakcheck import leakcheck_rules
     from gofr_tpu_torch.analysis.lockcheck import lockcheck_rules
 
     return [
@@ -1158,4 +1161,7 @@ def default_rules() -> list[Rule]:
         DaemonLoopHeartbeatRule(), PubSubManualSettleRule(),
         RouterRetryTypedRule(),
         *lockcheck_rules(),
+        *leakcheck_rules(),
+        *deadlinecheck_rules(),
+        *kernelcheck_rules(),
     ]

@@ -43,6 +43,20 @@ RULE_DESCRIPTIONS = {
     "stale-suppression": "suppression matching no current finding",
     "bad-suppression": "gofrlint suppression without a reason",
     "syntax-error": "file failed to parse",
+    "leak-unreleased": "acquired resource with no paired release/transfer",
+    "leak-exception-path": "raise/return strands a resource mid-pair",
+    "settle-on-raise": "raise after registration without settlement",
+    "retire-gate-missing": "commit after blocking call without retire gate",
+    "bad-transfer-annotation": "malformed leakcheck ownership annotation",
+    "deadline-dropped": "request deadline in scope but not derived into bound",
+    "unbounded-wire-call": "serving-reachable wait/wire call with no bound",
+    "retry-unbudgeted": "retry/requeue loop with no max-elapsed budget",
+    "cancel-unreachable": "cancel-path wait no stop Event can interrupt",
+    "zone-drift": "analyzer zone names a file/function that moved",
+    "pack-layout-drift": "packed kernel output vs host unpack-column drift",
+    "dtype-discipline": "hot-zone dtype hygiene (float64, literal tensors, int64 packs)",
+    "carry-field-drift": "DecodeState construction site disagrees with carry spec",
+    "kernel-contract-coverage": "kernel-file function without a declared contract",
 }
 
 

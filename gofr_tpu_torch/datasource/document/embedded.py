@@ -289,6 +289,7 @@ class Session:
         if self._active:
             raise RuntimeError("transaction already active on this session")
         store = self._store
+        # gofrlint: disable=cancel-unreachable -- in-process re-entrant lock of an in-memory store: held for one operation, or for a session's transaction until its commit or abort, never across a wire wait
         store._lock.acquire()
         if store._txn_owner is not None:
             # the RLock is re-entrant, so a SECOND session on the same

@@ -169,7 +169,8 @@ class _DeviceProber:
 
     def _loop(self) -> None:
         while not self._stop:
-            self._req.wait()  # stop() sets _stop, then _req: this wait is the stop gate
+            # gofrlint: disable=cancel-unreachable,unbounded-wire-call -- _req doubles as the stop wake: stop() sets _stop, then _req, so this wait IS the stop gate
+            self._req.wait()
             self._req.clear()
             if self._stop:
                 return

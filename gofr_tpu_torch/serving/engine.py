@@ -1025,6 +1025,7 @@ class ServingEngine:
                                   "in flight; failed them with a retriable error")
             self._wake.set()
             # a short window for the loop to reclaim the canceled slots
+            # gofrlint: disable=deadline-dropped -- post-deadline cleanup grace: the drain budget already elapsed, this constant bounds slot reclaim, not a request
             self._idle.wait(timeout=5.0)
         self.stop(join_timeout=join_timeout)
         return drained
@@ -1125,6 +1126,7 @@ class ServingEngine:
             self._wake.set()
             # a short window for the loop to free the canceled slots, inside
             # the notice
+            # gofrlint: disable=deadline-dropped -- the bound is min(2 s, what is left of the notice's absolute deadline self._reclaim_deadline), which the rule cannot see through the attribute
             self._idle.wait(timeout=min(2.0, max(self._reclaim_deadline - time.monotonic(), 0.0)))
         summary["drained"] = drained
         summary["evacuation"] = self._evacuate_kv(self._reclaim_deadline - time.monotonic())
@@ -1662,6 +1664,7 @@ class ServingEngine:
             # this request, or this section sees the flag before touching
             # the scheduler that is about to be replaced. Bounded: a submit
             # stuck inside a hung scheduler call must not pile every caller up
+            # gofrlint: disable=deadline-dropped -- deliberate constant: bounds a wedged-scheduler pile-up with a fast retriable 503; the request's own deadline is enforced by expired-while-queued
             if not self._submit_mu.acquire(timeout=5.0):
                 raise ErrorServiceUnavailable("engine busy; retry on another replica",
                                               retry_after=1.0)
@@ -2146,6 +2149,7 @@ class ServingEngine:
         transient pool pressure; a queue that will not take it fails the
         request with a 429."""
         try:
+            # gofrlint: disable=retry-unbudgeted -- expiry is gated by both callers: admission checks req.expired before it admits, and _cursor_health before every pressure requeue (504)
             self._sched.submit(req.id, len(req.serve_ids), req.max_new_tokens,
                                req.priority, front=True)
         except Exception:

@@ -131,7 +131,7 @@ class PagedKVCache:
         self._closed = True
         self.k_pool = self.v_pool = self.ks_pool = self.vs_pool = None
 
-    def leak(self) -> None:
+    def leak(self) -> None:  # leakcheck: transfer(quarantine)
         """Quarantine (a warm restart that could not join the engine
         thread): refuse new sequences but leave the pools to that thread,
         never released under it; the engine drops its own reference, so

@@ -133,7 +133,7 @@ class Scheduler:
         """A clean stop: refuse further submits."""
         self._closed = True
 
-    def leak(self) -> None:
+    def leak(self) -> None:  # leakcheck: transfer(quarantine)
         """Quarantine: a warm restart that could not join the engine thread
         abandons this scheduler (the thread may still be inside it); it
         refuses further submits and is never reused."""

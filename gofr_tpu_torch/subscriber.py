@@ -493,7 +493,7 @@ class SubscriptionManager:
         def _done(f: Any) -> None:
             consumer._lag_inflight = False
             try:
-                # runs as add_done_callback: the future is settled, result() cannot block
+                # gofrlint: disable=cancel-unreachable,unbounded-wire-call -- runs as add_done_callback: the future is already settled, result() cannot block
                 consumer.lag = int(f.result())
             except Exception:
                 return  # broker unreachable: keep the last known lag

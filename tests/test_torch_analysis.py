@@ -13,7 +13,10 @@ package's (``gofr_tpu/analysis``):
 - the FFI cross-check is clean on the tree, and a copy of a ``.cu`` with an
   argument dropped, retyped or renamed away (under ``tmp_path``) is caught;
 - ``python -m gofr_tpu_torch.analysis --all`` exits 0 on the tree; the
-  baseline, JSON, SARIF and refused flags behave;
+  baseline, JSON and SARIF behave, and the leak, deadline and kernel table
+  flags and ``--chaos-coverage`` each round-trip; the stale-suppression
+  audit is off only for the five rules that wait for the mesh, and the
+  ``cancel-unreachable`` suppressions are each hit;
 - a forced AB/BA in two threads is a cycle in both packages' lock-order
   monitors; a tiny CPU engine run under the port's shim gives a runtime
   graph that ``check_subgraph`` accepts against the static graph.
@@ -142,11 +145,18 @@ def test_fixture_cases_cover_every_neutral_family():
 
 # ------------------------------------------------------- PyTorch host syncs
 def _lint(tmp_path, files: dict[str, str]):
+    """Every rule but kernelcheck's: its unpack-site rule reads a fixture
+    ``_consume`` of ``serving/engine.py`` as the engine's packed-column
+    unpack site (tests/test_torch_kernelcheck.py holds that family)."""
+    from gofr_tpu_torch.analysis.kernelcheck import kernelcheck_rules
+
     for rel, source in files.items():
         full = tmp_path / rel
         full.parent.mkdir(parents=True, exist_ok=True)
         full.write_text(source)
-    return run_rules([str(tmp_path / "gofr_tpu_torch")], default_rules())
+    kernel_rules = {r.name for r in kernelcheck_rules()}
+    return run_rules([str(tmp_path / "gofr_tpu_torch")],
+                     [r for r in default_rules() if r.name not in kernel_rules])
 
 
 HOST_SYNC_FORMS = {
@@ -316,8 +326,9 @@ def test_tree_has_no_finding_without_the_baseline():
 
 def test_cli_formats_baseline_and_refusals(tmp_path, capsys):
     """The CLI in process: JSON ids, SARIF, the ratchet baseline, the
-    stale-suppression audit, ``--ffi``, ``--lock-graph``, and the flags of
-    families not ported refused with exit 2 and their ROADMAP item."""
+    stale-suppression audit, ``--ffi``, ``--lock-graph``, and the flags
+    once refused (the leak, deadline and kernel tables, chaos coverage),
+    each with its table and its check of an export."""
     from gofr_tpu_torch.analysis.__main__ import main
 
     def run(*args):
@@ -360,11 +371,76 @@ def test_cli_formats_baseline_and_refusals(tmp_path, capsys):
     exported = tmp_path / "runtime.json"
     exported.write_text(json.dumps({"version": 1, "nodes": [], "edges": []}))
     assert run("--check-lock-graph", str(exported), str(ROOT / "gofr_tpu_torch"))[0] == 0
-    for flag in ("--leak-table", "--deadline-table", "--kernel-table", "--chaos-coverage"):
-        rc, _, err = run(flag)
-        assert rc == 2 and "ROADMAP Queue A item 12" in err, flag
-    rc, _, err = run("--check-leak-table", str(baseline))
-    assert rc == 2 and "leakcheck" in err
+    # the flags once refused (leakcheck, deadlinecheck, the kernel table,
+    # chaoscov) each round-trip: a table out, an export checked against it
+    tree = str(ROOT / "gofr_tpu_torch")
+    rc, out, _ = run("--leak-table", tree)
+    assert rc == 0 and "wrapper" in json.loads(out)["kinds"]
+    leaks = tmp_path / "leaks.json"
+    leaks.write_text(json.dumps({"events": [
+        {"kind": "kv-slot", "op": "acquire", "name": "alloc_slot"},
+        {"kind": "wrapper", "op": "release", "name": "leak"}], "unreclaimed": []}))
+    assert run("--check-leak-table", str(leaks), tree)[0] == 0
+    leaks.write_text(json.dumps({"events": [], "unreclaimed": ["kv-slot ... never released"]}))
+    assert run("--check-leak-table", str(leaks), tree)[0] == 1
+    rc, out, _ = run("--deadline-table", tree)
+    assert rc == 0 and "Router.submit" in json.loads(out)["sites"]
+    crossings = tmp_path / "deadline.json"
+    crossings.write_text(json.dumps({"events": [{"site": "Router.submit", "op": "crossing"}],
+                                     "violations": []}))
+    assert run("--check-deadline-table", str(crossings), tree)[0] == 0
+    crossings.write_text(json.dumps({"events": [{"site": "Mystery.hop", "op": "crossing"}],
+                                     "violations": []}))
+    assert run("--check-deadline-table", str(crossings), tree)[0] == 1
+    rc, out, _ = run("--kernel-table")
+    assert rc == 0 and len(json.loads(out)["kernels"]) == 20
+    kernels = tmp_path / "kernels.json"
+    kernels.write_text(json.dumps({"mode": "observed", "cases": [], "violations": []}))
+    assert run("--check-kernel-table", str(kernels))[0] == 0
+    kernels.write_text(json.dumps({"mode": "observed", "cases": [], "violations": ["x"]}))
+    assert run("--check-kernel-table", str(kernels))[0] == 1
+    assert run("--check-kernel-table", str(tmp_path / "missing.json"))[0] == 2
+    rc, out, _ = run("--chaos-coverage", "--repo-root", str(ROOT))
+    assert rc == 0 and json.loads(out)["missing"] == []
+
+
+def test_pending_rules_are_the_five_that_wait_for_the_mesh():
+    """The stale-suppression audit is off only for shardcheck's four rules
+    and kernelcheck's spec-rank-mismatch (ROADMAP Queue A item 9); every
+    other family of the reference runs in the port."""
+    from gofr_tpu.analysis.sarif import RULE_DESCRIPTIONS as R_RULES
+    from gofr_tpu_torch.analysis.core import PENDING_RULES
+    from gofr_tpu_torch.analysis.sarif import RULE_DESCRIPTIONS
+
+    assert PENDING_RULES == {"mesh-axis-unknown", "collective-unmapped",
+                             "use-after-donation", "retrace-hazard", "spec-rank-mismatch"}
+    assert set(R_RULES) - set(RULE_DESCRIPTIONS) == PENDING_RULES
+    assert {r.name for r in default_rules()} >= set(RULE_DESCRIPTIONS) - {
+        "metric-register-site", "metric-never-emitted", "metric-dynamic-name",
+        "metric-label-cardinality", "ffi-mismatch", "ffi-unbound", "ffi-stale",
+        "ffi-layout", "stale-suppression", "bad-suppression", "syntax-error",
+        "bad-transfer-annotation"}
+
+
+def test_cancel_unreachable_suppressions_count_as_used():
+    """The port's cancel-unreachable suppressions (the SQL pool's three
+    checkouts, the sqlite connection lock) are each hit by the rule on the
+    raw view: the audit would call an unused one stale."""
+    from gofr_tpu_torch.analysis.core import SourceFile
+    from gofr_tpu_torch.analysis.deadlinecheck import CancelUnreachableRule
+
+    sites = set()
+    for rel in ("gofr_tpu_torch/datasource/sql/base.py", "gofr_tpu_torch/datasource/sql/sqlite.py"):
+        sf = SourceFile(str(ROOT / rel), rel, (ROOT / rel).read_text())
+        for rec in sf.suppression_records:
+            if "cancel-unreachable" in rec.rules:
+                sites.add((rel, rec.line, rec.covered))
+    assert len(sites) == 4
+    raw = [f for f in run_rules(TARGETS, [CancelUnreachableRule()], honor_suppressions=False)]
+    for rel, line, covered in sites:
+        assert any(f.path == rel and f.line in covered for f in raw), (rel, line)
+    live, stale = run_unified(TARGETS, default_rules())
+    assert not [f for f in stale if f.path.startswith("gofr_tpu_torch/datasource/sql/")]
 
 
 def test_zone_tables_name_the_ports_files_and_functions():
