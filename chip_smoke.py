@@ -242,7 +242,7 @@ Phases, each a hard failure with a non-zero exit:
      prefill's; load s and the host's peak RSS;
    then the device phase, the launch counters reset before it:
    - ``T`` ``models.train.make_train_step`` at Llama-3-8B widths cut to
-     ``PLANE_DEPTH`` (8) layers, bf16, random from the seed: 4 AdamW steps
+     ``DEVICE_T_DEPTH`` (2) layers, bf16, random from the seed: 4 AdamW steps
      on one repeated batch of 2 x 512 tokens, the loss falling and every
      gradient finite, ms a step and the peak ``max_memory_allocated``; a
      second run of 2 steps, params and optimizer state through a
@@ -433,7 +433,44 @@ Phases, each a hard failure with a non-zero exit:
    the spans' ms (p50/p95), a job's round trip and the phase's flash and
    bf16 paged launches (int8 paged none); it prints an
    ``{"analytics": ...}`` line; its launches are the ``kernels`` rows'
-   ``launches_analytics``;
+   ``launches_analytics``; then the grpc phase on the same weights, the
+   launch counters reset before it, every call over the port's own HTTP/2,
+   HPACK and protobuf wire (``gofr_tpu_torch/grpcx``; no grpcio):
+   - ``G1`` an ``App`` with ``GRPC_PORT`` on 127.0.0.1 serving
+     ``InferenceService`` over a paged bf16 engine (the bf16 path's
+     config): the main path's ten prompts (32 new tokens, one sampled at
+     T 0.8, top-k 50, top-p 0.95) as concurrent ``GenerateStream`` calls
+     through the port's ``InferenceClient``, the greedy ones held to
+     ``engine.submit`` of the same set (equal, or parted only within
+     ``GAP_TOL``) under a sync count that must equal the direct set's; the
+     1000-token prompt alone in turns: TTFT on the client's clock beside
+     the engine's timeline, the gap a token beside ms a step; one
+     Generate, one Echo, health SERVING;
+   - ``G2`` on G1's engine: a request queued behind the gate whose
+     ``grpc-timeout`` lapses is DEADLINE_EXCEEDED with no launch for it;
+     ``call.cancel()`` after two frames frees the row's slot and pages
+     (ms to release); a shed is RESOURCE_EXHAUSTED with ``retry-delay-s``;
+     during drain Generate is UNAVAILABLE while health answers
+     NOT_SERVING; reflection lists ``gofr.v1.Inference`` and
+     ``grpc.health.v1.Health``; ``x-tenant-id`` is the engine's tenant and
+     the server span continues the client's ``traceparent``;
+   - ``G3`` an ``App`` with ``PUBSUB_BACKEND=GOOGLE`` against the port's
+     google.pubsub.v1 fake on 127.0.0.1 over a paged int8 engine: ten
+     generation jobs (the pubsub phase's handler) held to ``submit``, a
+     handler fault redelivered, and a job a consumer of the app's group
+     pulled and never acknowledged, served by a restarted app once the
+     ack deadline (2 s) lapsed; publish-to-result ms and the broker's
+     share;
+   - ``G4`` a ``CoordinationService`` leader on a ``GRPCServer`` in this
+     process and two ``python -m gofr_tpu_torch.distributed.worker_main
+     --device cuda`` processes (a bf16 tiny Llama at head dim 64 each):
+     both register, requests reach both, one is SIGKILLed, the leader
+     marks it SUSPECT then DEAD, bumps the epoch with one shard left, and
+     the survivor answers; register-to-ready s, detection ms, each
+     worker's launches as it reported them;
+   it prints a ``{"grpc": ...}`` line; its launches (this process's and
+   the workers') are the ``kernels`` rows' ``launches_grpc``, and this
+   process's must include all three kernels;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -6285,7 +6322,7 @@ MOE_FEW = 2  # X: tokens of the short backward, too few to reach every expert
 
 
 def device_t(torch, cfg, tmp: str, dev) -> tuple[dict, dict]:
-    """T: ``make_train_step`` at ``cfg`` (Llama-3-8B widths, ``PLANE_DEPTH``
+    """T: ``make_train_step`` at ``cfg`` (Llama-3-8B widths, ``DEVICE_T_DEPTH``
     layers): 4 steps on one repeated batch, the loss falling and every
     gradient finite (the optimizer's first moments after step 1 are
     0.1 × the gradient); then a second run of 2 steps, a checkpoint of
@@ -6709,7 +6746,7 @@ def device_x(torch, cfg, dev) -> dict:
 
 def run_device(torch, cfg, moe_cfg, dev) -> dict:
     """The device phase at the configs given (the card run: Llama-3-8B
-    widths at ``PLANE_DEPTH`` layers and Mixtral-8x7B's at ``MOE_DEPTH``): T
+    widths at ``DEVICE_T_DEPTH`` layers and Mixtral-8x7B's at ``MOE_DEPTH``): T
     (training with a checkpointed resume), K (checkpoint and warm restart
     through ``from_checkpoint``), D (the device datasource: ``ctx.tpu`` on
     an ``App``, executables as CUDA graphs), X (the MoE). The counters are reset before it; ``launches``
@@ -8818,6 +8855,615 @@ def run_analytics(torch, cfg, params, dev=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- grpc phase
+GRPC_NEW = 32  # G1: new tokens of each of the main path's prompts
+GRPC_SAMPLED = 3  # G1: the stream that samples (T 0.8, top-k 50, top-p 0.95), as on the paths
+GRPC_BURST = 16  # G2: streams queued behind the gate for the shed check
+GRPC_ACK_DEADLINE_S = 2  # G3: the app's subscription's ack deadline
+GRPC_BEAT_S = 0.3  # G4: the leader's heartbeat interval
+GRPC_BEAT_DEADLINE_S = 1.2  # G4: SUSPECT past one deadline, DEAD past two
+GRPC_WORKER_BOOT_S = 300.0  # G4: both workers registered within this
+GRPC_WORKER_DEVICE = "cuda"  # G4: the workers' --device
+
+
+def grpc_client_run(coro_fn, target: str):
+    """Run ``coro_fn(client)`` with a fresh port ``InferenceClient`` on a new
+    event loop (a channel belongs to the loop that opened it)."""
+    from gofr_tpu_torch.grpcx import InferenceClient
+
+    async def run():
+        client = InferenceClient(target)
+        try:
+            return await coro_fn(client)
+        finally:
+            await client.close()
+
+    return asyncio.run(run())
+
+
+async def grpc_stream(client, prompt: list[int], **kw) -> dict:
+    """One GenerateStream through the port's client: the frames, the
+    client's seconds to the first token frame and each token's arrival."""
+    t0 = time.perf_counter()
+    frames, arrivals = [], []
+    async for frame in client.generate_stream(prompt, **kw):
+        frames.append(frame)
+        if "token" in frame:
+            arrivals.append(time.perf_counter() - t0)
+    return {"frames": frames, "arrivals": arrivals,
+            "tokens": [f["token"] for f in frames if "token" in f],
+            "terminal": frames[-1] if frames and frames[-1].get("done") else None}
+
+
+def grpc_app(torch, cfg, params, conf: dict, mem: dict, label: str, exporter, logbuf):
+    """An ``App`` on free 127.0.0.1 ports with ``GRPC_PORT`` and reflection
+    on, its tracer exporting to ``exporter``, its INFO log to ``logbuf``,
+    over a port engine on the card (the shared weights) on the app's
+    metrics, tracer and logger; ``InferenceService`` over the engine
+    registered."""
+    from gofr_tpu_torch.grpcx import InferenceService
+    from gofr_tpu_torch.logging import Level, Logger
+    from gofr_tpu_torch.tracing import SimpleSpanProcessor, Tracer
+    from gofr_tpu_torch.testutil import get_free_port
+
+    app = models_app(label, GRPC_PORT=str(get_free_port()), GRPC_ENABLE_REFLECTION="true",
+                     SHUTDOWN_GRACE_PERIOD="30")
+    app.logger = app.container.logger = Logger(Level.INFO, logbuf, logbuf, exit_on_fatal=False)
+    app.container.tracer = Tracer(label, SimpleSpanProcessor(exporter))
+    engine = build_engine(torch, cfg, params, conf, mem, label,
+                          metrics=app.container.metrics_manager, tracer=app.container.tracer,
+                          logger=app.logger)
+    app.register_grpc_service(InferenceService(engine))
+    return app, engine
+
+
+def grpc_g1(torch, engine, app, target: str, prompt, gate, probe, pool) -> dict:
+    """G1: the main path's ten prompts as concurrent GenerateStream calls
+    through the port's client, held to ``engine.submit``'s tokens under a
+    sync count beside the same set submitted directly; TTFT and the gap a
+    token against the engine's clock; one Generate, one Echo, health."""
+    out: dict = {}
+    ids = [prompt(n) for n in MAIN_LENS]
+    kws = [dict(temperature=0.8, top_k=50, top_p=0.95) if i == GRPC_SAMPLED else {}
+           for i in range(len(ids))]
+    grpc_client_run(lambda c: c.generate(prompt(40), max_tokens=4), target)  # warm-up
+
+    def queued(n):
+        wait_until(lambda: engine._sched.pending() >= n, 120, f"{n} requests queued")
+
+    def grpc_set():
+        async def streams(c):
+            return await asyncio.gather(*[grpc_stream(c, p, max_tokens=GRPC_NEW, **kw)
+                                          for p, kw in zip(ids, kws)])
+
+        with gate.closed():
+            fut = pool.submit(grpc_client_run, streams, target)
+            queued(len(ids))
+        return fut.result(600)
+
+    def direct_set():
+        with gate.closed():
+            futs = [engine.submit(p, max_new_tokens=GRPC_NEW, **({"temperature": 0.0} | kw))
+                    for p, kw in zip(ids, kws)]
+        return [f.result(600) for f in futs]
+
+    runs = {}
+    for name, fn in (("grpc", grpc_set), ("direct", direct_set)):
+        d0 = probe.n["dispatches"]
+        res, sites = sync_warnings(torch, engine, probe, fn)
+        runs[name] = {"results": res, "sites": sites, "dispatches": probe.n["dispatches"] - d0}
+    parted = {}
+    for i, (n, p, s, r) in enumerate(zip(MAIN_LENS, ids, runs["grpc"]["results"],
+                                         runs["direct"]["results"])):
+        if s["terminal"] is None or s["terminal"].get("finish_reason") != "length" \
+                or len(s["tokens"]) != GRPC_NEW:
+            raise AssertionError(f"G1 stream of {n} tokens: {s['frames'][-3:]}")
+        if any(not (0 <= t < engine.model_cfg.vocab_size) for t in s["tokens"]):
+            raise AssertionError(f"G1 stream of {n} tokens: a token outside the vocabulary")
+        if i == GRPC_SAMPLED:
+            continue  # a sampled row is held to its length and vocabulary only
+        parted[n] = same_or_close(torch, engine, p, s["tokens"], r.token_ids,
+                                  f"G1 {n}-token prompt, gRPC stream against submit")
+    per = {k: sum(v["sites"].values()) / max(v["dispatches"], 1) for k, v in runs.items()}
+    out["streams"] = {"equal": sum(v["equal"] for v in parted.values()), "of": len(parted),
+                      "sampled": MAIN_LENS[GRPC_SAMPLED],
+                      "parted": {n: v for n, v in parted.items() if not v["equal"]},
+                      "ttft_ms_client": [s["arrivals"][0] * 1e3 for s in runs["grpc"]["results"]]}
+    out["syncs"] = {k: {"dispatches": v["dispatches"], "warnings": sum(v["sites"].values()),
+                        "sites": v["sites"]} for k, v in runs.items()}
+    print(f"  G1 10 gRPC streams (one sampled): {out['streams']['equal']}/{len(parted)} greedy "
+          f"token-equal to engine.submit; sync warnings a dispatch through gRPC {per['grpc']:.3f}, "
+          f"direct {per['direct']:.3f} ({out['syncs']})")
+    if per["grpc"] != per["direct"]:
+        raise AssertionError(f"G1: serving through gRPC changed the syncs a dispatch: {out['syncs']}")
+    # the transport's cost, one 1000-token request at a time, in turns
+    ttft, gaps, steps = {"grpc": [], "submit": []}, [], []
+    long_p = ids[MAIN_LENS.index(1000)]
+    for _ in range(3):
+        before = {t.request_id for t in engine.timeline.completed()}
+        s = grpc_client_run(lambda c: grpc_stream(c, long_p, max_tokens=16), target)
+        wait_until(lambda: {t.request_id for t in engine.timeline.completed()} - before, 30,
+                   "G1 the stream's timeline")
+        rid = max({t.request_id for t in engine.timeline.completed()} - before)
+        tl = engine.timeline.get(rid).to_dict()
+        ttft["grpc"].append((s["arrivals"][0] * 1e3, tl["ttft_ms"]))
+        gaps.append(gap_ms(s["arrivals"]))
+        r = engine.submit(long_p, max_new_tokens=16, temperature=0.0).result(600)
+        ttft["submit"].append(r.ttft_s * 1e3)
+        steps.append(per_step_ms([r]))
+    out["transport_cost"] = {"ttft_ms_grpc_client_engine": ttft["grpc"],
+                             "ttft_ms_submit": ttft["submit"], "grpc_gap_ms_a_token": gaps,
+                             "submit_ms_a_step": steps}
+    print(f"  G1 1000-token prompt, 16 tokens, in turns: TTFT through gRPC (client, engine) "
+          f"{[(round(a, 2), round(b, 2)) for a, b in ttft['grpc']]} ms, through submit "
+          f"{[round(x, 2) for x in ttft['submit']]} ms; gRPC gap "
+          f"{[round(g, 2) for g in gaps]} ms a token against {[round(x, 2) for x in steps]} "
+          f"ms a step")
+
+    async def unary(c):
+        return (await c.generate(ids[0], max_tokens=8), await c.echo({"ping": 1}),
+                await c.health())
+
+    gen, echo, healthy = grpc_client_run(unary, target)
+    out["generate"], out["echo"], out["health"] = gen["usage"], echo, healthy
+    print(f"  G1 Generate {gen['finish_reason']} {gen['usage']}, Echo {echo}, health SERVING "
+          f"{healthy}")
+    if gen["usage"]["completion_tokens"] != 8 or echo != {"ping": 1} or healthy is not True:
+        raise AssertionError(f"G1 unary calls: {gen}, {echo}, {healthy}")
+    return out
+
+
+def grpc_g2(torch, engine, app, target: str, prompt, gate, pool, exporter) -> dict:
+    """G2: the request lifecycle over the wire on G1's engine: a lapsed
+    deadline, a cancel mid-stream, a shed, the drain, reflection, the
+    tenant and the trace."""
+    from gofr_tpu_torch.grpcx import RpcError, StatusCode
+    from gofr_tpu_torch.grpcx import h2
+
+    out: dict = {}
+    body = lambda p, n: json.dumps({"prompt": p, "max_tokens": n}).encode()  # noqa: E731
+
+    async def unary_call(c, payload: bytes, **kw):
+        ch = h2.Channel(target)
+        try:
+            return json.loads(await ch.unary_unary("/gofr.v1.Inference/Generate")(payload, **kw))
+        except RpcError as exc:
+            return {"code": exc.code().name, "trailing": dict(exc.trailing_metadata())}
+        finally:
+            await ch.close()
+
+    # a queued request whose grpc-timeout lapses: no prefill for it
+    mark = launch_counts()
+    with gate.closed():
+        t = time.perf_counter()
+        late = grpc_client_run(lambda c: unary_call(c, body(prompt(64), 4), timeout=0.5), target)
+        late_ms = (time.perf_counter() - t) * 1e3
+        time.sleep(0.2)
+    wait_until(lambda: not engine._by_id, 60, "G2 the expired request to leave")
+    out["deadline"] = {"code": late.get("code"), "ms": late_ms, "launches": since(mark)}
+    print(f"  G2 deadline 0.5 s on a queued request: {late.get('code')} in {late_ms:.1f} ms; "
+          f"launches meanwhile {out['deadline']['launches']}")
+    if late.get("code") != "DEADLINE_EXCEEDED" or any(out["deadline"]["launches"].values()):
+        raise AssertionError(f"G2 deadline: {out['deadline']}")
+
+    # call.cancel() mid-stream releases the row's slot and pages
+    async def cancel_after_two(c):
+        ch = h2.Channel(target)
+        try:
+            call = ch.unary_stream("/gofr.v1.Inference/GenerateStream")(body(prompt(200), 512))
+            got = 0
+            async for _frame in call:
+                got += 1
+                if got == 2:
+                    t = time.perf_counter()
+                    call.cancel()
+                    break
+            code = await call.code()
+            return got, code.name if code else None, t
+        finally:
+            await ch.close()
+
+    got, code, t_cancel = grpc_client_run(cancel_after_two, target)
+    pages = engine.paged_cache.stats()
+    wait_until(lambda: not engine._by_id and engine._sched.stats()["busy_slots"] == 0
+               and engine.paged_cache.stats()["free_blocks"] == engine.paged_cache.stats()[
+                   "total_blocks"], 60, "G2 the cancelled stream's slot and pages")
+    out["cancel"] = {"frames": got, "code": code,
+                     "ms_to_release": (time.perf_counter() - t_cancel) * 1e3,
+                     "pages_at_cancel": pages}
+    print(f"  G2 cancel after {got} frames: {code}; slot and pages free "
+          f"{out['cancel']['ms_to_release']:.1f} ms after the cancel")
+
+    # a shed: streams queued behind the gate, then requests whose deadline the
+    # estimated wait passes
+    async def burst(c):
+        return await asyncio.gather(*[grpc_stream(c, prompt(64), max_tokens=4)
+                                      for _ in range(GRPC_BURST)])
+
+    with gate.closed():
+        fut = pool.submit(grpc_client_run, burst, target)
+        wait_until(lambda: engine._sched.pending() >= GRPC_BURST, 120, "G2 the burst queued")
+        shed = [grpc_client_run(lambda c: unary_call(c, body(prompt(64), 4), timeout=0.05), target)
+                for _ in range(4)]
+    finished = sum(s["terminal"] is not None and s["terminal"].get("finish_reason") == "length"
+                   for s in fut.result(600))
+    out["shed"] = {"codes": [s.get("code") for s in shed],
+                   "retry_delay_s": [s.get("trailing", {}).get("retry-delay-s") for s in shed],
+                   "burst_finished": finished}
+    print(f"  G2 shed: {out['shed']}")
+    if any(s.get("code") != "RESOURCE_EXHAUSTED" or not s["trailing"].get("retry-delay-s")
+           for s in shed) or finished != GRPC_BURST:
+        raise AssertionError(f"G2 shed: {out['shed']}")
+
+    # the drain: Generate UNAVAILABLE while health answers NOT_SERVING
+    app.container.draining = True
+    try:
+        drained = grpc_client_run(lambda c: unary_call(c, body(prompt(20), 2)), target)
+        serving = grpc_client_run(lambda c: c.health(), target)
+    finally:
+        app.container.draining = False
+    out["drain"] = {"generate": drained.get("code"), "health_serving": serving}
+    if drained.get("code") != "UNAVAILABLE" or serving is not False:
+        raise AssertionError(f"G2 drain: {out['drain']}")
+
+    # reflection lists the services
+    from gofr_tpu_torch.grpcx.reflection import _read_binpb
+    from gofr_tpu_torch.grpcx.protowire import load_messages
+
+    msgs = load_messages(_read_binpb("reflection.binpb"))
+    req_cls = msgs["grpc.reflection.v1alpha.ServerReflectionRequest"]
+    resp_cls = msgs["grpc.reflection.v1alpha.ServerReflectionResponse"]
+
+    async def reflect(c):
+        ch = h2.Channel(target)
+        try:
+            call = ch.stream_stream(
+                "/grpc.reflection.v1alpha.ServerReflection/ServerReflectionInfo",
+                request_serializer=lambda m: m.SerializeToString(),
+                response_deserializer=resp_cls.FromString)
+            return [r async for r in call([req_cls(list_services="*")])]
+        finally:
+            await ch.close()
+
+    names = [s.name for s in grpc_client_run(reflect, target)[0].list_services_response.service]
+    out["reflection"] = names
+    if "gofr.v1.Inference" not in names or "grpc.health.v1.Health" not in names:
+        raise AssertionError(f"G2 reflection: {names}")
+
+    # x-tenant-id reaches the engine's tenant; the server span continues the
+    # client's traceparent
+    trace, parent = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
+    n_before = len(exporter.spans)
+    tenant = grpc_client_run(lambda c: unary_call(
+        c, json.dumps({"prompt": prompt(20), "max_tokens": 2, "tenant": "body"}).encode(),
+        metadata=(("x-tenant-id", "gold"), ("traceparent", f"00-{trace}-{parent}-01"))), target)
+    tl = engine.timeline.get(tenant["id"]).to_dict()
+    spans = [s for s in exporter.spans[n_before:] if s.name == "grpc /gofr.v1.Inference/Generate"]
+    out["tenant"] = tl.get("tenant")
+    out["trace"] = [(s.trace_id, s.parent_id) for s in spans]
+    print(f"  G2 reflection {names}; x-tenant-id -> tenant {out['tenant']}; server span "
+          f"{out['trace']}; drain {out['drain']}")
+    if out["tenant"] != "gold" or out["trace"] != [(trace, parent)]:
+        raise AssertionError(f"G2 tenant {out['tenant']}, trace {out['trace']}")
+    return out
+
+
+def grpc_g3(torch, cfg, params, prompt, mem: dict) -> dict:
+    """G3: an ``App`` with ``PUBSUB_BACKEND=GOOGLE`` against the port's
+    google.pubsub.v1 fake on 127.0.0.1, over a paged int8 engine: ten jobs
+    (the pubsub phase's handler) held to ``submit``, a handler fault
+    redelivered, and a job a consumer of the app's group pulled and never
+    acknowledged, redelivered to a restarted app after the ack deadline."""
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.pubsub.google import GooglePubSubClient
+    from gofr_tpu_torch.testutil import GooglePubSubServer, start_app, stop_app
+
+    conf = dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32, multi_step=4,
+                prefill_chunk_tokens=256, kv_dtype="int8")
+    print(f"G3: App + Google Pub/Sub (the port's fake) + paged int8 engine (page=32), "
+          f"{cfg.n_layers} layers")
+    fake = GooglePubSubServer()
+    engine = build_engine(torch, cfg, params, conf, mem, "G3")
+    engine.start()
+    user = GooglePubSubClient(endpoint=fake.address, project="gofr", consumer_group="user")
+    record: dict = {"entries": {}, "publish_ms": []}
+    configs = {"PUBSUB_BACKEND": "GOOGLE", "GOOGLE_PUBSUB_ENDPOINT": fake.address,
+               "GOOGLE_PROJECT_ID": "gofr", "CONSUMER_ID": "app",
+               "GOOGLE_PUBSUB_ACK_DEADLINE_SECONDS": str(GRPC_ACK_DEADLINE_S),
+               "PUBSUB_RETRY_BACKOFF_SECONDS": "0.05", "SHUTDOWN_GRACE_PERIOD": "30",
+               "PUBSUB_GENERATE_MAX_ATTEMPTS": "3"}
+    sub_path = "projects/gofr/subscriptions/app-generate"
+    out: dict = {}
+    app = thread = None
+    try:
+        user.connect()
+        user.subscribe("generate.results")  # a subscription sees only later messages
+        prompts = [prompt(n) for n in MAIN_LENS]
+        gold = [engine.submit(p, max_new_tokens=PUBSUB_NEW, temperature=0.0).result(600)
+                for p in prompts]
+        mark = launch_counts()
+
+        def boot():
+            a = models_app("grpc-google", LOG_LEVEL="FATAL", **configs)
+            if a.container.health()["details"]["pubsub"]["status"] != "UP":
+                raise AssertionError("G3: the app's Google broker is not UP at boot")
+            a.subscription_manager._rng.seed(SEED)
+            a.subscribe("generate", pubsub_handler(engine, record))
+            th = start_app(a, timeout=120)
+            wait_until(lambda: sub_path in fake._subs, 60, "G3 the app's subscription")
+            return a, th
+
+        app, thread = boot()
+        consumer = app.subscription_manager._consumers["generate"]
+        for k, p in enumerate(prompts):
+            pubsub_publish(user, k, p)
+        got = sorted(pubsub_results(user, len(prompts), "G3 jobs"), key=lambda r: r["job"])
+        parted = {n: same_or_close(torch, engine, p, g["tokens"], w.token_ids,
+                                   f"G3 {n}-token job against submit")
+                  for n, p, g, w in zip(MAIN_LENS, prompts, got, gold)}
+        out["jobs"] = {"equal": sum(v["equal"] for v in parted.values()), "of": len(parted),
+                       "parted": {n: v for n, v in parted.items() if not v["equal"]},
+                       "served_once": sum(len(record["entries"].get(str(k), ())) == 1
+                                          for k in range(len(prompts))),
+                       **pubsub_timing(got)}
+        # a handler fault: nacked (ModifyAckDeadline 0), redelivered, served once
+        faulted: list = []
+
+        def fault(point: str, n: int):
+            faulted.append(time.perf_counter())
+            return chaos.ChaosFault(point, n)
+
+        with chaos.active(chaos.ChaosInjector(SEED, {"pubsub.handler": 1.0}, max_faults=1,
+                                              fault_factories={"pubsub.handler": fault})) as inj:
+            pubsub_publish(user, "fault", prompts[0])
+            redone = pubsub_results(user, 1, "G3 the faulted job")[0]
+        served = record["entries"].get("fault", [])
+        out["fault"] = {"faults": inj.stats()["pubsub.handler"]["faults"], "served": len(served),
+                        "redeliveries": consumer.redeliveries, "dlq": consumer.dlq,
+                        "equal": redone["tokens"] == gold[0].token_ids,
+                        "redelivery_ms": (served[0] - faulted[0]) * 1e3 if served and faulted
+                        else None}
+        # the app stops; a consumer of its group pulls a job and dies unacked;
+        # a new app on the same group gets it once the ack deadline lapses
+        stop_app(app, thread)
+        app = None
+        rogue = GooglePubSubClient(endpoint=fake.address, project="gofr", consumer_group="app",
+                                   ack_deadline_seconds=GRPC_ACK_DEADLINE_S)
+        rogue.connect()
+        pubsub_publish(user, "lapsed", prompts[1])
+        taken, t_end = None, time.monotonic() + 30
+        while taken is None and time.monotonic() < t_end:
+            taken = rogue.subscribe("generate")
+        t_taken = time.perf_counter()
+        rogue.close()  # never acknowledged
+        app, thread = boot()
+        lapsed = pubsub_results(user, 1, "G3 the unacknowledged job")[0]
+        entries = record["entries"].get("lapsed", [])
+        out["ack_deadline"] = {"pulled_by_rogue": taken is not None, "served": len(entries),
+                               "ms_to_redelivery": (entries[0] - t_taken) * 1e3 if entries
+                               else None, "equal": lapsed["tokens"] == gold[1].token_ids,
+                               "ack_deadline_s": GRPC_ACK_DEADLINE_S}
+        out["health"] = app.container.health()["details"]["pubsub"]["status"]
+        out["launches"] = since(mark)
+        out["publish_ms"] = ms_stats(record["publish_ms"])
+        j = out["jobs"]
+        print(f"  G3 Google Pub/Sub: {j['equal']}/{j['of']} jobs token-equal to submit, "
+              f"{j['served_once']} served once; publish-to-result p50 "
+              f"{j['round_trip_ms']['p50']:.1f} ms, the broker's share p50 "
+              f"{j['broker_share_ms']['p50']:.1f} ms; fault {out['fault']}; ack deadline "
+              f"{out['ack_deadline']}; pubsub {out['health']}")
+        if j["equal"] + len(j["parted"]) != j["of"] or j["served_once"] != j["of"] \
+                or out["fault"]["faults"] != 1 or out["fault"]["served"] != 1 \
+                or not out["fault"]["equal"] or not out["ack_deadline"]["pulled_by_rogue"] \
+                or out["ack_deadline"]["served"] != 1 or not out["ack_deadline"]["equal"] \
+                or out["ack_deadline"]["ms_to_redelivery"] < GRPC_ACK_DEADLINE_S * 1e3 * 0.9 \
+                or out["health"] != "UP":
+            raise AssertionError(f"G3: {out}")
+    finally:
+        if app is not None:
+            stop_app(app, thread)
+        user.close()
+        engine.stop()
+        fake.close()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def grpc_g4(torch) -> dict:
+    """G4: a ``CoordinationService`` leader on this process's ``GRPCServer``
+    and two ``gofr_tpu_torch.distributed.worker_main --device cuda``
+    processes, each serving a bf16 tiny Llama (head dim 64) over gRPC on the
+    card: both register, one is SIGKILLed, the leader marks it SUSPECT then
+    DEAD, bumps the epoch with one shard left, and a request to the
+    survivor is answered. Each worker's launches as it reported them."""
+    import signal
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.distributed import ClusterState, CoordinationService
+    from gofr_tpu_torch.grpcx import GRPCServer, InferenceClient
+    from gofr_tpu_torch.testutil import get_free_port, new_mock_container
+
+    container, _ = new_mock_container()
+    state = ClusterState(heartbeat_interval_s=GRPC_BEAT_S, heartbeat_deadline_s=GRPC_BEAT_DEADLINE_S)
+    leader_port, ports = get_free_port(), [get_free_port(), get_free_port()]
+    leader = GRPCServer(container, leader_port, MapConfig({"HTTP_HOST": "127.0.0.1"},
+                                                          use_env=False))
+    leader.register(CoordinationService(state))
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, daemon=True, name="g4-leader")
+    loop_thread.start()
+    asyncio.run_coroutine_threadsafe(leader.start(), loop).result(60)
+    out: dict = {"card": card_line()}
+    procs, lines = [], [[], []]
+    try:
+        t0 = time.perf_counter()
+        for i, port in enumerate(ports):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "gofr_tpu_torch.distributed.worker_main",
+                 "--leader", f"127.0.0.1:{leader_port}", "--port", str(port),
+                 "--host-id", f"w{i}", "--device", GRPC_WORKER_DEVICE],
+                cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs.append(p)
+            threading.Thread(target=lambda p=p, i=i: lines[i].extend(p.stdout), daemon=True).start()
+
+        def states() -> dict:
+            return {m.host_id: m for m in state.members()}
+
+        t_end = time.monotonic() + GRPC_WORKER_BOOT_S
+        while not (len(states()) == 2 and all(m.state == "UP" and m.health
+                                              for m in states().values())):
+            if time.monotonic() > t_end or any(p.poll() is not None for p in procs):
+                raise AssertionError(f"G4 workers: {states()} {[l[-5:] for l in lines]}")
+            time.sleep(0.05)
+        out["register_to_ready_s"] = time.perf_counter() - t0
+        epoch = state.epoch
+        out["shards"] = sorted((m.host_id, m.shard_index) for m in state.members())
+
+        async def ask(address: str):
+            c = InferenceClient(address)
+            try:
+                return await c.generate("hello cluster", max_tokens=8)
+            finally:
+                await c.close()
+
+        served = {}
+        for _ in range(4):
+            m = state.pick()
+            served[m.host_id] = asyncio.run(ask(m.address))["usage"]["completion_tokens"]
+        t_kill = time.perf_counter()
+        procs[0].send_signal(signal.SIGKILL)
+        seen: dict = {}
+        while "DEAD" not in seen and time.perf_counter() - t_kill < 30:
+            state.sweep()
+            w0 = states()["w0"].state
+            if w0 != "UP" and w0 not in seen:
+                seen[w0] = (time.perf_counter() - t_kill) * 1e3
+            time.sleep(0.005)
+        members = states()
+        survivor = state.pick()
+        answer = asyncio.run(ask(survivor.address))
+        out["failover"] = {"suspect_ms": seen.get("SUSPECT"), "dead_ms": seen.get("DEAD"),
+                           "epoch": [epoch, state.epoch], "status": state.status(),
+                           "shards": sorted((m.host_id, m.state, m.shard_index)
+                                            for m in members.values()),
+                           "survivor": survivor.host_id,
+                           "survivor_tokens": answer["usage"]["completion_tokens"]}
+        out["served_before"] = served
+        out["worker_launches"] = {"w0_last_heartbeat": (members["w0"].health or {}).get("launches")}
+        procs[1].send_signal(signal.SIGTERM)
+        procs[1].wait(60)
+        time.sleep(0.2)
+        printed = [l for l in lines[1] if l.startswith("WORKER_LAUNCHES ")]
+        out["worker_launches"]["w1_printed"] = json.loads(printed[-1].split(" ", 1)[1]) \
+            if printed else None
+        f = out["failover"]
+        print(f"  G4 coordination: both workers registered and serving "
+              f"{out['register_to_ready_s']:.1f} s after spawn; served {served}; w0 SIGKILLed: "
+              f"SUSPECT after {f['suspect_ms']} ms, DEAD after {f['dead_ms']} ms, epoch "
+              f"{f['epoch']}, {f['status']}, shards {f['shards']}; the survivor {f['survivor']} "
+              f"answered {f['survivor_tokens']} tokens; worker launches {out['worker_launches']}")
+        if set(served) != {"w0", "w1"} or f["dead_ms"] is None or f["suspect_ms"] is None \
+                or f["epoch"][1] <= f["epoch"][0] or f["status"] != "DEGRADED" \
+                or ("w0", "DEAD", -1) not in f["shards"] or ("w1", "UP", 0) not in f["shards"] \
+                or f["survivor"] != "w1" or f["survivor_tokens"] < 1 \
+                or not (out["worker_launches"]["w1_printed"] or {}).get("flash_attention") \
+                or not (out["worker_launches"]["w1_printed"] or {}).get("paged_decode_bf16"):
+            raise AssertionError(f"G4: {out}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(30)
+        asyncio.run_coroutine_threadsafe(leader.shutdown(grace=0.2), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(30)
+    return out
+
+
+def run_grpc(torch, cfg, params) -> dict:
+    """The grpc phase: G1 and G2 on one ``App`` serving ``InferenceService``
+    over a paged bf16 engine (the bf16 path's config), G3 Google Pub/Sub
+    over a paged int8 engine, G4 the coordination plane with two worker
+    processes. The counters are reset before it; ``launches`` are this
+    process's (G1-G3) plus the workers' as they reported them."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gofr_tpu_torch.testutil import start_app, stop_app
+    from gofr_tpu_torch.tracing import InMemoryExporter
+
+    t0 = time.perf_counter()
+    zero_launches()
+    out: dict = {"card": card_line()}
+    rng = torch.Generator().manual_seed(SEED + 59)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    mem: dict = {}
+    conf = dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                max_new_tokens_default=32, prefill_chunk_tokens=2048)
+    print(f"G1-G2: App + InferenceService over gRPC + paged bf16 engine (page=16, whole "
+          f"prefills), {cfg.n_layers} layers")
+    exporter, logbuf = InMemoryExporter(), io.StringIO()
+    app, engine = grpc_app(torch, cfg, params, conf, mem, "G1", exporter, logbuf)
+    gate, probe = Gate(engine), SyncProbe(engine)
+    pool = ThreadPoolExecutor(max_workers=4, thread_name_prefix="grpc-client")
+    engine.start()
+    thread = start_app(app, timeout=120)
+    target = f"127.0.0.1:{app.grpc_port}"
+    try:
+        t = time.perf_counter()
+        out["G1"] = grpc_g1(torch, engine, app, target, prompt, gate, probe, pool)
+        out["G1"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["G2"] = grpc_g2(torch, engine, app, target, prompt, gate, pool, exporter)
+        out["G2"]["seconds"] = time.perf_counter() - t
+        lines = [json.loads(line) for line in logbuf.getvalue().splitlines() if line.strip()]
+        out["G2"]["log_lines"] = sum("gRPC stream /gofr.v1.Inference/GenerateStream OK"
+                                     in str(e.get("message")) for e in lines)
+        text = app.container.metrics_manager.expose_prometheus()
+        out["G2"]["metrics"] = [n for n in ("app_grpc_server_stats", "app_grpc_stream_stats",
+                                            "grpc_server_status") if n in text]
+        if len(out["G2"]["metrics"]) != 3 or not out["G2"]["log_lines"]:
+            raise AssertionError(f"G2 metrics {out['G2']['metrics']}, log lines "
+                                 f"{out['G2']['log_lines']}")
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        probe.close()
+        stop_app(app, thread)
+        engine.stop()
+    out["memory"] = mem
+    del engine, app
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["G3"] = grpc_g3(torch, cfg, params, prompt, mem)
+    out["G3"]["seconds"] = time.perf_counter() - t
+    launches = launch_counts()
+    print("G4: the coordination plane (leader here, two worker_main --device cuda processes)")
+    t = time.perf_counter()
+    out["G4"] = grpc_g4(torch)
+    out["G4"]["seconds"] = time.perf_counter() - t
+    names = {"flash_attention": "flash_attention", "paged_decode_bf16": "paged_decode_attention",
+             "paged_decode_int8": "paged_decode_attention_q"}
+    workers = [out["G4"]["worker_launches"]["w0_last_heartbeat"] or {},
+               out["G4"]["worker_launches"]["w1_printed"] or {}]
+    out["launches_here"] = dict(launches)
+    for counts in workers:
+        add_launches(launches, {names[k]: v for k, v in counts.items()})
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print_launches("grpc", launches)
+    print(f"  grpc: {out['seconds']:.1f}s (G1 {out['G1']['seconds']:.1f}s, G2 "
+          f"{out['G2']['seconds']:.1f}s, G3 {out['G3']['seconds']:.1f}s, G4 "
+          f"{out['G4']['seconds']:.1f}s; {out['card']})")
+    if not all(out["launches_here"].get(k) for k in ("flash_attention", "paged_decode_attention",
+                                                     "paged_decode_attention_q")):
+        raise AssertionError(f"grpc launches {out['launches_here']}")
+    return out
+
+
 # ---------------------------------------------------------------- analysis twins
 K_NEW = 4  # K: new tokens of each request of the bare and the observed pass (one block)
 K_SPEC_PROMPTS = 4  # K: the spec engines' prompts in each pass
@@ -8961,7 +9607,9 @@ def deadline_checks(mon, phase_s: float) -> dict:
 
 
 PLANE_DEPTH = 8  # layers of the phases run at a cut depth (kv-reuse and spec, tenancy, healing,
-# observability, HA, fleet, http H1-H2, surface, device T, pubsub)
+# observability, HA, fleet, http H1-H2, surface, sql, pubsub, files jobs, stores, analytics, grpc)
+DEVICE_T_DEPTH = 2  # layers of the device phase's T (and K and D on T's weights): the embedding
+# and lm_head dominate its checkpoint, which halves against PLANE_DEPTH
 
 
 def cut_depth(cfg, params, n_layers: int):
@@ -9103,10 +9751,11 @@ def run_engine(torch) -> tuple[dict, ...]:
             surface)
 
 
-def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict]:
+def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict, dict]:
     """The sql phase, then the pubsub phase, the files phase (its jobs'
     engine; its weights' loads are ``MODELS_L_DEPTH`` layers of their own),
-    the stores phase and the analytics phase, each at Llama-3-8B widths and
+    the stores phase, the analytics phase and the grpc phase, each at
+    Llama-3-8B widths and
     ``PLANE_DEPTH`` layers: views of the first layers of the same weights,
     made again from ``SEED`` (the same tensors ``run_engine`` served; the main
     paths' copy was freed before the models and device phases, which need
@@ -9148,9 +9797,15 @@ def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict]:
           f"against lockcheck's static graph; paged bf16, the same weights, {PLANE_DEPTH} "
           "layers):")
     analytics = run_analytics(torch, cut_cfg, cut_params)
+    torch.cuda.empty_cache()
+    print("grpc phase (InferenceService over the port's own HTTP/2 wire: streaming decode and the "
+          "lifecycle over gRPC on a paged bf16 engine; Google Pub/Sub jobs on the port's fake over "
+          "a paged int8 engine; the coordination plane with two worker processes on the card; the "
+          f"same weights, {PLANE_DEPTH} layers):")
+    grpc = run_grpc(torch, cut_cfg, cut_params)
     del params, cut_params
     torch.cuda.empty_cache()
-    return out, pubsub, files, stores, analytics
+    return out, pubsub, files, stores, analytics, grpc
 
 
 def main() -> int:
@@ -9193,14 +9848,14 @@ def main() -> int:
           f"checkpoint, Llama-3-8B widths at {MODELS_L_DEPTH} layers through from_hf):")
     models = run_models(torch, BertConfig.base(), WhisperConfig.large_v3(),
                         LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
-    print(f"device phase (training at Llama-3-8B widths, {PLANE_DEPTH} layers; checkpoints and "
-          f"from_checkpoint; ctx.tpu executables as CUDA graphs; MoE at Mixtral widths, "
+    print(f"device phase (training at Llama-3-8B widths, {DEVICE_T_DEPTH} layers; checkpoints "
+          f"and from_checkpoint; ctx.tpu executables as CUDA graphs; MoE at Mixtral widths, "
           f"{MOE_DEPTH} layers):")
     from gofr_tpu_torch.models.moe import MoeConfig
 
-    device = run_device(torch, LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH),
+    device = run_device(torch, LlamaConfig.llama3_8b(n_layers=DEVICE_T_DEPTH),
                         MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
-    sql, pubsub, files, stores, analytics = sql_phase(torch)
+    sql, pubsub, files, stores, analytics, grpc = sql_phase(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -9214,6 +9869,7 @@ def main() -> int:
         r["launches_files"] = files["launches"].get(r["name"], 0)
         r["launches_stores"] = stores["launches"].get(r["name"], 0)
         r["launches_analytics"] = analytics["launches"].get(r["name"], 0)
+        r["launches_grpc"] = grpc["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -9236,6 +9892,7 @@ def main() -> int:
     print(json.dumps({"files": files}, default=str))
     print(json.dumps({"stores": stores}, default=str))
     print(json.dumps({"analytics": analytics}, default=str))
+    print(json.dumps({"grpc": grpc}, default=str))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f}s from the kernel build to here")
     print(card)
     print(json.dumps({"analysis": ANALYSIS}, default=str))

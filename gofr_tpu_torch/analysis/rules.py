@@ -67,8 +67,9 @@ from gofr_tpu_torch.analysis.core import Finding, Rule, SourceFile
 
 # -- zone tables --------------------------------------------------------------
 # The reference's tables (gofr_tpu/analysis/rules.py:69-181) over the port's
-# files. Dropped, for want of a port counterpart: grpcx/server.py (gRPC waits,
-# ROADMAP Queue A item 6) and serving/native_embed.py (libtpu's C API).
+# files. Dropped, for want of a port counterpart: serving/native_embed.py
+# (libtpu's C API). The gRPC server's zone also covers the port's own HTTP/2
+# wire (grpcx/h2.py), which runs on the same loop.
 
 # event-loop / decode-thread dispatch surfaces: full blocking-call set.
 # "*" = every function in the file; a set restricts to named functions.
@@ -76,6 +77,8 @@ DISPATCH_ZONES: dict[str, set[str] | str] = {
     "gofr_tpu_torch/http/dispatch.py": "*",
     "gofr_tpu_torch/http/server.py": "*",
     "gofr_tpu_torch/handler.py": "*",
+    "gofr_tpu_torch/grpcx/server.py": "*",
+    "gofr_tpu_torch/grpcx/h2.py": "*",
     "gofr_tpu_torch/websocket.py": "*",
     "gofr_tpu_torch/serving/handlers.py": "*",
     "gofr_tpu_torch/serving/engine.py": "*",

@@ -18,17 +18,19 @@ datasource on the card, ``ctx.tpu``), the HTTP and metrics servers,
 ``drain`` and ``shutdown``, the start and stop telemetry ping, the default
 ``/.well-known/{health,alive}`` routes with the ``./static`` and swagger
 autodetect, the broker that ``PUBSUB_BACKEND`` names (``MEMORY``,
-``KAFKA``, ``NATS``, ``MQTT`` or ``EVENTHUB``; ``GOOGLE`` is refused, its
-driver needing gRPC; a dark broker at boot is DEGRADED health), the SQL
+``KAFKA``, ``NATS``, ``MQTT``, ``EVENTHUB`` or ``GOOGLE``; a dark broker at
+boot is DEGRADED health), the SQL
 datasource when ``DB_DIALECT`` is set (sqlite, postgres, mysql; a dark
 database at boot is DEGRADED health, not a crash), ``migrate``
 (gofr.go:220-227, versioned migrations with a ``gofr_migration`` table)
 and ``add_rest_handlers`` (crud_handlers.go, CRUD routes over
-``ctx.sql``), and CMD mode (``new_cmd``, ``sub_command``). gRPC is not
-ported.
+``ctx.sql``), the gRPC server on ``GRPC_PORT`` (default 9000) with
+``register_grpc_service`` and ``grpc_server`` (grpc.go:21-269, on the port's
+own wire, ``grpcx/``), and CMD mode (``new_cmd``, ``sub_command``).
 
-Port addition: ``HTTP_HOST`` (default ``0.0.0.0``) is the address both
-servers bind, so a test or a smoke run can keep them on ``127.0.0.1``.
+Port addition: ``HTTP_HOST`` (default ``0.0.0.0``) is the address the HTTP
+and metrics servers bind, and the gRPC server's too when set, so a test or a
+smoke run can keep them on ``127.0.0.1``.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from gofr_tpu_torch.metrics.server import MetricsHandler
 from gofr_tpu_torch.subscriber import SubscriptionManager
 
 DEFAULT_HTTP_PORT = 8000
+DEFAULT_GRPC_PORT = 9000
 DEFAULT_METRICS_PORT = 2121
 DEFAULT_SHUTDOWN_GRACE_SECONDS = 30.0
 
@@ -89,9 +92,11 @@ class App:
         self._shutdown_event: asyncio.Event | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._servers: list[Any] = []
+        self._grpc_server: Any = None
 
         self.http_host = self.config.get_or_default("HTTP_HOST", "0.0.0.0")
         self.http_port = int(self.config.get_or_default("HTTP_PORT", str(DEFAULT_HTTP_PORT)))
+        self.grpc_port = int(self.config.get_or_default("GRPC_PORT", str(DEFAULT_GRPC_PORT)))
         self.metrics_port = int(self.config.get_or_default("METRICS_PORT", str(DEFAULT_METRICS_PORT)))
 
         # a dark broker at boot is a DEGRADED health state, not a crash —
@@ -244,6 +249,20 @@ class App:
         """gofr.go:271-287."""
         self.crontab.add(schedule, name, handler)
 
+    # -- gRPC ------------------------------------------------------------------
+    def register_grpc_service(self, servicer: Any, adder: Callable | None = None) -> None:
+        """grpc.go:200-269: register an implementation; the container is
+        injected into a ``container`` attribute when present."""
+        self.grpc_server.register(servicer, adder)
+
+    @property
+    def grpc_server(self) -> Any:
+        from gofr_tpu_torch.grpcx.server import GRPCServer
+
+        if self._grpc_server is None:
+            self._grpc_server = GRPCServer(self.container, self.grpc_port, self.config)
+        return self._grpc_server
+
     # -- WebSocket -------------------------------------------------------------
     def websocket(self, pattern: str, handler: Handler) -> None:
         """websocket.go:30-49: per-message handler loop on an upgraded
@@ -317,6 +336,8 @@ class App:
         await http_server.start()
         if self.container.ws_manager is not None:
             await self.container.ws_manager.connect_services()
+        if self._grpc_server is not None:
+            await self._grpc_server.start()
         await self.subscription_manager.start()
         await self.crontab.start()
 
@@ -348,6 +369,7 @@ class App:
         self.logger.info(
             f"{self.container.app_name} started: "
             f"http=:{self.http_port} metrics=:{self.metrics_port}"
+            + (f" grpc=:{self.grpc_port}" if self._grpc_server else "")
         )
         from gofr_tpu_torch.telemetry import send_ping
 
@@ -419,6 +441,8 @@ class App:
         await self.crontab.stop()
         if self.container.ws_manager is not None:
             await self.container.ws_manager.close()
+        if self._grpc_server is not None:
+            await self._grpc_server.shutdown()
         for server in self._servers:
             await server.shutdown()
 

@@ -3,9 +3,9 @@ in-memory broker that the membership heartbeats and the app's subscribers
 (``subscriber.py``) ride, the delivery policy with its dead-letter topics,
 and the networked drivers behind ``PUBSUB_BACKEND``, each speaking its wire
 protocol itself over a socket: Kafka (``kafka.py`` over ``kafka_wire.py``),
-NATS (``nats.py``), MQTT 3.1.1 (``mqtt.py``) and Azure Event Hubs over AMQP
-1.0 (``eventhub.py`` over ``amqp_wire.py``). Google Pub/Sub speaks gRPC,
-which the port does not have: ``PUBSUB_BACKEND=GOOGLE`` is refused."""
+NATS (``nats.py``), MQTT 3.1.1 (``mqtt.py``), Azure Event Hubs over AMQP
+1.0 (``eventhub.py`` over ``amqp_wire.py``) and Google Pub/Sub over gRPC
+(``google.py`` on the port's own gRPC wire, ``grpcx/``)."""
 
 from gofr_tpu_torch.pubsub.delivery import DeliveryPolicy, dlq_topic
 from gofr_tpu_torch.pubsub.kafka import KafkaClient
@@ -15,9 +15,8 @@ from gofr_tpu_torch.pubsub.message import Message
 
 def build_pubsub(config):
     """PUBSUB_BACKEND switch (container/container.go:132-172): KAFKA |
-    MQTT | NATS | EVENTHUB | MEMORY → a connected-contract client, or None
-    when unset (apps wire their own via app.add_datasource). GOOGLE raises:
-    its driver needs gRPC, which the port has not ported."""
+    GOOGLE | MQTT | NATS | EVENTHUB | MEMORY → a connected-contract client,
+    or None when unset (apps wire their own via app.add_datasource)."""
     backend = (config.get("PUBSUB_BACKEND") or "").strip().upper()
     if not backend:
         return None
@@ -28,8 +27,9 @@ def build_pubsub(config):
 
         return MQTTClient.from_config(config)
     if backend == "GOOGLE":
-        raise ValueError("PUBSUB_BACKEND 'GOOGLE' is not ported: the Google Pub/Sub "
-                         "driver speaks gRPC, which the port does not have yet")
+        from gofr_tpu_torch.pubsub.google import GooglePubSubClient
+
+        return GooglePubSubClient.from_config(config)
     if backend == "NATS":
         from gofr_tpu_torch.pubsub.nats import NatsClient
 

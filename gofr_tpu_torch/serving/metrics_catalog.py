@@ -190,6 +190,14 @@ SELF_REGISTERED_METRICS: tuple[tuple[str, str, str, tuple | None], ...] = (
     ("histogram", "app_mongo_stats", "Mongo operation latency", None),
     ("histogram", "app_document_stats", "Document store operation latency", None),
     ("histogram", "app_cassandra_stats", "Wide-column store operation latency", None),
+    # the gRPC server (grpcx/server.py, at construction) and the generated
+    # services' streams (grpcx/runtime.py)
+    ("histogram", "app_grpc_server_stats", "gRPC unary handler latency", None),
+    ("histogram", "app_grpc_stream_stats", "gRPC stream handler latency", None),
+    ("counter", "grpc_server_errors_total", "gRPC handler errors", None),
+    ("counter", "app_grpc_message_total",
+     "per-message Send/Recv count on generated streaming services", None),
+    ("gauge", "grpc_server_status", "1 while the gRPC server is serving", None),
 )
 
 

@@ -7,7 +7,8 @@ GCS), ``MiniFTPServer``, ``MiniSFTPServer`` and ``MiniRedisServer``, and the
 servers the KV, document, wide-column and search drivers talk to:
 ``MiniDynamoDBServer``, ``MiniMongoServer``, ``MiniCassandraServer`` and
 ``MiniSolrServer``, and the ClickHouse HTTP server the columnar driver talks
-to, ``MiniClickHouseServer``)."""
+to, ``MiniClickHouseServer``, and the google.pubsub.v1 fake the Google
+Pub/Sub driver talks to, ``GooglePubSubServer``)."""
 
 from gofr_tpu_torch.testutil.apps import fetch, start_app, stop_app, wait_ready
 from gofr_tpu_torch.testutil.cassandra_server import MiniCassandraServer
@@ -15,6 +16,7 @@ from gofr_tpu_torch.testutil.clickhouse_server import MiniClickHouseServer
 from gofr_tpu_torch.testutil.dynamodb_server import MiniDynamoDBServer
 from gofr_tpu_torch.testutil.eventhub_server import MiniEventHubServer
 from gofr_tpu_torch.testutil.ftp_server import MiniFTPServer
+from gofr_tpu_torch.testutil.google_pubsub import GooglePubSubServer
 from gofr_tpu_torch.testutil.kafka_broker import MiniKafkaBroker
 from gofr_tpu_torch.testutil.mock_container import MockContainer, new_mock_container
 from gofr_tpu_torch.testutil.mongo_server import MiniMongoServer
@@ -26,7 +28,7 @@ from gofr_tpu_torch.testutil.redis_server import MiniRedisServer
 from gofr_tpu_torch.testutil.sftp_server import MiniSFTPServer
 from gofr_tpu_torch.testutil.solr_server import MiniSolrServer
 
-__all__ = ["FakeObjectStore", "MiniCassandraServer", "MiniClickHouseServer",
+__all__ = ["FakeObjectStore", "GooglePubSubServer", "MiniCassandraServer", "MiniClickHouseServer",
            "MiniDynamoDBServer", "MiniEventHubServer",
            "MiniFTPServer", "MiniKafkaBroker", "MiniMQTTBroker", "MiniMongoServer",
            "MiniNatsBroker", "MiniRedisServer", "MiniSFTPServer", "MiniSolrServer",

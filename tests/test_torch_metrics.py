@@ -197,7 +197,10 @@ def test_every_emitted_name_is_in_the_catalog():
     assert emitted, "the scan found no emitter"
     missing = {n: where for n, where in emitted.items() if n not in catalog}
     assert not missing, missing
-    assert all(n.startswith("app_") for n in emitted)
+    # the gRPC server keeps two of the reference's names without the prefix
+    # (gofr_tpu/grpcx/server.py:227-237)
+    assert all(n.startswith("app_") or n in ("grpc_server_errors_total", "grpc_server_status")
+               for n in emitted)
     unused = catalog - set(emitted)
     assert not unused, f"registered but never emitted: {sorted(unused)}"
 

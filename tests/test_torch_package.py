@@ -607,13 +607,15 @@ def test_pubsub_modules_are_checked_and_connect_without_a_card(no_card):
 
 
 @pytest.mark.parametrize("backend,message", [
-    ("GOOGLE", "not ported: the Google Pub/Sub driver speaks gRPC"),
+    ("GOOGLE", None),
     ("RABBIT", "unknown PUBSUB_BACKEND 'RABBIT'"),
 ])
 def test_build_pubsub_refuses_google_and_unknown_backends(backend, message):
-    """``GOOGLE`` is refused at ``App`` construction, its driver needing gRPC
-    (ROADMAP Queue C 49); any other unknown value raises the reference's
-    ``ValueError``. Unset is no broker, as on the reference."""
+    """An unknown value raises the reference's ``ValueError`` at ``App``
+    construction and in ``build_pubsub``. ``GOOGLE``, refused until the port
+    had gRPC (ROADMAP Queue C 49, settled), builds the Google Pub/Sub driver
+    as the reference does, and a dark endpoint at boot is DOWN health, not a
+    crash. Unset is no broker, as on the reference."""
     from gofr_tpu.config import MapConfig as RMapConfig
     from gofr_tpu.datasource.pubsub import build_pubsub as rbuild
     from gofr_tpu_torch.app import App
@@ -622,11 +624,21 @@ def test_build_pubsub_refuses_google_and_unknown_backends(backend, message):
 
     conf = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL",
             "PUBSUB_BACKEND": backend}
-    with pytest.raises(ValueError, match=message):
-        App(MapConfig(conf, use_env=False))
-    with pytest.raises(ValueError, match=message):
-        build_pubsub(MapConfig({"PUBSUB_BACKEND": backend}, use_env=False))
-    if backend != "GOOGLE":
+    if message is None:
+        dark = {"GOOGLE_PUBSUB_ENDPOINT": "127.0.0.1:1"}
+        port_client = build_pubsub(MapConfig({"PUBSUB_BACKEND": backend, **dark}, use_env=False))
+        ref_client = rbuild(RMapConfig({"PUBSUB_BACKEND": backend, **dark}, use_env=False))
+        assert type(port_client).__name__ == type(ref_client).__name__ == "GooglePubSubClient"
+        assert (port_client.endpoint, port_client.project, port_client.consumer_group) == \
+            (ref_client.endpoint, ref_client.project, ref_client.consumer_group)
+        app = App(MapConfig({**conf, **dark}, use_env=False))
+        assert app.container.health()["details"]["pubsub"]["status"] == "DOWN"
+        app.container.close()
+    else:
+        with pytest.raises(ValueError, match=message):
+            App(MapConfig(conf, use_env=False))
+        with pytest.raises(ValueError, match=message):
+            build_pubsub(MapConfig({"PUBSUB_BACKEND": backend}, use_env=False))
         with pytest.raises(ValueError, match=message):
             rbuild(RMapConfig({"PUBSUB_BACKEND": backend}, use_env=False))
     assert build_pubsub(MapConfig({}, use_env=False)) is None

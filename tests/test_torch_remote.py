@@ -380,6 +380,22 @@ def _affine_prompts(router, rid, n, seed):
     return out
 
 
+def _wait_beats_settled(router, rid, period_s, timeout_s=10.0):
+    """Wait until the router has consumed the last beat of a stopped
+    announcer: ``rid``'s beat sequence unchanged over two heartbeat periods.
+    A beat still in flight when the app stops would land after the
+    breaker's ``mark_down`` and clear it."""
+    deadline = time.monotonic() + timeout_s
+    last = router.membership.snapshot().get(rid, {}).get("seq")
+    while time.monotonic() < deadline:
+        time.sleep(2 * period_s)
+        seq = router.membership.snapshot().get(rid, {}).get("seq")
+        if seq == last:
+            return
+        last = seq
+    raise AssertionError(f"{rid}'s heartbeats did not settle in {timeout_s} s")
+
+
 def test_router_fails_over_when_an_app_stops(fleet):
     """A router over ``HTTPReplica``s a and b; app a stops; requests affine
     to a are served by b, none lost, the breaker marks a down; the same
@@ -404,6 +420,7 @@ def test_router_fails_over_when_an_app_stops(fleet):
                                    stream_cb=lambda *a: None).result(timeout=TIMEOUT)
             a = f["nodes"]["a"]
             a["ann"].stop(final_beat=False)
+            _wait_beats_settled(router, "a", period_s=0.05)
             stop_app(a["app"], a["thread"])
             rows = []
             for p in prompts:
