@@ -470,7 +470,39 @@ Phases, each a hard failure with a non-zero exit:
      worker's launches as it reported them;
    it prints a ``{"grpc": ...}`` line; its launches (this process's and
    the workers') are the ``kernels`` rows' ``launches_grpc``, and this
-   process's must include all three kernels;
+   process's must include all three kernels; then the parallel phase,
+   after the parent released its engines (``torch.cuda.mem_get_info()``
+   printed first): one world of four ranks spawned on the one card over
+   gloo (``gofr_tpu_torch.parallel.world.run_spmd``; NCCL refuses two ranks
+   on one card), every rank making the same weights and inputs from
+   ``SEED``, each step held on rank 0 to the same computation unsharded:
+   - ``MP1`` ``llama.forward(mesh=)`` at Llama-3-8B widths and
+     ``PLANE_DEPTH`` layers on tp=4 and on dp=2,tp=2, two prompts of 1000
+     tokens: logits error, greedy agreement, ms a forward, peak memory;
+   - ``MP2`` ``ring_attention`` and ``ulysses_attention`` (the flash
+     kernel in its middle) on sp=4 at S=8192, H 32, Hkv 8, D 128, against
+     the plain causal attention and the flash kernel on the whole
+     sequence; then ``llama.forward`` with ``attn_impl="cp"`` at 2 layers,
+     S=2048, under each impl;
+   - ``MP3`` ``moe.forward(mesh=)`` on ep=4 at Mixtral widths and
+     ``MOE_DEPTH`` layers, 4096 tokens, the logits and aux statistics
+     against ``mesh=None``; two ``make_moe_train_step`` steps' losses
+     against the one-card step's, and rank 0's updates of the router and
+     of its experts against the same slices of the one-card update;
+   - ``MP4`` ``pp_forward`` on pp=4 at 8B widths, 8 layers, 4×512 tokens
+     in 4 microbatches;
+   - ``MP5`` three steps of ``sharded_train_step`` on dp=2,tp=2 and of
+     ``make_pp_train_step`` on pp=2,dp=2 at 8B widths, 2 layers, 4×256
+     tokens, the losses against the one-card ``make_train_step``'s; ms a
+     step, peak memory per rank;
+   - ``MP6`` ``CheckpointManager.restore(sharding=)`` of a 2-layer 8B-wide
+     checkpoint by the tp=4 rules: every rank's shards bit-equal to slices
+     of the saved tree, which rank 0's whole restore equals bit for bit;
+     each rank's host RSS rise below the largest leaf's bytes (which a read
+     of any leaf whole would pass);
+   a rank's failure fails the phase; it prints a ``{"parallel": ...}``
+   line, and the ranks' flash launches on the paths (Ulysses) are the
+   ``kernels`` rows' ``launches_parallel``;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -519,6 +551,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -9606,6 +9639,493 @@ def deadline_checks(mon, phase_s: float) -> dict:
     return out
 
 
+# ------------------------------------------------------------ parallel phase
+PARALLEL_RANKS = 4  # one world on the one card, every rank on cuda:0 over gloo
+PARALLEL_DEADLINE_S = 600.0  # run_spmd kills every rank past this
+PARALLEL_LOGITS_REL_TOL = LOGITS_REL_TOL  # relative L2 of bf16 logits, sharded against one rank
+PARALLEL_GREEDY_MIN = 0.9  # share of positions whose argmax agrees with one rank's
+PARALLEL_LOSS_REL_TOL = 1e-2  # a training step's loss against the one-card step's
+MP1_SHAPE = (2, 1000)  # MP1: two prompts of 1000 tokens
+MP2_SEQ, MP2_MODEL_SEQ, MP2_DEPTH = 8192, 2048, 2  # MP2: attention S; cp forward S, layers
+MP2_HEADS = (32, 8, 128)  # MP2: H, Hkv, D of the attention check (Llama-3-8B's)
+MP3_SHAPE, MP3_TRAIN_SHAPE = (2, 2048), (1, MOE_SEQ)  # MP3: 4096 tokens; the step's tokens
+MP3_STEPS = 2  # MP3: train steps, EP against one card
+MP3_UPDATE_REL_TOL = 0.25  # MP3: relative L2 of an update (after - before) against one card's
+MP4_SHAPE, MP4_MICRO = (4, 512), 4  # MP4: batch x tokens, microbatches
+MP5_SHAPE, MP5_DEPTH, MP5_STEPS = (4, 256), 2, 3  # MP5: batch x tokens, layers, steps
+MP6_DEPTH = 2  # MP6: layers of the checkpoint restored by the tp=4 rules
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def parallel_rank(dev, tmp: str) -> dict:
+    """One rank of the parallel phase's world (``run_parallel``): MP1-MP6
+    in order. Every rank makes the same weights and inputs from ``SEED`` on
+    the card; rank 0 also computes each step unsharded and raises when the
+    sharded result is out of tolerance (so does any rank's own check).
+    Returns this rank's record: times, peak memory, checksums of what every
+    rank must hold alike, and the flash launches of the paths alone."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.checkpoint import CheckpointManager
+    from gofr_tpu_torch.models import llama, moe, train
+    from gofr_tpu_torch.ops.attention import attention
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.parallel import (
+        build_mesh, cp_context, llama_sharding_rules, ring_attention, shard_params,
+        ulysses_attention,
+    )
+    from gofr_tpu_torch.parallel.pipeline import pp_forward
+    from gofr_tpu_torch.parallel.sharding import local_index, map_with_path
+    from gofr_tpu_torch.tree import leaves
+
+    import gc
+
+    rank = dist.get_rank()
+    lead = rank == 0
+    out: dict = {"rank": rank, "launches": 0, "stages": {}}
+    t_rank = time.perf_counter()
+
+    def stage(name: str) -> None:
+        """Mark a step's start: seconds since the rank started and the
+        memory this rank still holds from the steps before."""
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        out["stages"][name] = {"t_s": time.perf_counter() - t_rank,
+                               "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9}
+        say(f"{name} at {out['stages'][name]['t_s']:.1f} s, rank 0 holding "
+            f"{out['stages'][name]['allocated_gb']:.2f} GB")
+
+    def gen(k: int):
+        return torch.Generator(device=dev).manual_seed(SEED + k)
+
+    def timed(fn):
+        """(result, ms) of one call, every rank starting together."""
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t) * 1e3
+
+    def fresh_peak() -> None:
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gb() -> float:
+        return torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def say(msg: str) -> None:
+        if lead:
+            print(f"  {msg}", flush=True)
+
+    def held(ok: bool, what: str, value) -> None:
+        if not ok:
+            raise AssertionError(f"{what}: {value}")
+
+    def path_launches(fn):
+        before = flash_attention.launches
+        res = fn()
+        out["launches"] += flash_attention.launches - before
+        return res
+
+    # MP1 tensor parallel: Llama-3-8B widths at PLANE_DEPTH layers, tp=4 and dp=2,tp=2
+    stage("MP1")
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH)
+    full = llama.init_params(cfg, gen(30), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, MP1_SHAPE, device=dev, generator=gen(31))
+    meshes = {spec: build_mesh(spec) for spec in ("tp=4", "dp=2,tp=2")}
+    local = {spec: shard_params(full, m, llama_sharding_rules()) for spec, m in meshes.items()}
+    with torch.no_grad():
+        ref = llama.forward(cfg, full, tokens) if lead else None
+        full_gb = llama.param_bytes(full) / 1e9
+        del full
+        out["mp1"] = {}
+        for spec, mesh in meshes.items():
+            fresh_peak()
+            logits, ms = timed(lambda: llama.forward(cfg, local[spec], tokens, mesh=mesh))
+            rec = {"ms": ms, "peak_gb": peak_gb(), "shard_gb": llama.param_bytes(local[spec]) / 1e9,
+                   "full_gb": full_gb, "logits_sum": float(logits.double().sum())}
+            if lead:
+                rec["rel_err"] = rel_l2(logits, ref)
+                rec["greedy"] = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+                held(rec["rel_err"] <= PARALLEL_LOGITS_REL_TOL and rec["greedy"] >= PARALLEL_GREEDY_MIN,
+                     f"MP1 {spec}", rec)
+                say(f"MP1 {spec}: logits rel err {rec['rel_err']:.3e}, greedy {rec['greedy']:.4f}, "
+                    f"{ms:.1f} ms a forward, peak {rec['peak_gb']:.2f} GB, shard "
+                    f"{rec['shard_gb']:.2f} GB of {full_gb:.2f}")
+            out["mp1"][spec] = rec
+            del logits
+        del local, ref
+
+    # MP2 context parallel: attention at S=8192 on sp=4, then the cp forward
+    stage("MP2")
+    H, Hkv, D = MP2_HEADS
+    g = gen(40)
+    q = torch.randn((1, MP2_SEQ, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    k = torch.randn((1, MP2_SEQ, Hkv, D), generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn((1, MP2_SEQ, Hkv, D), generator=g, device=dev, dtype=torch.bfloat16)
+    sp = build_mesh("sp=4")
+    out["mp2"] = {}
+    with torch.no_grad():
+        fresh_peak()
+        ring, ring_ms = timed(lambda: ring_attention(q, k, v, sp))
+        uly, uly_ms = timed(lambda: path_launches(lambda: ulysses_attention(q, k, v, sp)))
+        out["mp2"].update({"ring_ms": ring_ms, "ulysses_ms": uly_ms, "peak_gb": peak_gb(),
+                           "sums": [float(ring.double().sum()), float(uly.double().sum())]})
+        if lead:
+            step = 1024  # the plain reference in query chunks: one chunk's logits are 1 GB
+            plain = torch.cat([attention(q[:, i:i + step], k[:, :i + step], v[:, :i + step],
+                                         causal=True, q_offset=i) for i in range(0, MP2_SEQ, step)], 1)
+            flash = flash_attention(q, k, v)  # a comparison launch: not the path's
+            errs = {f"{a}_vs_{b}": row_rel_err(x, y) for a, x in (("ring", ring), ("ulysses", uly))
+                    for b, y in (("plain", plain), ("flash", flash))}
+            out["mp2"]["row_errs"] = errs
+            held(all(e <= FLASH_ROW_TOL for e in errs.values()), "MP2 attention", errs)
+            say(f"MP2 S={MP2_SEQ} H={H} Hkv={Hkv} D={D} on sp=4: ring {ring_ms:.1f} ms, Ulysses "
+                f"{uly_ms:.1f} ms, per-row errors {errs}")
+            del plain, flash
+        del q, k, v, ring, uly
+        cfg2 = llama.LlamaConfig.llama3_8b(n_layers=MP2_DEPTH, attn_impl="cp")
+        p2 = llama.init_params(cfg2, gen(41), device=dev)
+        toks = torch.randint(0, cfg2.vocab_size, (1, MP2_MODEL_SEQ), device=dev, generator=gen(42))
+        ref = llama.forward(dataclasses.replace(cfg2, attn_impl="auto"), p2, toks) if lead else None
+        for impl in ("ring", "ulysses"):
+            with cp_context(sp, axis="sp", impl=impl):
+                logits, ms = timed(lambda: path_launches(lambda: llama.forward(cfg2, p2, toks)))
+            rec = {"ms": ms, "logits_sum": float(logits.double().sum())}
+            if lead:
+                rec["rel_err"] = rel_l2(logits, ref)
+                held(rec["rel_err"] <= PARALLEL_LOGITS_REL_TOL, f"MP2 cp {impl}", rec)
+                say(f"MP2 cp forward ({impl}, {MP2_DEPTH} layers, S={MP2_MODEL_SEQ}): logits rel err "
+                    f"{rec['rel_err']:.3e}, {ms:.1f} ms")
+            out["mp2"][f"cp_{impl}"] = rec
+            del logits
+        del p2, ref
+
+    # MP3 expert parallel: Mixtral widths at MOE_DEPTH layers on ep=4
+    stage("MP3")
+    mcfg = moe.MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH,
+                                      capacity_factor=8 / 2)  # E / top_k: no token is dropped
+    mfull = moe.init_params(mcfg, gen(50), device=dev)
+    ep = build_mesh("ep=4")
+    rules = moe.moe_sharding_rules()
+    mlocal = shard_params(mfull, ep, rules)
+    toks = torch.randint(0, mcfg.vocab_size, MP3_SHAPE, device=dev, generator=gen(51))
+    ttoks = torch.randint(0, mcfg.vocab_size, MP3_TRAIN_SHAPE, device=dev, generator=gen(52))
+    moved = ("w_router", "w_gate", "w_up", "w_down")  # the leaves an EP update splits or sums
+    with torch.no_grad():
+        if lead:
+            ref, (rf, rp) = moe.forward(mcfg, mfull, toks, return_aux=True)
+    if lead:  # the one-card steps, in place on the full tree; then rank 0's slices of it
+        before = {k: mlocal["layers"][k].clone() for k in moved}
+        init, step = train.make_moe_train_step(mcfg, None)
+        opt = init(mfull)
+        ref_losses = []
+        for _ in range(MP3_STEPS):
+            mfull, opt, loss = step(mfull, opt, ttoks)
+            ref_losses.append(float(loss))
+        ref_moved = {k: mfull["layers"][k][local_index(tuple(mfull["layers"][k].shape),
+                                                       rules.spec_for(f"layers/{k}"), ep)].clone()
+                     for k in moved}
+        del opt, init, step
+    del mfull
+    with torch.no_grad():
+        fresh_peak()
+        (logits, (f, p)), ms = timed(lambda: moe.forward(mcfg, mlocal, toks, mesh=ep, return_aux=True))
+        rec = {"ms": ms, "peak_gb": peak_gb(), "logits_sum": float(logits.double().sum())}
+        if lead:
+            rec.update({"rel_err": rel_l2(logits, ref), "f_err": float((f - rf).abs().max()),
+                        "p_err": float((p - rp).abs().max())})
+            held(rec["rel_err"] <= PARALLEL_LOGITS_REL_TOL and rec["f_err"] <= 1e-2
+                 and rec["p_err"] <= 1e-3, "MP3 forward", rec)
+            del ref
+        del logits
+    init, step = train.make_moe_train_step(mcfg, ep)
+    opt = init(mlocal)
+    fresh_peak()
+    losses, step_ms = [], []
+    for _ in range(MP3_STEPS):
+        res, t_ms = timed(lambda: step(mlocal, opt, ttoks))
+        losses.append(float(res[2]))
+        step_ms.append(t_ms)
+        del res  # the step's (params, opt_state, loss): the state is mlocal and opt
+    rec.update({"train_losses": losses, "train_ms": step_ms, "train_peak_gb": peak_gb()})
+    if lead:
+        # each update (after minus before) of the router and of this rank's
+        # experts against the one-card update's same slice
+        rec["update_rel_err"] = {k: rel_l2(mlocal["layers"][k].float() - before[k].float(),
+                                           ref_moved[k].float() - before[k].float())
+                                 for k in moved}
+        rec["train_ref_losses"] = ref_losses
+        held(all(abs(a - b) <= PARALLEL_LOSS_REL_TOL * abs(b) for a, b in zip(losses, ref_losses))
+             and max(rec["update_rel_err"].values()) <= MP3_UPDATE_REL_TOL, "MP3 train steps", rec)
+        say(f"MP3 Mixtral widths, {MOE_DEPTH} layers, ep=4, {MP3_SHAPE[0] * MP3_SHAPE[1]} tokens: "
+            f"logits rel err {rec['rel_err']:.3e}, f {rec['f_err']:.2e}, p {rec['p_err']:.2e}, "
+            f"{ms:.1f} ms a forward, peak {rec['peak_gb']:.2f} GB; {MP3_STEPS} train steps on "
+            f"{MP3_TRAIN_SHAPE[1]} tokens: losses {[round(x, 5) for x in losses]} against one "
+            f"card's {[round(x, 5) for x in ref_losses]}, updates' rel err "
+            f"{ {k: round(v, 4) for k, v in rec['update_rel_err'].items()} }, ms a step "
+            f"{[round(x, 1) for x in step_ms]}")
+        del before, ref_moved
+    out["mp3"] = rec
+    del mlocal, opt, init, step
+
+    # MP4 pipeline: 8B widths at PLANE_DEPTH layers on pp=4, M microbatches
+    stage("MP4")
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=PLANE_DEPTH)
+    full = llama.init_params(cfg, gen(60), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, MP4_SHAPE, device=dev, generator=gen(61))
+    pp = build_mesh("pp=4")
+    plocal = shard_params(full, pp, llama_sharding_rules(pp=True))
+    with torch.no_grad():
+        ref = llama.forward(cfg, full, toks) if lead else None
+        del full
+        fresh_peak()
+        logits, ms = timed(lambda: pp_forward(cfg, plocal, toks, pp, microbatches=MP4_MICRO))
+        rec = {"ms": ms, "peak_gb": peak_gb(), "stage_gb": llama.param_bytes(plocal) / 1e9,
+               "logits_sum": float(logits.double().sum())}
+        if lead:
+            rec["rel_err"] = rel_l2(logits, ref)
+            rec["greedy"] = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+            held(rec["rel_err"] <= PARALLEL_LOGITS_REL_TOL and rec["greedy"] >= PARALLEL_GREEDY_MIN,
+                 "MP4", rec)
+            say(f"MP4 pp=4, {PLANE_DEPTH} layers, {MP4_SHAPE[0]}x{MP4_SHAPE[1]} tokens in "
+                f"{MP4_MICRO} microbatches: logits rel err {rec['rel_err']:.3e}, greedy "
+                f"{rec['greedy']:.4f}, {ms:.1f} ms, peak {rec['peak_gb']:.2f} GB")
+            del ref
+        out["mp4"] = rec
+        del logits, plocal
+
+    # MP5 training: 8B widths at MP5_DEPTH layers, MP5_STEPS steps from the same start
+    stage("MP5")
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=MP5_DEPTH)
+    full = llama.init_params(cfg, gen(70), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, MP5_SHAPE, device=dev, generator=gen(71))
+    runs = {"dp=2,tp=2": (build_mesh("dp=2,tp=2"), llama_sharding_rules()),
+            "pp=2,dp=2": (build_mesh("pp=2,dp=2"), llama_sharding_rules(pp=True))}
+    out["mp5"] = {}
+    if lead:  # the one-card step, in place on the full tree
+        init, step = train.make_train_step(cfg)
+        opt = init(full)
+        ref_losses = []
+        for _ in range(MP5_STEPS):
+            full, opt, loss = step(full, opt, toks)
+            ref_losses.append(float(loss))
+        out["mp5"]["one_card_losses"] = ref_losses
+        del opt
+    del full
+    for spec, (mesh, rules) in runs.items():
+        # the same start for each run, made again from the seed: only this
+        # run's slice is alive while it trains
+        full = llama.init_params(cfg, gen(70), device=dev)
+        params = shard_params(full, mesh, rules)
+        del full
+        if spec.startswith("pp"):
+            init, step = train.make_pp_train_step(cfg, mesh, microbatches=MP5_SHAPE[0])
+        else:
+            init, compile_for = train.sharded_train_step(cfg, mesh, rules)
+            step = compile_for(params, None, toks)
+        opt = init(params)
+        fresh_peak()
+        losses, times = [], []
+        for _ in range(MP5_STEPS):
+            (params, opt, loss), ms = timed(lambda: step(params, opt, toks))
+            losses.append(float(loss))
+            times.append(ms)
+        rec = {"losses": losses, "ms": times, "peak_gb": peak_gb()}
+        if lead:
+            rec["one_card_losses"] = ref_losses
+            held(all(abs(a - b) <= PARALLEL_LOSS_REL_TOL * abs(b) for a, b in zip(losses, ref_losses)),
+                 f"MP5 {spec}", rec)
+            say(f"MP5 {spec}, {MP5_DEPTH} layers, {MP5_SHAPE[0]}x{MP5_SHAPE[1]} tokens: losses "
+                f"{[round(x, 5) for x in losses]} against one card's "
+                f"{[round(x, 5) for x in ref_losses]}, ms a step {[round(x, 1) for x in times]}, "
+                f"peak {rec['peak_gb']:.2f} GB")
+        out["mp5"][spec] = rec
+        del params, opt
+
+    # MP6 sharded restore: a MP6_DEPTH-layer 8B-wide checkpoint by the tp=4 rules
+    stage("MP6")
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=MP6_DEPTH)
+    full = llama.init_params(cfg, gen(80), device=dev)
+    mgr = CheckpointManager(tmp)
+    if lead:
+        mgr.save(1, full)
+    dist.barrier()
+    ckpt_bytes = os.path.getsize(os.path.join(tmp, "step_000000001", "weights.npz"))
+    tp4 = build_mesh("tp=4")
+    shardings = llama_sharding_rules().tree_shardings(tp4, full)
+    with PeakRss() as rss:
+        (shards, ms) = timed(lambda: mgr.restore(full, sharding=shardings, device=dev))
+    # rank 0 restores the whole tree and holds it to the saved one; every
+    # rank holds its shards to slices of that tree (the same from the seed)
+    whole = mgr.restore(full, device=dev) if lead else full
+    same: list[bool] = []
+
+    def hold_slice(path: str, shard):
+        w = whole
+        for key in path.split("/"):
+            w = w[key]
+        place = shardings
+        for key in path.split("/"):
+            place = place[key]
+        same.append(torch.equal(shard, w[local_index(tuple(w.shape), place.spec, tp4)]))
+
+    map_with_path(hold_slice, shards)
+    rec = {"restore_ms": ms, "rss_rise_mib": rss.peak - rss.before, "ckpt_bytes": ckpt_bytes,
+           "largest_leaf_bytes": max(t.numel() * t.element_size() for t in leaves(full)),
+           "shards_gb": sum(t.numel() * t.element_size() for t in leaves(shards)) / 1e9,
+           "bit_equal": all(same) and all(torch.equal(a, b) for a, b in zip(leaves(whole), leaves(full)))}
+    del whole
+    # a read of any leaf whole would raise the host's RSS by that leaf's bytes at least
+    held(rec["bit_equal"] and rec["rss_rise_mib"] * 2 ** 20 < rec["largest_leaf_bytes"],
+         f"MP6 rank {rank}", rec)
+    say(f"MP6 restore of a {ckpt_bytes / 1e9:.2f} GB checkpoint by the tp=4 rules: {ms:.1f} ms, "
+        f"rank 0's host RSS rise {rec['rss_rise_mib']:.1f} MiB (its largest leaf "
+        f"{rec['largest_leaf_bytes'] / 2 ** 20:.1f} MiB), shards {rec['shards_gb']:.2f} GB, "
+        f"bit-equal {rec['bit_equal']}")
+    out["mp6"] = rec
+    stage("end")
+    return out
+
+
+def _describe(obj) -> str:
+    """A short name for an object on a reference path: its type, and the
+    qualified name of a function, method or class it stands for."""
+    kind = type(obj)
+    name = f"{kind.__module__}.{kind.__qualname__}"
+    if isinstance(obj, (types.FunctionType, types.MethodType, type)):
+        target = getattr(obj, "__func__", obj)
+        name += f" {target.__module__}.{target.__qualname__}"
+    return name
+
+
+def cyclic_garbage(torch, device_type: str = "cuda") -> dict:
+    """Collect this process's cyclic garbage and name what held the device
+    memory it frees: the device tensors in it (count, bytes), the commonest
+    types among the unreachable objects, and for the largest tensor the
+    path from it to the nearest object of this repository's classes and
+    the shortest cycle through that object. A diagnostic: it reads the
+    garbage and frees it as ``gc.collect()`` would."""
+    import gc
+
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        out = _name_garbage(torch, gc.garbage, device_type)
+    finally:
+        gc.garbage.clear()
+        gc.set_debug(0)
+    gc.collect()  # what the saved list kept is garbage again
+    return out
+
+
+def _name_garbage(torch, garbage: list, device_type: str) -> dict:
+    import collections
+    import gc
+
+    ids = {id(o): o for o in garbage}
+    parents: dict[int, list[int]] = collections.defaultdict(list)
+    for o in garbage:
+        for ref in gc.get_referents(o):
+            if id(ref) in ids:
+                parents[id(ref)].append(id(o))
+    tensors = [o for o in garbage if isinstance(o, torch.Tensor) and o.device.type == device_type
+               and o.layout == torch.strided]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+    out = {"objects": len(garbage), "device_tensors": len(tensors),
+           "device_bytes": sum(storages.values()),
+           "types": collections.Counter(_describe(o).split(" ")[0] for o in garbage
+                                        if not isinstance(o, (dict, list, tuple))).most_common(12)}
+
+    def ours(o) -> bool:
+        module = type(o).__module__ or ""
+        return module.startswith(("gofr_tpu_torch", "chip_smoke", "__main__")) and not isinstance(
+            o, torch.Tensor)
+
+    def bfs(start: int, step, goal) -> list[int]:
+        seen, queue = {start: None}, collections.deque([start])
+        while queue:
+            cur = queue.popleft()
+            for nxt in step(cur):
+                if goal(nxt):
+                    path = [nxt, cur]
+                    while seen[path[-1]] is not None:
+                        path.append(seen[path[-1]])
+                    return path[::-1]
+                if nxt not in seen:
+                    seen[nxt] = cur
+                    queue.append(nxt)
+        return []
+
+    if tensors:
+        big = max(tensors, key=lambda t: t.untyped_storage().nbytes())
+        up = bfs(id(big), lambda i: parents.get(i, ()), lambda i: ours(ids[i]))
+        out["path"] = [_describe(ids[i]) for i in reversed(up)]
+        if up:
+            root = up[-1]
+            down = bfs(root, lambda i: [id(r) for r in gc.get_referents(ids[i]) if id(r) in ids],
+                       lambda i: i == root)
+            out["cycle"] = [_describe(ids[i]) for i in down]
+    return out
+
+
+def run_parallel(torch) -> dict:
+    """The parallel phase: one world of ``PARALLEL_RANKS`` spawned ranks on
+    the one card over gloo (``parallel.world.run_spmd``, rank function
+    ``parallel_rank``), after the parent released its engines. Every rank
+    must report the same checksums; the ranks' flash launches on the paths
+    add up to the phase's count."""
+    import tempfile
+
+    import chip_smoke as me  # by its module name: a spawned rank imports it
+    from gofr_tpu_torch.parallel import world
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    # a reference cycle of the earlier phases holds their weights until a
+    # collection (ROADMAP Queue C 61): name it, free it, count it
+    cyclic = cyclic_garbage(torch)
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    print(f"  parent: {held / 1e9:.2f} GB allocated, {after / 1e9:.2f} GB "
+          f"after a collection; the cyclic garbage {cyclic}", flush=True)
+    free, total = torch.cuda.mem_get_info()
+    print(f"  parent: mem_get_info {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB, "
+          f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB; {PARALLEL_RANKS} ranks, "
+          "backend gloo (NCCL refuses two ranks on one card): collectives other than all_reduce "
+          "stage CUDA tensors through host copies", flush=True)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_parallel_", dir=ROOT)
+    t0 = time.perf_counter()
+    try:
+        ranks = world.run_spmd(me.parallel_rank, PARALLEL_RANKS, args=(tmp,), backend="gloo",
+                               timeout_s=PARALLEL_DEADLINE_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+    for key, sub in (("mp1", "tp=4"), ("mp1", "dp=2,tp=2"), ("mp2", "cp_ring"),
+                     ("mp2", "cp_ulysses"), ("mp3", None), ("mp4", None)):
+        sums = {r["rank"]: (r[key][sub] if sub else r[key])["logits_sum"] for r in ranks}
+        if len(set(sums.values())) != 1:
+            raise AssertionError(f"{key} {sub}: the ranks' logits differ: {sums}")
+    out = {"ranks": ranks, "phase_s": phase_s, "free_gb_before": free / 1e9,
+           "parent_gb_before_gc": held / 1e9, "parent_gb_after_gc": after / 1e9, "cyclic": cyclic,
+           "launches": {"flash_attention": sum(r["launches"] for r in ranks),
+                        "paged_decode_attention": 0, "paged_decode_attention_q": 0}}
+    if out["launches"]["flash_attention"] == 0:
+        raise AssertionError("the parallel phase's paths never launched flash (Ulysses)")
+    print(f"  parallel phase: {phase_s:.1f} s, flash launches on the paths "
+          f"{out['launches']['flash_attention']} (Ulysses, every rank)", flush=True)
+    return out
+
+
 PLANE_DEPTH = 8  # layers of the phases run at a cut depth (kv-reuse and spec, tenancy, healing,
 # observability, HA, fleet, http H1-H2, surface, sql, pubsub, files jobs, stores, analytics, grpc)
 DEVICE_T_DEPTH = 2  # layers of the device phase's T (and K and D on T's weights): the embedding
@@ -9856,6 +10376,12 @@ def main() -> int:
     device = run_device(torch, LlamaConfig.llama3_8b(n_layers=DEVICE_T_DEPTH),
                         MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
     sql, pubsub, files, stores, analytics, grpc = sql_phase(torch)
+    print(f"parallel phase (one world of {PARALLEL_RANKS} ranks on the one card over gloo: MP1 "
+          f"tensor parallel at Llama-3-8B widths, {PLANE_DEPTH} layers, tp=4 and dp=2,tp=2; MP2 ring "
+          f"and Ulysses attention at S={MP2_SEQ} and the cp forward; MP3 expert parallel at Mixtral "
+          f"widths, {MOE_DEPTH} layers; MP4 the GPipe pipeline on pp=4; MP5 sharded and pipelined "
+          f"training; MP6 a sharded restore):")
+    parallel = run_parallel(torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -9870,6 +10396,7 @@ def main() -> int:
         r["launches_stores"] = stores["launches"].get(r["name"], 0)
         r["launches_analytics"] = analytics["launches"].get(r["name"], 0)
         r["launches_grpc"] = grpc["launches"].get(r["name"], 0)
+        r["launches_parallel"] = parallel["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -9893,6 +10420,7 @@ def main() -> int:
     print(json.dumps({"stores": stores}, default=str))
     print(json.dumps({"analytics": analytics}, default=str))
     print(json.dumps({"grpc": grpc}, default=str))
+    print(json.dumps({"parallel": parallel}, default=str))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f}s from the kernel build to here")
     print(card)
     print(json.dumps({"analysis": ANALYSIS}, default=str))

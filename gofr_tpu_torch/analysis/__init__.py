@@ -35,8 +35,8 @@ families, written against a PyTorch tree):
   a test of the port's chaos tier.
 
 Not ported: bench_ratchet (with the port's bench), shardcheck and
-kernelcheck's spec-rank-mismatch (with the port's mesh, ROADMAP Queue A
-item 9).
+kernelcheck's spec-rank-mismatch (their lint over the port's mesh, ROADMAP
+Queue A item 16).
 
 Run ``python -m gofr_tpu_torch.analysis --all``; it exits non-zero on any
 unsuppressed finding. Suppress with

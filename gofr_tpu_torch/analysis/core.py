@@ -242,10 +242,10 @@ def run_rules(
 
 
 # rule ids of the reference's families the port does not carry yet:
-# shardcheck's four and kernelcheck's spec-rank-mismatch, which wait for
-# the port's mesh (ROADMAP Queue A item 9). The audit cannot call a
-# suppression of theirs stale until the family that would raise the
-# finding exists.
+# shardcheck's four and kernelcheck's spec-rank-mismatch (ROADMAP Queue A
+# item 16: the port's mesh exists, their lint over it does not). The audit
+# cannot call a suppression of theirs stale until the family that would
+# raise the finding exists.
 PENDING_RULES = frozenset({
     "mesh-axis-unknown", "collective-unmapped", "use-after-donation",
     "retrace-hazard", "spec-rank-mismatch",

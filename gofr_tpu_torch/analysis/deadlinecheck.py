@@ -58,7 +58,7 @@ rooted at the request-serving entry points (``ServingEngine.submit``/
     a file that is still scanned and functions that still exist in it —
     a stale zone silently disables its rules for code that moved.
     shardcheck's ``RETRACE_ZONE_*`` tables join it with shardcheck
-    (ROADMAP Queue A item 9).
+    (ROADMAP Queue A item 16).
 
 Like lockcheck/leakcheck, the analysis over-approximates toward a
 SUPERSET: the call graph is name-based (an edge to every program
@@ -776,7 +776,7 @@ def _default_zone_specs() -> list[tuple[str, str, dict[str, Any]]]:
     every zone table the analyzer family keys on. Imported lazily so a
     fixture tree can inject fake tables without touching the real ones.
     shardcheck's RETRACE_ZONE_FILES/_DIRS join with shardcheck (ROADMAP
-    Queue A item 9)."""
+    Queue A item 16)."""
     from gofr_tpu_torch.analysis import kernel_contracts as kc
     from gofr_tpu_torch.analysis import leakcheck as lk
     from gofr_tpu_torch.analysis import rules as rules_mod

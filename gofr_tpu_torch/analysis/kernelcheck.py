@@ -478,6 +478,10 @@ ENGINE_HOT_FUNCS: frozenset[str] = frozenset({
 _ENGINE_FILE = "gofr_tpu_torch/serving/engine.py"
 _HOT_ZONE_FILES: tuple[str, ...] = kc.KERNEL_FILES + (
     "gofr_tpu_torch/ops/sampling.py",
+    # the parallel plane's per-step code: collectives, ring/Ulysses, the pipeline
+    "gofr_tpu_torch/parallel/collectives.py",
+    "gofr_tpu_torch/parallel/context_parallel.py",
+    "gofr_tpu_torch/parallel/pipeline.py",
 )
 _FLOAT64 = {"float64", "double"}
 _INT64 = {"int64", "long"}

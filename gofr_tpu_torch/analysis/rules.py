@@ -1152,8 +1152,8 @@ class RouterRetryTypedRule(Rule):
 
 def default_rules() -> list[Rule]:
     """These rules and the lockcheck, leakcheck, deadlinecheck and
-    kernelcheck families. The reference's shardcheck waits for the port's
-    mesh (ROADMAP Queue A item 9)."""
+    kernelcheck families. The reference's shardcheck is not ported yet
+    (ROADMAP Queue A item 16)."""
     from gofr_tpu_torch.analysis.deadlinecheck import deadlinecheck_rules
     from gofr_tpu_torch.analysis.kernelcheck import kernelcheck_rules
     from gofr_tpu_torch.analysis.leakcheck import leakcheck_rules

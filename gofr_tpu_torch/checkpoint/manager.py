@@ -17,15 +17,21 @@ time: the host holds one leaf's bytes, never the whole tree.
 Deliberate differences (ROADMAP Queue C): no orbax backend
 (``backend="orbax"`` is refused, and a manifest step the reference wrote
 with orbax raises :class:`CheckpointError` naming it); ``restore`` places
-the tree on ``device`` (the card unless the caller passes ``"cpu"``) and
-refuses ``sharding=`` until the parallel plane is ported.
+the tree on ``device`` (the card unless the caller passes ``"cpu"``).
+``restore(sharding=)`` takes the port's placements (``parallel.sharding``):
+each leaf comes back as this rank's slice, read from the stored array
+alone (the archive's members are stored, so a slice is a few positioned
+reads of the file, not a read of the whole leaf).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import shutil
+import struct
 import time
 import zipfile
 from typing import Any
@@ -69,6 +75,72 @@ def _host_array(leaf: Any) -> tuple[np.ndarray, str]:
         return t.numpy(), _dtype_name(t.dtype)
     arr = np.asarray(leaf)
     return arr, arr.dtype.name
+
+
+@dataclasses.dataclass(frozen=True)
+class _StoredArray:
+    """A stored (uncompressed) C-order ``.npy`` member of the archive at
+    ``path``: where its data starts, its shape and dtype. Indexing it with
+    a tuple of slices reads that slice alone, one ``preadv`` for each
+    contiguous run of it, so the host holds the slice's bytes and no more
+    (a memory map would count the pages around each row it touches)."""
+
+    path: str
+    offset: int
+    shape: tuple[int, ...]
+    dtype: np.dtype
+
+    def __getitem__(self, index: tuple[slice, ...]) -> np.ndarray:
+        ranges = [range(*s.indices(n)) for s, n in zip(index, self.shape)]
+        ranges += [range(n) for n in self.shape[len(ranges):]]
+        out = np.empty([len(r) for r in ranges], self.dtype)
+        if out.size == 0:
+            return out
+        split = [d for d, r in enumerate(ranges) if len(r) != self.shape[d]]
+        k = split[-1] if split else 0  # the dims after it are read whole
+        strides = [math.prod(self.shape[d + 1:]) * self.dtype.itemsize
+                   for d in range(len(self.shape))]
+        runs = out.reshape(-1).view(np.uint8).reshape(-1, len(ranges[k]) * strides[k])
+        starts = np.int64(self.offset + ranges[k].start * strides[k])
+        for d in range(k):  # each run's file offset, in the runs' (C) order
+            starts = np.add.outer(starts, np.asarray(ranges[d], np.int64) * strides[d])
+        fd = os.open(self.path, os.O_RDONLY)
+        try:
+            for run, at in zip(runs, np.ravel(starts).tolist()):
+                got = 0
+                while got < len(run):
+                    n = os.preadv(fd, [run[got:]], at + got)
+                    if not n:
+                        raise CheckpointError(f"{self.path}: a stored array ends early")
+                    got += n
+        finally:
+            os.close(fd)
+        return out
+
+
+def _stored_array(path: str, info: zipfile.ZipInfo) -> _StoredArray | None:
+    """The member ``info`` of the archive at ``path`` as a
+    :class:`_StoredArray`; None for a compressed member, a Fortran-order
+    or object array, a scalar, or a header version this does not parse
+    (the caller reads the member whole)."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        head = f.read(30)  # the local file header; its name and extra fields follow
+        name_len, extra_len = struct.unpack("<HH", head[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = np.lib.format.read_magic(f)
+        if version == (1, 0):
+            shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+        elif version == (2, 0):
+            shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+        else:
+            return None
+        offset = f.tell()
+    if fortran or dtype.hasobject or not shape:
+        return None
+    return _StoredArray(path, offset, tuple(shape), dtype)
 
 
 class CheckpointManager:
@@ -204,13 +276,16 @@ class CheckpointManager:
         ``device`` (the card unless the caller passes ``"cpu"``).
         ``abstract_tree`` gives the structure and each leaf's shape and
         dtype: a tree of tensors, which may be meta or fake tensors (the
-        port's ``jax.eval_shape``). ``sharding=`` is refused until the
-        parallel plane is ported (ROADMAP Queue A item 9)."""
+        port's ``jax.eval_shape``). ``sharding=`` is one
+        ``parallel.sharding.NamedSharding`` for every leaf or a tree of them
+        (``rules.tree_shardings(mesh, abstract_tree)``): each leaf is then
+        this rank's slice of the stored one, and a replicated placement
+        (``P()``) the whole leaf, as the reference's ``P()`` does."""
+        slots = None
         if sharding is not None:
-            raise NotImplementedError(
-                "sharding= needs the parallel plane (ROADMAP Queue A item 9); "
-                "the port restores onto one device"
-            )
+            from gofr_tpu_torch.parallel.sharding import placements
+
+            slots = tree_util.leaves(placements(sharding, abstract_tree))
         dev = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -226,12 +301,13 @@ class CheckpointManager:
                 f"step {step} was written by the {backend!r} backend, which the port cannot "
                 "read (it reads the npz layout only)"
             )
-        tree = self._restore_npz(self._step_dir(step), abstract_tree, dev)
+        tree = self._restore_npz(self._step_dir(step), abstract_tree, dev, slots)
         if self._logger:
             self._logger.info(f"restored checkpoint step {step}")
         return tree
 
-    def _restore_npz(self, step_dir: str, abstract_tree: Any, dev: torch.device) -> Any:
+    def _restore_npz(self, step_dir: str, abstract_tree: Any, dev: torch.device,
+                     slots: list | None = None) -> Any:
         path = os.path.join(step_dir, "weights.npz")
         if not os.path.exists(path):
             raise CheckpointError(f"missing weights at {path}")
@@ -258,7 +334,9 @@ class CheckpointManager:
             saved_dtypes = saved.get("dtypes")
             restored = []
             for i, leaf in enumerate(leaves):
-                arr = data[f"leaf_{i}"]
+                arr = _stored_array(path, data.zip.getinfo(f"leaf_{i}.npy")) if slots else None
+                if arr is None:
+                    arr = data[f"leaf_{i}"]
                 name = saved_dtypes[i] if saved_dtypes is not None else arr.dtype.name
                 if tuple(leaf.shape) != arr.shape:
                     raise CheckpointError(
@@ -269,6 +347,11 @@ class CheckpointManager:
                     raise CheckpointError(
                         f"leaf {i} dtype mismatch: expected {want}, got {name}"
                     )
+                if slots:
+                    from gofr_tpu_torch.parallel.sharding import local_index
+
+                    index = local_index(arr.shape, slots[i].spec, slots[i].mesh)
+                    arr = arr[index] if isinstance(arr, _StoredArray) else np.array(arr[index])
                 t = torch.from_numpy(arr)
                 if name == "bfloat16":  # stored as its 16-bit words
                     t = t.view(torch.bfloat16)

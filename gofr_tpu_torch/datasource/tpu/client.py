@@ -58,7 +58,8 @@ device-side assert) ends the process's CUDA context: every later probe
 fails, and only a new process heals it.
 
 Refused, not ignored (ROADMAP Queue C): a ``TPU_MESH`` that resolves to
-more than one device (the mesh waits for Queue A item 9),
+more than one device (Queue A item 14: the mesh exists in ``parallel/``, the
+client over it and the sick-chip failover do not yet),
 ``TPU_PJRT_PLUGIN`` (a libtpu plugin) and ``TPU_COMPILE_CACHE_DIR`` (a
 CUDA graph cannot be persisted). The native PJRT probe is not ported
 (Queue A item 7): ``health_check`` keeps the reference's keys without
@@ -290,7 +291,7 @@ class TPUClient:
         if mesh_spec is not None and _mesh_size(mesh_spec) > 1:
             raise ValueError(
                 f"TPU_MESH={mesh_spec!r} spans more than one device: the mesh needs the "
-                "parallel plane (ROADMAP Queue A item 9); the client drives one card"
+                "client over a mesh (ROADMAP Queue A item 14); the client drives one card"
             )
         if platform:
             raise ValueError(

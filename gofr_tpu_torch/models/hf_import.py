@@ -178,12 +178,13 @@ def load_llama_from_hf(
     """Load an HF Llama checkpoint into ``llama.init_params``'s tree on
     ``device`` (the card by default): ``(cfg, params)``. Each leaf is
     built on the host (transposed, stacked, cast) and then copied to the
-    device. ``sharding=`` (the reference's placement onto a mesh) is not
-    ported until the parallel plane is (ROADMAP Queue A item 9)."""
+    device. ``sharding=`` places the tree on a mesh: one
+    ``parallel.sharding.NamedSharding`` for every leaf or a tree of them
+    (``rules.tree_shardings(mesh, params)``); each leaf is then this rank's
+    slice, cut on the host before the copy, and a replicated placement
+    (``P()``) the whole leaf."""
     if sharding is not None:
-        raise NotImplementedError(
-            "sharding= is not ported: the port has no mesh until ROADMAP Queue A item 9"
-        )
+        from gofr_tpu_torch.parallel.sharding import local_index, placement_at
     dev = resolve_device(device)
     if cfg is None:
         cfg = config_from_hf(path, fs)
@@ -198,35 +199,39 @@ def load_llama_from_hf(
             raise KeyError(f"tensor {name} missing from checkpoint (have {len(raw)})")
         return raw[name]
 
-    def put(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    def put(x: torch.Tensor, dt: torch.dtype, path: str) -> torch.Tensor:
+        if sharding is not None:
+            place = placement_at(sharding, path)
+            x = x[local_index(tuple(x.shape), place.spec, place.mesh)]
         return to_leaf(x, dt, dev)
 
-    def proj(layer_tpl: str) -> torch.Tensor:
+    def proj(layer_tpl: str, path: str) -> torch.Tensor:
         """Per-layer [out, in] projections stacked as [L, in, out]."""
-        return put(torch.stack([t(layer_tpl.format(n)).T for n in range(L)]), dtype)
+        return put(torch.stack([t(layer_tpl.format(n)).T for n in range(L)]), dtype, path)
 
-    def norms(layer_tpl: str) -> torch.Tensor:
-        return put(torch.stack([t(layer_tpl.format(n)) for n in range(L)]), torch.float32)
+    def norms(layer_tpl: str, path: str) -> torch.Tensor:
+        return put(torch.stack([t(layer_tpl.format(n)) for n in range(L)]), torch.float32, path)
 
     params: dict = {
-        "embedding": put(t("model.embed_tokens.weight"), dtype),
+        "embedding": put(t("model.embed_tokens.weight"), dtype, "embedding"),
         "layers": {
-            "wq": proj("model.layers.{}.self_attn.q_proj.weight"),
-            "wk": proj("model.layers.{}.self_attn.k_proj.weight"),
-            "wv": proj("model.layers.{}.self_attn.v_proj.weight"),
-            "wo": proj("model.layers.{}.self_attn.o_proj.weight"),
-            "w_gate": proj("model.layers.{}.mlp.gate_proj.weight"),
-            "w_up": proj("model.layers.{}.mlp.up_proj.weight"),
-            "w_down": proj("model.layers.{}.mlp.down_proj.weight"),
-            "attn_norm": norms("model.layers.{}.input_layernorm.weight"),
-            "mlp_norm": norms("model.layers.{}.post_attention_layernorm.weight"),
+            "wq": proj("model.layers.{}.self_attn.q_proj.weight", "layers/wq"),
+            "wk": proj("model.layers.{}.self_attn.k_proj.weight", "layers/wk"),
+            "wv": proj("model.layers.{}.self_attn.v_proj.weight", "layers/wv"),
+            "wo": proj("model.layers.{}.self_attn.o_proj.weight", "layers/wo"),
+            "w_gate": proj("model.layers.{}.mlp.gate_proj.weight", "layers/w_gate"),
+            "w_up": proj("model.layers.{}.mlp.up_proj.weight", "layers/w_up"),
+            "w_down": proj("model.layers.{}.mlp.down_proj.weight", "layers/w_down"),
+            "attn_norm": norms("model.layers.{}.input_layernorm.weight", "layers/attn_norm"),
+            "mlp_norm": norms("model.layers.{}.post_attention_layernorm.weight",
+                              "layers/mlp_norm"),
         },
-        "final_norm": put(t("model.norm.weight"), torch.float32),
+        "final_norm": put(t("model.norm.weight"), torch.float32, "final_norm"),
     }
     if cfg.tie_embeddings:
         pass  # the logits reuse embedding.T
     elif "lm_head.weight" in raw:
-        params["lm_head"] = put(t("lm_head.weight").T, dtype)
+        params["lm_head"] = put(t("lm_head.weight").T, dtype, "lm_head")
     else:  # a tied checkpoint under an untied config: materialize the head
-        params["lm_head"] = put(t("model.embed_tokens.weight").T, dtype)
+        params["lm_head"] = put(t("model.embed_tokens.weight").T, dtype, "lm_head")
     return cfg, params

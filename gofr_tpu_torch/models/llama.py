@@ -24,8 +24,16 @@ prompt-lookup ``speculative_generate`` and the chunk forward
 ``decode_chunk``, and the paged ``decode_step_paged``/``_q`` and
 ``decode_chunk_paged``/``_q``, the cache-less ``forward``, tied embeddings
 (``tie_embeddings``), the prefill's ``attn_impl`` and the ``llama3_70b``
-preset. Waiting for a later slice: context parallelism (``attn_impl="cp"``
-is refused).
+preset.
+
+On a mesh (``parallel/``): ``forward(..., mesh=)`` runs this rank's slice
+of the params (``parallel.shard_params`` with ``llama_sharding_rules()``):
+heads and the MLP's width split over ``tp`` (column-parallel in, row-
+parallel out with an all-reduce), the vocabulary over ``tp`` (a masked
+embedding lookup summed over ``tp``, the logits gathered), ``fsdp``
+weights gathered at use, the batch split over ``dp`` and ``fsdp``. Under
+``attn_impl="cp"`` and a ``cp_context`` each rank keeps its sequence shard
+through every layer (RoPE at global positions, ring or Ulysses attention).
 """
 
 from __future__ import annotations
@@ -44,6 +52,9 @@ from gofr_tpu_torch.ops.matmul import matmul_f32
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_q
 from gofr_tpu_torch.ops.rope import apply_rope, rope_table
+from gofr_tpu_torch.parallel.collectives import all_gather, copy_to, gather_from, psum, split_to
+from gofr_tpu_torch.parallel.context_parallel import cp_attention_sharded, current_cp
+from gofr_tpu_torch.parallel.mesh import require_axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,19 +72,14 @@ class LlamaConfig:
     # the logits reuse ``embedding.T`` (f32 out); the params hold no lm_head
     tie_embeddings: bool = False
     # the prefill's attention: "auto" and "flash" both take the flash
-    # wrapper (the kernel on the card, its plain version on the CPU). "cp"
-    # (context parallelism) is refused until the parallel plane is ported
-    # (ROADMAP Queue A item 9)
+    # wrapper (the kernel on the card, its plain version on the CPU). "cp":
+    # ``forward`` runs context-parallel ring or Ulysses attention under an
+    # ambient ``parallel.cp_context(mesh)``; the cached paths refuse it
     attn_impl: str = "auto"
 
     def __post_init__(self) -> None:
-        if self.attn_impl == "cp":
-            raise ValueError(
-                "attn_impl='cp' (context-parallel attention) is not ported: it needs the "
-                "parallel plane of ROADMAP Queue A item 9"
-            )
-        if self.attn_impl not in ("auto", "flash"):
-            raise ValueError(f"attn_impl={self.attn_impl!r}: must be auto or flash")
+        if self.attn_impl not in ("auto", "flash", "cp"):
+            raise ValueError(f"attn_impl={self.attn_impl!r}: must be auto, flash or cp")
 
     @property
     def head_dim(self) -> int:
@@ -260,7 +266,12 @@ def _qkv(
     positions: torch.Tensor,  # [B, S]
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared layer preamble: attn-norm + QKV projections + RoPE.
-    Returns (h_normed, q, k, v), each of q/k/v contiguous."""
+    Returns (h_normed, q, k, v), each of q/k/v contiguous. Every cached
+    path (prefill, decode, chunks) comes here; ``attn_impl="cp"`` covers
+    the cache-less ``forward`` only, as in the reference."""
+    if cfg.attn_impl == "cp":
+        raise ValueError("attn_impl='cp' is not supported on the cached paths; "
+                         "use forward() or attn_impl auto/flash for prefill and decode")
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -301,10 +312,22 @@ def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor
     return params["embedding"][tokens].to(cfg.dtype)
 
 
-def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+            mesh: Any = None) -> torch.Tensor:
     """Plain causal forward with no cache: [B, S] -> logits [B, S, V] f32,
     every layer's attention the plain ``attention`` (the reference's
-    ``_layer``), whatever ``attn_impl`` says."""
+    ``_layer``) unless ``attn_impl="cp"``, whose attention is the ambient
+    ``cp_context``'s ring or Ulysses. With ``mesh`` (or under a
+    ``cp_context``, whose mesh then lays the rest out) ``params`` is this
+    rank's slice and ``tokens`` the global batch, the same on every rank;
+    the logits come back whole on every rank."""
+    cp = None
+    if cfg.attn_impl == "cp":
+        cp = current_cp()
+        if cp is None:
+            raise RuntimeError("attn_impl='cp' requires an enclosing cp_context(mesh)")
+    if mesh is not None or cp is not None:
+        return _forward_sharded(cfg, params, tokens, mesh if mesh is not None else cp[0], cp)
     B, S = tokens.shape
     dev = tokens.device
     x = _embed(cfg, params, tokens)
@@ -315,6 +338,143 @@ def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tenso
         _, q, k, v = _qkv(cfg, x, lp, sin, cos, positions)
         x = _attn_mlp_epilogue(cfg, x, lp, attention(q, k, v, causal=True))
     return _logits(cfg, params, x)
+
+
+# ------------------------------------------------------- on a mesh
+_DATA_AXES = ("dp", "fsdp")  # the batch splits over both, dp outermost
+
+
+def data_ranks(mesh: Any) -> int:
+    """Ranks the batch splits over (``dp`` × ``fsdp``)."""
+    return math.prod(mesh.shape[a] for a in _DATA_AXES)
+
+
+def data_rows(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """This rank's rows of a global batch (``dp`` outer, ``fsdp`` inner,
+    as the reference's ``P(("dp", "fsdp"))``)."""
+    n = data_ranks(mesh)
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} does not split over the {n} data-parallel "
+                         "ranks (dp x fsdp)")
+    for axis in _DATA_AXES:
+        x = split_to(x, mesh, axis, 0)
+    return x
+
+
+def gather_rows(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """The global batch back on every rank (the inverse of ``data_rows``)."""
+    for axis in reversed(_DATA_AXES):
+        x = gather_from(x, mesh, axis, 0)
+    return x
+
+
+def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return attention(q, k, v, causal=True)
+
+
+def _embed_sharded(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """Vocab-parallel embedding: each ``tp`` rank looks up the ids in its
+    rows of the table (zeros elsewhere) and the sum over ``tp`` is the
+    lookup; the ``fsdp``-split model dimension is gathered first."""
+    emb = all_gather(params["embedding"], mesh, "fsdp", 1)
+    if mesh.shape["tp"] == 1:
+        return emb[tokens].to(cfg.dtype)
+    rows = emb.shape[0]
+    local = tokens - mesh.index("tp") * rows
+    inside = (local >= 0) & (local < rows)
+    x = emb[local.clamp(0, rows - 1)] * inside[..., None]
+    return psum(x, mesh, "tp").to(cfg.dtype)
+
+
+def _logits_sharded(cfg: LlamaConfig, params: dict, x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """Final norm, then this ``tp`` rank's vocabulary columns of the head
+    (``lm_head`` or the tied ``embedding.T``), gathered over ``tp``."""
+    x = copy_to(rms_norm(x, params["final_norm"], cfg.norm_eps), mesh, "tp")
+    if cfg.tie_embeddings:
+        head = all_gather(params["embedding"], mesh, "fsdp", 1).T
+    else:
+        head = all_gather(params["lm_head"], mesh, "fsdp", 0)
+    return gather_from(matmul_f32(x, head), mesh, "tp", -1)
+
+
+def _layer_sharded(
+    cfg: LlamaConfig,
+    x: torch.Tensor,  # [B_loc, S_loc, D], the same on every tp rank
+    lp: dict,  # one layer of this rank's slice
+    sin: torch.Tensor,
+    cos: torch.Tensor,
+    positions: torch.Tensor,  # [B_loc, S_loc] global positions
+    mesh: Any,
+    attend: Any,  # attend(q, k, v) -> [B_loc, S_loc, H_loc, Dh]
+) -> torch.Tensor:
+    """One tensor-parallel layer (Megatron): this rank's query heads and
+    MLP columns, ``copy_to`` before the column-parallel projections and a
+    sum over ``tp`` after the row-parallel ones. With fewer KV heads than
+    ``tp`` ranks the KV projection is gathered whole and each local query
+    head takes its own KV head."""
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+
+    def w(name: str, dim: int) -> torch.Tensor:
+        return all_gather(lp[name], mesh, "fsdp", dim)
+
+    h = copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), mesh, "tp")
+    q = (h @ w("wq", 0)).reshape(B, S, -1, Dh)
+    ntp = mesh.shape["tp"]
+    if cfg.n_kv_heads % ntp == 0:
+        k = (h @ w("wk", 0)).reshape(B, S, -1, Dh)
+        v = (h @ w("wv", 0)).reshape(B, S, -1, Dh)
+    else:
+        group = cfg.n_heads // cfg.n_kv_heads
+        first = mesh.index("tp") * q.shape[2]
+        heads = torch.tensor([(first + i) // group for i in range(q.shape[2])], device=x.device)
+        k = (h @ all_gather(w("wk", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh).index_select(2, heads)
+        v = (h @ all_gather(w("wv", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh).index_select(2, heads)
+    q = apply_rope(q, positions, sin, cos)
+    k = apply_rope(k, positions, sin, cos)
+    attn = attend(q.contiguous(), k.contiguous(), v.contiguous())
+    x = x + _row_parallel(attn.reshape(B, S, -1), w("wo", 1), mesh)
+    h = copy_to(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), mesh, "tp")
+    gate = F.silu((h @ w("w_gate", 0)).float()).to(h.dtype)
+    return x + _row_parallel(gate * (h @ w("w_up", 0)), w("w_down", 1), mesh)
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """A row-parallel projection summed over ``tp``. The partial products
+    stay f32 through the sum and are rounded to the activation dtype once,
+    as the one-card product is."""
+    if mesh.shape["tp"] == 1:
+        return x @ w
+    return psum(matmul_f32(x, w), mesh, "tp").to(x.dtype)
+
+
+def _forward_sharded(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, mesh: Any,
+                     cp: tuple | None) -> torch.Tensor:
+    if mesh.shape["pp"] > 1:
+        raise ValueError("a mesh with pp > 1 runs the layers through parallel.pipeline.pp_forward")
+    if any(isinstance(w, dict) for w in params["layers"].values()):
+        raise NotImplementedError("weight-only int8 params run on one card, not on a mesh")
+    rows = data_rows(tokens, mesh)
+    start, attend = 0, _causal
+    if cp is not None:
+        cp_mesh, axis, _ = cp
+        n = require_axis(cp_mesh, axis)
+        if rows.shape[1] % n:
+            raise ValueError(f"seq {rows.shape[1]} not divisible by {axis}={n}")
+        rows = split_to(rows, cp_mesh, axis, 1)
+        start = cp_mesh.index(axis) * rows.shape[1]
+        attend = cp_attention_sharded
+    B, S = rows.shape
+    dev = tokens.device
+    x = _embed_sharded(cfg, params, rows, mesh)
+    positions = (start + torch.arange(S, device=dev))[None, :].expand(B, S)
+    sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
+    for layer in range(params["layers"]["wq"].shape[0]):
+        x = _layer_sharded(cfg, x, layer_params(params, layer), sin, cos, positions, mesh, attend)
+    logits = _logits_sharded(cfg, params, x, mesh)
+    if cp is not None:
+        logits = gather_from(logits, cp[0], cp[1], 1)
+    return gather_rows(logits, mesh)
 
 
 def _prefill_layers(

@@ -1,15 +1,16 @@
-"""MoE Llama family (Mixtral shape) without a mesh (port of
-``gofr_tpu/models/moe.py``): dense GQA attention and a top-k sparse
-expert FFN through ``ops/moe.moe_ffn_reference``. Plain PyTorch, as the
+"""MoE Llama family (Mixtral shape) (port of ``gofr_tpu/models/moe.py``):
+dense GQA attention and a top-k sparse expert FFN, through
+``ops/moe.moe_ffn_reference`` off a mesh or ``ops/moe.moe_ffn_ep`` over
+the mesh's ``ep`` axis (GShard all_to_all dispatch). Plain PyTorch, as the
 reference's forward is plain XLA; attention is the plain ``attention``.
 
 Kept: ``MoeConfig`` (``mixtral_8x7b``, ``tiny``), ``init_params`` from a
-generator, ``forward(mesh=None, return_aux=)``,
-``load_balance_loss_from_stats`` and ``load_balance_loss``. A ``mesh``
-other than None raises: the expert-parallel path (``moe_ffn_ep``) and
-``moe_sharding_rules`` wait for the parallel plane (ROADMAP Queue A
-item 9), and so does the full Mixtral-8x7B (~93 GB in bf16, past one
-card).
+generator, ``forward(mesh=, return_aux=)``, ``load_balance_loss_from_stats``,
+``load_balance_loss`` and ``moe_sharding_rules``. On a mesh every rank
+runs the whole batch (as the reference's compiler may) and the expert FFN
+groups the tokens over ``ep``: the params are the full tree, or this
+rank's slice by ``moe_sharding_rules()`` on a mesh whose other axes are 1
+but ``dp``. The full Mixtral-8x7B (~93 GB in bf16) is past one card.
 """
 
 from __future__ import annotations
@@ -101,17 +102,24 @@ def init_params(
     }
 
 
-def _moe_block(cfg: MoeConfig, lp: dict, h: torch.Tensor):
+def _moe_block(cfg: MoeConfig, lp: dict, h: torch.Tensor, mesh: Any):
     """FFN block: [B, S, D] -> ([B, S, D], (f_e, P_e)) through the MoE."""
     B, S, D = h.shape
-    out, f, p = moe_ops.moe_ffn_reference(
-        h.reshape(B * S, D), lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"],
-        top_k=cfg.top_k, return_stats=True,
-    )
+    flat = h.reshape(B * S, D)
+    if mesh is not None:
+        out, f, p = moe_ops.moe_ffn_ep(
+            flat, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"], mesh,
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, return_stats=True,
+        )
+    else:
+        out, f, p = moe_ops.moe_ffn_reference(
+            flat, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+            top_k=cfg.top_k, return_stats=True,
+        )
     return out.reshape(B, S, D), (f, p)
 
 
-def _layer(cfg: MoeConfig, h: torch.Tensor, lp: dict, sin, cos, positions):
+def _layer(cfg: MoeConfig, h: torch.Tensor, lp: dict, sin, cos, positions, mesh: Any = None):
     B, S, _ = h.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
@@ -121,22 +129,18 @@ def _layer(cfg: MoeConfig, h: torch.Tensor, lp: dict, sin, cos, positions):
     attn = attention(q, k, v, causal=True)
     h = h + attn.reshape(B, S, H * Dh) @ lp["wo"]
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    out, stats = _moe_block(cfg, lp, x)
+    out, stats = _moe_block(cfg, lp, x, mesh)
     return h + out, stats
 
 
-def forward(
-    cfg: MoeConfig, params: dict, tokens: torch.Tensor, mesh: Any = None,
-    return_aux: bool = False,
-):
-    """[B, S] -> logits [B, S, V] f32. With ``return_aux`` also the
-    per-layer router stats (f, p), each [L, E], from the routing each
-    layer's router really saw. ``mesh`` must be None (one card)."""
+def _forward(cfg: MoeConfig, params: dict, tokens: torch.Tensor, mesh: Any):
+    """(logits [B, S, V] f32, (f, p) each [L, E]): the reference's
+    ``_forward_jit``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the expert-parallel MoE needs a mesh, which needs the parallel plane "
-            "(ROADMAP Queue A item 9); pass mesh=None"
-        )
+        others = {a: n for a, n in mesh.shape.items() if a not in ("ep", "dp") and n > 1}
+        if others:
+            raise ValueError(f"moe.forward on a mesh uses its ep axis (and repeats over dp); "
+                             f"{others} would need the tensor-parallel attention")
     B, S = tokens.shape
     dev = tokens.device
     x = params["embedding"][tokens].to(cfg.dtype)
@@ -145,11 +149,21 @@ def forward(
     fs, ps = [], []
     for layer in range(cfg.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
-        x, (f, p) = _layer(cfg, x, lp, sin, cos, positions)
+        x, (f, p) = _layer(cfg, x, lp, sin, cos, positions, mesh)
         fs.append(f)
         ps.append(p)
-    logits = _logits(cfg, params, x)
-    stats = (torch.stack(fs), torch.stack(ps))
+    return _logits(cfg, params, x), (torch.stack(fs), torch.stack(ps))
+
+
+def forward(
+    cfg: MoeConfig, params: dict, tokens: torch.Tensor, mesh: Any = None,
+    return_aux: bool = False,
+):
+    """[B, S] -> logits [B, S, V] f32. With ``mesh`` (an ``ep`` axis) the
+    expert FFNs run expert-parallel through all_to_all dispatch. With
+    ``return_aux`` also the per-layer router stats (f, p), each [L, E],
+    from the routing each layer's router really saw."""
+    logits, stats = _forward(cfg, params, tokens, mesh)
     return (logits, stats) if return_aux else logits
 
 
@@ -167,3 +181,22 @@ def load_balance_loss(cfg: MoeConfig, params: dict, tokens: torch.Tensor,
     logits are needed too."""
     _, (f, p) = forward(cfg, params, tokens, mesh, return_aux=True)
     return load_balance_loss_from_stats(cfg, f, p)
+
+
+def moe_sharding_rules():
+    """Sharding rules for the MoE param tree: experts on ep, Megatron TP
+    inside each expert, attention as in the llama rules."""
+    from gofr_tpu_torch.parallel.sharding import P, ShardingRules
+
+    return ShardingRules(
+        [
+            (r"embedding", P("tp", "fsdp")),
+            (r"lm_head", P("fsdp", "tp")),
+            (r"w[qkv]$", P(None, "fsdp", "tp")),
+            (r"wo$", P(None, "tp", "fsdp")),
+            (r"w_router", P()),
+            (r"w_gate|w_up", P(None, "ep", None, "tp")),
+            (r"w_down", P(None, "ep", "tp", None)),
+            (r"norm", P()),
+        ]
+    )

@@ -1,10 +1,11 @@
-"""Mixture-of-Experts ops without a mesh (port of ``gofr_tpu/ops/moe.py``):
+"""Mixture-of-Experts ops (port of ``gofr_tpu/ops/moe.py``):
 top-k routing, the Switch load-balance statistics, the GShard
-dispatch/combine tensors, the per-expert SwiGLU FFN and the dense
-reference FFN. Plain PyTorch: the reference's are plain XLA einsums (no
-Pallas kernel). The expert-parallel ``moe_ffn_ep`` / ``moe_ffn_ep_sharded``
-(``shard_map`` and two ``all_to_all`` over the ``ep`` axis) wait for the
-parallel plane (ROADMAP Queue A item 9).
+dispatch/combine tensors, the per-expert SwiGLU FFN, the dense reference
+FFN and the expert-parallel FFN over the ``ep`` mesh axis
+(``moe_ffn_ep``/``moe_ffn_ep_sharded``: tokens grouped per rank, two tiled
+``all_to_all`` carry each group's dispatched tokens to the ranks owning
+their experts and back). Plain PyTorch: the reference's are plain XLA
+einsums (no Pallas kernel).
 
 Capacity model (for the dispatch tensors): each expert accepts at most C
 tokens (C = ceil(top_k · tokens / E · capacity_factor)); overflow tokens
@@ -18,6 +19,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from gofr_tpu_torch.parallel.collectives import all_to_all, copy_to, gather_from, pmean, split_to
+from gofr_tpu_torch.parallel.mesh import Mesh, require_axis
 
 
 def router_topk(
@@ -117,3 +121,85 @@ def moe_ffn_reference(
         f, p = switch_aux_stats(top_i, probs)
         return y, f, p
     return y
+
+
+def moe_ffn_ep_sharded(
+    x: torch.Tensor,  # [t, D] this rank's token group
+    w_router: torch.Tensor,  # [D, E] replicated
+    w_gate: torch.Tensor,  # [E_loc, D, F] this rank's experts
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    mesh: Mesh,
+    *,
+    axis: str,
+    n_experts: int,
+    top_k: int,
+    capacity: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-rank body: route locally, all_to_all tokens to expert owners,
+    run local experts, all_to_all back, combine. Also returns the global
+    (pmean over the axis) per-expert (f_e, P_e) aux-loss stats."""
+    n = require_axis(mesh, axis)
+    e_loc = n_experts // n
+    top_i, top_p, probs = router_topk(x, w_router, top_k)
+    f_loc, p_loc = switch_aux_stats(top_i, probs)
+    f = pmean(f_loc, mesh, axis)
+    p = pmean(p_loc, mesh, axis)
+    dispatch, combine = _dispatch_combine(top_i, top_p, n_experts, capacity)
+
+    # [t, E, C] x [t, D] -> [E, C, D], grouped by owning rank
+    sent = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
+    sent = sent.reshape(n, e_loc, capacity, -1)
+    # rank g receives, from every peer, the block destined for g's experts;
+    # afterwards axis 0 indexes the source group
+    recv = all_to_all(sent, mesh, axis, split_axis=0, concat_axis=0)
+    h = recv.transpose(0, 1).reshape(e_loc, n * capacity, -1)  # [E_loc, N, D]
+    out = expert_ffn(h, w_gate, w_up, w_down)  # [E_loc, N, D]
+    out = out.reshape(e_loc, n, capacity, -1).transpose(0, 1).contiguous()  # [n, E_loc, C, D]
+    back = all_to_all(out, mesh, axis, split_axis=0, concat_axis=0)
+    back = back.reshape(n_experts, capacity, -1)  # [E, C, D] for this group
+    y = torch.einsum("ecd,tec->td", back.float(), combine).to(x.dtype)
+    return y, f, p
+
+
+def moe_ffn_ep(
+    x: torch.Tensor,  # [T, D] the global tokens, the same on every rank
+    w_router: torch.Tensor,  # [D, E]
+    w_gate: torch.Tensor,  # [E, D, F], or this rank's [E/n, D, F]
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    mesh: Mesh,
+    *,
+    axis: str = "ep",
+    top_k: int = 2,
+    capacity_factor: float = 1.25,
+    capacity: int | None = None,
+    return_stats: bool = False,
+):
+    """Expert-parallel MoE FFN: tokens grouped on ``axis``, experts sharded
+    on ``axis``, two all_to_all transposes. The expert weights are all E
+    experts (each rank keeps its own) or this rank's E/n, as
+    ``shard_params`` with ``moe_sharding_rules`` leaves them. The output
+    (and with ``return_stats`` the global per-expert (f_e, P_e)) is whole
+    on every rank."""
+    n = require_axis(mesh, axis)
+    T = x.shape[0]
+    E = w_router.shape[-1]
+    if T % n != 0:
+        raise ValueError(f"tokens {T} not divisible by {axis}={n}")
+    if E % n != 0:
+        raise ValueError(f"experts {E} not divisible by {axis}={n}")
+    if w_gate.shape[0] == E and n > 1:
+        w_gate, w_up, w_down = (split_to(w, mesh, axis, 0) for w in (w_gate, w_up, w_down))
+    elif w_gate.shape[0] != E // n:
+        raise ValueError(f"expert weights hold {w_gate.shape[0]} experts: expected {E} or "
+                         f"this rank's {E // n}")
+    cap = capacity or capacity_for(T // n, E, top_k, capacity_factor)
+    # each rank routes only its group with the replicated router: backward
+    # sums the groups' gradients
+    y, f, p = moe_ffn_ep_sharded(
+        split_to(x, mesh, axis, 0), copy_to(w_router, mesh, axis), w_gate, w_up, w_down, mesh,
+        axis=axis, n_experts=E, top_k=top_k, capacity=cap,
+    )
+    out = gather_from(y, mesh, axis, 0)
+    return (out, f, p) if return_stats else out

@@ -220,8 +220,10 @@ lines carry the active span's ``trace_id``/``span_id`` (log correlation).
 ``python -m gofr_tpu_torch.serve`` runs one. ``from_hf`` builds an engine
 from an HF-layout checkpoint and its tokenizer asset, ``from_checkpoint``
 from the newest committed step of a ``CheckpointManager`` directory (warm
-restart). Not ported yet: the gRPC generation surface and the
-``sharding=`` of both.
+restart). Their ``sharding=`` takes a placement that splits no weight
+(a replicated one): the engine serves whole weights on one card, and a
+placement that splits them (``tp`` or ``fsdp`` > 1) waits for the
+tensor-parallel engine (ROADMAP Queue A item 13).
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -564,6 +566,22 @@ def _request_seed(seed: int, request_id: int) -> int:
     return (seed * 1_000_003 + request_id) & 0x7FFF_FFFF_FFFF_FFFF
 
 
+
+def _whole_weights(sharding: Any) -> None:
+    """The engine serves whole weights on one card: a ``sharding=`` that
+    is not a placement raises TypeError, one that splits a weight (``tp``
+    or ``fsdp`` > 1) NotImplementedError; None or a replicated placement
+    passes."""
+    if sharding is None:
+        return
+    from gofr_tpu_torch.parallel.sharding import shards_any
+
+    if shards_any(sharding):
+        raise NotImplementedError(
+            "a sharding= that splits the weights (tp or fsdp > 1) needs the tensor-parallel "
+            "engine (ROADMAP Queue A item 13); the engine serves whole weights on one card"
+        )
+
 class ServingEngine:
     """Owns the model params, the KV cache (dense or paged), the admission
     scheduler, the loop thread and the detok worker."""
@@ -770,17 +788,13 @@ class ServingEngine:
         card by default). Random weights only when ``seed`` is given (a
         ``torch.Generator`` seed, the port's ``seed_key``) and no step is
         committed. A corrupt existing checkpoint raises: serving random
-        weights would be worse than failing the start. ``sharding=``
-        raises until the parallel plane is ported."""
+        weights would be worse than failing the start. ``sharding=`` takes
+        a placement that splits no weight (:func:`_whole_weights`)."""
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         from gofr_tpu_torch.checkpoint import CheckpointError, CheckpointManager
 
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding= needs the parallel plane (ROADMAP Queue A item 9); "
-                "from_checkpoint restores onto one device"
-            )
+        _whole_weights(sharding)
         dev = resolve_device(device)
         mgr = CheckpointManager(checkpoint_dir)
         if mgr.latest_step() is None:  # raises on a corrupt manifest
@@ -794,7 +808,7 @@ class ServingEngine:
         else:
             with FakeTensorMode():  # shapes and dtypes only: the port's eval_shape
                 abstract = llama.init_params(cfg, device="cpu")
-            params = mgr.restore(abstract, step=step, device=dev)
+            params = mgr.restore(abstract, step=step, sharding=sharding, device=dev)
         return cls(cfg, params, device=dev, **kw)
 
     @classmethod
@@ -814,11 +828,12 @@ class ServingEngine:
         card by default) and the tokenizer asset beside them
         (``tokenizer.json`` or ``tokenizer.model``, through
         ``load_tokenizer``). With no asset there the engine keeps its
-        ``ByteTokenizer``, as the reference does. ``sharding=`` raises until
-        the parallel plane is ported."""
+        ``ByteTokenizer``, as the reference does. ``sharding=`` takes a
+        placement that splits no weight (:func:`_whole_weights`)."""
         from gofr_tpu_torch.models.hf_import import load_llama_from_hf
         from gofr_tpu_torch.tokenizer import load_tokenizer
 
+        _whole_weights(sharding)
         cfg, params = load_llama_from_hf(path, dtype=dtype, sharding=sharding, fs=fs,
                                          device=device)
         if tokenizer is None:

@@ -63,22 +63,25 @@ class TreeDef:
 _END = object()
 
 
+def _walk(node: Any, leaves: list) -> TreeDef:
+    """A module-level recursion: a nested function that calls itself sits
+    in a reference cycle with its closure, which would hold ``leaves`` (and
+    every tensor in it) until a garbage collection."""
+    if node is None:
+        return TreeDef("none")
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", tuple(_walk(node[k], leaves) for k in keys), keys)
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, tuple(_walk(c, leaves) for c in node))
+    leaves.append(node)
+    return TreeDef("leaf")
+
+
 def flatten(tree: Any) -> tuple[list, TreeDef]:
     leaves: list = []
-
-    def walk(node: Any) -> TreeDef:
-        if node is None:
-            return TreeDef("none")
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", tuple(walk(node[k]) for k in keys), keys)
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return TreeDef("leaf")
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves)
     return leaves, treedef
 
 

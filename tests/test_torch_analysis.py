@@ -406,7 +406,7 @@ def test_cli_formats_baseline_and_refusals(tmp_path, capsys):
 
 def test_pending_rules_are_the_five_that_wait_for_the_mesh():
     """The stale-suppression audit is off only for shardcheck's four rules
-    and kernelcheck's spec-rank-mismatch (ROADMAP Queue A item 9); every
+    and kernelcheck's spec-rank-mismatch (ROADMAP Queue A item 16); every
     other family of the reference runs in the port."""
     from gofr_tpu.analysis.sarif import RULE_DESCRIPTIONS as R_RULES
     from gofr_tpu_torch.analysis.core import PENDING_RULES

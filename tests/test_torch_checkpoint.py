@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import os
+import types
 import zipfile
 
 import numpy as np
@@ -287,13 +288,65 @@ def test_orbax_is_refused(tmp_path, trees):
 
 
 def test_restore_refuses_sharding_and_needs_a_device(tmp_path, trees, monkeypatch):
+    """``sharding=`` takes placements only (a mesh of ranks restores each
+    rank's slices: ``test_torch_parallel.py``); on a one-rank mesh a
+    replicated placement and the rules both give the whole tree, bit for
+    bit. Without a card, restoring needs ``device="cpu"``."""
+    from gofr_tpu_torch.parallel import build_mesh, llama_sharding_rules, named_sharding
+
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, trees["port"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         mgr.restore(trees["port"], sharding=object(), device="cpu")
+    with pytest.raises(TypeError, match="NamedSharding"):
+        mgr.restore(trees["port"], sharding=tree_util.tree_map(lambda _: 1, trees["port"]),
+                    device="cpu")
+    with pytest.raises(ValueError, match="no placement for 'embedding'"):
+        mgr.restore(trees["port"], sharding={"layers": {}}, device="cpu")
+    mesh = build_mesh()
+    for sharding in (named_sharding(mesh), llama_sharding_rules().tree_shardings(mesh, trees["port"])):
+        assert_bit_equal(mgr.restore(trees["port"], sharding=sharding, device="cpu"), trees["port"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mgr.restore(trees["port"])
+
+
+def test_a_sharded_restore_reads_each_slice_alone(tmp_path, trees, monkeypatch):
+    """A sharded restore reads a leaf's slice and no more of it: every
+    half of every dim of every stored leaf (the port's archive and
+    ``np.savez``'s) comes back equal to the array's own slice, and the
+    file reads that fetch it add up to the slice's bytes."""
+    from gofr_tpu_torch.checkpoint import manager
+
+    read = []
+    preadv = os.preadv
+
+    def counted(fd, buffers, offset):
+        read.append(preadv(fd, buffers, offset))
+        return read[-1]
+
+    monkeypatch.setattr(manager.os, "preadv", counted)
+    host = [(t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
+            for t in tree_util.leaves(trees["port"])]
+    CheckpointManager(str(tmp_path / "port")).save(1, trees["port"])
+    np.savez(tmp_path / "savez.npz", *host)
+    archives = ((str(tmp_path / "port" / "step_000000001" / "weights.npz"), "leaf_{}.npy"),
+                (str(tmp_path / "savez.npz"), "arr_{}.npy"))
+    cases = 0
+    for path, member in archives:
+        with zipfile.ZipFile(path) as zf:
+            for i, arr in enumerate(host):
+                stored = manager._stored_array(path, zf.getinfo(member.format(i)))
+                assert stored.shape == arr.shape and stored.dtype == arr.dtype
+                for dim, n in enumerate(arr.shape):
+                    for half in (slice(0, n // 2), slice(n // 2, n)):
+                        index = (slice(None),) * dim + (half,)
+                        read.clear()
+                        got = stored[index]
+                        assert np.array_equal(got, arr[index]), (path, i, index)
+                        assert sum(read) == got.nbytes, (path, i, index)
+                        cases += 1
+    assert cases > 4 * len(host)
 
 
 def test_save_records_the_histogram_the_reference_registers(tmp_path, trees):
@@ -353,11 +406,13 @@ def test_engine_warm_restart(tmp_path):
     """``from_checkpoint`` over a step the JAX package saved serves the
     tokens of the reference engine over the same params and of a port
     engine built directly; no step and no seed raises, a seed falls back to
-    random weights, a corrupt existing checkpoint raises, ``sharding=`` is
-    refused."""
+    random weights, a corrupt existing checkpoint raises, ``sharding=``
+    takes a replicated placement and refuses the rest."""
     from gofr_tpu.serving import ByteTokenizer as JByteTokenizer
     from gofr_tpu.serving import EngineConfig as JEngineConfig
     from gofr_tpu.serving import ServingEngine as JServingEngine
+    from gofr_tpu_torch.parallel import build_mesh, named_sharding
+    from gofr_tpu_torch.parallel.sharding import NamedSharding, P
     from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine
     from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 
@@ -388,9 +443,18 @@ def test_engine_warm_restart(tmp_path):
                                         engine_config=EngineConfig(**conf), device="cpu")
     want = tllama.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     assert_bit_equal(eng.params, want)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the engine's refusal covers a value that is not a placement and a
+    # placement that splits the weights (the tensor-parallel engine)
+    with pytest.raises(TypeError, match="NamedSharding"):
         ServingEngine.from_checkpoint(tcfg, str(tmp_path / "ck"), sharding=object(),
                                       device="cpu")
+    tp2 = NamedSharding(types.SimpleNamespace(shape={"dp": 1, "fsdp": 1, "pp": 1, "sp": 1,
+                                                     "ep": 1, "tp": 2}), P(None, "tp"))
+    with pytest.raises(NotImplementedError, match="tensor-parallel engine"):
+        ServingEngine.from_checkpoint(tcfg, str(tmp_path / "ck"), sharding=tp2, device="cpu")
+    replicated = ServingEngine.from_checkpoint(tcfg, str(tmp_path / "ck"), device="cpu",
+                                               sharding=named_sharding(build_mesh()))
+    assert_bit_equal(replicated.params, direct.params)
     weights = tmp_path / "ck" / "step_000000007" / "weights.npz"
     weights.write_bytes(weights.read_bytes()[:100])  # a torn file under a committed step
     with pytest.raises(zipfile.BadZipFile):  # propagates, as the reference's does

@@ -254,10 +254,28 @@ def test_a_missing_tensor_is_a_key_error_naming_it(ckpts):
 
 
 def test_sharding_is_refused(ckpts):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """``sharding=`` takes placements (a mesh of ranks loads each rank's
+    slices: ``test_torch_parallel.py``): on a one-rank mesh a replicated
+    placement loads the reference's tree; anything else raises. The
+    engine's refusal covers a value that is not a placement and a placement
+    that splits the weights (the tensor-parallel engine)."""
+    import types
+
+    from gofr_tpu_torch.parallel import build_mesh, named_sharding
+    from gofr_tpu_torch.parallel.sharding import NamedSharding, P
+
+    with pytest.raises(TypeError, match="NamedSharding"):
         t_hf.load_llama_from_hf(ckpts["untied"], sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         ServingEngine.from_hf(ckpts["untied"], sharding=object(), device="cpu")
+    tp2 = NamedSharding(types.SimpleNamespace(shape={"dp": 1, "fsdp": 1, "pp": 1, "sp": 1,
+                                                     "ep": 1, "tp": 2}), P("tp"))
+    with pytest.raises(NotImplementedError, match="tensor-parallel engine"):
+        ServingEngine.from_hf(ckpts["untied"], sharding=tp2, device="cpu")
+    _, rparams = r_hf.load_llama_from_hf(ckpts["untied"], dtype=jnp.float32)
+    _, tparams = t_hf.load_llama_from_hf(ckpts["untied"], dtype=torch.float32, device="cpu",
+                                         sharding=named_sharding(build_mesh()))
+    assert_same_tree(tparams, rparams)
 
 
 # ----------------------------------------------------------------- Whisper

@@ -251,7 +251,7 @@ CASES = {
 def test_every_reference_lint_case_is_translated():
     """Every fixture case of the reference's kernelcheck suite has a torch
     translation here, but spec-rank-mismatch's: that family waits for the
-    port's mesh (ROADMAP Queue A item 9)."""
+    port's lint over the mesh (ROADMAP Queue A item 16)."""
     mod = reference_module("test_kernelcheck")
     src = open(mod.__file__, encoding="utf-8").read()
     cases = {name for name in vars(mod) if name.startswith("test_")

@@ -139,12 +139,29 @@ def test_attn_impl_choices_agree_on_the_cpu(models, monkeypatch):
 
 
 def test_attn_impl_cp_and_unknown_values_are_refused():
-    with pytest.raises(ValueError, match="item 9"):
-        tllama.LlamaConfig.tiny(attn_impl="cp")
+    """``attn_impl="cp"`` builds, as the reference's does, and covers the
+    cache-less forward only: its prefill is refused as the reference's is,
+    and its forward needs a ``cp_context`` (the context-parallel forward
+    itself: ``test_torch_context_parallel.py``). Other values are refused."""
+    cfg = tllama.LlamaConfig.tiny(attn_impl="cp")
+    jcfg = jllama.LlamaConfig.tiny(attn_impl="cp")
+    params = tllama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(0))
+    jcache = jllama.KVCache.create(jcfg, 1, 16)
+    with pytest.raises(ValueError, match="not supported"):
+        jllama.prefill(jcfg, jparams, jnp.zeros((1, 8), jnp.int32), jcache, jnp.array([8]))
+    with pytest.raises(ValueError, match="not supported on the cached paths"):
+        tllama.prefill(cfg, params, tokens, tllama.KVCache.create(cfg, 1, 16, device="cpu"),
+                       torch.tensor([8]))
+    with pytest.raises(RuntimeError, match="cp_context") as port:
+        tllama.forward(cfg, params, tokens)
+    with pytest.raises(RuntimeError) as ref:
+        jllama.forward(jcfg, jparams, jnp.zeros((1, 8), jnp.int32))
+    assert str(port.value) == str(ref.value)
     for value in ("dense", "ring"):  # no plain-attention prefill beside the kernel
-        with pytest.raises(ValueError, match="auto or flash"):
+        with pytest.raises(ValueError, match="auto, flash or cp"):
             tllama.LlamaConfig.tiny(attn_impl=value)
-    jllama.LlamaConfig.tiny(attn_impl="cp")  # the reference builds one; its prefill refuses it
 
 
 def test_llama3_70b_preset_matches_reference():

@@ -177,11 +177,29 @@ def test_bf16_forward_matches(tiny):
 
 
 def test_a_mesh_is_refused(tiny):
+    """A mesh whose axes other than ep and dp split (the attention would
+    need tensor parallelism) is refused; on a one-rank mesh the expert-
+    parallel path gives the mesh=None result (many ranks:
+    ``test_torch_moe_ep.py``)."""
+    import types
+
+    from gofr_tpu_torch.parallel import build_mesh
+
     _, _, tcfg, tparams, tokens = tiny
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmoe.forward(tcfg, tparams, _t(tokens), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmoe.load_balance_loss(tcfg, tparams, _t(tokens), mesh=object())
+    tp2 = types.SimpleNamespace(shape={"dp": 1, "fsdp": 1, "pp": 1, "sp": 1, "ep": 2, "tp": 2})
+    with pytest.raises(ValueError, match="tensor-parallel attention"):
+        tmoe.forward(tcfg, tparams, _t(tokens), mesh=tp2)
+    with pytest.raises(ValueError, match="tensor-parallel attention"):
+        tmoe.load_balance_loss(tcfg, tparams, _t(tokens), mesh=tp2)
+    mesh = build_mesh()
+    cfg = tmoe.MoeConfig.tiny(capacity_factor=8.0)  # no drops: the dense FFN's result
+    want, (wf, wp) = tmoe.forward(cfg, tparams, _t(tokens), return_aux=True)
+    got, (gf, gp) = tmoe.forward(cfg, tparams, _t(tokens), mesh=mesh, return_aux=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gf, wf)
+    torch.testing.assert_close(gp, wp)
+    assert float(tmoe.load_balance_loss(cfg, tparams, _t(tokens), mesh=mesh)) == \
+        pytest.approx(float(tmoe.load_balance_loss(cfg, tparams, _t(tokens))))
 
 
 def test_gradients_reach_the_router_and_exactly_the_routed_experts(tiny):

@@ -192,3 +192,27 @@ def test_matmul_f32_keeps_the_plain_path_without_grad():
     assert y.dtype == torch.float32 and y.grad_fn is not None
     y.sum().backward()
     assert x.grad.dtype == torch.bfloat16
+
+
+def test_a_step_keeps_nothing_alive_after_its_caller_drops_the_params(tiny):
+    """A torch optimizer sits in a reference cycle; a step must not leave
+    one holding the params or the moments, or a dropped tree would stay
+    allocated until a garbage collection (on the card: gigabytes)."""
+    import gc
+    import weakref
+
+    _, jparams, tcfg, tokens = tiny
+    params = _port_params(jparams)
+    init, step = train.make_train_step(tcfg)
+    opt = init(params)
+    tokens = torch.from_numpy(tokens)
+    gc.collect()
+    gc.disable()
+    try:
+        params, opt, _ = step(params, opt, tokens)
+        refs = [weakref.ref(t) for t in tree_util.leaves(params) + tree_util.leaves(opt)]
+        del params, opt
+        alive = sum(r() is not None for r in refs)
+    finally:
+        gc.enable()
+    assert alive == 0
