@@ -44,7 +44,7 @@ Phases, each a hard failure with a non-zero exit:
    ``quantize_kv`` and ``dequantize_kv`` at every layer); then the
    lifecycle phase (cancel, priority, deadlines, streaming, drain, shed on
    a dense and a paged int8 engine); then the kv-reuse and spec phase, at
-   ``PLANE_DEPTH`` (8 of the 32 layers), one engine after another with
+   ``PLANE_DEPTH`` (4 of the 32 layers), one engine after another with
    the launches of each counted alone:
    - ``R1`` dense bf16, ``R2`` paged bf16 (16-token pages) and ``R3`` paged
      int8 (32-token pages), each with a 64-entry, 2 GiB prefix cache: a
@@ -65,8 +65,8 @@ Phases, each a hard failure with a non-zero exit:
      a sampled row, beside a non-spec engine of the same layout; one
      greedy request's verify logits against the dense forward, each
      emitted token the argmax of the engine's own logits;
-   then the LoRA and tenancy phase, at ``PLANE_DEPTH`` (8) of the 32
-   layers (the first 8 of the same weights), the launches of each engine
+   then the LoRA and tenancy phase, at ``PLANE_DEPTH`` (4) of the 32
+   layers (the first 4 of the same weights), the launches of each engine
    counted alone:
    - ``L1`` dense bf16 with an ``AdapterRegistry`` of three rank-16
      adapters (``make_adapter``, seeds 1-3): 8 greedy rows of 200-token
@@ -87,7 +87,7 @@ Phases, each a hard failure with a non-zero exit:
      resumes (a chunk hit, fewer chunk dispatches than a cold prefill),
      every token streamed once, each row's tokens held against its twin
      on an engine without the ladder; the interactive TTFT on both;
-   then the healing phase, at ``PLANE_DEPTH`` (8) layers of the same
+   then the healing phase, at ``PLANE_DEPTH`` (4) layers of the same
    weights, one supervised engine after
    another with the launches read before and after each (it never
    provokes a real CUDA fault: a sticky one would end the process):
@@ -159,7 +159,7 @@ Phases, each a hard failure with a non-zero exit:
      engine retires ``"handoff"`` with no emission and no decode; a decode
      engine's ``handoff_from`` serves the unified engine's tokens with no
      prefill compute; a ``kv.handoff`` fault re-prefills;
-   then the fleet phase, at ``PLANE_DEPTH`` (8) layers of the same weights,
+   then the fleet phase, at ``PLANE_DEPTH`` (4) layers of the same weights,
    at most two engines at once over the one weight set, each announced on
    an ``InMemoryBroker`` every 0.2 s to a ``Router`` with the serving
    catalog:
@@ -193,10 +193,10 @@ Phases, each a hard failure with a non-zero exit:
    main path's prompts as SSE streams against ``engine.submit``, the other
    routes, ``/metrics``, the profiler, the admin drain) and ``H2`` two apps
    behind a router of ``HTTPReplica``s (its binary ``/kv/fetch`` entry's
-   bytes held to its slabs' shapes), both at ``PLANE_DEPTH`` (8) layers,
+   bytes held to its slabs' shapes), both at ``PLANE_DEPTH`` (4) layers,
    and ``H3`` ``python -m gofr_tpu_torch.serve`` as a process at full
    depth with ``DB_DIALECT=sqlite`` (``sql`` UP on its health route); then the surface
-   phase, at ``PLANE_DEPTH`` (8) layers, one ``App`` with API-key auth over a
+   phase, at ``PLANE_DEPTH`` (4) layers, one ``App`` with API-key auth over a
    paged bf16 engine (2048, 16-token pages, whole prefills):
    - ``W`` the main path's prompts as 10 concurrent WebSocket streams
      (``/ws/generate``, the port's own client) against ``engine.submit``,
@@ -489,7 +489,7 @@ Phases, each a hard failure with a non-zero exit:
      against ``mesh=None``; two ``make_moe_train_step`` steps' losses
      against the one-card step's, and rank 0's updates of the router and
      of its experts against the same slices of the one-card update;
-   - ``MP4`` ``pp_forward`` on pp=4 at 8B widths, 8 layers, 4×512 tokens
+   - ``MP4`` ``pp_forward`` on pp=4 at 8B widths, ``PLANE_DEPTH`` layers, 4×512 tokens
      in 4 microbatches;
    - ``MP5`` three steps of ``sharded_train_step`` on dp=2,tp=2 and of
      ``make_pp_train_step`` on pp=2,dp=2 at 8B widths, 2 layers, 4×256
@@ -502,7 +502,31 @@ Phases, each a hard failure with a non-zero exit:
      of any leaf whole would pass);
    a rank's failure fails the phase; it prints a ``{"parallel": ...}``
    line, and the ranks' flash launches on the paths (Ulysses) are the
-   ``kernels`` rows' ``launches_parallel``;
+   ``kernels`` rows' ``launches_parallel``; then the tp phase, the
+   tensor-parallel ``ServingEngine``: the parent computes one card's
+   ``llama.prefill`` logits of the main path's 1000-token prompt at full
+   depth and frees the weights, then one world of four ranks on the card
+   over gloo, each drawing the 8B weights from ``SEED`` leaf by leaf and
+   keeping its tp=4 slices (``init_params(mesh=)``); rank 0 holds each
+   kernel to its plain version at the local shapes (8 query heads over 2
+   KV heads) and its tp ``prefill`` logits to one card's (relative L2 ≤
+   ``LOGITS_REL_TOL``), then runs ``ServingEngine(..., mesh=)`` while the
+   others run ``serve_follower``: ``TP-B`` on the bf16 path's config behind
+   an ``App`` with HTTP and gRPC (the path's ten prompts, then 8
+   ``/generate`` and 4 gRPC ``Generate`` calls at once, ``app_ttft_seconds``
+   counting all 12) and ``TP-Q`` on the int8 path's (its prompts and the
+   3000-token one, chunked); each engine's first tokens equal the one-card
+   path's on at least ``TP_FIRST_MIN`` of the 9 greedy prompts (the
+   common prefixes printed), every rank's hash of its packed blocks equals
+   rank 0's, and every kernel launches on every rank; it prints a
+   ``{"tp": ...}`` line, and the ranks' launches are the ``kernels`` rows'
+   ``launches_tp``. Both spawning phases first print the parent's
+   ``memory_allocated`` before any collection, which must be at most
+   ``HELD_MAX_GB``: every phase undoes its engines' patches as it ends
+   and drops its stopped engines' KV (``release_engines``), and the
+   weights' trees are emptied where their last phase ends
+   (``drop_weights``), so nothing a stray reference cycle holds keeps
+   device memory;
 4. time each kernel, its plain version and a PyTorch library call for the
    same function, beside the least time the card could take (its bound),
    at the main path's shapes; then, for information, flash at S=2048 and
@@ -580,6 +604,16 @@ LONE_ROW = 4000  # one long request alone (B=1): split across 16 spans
 FLASH_CHECK_S = (32, 128, 200, 1024, 2048)
 MAIN_LENS = [5, 31, 60, 120, 250, 480, 777, 1000, 9, 333]  # the bf16 path's prompts
 LONG_PROMPT = 3000  # the int8 path's extra prompt, past the largest bucket (2048)
+# the bf16 and int8 paths' engine configs; the tp phase's TP-B and TP-Q mirror them. bf16: a
+# chunk of 2048 keeps every prompt up to the largest bucket monolithic; int8: the reference's
+# 256-token chunks
+MAIN_ENGINES = {
+    "bf16": dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
+                 max_new_tokens_default=32, prefill_chunk_tokens=2048),
+    "int8": dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32, multi_step=4,
+                 max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
+}
+MAIN_TOKENS: dict = {}  # each main path's tokens by prompt, for the tp phase
 
 
 # the main path's kernel instantiations, as ptxas names them (mangled):
@@ -1116,8 +1150,8 @@ def decode_step_spy(engine, decode_seen: list):
     name = "decode_step" if dense else ("decode_step_paged_q" if quantized else "decode_step_paged")
     step_fn = getattr(llama, name)
 
-    def step_hook(*args):
-        out = step_fn(*args)
+    def step_hook(*args, **kw):
+        out = step_fn(*args, **kw)
         # a dense step's frozen rows run at length S_max + 1; a paged step
         # takes its live rows as its last argument
         live = args[4] <= args[3].max_len if dense else args[-1]
@@ -1190,8 +1224,8 @@ def check_engine_logits(torch, engine, ids: list[int], steps: int, delta=None, *
     prefill_fn = getattr(batch_ops, pre_name)
     step_name, step_fn, step_hook = decode_step_spy(engine, decode_seen)
 
-    def prefill_hook(*args):
-        out = prefill_fn(*args)
+    def prefill_hook(*args, **kw):
+        out = prefill_fn(*args, **kw)
         prefill_seen.append(out[pre_idx].clone())
         return out
 
@@ -1233,9 +1267,9 @@ def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, 
     ragged_fn = getattr(batch_ops, ragged_name(engine))
     ragged_calls = [0]
 
-    def count_ragged(*args):
+    def count_ragged(*args, **kw):
         ragged_calls[0] += 1
-        return ragged_fn(*args)
+        return ragged_fn(*args, **kw)
 
     engine.start()
     try:
@@ -1256,6 +1290,7 @@ def serve_path(torch, cfg, params, name: str, ecfg, lens: list[int], must: set, 
         finally:
             launches = {n: fn.launches for n, fn in kernels.items()}
             setattr(batch_ops, ragged_fn.__name__, ragged_fn)
+        MAIN_TOKENS[name] = [r.token_ids for r in results]
         for n, r in zip(lens, results):
             print(f"  prompt {n:4d} -> {r.completion_tokens:2d} tokens, {r.finish_reason}, "
                   f"ttft {r.ttft_s * 1e3:.1f} ms")
@@ -4801,9 +4836,13 @@ def http_h1(torch, cfg, params, prompt, mem: dict) -> dict:
             wait_until(lambda: engine._sched.pending() >= n, 120, f"{n} requests queued")
 
         def http_set():
+            # each stream queued before the next is sent: the queue's order,
+            # which groups the admissions, is the direct set's
             with gate.closed():
-                futs = [pool.submit(sse, base, {"prompt": p, "max_tokens": HTTP_NEW}) for p in ids]
-                queued(len(ids))
+                futs = []
+                for i, p in enumerate(ids):
+                    futs.append(pool.submit(sse, base, {"prompt": p, "max_tokens": HTTP_NEW}))
+                    queued(i + 1)
             return [f.result(600) for f in futs]
 
         def direct_set():
@@ -5437,10 +5476,14 @@ def surface_w(torch, engine, base: str, ws_url: str, prompt, pool, gate, probe,
         wait_until(lambda: engine._sched.pending() >= n, 120, f"{n} requests queued")
 
     def ws_set():
+        # each stream queued before the next is sent: the queue's order,
+        # which groups the admissions, is the direct set's
         with gate.closed():
-            futs = [pool.submit(ws_stream, ws_url, {"prompt": p, "max_tokens": SURFACE_NEW}, key)
-                    for p in ids]
-            queued(len(ids))
+            futs = []
+            for i, p in enumerate(ids):
+                futs.append(pool.submit(ws_stream, ws_url,
+                                        {"prompt": p, "max_tokens": SURFACE_NEW}, key))
+                queued(i + 1)
         return [f.result(600) for f in futs]
 
     def direct_set():
@@ -7653,6 +7696,7 @@ FILES_TTL_S = 600.0  # F-S2: a cached result's TTL (SET ... PX 600000)
 FILES_HIT_REPEATS = 5  # F-S2: all-hit batches a backend, for the handler's round trip
 FILES_BLOB = 64 << 20  # F-S2: the blob FTP and SFTP write and read whole
 FILES_WEIGHT_BACKENDS = ("local", "s3", "gcs", "ftp")  # F-S1 (SFTP reads 32 KiB a request)
+FILES_S1_DEPTH = 1  # F-S1: layers of its 8B-wide checkpoint (2.54 GB: the embedding and head)
 FILES_JOB_BACKENDS = ("local", "s3", "gcs", "ftp", "sftp")  # F-S2, in this order
 FILES_WRONG_FINGERPRINT = "ab" * 32
 
@@ -8074,7 +8118,7 @@ def files_s2(torch, cfg, params, tmp: str, servers: dict, crypto: bool) -> dict:
 
 
 def run_files(torch, cfg, params, weights_cfg, dev=None) -> dict:
-    """The files phase: F-S1 at ``weights_cfg`` (Llama-3-8B widths, 2 layers,
+    """The files phase: F-S1 at ``weights_cfg`` (Llama-3-8B widths, 1 layer,
     on ``dev``, the card by default), then F-S2 over ``cfg``/``params``. The
     counters are reset before it; ``launches`` are the whole phase's."""
     import tempfile
@@ -10001,7 +10045,7 @@ def _describe(obj) -> str:
     qualified name of a function, method or class it stands for."""
     kind = type(obj)
     name = f"{kind.__module__}.{kind.__qualname__}"
-    if isinstance(obj, (types.FunctionType, types.MethodType, type)):
+    if issubclass(kind, (types.FunctionType, types.MethodType, type)):
         target = getattr(obj, "__func__", obj)
         name += f" {target.__module__}.{target.__qualname__}"
     return name
@@ -10037,18 +10081,21 @@ def _name_garbage(torch, garbage: list, device_type: str) -> dict:
         for ref in gc.get_referents(o):
             if id(ref) in ids:
                 parents[id(ref)].append(id(o))
-    tensors = [o for o in garbage if isinstance(o, torch.Tensor) and o.device.type == device_type
-               and o.layout == torch.strided]
+    # type(), not isinstance(): a dead weak proxy in the garbage raises
+    # on any attribute, __class__ included
+    tensors = [o for o in garbage if issubclass(type(o), torch.Tensor)
+               and o.device.type == device_type and o.layout == torch.strided]
     storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
     out = {"objects": len(garbage), "device_tensors": len(tensors),
            "device_bytes": sum(storages.values()),
            "types": collections.Counter(_describe(o).split(" ")[0] for o in garbage
-                                        if not isinstance(o, (dict, list, tuple))).most_common(12)}
+                                        if not issubclass(type(o), (dict, list, tuple))
+                                        ).most_common(12)}
 
     def ours(o) -> bool:
         module = type(o).__module__ or ""
-        return module.startswith(("gofr_tpu_torch", "chip_smoke", "__main__")) and not isinstance(
-            o, torch.Tensor)
+        return module.startswith(("gofr_tpu_torch", "chip_smoke", "__main__")) and not issubclass(
+            type(o), torch.Tensor)
 
     def bfs(start: int, step, goal) -> list[int]:
         seen, queue = {start: None}, collections.deque([start])
@@ -10077,6 +10124,28 @@ def _name_garbage(torch, garbage: list, device_type: str) -> dict:
     return out
 
 
+HELD_MAX_GB = 0.5  # the parent's memory_allocated before any collection, at a spawning phase
+
+
+def parent_memory(torch, phase: str) -> tuple[float, float, dict]:
+    """The parent's ``memory_allocated`` before any collection, then
+    :func:`cyclic_garbage`'s report (expected: no CUDA tensor) and the
+    allocation after it. The earlier phases' engines are freed by their
+    last reference once their patches are undone (ROADMAP Queue C 61), so
+    more than ``HELD_MAX_GB`` before the collection fails the phase."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cyclic = cyclic_garbage(torch)
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    print(f"  parent at the {phase} phase: {held / 1e9:.2f} GB allocated before any collection, "
+          f"{after / 1e9:.2f} GB after one; the cyclic garbage {cyclic}", flush=True)
+    if held > HELD_MAX_GB * 1e9:
+        raise AssertionError(f"{phase}: the parent holds {held / 1e9:.2f} GB before a collection "
+                             f"(at most {HELD_MAX_GB} GB), cyclic garbage {cyclic}")
+    return held, after, cyclic
+
+
 def run_parallel(torch) -> dict:
     """The parallel phase: one world of ``PARALLEL_RANKS`` spawned ranks on
     the one card over gloo (``parallel.world.run_spmd``, rank function
@@ -10088,15 +10157,7 @@ def run_parallel(torch) -> dict:
     import chip_smoke as me  # by its module name: a spawned rank imports it
     from gofr_tpu_torch.parallel import world
 
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    # a reference cycle of the earlier phases holds their weights until a
-    # collection (ROADMAP Queue C 61): name it, free it, count it
-    cyclic = cyclic_garbage(torch)
-    torch.cuda.empty_cache()
-    after = torch.cuda.memory_allocated()
-    print(f"  parent: {held / 1e9:.2f} GB allocated, {after / 1e9:.2f} GB "
-          f"after a collection; the cyclic garbage {cyclic}", flush=True)
+    held, after, cyclic = parent_memory(torch, "parallel")
     free, total = torch.cuda.mem_get_info()
     print(f"  parent: mem_get_info {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB, "
           f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB; {PARALLEL_RANKS} ranks, "
@@ -10126,10 +10187,406 @@ def run_parallel(torch) -> dict:
     return out
 
 
-PLANE_DEPTH = 8  # layers of the phases run at a cut depth (kv-reuse and spec, tenancy, healing,
-# observability, HA, fleet, http H1-H2, surface, sql, pubsub, files jobs, stores, analytics, grpc)
+TP_RANKS = 4  # the tp phase's world: one engine's tp group on the one card over gloo
+TP_DEPTH = 32  # the tp phase runs the model whole
+TP_DEADLINE_S = 900.0  # run_spmd kills every rank past this
+TP_FIRST_MIN = 7  # of the 9 greedy main prompts, first tokens equal to the one-card path's
+TP_LOAD = (8, 4, 5)  # HTTP /generate calls, gRPC Generate calls, tokens each (the reference test's)
+
+
+def main_prompts(vocab: int, lens: list[int]) -> tuple[list[int], list[list[int]]]:
+    """(the warm-up prompt, the prompts of ``lens``) as ``serve_path``
+    draws them for a path."""
+    import torch
+
+    rng = torch.Generator().manual_seed(SEED)
+
+    def prompt(n: int) -> list[int]:
+        return torch.randint(3, vocab, (n,), generator=rng).tolist()
+
+    warm = prompt(5)
+    return warm, [prompt(n) for n in lens]
+
+
+def tp_kernel_checks(torch, dev) -> dict:
+    """Each kernel against its plain version on one call at the tp=4
+    engine's local shapes (8 query heads over 2 KV heads, head dim 128),
+    with the kernel checks' per-row tolerances. The launches here are no path's: the
+    caller zeroes the counters after."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from gofr_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_q,
+        paged_decode_attention_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    shape = dict(H=8, Hkv=2, device=dev)
+    out = {}
+    q, k, v, kv_len = flash_inputs(torch, gen, 1024, [1000, 5], D=128, **shape)
+    out["flash_attention"] = (flash_attention(q, k, v, kv_len, causal=True),
+                              flash_attention_ref(q, k, v, kv_len, causal=True), FLASH_ROW_TOL)
+    q, kp, vp, tables, lens = paged_inputs(torch, gen, DECODE_LENS, Dh=128, page=16, **shape)
+    out["paged_decode_attention"] = (paged_decode_attention(q, kp, vp, tables, lens),
+                                     paged_decode_attention_ref(q, kp, vp, tables, lens),
+                                     PAGED_ROW_TOL)
+    q, kq, vq, ks, vs, tables, lens = paged_inputs_q(torch, gen, DECODE_LENS, 32, Dh=128, **shape)
+    out["paged_decode_attention_q"] = (
+        paged_decode_attention_q(q, kq, vq, ks, vs, tables, lens),
+        paged_decode_attention_ref(q, kq, vq, tables, lens, k_scale=ks, v_scale=vs), PAGED_ROW_TOL)
+    errs = {}
+    for name, (got, want, tol) in out.items():
+        rel = row_rel_err(got, want)
+        errs[name] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                      "max_row_rel_err": rel, "tol": tol}
+        if not rel <= tol or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"tp: {name} at the local shapes disagrees with its plain "
+                                 f"version: {errs[name]}")
+    return errs
+
+
+def tp_serve(engine, warm: list[int], prompts: list[list[int]], new: int):
+    """The main path's traffic on an engine: the warm-up, then every prompt
+    at once, the fourth sampled (as ``serve_path`` submits them)."""
+    engine.submit(warm, max_new_tokens=4).result(timeout=600)
+    futs = [engine.submit(p, max_new_tokens=new,
+                          **(dict(temperature=0.8, top_k=50, top_p=0.95) if i == 3 else {}))
+            for i, p in enumerate(prompts)]
+    return [f.result(timeout=900) for f in futs]
+
+
+def tp_load(engine, app, base: str, grpc_target: str) -> dict:
+    """The reference test's load on the tp engine behind an App: HTTP
+    ``/generate`` and gRPC ``Generate`` at once, ``TP_LOAD[2]`` tokens
+    each; ``app_ttft_seconds`` must count every one."""
+    import concurrent.futures
+    import urllib.request
+
+    from gofr_tpu_torch.grpcx import InferenceClient
+
+    n_http, n_grpc, new = TP_LOAD
+    ttft = app.container.metrics_manager.get("app_ttft_seconds")
+    count0 = ttft.snapshot()[1]
+
+    def http_gen(i: int) -> tuple[float, dict]:
+        body = json.dumps({"prompt": f"load {i}", "max_tokens": new, "temperature": 0.0}).encode()
+        req = urllib.request.Request(base + "/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            data = json.loads(resp.read())["data"]
+        return time.perf_counter() - t, data
+
+    async def grpc_gen() -> list:
+        client = InferenceClient(grpc_target)
+        try:
+            return await asyncio.gather(*[client.generate(f"grpc {i}", max_tokens=new)
+                                          for i in range(n_grpc)])
+        finally:
+            await client.close()
+
+    with concurrent.futures.ThreadPoolExecutor(n_http) as pool:
+        futs = [pool.submit(http_gen, i) for i in range(n_http)]
+        grpc_res = asyncio.run(grpc_gen())
+        http_res = [f.result(timeout=600) for f in futs]
+    count = ttft.snapshot()[1] - count0
+    ttfts = sorted(d["usage"]["ttft_ms"] for _, d in http_res)
+    answers = sorted(s * 1e3 for s, _ in http_res)  # client clock: the whole answer
+    out = {"http": len(http_res), "grpc": len(grpc_res), "ttft_count": count,
+           "http_ttft_ms_p50": ttfts[len(ttfts) // 2],
+           "http_answer_ms_p50_client": answers[len(answers) // 2],
+           "ttft_s_p50_histogram": ttft.percentile(0.5),
+           "grpc_finish": sorted({r["finish_reason"] for r in grpc_res}),
+           "http_completion_tokens": sorted({d["usage"]["completion_tokens"] for _, d in http_res})}
+    if (out["http"] != n_http or out["grpc"] != n_grpc or count != n_http + n_grpc
+            or not set(out["grpc_finish"]) <= {"length", "stop"}
+            or min(out["http_completion_tokens"]) < 1):
+        raise AssertionError(f"tp: the HTTP and gRPC load on TP-B: {out}")
+    return out
+
+
+def tp_rank(dev, inp: dict) -> dict:
+    """One rank of the tp phase (``run_tp``): every rank draws the 8B
+    weights from ``SEED`` leaf by leaf and keeps its tp=4 slices
+    (``init_params(mesh=)``); rank 0 holds the kernels to their plain
+    versions at the local shapes and its tp ``prefill`` logits to the
+    one-card ones, then runs TP-B (with an App over HTTP and gRPC) and TP-Q
+    as ``ServingEngine(..., mesh=)`` while every other rank runs
+    ``serve_follower`` for each. Returns this rank's launches, peak memory,
+    hash of its packed blocks and, on rank 0, the checks' record."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.parallel import build_mesh
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    from gofr_tpu_torch.serving.tp_group import serve_follower
+
+    rank = dist.get_rank()
+    lead = rank == 0
+    t_rank = time.perf_counter()
+
+    def say(msg: str) -> None:
+        if lead:
+            print(f"  {msg} ({time.perf_counter() - t_rank:.1f} s into the rank)", flush=True)
+
+    mesh = build_mesh("tp=4")
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=TP_DEPTH)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                               mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out: dict = {"rank": rank, "params_gb": llama.param_bytes(params) / 1e9,
+                 "init_s": time.perf_counter() - t_rank}
+    say(f"rank 0's slices: {out['params_gb']:.2f} GB, drawn leaf by leaf in {out['init_s']:.1f} s")
+    if lead:
+        out["kernel_checks"] = tp_kernel_checks(torch, dev)
+        say(f"kernels at the local shapes (H 8, Hkv 2): {out['kernel_checks']}")
+    # the numeric gate: the tp prefill the engine dispatches, against one card's
+    ids = inp["logits_prompt"]
+    cache = llama.KVCache.create(cfg, 1, max_len=len(ids), device=dev, mesh=mesh)
+    logits, _ = llama.prefill(cfg, params, torch.tensor([ids], device=dev), cache,
+                              torch.tensor([len(ids)], dtype=torch.int32, device=dev), mesh=mesh)
+    del cache
+    if lead:
+        rel = rel_l2(logits[0].cpu(), inp["ref_logits"])
+        out["logits_rel_l2"] = rel
+        out["logits_argmax_equal"] = int(logits[0].argmax()) == int(inp["ref_logits"].argmax())
+        say(f"tp prefill of the {len(ids)}-token prompt: logits relative L2 {rel:.3e} against one "
+            f"card (tolerance {LOGITS_REL_TOL}), argmax equal {out['logits_argmax_equal']}")
+        if not rel <= LOGITS_REL_TOL:
+            raise AssertionError(f"tp: prefill logits relative L2 {rel} > {LOGITS_REL_TOL}")
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["engines"] = {}
+    for name, path, lens in (("TP-B", "bf16", MAIN_LENS), ("TP-Q", "int8", MAIN_LENS + [LONG_PROMPT])):
+        conf = EngineConfig(**MAIN_ENGINES[path])
+        if not lead:
+            res = serve_follower(cfg, params, conf, mesh=mesh, device=dev)
+            out["engines"][name] = {"blocks": res.blocks, "digest": res.digest}
+            continue
+        warm, prompts = main_prompts(cfg.vocab_size, lens)
+        app = thread = None
+        if name == "TP-B":
+            app, base, grpc_target = tp_app()
+        engine = ServingEngine(cfg, params, conf, ByteTokenizer(cfg.vocab_size), seed=SEED,
+                               device=dev, mesh=mesh,
+                               metrics=app.container.metrics_manager if app else None)
+        t0 = time.perf_counter()
+        try:
+            if app is not None:
+                from gofr_tpu_torch.grpcx import InferenceService
+                from gofr_tpu_torch.serving.handlers import register_generation_routes
+
+                register_generation_routes(app, engine)
+                app.register_grpc_service(InferenceService(engine))
+                thread = threading.Thread(target=app.run, daemon=True)
+                thread.start()
+                wait_until(lambda: alive(base), 120, f"{base} to come up")
+            else:
+                engine.start()
+            results = tp_serve(engine, warm, prompts, 32)
+            rec = tp_record(results, inp["gold"][path], lens)
+            say(f"{name} ({path} path's config): prompts {lens}; first tokens equal to the one-card "
+                f"path's on {rec['first_equal']} of {rec['greedy']} greedy prompts, common "
+                f"prefixes {rec['common_prefix']}; decode {rec['decode_ms_per_step']:.1f} ms a "
+                f"step (median), TTFT max {rec['ttft_ms_max']:.1f} ms")
+            if app is not None:
+                rec["load"] = tp_load(engine, app, base, grpc_target)
+                say(f"{name} HTTP and gRPC load: {rec['load']}")
+        finally:
+            if app is not None:
+                app.stop()
+            if thread is not None:
+                thread.join(timeout=60)
+            engine.stop()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["blocks"], rec["digest"] = engine.tp_digest()
+        out["engines"][name] = rec
+        del engine
+    torch.cuda.synchronize(dev)
+    out["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    say(f"rank 0's launches {out['launches']}, peak {out['peak_gb']:.2f} GB")
+    return out
+
+
+def tp_app():
+    """An App on free ports with HTTP and gRPC for TP-B: (app, HTTP base,
+    gRPC target); the caller registers the engine and runs it."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.testutil import new_server_configs
+
+    ports = new_server_configs(set_env=False)
+    app = App(MapConfig({"HTTP_PORT": str(ports.http_port), "GRPC_PORT": str(ports.grpc_port),
+                         "METRICS_PORT": str(ports.metrics_port), "HTTP_HOST": "127.0.0.1",
+                         "APP_NAME": "chip-smoke-tp", "LOG_LEVEL": "ERROR"}, use_env=False))
+    return app, f"http://127.0.0.1:{ports.http_port}", f"127.0.0.1:{ports.grpc_port}"
+
+
+def alive(base: str) -> bool:
+    """The app at ``base`` answers ``/.well-known/alive``."""
+    import urllib.request
+
+    try:
+        urllib.request.urlopen(base + "/.well-known/alive", timeout=1)
+        return True
+    except OSError:
+        return False
+
+
+def tp_record(results, gold: list[list[int]], lens: list[int]) -> dict:
+    """Each result against the one-card path's tokens for the same prompt:
+    the first tokens of the greedy prompts (the fourth samples) and each
+    prompt's common prefix; every request must finish."""
+    first, prefixes = 0, []
+    greedy = [i for i in range(min(len(lens), len(MAIN_LENS))) if i != 3]
+    for i, (r, want) in enumerate(zip(results, gold)):
+        if r.finish_reason not in ("length", "stop") or not r.token_ids:
+            raise AssertionError(f"tp: the {lens[i]}-token prompt ended {r.finish_reason}")
+        n = 0
+        while n < min(len(r.token_ids), len(want)) and r.token_ids[n] == want[n]:
+            n += 1
+        prefixes.append(n)
+        first += i in greedy and r.token_ids[0] == want[0]
+    per_step = sorted((r.duration_s - r.ttft_s) / (r.completion_tokens - 1) * 1e3
+                      for r in results if r.completion_tokens > 1)
+    rec = {"first_equal": first, "greedy": len(greedy), "common_prefix": prefixes,
+           "decode_ms_per_step": per_step[len(per_step) // 2],
+           "ttft_ms_max": max(r.ttft_s for r in results) * 1e3}
+    if first < TP_FIRST_MIN:
+        raise AssertionError(f"tp: first tokens equal on {first} of {len(greedy)} greedy prompts "
+                             f"(at least {TP_FIRST_MIN})")
+    return rec
+
+
+def run_tp(torch, gold: dict | None = None) -> dict:
+    """The tp phase: the one-card reference first (the whole weights from
+    ``SEED``, ``llama.prefill``'s last-position logits of the main path's
+    1000-token prompt), freed before one world of ``TP_RANKS`` spawned
+    ranks on the one card over gloo runs ``tp_rank``. ``gold`` is each
+    main path's tokens by prompt (the script's own ``MAIN_TOKENS``). Every
+    rank's hash of its packed blocks must equal rank 0's; each kernel must
+    launch on every rank."""
+    import chip_smoke as me  # by its module name: a spawned rank imports it
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.parallel import world
+
+    gold = MAIN_TOKENS if gold is None else gold
+    if not {"bf16", "int8"} <= set(gold):
+        raise AssertionError("tp: the bf16 and int8 paths' tokens are not recorded")
+    held, _, cyclic = parent_memory(torch, "tp")
+    t0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=TP_DEPTH)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    _, prompts = main_prompts(cfg.vocab_size, MAIN_LENS)
+    ids = prompts[MAIN_LENS.index(1000)]
+    cache = llama.KVCache.create(cfg, 1, max_len=len(ids), device="cuda")
+    logits, _ = llama.prefill(cfg, params, torch.tensor([ids], device="cuda"), cache,
+                              torch.tensor([len(ids)], dtype=torch.int32, device="cuda"))
+    ref_logits = logits[0].cpu()
+    del params, cache, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    print(f"  one-card reference: the {len(ids)}-token prompt's prefill logits at full depth in "
+          f"{ref_s:.1f} s; parent {torch.cuda.memory_allocated() / 1e9:.2f} GB after", flush=True)
+    t0 = time.perf_counter()
+    ranks = world.run_spmd(me.tp_rank, TP_RANKS, backend="gloo", timeout_s=TP_DEADLINE_S,
+                           args=({"gold": {k: gold[k] for k in ("bf16", "int8")},
+                                  "logits_prompt": ids, "ref_logits": ref_logits},))
+    phase_s = time.perf_counter() - t0
+    lead = ranks[0]
+    for name in ("TP-B", "TP-Q"):
+        want = (lead["engines"][name]["blocks"], lead["engines"][name]["digest"])
+        got = {r["rank"]: (r["engines"][name]["blocks"], r["engines"][name]["digest"])
+               for r in ranks}
+        if set(got.values()) != {want} or want[0] == 0:
+            raise AssertionError(f"tp {name}: the ranks' packed blocks differ: {got}")
+    for r in ranks:
+        if not all(r["launches"].values()):
+            raise AssertionError(f"tp: rank {r['rank']} launched {r['launches']}; every kernel must "
+                                 "launch on every rank")
+    out = {"ranks": ranks, "phase_s": phase_s, "reference_s": ref_s,
+           "parent_gb_before_gc": held / 1e9, "cyclic": cyclic,
+           "launches": {n: sum(r["launches"][n] for r in ranks) for n in counters()},
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "peak_gb_by_rank": [r["peak_gb"] for r in ranks]}
+    print(f"  tp phase: {phase_s:.1f} s for the world; launches by rank {out['launches_by_rank']}; "
+          f"peak GB by rank {out['peak_gb_by_rank']}; packed-block hashes equal on every rank",
+          flush=True)
+    return out
+
+
+PLANE_DEPTH = 4  # layers of the phases run at a cut depth (kv-reuse and spec, tenancy, healing,
+# observability, HA, fleet, http H1-H2, surface, sql, pubsub, files jobs, stores, analytics, grpc,
+# and the parallel phase's MP1 and MP4)
 DEVICE_T_DEPTH = 2  # layers of the device phase's T (and K and D on T's weights): the embedding
 # and lm_head dominate its checkpoint, which halves against PLANE_DEPTH
+
+
+def release_engines() -> int:
+    """Undo the harness's instance patches of every live engine and drop a
+    stopped engine's KV storage and prefix cache (ROADMAP Queue C 61).
+    Each ``engine._x = wrapper`` (``Gate``, ``SyncProbe``, the hooks and
+    spies) closes over the engine's own bound methods, so a patched engine
+    holds itself in a cycle (engine, its ``__dict__``, the wrapper, a cell,
+    the engine) until a garbage collection; deleting the instance
+    attributes that shadow the class's methods breaks every such cycle. An
+    engine that something else keeps in a cycle (a frame an exception's
+    traceback holds) keeps no device memory of its own once stopped; its
+    weights go with :func:`drop_weights`. Returns the patches undone."""
+    import gc
+
+    from gofr_tpu_torch.serving.engine import ServingEngine
+
+    undone = 0
+    for obj in gc.get_objects():
+        if type(obj) is ServingEngine:
+            for name in [k for k in vars(obj) if callable(getattr(ServingEngine, k, None))]:
+                del obj.__dict__[name]
+                undone += 1
+            if obj._thread is None and not obj._running:
+                obj.cache = obj._prefix_cache = None
+    return undone
+
+
+CUT_TREES: list = []  # every cut_depth tree, for drop_weights
+
+
+def drop_weights(*trees) -> None:
+    """End the life of a phase's weights where the last phase that serves
+    them ends: each params tree, and every tree ``cut_depth`` cut from one,
+    is emptied in place. An engine or a frame still holding one (a frame
+    an exception's traceback keeps in a reference cycle until a
+    collection) then holds no tensor of it (ROADMAP Queue C 61)."""
+    def empty(tree: dict) -> None:
+        for value in tree.values():
+            if isinstance(value, dict):
+                empty(value)
+        tree.clear()
+
+    for tree in (*trees, *CUT_TREES):
+        empty(tree)
+    CUT_TREES.clear()
+
+
+def run_phase(name: str, fn, *args, **kw):
+    """One phase: ``fn(*args, **kw)`` with its seconds printed on a line of
+    their own, and its engines' patches undone when it ends, failed or
+    not (:func:`release_engines`)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        undone = release_engines()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s ({undone} engine patches undone)",
+              flush=True)
 
 
 def cut_depth(cfg, params, n_layers: int):
@@ -10137,8 +10594,9 @@ def cut_depth(cfg, params, n_layers: int):
     stacked per-layer tensors, no copy."""
     import dataclasses
 
-    return (dataclasses.replace(cfg, n_layers=n_layers),
-            {**params, "layers": {k: v[:n_layers] for k, v in params["layers"].items()}})
+    cut = {**params, "layers": {k: v[:n_layers] for k, v in params["layers"].items()}}
+    CUT_TREES.append(cut)
+    return dataclasses.replace(cfg, n_layers=n_layers), cut
 
 
 def run_engine(torch) -> tuple[dict, ...]:
@@ -10157,10 +10615,8 @@ def run_engine(torch) -> tuple[dict, ...]:
     # bf16: the monolithic path as it was; a chunk of 2048 keeps every prompt up
     # to the largest bucket monolithic. 45 tokens: decode crosses a page
     # boundary at 48
-    launches["bf16"], timings["bf16"] = serve_path(
-        torch, cfg, params, "bf16",
-        EngineConfig(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16,
-                     multi_step=4, max_new_tokens_default=32, prefill_chunk_tokens=2048),
+    launches["bf16"], timings["bf16"] = run_phase(
+        "bf16 path", serve_path, torch, cfg, params, "bf16", EngineConfig(**MAIN_ENGINES["bf16"]),
         MAIN_LENS, must={"flash_attention", "paged_decode_attention"},
         must_not={"paged_decode_attention_q"}, logits_prompt=45, logits_steps=8,
         ttft_lens=(100, 1000),
@@ -10169,11 +10625,8 @@ def run_engine(torch) -> tuple[dict, ...]:
     # int8: the reference's 256-token chunks; 600 tokens make three chunks
     # and ten decode steps write positions 600-609, across the page
     # boundary at 608
-    launches["int8"], timings["int8"] = serve_path(
-        torch, cfg, params, "int8",
-        EngineConfig(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32,
-                     multi_step=4, max_new_tokens_default=32, prefill_chunk_tokens=256,
-                     kv_dtype="int8"),
+    launches["int8"], timings["int8"] = run_phase(
+        "int8 path", serve_path, torch, cfg, params, "int8", EngineConfig(**MAIN_ENGINES["int8"]),
         MAIN_LENS + [LONG_PROMPT], must={"flash_attention", "paged_decode_attention_q"},
         must_not={"paged_decode_attention"}, logits_prompt=600, logits_steps=10,
         ttft_lens=(1000,),
@@ -10182,8 +10635,8 @@ def run_engine(torch) -> tuple[dict, ...]:
     # dense: the reference's defaults (dense layout, bf16 KV, 256-token
     # chunks); 333, 480, 777 and 1000 chunk through the dense ragged
     # dispatch. 45 tokens prefill whole, as on the bf16 path
-    launches["dense"], timings["dense"] = serve_path(
-        torch, cfg, params, "dense",
+    launches["dense"], timings["dense"] = run_phase(
+        "dense path", serve_path, torch, cfg, params, "dense",
         EngineConfig(max_slots=8, max_seq_len=2048, kv_layout="dense", multi_step=4,
                      max_new_tokens_default=32, prefill_chunk_tokens=256),
         MAIN_LENS, must={"flash_attention"},
@@ -10199,8 +10652,8 @@ def run_engine(torch) -> tuple[dict, ...]:
     torch.cuda.synchronize()
     print(f"weight-only int8: quantize_params in {time.perf_counter() - t0:.1f}s, "
           f"{param_bytes(params_w8) / 1e9:.2f} GB (bf16 tree {param_bytes(params) / 1e9:.2f} GB)")
-    launches["dense-w8"], timings["dense-w8"] = serve_path(
-        torch, cfg, params_w8, "dense-w8",
+    launches["dense-w8"], timings["dense-w8"] = run_phase(
+        "dense-w8 path", serve_path, torch, cfg, params_w8, "dense-w8",
         EngineConfig(max_slots=8, max_seq_len=4096, kv_layout="dense", multi_step=4,
                      max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
         MAIN_LENS + [LONG_PROMPT], must={"flash_attention"},
@@ -10209,32 +10662,35 @@ def run_engine(torch) -> tuple[dict, ...]:
     )
     torch.cuda.empty_cache()
     print("dispatch time against kernel time (torch.profiler):")
-    timings["dispatch_busy"] = dispatch_busy(torch, cfg, params, params_w8)
-    del params_w8
+    timings["dispatch_busy"] = run_phase("dispatch-busy", dispatch_busy, torch, cfg, params,
+                                         params_w8)
+    drop_weights(params_w8)
     torch.cuda.empty_cache()
     print("lifecycle phase (dense bf16 and paged int8 engines, full depth; L: under leaktrace, "
           "installed before the first engine is built):")
-    lifecycle = leak_traced(torch, lambda: run_lifecycle(torch, cfg, params))
+    lifecycle = run_phase("lifecycle", leak_traced, torch,
+                          lambda: run_lifecycle(torch, cfg, params))
     torch.cuda.empty_cache()
     print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, "
           f"{PLANE_DEPTH} layers):")
-    reuse = run_kv_reuse_spec(torch, *cut_depth(cfg, params, PLANE_DEPTH))
+    reuse = run_phase("kv-reuse and spec", run_kv_reuse_spec, torch,
+                      *cut_depth(cfg, params, PLANE_DEPTH))
     torch.cuda.empty_cache()
     # the planes at a cut depth keep the script inside its time limit as
     # later phases are added
     cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
     print(f"LoRA and tenancy phase (adapter registry, tenant storm and preemption, "
           f"{PLANE_DEPTH} layers):")
-    tenancy = run_tenancy_lora(torch, cut_cfg, cut_params)
+    tenancy = run_phase("LoRA and tenancy", run_tenancy_lora, torch, cut_cfg, cut_params)
     tenancy["dense_path_decode_ms_per_step_batch8"] = timings["dense"]["decode_ms_per_step_batch8"]
     torch.cuda.empty_cache()
     print("healing phase (hang, device loss, poison storm, crash and budget, "
           f"{PLANE_DEPTH} layers):")
-    healing = run_healing(torch, cut_cfg, cut_params)
+    healing = run_phase("healing", run_healing, torch, cut_cfg, cut_params)
     torch.cuda.empty_cache()
     print("observability phase (metrics, tracing, timelines, each engine beside a bare twin, "
           f"{PLANE_DEPTH} layers):")
-    observability = run_observability(torch, cut_cfg, cut_params)
+    observability = run_phase("observability", run_observability, torch, cut_cfg, cut_params)
     del cut_params
     torch.cuda.empty_cache()
     # D: deadlinetrace over the HA and fleet phases
@@ -10246,13 +10702,13 @@ def run_engine(torch) -> tuple[dict, ...]:
         print("HA and cross-replica KV phase (keyed submits, resume, orphan, fencing, KV "
               f"migration, P/D handoff, {PLANE_DEPTH} layers; D: under deadlinetrace):")
         cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
-        ha = run_ha(torch, cut_cfg, cut_params)
+        ha = run_phase("HA", run_ha, torch, cut_cfg, cut_params)
         del cut_params
         torch.cuda.empty_cache()
         print("fleet phase (membership, router, reclamation, autoscaler, P/D routing, "
               f"{PLANE_DEPTH} layers; D: under deadlinetrace):")
         cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
-        fleet = run_fleet(torch, cut_cfg, cut_params)
+        fleet = run_phase("fleet", run_fleet, torch, cut_cfg, cut_params)
         del cut_params
         torch.cuda.empty_cache()
     finally:
@@ -10260,20 +10716,20 @@ def run_engine(torch) -> tuple[dict, ...]:
     deadline_checks(dmon, time.perf_counter() - t_d)
     print("http phase (App, generation routes, /metrics, HTTPReplica and a router over HTTP, "
           "the serve entry point as a process, full depth):")
-    http = run_http(torch, cfg, params)
+    http = run_phase("http", run_http, torch, cfg, params)
     torch.cuda.empty_cache()
     cut_cfg, cut_params = cut_depth(cfg, params, PLANE_DEPTH)
     print("surface phase (WebSocket generation, API-key auth, cron, a subscriber, CMD mode, the "
           f"drain behind auth, {PLANE_DEPTH} layers):")
-    surface = run_surface(torch, cut_cfg, cut_params)
-    del cut_params
+    surface = run_phase("surface", run_surface, torch, cut_cfg, cut_params)
+    drop_weights(params, cut_params)
     return (launches, timings, lifecycle, reuse, tenancy, healing, observability, ha, fleet, http,
             surface)
 
 
 def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict, dict]:
     """The sql phase, then the pubsub phase, the files phase (its jobs'
-    engine; its weights' loads are ``MODELS_L_DEPTH`` layers of their own),
+    engine; its weights' loads are ``FILES_S1_DEPTH`` layers of their own),
     the stores phase, the analytics phase and the grpc phase, each at
     Llama-3-8B widths and
     ``PLANE_DEPTH`` layers: views of the first layers of the same weights,
@@ -10292,38 +10748,39 @@ def sql_phase(torch) -> tuple[dict, dict, dict, dict, dict, dict]:
     print(f"sql phase (migrations with a ds.tpu warm-up, CRUD over HTTP, generation jobs recorded "
           f"in SQL, a restart, the postgres and mysql wire dialects; Llama-3-8B widths, "
           f"{PLANE_DEPTH} layers, weights remade from the seed in {init_s:.1f}s):")
-    out = run_sql(torch, cut_cfg, cut_params, torch.device("cuda"))
+    out = run_phase("sql", run_sql, torch, cut_cfg, cut_params, torch.device("cuda"))
     out["params_init_s"] = init_s
     torch.cuda.empty_cache()
     print("pubsub phase (generation jobs through Kafka, NATS, MQTT and Event Hubs, each the port's "
           f"fake on 127.0.0.1 behind an App; the same weights, {PLANE_DEPTH} layers):")
-    pubsub = run_pubsub(torch, cut_cfg, cut_params)
+    pubsub = run_phase("pubsub", run_pubsub, torch, cut_cfg, cut_params)
     torch.cuda.empty_cache()
     print("files phase (weights through the local, S3, GCS and FTP file systems and from_hf at "
-          f"Llama-3-8B widths, {MODELS_L_DEPTH} layers; generation jobs from files on each file "
+          f"Llama-3-8B widths, {FILES_S1_DEPTH} layer; generation jobs from files on each file "
           f"system, SFTP too, with a Redis result cache; the same weights, {PLANE_DEPTH} "
           "layers):")
-    files = run_files(torch, cut_cfg, cut_params, LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
+    files = run_phase("files", run_files, torch, cut_cfg, cut_params,
+                      LlamaConfig.llama3_8b(n_layers=FILES_S1_DEPTH))
     torch.cuda.empty_cache()
     print("stores phase (generation jobs claimed in Cassandra, logged in Mongo, metered in a "
           "logged batch, indexed in Solr and tracked in DynamoDB, each the port's fake on "
           "127.0.0.1, with the card's memory sampled into a time-series store; then the same jobs "
           f"over the embedded stores; paged int8, the same weights, {PLANE_DEPTH} layers):")
-    stores = run_stores(torch, cut_cfg, cut_params)
+    stores = run_phase("stores", run_stores, torch, cut_cfg, cut_params)
     torch.cuda.empty_cache()
     print("analytics phase (the FFI check of csrc against _build.SIGNATURES; generation jobs "
           "metered in ClickHouse (the port's fake on 127.0.0.1) and linked in the graph store, "
           "the vendor facades over the same records, all under the lock-order shim checked "
           f"against lockcheck's static graph; paged bf16, the same weights, {PLANE_DEPTH} "
           "layers):")
-    analytics = run_analytics(torch, cut_cfg, cut_params)
+    analytics = run_phase("analytics", run_analytics, torch, cut_cfg, cut_params)
     torch.cuda.empty_cache()
     print("grpc phase (InferenceService over the port's own HTTP/2 wire: streaming decode and the "
           "lifecycle over gRPC on a paged bf16 engine; Google Pub/Sub jobs on the port's fake over "
           "a paged int8 engine; the coordination plane with two worker processes on the card; the "
           f"same weights, {PLANE_DEPTH} layers):")
-    grpc = run_grpc(torch, cut_cfg, cut_params)
-    del params, cut_params
+    grpc = run_phase("grpc", run_grpc, torch, cut_cfg, cut_params)
+    drop_weights(params, cut_params)
     torch.cuda.empty_cache()
     return out, pubsub, files, stores, analytics, grpc
 
@@ -10366,22 +10823,26 @@ def main() -> int:
 
     print("models phase (BERT-base /embed, Whisper-large-v3 ASR over Pub/Sub from a written "
           f"checkpoint, Llama-3-8B widths at {MODELS_L_DEPTH} layers through from_hf):")
-    models = run_models(torch, BertConfig.base(), WhisperConfig.large_v3(),
-                        LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
+    models = run_phase("models", run_models, torch, BertConfig.base(), WhisperConfig.large_v3(),
+                       LlamaConfig.llama3_8b(n_layers=MODELS_L_DEPTH))
     print(f"device phase (training at Llama-3-8B widths, {DEVICE_T_DEPTH} layers; checkpoints "
           f"and from_checkpoint; ctx.tpu executables as CUDA graphs; MoE at Mixtral widths, "
           f"{MOE_DEPTH} layers):")
     from gofr_tpu_torch.models.moe import MoeConfig
 
-    device = run_device(torch, LlamaConfig.llama3_8b(n_layers=DEVICE_T_DEPTH),
-                        MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
+    device = run_phase("device", run_device, torch, LlamaConfig.llama3_8b(n_layers=DEVICE_T_DEPTH),
+                       MoeConfig.mixtral_8x7b(n_layers=MOE_DEPTH), torch.device("cuda"))
     sql, pubsub, files, stores, analytics, grpc = sql_phase(torch)
     print(f"parallel phase (one world of {PARALLEL_RANKS} ranks on the one card over gloo: MP1 "
           f"tensor parallel at Llama-3-8B widths, {PLANE_DEPTH} layers, tp=4 and dp=2,tp=2; MP2 ring "
           f"and Ulysses attention at S={MP2_SEQ} and the cp forward; MP3 expert parallel at Mixtral "
           f"widths, {MOE_DEPTH} layers; MP4 the GPipe pipeline on pp=4; MP5 sharded and pipelined "
           f"training; MP6 a sharded restore):")
-    parallel = run_parallel(torch)
+    parallel = run_phase("parallel", run_parallel, torch)
+    print(f"tp phase (the tensor-parallel ServingEngine: {TP_RANKS} ranks on the one card over gloo, "
+          f"Llama-3-8B widths, all {TP_DEPTH} layers, tp=4; TP-B the bf16 path's config with HTTP "
+          "and gRPC, TP-Q the int8 path's with chunked prefill):")
+    tp = run_phase("tp", run_tp, torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
     for r in rows:  # the later phases' launches beside the main paths'
@@ -10397,6 +10858,7 @@ def main() -> int:
         r["launches_analytics"] = analytics["launches"].get(r["name"], 0)
         r["launches_grpc"] = grpc["launches"].get(r["name"], 0)
         r["launches_parallel"] = parallel["launches"].get(r["name"], 0)
+        r["launches_tp"] = tp["launches"].get(r["name"], 0)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")
@@ -10421,6 +10883,7 @@ def main() -> int:
     print(json.dumps({"analytics": analytics}, default=str))
     print(json.dumps({"grpc": grpc}, default=str))
     print(json.dumps({"parallel": parallel}, default=str))
+    print(json.dumps({"tp": tp}, default=str))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f}s from the kernel build to here")
     print(card)
     print(json.dumps({"analysis": ANALYSIS}, default=str))

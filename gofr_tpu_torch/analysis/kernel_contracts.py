@@ -162,16 +162,19 @@ _FLASH = "gofr_tpu_torch/ops/flash_attention.py"
 
 # The per-row tail shared by the ragged entries (the reference's
 # finish ... rids, rng_root, decode_active, steps, adapters, lora: here
-# chunk_rows rides before it and seeds replace rids with rng_root).
+# chunk_rows rides before it and seeds replace rids with rng_root). The
+# port's ``mesh`` (the tensor-parallel engine's, None on one card) ends it,
+# as it ends prefill_compute's and the decode blocks' params: the
+# reference's shardings ride on the arrays instead.
 _RAGGED_TAIL = (
     "finish", "new_len", "budgets", "stops", "temps", "topks", "topps",
-    "seeds", "decode_active", "steps", "adapters", "lora",
+    "seeds", "decode_active", "steps", "adapters", "lora", "mesh",
 )
 
 KERNELS: tuple[KernelContract, ...] = (
     KernelContract(
         "prefill_compute", _BATCH,
-        params=("cfg", "params", "tokens", "seq_len"),
+        params=("cfg", "params", "tokens", "seq_len", "mesh"),
         static=("cfg",),
         returns=(
             Ret("last_logits", shape="1,V", dtype="float32"),
@@ -205,7 +208,7 @@ KERNELS: tuple[KernelContract, ...] = (
     ),
     KernelContract(
         "decode_block", _BATCH,
-        params=("cfg", "params", "cache", "state", "active", "steps", "lora"),
+        params=("cfg", "params", "cache", "state", "active", "steps", "lora", "mesh"),
         updated=("cache", "state"),
         static=("cfg", "steps"),
         packed="block",
@@ -221,7 +224,7 @@ KERNELS: tuple[KernelContract, ...] = (
         "decode_block_paged", _BATCH,
         params=(
             "cfg", "params", "k_pool", "v_pool", "state", "block_tables",
-            "active", "steps", "lora",
+            "active", "steps", "lora", "mesh",
         ),
         updated=("k_pool", "v_pool", "state"),
         static=("cfg", "steps"),
@@ -239,7 +242,7 @@ KERNELS: tuple[KernelContract, ...] = (
         "decode_block_paged_q", _BATCH,
         params=(
             "cfg", "params", "k_pool", "v_pool", "ks_pool", "vs_pool",
-            "state", "block_tables", "active", "steps", "lora",
+            "state", "block_tables", "active", "steps", "lora", "mesh",
         ),
         updated=("k_pool", "v_pool", "ks_pool", "vs_pool", "state"),
         static=("cfg", "steps"),
@@ -428,6 +431,9 @@ CONTRACTS: dict[str, KernelContract] = {k.name: k for k in KERNELS}
 # without a declared contract fails the lint).
 KERNEL_FILES: tuple[str, ...] = (_BATCH, _KVC, _PAGED_ATTN, _FLASH)
 
+_LAYOUT_CHOICE = ("the KV layout's choice among the entries above, shared by the "
+                  "engine and its tensor-parallel followers; the entries it calls "
+                  "carry the contracts")
 # Public module-level functions of the kernel files that are not device
 # entries, each with the reason it carries no contract.
 HOST_HELPERS: dict[str, tuple[str, str]] = {
@@ -435,6 +441,9 @@ HOST_HELPERS: dict[str, tuple[str, str]] = {
         _BATCH, "the carry's cold-path constructor: carry-field-drift "
         "holds its field set and dtypes to DECODE_STATE_FIELDS"),
     "pad_bucket": (_BATCH, "host integer arithmetic (prompt bucket)"),
+    "commit_prefill": (_BATCH, _LAYOUT_CHOICE),
+    "dispatch_decode": (_BATCH, _LAYOUT_CHOICE),
+    "dispatch_ragged": (_BATCH, _LAYOUT_CHOICE),
     "split_layout": (_PAGED_ATTN, "host launch-geometry arithmetic"),
     "scratch_numel": (_PAGED_ATTN, "host launch-geometry arithmetic"),
     "paged_decode_attention_ref": (

@@ -55,7 +55,8 @@ plane:
     engine-thread zone, between a blocking call (migration
     ``fetch_one``/``fetch_chain``, the monolithic ``prefill_compute``
     dispatch) and any commit into rebuilt state (cache ``put``,
-    ``write_span``/``write_prefill``/``insert_chunk``, ...) there must be
+    ``write_span``/``write_prefill``/``write_pages``/``insert_chunk``,
+    ...) there must be
     a ``_check_retired()`` gate — a thread retired by a warm restart
     mid-fetch must never insert dead slabs into the state the restart
     just reset.
@@ -210,7 +211,7 @@ RETIRE_GATE_ZONES: dict[str, set[str] | str] = {
 BLOCKING_FETCH_CALLS = {"fetch_one", "fetch_chain", "prefill_compute"}
 # commits into rebuilt state that a retired thread must never perform
 COMMIT_CALLS = {
-    "put", "write_span", "write_prefill", "insert_chunk",
+    "put", "write_span", "write_prefill", "write_pages", "insert_chunk",
     "insert_slot", "insert_slot_quantized", "advance_slot",
     "_commit_prefilled", "_commit_first_token",
 }

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from typing import Any
 
 from gofr_tpu_torch.config import Config, EnvConfig
@@ -119,8 +120,23 @@ class Container:
 
         self._closed = False
         self._lock = threading.Lock()
+        self._subscription_manager_ref: Any = None
 
         self.register_framework_metrics()
+
+    @property
+    def subscription_manager(self) -> Any:
+        """The App's ``SubscriptionManager`` (health reads its consumers),
+        or None. Held weakly: the manager holds this container, and a
+        strong back-reference would keep the container, and the engine it
+        serves with its weights on the card, alive in a cycle until a
+        garbage collection."""
+        ref = self._subscription_manager_ref
+        return None if ref is None else ref()
+
+    @subscription_manager.setter
+    def subscription_manager(self, manager: Any) -> None:
+        self._subscription_manager_ref = None if manager is None else weakref.ref(manager)
 
     # -- construction helpers -------------------------------------------------
     def _build_tracer(self) -> Tracer:

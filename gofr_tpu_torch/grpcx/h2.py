@@ -787,6 +787,10 @@ class _ServerCall:
             self.stream.reset(NO_ERROR)  # the client need send no more
 
 
+def _no_method(_path: str) -> None:
+    return None
+
+
 class RpcServer:
     """The serving half: accept h2c connections and run each RPC through the
     handler ``lookup(path)`` returns (``None``: UNIMPLEMENTED). Behaviours
@@ -957,6 +961,11 @@ class RpcServer:
             except asyncio.TimeoutError:
                 pass
             self._server = None
+        # a stopped server resolves no method: the connections torn down
+        # above stay in reference cycles until a collection, and through
+        # the lookup they would keep every servicer (an engine and its
+        # weights on the card) alive that long
+        self.lookup = _no_method
 
 
 # -- the gRPC client ----------------------------------------------------------

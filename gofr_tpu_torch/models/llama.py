@@ -34,6 +34,15 @@ embedding lookup summed over ``tp``, the logits gathered), ``fsdp``
 weights gathered at use, the batch split over ``dp`` and ``fsdp``. Under
 ``attn_impl="cp"`` and a ``cp_context`` each rank keeps its sequence shard
 through every layer (RoPE at global positions, ring or Ulysses attention).
+The cached paths (``prefill``, ``decode_step``, ``decode_chunk``, the
+paged steps and chunks and their int8 twins) take ``mesh=`` too: the
+tensor-parallel layer over this rank's local heads, flash and the paged
+kernels on them, the KV storage holding this rank's KV heads
+(``parallel.sharding.kv_head_slice``; ``KVCache.create(mesh=)``), the
+batch whole on every rank (replicated over ``dp`` and ``fsdp``) and the
+logits gathered whole on every rank, so every rank samples the same
+tokens. ``init_params(mesh=)`` draws the weights leaf by leaf and keeps
+this rank's slices.
 """
 
 from __future__ import annotations
@@ -111,45 +120,67 @@ def init_params(
     generator: torch.Generator | None = None,
     device: str | torch.device | None = None,
     quantize: bool = False,
+    mesh: Any = None,
 ) -> dict:
     """Random params with stacked layers [L, ...], made on ``device`` (the
     card by default) in the model dtype, so an 8B model never exists on the
     host. ``generator`` must live on that device; None seeds one with 0.
     ``quantize=True`` makes every matmul weight weight-only int8
     (:func:`quantize_weight`) as it is drawn, so the peak is the int8 total
-    plus one model-dtype leaf; the draws are those of ``quantize=False``."""
+    plus one model-dtype leaf; the draws are those of ``quantize=False``.
+    With ``mesh`` each leaf is drawn whole and only this rank's slice of it
+    by ``llama_sharding_rules()`` is kept (the draws are those of one
+    card), so a rank's peak is its slices plus one whole leaf."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    if mesh is not None and quantize:
+        raise NotImplementedError("weight-only int8 params run on one card, not on a mesh")
     L, D, Fd = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    place = _placer(mesh)
 
-    def winit(shape: tuple, fan_in: int) -> torch.Tensor:
+    def winit(path: str, shape: tuple, fan_in: int) -> torch.Tensor:
         w = torch.randn(shape, generator=generator, device=dev, dtype=cfg.dtype)
-        return w.div_(math.sqrt(fan_in))
+        return place(path, w.div_(math.sqrt(fan_in)))
 
-    def mm_weight(shape: tuple, fan_in: int) -> torch.Tensor | dict:
-        w = winit(shape, fan_in)
+    def mm_weight(path: str, shape: tuple, fan_in: int) -> torch.Tensor | dict:
+        w = winit(path, shape, fan_in)
         return quantize_weight(w, axis=-2) if quantize else w
 
+    def ones(path: str, shape: tuple) -> torch.Tensor:
+        return place(path, torch.ones(shape, dtype=torch.float32, device=dev))
+
     params: dict = {
-        "embedding": winit((cfg.vocab_size, D), D),
+        "embedding": winit("embedding", (cfg.vocab_size, D), D),
         "layers": {
-            "wq": mm_weight((L, D, H * Dh), D),
-            "wk": mm_weight((L, D, Hkv * Dh), D),
-            "wv": mm_weight((L, D, Hkv * Dh), D),
-            "wo": mm_weight((L, H * Dh, D), H * Dh),
-            "w_gate": mm_weight((L, D, Fd), D),
-            "w_up": mm_weight((L, D, Fd), D),
-            "w_down": mm_weight((L, Fd, D), Fd),
-            "attn_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
-            "mlp_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
+            "wq": mm_weight("layers/wq", (L, D, H * Dh), D),
+            "wk": mm_weight("layers/wk", (L, D, Hkv * Dh), D),
+            "wv": mm_weight("layers/wv", (L, D, Hkv * Dh), D),
+            "wo": mm_weight("layers/wo", (L, H * Dh, D), H * Dh),
+            "w_gate": mm_weight("layers/w_gate", (L, D, Fd), D),
+            "w_up": mm_weight("layers/w_up", (L, D, Fd), D),
+            "w_down": mm_weight("layers/w_down", (L, Fd, D), Fd),
+            "attn_norm": ones("layers/attn_norm", (L, D)),
+            "mlp_norm": ones("layers/mlp_norm", (L, D)),
         },
-        "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
+        "final_norm": ones("final_norm", (D,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = mm_weight((D, cfg.vocab_size), D)
+        params["lm_head"] = mm_weight("lm_head", (D, cfg.vocab_size), D)
     return params
+
+
+def _placer(mesh: Any):
+    """``place(path, leaf)``: the leaf itself on one card; on a mesh this
+    rank's slice of it by ``llama_sharding_rules()`` (a fresh copy, so the
+    whole leaf is freed once the caller drops it)."""
+    if mesh is None:
+        return lambda _path, leaf: leaf
+    from gofr_tpu_torch.parallel.sharding import NamedSharding, llama_sharding_rules, shard_leaf
+
+    rules = llama_sharding_rules()
+    return lambda path, leaf: shard_leaf(leaf, NamedSharding(mesh, rules.spec_for(path)))
 
 
 def _leaves(tree: Any, key: str | None = None):
@@ -295,10 +326,13 @@ def _attn_mlp_epilogue(
     return x + _mm(gate * _mm(h, lp["w_up"]), lp["w_down"])
 
 
-def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
     """Final norm + lm_head, f32 logits [..., V]; a weight-only int8 head
     takes its scale on the f32 product, with no rounding after it. A tied
-    config's head is ``embedding.T``. Every path's logits come here."""
+    config's head is ``embedding.T``. Every path's logits come here; on a
+    mesh the vocabulary-parallel head, gathered (:func:`_logits_sharded`)."""
+    if mesh is not None:
+        return _logits_sharded(cfg, params, x, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return matmul_f32(x, params["embedding"].T)
@@ -308,7 +342,9 @@ def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return matmul_f32(x, head)
 
 
-def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    if mesh is not None:
+        return _embed_sharded(cfg, params, tokens, mesh)
     return params["embedding"][tokens].to(cfg.dtype)
 
 
@@ -410,8 +446,10 @@ def _layer_sharded(
     """One tensor-parallel layer (Megatron): this rank's query heads and
     MLP columns, ``copy_to`` before the column-parallel projections and a
     sum over ``tp`` after the row-parallel ones. With fewer KV heads than
-    ``tp`` ranks the KV projection is gathered whole and each local query
-    head takes its own KV head."""
+    ``tp`` ranks the KV projection is gathered whole and the local query
+    heads take the KV heads they read: the one head of their group when
+    ``tp`` is a multiple of the KV heads (the serving cache's placement,
+    ``parallel.sharding.kv_head_slice``), else one a query head."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
 
@@ -427,7 +465,11 @@ def _layer_sharded(
     else:
         group = cfg.n_heads // cfg.n_kv_heads
         first = mesh.index("tp") * q.shape[2]
-        heads = torch.tensor([(first + i) // group for i in range(q.shape[2])], device=x.device)
+        if ntp % cfg.n_kv_heads == 0:
+            heads = torch.tensor([first // group], device=x.device)
+        else:
+            heads = torch.tensor([(first + i) // group for i in range(q.shape[2])],
+                                 device=x.device)
         k = (h @ all_gather(w("wk", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh).index_select(2, heads)
         v = (h @ all_gather(w("wv", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh).index_select(2, heads)
     q = apply_rope(q, positions, sin, cos)
@@ -448,12 +490,49 @@ def _row_parallel(x: torch.Tensor, w: torch.Tensor, mesh: Any) -> torch.Tensor:
     return psum(matmul_f32(x, w), mesh, "tp").to(x.dtype)
 
 
+def _check_mesh_params(params: dict) -> None:
+    if any(isinstance(w, dict) for w in params["layers"].values()):
+        raise NotImplementedError("weight-only int8 params run on one card, not on a mesh")
+
+
+def kv_heads(cfg: LlamaConfig, mesh: Any = None) -> int:
+    """KV heads of a rank's serving cache: all of them on one card; on a
+    mesh the placement's (``parallel.sharding.kv_head_slice``)."""
+    if mesh is None:
+        return cfg.n_kv_heads
+    from gofr_tpu_torch.parallel.sharding import kv_head_slice
+
+    return kv_head_slice(cfg.n_heads, cfg.n_kv_heads, mesh)[1]
+
+
+def _layer(
+    cfg: LlamaConfig,
+    x: torch.Tensor,  # [B, S, D]
+    lp: dict,
+    sin: torch.Tensor,
+    cos: torch.Tensor,
+    positions: torch.Tensor,  # [B, S]
+    mesh: Any,
+    attend: Any,  # attend(q, k, v) -> [B, S, H, Dh], K/V with the cache's heads
+) -> torch.Tensor:
+    """One layer of a cached path: the shared preamble, ``attend`` (which
+    writes the fresh K/V where the path keeps them and reads them back),
+    the epilogue; on a mesh the tensor-parallel layer over this rank's
+    heads, whose K/V are the heads the rank's cache keeps."""
+    if mesh is None:
+        _, q, k, v = _qkv(cfg, x, lp, sin, cos, positions)
+        return _attn_mlp_epilogue(cfg, x, lp, attend(q, k, v))
+    if cfg.attn_impl == "cp":
+        raise ValueError("attn_impl='cp' is not supported on the cached paths; "
+                         "use forward() or attn_impl auto/flash for prefill and decode")
+    return _layer_sharded(cfg, x, lp, sin, cos, positions, mesh, attend)
+
+
 def _forward_sharded(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, mesh: Any,
                      cp: tuple | None) -> torch.Tensor:
     if mesh.shape["pp"] > 1:
         raise ValueError("a mesh with pp > 1 runs the layers through parallel.pipeline.pp_forward")
-    if any(isinstance(w, dict) for w in params["layers"].values()):
-        raise NotImplementedError("weight-only int8 params run on one card, not on a mesh")
+    _check_mesh_params(params)
     rows = data_rows(tokens, mesh)
     start, attend = 0, _causal
     if cp is not None:
@@ -483,29 +562,34 @@ def _prefill_layers(
     tokens: torch.Tensor,  # [B, S] right-padded
     seq_lens: torch.Tensor,  # [B] true lengths
     store: Any,  # store(layer, k, v): keeps one layer's fresh K/V [B, S, Hkv, Dh]
+    mesh: Any = None,
 ) -> torch.Tensor:
     """The prefill forward: hands each layer's K/V to ``store`` and returns
     the last-token logits [B, V] f32. Attention is the flash kernel (its
     plain version on the CPU) over the fresh full-precision K/V; positions
     past ``seq_lens`` still attend to the valid keys and their K/V is
-    masked at every later read."""
+    masked at every later read. On a mesh each rank runs flash on its own
+    query and KV heads."""
     B, S = tokens.shape
     dev = tokens.device
-    x = _embed(cfg, params, tokens)
+    if mesh is not None:
+        _check_mesh_params(params)
+    x = _embed(cfg, params, tokens, mesh)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
     sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
     kv_len = seq_lens.to(device=dev, dtype=torch.int32)
     for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
-        _, q, k, v = _qkv(cfg, x, lp, sin, cos, positions)
-        store(layer, k, v)
-        attn = flash_attention(q, k, v, kv_len, causal=True)
-        x = _attn_mlp_epilogue(cfg, x, lp, attn)
+
+        def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            store(layer, k, v)
+            return flash_attention(q, k, v, kv_len, causal=True)
+
+        x = _layer(cfg, x, layer_params(params, layer), sin, cos, positions, mesh, attend)
     # the last valid position's hidden state BEFORE the lm_head: [B, S, V]
     # logits only to keep one position would waste 2*B*S*D*V FLOPs
     last_idx = (kv_len.long() - 1).clamp(0, S - 1)
     last_h = x[torch.arange(B, device=dev), last_idx][:, None]  # [B, 1, D]
-    return _logits(cfg, params, last_h)[:, 0]
+    return _logits(cfg, params, last_h, mesh)[:, 0]
 
 
 def _prefill_slabs(
@@ -513,12 +597,14 @@ def _prefill_slabs(
     params: dict,
     tokens: torch.Tensor,  # [B, S] right-padded
     seq_lens: torch.Tensor,  # [B] true lengths (int32)
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill into fresh slabs: (last-token logits [B, V] f32, k_slab,
     v_slab [L, B, S, Hkv, Dh]) in the model dtype, for the serving path's
-    commit into a slot row or into pages (``batch.prefill_compute``)."""
+    commit into a slot row or into pages (``batch.prefill_compute``); on a
+    mesh the slabs hold this rank's KV heads."""
     B, S = tokens.shape
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, B, S, kv_heads(cfg, mesh), cfg.head_dim)
     k_slab = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
     v_slab = torch.empty_like(k_slab)
 
@@ -526,7 +612,7 @@ def _prefill_slabs(
         k_slab[layer] = k
         v_slab[layer] = v
 
-    return _prefill_layers(cfg, params, tokens, seq_lens, store), k_slab, v_slab
+    return _prefill_layers(cfg, params, tokens, seq_lens, store, mesh), k_slab, v_slab
 
 
 def prefill(
@@ -535,11 +621,13 @@ def prefill(
     tokens: torch.Tensor,  # [B, S] right-padded
     cache: KVCache,  # written in place
     seq_lens: torch.Tensor,  # [B] true lengths
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Prefill: fill rows [:B], positions [:S] of each layer of ``cache``
     in place (into an int8 cache quantized per vector, values and scales)
     and return (last-token logits [B, V] f32, cache). Attention reads the
-    fresh full-precision K/V, not the quantized ones."""
+    fresh full-precision K/V, not the quantized ones. With ``mesh``,
+    ``params`` is this rank's slice and ``cache`` holds its KV heads."""
     B, S = tokens.shape
 
     def store(layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -552,7 +640,7 @@ def prefill(
             cache.k[layer, :B, :S] = k
             cache.v[layer, :B, :S] = v
 
-    return _prefill_layers(cfg, params, tokens, seq_lens, store), cache
+    return _prefill_layers(cfg, params, tokens, seq_lens, store, mesh), cache
 
 
 # ------------------------------------------------------- dense slot cache
@@ -579,10 +667,13 @@ class KVCache:
     def create(
         cls, cfg: LlamaConfig, batch: int, max_len: int | None = None,
         kv_dtype: str | None = None, *, device: str | torch.device | None = None,
+        mesh: Any = None,
     ) -> "KVCache":
+        """Zeroed storage; with ``mesh`` this rank's KV heads only
+        (:func:`kv_heads`)."""
         dev = resolve_device(device)
         S = max_len or cfg.max_seq_len
-        shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+        shape = (cfg.n_layers, batch, S, kv_heads(cfg, mesh), cfg.head_dim)
 
         def zeros(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
             flat = torch.zeros((math.prod(shape[:3]) + 1, *shape[3:]), dtype=dtype, device=dev)
@@ -667,6 +758,7 @@ def decode_step(
     tokens: torch.Tensor,  # [B] last sampled token per row
     cache: KVCache,  # updated in place
     cache_len: torch.Tensor,  # [B] length including this token's position
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step over the dense cache: this token's K/V go to
     (layer, row, cache_len-1), quantized first into an int8 cache, and
@@ -675,23 +767,27 @@ def decode_step(
     position clamps into the table where the reference's ``jnp.take``
     fills NaN (when ``S_max`` is the model's ``max_seq_len``); its logits
     are never read. Returns (logits [B, V] f32, cache). Issues no host
-    sync."""
+    sync. With ``mesh``, ``params`` is this rank's slice and ``cache``
+    holds its KV heads; the logits come back whole."""
     B = tokens.shape[0]
     dev = tokens.device
-    x = _embed(cfg, params, tokens)[:, None, :]  # [B, 1, D]
+    if mesh is not None:
+        _check_mesh_params(params)
+    x = _embed(cfg, params, tokens, mesh)[:, None, :]  # [B, 1, D]
     pos = cache_len.long()[:, None] - 1  # [B, 1]
     sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
     rope_pos = pos.clamp(0, cfg.max_seq_len - 1)
     idx = _dense_targets(cache, torch.arange(B, device=dev), pos)
     views = [_cache_rows(t) for t in cache.tensors() if t is not None]
     for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
-        _, q, k, v = _qkv(cfg, x, lp, sin, cos, rope_pos)
-        _write_dense(views, idx[layer], k, v)
-        kc, vc = _dense_layer_kv(cache, layer, None, cfg.dtype)
-        attn = decode_attention(q, kc, vc, cache_len)
-        x = _attn_mlp_epilogue(cfg, x, lp, attn)
-    return _logits(cfg, params, x)[:, 0], cache
+
+        def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            _write_dense(views, idx[layer], k, v)
+            kc, vc = _dense_layer_kv(cache, layer, None, cfg.dtype)
+            return decode_attention(q, kc, vc, cache_len)
+
+        x = _layer(cfg, x, layer_params(params, layer), sin, cos, rope_pos, mesh, attend)
+    return _logits(cfg, params, x, mesh)[:, 0], cache
 
 
 def decode_step_greedy(
@@ -838,17 +934,20 @@ def _dense_chunk_forward(
     cache: KVCache,  # [L, B, S_max, ...], written in place
     rows: torch.Tensor,  # [K] distinct cache rows the chunk rows live in
     start_len: torch.Tensor,  # [K] committed length BEFORE the chunk
+    mesh: Any = None,
 ) -> torch.Tensor:
     """The chunk forward of :func:`decode_chunk` up to the final hidden
     state [K, T, D], for the cache ``rows`` alone: writes the chunk's K/V
     in place at [layer, rows, start:start+T] (positions past ``S_max`` to
     the sink) and attends over those rows' layer cache with per-row
-    ``q_offset``."""
+    ``q_offset``. On a mesh over this rank's heads."""
     T = tokens.shape[1]
     dev = tokens.device
+    if mesh is not None:
+        _check_mesh_params(params)
     start = start_len.long()
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]  # [K, T]
-    x = _embed(cfg, params, tokens.clamp_min(0))
+    x = _embed(cfg, params, tokens.clamp_min(0), mesh)
     sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
     # pad positions of a final ragged chunk may run past the rope table:
     # they clamp into it (the reference's jnp.take fills NaN there); their
@@ -858,12 +957,13 @@ def _dense_chunk_forward(
     idx = _dense_targets(cache, rows, positions)
     views = [_cache_rows(t) for t in cache.tensors() if t is not None]
     for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
-        _, q, k, v = _qkv(cfg, x, lp, sin, cos, rope_pos)
-        _write_dense(views, idx[layer], k, v)
-        kc, vc = _dense_layer_kv(cache, layer, rows, cfg.dtype)
-        attn = attention(q, kc, vc, causal=True, q_offset=start, kv_len=kv_len)
-        x = _attn_mlp_epilogue(cfg, x, lp, attn)
+
+        def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            _write_dense(views, idx[layer], k, v)
+            kc, vc = _dense_layer_kv(cache, layer, rows, cfg.dtype)
+            return attention(q, kc, vc, causal=True, q_offset=start, kv_len=kv_len)
+
+        x = _layer(cfg, x, layer_params(params, layer), sin, cos, rope_pos, mesh, attend)
     return x
 
 
@@ -873,14 +973,15 @@ def decode_chunk(
     tokens: torch.Tensor,  # [B, T]
     cache: KVCache,  # updated in place
     start_len: torch.Tensor,  # [B] committed length BEFORE the chunk
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Run T tokens per row against the dense cache in one call: K/V
     written at rows [start, start+T) (past ``S_max`` dropped, to the sink),
     attention over prefix and chunk with per-row ``q_offset``. Returns
     (logits [B, T, V] f32, cache)."""
     rows = torch.arange(tokens.shape[0], device=tokens.device)
-    x = _dense_chunk_forward(cfg, params, tokens, cache, rows, start_len)
-    return _logits(cfg, params, x), cache
+    x = _dense_chunk_forward(cfg, params, tokens, cache, rows, start_len, mesh)
+    return _logits(cfg, params, x, mesh), cache
 
 
 def _write_kv(
@@ -917,17 +1018,21 @@ def _decode_step(
     block_tables: torch.Tensor,
     seq_lens: torch.Tensor,
     active: torch.Tensor,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """The body of :func:`decode_step_paged` and :func:`decode_step_paged_q`:
-    returns the logits, the pools written in place."""
+    returns the logits, the pools written in place. On a mesh the paged
+    kernels run on this rank's query heads over its KV heads' pools."""
     k_pool, v_pool, ks_pool, vs_pool = pools
     B = tokens.shape[0]
     dev = tokens.device
     page = k_pool.shape[3]
     trash_page = k_pool.shape[1] - 1
     M = block_tables.shape[1]
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    x = _embed(cfg, params, tokens)[:, None, :]  # [B, 1, D]
+    Dh = cfg.head_dim
+    if mesh is not None:
+        _check_mesh_params(params)
+    x = _embed(cfg, params, tokens, mesh)[:, None, :]  # [B, 1, D]
     pos = (seq_lens.long() - 1).clamp_min(0)  # [B]
     positions = pos[:, None]
     sin, cos = rope_table(cfg.max_seq_len, Dh, cfg.rope_theta, dev)
@@ -939,23 +1044,22 @@ def _decode_step(
     offsets = torch.where(active, pos % page, 0)
     lens = seq_lens.to(torch.int32)
     for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
-        hn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = _mm(hn, lp["wq"]).reshape(B, 1, H, Dh)
-        k = _mm(hn, lp["wk"]).reshape(B, 1, Hkv, Dh)
-        v = _mm(hn, lp["wv"]).reshape(B, 1, Hkv, Dh)
-        q = apply_rope(q, positions, sin, cos)[:, 0].contiguous()  # [B, H, Dh]
-        k = apply_rope(k, positions, sin, cos)[:, 0]  # [B, Hkv, Dh]
         kc, vc = k_pool[layer], v_pool[layer]  # views: [N+1, Hkv, page, Dh]
-        if ks_pool is None:
-            _write_kv(kc, vc, None, None, pages, offsets, k, v[:, 0])
-            attn = paged_decode_attention(q, kc, vc, block_tables, lens)
-        else:
+        ksc = vsc = None
+        if ks_pool is not None:
             ksc, vsc = ks_pool[layer], vs_pool[layer]  # [N+1, Hkv, page, 1]
-            _write_kv(kc, vc, ksc, vsc, pages, offsets, k, v[:, 0])
-            attn = paged_decode_attention_q(q, kc, vc, ksc, vsc, block_tables, lens)
-        x = _attn_mlp_epilogue(cfg, x, lp, attn[:, None])
-    return _logits(cfg, params, x)[:, 0]
+
+        def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            q = q[:, 0].contiguous()  # [B, H, Dh]
+            _write_kv(kc, vc, ksc, vsc, pages, offsets, k[:, 0], v[:, 0])
+            if ksc is None:
+                attn = paged_decode_attention(q, kc, vc, block_tables, lens)
+            else:
+                attn = paged_decode_attention_q(q, kc, vc, ksc, vsc, block_tables, lens)
+            return attn[:, None]
+
+        x = _layer(cfg, x, layer_params(params, layer), sin, cos, positions, mesh, attend)
+    return _logits(cfg, params, x, mesh)[:, 0]
 
 
 def decode_step_paged(
@@ -967,6 +1071,7 @@ def decode_step_paged(
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,  # [B] int32, length INCLUDING this token's position
     active: torch.Tensor,  # [B] bool: inactive rows must not write live pages
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step over the paged pool: writes this step's K/V into each
     active row's page slot (in place: the pools are the reference's donated
@@ -975,7 +1080,7 @@ def decode_step_paged(
     two rows' writes meet on a live page; their output is ignored. Returns
     (logits [B, V] f32, k_pool, v_pool). Issues no host sync."""
     logits = _decode_step(
-        cfg, params, tokens, (k_pool, v_pool, None, None), block_tables, seq_lens, active
+        cfg, params, tokens, (k_pool, v_pool, None, None), block_tables, seq_lens, active, mesh
     )
     return logits, k_pool, v_pool
 
@@ -991,6 +1096,7 @@ def decode_step_paged_q(
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,  # [B] length INCLUDING this token's position
     active: torch.Tensor,  # [B] bool
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """int8 twin of :func:`decode_step_paged`: this step's K/V quantize
     (per-vector absmax) before the page scatter, values and scales alike
@@ -998,7 +1104,8 @@ def decode_step_paged_q(
     pools through the dequantizing kernel. Returns (logits, k_pool, v_pool,
     ks_pool, vs_pool)."""
     logits = _decode_step(
-        cfg, params, tokens, (k_pool, v_pool, ks_pool, vs_pool), block_tables, seq_lens, active
+        cfg, params, tokens, (k_pool, v_pool, ks_pool, vs_pool), block_tables, seq_lens, active,
+        mesh,
     )
     return logits, k_pool, v_pool, ks_pool, vs_pool
 
@@ -1050,19 +1157,23 @@ def _chunk_forward(
     start_len: torch.Tensor,  # [B] committed length BEFORE the chunk
     active: torch.Tensor,  # [B] bool
     kv_capacity: torch.Tensor,  # [B] tokens covered by owned pages
+    mesh: Any = None,
 ) -> torch.Tensor:
     """The chunk forward of :func:`decode_chunk_paged` up to the final
     hidden state [B, T, D]: writes the chunk's K/V through the block tables
     (in place; overflow and inactive rows to the trash page) and attends
     over each row's gathered pages with per-row ``q_offset``. The serving
-    path applies the lm_head only at each row's last prompt position."""
+    path applies the lm_head only at each row's last prompt position. On a
+    mesh over this rank's heads and its KV heads' pools."""
     k_pool, v_pool, ks_pool, vs_pool = pools
     B, T = tokens.shape
     dev = tokens.device
+    if mesh is not None:
+        _check_mesh_params(params)
     start = start_len.long()
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
     pages, offsets = _paged_chunk_targets(k_pool, block_tables, positions, active, kv_capacity)
-    x = _embed(cfg, params, tokens.clamp_min(0))
+    x = _embed(cfg, params, tokens.clamp_min(0), mesh)
     sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
     # pad positions of a final ragged chunk may run past the rope table:
     # they clamp into it (the reference's jnp.take fills NaN there); their
@@ -1070,17 +1181,18 @@ def _chunk_forward(
     rope_pos = positions.clamp_max(cfg.max_seq_len - 1)
     kv_len = start + T
     for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
-        _, q, k, v = _qkv(cfg, x, lp, sin, cos, rope_pos)
         kc, vc = k_pool[layer], v_pool[layer]
         ksc = vsc = None
         if ks_pool is not None:
             ksc, vsc = ks_pool[layer], vs_pool[layer]
-        _write_kv(kc, vc, ksc, vsc, pages, offsets, k, v)
-        kg = _paged_gather(kc, block_tables, ksc, cfg.dtype)
-        vg = _paged_gather(vc, block_tables, vsc, cfg.dtype)
-        attn = attention(q, kg, vg, causal=True, q_offset=start, kv_len=kv_len)
-        x = _attn_mlp_epilogue(cfg, x, lp, attn)
+
+        def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            _write_kv(kc, vc, ksc, vsc, pages, offsets, k, v)
+            kg = _paged_gather(kc, block_tables, ksc, cfg.dtype)
+            vg = _paged_gather(vc, block_tables, vsc, cfg.dtype)
+            return attention(q, kg, vg, causal=True, q_offset=start, kv_len=kv_len)
+
+        x = _layer(cfg, x, layer_params(params, layer), sin, cos, rope_pos, mesh, attend)
     return x
 
 
@@ -1094,13 +1206,14 @@ def decode_chunk_paged(
     start_len: torch.Tensor,  # [B] committed length BEFORE the chunk
     active: torch.Tensor,  # [B]
     kv_capacity: torch.Tensor,  # [B] tokens covered by owned pages
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run T tokens per row against the page pool in one call (chunked
     prefill): K/V written through the block tables, attention over the
     gathered pages. Returns (logits [B, T, V] f32, k_pool, v_pool)."""
     x = _chunk_forward(cfg, params, tokens, (k_pool, v_pool, None, None), block_tables,
-                      start_len, active, kv_capacity)
-    return _logits(cfg, params, x), k_pool, v_pool
+                      start_len, active, kv_capacity, mesh)
+    return _logits(cfg, params, x, mesh), k_pool, v_pool
 
 
 def decode_chunk_paged_q(
@@ -1115,10 +1228,11 @@ def decode_chunk_paged_q(
     start_len: torch.Tensor,
     active: torch.Tensor,
     kv_capacity: torch.Tensor,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """int8 twin of :func:`decode_chunk_paged`: the chunk's K/V quantize
     before the scatter and the gathered pages dequantize to the model
     dtype. Returns (logits, k_pool, v_pool, ks_pool, vs_pool)."""
     x = _chunk_forward(cfg, params, tokens, (k_pool, v_pool, ks_pool, vs_pool), block_tables,
-                      start_len, active, kv_capacity)
-    return _logits(cfg, params, x), k_pool, v_pool, ks_pool, vs_pool
+                      start_len, active, kv_capacity, mesh)
+    return _logits(cfg, params, x, mesh), k_pool, v_pool, ks_pool, vs_pool

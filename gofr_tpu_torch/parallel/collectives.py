@@ -20,7 +20,10 @@ the transpose rule the reference's compiler applies:
 Backends: NCCL takes CUDA tensors. Gloo takes CPU tensors, and on CUDA
 tensors only ``all_reduce`` and ``broadcast``: the others stage a CUDA
 tensor through a host copy, and only because the world runs gloo on the
-card (one card shared by every rank). A backward runs the same
+card (one card shared by every rank). On a gloo group whose ranks share a
+host, the all-reduce and the all-gather (the sums and gathers above and
+their transposes) go through shared memory instead of loopback TCP
+(``parallel/hostring.py``, on an x86-64 host). A backward runs the same
 collectives in the same order on every rank only if every rank builds the
 same graph: callers keep each collective's output in use on every rank
 (a zero-weighted use is enough).
@@ -33,6 +36,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from gofr_tpu_torch.parallel.hostring import ring_for
 from gofr_tpu_torch.parallel.mesh import Mesh, require_axis
 
 
@@ -46,12 +50,18 @@ def _staged(x: torch.Tensor, group: Any) -> bool:
 
 
 def _all_reduce(x: torch.Tensor, group: Any) -> torch.Tensor:
+    ring = ring_for(group)
+    if ring is not None:
+        return ring.all_reduce(x)
     out = x.contiguous().clone()
     dist.all_reduce(out, group=group)
     return out
 
 
 def _all_gather(x: torch.Tensor, group: Any, n: int, dim: int) -> torch.Tensor:
+    ring = ring_for(group)
+    if ring is not None:
+        return ring.all_gather(x, dim)
     src = x.contiguous()
     if _staged(src, group):
         src = src.cpu()

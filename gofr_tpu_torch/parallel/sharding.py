@@ -161,6 +161,32 @@ def bert_sharding_rules() -> ShardingRules:
     )
 
 
+def kv_head_slice(n_heads: int, n_kv_heads: int, mesh: Mesh) -> tuple[int, int]:
+    """(first, count) of the global KV heads this rank's serving cache
+    keeps. The serving KV storage (the dense cache [L, slots, S_max, Hkv,
+    Dh], the paged pools [L, N+1, Hkv, page, Dh], int8 scales [..., 1]
+    alike) splits on its KV-head axis over ``tp`` and is replicated on
+    every other axis, as the reference's GSPMD leaves a tp-sharded
+    engine's cache: a rank keeps its ``n_kv_heads / tp`` heads when ``tp``
+    divides them; with fewer KV heads than ``tp`` ranks (``tp`` a multiple
+    of them) the one KV head its local query heads read, as the
+    tensor-parallel layer selects it (``models.llama._layer_sharded``).
+    Any other layout raises."""
+    tp = mesh.shape["tp"]
+    if n_heads % tp:
+        raise ValueError(f"{n_heads} query heads do not split over tp={tp}")
+    if n_kv_heads % tp == 0:
+        count = n_kv_heads // tp
+        return mesh.index("tp") * count, count
+    if tp % n_kv_heads == 0:
+        group = n_heads // n_kv_heads
+        return mesh.index("tp") * (n_heads // tp) // group, 1
+    raise ValueError(
+        f"{n_kv_heads} KV heads neither split over tp={tp} nor divide it: no rank-local KV cache "
+        "placement"
+    )
+
+
 def activation_spec(kind: str = "tokens") -> PartitionSpec:
     """Standard activation constraint points: batch on dp(+fsdp), sequence
     on sp, features replicated (tp acts inside layers)."""

@@ -24,6 +24,13 @@ greedy decoding would have produced and samples each row's bonus token,
 and returns one packed int32 [B, K+2] array: the tokens, then n_accept.
 ``insert_chunk`` writes a cached chunk-prefix slab into a dense slot row.
 
+Tensor parallel (``serving/tp_group.py``): ``prefill_compute``, the
+decode blocks and the ragged dispatches take ``mesh=``, with ``params``
+this rank's slice and the cache or pools holding its KV heads. The logits
+come back whole on every rank, so sampling runs on every rank on the same
+logits with generators seeded alike, and each rank's decode state, K/V
+writes and packed output stay equal without another collective.
+
 LoRA (``serving/lora.py``): every block and ragged function takes
 ``lora=(a_table, b_table)`` or None. Each sampling site adds the low-rank
 delta ``emb[t] @ A_i @ B_i`` of the token ``t`` that produced the logits,
@@ -55,13 +62,16 @@ def prefill_compute(
     params: dict,
     tokens: torch.Tensor,  # [1, S_bucket] right-padded
     seq_len: torch.Tensor,  # [1]
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill without a persistent cache: (last_logits [1, V] f32,
     k_slab, v_slab [L, S_bucket, Hkv, Dh]) for the commit into a slot row
     or into pages. The reference prefills a bucket-sized scratch
     ``KVCache``; the slabs here are that cache's rows, written directly
-    with no copy between them."""
-    last, k_slab, v_slab = llama._prefill_slabs(cfg, params, tokens, seq_len)
+    with no copy between them. On a mesh the slabs hold this rank's KV
+    heads."""
+    last, k_slab, v_slab = llama._prefill_slabs(cfg, params, tokens, seq_len, mesh=mesh)
     return last, k_slab[:, 0], v_slab[:, 0]
 
 
@@ -259,6 +269,7 @@ def _decode_steps(
     active: torch.Tensor,
     steps: int,
     lora: tuple | None = None,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, DecodeState]:
     """``steps`` fused decode + sample + stop-eval iterations: (tokens
     [B, steps], state). Frozen rows' appends go to the trash page, or on
@@ -270,16 +281,18 @@ def _decode_steps(
         live = active & ~state.done
         if isinstance(kv, llama.KVCache):
             step_len = torch.where(live, state.seq_len + 1, kv.max_len + 1)
-            logits, _ = llama.decode_step(cfg, params, state.last_token, kv, step_len)
+            logits, _ = llama.decode_step(cfg, params, state.last_token, kv, step_len,
+                                          mesh=mesh)
         else:
             step_len = torch.where(live, state.seq_len + 1, torch.ones_like(state.seq_len))
             if kv[2] is None:
                 logits, _, _ = llama.decode_step_paged(
-                    cfg, params, state.last_token, kv[0], kv[1], block_tables, step_len, live
+                    cfg, params, state.last_token, kv[0], kv[1], block_tables, step_len, live,
+                    mesh=mesh,
                 )
             else:
                 logits = llama.decode_step_paged_q(
-                    cfg, params, state.last_token, *kv, block_tables, step_len, live
+                    cfg, params, state.last_token, *kv, block_tables, step_len, live, mesh=mesh
                 )[0]
         state, out = _block_step(state, active, logits, params, lora)
         toks.append(out)
@@ -296,12 +309,14 @@ def decode_block(
     active: torch.Tensor,  # [B] bool: rows the host dispatched this block
     steps: int,
     lora: tuple | None = None,  # (a_table, b_table): heterogeneous LoRA
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, llama.KVCache, DecodeState]:
     """``steps`` fused decode + sample + stop-eval iterations over the
     dense slot cache with no host sync. A row that stops mid-block freezes:
     its appends go to the sink and its remaining columns are -1. Returns
     (packed [B, steps+2], cache, state)."""
-    toks, state = _decode_steps(cfg, params, cache, state, None, active, steps, lora)
+    toks, state = _decode_steps(cfg, params, cache, state, None, active, steps, lora, mesh)
     return _pack_block(toks, state.done, active), cache, state
 
 
@@ -315,6 +330,8 @@ def decode_block_paged(
     active: torch.Tensor,  # [B] bool
     steps: int,
     lora: tuple | None = None,  # (a_table, b_table): heterogeneous LoRA
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """``steps`` fused decode + sample + stop-eval iterations with no host
     sync. A row that stops mid-block freezes: its appends go to the trash
@@ -322,7 +339,7 @@ def decode_block_paged(
     k_pool, v_pool, state); the packed array is the block's only value the
     host reads."""
     toks, state = _decode_steps(
-        cfg, params, (k_pool, v_pool, None, None), state, block_tables, active, steps, lora,
+        cfg, params, (k_pool, v_pool, None, None), state, block_tables, active, steps, lora, mesh,
     )
     return _pack_block(toks, state.done, active), k_pool, v_pool, state
 
@@ -339,11 +356,14 @@ def decode_block_paged_q(
     active: torch.Tensor,
     steps: int,
     lora: tuple | None = None,  # (a_table, b_table): heterogeneous LoRA
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """int8 twin of :func:`decode_block_paged`: (packed, k_pool, v_pool,
     ks_pool, vs_pool, state)."""
     toks, state = _decode_steps(
         cfg, params, (k_pool, v_pool, ks_pool, vs_pool), state, block_tables, active, steps, lora,
+        mesh,
     )
     return _pack_block(toks, state.done, active), k_pool, v_pool, ks_pool, vs_pool, state
 
@@ -441,6 +461,7 @@ def _ragged_step(
     steps: int,
     adapters: torch.Tensor | None = None,  # [B] LoRA table slots of the chunk rows
     lora: tuple | None = None,  # (a_table, b_table)
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, DecodeState]:
     """The body of :func:`ragged_step` and :func:`ragged_step_paged` and
     its int8 twin.
@@ -459,17 +480,18 @@ def _ragged_step(
     C = chunk.shape[1]
     start = chunk_start[rows]
     if isinstance(kv, llama.KVCache):
-        x = llama._dense_chunk_forward(cfg, params, chunk[rows], kv, rows, start)
+        x = llama._dense_chunk_forward(cfg, params, chunk[rows], kv, rows, start, mesh=mesh)
     else:
         x = llama._chunk_forward(
             cfg, params, chunk[rows], kv, block_tables[rows], start,
             torch.ones(K, dtype=torch.bool, device=chunk.device), kv_capacity[rows],
+            mesh=mesh,
         )
     # the lm_head only where a row's prompt ends in this chunk: [K, C, V]
     # logits to keep one position per row would waste 2*K*C*D*V FLOPs
     pos = (new_len[rows].long() - start.long() - 1).clamp(0, C - 1)
     last_h = x[torch.arange(K, device=x.device), pos][:, None]  # [K, 1, D]
-    last_logits = llama._logits(cfg, params, last_h)[:, 0]  # [K, V]
+    last_logits = llama._logits(cfg, params, last_h, mesh=mesh)[:, 0]  # [K, V]
     last_tok = None
     if lora is not None:  # the token that keys each chunk row's delta: [K]
         last_tok = chunk[rows][torch.arange(K, device=chunk.device), pos]
@@ -480,7 +502,8 @@ def _ragged_step(
     )
     first = torch.full((chunk.shape[0],), -1, dtype=first_k.dtype, device=first_k.device)
     first[rows] = first_k
-    toks, state = _decode_steps(cfg, params, kv, state, block_tables, decode_active, steps, lora)
+    toks, state = _decode_steps(cfg, params, kv, state, block_tables, decode_active, steps, lora,
+                                mesh)
     return _pack_ragged(toks, state.done, decode_active, first), last_logits, state
 
 
@@ -504,6 +527,8 @@ def ragged_step(
     steps: int,
     adapters: torch.Tensor | None = None,  # [B] LoRA slots of the chunk rows
     lora: tuple | None = None,  # (a_table, b_table)
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, llama.KVCache, DecodeState]:
     """Unified ragged dispatch over the dense slot cache: the chunk forward
     of the chunk rows (K/V in place at [layer, rows, start:start+C], a
@@ -516,7 +541,7 @@ def ragged_step(
     only."""
     packed, last_logits, state = _ragged_step(
         cfg, params, cache, state, None, chunk, chunk_start, chunk_rows, None, finish, new_len,
-        budgets, stops, temps, topks, topps, seeds, decode_active, steps, adapters, lora,
+        budgets, stops, temps, topks, topps, seeds, decode_active, steps, adapters, lora, mesh,
     )
     return packed, last_logits, cache, state
 
@@ -544,6 +569,8 @@ def ragged_step_paged(
     steps: int,
     adapters: torch.Tensor | None = None,  # [B] LoRA slots of the chunk rows
     lora: tuple | None = None,  # (a_table, b_table)
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """Unified ragged dispatch over bf16 pools: the chunk forward of the
     chunk rows, the first-token fold of the rows that finish, then the
@@ -556,7 +583,7 @@ def ragged_step_paged(
     packed, last_logits, state = _ragged_step(
         cfg, params, (k_pool, v_pool, None, None), state, block_tables, chunk, chunk_start,
         chunk_rows, kv_capacity, finish, new_len, budgets, stops, temps, topks, topps, seeds,
-        decode_active, steps, adapters, lora,
+        decode_active, steps, adapters, lora, mesh,
     )
     return packed, last_logits, k_pool, v_pool, state
 
@@ -586,6 +613,8 @@ def ragged_step_paged_q(
     steps: int,
     adapters: torch.Tensor | None = None,  # [B] LoRA slots of the chunk rows
     lora: tuple | None = None,  # (a_table, b_table)
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor, DecodeState]:
     """int8 twin of :func:`ragged_step_paged`: (packed, last_logits, k_pool,
@@ -593,9 +622,73 @@ def ragged_step_paged_q(
     packed, last_logits, state = _ragged_step(
         cfg, params, (k_pool, v_pool, ks_pool, vs_pool), state, block_tables, chunk,
         chunk_start, chunk_rows, kv_capacity, finish, new_len, budgets, stops, temps, topks,
-        topps, seeds, decode_active, steps, adapters, lora,
+        topps, seeds, decode_active, steps, adapters, lora, mesh,
     )
     return packed, last_logits, k_pool, v_pool, ks_pool, vs_pool, state
+
+
+# ------------------------------------------ the engine's dispatch per layout
+# One choice of entry per op, by the KV storage: the dense slot cache
+# ``dense`` (a ``llama.KVCache``) or the paged pools ``pc`` (a
+# ``PagedKVCache``, the other one None). The engine and its
+# tensor-parallel followers (``serving/tp_group.py``) both dispatch through
+# these, so every rank runs the same entry and the same collectives. The
+# pools are updated on ``pc`` in place; the dense cache is returned.
+
+def commit_prefill(dense: Any, pc: Any, k_slab: torch.Tensor, v_slab: torch.Tensor, slot: int,
+                   pages: np.ndarray | None) -> Any:
+    """Write a prefill's slabs into slot ``slot``'s row, or into
+    ``pages`` (``PagedKVCache.prefill_pages``); returns the dense cache
+    (None on the paged layout)."""
+    if pc is not None:
+        pc.write_pages(pages, k_slab, v_slab)
+        return None
+    if dense.quantized:
+        return insert_slot_quantized(dense, k_slab, v_slab, slot)
+    dense.k, dense.v = insert_slot(dense.k, dense.v, k_slab, v_slab, slot)
+    return dense
+
+
+def dispatch_decode(cfg: llama.LlamaConfig, params: dict, dense: Any, pc: Any,
+                    state: DecodeState, block_tables: torch.Tensor | None, active: torch.Tensor,
+                    steps: int, lora: tuple | None = None, *,
+                    mesh: Any = None) -> tuple[torch.Tensor, Any, DecodeState]:
+    """The layout's decode block: (packed, dense cache or None, state)."""
+    if pc is None:
+        packed, dense, state = decode_block(cfg, params, dense, state, active, steps, lora,
+                                            mesh=mesh)
+        return packed, dense, state
+    if pc.quantized:
+        (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
+         state) = decode_block_paged_q(cfg, params, *pc.pools(), state, block_tables, active,
+                                       steps, lora, mesh=mesh)
+    else:
+        packed, pc.k_pool, pc.v_pool, state = decode_block_paged(
+            cfg, params, pc.k_pool, pc.v_pool, state, block_tables, active, steps, lora,
+            mesh=mesh)
+    return packed, None, state
+
+
+def dispatch_ragged(cfg: llama.LlamaConfig, params: dict, dense: Any, pc: Any,
+                    state: DecodeState, block_tables: torch.Tensor | None, chunk: torch.Tensor,
+                    chunk_start: torch.Tensor, chunk_rows: torch.Tensor,
+                    kv_capacity: torch.Tensor | None, *tail: Any,
+                    mesh: Any = None) -> tuple[torch.Tensor, torch.Tensor, Any, DecodeState]:
+    """The layout's ragged dispatch, ``tail`` the entries' arguments from
+    ``finish`` on: (packed, last_logits, dense cache or None, state). The
+    dense layout reads no block tables and no capacities."""
+    if pc is None:
+        packed, last_logits, dense, state = ragged_step(
+            cfg, params, dense, state, chunk, chunk_start, chunk_rows, *tail, mesh=mesh)
+        return packed, last_logits, dense, state
+    args = (block_tables, chunk, chunk_start, chunk_rows, kv_capacity, *tail)
+    if pc.quantized:
+        (packed, last_logits, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
+         state) = ragged_step_paged_q(cfg, params, *pc.pools(), state, *args, mesh=mesh)
+    else:
+        packed, last_logits, pc.k_pool, pc.v_pool, state = ragged_step_paged(
+            cfg, params, pc.k_pool, pc.v_pool, state, *args, mesh=mesh)
+    return packed, last_logits, None, state
 
 
 def insert_chunk(

@@ -220,10 +220,25 @@ lines carry the active span's ``trace_id``/``span_id`` (log correlation).
 ``python -m gofr_tpu_torch.serve`` runs one. ``from_hf`` builds an engine
 from an HF-layout checkpoint and its tokenizer asset, ``from_checkpoint``
 from the newest committed step of a ``CheckpointManager`` directory (warm
-restart). Their ``sharding=`` takes a placement that splits no weight
-(a replicated one): the engine serves whole weights on one card, and a
-placement that splits them (``tp`` or ``fsdp`` > 1) waits for the
-tensor-parallel engine (ROADMAP Queue A item 13).
+restart). Their ``sharding=`` takes a replicated placement (whole weights
+on one card) or ``llama_sharding_rules()``'s placement on a mesh, which
+builds the tensor-parallel engine on that mesh.
+
+Tensor parallel (``mesh=``, a ``parallel.build_mesh`` mesh whose ranks are
+each one process): ``params`` is this rank's slice (``shard_params`` with
+``llama_sharding_rules()``, ``init_params(mesh=)``, ``restore(sharding=)``)
+and the KV storage holds this rank's KV heads, replicated over ``dp`` and
+``fsdp``. The engine runs on the mesh's first rank and every other rank
+runs ``serving.tp_group.serve_follower``, which replays each dispatch on
+its slices (``serving/tp_group.py``): prefill, the decode blocks and the
+ragged dispatches on the dense or paged layout with bf16 or int8 KV.
+Refused with a mesh, each by name at construction: speculative decoding,
+LoRA, the prefix cache and its spill tier, KV migration (and with it the
+handoff and the evacuation), weight-only int8 params and a ``pp``, ``sp``
+or ``ep`` axis; ``warm_restart`` raises, and ``submit`` refuses
+``prefill_only`` and ``handoff_from``. A failed dispatch on any rank ends
+the group: the requests in flight fail with a 503 and the engine takes no
+more.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -240,6 +255,7 @@ import logging
 import threading
 import time
 import traceback
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -270,6 +286,14 @@ from gofr_tpu_torch.serving.stepplan import ChunkCursor, StepPlan, StepPlanner
 from gofr_tpu_torch.serving.tenancy import DEADLINE_CLASSES
 from gofr_tpu_torch.serving.timeline import TimelineRecorder
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+from gofr_tpu_torch.serving.tp_group import (
+    TPLeader,
+    fold_state,
+    hello_of,
+    leader_rank,
+    make_state,
+    serve_follower,
+)
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
@@ -565,22 +589,63 @@ def _request_seed(seed: int, request_id: int) -> int:
     alone, so a request's first draw does not depend on what ran before."""
     return (seed * 1_000_003 + request_id) & 0x7FFF_FFFF_FFFF_FFFF
 
-
-
-def _whole_weights(sharding: Any) -> None:
-    """The engine serves whole weights on one card: a ``sharding=`` that
-    is not a placement raises TypeError, one that splits a weight (``tp``
-    or ``fsdp`` > 1) NotImplementedError; None or a replicated placement
-    passes."""
+def _placement_mesh(sharding: Any) -> Any:
+    """The mesh a loader's ``sharding=`` places the weights on, or None for
+    whole weights on one card (None, or a placement that splits nothing).
+    A placement that splits must be ``llama_sharding_rules()``'s on one
+    mesh (``rules.tree_shardings(mesh, params)``), the one the
+    tensor-parallel engine serves; anything else raises (TypeError for a
+    value that is not a placement)."""
     if sharding is None:
-        return
-    from gofr_tpu_torch.parallel.sharding import shards_any
+        return None
+    from gofr_tpu_torch.parallel.sharding import (
+        NamedSharding,
+        llama_sharding_rules,
+        map_with_path,
+        shards_any,
+    )
 
-    if shards_any(sharding):
+    if not shards_any(sharding):
+        return None
+    if isinstance(sharding, NamedSharding):
+        raise ValueError("the tensor-parallel engine serves llama_sharding_rules()'s placement: "
+                         "pass rules.tree_shardings(mesh, params), not one spec for every leaf")
+    rules, meshes = llama_sharding_rules(), []
+
+    def check(path: str, place: Any) -> None:
+        if place.spec != rules.spec_for(path):
+            raise ValueError(f"sharding= places {path} as {place.spec}; the tensor-parallel engine "
+                             f"serves llama_sharding_rules()'s {rules.spec_for(path)}")
+        meshes.append(place.mesh)
+
+    map_with_path(check, sharding)
+    if any(m is not meshes[0] for m in meshes):
+        raise ValueError("sharding= places the weights on more than one mesh")
+    return meshes[0]
+
+
+def _refuse_on_mesh(mesh: Any, params: dict, conf: Any, lora: Any, prefix_cache: Any,
+                    kv_migrator: Any) -> None:
+    """The tensor-parallel engine's scope: each feature outside it is
+    refused by name (ROADMAP Queue A item 13's remainder)."""
+    refused = [name for name, on in (
+        ("speculative decoding (spec_tokens)", conf.spec_tokens > 0),
+        ("LoRA (lora=)", lora is not None),
+        ("the prefix cache (prefix_cache=, prefix_cache_entries)",
+         prefix_cache is not None or conf.prefix_cache_entries > 0),
+        ("the KV spill tier (kv_spill_bytes)", conf.kv_spill_bytes > 0),
+        ("KV migration and handoff (kv_migrator=)", kv_migrator is not None),
+        ("weight-only int8 params", any(isinstance(w, dict) for w in params["layers"].values())
+         or isinstance(params.get("lm_head"), dict)),
+        (f"a mesh axis other than tp, fsdp and dp ({mesh!r})",
+         any(mesh.shape[a] > 1 for a in ("pp", "sp", "ep"))),
+    ) if on]
+    if refused:
         raise NotImplementedError(
-            "a sharding= that splits the weights (tp or fsdp > 1) needs the tensor-parallel "
-            "engine (ROADMAP Queue A item 13); the engine serves whole weights on one card"
+            "the tensor-parallel engine (mesh=) does not serve " + ", ".join(refused)
+            + " yet (ROADMAP Queue A item 13's remainder)"
         )
+
 
 class ServingEngine:
     """Owns the model params, the KV cache (dense or paged), the admission
@@ -602,8 +667,19 @@ class ServingEngine:
         tracer: Any = None,
         kv_migrator: Any = None,
         logger: Any = None,
+        mesh: Any = None,
     ) -> None:
         self.device = resolve_device(device)
+        # tensor parallel: this rank's slices on a mesh, the engine on its
+        # first rank and serve_follower on the others (serving/tp_group.py)
+        self._mesh = mesh
+        self._tp: TPLeader | None = None
+        if mesh is not None:
+            _refuse_on_mesh(mesh, params, engine_config or EngineConfig(), lora, prefix_cache,
+                            kv_migrator)
+            if mesh.devices.size > 1 and mesh.rank != leader_rank(mesh):
+                raise ValueError(f"rank {mesh.rank} of the mesh serves through serve_follower; "
+                                 f"the engine runs on rank {leader_rank(mesh)}")
         # the app's structured logger (gofr_tpu_torch.logging.Logger: info,
         # warn, error), or None for the module's stdlib logger
         self._logger = logger
@@ -680,7 +756,7 @@ class ServingEngine:
             self._prefix_cache = TieredPrefixCache(
                 conf.prefix_cache_entries, max_bytes=conf.prefix_cache_bytes,
                 spill_bytes=conf.kv_spill_bytes, device=self.device, metrics=metrics,
-                reuse_score=lambda key: self.timeline.reuse_count(key),
+                reuse_score=self.timeline.reuse_count,  # not a closure over the engine
             )
         elif conf.prefix_cache_entries > 0:
             self._prefix_cache = PrefixCache(
@@ -712,6 +788,11 @@ class ServingEngine:
         self.cache: llama.KVCache | None = None
         self.paged_cache: PagedKVCache | None = None
         self._init_runtime_state()
+        if mesh is not None and mesh.devices.size > 1:
+            # collective: every follower is in serve_follower now
+            self._tp = TPLeader(mesh, hello_of(
+                cfg, self.config, seed,
+                self.paged_cache.num_pages if self.paged_cache is not None else None))
 
         self._by_id: dict[int, _Request] = {}  # queued + active, by request id
         self._count_lock = threading.Lock()  # guards _by_id, _next_id
@@ -767,8 +848,28 @@ class ServingEngine:
         # widens its stall limit. Process knowledge: survives warm_restart
         self._warmed: set[tuple] = set()
         self._cold_key: tuple | None = None
-        self._supervisor: Any = None  # EngineSupervisor backref (health)
-        self.device_telemetry: Any = None  # DeviceTelemetry backref (health)
+        self._supervisor_ref: Any = None  # EngineSupervisor backref (health), weak
+        self._telemetry_ref: Any = None  # DeviceTelemetry backref (health), weak
+
+    # the health backrefs are weak: the supervisor and the telemetry poller
+    # each hold the engine, and a strong backref would keep the engine, its
+    # weights on the card included, alive in a cycle until a collection
+    @property
+    def _supervisor(self) -> Any:
+        return None if self._supervisor_ref is None else self._supervisor_ref()
+
+    @_supervisor.setter
+    def _supervisor(self, supervisor: Any) -> None:
+        self._supervisor_ref = None if supervisor is None else weakref.ref(supervisor)
+
+    @property
+    def device_telemetry(self) -> Any:
+        """The ``DeviceTelemetry`` poller over this engine, or None."""
+        return None if self._telemetry_ref is None else self._telemetry_ref()
+
+    @device_telemetry.setter
+    def device_telemetry(self, poller: Any) -> None:
+        self._telemetry_ref = None if poller is None else weakref.ref(poller)
 
     @classmethod
     def from_checkpoint(
@@ -789,12 +890,15 @@ class ServingEngine:
         ``torch.Generator`` seed, the port's ``seed_key``) and no step is
         committed. A corrupt existing checkpoint raises: serving random
         weights would be worse than failing the start. ``sharding=`` takes
-        a placement that splits no weight (:func:`_whole_weights`)."""
+        a replicated placement, or ``llama_sharding_rules()``'s on a mesh
+        (:func:`_placement_mesh`): each rank restores its slices, and the
+        mesh's first rank gets the tensor-parallel engine while every other
+        rank serves as its follower until it stops (and gets None)."""
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         from gofr_tpu_torch.checkpoint import CheckpointError, CheckpointManager
 
-        _whole_weights(sharding)
+        mesh = _placement_mesh(sharding)
         dev = resolve_device(device)
         mgr = CheckpointManager(checkpoint_dir)
         if mgr.latest_step() is None:  # raises on a corrupt manifest
@@ -804,12 +908,23 @@ class ServingEngine:
                     "(pass seed for the random-init fallback)"
                 )
             params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                                       device=dev)
+                                       device=dev, mesh=mesh)
         else:
             with FakeTensorMode():  # shapes and dtypes only: the port's eval_shape
                 abstract = llama.init_params(cfg, device="cpu")
             params = mgr.restore(abstract, step=step, sharding=sharding, device=dev)
-        return cls(cfg, params, device=dev, **kw)
+        return cls._on_mesh(cfg, params, mesh, dev, kw)
+
+    @classmethod
+    def _on_mesh(cls, cfg: llama.LlamaConfig, params: dict, mesh: Any, dev: torch.device,
+                 kw: dict) -> "ServingEngine | None":
+        """The loaders' end: the engine (on one card, or the tensor-parallel
+        engine on the mesh's first rank), or a follower's service until the
+        engine stops (None)."""
+        if mesh is not None and mesh.devices.size > 1 and mesh.rank != leader_rank(mesh):
+            serve_follower(cfg, params, kw.get("engine_config"), mesh=mesh, device=dev)
+            return None
+        return cls(cfg, params, device=dev, mesh=mesh, **kw)
 
     @classmethod
     def from_hf(
@@ -829,11 +944,15 @@ class ServingEngine:
         (``tokenizer.json`` or ``tokenizer.model``, through
         ``load_tokenizer``). With no asset there the engine keeps its
         ``ByteTokenizer``, as the reference does. ``sharding=`` takes a
-        placement that splits no weight (:func:`_whole_weights`)."""
+        replicated placement, or ``llama_sharding_rules()``'s on a mesh:
+        each rank loads its slices, and the mesh's first rank gets the
+        tensor-parallel engine while every other rank serves as its
+        follower until it stops (and gets None; see
+        :meth:`from_checkpoint`)."""
         from gofr_tpu_torch.models.hf_import import load_llama_from_hf
         from gofr_tpu_torch.tokenizer import load_tokenizer
 
-        _whole_weights(sharding)
+        mesh = _placement_mesh(sharding)
         cfg, params = load_llama_from_hf(path, dtype=dtype, sharding=sharding, fs=fs,
                                          device=device)
         if tokenizer is None:
@@ -841,7 +960,8 @@ class ServingEngine:
                 tokenizer = load_tokenizer(path, fs=fs)
             except FileNotFoundError:
                 tokenizer = None  # the ByteTokenizer default
-        return cls(cfg, params, tokenizer=tokenizer, device=device, **kw)
+        return cls._on_mesh(cfg, params, mesh, resolve_device(device),
+                            dict(kw, tokenizer=tokenizer))
 
     def _make_dense_cache(self) -> llama.KVCache:
         """The one dense slot-cache constructor, shared by __init__, the
@@ -849,7 +969,7 @@ class ServingEngine:
         conf = self.config
         return llama.KVCache.create(
             self.model_cfg, conf.max_slots, max_len=conf.max_seq_len, kv_dtype=conf.kv_dtype,
-            device=self.device,
+            device=self.device, mesh=self._mesh,
         )
 
     def _make_paged_cache(self) -> PagedKVCache:
@@ -860,7 +980,7 @@ class ServingEngine:
         return PagedKVCache(
             self.model_cfg, num_pages=conf.kv_num_pages or (B * S + page - 1) // page,
             page_size=page, max_slots=B, max_seq_len=S, device=self.device,
-            kv_dtype=conf.kv_dtype,
+            kv_dtype=conf.kv_dtype, mesh=self._mesh,
         )
 
     def _init_runtime_state(self) -> None:
@@ -974,6 +1094,10 @@ class ServingEngine:
             # a later stop() that joins clean recovers; with no thread left
             # to join, a supervisor's park stays WEDGED
             self._wedged = wedged
+        if self._tp is not None and not wedged:
+            # blocks the loop dispatched but never read still count in the
+            # hash every follower keeps; then the followers' loops end
+            self._tp.close([rec.packed for rec in self._inflight])
         self._shutdown_host_executors()
         with self._count_lock:
             leftovers = list(self._by_id.values())
@@ -1263,7 +1387,11 @@ class ServingEngine:
 
         Returns False, touching nothing, when drain() or stop() already
         owns the lifecycle. A rebuild that fails settles the requeued
-        requests retriable and raises."""
+        requests retriable and raises. A tensor-parallel engine raises
+        NotImplementedError: its followers' state is not rebuilt."""
+        if self._mesh is not None:
+            raise NotImplementedError("warm_restart of the tensor-parallel engine (mesh=) is not "
+                                      "ported yet (ROADMAP Queue A item 13's remainder)")
         with self._lifecycle_mu:
             if self._draining or self._stop_requested or self._wedged:
                 return False  # drain/stop won the race: stand down
@@ -1352,6 +1480,12 @@ class ServingEngine:
                               "in-flight failed retriable")
             return True
 
+    def tp_digest(self) -> tuple[int, str] | None:
+        """(packed blocks read, their running hash) of a tensor-parallel
+        engine, to hold against each follower's ``FollowerResult``; None
+        on one card."""
+        return None if self._tp is None else (self._tp.blocks, self._tp.digest())
+
     @property
     def draining(self) -> bool:
         return self._draining
@@ -1401,6 +1535,15 @@ class ServingEngine:
             if self._thread is None or threading.current_thread() is self._thread:
                 self._cold_key = None
         self._warmed.add(key)
+
+    def _tp_step(self, op: str, payload: Callable[[], dict]) -> Any:
+        """A dispatch's command to the tensor-parallel followers, sent
+        before the leader's own launch; a failure inside ends the group
+        (``TPLeader.step``). ``payload()`` gives the host values the
+        followers replay from. A null context on one card."""
+        if self._tp is None:
+            return contextlib.nullcontext()
+        return self._tp.step(op, **payload())
 
     def _check_retired(self) -> None:
         """The quarantine guard: after a warm restart that could not join
@@ -1459,12 +1602,16 @@ class ServingEngine:
         sup = self._supervisor
         if sup is not None:
             details["supervisor"] = sup.snapshot()
+        tp = self._tp
+        if tp is not None:
+            details["tensor_parallel"] = {"ranks": tp.ranks, "mesh": repr(self._mesh),
+                                          "blocks": tp.blocks, "lost": tp.broken is not None}
         sup_state = sup.state if sup is not None else None
         if self._wedged or sup_state == "WEDGED":
             status = "WEDGED"
         elif self._restarting or sup_state == "RESTARTING":
             status = "RESTARTING"
-        elif not self._running:
+        elif not self._running or (tp is not None and tp.broken is not None):
             status = "DOWN"
         elif self._reclaiming:
             # the same zero-new-routes contract as a drain, plus a hard
@@ -1547,6 +1694,13 @@ class ServingEngine:
             # the scheduler and the KV storage are being replaced; the
             # restart takes seconds
             raise ErrorServiceUnavailable("engine restarting; retry", retry_after=1.0)
+        if self._tp is not None and self._tp.broken is not None:
+            raise ErrorServiceUnavailable("tensor-parallel group lost; retry on another replica",
+                                          retry_after=1.0)
+        if self._mesh is not None and (prefill_only or handoff_from):
+            # the disaggregation plane needs the prefix cache and the
+            # migrator, which the tensor-parallel engine refuses
+            raise ErrorInvalidParam("prefill_only" if prefill_only else "handoff_from")
         # the tenant's class first: its priority drives the scheduler and
         # the preemption ladder, its deadline fills in a missing one. A
         # request that names no tenant is untouched
@@ -1985,6 +2139,8 @@ class ServingEngine:
                 # the iteration so far was work; the wake wait is idle
                 self._flush_busy()
                 if not did:
+                    if self._tp is not None:
+                        self._tp.keepalive()  # an idle leader's followers wait on it
                     if (self._draining and not self._inflight
                             and not any(s is not None for s in self.slots)
                             and self._sched.pending() == 0):
@@ -2592,15 +2748,19 @@ class ServingEngine:
         # the dense cache is bound once, before the long dispatch: after a
         # warm restart replaced this thread, self.cache is the rebuilt one
         dense = self.cache
-        with span, self._cold_dispatch("prefill", bucket, cached is not None):
+        tokens = None
+        if cached is None:
+            tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
+            tokens[0, :S] = ids
+        pages = pc.prefill_pages(slot, bucket) if pc is not None else None
+        with span, self._cold_dispatch("prefill", bucket, cached is not None), self._tp_step(
+                "prefill", lambda: dict(tokens=tokens, length=S, slot=slot, pages=pages)):
             if cached is not None:
                 last_logits, k_slab, v_slab = cached
             else:
-                tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
-                tokens[0, :S] = ids
                 last_logits, k_slab, v_slab = batch_ops.prefill_compute(
                     cfg, self.params, to_device(tokens, self.device),
-                    to_device(np.array([S], np.int32), self.device),
+                    to_device(np.array([S], np.int32), self.device), mesh=self._mesh,
                 )
             # replaced during the compute: no writes, not even into the
             # prefix cache the restart just cleared
@@ -2608,12 +2768,7 @@ class ServingEngine:
             if cached is None and cache_key is not None:
                 # fresh slabs that nothing writes into later: safe to keep
                 self._prefix_cache.put(cache_key, (last_logits, k_slab, v_slab))
-            if pc is not None:
-                pc.write_prefill(slot, k_slab, v_slab)
-            elif dense.quantized:
-                self.cache = batch_ops.insert_slot_quantized(dense, k_slab, v_slab, slot)
-            else:
-                dense.k, dense.v = batch_ops.insert_slot(dense.k, dense.v, k_slab, v_slab, slot)
+            self.cache = batch_ops.commit_prefill(dense, pc, k_slab, v_slab, slot, pages)
             # the row's delta applies at the sampling site: cached entries
             # stay base-model logits
             logits = self._lora_adjusted(req, last_logits, ids[-1])
@@ -2891,28 +3046,29 @@ class ServingEngine:
             if len(req.stop_ids) == 1:
                 stop[slot] = next(iter(req.stop_ids))
         self._pending_admit.clear()  # the mirrors already hold these rows
-        return batch_ops.make_decode_state(
-            self.last_token, np.maximum(self.cache_len, 1), done, budget, stop,
-            self.temperature, self.top_k, self.top_p, self._rng, self.adapter_idx,
-            device=self.device,
-        )
+        host = {"last_token": self.last_token.copy(), "seq_len": np.maximum(self.cache_len, 1),
+                "done": done, "budget": budget, "stop": stop,
+                "temperature": self.temperature.copy(), "top_k": self.top_k.copy(),
+                "top_p": self.top_p.copy(), "adapter": self.adapter_idx.copy()}
+        if self._tp is not None:
+            self._tp.post("state", make=host)
+        return make_state(host, self._rng, self.device)
 
     def _fold_admissions(self, state: batch_ops.DecodeState) -> batch_ops.DecodeState:
         items = sorted(self._pending_admit.items())
         self._pending_admit.clear()
         idx = np.array([s for s, _ in items], np.int64)
 
-        def col(i: int, dtype: Any) -> torch.Tensor:
-            return to_device(np.array([v[i] for _, v in items], dtype), self.device)
+        def col(i: int, dtype: Any) -> np.ndarray:
+            return np.array([v[i] for _, v in items], dtype)
 
-        return batch_ops.admit_decode_state(
-            state, to_device(idx, self.device), col(0, np.int64), col(1, np.int32),
-            col(2, np.int32), col(3, np.int64),
-            to_device(self.temperature[idx], self.device),
-            to_device(self.top_k[idx], self.device),
-            to_device(self.top_p[idx], self.device),
-            col(4, np.int32),
-        )
+        host = {"slots": idx, "tokens": col(0, np.int64), "lens": col(1, np.int32),
+                "budgets": col(2, np.int32), "stops": col(3, np.int64),
+                "temps": self.temperature[idx], "topks": self.top_k[idx],
+                "topps": self.top_p[idx], "adapters": col(4, np.int32)}
+        if self._tp is not None:
+            self._tp.post("state", fold=host)
+        return fold_state(state, host, self.device)
 
     def _dispatch(self, plan: StepPlan) -> _Inflight | None:
         chaos.maybe_fail("decode.dispatch")
@@ -3002,22 +3158,13 @@ class ServingEngine:
             lora = self._lora_tables()
             key = ("decode", "dense" if pc is None else "paged",
                    new_cache.quantized if pc is None else pc.quantized, N, lora is not None)
-            with self._cold_dispatch(*key):
-                if pc is None:
-                    packed, new_cache, new_state = batch_ops.decode_block(
-                        cfg, params, new_cache, state, self._mask_dev, N, lora,
-                    )
-                elif pc.quantized:
-                    (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
-                     new_state) = batch_ops.decode_block_paged_q(
-                        cfg, params, *pc.pools(), state, pc.tables_device(), self._mask_dev, N,
-                        lora,
-                    )
-                else:
-                    packed, pc.k_pool, pc.v_pool, new_state = batch_ops.decode_block_paged(
-                        cfg, params, pc.k_pool, pc.v_pool, state, pc.tables_device(),
-                        self._mask_dev, N, lora,
-                    )
+            with self._cold_dispatch(*key), self._tp_step("decode", lambda: dict(
+                    mask=mask, tables=None if pc is None else pc.tables.copy(), steps=N)):
+                packed, new_cache, new_state = batch_ops.dispatch_decode(
+                    cfg, params, new_cache, pc, state,
+                    None if pc is None else pc.tables_device(), self._mask_dev, N, lora,
+                    mesh=self._mesh,
+                )
         # the launch returned: the host is free again (on the card it waited
         # here only while the launch queue was full)
         host_s = time.perf_counter() - host_t0
@@ -3113,25 +3260,27 @@ class ServingEngine:
         key = ("ragged", "dense" if pc is None else "paged",
                dense.quantized if pc is None else pc.quantized, self._block_steps,
                lora is not None)
-        with self._cold_dispatch(*key):
-            if pc is None:
-                packed, last_logits, dense, new_state = batch_ops.ragged_step(
-                    cfg, params, dense, state, up(chunk), up(start), rows, *tail,
-                )
-                return packed, last_logits, dense, new_state
-            args = (pc.tables_device(), up(chunk), up(start), rows, up(kvcap), *tail)
-            if pc.quantized:
-                (packed, last_logits, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool,
-                 new_state) = batch_ops.ragged_step_paged_q(cfg, params, *pc.pools(), state,
-                                                             *args)
-            else:
-                packed, last_logits, pc.k_pool, pc.v_pool, new_state = (
-                    batch_ops.ragged_step_paged(cfg, params, pc.k_pool, pc.v_pool, state, *args)
-                )
-        return packed, last_logits, None, new_state
+
+        def payload() -> dict:  # the followers' copy of this dispatch's inputs
+            return dict(
+                tables=None if pc is None else pc.tables.copy(), chunk=chunk, start=start,
+                rows=np.array(slots, np.int64), kvcap=None if pc is None else kvcap,
+                finish=finish, new_len=new_len,
+                budgets=budgets, stops=stops, temps=self.temperature.copy(),
+                topks=self.top_k.copy(), topps=self.top_p.copy(), seeds=seeds,
+                mask=self._mask_host, steps=steps)
+
+        with self._cold_dispatch(*key), self._tp_step("ragged", payload):
+            return batch_ops.dispatch_ragged(
+                cfg, params, dense, pc, state, None if pc is None else pc.tables_device(),
+                up(chunk), up(start), rows, None if pc is None else up(kvcap), *tail,
+                mesh=self._mesh,
+            )
 
     def _consume(self, rec: _Inflight) -> None:
         packed = _block_sync(rec.packed)  # the block's one host-device sync
+        if self._tp is not None:
+            self._tp.record(packed)
         # a warm restart may have replaced this thread while it waited: its
         # tokens belong to requests already settled or requeued
         self._check_retired()

@@ -17,6 +17,11 @@ cache on bf16 pools, the span scatter and gather (``write_span``,
 appends live in ``llama.decode_step_paged*``/``llama.decode_chunk_paged*``
 and the read in ``ops/paged_attention.py``. The pools are updated in place
 where the JAX package donates them.
+
+On a mesh (``mesh=``, the tensor-parallel engine) the pools hold this
+rank's KV heads (``parallel.sharding.kv_head_slice``) and the page
+accounting stays whole: every rank of the group writes and reads the same
+pages of its own pools.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from gofr_tpu_torch import chaos
 from gofr_tpu_torch._device import to_device
-from gofr_tpu_torch.models.llama import quantize_kv
+from gofr_tpu_torch.models.llama import kv_heads, quantize_kv
 from gofr_tpu_torch.serving.block_alloc import BlockAllocator, OutOfBlocks
 
 __all__ = ["PagedKVCache", "OutOfBlocks"]
@@ -86,8 +91,10 @@ class PagedKVCache:
         device: torch.device,
         dtype: torch.dtype | None = None,
         kv_dtype: str | None = None,  # "int8": quantized pools with scales
+        mesh: Any = None,  # tensor parallel: pools of this rank's KV heads
     ) -> None:
         self.cfg = cfg
+        self.n_kv_heads = kv_heads(cfg, mesh)
         self.device = device
         self.page_size = page_size
         self.num_pages = num_pages
@@ -113,7 +120,7 @@ class PagedKVCache:
         self.k_pool = self.v_pool = self.ks_pool = self.vs_pool = None
         cfg = self.cfg
         shape = (
-            cfg.n_layers, self.num_pages + 1, cfg.n_kv_heads,
+            cfg.n_layers, self.num_pages + 1, self.n_kv_heads,
             self.page_size, cfg.head_dim,
         )
         dtype = torch.int8 if self.quantized else self._pool_dtype
@@ -262,26 +269,38 @@ class PagedKVCache:
         """Scatter a prefilled slab [L, S_bucket, Hkv, Dh] into the slot's
         pages, the slab zero-padded to whole pages (positions past the
         slot's length are masked at every read)."""
+        self.write_pages(self.prefill_pages(slot, k_slab.shape[1]), k_slab, v_slab)
+
+    def prefill_pages(self, slot: int, tokens: int) -> np.ndarray:
+        """The host half of :meth:`write_prefill`: the ids of the slot's
+        pages that a ``tokens``-long slab fills, its reservation grown
+        when bucket padding spilled past it."""
         seq_id = self._slot_seq[slot]
         if seq_id is None:
             raise KeyError(f"slot {slot} is free")
-        L, S, Hkv, Dh = k_slab.shape
-        n_pages = self.pages_needed(S)
-        pad = n_pages * self.page_size - S
-        if pad:
-            k_slab = torch.nn.functional.pad(k_slab, (0, 0, 0, 0, 0, pad))
-            v_slab = torch.nn.functional.pad(v_slab, (0, 0, 0, 0, 0, pad))
+        n_pages = self.pages_needed(tokens)
         owned = self.allocator.block_table(seq_id)
         if n_pages > len(owned):
             # bucket padding spilled past the reservation: grow it
             self.allocator.extend(seq_id, n_pages * self.page_size)
             owned = self.allocator.block_table(seq_id)
             self.tables[slot, : len(owned)] = owned
-        page_ids = to_device(np.asarray(owned[:n_pages], np.int64), self.device)
+        return np.asarray(owned[:n_pages], np.int64)
+
+    def write_pages(self, page_ids: np.ndarray, k_slab: torch.Tensor, v_slab: torch.Tensor) -> None:
+        """The device half of :meth:`write_prefill`: the slab, zero-padded
+        to whole pages, scattered into ``page_ids``. A tensor-parallel
+        follower runs it with its leader's page ids."""
+        S = k_slab.shape[1]
+        pad = len(page_ids) * self.page_size - S
+        if pad:
+            k_slab = torch.nn.functional.pad(k_slab, (0, 0, 0, 0, 0, pad))
+            v_slab = torch.nn.functional.pad(v_slab, (0, 0, 0, 0, 0, pad))
+        ids = to_device(np.asarray(page_ids, np.int64), self.device)
         if self.quantized:
-            _write_pages_q(*self.pools(), k_slab, v_slab, page_ids)
+            _write_pages_q(*self.pools(), k_slab, v_slab, ids)
         else:
-            _write_pages(self.k_pool, self.v_pool, k_slab, v_slab, page_ids)
+            _write_pages(self.k_pool, self.v_pool, k_slab, v_slab, ids)
 
     def write_span(self, slot: int, start: int, k_slab: torch.Tensor, v_slab: torch.Tensor) -> None:
         """Scatter a cached chunk-prefix slab [L, C, Hkv, Dh] into the pages

@@ -1,0 +1,350 @@
+"""The tensor-parallel engine's group: one leader, its followers, and the
+commands between them.
+
+The reference serves a tp-sharded model from one process: its jitted
+dispatches compile against the shardings of the param leaves and GSPMD
+inserts the collectives. The port is one process a rank
+(``parallel/world.py``), so a :class:`~gofr_tpu_torch.serving.engine.ServingEngine`
+built with ``mesh=`` runs on the mesh's first rank, the leader, which owns
+the scheduler, the loop thread, the detok worker and the app; every other
+rank runs :func:`serve_follower`.
+
+For each dispatch the leader broadcasts one command before it launches
+its own share: the op, its host ints and the host arrays it uploads (the
+prefill's padded tokens and pages, the decode-state admissions, the block
+mask and tables, a ragged dispatch's chunk buffers and cursors). A
+follower replays the same ``serving.batch`` call on its slices, so every
+rank runs the same collectives in the same order. Sampling runs on every
+rank, on logits gathered whole, from generators seeded alike, so each
+rank's decode state, K/V writes and packed output stay equal with no
+collective of their own; each side keeps a running hash of the packed
+blocks (:meth:`TPLeader.digest`, the follower's result) to show it.
+
+Commands travel over a gloo group of their own (``broadcast_object_list``
+of pickled host values), never between a dispatch's tensor collectives.
+State updates that launch no collective (:meth:`TPLeader.post`) ride with
+the next command. An idle leader sends a keepalive every
+:data:`KEEPALIVE_S`, inside the group's timeout.
+
+Failure: a rank that raises in a dispatch destroys its process group, so
+every peer's collective fails at once instead of waiting out the timeout.
+On the leader that failure, or its own, marks the group broken and raises
+:class:`TPGroupError` (a 503): the requests in flight fail, and the engine
+takes no more. A follower that raises aborts the same way and
+:func:`serve_follower` raises it; no rank waits on a dead peer.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import hashlib
+import time
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from gofr_tpu_torch._device import resolve_device, to_device
+from gofr_tpu_torch.errors import ErrorServiceUnavailable
+from gofr_tpu_torch.models import llama
+from gofr_tpu_torch.parallel.hostring import abort_all
+from gofr_tpu_torch.serving import batch as batch_ops
+from gofr_tpu_torch.serving.kv_cache import PagedKVCache
+
+#: seconds an idle leader lets pass before it sends a keepalive
+KEEPALIVE_S = 10.0
+#: the command group's timeout: a follower waits this long for a command
+TIMEOUT_S = 600.0
+
+
+class TPGroupError(ErrorServiceUnavailable):
+    """The tensor-parallel group failed: a rank raised, died or timed out
+    in a dispatch. The group is aborted on this rank too (its process
+    group destroyed), and the engine serves no more requests."""
+
+
+def leader_rank(mesh: Any) -> int:
+    """The global rank that runs the engine: the mesh's first."""
+    return int(mesh.devices.flat[0])
+
+
+def abort() -> None:
+    """Raise the abort flag of this process's host rings and destroy its
+    process groups: a peer blocked in a collective with this rank fails at
+    once."""
+    abort_all()
+    if dist.is_initialized():
+        with contextlib.suppress(Exception):
+            dist.destroy_process_group()
+
+
+class _Channel:
+    """Pickled commands from the leader to every rank of the mesh, over a
+    gloo group apart from the model's collectives. Every rank of the
+    world constructs it, in the same order (``dist.new_group``)."""
+
+    def __init__(self, mesh: Any, timeout_s: float) -> None:
+        ranks = sorted(int(r) for r in mesh.devices.flat)
+        self.leader = leader_rank(mesh)
+        self.group = dist.new_group(ranks, backend="gloo",
+                                    timeout=datetime.timedelta(seconds=timeout_s))
+
+    def send(self, msg: Any) -> None:
+        dist.broadcast_object_list([msg], src=self.leader, group=self.group)
+
+    def recv(self) -> Any:
+        box = [None]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]
+
+
+def make_state(host: dict, rng: torch.Generator, device: torch.device) -> batch_ops.DecodeState:
+    """A fresh decode state from the leader's host mirrors (the ``state``
+    command's ``make``); the leader builds its own through here too."""
+    return batch_ops.make_decode_state(
+        host["last_token"], host["seq_len"], host["done"], host["budget"], host["stop"],
+        host["temperature"], host["top_k"], host["top_p"], rng, host["adapter"], device=device,
+    )
+
+
+def fold_state(state: batch_ops.DecodeState, host: dict,
+               device: torch.device) -> batch_ops.DecodeState:
+    """Fold prefilled slots into the decode state (the ``state``
+    command's ``fold``); the leader folds its own through here too."""
+
+    def up(key: str) -> torch.Tensor:
+        return to_device(host[key], device)
+
+    return batch_ops.admit_decode_state(
+        state, up("slots"), up("tokens"), up("lens"), up("budgets"), up("stops"), up("temps"),
+        up("topks"), up("topps"), up("adapters"),
+    )
+
+
+class TPLeader:
+    """The leader's end: queues state updates, sends each dispatch's
+    command ahead of the leader's own launch, and aborts the group when a
+    dispatch fails. The engine thread alone sends, so commands and the
+    dispatches' collectives never interleave."""
+
+    def __init__(self, mesh: Any, hello: dict, timeout_s: float = TIMEOUT_S) -> None:
+        self.ranks = int(mesh.devices.size)
+        self._chan = _Channel(mesh, timeout_s)
+        self._queue: list[tuple[str, dict]] = []
+        self._last = time.monotonic()
+        self._digest = hashlib.blake2b(digest_size=16)
+        self.blocks = 0  # packed blocks hashed
+        self.broken: BaseException | None = None
+        self.closed = False
+        self.send("hello", **hello)
+
+    def post(self, op: str, **kw: Any) -> None:
+        """Queue a command that launches no collective; it goes out with
+        the next :meth:`send`, ahead of that command."""
+        self._queue.append((op, kw))
+
+    def send(self, op: str, **kw: Any) -> None:
+        if self.broken is not None:
+            raise TPGroupError(f"tensor-parallel group lost: {self.broken}",
+                               retry_after=1.0) from self.broken
+        msgs, self._queue = [*self._queue, (op, kw)], []
+        try:
+            self._chan.send(msgs)
+        except Exception as exc:
+            self.fail(exc)
+            raise TPGroupError(f"tensor-parallel group lost sending {op}: {exc}",
+                               retry_after=1.0) from exc
+        self._last = time.monotonic()
+
+    @contextlib.contextmanager
+    def step(self, op: str, **kw: Any) -> Any:
+        """Send ``op``'s command, then run the leader's share of it: a
+        failure inside aborts the group (a peer would otherwise wait in a
+        collective this rank never joins) and raises :class:`TPGroupError`."""
+        self.send(op, **kw)
+        try:
+            yield
+        except TPGroupError:
+            raise
+        except Exception as exc:
+            self.fail(exc)
+            raise TPGroupError(f"tensor-parallel group failed in {op}: {exc}",
+                               retry_after=1.0) from exc
+
+    def keepalive(self) -> None:
+        """From the idle engine loop: a command within the group's
+        timeout, so a follower's wait never expires."""
+        if self.broken is None and not self.closed and time.monotonic() - self._last > KEEPALIVE_S:
+            self.send("keepalive")
+
+    def record(self, packed: np.ndarray) -> None:
+        """Hash a packed block the engine read (in dispatch order)."""
+        self._digest.update(np.ascontiguousarray(packed).tobytes())
+        self.blocks += 1
+
+    def digest(self) -> str:
+        return self._digest.hexdigest()
+
+    def fail(self, exc: BaseException) -> None:
+        self.broken = exc
+        abort()
+
+    def close(self, unread: list | None = None) -> None:
+        """End every follower's loop (once; nothing on a broken group),
+        after hashing the packed blocks the engine dispatched and never
+        read (``unread``, in dispatch order): the followers hashed them."""
+        if self.closed or self.broken is not None:
+            return
+        for packed in unread or ():
+            self.record(packed.cpu().numpy())
+        self.closed = True
+        with contextlib.suppress(TPGroupError):
+            self.send("stop")
+
+
+def hello_of(cfg: llama.LlamaConfig, conf: Any, seed: int, num_pages: int | None) -> dict:
+    """What a follower needs to mirror the leader's engine: the model
+    config (checked against its own), the KV layout and the seed."""
+    return {"model": repr(cfg), "seed": seed, "num_pages": num_pages,
+            "kv": {k: getattr(conf, k) for k in _KV_FIELDS}}
+
+
+_KV_FIELDS = ("max_slots", "max_seq_len", "kv_layout", "kv_page_size", "kv_dtype")
+
+
+class _Follower:
+    """A follower's mirror of the leader's device state: its KV storage
+    (this rank's KV heads: the dense cache or the paged pools, the other
+    None), the decode state and its generator. Each op dispatches through
+    the same ``serving.batch`` function as the leader's engine."""
+
+    def __init__(self, cfg: llama.LlamaConfig, params: dict, mesh: Any, device: torch.device,
+                 hello: dict) -> None:
+        self.cfg, self.params, self.mesh, self.device = cfg, params, mesh, device
+        kv = hello["kv"]
+        self.dense: llama.KVCache | None = None
+        self.pc: PagedKVCache | None = None
+        if kv["kv_layout"] == "paged":
+            self.pc = PagedKVCache(
+                cfg, num_pages=hello["num_pages"], page_size=kv["kv_page_size"],
+                max_slots=kv["max_slots"], max_seq_len=kv["max_seq_len"], device=device,
+                kv_dtype=kv["kv_dtype"], mesh=mesh,
+            )
+        else:
+            self.dense = llama.KVCache.create(cfg, kv["max_slots"], max_len=kv["max_seq_len"],
+                                              kv_dtype=kv["kv_dtype"], device=device, mesh=mesh)
+        self.rng = torch.Generator(device=device).manual_seed(hello["seed"])
+        self.state: batch_ops.DecodeState | None = None
+        self.digest = hashlib.blake2b(digest_size=16)
+        self.blocks = 0
+
+    def up(self, a: Any) -> torch.Tensor | None:
+        return None if a is None else to_device(np.asarray(a), self.device)
+
+    def apply(self, op: str, kw: dict) -> None:
+        if op == "state":
+            if "make" in kw:
+                self.state = make_state(kw["make"], self.rng, self.device)
+            else:
+                self.state = fold_state(self.state, kw["fold"], self.device)
+        elif op == "prefill":
+            self.prefill(**kw)
+        elif op in ("decode", "ragged"):
+            packed = getattr(self, op)(**kw)
+            self.digest.update(packed.cpu().numpy().tobytes())
+            self.blocks += 1
+        elif op != "keepalive":
+            raise ValueError(f"unknown tensor-parallel command {op!r}")
+
+    def prefill(self, tokens: np.ndarray, length: int, slot: int, pages: Any) -> None:
+        _, k_slab, v_slab = batch_ops.prefill_compute(
+            self.cfg, self.params, self.up(tokens), self.up(np.array([length], np.int32)),
+            mesh=self.mesh,
+        )
+        self.dense = batch_ops.commit_prefill(self.dense, self.pc, k_slab, v_slab, slot, pages)
+
+    def decode(self, mask: np.ndarray, tables: Any, steps: int) -> torch.Tensor:
+        packed, self.dense, self.state = batch_ops.dispatch_decode(
+            self.cfg, self.params, self.dense, self.pc, self.state, self.up(tables),
+            self.up(mask), steps, None, mesh=self.mesh)
+        return packed
+
+    def ragged(self, tables: Any, chunk: np.ndarray, start: np.ndarray, rows: np.ndarray,
+               kvcap: Any, finish: np.ndarray, new_len: np.ndarray, budgets: np.ndarray,
+               stops: np.ndarray, temps: np.ndarray, topks: np.ndarray, topps: np.ndarray,
+               seeds: list, mask: np.ndarray, steps: int) -> torch.Tensor:
+        up = self.up
+        packed, _, self.dense, self.state = batch_ops.dispatch_ragged(
+            self.cfg, self.params, self.dense, self.pc, self.state, up(tables), up(chunk),
+            up(start), up(rows), up(kvcap), up(finish), up(new_len), up(budgets), up(stops),
+            up(temps), up(topks), up(topps), seeds, up(mask), steps, None, None, mesh=self.mesh)
+        return packed
+
+
+@dataclasses.dataclass
+class FollowerResult:
+    """What :func:`serve_follower` returns: the packed blocks it ran, their
+    running hash (equal to the leader's :meth:`TPLeader.digest` when no
+    dispatch failed) and the commands it took."""
+
+    rank: int
+    blocks: int
+    digest: str
+    commands: int
+
+
+def serve_follower(
+    cfg: llama.LlamaConfig,
+    params: dict,
+    engine_config: Any = None,
+    *,
+    mesh: Any,
+    device: str | torch.device | None = None,
+    timeout_s: float = TIMEOUT_S,
+) -> FollowerResult:
+    """Serve this rank's share of the tensor-parallel engine that the
+    mesh's leader runs (``ServingEngine(..., mesh=mesh)``), until that
+    engine stops. ``params`` is this rank's slice (``shard_params``,
+    ``init_params(mesh=)``, ``restore(sharding=)``). The KV layout and the
+    seed come from the leader; an ``engine_config`` given here must agree
+    with the leader's on them. Every rank of the world calls it (or builds
+    the leader's engine) at the same point: the command group is made
+    collectively. A command that raises here aborts the group, so the
+    leader's dispatch fails instead of hanging, and raises
+    :class:`TPGroupError` from it."""
+    dev = resolve_device(device)
+    me = dist.get_rank()
+    if me == leader_rank(mesh):
+        raise ValueError("the mesh's first rank runs the engine (ServingEngine(..., mesh=)), "
+                         "not serve_follower")
+    chan = _Channel(mesh, timeout_s)
+    follower: _Follower | None = None
+    commands = 0
+    try:
+        while True:
+            msgs = chan.recv()
+            for op, kw in msgs:
+                commands += 1
+                if op == "stop":
+                    return FollowerResult(me, follower.blocks, follower.digest.hexdigest(),
+                                          commands)
+                if op == "hello":
+                    _check_hello(cfg, engine_config, kw)
+                    follower = _Follower(cfg, params, mesh, dev, kw)
+                else:
+                    follower.apply(op, kw)
+    except Exception as exc:
+        abort()  # first: the leader's dispatch fails now, not at its timeout
+        raise TPGroupError(f"tensor-parallel follower rank {me} failed: {exc}") from exc
+
+
+def _check_hello(cfg: llama.LlamaConfig, engine_config: Any, hello: dict) -> None:
+    if hello["model"] != repr(cfg):
+        raise ValueError(f"the leader serves {hello['model']}, this rank holds {cfg!r}")
+    if engine_config is not None:
+        mine = {k: getattr(engine_config, k) for k in _KV_FIELDS}
+        if mine != hello["kv"]:
+            raise ValueError(f"the leader's KV layout {hello['kv']} is not this rank's {mine}")

@@ -119,7 +119,8 @@ class SubscriptionManager:
         self._stopping = False
         self._rng = random.Random()  # tests may reseed for determinism
         # health backref: container.health() reports per-topic consumer
-        # state without the App having to thread the manager through
+        # state without the App having to thread the manager through (the
+        # Container holds it weakly)
         container.subscription_manager = self
 
     def register(self, topic: str, handler: SubscribeFunc) -> None:

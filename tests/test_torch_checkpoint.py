@@ -407,7 +407,10 @@ def test_engine_warm_restart(tmp_path):
     tokens of the reference engine over the same params and of a port
     engine built directly; no step and no seed raises, a seed falls back to
     random weights, a corrupt existing checkpoint raises, ``sharding=``
-    takes a replicated placement and refuses the rest."""
+    takes a replicated placement, and ``llama_sharding_rules()``'s on a tp
+    mesh builds the tensor-parallel engine (a world of two ranks here, the
+    second its follower), which serves the same tokens; a placement that
+    is neither is refused."""
     from gofr_tpu.serving import ByteTokenizer as JByteTokenizer
     from gofr_tpu.serving import EngineConfig as JEngineConfig
     from gofr_tpu.serving import ServingEngine as JServingEngine
@@ -443,15 +446,25 @@ def test_engine_warm_restart(tmp_path):
                                         engine_config=EngineConfig(**conf), device="cpu")
     want = tllama.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     assert_bit_equal(eng.params, want)
-    # the engine's refusal covers a value that is not a placement and a
-    # placement that splits the weights (the tensor-parallel engine)
+    # refused: a value that is not a placement, and a placement that splits
+    # every leaf alike (not the rules' placement the tensor-parallel engine
+    # serves)
     with pytest.raises(TypeError, match="NamedSharding"):
         ServingEngine.from_checkpoint(tcfg, str(tmp_path / "ck"), sharding=object(),
                                       device="cpu")
     tp2 = NamedSharding(types.SimpleNamespace(shape={"dp": 1, "fsdp": 1, "pp": 1, "sp": 1,
                                                      "ep": 1, "tp": 2}), P(None, "tp"))
-    with pytest.raises(NotImplementedError, match="tensor-parallel engine"):
+    with pytest.raises(ValueError, match="llama_sharding_rules"):
         ServingEngine.from_checkpoint(tcfg, str(tmp_path / "ck"), sharding=tp2, device="cpu")
+    import torch_serving_tp_cases as tp_cases
+    from gofr_tpu_torch.parallel import world
+
+    ranks = world.run_spmd(tp_cases.loader_world, 2, backend="gloo", device="cpu", timeout_s=180,
+                           args=({"loader": "checkpoint", "path": str(tmp_path / "ck"),
+                                  "mesh": "tp=2", "cfg": {"vocab_size": 300}, "engine": conf,
+                                  "prompts": [("warm restart", 8)]},))
+    assert ranks[0]["tokens"] == [list(ids[0])] and ranks[1] == {"engine": None}
+    assert ranks[0]["wq"] == (tcfg.n_layers, tcfg.d_model, tcfg.d_model // 2)
     replicated = ServingEngine.from_checkpoint(tcfg, str(tmp_path / "ck"), device="cpu",
                                                sharding=named_sharding(build_mesh()))
     assert_bit_equal(replicated.params, direct.params)

@@ -257,8 +257,10 @@ def test_sharding_is_refused(ckpts):
     """``sharding=`` takes placements (a mesh of ranks loads each rank's
     slices: ``test_torch_parallel.py``): on a one-rank mesh a replicated
     placement loads the reference's tree; anything else raises. The
-    engine's refusal covers a value that is not a placement and a placement
-    that splits the weights (the tensor-parallel engine)."""
+    engine refuses a value that is not a placement and a placement that
+    splits every leaf alike; ``llama_sharding_rules()``'s placement on a tp
+    mesh builds the tensor-parallel engine (two ranks here, the second its
+    follower), which serves the whole-weight engine's tokens."""
     import types
 
     from gofr_tpu_torch.parallel import build_mesh, named_sharding
@@ -270,8 +272,25 @@ def test_sharding_is_refused(ckpts):
         ServingEngine.from_hf(ckpts["untied"], sharding=object(), device="cpu")
     tp2 = NamedSharding(types.SimpleNamespace(shape={"dp": 1, "fsdp": 1, "pp": 1, "sp": 1,
                                                      "ep": 1, "tp": 2}), P("tp"))
-    with pytest.raises(NotImplementedError, match="tensor-parallel engine"):
+    with pytest.raises(ValueError, match="llama_sharding_rules"):
         ServingEngine.from_hf(ckpts["untied"], sharding=tp2, device="cpu")
+    import torch_serving_tp_cases as tp_cases
+    from gofr_tpu_torch.parallel import world
+
+    conf = dict(max_slots=2, max_seq_len=64, prefill_buckets=(16,))
+    prompts = [("hello hf", 6), ("a longer sharded prompt", 6)]
+    whole = ServingEngine.from_hf(ckpts["untied"], dtype=torch.float32,
+                                  engine_config=EngineConfig(**conf), device="cpu")
+    whole.start()
+    try:
+        want = [whole.submit(p, max_new_tokens=n, temperature=0.0).result(timeout=120).token_ids
+                for p, n in prompts]
+    finally:
+        whole.stop()
+    ranks = world.run_spmd(tp_cases.loader_world, 2, backend="gloo", device="cpu", timeout_s=180,
+                           args=({"loader": "hf", "path": ckpts["untied"], "mesh": "tp=2",
+                                  "engine": conf, "prompts": prompts},))
+    assert ranks[0]["tokens"] == want and ranks[1] == {"engine": None}
     _, rparams = r_hf.load_llama_from_hf(ckpts["untied"], dtype=jnp.float32)
     _, tparams = t_hf.load_llama_from_hf(ckpts["untied"], dtype=torch.float32, device="cpu",
                                          sharding=named_sharding(build_mesh()))

@@ -294,15 +294,21 @@ def test_contracts_differ_from_the_reference_only_where_listed():
     rng_root) and return the K chunk rows' logits; the spec entries take a
     generator that advances in place and return no key. The attention
     wrappers take no interpret flag and no block sizes (the kernels size
-    their own tiles); what the reference donates is updated in place."""
+    their own tiles); what the reference donates is updated in place. The
+    entries the tensor-parallel engine dispatches (prefill_compute, the
+    decode blocks, the ragged steps) take its ``mesh`` last, where the
+    reference's arrays carry their shardings."""
     assert set(kc.CONTRACTS) == set(jkc.CONTRACTS)
     for name, c in kc.CONTRACTS.items():
         ref = jkc.CONTRACTS[name]
         assert c.file == ref.file.replace("gofr_tpu/", "gofr_tpu_torch/")
         assert c.packed == ref.packed
+        on_mesh = name == "prefill_compute" or name.startswith(("decode_block", "ragged_step"))
+        assert (c.params[-1] == "mesh") == on_mesh, name
+        params = c.params[:-1] if on_mesh else c.params
         if name.startswith("ragged_step"):
             assert [p for p in ref.params if p not in ("chunk_active", "rids", "rng_root")] \
-                == [p for p in c.params if p not in ("chunk_rows", "seeds")]
+                == [p for p in params if p not in ("chunk_rows", "seeds")]
             assert c.returns[1].shape == "K,V" and ref.returns[1].shape == "B,V"
         elif name.startswith("verify_and_sample"):
             assert c.params == tuple("generator" if p == "rng" else p for p in ref.params)
@@ -311,7 +317,7 @@ def test_contracts_differ_from_the_reference_only_where_listed():
             assert c.params == tuple(p for p in ref.params
                                      if p not in ("interpret", "block_q", "block_k"))
         else:
-            assert c.params == ref.params, name
+            assert params == ref.params, name
             assert [dataclasses.astuple(r) for r in c.returns] == \
                 [dataclasses.astuple(r) for r in ref.returns], name
         assert set(ref.donated) <= set(c.updated), name

@@ -482,6 +482,45 @@ def test_chip_smoke_labels_profiler_kernels_apart():
     assert cs.kernel_label("nvjet_tst_192x8_64x8_4x1_v_bz_NNT") == "nvjet_tst_192x8_64x8_4x1_v_bz_NNT"
 
 
+def test_chip_smoke_frees_a_patched_engine_without_a_collection():
+    """ROADMAP Queue C 61: the harness's patches (``Gate``, ``SyncProbe``,
+    the hooks) close over the engine's own methods, so a patched engine
+    outlives its last reference in a cycle; ``release_engines`` at a
+    phase's end undoes them, and the engine and its weights go with the
+    last reference, no garbage collection needed."""
+    import gc
+    import importlib.util
+    import weakref
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    engine = ServingEngine(cfg, params, EngineConfig(max_slots=2, max_seq_len=32,
+                                                     prefill_buckets=(16,)), device="cpu")
+    assert not [k for k in vars(engine) if callable(getattr(ServingEngine, k, None))]
+    gate, probe = cs.Gate(engine), cs.SyncProbe(engine)
+    retires = cs.hook_retires(engine)
+    engine.start()
+    try:
+        with gate.closed():
+            fut = engine.submit("a patched engine", max_new_tokens=3)
+        assert len(fut.result(timeout=60).token_ids) == 3 and retires
+    finally:
+        engine.stop()
+        probe.close()
+    refs = [weakref.ref(engine), weakref.ref(params["layers"]["wq"])]
+    gc.disable()
+    try:
+        del engine, gate, probe, params, fut
+        assert all(r() is not None for r in refs)  # the patches' cycle holds them
+        assert cs.release_engines() == 8  # _plan_step, SyncProbe's six, _retire
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 SQL_MODULES = (
     "gofr_tpu_torch/datasource/sql/__init__.py", "gofr_tpu_torch/datasource/sql/query_builder.py",
     "gofr_tpu_torch/datasource/sql/sqlite.py", "gofr_tpu_torch/datasource/sql/pool.py",

@@ -1,0 +1,289 @@
+"""Rank functions of the tensor-parallel engine's tests
+(``test_torch_serving_tp.py``, ``test_torch_checkpoint.py``,
+``test_torch_hf_import.py``).
+
+Each function runs on every rank of one gloo world on the CPU
+(``gofr_tpu_torch.parallel.world.run_spmd``): rank 0 builds the
+tensor-parallel ``ServingEngine(..., mesh=)`` and serves, every other rank
+runs ``serve_follower`` for each engine in the same order. Inputs come as
+numpy (the JAX package's tiny params, made in the test process) and the
+results go back as plain values. The module imports torch and the port
+only, never JAX, so a spawned rank never loads it.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import json
+import threading
+import time
+import urllib.request
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from gofr_tpu_torch.models import llama
+from gofr_tpu_torch.models.convert import params_from_jax
+from gofr_tpu_torch.parallel import build_mesh, llama_sharding_rules, shard_params
+from gofr_tpu_torch.serving import batch as batch_ops
+from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine
+from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+from gofr_tpu_torch.serving.tp_group import TPGroupError, serve_follower
+
+TIMEOUT_S = 120
+
+
+def _local(inp: dict, mesh: Any) -> dict:
+    return params_from_jax(shard_params(inp["params"], mesh, llama_sharding_rules()),
+                           device="cpu")
+
+
+def _digest(result: Any) -> tuple[int, str]:
+    return result.blocks, result.digest
+
+
+def _serve(engine: ServingEngine, prompts: list) -> list[list[int]]:
+    """Each prompt alone, greedy, as the reference test submits them."""
+    return [engine.submit(p, max_new_tokens=n, temperature=0.0).result(timeout=TIMEOUT_S)
+            .token_ids for p, n in prompts]
+
+
+def tp_world(dev: torch.device, inp: dict) -> dict:
+    """The engines of ``test_torch_serving_tp.py`` on one mesh, in order:
+    each of ``inp["engines"]`` serves its prompts, then (``inp["http"]``)
+    the HTTP + gRPC load, the refusals (``inp["refusals"]``) and last
+    (``inp["fail"]``) a follower that raises, after which no rank has a
+    process group."""
+    torch.set_num_threads(1)
+    mesh = build_mesh(inp["mesh"])
+    cfg = llama.LlamaConfig.tiny(vocab_size=inp["vocab"])
+    local = _local(inp, mesh)
+    rank = dist.get_rank()
+    lead = rank == 0
+    out: dict = {"rank": rank, "wq": tuple(local["layers"]["wq"].shape), "engines": {}}
+    if inp.get("ring"):
+        out["ring"] = _ring_checks(mesh)
+    # init_params(mesh=) draws the weights leaf by leaf and keeps this
+    # rank's slices: the slices of the one-card draw
+    whole = llama.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    mine = llama.init_params(cfg, torch.Generator().manual_seed(7), device="cpu", mesh=mesh)
+    want = shard_params(whole, mesh, llama_sharding_rules())
+    out["init_slices_equal"] = all(
+        torch.equal(mine[k], want[k]) if not isinstance(want[k], dict)
+        else all(torch.equal(mine[k][j], want[k][j]) for j in want[k]) for k in want)
+    for name, conf, prompts in inp["engines"]:
+        if not lead:
+            out["engines"][name] = _digest(serve_follower(cfg, local, mesh=mesh, device="cpu"))
+            continue
+        engine = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                               device="cpu")
+        engine.start()
+        try:
+            tokens = _serve(engine, prompts)
+            again = _serve(engine, prompts[:1])  # determinism on the same engine
+        finally:
+            engine.stop()
+        out["engines"][name] = {"tokens": tokens, "again": again, "digest": engine.tp_digest(),
+                                "health": engine.health_check()["details"]["tensor_parallel"]}
+    if inp.get("http"):
+        out["http"] = (_http_load(cfg, local, mesh, inp["http"]) if lead
+                       else _digest(serve_follower(cfg, local, mesh=mesh, device="cpu")))
+    if inp.get("refusals") and lead:
+        out["refusals"] = _refusals(cfg, local, mesh)
+    if inp.get("fail"):
+        out["fail"] = _fail(cfg, local, mesh, inp["fail"])
+    return out
+
+
+def _ring_checks(mesh: Any) -> dict:
+    """The host ring's all-reduce and all-gather on the tp group (small,
+    within a slot, past a slot; f32 and bf16) against gloo's gather of the
+    same tensors summed in rank order: equal bit for bit. Returns, by case,
+    (equal, a hash of the result) for the test to compare across ranks."""
+    import hashlib
+
+    from gofr_tpu_torch.parallel import hostring
+
+    group, n = mesh.group("tp"), mesh.shape["tp"]
+    ring = hostring.ring_for(group)
+    assert ring is not None
+    gen = torch.Generator().manual_seed(100 + dist.get_rank())
+    out = {}
+    for shape in ((3,), (8, 4096), (1, 300, 1000), (2, 1024, 1100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen).to(dtype)
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=group)  # gloo itself: the ring is not involved
+            want = parts[0].clone()
+            for p in parts[1:]:
+                want += p
+            got = ring.all_reduce(x)
+            gathered = ring.all_gather(x, 0)
+            key = f"{shape} {dtype}"
+            out[key] = (torch.equal(got, want) and torch.equal(gathered, torch.cat(parts)),
+                        hashlib.blake2b(got.view(torch.uint8).numpy().tobytes()).hexdigest())
+    return out
+
+
+def _http_load(cfg: Any, local: dict, mesh: Any, conf: dict) -> dict:
+    """The reference test's load: 8 concurrent ``/generate`` calls and 4
+    gRPC ``Generate`` calls of 5 tokens on the tp engine behind an App."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.grpcx import InferenceClient, InferenceService
+    from gofr_tpu_torch.serving.handlers import register_generation_routes
+    from gofr_tpu_torch.testutil import new_server_configs
+
+    ports = new_server_configs(set_env=False)
+    app = App(MapConfig({"HTTP_PORT": str(ports.http_port), "GRPC_PORT": str(ports.grpc_port),
+                         "METRICS_PORT": str(ports.metrics_port), "HTTP_HOST": "127.0.0.1",
+                         "APP_NAME": "tp-serving-test", "LOG_LEVEL": "FATAL"}, use_env=False))
+    engine = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                           device="cpu", metrics=app.container.metrics_manager)
+    register_generation_routes(app, engine)
+    app.register_grpc_service(InferenceService(engine))
+    thread = threading.Thread(target=app.run, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{ports.http_port}"
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        try:
+            urllib.request.urlopen(base + "/.well-known/alive", timeout=1)
+            break
+        except OSError:
+            time.sleep(0.05)
+
+    def http_gen(i: int) -> dict:
+        body = json.dumps({"prompt": f"load {i}", "max_tokens": 5, "temperature": 0.0}).encode()
+        req = urllib.request.Request(base + "/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=TIMEOUT_S) as resp:
+            return {"status": resp.status, **json.loads(resp.read())["data"]}
+
+    async def grpc_gen() -> list:
+        client = InferenceClient(f"127.0.0.1:{ports.grpc_port}")
+        try:
+            return await asyncio.gather(*[client.generate(f"grpc {i}", max_tokens=5)
+                                          for i in range(4)])
+        finally:
+            await client.close()
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futures = [pool.submit(http_gen, i) for i in range(8)]
+            grpc_results = asyncio.run(grpc_gen())
+            http_results = [f.result(timeout=TIMEOUT_S) for f in futures]
+        ttft = app.container.metrics_manager.get("app_ttft_seconds")
+        _, ttft_count = ttft.snapshot()
+        _, tpot_count = app.container.metrics_manager.get("app_tpot_seconds").snapshot()
+        return {"http": [(r["status"], r["usage"]["completion_tokens"], r["usage"]["ttft_ms"])
+                         for r in http_results],
+                "grpc": [r["finish_reason"] for r in grpc_results],
+                "ttft_count": ttft_count, "ttft_p50": ttft.percentile(0.5),
+                "tpot_count": tpot_count}
+    finally:
+        app.stop()
+        thread.join(timeout=15)
+        engine.stop()
+
+
+def _refusals(cfg: Any, local: dict, mesh: Any) -> dict:
+    """Each feature outside the tensor-parallel engine refused by name at
+    construction (no follower is involved: nothing reaches the group)."""
+    from gofr_tpu_torch.serving.prefix_cache import PrefixCache
+
+    base = dict(max_slots=2, max_seq_len=32, prefill_buckets=(16,))
+    cases = {
+        "spec": ({"spec_tokens": 2}, {}),
+        "lora": ({}, {"lora": object()}),
+        "prefix_cache": ({"prefix_cache_entries": 4}, {}),
+        "prefix_cache=": ({}, {"prefix_cache": PrefixCache(4)}),
+        "kv_spill": ({"kv_spill_bytes": 1 << 20}, {}),
+        "kv_migrator": ({}, {"kv_migrator": object()}),
+        "int8 params": ({}, {"params": llama.quantize_params(local)}),
+    }
+    out = {}
+    for name, (conf, kw) in cases.items():
+        params = kw.pop("params", local)
+        try:
+            ServingEngine(cfg, params, EngineConfig(**base, **conf), ByteTokenizer(), mesh=mesh,
+                          device="cpu", **kw)
+            out[name] = ""
+        except NotImplementedError as exc:
+            out[name] = str(exc)
+    return out
+
+
+def _fail(cfg: Any, local: dict, mesh: Any, conf: dict) -> dict:
+    """Rank 1's decode block raises: its follower aborts, the leader's
+    request fails within the group's timeout, every rank returns."""
+    rank = dist.get_rank()
+    if rank != 0:
+        real = batch_ops.decode_block_paged
+        if rank == 1:
+            def boom(*args, **kw):
+                raise RuntimeError("injected follower fault")
+
+            batch_ops.decode_block_paged = boom
+        try:
+            serve_follower(cfg, local, mesh=mesh, device="cpu")
+            return {"raised": ""}
+        except TPGroupError as exc:
+            return {"raised": str(exc)}
+        finally:
+            batch_ops.decode_block_paged = real
+    engine = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                           device="cpu")
+    engine.start()
+    t0 = time.monotonic()
+    try:
+        fut = engine.submit("a follower fails", max_new_tokens=6, temperature=0.0)
+        try:
+            fut.result(timeout=TIMEOUT_S)
+            error = ""
+        except Exception as exc:  # noqa: BLE001 - the test reads what the caller gets
+            error = f"{type(exc).__name__}: {exc}"
+        seconds = time.monotonic() - t0
+        try:
+            engine.submit("after the loss", max_new_tokens=2)
+            after = ""
+        except Exception as exc:  # noqa: BLE001
+            after = f"{type(exc).__name__}: {exc}"
+        status = engine.health_check()["status"]
+    finally:
+        engine.stop()
+    return {"error": error, "seconds": seconds, "after": after, "status": status}
+
+
+def loader_world(dev: torch.device, inp: dict) -> dict:
+    """``from_checkpoint`` or ``from_hf`` (``inp["loader"]``) with
+    ``llama_sharding_rules()``'s placement on a tp mesh: rank 0 gets the
+    engine and serves the prompts, every other rank serves as its follower
+    and gets None."""
+    torch.set_num_threads(1)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mesh = build_mesh(inp["mesh"])
+    cfg = llama.LlamaConfig.tiny(**inp.get("cfg", {}))
+    with FakeTensorMode():
+        abstract = llama.init_params(cfg, device="cpu")
+    sharding = llama_sharding_rules().tree_shardings(mesh, abstract)
+    conf = EngineConfig(**inp["engine"])
+    if inp["loader"] == "checkpoint":
+        engine = ServingEngine.from_checkpoint(cfg, inp["path"], sharding=sharding,
+                                               engine_config=conf, tokenizer=ByteTokenizer(),
+                                               device="cpu")
+    else:
+        engine = ServingEngine.from_hf(inp["path"], dtype=torch.float32, sharding=sharding,
+                                       engine_config=conf, device="cpu")
+    if dist.get_rank() != 0:
+        return {"engine": engine}
+    engine.start()
+    try:
+        return {"tokens": _serve(engine, inp["prompts"]),
+                "wq": tuple(engine.params["layers"]["wq"].shape)}
+    finally:
+        engine.stop()

@@ -38,7 +38,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t:.1f}s")
     cfg = LlamaConfig.llama3_8b()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(cs.SEED), device="cuda")
-    out = cs.run_files(torch, cfg, params, LlamaConfig.llama3_8b(n_layers=cs.MODELS_L_DEPTH))
+    out = cs.run_files(torch, cfg, params, LlamaConfig.llama3_8b(n_layers=cs.FILES_S1_DEPTH))
     print(cs.card_line())
     print(json.dumps({"files": out}, default=str))
     return 0
