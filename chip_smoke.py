@@ -336,8 +336,8 @@ Phases, each a hard failure with a non-zero exit:
    127.0.0.1 (the local file system, S3 and GCS on ``FakeObjectStore``,
    ``MiniFTPServer`` and ``MiniSFTPServer``) and a ``RedisClient`` on the
    port's RESP2 server:
-   - ``F-S1`` an HF-layout Llama checkpoint at Llama-3-8B widths and 2
-     layers (2.97 GB of safetensors, ``config.json``, a BPE
+   - ``F-S1`` an HF-layout Llama checkpoint at Llama-3-8B widths and
+     ``FILES_S1_DEPTH`` (1) layer (2.54 GB of safetensors, ``config.json``, a BPE
      ``tokenizer.json``) written through the local, S3, GCS and FTP file
      systems and loaded back with ``ServingEngine.from_hf(path, fs=...)``:
      every tensor bit-identical to a plain-path load, the tokenizer round
@@ -500,6 +500,15 @@ Phases, each a hard failure with a non-zero exit:
      of the saved tree, which rank 0's whole restore equals bit for bit;
      each rank's host RSS rise below the largest leaf's bytes (which a read
      of any leaf whole would pass);
+   - ``MP7`` ``TPUClient`` with ``TPU_MESH="dp=4"`` over the world's ranks,
+     a dp-sharded ``flash_attention`` (Llama-3-8B attention widths, 12×512
+     tokens) captured on each rank's shard, through the reference's
+     sick-chip arc: a fault injected on device 0, two typed 503s, the trip
+     that excludes device 0, rebuilds the mesh over dp=3 and retries the
+     call to the right result, DEGRADED naming device 0, a mesh-bound
+     executable refused after the shrink, the half-open restore to dp=4;
+     each result against flash on the whole batch, every rank's checksums
+     alike;
    a rank's failure fails the phase; it prints a ``{"parallel": ...}``
    line, and the ranks' flash launches on the paths (Ulysses) are the
    ``kernels`` rows' ``launches_parallel``; then the tp phase, the
@@ -571,6 +580,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -683,17 +693,20 @@ def card_line() -> str:
 
 
 class Timer:
-    """Device time of one call by CUDA events, averaged over ``iters``
-    calls after a warm-up, with the 50 MB L2 flushed before each call so
-    every input is read from HBM as on the serving path. After the flush
-    the card sleeps about a millisecond (``torch.cuda._sleep``), so the
-    host has queued the call before its start event runs: the time is the
-    device's, not the host's launch overhead (a wrapper's checks and
-    allocations can take longer than the flush alone)."""
+    """Device time of one call by CUDA events: the median of ``iters``
+    calls after a warm-up (``last`` keeps their mean and minimum beside
+    it), with the 50 MB L2 flushed before each call so every input is read
+    from HBM as on the serving path. After the flush the card sleeps about
+    a millisecond (``torch.cuda._sleep``), so the host has queued the call
+    before its start event runs: the time is the device's, not the host's
+    launch overhead (a wrapper's checks and allocations can take longer
+    than the flush alone). The median, not the mean: one call that waits
+    on a stalled host cannot move a row."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.last: dict = {}
 
     def __call__(self, fn, iters: int = 10) -> float:
         torch = self.torch
@@ -710,7 +723,16 @@ class Timer:
             end.record()
             pairs.append((start, end))
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+        times = sorted(s.elapsed_time(e) for s, e in pairs)
+        self.last = {"median": statistics.median(times), "mean": sum(times) / iters,
+                     "min": times[0]}
+        return self.last["median"]
+
+    def stats(self, fn, iters: int = 10) -> dict:
+        """The row keys of one timing: ``ms`` the median, with the mean and
+        the minimum of the same calls."""
+        ms = self(fn, iters)
+        return {"ms": ms, "ms_mean": self.last["mean"], "ms_min": self.last["min"]}
 
 
 def row_rel_err(got, want) -> float:
@@ -872,7 +894,7 @@ def time_kernels(torch, gen, timer: Timer, errs: dict, launches: dict) -> list[d
         "replaces": "gofr_tpu/ops/flash_attention.py:40",
         "launches": launches["bf16"]["flash_attention"],
         **errs["flash_attention"],
-        "ms": timer(lambda: flash_attention(q, k, v, kv_len)),
+        **timer.stats(lambda: flash_attention(q, k, v, kv_len)),
         "plain_ms": timer(lambda: flash_attention_ref(q, k, v, kv_len), iters=3),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
@@ -917,7 +939,7 @@ def time_kernels(torch, gen, timer: Timer, errs: dict, launches: dict) -> list[d
             "replaces": "gofr_tpu/ops/paged_attention.py:90",
             "launches": launches[path][name],
             **errs[name],
-            "ms": timer(lambda: kernel(*args)),
+            **timer.stats(lambda: kernel(*args)),
             "plain_ms": timer(lambda: paged_decode_attention_ref(*plain_args, **kw)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": timer(gathered_sdpa),
@@ -8893,7 +8915,9 @@ def run_analytics(torch, cfg, params, dev=None) -> dict:
     from gofr_tpu_torch.analysis.__main__ import main as lint_main
 
     lint_rc = lint_main(["--all", "--repo-root", str(ROOT)])
-    out["lint_rc"] = lint_rc
+    out["lint_rc"], out["lint_seconds"] = lint_rc, time.perf_counter() - t
+    print(f"  AN3 python -m gofr_tpu_torch.analysis --all (shardcheck and spec-rank-mismatch "
+          f"among its families): rc {lint_rc} in {out['lint_seconds']:.1f}s")
     out["AN3"] = analytics_an3(mon, time.perf_counter() - t)
     from gofr_tpu_torch.analysis.chaoscov import check_chaos_coverage
 
@@ -9698,15 +9722,18 @@ MP3_UPDATE_REL_TOL = 0.25  # MP3: relative L2 of an update (after - before) agai
 MP4_SHAPE, MP4_MICRO = (4, 512), 4  # MP4: batch x tokens, microbatches
 MP5_SHAPE, MP5_DEPTH, MP5_STEPS = (4, 256), 2, 3  # MP5: batch x tokens, layers, steps
 MP6_DEPTH = 2  # MP6: layers of the checkpoint restored by the tp=4 rules
+MP7_SHAPE = (12, 512)  # MP7: batch (divides dp=4 and the shrunk dp=3) x sequence
+MP7_COOLDOWN_S = 1.0  # MP7: the breaker's cooldown before the half-open restore
+MP7_REL_TOL = 1e-3  # MP7: relative L2 of the client's result against flash on the whole batch
 
 
 def rel_l2(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def parallel_rank(dev, tmp: str) -> dict:
-    """One rank of the parallel phase's world (``run_parallel``): MP1-MP6
-    in order. Every rank makes the same weights and inputs from ``SEED`` on
+def parallel_rank(dev, tmp: str, only: str | None = None) -> dict:
+    """One rank of the parallel phase's world (``run_parallel``): MP1-MP7
+    in order (``only="mp7"``: MP7 alone). Every rank makes the same weights and inputs from ``SEED`` on
     the card; rank 0 also computes each step unsharded and raises when the
     sharded result is out of tolerance (so does any rank's own check).
     Returns this rank's record: times, peak memory, checksums of what every
@@ -9778,6 +9805,13 @@ def parallel_rank(dev, tmp: str) -> dict:
         res = fn()
         out["launches"] += flash_attention.launches - before
         return res
+
+    if only == "mp7":
+        stage("MP7")
+        out["mp7"] = parallel_mp7(dev, say, held)
+        out["launches"] += out["mp7"]["launches"]
+        stage("end")
+        return out
 
     # MP1 tensor parallel: Llama-3-8B widths at PLANE_DEPTH layers, tp=4 and dp=2,tp=2
     stage("MP1")
@@ -10036,8 +10070,128 @@ def parallel_rank(dev, tmp: str) -> dict:
         f"{rec['largest_leaf_bytes'] / 2 ** 20:.1f} MiB), shards {rec['shards_gb']:.2f} GB, "
         f"bit-equal {rec['bit_equal']}")
     out["mp6"] = rec
+    del full, shards, mgr, shardings
+    # MP7 the device client over the mesh: the reference's sick-chip arc on dp=4
+    stage("MP7")
+    out["mp7"] = parallel_mp7(dev, say, held)
+    out["launches"] += out["mp7"]["launches"]
     stage("end")
     return out
+
+
+def parallel_mp7(dev, say, held) -> dict:
+    """MP7, on every rank of the parallel phase's world: ``TPUClient`` with
+    ``TPU_MESH="dp=4"`` over the world's ranks, its executable a dp-sharded
+    ``flash_attention`` at Llama-3-8B attention widths (captured into a
+    CUDA graph on each rank's shard), through the reference's sick-chip
+    arc (``tests/test_sick_chip.py``): the fault injected into rank 0's
+    executable (device 0, as the reference's ``_FlakyExecutable``; its
+    probe fails), two typed 503s below the threshold, the third call trips
+    the breaker, excludes device 0, rebuilds the mesh over dp=3 and comes
+    back with the right result; health DEGRADED naming device 0; an
+    executable whose shardings are bound to the first mesh refused after
+    the shrink; after the cooldown the half-open restore brings back dp=4.
+    Each result is held to flash on the whole batch; the checksums must be
+    every rank's alike (``run_parallel``)."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.datasource.tpu import TPUClient
+    from gofr_tpu_torch.datasource.tpu.client import TPUError
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.parallel.sharding import NamedSharding, P
+
+    t0 = time.perf_counter()
+    rank = dist.get_rank()
+    (B, S), (H, Hkv, D) = MP7_SHAPE, MP2_HEADS
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev, dtype=torch.bfloat16)
+               for h in (H, Hkv, Hkv))
+    want = flash_attention(q, k, v, causal=True)
+    base = flash_attention.launches  # the client's launches from here on
+
+    def attn(q, k, v):
+        return flash_attention(q, k, v, causal=True)
+
+    def dp(mesh):
+        return NamedSharding(mesh, P("dp"))
+
+    def error(fn):
+        try:
+            fn()
+        except TPUError as exc:
+            return exc.status_code, str(exc)
+        return 0, ""
+
+    def health() -> dict:
+        d = client.health_check()
+        return {"status": d["status"], "excluded": d["details"].get("excluded_devices"),
+                "count": d["details"]["device_count"], "dp": d["details"]["mesh"]["dp"]}
+
+    t = time.perf_counter()
+    client = TPUClient(mesh_spec=f"dp={PARALLEL_RANKS}", breaker_threshold=3,
+                       breaker_cooldown_s=MP7_COOLDOWN_S, device=dev)
+    client.connect()
+    connect_ms = (time.perf_counter() - t) * 1e3
+    client._probe_device = lambda d: d.id != 0  # the fault lives on device 0
+    client.compile("attn", attn, q, k, v, in_shardings=lambda m: (dp(m), dp(m), dp(m)),
+                   out_shardings=dp)
+    bound = dp(client.mesh())
+    client.compile("bound", attn, q, k, v, in_shardings=(bound, bound, bound), out_shardings=bound)
+    meta = dict(client._exec_meta["attn"])
+    rec: dict = {"captured": meta["captured"], "captured_launches": meta["captured_launches"],
+                 "connect_ms": connect_ms, "compile_ms": [
+                     client._exec_meta[n]["compile_seconds"] * 1e3 for n in ("attn", "bound")]}
+    t = time.perf_counter()
+    healthy = client.execute("attn", q, k, v, block=True)
+    rec["healthy_ms"] = (time.perf_counter() - t) * 1e3
+    if rank == 0:  # the reference's _FlakyExecutable, on device 0
+        exe = client._executables["attn"]
+        real, left = exe.run, [10]
+
+        def flaky(args):
+            if left[0] > 0:
+                left[0] -= 1
+                raise RuntimeError("injected device failure (wedged chip)")
+            return real(args)
+
+        exe.run = flaky
+    rec["errors"] = [error(lambda: client.execute("attn", q, k, v)) for _ in range(2)]
+    t = time.perf_counter()
+    failover = client.execute("attn", q, k, v, block=True)  # trips: dp=3, retried
+    rec["failover_ms"] = (time.perf_counter() - t) * 1e3
+    rec["degraded"] = health()
+    rec["bound"] = error(lambda: client.execute("bound", q, k, v))
+    time.sleep(MP7_COOLDOWN_S)
+    t = time.perf_counter()
+    restored = client.execute("attn", q, k, v, block=True)  # the half-open restore: dp=4
+    rec["restore_ms"] = (time.perf_counter() - t) * 1e3
+    rec["restored"] = health()
+    client.close()
+    rec["launches"] = flash_attention.launches - base
+    rec["rel_err"] = [rel_l2(x, want) for x in (healthy, failover, restored)]
+    rec["checksums"] = [float(x.double().sum()) for x in (healthy, failover, restored)]
+    rec["seconds"] = time.perf_counter() - t0
+    held(rec["errors"] == [(503, "execution of attn failed: injected device failure "
+                                 "(wedged chip)")] * 2, f"MP7 rank {rank} typed 503s", rec)
+    held(rec["degraded"] == {"status": "DEGRADED", "excluded": [0], "count": 3, "dp": 3},
+         f"MP7 rank {rank} after the trip", rec)
+    held(rec["bound"][0] == 503 and "recompile" in rec["bound"][1],
+         f"MP7 rank {rank} mesh-bound executable after the shrink", rec)
+    held(rec["restored"] == {"status": "UP", "excluded": None, "count": 4, "dp": 4},
+         f"MP7 rank {rank} after the restore", rec)
+    held(all(e <= MP7_REL_TOL for e in rec["rel_err"]), f"MP7 rank {rank} results", rec)
+    held(rec["captured"] and rec["captured_launches"] == {"flash_attention": 1}
+         and rec["launches"] > 0, f"MP7 rank {rank} capture", rec)
+    say(f"MP7 TPUClient over dp={PARALLEL_RANKS}, flash B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 "
+        f"a rank's shard captured: 503s {[e[0] for e in rec['errors']]}, failover to dp="
+        f"{rec['degraded']['dp']} naming {rec['degraded']['excluded']} in "
+        f"{rec['failover_ms']:.1f} ms, bound refused, restore to dp={rec['restored']['dp']} in "
+        f"{rec['restore_ms']:.1f} ms, healthy call {rec['healthy_ms']:.1f} ms, connect "
+        f"{rec['connect_ms']:.1f} ms, compiles {[round(x, 1) for x in rec['compile_ms']]} ms, errors "
+        f"{[f'{e:.2e}' for e in rec['rel_err']]}, flash launches {rec['launches']} (captures), "
+        f"{rec['seconds']:.1f} s")
+    return rec
 
 
 def _describe(obj) -> str:
@@ -10146,12 +10300,12 @@ def parent_memory(torch, phase: str) -> tuple[float, float, dict]:
     return held, after, cyclic
 
 
-def run_parallel(torch) -> dict:
+def run_parallel(torch, only: str | None = None) -> dict:
     """The parallel phase: one world of ``PARALLEL_RANKS`` spawned ranks on
     the one card over gloo (``parallel.world.run_spmd``, rank function
-    ``parallel_rank``), after the parent released its engines. Every rank
-    must report the same checksums; the ranks' flash launches on the paths
-    add up to the phase's count."""
+    ``parallel_rank``; ``only="mp7"`` runs MP7 alone), after the parent
+    released its engines. Every rank must report the same checksums; the
+    ranks' flash launches on the paths add up to the phase's count."""
     import tempfile
 
     import chip_smoke as me  # by its module name: a spawned rank imports it
@@ -10166,16 +10320,24 @@ def run_parallel(torch) -> dict:
     tmp = tempfile.mkdtemp(prefix=".chip_smoke_parallel_", dir=ROOT)
     t0 = time.perf_counter()
     try:
-        ranks = world.run_spmd(me.parallel_rank, PARALLEL_RANKS, args=(tmp,), backend="gloo",
-                               timeout_s=PARALLEL_DEADLINE_S)
+        ranks = world.run_spmd(me.parallel_rank, PARALLEL_RANKS, args=(tmp, only),
+                               backend="gloo", timeout_s=PARALLEL_DEADLINE_S)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_s = time.perf_counter() - t0
     for key, sub in (("mp1", "tp=4"), ("mp1", "dp=2,tp=2"), ("mp2", "cp_ring"),
                      ("mp2", "cp_ulysses"), ("mp3", None), ("mp4", None)):
+        if only is not None:
+            break
         sums = {r["rank"]: (r[key][sub] if sub else r[key])["logits_sum"] for r in ranks}
         if len(set(sums.values())) != 1:
             raise AssertionError(f"{key} {sub}: the ranks' logits differ: {sums}")
+    mp7 = {r["rank"]: (r["mp7"]["checksums"], r["mp7"]["errors"], r["mp7"]["degraded"],
+                       r["mp7"]["restored"]) for r in ranks}
+    if len({json.dumps(x) for x in mp7.values()}) != 1:
+        raise AssertionError(f"MP7: the ranks' outputs or states differ: {mp7}")
+    print(f"  MP7: {max(r['mp7']['seconds'] for r in ranks):.1f} s on the slowest rank; every "
+          f"rank's checksums {mp7[0][0]}", flush=True)
     out = {"ranks": ranks, "phase_s": phase_s, "free_gb_before": free / 1e9,
            "parent_gb_before_gc": held / 1e9, "parent_gb_after_gc": after / 1e9, "cyclic": cyclic,
            "launches": {"flash_attention": sum(r["launches"] for r in ranks),
@@ -10837,7 +10999,8 @@ def main() -> int:
           f"tensor parallel at Llama-3-8B widths, {PLANE_DEPTH} layers, tp=4 and dp=2,tp=2; MP2 ring "
           f"and Ulysses attention at S={MP2_SEQ} and the cp forward; MP3 expert parallel at Mixtral "
           f"widths, {MOE_DEPTH} layers; MP4 the GPipe pipeline on pp=4; MP5 sharded and pipelined "
-          f"training; MP6 a sharded restore):")
+          f"training; MP6 a sharded restore; MP7 TPUClient over dp={PARALLEL_RANKS} through the "
+          "sick-chip failover):")
     parallel = run_phase("parallel", run_parallel, torch)
     print(f"tp phase (the tensor-parallel ServingEngine: {TP_RANKS} ranks on the one card over gloo, "
           f"Llama-3-8B widths, all {TP_DEPTH} layers, tp=4; TP-B the bf16 path's config with HTTP "

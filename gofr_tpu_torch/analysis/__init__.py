@@ -9,6 +9,10 @@ families, written against a PyTorch tree):
   ``torch.cuda.synchronize()``, a device tensor's truth value) on the
   engine thread outside the annotated sync points, registered and
   bounded-cardinality metrics, status-checked kernel launches.
+- :mod:`gofr_tpu_torch.analysis.shardcheck` — mesh-axis vocabulary,
+  collectives outside a rank function or a received mesh, reads of an
+  in-place-updated argument as its pre-call value, and CUDA-graph capture
+  hazards in the decode hot path.
 - :mod:`gofr_tpu_torch.analysis.baseline_io` — ``--format json`` stable
   finding ids and the ratchet baseline (``baseline.json`` of the port's
   own; ``--update-baseline``).
@@ -34,9 +38,7 @@ families, written against a PyTorch tree):
 - :mod:`gofr_tpu_torch.analysis.chaoscov` — every chaos point scheduled by
   a test of the port's chaos tier.
 
-Not ported: bench_ratchet (with the port's bench), shardcheck and
-kernelcheck's spec-rank-mismatch (their lint over the port's mesh, ROADMAP
-Queue A item 16).
+Not ported: bench_ratchet (with the port's bench).
 
 Run ``python -m gofr_tpu_torch.analysis --all``; it exits non-zero on any
 unsuppressed finding. Suppress with

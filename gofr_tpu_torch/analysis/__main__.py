@@ -8,7 +8,8 @@ finding, 2 on a usage error. With no paths it lints the port's tree:
 Modes (the port's copy of ``gofr_tpu/analysis/__main__.py``, for the
 families ported so far):
 
-- default: the AST rules and the FFI cross-check, through the ratchet
+- default: the AST rules (shardcheck's among them) and the FFI
+  cross-check, through the ratchet
   baseline (``gofr_tpu_torch/analysis/baseline.json``);
 - ``--all``: the same in one shared walk, plus the stale-suppression audit;
 - ``--ffi``: only ``csrc/*.cu`` against ``_build.SIGNATURES``;
@@ -73,7 +74,7 @@ def _emit(findings: list, fmt: str) -> None:
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m gofr_tpu_torch.analysis",
-        description="gofrlint over the PyTorch port: AST rules, lockcheck, "
+        description="gofrlint over the PyTorch port: AST rules, shardcheck, lockcheck, "
         "leakcheck, deadlinecheck, kernelcheck, the stale-suppression audit, "
         "the csrc/ctypes FFI cross-check and chaos coverage",
     )
@@ -218,6 +219,7 @@ def _list_rules() -> None:
     from gofr_tpu_torch.analysis import kernelcheck as kch
     from gofr_tpu_torch.analysis import leakcheck as lk
     from gofr_tpu_torch.analysis import rules as rules_mod
+    from gofr_tpu_torch.analysis import shardcheck as sc
 
     for rule in sorted(RULE_DESCRIPTIONS):
         print(f"{rule:<25} {RULE_DESCRIPTIONS[rule]}")
@@ -225,6 +227,7 @@ def _list_rules() -> None:
     print("dispatch zones:", ", ".join(sorted(rules_mod.DISPATCH_ZONES)))
     print("backoff zones: ", ", ".join(sorted(rules_mod.BACKOFF_ZONES)))
     print("host-sync zones:", ", ".join(sorted(rules_mod.HOT_SYNC_ZONES)))
+    print("retrace zones: ", ", ".join(sorted(sc.RETRACE_ZONE_FILES + sc.RETRACE_ZONE_DIRS)))
     print("retire-gate zones:", ", ".join(sorted(lk.RETIRE_GATE_ZONES)))
     print("deadline entry roots:", ", ".join(sorted(
         dc.ENTRY_FUNC_NAMES | {f"{c}.*" for c in dc.ENTRY_CLASSES} | set(dc.ENTRY_FILES)

@@ -241,17 +241,6 @@ def run_rules(
     return findings
 
 
-# rule ids of the reference's families the port does not carry yet:
-# shardcheck's four and kernelcheck's spec-rank-mismatch (ROADMAP Queue A
-# item 16: the port's mesh exists, their lint over it does not). The audit
-# cannot call a suppression of theirs stale until the family that would
-# raise the finding exists.
-PENDING_RULES = frozenset({
-    "mesh-axis-unknown", "collective-unmapped", "use-after-donation",
-    "retrace-hazard", "spec-rank-mismatch",
-})
-
-
 _STALE_MESSAGE = (
     "suppression for {rules} matches no current finding — the rule "
     "drifted or the code moved; delete the comment (a stale suppression "
@@ -310,8 +299,6 @@ def run_unified(
     for rel, records in file_records:
         for rec in records:
             if not full_tree and rec.rules & cross_file_rules:
-                continue
-            if rec.rules <= PENDING_RULES:
                 continue
             file_hits = hits.get(rel, {})
             used = any(

@@ -56,9 +56,8 @@ rooted at the request-serving entry points (``ServingEngine.submit``/
     ``HOT_SYNC_ZONES``, ``leakcheck.RETIRE_GATE_ZONES``, and
     ``kernel_contracts.KERNEL_FILES`` with its ``UNPACK_SITES``) must name
     a file that is still scanned and functions that still exist in it —
-    a stale zone silently disables its rules for code that moved.
-    shardcheck's ``RETRACE_ZONE_*`` tables join it with shardcheck
-    (ROADMAP Queue A item 16).
+    a stale zone silently disables its rules for code that moved;
+    shardcheck's ``RETRACE_ZONE_FILES``/``RETRACE_ZONE_DIRS`` too.
 
 Like lockcheck/leakcheck, the analysis over-approximates toward a
 SUPERSET: the call graph is name-based (an edge to every program
@@ -774,12 +773,11 @@ class CancelUnreachableRule(Rule):
 def _default_zone_specs() -> list[tuple[str, str, dict[str, Any]]]:
     """(label, home-module-rel-path, {file-suffix: functions|'*'}) for
     every zone table the analyzer family keys on. Imported lazily so a
-    fixture tree can inject fake tables without touching the real ones.
-    shardcheck's RETRACE_ZONE_FILES/_DIRS join with shardcheck (ROADMAP
-    Queue A item 16)."""
+    fixture tree can inject fake tables without touching the real ones."""
     from gofr_tpu_torch.analysis import kernel_contracts as kc
     from gofr_tpu_torch.analysis import leakcheck as lk
     from gofr_tpu_torch.analysis import rules as rules_mod
+    from gofr_tpu_torch.analysis import shardcheck as sc
 
     rules_home = "gofr_tpu_torch/analysis/rules.py"
     unpack: dict[str, set[str]] = {}
@@ -793,6 +791,10 @@ def _default_zone_specs() -> list[tuple[str, str, dict[str, Any]]]:
         ("BACKOFF_ZONES", rules_home, dict(rules_mod.BACKOFF_ZONES)),
         ("ROUTER_RETRY_ZONES", rules_home, dict(rules_mod.ROUTER_RETRY_ZONES)),
         ("HOT_SYNC_ZONES", rules_home, dict(rules_mod.HOT_SYNC_ZONES)),
+        ("RETRACE_ZONE_FILES", "gofr_tpu_torch/analysis/shardcheck.py",
+         {f: "*" for f in sc.RETRACE_ZONE_FILES}),
+        ("RETRACE_ZONE_DIRS", "gofr_tpu_torch/analysis/shardcheck.py",
+         {d: "*" for d in sc.RETRACE_ZONE_DIRS}),
         ("RETIRE_GATE_ZONES", "gofr_tpu_torch/analysis/leakcheck.py",
          dict(lk.RETIRE_GATE_ZONES)),
         ("KERNEL_FILES", "gofr_tpu_torch/analysis/kernel_contracts.py",

@@ -39,9 +39,16 @@ Rule families:
   ``kernel_contracts.HOST_HELPERS`` with its reason; stale contract
   entries, stale helper entries and vanished unpack-site functions fail.
 
-``spec-rank-mismatch`` (``shard_map``/``PartitionSpec`` vs array rank)
-has no counterpart until the port's mesh exists (ROADMAP Queue A item
-9); ``core.PENDING_RULES`` keeps it.
+- ``spec-rank-mismatch`` — the reference's ``shard_map`` plumbing checks
+  over the port's mesh: a ``compile(name, fn, *examples,
+  in_shardings=, out_shardings=)`` call's spec counts against ``fn``'s
+  arity, its examples and its returned tuple, and each ``P(...)``'s arity
+  against the parameter's declared rank (trailing ``# [B, S, H, D]``
+  comments); a higher-order wrapper's call of its body
+  (``context_parallel._global_view``) against the bodies handed to it;
+  ``local_index``/``shard_leaf``/``with_constraint`` specs against the
+  declared rank they place; and each ``<model>_sharding_rules`` entry
+  against the leaves of ``models/<model>.py``'s ``init_params``.
 
 The runtime twin (:mod:`gofr_tpu_torch.analysis.kerneltrace`) runs every
 contract entry on the CPU or observes a live engine, and
@@ -52,6 +59,8 @@ contract entry on the CPU or observes a live engine, and
 from __future__ import annotations
 
 import ast
+import re
+from typing import Any
 
 from gofr_tpu_torch.analysis import kernel_contracts as kc
 from gofr_tpu_torch.analysis.core import Finding, Rule, SourceFile
@@ -751,6 +760,381 @@ class CarryFieldDriftRule(Rule):
         return [f for f in out if not sf.is_suppressed(f.rule, f.line)]
 
 
+# ------------------------------------------------------ spec-rank-mismatch
+
+_SHAPE_COMMENT = re.compile(r"#\s*\[([^\]]+)\]")
+#: the rank each of ``parallel.sharding.activation_spec``'s kinds places
+_ACTIVATION_RANKS = {"tokens": 2, "hidden": 3, "logits": 3}
+
+
+def _spec_arity(node: ast.AST | None, env: dict[str, int]) -> int | None:
+    """Arity of a placement expression: ``P(...)``/``PartitionSpec(...)``,
+    ``NamedSharding(mesh, P(...))``, ``named_sharding(mesh, *axes)``,
+    ``activation_spec("kind")`` or a bare kind, a callable ``lambda mesh:
+    <one of those>``, or a name bound to one (None: unresolvable)."""
+    if isinstance(node, ast.Lambda):
+        return _spec_arity(node.body, env)
+    if isinstance(node, ast.Name):
+        return env.get(node.id)
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return _ACTIVATION_RANKS.get(node.value)
+    if not isinstance(node, ast.Call) or any(isinstance(a, ast.Starred) for a in node.args):
+        return None
+    term = _terminal(node.func)
+    if term in ("P", "PartitionSpec"):
+        return len(node.args)
+    if term == "NamedSharding" and len(node.args) == 2:
+        return _spec_arity(node.args[1], env)
+    if term == "named_sharding" and node.args:
+        return len(node.args) - 1
+    if term == "activation_spec" and node.args:
+        return _spec_arity(node.args[0], env)
+    return None
+
+
+def _declared_rank(lines: list[str], arg: ast.arg) -> int | None:
+    """Rank declared by a trailing ``# [B, S, H, D]`` comment on the
+    parameter's line."""
+    ln = getattr(arg, "lineno", None)
+    if ln is None or ln > len(lines):
+        return None
+    m = _SHAPE_COMMENT.search(lines[ln - 1])
+    if m is None:
+        return None
+    return len([p for p in m.group(1).split(",") if p.strip()])
+
+
+def _positional_args(fn: ast.FunctionDef | ast.Lambda) -> list[ast.arg]:
+    return fn.args.posonlyargs + fn.args.args
+
+
+class SpecRankRule(Rule):
+    """Placement plumbing consistency over the port's mesh, the
+    reference's ``shard_map`` checks restated:
+
+    - a mapped call, ``client.compile(name, fn, *examples,
+      in_shardings=..., out_shardings=...)`` (``datasource/tpu``): the
+      in_shardings' count against ``fn``'s positional arity (less what a
+      ``functools.partial`` bound) and against the examples given,
+      out_shardings' count against the tuple ``fn`` returns, and each
+      ``P(...)``'s arity against the rank its parameter declares (a
+      trailing ``# [B, S, H, D]`` comment);
+    - a higher-order wrapper that calls its function parameter with N
+      positional arrays (``context_parallel._global_view``): every body
+      handed to it in the file must take N;
+    - ``local_index``/``shard_leaf``/``with_constraint``: the spec's
+      arity against the declared rank of what it places;
+    - ``<model>_sharding_rules``: each rule's ``P(...)`` against the rank
+      of every leaf of ``models/<model>.py``'s ``init_params`` it is the
+      first match for (cross-file).
+
+    A spec shorter than the rank is legal (trailing dimensions
+    replicate); an unresolvable spec or body is skipped."""
+
+    name = "spec-rank-mismatch"
+    cross_file = True
+
+    def __init__(self) -> None:
+        self._tables: dict[str, list[tuple[str, int, str, int]]] = {}  # model -> rules
+        self._leaves: dict[str, dict[str, int]] = {}  # model -> {leaf path: rank}
+
+    @staticmethod
+    def _resolve(defs: dict, assigns: dict, node: ast.AST) -> tuple[Any, int]:
+        """The function a name/partial/lambda resolves to in this file,
+        and how many of its positional parameters a partial bound."""
+        bound = 0
+        for _ in range(4):
+            if isinstance(node, ast.Lambda):
+                return node, bound
+            if isinstance(node, ast.Name):
+                if node.id in defs:
+                    return defs[node.id], bound
+                node = assigns.get(node.id)
+                if node is None:
+                    return None, bound
+                continue
+            if isinstance(node, ast.Call) and _terminal(node.func) == "partial" and node.args:
+                bound += len(node.args) - 1
+                node = node.args[0]
+                continue
+            return None, bound
+        return None, bound
+
+    def visit_file(self, sf: SourceFile) -> list[Finding]:
+        scan = _SpecScan()
+        scan.visit(sf.tree)
+        out: list[Finding] = []
+        lines = sf.source.splitlines()
+        for call in scan.compiles:
+            self._mapped_call(sf, lines, scan, call, out)
+        self._plumbing(sf, scan, out)
+        self._placements(sf, lines, scan, out)
+        self._collect_tables(sf, scan)
+        return [f for f in out if not sf.is_suppressed(f.rule, f.line)]
+
+    # -- mapped calls: compile(name, fn, *examples, in_/out_shardings=) ------
+    def _mapped_call(self, sf: SourceFile, lines: list[str], scan: "_SpecScan",
+                     node: ast.Call, out: list[Finding]) -> None:
+        env = scan.env
+        kw = {k.arg: k.value for k in node.keywords if k.arg}
+        in_sh, out_sh = kw.get("in_shardings"), kw.get("out_shardings")
+        in_sh = in_sh.body if isinstance(in_sh, ast.Lambda) else in_sh
+        out_sh = out_sh.body if isinstance(out_sh, ast.Lambda) else out_sh
+        inner, bound = self._resolve(scan.defs, scan.assigns, node.args[1])
+        name = getattr(inner, "name", "<lambda>")
+        examples = node.args[2:]
+        n_in = None
+        if isinstance(in_sh, (ast.Tuple, ast.List)):
+            n_in = len(in_sh.elts)
+        elif in_sh is not None and _spec_arity(in_sh, env) is not None:
+            n_in = 1
+        if inner is not None and n_in is not None:
+            n_pos = len(_positional_args(inner)) - bound
+            if n_pos != n_in:
+                out.append(Finding(
+                    self.name, sf.rel_path, node.lineno,
+                    f"compile in_shardings has {n_in} spec(s) but '{name}' takes "
+                    f"{n_pos} positional array(s) — the placement would mis-shard "
+                    "or fail only at run time",
+                ))
+            elif isinstance(in_sh, (ast.Tuple, ast.List)):
+                params = _positional_args(inner)
+                for i, spec in enumerate(in_sh.elts):
+                    arity = _spec_arity(spec, env)
+                    rank = _declared_rank(lines, params[i + bound]) \
+                        if i + bound < len(params) else None
+                    if arity is not None and rank is not None and arity > rank:
+                        out.append(Finding(
+                            self.name, sf.rel_path, spec.lineno,
+                            f"in_shardings[{i}] has {arity} axes but '{name}' declares "
+                            f"its parameter as rank {rank} — PartitionSpec arity "
+                            "exceeds the array rank",
+                        ))
+        if inner is not None and out_sh is not None:
+            rets = [inner.body] if isinstance(inner, ast.Lambda) else [
+                n.value for n in ast.walk(inner)
+                if isinstance(n, ast.Return) and n.value is not None]
+            arities = {len(r.elts) if isinstance(r, ast.Tuple) else 1 for r in rets}
+            if len(arities) == 1:
+                r_arity = arities.pop()
+                o_arity = len(out_sh.elts) if isinstance(out_sh, (ast.Tuple, ast.List)) else 1
+                if r_arity != o_arity:
+                    out.append(Finding(
+                        self.name, sf.rel_path, node.lineno,
+                        f"compile out_shardings declares {o_arity} output spec(s) but "
+                        f"'{name}' returns {r_arity} value(s) — the outputs' placement "
+                        "would not match",
+                    ))
+        if isinstance(in_sh, (ast.Tuple, ast.List)) \
+                and not any(isinstance(a, ast.Starred) for a in examples) \
+                and len(examples) != len(in_sh.elts):
+            out.append(Finding(
+                self.name, sf.rel_path, node.lineno,
+                f"compile given {len(examples)} example array(s) but in_shardings "
+                f"declares {len(in_sh.elts)} — argument/spec drift",
+            ))
+
+    # -- higher-order wrappers: W(fn, ...) calls fn(a, b, ...) ---------------
+    def _plumbing(self, sf: SourceFile, scan: "_SpecScan", out: list[Finding]) -> None:
+        counts: dict[tuple[int, str], set[int]] = {}  # (id of W, param) -> arities
+        for call, stack in scan.name_calls:
+            if any(isinstance(a, ast.Starred) for a in call.args):
+                continue
+            for fn in stack:
+                if call.func.id in fn.param_names:
+                    counts.setdefault((id(fn.node), call.func.id), set()).add(len(call.args))
+        wrappers: dict[str, list[tuple[int, str, int]]] = {}
+        for fn in scan.defs.values():
+            for i, p in enumerate(a.arg for a in _positional_args(fn)):
+                arities = counts.get((id(fn), p), ())
+                if len(arities) == 1:
+                    wrappers.setdefault(fn.name, []).append((i, p, next(iter(arities))))
+        for node, _ in scan.name_calls:
+            if node.func.id not in wrappers:
+                continue
+            kw = {k.arg: k.value for k in node.keywords if k.arg}
+            for i, p, n_args in wrappers[node.func.id]:
+                arg = node.args[i] if i < len(node.args) else kw.get(p)
+                if arg is None or isinstance(arg, ast.Lambda):
+                    continue
+                body, bound = self._resolve(scan.defs, scan.assigns, arg)
+                if not isinstance(body, ast.FunctionDef) or body.args.vararg is not None:
+                    continue
+                params = _positional_args(body)
+                total = len(params) - bound
+                required = total - len(body.args.defaults)
+                if not required <= n_args <= total:
+                    out.append(Finding(
+                        self.name, sf.rel_path, node.lineno,
+                        f"'{node.func.id}' calls its '{p}' with {n_args} positional "
+                        f"array(s) but '{body.name}' takes {total} — the wrapper's "
+                        "plumbing and the body it maps have drifted",
+                    ))
+
+    # -- local_index / shard_leaf / with_constraint ------------------------
+    def _placements(self, sf: SourceFile, lines: list[str], scan: "_SpecScan",
+                    out: list[Finding]) -> None:
+        ranks_of: dict[int, dict[str, int]] = {}
+        for node, fn in scan.placers:
+            if fn is None:
+                ranks = {}
+            elif id(fn) not in ranks_of:
+                ranks = ranks_of[id(fn)] = {
+                    a.arg: r for a in _positional_args(fn) + fn.args.kwonlyargs
+                    if (r := _declared_rank(lines, a)) is not None}
+            else:
+                ranks = ranks_of[id(fn)]
+            term = _terminal(node.func)
+            if term == "local_index":
+                shape, spec = node.args[0], node.args[1]
+                if isinstance(shape, ast.Tuple):
+                    rank, what = len(shape.elts), "the shape"
+                elif isinstance(shape, ast.Attribute) and shape.attr == "shape" \
+                        and isinstance(shape.value, ast.Name):
+                    rank, what = ranks.get(shape.value.id), f"'{shape.value.id}'"
+                else:
+                    continue
+            elif isinstance(node.args[0], ast.Name):
+                spec = node.args[1] if term == "shard_leaf" else (
+                    node.args[2] if len(node.args) > 2 else None)
+                rank, what = ranks.get(node.args[0].id), f"'{node.args[0].id}'"
+            else:
+                continue
+            arity = _spec_arity(spec, scan.env)
+            if rank is not None and arity is not None and arity > rank:
+                out.append(Finding(
+                    self.name, sf.rel_path, node.lineno,
+                    f"{term}: the spec has {arity} axes but {what} is declared rank "
+                    f"{rank} — PartitionSpec arity exceeds the array rank",
+                ))
+
+    # -- <model>_sharding_rules against models/<model>.py init_params -------
+    def _collect_tables(self, sf: SourceFile, scan: "_SpecScan") -> None:
+        for fn in scan.rules_fns:
+            model = fn.name[: -len("_sharding_rules")]
+            entries = []
+            for n in ast.walk(fn):
+                if isinstance(n, ast.Tuple) and len(n.elts) == 2 \
+                        and isinstance(n.elts[0], ast.Constant) \
+                        and isinstance(n.elts[0].value, str):
+                    arity = _spec_arity(n.elts[1], {})
+                    if arity is not None:
+                        entries.append((n.lineno, n.col_offset, n.elts[0].value, arity))
+            self._tables[model] = [(pat, arity, sf.rel_path, line)
+                                   for line, _, pat, arity in sorted(entries)]
+        parts = sf.rel_path.split("/")
+        if len(parts) >= 2 and parts[-2] == "models" and "init_params" in scan.defs:
+            self._leaves[parts[-1][:-3]] = _leaf_ranks(scan.defs["init_params"])
+
+    def finalize(self) -> list[Finding]:
+        out: list[Finding] = []
+        for model, rules in sorted(self._tables.items()):
+            for leaf, rank in sorted(self._leaves.get(model, {}).items()):
+                for pat, arity, path, line in rules:
+                    if re.search(pat, leaf):
+                        if arity > rank:
+                            out.append(Finding(
+                                self.name, path, line,
+                                f"{model}_sharding_rules: rule {pat!r} gives '{leaf}' "
+                                f"{arity} axes but models/{model}.py's init_params makes it "
+                                f"rank {rank} — PartitionSpec arity exceeds the array rank",
+                            ))
+                        break
+        return out
+
+
+_PLACERS = ("local_index", "shard_leaf", "with_constraint")
+
+
+class _Enclosing:
+    """A function on the scan's stack, with its positional parameter names."""
+
+    __slots__ = ("node", "param_names")
+
+    def __init__(self, node: ast.FunctionDef | ast.AsyncFunctionDef) -> None:
+        self.node = node
+        self.param_names = {a.arg for a in _positional_args(node)}
+
+
+class _SpecScan(ast.NodeVisitor):
+    """One walk of a file for the spec-rank rule: its defs, single-name
+    assignments (and the placements among them), ``compile(...,
+    in_shardings=/out_shardings=)`` calls, calls of a bare name with the
+    functions around them, placement calls with the innermost function,
+    and the ``*_sharding_rules`` tables."""
+
+    def __init__(self) -> None:
+        self.defs: dict[str, ast.FunctionDef] = {}
+        self.assigns: dict[str, ast.AST] = {}
+        self.env: dict[str, int] = {}
+        self.compiles: list[ast.Call] = []
+        self.name_calls: list[tuple[ast.Call, tuple]] = []
+        self.placers: list[tuple[ast.Call, Any]] = []
+        self.rules_fns: list[ast.FunctionDef] = []
+        self._stack: list[_Enclosing] = []
+
+    def _visit_func(self, node) -> None:
+        if isinstance(node, ast.FunctionDef):
+            self.defs.setdefault(node.name, node)
+            if node.name.endswith("_sharding_rules"):
+                self.rules_fns.append(node)
+        self._stack.append(_Enclosing(node))
+        self.generic_visit(node)
+        self._stack.pop()
+
+    visit_FunctionDef = _visit_func
+    visit_AsyncFunctionDef = _visit_func
+
+    def visit_Assign(self, node: ast.Assign) -> None:
+        if len(node.targets) == 1 and isinstance(node.targets[0], ast.Name):
+            name = node.targets[0].id
+            self.assigns.setdefault(name, node.value)
+            arity = _spec_arity(node.value, {})
+            if arity is not None:
+                self.env.setdefault(name, arity)
+        self.generic_visit(node)
+
+    def visit_Call(self, node: ast.Call) -> None:
+        term = _terminal(node.func)
+        if term == "compile" and len(node.args) >= 2 and any(
+                k.arg in ("in_shardings", "out_shardings") for k in node.keywords):
+            self.compiles.append(node)
+        if isinstance(node.func, ast.Name):
+            self.name_calls.append((node, tuple(self._stack)))
+        if term in _PLACERS and len(node.args) >= 2:
+            self.placers.append((node, self._stack[-1].node if self._stack else None))
+        self.generic_visit(node)
+
+
+def _leaf_ranks(init: ast.FunctionDef) -> dict[str, int]:
+    """{leaf path: rank} of the dict literals an ``init_params`` builds:
+    a leaf's rank is the length of the first tuple literal its value
+    passes to a call (``winit((L, D, H * Dh), D)``)."""
+    nested = {id(v) for n in ast.walk(init) if isinstance(n, ast.Dict)
+              for v in n.values if isinstance(v, ast.Dict)}
+    out: dict[str, int] = {}
+
+    def leaves(d: ast.Dict, prefix: str) -> None:
+        for k, v in zip(d.keys, d.values):
+            if not (isinstance(k, ast.Constant) and isinstance(k.value, str)):
+                continue
+            path = f"{prefix}{k.value}"
+            if isinstance(v, ast.Dict):
+                leaves(v, path + "/")
+                continue
+            for n in ast.walk(v):
+                if isinstance(n, ast.Call):
+                    shape = next((a for a in n.args if isinstance(a, ast.Tuple)), None)
+                    if shape is not None:
+                        out[path] = len(shape.elts)
+                        break
+
+    for n in ast.walk(init):
+        if isinstance(n, ast.Dict) and id(n) not in nested:
+            leaves(n, "")
+    return out
+
+
 # ------------------------------------------------- kernel-contract-coverage
 
 
@@ -894,6 +1278,7 @@ def kernelcheck_rules() -> list[Rule]:
         PackLayoutRule(),
         DtypeDisciplineRule(),
         CarryFieldDriftRule(),
+        SpecRankRule(),
         KernelContractCoverageRule(),
     ]
 

@@ -1151,18 +1151,19 @@ class RouterRetryTypedRule(Rule):
 
 
 def default_rules() -> list[Rule]:
-    """These rules and the lockcheck, leakcheck, deadlinecheck and
-    kernelcheck families. The reference's shardcheck is not ported yet
-    (ROADMAP Queue A item 16)."""
+    """These rules and the shardcheck, lockcheck, leakcheck, deadlinecheck
+    and kernelcheck families, in the reference's order."""
     from gofr_tpu_torch.analysis.deadlinecheck import deadlinecheck_rules
     from gofr_tpu_torch.analysis.kernelcheck import kernelcheck_rules
     from gofr_tpu_torch.analysis.leakcheck import leakcheck_rules
     from gofr_tpu_torch.analysis.lockcheck import lockcheck_rules
+    from gofr_tpu_torch.analysis.shardcheck import shardcheck_rules
 
     return [
         BlockingCallRule(), HostSyncRule(), CtypesCheckedRule(), MetricsRule(),
         DaemonLoopHeartbeatRule(), PubSubManualSettleRule(),
         RouterRetryTypedRule(),
+        *shardcheck_rules(),
         *lockcheck_rules(),
         *leakcheck_rules(),
         *deadlinecheck_rules(),

@@ -37,6 +37,10 @@ RULE_DESCRIPTIONS = {
     "ffi-unbound": "extern-C symbol with no ctypes binding",
     "ffi-stale": "ctypes binding with no extern-C symbol",
     "ffi-layout": "kernel loader or source directory missing",
+    "mesh-axis-unknown": "axis literal not declared by the mesh",
+    "collective-unmapped": "literal-axis collective outside shard_map/pmap",
+    "use-after-donation": "donated jit buffer read before rebinding",
+    "retrace-hazard": "per-request recompiles in the decode hot path",
     "lock-order-static": "cycle in the whole-program lock graph",
     "hold-and-block": "blocking op executed while a lock is held",
     "guarded-by": "write skips the attribute's inferred guard",
@@ -56,6 +60,7 @@ RULE_DESCRIPTIONS = {
     "pack-layout-drift": "packed kernel output vs host unpack-column drift",
     "dtype-discipline": "hot-zone dtype hygiene (float64, literal tensors, int64 packs)",
     "carry-field-drift": "DecodeState construction site disagrees with carry spec",
+    "spec-rank-mismatch": "shard_map/PartitionSpec vs array rank or pytree drift",
     "kernel-contract-coverage": "kernel-file function without a declared contract",
 }
 

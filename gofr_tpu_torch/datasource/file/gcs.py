@@ -165,9 +165,12 @@ class _RawResponse(io.RawIOBase):
         return True
 
     def readinto(self, b) -> int:
-        data = self._resp.read(len(b))
-        b[: len(data)] = data
-        return len(data)
+        return self._resp.readinto(b)
+
+    def readall(self) -> bytes:
+        """The rest of the body in one read: ``RawIOBase``'s own loops
+        8 KiB reads, which held a streamed GET near 0.1 GB/s."""
+        return self._resp.read()
 
     def close(self) -> None:
         try:

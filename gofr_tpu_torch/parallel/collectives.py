@@ -31,6 +31,8 @@ same graph: callers keep each collective's output in use on every rank
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any
 
 import torch
@@ -38,6 +40,29 @@ import torch.distributed as dist
 
 from gofr_tpu_torch.parallel.hostring import ring_for
 from gofr_tpu_torch.parallel.mesh import Mesh, require_axis
+
+
+_refusal = threading.local()
+
+
+@contextlib.contextmanager
+def refused(reason: str):
+    """Within the block, on this thread, every collective below raises
+    ``RuntimeError`` naming ``reason`` before it communicates (an axis of
+    size 1 too): the device client's ``compile`` runs a function under it,
+    since a gloo collective runs on the host and cannot be captured."""
+    before = getattr(_refusal, "reason", None)
+    _refusal.reason = reason
+    try:
+        yield
+    finally:
+        _refusal.reason = before
+
+
+def _allowed(name: str) -> None:
+    reason = getattr(_refusal, "reason", None)
+    if reason is not None:
+        raise RuntimeError(f"{name}: a collective is refused here ({reason})")
 
 
 def axis_index(mesh: Mesh, axis: str) -> int:
@@ -199,6 +224,7 @@ class _Ppermute(torch.autograd.Function):
 def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum over ``axis`` on every rank (``jax.lax.psum``); backward
     passes the cotangent through (the result is the same on every rank)."""
+    _allowed("psum")
     if require_axis(mesh, axis) == 1:
         return x
     return _Psum.apply(x, mesh.group(axis), 1.0)
@@ -206,6 +232,7 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 def pmean(x: torch.Tensor, mesh: Mesh, axis: str | tuple[str, ...]) -> torch.Tensor:
     """The mean over one axis or several (``jax.lax.pmean``)."""
+    _allowed("pmean")
     for a in (axis,) if isinstance(axis, str) else axis:
         n = require_axis(mesh, a)
         if n > 1:
@@ -217,6 +244,7 @@ def copy_to(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The identity; backward sums the cotangent over ``axis``. Put before
     a computation each rank of ``axis`` does on its own shard of weights
     with the same replicated input."""
+    _allowed("copy_to")
     if require_axis(mesh, axis) == 1:
         return x
     return _CopyTo.apply(x, mesh.group(axis))
@@ -226,6 +254,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor
     """Concatenate every rank's ``x`` along ``dim`` in axis order
     (``jax.lax.all_gather(..., tiled=True)``); backward reduce-scatters
     the summed cotangent (each rank's use of the whole is partial)."""
+    _allowed("all_gather")
     n = require_axis(mesh, axis)
     if n == 1:
         return x
@@ -235,6 +264,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor
 def gather_from(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
     """:func:`all_gather` for a result every rank of ``axis`` then uses
     the same way: backward keeps this rank's chunk of the cotangent."""
+    _allowed("gather_from")
     n = require_axis(mesh, axis)
     if n == 1:
         return x
@@ -245,6 +275,7 @@ def split_to(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
     """This rank's chunk of a replicated ``x`` along ``dim``; backward
     all-gathers the cotangent (the other chunks' gradients come from their
     ranks)."""
+    _allowed("split_to")
     n = require_axis(mesh, axis)
     if n == 1:
         return x
@@ -256,6 +287,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
     """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
     chunk j of ``split_axis`` goes to rank j; the chunks received are
     concatenated along ``concat_axis`` in source order."""
+    _allowed("all_to_all")
     n = require_axis(mesh, axis)
     if n == 1:
         return x
@@ -266,6 +298,7 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, perm: list[tuple[int, int]]
     """``jax.lax.ppermute``: rank ``s`` of ``axis`` sends ``x`` to rank
     ``d`` for each ``(s, d)`` in ``perm``; a rank no pair names as a
     destination gets zeros. Point-to-point (``batch_isend_irecv``)."""
+    _allowed("ppermute")
     if require_axis(mesh, axis) == 1:
         return x if any(s == d == 0 for s, d in perm) else torch.zeros_like(x)
     return _Ppermute.apply(x, mesh, axis, [(int(s), int(d)) for s, d in perm])

@@ -151,19 +151,38 @@ def build_mesh(spec: MeshSpec | str | None = None, devices: Sequence[int] | None
     of the world by default; one rank when no process group is up).
     Every rank of the world calls it with the same arguments. Axes of size
     1 are kept: sharding rules can always name them."""
-    if isinstance(spec, str):
-        spec = MeshSpec.parse(spec)
     if devices is None:
         devices = range(dist.get_world_size() if dist.is_initialized() else 1)
+    return Mesh(_grid(spec, devices), _device_type())
+
+
+def join_mesh(spec: MeshSpec | str | None, devices: Sequence[int]) -> Mesh | None:
+    """:func:`build_mesh` over ``devices``, some of the world's ranks, called
+    by EVERY rank of the world with the same arguments: a mesh's groups are
+    made collectively over the whole world. A rank outside ``devices``
+    takes part in making them and gets None (it holds no place on the
+    mesh)."""
+    if not dist.is_initialized() or dist.get_rank() in devices:
+        return build_mesh(spec, devices)
+    grid = _grid(spec, devices)
+    if grid.size > 1:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        DeviceMesh(_device_type(), torch.as_tensor(grid), mesh_dim_names=AXIS_ORDER)
+    return None
+
+
+def _grid(spec: MeshSpec | str | None, devices: Sequence[int]) -> np.ndarray:
+    """The ranks laid out on the axes, in ``AXIS_ORDER``."""
+    if isinstance(spec, str):
+        spec = MeshSpec.parse(spec)
     devices = list(devices)
-    if spec is None:
-        spec = MeshSpec(dp=len(devices))
-    spec = spec.resolve(len(devices))
-    grid = np.asarray(devices, dtype=np.int64).reshape(spec.sizes())
-    device_type = "cpu"
-    if dist.is_initialized() and dist.get_backend() == "nccl":
-        device_type = "cuda"
-    return Mesh(grid, device_type)
+    spec = (spec or MeshSpec(dp=len(devices))).resolve(len(devices))
+    return np.asarray(devices, dtype=np.int64).reshape(spec.sizes())
+
+
+def _device_type() -> str:
+    return "cuda" if dist.is_initialized() and dist.get_backend() == "nccl" else "cpu"
 
 
 def local_mesh(**axes: int) -> Mesh:

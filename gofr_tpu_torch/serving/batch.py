@@ -228,8 +228,9 @@ def lora_adjust_logits(
     """Single-row adapter delta for the host-path first-token sampling
     sites (monolithic prefill, whole-prompt and full chunk-chain hits):
     the math of :func:`_lora_delta` on one row's last-position logits,
-    before ``sample_logits``. Device ops only, no sync."""
-    e = embedding[int(token)].float()
+    before ``sample_logits``. Device ops only, no sync: a tensor token
+    indexes on the device."""
+    e = embedding[token].float()
     h = e @ a_row.float()
     return logits + (h @ b_row.float())[None]
 

@@ -15,8 +15,8 @@ package's (``gofr_tpu/analysis``):
 - ``python -m gofr_tpu_torch.analysis --all`` exits 0 on the tree; the
   baseline, JSON and SARIF behave, and the leak, deadline and kernel table
   flags and ``--chaos-coverage`` each round-trip; the stale-suppression
-  audit is off only for the five rules that wait for the mesh, and the
-  ``cancel-unreachable`` suppressions are each hit;
+  audit covers every rule id, and the ``cancel-unreachable`` suppressions
+  are each hit;
 - a forced AB/BA in two threads is a cycle in both packages' lock-order
   monitors; a tiny CPU engine run under the port's shim gives a runtime
   graph that ``check_subgraph`` accepts against the static graph.
@@ -405,21 +405,21 @@ def test_cli_formats_baseline_and_refusals(tmp_path, capsys):
 
 
 def test_pending_rules_are_the_five_that_wait_for_the_mesh():
-    """The stale-suppression audit is off only for shardcheck's four rules
-    and kernelcheck's spec-rank-mismatch (ROADMAP Queue A item 16); every
-    other family of the reference runs in the port."""
+    """None waits any more: shardcheck's four rules and kernelcheck's
+    spec-rank-mismatch run in the port (ROADMAP Queue A item 16), the
+    stale-suppression audit covers every id, and the port's rules are the
+    reference's rule ids less the ones no AST rule raises (the metric
+    catalog's, the FFI check's, the audit's and the parser's)."""
     from gofr_tpu.analysis.sarif import RULE_DESCRIPTIONS as R_RULES
-    from gofr_tpu_torch.analysis.core import PENDING_RULES
+    from gofr_tpu_torch.analysis import core
     from gofr_tpu_torch.analysis.sarif import RULE_DESCRIPTIONS
 
-    assert PENDING_RULES == {"mesh-axis-unknown", "collective-unmapped",
-                             "use-after-donation", "retrace-hazard", "spec-rank-mismatch"}
-    assert set(R_RULES) - set(RULE_DESCRIPTIONS) == PENDING_RULES
-    assert {r.name for r in default_rules()} >= set(RULE_DESCRIPTIONS) - {
+    assert not hasattr(core, "PENDING_RULES")
+    assert set(R_RULES) <= set(RULE_DESCRIPTIONS)
+    assert {r.name for r in default_rules()} == set(R_RULES) - {
         "metric-register-site", "metric-never-emitted", "metric-dynamic-name",
         "metric-label-cardinality", "ffi-mismatch", "ffi-unbound", "ffi-stale",
-        "ffi-layout", "stale-suppression", "bad-suppression", "syntax-error",
-        "bad-transfer-annotation"}
+        "stale-suppression", "bad-suppression", "syntax-error", "bad-transfer-annotation"}
 
 
 def test_cancel_unreachable_suppressions_count_as_used():

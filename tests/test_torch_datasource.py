@@ -136,8 +136,11 @@ def test_from_config():
     ({"TPU_COMPILE_CACHE_DIR": "/tmp/cache"}, "cannot be persisted"),
 ])
 def test_refused_config_keys(values, match):
+    """A bad key is refused at construction; a mesh over more than one
+    device at ``connect`` when no world of ranks is up (over a world:
+    tests/test_torch_sick_chip_mesh.py)."""
     with pytest.raises(ValueError, match=match):
-        new_tpu(MapConfig(values, use_env=False), device="cpu")
+        new_tpu(MapConfig(values, use_env=False), device="cpu").connect()
 
 
 def test_unconnected_health_down():

@@ -15,6 +15,12 @@ JAX package's.
 - The contract table differs from the reference's only where the list
   below says, each with its ROADMAP Queue C item.
 - ``check_kernel_table`` replays exports against the port's table.
+- ``spec-rank-mismatch``'s reference fixtures are written over the mesh
+  client's ``compile(name, fn, *examples, in_shardings=, out_shardings=)``
+  (the port's ``shard_map(fn, in_specs=, out_specs=)(*args)``), with
+  ``NamedSharding(mesh, P(...))`` placements; the port's own checks (a
+  global-view wrapper against its bodies, the placement calls, the
+  sharding-rule tables against ``init_params``) are held below.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from gofr_tpu_torch.analysis.kernelcheck import (  # noqa: E402
     DtypeDisciplineRule,
     KernelContractCoverageRule,
     PackLayoutRule,
+    SpecRankRule,
     check_kernel_table,
     kernelcheck_rules,
 )
@@ -53,6 +60,8 @@ ENGINE = "gofr_tpu_torch/serving/engine.py"
 BATCH = "gofr_tpu_torch/serving/batch.py"
 KVC = "gofr_tpu_torch/serving/kv_cache.py"
 FLASH = "gofr_tpu_torch/ops/flash_attention.py"
+PX = "gofr_tpu_torch/parallel/x.py"
+_SHARDING_IMPORT = "from gofr_tpu_torch.parallel.sharding import NamedSharding, P\n"
 
 _GOOD_CONSUME = (
     "def _block_sync(x):\n"
@@ -212,6 +221,70 @@ CASES = {
         "        self._pending_admit: dict[int, tuple[int, int, int, int, int]] = {}\n"
         "    def admit(self, slot, a, b, c, d, e):\n"
         "        self._pending_admit[slot] = (a, b, c, d, e)\n")}, CarryFieldDriftRule),
+    # spec-rank-mismatch: shard_map(body, in_specs=, out_specs=)(args) is
+    # the mesh client's compile(name, body, *args, in_shardings=,
+    # out_shardings=); a spec places with NamedSharding(mesh, P(...))
+    "test_shard_map_in_specs_arity_mismatch_flagged": ({PX: (
+        _SHARDING_IMPORT +
+        "def body(a, b):\n"
+        "    return a, b\n"
+        "def wrap(client, x, y, z):\n"
+        "    spec = NamedSharding(client.mesh(), P('dp', None))\n"
+        "    return client.compile('body', body, x, y, z,\n"
+        "                          in_shardings=(spec, spec, NamedSharding(client.mesh(), P())),\n"
+        "                          out_shardings=(spec, spec))\n")}, SpecRankRule),
+    "test_partition_spec_arity_exceeds_declared_rank_flagged": ({PX: (
+        _SHARDING_IMPORT +
+        "def body(a,  # [B, S, D]\n"
+        "         b):  # [B, D]\n"
+        "    return a, b\n"
+        "def wrap(client, x, y):\n"
+        "    mesh = client.mesh()\n"
+        "    return client.compile('body', body, x, y,\n"
+        "                          in_shardings=(NamedSharding(mesh, P('dp')),\n"
+        "                                        NamedSharding(mesh, P('dp', None, None))),\n"
+        "                          out_shardings=(NamedSharding(mesh, P()), NamedSharding(mesh, P())))\n"
+    )}, SpecRankRule),
+    "test_out_specs_vs_returned_tuple_flagged": ({PX: (
+        _SHARDING_IMPORT +
+        "def body(a, b):\n"
+        "    return a, b\n"
+        "def wrap(client, x, y):\n"
+        "    rep = NamedSharding(client.mesh(), P())\n"
+        "    return client.compile('body', body, x, y, in_shardings=(rep, rep),\n"
+        "                          out_shardings=rep)\n")}, SpecRankRule),
+    "test_call_arity_vs_in_specs_flagged": ({PX: (
+        _SHARDING_IMPORT +
+        "def wrap(client, fn, x, y, z):\n"
+        "    rep = NamedSharding(client.mesh(), P())\n"
+        "    return client.compile('fn', fn, x, y, z, in_shardings=(rep, rep),\n"
+        "                          out_shardings=rep)\n")}, SpecRankRule),
+    # a keyword-only partial and a spec shorter than the rank (legal:
+    # trailing dims replicate)
+    "test_partial_bound_inner_and_trailing_spec_clean": ({PX: (
+        "import functools\n" + _SHARDING_IMPORT +
+        "def inner(q,  # [B, S, H, D]\n"
+        "          k,  # [B, S, H, D]\n"
+        "          v,  # [B, S, H, D]\n"
+        "          *, axis, n):\n"
+        "    return q\n"
+        "def wrap(client, q, k, v, n):\n"
+        "    spec = NamedSharding(client.mesh(), P(None, 'sp', None, None))\n"
+        "    fn = functools.partial(inner, axis='sp', n=n)\n"
+        "    return client.compile('inner', fn, q, k, v, in_shardings=(spec, spec, spec),\n"
+        "                          out_shardings=spec)\n")}, SpecRankRule),
+    # a spec tree the AST cannot resolve must not false-positive
+    "test_unresolvable_spec_pytree_skipped": ({PX: (
+        _SHARDING_IMPORT +
+        "from gofr_tpu_torch.tree import tree_map\n"
+        "def wrap(client, stage_params, x_mb, axis):\n"
+        "    def body(stage_local, x):\n"
+        "        return x\n"
+        "    mesh = client.mesh()\n"
+        "    param_specs = tree_map(lambda _: NamedSharding(mesh, P(axis)), stage_params)\n"
+        "    return client.compile('stage', body, stage_params, x_mb,\n"
+        "                          in_shardings=(param_specs, NamedSharding(mesh, P())),\n"
+        "                          out_shardings=NamedSharding(mesh, P()))\n")}, SpecRankRule),
     # coverage counts public module-level functions, not jitted defs
     "test_new_jitted_kernel_without_contract_flagged": ({FLASH: (
         _FLASH_OK + "def brand_new_kernel(x):\n    return x\n")}, _coverage),
@@ -250,8 +323,7 @@ CASES = {
 
 def test_every_reference_lint_case_is_translated():
     """Every fixture case of the reference's kernelcheck suite has a torch
-    translation here, but spec-rank-mismatch's: that family waits for the
-    port's lint over the mesh (ROADMAP Queue A item 16)."""
+    translation here, spec-rank-mismatch's among them."""
     mod = reference_module("test_kernelcheck")
     src = open(mod.__file__, encoding="utf-8").read()
     cases = {name for name in vars(mod) if name.startswith("test_")
@@ -259,7 +331,7 @@ def test_every_reference_lint_case_is_translated():
              src.split(f"def {name}(tmp_path)")[1].split("\ndef ")[0]}
     spec_rank = {n for n in cases if "SpecRankRule" in
                  src.split(f"def {n}(tmp_path)")[1].split("\ndef ")[0]}
-    assert spec_rank and set(CASES) == cases - spec_rank
+    assert len(spec_rank) == 6 and set(CASES) == cases
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -272,6 +344,66 @@ def test_translated_fixture_gives_the_reference_rule_ids(name, tmp_path, monkeyp
     files, rule = CASES[name]
     port = run_rules([materialize(tmp_path / "port", files)], [rule()])
     assert sorted(f.rule for f in port) == ref_rules, [f.render() for f in port]
+
+
+# ------------------------------------------- spec-rank-mismatch, the port's own
+def _spec_rank(tmp_path, files):
+    return sorted((f.rule, f.line) for f in run_rules([materialize(tmp_path, files)],
+                                                      [SpecRankRule()]))
+
+
+def test_global_view_plumbing_against_the_bodies_it_maps(tmp_path):
+    """``_global_view(fn, ...)`` calls ``fn(q, k, v, mesh, axis=, scale=)``:
+    a body that takes another positional count has drifted (the port's
+    ``context_parallel.py`` idiom)."""
+    assert _spec_rank(tmp_path, {PX: (
+        "def _global_view(fn, q, k, v, mesh, axis, scale):\n"
+        "    return fn(q, k, v, mesh, axis=axis, scale=scale)\n"
+        "def ring_sharded(q,  # [B, S, H, D]\n"
+        "                 k, v, mesh, *, axis='sp', scale=None):\n"
+        "    return q\n"
+        "def ulysses_sharded(q, k, v, *, axis='sp', scale=None):\n"
+        "    return q\n"
+        "def ring(q, k, v, mesh):\n"
+        "    return _global_view(ring_sharded, q, k, v, mesh, 'sp', None)\n"
+        "def ulysses(q, k, v, mesh):\n"
+        "    return _global_view(ulysses_sharded, q, k, v, mesh, 'sp', None)\n")}) == [
+        ("spec-rank-mismatch", 11)]
+
+
+def test_placement_calls_against_the_declared_rank(tmp_path):
+    assert _spec_rank(tmp_path, {PX: (
+        _SHARDING_IMPORT +
+        "from gofr_tpu_torch.parallel.sharding import local_index, shard_leaf, with_constraint\n"
+        "def place(mesh, x,  # [B, D]\n"
+        "          w):  # [L, D, F]\n"
+        "    a = local_index((4, 8), P('dp', 'tp', None), mesh)\n"
+        "    b = local_index(x.shape, P('dp'), mesh)\n"
+        "    c = shard_leaf(w, NamedSharding(mesh, P(None, 'fsdp', 'tp', 'ep')))\n"
+        "    d = with_constraint(x, mesh, 'hidden')\n"
+        "    e = with_constraint(x, mesh, 'tokens')\n"
+        "    return a, b, c, d, e\n")}) == [
+        ("spec-rank-mismatch", 5), ("spec-rank-mismatch", 7), ("spec-rank-mismatch", 8)]
+
+
+def test_sharding_rules_against_init_params(tmp_path):
+    """Each ``<model>_sharding_rules`` entry against the rank of every
+    leaf of ``models/<model>.py``'s ``init_params`` it is the first match
+    for; the real tables are clean (``test_port_tree_clean``)."""
+    files = {
+        "gofr_tpu_torch/parallel/sharding.py": (
+            "from gofr_tpu_torch.parallel.mesh import P\n"
+            "def toy_sharding_rules():\n"
+            "    rules = [(r'w_in', P('fsdp', 'tp')), (r'w_out', P(None, 'tp', 'fsdp'))]\n"
+            "    rules.append((r'norm', P('tp', None)))\n"
+            "    return rules\n"),
+        "gofr_tpu_torch/models/toy.py": (
+            "def init_params(cfg):\n"
+            "    def w(shape):\n"
+            "        return shape\n"
+            "    return {'layers': {'w_in': w((2, 3)), 'w_out': w((3, 2)),\n"
+            "                       'norm': w((3,))}}\n")}
+    assert _spec_rank(tmp_path, files) == [("spec-rank-mismatch", 3), ("spec-rank-mismatch", 4)]
 
 
 # ------------------------------------------------------------ the table

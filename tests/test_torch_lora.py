@@ -21,6 +21,8 @@ CPU at the tiny f32 size.
 
 import importlib
 
+import time
+
 import numpy as np
 import pytest
 
@@ -177,7 +179,11 @@ def test_registry_matches_reference_on_seeded_ops(seed):
 
 
 def test_registry_slots_pins_and_lru_as_the_reference():
-    """The reference's own pin/evict scenario, held step by step."""
+    """The reference's own pin/evict scenario, held step by step. Its
+    acquires that start an upload go through ``_ref_acquire``: an upload
+    that ends before the reference re-reads its future is Queue C 12's
+    race, which a loaded host can hit (Queue C 62;
+    ``test_acquire_after_an_upload_that_ends_first`` forces it)."""
     cfg = tllama.LlamaConfig.tiny()
     mine, ref = _registries(3)  # two usable slots (0 is the base)
     try:
@@ -189,12 +195,13 @@ def test_registry_slots_pins_and_lru_as_the_reference():
         for r in (mine, ref):
             assert r.acquire(None) == 0
         sa, sb = mine.acquire("a"), mine.acquire("b")
-        assert (sa, sb) == (ref.acquire("a"), ref.acquire("b")) and 0 < sa != sb > 0
+        assert [("ok", sa), ("ok", sb)] == [_ref_acquire(ref, "a"), _ref_acquire(ref, "b")]
+        assert 0 < sa != sb > 0
         for r in (mine, ref):
             with pytest.raises((tlora.AdapterBusy, jlora.AdapterBusy)):
                 r.acquire("c", timeout=5.0)
             r.release(sa)
-        assert mine.acquire("c", timeout=10.0) == ref.acquire("c", timeout=10.0) == sa
+        assert ("ok", mine.acquire("c", timeout=10.0)) == _ref_acquire(ref, "c") == ("ok", sa)
         assert mine.residency() == ref.residency()
         assert mine.residency()["resident"] == 2
         a_row, b_row = mine.slot_factors(sa)
@@ -205,6 +212,48 @@ def test_registry_slots_pins_and_lru_as_the_reference():
                 r.acquire("never-registered")
             with pytest.raises((tlora.UnknownAdapter, jlora.UnknownAdapter)):
                 r.prefetch("never-registered")
+    finally:
+        mine.close()
+        ref.close()
+
+
+def _upload_ends_first(reg):
+    """Make ``reg.prefetch`` return only once the upload it started has
+    ended and its done callback has dropped the future: the interleaving
+    of a loaded host, where the upload thread runs before the caller
+    re-reads the future."""
+    real = reg.prefetch
+
+    def prefetch(adapter_id):
+        real(adapter_id)
+        fut = reg._uploads.get(adapter_id)
+        if fut is not None:
+            fut.result(timeout=10)
+            deadline = time.monotonic() + 10
+            while adapter_id in reg._uploads and time.monotonic() < deadline:
+                time.sleep(0.001)
+
+    reg.prefetch = prefetch
+
+
+def test_acquire_after_an_upload_that_ends_first():
+    """Queue C 62 (the LoRA registry test), forced on both packages: the
+    upload ends before ``acquire`` re-reads its future. The reference then
+    raises AdapterBusy with the adapter resident (Queue C 12, the
+    reference at fault); the port pins it at the re-read."""
+    cfg = tllama.LlamaConfig.tiny()
+    mine, ref = _registries(3)
+    try:
+        ad = tlora.make_adapter(cfg, "a", rank=2, seed=1)
+        mine.register(ad)
+        ref.register(jlora.LoraAdapter(ad.adapter_id, ad.a, ad.b))
+        for r in (mine, ref):
+            _upload_ends_first(r)
+        assert _outcome(lambda: mine.acquire("a", timeout=10.0)) == ("ok", 1)
+        assert _outcome(lambda: ref.acquire("a", timeout=10.0)) == ("busy",)
+        assert "a" in ref._slot_of  # resident all the same
+        assert _ref_acquire(ref, "a") == ("ok", 1)
+        assert mine.residency()["resident"] == ref.residency()["resident"] == 1
     finally:
         mine.close()
         ref.close()

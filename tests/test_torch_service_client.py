@@ -177,6 +177,7 @@ class Scripted:
         self.health = list(health)
         self.calls = []
         self.address = "http://scripted"
+        self.gate = None  # a threading.Event the health check waits on, when set up
 
     def request(self, method, path, **kw):
         self.calls.append((method, path))
@@ -191,6 +192,8 @@ class Scripted:
     stream = request
 
     def health_check(self):
+        if self.gate is not None:  # the breaker's probe waits for the test's go
+            self.gate.wait(timeout=5)
         self.calls.append(("HEALTH", ""))
         up = self.health.pop(0) if self.health else True
         return {"status": "UP" if up else "DOWN"}
@@ -202,11 +205,36 @@ def _script(seed, n):
     return [rng.choice(pool) for _ in range(n)]
 
 
+def _await_probe(cb, inner) -> None:
+    """Open the gate of the breaker's probe, wait for it to close the
+    breaker, and let it finish publishing; then shut the gate again."""
+    inner.gate.set()
+    deadline = time.monotonic() + 5
+    while cb.is_open and time.monotonic() < deadline:
+        time.sleep(0.005)
+    assert not cb.is_open
+    # the closing probe publishes after it clears the state: let it finish
+    # before the next request, or the next failures race it (Queue C 58,
+    # still in the reference)
+    cb._probe_thread.join(timeout=5)
+    assert not cb._probe_thread.is_alive()
+    inner.gate.clear()
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_circuit_breaker_transitions(seed):
+    """The probe's health checks wait for a gate the test opens once a
+    request has met the open breaker (and at the end, when the breaker is
+    still open): the probe cannot close the breaker before the opening
+    request has published, nor before the next request, whatever the
+    host's load. Without the gate, a thread late by one 10 ms interval
+    changed the sequence on one side only (Queue C 62):
+    ``test_breaker_probe_overtaking_the_opening_publish`` forces each of
+    those interleavings on both packages."""
     got = {}
     for name, (_, opts, manager, _) in SIDES.items():
         inner = Scripted(opts, _script(seed, 40), [False, False, True])
+        inner.gate = threading.Event()
         metrics = manager()
         metrics.new_gauge("app_service_breaker_state", "d")
         inner.metrics = metrics
@@ -221,19 +249,79 @@ def test_circuit_breaker_transitions(seed):
             except Exception as exc:
                 record.append(type(exc).__name__)
                 if isinstance(exc, opts.CircuitBreakerError):
-                    deadline = time.monotonic() + 5
-                    while cb.is_open and time.monotonic() < deadline:
-                        time.sleep(0.005)
-                    assert not cb.is_open
-                    # the closing probe publishes after it clears the state:
-                    # let it finish before the next request, or the next
-                    # failures race it (Queue C 58, still in the reference)
-                    cb._probe_thread.join(timeout=5)
-                    assert not cb._probe_thread.is_alive()
+                    _await_probe(cb, inner)
+        if cb.is_open:
+            _await_probe(cb, inner)
         gauge = metrics.get("app_service_breaker_state").value({"address": "http://scripted"})
-        got[name] = (record, transitions, inner.calls, gauge)
+        got[name] = (record, transitions, list(inner.calls), gauge)
     assert got["port"] == got["ref"]
     assert True in got["port"][1] or "CircuitBreakerError" not in got["port"][0]
+
+
+class _SlowOpenGauge:
+    """Metrics whose write of the open state (1.0) first waits until the
+    breaker has closed again: the opening request's thread is late to
+    publish, and the probe closes the breaker meanwhile."""
+
+    def __init__(self, metrics, cb_of) -> None:
+        self.metrics, self.cb_of = metrics, cb_of
+
+    def set_gauge(self, name, value, **labels):
+        if value == 1.0:
+            deadline = time.monotonic() + 5
+            while self.cb_of().is_open and time.monotonic() < deadline:
+                time.sleep(0.002)
+        self.metrics.set_gauge(name, value, **labels)
+
+    def __getattr__(self, name):
+        return getattr(self.metrics, name)
+
+
+@pytest.mark.parametrize("late", ["publish", "next_request"])
+def test_breaker_probe_overtaking_the_opening_publish(late):
+    """Queue C 62's two interleavings, forced on both packages with the
+    probe's 10 ms interval. ``publish``: the opening request's thread is
+    late between opening the breaker and publishing it, and the probe closes
+    it meanwhile. The port publishes in the state's order (open, then
+    closed; the gauge ends 0); the reference publishes the close first and
+    leaves the gauge at 1 on a closed breaker, the fault Queue C 58 settled
+    in the port. ``next_request``: the thread is late to its next request,
+    and the probe closes the breaker first: the next request reaches the
+    inner client on both packages alike; only a lateness on one side and
+    not the other made the seeded test's two sides differ."""
+    got = {}
+    for name, (_, opts, manager, _) in SIDES.items():
+        inner = Scripted(opts, [503, 503, 503, 200], [])
+        metrics = manager()
+        metrics.new_gauge("app_service_breaker_state", "d")
+        cb = None
+        inner.metrics = _SlowOpenGauge(metrics, lambda: cb) if late == "publish" else metrics
+        cb = opts.CircuitBreakerConfig(threshold=3, interval=0.01).add_option(inner)
+        transitions = []
+        cb.on_state_change = transitions.append
+        record = []
+        for i in range(4):
+            if late == "next_request" and i == 3:
+                deadline = time.monotonic() + 5
+                while cb.is_open and time.monotonic() < deadline:
+                    time.sleep(0.002)
+                cb._probe_thread.join(timeout=5)
+            try:
+                record.append(cb.request("GET", f"/r{i}").status_code)
+            except Exception as exc:
+                record.append(type(exc).__name__)
+        cb._probe_thread.join(timeout=5)
+        gauge = metrics.get("app_service_breaker_state").value({"address": "http://scripted"})
+        got[name] = (record, transitions, [c for c in inner.calls if c[0] != "HEALTH"], gauge,
+                     cb.is_open)
+    if late == "publish":
+        assert got["port"] == ([503, 503, 503, 200], [True, False],
+                               [("GET", f"/r{i}") for i in range(4)], 0.0, False)
+        assert got["ref"][1] == [False, True] and got["ref"][3] == 1.0 and not got["ref"][4]
+    else:
+        assert got["port"] == got["ref"] == (
+            [503, 503, 503, 200], [True, False], [("GET", f"/r{i}") for i in range(4)], 0.0,
+            False)
 
 
 def test_breaker_reopened_while_its_probe_closes_recovers():
