@@ -43,9 +43,10 @@ Phases, each a hard failure with a non-zero exit:
    engine generated (on the int8 paths with K/V passed through
    ``quantize_kv`` and ``dequantize_kv`` at every layer); then the
    lifecycle phase (cancel, priority, deadlines, streaming, drain, shed on
-   a dense and a paged int8 engine); then the kv-reuse and spec phase, at
-   ``PLANE_DEPTH`` (4 of the 32 layers), one engine after another with
-   the launches of each counted alone:
+   a dense and a paged int8 engine), at ``PLANE_DEPTH`` (4 of the 32
+   layers) from PR 27; then the kv-reuse and spec phase, at
+   ``PLANE_DEPTH``, one engine after another with the launches of each
+   counted alone:
    - ``R1`` dense bf16, ``R2`` paged bf16 (16-token pages) and ``R3`` paged
      int8 (32-token pages), each with a 64-entry, 2 GiB prefix cache: a
      200-token prompt twice (the second a whole-prompt hit: no prefill,
@@ -524,12 +525,28 @@ Phases, each a hard failure with a non-zero exit:
    an ``App`` with HTTP and gRPC (the path's ten prompts, then 8
    ``/generate`` and 4 gRPC ``Generate`` calls at once, ``app_ttft_seconds``
    counting all 12) and ``TP-Q`` on the int8 path's (its prompts and the
-   3000-token one, chunked); each engine's first tokens equal the one-card
-   path's on at least ``TP_FIRST_MIN`` of the 9 greedy prompts (the
-   common prefixes printed), every rank's hash of its packed blocks equals
-   rank 0's, and every kernel launches on every rank; it prints a
-   ``{"tp": ...}`` line, and the ranks' launches are the ``kernels`` rows'
-   ``launches_tp``. Both spawning phases first print the parent's
+   3000-token one, chunked); then ``TP-R`` on views of the first
+   ``PLANE_DEPTH`` layers of the same slices, the bf16 path's config with
+   the prefix cache over a spill tier (``TP_R_DEVICE_BYTES`` on the card):
+   a 480-token prompt three times (warm tokens equal cold, no prefill
+   dispatch on a hit), a 200-token one that spills it, the first again
+   from the host tier, ``TP_R_SPEC_CANDIDATES`` prompts at once (the
+   spec prompt is the one whose greedy continuation the prompt-lookup
+   drafter would follow furthest), and a ``warm_restart`` with two
+   requests queued behind a held loop (both complete, ``epoch`` bumped,
+   no rank's ``memory_allocated`` higher after it), then a ``spec_tokens``
+   engine on the spec prompt: drafts accepted, and each of its tokens and
+   of the non-spec engine's greedy under the tp forward of the prompt and
+   the tokens before it (within ``TP_TIE_GAP`` of the top logit); then each rank
+   drops its bf16 slices and draws the weight-only int8 ones
+   (``init_params(quantize=True, mesh=)``) for ``TP-W8`` on the dense-w8
+   path's config and traffic; each main-path engine's first tokens equal
+   the one-card path's on at least ``TP_FIRST_MIN`` of the 9 greedy
+   prompts (the common prefixes printed), every rank's hash of its packed
+   blocks equals rank 0's for every engine, and every kernel a path runs
+   launches on every rank; it prints a ``{"tp": ...}`` line, and the
+   ranks' launches are the ``kernels`` rows' ``launches_tp`` (by path in
+   ``launches_tp_paths``). Both spawning phases first print the parent's
    ``memory_allocated`` before any collection, which must be at most
    ``HELD_MAX_GB``: every phase undoes its engines' patches as it ends
    and drops its stopped engines' KV (``release_engines``), and the
@@ -614,14 +631,16 @@ LONE_ROW = 4000  # one long request alone (B=1): split across 16 spans
 FLASH_CHECK_S = (32, 128, 200, 1024, 2048)
 MAIN_LENS = [5, 31, 60, 120, 250, 480, 777, 1000, 9, 333]  # the bf16 path's prompts
 LONG_PROMPT = 3000  # the int8 path's extra prompt, past the largest bucket (2048)
-# the bf16 and int8 paths' engine configs; the tp phase's TP-B and TP-Q mirror them. bf16: a
-# chunk of 2048 keeps every prompt up to the largest bucket monolithic; int8: the reference's
-# 256-token chunks
+# the bf16, int8 and dense-w8 paths' engine configs; the tp phase's TP-B, TP-Q and TP-W8 mirror
+# them. bf16: a chunk of 2048 keeps every prompt up to the largest bucket monolithic; int8 and
+# dense-w8: the reference's 256-token chunks
 MAIN_ENGINES = {
     "bf16": dict(max_slots=8, max_seq_len=2048, kv_layout="paged", kv_page_size=16, multi_step=4,
                  max_new_tokens_default=32, prefill_chunk_tokens=2048),
     "int8": dict(max_slots=8, max_seq_len=4096, kv_layout="paged", kv_page_size=32, multi_step=4,
                  max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
+    "dense-w8": dict(max_slots=8, max_seq_len=4096, kv_layout="dense", multi_step=4,
+                     max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
 }
 MAIN_TOKENS: dict = {}  # each main path's tokens by prompt, for the tp phase
 
@@ -10354,6 +10373,24 @@ TP_DEPTH = 32  # the tp phase runs the model whole
 TP_DEADLINE_S = 900.0  # run_spmd kills every rank past this
 TP_FIRST_MIN = 7  # of the 9 greedy main prompts, first tokens equal to the one-card path's
 TP_LOAD = (8, 4, 5)  # HTTP /generate calls, gRPC Generate calls, tokens each (the reference test's)
+# TP-R's device tier: at PLANE_DEPTH layers a 480-token entry counts 8.5 MiB (its 512-token bucket
+# of K and V at the whole KV's size, and its logits) and a 200-token one 4.5 MiB: one fits, not both
+TP_R_DEVICE_BYTES = 12 << 20
+TP_R_NEW = 24  # TP-R's new tokens a request
+# TP-R's spec prompt: of this many 40-token prompts, the one whose greedy continuation of
+# TP_R_SPEC_NEW tokens the prompt-lookup drafter would follow furthest (at random weights a
+# continuation seldom repeats itself, so a prompt taken blind accepts no draft)
+TP_R_SPEC_CANDIDATES, TP_R_SPEC_NEW = 16, 64
+# each greedy token of the spec and the non-spec engine is within this of the top logit of the tp
+# forward of the prompt and the tokens before it: the engines part only at a near-tie (the chunk
+# verify and the paged decode round differently at bf16; the one-card S1/S2 parted at gaps up to
+# 0.05, PR 7)
+TP_TIE_GAP = 0.1
+# the kernels each tp path must launch on every rank
+TP_MUST = {"TP-B": {"flash_attention", "paged_decode_attention"},
+           "TP-Q": {"flash_attention", "paged_decode_attention_q"},
+           "TP-R": {"flash_attention", "paged_decode_attention"},
+           "TP-W8": {"flash_attention"}}
 
 
 def main_prompts(vocab: int, lens: list[int]) -> tuple[list[int], list[list[int]]]:
@@ -10472,10 +10509,12 @@ def tp_rank(dev, inp: dict) -> dict:
     weights from ``SEED`` leaf by leaf and keeps its tp=4 slices
     (``init_params(mesh=)``); rank 0 holds the kernels to their plain
     versions at the local shapes and its tp ``prefill`` logits to the
-    one-card ones, then runs TP-B (with an App over HTTP and gRPC) and TP-Q
-    as ``ServingEngine(..., mesh=)`` while every other rank runs
-    ``serve_follower`` for each. Returns this rank's launches, peak memory,
-    hash of its packed blocks and, on rank 0, the checks' record."""
+    one-card ones, then runs TP-B (with an App over HTTP and gRPC), TP-Q
+    and TP-R (:func:`tp_features`) as ``ServingEngine(..., mesh=)`` while
+    every other rank runs ``serve_follower`` for each; then every rank
+    drops its bf16 slices and draws the weight-only int8 ones for TP-W8.
+    Returns this rank's launches by path, peak memory, hash of each
+    engine's packed blocks and, on rank 0, the checks' record."""
     import torch
     import torch.distributed as dist
 
@@ -10519,22 +10558,34 @@ def tp_rank(dev, inp: dict) -> dict:
         if not rel <= LOGITS_REL_TOL:
             raise AssertionError(f"tp: prefill logits relative L2 {rel} > {LOGITS_REL_TOL}")
     kernels = counters()
-    for fn in kernels.values():
-        fn.launches = 0
+    out["launches_by_path"] = {}
+
+    def counted(path: str, fn):
+        """``fn()`` with the kernels' counters from 0; this rank's launches
+        in it are the path's."""
+        for k in kernels.values():
+            k.launches = 0
+        try:
+            return fn()
+        finally:
+            out["launches_by_path"][path] = {n: k.launches for n, k in kernels.items()}
+
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     out["engines"] = {}
-    for name, path, lens in (("TP-B", "bf16", MAIN_LENS), ("TP-Q", "int8", MAIN_LENS + [LONG_PROMPT])):
+
+    def main_path(name: str, path: str, lens: list[int], weights: dict) -> dict:
+        """One main path's engine on the mesh, its traffic held to the
+        one-card path's tokens (rank 0), or a follower's service."""
         conf = EngineConfig(**MAIN_ENGINES[path])
         if not lead:
-            res = serve_follower(cfg, params, conf, mesh=mesh, device=dev)
-            out["engines"][name] = {"blocks": res.blocks, "digest": res.digest}
-            continue
+            res = serve_follower(cfg, weights, conf, mesh=mesh, device=dev)
+            return {"blocks": res.blocks, "digest": res.digest}
         warm, prompts = main_prompts(cfg.vocab_size, lens)
         app = thread = None
         if name == "TP-B":
             app, base, grpc_target = tp_app()
-        engine = ServingEngine(cfg, params, conf, ByteTokenizer(cfg.vocab_size), seed=SEED,
+        engine = ServingEngine(cfg, weights, conf, ByteTokenizer(cfg.vocab_size), seed=SEED,
                                device=dev, mesh=mesh,
                                metrics=app.container.metrics_manager if app else None)
         t0 = time.perf_counter()
@@ -10567,12 +10618,241 @@ def tp_rank(dev, inp: dict) -> dict:
             engine.stop()
         rec["seconds"] = time.perf_counter() - t0
         rec["blocks"], rec["digest"] = engine.tp_digest()
-        out["engines"][name] = rec
-        del engine
+        return rec
+
+    for name, path, lens in (("TP-B", "bf16", MAIN_LENS),
+                             ("TP-Q", "int8", MAIN_LENS + [LONG_PROMPT])):
+        out["engines"][name] = counted(name, lambda: main_path(name, path, lens, params))
+    out["engines"].update(counted("TP-R", lambda: tp_features(dev, cfg, params, mesh, say)))
+    # TP-W8: the bf16 slices go (the TP-R views with them), the int8 ones are
+    # drawn as one card's quantize_params would make them, sliced
+    drop_weights(params)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                               mesh=mesh, quantize=True)
     torch.cuda.synchronize(dev)
-    out["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    out["w8_gb"], out["w8_init_s"] = llama.param_bytes(params) / 1e9, time.perf_counter() - t0
+    say(f"TP-W8: rank 0's weight-only int8 slices {out['w8_gb']:.2f} GB, drawn and quantized "
+        f"whole leaf by leaf in {out['w8_init_s']:.1f} s")
+    out["engines"]["TP-W8"] = counted("TP-W8", lambda: main_path(
+        "TP-W8", "dense-w8", MAIN_LENS + [LONG_PROMPT], params))
+    drop_weights(params)
+    torch.cuda.synchronize(dev)
+    out["launches"] = {n: sum(p[n] for p in out["launches_by_path"].values()) for n in kernels}
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    say(f"rank 0's launches {out['launches']}, peak {out['peak_gb']:.2f} GB")
+    say(f"rank 0's launches by path {out['launches_by_path']}, peak {out['peak_gb']:.2f} GB")
+    return out
+
+
+class TPGate:
+    """Holds an engine's loop before its admission while ``closed``, and
+    lets it go once the loop is stopped (a ``warm_restart`` joins it);
+    ``waiting`` is set once the loop waits there. An instance patch:
+    ``release_engines`` undoes it."""
+
+    def __init__(self, engine) -> None:
+        self.closed = threading.Event()
+        self.waiting = threading.Event()
+        real = engine._admit
+
+        def admit(plan):
+            while self.closed.is_set() and engine._running:
+                self.waiting.set()
+                time.sleep(0.005)
+            return real(plan) if engine._running else False
+
+        engine._admit = admit
+
+
+def tp_features(dev, cfg, params, mesh, say) -> dict:
+    """TP-R: the prefix cache with its spill tier, ``warm_restart`` and
+    speculative decoding on the tp engine, at ``PLANE_DEPTH`` layers (views
+    of the rank's bf16 slices) and the bf16 path's config. Rank 0 runs the
+    engines and their checks, every other rank serves them and records its
+    ``memory_allocated`` around its own ``restart``; then every rank joins
+    the greedy check's tp forwards (``tp_greedy_gaps``). Returns each
+    engine's record (rank 0) or its blocks and hash."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.serving import batch as batch_ops
+    from gofr_tpu_torch.serving import tp_group
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    lead = dist.get_rank() == 0
+    cut_cfg, cut = cut_depth(cfg, params, PLANE_DEPTH)
+    conf = EngineConfig(**MAIN_ENGINES["bf16"], prefix_cache_entries=8,
+                        prefix_cache_bytes=TP_R_DEVICE_BYTES, kv_spill_bytes=1 << 30)
+    spec_conf = EngineConfig(**{**MAIN_ENGINES["bf16"], "multi_step": None},
+                             spec_tokens=SPEC_TOKENS, spec_ngram=SPEC_NGRAM)
+    _, (system, other, first, second, *candidates) = main_prompts(
+        cut_cfg.vocab_size, [480, 200, 60, 120] + [40] * TP_R_SPEC_CANDIDATES)
+    if not lead:
+        memory = []
+        real = tp_group._Follower._init_state
+
+        def init_state(follower) -> None:  # a restart's, not the hello's: the store exists
+            before = torch.cuda.memory_allocated(dev) if hasattr(follower, "store") else None
+            real(follower)
+            if before is not None:
+                memory.append((before / 1e9, torch.cuda.memory_allocated(dev) / 1e9))
+
+        tp_group._Follower._init_state = init_state
+        try:
+            r = tp_group.serve_follower(cut_cfg, cut, conf, mesh=mesh, device=dev)
+        finally:
+            tp_group._Follower._init_state = real
+        s = tp_group.serve_follower(cut_cfg, cut, spec_conf, mesh=mesh, device=dev)
+        tp_greedy_gaps(dev, cut_cfg, cut, mesh, None)
+        return {"TP-R": {"blocks": r.blocks, "digest": r.digest, "restart_gb": memory,
+                         "store": (len(r.prefix_card), len(r.prefix_host))},
+                "TP-R spec": {"blocks": s.blocks, "digest": s.digest}}
+    prefills = [0]
+    real_prefill = batch_ops.prefill_compute
+
+    def prefill_compute(*args, **kw):
+        prefills[0] += 1
+        return real_prefill(*args, **kw)
+
+    def one(engine, ids: list[int], new: int = TP_R_NEW):
+        prefills[0] = 0
+        r = engine.submit(ids, max_new_tokens=new, temperature=0.0).result(timeout=600)
+        if r.finish_reason not in ("length", "stop") or not r.token_ids:
+            raise AssertionError(f"TP-R: a {len(ids)}-token prompt ended {r.finish_reason}")
+        return r, prefills[0]
+
+    t0 = time.perf_counter()
+    engine = ServingEngine(cut_cfg, cut, conf, ByteTokenizer(cut_cfg.vocab_size), seed=SEED,
+                           device=dev, mesh=mesh)
+    gate = TPGate(engine)
+    batch_ops.prefill_compute = prefill_compute
+    engine.start()
+    try:
+        runs = [one(engine, system) for _ in range(3)]  # cold, then two warm
+        runs.append(one(engine, other))  # pushes the 480-token entry to the host tier
+        if not engine._prefix_cache.flush(timeout=60):
+            raise AssertionError("TP-R: the spill worker did not settle")
+        runs.append(one(engine, system))  # re-uploaded from the host tier
+        stats = engine.health_check()["details"]["prefix_cache"]
+        pending = [engine.submit(p, max_new_tokens=TP_R_SPEC_NEW, temperature=0.0)
+                   for p in candidates]
+        conts = [f.result(timeout=600).token_ids for f in pending]
+        follows = [drafts_followed(p, c) for p, c in zip(candidates, conts)]
+        pick = max(range(len(follows)), key=follows.__getitem__)
+        if not engine._prefix_cache.flush(timeout=60):  # their spills, before the restart
+            raise AssertionError("TP-R: the spill worker did not settle")
+        # the restart: two requests queued behind the held loop
+        gate.closed.set()
+        gate.waiting.wait(timeout=60)
+        futs = [engine.submit(p, max_new_tokens=TP_R_NEW, temperature=0.0) for p in (first, second)]
+        torch.cuda.synchronize(dev)
+        before_gb, epoch = torch.cuda.memory_allocated(dev) / 1e9, engine.epoch
+        t_restart = time.perf_counter()
+        restarted = engine.warm_restart(join_timeout=60)
+        restart_ms = (time.perf_counter() - t_restart) * 1e3
+        after_gb = torch.cuda.memory_allocated(dev) / 1e9
+        gate.closed.clear()
+        queued = [f.result(timeout=600) for f in futs]
+    finally:
+        gate.closed.clear()
+        batch_ops.prefill_compute = real_prefill
+        engine.stop()
+    digest = engine.tp_digest()
+    tokens = [r.token_ids for r, _ in runs]
+    rec = {"prefills": [n for _, n in runs], "warm_equal_cold": tokens[1] == tokens[0] == tokens[2],
+           "host_equal_cold": tokens[4] == tokens[0],
+           "ttft_ms": [r.ttft_s * 1e3 for r, _ in runs],
+           "prefix_cache": {k: stats[k] for k in ("entries", "hits", "misses", "bytes")},
+           "host_hits": stats["host"]["hits"], "spilled": stats["spilled_total"],
+           "restarted": restarted, "epoch": (epoch, engine.epoch), "restart_ms": restart_ms,
+           "restart_gb": (before_gb, after_gb),
+           "queued": [(r.finish_reason, r.completion_tokens) for r in queued],
+           "blocks": digest[0], "digest": digest[1]}
+    say(f"TP-R prefix cache at {PLANE_DEPTH} layers: prefill dispatches {rec['prefills']} (480 cold, "
+        f"warm, warm, 200, 480 from the host tier), TTFT ms {rec['ttft_ms']}, warm equal cold "
+        f"{rec['warm_equal_cold']}, host equal cold {rec['host_equal_cold']}, stats "
+        f"{rec['prefix_cache']}, host hits {rec['host_hits']}, spilled {rec['spilled']}; warm "
+        f"restart {restart_ms:.1f} ms, epoch {rec['epoch']}, memory_allocated {before_gb:.3f} -> "
+        f"{after_gb:.3f} GB, the queued two {rec['queued']}")
+    if (rec["prefills"] != [1, 0, 0, 1, 0] or not rec["warm_equal_cold"]
+            or not rec["host_equal_cold"] or rec["host_hits"] != 1 or rec["spilled"] < 1
+            or stats["hits"] != 2):  # the device tier's two warm hits; the host tier's its own
+        raise AssertionError(f"TP-R: the prefix cache and spill tier: {rec}")
+    if (not restarted or engine.epoch != epoch + 1 or after_gb > before_gb
+            or any(f not in ("length", "stop") or n < 1 for f, n in rec["queued"])):
+        raise AssertionError(f"TP-R: the warm restart: {rec}")
+    spec = ServingEngine(cut_cfg, cut, spec_conf, ByteTokenizer(cut_cfg.vocab_size), seed=SEED,
+                         device=dev, mesh=mesh)
+    spec.start()
+    try:
+        spec_run, _ = one(spec, candidates[pick], TP_R_SPEC_NEW)
+    finally:
+        spec.stop()
+    rec_spec = {"spec_stats": dict(spec.spec_stats), "blocks": spec.tp_digest()[0],
+                "digest": spec.tp_digest()[1], "candidates_followed": follows, "pick": pick}
+    a, b = spec_run.token_ids, conts[pick]
+    diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if diff is None and len(a) != len(b):
+        diff = min(len(a), len(b))
+    gaps = tp_greedy_gaps(dev, cut_cfg, cut, mesh, (candidates[pick], [a, b]))
+    rec_spec.update(equal=diff is None, first_difference=diff,
+                    max_gap={"spec": max(gaps[0]), "plain": max(gaps[1])})
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"TP-R spec_tokens={SPEC_TOKENS}: drafts the non-spec continuations would accept "
+        f"{follows} (candidate {pick} taken), spec_stats {rec_spec['spec_stats']}, greedy tokens "
+        f"equal to the non-spec engine's {rec_spec['equal']} (first difference {diff}); each "
+        f"token's gap to the tp forward's top logit at most {rec_spec['max_gap']}; TP-R "
+        f"{rec['seconds']:.1f} s")
+    if (follows[pick] < 1 or not rec_spec["spec_stats"]["accepted"] or a[:1] != b[:1]
+            or max(rec_spec["max_gap"].values()) > TP_TIE_GAP):
+        raise AssertionError(f"TP-R: the spec engine's tokens {a} against the non-spec {b}: "
+                             f"{rec_spec}")
+    return {"TP-R": rec, "TP-R spec": rec_spec}
+
+
+def drafts_followed(prompt: list[int], tokens: list[int]) -> int:
+    """How many draft tokens the spec engine's prompt-lookup drafter
+    (``SPEC_NGRAM``, up to ``SPEC_TOKENS`` a step) would have accepted
+    had it emitted ``tokens``, greedy, after ``prompt``: the first token
+    from the prefill, then each step the drafts that match and one more."""
+    from gofr_tpu_torch.models import llama
+
+    i, accepted = 1, 0
+    while i < len(tokens):
+        draft = llama._prompt_lookup_draft(prompt + tokens[:i], SPEC_NGRAM,
+                                           min(SPEC_TOKENS, len(tokens) - i - 1))
+        m = 0
+        while m < len(draft) and draft[m] == tokens[i + m]:
+            m += 1
+        accepted += m
+        i += m + 1
+    return accepted
+
+
+def tp_greedy_gaps(dev, cfg, params, mesh, job: tuple | None) -> list[list[float]] | None:
+    """Every rank: rank 0's ``job`` (a prompt and token lists; None:
+    nothing to check) by a broadcast, then for each list the tp forward
+    of the prompt and its tokens, and at each token the gap from the top
+    logit to that token's (rank 0's result)."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.models import llama
+
+    box = [job]
+    dist.broadcast_object_list(box, src=0)
+    if box[0] is None:
+        return None
+    prompt, seqs = box[0]
+    out = []
+    for seq in seqs:
+        logits = llama.forward(cfg, params, torch.tensor([prompt + seq[:-1]], device=dev),
+                               mesh=mesh)[0, len(prompt) - 1:].float()
+        picked = logits[torch.arange(len(seq), device=dev), torch.tensor(seq, device=dev)]
+        out.append((logits.max(-1).values - picked).tolist())
     return out
 
 
@@ -10632,15 +10912,17 @@ def run_tp(torch, gold: dict | None = None) -> dict:
     1000-token prompt), freed before one world of ``TP_RANKS`` spawned
     ranks on the one card over gloo runs ``tp_rank``. ``gold`` is each
     main path's tokens by prompt (the script's own ``MAIN_TOKENS``). Every
-    rank's hash of its packed blocks must equal rank 0's; each kernel must
-    launch on every rank."""
+    rank's hash of each engine's packed blocks must equal rank 0's, each
+    kernel a path runs must launch on every rank, and no follower's
+    ``memory_allocated`` may rise over its restart."""
     import chip_smoke as me  # by its module name: a spawned rank imports it
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.parallel import world
 
     gold = MAIN_TOKENS if gold is None else gold
-    if not {"bf16", "int8"} <= set(gold):
-        raise AssertionError("tp: the bf16 and int8 paths' tokens are not recorded")
+    paths = ("bf16", "int8", "dense-w8")
+    if not set(paths) <= set(gold):
+        raise AssertionError("tp: the bf16, int8 and dense-w8 paths' tokens are not recorded")
     held, _, cyclic = parent_memory(torch, "tp")
     t0 = time.perf_counter()
     cfg = llama.LlamaConfig.llama3_8b(n_layers=TP_DEPTH)
@@ -10660,34 +10942,48 @@ def run_tp(torch, gold: dict | None = None) -> dict:
           f"{ref_s:.1f} s; parent {torch.cuda.memory_allocated() / 1e9:.2f} GB after", flush=True)
     t0 = time.perf_counter()
     ranks = world.run_spmd(me.tp_rank, TP_RANKS, backend="gloo", timeout_s=TP_DEADLINE_S,
-                           args=({"gold": {k: gold[k] for k in ("bf16", "int8")},
+                           args=({"gold": {k: gold[k] for k in paths},
                                   "logits_prompt": ids, "ref_logits": ref_logits},))
     phase_s = time.perf_counter() - t0
     lead = ranks[0]
-    for name in ("TP-B", "TP-Q"):
+    for name in lead["engines"]:
         want = (lead["engines"][name]["blocks"], lead["engines"][name]["digest"])
         got = {r["rank"]: (r["engines"][name]["blocks"], r["engines"][name]["digest"])
                for r in ranks}
         if set(got.values()) != {want} or want[0] == 0:
             raise AssertionError(f"tp {name}: the ranks' packed blocks differ: {got}")
     for r in ranks:
-        if not all(r["launches"].values()):
-            raise AssertionError(f"tp: rank {r['rank']} launched {r['launches']}; every kernel must "
-                                 "launch on every rank")
+        for path, must in TP_MUST.items():
+            if not all(r["launches_by_path"][path][n] for n in must):
+                raise AssertionError(f"tp {path}: rank {r['rank']} launched "
+                                     f"{r['launches_by_path'][path]}; {sorted(must)} must launch "
+                                     "on every rank")
+    for r in ranks[1:]:
+        restart = r["engines"]["TP-R"]["restart_gb"]
+        if len(restart) != 1 or restart[0][1] > restart[0][0]:
+            raise AssertionError(f"tp TP-R: rank {r['rank']}'s memory_allocated over its restart "
+                                 f"{restart} (GB before, after)")
+    by_path = {path: {n: sum(r["launches_by_path"][path][n] for r in ranks) for n in counters()}
+               for path in lead["launches_by_path"]}
     out = {"ranks": ranks, "phase_s": phase_s, "reference_s": ref_s,
            "parent_gb_before_gc": held / 1e9, "cyclic": cyclic,
            "launches": {n: sum(r["launches"][n] for r in ranks) for n in counters()},
+           "launches_by_path": by_path,
            "launches_by_rank": [r["launches"] for r in ranks],
-           "peak_gb_by_rank": [r["peak_gb"] for r in ranks]}
-    print(f"  tp phase: {phase_s:.1f} s for the world; launches by rank {out['launches_by_rank']}; "
-          f"peak GB by rank {out['peak_gb_by_rank']}; packed-block hashes equal on every rank",
-          flush=True)
+           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+           "w8_gb_by_rank": [r["w8_gb"] for r in ranks],
+           "restart_gb_by_rank": [lead["engines"]["TP-R"]["restart_gb"]]
+           + [r["engines"]["TP-R"]["restart_gb"][0] for r in ranks[1:]]}
+    print(f"  tp phase: {phase_s:.1f} s for the world; launches by path {by_path}; peak GB by rank "
+          f"{out['peak_gb_by_rank']}; TP-W8 int8 slices GB by rank {out['w8_gb_by_rank']}; "
+          f"memory_allocated over TP-R's restart by rank {out['restart_gb_by_rank']}; packed-block "
+          "hashes equal on every rank for every engine", flush=True)
     return out
 
 
-PLANE_DEPTH = 4  # layers of the phases run at a cut depth (kv-reuse and spec, tenancy, healing,
-# observability, HA, fleet, http H1-H2, surface, sql, pubsub, files jobs, stores, analytics, grpc,
-# and the parallel phase's MP1 and MP4)
+PLANE_DEPTH = 4  # layers of the phases run at a cut depth (lifecycle, kv-reuse and spec, tenancy,
+# healing, observability, HA, fleet, http H1-H2, surface, sql, pubsub, files jobs, stores,
+# analytics, grpc, the parallel phase's MP1 and MP4, and the tp phase's TP-R)
 DEVICE_T_DEPTH = 2  # layers of the device phase's T (and K and D on T's weights): the embedding
 # and lm_head dominate its checkpoint, which halves against PLANE_DEPTH
 
@@ -10816,9 +11112,7 @@ def run_engine(torch) -> tuple[dict, ...]:
           f"{param_bytes(params_w8) / 1e9:.2f} GB (bf16 tree {param_bytes(params) / 1e9:.2f} GB)")
     launches["dense-w8"], timings["dense-w8"] = run_phase(
         "dense-w8 path", serve_path, torch, cfg, params_w8, "dense-w8",
-        EngineConfig(max_slots=8, max_seq_len=4096, kv_layout="dense", multi_step=4,
-                     max_new_tokens_default=32, prefill_chunk_tokens=256, kv_dtype="int8"),
-        MAIN_LENS + [LONG_PROMPT], must={"flash_attention"},
+        EngineConfig(**MAIN_ENGINES["dense-w8"]), MAIN_LENS + [LONG_PROMPT], must={"flash_attention"},
         must_not={"paged_decode_attention", "paged_decode_attention_q"}, logits_prompt=600,
         logits_steps=10, ttft_lens=(1000,),
     )
@@ -10828,10 +11122,10 @@ def run_engine(torch) -> tuple[dict, ...]:
                                          params_w8)
     drop_weights(params_w8)
     torch.cuda.empty_cache()
-    print("lifecycle phase (dense bf16 and paged int8 engines, full depth; L: under leaktrace, "
-          "installed before the first engine is built):")
+    print(f"lifecycle phase (dense bf16 and paged int8 engines, {PLANE_DEPTH} layers; L: under "
+          "leaktrace, installed before the first engine is built):")
     lifecycle = run_phase("lifecycle", leak_traced, torch,
-                          lambda: run_lifecycle(torch, cfg, params))
+                          lambda: run_lifecycle(torch, *cut_depth(cfg, params, PLANE_DEPTH)))
     torch.cuda.empty_cache()
     print("kv-reuse and spec phase (prefix caches, spill tier, speculative decoding, "
           f"{PLANE_DEPTH} layers):")
@@ -11004,7 +11298,9 @@ def main() -> int:
     parallel = run_phase("parallel", run_parallel, torch)
     print(f"tp phase (the tensor-parallel ServingEngine: {TP_RANKS} ranks on the one card over gloo, "
           f"Llama-3-8B widths, all {TP_DEPTH} layers, tp=4; TP-B the bf16 path's config with HTTP "
-          "and gRPC, TP-Q the int8 path's with chunked prefill):")
+          f"and gRPC, TP-Q the int8 path's with chunked prefill, TP-R the prefix cache, its spill "
+          f"tier, warm_restart and spec at {PLANE_DEPTH} layers, TP-W8 the dense-w8 path's with "
+          "weight-only int8 params):")
     tp = run_phase("tp", run_tp, torch)
     timer = Timer(torch)
     rows = time_kernels(torch, gen, timer, errs, launches)
@@ -11022,6 +11318,7 @@ def main() -> int:
         r["launches_grpc"] = grpc["launches"].get(r["name"], 0)
         r["launches_parallel"] = parallel["launches"].get(r["name"], 0)
         r["launches_tp"] = tp["launches"].get(r["name"], 0)
+        r["launches_tp_paths"] = {path: n[r["name"]] for path, n in tp["launches_by_path"].items()}
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}")

@@ -328,7 +328,7 @@ KERNELS: tuple[KernelContract, ...] = (
         "verify_and_sample", _BATCH,
         params=(
             "cfg", "params", "cache", "chunk", "start_len", "temperature",
-            "top_k", "top_p", "generator",
+            "top_k", "top_p", "generator", "mesh",
         ),
         updated=("cache", "generator"),
         static=("cfg",),
@@ -345,7 +345,7 @@ KERNELS: tuple[KernelContract, ...] = (
         params=(
             "cfg", "params", "k_pool", "v_pool", "block_tables", "chunk",
             "start_len", "active", "kv_capacity", "temperature", "top_k",
-            "top_p", "generator",
+            "top_p", "generator", "mesh",
         ),
         updated=("k_pool", "v_pool", "generator"),
         static=("cfg",),
@@ -363,7 +363,7 @@ KERNELS: tuple[KernelContract, ...] = (
         params=(
             "cfg", "params", "k_pool", "v_pool", "ks_pool", "vs_pool",
             "block_tables", "chunk", "start_len", "active", "kv_capacity",
-            "temperature", "top_k", "top_p", "generator",
+            "temperature", "top_k", "top_p", "generator", "mesh",
         ),
         updated=("k_pool", "v_pool", "ks_pool", "vs_pool", "generator"),
         static=("cfg",),
@@ -444,6 +444,7 @@ HOST_HELPERS: dict[str, tuple[str, str]] = {
     "commit_prefill": (_BATCH, _LAYOUT_CHOICE),
     "dispatch_decode": (_BATCH, _LAYOUT_CHOICE),
     "dispatch_ragged": (_BATCH, _LAYOUT_CHOICE),
+    "dispatch_verify": (_BATCH, _LAYOUT_CHOICE),
     "split_layout": (_PAGED_ATTN, "host launch-geometry arithmetic"),
     "scratch_numel": (_PAGED_ATTN, "host launch-geometry arithmetic"),
     "paged_decode_attention_ref": (

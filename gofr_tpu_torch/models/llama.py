@@ -42,7 +42,11 @@ kernels on them, the KV storage holding this rank's KV heads
 batch whole on every rank (replicated over ``dp`` and ``fsdp``) and the
 logits gathered whole on every rank, so every rank samples the same
 tokens. ``init_params(mesh=)`` draws the weights leaf by leaf and keeps
-this rank's slices.
+this rank's slices. Weight-only int8 weights serve on a mesh too: each
+rank keeps its slices of ``q`` (its weight's placement) and of the scale
+``s`` (the same placement without the contraction axis), as the
+reference's ``quantize_params(shard_params(...))`` places them; a
+row-parallel product takes its scale after the sum over ``tp``.
 """
 
 from __future__ import annotations
@@ -130,23 +134,29 @@ def init_params(
     plus one model-dtype leaf; the draws are those of ``quantize=False``.
     With ``mesh`` each leaf is drawn whole and only this rank's slice of it
     by ``llama_sharding_rules()`` is kept (the draws are those of one
-    card), so a rank's peak is its slices plus one whole leaf."""
+    card), so a rank's peak is its slices plus one whole leaf. With both, a
+    matmul weight is drawn whole and quantized whole (each scale the
+    absmax of its whole contraction axis), then this rank's ``q`` and
+    ``s`` slices are kept."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    if mesh is not None and quantize:
-        raise NotImplementedError("weight-only int8 params run on one card, not on a mesh")
     L, D, Fd = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     place = _placer(mesh)
 
-    def winit(path: str, shape: tuple, fan_in: int) -> torch.Tensor:
+    def draw(shape: tuple, fan_in: int) -> torch.Tensor:
         w = torch.randn(shape, generator=generator, device=dev, dtype=cfg.dtype)
-        return place(path, w.div_(math.sqrt(fan_in)))
+        return w.div_(math.sqrt(fan_in))
+
+    def winit(path: str, shape: tuple, fan_in: int) -> torch.Tensor:
+        return place(path, draw(shape, fan_in))
 
     def mm_weight(path: str, shape: tuple, fan_in: int) -> torch.Tensor | dict:
-        w = winit(path, shape, fan_in)
-        return quantize_weight(w, axis=-2) if quantize else w
+        if not quantize:
+            return winit(path, shape, fan_in)
+        whole = quantize_weight(draw(shape, fan_in), axis=-2)
+        return {part: place(f"{path}/{part}", t) for part, t in whole.items()}
 
     def ones(path: str, shape: tuple) -> torch.Tensor:
         return place(path, torch.ones(shape, dtype=torch.float32, device=dev))
@@ -174,7 +184,9 @@ def init_params(
 def _placer(mesh: Any):
     """``place(path, leaf)``: the leaf itself on one card; on a mesh this
     rank's slice of it by ``llama_sharding_rules()`` (a fresh copy, so the
-    whole leaf is freed once the caller drops it)."""
+    whole leaf is freed once the caller drops it). A weight-only int8
+    weight's ``path/q`` and ``path/s`` take their own placements
+    (``ShardingRules.spec_for``)."""
     if mesh is None:
         return lambda _path, leaf: leaf
     from gofr_tpu_torch.parallel.sharding import NamedSharding, llama_sharding_rules, shard_leaf
@@ -235,45 +247,76 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> t
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
-def _quantize_body(w: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _quantize_body(w: torch.Tensor, axis: int,
+                   amax_reduce: Any = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``_quantize_body`` as its jitted form computes it:
     the absmax times f32(1/127) (XLA's product for the division by 127),
-    floored at 1e-12, then a true division and half-to-even rounding."""
+    floored at 1e-12, then a true division and half-to-even rounding.
+    ``amax_reduce`` takes the absmax of this slice to the whole axis's (a
+    max over the ranks that split it)."""
     amax = w.abs().amax(dim=axis, keepdim=True).float()
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     s = torch.clamp_min(amax * _INV_127, 1e-12)
     q = torch.clamp(torch.round(w.float() / s), -127, 127).to(torch.int8)
     return q, s.squeeze(axis)
 
 
-def quantize_weight(w: torch.Tensor, axis: int = -2) -> dict:
+def quantize_weight(w: torch.Tensor, axis: int = -2, amax_reduce: Any = None) -> dict:
     """Symmetric per-output-channel weight-only int8: ``axis`` is the
     contraction (input) axis; returns ``{"q": int8 same shape, "s": f32
     per output channel}``. A stacked leaf [L, ...] quantizes one layer at a
     time, so the f32 transient is one layer's (an eager f32 copy of an 8B
-    ``w_gate`` would be 7.5 GB)."""
+    ``w_gate`` would be 7.5 GB). ``amax_reduce``: see
+    :func:`_quantize_body`."""
     axis %= w.ndim
     if w.ndim < 3 or axis == 0:
-        q, s = _quantize_body(w, axis)
+        q, s = _quantize_body(w, axis, amax_reduce)
         return {"q": q, "s": s}
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     s = torch.empty(w.shape[:axis] + w.shape[axis + 1:], dtype=torch.float32, device=w.device)
     for i in range(w.shape[0]):
-        q[i], s[i] = _quantize_body(w[i], axis - 1)
+        q[i], s[i] = _quantize_body(w[i], axis - 1, amax_reduce)
     return {"q": q, "s": s}
 
 
-def quantize_params(params: dict) -> dict:
+def quantize_params(params: dict, mesh: Any = None) -> dict:
     """Quantize every matmul weight of a resident params tree (the layers'
     ``_QUANT_KEYS`` and the lm_head); the embedding and norms stay as they
-    are, and leaves already quantized are kept."""
+    are, and leaves already quantized are kept. With ``mesh``, ``params``
+    is this rank's slice (``shard_params`` with ``llama_sharding_rules()``)
+    and every rank calls it: a weight's absmax is reduced (max) over the
+    mesh axes that split its contraction axis (``tp`` for the row-parallel
+    ``wo`` and ``w_down``, ``fsdp`` for the rest), so each rank's ``q`` and
+    ``s`` are its slices of the one-card result, as the reference's
+    ``quantize_params(shard_params(...))`` computes them."""
+
+    def quant(path: str, w: torch.Tensor) -> dict:
+        if mesh is None:
+            return quantize_weight(w, axis=-2)
+        from gofr_tpu_torch.parallel.sharding import llama_sharding_rules, spec_axes
+
+        spec = llama_sharding_rules().spec_for(path)
+        axes = spec_axes(spec[-2:-1]) if len(spec) == w.ndim else []
+        return quantize_weight(w, axis=-2, amax_reduce=lambda a: _pmax(a, mesh, axes))
+
     layers = {
-        k: (quantize_weight(v, axis=-2) if k in _QUANT_KEYS and not isinstance(v, dict) else v)
+        k: (quant(f"layers/{k}", v) if k in _QUANT_KEYS and not isinstance(v, dict) else v)
         for k, v in params["layers"].items()
     }
     out = dict(params, layers=layers)
     if "lm_head" in params and not isinstance(params["lm_head"], dict):
-        out["lm_head"] = quantize_weight(params["lm_head"], axis=-2)
+        out["lm_head"] = quant("lm_head", params["lm_head"])
     return out
+
+
+def _pmax(x: torch.Tensor, mesh: Any, axes: list[str]) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``axes`` (exact: a
+    gather, then the max)."""
+    for axis in axes:
+        if mesh.shape[axis] > 1:
+            x = all_gather(x.unsqueeze(0), mesh, axis, 0).amax(dim=0)
+    return x
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor | dict) -> torch.Tensor:
@@ -286,6 +329,14 @@ def _mm(x: torch.Tensor, w: torch.Tensor | dict) -> torch.Tensor:
     if isinstance(w, dict):
         return (matmul_f32(x, w["q"].to(x.dtype)) * w["s"]).to(x.dtype)
     return x @ w
+
+
+def _head_product(x: torch.Tensor, head: torch.Tensor | dict) -> torch.Tensor:
+    """The f32 logits of the head: a weight-only int8 head takes its
+    scale on the f32 product, with no rounding after it."""
+    if isinstance(head, dict):
+        return matmul_f32(x, head["q"].to(x.dtype)) * head["s"]
+    return matmul_f32(x, head)
 
 
 def _qkv(
@@ -336,10 +387,7 @@ def _logits(cfg: LlamaConfig, params: dict, x: torch.Tensor, mesh: Any = None) -
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return matmul_f32(x, params["embedding"].T)
-    head = params["lm_head"]
-    if isinstance(head, dict):
-        return matmul_f32(x, head["q"].to(x.dtype)) * head["s"]
-    return matmul_f32(x, head)
+    return _head_product(x, params["lm_head"])
 
 
 def _embed(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, mesh: Any = None) -> torch.Tensor:
@@ -429,8 +477,21 @@ def _logits_sharded(cfg: LlamaConfig, params: dict, x: torch.Tensor, mesh: Any) 
     if cfg.tie_embeddings:
         head = all_gather(params["embedding"], mesh, "fsdp", 1).T
     else:
-        head = all_gather(params["lm_head"], mesh, "fsdp", 0)
-    return gather_from(matmul_f32(x, head), mesh, "tp", -1)
+        head = _gather_weight(params["lm_head"], mesh, "fsdp", 0)
+    return gather_from(_head_product(x, head), mesh, "tp", -1)
+
+
+def _gather_weight(w: torch.Tensor | dict, mesh: Any, axis: str, dim: int) -> torch.Tensor | dict:
+    """``all_gather`` of a weight over ``axis`` along ``dim``. A weight-only
+    int8 one gathers its ``q`` there and its scale along the scale's same
+    dimension; the scale has no contraction axis (``q``'s second to last),
+    so along that one it stays as it is."""
+    if not isinstance(w, dict):
+        return all_gather(w, mesh, axis, dim)
+    nd = w["q"].dim()
+    dim %= nd
+    s = w["s"] if dim == nd - 2 else all_gather(w["s"], mesh, axis, dim - (dim > nd - 2))
+    return {"q": all_gather(w["q"], mesh, axis, dim), "s": s}
 
 
 def _layer_sharded(
@@ -449,19 +510,21 @@ def _layer_sharded(
     ``tp`` ranks the KV projection is gathered whole and the local query
     heads take the KV heads they read: the one head of their group when
     ``tp`` is a multiple of the KV heads (the serving cache's placement,
-    ``parallel.sharding.kv_head_slice``), else one a query head."""
+    ``parallel.sharding.kv_head_slice``), else one a query head. A
+    weight-only int8 weight's local ``q`` and ``s`` slices serve as they
+    are, the row-parallel ones through :func:`_row_parallel`."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
 
-    def w(name: str, dim: int) -> torch.Tensor:
-        return all_gather(lp[name], mesh, "fsdp", dim)
+    def w(name: str, dim: int) -> torch.Tensor | dict:
+        return _gather_weight(lp[name], mesh, "fsdp", dim)
 
     h = copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), mesh, "tp")
-    q = (h @ w("wq", 0)).reshape(B, S, -1, Dh)
+    q = _mm(h, w("wq", 0)).reshape(B, S, -1, Dh)
     ntp = mesh.shape["tp"]
     if cfg.n_kv_heads % ntp == 0:
-        k = (h @ w("wk", 0)).reshape(B, S, -1, Dh)
-        v = (h @ w("wv", 0)).reshape(B, S, -1, Dh)
+        k = _mm(h, w("wk", 0)).reshape(B, S, -1, Dh)
+        v = _mm(h, w("wv", 0)).reshape(B, S, -1, Dh)
     else:
         group = cfg.n_heads // cfg.n_kv_heads
         first = mesh.index("tp") * q.shape[2]
@@ -470,29 +533,29 @@ def _layer_sharded(
         else:
             heads = torch.tensor([(first + i) // group for i in range(q.shape[2])],
                                  device=x.device)
-        k = (h @ all_gather(w("wk", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh).index_select(2, heads)
-        v = (h @ all_gather(w("wv", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh).index_select(2, heads)
+        k = _mm(h, _gather_weight(w("wk", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh)
+        v = _mm(h, _gather_weight(w("wv", 0), mesh, "tp", 1)).reshape(B, S, -1, Dh)
+        k, v = k.index_select(2, heads), v.index_select(2, heads)
     q = apply_rope(q, positions, sin, cos)
     k = apply_rope(k, positions, sin, cos)
     attn = attend(q.contiguous(), k.contiguous(), v.contiguous())
     x = x + _row_parallel(attn.reshape(B, S, -1), w("wo", 1), mesh)
     h = copy_to(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), mesh, "tp")
-    gate = F.silu((h @ w("w_gate", 0)).float()).to(h.dtype)
-    return x + _row_parallel(gate * (h @ w("w_up", 0)), w("w_down", 1), mesh)
+    gate = F.silu(_mm(h, w("w_gate", 0)).float()).to(h.dtype)
+    return x + _row_parallel(gate * _mm(h, w("w_up", 0)), w("w_down", 1), mesh)
 
 
-def _row_parallel(x: torch.Tensor, w: torch.Tensor, mesh: Any) -> torch.Tensor:
+def _row_parallel(x: torch.Tensor, w: torch.Tensor | dict, mesh: Any) -> torch.Tensor:
     """A row-parallel projection summed over ``tp``. The partial products
     stay f32 through the sum and are rounded to the activation dtype once,
-    as the one-card product is."""
+    as the one-card product is; a weight-only int8 weight's replicated
+    scale multiplies the sum, before that rounding (the reference's
+    ``(y * s).astype(x.dtype)`` over its partitioned dot)."""
     if mesh.shape["tp"] == 1:
-        return x @ w
+        return _mm(x, w)
+    if isinstance(w, dict):
+        return (psum(matmul_f32(x, w["q"].to(x.dtype)), mesh, "tp") * w["s"]).to(x.dtype)
     return psum(matmul_f32(x, w), mesh, "tp").to(x.dtype)
-
-
-def _check_mesh_params(params: dict) -> None:
-    if any(isinstance(w, dict) for w in params["layers"].values()):
-        raise NotImplementedError("weight-only int8 params run on one card, not on a mesh")
 
 
 def kv_heads(cfg: LlamaConfig, mesh: Any = None) -> int:
@@ -532,7 +595,6 @@ def _forward_sharded(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, mesh:
                      cp: tuple | None) -> torch.Tensor:
     if mesh.shape["pp"] > 1:
         raise ValueError("a mesh with pp > 1 runs the layers through parallel.pipeline.pp_forward")
-    _check_mesh_params(params)
     rows = data_rows(tokens, mesh)
     start, attend = 0, _causal
     if cp is not None:
@@ -572,8 +634,6 @@ def _prefill_layers(
     query and KV heads."""
     B, S = tokens.shape
     dev = tokens.device
-    if mesh is not None:
-        _check_mesh_params(params)
     x = _embed(cfg, params, tokens, mesh)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
     sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
@@ -771,8 +831,6 @@ def decode_step(
     holds its KV heads; the logits come back whole."""
     B = tokens.shape[0]
     dev = tokens.device
-    if mesh is not None:
-        _check_mesh_params(params)
     x = _embed(cfg, params, tokens, mesh)[:, None, :]  # [B, 1, D]
     pos = cache_len.long()[:, None] - 1  # [B, 1]
     sin, cos = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, dev)
@@ -943,8 +1001,6 @@ def _dense_chunk_forward(
     ``q_offset``. On a mesh over this rank's heads."""
     T = tokens.shape[1]
     dev = tokens.device
-    if mesh is not None:
-        _check_mesh_params(params)
     start = start_len.long()
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]  # [K, T]
     x = _embed(cfg, params, tokens.clamp_min(0), mesh)
@@ -1030,8 +1086,6 @@ def _decode_step(
     trash_page = k_pool.shape[1] - 1
     M = block_tables.shape[1]
     Dh = cfg.head_dim
-    if mesh is not None:
-        _check_mesh_params(params)
     x = _embed(cfg, params, tokens, mesh)[:, None, :]  # [B, 1, D]
     pos = (seq_lens.long() - 1).clamp_min(0)  # [B]
     positions = pos[:, None]
@@ -1168,8 +1222,6 @@ def _chunk_forward(
     k_pool, v_pool, ks_pool, vs_pool = pools
     B, T = tokens.shape
     dev = tokens.device
-    if mesh is not None:
-        _check_mesh_params(params)
     start = start_len.long()
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
     pages, offsets = _paged_chunk_targets(k_pool, block_tables, positions, active, kv_capacity)

@@ -93,6 +93,10 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: Any, path: tuple = ()) ->
     return fn("/".join(path), tree)
 
 
+#: a weight-only int8 weight's two leaves: ``<weight>/q`` and ``<weight>/s``
+_INT8_LEAF = re.compile(r"^(?P<weight>.+)/(?P<part>[qs])$")
+
+
 class ShardingRules:
     """Ordered (pattern -> spec) rules applied to a params tree by path;
     first match wins, default replicated. Axis names are validated
@@ -104,10 +108,26 @@ class ShardingRules:
         self.rules = [(re.compile(pat), P(*spec)) for pat, spec in rules]
 
     def spec_for(self, path: str) -> PartitionSpec:
+        """The first matching rule's spec, else replicated. The two leaves
+        of a weight-only int8 weight (``models.llama.quantize_weight``) go
+        by their weight's rule, as the reference's
+        ``quantize_params(shard_params(...))`` places them: ``path/q`` takes
+        it whole, and the scale ``path/s``, which has no contraction
+        (second to last) axis, takes it without that entry. A rule that
+        places such a weight names each of its dimensions."""
+        int8 = _INT8_LEAF.match(path)
+        if int8 is not None:
+            spec = self._match(int8["weight"])
+            if spec is not None:
+                return spec if int8["part"] == "q" else P(*spec[:-2], *spec[-1:])
+        spec = self._match(path)
+        return P() if spec is None else spec
+
+    def _match(self, path: str) -> PartitionSpec | None:
         for pat, spec in self.rules:
             if pat.search(path):
                 return spec
-        return P()
+        return None
 
     def tree_specs(self, params: Any) -> Any:
         """Spec tree matching ``params`` by key path."""

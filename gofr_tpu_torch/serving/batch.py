@@ -762,12 +762,16 @@ def verify_and_sample(
     top_k: torch.Tensor,
     top_p: torch.Tensor,
     generator: torch.Generator,
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, llama.KVCache]:
     """Speculative engine step over the dense cache: the chunk verify
     forward, draft acceptance and bonus sampling in one dispatch with no
     host sync. Returns (packed [B, T+1], cache); the reference also
-    returns its split PRNG key, where here ``generator`` advances."""
-    logits, cache = llama.decode_chunk(cfg, params, chunk, cache, start_len)
+    returns its split PRNG key, where here ``generator`` advances. With
+    ``mesh`` over this rank's slices and KV heads, the logits gathered
+    whole, so every rank accepts and samples the same tokens."""
+    logits, cache = llama.decode_chunk(cfg, params, chunk, cache, start_len, mesh)
     out, n_accept = _accept_and_bonus(chunk, logits, temperature, top_k, top_p, generator)
     return _pack_spec(out, n_accept), cache
 
@@ -786,10 +790,12 @@ def verify_and_sample_paged(
     top_k: torch.Tensor,
     top_p: torch.Tensor,
     generator: torch.Generator,
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Paged twin of :func:`verify_and_sample`: (packed, k_pool, v_pool)."""
     logits, k_pool, v_pool = llama.decode_chunk_paged(
-        cfg, params, chunk, k_pool, v_pool, block_tables, start_len, active, kv_capacity,
+        cfg, params, chunk, k_pool, v_pool, block_tables, start_len, active, kv_capacity, mesh,
     )
     out, n_accept = _accept_and_bonus(chunk, logits, temperature, top_k, top_p, generator)
     return _pack_spec(out, n_accept), k_pool, v_pool
@@ -811,15 +817,40 @@ def verify_and_sample_paged_q(
     top_k: torch.Tensor,
     top_p: torch.Tensor,
     generator: torch.Generator,
+    *,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """int8 paged twin of :func:`verify_and_sample`: (packed, k_pool,
     v_pool, ks_pool, vs_pool)."""
     logits, k_pool, v_pool, ks_pool, vs_pool = llama.decode_chunk_paged_q(
         cfg, params, chunk, k_pool, v_pool, ks_pool, vs_pool, block_tables, start_len, active,
-        kv_capacity,
+        kv_capacity, mesh,
     )
     out, n_accept = _accept_and_bonus(chunk, logits, temperature, top_k, top_p, generator)
     return _pack_spec(out, n_accept), k_pool, v_pool, ks_pool, vs_pool
+
+
+def dispatch_verify(cfg: llama.LlamaConfig, params: dict, dense: Any, pc: Any,
+                    block_tables: torch.Tensor | None, chunk: torch.Tensor,
+                    start_len: torch.Tensor, active: torch.Tensor,
+                    kv_capacity: torch.Tensor | None, temperature: torch.Tensor,
+                    top_k: torch.Tensor, top_p: torch.Tensor, generator: torch.Generator, *,
+                    mesh: Any = None) -> tuple[torch.Tensor, Any]:
+    """The layout's speculative verify (beside :func:`dispatch_decode`):
+    (packed [B, T+1], dense cache or None). The dense layout reads no block
+    tables, no active mask and no capacities."""
+    if pc is None:
+        return verify_and_sample(cfg, params, dense, chunk, start_len, temperature, top_k,
+                                 top_p, generator, mesh=mesh)
+    args = (block_tables, chunk, start_len, active, kv_capacity, temperature, top_k, top_p,
+            generator)
+    if pc.quantized:
+        packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool = verify_and_sample_paged_q(
+            cfg, params, *pc.pools(), *args, mesh=mesh)
+    else:
+        packed, pc.k_pool, pc.v_pool = verify_and_sample_paged(
+            cfg, params, pc.k_pool, pc.v_pool, *args, mesh=mesh)
+    return packed, None
 
 
 def pad_bucket(length: int, buckets: tuple[int, ...]) -> int:

@@ -230,15 +230,22 @@ each one process): ``params`` is this rank's slice (``shard_params`` with
 and the KV storage holds this rank's KV heads, replicated over ``dp`` and
 ``fsdp``. The engine runs on the mesh's first rank and every other rank
 runs ``serving.tp_group.serve_follower``, which replays each dispatch on
-its slices (``serving/tp_group.py``): prefill, the decode blocks and the
-ragged dispatches on the dense or paged layout with bf16 or int8 KV.
-Refused with a mesh, each by name at construction: speculative decoding,
-LoRA, the prefix cache and its spill tier, KV migration (and with it the
-handoff and the evacuation), weight-only int8 params and a ``pp``, ``sp``
-or ``ep`` axis; ``warm_restart`` raises, and ``submit`` refuses
-``prefill_only`` and ``handoff_from``. A failed dispatch on any rank ends
-the group: the requests in flight fail with a 503 and the engine takes no
-more.
+its slices (``serving/tp_group.py``): prefill, the decode blocks, the
+ragged dispatches and the speculative verify on the dense or paged layout
+with bf16 or int8 KV, over bf16 or weight-only int8 params
+(``quantize_params(params, mesh=)``, ``init_params(quantize=True,
+mesh=)``). The prefix cache and its spill tier stay on the leader, which
+counts each entry at its whole size; every follower keeps its own slabs
+of each entry under the leader's key, as the leader's commands say
+(``PrefixMirror``). ``warm_restart`` rebuilds the followers' state
+through a ``restart`` command once the old loop thread joined; one that
+cannot join ends the group. Refused with a mesh, each by name at
+construction: LoRA, KV migration (and with it the handoff and the
+evacuation), a ``pp``, ``sp`` or ``ep`` axis, and an injected prefix cache
+of another class than ``PrefixCache`` or ``TieredPrefixCache``;
+``submit`` refuses ``prefill_only`` and ``handoff_from``. A failed
+dispatch on any rank ends the group: the requests in flight fail with a
+503 and the engine takes no more.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -287,6 +294,8 @@ from gofr_tpu_torch.serving.tenancy import DEADLINE_CLASSES
 from gofr_tpu_torch.serving.timeline import TimelineRecorder
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 from gofr_tpu_torch.serving.tp_group import (
+    PrefixMirror,
+    TPGroupError,
     TPLeader,
     fold_state,
     hello_of,
@@ -624,19 +633,15 @@ def _placement_mesh(sharding: Any) -> Any:
     return meshes[0]
 
 
-def _refuse_on_mesh(mesh: Any, params: dict, conf: Any, lora: Any, prefix_cache: Any,
-                    kv_migrator: Any) -> None:
+def _refuse_on_mesh(mesh: Any, lora: Any, prefix_cache: Any, kv_migrator: Any) -> None:
     """The tensor-parallel engine's scope: each feature outside it is
     refused by name (ROADMAP Queue A item 13's remainder)."""
     refused = [name for name, on in (
-        ("speculative decoding (spec_tokens)", conf.spec_tokens > 0),
         ("LoRA (lora=)", lora is not None),
-        ("the prefix cache (prefix_cache=, prefix_cache_entries)",
-         prefix_cache is not None or conf.prefix_cache_entries > 0),
-        ("the KV spill tier (kv_spill_bytes)", conf.kv_spill_bytes > 0),
         ("KV migration and handoff (kv_migrator=)", kv_migrator is not None),
-        ("weight-only int8 params", any(isinstance(w, dict) for w in params["layers"].values())
-         or isinstance(params.get("lm_head"), dict)),
+        ("a prefix cache other than PrefixCache or TieredPrefixCache (prefix_cache=)",
+         prefix_cache is not None
+         and not isinstance(prefix_cache, (PrefixCache, TieredPrefixCache))),
         (f"a mesh axis other than tp, fsdp and dp ({mesh!r})",
          any(mesh.shape[a] > 1 for a in ("pp", "sp", "ep"))),
     ) if on]
@@ -675,8 +680,7 @@ class ServingEngine:
         self._mesh = mesh
         self._tp: TPLeader | None = None
         if mesh is not None:
-            _refuse_on_mesh(mesh, params, engine_config or EngineConfig(), lora, prefix_cache,
-                            kv_migrator)
+            _refuse_on_mesh(mesh, lora, prefix_cache, kv_migrator)
             if mesh.devices.size > 1 and mesh.rank != leader_rank(mesh):
                 raise ValueError(f"rank {mesh.rank} of the mesh serves through serve_follower; "
                                  f"the engine runs on rank {leader_rank(mesh)}")
@@ -793,6 +797,12 @@ class ServingEngine:
             self._tp = TPLeader(mesh, hello_of(
                 cfg, self.config, seed,
                 self.paged_cache.num_pages if self.paged_cache is not None else None))
+        # the prefix cache on a mesh: the leader's, mirrored into each
+        # follower's own slabs (None on one card)
+        self._prefix_mirror: PrefixMirror | None = None
+        if self._tp is not None and self._prefix_cache is not None:
+            self._prefix_mirror = PrefixMirror(
+                self._tp, self._prefix_cache, cfg.n_kv_heads // llama.kv_heads(cfg, mesh))
 
         self._by_id: dict[int, _Request] = {}  # queued + active, by request id
         self._count_lock = threading.Lock()  # guards _by_id, _next_id
@@ -1387,11 +1397,13 @@ class ServingEngine:
 
         Returns False, touching nothing, when drain() or stop() already
         owns the lifecycle. A rebuild that fails settles the requeued
-        requests retriable and raises. A tensor-parallel engine raises
-        NotImplementedError: its followers' state is not rebuilt."""
-        if self._mesh is not None:
-            raise NotImplementedError("warm_restart of the tensor-parallel engine (mesh=) is not "
-                                      "ported yet (ROADMAP Queue A item 13's remainder)")
+        requests retriable and raises. A tensor-parallel engine rebuilds
+        its followers' KV storage, decode state, generator and prefix
+        store through a ``restart`` command, once the old thread joined; a
+        thread still hung may be inside a collective, which a rebuilt
+        engine's next command would interleave with, so a restart that
+        cannot join ends the group instead: the requeued requests fail
+        retriable, health reads DOWN and :class:`TPGroupError` is raised."""
         with self._lifecycle_mu:
             if self._draining or self._stop_requested or self._wedged:
                 return False  # drain/stop won the race: stand down
@@ -1426,6 +1438,17 @@ class ServingEngine:
                         self._settle_future(req, ErrorServiceUnavailable(
                             "engine restarting; retry", retry_after=1.0,
                         ))
+                if not joined and self._tp is not None:
+                    lost = RuntimeError(f"engine thread failed to join within {join_timeout:g}s "
+                                        "during warm restart")
+                    self._tp.fail(lost)  # the group ends: its peers' collectives fail now
+                    for req in requeue:
+                        self._settle_future(req, ErrorServiceUnavailable(
+                            "tensor-parallel group lost; retry on another replica",
+                            retry_after=1.0,
+                        ))
+                    raise TPGroupError(f"tensor-parallel group lost: {lost}",
+                                       retry_after=1.0) from lost
                 if joined:
                     self._thread = None
                     self._sched.close()
@@ -1443,6 +1466,10 @@ class ServingEngine:
                 # the old thread's cold-dispatch claim dies with it
                 self._cold_key = None
                 try:
+                    if self._tp is not None:
+                        # the followers rebuild theirs; the blocks dispatched
+                        # and never read count in every rank's hash
+                        self._tp.restart([rec.packed for rec in self._inflight])
                     self._init_runtime_state()
                     self._reset_prefix_cache()
                 except Exception:
@@ -2341,9 +2368,27 @@ class ServingEngine:
         else:
             value = cache.get(key)
             tier = "device" if value is not None else "miss"
+        if self._prefix_mirror is not None:
+            value, tier = self._prefix_mirror.found(key, value, tier)
         if value is not None:
             self.timeline.observe_prefix_reuse(key)
         return value, tier
+
+    def _prefix_put(self, key: str, value: Any, slot: int | None = None,
+                    start: int = 0, end: int = 0) -> None:
+        """A put into the prefix cache. On a mesh the followers store their
+        own slabs of it: the prefill command carried the key, or (``slot``)
+        they read tokens [start, end) of that slot out of their KV."""
+        if self._prefix_mirror is None:
+            self._prefix_cache.put(key, value)
+            return
+        span = None
+        if slot is not None:
+            pc = self.paged_cache
+            pages = None if pc is None else pc.tables[
+                slot, start // pc.page_size:pc.pages_needed(end)].copy()
+            span = dict(slot=slot, start=start, end=end, pages=pages)
+        self._prefix_mirror.put(key, value, span)
 
     def _record_prefix_tier(self, req: _Request, tier: str) -> None:
         """The warmest tier that served the request's cached prefix: the
@@ -2463,7 +2508,7 @@ class ServingEngine:
                         hits.append((start, end, val))
                         pos = end
                         # paid once per replica: a later request hits locally
-                        self._prefix_cache.put(cache_keys[(start, end)], val)
+                        self._prefix_put(cache_keys[(start, end)], val)
                     tiers.add("remote")
             self._record_prefix_tier(
                 req, "remote" if "remote" in tiers else "host" if "host" in tiers
@@ -2476,13 +2521,19 @@ class ServingEngine:
         tl = req.timeline
         if tl is not None:
             tl.stamp("prefill_start")
-        for start, _end, (_logits, k_slab, v_slab) in hits:
+        spans = []  # the followers' restore, on a mesh
+        for start, end, (_logits, k_slab, v_slab) in hits:
             if pc is not None:
                 pc.write_span(slot, start, k_slab, v_slab)
+                pages = pc.tables[slot, start // pc.page_size:pc.pages_needed(end)].copy()
             else:
                 self.cache.k, self.cache.v = batch_ops.insert_chunk(
                     self.cache.k, self.cache.v, k_slab, v_slab, slot, start,
                 )
+                pages = None
+            spans.append((cache_keys[(start, end)], start, pages))
+        if spans and self._prefix_mirror is not None:
+            self._prefix_mirror.restore(slot, spans)
         if hits:
             if pc is not None:
                 pc.advance_slot(slot, pos)
@@ -2648,7 +2699,7 @@ class ServingEngine:
                 # the logits column is a placeholder: the chain walk never
                 # ends on this entry (it ends before len(serve_ids))
                 placeholder = torch.zeros((1, 1), dtype=torch.float32, device=self.device)
-                self._prefix_cache.put(key, (placeholder, k_slab, v_slab))
+                self._prefix_put(key, (placeholder, k_slab, v_slab), slot, start, end)
         req.preemptions += 1
         if req.timeline is not None:
             req.timeline.stamp("reclaim-preempted" if reclaim else f"preempted:{req.preemptions}")
@@ -2729,7 +2780,7 @@ class ServingEngine:
                     cached = _to_device(fetched, self.device)  # non_blocking: no sync
                     prefix_tier = "remote"
                     # paid once per replica, not once per request
-                    self._prefix_cache.put(cache_key, cached)
+                    self._prefix_put(cache_key, cached)
             self._record_prefix_tier(req, prefix_tier)
         tl = req.timeline
         if tl is not None:
@@ -2753,8 +2804,11 @@ class ServingEngine:
             tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
             tokens[0, :S] = ids
         pages = pc.prefill_pages(slot, bucket) if pc is not None else None
+        # on a mesh the command names the cache key: each follower stores
+        # its slabs under it, or (no tokens: a hit) commits its own
         with span, self._cold_dispatch("prefill", bucket, cached is not None), self._tp_step(
-                "prefill", lambda: dict(tokens=tokens, length=S, slot=slot, pages=pages)):
+                "prefill", lambda: dict(tokens=tokens, length=S, slot=slot, pages=pages,
+                                        key=cache_key)):
             if cached is not None:
                 last_logits, k_slab, v_slab = cached
             else:
@@ -2767,7 +2821,7 @@ class ServingEngine:
             self._check_retired()
             if cached is None and cache_key is not None:
                 # fresh slabs that nothing writes into later: safe to keep
-                self._prefix_cache.put(cache_key, (last_logits, k_slab, v_slab))
+                self._prefix_put(cache_key, (last_logits, k_slab, v_slab))
             self.cache = batch_ops.commit_prefill(dense, pc, k_slab, v_slab, slot, pages)
             # the row's delta applies at the sampling site: cached entries
             # stay base-model logits
@@ -2950,31 +3004,33 @@ class ServingEngine:
         def up(a: np.ndarray) -> torch.Tensor:
             return to_device(a, self.device)
 
-        samp = (up(self.temperature), up(self.top_k), up(self.top_p), self._rng)
-        chunk_d, start_d = up(chunk), up(np.maximum(self.cache_len, 1))
+        start = np.maximum(self.cache_len, 1)
+        cap = None
+        if pc is not None:
+            cap = np.zeros(B, np.int32)
+            for slot, _ in rows:
+                cap[slot] = pc.owned_capacity(slot)
         dense = self.cache
         t0 = time.perf_counter()
+
+        def payload() -> dict:  # the followers' copy of this verify's inputs
+            return dict(tables=None if pc is None else pc.tables.copy(), chunk=chunk, start=start,
+                        mask=None if pc is None else mask, cap=cap,
+                        temps=self.temperature.copy(), topks=self.top_k.copy(),
+                        topps=self.top_p.copy())
+
         with self._cold_dispatch("spec", "dense" if pc is None else "paged",
-                                 dense.quantized if pc is None else pc.quantized, K):
-            if pc is None:
-                packed, new_cache = batch_ops.verify_and_sample(
-                    cfg, self.params, dense, chunk_d, start_d, *samp,
-                )
-            else:
-                new_cache = None
-                cap = np.zeros(B, np.int32)
-                for slot, _ in rows:
-                    cap[slot] = pc.owned_capacity(slot)
-                args = (pc.tables_device(), chunk_d, start_d, self._mask_dev, up(cap), *samp)
-                if pc.quantized:
-                    (packed, pc.k_pool, pc.v_pool, pc.ks_pool, pc.vs_pool) = (
-                        batch_ops.verify_and_sample_paged_q(cfg, self.params, *pc.pools(), *args)
-                    )
-                else:
-                    packed, pc.k_pool, pc.v_pool = batch_ops.verify_and_sample_paged(
-                        cfg, self.params, pc.k_pool, pc.v_pool, *args,
-                    )
+                                 dense.quantized if pc is None else pc.quantized, K), \
+                self._tp_step("verify", payload):
+            packed, new_cache = batch_ops.dispatch_verify(
+                cfg, self.params, dense, pc, None if pc is None else pc.tables_device(),
+                up(chunk), up(start), self._mask_dev, None if cap is None else up(cap),
+                up(self.temperature), up(self.top_k), up(self.top_p), self._rng,
+                mesh=self._mesh,
+            )
             packed_np = _block_sync(packed)  # the step's one host sync
+        if self._tp is not None:
+            self._tp.record(packed_np)
         # a warm restart may have replaced this thread while the chunk
         # verified: commit nothing to rebuilt state then
         self._check_retired()
@@ -3352,7 +3408,7 @@ class ServingEngine:
             put_key = (cursor.cache_keys or {}).get((start, start + n))
             if rec.last_logits is not None and put_key is not None:
                 entry = self._chunk_entry(rec.last_logits, row, slot, start, n)
-                self._prefix_cache.put(put_key, entry)
+                self._prefix_put(put_key, entry, slot, start, start + n)
             if fin:
                 self._cursors.pop(slot)
                 self._commit_first_token(slot, req, int(packed[slot, rec.steps + 2]))
@@ -3655,13 +3711,15 @@ class ServingEngine:
         if self._prefix_cache is None:
             return
         clear = getattr(self._prefix_cache, "clear", None)
+        if self._prefix_mirror is not None:
+            clear = self._prefix_mirror.clear  # the followers' stores too
         try:
             if clear is not None:
                 clear()
             else:
                 self._prefix_cache = None
         except Exception:
-            self._prefix_cache = None
+            self._prefix_cache = self._prefix_mirror = None
 
     def _maybe_device_loss(self) -> None:
         """The ``device.loss`` chaos point: when it fires, the KV storage

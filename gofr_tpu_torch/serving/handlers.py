@@ -560,6 +560,10 @@ def register_kv_fetch_routes(app: Any, engine: Any,
             raise ErrorInvalidParam("keys")
         binary = KV_WIRE_CONTENT_TYPE in ctx.header("Accept")
         cache = getattr(engine, "_prefix_cache", None)
+        if getattr(engine, "_mesh", None) is not None:
+            # a tensor-parallel leader holds its own rank's KV heads only:
+            # KV migration off a mesh is not served (ROADMAP Queue A 13)
+            cache = None
         # peek, never get: serving a peer must not mutate this replica's
         # LRU order or pop its host-tier copies
         read = (getattr(cache, "peek", None) or cache.get) if cache is not None else None

@@ -344,9 +344,13 @@ class PagedKVCache:
         if start % self.page_size:
             raise ValueError(f"read_span start {start} not page-aligned")
         p0 = start // self.page_size
-        p1 = self.pages_needed(end)
-        page_ids = to_device(np.asarray(self.tables[slot, p0:p1], np.int64), self.device)
-        n = end - start
+        return self.read_pages(self.tables[slot, p0:self.pages_needed(end)], end - start)
+
+    def read_pages(self, page_ids: np.ndarray, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device half of :meth:`read_span`: the first ``n`` tokens of
+        ``page_ids`` as fresh slabs [L, n, Hkv, Dh]. A tensor-parallel
+        follower runs it with its leader's page ids."""
+        page_ids = to_device(np.asarray(page_ids, np.int64), self.device)
         out = []
         for pool in (self.k_pool, self.v_pool):
             g = pool[:, page_ids]  # a gather: a fresh [L, n_pages, Hkv, page, Dh]

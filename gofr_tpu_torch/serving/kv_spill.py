@@ -91,6 +91,7 @@ class HostSpillTier:
     def __init__(self, max_bytes: int, score: Any = None) -> None:
         self.max_bytes = max_bytes
         self._score = score
+        self.size_of = _value_bytes  # see PrefixCache
         self._entries: "OrderedDict[Hashable, Any]" = OrderedDict()
         self._sizes: dict[Hashable, int] = {}
         self._total_bytes = 0
@@ -99,7 +100,7 @@ class HostSpillTier:
         self._misses = 0
 
     def put(self, key: Hashable, host_value: Any) -> None:
-        size = _value_bytes(host_value)
+        size = self.size_of(host_value)
         if size > self.max_bytes:
             return  # can never fit: do not flush the tier for it
         scores: dict[Hashable, float] = {}
@@ -190,7 +191,12 @@ class TieredPrefixCache:
     it, so a burst of evictions never fans out, and ``flush()`` gives
     tests and drain a settle point. A bounded backlog (``MAX_PENDING``)
     refuses new offers while full (``spill_dropped_total``): a queue that
-    grew without bound would only be a slower way to lose entries."""
+    grew without bound would only be a slower way to lose entries.
+
+    ``on_spill`` (optional, ``Callable[[key], None]``) hears each
+    device-tier eviction as it is offered, on the thread that evicted
+    (the tensor-parallel engine's followers spill their own slices in the
+    same order); :attr:`spilling` says whether a spill is still queued."""
 
     MAX_PENDING = 64
 
@@ -209,6 +215,7 @@ class TieredPrefixCache:
         self._metrics = metrics
         self._device = PrefixCache(max_entries, max_bytes=max_bytes, on_evict=self._offer)
         self._host = HostSpillTier(spill_bytes, score=reuse_score)
+        self.on_spill: Any = None
         self._exec = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="kv-spill"
         )
@@ -239,8 +246,21 @@ class TieredPrefixCache:
         self._device.put(key, device_value)
         return device_value, "host"
 
-    def put(self, key: Hashable, value: Any) -> None:
-        self._device.put(key, value)
+    def put(self, key: Hashable, value: Any) -> bool:
+        return self._device.put(key, value)
+
+    @property
+    def size_of(self) -> Any:
+        return self._device.size_of
+
+    @size_of.setter
+    def size_of(self, fn: Any) -> None:
+        self._device.size_of = self._host.size_of = fn
+
+    @property
+    def spilling(self) -> bool:
+        """A spill is queued or running on the worker."""
+        return not self._idle.is_set()
 
     def peek(self, key: Hashable) -> Any | None:
         """A read across tiers that changes nothing: no host-tier pop, no
@@ -293,6 +313,8 @@ class TieredPrefixCache:
     def _offer(self, key: Hashable, value: Any) -> None:
         """Device-tier eviction hook: hand the dropped entry to the spill
         worker. The engine thread's side reads nothing off the device."""
+        if self.on_spill is not None:
+            self.on_spill(key)
         with self._pending_mu:
             if self._pending >= self.MAX_PENDING:
                 self.dropped_total += 1

@@ -56,13 +56,17 @@ class PrefixCache:
 
     Eviction is bounded by BOTH entry count and cumulative bytes: entry
     sizes vary ~64x across prefill buckets (32..2048 tokens), so an entry
-    cap alone cannot bound device memory."""
+    cap alone cannot bound device memory. ``size_of`` counts an entry's
+    bytes: every leaf's (the tensor-parallel engine sets it to count its
+    rank's slabs at their whole size, as the reference counts a sharded
+    array)."""
 
     def __init__(self, max_entries: int = 32,
                  max_bytes: int = 256 * 1024 * 1024,
                  on_evict: Any = None) -> None:
         self.max_entries = max(1, max_entries)
         self.max_bytes = max_bytes
+        self.size_of = _value_bytes
         self._entries: "OrderedDict[Hashable, Any]" = OrderedDict()
         self._sizes: dict[Hashable, int] = {}
         self._total_bytes = 0
@@ -84,12 +88,14 @@ class PrefixCache:
             self._hits += 1
             return value
 
-    def put(self, key: Hashable, value: Any) -> None:
-        size = _value_bytes(value)
+    def put(self, key: Hashable, value: Any) -> bool:
+        """Insert (or refresh) an entry; False when it can never fit and
+        was not stored."""
+        size = self.size_of(value)
         if size > self.max_bytes:
             # inserting then evicting would flush every useful entry to
             # make room for one that cannot fit anyway
-            return
+            return False
         evicted: list[tuple[Hashable, Any]] = []
         with self._lock:
             if key in self._entries:
@@ -111,6 +117,7 @@ class PrefixCache:
                     self.on_evict(old_key, old_value)
                 except Exception:
                     pass  # the spill tier is advisory: a failed spill is a miss later
+        return True
 
     def evict(self, key: Hashable) -> None:
         with self._lock:

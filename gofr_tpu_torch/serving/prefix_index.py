@@ -275,8 +275,8 @@ def local_engine_fetcher(engine: Any) -> Callable[[list[str]], dict[str, tuple]]
 
     def fetch(keys: list[str]) -> dict[str, tuple]:
         cache = getattr(engine, "_prefix_cache", None)
-        if cache is None:
-            return {}
+        if cache is None or getattr(engine, "_mesh", None) is not None:
+            return {}  # a tensor-parallel leader's slabs hold its own KV heads only
         # peek, never get: a peer read must not mutate the owner's LRU
         # order, promote host-tier entries into its device budget, or
         # destructively pop its only host copy (TieredPrefixCache.peek)
@@ -305,6 +305,8 @@ def local_engine_store(engine: Any) -> Callable[[list[tuple]], int]:
         cache = getattr(engine, "_prefix_cache", None)
         if cache is None:
             raise RuntimeError("evacuation target has no prefix cache")
+        if getattr(engine, "_mesh", None) is not None:
+            raise RuntimeError("evacuation target is a tensor-parallel engine")
         if (getattr(engine, "_reclaiming", False)
                 or getattr(engine, "draining", False)
                 or not getattr(engine, "_running", True)):

@@ -12,13 +12,24 @@ rank runs :func:`serve_follower`.
 For each dispatch the leader broadcasts one command before it launches
 its own share: the op, its host ints and the host arrays it uploads (the
 prefill's padded tokens and pages, the decode-state admissions, the block
-mask and tables, a ragged dispatch's chunk buffers and cursors). A
-follower replays the same ``serving.batch`` call on its slices, so every
-rank runs the same collectives in the same order. Sampling runs on every
-rank, on logits gathered whole, from generators seeded alike, so each
-rank's decode state, K/V writes and packed output stay equal with no
-collective of their own; each side keeps a running hash of the packed
-blocks (:meth:`TPLeader.digest`, the follower's result) to show it.
+mask and tables, a ragged dispatch's chunk buffers and cursors, a
+speculative verify's chunk). A follower replays the same ``serving.batch``
+call on its slices, so every rank runs the same collectives in the same
+order. Sampling runs on every rank, on logits gathered whole, from
+generators seeded alike, so each rank's decode state, K/V writes and
+packed output stay equal with no collective of their own; each side keeps
+a running hash of the packed blocks (:meth:`TPLeader.digest`, the
+follower's result) to show it.
+
+The prefix cache lives on the leader (:class:`PrefixMirror`); each
+follower keeps its own slabs of every entry under the leader's key (its
+``_PrefixStore``) and changes it only as the leader's commands say: a put
+(from the prefill the command carries, or read out of its own KV), a hit
+(from host memory it re-uploads), a restore into its KV, a spill to host
+memory and an eviction. The leader's cache alone decides, by its own
+count of bytes; a follower never evicts by its own. ``restart`` rebuilds
+a follower's KV, decode state, generator and store, as the leader's
+``warm_restart`` rebuilds its own.
 
 Commands travel over a gloo group of their own (``broadcast_object_list``
 of pickled host values), never between a dispatch's tensor collectives.
@@ -53,6 +64,8 @@ from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.parallel.hostring import abort_all
 from gofr_tpu_torch.serving import batch as batch_ops
 from gofr_tpu_torch.serving.kv_cache import PagedKVCache
+from gofr_tpu_torch.serving.kv_spill import TieredPrefixCache, _to_device
+from gofr_tpu_torch.serving.prefix_cache import _value_bytes
 
 #: seconds an idle leader lets pass before it sends a keepalive
 KEEPALIVE_S = 10.0
@@ -198,21 +211,176 @@ class TPLeader:
         read (``unread``, in dispatch order): the followers hashed them."""
         if self.closed or self.broken is not None:
             return
-        for packed in unread or ():
-            self.record(packed.cpu().numpy())
+        self._hash_unread(unread)
         self.closed = True
         with contextlib.suppress(TPGroupError):
             self.send("stop")
 
+    def restart(self, unread: list | None = None) -> None:
+        """The leader's ``warm_restart``, once its loop thread joined: hash
+        the blocks it never read, drop the updates queued for the state it
+        rebuilds, and have every follower rebuild its own (``restart``)."""
+        self._hash_unread(unread)
+        self._queue = []
+        self.send("restart")
+
+    def _hash_unread(self, unread: list | None) -> None:
+        for packed in unread or ():
+            self.record(packed.cpu().numpy())
+
 
 def hello_of(cfg: llama.LlamaConfig, conf: Any, seed: int, num_pages: int | None) -> dict:
     """What a follower needs to mirror the leader's engine: the model
-    config (checked against its own), the KV layout and the seed."""
+    config (checked against its own), the KV layout, the prefix cache's
+    and speculative decoding's settings, and the seed."""
     return {"model": repr(cfg), "seed": seed, "num_pages": num_pages,
             "kv": {k: getattr(conf, k) for k in _KV_FIELDS}}
 
 
-_KV_FIELDS = ("max_slots", "max_seq_len", "kv_layout", "kv_page_size", "kv_dtype")
+#: the engine settings a follower's own ``engine_config`` must agree on
+_KV_FIELDS = ("max_slots", "max_seq_len", "kv_layout", "kv_page_size", "kv_dtype",
+              "prefix_cache_entries", "prefix_cache_bytes", "kv_spill_bytes", "spec_tokens")
+
+
+class PrefixMirror:
+    """The leader's prefix cache on a mesh, as its followers hold it: each
+    put, hit, spill and eviction of the leader's cache goes to them as a
+    post (``prefix``), in the order it happened on the engine thread, and
+    a lookup hits only a key the followers hold. The leader's cache alone
+    decides, counting each entry at its whole size (``kv_scale`` times
+    this rank's K/V slabs, as the reference counts a sharded array), so its
+    entries, evictions and stats are the reference's. The host tier evicts
+    on its spill worker; those evictions reach the followers once no spill
+    is queued (:meth:`_settle`)."""
+
+    def __init__(self, tp: TPLeader, cache: Any, kv_scale: int) -> None:
+        self.tp, self.cache = tp, cache
+        self.held: dict[Any, str] = {}  # key -> "card" or "host" on the followers
+
+        def whole_bytes(value: Any) -> int:
+            logits, k, v = value
+            return _value_bytes(logits) + kv_scale * (_value_bytes(k) + _value_bytes(v))
+
+        cache.size_of = whole_bytes
+        self.tiered = isinstance(cache, TieredPrefixCache)
+        if self.tiered:
+            cache.on_spill = self._spilled
+        else:
+            chained = cache.on_evict
+
+            def evicted(key: Any, value: Any) -> None:
+                self._post("evict", key)
+                if chained is not None:
+                    chained(key, value)
+
+            cache.on_evict = evicted
+
+    def found(self, key: Any, value: Any, tier: str) -> tuple[Any, str]:
+        """The leader's lookup of ``key`` came back ``(value, tier)``: a hit
+        goes to the followers. An entry they never got (a spill that landed
+        after a clear) is evicted here and misses."""
+        if value is not None and key not in self.held:
+            self.cache.evict(key)
+            value, tier = None, "miss"
+        if value is not None:
+            self.tp.post("prefix", act="hit", key=key)
+            self.held[key] = "card"
+        self._settle()
+        return value, tier
+
+    def put(self, key: Any, value: Any, span: dict | None = None) -> None:
+        """The leader's put, after each follower stored its slabs under
+        ``key``: from the prefill its command carried, or (``span``: slot,
+        start, end and the pages) read out of its own KV by the post sent
+        here. An entry the leader did not keep is evicted on the followers."""
+        if span is not None:
+            self.tp.post("prefix", act="put", key=key, **span)
+        if self.cache.put(key, value) is False:
+            self._post("evict", key)
+        else:
+            self.held[key] = "card"
+        self._settle()
+
+    def restore(self, slot: int, spans: list) -> None:
+        """The chain of cached chunk spans a cursor admitted with, written
+        into each follower's KV: ``spans`` of (key, start, pages or None)."""
+        self.tp.post("prefix", act="restore", slot=slot, spans=spans)
+
+    def clear(self) -> None:
+        self.cache.clear()
+        self.held.clear()
+        self.tp.post("prefix", act="clear")
+
+    def _post(self, act: str, key: Any) -> None:
+        self.held.pop(key, None)
+        self.tp.post("prefix", act=act, key=key)
+
+    def _spilled(self, key: Any) -> None:
+        """A device-tier eviction on its way to the host tier: the
+        followers copy their slabs to host memory too."""
+        if key in self.held:
+            self.held[key] = "host"
+            self.tp.post("prefix", act="spill", key=key)
+
+    def _settle(self) -> None:
+        """Once no spill is queued, drop on the followers every host copy
+        the leader's tier no longer has (evicted by its byte count, or a
+        spill that failed or found the queue full)."""
+        if not self.tiered or self.cache.spilling:
+            return
+        resident = set(self.cache.keys())
+        for key in [k for k, tier in self.held.items() if tier == "host" and k not in resident]:
+            self._post("evict", key)
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A spilled slab in host memory: from the card into pinned memory,
+    asynchronously (its re-upload is queued on the same stream after it)."""
+    if t.is_cuda:
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+    return t.to("cpu", copy=True)
+
+
+class _PrefixStore:
+    """A follower's prefix entries: this rank's K/V slabs under the
+    leader's cache keys, on the card or spilled to host memory. It holds
+    what the leader's commands put there and drops what they name.
+
+    A hit also keeps its slabs in ``taken`` until the admission reads them
+    (:meth:`take`): within one chunk walk, a later hit's re-upload can
+    spill or evict an entry the walk already hit, before the restore."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.card: dict[Any, tuple] = {}
+        self.host: dict[Any, tuple] = {}
+        self.taken: dict[Any, tuple] = {}
+
+    def take(self, keys: list) -> list[tuple]:
+        """The slabs of an admission's hits, as they were at each hit; the
+        hits of an admission that read none (a requeue) go with them."""
+        slabs = [self.taken[k] for k in keys]
+        self.taken.clear()
+        return slabs
+
+    def apply(self, act: str, key: Any) -> None:
+        if act == "hit":
+            if key not in self.card:  # a host-tier hit: the re-upload
+                self.card[key] = _to_device(self.host.pop(key), self.device)
+            self.taken[key] = self.card[key]
+        elif act == "spill":
+            slabs = self.card.pop(key, None)
+            if slabs is not None:
+                self.host[key] = tuple(_host_copy(t) for t in slabs)
+        elif act == "evict":
+            self.card.pop(key, None)
+            self.host.pop(key, None)
+        elif act == "clear":
+            self.card.clear()
+            self.host.clear()
+            self.taken.clear()
+        else:
+            raise ValueError(f"unknown prefix store action {act!r}")
 
 
 class _Follower:
@@ -224,9 +392,25 @@ class _Follower:
     def __init__(self, cfg: llama.LlamaConfig, params: dict, mesh: Any, device: torch.device,
                  hello: dict) -> None:
         self.cfg, self.params, self.mesh, self.device = cfg, params, mesh, device
-        kv = hello["kv"]
+        self.hello = hello
         self.dense: llama.KVCache | None = None
         self.pc: PagedKVCache | None = None
+        self.state: batch_ops.DecodeState | None = None
+        self._init_state()
+        self.digest = hashlib.blake2b(digest_size=16)
+        self.blocks = 0
+
+    def _init_state(self) -> None:
+        """The KV storage, the decode state, its generator and the prefix
+        store, as the leader's ``_init_runtime_state`` builds its own: at
+        the hello and at each ``restart``. The old KV is released before
+        the new is allocated."""
+        cfg, device, mesh, hello = self.cfg, self.device, self.mesh, self.hello
+        kv = hello["kv"]
+        if self.pc is not None:
+            self.pc.close()
+        self.dense = self.pc = self.state = None
+        self.store = _PrefixStore(device)
         if kv["kv_layout"] == "paged":
             self.pc = PagedKVCache(
                 cfg, num_pages=hello["num_pages"], page_size=kv["kv_page_size"],
@@ -237,9 +421,6 @@ class _Follower:
             self.dense = llama.KVCache.create(cfg, kv["max_slots"], max_len=kv["max_seq_len"],
                                               kv_dtype=kv["kv_dtype"], device=device, mesh=mesh)
         self.rng = torch.Generator(device=device).manual_seed(hello["seed"])
-        self.state: batch_ops.DecodeState | None = None
-        self.digest = hashlib.blake2b(digest_size=16)
-        self.blocks = 0
 
     def up(self, a: Any) -> torch.Tensor | None:
         return None if a is None else to_device(np.asarray(a), self.device)
@@ -252,19 +433,67 @@ class _Follower:
                 self.state = fold_state(self.state, kw["fold"], self.device)
         elif op == "prefill":
             self.prefill(**kw)
-        elif op in ("decode", "ragged"):
+        elif op == "prefix":
+            self.prefix(**kw)
+        elif op in ("decode", "ragged", "verify"):
             packed = getattr(self, op)(**kw)
             self.digest.update(packed.cpu().numpy().tobytes())
             self.blocks += 1
+        elif op == "restart":
+            self._init_state()
         elif op != "keepalive":
             raise ValueError(f"unknown tensor-parallel command {op!r}")
 
-    def prefill(self, tokens: np.ndarray, length: int, slot: int, pages: Any) -> None:
-        _, k_slab, v_slab = batch_ops.prefill_compute(
-            self.cfg, self.params, self.up(tokens), self.up(np.array([length], np.int32)),
-            mesh=self.mesh,
-        )
+    def prefill(self, tokens: np.ndarray | None, length: int, slot: int, pages: Any,
+                key: Any = None) -> None:
+        """A prompt's slabs into its slot: computed, and stored under the
+        leader's cache ``key`` when it has one; or, on the leader's prefix
+        hit (no ``tokens``), this rank's own slabs of that entry."""
+        if tokens is None:
+            [(k_slab, v_slab)] = self.store.take([key])
+        else:
+            _, k_slab, v_slab = batch_ops.prefill_compute(
+                self.cfg, self.params, self.up(tokens), self.up(np.array([length], np.int32)),
+                mesh=self.mesh,
+            )
+            if key is not None:
+                self.store.card[key] = (k_slab, v_slab)
         self.dense = batch_ops.commit_prefill(self.dense, self.pc, k_slab, v_slab, slot, pages)
+
+    def prefix(self, act: str, key: Any = None, slot: int = 0, start: int = 0, end: int = 0,
+               pages: Any = None, spans: list | None = None) -> None:
+        """The leader's prefix cache, on this rank's slabs: ``put`` reads
+        tokens [start, end) of ``slot`` out of this rank's KV (``pages``
+        on the paged layout) under ``key``; ``restore`` writes each of
+        ``spans`` (key, start, pages) into ``slot``; the rest are the
+        store's own (:class:`_PrefixStore`)."""
+        if act == "put":
+            if self.pc is not None:
+                slabs = self.pc.read_pages(pages, end - start)
+            else:
+                slabs = (self.dense.k[:, slot, start:end].clone(),
+                         self.dense.v[:, slot, start:end].clone())
+            self.store.card[key] = slabs
+        elif act == "restore":
+            slabs = self.store.take([span_key for span_key, _, _ in spans])
+            for (_, span_start, span_pages), (k_slab, v_slab) in zip(spans, slabs):
+                if self.pc is not None:
+                    self.pc.write_pages(span_pages, k_slab, v_slab)
+                else:
+                    self.dense.k, self.dense.v = batch_ops.insert_chunk(
+                        self.dense.k, self.dense.v, k_slab, v_slab, slot, span_start)
+        else:
+            self.store.apply(act, key)
+
+    def verify(self, tables: Any, chunk: np.ndarray, start: np.ndarray, mask: Any, cap: Any,
+               temps: np.ndarray, topks: np.ndarray, topps: np.ndarray) -> torch.Tensor:
+        up = self.up
+        packed, dense = batch_ops.dispatch_verify(
+            self.cfg, self.params, self.dense, self.pc, up(tables), up(chunk), up(start), up(mask),
+            up(cap), up(temps), up(topks), up(topps), self.rng, mesh=self.mesh)
+        if dense is not None:
+            self.dense = dense
+        return packed
 
     def decode(self, mask: np.ndarray, tables: Any, steps: int) -> torch.Tensor:
         packed, self.dense, self.state = batch_ops.dispatch_decode(
@@ -288,12 +517,15 @@ class _Follower:
 class FollowerResult:
     """What :func:`serve_follower` returns: the packed blocks it ran, their
     running hash (equal to the leader's :meth:`TPLeader.digest` when no
-    dispatch failed) and the commands it took."""
+    dispatch failed), the commands it took and the keys its prefix store
+    held at the end, on the card and in host memory."""
 
     rank: int
     blocks: int
     digest: str
     commands: int
+    prefix_card: list = dataclasses.field(default_factory=list)
+    prefix_host: list = dataclasses.field(default_factory=list)
 
 
 def serve_follower(
@@ -308,9 +540,10 @@ def serve_follower(
     """Serve this rank's share of the tensor-parallel engine that the
     mesh's leader runs (``ServingEngine(..., mesh=mesh)``), until that
     engine stops. ``params`` is this rank's slice (``shard_params``,
-    ``init_params(mesh=)``, ``restore(sharding=)``). The KV layout and the
-    seed come from the leader; an ``engine_config`` given here must agree
-    with the leader's on them. Every rank of the world calls it (or builds
+    ``init_params(mesh=)``, ``restore(sharding=)``). The KV layout, the
+    prefix cache's and speculative decoding's settings and the seed come
+    from the leader; an ``engine_config`` given here must agree with the
+    leader's on them. Every rank of the world calls it (or builds
     the leader's engine) at the same point: the command group is made
     collectively. A command that raises here aborts the group, so the
     leader's dispatch fails instead of hanging, and raises
@@ -330,7 +563,8 @@ def serve_follower(
                 commands += 1
                 if op == "stop":
                     return FollowerResult(me, follower.blocks, follower.digest.hexdigest(),
-                                          commands)
+                                          commands, sorted(follower.store.card),
+                                          sorted(follower.store.host))
                 if op == "hello":
                     _check_hello(cfg, engine_config, kw)
                     follower = _Follower(cfg, params, mesh, dev, kw)
@@ -347,4 +581,5 @@ def _check_hello(cfg: llama.LlamaConfig, engine_config: Any, hello: dict) -> Non
     if engine_config is not None:
         mine = {k: getattr(engine_config, k) for k in _KV_FIELDS}
         if mine != hello["kv"]:
-            raise ValueError(f"the leader's KV layout {hello['kv']} is not this rank's {mine}")
+            raise ValueError(f"the leader's engine settings {hello['kv']} are not this rank's "
+                             f"{mine}")

@@ -428,14 +428,15 @@ def test_contracts_differ_from_the_reference_only_where_listed():
     wrappers take no interpret flag and no block sizes (the kernels size
     their own tiles); what the reference donates is updated in place. The
     entries the tensor-parallel engine dispatches (prefill_compute, the
-    decode blocks, the ragged steps) take its ``mesh`` last, where the
-    reference's arrays carry their shardings."""
+    decode blocks, the ragged steps, the spec verifies) take its ``mesh``
+    last, where the reference's arrays carry their shardings."""
     assert set(kc.CONTRACTS) == set(jkc.CONTRACTS)
     for name, c in kc.CONTRACTS.items():
         ref = jkc.CONTRACTS[name]
         assert c.file == ref.file.replace("gofr_tpu/", "gofr_tpu_torch/")
         assert c.packed == ref.packed
-        on_mesh = name == "prefill_compute" or name.startswith(("decode_block", "ragged_step"))
+        on_mesh = name == "prefill_compute" or name.startswith(
+            ("decode_block", "ragged_step", "verify_and_sample"))
         assert (c.params[-1] == "mesh") == on_mesh, name
         params = c.params[:-1] if on_mesh else c.params
         if name.startswith("ragged_step"):
@@ -443,7 +444,7 @@ def test_contracts_differ_from_the_reference_only_where_listed():
                 == [p for p in params if p not in ("chunk_rows", "seeds")]
             assert c.returns[1].shape == "K,V" and ref.returns[1].shape == "B,V"
         elif name.startswith("verify_and_sample"):
-            assert c.params == tuple("generator" if p == "rng" else p for p in ref.params)
+            assert params == tuple("generator" if p == "rng" else p for p in ref.params)
             assert [r.name for r in c.returns] == [r.name for r in ref.returns if r.name != "rng"]
         elif name in ("paged_decode_attention", "paged_decode_attention_q", "flash_attention"):
             assert c.params == tuple(p for p in ref.params

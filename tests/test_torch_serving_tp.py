@@ -9,7 +9,14 @@ The JAX side runs here on the 8-device CPU mesh of ``conftest.py`` while
 the worlds run: the unsharded engine for every config, and the sharded
 one where the reference's own probe finds the partitioner sound. Tolerance: exact
 greedy tokens at tiny f32, as the reference test asks of its sharded
-engine.
+engine; the prefix cache's stats, ``spec_stats`` and the int8 weights'
+slices exactly equal too.
+
+The weight-only int8 engines serve ``quantize_params(local, mesh=)`` of
+each rank's slices and are held to the reference's unsharded
+``quantize_params(params)`` engine; the slices themselves are held bit for
+bit to the addressable shards of the reference's only route to int8 on a
+mesh, ``quantize_params(shard_params(...))`` (the other order raises).
 """
 
 from __future__ import annotations
@@ -48,15 +55,77 @@ CHUNKED = {  # prompts past a 16-token chunk and past the largest bucket: the ra
     "paged_int8_chunked": (dict(PAGED, prefill_chunk_tokens=16, kv_dtype="int8"),
                            CHUNKED_PROMPTS),
 }
+INT8 = {  # weight-only int8 params on the reference test's three configs
+    "int8_dense": (BASE, ENGINES["dense"][1], {"params": "int8"}),
+    "int8_paged": (PAGED, ENGINES["paged"][1], {"params": "int8"}),
+    "int8_paged_int8": (dict(PAGED, kv_dtype="int8"), ENGINES["paged_int8"][1], {"params": "int8"}),
+}
+REPEAT = [("hello tp hello tp", 6), ("hello tp hello tp", 6), ("abcabcabcabc", 6)]
+EVICTING = [("abc", 6), ("abc", 6), ("xyz", 6), ("abc", 6)]
+PREFIX = {  # each prompt alone, in order, through the prefix cache; the whole prefills each ran
+    "prefix_dense": (dict(BASE, prefix_cache_entries=4), REPEAT, [1, 0, 1]),
+    "prefix_paged": (dict(PAGED, prefix_cache_entries=4), REPEAT, [1, 0, 1]),
+    # 12000 bytes hold one 16-token entry (9472 bytes at the whole KV's size), not two
+    "prefix_evict": (dict(BASE, prefix_cache_entries=4, prefix_cache_bytes=12000), EVICTING,
+                     [1, 0, 1, 1]),
+    # two 16-token chunks through the ragged dispatch, cached at their
+    # boundaries: the second admission restores both and dispatches none
+    "prefix_chunked": (dict(PAGED, prefill_chunk_tokens=16, prefix_cache_entries=8),
+                       [("the quick brown fox jumps over", 6)] * 2, [0, 0]),
+}
+FOX = "the quick brown fox jumps over"
+SPILL = {  # a device tier of one entry; the host-tier hits and the whole prefills each ran
+    "spill": (dict(BASE, prefix_cache_entries=1, kv_spill_bytes=1 << 20),
+              [("abc", 6), ("xyz", 6), ("abc", 6)], 1, [1, 1, 0]),  # abc spills, then hits
+    # a chain of two 16-token chunk entries: both spill (the second behind
+    # "xyz"), then one walk re-uploads both, and the second's re-upload
+    # spills the first before the restore reads it
+    "spill_chain": (dict(PAGED, prefill_chunk_tokens=16, prefix_cache_entries=1,
+                         kv_spill_bytes=1 << 20),
+                    [(FOX, 6), ("xyz", 6), (FOX, 6)], 2, [0, 1, 0]),
+}
+SPEC_PROMPTS = [("aaaaaaaa", 24), ("hello tp", 6)]  # the first settles into a loop the drafts hit
+SPEC = {
+    "spec_dense": (dict(BASE, spec_tokens=2), SPEC_PROMPTS),
+    "spec_paged": (dict(PAGED, spec_tokens=2), SPEC_PROMPTS),
+}
+RESTART = (dict(BASE, prefix_cache_entries=4), [("hello tp", 6), ("b", 6), ("hello tp", 6)])
+FEATURES = {**{k: (c, p, {"kind": "prefix"}) for k, (c, p, _) in PREFIX.items()},
+            **{k: (c, p, {"kind": "spill"}) for k, (c, p, _, _) in SPILL.items()},
+            **{k: (c, p, {"kind": "spec"}) for k, (c, p) in SPEC.items()}}
 WORLDS = {"fsdp=2,tp=4": 8, "tp=4": 4}
+
+
+def _jax_mesh(spec: str) -> Mesh:
+    fsdp = 2 if spec.startswith("fsdp") else 1
+    return Mesh(np.array(jax.devices()[:4 * fsdp]).reshape(fsdp, 4), ("fsdp", "tp"))
 
 
 @pytest.fixture(scope="module")
 def ref():
     cfg = jllama.LlamaConfig.tiny(vocab_size=VOCAB)
     params = jllama.init_params(cfg, jax.random.PRNGKey(0))
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("fsdp", "tp"))
-    return cfg, params, jshard_params(params, mesh, jrules())
+    return cfg, params, jshard_params(params, _jax_mesh("fsdp=2,tp=4"), jrules())
+
+
+def _jax_run(cfg, params, conf: dict, prompts: list, kind: str) -> dict:
+    """The reference engine's run of a feature engine: each prompt alone,
+    in order (``spill`` settles the spill worker after each); its tokens,
+    prefix cache stats and ``spec_stats``."""
+    engine = JServingEngine(cfg, params, JEngineConfig(**conf), JByteTokenizer())
+    engine.start()
+    try:
+        tokens = []
+        for p, n in prompts:
+            tokens.append(engine.submit(p, max_new_tokens=n, temperature=0.0)
+                          .result(timeout=120).token_ids)
+            if kind == "spill":
+                engine._prefix_cache.flush()
+        details = engine.health_check()["details"]
+    finally:
+        engine.stop()
+    return {"tokens": tokens, "prefix_cache": details.get("prefix_cache"),
+            "spec_stats": dict(engine.spec_stats)}
 
 
 def _jax_tokens(cfg, params, conf: dict, prompts: list) -> list:
@@ -77,12 +146,13 @@ def world_futures(ref):
     pool = concurrent.futures.ThreadPoolExecutor(len(WORLDS))
     futures = {}
     for spec, n in WORLDS.items():
-        engines = ENGINES if spec == "fsdp=2,tp=4" else {**ENGINES, **CHUNKED}
+        wide = spec == "fsdp=2,tp=4"
+        engines = {**ENGINES, **INT8} if wide else {**ENGINES, **CHUNKED, **INT8, **FEATURES}
         inp = {"mesh": spec, "vocab": VOCAB, "params": params_np,
-               "engines": [(name, conf, prompts) for name, (conf, prompts) in engines.items()],
-               "http": BASE if spec == "fsdp=2,tp=4" else None,
-               "refusals": spec == "tp=4", "fail": PAGED if spec == "tp=4" else None,
-               "ring": spec == "tp=4"}
+               "engines": [(name, *entry) for name, entry in engines.items()],
+               "http": BASE if wide else None,
+               "refusals": not wide, "fail": None if wide else PAGED, "ring": not wide,
+               "restart": None if wide else RESTART, "restart_lost": BASE if wide else None}
         futures[spec] = pool.submit(world.run_spmd, cases.tp_world, n, args=(inp,),
                                     backend="gloo", device="cpu", timeout_s=300)
     yield futures
@@ -99,6 +169,12 @@ def jax_tokens(ref, world_futures):
         out["unsharded"][name] = _jax_tokens(cfg, params, conf, prompts)
     # the reference's int8 check: the first token of the unsharded bf16 engine
     out["bf16_of_int8_prompt"] = _jax_tokens(cfg, params, BASE, ENGINES["paged_int8"][1])
+    int8 = jllama.quantize_params(params)
+    for name, (conf, prompts, _) in INT8.items():
+        out["unsharded"][name] = _jax_tokens(cfg, int8, conf, prompts)
+    out["features"] = {name: _jax_run(cfg, params, conf, prompts, opt["kind"])
+                       for name, (conf, prompts, opt) in FEATURES.items()}
+    out["restart"] = _jax_tokens(cfg, params, *RESTART)
     out["exact_spmd"] = not _spmd_rope_partitioner_broken()
     if out["exact_spmd"]:
         for name, (conf, prompts) in ENGINES.items():
@@ -127,6 +203,38 @@ def test_init_params_on_a_mesh_keeps_the_ranks_slices(worlds, spec):
     """``init_params(mesh=)`` draws as one card does and keeps each rank's
     slices: equal to ``shard_params`` of the whole draw on every rank."""
     assert all(r["init_slices_equal"] for r in worlds[spec])
+
+
+@pytest.mark.parametrize("spec", WORLDS)
+def test_init_params_quantized_on_a_mesh_keeps_the_ranks_slices(worlds, spec):
+    """``init_params(quantize=True, mesh=)`` quantizes each leaf whole and
+    keeps each rank's ``q`` and ``s``: equal to ``shard_params`` of the
+    one-card ``quantize_params`` on every rank."""
+    assert all(r["init_int8_slices_equal"] for r in worlds[spec])
+
+
+@pytest.mark.parametrize("spec", WORLDS)
+def test_int8_slices_equal_the_reference_shards(worlds, ref, spec):
+    """Each rank's ``quantize_params(local, mesh=)`` slices, bit for bit, are
+    the addressable shards of the reference's ``quantize_params(
+    shard_params(...))`` on the device at the rank's mesh coordinates: q by
+    its weight's placement, s on the output axis, and a row-parallel
+    scale from the absmax of the whole contraction axis."""
+    cfg, params, _ = ref
+    mesh = _jax_mesh(spec)
+    qtree = jllama.quantize_params(jshard_params(params, mesh, jrules()))
+    leaves = {f"layers/{k}/{part}": v[part] for k, v in qtree["layers"].items()
+              if isinstance(v, dict) for part in ("q", "s")}
+    leaves.update({f"lm_head/{part}": qtree["lm_head"][part] for part in ("q", "s")})
+    assert np.asarray(qtree["layers"]["wo"]["s"]).shape == (cfg.n_layers, cfg.d_model)
+    for r in worlds[spec]:
+        device = mesh.devices[r["coordinate"]["fsdp"], r["coordinate"]["tp"]]
+        assert set(r["int8_slices"]) == set(leaves)
+        for path, leaf in leaves.items():
+            shard = next(s for s in leaf.addressable_shards if s.device == device)
+            got, want = r["int8_slices"][path], np.asarray(shard.data)
+            assert got.shape == want.shape and got.dtype == want.dtype, path
+            assert got.tobytes() == want.tobytes(), (r["rank"], path)
 
 
 def _assert_matches(worlds, jax_tokens, spec: str, name: str) -> None:
@@ -158,6 +266,97 @@ def test_tp_engine_paged_int8(worlds, jax_tokens, spec):
     assert got[0][0] == jax_tokens["bf16_of_int8_prompt"][0][0] and len(got[0]) == 6
 
 
+@pytest.mark.parametrize("spec", WORLDS)
+@pytest.mark.parametrize("name", INT8)
+def test_tp_engine_int8_params(worlds, jax_tokens, spec, name):
+    """Weight-only int8 params on the mesh: the reference's unsharded
+    ``quantize_params(params)`` engine's greedy tokens, and the same again."""
+    _assert_matches(worlds, jax_tokens, spec, name)
+
+
+def _follower_keys(worlds, name: str) -> None:
+    """Every follower's store holds on the card the keys the leader's
+    device tier holds, and in host memory at least its host tier's."""
+    ranks = worlds["tp=4"]
+    lead = ranks[0]["engines"][name]
+    stats = lead["prefix_cache"]
+    for r in ranks[1:]:
+        held = set(r["engines"][name]["card"]) | set(r["engines"][name]["host"])
+        assert set(lead["keys"]) <= held
+        assert len(r["engines"][name]["card"]) == stats["entries"]
+
+
+@pytest.mark.parametrize("name", PREFIX)
+def test_tp_prefix_cache(worlds, jax_tokens, name):
+    """The prefix cache on the mesh: the reference's tokens and its stats
+    (entries, hits, misses, bytes at the whole KV's size; with a budget of
+    one entry, its evictions), no prefill on a whole-prompt hit, and the
+    leader's keys in every follower's store."""
+    got = worlds["tp=4"][0]["engines"][name]
+    want = jax_tokens["features"][name]
+    assert got["tokens"] == want["tokens"]
+    for key in ("entries", "hits", "misses", "bytes"):
+        assert got["prefix_cache"][key] == want["prefix_cache"][key], key
+    assert got["prefix_cache"]["hits"] >= 1
+    assert got["prefills"] == PREFIX[name][2]
+    _follower_keys(worlds, name)
+
+
+@pytest.mark.parametrize("name", SPILL)
+def test_tp_spill_tier(worlds, jax_tokens, name):
+    """The host spill tier on the mesh: the reference's tokens, device and
+    host hits; the followers spilled and re-uploaded their own slabs (a
+    chunk chain: each restores the slabs of the walk's hits, though the
+    walk spilled the first before the restore)."""
+    got = worlds["tp=4"][0]["engines"][name]
+    want = jax_tokens["features"][name]
+    host_hits, prefills = SPILL[name][2:]
+    assert got["tokens"] == want["tokens"]
+    for key in ("entries", "hits", "misses", "bytes"):
+        assert got["prefix_cache"][key] == want["prefix_cache"][key], key
+    assert got["prefix_cache"]["host"]["hits"] == want["prefix_cache"]["host"]["hits"] == host_hits
+    assert got["prefills"] == prefills
+    _follower_keys(worlds, name)
+
+
+@pytest.mark.parametrize("name", SPEC)
+def test_tp_speculative_decoding(worlds, jax_tokens, name):
+    """Speculative decoding on the mesh (the verify through
+    ``dispatch_verify`` on every rank): the reference's greedy tokens and
+    ``spec_stats``, with drafts accepted."""
+    got = worlds["tp=4"][0]["engines"][name]
+    want = jax_tokens["features"][name]
+    assert got["tokens"] == want["tokens"]
+    assert got["spec_stats"] == want["spec_stats"]
+    assert got["spec_stats"]["accepted"] > 0
+
+
+def test_tp_warm_restart(worlds, jax_tokens):
+    """``warm_restart`` of the tp engine with two requests queued behind a
+    held loop: it joins, every rank rebuilds, both complete with the
+    reference's tokens, the epoch is bumped, the rank hashes are equal and
+    the rebuilt prefix store holds the leader's keys."""
+    ranks = worlds["tp=4"]
+    lead = ranks[0]["restart"]
+    assert lead["restarted"] and lead["status"] == "UP"
+    assert lead["epoch"][1] == lead["epoch"][0] + 1
+    assert lead["tokens"] == jax_tokens["restart"]
+    assert all(r["restart"]["digest"] == tuple(lead["digest"]) for r in ranks[1:])
+    assert lead["keys"] and all(set(lead["keys"]) <= set(r["restart"]["card"]) for r in ranks[1:])
+
+
+def test_tp_warm_restart_that_cannot_join_ends_the_group(worlds):
+    """A restart whose loop thread stays hung: ``TPGroupError``, health
+    DOWN with the group lost, the queued request failed retriable, and
+    every follower raised instead of waiting out its timeout."""
+    ranks = worlds["fsdp=2,tp=4"]
+    lead = ranks[0]["restart_lost"]
+    assert lead["error"].startswith("TPGroupError")
+    assert lead["queued"].startswith("ErrorServiceUnavailable")
+    assert lead["status"] == "DOWN" and lead["lost"]
+    assert all(r["restart_lost"]["raised"] for r in ranks[1:])
+
+
 @pytest.mark.parametrize("name", CHUNKED)
 def test_tp_engine_ragged_chunked_prefill(worlds, jax_tokens, name):
     """Prompts past the chunk and past every bucket prefill in chunks
@@ -176,7 +375,8 @@ def test_every_ranks_packed_outputs_are_bit_equal(worlds, spec):
         blocks, digest = lead["digest"]
         assert blocks > 0 and lead["health"]["blocks"] == blocks
         assert lead["health"]["ranks"] == len(ranks) and not lead["health"]["lost"]
-        assert all(tuple(r["engines"][name]) == (blocks, digest) for r in ranks[1:]), name
+        assert all(tuple(r["engines"][name]["digest"]) == (blocks, digest)
+                   for r in ranks[1:]), name
 
 
 def test_tp_engine_http_grpc_load(worlds):
@@ -217,8 +417,7 @@ def test_host_ring_sums_and_gathers_exactly(worlds):
         assert {k: h for k, (_, h) in r["ring"].items()} == {k: h for k, (_, h) in cases.items()}
 
 
-@pytest.mark.parametrize("feature", ["spec", "lora", "prefix_cache", "prefix_cache=", "kv_spill",
-                                     "kv_migrator", "int8 params"])
+@pytest.mark.parametrize("feature", ["lora", "kv_migrator", "pp"])
 def test_features_outside_the_slice_are_refused(worlds, feature):
     msg = worlds["tp=4"][0]["refusals"][feature]
     assert "tensor-parallel engine (mesh=) does not serve" in msg

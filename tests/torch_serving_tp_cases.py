@@ -53,10 +53,13 @@ def _serve(engine: ServingEngine, prompts: list) -> list[list[int]]:
 
 def tp_world(dev: torch.device, inp: dict) -> dict:
     """The engines of ``test_torch_serving_tp.py`` on one mesh, in order:
-    each of ``inp["engines"]`` serves its prompts, then (``inp["http"]``)
-    the HTTP + gRPC load, the refusals (``inp["refusals"]``) and last
-    (``inp["fail"]``) a follower that raises, after which no rank has a
-    process group."""
+    each of ``inp["engines"]`` serves its prompts (an optional fourth
+    entry: ``"int8"`` params, ``"kind"`` ``prefix``, ``spill`` or ``spec``),
+    then (``inp["http"]``) the HTTP + gRPC load, the refusals
+    (``inp["refusals"]``), a warm restart with queued requests
+    (``inp["restart"]``), and last a follower that raises (``inp["fail"]``)
+    or a restart that cannot join (``inp["restart_lost"]``), after which
+    no rank has a process group."""
     torch.set_num_threads(1)
     mesh = build_mesh(inp["mesh"])
     cfg = llama.LlamaConfig.tiny(vocab_size=inp["vocab"])
@@ -71,30 +74,179 @@ def tp_world(dev: torch.device, inp: dict) -> dict:
     whole = llama.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
     mine = llama.init_params(cfg, torch.Generator().manual_seed(7), device="cpu", mesh=mesh)
     want = shard_params(whole, mesh, llama_sharding_rules())
-    out["init_slices_equal"] = all(
-        torch.equal(mine[k], want[k]) if not isinstance(want[k], dict)
-        else all(torch.equal(mine[k][j], want[k][j]) for j in want[k]) for k in want)
-    for name, conf, prompts in inp["engines"]:
+    out["init_slices_equal"] = _tree_equal(mine, want)
+    # weight-only int8: quantized on the ranks' slices (the row-parallel
+    # absmax reduced over tp), and drawn quantized whole on a mesh
+    int8 = llama.quantize_params(local, mesh=mesh)
+    out["int8_slices"] = _int8_leaves(int8)
+    out["coordinate"] = dict(mesh.coordinate)
+    mine = llama.init_params(cfg, torch.Generator().manual_seed(7), device="cpu", mesh=mesh,
+                             quantize=True)
+    want = shard_params(llama.quantize_params(whole), mesh, llama_sharding_rules())
+    out["init_int8_slices_equal"] = _tree_equal(mine, want)
+    trees = {"bf16": local, "int8": int8}
+    for name, conf, prompts, *opts in inp["engines"]:
+        opt = opts[0] if opts else {}
+        params = trees[opt.get("params", "bf16")]
         if not lead:
-            out["engines"][name] = _digest(serve_follower(cfg, local, mesh=mesh, device="cpu"))
+            res = serve_follower(cfg, params, mesh=mesh, device="cpu")
+            out["engines"][name] = {"digest": _digest(res), "card": res.prefix_card,
+                                    "host": res.prefix_host}
             continue
-        engine = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+        engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
                                device="cpu")
-        engine.start()
-        try:
-            tokens = _serve(engine, prompts)
-            again = _serve(engine, prompts[:1])  # determinism on the same engine
-        finally:
-            engine.stop()
-        out["engines"][name] = {"tokens": tokens, "again": again, "digest": engine.tp_digest(),
-                                "health": engine.health_check()["details"]["tensor_parallel"]}
+        out["engines"][name] = _serve_engine(engine, prompts, opt.get("kind"))
     if inp.get("http"):
         out["http"] = (_http_load(cfg, local, mesh, inp["http"]) if lead
                        else _digest(serve_follower(cfg, local, mesh=mesh, device="cpu")))
-    if inp.get("refusals") and lead:
-        out["refusals"] = _refusals(cfg, local, mesh)
+    if inp.get("refusals"):
+        pp_mesh = build_mesh("pp=2,tp=2")  # collective: every rank builds it
+        if lead:
+            out["refusals"] = _refusals(cfg, local, mesh, pp_mesh)
+    if inp.get("restart"):
+        out["restart"] = _restart(cfg, local, mesh, *inp["restart"])
     if inp.get("fail"):
         out["fail"] = _fail(cfg, local, mesh, inp["fail"])
+    if inp.get("restart_lost"):
+        out["restart_lost"] = _restart_lost(cfg, local, mesh, inp["restart_lost"])
+    return out
+
+
+class _Gate:
+    """Holds the engine loop before its admission while ``closed``: it
+    lets go when the loop is stopped (``until_stopped``), or only once
+    opened. ``waiting`` is set once the loop waits at it."""
+
+    def __init__(self, engine: ServingEngine, until_stopped: bool) -> None:
+        self.engine, self.until_stopped = engine, until_stopped
+        self.closed = threading.Event()
+        self.waiting = threading.Event()
+        real = engine._admit
+
+        def admit(plan):
+            while self.closed.is_set() and not (self.until_stopped and not engine._running):
+                self.waiting.set()
+                time.sleep(0.005)
+            return real(plan) if engine._running else False
+
+        engine._admit = admit
+
+
+def _restart(cfg: Any, local: dict, mesh: Any, conf: dict, prompts: list) -> dict:
+    """``warm_restart`` of the tp engine with two requests queued behind a
+    held loop: the first prompt served before, the others queued; the
+    restart joins the loop, rebuilds every rank's state and serves them."""
+    if dist.get_rank() != 0:
+        res = serve_follower(cfg, local, mesh=mesh, device="cpu")
+        return {"digest": _digest(res), "card": res.prefix_card}
+    engine = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                           device="cpu")
+    gate = _Gate(engine, until_stopped=True)
+    engine.start()
+    try:
+        before = _serve(engine, prompts[:1])
+        gate.closed.set()
+        gate.waiting.wait(timeout=TIMEOUT_S)
+        futures = [engine.submit(p, max_new_tokens=n, temperature=0.0) for p, n in prompts[1:]]
+        epoch = engine.epoch
+        restarted = engine.warm_restart(join_timeout=TIMEOUT_S)
+        gate.closed.clear()
+        queued = [f.result(timeout=TIMEOUT_S).token_ids for f in futures]
+        status = engine.health_check()["status"]
+    finally:
+        engine.stop()
+    return {"tokens": before + queued, "restarted": restarted, "epoch": (epoch, engine.epoch),
+            "status": status, "digest": engine.tp_digest(),
+            "keys": sorted(engine._prefix_cache.keys())}
+
+
+def _restart_lost(cfg: Any, local: dict, mesh: Any, conf: dict) -> dict:
+    """A warm restart whose loop thread stays hung past ``join_timeout``:
+    the group ends (``TPGroupError``, health DOWN, the queued request fails
+    retriable) and every follower raises; no rank keeps a process group."""
+    if dist.get_rank() != 0:
+        try:
+            serve_follower(cfg, local, mesh=mesh, device="cpu")
+            return {"raised": ""}
+        except TPGroupError as exc:
+            return {"raised": str(exc)}
+    engine = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                           device="cpu")
+    gate = _Gate(engine, until_stopped=False)
+    engine.start()
+    try:
+        gate.closed.set()
+        gate.waiting.wait(timeout=TIMEOUT_S)
+        fut = engine.submit("queued behind a hang", max_new_tokens=4, temperature=0.0)
+        try:
+            engine.warm_restart(join_timeout=0.5)
+            error = ""
+        except Exception as exc:  # noqa: BLE001 - the test reads what the caller gets
+            error = f"{type(exc).__name__}: {exc}"
+        try:
+            fut.result(timeout=TIMEOUT_S)
+            queued = ""
+        except Exception as exc:  # noqa: BLE001
+            queued = f"{type(exc).__name__}: {exc}"
+        health = engine.health_check()
+    finally:
+        gate.closed.clear()
+        engine.stop()
+    return {"error": error, "queued": queued, "status": health["status"],
+            "lost": health["details"]["tensor_parallel"]["lost"]}
+
+
+def _tree_equal(got: dict, want: dict) -> bool:
+    """Every leaf of two params trees (int8 leaves' ``q`` and ``s``) equal."""
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(_tree_equal(got[k], want[k]) for k in want)
+    return torch.equal(got, want)
+
+
+def _int8_leaves(params: dict) -> dict:
+    """Each weight-only int8 leaf's ``q`` and ``s`` slices as numpy, by path."""
+    out = {}
+    leaves = [(f"layers/{k}", v) for k, v in params["layers"].items()]
+    for path, w in [*leaves, ("lm_head", params.get("lm_head"))]:
+        if isinstance(w, dict):
+            out[f"{path}/q"], out[f"{path}/s"] = w["q"].numpy(), w["s"].numpy()
+    return out
+
+
+def _serve_engine(engine: ServingEngine, prompts: list, kind: str | None) -> dict:
+    """One leader engine's run (:func:`tp_world`): each prompt alone, then
+    the first again, or by ``kind``: ``prefix`` and ``spec`` serve the
+    prompts alone in order, ``spill`` settles the spill worker after each.
+    Returns the tokens, the packed-block hash, the group's health and the
+    prefix cache's stats and keys, ``spec_stats`` and the prefill
+    dispatches of each prompt."""
+    prefills: list[int] = []
+    real = batch_ops.prefill_compute
+
+    def counted(*args, **kw):
+        prefills[-1] += 1
+        return real(*args, **kw)
+
+    batch_ops.prefill_compute = counted
+    engine.start()
+    try:
+        tokens = []
+        for p, n in prompts:
+            prefills.append(0)
+            tokens.append(_serve(engine, [(p, n)])[0])
+            if kind == "spill":
+                engine._prefix_cache.flush()
+        again = _serve(engine, prompts[:1]) if kind is None else None
+    finally:
+        batch_ops.prefill_compute = real
+        engine.stop()
+    out = {"tokens": tokens, "again": again, "digest": engine.tp_digest(),
+           "health": engine.health_check()["details"]["tensor_parallel"],
+           "spec_stats": dict(engine.spec_stats), "prefills": prefills}
+    cache = engine._prefix_cache
+    if cache is not None:
+        out["prefix_cache"] = engine.health_check()["details"]["prefix_cache"]
+        out["keys"] = sorted(cache.keys())
     return out
 
 
@@ -190,26 +342,19 @@ def _http_load(cfg: Any, local: dict, mesh: Any, conf: dict) -> dict:
         engine.stop()
 
 
-def _refusals(cfg: Any, local: dict, mesh: Any) -> dict:
+def _refusals(cfg: Any, local: dict, mesh: Any, pp_mesh: Any) -> dict:
     """Each feature outside the tensor-parallel engine refused by name at
     construction (no follower is involved: nothing reaches the group)."""
-    from gofr_tpu_torch.serving.prefix_cache import PrefixCache
-
     base = dict(max_slots=2, max_seq_len=32, prefill_buckets=(16,))
     cases = {
-        "spec": ({"spec_tokens": 2}, {}),
-        "lora": ({}, {"lora": object()}),
-        "prefix_cache": ({"prefix_cache_entries": 4}, {}),
-        "prefix_cache=": ({}, {"prefix_cache": PrefixCache(4)}),
-        "kv_spill": ({"kv_spill_bytes": 1 << 20}, {}),
-        "kv_migrator": ({}, {"kv_migrator": object()}),
-        "int8 params": ({}, {"params": llama.quantize_params(local)}),
+        "lora": ({}, {"lora": object()}, mesh),
+        "kv_migrator": ({}, {"kv_migrator": object()}, mesh),
+        "pp": ({}, {}, pp_mesh),
     }
     out = {}
-    for name, (conf, kw) in cases.items():
-        params = kw.pop("params", local)
+    for name, (conf, kw, on) in cases.items():
         try:
-            ServingEngine(cfg, params, EngineConfig(**base, **conf), ByteTokenizer(), mesh=mesh,
+            ServingEngine(cfg, local, EngineConfig(**base, **conf), ByteTokenizer(), mesh=on,
                           device="cpu", **kw)
             out[name] = ""
         except NotImplementedError as exc:

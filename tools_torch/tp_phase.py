@@ -1,15 +1,18 @@
 """Run ``chip_smoke.py``'s tp phase alone: the tensor-parallel
 ``ServingEngine`` over four ranks on the one card over gloo, at Llama-3-8B
 widths and full depth (tp=4), TP-B with the bf16 path's config behind an
-App over HTTP and gRPC and TP-Q with the int8 path's (chunked prefill),
-each held to one card.
+App over HTTP and gRPC, TP-Q with the int8 path's (chunked prefill) and
+TP-W8 with the dense-w8 path's (weight-only int8 params), each held to one
+card, and TP-R (the prefix cache with its spill tier, ``warm_restart`` and
+speculative decoding at ``PLANE_DEPTH`` layers).
 
     python3 tools_torch/tp_phase.py
 
 Needs one CUDA card. Builds the kernels and prints the card's name and
-power limit. The script takes the one-card tokens from its own bf16 and
-int8 paths; alone, this first serves the same prompts on a one-card engine
-of each config (the same weights from the seed). Then the phase's own
+power limit. The script takes the one-card tokens from its own bf16, int8
+and dense-w8 paths; alone, this first serves the same prompts on a
+one-card engine of each config (the same weights from the seed, and
+``quantize_params`` of them for dense-w8). Then the phase's own
 lines, and last a ``{"tp": ...}`` JSON line.
 """
 from __future__ import annotations
@@ -34,8 +37,11 @@ def one_card_tokens(torch, cs) -> dict:
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(cs.SEED),
                                device="cuda")
     gold = {}
-    for path, lens in (("bf16", cs.MAIN_LENS), ("int8", cs.MAIN_LENS + [cs.LONG_PROMPT])):
+    long = cs.MAIN_LENS + [cs.LONG_PROMPT]
+    for path, lens in (("bf16", cs.MAIN_LENS), ("int8", long), ("dense-w8", long)):
         t = time.perf_counter()
+        if path == "dense-w8":
+            params = llama.quantize_params(params)
         engine = ServingEngine(cfg, params, EngineConfig(**cs.MAIN_ENGINES[path]),
                                ByteTokenizer(cfg.vocab_size), seed=cs.SEED)
         engine.start()
