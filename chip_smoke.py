@@ -537,7 +537,25 @@ Phases, each a hard failure with a non-zero exit:
    no rank's ``memory_allocated`` higher after it), then a ``spec_tokens``
    engine on the spec prompt: drafts accepted, and each of its tokens and
    of the non-spec engine's greedy under the tp forward of the prompt and
-   the tokens before it (within ``TP_TIE_GAP`` of the top logit); then each rank
+   the tokens before it (within ``TP_TIE_GAP`` of the top logit); then
+   ``TP-L`` on the same views, the bf16 path's config with an
+   ``AdapterRegistry`` of L1's three rank-16 adapters: eight rows at once
+   (four prompts, each with an adapter and as its base twin) on an engine
+   with no registry and on one with it (the base rows' tokens equal bit for
+   bit, an adapter row apart from its twin, each adapter token greedy under
+   the tp forward plus its delta within ``TP_TIE_GAP``, the leader's
+   first-token delta equal to ``emb[t] @ A @ B`` whole in f32 within
+   ``TP_L_DELTA_RTOL``); then ``TP-M``, KV migration with a one-card engine
+   on rank 0 over the same layers all-gathered whole (``TP_M_ENGINE``: int8
+   pools, a prefix cache): M1 the tp engine hands the 1000- and 333-token
+   prompts off (``prefill_only``) to the one-card engine (``handoff_from``,
+   no prefill dispatch, each fetched slab's heads equal to each rank's own
+   bit for bit, ``/kv/fetch``'s binary body off the tp engine's App equal
+   to the in-process fetch byte for byte), M3 ``begin_reclaim`` evacuates
+   the tp engine's cache onto it (``committed``, then a prompt with no
+   prefill), M2 it hands both to a second tp engine (no prefill dispatch on
+   any rank, each rank's slabs its heads of the source's by hash, paged
+   int8 on every rank); then each rank
    drops its bf16 slices and draws the weight-only int8 ones
    (``init_params(quantize=True, mesh=)``) for ``TP-W8`` on the dense-w8
    path's config and traffic; each main-path engine's first tokens equal
@@ -10390,7 +10408,23 @@ TP_TIE_GAP = 0.1
 TP_MUST = {"TP-B": {"flash_attention", "paged_decode_attention"},
            "TP-Q": {"flash_attention", "paged_decode_attention_q"},
            "TP-R": {"flash_attention", "paged_decode_attention"},
+           "TP-L": {"flash_attention", "paged_decode_attention"},
+           "TP-M": {"flash_attention", "paged_decode_attention_q"},
            "TP-W8": {"flash_attention"}}
+# TP-L: eight rows at once, four prompts each twice, with an adapter and without
+TP_L_LENS = [60, 120, 200, 333]
+TP_L_ROWS = ["adapter-1", None, "adapter-2", None, "adapter-3", None, "adapter-1", None]
+TP_L_NEW = 24
+# TP-L: the leader's first-token delta against emb[t] @ A @ B computed whole in f32 on rank 0,
+# relative to the delta's largest magnitude (it is read back as the adjusted logits less the
+# logits, whose magnitude is some 10x the delta's: a few f32 ulps of them)
+TP_L_DELTA_RTOL = 1e-3
+# TP-M: the int8 path's paged config with a prefix cache. Its 256-token chunks would keep no
+# entry of the 1000- and 333-token prompts (int8 KV keeps whole-prompt entries only), so the
+# chunk is the bf16 path's 2048 and both prompts are whole-prompt entries
+TP_M_ENGINE = dict(MAIN_ENGINES["int8"], prefill_chunk_tokens=2048, prefix_cache_entries=16)
+TP_M_LENS = (1000, 333)
+TP_M_NEW = 24
 
 
 def main_prompts(vocab: int, lens: list[int]) -> tuple[list[int], list[list[int]]]:
@@ -10509,9 +10543,10 @@ def tp_rank(dev, inp: dict) -> dict:
     weights from ``SEED`` leaf by leaf and keeps its tp=4 slices
     (``init_params(mesh=)``); rank 0 holds the kernels to their plain
     versions at the local shapes and its tp ``prefill`` logits to the
-    one-card ones, then runs TP-B (with an App over HTTP and gRPC), TP-Q
-    and TP-R (:func:`tp_features`) as ``ServingEngine(..., mesh=)`` while
-    every other rank runs ``serve_follower`` for each; then every rank
+    one-card ones, then runs TP-B (with an App over HTTP and gRPC), TP-Q,
+    TP-R (:func:`tp_features`), TP-L (:func:`tp_lora`) and TP-M
+    (:func:`tp_migration`) as ``ServingEngine(..., mesh=)`` while every
+    other rank runs ``serve_follower`` for each; then every rank
     drops its bf16 slices and draws the weight-only int8 ones for TP-W8.
     Returns this rank's launches by path, peak memory, hash of each
     engine's packed blocks and, on rank 0, the checks' record."""
@@ -10624,6 +10659,9 @@ def tp_rank(dev, inp: dict) -> dict:
                              ("TP-Q", "int8", MAIN_LENS + [LONG_PROMPT])):
         out["engines"][name] = counted(name, lambda: main_path(name, path, lens, params))
     out["engines"].update(counted("TP-R", lambda: tp_features(dev, cfg, params, mesh, say)))
+    out["engines"].update(counted("TP-L", lambda: tp_lora(dev, cfg, params, mesh, say)))
+    out["engines"].update(counted("TP-M", lambda: tp_migration(dev, cfg, params, mesh, say,
+                                                                kernels)))
     # TP-W8: the bf16 slices go (the TP-R views with them), the int8 ones are
     # drawn as one card's quantize_params would make them, sliced
     drop_weights(params)
@@ -10813,6 +10851,434 @@ def tp_features(dev, cfg, params, mesh, say) -> dict:
     return {"TP-R": rec, "TP-R spec": rec_spec}
 
 
+def tp_lora(dev, cfg, params, mesh, say) -> dict:
+    """TP-L: the bf16 path's config with an ``AdapterRegistry`` of three
+    rank-16 adapters (L1's), at ``PLANE_DEPTH`` layers, on two tp engines:
+    one with no registry, then one with it, each serving ``TP_L_ROWS`` at
+    once (four prompts, each with an adapter and without; the first engine
+    serves them all as base rows), then one adapter prompt alone. Checks
+    on rank 0: the base rows' tokens equal the first engine's bit for bit;
+    each adapter row's tokens are greedy under the tp forward plus its
+    adapter's delta within ``TP_TIE_GAP`` (every rank joins those
+    forwards, :func:`tp_lora_gaps`); an adapter row parts from its base
+    twin; the leader's first-token delta of the prompt alone equals
+    ``emb[t] @ A @ B`` computed whole in f32 within ``TP_L_DELTA_RTOL``."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.serving import AdapterRegistry, make_adapter
+    from gofr_tpu_torch.serving import batch as batch_ops
+    from gofr_tpu_torch.serving import tp_group
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    lead = dist.get_rank() == 0
+    cut_cfg, cut = cut_depth(cfg, params, PLANE_DEPTH)
+    conf = EngineConfig(**MAIN_ENGINES["bf16"])
+    if not lead:
+        base = tp_group.serve_follower(cut_cfg, cut, conf, mesh=mesh, device=dev)
+        lora = tp_group.serve_follower(cut_cfg, cut, conf, mesh=mesh, device=dev)
+        tp_lora_gaps(dev, cut_cfg, cut, mesh, None)
+        return {"TP-L base": {"blocks": base.blocks, "digest": base.digest},
+                "TP-L": {"blocks": lora.blocks, "digest": lora.digest}}
+    t0 = time.perf_counter()
+    rng = torch.Generator().manual_seed(SEED + 5)
+    texts = [torch.randint(3, cut_cfg.vocab_size, (n,), generator=rng).tolist() for n in TP_L_LENS]
+    rows = [(texts[i // 2], aid) for i, aid in enumerate(TP_L_ROWS)]
+    adapters = {f"adapter-{i}": make_adapter(cut_cfg, f"adapter-{i}", rank=LORA_RANK, seed=i,
+                                             scale=LORA_SCALE) for i in (1, 2, 3)}
+
+    def serve(engine, batch) -> list:
+        futs = [engine.submit(ids, max_new_tokens=TP_L_NEW, temperature=0.0, adapter_id=aid)
+                for ids, aid in batch]
+        return [f.result(timeout=600) for f in futs]
+
+    engine = ServingEngine(cut_cfg, cut, conf, ByteTokenizer(cut_cfg.vocab_size), seed=SEED,
+                           device=dev, mesh=mesh)
+    engine.start()
+    try:
+        base = serve(engine, [(ids, None) for ids, _ in rows])
+    finally:
+        engine.stop()
+    rec_base = dict(zip(("blocks", "digest"), engine.tp_digest()))
+    reg = AdapterRegistry(max_active=4)
+    for ad in adapters.values():
+        reg.register(ad)
+    seen = []
+    real_adjust = batch_ops.lora_adjust_logits
+
+    def adjust(embedding, a_row, b_row, token, logits):
+        got = real_adjust(embedding, a_row, b_row, token, logits)
+        seen.append((logits.clone(), got.clone()))
+        return got
+
+    engine = ServingEngine(cut_cfg, cut, conf, ByteTokenizer(cut_cfg.vocab_size), seed=SEED,
+                           device=dev, mesh=mesh, lora=reg)
+    engine.start()
+    try:
+        res = serve(engine, rows)
+        t_one = time.perf_counter()
+        batch_ops.lora_adjust_logits = adjust
+        try:
+            alone = serve(engine, [(texts[0], "adapter-2")])[0]
+        finally:
+            batch_ops.lora_adjust_logits = real_adjust
+        alone_s = time.perf_counter() - t_one
+        pinned = reg.residency()["pinned_slots"]
+    finally:
+        engine.stop()
+        reg.close()
+    tokens, base_tokens = [r.token_ids for r in res], [r.token_ids for r in base]
+    job = [(ids, toks, aid) for (ids, aid), toks in zip(rows, tokens) if aid is not None]
+    factors = {aid: (torch.from_numpy(ad.a).float().to(dev), torch.from_numpy(ad.b).float().to(dev))
+               for aid, ad in adapters.items()}
+    gaps, emb_row = tp_lora_gaps(dev, cut_cfg, cut, mesh, (job, texts[0][-1]), factors)
+    logits_in, logits_out = seen[0]
+    a, b = factors["adapter-2"]
+    want = (emb_row.float() @ a) @ b
+    delta_err = ((logits_out[0] - logits_in[0]) - want).abs().max().item() / want.abs().max().item()
+    per_step = sorted((r.duration_s - r.ttft_s) / (r.completion_tokens - 1) * 1e3
+                      for r in res if r.completion_tokens > 1)
+    rec = {"base_rows_equal": all(t == bt for t, bt, (_, aid) in zip(tokens, base_tokens, rows)
+                                  if aid is None),
+           "parted_from_twin": sum(tokens[i] != tokens[i + 1] for i in range(0, len(rows), 2)),
+           "max_gap": max(max(g) for g in gaps), "first_delta_rel_err": delta_err,
+           "first_token_adjustments": len(seen), "pinned_after": pinned,
+           "ttft_ms": [r.ttft_s * 1e3 for r in res], "ttft_ms_alone": alone.ttft_s * 1e3,
+           "alone_s": alone_s, "decode_ms_per_step": per_step[len(per_step) // 2],
+           "blocks": engine.tp_digest()[0], "digest": engine.tp_digest()[1]}
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"TP-L at {PLANE_DEPTH} layers, {len(rows)} rows at once ({TP_L_ROWS}): base rows equal "
+        f"to the engine with no registry {rec['base_rows_equal']}, adapter rows apart from their "
+        f"base twins {rec['parted_from_twin']} of {len(rows) // 2}, each adapter token's gap to the "
+        f"top of the tp forward plus its delta at most {rec['max_gap']:.4f} (tolerance "
+        f"{TP_TIE_GAP}); the leader's first-token delta against emb[t] @ A @ B whole in f32: "
+        f"relative error {delta_err:.2e} (tolerance {TP_L_DELTA_RTOL}); TTFT ms {rec['ttft_ms']}, "
+        f"decode {rec['decode_ms_per_step']:.1f} ms a step (median); TP-L {rec['seconds']:.1f} s")
+    if (not rec["base_rows_equal"] or rec["parted_from_twin"] < 1 or rec["max_gap"] > TP_TIE_GAP
+            or not delta_err <= TP_L_DELTA_RTOL or pinned
+            or any(r.finish_reason not in ("length", "stop") for r in res)):
+        raise AssertionError(f"TP-L: {rec}")
+    return {"TP-L base": rec_base, "TP-L": rec}
+
+
+def tp_lora_gaps(dev, cfg, params, mesh, job: tuple | None, factors: dict | None = None):
+    """Every rank: rank 0's ``job`` (rows of a prompt, its tokens and an
+    adapter id; and one token ``t``) by a broadcast, then for each row the
+    tp forward of the prompt and its tokens and, on rank 0, each position's
+    adapter delta from the forward's own whole embedding rows of its input
+    tokens (``llama.tap_embedding``) and ``factors`` by adapter id: the gap
+    from the top of the logits plus delta to the chosen token. Then every
+    rank gathers the embedding whole for rank 0's row of ``t``. Rank 0
+    gets (the gaps of each row, that row)."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.parallel.collectives import all_gather
+
+    box = [job]
+    dist.broadcast_object_list(box, src=0)
+    rows, token = box[0]
+    gaps = []
+    for prompt, seq, aid in rows:
+        with llama.tap_embedding() as tapped:
+            logits = llama.forward(cfg, params, torch.tensor([prompt + seq[:-1]], device=dev),
+                                   mesh=mesh)[0, len(prompt) - 1:].float()
+        if factors is None:
+            continue
+        a, b = factors[aid]
+        logits += (tapped[0][0, len(prompt) - 1:].float() @ a) @ b
+        picked = logits[torch.arange(len(seq), device=dev), torch.tensor(seq, device=dev)]
+        gaps.append((logits.max(-1).values - picked).tolist())
+    whole = all_gather(params["embedding"], mesh, "tp", 0)
+    row = whole[token].clone()
+    del whole
+    torch.cuda.empty_cache()
+    return (gaps, row) if factors is not None else None
+
+
+def tp_whole(cfg, params, mesh) -> dict:
+    """The whole weights of this rank's slices (``params``), gathered over
+    ``tp`` leaf by leaf by ``llama_sharding_rules()``'s placement, on every
+    rank (a collective)."""
+    from gofr_tpu_torch.parallel import llama_sharding_rules
+    from gofr_tpu_torch.parallel.collectives import all_gather
+    from gofr_tpu_torch.parallel.sharding import map_with_path
+
+    rules = llama_sharding_rules()
+
+    def whole(path: str, leaf):
+        for dim, entry in enumerate(rules.spec_for(path)):
+            if entry == "tp" or (isinstance(entry, tuple) and "tp" in entry):
+                leaf = all_gather(leaf.contiguous(), mesh, "tp", dim)
+        return leaf
+
+    return map_with_path(whole, params)
+
+
+def tp_migration(dev, cfg, params, mesh, say, kernels: dict) -> dict:
+    """TP-M: KV migration between the tp engine and a one-card engine D on
+    rank 0, at ``PLANE_DEPTH`` layers with ``TP_M_ENGINE`` (int8 pools, a
+    prefix cache). D serves the same layers whole, all-gathered from the
+    ranks' slices (:func:`tp_whole`). M1: the tp engine T1 (role prefill)
+    takes the main path's 1000- and 333-token prompts with ``prefill_only``
+    and D serves them with ``handoff_from``: no prefill dispatch on D, every
+    fetched slab's heads equal bit for bit each rank's own slab of that
+    entry (a hash each follower reports), D's tokens greedy under its own
+    forward within ``TP_TIE_GAP``; one ``/kv/fetch`` of the binary body off
+    T1's App equals byte for byte the in-process fetch. M3: D's cache
+    emptied, ``begin_reclaim`` on T1 commits every entry to D, which serves
+    the 333-token prompt with no prefill dispatch. M2: D hands both prompts
+    to a second tp engine T2 (role decode): no prefill dispatch on any
+    rank, each rank's slabs its heads of D's entry (hashes), paged int8
+    launches on every rank, the tokens greedy under the tp forward within
+    ``TP_TIE_GAP`` (every rank joins, :func:`tp_greedy_gaps`)."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch import EngineConfig, ServingEngine
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.parallel.sharding import kv_head_slices
+    from gofr_tpu_torch.serving import batch as batch_ops
+    from gofr_tpu_torch.serving import prefix_index, tp_group
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    lead = dist.get_rank() == 0
+    cut_cfg, cut = cut_depth(cfg, params, PLANE_DEPTH)
+    t0 = time.perf_counter()
+    whole = tp_whole(cut_cfg, cut, mesh)
+    torch.cuda.synchronize(dev)
+    whole_s = time.perf_counter() - t0
+    if not lead:
+        del whole
+        torch.cuda.empty_cache()
+    prefills = {"prefill": 0, "ragged": 0}
+    real = {"prefill": batch_ops.prefill_compute, "ragged": batch_ops.dispatch_ragged}
+
+    def counting(on: bool) -> None:
+        """Count this rank's prefill computes and ragged dispatches."""
+        if not on:
+            batch_ops.prefill_compute, batch_ops.dispatch_ragged = real["prefill"], real["ragged"]
+            return
+
+        def wrap(name):
+            def call(*args, **kw):
+                prefills[name] += 1
+                return real[name](*args, **kw)
+            return call
+
+        batch_ops.prefill_compute, batch_ops.dispatch_ragged = wrap("prefill"), wrap("ragged")
+
+    def snapshot() -> dict:
+        return {n: k.launches for n, k in kernels.items()}
+
+    conf = dict(TP_M_ENGINE)
+    if not lead:
+        t1 = tp_group.serve_follower(cut_cfg, cut, EngineConfig(**conf), mesh=mesh, device=dev,
+                                     digests=True)
+        counting(True)
+        before = snapshot()
+        try:
+            t2 = tp_group.serve_follower(cut_cfg, cut, EngineConfig(**conf), mesh=mesh,
+                                         device=dev)
+        finally:
+            counting(False)
+        m2 = {n: v - before[n] for n, v in snapshot().items()}
+        for _ in TP_M_LENS:  # rank 0's gap check of T2's tokens, one prompt at a time
+            tp_greedy_gaps(dev, cut_cfg, cut, mesh, None)
+        return {"TP-M T1": {"blocks": t1.blocks, "digest": t1.digest, "slabs": t1.slabs},
+                "TP-M T2": {"blocks": t2.blocks, "digest": t2.digest, "imported": t2.imported,
+                            "prefills": dict(prefills), "m2_launches": m2}}
+    _, main = main_prompts(cut_cfg.vocab_size, MAIN_LENS)
+    prompts = [main[MAIN_LENS.index(n)] for n in TP_M_LENS]
+    places = kv_head_slices(cut_cfg.n_heads, cut_cfg.n_kv_heads, mesh.shape["tp"])
+    index = prefix_index.PrefixIndex()
+    mig_d = prefix_index.KVMigrator("D", index)
+    engine_d = ServingEngine(cut_cfg, whole, EngineConfig(**conf), ByteTokenizer(cut_cfg.vocab_size),
+                             seed=SEED, device=dev, kv_migrator=mig_d)
+    mig_1 = prefix_index.KVMigrator("T1", index)
+    t1 = ServingEngine(cut_cfg, cut, EngineConfig(**conf, role="prefill", preemptible=True),
+                       ByteTokenizer(cut_cfg.vocab_size), seed=SEED, device=dev, mesh=mesh,
+                       kv_migrator=mig_1)
+    mig_d.add_peer("T1", prefix_index.local_engine_fetcher(t1))
+    mig_1.add_push_peer("D", prefix_index.local_engine_store(engine_d))
+    handoff_ms: list = []  # each handoff's fetch (the migrator's call), M1's then M2's
+    real_handoff = mig_d.fetch_one_handoff
+
+    def timed_handoff(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return real_handoff(*args, **kw)
+        finally:
+            handoff_ms.append((time.perf_counter() - t) * 1e3)
+
+    mig_d.fetch_one_handoff = timed_handoff
+    rec: dict = {"whole_s": whole_s}
+    app = thread = None
+    engine_d.start()
+    t1.start()
+    try:
+        for ids in prompts:
+            r = t1.submit(ids, max_new_tokens=1, temperature=0.0, prefill_only=True).result(
+                timeout=600)
+            if r.finish_reason != "handoff":
+                raise AssertionError(f"TP-M M1: prefill_only ended {r.finish_reason}")
+        counting(True)
+        try:
+            m1 = [engine_d.submit(ids, max_new_tokens=TP_M_NEW, temperature=0.0,
+                                  handoff_from="T1").result(timeout=600) for ids in prompts]
+        finally:
+            counting(False)
+        rec["m1_prefills"] = dict(prefills)
+        prefills.update(prefill=0, ragged=0)
+        keys = sorted(t1._prefix_cache.keys())
+        fetched = engine_d.export_kv(keys)
+        own = {k: tp_group.slab_digest(*t1._prefix_cache.get(k)[1:]) for k in keys}
+        rec["m1_heads"] = {k: [tp_group.slab_digest(v[1][:, :, f:f + n], v[2][:, :, f:f + n])
+                               for f, n in places] for k, v in fetched.items()}
+        rec["m1_leader_equal"] = all(rec["m1_heads"][k][0] == own[k] for k in keys)
+        # one /kv/fetch of the binary body off T1's App, against the in-process fetch
+        from gofr_tpu_torch.serving.handlers import register_kv_fetch_routes
+
+        app, base, _ = tp_app()
+        register_kv_fetch_routes(app, t1)
+        thread = threading.Thread(target=app.run, daemon=True)
+        thread.start()
+        wait_until(lambda: alive(base), 120, f"{base} to come up")
+        import urllib.request
+
+        req = urllib.request.Request(
+            base + "/kv/fetch", data=json.dumps({"keys": keys}).encode(),
+            headers={"Content-Type": "application/json",
+                     "Accept": prefix_index.KV_WIRE_CONTENT_TYPE})
+        t_wire = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = resp.read()
+        rec["kv_fetch_ms"] = (time.perf_counter() - t_wire) * 1e3
+        rec["kv_fetch_bytes"] = len(body)
+        rec["kv_fetch_equal"] = body == prefix_index.encode_entries_binary(t1.export_kv(keys))
+        app.stop()
+        thread.join(timeout=60)
+        app = thread = None
+        # the prefill replica still serves: the 333-token prompt from its own entry
+        t1_run = t1.submit(prompts[1], max_new_tokens=TP_M_NEW, temperature=0.0).result(
+            timeout=600)
+        rec["t1_first_equal_d"] = t1_run.token_ids[:1] == m1[1].token_ids[:1]
+        # M3: D's cache emptied; the notice evacuates T1's entries onto it
+        engine_d._prefix_cache.clear()
+        t_reclaim = time.perf_counter()
+        summary = t1.begin_reclaim(60.0)
+        rec["m3_reclaim_ms"] = (time.perf_counter() - t_reclaim) * 1e3
+        rec["m3_evacuation"] = summary["evacuation"]
+        rec["m3_survivor_keys"] = set(keys) <= set(engine_d._prefix_cache.keys())
+        counting(True)
+        try:
+            m3 = engine_d.submit(prompts[1], max_new_tokens=TP_M_NEW, temperature=0.0).result(
+                timeout=600)
+        finally:
+            counting(False)
+        rec["m3_prefills"], rec["m3_equal_m1"] = dict(prefills), m3.token_ids == m1[1].token_ids
+        prefills.update(prefill=0, ragged=0)
+        # M2: D hands both prompts to T2
+        mig_2 = prefix_index.KVMigrator("T2", index)
+        t2 = ServingEngine(cut_cfg, cut, EngineConfig(**conf, role="decode"),
+                           ByteTokenizer(cut_cfg.vocab_size), seed=SEED, device=dev, mesh=mesh,
+                           kv_migrator=mig_2)
+        mig_2.add_peer("D", prefix_index.local_engine_fetcher(engine_d))
+        real_2 = mig_2.fetch_one_handoff
+
+        def timed_2(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return real_2(*args, **kw)
+            finally:
+                handoff_ms.append((time.perf_counter() - t) * 1e3)
+
+        mig_2.fetch_one_handoff = timed_2
+        t2.start()
+        try:
+            for ids in prompts:
+                engine_d.submit(ids, max_new_tokens=1, temperature=0.0,
+                                prefill_only=True).result(timeout=600)
+            counting(True)
+            before = snapshot()
+            try:
+                m2 = [t2.submit(ids, max_new_tokens=TP_M_NEW, temperature=0.0,
+                                handoff_from="D").result(timeout=600) for ids in prompts]
+            finally:
+                counting(False)
+            rec["m2_launches_rank0"] = {n: v - before[n] for n, v in snapshot().items()}
+            rec["m2_prefills"] = dict(prefills)
+            source = engine_d.export_kv(keys)
+            rec["m2_expected"] = {k: [tp_group.slab_digest(v[1][:, :, f:f + n],
+                                                           v[2][:, :, f:f + n])
+                                      for f, n in places] for k, v in source.items()}
+            rec["m2_leader_equal"] = all(
+                tp_group.slab_digest(*t2._prefix_cache.get(k)[1:]) == rec["m2_expected"][k][0]
+                for k in keys)
+        finally:
+            t2.stop()
+        rec["m2_handoffs"] = mig_2.handoffs_total
+    finally:
+        counting(False)
+        if app is not None:
+            app.stop()
+        if thread is not None:
+            thread.join(timeout=60)
+        t1.stop()
+        engine_d.stop()
+    # D's tokens under its own forward; T2's under the tp forward (every rank)
+    d_gaps = []
+    for ids, r in zip(prompts, m1):
+        logits = llama.forward(cut_cfg, whole, torch.tensor([ids + r.token_ids[:-1]], device=dev)
+                               )[0, len(ids) - 1:].float()
+        seq = torch.tensor(r.token_ids, device=dev)
+        picked = logits[torch.arange(len(seq), device=dev), seq]
+        d_gaps.append((logits.max(-1).values - picked).max().item())
+    del whole
+    torch.cuda.empty_cache()
+    gaps = [max(tp_greedy_gaps(dev, cut_cfg, cut, mesh, (ids, [r.token_ids]))[0])
+            for ids, r in zip(prompts, m2)]
+
+    def timing(results) -> dict:
+        return {"ttft_ms": [r.ttft_s * 1e3 for r in results],
+                "decode_ms_per_step": [(r.duration_s - r.ttft_s) / (r.completion_tokens - 1) * 1e3
+                                       for r in results if r.completion_tokens > 1]}
+
+    rec.update(m1_handoffs=mig_d.handoffs_total, handoff_ms=handoff_ms, m1=timing(m1),
+               m2=timing(m2), m3=timing([m3]), d_max_gap=max(d_gaps), t2_max_gap=max(gaps),
+               m2_first_equal_m1=[a.token_ids[0] == b.token_ids[0] for a, b in zip(m2, m1)],
+               blocks=t1.tp_digest()[0], digest=t1.tp_digest()[1],
+               t2={"blocks": t2.tp_digest()[0], "digest": t2.tp_digest()[1]})
+    rec["seconds"] = time.perf_counter() - t0
+    ev = rec["m3_evacuation"]
+    say(f"TP-M at {PLANE_DEPTH} layers (whole layers for D gathered in {whole_s:.1f} s): M1 "
+        f"handoffs {rec['m1_handoffs']}, D's prefill dispatches {rec['m1_prefills']}, leader's heads "
+        f"equal {rec['m1_leader_equal']}, /kv/fetch body equal {rec['kv_fetch_equal']} "
+        f"({rec['kv_fetch_bytes']} bytes in {rec['kv_fetch_ms']:.1f} ms), T1's own first token "
+        f"equal to D's {rec['t1_first_equal_d']}, D's max gap "
+        f"{rec['d_max_gap']:.4f}; M3 {ev['outcome']} {ev['committed']}/{ev['entries']} in "
+        f"{rec['m3_reclaim_ms']:.1f} ms, survivor prefills {rec['m3_prefills']}, tokens equal M1's "
+        f"{rec['m3_equal_m1']}; M2 handoffs {rec['m2_handoffs']}, prefills {rec['m2_prefills']}, "
+        f"leader's heads equal {rec['m2_leader_equal']}, rank 0's launches "
+        f"{rec['m2_launches_rank0']}, T2's max gap {rec['t2_max_gap']:.4f}; handoff ms "
+        f"(fetch) {[round(x, 1) for x in handoff_ms]}; M1 {rec['m1']}, M2 {rec['m2']}; TP-M "
+        f"{rec['seconds']:.1f} s")
+    none = {"prefill": 0, "ragged": 0}
+    if (rec["m1_handoffs"] != len(prompts) or rec["m1_prefills"] != none
+            or not rec["m1_leader_equal"] or not rec["kv_fetch_equal"]
+            or not rec["t1_first_equal_d"]
+            or rec["d_max_gap"] > TP_TIE_GAP or ev["outcome"] != "committed"
+            or ev["committed"] != ev["entries"] or ev["entries"] != len(keys)
+            or not rec["m3_survivor_keys"] or rec["m3_prefills"] != none
+            or rec["m2_handoffs"] != len(prompts) or rec["m2_prefills"] != none
+            or not rec["m2_leader_equal"] or not rec["m2_launches_rank0"]["paged_decode_attention_q"]
+            or rec["t2_max_gap"] > TP_TIE_GAP):
+        raise AssertionError(f"TP-M: {rec}")
+    return {"TP-M T1": rec, "TP-M T2": rec.pop("t2")}
+
+
 def drafts_followed(prompt: list[int], tokens: list[int]) -> int:
     """How many draft tokens the spec engine's prompt-lookup drafter
     (``SPEC_NGRAM``, up to ``SPEC_TOKENS`` a step) would have accepted
@@ -10906,6 +11372,24 @@ def tp_record(results, gold: list[list[int]], lens: list[int]) -> dict:
     return rec
 
 
+def tp_migration_ranks(rec: dict, ranks: list[dict]) -> None:
+    """TP-M's checks across ranks: each follower's slabs of each entry T1
+    held are its heads of the whole entry D fetched, and the slabs T2 took
+    in are its heads of D's entry (bit for bit, by hash); no follower ran a
+    prefill dispatch for T2, and each launched paged int8 there."""
+    for r in ranks[1:]:
+        tp_index = r["rank"] % TP_RANKS
+        t1, t2 = r["engines"]["TP-M T1"], r["engines"]["TP-M T2"]
+        heads = {k: v[tp_index] for k, v in rec["m1_heads"].items()}
+        expected = {k: v[tp_index] for k, v in rec["m2_expected"].items()}
+        if (t1["slabs"] != heads or t2["imported"] != expected
+                or t2["prefills"] != {"prefill": 0, "ragged": 0}
+                or not t2["m2_launches"]["paged_decode_attention_q"]):
+            raise AssertionError(f"tp TP-M: rank {r['rank']}: T1's slabs {t1['slabs']} against "
+                                 f"{heads}, T2's {t2['imported']} against {expected}, T2's "
+                                 f"prefills {t2['prefills']}, M2 launches {t2['m2_launches']}")
+
+
 def run_tp(torch, gold: dict | None = None) -> dict:
     """The tp phase: the one-card reference first (the whole weights from
     ``SEED``, ``llama.prefill``'s last-position logits of the main path's
@@ -10958,6 +11442,7 @@ def run_tp(torch, gold: dict | None = None) -> dict:
                 raise AssertionError(f"tp {path}: rank {r['rank']} launched "
                                      f"{r['launches_by_path'][path]}; {sorted(must)} must launch "
                                      "on every rank")
+    tp_migration_ranks(lead["engines"]["TP-M T1"], ranks)
     for r in ranks[1:]:
         restart = r["engines"]["TP-R"]["restart_gb"]
         if len(restart) != 1 or restart[0][1] > restart[0][0]:
@@ -11299,7 +11784,9 @@ def main() -> int:
     print(f"tp phase (the tensor-parallel ServingEngine: {TP_RANKS} ranks on the one card over gloo, "
           f"Llama-3-8B widths, all {TP_DEPTH} layers, tp=4; TP-B the bf16 path's config with HTTP "
           f"and gRPC, TP-Q the int8 path's with chunked prefill, TP-R the prefix cache, its spill "
-          f"tier, warm_restart and spec at {PLANE_DEPTH} layers, TP-W8 the dense-w8 path's with "
+          f"tier, warm_restart and spec at {PLANE_DEPTH} layers, TP-L LoRA and TP-M KV migration "
+          f"(the P/D handoff both ways and the reclaim evacuation) at {PLANE_DEPTH} layers, TP-W8 the "
+          "dense-w8 path's with "
           "weight-only int8 params):")
     tp = run_phase("tp", run_tp, torch)
     timer = Timer(torch)

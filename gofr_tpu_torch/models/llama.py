@@ -41,8 +41,10 @@ kernels on them, the KV storage holding this rank's KV heads
 (``parallel.sharding.kv_head_slice``; ``KVCache.create(mesh=)``), the
 batch whole on every rank (replicated over ``dp`` and ``fsdp``) and the
 logits gathered whole on every rank, so every rank samples the same
-tokens. ``init_params(mesh=)`` draws the weights leaf by leaf and keeps
-this rank's slices. Weight-only int8 weights serve on a mesh too: each
+tokens. Under :func:`tap_embedding` each lookup's whole rows (the sum
+over ``tp``) are kept for the caller: the serving path's LoRA delta reads
+them instead of a collective of its own. ``init_params(mesh=)`` draws the
+weights leaf by leaf and keeps this rank's slices. Weight-only int8 weights serve on a mesh too: each
 rank keeps its slices of ``q`` (its weight's placement) and of the scale
 ``s`` (the same placement without the contraction axis), as the
 reference's ``quantize_params(shard_params(...))`` places them; a
@@ -51,9 +53,11 @@ row-parallel product takes its scale after the sum over ``tp``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any
+import threading
+from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -456,18 +460,43 @@ def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return attention(q, k, v, causal=True)
 
 
+_tap = threading.local()
+
+
+@contextlib.contextmanager
+def tap_embedding() -> Iterator[list[torch.Tensor]]:
+    """Within the block, on this thread, each vocab-parallel lookup
+    (:func:`_embed_sharded`) appends its whole rows ``[..., D]`` to the
+    list it yields, in call order. Each row is the table's row of its
+    token, bit for bit: the owning rank's row summed with zeros. A forward
+    looks up once, so a caller that needs the embedding of the tokens it
+    forwards (the LoRA delta of ``serving/batch.py``) reads it here, with
+    no collective of its own."""
+    rows: list[torch.Tensor] = []
+    before = getattr(_tap, "rows", None)
+    _tap.rows = rows
+    try:
+        yield rows
+    finally:
+        _tap.rows = before
+
+
 def _embed_sharded(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, mesh: Any) -> torch.Tensor:
     """Vocab-parallel embedding: each ``tp`` rank looks up the ids in its
     rows of the table (zeros elsewhere) and the sum over ``tp`` is the
     lookup; the ``fsdp``-split model dimension is gathered first."""
     emb = all_gather(params["embedding"], mesh, "fsdp", 1)
     if mesh.shape["tp"] == 1:
-        return emb[tokens].to(cfg.dtype)
-    rows = emb.shape[0]
-    local = tokens - mesh.index("tp") * rows
-    inside = (local >= 0) & (local < rows)
-    x = emb[local.clamp(0, rows - 1)] * inside[..., None]
-    return psum(x, mesh, "tp").to(cfg.dtype)
+        x = emb[tokens]
+    else:
+        rows = emb.shape[0]
+        local = tokens - mesh.index("tp") * rows
+        inside = (local >= 0) & (local < rows)
+        x = psum(emb[local.clamp(0, rows - 1)] * inside[..., None], mesh, "tp")
+    tapped = getattr(_tap, "rows", None)
+    if tapped is not None:
+        tapped.append(x)
+    return x.to(cfg.dtype)
 
 
 def _logits_sharded(cfg: LlamaConfig, params: dict, x: torch.Tensor, mesh: Any) -> torch.Tensor:

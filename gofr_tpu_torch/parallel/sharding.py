@@ -192,15 +192,21 @@ def kv_head_slice(n_heads: int, n_kv_heads: int, mesh: Mesh) -> tuple[int, int]:
     of them) the one KV head its local query heads read, as the
     tensor-parallel layer selects it (``models.llama._layer_sharded``).
     Any other layout raises."""
-    tp = mesh.shape["tp"]
+    return kv_head_slices(n_heads, n_kv_heads, mesh.shape["tp"])[mesh.index("tp")]
+
+
+def kv_head_slices(n_heads: int, n_kv_heads: int, tp: int) -> list[tuple[int, int]]:
+    """:func:`kv_head_slice` of each ``tp`` index in order: what a rank that
+    moves a whole cache entry to or from the ranks sends each of them, or
+    takes from each (each head once where several ranks keep a copy)."""
     if n_heads % tp:
         raise ValueError(f"{n_heads} query heads do not split over tp={tp}")
     if n_kv_heads % tp == 0:
         count = n_kv_heads // tp
-        return mesh.index("tp") * count, count
+        return [(i * count, count) for i in range(tp)]
     if tp % n_kv_heads == 0:
         group = n_heads // n_kv_heads
-        return mesh.index("tp") * (n_heads // tp) // group, 1
+        return [(i * (n_heads // tp) // group, 1) for i in range(tp)]
     raise ValueError(
         f"{n_kv_heads} KV heads neither split over tp={tp} nor divide it: no rank-local KV cache "
         "placement"

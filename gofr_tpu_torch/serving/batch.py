@@ -37,7 +37,12 @@ delta ``emb[t] @ A_i @ B_i`` of the token ``t`` that produced the logits,
 gathered by the row's adapter slot (``DecodeState.adapter``; for a chunk
 row, ``adapters``), before it samples; slot 0 is the all-zero base. With
 ``lora=None`` no op is added. The logits the ragged dispatch returns for
-the chunk-prefix cache stay base-model logits.
+the chunk-prefix cache stay base-model logits. On a mesh the embedding is
+split over the vocabulary, so ``emb[t]`` is the row the forward's own
+lookup summed over ``tp`` for that token (``llama.tap_embedding``): the
+whole row, with no collective of the delta's own; the tables are whole
+on every rank and the logits are whole, so every rank adds the same delta
+and samples the same token.
 
 What the reference donates is updated in place here: the cache and pools
 by the prefill commit, decode, chunk and verify steps, the decode state by
@@ -46,6 +51,7 @@ by the prefill commit, decode, chunk and verify steps, the decode state by
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -201,21 +207,41 @@ def _lora_delta(
     batched low-rank products in f32, ``emb[t] @ A_i @ B_i`` per row
     [B, V]. Slot 0 is all-zero (base model), so a mixed batch needs no
     mask."""
-    e = embedding[tokens.long()].float()  # [B, D]
+    return _lora_delta_rows(embedding[tokens.long()], a_tab, b_tab, adapter)
+
+
+def _lora_delta_rows(rows: torch.Tensor, a_tab: torch.Tensor, b_tab: torch.Tensor,
+                     adapter: torch.Tensor) -> torch.Tensor:
+    """:func:`_lora_delta` from the tokens' embedding rows [B, D]."""
+    e = rows.float()
     idx = adapter.long()
     h = torch.bmm(e[:, None, :], a_tab[idx])  # [B, 1, r]
     return torch.bmm(h, b_tab[idx])[:, 0]  # [B, V]
 
 
 def _lora_logits(params: dict, lora: tuple | None, tokens: torch.Tensor,
-                 adapter: torch.Tensor | None, logits: torch.Tensor) -> torch.Tensor:
+                 adapter: torch.Tensor | None, logits: torch.Tensor,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
     """Apply the per-row adapter delta to a sampling site's logits.
     ``lora`` is ``(a_table, b_table)`` or None; None (a base-only engine)
-    returns the logits untouched and adds no op."""
+    returns the logits untouched and adds no op. ``rows`` are the tokens'
+    whole embedding rows where the forward looked them up on a mesh
+    (``llama.tap_embedding``); on one card the table gives them."""
     if lora is None or adapter is None:
         return logits
     a_tab, b_tab = lora
-    return logits + _lora_delta(params["embedding"], a_tab, b_tab, tokens, adapter)
+    if rows is None:
+        return logits + _lora_delta(params["embedding"], a_tab, b_tab, tokens, adapter)
+    return logits + _lora_delta_rows(rows, a_tab, b_tab, adapter)
+
+
+def _tapped(mesh: Any, lora: tuple | None) -> Any:
+    """The embedding tap of a forward whose rows a LoRA delta reads: on a
+    mesh with adapter tables, else a null context (one card reads the
+    table; a base-only dispatch reads nothing)."""
+    if mesh is None or lora is None:
+        return contextlib.nullcontext(None)
+    return llama.tap_embedding()
 
 
 def lora_adjust_logits(
@@ -229,7 +255,8 @@ def lora_adjust_logits(
     sites (monolithic prefill, whole-prompt and full chunk-chain hits):
     the math of :func:`_lora_delta` on one row's last-position logits,
     before ``sample_logits``. Device ops only, no sync: a tensor token
-    indexes on the device."""
+    indexes on the device. On a mesh the engine passes the token's whole
+    row as a one-row ``embedding`` and ``token`` 0."""
     e = embedding[token].float()
     h = e @ a_row.float()
     return logits + (h @ b_row.float())[None]
@@ -237,7 +264,7 @@ def lora_adjust_logits(
 
 def _block_step(st: DecodeState, active: torch.Tensor, logits: torch.Tensor,
                 params: dict | None = None, lora: tuple | None = None,
-                ) -> tuple[DecodeState, torch.Tensor]:
+                rows: torch.Tensor | None = None) -> tuple[DecodeState, torch.Tensor]:
     """Per-step tail of the block: apply each row's LoRA delta, sample with
     each row's own params, evaluate the stop conditions, advance the carry.
     Frozen (done or inactive) rows keep their token and length and emit
@@ -245,7 +272,7 @@ def _block_step(st: DecodeState, active: torch.Tensor, logits: torch.Tensor,
     live = active & ~st.done
     # the logits came from forwarding st.last_token: the delta is that
     # token's low-rank bypass, gathered by the row's adapter slot
-    logits = _lora_logits(params, lora, st.last_token, st.adapter, logits)
+    logits = _lora_logits(params, lora, st.last_token, st.adapter, logits, rows)
     nxt = sample_logits(
         logits, st.rng, temperature=st.temperature, top_k=st.top_k, top_p=st.top_p
     )
@@ -280,22 +307,26 @@ def _decode_steps(
     toks = []
     for _ in range(steps):
         live = active & ~state.done
-        if isinstance(kv, llama.KVCache):
-            step_len = torch.where(live, state.seq_len + 1, kv.max_len + 1)
-            logits, _ = llama.decode_step(cfg, params, state.last_token, kv, step_len,
-                                          mesh=mesh)
-        else:
-            step_len = torch.where(live, state.seq_len + 1, torch.ones_like(state.seq_len))
-            if kv[2] is None:
-                logits, _, _ = llama.decode_step_paged(
-                    cfg, params, state.last_token, kv[0], kv[1], block_tables, step_len, live,
-                    mesh=mesh,
-                )
+        with _tapped(mesh, lora) as tapped:
+            if isinstance(kv, llama.KVCache):
+                step_len = torch.where(live, state.seq_len + 1, kv.max_len + 1)
+                logits, _ = llama.decode_step(cfg, params, state.last_token, kv, step_len,
+                                              mesh=mesh)
             else:
-                logits = llama.decode_step_paged_q(
-                    cfg, params, state.last_token, *kv, block_tables, step_len, live, mesh=mesh
-                )[0]
-        state, out = _block_step(state, active, logits, params, lora)
+                step_len = torch.where(live, state.seq_len + 1, torch.ones_like(state.seq_len))
+                if kv[2] is None:
+                    logits, _, _ = llama.decode_step_paged(
+                        cfg, params, state.last_token, kv[0], kv[1], block_tables, step_len,
+                        live, mesh=mesh,
+                    )
+                else:
+                    logits = llama.decode_step_paged_q(
+                        cfg, params, state.last_token, *kv, block_tables, step_len, live,
+                        mesh=mesh,
+                    )[0]
+        # on a mesh the delta reads the step's own lookup of last_token
+        rows = tapped[0] if tapped else None
+        state, out = _block_step(state, active, logits, params, lora, rows)
         toks.append(out)
     if not toks:
         return torch.empty((active.shape[0], 0), dtype=torch.int64, device=active.device), state
@@ -395,6 +426,7 @@ def _fold_finished_prefill(
     adapters: torch.Tensor | None = None,  # [K] each row's LoRA table slot
     params: dict | None = None,
     lora: tuple | None = None,
+    last_rows: torch.Tensor | None = None,  # [K, D] those tokens' whole rows (a mesh)
 ) -> tuple[DecodeState, torch.Tensor]:
     """Sample first tokens for the chunk rows and fold those whose prompt
     just finished into the decode state, each row's LoRA adapter slot
@@ -407,7 +439,7 @@ def _fold_finished_prefill(
     dev = last_logits.device
     if adapters is None:
         adapters = torch.zeros_like(rows)
-    sample_from = _lora_logits(params, lora, last_tok, adapters, last_logits)
+    sample_from = _lora_logits(params, lora, last_tok, adapters, last_logits, last_rows)
     sampled = torch.cat([
         sample_logits(
             sample_from[i:i + 1], torch.Generator(device=dev).manual_seed(int(seed)),
@@ -480,26 +512,30 @@ def _ragged_step(
     K = rows.shape[0]
     C = chunk.shape[1]
     start = chunk_start[rows]
-    if isinstance(kv, llama.KVCache):
-        x = llama._dense_chunk_forward(cfg, params, chunk[rows], kv, rows, start, mesh=mesh)
-    else:
-        x = llama._chunk_forward(
-            cfg, params, chunk[rows], kv, block_tables[rows], start,
-            torch.ones(K, dtype=torch.bool, device=chunk.device), kv_capacity[rows],
-            mesh=mesh,
-        )
+    with _tapped(mesh, lora) as tapped:
+        if isinstance(kv, llama.KVCache):
+            x = llama._dense_chunk_forward(cfg, params, chunk[rows], kv, rows, start, mesh=mesh)
+        else:
+            x = llama._chunk_forward(
+                cfg, params, chunk[rows], kv, block_tables[rows], start,
+                torch.ones(K, dtype=torch.bool, device=chunk.device), kv_capacity[rows],
+                mesh=mesh,
+            )
     # the lm_head only where a row's prompt ends in this chunk: [K, C, V]
     # logits to keep one position per row would waste 2*K*C*D*V FLOPs
     pos = (new_len[rows].long() - start.long() - 1).clamp(0, C - 1)
     last_h = x[torch.arange(K, device=x.device), pos][:, None]  # [K, 1, D]
     last_logits = llama._logits(cfg, params, last_h, mesh=mesh)[:, 0]  # [K, V]
-    last_tok = None
+    last_tok = last_rows = None
     if lora is not None:  # the token that keys each chunk row's delta: [K]
-        last_tok = chunk[rows][torch.arange(K, device=chunk.device), pos]
+        at = torch.arange(K, device=chunk.device)
+        last_tok = chunk[rows][at, pos]
+        if tapped:  # on a mesh: its whole row out of the chunk's own lookup
+            last_rows = tapped[0][at, pos]
     state, first_k = _fold_finished_prefill(
         state, last_logits, rows, finish[rows], new_len[rows], budgets[rows], stops[rows],
         temps[rows], topks[rows], topps[rows], seeds, last_tok,
-        None if adapters is None else adapters[rows], params, lora,
+        None if adapters is None else adapters[rows], params, lora, last_rows,
     )
     first = torch.full((chunk.shape[0],), -1, dtype=first_k.dtype, device=first_k.device)
     first[rows] = first_k

@@ -239,13 +239,20 @@ counts each entry at its whole size; every follower keeps its own slabs
 of each entry under the leader's key, as the leader's commands say
 (``PrefixMirror``). ``warm_restart`` rebuilds the followers' state
 through a ``restart`` command once the old loop thread joined; one that
-cannot join ends the group. Refused with a mesh, each by name at
-construction: LoRA, KV migration (and with it the handoff and the
-evacuation), a ``pp``, ``sp`` or ``ep`` axis, and an injected prefix cache
-of another class than ``PrefixCache`` or ``TieredPrefixCache``;
-``submit`` refuses ``prefill_only`` and ``handoff_from``. A failed
-dispatch on any rank ends the group: the requests in flight fail with a
-503 and the engine takes no more.
+cannot join ends the group. LoRA (``lora=``): the registry stays on the
+leader, each change of its tables reaches the followers ahead of the
+dispatch that reads it, and the delta takes each token's whole embedding
+row from the forward's own lookup. KV migration (``kv_migrator=``, with
+``prefill_only``, ``handoff_from`` and ``begin_reclaim``'s evacuation): an
+entry leaves the engine whole, gathered from every rank in head order
+(:meth:`export_kv`, which ``local_engine_fetcher`` and ``/kv/fetch``
+read), and enters it whole, each rank keeping its own KV heads (the fetch
+sites, :meth:`import_kv` for ``local_engine_store``). Refused with a mesh,
+each by name at construction: a ``pp``, ``sp`` or ``ep`` axis, and an
+injected prefix cache of another class than ``PrefixCache`` or
+``TieredPrefixCache``. A failed dispatch, gather or scatter on any rank
+ends the group: the requests in flight fail with a 503 and the engine
+takes no more.
 
 Runs on the card unless constructed with ``device="cpu"``.
 """
@@ -297,6 +304,7 @@ from gofr_tpu_torch.serving.tp_group import (
     PrefixMirror,
     TPGroupError,
     TPLeader,
+    embedding_row,
     fold_state,
     hello_of,
     leader_rank,
@@ -633,12 +641,10 @@ def _placement_mesh(sharding: Any) -> Any:
     return meshes[0]
 
 
-def _refuse_on_mesh(mesh: Any, lora: Any, prefix_cache: Any, kv_migrator: Any) -> None:
+def _refuse_on_mesh(mesh: Any, prefix_cache: Any) -> None:
     """The tensor-parallel engine's scope: each feature outside it is
     refused by name (ROADMAP Queue A item 13's remainder)."""
     refused = [name for name, on in (
-        ("LoRA (lora=)", lora is not None),
-        ("KV migration and handoff (kv_migrator=)", kv_migrator is not None),
         ("a prefix cache other than PrefixCache or TieredPrefixCache (prefix_cache=)",
          prefix_cache is not None
          and not isinstance(prefix_cache, (PrefixCache, TieredPrefixCache))),
@@ -680,7 +686,7 @@ class ServingEngine:
         self._mesh = mesh
         self._tp: TPLeader | None = None
         if mesh is not None:
-            _refuse_on_mesh(mesh, lora, prefix_cache, kv_migrator)
+            _refuse_on_mesh(mesh, prefix_cache)
             if mesh.devices.size > 1 and mesh.rank != leader_rank(mesh):
                 raise ValueError(f"rank {mesh.rank} of the mesh serves through serve_follower; "
                                  f"the engine runs on rank {leader_rank(mesh)}")
@@ -801,8 +807,14 @@ class ServingEngine:
         # follower's own slabs (None on one card)
         self._prefix_mirror: PrefixMirror | None = None
         if self._tp is not None and self._prefix_cache is not None:
-            self._prefix_mirror = PrefixMirror(
-                self._tp, self._prefix_cache, cfg.n_kv_heads // llama.kv_heads(cfg, mesh))
+            self._prefix_mirror = PrefixMirror(self._tp, self._prefix_cache, cfg, mesh,
+                                               self.device)
+        if self._tp is not None and lora is not None:
+            lora.mirror_start()  # the followers' tables replay the registry's changes
+        # calls from other threads that send tensor-parallel commands (a
+        # peer's KV fetch, a reclaim's harvest): run by the loop thread,
+        # the group's one sender (_on_loop)
+        self._loop_calls: collections.deque = collections.deque()
 
         self._by_id: dict[int, _Request] = {}  # queued + active, by request id
         self._count_lock = threading.Lock()  # guards _by_id, _next_id
@@ -1108,6 +1120,7 @@ class ServingEngine:
             # blocks the loop dispatched but never read still count in the
             # hash every follower keeps; then the followers' loops end
             self._tp.close([rec.packed for rec in self._inflight])
+        self._fail_loop_calls()
         self._shutdown_host_executors()
         with self._count_lock:
             leftovers = list(self._by_id.values())
@@ -1340,16 +1353,12 @@ class ServingEngine:
                                "outcome": "skipped"}
         if cache is None or migrator is None or not hasattr(migrator, "evacuate_chain"):
             return self._count_evacuation(out)
-        entries: list[tuple[Any, Any]] = []
         try:
             # a harvest reads through peek where the cache has it (the
-            # tiered one: no promotion, no pop of the only host copy)
+            # tiered one: no promotion, no pop of the only host copy); on a
+            # mesh each entry whole, gathered from every rank
             keys = list(cache.keys()) if hasattr(cache, "keys") else []
-            read = getattr(cache, "peek", None) or cache.get
-            for key in keys:
-                value = read(key)
-                if value is not None:
-                    entries.append((key, value))
+            entries = list(self.export_kv(keys).items())
         except Exception:
             out["outcome"] = "harvest_error"
             return self._count_evacuation(out)
@@ -1370,6 +1379,100 @@ class ServingEngine:
                           f"({out['committed']}/{out['entries']} entries"
                           + (f" -> {out['target']}" if out["target"] else "") + ")")
         return self._count_evacuation(out)
+
+    def export_kv(self, keys: list) -> dict[str, tuple]:
+        """The prefix cache's entries of ``keys`` it holds, each
+        ``(last_logits, k_slab, v_slab)`` in the reference's layout: read
+        through ``peek`` where the cache has it (no LRU touch, no
+        promotion, no pop of the only host copy). On a mesh each entry is
+        whole, its slabs gathered from every rank in head order by a
+        command the loop thread sends (:meth:`_on_loop`). The peer side
+        of KV migration: ``local_engine_fetcher``, ``/kv/fetch`` and the
+        reclaim's harvest read here."""
+        cache = self._prefix_cache
+        if cache is None:
+            return {}
+        if self._prefix_mirror is not None:
+            return self._on_loop(lambda: self._prefix_mirror.gather(list(keys)))
+        read = getattr(cache, "peek", None) or cache.get
+        out: dict[str, tuple] = {}
+        for key in keys:
+            value = read(key)
+            if value is not None:
+                out[key] = value
+        return out
+
+    def import_kv(self, entries: list[tuple]) -> int:
+        """Commit whole entries ``[(key, (last_logits, k_slab, v_slab))]``
+        into a tensor-parallel engine's prefix cache, all or none: each
+        rank keeps its own KV heads (``PrefixMirror.store``), and a failure
+        part way evicts what this batch already put, on every rank, then
+        raises. Run by the loop thread. The survivor side of an evacuation
+        onto a mesh (``local_engine_store``); one card commits in place."""
+
+        def commit() -> int:
+            committed: list = []
+            try:
+                for key, value in entries:
+                    local = self._prefix_mirror.store(key, _to_device(value, self.device))
+                    self._prefix_put(key, local)
+                    committed.append(key)
+            except Exception:
+                for key in committed:
+                    with contextlib.suppress(Exception):
+                        self._prefix_cache.evict(key)
+                raise
+            return len(committed)
+
+        if self._prefix_mirror is None:
+            raise RuntimeError("import_kv commits onto a tensor-parallel engine's prefix cache")
+        return self._on_loop(commit)
+
+    def _on_loop(self, fn: Callable[[], Any], timeout_s: float = 120.0) -> Any:
+        """``fn()`` run by the loop thread between its dispatches, and its
+        result: on a mesh that thread alone sends commands to the
+        followers, so a call from another thread that sends one (a KV
+        gather) waits its turn there. Runs here when no loop thread runs
+        (or this is it); a group that is gone raises ``TPGroupError``, and
+        a call the loop does not take within ``timeout_s`` raises
+        ``TimeoutError`` (the migrator's contract makes either a compute
+        miss)."""
+        if self._tp is not None and (self._tp.closed or self._tp.broken is not None):
+            raise TPGroupError("tensor-parallel group closed", retry_after=1.0)
+        thread = self._thread
+        if not self._running or thread is None or thread is threading.current_thread():
+            return fn()
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._loop_calls.append((fn, fut))
+        self._wake.set()
+        try:
+            return fut.result(timeout=timeout_s)
+        except concurrent.futures.TimeoutError:
+            fut.cancel()  # the loop skips it if it has not started it
+            raise TimeoutError(f"the engine loop did not take the call within {timeout_s:g}s")
+
+    def _run_loop_calls(self) -> bool:
+        """The loop thread's turn at the calls :meth:`_on_loop` queued."""
+        did = False
+        while self._loop_calls:
+            fn, fut = self._loop_calls.popleft()
+            if not fut.set_running_or_notify_cancel():
+                continue
+            did = True
+            try:
+                fut.set_result(fn())
+            except Exception as exc:  # the caller gets it; a lost group ends the loop
+                fut.set_exception(exc)
+                if isinstance(exc, TPGroupError):
+                    raise
+        return did
+
+    def _fail_loop_calls(self) -> None:
+        """A stopped loop takes no more calls: each queued one raises."""
+        while self._loop_calls:
+            _, fut = self._loop_calls.popleft()
+            if fut.set_running_or_notify_cancel():
+                fut.set_exception(ErrorServiceUnavailable("engine stopped", retry_after=1.0))
 
     def _count_evacuation(self, out: dict[str, Any]) -> dict[str, Any]:
         if self._metrics:
@@ -1470,6 +1573,8 @@ class ServingEngine:
                         # the followers rebuild theirs; the blocks dispatched
                         # and never read count in every rank's hash
                         self._tp.restart([rec.packed for rec in self._inflight])
+                        if self._lora is not None:
+                            self._lora.mirror_start()  # and their adapter tables
                     self._init_runtime_state()
                     self._reset_prefix_cache()
                 except Exception:
@@ -1724,10 +1829,6 @@ class ServingEngine:
         if self._tp is not None and self._tp.broken is not None:
             raise ErrorServiceUnavailable("tensor-parallel group lost; retry on another replica",
                                           retry_after=1.0)
-        if self._mesh is not None and (prefill_only or handoff_from):
-            # the disaggregation plane needs the prefix cache and the
-            # migrator, which the tensor-parallel engine refuses
-            raise ErrorInvalidParam("prefill_only" if prefill_only else "handoff_from")
         # the tenant's class first: its priority drives the scheduler and
         # the preemption ladder, its deadline fills in a missing one. A
         # request that names no tenant is untouched
@@ -2146,9 +2247,10 @@ class ServingEngine:
                 # doomed iteration over a queue the restart already swept
                 continue
             try:
+                did = self._run_loop_calls()
                 # the preemption ladder runs before the plan: a slot it
                 # frees is admitted in this same iteration
-                did = self._maybe_preempt()
+                did |= self._maybe_preempt()
                 if self._reclaiming and not self._reclaim_swept:
                     # a notice sheds batch-class rows now, so the drain
                     # budget serves the interactive streams
@@ -2320,18 +2422,32 @@ class ServingEngine:
         return bool(pairs or canceled_ids)
 
     def _lora_adjusted(self, req: _Request, last_logits: torch.Tensor,
-                       last_token: int) -> torch.Tensor:
+                       last_token: int, row: torch.Tensor | None = None) -> torch.Tensor:
         """The row's adapter delta on host-path last-position logits before
         first-token sampling (monolithic prefill, whole-prompt and full
-        chain hits); base rows get the logits untouched."""
-        if self._lora is None or not req.adapter_slot:
+        chain hits); base rows get the logits untouched. On a mesh the
+        delta takes the token's whole embedding row: ``row``, out of the
+        prefill's own lookup, or after a hit (no forward) one ``embed``
+        command's (the followers take the token in the state fold)."""
+        if not self._lora_row(req):
             return last_logits
         factors = self._lora.slot_factors(req.adapter_slot)
         if factors is None:
             return last_logits
-        return batch_ops.lora_adjust_logits(
-            self.params["embedding"], factors[0], factors[1], last_token, last_logits,
-        )
+        if self._mesh is None:
+            return batch_ops.lora_adjust_logits(
+                self.params["embedding"], factors[0], factors[1], last_token, last_logits,
+            )
+        if row is None:
+            with self._tp_step("embed", lambda: dict(token=int(last_token))):
+                row = embedding_row(self.model_cfg, self.params, int(last_token), self._mesh,
+                                    self.device)
+        # the row as a one-row table
+        return batch_ops.lora_adjust_logits(row[None], factors[0], factors[1], 0, last_logits)
+
+    def _lora_row(self, req: _Request) -> bool:
+        """The request samples with an adapter's delta."""
+        return self._lora is not None and bool(req.adapter_slot)
 
     def _lora_release(self, req: _Request) -> None:
         """Unpin a row's adapter table slot (nothing for a base row). Every
@@ -2505,6 +2621,10 @@ class ServingEngine:
                         val = _to_device(val, self.device)
                         if end >= total and val[0].shape[-1] != self.model_cfg.vocab_size:
                             break  # a peer's page-out placeholder: the guard above
+                        if self._prefix_mirror is not None:
+                            # a whole entry: the leader keeps its KV heads,
+                            # each follower gets its own
+                            val = self._prefix_mirror.store(cache_keys[(start, end)], val)
                         hits.append((start, end, val))
                         pos = end
                         # paid once per replica: a later request hits locally
@@ -2778,6 +2898,8 @@ class ServingEngine:
                 self._check_retired()
                 if fetched is not None:
                     cached = _to_device(fetched, self.device)  # non_blocking: no sync
+                    if self._prefix_mirror is not None:  # whole: each rank keeps its heads
+                        cached = self._prefix_mirror.store(cache_key, cached)
                     prefix_tier = "remote"
                     # paid once per replica, not once per request
                     self._prefix_put(cache_key, cached)
@@ -2809,13 +2931,21 @@ class ServingEngine:
         with span, self._cold_dispatch("prefill", bucket, cached is not None), self._tp_step(
                 "prefill", lambda: dict(tokens=tokens, length=S, slot=slot, pages=pages,
                                         key=cache_key)):
+            row = None
             if cached is not None:
                 last_logits, k_slab, v_slab = cached
             else:
-                last_logits, k_slab, v_slab = batch_ops.prefill_compute(
-                    cfg, self.params, to_device(tokens, self.device),
-                    to_device(np.array([S], np.int32), self.device), mesh=self._mesh,
-                )
+                # on a mesh an adapter row's delta reads its last token's
+                # whole row out of the prefill's own lookup
+                tap = (llama.tap_embedding() if self._mesh is not None and self._lora_row(req)
+                       else contextlib.nullcontext(None))
+                with tap as looked_up:
+                    last_logits, k_slab, v_slab = batch_ops.prefill_compute(
+                        cfg, self.params, to_device(tokens, self.device),
+                        to_device(np.array([S], np.int32), self.device), mesh=self._mesh,
+                    )
+                if looked_up:
+                    row = looked_up[0][0, S - 1]
             # replaced during the compute: no writes, not even into the
             # prefix cache the restart just cleared
             self._check_retired()
@@ -2825,7 +2955,7 @@ class ServingEngine:
             self.cache = batch_ops.commit_prefill(dense, pc, k_slab, v_slab, slot, pages)
             # the row's delta applies at the sampling site: cached entries
             # stay base-model logits
-            logits = self._lora_adjusted(req, last_logits, ids[-1])
+            logits = self._lora_adjusted(req, last_logits, ids[-1], row)
             first_id = self._first_token(req, logits)
         self._check_retired()
         # progress: an admission of many prefills may outlast the stall
@@ -3215,7 +3345,8 @@ class ServingEngine:
             key = ("decode", "dense" if pc is None else "paged",
                    new_cache.quantized if pc is None else pc.quantized, N, lora is not None)
             with self._cold_dispatch(*key), self._tp_step("decode", lambda: dict(
-                    mask=mask, tables=None if pc is None else pc.tables.copy(), steps=N)):
+                    mask=mask, tables=None if pc is None else pc.tables.copy(), steps=N,
+                    lora=lora is not None)):
                 packed, new_cache, new_state = batch_ops.dispatch_decode(
                     cfg, params, new_cache, pc, state,
                     None if pc is None else pc.tables_device(), self._mask_dev, N, lora,
@@ -3264,8 +3395,17 @@ class ServingEngine:
 
     def _lora_tables(self) -> tuple[torch.Tensor, torch.Tensor] | None:
         """The adapter tables a dispatch reads (None until the first
-        upload, and without a registry)."""
-        return self._lora.tables() if self._lora is not None else None
+        upload, and without a registry). On a mesh the changes made to
+        them since the last dispatch go to the followers as posts, ahead
+        of this dispatch's command."""
+        if self._lora is None:
+            return None
+        if self._tp is None:
+            return self._lora.tables()
+        tabs, changes = self._lora.mirror_tables()
+        for change in changes:
+            self._tp.post("lora", **change)
+        return tabs
 
     def _dispatch_ragged(
         self, state: batch_ops.DecodeState, chunk_rows: list, steps: int,
@@ -3324,7 +3464,8 @@ class ServingEngine:
                 finish=finish, new_len=new_len,
                 budgets=budgets, stops=stops, temps=self.temperature.copy(),
                 topks=self.top_k.copy(), topps=self.top_p.copy(), seeds=seeds,
-                mask=self._mask_host, steps=steps)
+                mask=self._mask_host, steps=steps,
+                adapters=adapters if lora is not None else None)
 
         with self._cold_dispatch(*key), self._tp_step("ragged", payload):
             return batch_ops.dispatch_ragged(

@@ -559,21 +559,12 @@ def register_kv_fetch_routes(app: Any, engine: Any,
         if len(keys) > MAX_KEYS:
             raise ErrorInvalidParam("keys")
         binary = KV_WIRE_CONTENT_TYPE in ctx.header("Accept")
-        cache = getattr(engine, "_prefix_cache", None)
-        if getattr(engine, "_mesh", None) is not None:
-            # a tensor-parallel leader holds its own rank's KV heads only:
-            # KV migration off a mesh is not served (ROADMAP Queue A 13)
-            cache = None
-        # peek, never get: serving a peer must not mutate this replica's
-        # LRU order or pop its host-tier copies
-        read = (getattr(cache, "peek", None) or cache.get) if cache is not None else None
 
         def gather() -> Any:
-            found = {}
-            for key in keys:
-                value = read(str(key)) if read is not None else None
-                if value is not None:
-                    found[str(key)] = value
+            # peek, never get: serving a peer must not mutate this
+            # replica's LRU order or pop its host-tier copies; a
+            # tensor-parallel engine's entries come whole, from every rank
+            found = engine.export_kv([str(key) for key in keys])
             if binary:
                 return encode_entries_binary(found)
             return {key: encode_entry(value) for key, value in found.items()}

@@ -44,6 +44,14 @@ reference's ``app_lora_adapter_residency``. Left out against the
 reference: ``from_config`` (the ``TPU_LORA_MAX_ACTIVE`` knob; the caller
 passes ``max_active``).
 
+Tensor parallel: the registry lives on the engine's leader, which alone
+uploads, pins and evicts. :meth:`AdapterRegistry.mirror_start` makes it
+record each change of its device tables (made, grown, a slot uploaded),
+and :meth:`AdapterRegistry.mirror_tables` hands a dispatch its tables
+with the changes since the last call, which the leader posts to its
+followers ahead of that dispatch's command (``serving/tp_group.py``), so
+every rank reads tables of the same values and shape.
+
 Lock discipline: the registry mutex is LEAF-ONLY (never held across a
 device op or a call out); table swaps are reference assignments under it.
 """
@@ -155,6 +163,8 @@ class AdapterRegistry:
             max_workers=1, thread_name_prefix="lora-upload"
         )
         self.upload_faults_total = 0
+        # the tables' changes not yet handed to a mirror (None: no mirror)
+        self._changes: list[dict] | None = None
 
     # -- host pool -------------------------------------------------------------
     def register(self, adapter: LoraAdapter) -> None:
@@ -211,10 +221,10 @@ class AdapterRegistry:
             return list(self._adapters)
 
     # -- device table ----------------------------------------------------------
-    def _ensure_tables_locked(self, adapter: LoraAdapter) -> None:
+    def _ensure_tables_locked(self, adapter: LoraAdapter) -> bool:
         """Allocate (or grow, on a larger-rank registration) the device
-        tables. Growing pads into NEW tensors: a table a dispatch holds is
-        never written."""
+        tables; True when it made new ones. Growing pads into NEW tensors:
+        a table a dispatch holds is never written."""
         d, r = adapter.a.shape
         v = adapter.b.shape[1]
         if self._a_table is None:
@@ -228,6 +238,17 @@ class AdapterRegistry:
             self._a_table = torch.nn.functional.pad(self._a_table, (0, pad_r))
             self._b_table = torch.nn.functional.pad(self._b_table, (0, 0, 0, pad_r))
             self._rank_max = r
+        else:
+            return False
+        return True
+
+    def _change(self, slot: int | None = None, a: Any = None, b: Any = None) -> dict:
+        """One change of the tables for the mirror: their shape now
+        ``(n, D, r, V)`` (a mirror makes or zero-pads its own to it), and
+        the values ``a`` ``[D, r]``, ``b`` ``[r, V]`` written into ``slot``
+        (``slot`` None with ``a``: the whole tables)."""
+        n, d, r = self._a_table.shape
+        return {"shape": (n, d, r, int(self._b_table.shape[2])), "slot": slot, "a": a, "b": b}
 
     def _upload(self, adapter_id: str, slot: int) -> None:
         """The lora-upload worker: materialize one adapter into its table
@@ -240,7 +261,8 @@ class AdapterRegistry:
             adapter = self._adapters.get(adapter_id)
             if adapter is None:  # deregistered while queued
                 raise UnknownAdapter(adapter_id)
-            self._ensure_tables_locked(adapter)
+            if self._ensure_tables_locked(adapter) and self._changes is not None:
+                self._changes.append(self._change())
             a_tab, b_tab, r_max = self._a_table, self._b_table, self._rank_max
         r = adapter.rank
         a = np.zeros(tuple(a_tab.shape[1:]), np.float32)
@@ -265,6 +287,8 @@ class AdapterRegistry:
             # tables while this upload ran: losing that race retries
             if self._a_table is a_tab and self._rank_max == r_max:
                 self._a_table, self._b_table = new_a, new_b
+                if self._changes is not None:
+                    self._changes.append(self._change(slot, a, b))
                 self._id_of[slot] = adapter_id
                 self._slot_of[adapter_id] = slot
                 if self._pins.get(slot, 0) == 0 and slot not in self._lru:
@@ -396,6 +420,32 @@ class AdapterRegistry:
             if self._a_table is None:
                 return None
             return self._a_table, self._b_table
+
+    def mirror_start(self) -> None:
+        """Record every change of the device tables from now on, for a
+        mirror that replays them in order (:meth:`mirror_tables`). The
+        first change is the tables as they stand, read back to the host
+        (tables never change in place, so the read needs no mutex), when
+        there are any; changes recorded before are dropped."""
+        with self._mu:
+            held = None if self._a_table is None else (self._a_table, self._b_table)
+            self._changes = []
+            if held is not None:
+                whole = self._change()
+                self._changes.append(whole)
+        if held is not None:
+            whole["a"], whole["b"] = (t.cpu().numpy() for t in held)
+
+    def mirror_tables(self) -> tuple[tuple[torch.Tensor, torch.Tensor] | None, list[dict]]:
+        """:meth:`tables` and, atomically with them, the changes recorded
+        since the last call, oldest first: replayed on tables built like
+        these, they give these tables' shape and values."""
+        with self._mu:
+            changes = self._changes or []
+            if changes:
+                self._changes = []
+            tabs = None if self._a_table is None else (self._a_table, self._b_table)
+        return tabs, changes
 
     def slot_factors(self, slot: int) -> tuple[torch.Tensor, torch.Tensor] | None:
         """One slot's (a, b) factor pair out of the device tables, for the

@@ -271,12 +271,15 @@ def local_engine_fetcher(engine: Any) -> Callable[[list[str]], dict[str, tuple]]
     """Peer fetcher for a COLOCATED in-process replica: reads the
     owning engine's prefix cache directly — the slabs are already
     device arrays, so the 'transfer' is a reference (device-to-device
-    by construction, zero copies)."""
+    by construction, zero copies). A tensor-parallel engine's entries
+    come whole, gathered from its ranks (``ServingEngine.export_kv``)."""
 
     def fetch(keys: list[str]) -> dict[str, tuple]:
+        if getattr(engine, "_mesh", None) is not None:
+            return engine.export_kv(keys)
         cache = getattr(engine, "_prefix_cache", None)
-        if cache is None or getattr(engine, "_mesh", None) is not None:
-            return {}  # a tensor-parallel leader's slabs hold its own KV heads only
+        if cache is None:
+            return {}
         # peek, never get: a peer read must not mutate the owner's LRU
         # order, promote host-tier entries into its device budget, or
         # destructively pop its only host copy (TieredPrefixCache.peek)
@@ -299,14 +302,15 @@ def local_engine_store(engine: Any) -> Callable[[list[tuple]], int]:
     batch already wrote, so a torn push can never leave a partial set
     masquerading as a complete one). REFUSES (raises) when the target is
     itself reclaiming/draining/stopped: a notice storm must never
-    evacuate KV onto capacity that is about to need evacuating."""
+    evacuate KV onto capacity that is about to need evacuating. A
+    tensor-parallel target commits each entry on every rank, each its
+    own KV heads, with the same all-or-nothing rule
+    (``ServingEngine.import_kv``)."""
 
     def store(entries: list[tuple]) -> int:
         cache = getattr(engine, "_prefix_cache", None)
         if cache is None:
             raise RuntimeError("evacuation target has no prefix cache")
-        if getattr(engine, "_mesh", None) is not None:
-            raise RuntimeError("evacuation target is a tensor-parallel engine")
         if (getattr(engine, "_reclaiming", False)
                 or getattr(engine, "draining", False)
                 or not getattr(engine, "_running", True)):
@@ -326,6 +330,8 @@ def local_engine_store(engine: Any) -> Callable[[list[tuple]], int]:
             staged.append((key, value))
         # phase two: commit; a failure mid-batch discards the whole
         # batch (survivors degrade to re-prefill, never trust a torn set)
+        if getattr(engine, "_mesh", None) is not None:
+            return engine.import_kv(staged)
         committed: list[Any] = []
         try:
             for key, value in staged:

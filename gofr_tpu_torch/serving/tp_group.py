@@ -31,6 +31,28 @@ count of bytes; a follower never evicts by its own. ``restart`` rebuilds
 a follower's KV, decode state, generator and store, as the leader's
 ``warm_restart`` rebuilds its own.
 
+LoRA: the adapter registry stays on the leader, which alone uploads, pins
+and evicts; each change of its device tables (``AdapterRegistry.
+mirror_tables``) goes to the followers as a post (``lora``) ahead of the
+first dispatch that reads the tables it made, and a follower replays it
+copy-on-write, as the registry writes its own, so a dispatch already
+queued keeps the tables it was given. A decode block's and a ragged
+dispatch's delta read each token's whole embedding row out of the
+forward's own lookup (``llama.tap_embedding``); a first token sampled on
+the leader from a prefix hit, which ran no forward, takes its row from
+an ``embed`` command (:func:`embedding_row`), a lookup on every rank.
+``restart`` drops a follower's tables and the leader posts the whole
+tables again.
+
+KV migration: a cache entry leaves the group whole (``gather``: every
+rank's slabs of each key, all-gathered over ``tp`` to the leader in head
+order, each KV head once where ranks keep copies) and enters it whole
+(:meth:`PrefixMirror.store`: the leader keeps its own KV heads and posts
+each follower's ``tp`` index its heads, ``kv_head_slices``). The
+engine's thread alone sends, so a fetch from another thread (a peer's
+admission, ``/kv/fetch``, a reclaim's harvest) runs on the engine's loop
+(``ServingEngine.export_kv``/``import_kv``).
+
 Commands travel over a gloo group of their own (``broadcast_object_list``
 of pickled host values), never between a dispatch's tensor collectives.
 State updates that launch no collective (:meth:`TPLeader.post`) ride with
@@ -61,7 +83,10 @@ import torch.distributed as dist
 from gofr_tpu_torch._device import resolve_device, to_device
 from gofr_tpu_torch.errors import ErrorServiceUnavailable
 from gofr_tpu_torch.models import llama
+from gofr_tpu_torch.parallel.collectives import all_gather
 from gofr_tpu_torch.parallel.hostring import abort_all
+from gofr_tpu_torch.parallel.mesh import AXIS_ORDER
+from gofr_tpu_torch.parallel.sharding import kv_head_slices
 from gofr_tpu_torch.serving import batch as batch_ops
 from gofr_tpu_torch.serving.kv_cache import PagedKVCache
 from gofr_tpu_torch.serving.kv_spill import TieredPrefixCache, _to_device
@@ -135,6 +160,45 @@ def fold_state(state: batch_ops.DecodeState, host: dict,
         state, up("slots"), up("tokens"), up("lens"), up("budgets"), up("stops"), up("temps"),
         up("topks"), up("topps"), up("adapters"),
     )
+
+
+def embedding_row(cfg: llama.LlamaConfig, params: dict, token: int, mesh: Any,
+                  device: torch.device) -> torch.Tensor:
+    """The embedding's whole row of ``token`` [D], on every rank of the
+    mesh (the ``embed`` command: the vocab-parallel lookup, a sum over
+    ``tp``): the LoRA delta's row at a first-token site that ran no
+    forward."""
+    with llama.tap_embedding() as rows:
+        llama._embed(cfg, params, to_device(np.array([token], np.int64), device), mesh)
+    return rows[0][0]
+
+
+def gather_entries(cfg: llama.LlamaConfig, mesh: Any, slabs: list[tuple]) -> list[tuple]:
+    """Each entry's (k, v) slabs [L, S, Hkv_local, Dh] of every ``tp`` rank,
+    whole [L, S, Hkv, Dh] in head order (the ``gather`` command; every rank
+    of the mesh calls it with its own slabs of the same entries, and gets
+    them whole). One all-gather over ``tp`` of every entry's K and V side
+    by side; where ranks keep copies of a head (fewer KV heads than ``tp``
+    ranks) the first rank that keeps it gives it."""
+    if not slabs:
+        return []
+    lens = [k.shape[1] for k, _ in slabs]
+    both = torch.stack([torch.cat([k for k, _ in slabs], 1), torch.cat([v for _, v in slabs], 1)])
+    got = all_gather(both.contiguous(), mesh, "tp", 3)  # [2, L, sum S, tp * Hkv_local, Dh]
+    places = kv_head_slices(cfg.n_heads, cfg.n_kv_heads, mesh.shape["tp"])
+    count = places[0][1]
+    pick = [next(j * count + h - first for j, (first, n) in enumerate(places)
+                 if first <= h < first + n) for h in range(cfg.n_kv_heads)]
+    if pick != list(range(got.shape[3])):
+        got = got[:, :, :, pick]
+    return [(k, v) for k, v in zip(*(part.split(lens, 1) for part in got))]
+
+
+def slab_digest(k: torch.Tensor, v: torch.Tensor) -> str:
+    """A hash of an entry's K and V slabs' bytes (read to the host), to
+    hold one rank's slabs of an entry against its heads of the whole."""
+    return hashlib.blake2b(b"".join(t.contiguous().cpu().view(torch.uint8).numpy().tobytes()
+                                    for t in (k, v)), digest_size=16).hexdigest()
 
 
 class TPLeader:
@@ -247,14 +311,22 @@ class PrefixMirror:
     put, hit, spill and eviction of the leader's cache goes to them as a
     post (``prefix``), in the order it happened on the engine thread, and
     a lookup hits only a key the followers hold. The leader's cache alone
-    decides, counting each entry at its whole size (``kv_scale`` times
-    this rank's K/V slabs, as the reference counts a sharded array), so its
+    decides, counting each entry at its whole size (this rank's K/V slabs
+    times the model's KV heads over this rank's, as the reference counts a
+    sharded array), so its
     entries, evictions and stats are the reference's. The host tier evicts
     on its spill worker; those evictions reach the followers once no spill
-    is queued (:meth:`_settle`)."""
+    is queued (:meth:`_settle`). Entries also leave the group whole
+(:meth:`gather`) and enter it whole (:meth:`store`)."""
 
-    def __init__(self, tp: TPLeader, cache: Any, kv_scale: int) -> None:
-        self.tp, self.cache = tp, cache
+    def __init__(self, tp: TPLeader, cache: Any, cfg: llama.LlamaConfig, mesh: Any,
+                 device: torch.device) -> None:
+        self.tp, self.cache, self.cfg, self.mesh, self.device = tp, cache, cfg, mesh, device
+        kv_scale = cfg.n_kv_heads // llama.kv_heads(cfg, mesh)
+        # the KV heads of each tp index, and the tp indices a follower holds
+        self.places = kv_head_slices(cfg.n_heads, cfg.n_kv_heads, mesh.shape["tp"])
+        self.follower_tp = {int(i) for i in np.argwhere(mesh.devices != leader_rank(mesh))[
+            :, AXIS_ORDER.index("tp")]}
         self.held: dict[Any, str] = {}  # key -> "card" or "host" on the followers
 
         def whole_bytes(value: Any) -> int:
@@ -300,6 +372,39 @@ class PrefixMirror:
         else:
             self.held[key] = "card"
         self._settle()
+
+    def store(self, key: Any, value: tuple) -> tuple:
+        """An entry that came in whole (a peer's fetch, a handoff, an
+        evacuation's push), on this rank's device: posts each follower's
+        ``tp`` index its KV heads of it (``kv_head_slices``), which it keeps
+        under ``key`` for the admission's restore or commit, and returns
+        the leader's own (its logits whole, its heads' slabs) for the
+        engine's put and commit."""
+        logits, k, v = value
+        self.tp.post("prefix", act="store", key=key, slabs={
+            i: tuple(t[:, :, first:first + n].contiguous().cpu() for t in (k, v))
+            for i, (first, n) in enumerate(self.places) if i in self.follower_tp})
+        first, n = self.places[self.mesh.index("tp")]
+        return logits, k[:, :, first:first + n].contiguous(), v[:, :, first:first + n].contiguous()
+
+    def gather(self, keys: list) -> dict:
+        """The whole entries of ``keys`` the leader's cache holds and its
+        followers hold too (a ``gather`` command): {key: (logits, k, v)},
+        each slab [L, S, Hkv, Dh] in head order, the reference's layout.
+        Read through ``peek`` where the cache has it (no promotion, no LRU
+        touch). Engine thread only: it sends a command."""
+        read = getattr(self.cache, "peek", None) or self.cache.get
+        found = {}
+        for key in keys:
+            value = read(key) if key in self.held else None
+            if value is not None:
+                found[key] = value
+        if not found:
+            return {}
+        with self.tp.step("gather", keys=list(found)):
+            whole = gather_entries(self.cfg, self.mesh, [
+                _to_device((k, v), self.device) for _, k, v in found.values()])
+        return {key: (value[0], k, v) for (key, value), (k, v) in zip(found.items(), whole)}
 
     def restore(self, slot: int, spans: list) -> None:
         """The chain of cached chunk spans a cursor admitted with, written
@@ -356,6 +461,11 @@ class _PrefixStore:
         self.host: dict[Any, tuple] = {}
         self.taken: dict[Any, tuple] = {}
 
+    def slabs(self, key: Any) -> tuple:
+        """An entry's slabs where they are, on the card or in host memory
+        (a gather reads them, promoting nothing)."""
+        return self.card[key] if key in self.card else self.host[key]
+
     def take(self, keys: list) -> list[tuple]:
         """The slabs of an admission's hits, as they were at each hit; the
         hits of an admission that read none (a requeue) go with them."""
@@ -399,6 +509,8 @@ class _Follower:
         self._init_state()
         self.digest = hashlib.blake2b(digest_size=16)
         self.blocks = 0
+        # a hash of this rank's slabs of each entry that came in whole
+        self.imported: dict[Any, str] = {}
 
     def _init_state(self) -> None:
         """The KV storage, the decode state, its generator and the prefix
@@ -410,6 +522,7 @@ class _Follower:
         if self.pc is not None:
             self.pc.close()
         self.dense = self.pc = self.state = None
+        self.lora: tuple[torch.Tensor, torch.Tensor] | None = None  # the adapter tables
         self.store = _PrefixStore(device)
         if kv["kv_layout"] == "paged":
             self.pc = PagedKVCache(
@@ -435,6 +548,13 @@ class _Follower:
             self.prefill(**kw)
         elif op == "prefix":
             self.prefix(**kw)
+        elif op == "lora":
+            self.lora_change(**kw)
+        elif op == "embed":
+            embedding_row(self.cfg, self.params, kw["token"], self.mesh, self.device)
+        elif op == "gather":
+            gather_entries(self.cfg, self.mesh, [
+                _to_device(self.store.slabs(key), self.device) for key in kw["keys"]])
         elif op in ("decode", "ragged", "verify"):
             packed = getattr(self, op)(**kw)
             self.digest.update(packed.cpu().numpy().tobytes())
@@ -460,14 +580,46 @@ class _Follower:
                 self.store.card[key] = (k_slab, v_slab)
         self.dense = batch_ops.commit_prefill(self.dense, self.pc, k_slab, v_slab, slot, pages)
 
+    def lora_change(self, shape: tuple, slot: int | None, a: Any, b: Any) -> None:
+        """One change of the leader's adapter tables, replayed
+        (``AdapterRegistry._record_locked``): tables of ``shape`` (made, or
+        the old ones zero-padded to the grown rank), then ``a``/``b``
+        written into ``slot`` (the whole tables when ``slot`` is None). A
+        change builds new tensors: a dispatch queued before it keeps the
+        tables it was given."""
+        n, d, r, v = shape
+        tabs = self.lora
+        if tabs is None or tuple(tabs[0].shape) != (n, d, r):
+            a_tab = torch.zeros((n, d, r), dtype=torch.float32, device=self.device)
+            b_tab = torch.zeros((n, r, v), dtype=torch.float32, device=self.device)
+            if tabs is not None:
+                a_tab[:, :, :tabs[0].shape[2]] = tabs[0]
+                b_tab[:, :tabs[1].shape[1]] = tabs[1]
+            tabs = (a_tab, b_tab)
+        if a is not None:
+            if slot is None:
+                tabs = (self.up(a), self.up(b))
+            else:
+                tabs = (tabs[0].clone(), tabs[1].clone())
+                tabs[0][slot] = self.up(a)
+                tabs[1][slot] = self.up(b)
+        self.lora = tabs
+
     def prefix(self, act: str, key: Any = None, slot: int = 0, start: int = 0, end: int = 0,
-               pages: Any = None, spans: list | None = None) -> None:
+               pages: Any = None, spans: list | None = None, slabs: dict | None = None) -> None:
         """The leader's prefix cache, on this rank's slabs: ``put`` reads
         tokens [start, end) of ``slot`` out of this rank's KV (``pages``
-        on the paged layout) under ``key``; ``restore`` writes each of
-        ``spans`` (key, start, pages) into ``slot``; the rest are the
-        store's own (:class:`_PrefixStore`)."""
-        if act == "put":
+        on the paged layout) under ``key``; ``store`` keeps this rank's
+        heads of an entry that came in whole (``slabs`` by ``tp`` index)
+        under ``key``, for the admission that reads it; ``restore`` writes
+        each of ``spans`` (key, start, pages) into ``slot``; the rest are
+        the store's own (:class:`_PrefixStore`)."""
+        if act == "store":
+            k_slab, v_slab = slabs[self.mesh.index("tp")]
+            self.imported[key] = slab_digest(k_slab, v_slab)
+            self.store.card[key] = self.store.taken[key] = _to_device((k_slab, v_slab),
+                                                                      self.device)
+        elif act == "put":
             if self.pc is not None:
                 slabs = self.pc.read_pages(pages, end - start)
             else:
@@ -495,21 +647,24 @@ class _Follower:
             self.dense = dense
         return packed
 
-    def decode(self, mask: np.ndarray, tables: Any, steps: int) -> torch.Tensor:
+    def decode(self, mask: np.ndarray, tables: Any, steps: int, lora: bool) -> torch.Tensor:
         packed, self.dense, self.state = batch_ops.dispatch_decode(
             self.cfg, self.params, self.dense, self.pc, self.state, self.up(tables),
-            self.up(mask), steps, None, mesh=self.mesh)
+            self.up(mask), steps, self.lora if lora else None, mesh=self.mesh)
         return packed
 
     def ragged(self, tables: Any, chunk: np.ndarray, start: np.ndarray, rows: np.ndarray,
                kvcap: Any, finish: np.ndarray, new_len: np.ndarray, budgets: np.ndarray,
                stops: np.ndarray, temps: np.ndarray, topks: np.ndarray, topps: np.ndarray,
-               seeds: list, mask: np.ndarray, steps: int) -> torch.Tensor:
+               seeds: list, mask: np.ndarray, steps: int, adapters: Any) -> torch.Tensor:
+        """``adapters`` (the chunk rows' adapter slots) comes with the
+        leader's tables only: None for a dispatch that read none."""
         up = self.up
         packed, _, self.dense, self.state = batch_ops.dispatch_ragged(
             self.cfg, self.params, self.dense, self.pc, self.state, up(tables), up(chunk),
             up(start), up(rows), up(kvcap), up(finish), up(new_len), up(budgets), up(stops),
-            up(temps), up(topks), up(topps), seeds, up(mask), steps, None, None, mesh=self.mesh)
+            up(temps), up(topks), up(topps), seeds, up(mask), steps, up(adapters),
+            None if adapters is None else self.lora, mesh=self.mesh)
         return packed
 
 
@@ -518,7 +673,9 @@ class FollowerResult:
     """What :func:`serve_follower` returns: the packed blocks it ran, their
     running hash (equal to the leader's :meth:`TPLeader.digest` when no
     dispatch failed), the commands it took and the keys its prefix store
-    held at the end, on the card and in host memory."""
+    held at the end, on the card and in host memory, and a hash of this
+    rank's slabs of each entry that came in whole (``store``), by key, and
+    with ``digests=True`` of each entry its store holds at the end."""
 
     rank: int
     blocks: int
@@ -526,6 +683,8 @@ class FollowerResult:
     commands: int
     prefix_card: list = dataclasses.field(default_factory=list)
     prefix_host: list = dataclasses.field(default_factory=list)
+    imported: dict = dataclasses.field(default_factory=dict)
+    slabs: dict = dataclasses.field(default_factory=dict)
 
 
 def serve_follower(
@@ -536,6 +695,7 @@ def serve_follower(
     mesh: Any,
     device: str | torch.device | None = None,
     timeout_s: float = TIMEOUT_S,
+    digests: bool = False,
 ) -> FollowerResult:
     """Serve this rank's share of the tensor-parallel engine that the
     mesh's leader runs (``ServingEngine(..., mesh=mesh)``), until that
@@ -562,9 +722,12 @@ def serve_follower(
             for op, kw in msgs:
                 commands += 1
                 if op == "stop":
+                    store = follower.store
+                    held = ({k: slab_digest(*store.slabs(k)) for k in (*store.card, *store.host)}
+                            if digests else {})
                     return FollowerResult(me, follower.blocks, follower.digest.hexdigest(),
-                                          commands, sorted(follower.store.card),
-                                          sorted(follower.store.host))
+                                          commands, sorted(store.card), sorted(store.host),
+                                          follower.imported, held)
                 if op == "hello":
                     _check_hello(cfg, engine_config, kw)
                     follower = _Follower(cfg, params, mesh, dev, kw)

@@ -12,6 +12,18 @@ greedy tokens at tiny f32, as the reference test asks of its sharded
 engine; the prefix cache's stats, ``spec_stats`` and the int8 weights'
 slices exactly equal too.
 
+LoRA (``lora=``) is held to the reference's unsharded engine with the
+reference's ``AdapterRegistry`` and the same adapters (``make_adapter``'s
+numpy draw): exact greedy tokens. KV migration between the tp engine and
+a one-card port engine on rank 0 (the P/D handoff both ways, a chain
+over ``fetch_chain``, the reclaim evacuation both ways, a torn handoff)
+is held to the reference's unified engine's tokens; the entries that
+crossed, gathered whole, to the reference's prefill replica's entries
+within rtol 1e-5 (and atol 1e-5 of the largest magnitude: the tp
+forward sums its row-parallel products in another order); and each
+follower's slabs of an entry that came in to its heads of the sender's
+entry, bit for bit.
+
 The weight-only int8 engines serve ``quantize_params(local, mesh=)`` of
 each rank's slices and are held to the reference's unsharded
 ``quantize_params(params)`` engine; the slices themselves are held bit for
@@ -35,6 +47,7 @@ from gofr_tpu.parallel.sharding import shard_params as jshard_params
 from gofr_tpu.serving import ByteTokenizer as JByteTokenizer
 from gofr_tpu.serving import EngineConfig as JEngineConfig
 from gofr_tpu.serving import ServingEngine as JServingEngine
+from gofr_tpu.serving import lora as jlora
 from gofr_tpu_torch.parallel import world
 from test_serving_tp import _spmd_rope_partitioner_broken
 
@@ -94,6 +107,33 @@ FEATURES = {**{k: (c, p, {"kind": "prefix"}) for k, (c, p, _) in PREFIX.items()}
             **{k: (c, p, {"kind": "spill"}) for k, (c, p, _, _) in SPILL.items()},
             **{k: (c, p, {"kind": "spec"}) for k, (c, p) in SPEC.items()}}
 WORLDS = {"fsdp=2,tp=4": 8, "tp=4": 4}
+ADAPTERS = {"a": (1, 4), "b": (2, 4), "c": (3, 6)}  # id -> (make_adapter seed, rank)
+LORA = {  # each prompt: text, tokens, adapter id (None: the base model)
+    "lora_dense": (BASE, [("hello tp", 6, "a"), ("hello tp", 6, None),
+                          ("a longer prompt than the others", 6, "b")], {"batch": True}),
+    # one table slot: each adapter uploads into it between dispatches, the
+    # rank-6 one grows the tables; then a warm restart and the same again
+    "lora_swap": (PAGED, [("hello tp", 6, "a"), ("hello tp", 6, "c"), ("hello tp", 6, "a")],
+                  {"max_active": 2, "restart": True}),
+    "lora_chunked": (dict(PAGED, prefill_chunk_tokens=16),
+                     [(FOX, 6, "a"), ("a prompt longer than every prefill bucket", 6, "b")], {}),
+}
+HANDOFF = "the disaggregated system prompt xy"  # three 16-token chunks
+MIG = dict(PAGED, prefill_chunk_tokens=16, prefix_cache_entries=64)
+MIG_INT8 = dict(PAGED, kv_dtype="int8", prefix_cache_entries=64)  # whole-prompt entries only
+MIGRATION = {  # name -> (config, arc, prompts)
+    "tp_to_one": (MIG, "tp_to_one", [(HANDOFF, 5), ("short sys", 4)]),
+    "tp_to_one_int8": (MIG_INT8, "tp_to_one", [("short sys", 4)]),
+    "one_to_tp": (MIG, "one_to_tp", [(HANDOFF, 5), ("short sys", 4)]),
+    "one_to_tp_int8": (MIG_INT8, "one_to_tp", [("short sys", 4)]),
+    "chain": (dict(BASE, prefill_chunk_tokens=16, prefix_cache_entries=64), "chain",
+              [(HANDOFF, 5)]),
+    "evacuate": (MIG, "evacuate", [(HANDOFF, 5), ("short sys", 4)]),
+    "evacuate_in": (MIG, "evacuate_in", [(HANDOFF, 5)]),
+    "torn": (MIG, "torn", [(HANDOFF, 5)]),
+}
+WIDE_LORA = ("lora_dense",)  # also in the 8-rank world
+WIDE_MIGRATION = ("tp_to_one", "one_to_tp_int8")
 
 
 def _jax_mesh(spec: str) -> Mesh:
@@ -138,6 +178,39 @@ def _jax_tokens(cfg, params, conf: dict, prompts: list) -> list:
         engine.stop()
 
 
+def _jax_lora_tokens(cfg, params, conf: dict, prompts: list, max_active: int) -> list:
+    """The reference engine with the reference's registry of the same
+    adapters: each prompt alone, greedy."""
+    reg = jlora.AdapterRegistry(max_active=max_active)
+    for aid, (seed, rank) in ADAPTERS.items():
+        ad = jlora.make_adapter(cfg, aid, rank=rank, seed=seed, scale=8.0)
+        reg.register(ad)
+    engine = JServingEngine(cfg, params, JEngineConfig(**conf), JByteTokenizer(), lora=reg)
+    engine.start()
+    try:
+        return [engine.submit(p, max_new_tokens=n, temperature=0.0, adapter_id=aid)
+                .result(timeout=120).token_ids for p, n, aid in prompts]
+    finally:
+        engine.stop()
+        reg.close()
+
+
+def _jax_entries(cfg, params, conf: dict, prompts: list) -> dict:
+    """The reference prefill replica's cache entries after each prompt's
+    ``prefill_only``: {key: (logits, k, v)} as numpy."""
+    engine = JServingEngine(cfg, params, JEngineConfig(**conf, role="prefill"), JByteTokenizer())
+    engine.start()
+    try:
+        for p, _ in prompts:
+            assert engine.submit(p, max_new_tokens=1, temperature=0.0, prefill_only=True).result(
+                timeout=120).finish_reason == "handoff"
+        cache = engine._prefix_cache
+        return {key: tuple(np.asarray(leaf, np.float32) for leaf in cache.get(key))
+                for key in cache.keys()}
+    finally:
+        engine.stop()
+
+
 @pytest.fixture(scope="module")
 def world_futures(ref):
     """Both worlds started at once, off this thread, by mesh spec."""
@@ -148,8 +221,13 @@ def world_futures(ref):
     for spec, n in WORLDS.items():
         wide = spec == "fsdp=2,tp=4"
         engines = {**ENGINES, **INT8} if wide else {**ENGINES, **CHUNKED, **INT8, **FEATURES}
+        lora = {k: v for k, v in LORA.items() if not wide or k in WIDE_LORA}
+        migration = {k: v for k, v in MIGRATION.items() if not wide or k in WIDE_MIGRATION}
         inp = {"mesh": spec, "vocab": VOCAB, "params": params_np,
                "engines": [(name, *entry) for name, entry in engines.items()],
+               "adapters": ADAPTERS, "delta_rows": not wide,
+               "lora": [(name, *entry) for name, entry in lora.items()],
+               "migration": [(name, *entry) for name, entry in migration.items()],
                "http": BASE if wide else None,
                "refusals": not wide, "fail": None if wide else PAGED, "ring": not wide,
                "restart": None if wide else RESTART, "restart_lost": BASE if wide else None}
@@ -175,6 +253,12 @@ def jax_tokens(ref, world_futures):
     out["features"] = {name: _jax_run(cfg, params, conf, prompts, opt["kind"])
                        for name, (conf, prompts, opt) in FEATURES.items()}
     out["restart"] = _jax_tokens(cfg, params, *RESTART)
+    out["lora"] = {name: _jax_lora_tokens(cfg, params, conf, prompts, opt.get("max_active", 4))
+                   for name, (conf, prompts, opt) in LORA.items()}
+    out["migration"] = {name: _jax_tokens(cfg, params, conf, prompts)
+                        for name, (conf, _, prompts) in MIGRATION.items()}
+    out["entries"] = {name: _jax_entries(cfg, params, conf, prompts)
+                      for name, (conf, _, prompts) in MIGRATION.items()}
     out["exact_spmd"] = not _spmd_rope_partitioner_broken()
     if out["exact_spmd"]:
         for name, (conf, prompts) in ENGINES.items():
@@ -417,7 +501,7 @@ def test_host_ring_sums_and_gathers_exactly(worlds):
         assert {k: h for k, (_, h) in r["ring"].items()} == {k: h for k, (_, h) in cases.items()}
 
 
-@pytest.mark.parametrize("feature", ["lora", "kv_migrator", "pp"])
+@pytest.mark.parametrize("feature", ["pp"])
 def test_features_outside_the_slice_are_refused(worlds, feature):
     msg = worlds["tp=4"][0]["refusals"][feature]
     assert "tensor-parallel engine (mesh=) does not serve" in msg
@@ -439,3 +523,178 @@ def test_kv_head_placement():
     assert kv_head_slice(4, 2, mesh(1, 0)) == (0, 2)
     with pytest.raises(ValueError, match="neither split"):
         kv_head_slice(12, 3, mesh(2, 0))
+
+
+def test_kv_head_slices_take_each_head_once():
+    """``kv_head_slices`` lists each tp index's ``kv_head_slice``; where
+    ranks keep copies of a head (fewer KV heads than ranks) the gather of
+    an entry takes each head once, in head order."""
+    import types
+
+    from gofr_tpu_torch.parallel.sharding import kv_head_slice, kv_head_slices
+
+    for n_heads, n_kv, tp in ((32, 8, 4), (4, 2, 4), (8, 1, 4), (8, 8, 2)):
+        places = kv_head_slices(n_heads, n_kv, tp)
+        assert places == [kv_head_slice(n_heads, n_kv, types.SimpleNamespace(
+            shape={"tp": tp}, index=lambda axis, i=i: i)) for i in range(tp)]
+        covered = sorted({h for first, n in places for h in range(first, first + n)})
+        assert covered == list(range(n_kv))
+
+
+def test_tp_lora_delta_reads_the_whole_row(worlds):
+    """Token ids in every rank's vocabulary shard (a rank holds 80 of the
+    320 rows): on every rank the forward's lookup the delta taps is the
+    whole table's row of each id, bit for bit, and so is the delta it gives
+    and the ``embed`` command's row of the last id."""
+    for r in worlds["tp=4"]:
+        got = r["delta_rows"]
+        assert got["local_rows"] == VOCAB // 4
+        assert got["rows_equal"] and got["delta_equal"] and got["embed_row_equal"], r["rank"]
+        assert got["delta_nonzero"]
+
+
+def _lora(worlds, spec: str, name: str) -> dict:
+    ranks = worlds[spec]
+    got = ranks[0]["lora"][name]
+    assert all(tuple(r["lora"][name]["digest"]) == tuple(got["digest"]) for r in ranks[1:])
+    assert got["digest"][0] > 0 and not got["health"]["lost"] and got["pinned"] == 0
+    return got
+
+
+@pytest.mark.parametrize("spec,name", [(s, n) for s in WORLDS for n in LORA
+                                       if s == "tp=4" or n in WIDE_LORA])
+def test_tp_lora_matches_the_reference(worlds, jax_tokens, spec, name):
+    """The tp engine with an ``AdapterRegistry``: the reference engine's
+    greedy tokens with the reference's registry of the same adapters, each
+    prompt alone, on the dense and paged layouts and chunked; the rank
+    hashes equal (each follower mirrors the leader's tables)."""
+    got = _lora(worlds, spec, name)
+    assert got["tokens"] == jax_tokens["lora"][name]
+
+
+def test_tp_lora_mixed_batch(worlds, jax_tokens):
+    """Two adapters and a base row at once: the tokens of each alone, and
+    the adapter row apart from its base twin (the delta is applied)."""
+    got = _lora(worlds, "tp=4", "lora_dense")
+    assert got["together"] == got["tokens"] == jax_tokens["lora"]["lora_dense"]
+    assert got["tokens"][0] != got["tokens"][1]
+
+
+def test_tp_lora_upload_between_dispatches(worlds, jax_tokens):
+    """One table slot: each adapter uploads into it between two dispatches
+    (the rank-6 one growing the tables), and every follower replays each
+    change before the dispatch that reads it: the reference's tokens, the
+    second adapter's apart from the first's."""
+    got = _lora(worlds, "tp=4", "lora_swap")
+    assert got["tokens"] == jax_tokens["lora"]["lora_swap"]
+    assert got["tokens"][0] == got["tokens"][2] != got["tokens"][1]
+
+
+def test_tp_lora_warm_restart(worlds, jax_tokens):
+    """``warm_restart`` with a registry: every follower drops its tables
+    and takes the leader's whole again; the same tokens after."""
+    got = _lora(worlds, "tp=4", "lora_swap")
+    assert got["restarted"] and got["after"] == jax_tokens["lora"]["lora_swap"]
+
+
+def _migration(worlds, spec: str, name: str) -> tuple[dict, list]:
+    ranks = worlds[spec]
+    got = ranks[0]["migration"][name]
+    followers = [r["migration"][name] for r in ranks[1:]]
+    assert all(tuple(f["digest"]) == tuple(got["digest"]) for f in followers)
+    return got, followers
+
+
+def _close(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for key, leaves in got.items():
+        for g, w in zip(leaves, want[key]):
+            assert g.shape == w.shape, key
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * float(np.abs(w).max()))
+
+
+def _received_whole(got: dict, followers: list, jax_tokens, name: str) -> None:
+    """The entries that crossed are the reference's within the stated
+    tolerance; where the tp engine received them, each follower's slabs of
+    each are its heads of the sender's entry, bit for bit."""
+    assert set(got["sent"]) <= set(got["received"])
+    _close({k: got["received"][k] for k in got["sent"]}, jax_tokens["entries"][name])
+    if "expected" in got:
+        for f, r in zip(followers, range(1, 1 + len(followers))):
+            tp_index = r % 4  # the tp axis is the mesh's last: rank % tp
+            assert f["imported"] == {k: v[tp_index] for k, v in got["expected"].items()}
+
+
+@pytest.mark.parametrize("spec,name", [(s, n) for s in WORLDS for n in ("tp_to_one",
+                                                                       "tp_to_one_int8")
+                                       if s == "tp=4" or n in WIDE_MIGRATION])
+def test_tp_handoff_to_one_card(worlds, jax_tokens, spec, name):
+    """The tp engine as the prefill replica: ``prefill_only`` retires with
+    ``handoff``, the one-card decode replica serves with ``handoff_from``
+    and no prefill compute, the reference's tokens; what it fetched is the
+    tp engine's entries gathered whole (bf16 and int8 pools)."""
+    got, followers = _migration(worlds, spec, name)
+    assert got["tokens"] == jax_tokens["migration"][name]
+    assert set(got["finish"]) == {"handoff"} and got["handoffs"] == len(got["tokens"])
+    assert all(c == {"prefill": 0, "ragged": 0} for c in got["counts"])
+    _received_whole(got, followers, jax_tokens, name)
+
+
+@pytest.mark.parametrize("spec,name", [(s, n) for s in WORLDS for n in ("one_to_tp",
+                                                                       "one_to_tp_int8")
+                                       if s == "tp=4" or n in WIDE_MIGRATION])
+def test_tp_handoff_from_one_card(worlds, jax_tokens, spec, name):
+    """The tp engine as the decode replica: ``handoff_from`` admits with
+    zero prefill compute on every rank, the reference's tokens, and each
+    rank keeps its own heads of each entry (bf16 and int8 pools)."""
+    got, followers = _migration(worlds, spec, name)
+    assert got["tokens"] == jax_tokens["migration"][name]
+    assert got["handoffs"] == len(got["tokens"])
+    none = {"prefill": 0, "ragged": 0}
+    assert all(c == none for c in got["counts"])
+    assert all(f["counts"] == none for f in followers)
+    _received_whole(got, followers, jax_tokens, name)
+
+
+def test_tp_fetch_chain(worlds, jax_tokens):
+    """A chunk chain the one-card engine advertises, fetched by the tp
+    engine over ``fetch_chain`` (dense layout): the whole prompt admits from
+    it with no prefill dispatch on any rank, the reference's tokens."""
+    got, followers = _migration(worlds, "tp=4", "chain")
+    assert got["tokens"] == got["first"] == jax_tokens["migration"]["chain"]
+    assert got["migrations"] == 1
+    assert got["counts"] == [{"prefill": 0, "ragged": 0}]
+    assert all(f["counts"] == {"prefill": 0, "ragged": 0} for f in followers)
+    _received_whole(got, followers, jax_tokens, "chain")
+
+
+@pytest.mark.parametrize("name", ["evacuate", "evacuate_in"])
+def test_tp_reclaim_evacuation(worlds, jax_tokens, name):
+    """``begin_reclaim`` pushes the whole cache, committed, from the tp
+    engine to a one-card survivor (``evacuate``) or from a one-card engine
+    onto the tp engine (``evacuate_in``); the survivor then serves the
+    prompts with no prefill dispatch on any of its ranks, the reference's
+    tokens."""
+    got, followers = _migration(worlds, "tp=4", name)
+    ev = got["evacuation"]
+    assert ev["outcome"] == "committed" and ev["committed"] == ev["entries"] == len(got["src_keys"])
+    assert got["dst_keys"] == got["src_keys"]
+    assert got["tokens"] == got["first"] == jax_tokens["migration"][name]
+    assert got["counts"] == [{"prefill": 0, "ragged": 0}]
+    if name == "evacuate_in":
+        assert all(f["counts"] == {"prefill": 0, "ragged": 0} for f in followers)
+        assert all(set(f["card"]) == set(got["keys"]) for f in followers)
+    _received_whole(got, followers, jax_tokens, name)
+
+
+def test_tp_torn_handoff_leaves_no_partial_chain(worlds, jax_tokens):
+    """The source loses a chain's middle entry mid-handoff: the handoff
+    fails whole (no handoff counted), no rank took any entry of it, the tp
+    engine computes the prompt and serves the reference's tokens, and every
+    follower holds exactly the leader's keys."""
+    got, followers = _migration(worlds, "tp=4", "torn")
+    assert got["tokens"] == jax_tokens["migration"]["torn"] and got["handoffs"] == 0
+    assert got["counts"][0]["ragged"] > 0
+    for f in followers:
+        assert f["imported"] == {} and f["counts"]["ragged"] > 0
+        assert set(f["card"]) == set(got["keys"])

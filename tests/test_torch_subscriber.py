@@ -514,6 +514,20 @@ def _broker_fake(side, backend):
                            consumer_group="user", partitions=4))
 
 
+def _subscribed(fake, backend, topic):
+    """The fake holds the app's subscription to ``topic``. MQTT and NATS
+    drop a publish no one has subscribed to, and the app's consumer sends
+    its first SUBSCRIBE from a task of its own, which may run after the
+    app answers on HTTP: a job published before it is lost (Queue C 63).
+    The log-keeping brokers hold it for the consumer."""
+    if backend == "MQTT":
+        sess = fake._sessions.get("app")
+        return sess is not None and topic in sess.subscriptions
+    if backend == "NATS":
+        return any(sub.subject == topic for sub in list(fake._subs))
+    return True
+
+
 def _generation_app(side, models, backend="MEMORY", broker_configs=None):
     jcfg, jparams, tcfg, tparams = models
     pkg = PKGS[side]
@@ -554,6 +568,10 @@ def _serve_jobs(side, models, backend):
         for topic in ("generate.results", "generate.dlq"):
             user.subscribe(topic)  # NATS and MQTT drop what no one subscribed to
     thread = start_app(app)
+    t_end = time.monotonic() + 60  # the app's consumer subscribes before the first job
+    while fake is not None and not _subscribed(fake, backend, "generate") \
+            and time.monotonic() < t_end:
+        time.sleep(0.01)
     broker = user if user is not None else app.container.pubsub
     consumer = app.subscription_manager._consumers["generate"]
     handled = []

@@ -28,10 +28,14 @@ import torch.distributed as dist
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.models.convert import params_from_jax
 from gofr_tpu_torch.parallel import build_mesh, llama_sharding_rules, shard_params
+from gofr_tpu_torch.parallel.sharding import kv_head_slices
 from gofr_tpu_torch.serving import batch as batch_ops
+from gofr_tpu_torch.serving import prefix_index
 from gofr_tpu_torch.serving.engine import EngineConfig, ServingEngine
+from gofr_tpu_torch.serving.lora import AdapterRegistry, make_adapter
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
-from gofr_tpu_torch.serving.tp_group import TPGroupError, serve_follower
+from gofr_tpu_torch.serving.tp_group import (TPGroupError, embedding_row, serve_follower,
+                                              slab_digest)
 
 TIMEOUT_S = 120
 
@@ -55,6 +59,8 @@ def tp_world(dev: torch.device, inp: dict) -> dict:
     """The engines of ``test_torch_serving_tp.py`` on one mesh, in order:
     each of ``inp["engines"]`` serves its prompts (an optional fourth
     entry: ``"int8"`` params, ``"kind"`` ``prefix``, ``spill`` or ``spec``),
+    then the LoRA engines (``inp["lora"]``, after the delta's row check of
+    ``inp["delta_rows"]``) and the migration arcs (``inp["migration"]``),
     then (``inp["http"]``) the HTTP + gRPC load, the refusals
     (``inp["refusals"]``), a warm restart with queued requests
     (``inp["restart"]``), and last a follower that raises (``inp["fail"]``)
@@ -96,6 +102,15 @@ def tp_world(dev: torch.device, inp: dict) -> dict:
         engine = ServingEngine(cfg, params, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
                                device="cpu")
         out["engines"][name] = _serve_engine(engine, prompts, opt.get("kind"))
+    if inp.get("delta_rows"):
+        out["delta_rows"] = _delta_rows(cfg, local, mesh, inp)
+    for name, conf, prompts, opt in inp.get("lora", ()):
+        out.setdefault("lora", {})[name] = _lora_case(cfg, local, mesh, conf, prompts, opt,
+                                                      inp["adapters"])
+    for name, conf, kind, prompts in inp.get("migration", ()):
+        whole = params_from_jax(inp["params"], device="cpu") if lead else None
+        out.setdefault("migration", {})[name] = _migration_case(cfg, whole, local, mesh, conf,
+                                                                kind, prompts)
     if inp.get("http"):
         out["http"] = (_http_load(cfg, local, mesh, inp["http"]) if lead
                        else _digest(serve_follower(cfg, local, mesh=mesh, device="cpu")))
@@ -347,8 +362,6 @@ def _refusals(cfg: Any, local: dict, mesh: Any, pp_mesh: Any) -> dict:
     construction (no follower is involved: nothing reaches the group)."""
     base = dict(max_slots=2, max_seq_len=32, prefill_buckets=(16,))
     cases = {
-        "lora": ({}, {"lora": object()}, mesh),
-        "kv_migrator": ({}, {"kv_migrator": object()}, mesh),
         "pp": ({}, {}, pp_mesh),
     }
     out = {}
@@ -432,3 +445,244 @@ def loader_world(dev: torch.device, inp: dict) -> dict:
                 "wq": tuple(engine.params["layers"]["wq"].shape)}
     finally:
         engine.stop()
+
+
+# ------------------------------------------------------------------ LoRA
+def _registry(cfg: Any, adapters: dict, max_active: int) -> AdapterRegistry:
+    """A registry of ``adapters`` ({id: (seed, rank)}), drawn as the
+    reference's ``make_adapter`` draws them."""
+    reg = AdapterRegistry(max_active=max_active, device="cpu")
+    for aid, (seed, rank) in adapters.items():
+        reg.register(make_adapter(cfg, aid, rank=rank, seed=seed, scale=8.0))
+    return reg
+
+
+def _delta_rows(cfg: Any, local: dict, mesh: Any, inp: dict) -> dict:
+    """The delta's row of ids in every rank's vocabulary shard: the row the
+    forward's lookup taps equals the whole table's, bit for bit, on every
+    rank, and so does the delta it gives (``_lora_delta_rows`` against
+    ``_lora_delta`` over the whole table); this rank's own rows of the
+    table do not hold most of those ids."""
+    whole = torch.from_numpy(np.asarray(inp["params"]["embedding"]))
+    vocab = cfg.vocab_size
+    tokens = torch.tensor([0, vocab // 4 + 1, vocab // 2 + 3, vocab - 1])
+    with llama.tap_embedding() as rows:
+        llama._embed(cfg, local, tokens, mesh)
+    reg = _registry(cfg, {"a": (1, 4)}, 2)
+    try:
+        reg.acquire("a")
+        a_tab, b_tab = reg.tables()
+    finally:
+        reg.close()
+    adapter = torch.tensor([1, 1, 0, 1], dtype=torch.int32)
+    got = batch_ops._lora_delta_rows(rows[0], a_tab, b_tab, adapter)
+    want = batch_ops._lora_delta(whole, a_tab, b_tab, tokens, adapter)
+    one = embedding_row(cfg, local, vocab - 1, mesh, torch.device("cpu"))
+    return {"rows_equal": torch.equal(rows[0], whole[tokens]),
+            "delta_equal": torch.equal(got, want), "delta_nonzero": bool(got[3].any()),
+            "embed_row_equal": torch.equal(one, whole[vocab - 1]),
+            "local_rows": int(local["embedding"].shape[0])}
+
+
+def _lora_case(cfg: Any, local: dict, mesh: Any, conf: dict, prompts: list, opt: dict,
+               adapters: dict) -> dict:
+    """One tp engine with an ``AdapterRegistry`` (``opt``: ``max_active``,
+    ``batch`` to submit every prompt at once after, ``restart`` for a
+    ``warm_restart`` and the prompts again): each prompt (text, tokens,
+    adapter id or None) alone, greedy. A follower's result is its hash."""
+    if dist.get_rank() != 0:
+        return {"digest": _digest(serve_follower(cfg, local, mesh=mesh, device="cpu"))}
+    reg = _registry(cfg, adapters, opt.get("max_active", 4))
+    engine = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                           device="cpu", lora=reg)
+    engine.start()
+
+    def serve(batch: list) -> list:
+        futures = [engine.submit(p, max_new_tokens=n, temperature=0.0, adapter_id=aid)
+                   for p, n, aid in batch]
+        return [f.result(timeout=TIMEOUT_S).token_ids for f in futures]
+
+    try:
+        out = {"tokens": [serve([item])[0] for item in prompts]}
+        if opt.get("batch"):
+            out["together"] = serve(prompts)
+        if opt.get("restart"):
+            out["restarted"] = engine.warm_restart(join_timeout=TIMEOUT_S)
+            out["after"] = [serve([item])[0] for item in prompts]
+    finally:
+        engine.stop()
+        reg.close()
+    out.update(digest=engine.tp_digest(), pinned=reg.residency()["pinned_slots"],
+               health=engine.health_check()["details"]["tensor_parallel"])
+    return out
+
+
+# ------------------------------------------------------------- migration
+class _Count:
+    """Prefill computes and ragged dispatches through ``serving.batch``
+    while open, on this rank (the leader's engines and a follower alike)."""
+
+    def __init__(self) -> None:
+        self.n = {"prefill": 0, "ragged": 0}
+        self._real = {"prefill": batch_ops.prefill_compute, "ragged": batch_ops.dispatch_ragged}
+
+        def counted(name: str) -> Any:
+            def call(*args, **kw):
+                self.n[name] += 1
+                return self._real[name](*args, **kw)
+            return call
+
+        batch_ops.prefill_compute = counted("prefill")
+        batch_ops.dispatch_ragged = counted("ragged")
+
+    def close(self) -> dict:
+        batch_ops.prefill_compute = self._real["prefill"]
+        batch_ops.dispatch_ragged = self._real["ragged"]
+        return dict(self.n)
+
+
+def _entries(engine: ServingEngine, keys: list) -> dict:
+    """An engine's whole entries of ``keys`` as numpy (logits, k, v)."""
+    return {key: tuple(t.float().numpy() for t in value)
+            for key, value in engine.export_kv(keys).items()}
+
+
+def _one_card(cfg: Any, whole: dict, conf: dict, **kw: Any) -> ServingEngine:
+    return ServingEngine(cfg, whole, EngineConfig(**conf), ByteTokenizer(), device="cpu", **kw)
+
+
+def _migration_case(cfg: Any, whole: dict | None, local: dict, mesh: Any, conf: dict,
+                    kind: str, prompts: list) -> dict:
+    """One migration arc between the tp engine and a one-card engine on
+    rank 0 over the whole params (each prompt: text, tokens):
+
+    - ``tp_to_one``: the tp engine (role prefill) takes each prompt with
+      ``prefill_only``, the one-card engine (role decode) serves it with
+      ``handoff_from``; its entries are the tp engine's, gathered whole;
+    - ``one_to_tp``: the same the other way; each follower reports a hash
+      of its slabs of each entry that came in (its heads of the source's);
+    - ``chain``: the one-card engine serves, the tp engine serves the same
+      prompts again, fetching the advertised chain (``fetch_chain``);
+    - ``evacuate``: the tp engine serves, then ``begin_reclaim`` pushes its
+      cache to the one-card survivor, which serves the prompts again;
+    - ``evacuate_in``: the one-card engine serves and evacuates onto the tp
+      engine, which serves them again;
+    - ``torn``: as ``one_to_tp``, but the fetch loses a chain's middle key:
+      the handoff fails whole and the tp engine computes.
+
+    Every rank reports its prefill computes and ragged dispatches while the
+    receiving side served."""
+    count_on = kind in ("one_to_tp", "chain", "evacuate_in", "torn")  # the tp side receives
+    if dist.get_rank() != 0:
+        counter = _Count() if count_on else None
+        try:
+            res = serve_follower(cfg, local, mesh=mesh, device="cpu")
+        finally:
+            counts = counter.close() if counter is not None else None
+        return {"digest": _digest(res), "imported": res.imported, "card": res.prefix_card,
+                "counts": counts}
+    index = prefix_index.PrefixIndex()
+    serve_kw = dict(temperature=0.0)
+    out: dict = {}
+    if kind == "tp_to_one":
+        src = ServingEngine(cfg, local, EngineConfig(**conf, role="prefill"), ByteTokenizer(),
+                            mesh=mesh, device="cpu")
+        mig = prefix_index.KVMigrator("B", index)
+        dst = _one_card(cfg, whole, dict(conf, role="decode"), kv_migrator=mig)
+        mig.add_peer("A", prefix_index.local_engine_fetcher(src))
+        tp_engine = src
+    elif kind in ("one_to_tp", "torn"):
+        src = _one_card(cfg, whole, dict(conf, role="prefill"))
+        mig = prefix_index.KVMigrator("B", index)
+        dst = ServingEngine(cfg, local, EngineConfig(**conf, role="decode"), ByteTokenizer(),
+                            mesh=mesh, device="cpu", kv_migrator=mig)
+        fetch = prefix_index.local_engine_fetcher(src)
+        if kind == "torn":
+            def fetch_torn(keys: list) -> dict:  # the source lost a middle chunk mid-handoff
+                got = fetch(keys)
+                chunks = sorted((k for k in got if k.startswith("chunkpfx:")),
+                                key=lambda k: int(k.split(":")[2]))
+                if len(chunks) >= 3:
+                    got.pop(chunks[1])
+                return got
+            mig.add_peer("A", fetch_torn)
+        else:
+            mig.add_peer("A", fetch)
+        tp_engine = dst
+    elif kind == "chain":
+        src = _one_card(cfg, whole, conf)
+        mig = prefix_index.KVMigrator("B", index)
+        dst = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                            device="cpu", kv_migrator=mig)
+        mig.add_peer("A", prefix_index.local_engine_fetcher(src))
+        tp_engine = dst
+    elif kind == "evacuate":
+        mig = prefix_index.KVMigrator("A", index)
+        src = ServingEngine(cfg, local, EngineConfig(**conf, preemptible=True), ByteTokenizer(),
+                            mesh=mesh, device="cpu", kv_migrator=mig)
+        dst = _one_card(cfg, whole, conf)
+        mig.add_push_peer("S", prefix_index.local_engine_store(dst))
+        tp_engine = src
+    else:  # evacuate_in
+        mig = prefix_index.KVMigrator("A", index)
+        src = _one_card(cfg, whole, dict(conf, preemptible=True), kv_migrator=mig)
+        dst = ServingEngine(cfg, local, EngineConfig(**conf), ByteTokenizer(), mesh=mesh,
+                            device="cpu")
+        mig.add_push_peer("S", prefix_index.local_engine_store(dst))
+        tp_engine = dst
+    src.start()
+    dst.start()
+    counter = None
+    try:
+        if kind in ("tp_to_one", "one_to_tp", "torn"):
+            tokens, finish = [], []
+            for p, n in prompts:
+                r = src.submit(p, max_new_tokens=1, prefill_only=True, **serve_kw).result(
+                    timeout=TIMEOUT_S)
+                finish.append(r.finish_reason)
+                counter = _Count()
+                tokens.append(dst.submit(p, max_new_tokens=n, handoff_from="A", **serve_kw)
+                              .result(timeout=TIMEOUT_S).token_ids)
+                out.setdefault("counts", []).append(counter.close())
+                counter = None
+            out.update(tokens=tokens, finish=finish, handoffs=mig.handoffs_total)
+            sent = src.export_kv(sorted(src._prefix_cache.keys()))
+        elif kind == "chain":
+            out["first"] = _serve(src, prompts)
+            index.observe("A", 1, src.prefix_advertisement(256))
+            counter = _Count()
+            out["tokens"] = _serve(dst, prompts)
+            out["counts"] = [counter.close()]
+            counter = None
+            out["migrations"] = mig.migrations_total
+            sent = src.export_kv(sorted(src._prefix_cache.keys()))
+        else:
+            out["first"] = _serve(src, prompts)
+            src_keys = sorted(src._prefix_cache.keys())
+            sent = src.export_kv(src_keys)
+            summary = src.begin_reclaim(60.0)
+            out["evacuation"] = summary["evacuation"]
+            out["src_keys"], out["dst_keys"] = src_keys, sorted(dst._prefix_cache.keys())
+            counter = _Count()
+            out["tokens"] = _serve(dst, prompts)
+            out["counts"] = [counter.close()]
+            counter = None
+        # the entries the receiving side holds, whole, and the sender's
+        out["keys"] = sorted(dst._prefix_cache.keys())
+        out["received"] = _entries(dst, out["keys"])
+        out["sent"] = {key: tuple(t.float().numpy() for t in value)
+                       for key, value in sent.items()}
+        if tp_engine is dst:
+            # what each follower should hold of each entry that came in: its
+            # heads of the sender's entry, by tp index
+            places = kv_head_slices(cfg.n_heads, cfg.n_kv_heads, mesh.shape["tp"])
+            out["expected"] = {
+                key: [slab_digest(k[:, :, f:f + c], v[:, :, f:f + c]) for f, c in places]
+                for key, (_, k, v) in sent.items()}
+    finally:
+        if counter is not None:
+            counter.close()
+        src.stop()
+        dst.stop()
+    out["digest"] = tp_engine.tp_digest()
+    return out

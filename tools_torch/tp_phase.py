@@ -3,8 +3,10 @@
 widths and full depth (tp=4), TP-B with the bf16 path's config behind an
 App over HTTP and gRPC, TP-Q with the int8 path's (chunked prefill) and
 TP-W8 with the dense-w8 path's (weight-only int8 params), each held to one
-card, and TP-R (the prefix cache with its spill tier, ``warm_restart`` and
-speculative decoding at ``PLANE_DEPTH`` layers).
+card, TP-R (the prefix cache with its spill tier, ``warm_restart`` and
+speculative decoding at ``PLANE_DEPTH`` layers), TP-L (LoRA adapters) and
+TP-M (KV migration with a one-card engine: the P/D handoff both ways and
+the reclaim evacuation), both at ``PLANE_DEPTH`` layers.
 
     python3 tools_torch/tp_phase.py
 
